@@ -1,0 +1,62 @@
+"""Synthetic depth scenes with analytic ground truth (numpy copy of
+``scene_depth`` and ``orbit_pose`` from ``dynamicfusion_tpu.io.synthetic``).
+Depth maps are uint16 millimeters."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dynamicfusion_tpu_torch.config import Intrinsics
+
+
+def scene_depth(
+    intr: Intrinsics,
+    rows: int,
+    cols: int,
+    pose_c2w: np.ndarray | None = None,
+    spheres=(),
+    plane_z: float | None = None,
+) -> np.ndarray:
+    """Union of spheres plus an optional world plane z = plane_z, rendered
+    analytically (exact z-depth) from a camera-to-world pose."""
+    if pose_c2w is None:
+        pose_c2w = np.eye(4)
+    pose_c2w = np.asarray(pose_c2w, np.float64)
+    r, pos = pose_c2w[:3, :3], pose_c2w[:3, 3]
+
+    u, v = np.meshgrid(np.arange(cols, dtype=np.float64), np.arange(rows, dtype=np.float64))
+    d_cam = np.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy, np.ones_like(u)], -1)
+    d_w = d_cam @ r.T  # unnormalized; depth = t for p = pos + t * d_w
+
+    z = np.full((rows, cols), np.inf)
+    for sp in spheres:
+        c = np.asarray(sp["center"], np.float64) - pos
+        a = np.sum(d_w * d_w, axis=-1)
+        b = -2.0 * (d_w @ c)
+        cc = float(c @ c) - sp["radius"] ** 2
+        disc = b * b - 4 * a * cc
+        t = np.where(disc >= 0, (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a), np.inf)
+        z = np.minimum(z, np.where(t > 0, t, np.inf))
+    if plane_z is not None:
+        t = (plane_z - pos[2]) / np.where(np.abs(d_w[..., 2]) > 1e-12, d_w[..., 2], 1e-12)
+        z = np.minimum(z, np.where(t > 0, t, np.inf))
+    z = np.where(np.isfinite(z), z, 0.0)
+    return np.clip(z * 1000.0, 0, 65535).astype(np.uint16)
+
+
+def orbit_pose(angle: float, target=(0.0, 0.0, 1.0), dist: float | None = None) -> np.ndarray:
+    """Camera-to-world pose on a circle about the world y axis through
+    ``target``, looking at it; angle 0 with dist = |target| is the identity."""
+    tgt = np.asarray(target, np.float64)
+    if dist is None:
+        dist = float(np.linalg.norm(tgt))
+    pos = tgt + dist * np.array([np.sin(angle), 0.0, -np.cos(angle)])
+    fwd = tgt - pos
+    fwd /= np.linalg.norm(fwd)
+    up = np.array([0.0, -1.0, 0.0])  # camera y points down (image v grows down)
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right)
+    up2 = np.cross(fwd, right)
+    m = np.eye(4)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = right, up2, fwd, pos
+    return m.astype(np.float32)

@@ -30,3 +30,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")

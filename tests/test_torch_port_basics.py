@@ -1,0 +1,225 @@
+"""The PyTorch port's package rules and its copies of JAX-package code.
+
+The port (``dynamicfusion_tpu_torch``) imports neither JAX nor the JAX
+package; it keeps its own copies of the config, the volume codec and the
+synthetic scenes, which must stay identical to the originals. Inputs are
+made with numpy from a seed and handed to both packages.
+"""
+
+import ast
+import dataclasses
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamicfusion_tpu import config as jconfig
+from dynamicfusion_tpu.io import synthetic as jsyn
+from dynamicfusion_tpu.models import volume as jvolume
+from dynamicfusion_tpu.pipeline import kinfu as jkinfu
+from dynamicfusion_tpu_torch import config as tconfig
+from dynamicfusion_tpu_torch import device as tdevice
+from dynamicfusion_tpu_torch import interop, kernels
+from dynamicfusion_tpu_torch.core import compact
+from dynamicfusion_tpu_torch.io import synthetic as tsyn
+from dynamicfusion_tpu_torch.models import volume as tvolume
+from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "dynamicfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "dynamicfusion_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
+
+
+PRESETS = [
+    ("default", lambda c: c()),
+    ("default_dynamicfusion", lambda c: c.default_dynamicfusion()),
+    ("quality_dynamicfusion", lambda c: c.quality_dynamicfusion()),
+    ("reference_parity", lambda c: c.reference_parity()),
+    ("default_kinfu", lambda c: c.default_kinfu()),
+    ("small", lambda c: c.small()),
+    ("small_32_60_80", lambda c: c.small(dims=32, rows=60, cols=80)),
+]
+
+
+@pytest.mark.parametrize("name,make", PRESETS, ids=[p[0] for p in PRESETS])
+def test_config_copy_matches_field_by_field(name, make):
+    j = make(jconfig.DynamicFusionConfig)
+    t = make(tconfig.DynamicFusionConfig)
+    jf = [f.name for f in dataclasses.fields(j)]
+    assert jf == [f.name for f in dataclasses.fields(t)]
+    for f in jf:
+        jv, tv = getattr(j, f), getattr(t, f)
+        if f == "intr":
+            assert dataclasses.astuple(jv) == dataclasses.astuple(tv)
+        else:
+            assert jv == tv and type(jv) is type(tv), f"{name}.{f}: {jv!r} != {tv!r}"
+    for prop in ("voxel_size", "raycast_shift", "track_levels"):
+        assert getattr(j, prop) == getattr(t, prop)
+    for lvl in range(4):
+        assert dataclasses.astuple(j.intr.level(lvl)) == dataclasses.astuple(t.intr.level(lvl))
+
+
+def test_rigid_slice_preset_is_the_rigid_bench_config():
+    j = dataclasses.replace(
+        jconfig.DynamicFusionConfig.default_dynamicfusion(), rigid_only=True, raycast_refine="secant"
+    )
+    t = tconfig.DynamicFusionConfig.rigid_slice()
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+
+
+@pytest.mark.parametrize(
+    "bad", [dict(volume_dims=48), dict(brick_size=24), dict(raycast_subsample=3), dict(tsdf_dtype="f16")]
+)
+def test_config_copy_rejects_what_the_original_rejects(bad):
+    with pytest.raises((AssertionError, ValueError)):
+        jconfig.DynamicFusionConfig(**bad)
+    with pytest.raises(ValueError):
+        tconfig.DynamicFusionConfig(**bad)
+
+
+def test_volume_codec_bit_exact():
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1.2, 1.2, 20000).astype(np.float32)
+    # exact half-way codes: round half to even must agree
+    ties = ((np.arange(-200, 200) + 0.5) / 32767.0).astype(np.float32)
+    x = np.concatenate([x, ties, np.float32([-1.0, 1.0, 0.0])])
+    jt = np.asarray(jvolume.encode_tsdf(jnp.asarray(x), jnp.int16))
+    tt = tvolume.encode_tsdf(torch.from_numpy(x), torch.int16).numpy()
+    np.testing.assert_array_equal(jt, tt)
+    np.testing.assert_array_equal(
+        np.asarray(jvolume.decode_tsdf(jnp.asarray(jt))).view(np.int32),
+        tvolume.decode_tsdf(torch.from_numpy(tt)).numpy().view(np.int32),
+    )
+    # weights up to past the 64 cap (64 * 512 = 32768 does not fit int16), with ties
+    w = np.concatenate([
+        rng.uniform(-1.0, 130.0, 20000),
+        (np.arange(0, 400) + 0.5) / 512.0,
+        [64.0, 64.0 + 1 / 512.0, 127.998046875, 200.0],
+    ]).astype(np.float32)
+    jw = np.asarray(jvolume.encode_weight(jnp.asarray(w), jnp.uint16))
+    tw = tvolume.encode_weight(torch.from_numpy(w), torch.uint16)
+    assert tw.dtype == torch.uint16
+    np.testing.assert_array_equal(jw, tw.numpy())
+    assert tw.numpy().max() == 65535 and (tw.numpy() == 32768).any()
+    np.testing.assert_array_equal(
+        np.asarray(jvolume.decode_weight(jnp.asarray(jw))).view(np.int32),
+        tvolume.decode_weight(tw).numpy().view(np.int32),
+    )
+    cfg = tconfig.DynamicFusionConfig.small()
+    assert tvolume.trunc_dist(cfg) == jvolume.trunc_dist(jconfig.DynamicFusionConfig.small())
+
+
+def test_synthetic_copy_matches():
+    cfg = jconfig.DynamicFusionConfig.small()
+    scene = dict(spheres=[dict(center=(0.05, -0.02, 0.9), radius=0.2)], plane_z=1.2)
+    for angle in (0.0, 0.03, -0.11):
+        jp = jsyn.orbit_pose(angle, target=(0.0, 0.0, 0.9))
+        tp = tsyn.orbit_pose(angle, target=(0.0, 0.0, 0.9))
+        np.testing.assert_array_equal(jp, tp)
+        np.testing.assert_array_equal(
+            jsyn.scene_depth(cfg.intr, cfg.rows, cfg.cols, jp, **scene),
+            tsyn.scene_depth(tconfig.DynamicFusionConfig.small().intr, cfg.rows, cfg.cols, tp, **scene),
+        )
+
+
+def test_first_true_is_static_nonzero():
+    rng = np.random.RandomState(3)
+    for n, size, p in ((1000, 64, 0.02), (1000, 64, 0.5), (37, 50, 0.3), (10, 4, 0.0)):
+        m = rng.rand(n) < p
+        (ref,) = np.asarray(jnp.nonzero(jnp.asarray(m), size=size, fill_value=-1))
+        got = compact.first_true(torch.from_numpy(m), size).numpy()
+        np.testing.assert_array_equal(ref, got)
+
+
+def test_interop_round_trip_keeps_dtypes():
+    jcfg = jconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80)
+    js = jax.tree_util.tree_map(np.asarray, jkinfu.init_state(jcfg))
+    rng = np.random.RandomState(1)
+    vol = js.vol._replace(
+        tsdf=rng.randint(-32767, 32768, js.vol.tsdf.shape).astype(np.int16),
+        weight=rng.randint(0, 65536, js.vol.weight.shape).astype(np.uint16),
+    )
+    js = js._replace(vol=vol, pose=rng.randn(4, 4).astype(np.float32), frame_idx=np.int32(7))
+    ts = interop.state_from_numpy(js, "cpu")
+    assert ts.vol.tsdf.dtype == torch.int16 and ts.vol.weight.dtype == torch.uint16
+    back = interop.state_to_numpy(ts)
+    flat_j = jax.tree_util.tree_leaves(js)
+    flat_b = jax.tree_util.tree_leaves(
+        (back["vol"]["tsdf"], back["vol"]["weight"], *back["warp"].values(), back["pose"],
+         back["prev_points"], back["prev_normals"], back["can_points"], back["can_normals"],
+         back["frame_idx"])
+    )
+    assert len(flat_j) == len(flat_b)
+    for a, b in zip(flat_j, flat_b):
+        a = np.asarray(a)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_cuda_is_the_default_device():
+    if torch.cuda.is_available():
+        assert tdevice.resolve().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="is_available"):
+        tdevice.resolve()
+    with pytest.raises(RuntimeError, match="is_available"):
+        tkinfu.DynamicFusion(tconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80))
+    assert tdevice.resolve("cpu").type == "cpu"
+
+
+def test_non_rigid_step_is_not_in_this_slice():
+    cfg = tconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80)
+    assert not cfg.rigid_only
+    state = tkinfu.init_state(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="non-rigid step: next slice"):
+        tkinfu.step(cfg, state, torch.zeros((60, 80), dtype=torch.uint16))
+
+
+WRAPPER_CALLS = {
+    "bilateral": lambda: kernels.bilateral_filter(torch.zeros((8, 8), dtype=torch.uint16), 7, 4.5, 0.04),
+    "icp_reduce": lambda: kernels.icp_build_system(
+        tconfig.DynamicFusionConfig.small().intr, torch.eye(4), *(torch.zeros((4, 4, 3)),) * 4, 0.01, 0.8
+    ),
+    "raycast": lambda: kernels.march_and_refine(
+        torch.zeros((32, 32, 32), dtype=torch.int16), torch.zeros(3), torch.zeros((4, 3)),
+        torch.zeros(4), torch.ones(4), 0.03, 0.03, 10, True,
+    ),
+    "fuse_bricks": lambda: kernels.fuse_bricks(
+        torch.zeros((32, 32, 32), dtype=torch.int16), torch.zeros((32, 32, 32), dtype=torch.uint16),
+        torch.zeros((8, 8)), torch.zeros((3, 3, 3, 3)), *(torch.zeros(8, dtype=torch.int32),) * 2,
+        torch.zeros(1, dtype=torch.int32), torch.ones((), dtype=torch.bool),
+        *(torch.zeros(8, dtype=torch.int32),) * 2,
+        brick=16, stride=16, intr=tconfig.DynamicFusionConfig.small().intr, rect=8, trunc=0.04,
+        max_weight=64.0,
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPER_CALLS))
+def test_kernel_wrappers_refuse_cpu_tensors(name):
+    """A wrapper launches its kernel or raises: CPU tensors never fall back."""
+    assert name in kernels.KERNELS
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        WRAPPER_CALLS[name]()
+    assert kernels.launches == before
