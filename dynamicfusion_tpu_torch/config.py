@@ -260,3 +260,10 @@ class DynamicFusionConfig:
         return dataclasses.replace(
             cls.default_dynamicfusion(), rigid_only=True, raycast_refine="secant"
         )
+
+    @classmethod
+    def nonrigid_slice(cls) -> "DynamicFusionConfig":
+        """The non-rigid DynamicFusion slice at 640x480 / 256^3 / 1024 nodes:
+        the dynamicfusion preset with the secant refine (the base default)
+        in place of newton8, which the port does not have yet."""
+        return dataclasses.replace(cls.default_dynamicfusion(), raycast_refine="secant")

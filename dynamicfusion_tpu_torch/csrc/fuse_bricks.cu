@@ -2,8 +2,10 @@
 //
 // Replaces the fuse of dynamicfusion_tpu/ops/bricks.py:552
 // integrate_bricks (front rows :665-670, the band loop :685-725 with its
-// one-hot window matmuls :509-549, the wide gather :727-753), with the
-// rigid arguments (unit observation weight, no phase split). On the TPU
+// one-hot window matmuls :509-549, the wide gather :727-753) and its row
+// update _fuse_rows :400-432 with the non-rigid arguments q_grid (:575,
+// :654) and conf (:363-397); the phase split (:598-618) selects bricks in
+// ops/bricks.py plan. On the TPU
 // the listed bricks are transposed out of the volume into brick-major
 // rows, fused and transposed back; band depths are selected from a
 // 128x128 window by one-hot matmuls.
@@ -24,6 +26,15 @@
 // dists[v, u] directly (the one-hot window lookup selects exactly that
 // value) under the same `inb & inw` window mask; the update rule and the
 // half-to-even encodes are bricks._fuse_rows / _fuse_front_rows.
+// Non-rigid fusion passes three more inputs: a per-grid-point observation
+// weight (the warp's blend quality), prolonged as a fourth channel with
+// the positions and gating the voxel at > q_min; a lookup image that
+// packs depth and incidence confidence into one exact-integer float
+// (bricks.pack_depth_conf: the voxel sees the depth quantized to 0.25 mm
+// and 16 confidence levels, as in the JAX package), unpacked per voxel
+// into the incidence weight max(conf, floor) and the SDF scale
+// clip(conf, 0.25, 1). Without them the weight is 1 and the update is the
+// rigid one, bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -40,7 +51,8 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
                    const int* __restrict__ count, const bool* __restrict__ ok,
                    const int* __restrict__ u0s, const int* __restrict__ v0s, int d, int b,
                    int g, int rows, int cols, float fx, float fy, float cx, float cy, int rect,
-                   float trunc, float max_w, float tsdf_decode) {
+                   float trunc, float max_w, float tsdf_decode, const float* __restrict__ qgrid,
+                   float q_min, int packed, float inc_floor, int sdf_scale) {
   if (!*ok || static_cast<int>(blockIdx.x) >= *count) return;
   const int brick = ids[blockIdx.x];
   const int kind = kinds[blockIdx.x];
@@ -68,17 +80,22 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
     const float fj = static_cast<float>(vy % g) / static_cast<float>(g);
     const float fk = static_cast<float>(vz % g) / static_cast<float>(g);
     const int gi = bi * per + ci, gj = bj * per + cj, gk = bk * per + ck;
-    float pos[3];
+    const int nch = qgrid != nullptr ? 4 : 3;
+    float pos[4] = {0.0f, 0.0f, 0.0f, 1.0f};
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
+    for (int ch = 0; ch < 4; ++ch) {
+      if (ch >= nch) break;
+      const float* src = ch < 3 ? grid : qgrid;
+      const int stride = ch < 3 ? 3 : 1;
+      const int off = ch < 3 ? ch : 0;
       float f2[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         float f1[2];
 #pragma unroll
         for (int bb = 0; bb < 2; ++bb) {
-          const float p0 = __ldg(grid + ((static_cast<size_t>(gi) * gp + gj + bb) * gp + gk + c) * 3 + ch);
-          const float p1 = __ldg(grid + ((static_cast<size_t>(gi + 1) * gp + gj + bb) * gp + gk + c) * 3 + ch);
+          const float p0 = __ldg(src + ((static_cast<size_t>(gi) * gp + gj + bb) * gp + gk + c) * stride + off);
+          const float p1 = __ldg(src + ((static_cast<size_t>(gi + 1) * gp + gj + bb) * gp + gk + c) * stride + off);
           f1[bb] = p0 * (1.0f - fi) + p1 * fi;
         }
         f2[c] = f1[0] * (1.0f - fj) + f1[1] * fj;
@@ -99,12 +116,30 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
       inw = (vi - v0 == ri) && (ui - u0 == cj2);
     }
     const float rdist = sqrtf(x * x + y * y + z * z);
-    const float dp = __ldg(dists + vi * cols + ui);
+    const float look = __ldg(dists + vi * cols + ui);
+    float dp = look, conf = 0.0f;
+    if (packed) {
+      const float dq = floorf(look / 16.0f);
+      conf = (look - dq * 16.0f) / 15.0f;
+      dp = dq / 4000.0f;
+    }
     const float psdf = dp - rdist;
-    if (inb && inw && dp != 0.0f && psdf >= -trunc) {
-      const float obs = fminf(psdf / trunc, 1.0f);
-      tsdf[addr] = dfk::encode_tsdf((t32 * w32 + obs) / (w32 + 1.0f));
-      weight[addr] = dfk::encode_weight(fminf(w32 + 1.0f, max_w));
+    bool update = inb && inw && dp != 0.0f && psdf >= -trunc;
+    float q = 1.0f;
+    if (qgrid != nullptr) {
+      update = update && pos[3] > q_min;
+      q = pos[3];
+    }
+    float scale = 1.0f;
+    if (packed) {
+      q = q * (conf > 0.0f ? fmaxf(conf, inc_floor) : 0.0f);
+      if (sdf_scale) scale = conf > 0.0f ? fminf(fmaxf(conf, 0.25f), 1.0f) : 1.0f;
+    }
+    if (update) {
+      const float obs = fminf(psdf * scale / trunc, 1.0f);
+      const float wq = w32 + q;
+      if (wq > 1e-12f) tsdf[addr] = dfk::encode_tsdf((t32 * w32 + obs * q) / fmaxf(wq, 1e-12f));
+      weight[addr] = dfk::encode_weight(fminf(wq, max_w));
     }
   }
 }
@@ -116,6 +151,7 @@ extern "C" int df_fuse_bricks(void* tsdf, void* weight, const void* dists, const
                               const void* ok, const void* u0, const void* v0, int d, int b,
                               int g, int rows, int cols, int nbr, float fx, float fy, float cx,
                               float cy, int rect, float trunc, float max_w, float tsdf_decode,
+                              const void* qgrid, float q_min, int packed, float inc_floor, int sdf_scale,
                               void* stream) {
   if (nbr > 0) {
     fuse_bricks_kernel<<<nbr, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -124,7 +160,8 @@ extern "C" int df_fuse_bricks(void* tsdf, void* weight, const void* dists, const
         static_cast<const int*>(ids), static_cast<const int*>(kinds),
         static_cast<const int*>(count), static_cast<const bool*>(ok),
         static_cast<const int*>(u0), static_cast<const int*>(v0), d, b, g, rows, cols, fx, fy,
-        cx, cy, rect, trunc, max_w, tsdf_decode);
+        cx, cy, rect, trunc, max_w, tsdf_decode, static_cast<const float*>(qgrid), q_min, packed, inc_floor,
+        sdf_scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -60,3 +60,17 @@ def orbit_pose(angle: float, target=(0.0, 0.0, 1.0), dist: float | None = None) 
     m = np.eye(4)
     m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = right, up2, fwd, pos
     return m.astype(np.float32)
+
+
+def deforming_frames(intr: Intrinsics, rows: int, cols: int, n: int) -> list:
+    """``bench.py``'s deforming scene seen by a static camera: a large
+    sphere and a small one over the plane z = 1.25, the small one
+    oscillating by 8 mm (x = 0.2 + 0.008 sin(0.4 t))."""
+    return [
+        scene_depth(
+            intr, rows, cols, plane_z=1.25,
+            spheres=[dict(center=(0.0, 0.0, 0.95), radius=0.22),
+                     dict(center=(0.2 + 0.008 * np.sin(0.4 * t), 0.1, 0.8), radius=0.1)],
+        )
+        for t in range(n)
+    ]

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +31,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu")
-HEADERS = ("common.cuh",)
+SOURCES = (
+    "bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu",
+    "knn_blend.cu", "data_term.cu", "pcg.cu", "insert_nodes.cu",
+)
+HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -42,7 +45,13 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("bilateral", "icp_reduce", "raycast", "fuse_bricks")
+# one launch counter per wrapper; a wrapper's kernel is the letter in its
+# docstring (A-D the rigid slice, E-H the non-rigid one)
+KERNELS = (
+    "bilateral", "icp_reduce", "raycast", "fuse_bricks",
+    "knn_blend", "mutual_nearest", "warp_trilinear", "data_term",
+    "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
+)
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _lib: Optional[ctypes.CDLL] = None
@@ -58,8 +67,18 @@ _SIGNATURES = {
     "df_raycast": (_P, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _F, _P, _P, _P, _P),
     "df_fuse_bricks": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P,
+        _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
     ),
+    "df_knn_blend": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
+    "df_warp_trilinear": (_P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
+    "df_data_term": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
+    "df_edge_term": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "df_spd6_inv": (_P, _I, _P, _P),
+    "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "df_pcg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
+    "df_insert_select": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P),
+    "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P),
 }
 
 
@@ -311,11 +330,18 @@ def fuse_bricks(
     rect: int,
     trunc: float,
     max_weight: float,
+    q_grid: Optional[torch.Tensor] = None,
+    q_min: float = 0.0,
+    packed: bool = False,
+    incidence_floor: float = 0.0,
+    sdf_scale: bool = False,
 ) -> None:
     """Kernel D (csrc/fuse_bricks.cu): front/band/wide brick updates IN
     PLACE on the int16 tsdf and uint16 weight volumes, one block per work
     slot; slots at or past ``count[0]`` and every slot when ``ok`` is False
-    do nothing."""
+    do nothing. ``dists`` is the depth image, or with ``packed`` the packed
+    depth+confidence image; ``q_grid`` the optional (G, G, G) observation
+    weight prolonged with the grid."""
     d = tsdf.shape[0]
     if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1 or d % brick or brick % stride:
         raise ValueError(f"tsdf: bad volume {tuple(tsdf.shape)} for brick {brick}, stride {stride}")
@@ -334,6 +360,9 @@ def fuse_bricks(
     _check(u0, "u0", torch.int32, (nbr,))
     _check(v0, "v0", torch.int32, (nbr,))
     _same_device(tsdf, weight, dists, cam_grid, ids, kind, count, ok, u0, v0)
+    if q_grid is not None:
+        _check(q_grid, "q_grid", torch.float32, (gp, gp, gp))
+        _same_device(tsdf, q_grid)
     lib = load()
     rows, cols = dists.shape
     rc = lib.df_fuse_bricks(
@@ -342,6 +371,335 @@ def fuse_bricks(
         u0.data_ptr(), v0.data_ptr(),
         d, brick, stride, rows, cols, nbr,
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), rect,
-        _f32(trunc), _f32(max_weight), _f32(1.0 / 32767.0), _stream(tsdf.device),
+        _f32(trunc), _f32(max_weight), _f32(1.0 / 32767.0),
+        None if q_grid is None else q_grid.data_ptr(), _f32(q_min), int(packed), _f32(incidence_floor),
+        int(sdf_scale), _stream(tsdf.device),
     )
     _done("fuse_bricks", rc)
+
+
+# --------------------------------------------------------------------------
+# kernel E: KNN, DQB blend, warps
+# --------------------------------------------------------------------------
+
+
+def _check_field(positions, active, radius, dq) -> int:
+    _check(positions, "positions", torch.float32)
+    n = positions.shape[0]
+    if positions.dim() != 2 or positions.shape[1] != 3:
+        raise ValueError(f"positions: expected (N, 3), got {tuple(positions.shape)}")
+    _check(active, "active", torch.bool, (n,))
+    if radius is not None:
+        _check(radius, "radius", torch.float32, (n,))
+    if dq is not None:
+        _check(dq, "dq", torch.float32, (n, 8))
+    return n
+
+
+def _check_points(t: torch.Tensor, name: str) -> int:
+    _check(t, name, torch.float32)
+    if t.dim() != 2 or t.shape[1] != 3:
+        raise ValueError(f"{name}: expected (Q, 3), got {tuple(t.shape)}")
+    return t.shape[0]
+
+
+def knn_blend(positions, active, radius, dq, queries, k: int, blend: bool = False, warp: bool = False, normals=None):
+    """Kernel E (csrc/knn_blend.cu): (d2 (Q, k), idx (Q, k) int64, w (Q, k),
+    blend (Q, 8) | None, quality (Q,) | None, warped points (Q, 3) | None,
+    rotated normals (Q, 3) | None). ``blend`` asks for the blend and its
+    quality, ``warp`` for the warped queries (and ``normals``)."""
+    n = _check_field(positions, active, radius, dq)
+    nq = _check_points(queries, "queries")
+    if k not in (5, 8) or n < k:
+        raise ValueError(f"knn: k must be 5 or 8 and at most the node count {n}, got {k}")
+    if normals is not None:
+        _check(normals, "normals", torch.float32, queries.shape)
+        if not warp:
+            raise ValueError("normals are only warped with warp=True")
+    _same_device(positions, active, radius, dq, queries, *([normals] if normals is not None else []))
+    lib = load()
+    dev = queries.device
+    d2 = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    w = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    b = torch.empty((nq, 8), dtype=torch.float32, device=dev) if blend else None
+    q = torch.empty((nq,), dtype=torch.float32, device=dev) if blend else None
+    wp = torch.empty((nq, 3), dtype=torch.float32, device=dev) if warp else None
+    wn = torch.empty((nq, 3), dtype=torch.float32, device=dev) if normals is not None else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.df_knn_blend(
+        positions.data_ptr(), active.data_ptr(), radius.data_ptr(), dq.data_ptr(), n,
+        queries.data_ptr(), ptr(normals), nq, k, d2.data_ptr(), idx.data_ptr(), w.data_ptr(),
+        ptr(b), ptr(q), ptr(wp), ptr(wn), _stream(dev),
+    )
+    _done("knn_blend", rc)
+    return d2, idx, w, b, q, wp, wn
+
+
+def mutual_nearest(positions, active, candidates, valid):
+    """Kernel E: (per-candidate squared distance to the nearest active node
+    (C,), per-node squared distance to the nearest valid candidate (N,)),
+    both clamped at 0; nodes with no valid candidate read 1e9."""
+    n = _check_field(positions, active, None, None)
+    nc = _check_points(candidates, "candidates")
+    _check(valid, "valid", torch.bool, (nc,))
+    _same_device(positions, active, candidates, valid)
+    lib = load()
+    dev = candidates.device
+    cand_d2 = torch.empty((nc,), dtype=torch.float32, device=dev)
+    bits = torch.empty((n,), dtype=torch.int32, device=dev)
+    node_d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    rc = lib.df_mutual_nearest(
+        positions.data_ptr(), active.data_ptr(), n, candidates.data_ptr(), valid.data_ptr(), nc,
+        cand_d2.data_ptr(), bits.data_ptr(), node_d2.data_ptr(), _stream(dev),
+    )
+    _done("mutual_nearest", rc)
+    return cand_d2, node_d2
+
+
+def warp_trilinear(dq_grid, points, normals, origin, cell: float):
+    """Kernel E: points (and normals) warped by the trilinear DQB blend of
+    the (Dc, Dc, Dc, 8) coarse grid; NaN inputs pass through."""
+    if dq_grid.dim() != 4 or dq_grid.shape[-1] != 8 or len(set(dq_grid.shape[:3])) != 1:
+        raise ValueError(f"dq_grid: expected (Dc, Dc, Dc, 8), got {tuple(dq_grid.shape)}")
+    _check(dq_grid, "dq_grid", torch.float32)
+    nq = _check_points(points, "points")
+    _check(normals, "normals", torch.float32, points.shape)
+    _same_device(dq_grid, points, normals)
+    lib = load()
+    wp = torch.empty_like(points)
+    wn = torch.empty_like(normals)
+    rc = lib.df_warp_trilinear(
+        dq_grid.data_ptr(), dq_grid.shape[0], points.data_ptr(), normals.data_ptr(), nq,
+        _f32(origin[0]), _f32(origin[1]), _f32(origin[2]), _f32(cell), wp.data_ptr(), wn.data_ptr(),
+        _stream(points.device),
+    )
+    _done("warp_trilinear", rc)
+    return wp, wn
+
+
+# --------------------------------------------------------------------------
+# kernel F: data term
+# --------------------------------------------------------------------------
+
+
+def _check_lists(order, off, m: int, n: int) -> None:
+    _check(order, "order", torch.int32, (m,))
+    _check(off, "off", torch.int32, (n + 1,))
+
+
+def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tukey_c: float, system: bool):
+    """Kernel F (csrc/data_term.cu): (Jᵀr (6N,), cost (), bf16 rows
+    (P, 8, 6) | None, diagonal blocks (N, 6, 6) | None) of the Tukey-
+    weighted point-to-plane term at eps = 0; the rows and blocks only with
+    ``system``."""
+    np_ = _check_points(p_can, "p_can")
+    for t, nm in ((p_live, "p_live"), (n_live, "n_live")):
+        _check(t, nm, torch.float32, (np_, 3))
+    _check(valid, "valid", torch.bool, (np_,))
+    _check(knn_idx, "knn_idx", torch.int64, (np_, 8))
+    _check(w_knn, "w_knn", torch.float32, (np_, 8))
+    _check(dqs, "dqs", torch.float32)
+    n = dqs.shape[0]
+    if dqs.shape != (n, 8):
+        raise ValueError(f"dqs: expected (N, 8), got {tuple(dqs.shape)}")
+    _check_lists(order, off, np_ * 8, n)
+    _same_device(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off)
+    lib = load()
+    dev = dqs.device
+    jac = torch.empty((np_, 8, 6), dtype=torch.float32, device=dev)
+    rows = torch.empty((np_, 8, 6), dtype=torch.bfloat16, device=dev) if system else None
+    rw = torch.empty((np_,), dtype=torch.float32, device=dev)
+    rho = torch.empty((np_,), dtype=torch.float32, device=dev)
+    jtr = torch.empty((6 * n,), dtype=torch.float32, device=dev)
+    blocks = torch.empty((n, 6, 6), dtype=torch.float32, device=dev) if system else None
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    rc = lib.df_data_term(
+        p_can.data_ptr(), p_live.data_ptr(), n_live.data_ptr(), valid.data_ptr(), knn_idx.data_ptr(),
+        w_knn.data_ptr(), dqs.data_ptr(), np_, n, order.data_ptr(), off.data_ptr(),
+        _f32(tukey_c), _f32(tukey_c * tukey_c / 6.0), jac.data_ptr(),
+        None if rows is None else rows.data_ptr(), rw.data_ptr(), rho.data_ptr(), jtr.data_ptr(),
+        None if blocks is None else blocks.data_ptr(), cost.data_ptr(), _stream(dev),
+    )
+    _done("data_term", rc)
+    return jtr, cost, rows, blocks
+
+
+# --------------------------------------------------------------------------
+# kernel G: edge term, spd6_inv, matvec, PCG
+# --------------------------------------------------------------------------
+
+
+def edge_term(dqs, e_src, e_dst, e_valid, v_dst, alpha, e_order, e_off, lam: float, delta: float):
+    """Kernel G's edge entry (csrc/pcg.cu): (Jᵀr (6N,), cost (), h_ii,
+    h_jj, h_ij (E, 6, 6), diagonal share (N, 6, 6)) of the Huber-weighted
+    ARAP term at eps = 0. Edge e's source node must be e // (E / N)."""
+    _check(dqs, "dqs", torch.float32)
+    n = dqs.shape[0]
+    ne = e_src.shape[0]
+    if ne % n:
+        raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
+    _check(e_src, "e_src", torch.int64, (ne,))
+    _check(e_dst, "e_dst", torch.int64, (ne,))
+    _check(e_valid, "e_valid", torch.bool, (ne,))
+    _check(v_dst, "v_dst", torch.float32, (ne, 3))
+    _check(alpha, "alpha", torch.float32, (ne,))
+    _check_lists(e_order, e_off, ne, n)
+    _same_device(dqs, e_src, e_dst, e_valid, v_dst, alpha, e_order, e_off)
+    lib = load()
+    dev = dqs.device
+    h = torch.empty((3, ne, 6, 6), dtype=torch.float32, device=dev)
+    g = torch.empty((2, ne, 6), dtype=torch.float32, device=dev)
+    cost_e = torch.empty((ne,), dtype=torch.float32, device=dev)
+    jtr = torch.empty((6 * n,), dtype=torch.float32, device=dev)
+    diag = torch.empty((n, 6, 6), dtype=torch.float32, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    rc = lib.df_edge_term(
+        dqs.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(), e_valid.data_ptr(), v_dst.data_ptr(),
+        alpha.data_ptr(), ne, n, e_order.data_ptr(), e_off.data_ptr(), _f32(lam), _f32(delta),
+        h[0].data_ptr(), h[1].data_ptr(), h[2].data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
+        cost_e.data_ptr(), jtr.data_ptr(), diag.data_ptr(), cost.data_ptr(), _stream(dev),
+    )
+    _done("edge_term", rc)
+    return jtr, cost, h[0], h[1], h[2], diag
+
+
+def spd6_inv(m: torch.Tensor) -> torch.Tensor:
+    """Kernel G: closed-form inverses of (N, 6, 6) SPD blocks."""
+    _check(m, "m", torch.float32)
+    if m.dim() != 3 or m.shape[1:] != (6, 6):
+        raise ValueError(f"m: expected (N, 6, 6), got {tuple(m.shape)}")
+    lib = load()
+    out = torch.empty_like(m)
+    rc = lib.df_spd6_inv(m.data_ptr(), m.shape[0], out.data_ptr(), _stream(m.device))
+    _done("spd6_inv", rc)
+    return out
+
+
+class FactoredSystem(NamedTuple):
+    """The factored normal equations as kernel G takes them."""
+
+    rows: torch.Tensor      # (P, 8, 6) bf16
+    knn_idx: torch.Tensor   # (P, 8) int64
+    pt_order: torch.Tensor  # (8P,) int32
+    pt_off: torch.Tensor    # (N + 1,) int32
+    h_ii: torch.Tensor      # (E, 6, 6)
+    h_jj: torch.Tensor
+    h_ij: torch.Tensor
+    e_dst: torch.Tensor     # (E,) int64; edge e's source node is e // (E / N)
+    e_order: torch.Tensor   # (E,) int32
+    e_off: torch.Tensor     # (N + 1,) int32
+    damp: torch.Tensor      # (6N,)
+
+
+def _system_args(s: FactoredSystem):
+    np_ = s.rows.shape[0]
+    n = s.damp.shape[0] // 6
+    ne = s.e_dst.shape[0]
+    _check(s.rows, "rows", torch.bfloat16, (np_, 8, 6))
+    _check(s.knn_idx, "knn_idx", torch.int64, (np_, 8))
+    _check_lists(s.pt_order, s.pt_off, np_ * 8, n)
+    for t, nm in ((s.h_ii, "h_ii"), (s.h_jj, "h_jj"), (s.h_ij, "h_ij")):
+        _check(t, nm, torch.float32, (ne, 6, 6))
+    _check(s.e_dst, "e_dst", torch.int64, (ne,))
+    _check_lists(s.e_order, s.e_off, ne, n)
+    _check(s.damp, "damp", torch.float32, (6 * n,))
+    if ne % n:
+        raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
+    _same_device(*s)
+    idx32 = s.knn_idx.to(torch.int32)
+    dst32 = s.e_dst.to(torch.int32)
+    ptrs = (
+        s.rows.data_ptr(), idx32.data_ptr(), s.pt_order.data_ptr(), s.pt_off.data_ptr(),
+        s.h_ii.data_ptr(), s.h_jj.data_ptr(), s.h_ij.data_ptr(), dst32.data_ptr(),
+        s.e_order.data_ptr(), s.e_off.data_ptr(), s.damp.data_ptr(), np_, n, ne // n,
+    )
+    return ptrs, (idx32, dst32), np_, n
+
+
+def matvec(s: FactoredSystem, p: torch.Tensor) -> torch.Tensor:
+    """Kernel G: (rows_bf16ᵀ bf16(rows_bf16 bf16(p))) + edge blocks p +
+    damp p, one block."""
+    ptrs, keep, np_, n = _system_args(s)
+    _check(p, "p", torch.float32, (6 * n,))
+    lib = load()
+    ap = torch.empty_like(p)
+    t = torch.empty((max(np_, 1),), dtype=torch.float32, device=p.device)
+    rc = lib.df_matvec(*ptrs, p.data_ptr(), ap.data_ptr(), t.data_ptr(), _stream(p.device))
+    _done("matvec", rc)
+    del keep
+    return ap
+
+
+def pcg(s: FactoredSystem, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float, active: torch.Tensor):
+    """Kernel G: the whole block-Jacobi PCG solve from x = 0 in one launch;
+    at most ``iters`` iterations while rᵀr > rtol² bᵀb; ``active`` (a ()
+    bool device tensor) False returns zeros."""
+    ptrs, keep, np_, n = _system_args(s)
+    _check(minv, "minv", torch.float32, (n, 6, 6))
+    _check(b, "b", torch.float32, (6 * n,))
+    _check(active, "active", torch.bool, ())
+    _same_device(b, minv, active, s.damp)
+    lib = load()
+    x = torch.empty_like(b)
+    work = torch.empty((4 * 6 * n + max(np_, 1),), dtype=torch.float32, device=b.device)
+    rc = lib.df_pcg(
+        *ptrs, minv.data_ptr(), b.data_ptr(), iters, _f32(rtol * rtol), active.data_ptr(),
+        x.data_ptr(), work.data_ptr(), _stream(b.device),
+    )
+    _done("pcg", rc)
+    del keep
+    return x
+
+
+# --------------------------------------------------------------------------
+# kernel H: node insertion
+# --------------------------------------------------------------------------
+
+
+def insert_select(candidates, cand_d2, valid, active, count, gate, coverage: float):
+    """Kernel H's select pass (csrc/insert_nodes.cu): (slots (N,) int64, the
+    slot of the r-th new node or N for none; new positions (N, 3))."""
+    nc = _check_points(candidates, "candidates")
+    if not 1 <= nc <= 16384:
+        raise ValueError(f"insert_select takes 1 to 16384 candidates, got {nc}")
+    _check(cand_d2, "cand_d2", torch.float32, (nc,))
+    _check(valid, "valid", torch.bool, (nc,))
+    _check(active, "active", torch.bool)
+    cap = active.shape[0]
+    _check(count, "count", torch.int32, ())
+    _check(gate, "gate", torch.bool, ())
+    _same_device(candidates, cand_d2, valid, active, count, gate)
+    lib = load()
+    np2 = max(1024, 1 << (nc - 1).bit_length())
+    dev = candidates.device
+    slots = torch.empty((cap,), dtype=torch.int64, device=dev)
+    new_pos = torch.empty((cap, 3), dtype=torch.float32, device=dev)
+    rc = lib.df_insert_select(
+        candidates.data_ptr(), cand_d2.data_ptr(), valid.data_ptr(), nc, np2, active.data_ptr(),
+        count.data_ptr(), gate.data_ptr(), cap, _f32(coverage), _f32(coverage * coverage),
+        slots.data_ptr(), new_pos.data_ptr(), _stream(dev),
+    )
+    _done("insert_select", rc)
+    return slots, new_pos
+
+
+def insert_apply(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx, node_radius):
+    """Kernel H's apply pass: a NEW field with the selected nodes written
+    into their slots (old + (new - old)) and the count raised."""
+    n = _check_field(positions, active, radius, dq)
+    _check(count, "count", torch.int32, ())
+    _check(last_support, "last_support", torch.int32, (n,))
+    _check(slots, "slots", torch.int64, (n,))
+    _check(new_pos, "new_pos", torch.float32, (n, 3))
+    _check(seed_dq, "seed_dq", torch.float32, (n, 8))
+    _check(frame_idx, "frame_idx", torch.int32, ())
+    _same_device(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx)
+    lib = load()
+    out = [t.clone() for t in (positions, dq, radius, active, count, last_support)]
+    rc = lib.df_insert_apply(
+        *(t.data_ptr() for t in out), slots.data_ptr(), new_pos.data_ptr(), seed_dq.data_ptr(),
+        frame_idx.data_ptr(), _f32(node_radius), n, _stream(positions.device),
+    )
+    _done("insert_apply", rc)
+    return tuple(out)

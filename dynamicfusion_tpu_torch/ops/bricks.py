@@ -1,6 +1,4 @@
-"""Brick-sparse TSDF integration (port of ``dynamicfusion_tpu.ops.bricks``,
-the rigid arguments: no blend-quality grid, no confidence image, no phase
-split).
+"""Brick-sparse TSDF integration (port of ``dynamicfusion_tpu.ops.bricks``).
 
 Each 16^3 brick is classified from a coarse camera-frame grid of its
 corners and a min/max depth pyramid as skip, front (free space: constant
@@ -14,10 +12,17 @@ entries stays a device tensor. No step of it syncs with the host.
 The fuse itself is CUDA kernel D (``csrc/fuse_bricks.cu``) on CUDA
 tensors: one block per listed brick, IN PLACE on the (D, D, D) volume,
 voxel addresses computed from the brick id (no brick-major transposes),
-band depths fetched directly from the dists image. Where the JAX package
+band depths fetched directly from the lookup image. Where the JAX package
 selects from a window with one-hot matmuls, a direct load returns the same
 value. The plain version (``_fuse_plain``) does the same arithmetic with
 gathers and scatters for CPU tensors.
+
+The non-rigid fusion adds three inputs: a per-grid-point observation
+weight (the warp's blend quality) prolonged to the voxels like their
+positions, a per-pixel incidence confidence packed with the depth into
+one float (``pack_depth_conf``: the depth a voxel sees is quantized to
+0.25 mm, the confidence to 16 levels, as in the JAX package), and a phase
+split of the brick x-planes.
 """
 
 from __future__ import annotations
@@ -305,12 +310,14 @@ def _corner_indices(d: int, b: int, g: int, brick_ids: torch.Tensor) -> torch.Te
 
 
 def _voxel_positions(cam_flat: torch.Tensor, corner_idx: torch.Tensor, b: int, g: int) -> torch.Tensor:
-    """(K, B^3, 3) voxel camera positions by separable trilinear
-    prolongation of the grid points, contracting x, then y, then z, each
-    as the ordered sum over grid points that kernel D computes."""
+    """(K, B^3, CH) voxel camera positions (and any extra channel, the
+    blend quality) by separable trilinear prolongation of the grid points,
+    contracting x, then y, then z, each as the ordered sum over grid points
+    that kernel D computes."""
     c = b // g + 1
     k = corner_idx.shape[0]
-    pts = cam_flat[corner_idx].reshape(k, c, c, c, 3)
+    ch = cam_flat.shape[-1]
+    pts = cam_flat[corner_idx].reshape(k, c, c, c, ch)
     w = _prolong_weights(b, g, cam_flat.device)  # (B, C)
 
     def contract(t, axis):
@@ -326,7 +333,7 @@ def _voxel_positions(cam_flat: torch.Tensor, corner_idx: torch.Tensor, b: int, g
     f = contract(pts, 1)
     f = contract(f, 2)
     f = contract(f, 3)
-    return f.reshape(k, b * b * b, 3)
+    return f.reshape(k, b * b * b, ch)
 
 
 def _project(cam_pts: torch.Tensor, intr: Intrinsics, rows: int, cols: int):
@@ -342,20 +349,59 @@ def _project(cam_pts: torch.Tensor, intr: Intrinsics, rows: int, cols: int):
     return ui, vi, inb, rdist
 
 
-def _fuse_rows(cfg: DynamicFusionConfig, tsdf_rows, w_rows, dp, rdist, inb):
-    """Band/wide voxel update with unit observation weight: the weighted
-    running average of min(1, psdf / trunc) where psdf >= -trunc."""
+PACK_DP = 4000.0  # 0.25 mm depth quantization in the packed image
+PACK_C = 16.0     # confidence levels
+
+
+def pack_depth_conf(dists: torch.Tensor, conf: torch.Tensor) -> torch.Tensor:
+    """(depth m, confidence [0, 1]) -> one float holding an exact integer:
+    round(d * 4000) * 16 + round(c * 15); invalid pixels (d == 0) -> 0."""
+    dq = torch.round(dists * PACK_DP)
+    cq = torch.round(torch.clamp(torch.nan_to_num(conf), 0.0, 1.0) * (PACK_C - 1.0))
+    return torch.where(dists > 0.0, dq * PACK_C + cq, 0.0)
+
+
+def unpack_depth_conf(v: torch.Tensor):
+    dq = torch.floor(v / PACK_C)
+    c = (v - dq * PACK_C) / (PACK_C - 1.0)
+    return dq / PACK_DP, c
+
+
+def incidence_weight_scale(cfg: DynamicFusionConfig, conf: Optional[torch.Tensor]):
+    """(observation weight, stored-SDF scale) from the raw per-pixel
+    |cos incidence| (0 = invalid): weight max(cos, floor) on observed
+    pixels, scale clip(cos, 0.25, 1) with ``fusion_sdf_incidence_scale``."""
+    if conf is None:
+        return 1.0, 1.0
+    w = torch.where(conf > 0.0, torch.clamp(conf, min=cfg.fusion_incidence_floor), 0.0)
+    if cfg.fusion_sdf_incidence_scale:
+        scale = torch.where(conf > 0.0, torch.clamp(conf, 0.25, 1.0), 1.0)
+    else:
+        scale = 1.0
+    return w, scale
+
+
+def _fuse_rows(cfg: DynamicFusionConfig, tsdf_rows, w_rows, dp, rdist, inb, q=None, conf=None):
+    """Band/wide voxel update: the running average of
+    min(1, psdf * scale / trunc) with observation weight q * incidence
+    weight where psdf >= -trunc (and, with q, where q > fusion_quality_min)."""
     trunc = volume_model.trunc_dist(cfg)
     psdf = dp - rdist
     update = inb & (dp != 0.0) & (psdf >= -trunc)
-    tsdf_obs = torch.clamp(psdf / trunc, max=1.0)
+    if q is None:
+        q = 1.0
+    else:
+        update = update & (q > cfg.fusion_quality_min)
+    obs_w, sdf_scale = incidence_weight_scale(cfg, conf)
+    q = q * obs_w
+    tsdf_obs = torch.clamp(psdf * sdf_scale / trunc, max=1.0)
     t32 = volume_model.decode_tsdf(tsdf_rows)
     w32 = volume_model.decode_weight(w_rows)
-    fused = (t32 * w32 + tsdf_obs) / (w32 + 1.0)
-    new_t = volume_model.encode_tsdf(torch.where(update, fused, t32), tsdf_rows.dtype)
+    wq = w32 + q
+    fused = (t32 * w32 + tsdf_obs * q) / torch.clamp(wq, min=1e-12)
+    new_t = volume_model.encode_tsdf(torch.where(update & (wq > 1e-12), fused, t32), tsdf_rows.dtype)
     new_w = volume_model.encode_weight(
-        torch.where(update, torch.clamp(w32 + 1.0, max=float(cfg.tsdf_max_weight)), w32),
-        w_rows.dtype,
+        torch.where(update, torch.clamp(wq, max=float(cfg.tsdf_max_weight)), w32), w_rows.dtype,
     )
     return new_t, new_w
 
@@ -386,7 +432,7 @@ def _voxel_addresses(d: int, b: int, brick_ids: torch.Tensor) -> torch.Tensor:
 def _fuse_plain(
     cfg: DynamicFusionConfig,
     vol: TsdfVolume,
-    dists: torch.Tensor,
+    lookup: torch.Tensor,
     cam_grid: torch.Tensor,
     g: int,
     intr: Intrinsics,
@@ -394,16 +440,21 @@ def _fuse_plain(
     work: WorkList,
     ok: torch.Tensor,
     rect: int,
+    q_grid: Optional[torch.Tensor] = None,
+    packed: bool = False,
     chunk: int = 512,
 ) -> None:
     """The plain version of kernel D: gathers the listed bricks' voxels,
-    fuses them and scatters them back in place. Reads the work count on
-    the host. Selections on the weight run on its int16 storage view
-    (CUDA PyTorch has no ``where`` for uint16)."""
+    fuses them and scatters them back in place. ``lookup`` is the dists
+    image, or with ``packed`` the packed depth+confidence image. Reads the
+    work count on the host. Selections on the weight run on its int16
+    storage view (CUDA PyTorch has no ``where`` for uint16)."""
     d = cfg.volume_dims
     b = cfg.brick_size
-    rows, cols = dists.shape
+    rows, cols = lookup.shape
     cam_flat = cam_grid.reshape(-1, 3)
+    if q_grid is not None:
+        cam_flat = torch.cat([cam_flat, q_grid.reshape(-1, 1)], dim=-1)
     t_flat = vol.tsdf.view(-1)
     w_flat = volume_model.storage_view(vol.weight).view(-1)
     sv = volume_model.storage_view
@@ -415,13 +466,16 @@ def _fuse_plain(
         t_old = t_flat[addr]
         w_old = w_flat[addr]
         w_old_u = w_old.view(vol.weight.dtype)
-        pts = _voxel_positions(cam_flat, _corner_indices(d, b, g, ids), b, g)
+        ptsq = _voxel_positions(cam_flat, _corner_indices(d, b, g, ids), b, g)
+        pts, qv = ptsq[..., :3], (ptsq[..., 3] if q_grid is not None else None)
         ui, vi, inb, rdist = _project(pts, intr, rows, cols)
         ri = (vi - bc.v0[ids][:, None]).clamp(0, rect - 1)
         ci = (ui - bc.u0[ids][:, None]).clamp(0, rect - 1)
         inw = (vi - bc.v0[ids][:, None] == ri) & (ui - bc.u0[ids][:, None] == ci)
-        dp = dists[vi, ui]
-        new_t, new_w = _fuse_rows(cfg, t_old, w_old_u, dp, rdist, inb & (inw | (kind == WIDE)))
+        dp, cv = lookup[vi, ui], None
+        if packed:
+            dp, cv = unpack_depth_conf(dp)
+        new_t, new_w = _fuse_rows(cfg, t_old, w_old_u, dp, rdist, inb & (inw | (kind == WIDE)), qv, cv)
         front_t, front_w = _fuse_front_rows(cfg, t_old, w_old_u)
         is_front = (kind == FRONT) & ok
         t_flat[addr] = torch.where(is_front, front_t, torch.where(ok, new_t, t_old))
@@ -435,41 +489,57 @@ class BrickPlan(NamedTuple):
 
 
 def plan(
-    cfg: DynamicFusionConfig, dists: torch.Tensor, cam_grid: torch.Tensor, g: int, intr: Intrinsics
+    cfg: DynamicFusionConfig, dists: torch.Tensor, cam_grid: torch.Tensor, g: int, intr: Intrinsics,
+    phase: Optional[torch.Tensor] = None, split: int = 1,
 ) -> BrickPlan:
     """Classify every brick against the dists image and list the ones to
-    fuse (``_plan``), all on the device."""
-    nbr = (cfg.volume_dims // cfg.brick_size) ** 3
+    fuse (``_plan``), all on the device. With ``split`` > 1 only bricks
+    whose x-plane index is ``phase`` (a device tensor) modulo ``split``
+    take part, and the caps divide by ``split``."""
+    d, b = cfg.volume_dims, cfg.brick_size
+    nbr = (d // b) ** 3
     rows, cols = dists.shape
     rect = min(cfg.integrate_rect, 1 << int(math.log2(min(rows, cols))))
     levels = int(math.ceil(math.log2(max(rows, cols)))) + 1
     pyr = build_depth_pyramid(dists, levels)
     bc = classify(cfg, cam_grid, g, pyr, intr, rows, cols, rect)
-    work = _plan(bc, min(max(cfg.integrate_band_cap, 1), nbr), min(max(cfg.integrate_wide_cap, 1), nbr))
-    return BrickPlan(bc, work, rect)
+    if split > 1:
+        nb_x = d // b
+        bx = torch.arange(nbr, device=dists.device) // (nb_x * nb_x)
+        bc = bc._replace(cls=torch.where((bx % split) == phase, bc.cls, SKIP))
+    band_cap = min(max(cfg.integrate_band_cap // split, 1), nbr)
+    wide_cap = min(max(cfg.integrate_wide_cap // split, 1), nbr)
+    return BrickPlan(bc, _plan(bc, band_cap, wide_cap), rect)
 
 
 def fuse(
     cfg: DynamicFusionConfig,
     vol: TsdfVolume,
-    dists: torch.Tensor,
+    lookup: torch.Tensor,
     cam_grid: torch.Tensor,
     g: int,
     intr: Intrinsics,
     bp: BrickPlan,
     ok: torch.Tensor,
+    q_grid: Optional[torch.Tensor] = None,
+    packed: bool = False,
     plain: bool = False,
 ) -> None:
     """Fuse the planned bricks IN PLACE: kernel D on CUDA tensors, the
-    plain version on CPU tensors or where the caller asks for it."""
-    if plain or dists.device.type == "cpu":
-        _fuse_plain(cfg, vol, dists, cam_grid, g, intr, bp.classes, bp.work, ok, bp.rect)
+    plain version on CPU tensors or where the caller asks for it.
+    ``lookup`` is the dists image, or with ``packed`` the
+    ``pack_depth_conf`` image; ``q_grid`` the optional per-grid-point
+    observation weight."""
+    if plain or lookup.device.type == "cpu":
+        _fuse_plain(cfg, vol, lookup, cam_grid, g, intr, bp.classes, bp.work, ok, bp.rect, q_grid, packed)
         return
     kernels.fuse_bricks(
-        vol.tsdf, vol.weight, dists, cam_grid, bp.work.ids, bp.work.kind, bp.work.count, ok,
+        vol.tsdf, vol.weight, lookup, cam_grid, bp.work.ids, bp.work.kind, bp.work.count, ok,
         bp.classes.u0, bp.classes.v0,
         brick=cfg.brick_size, stride=g, intr=intr, rect=bp.rect,
         trunc=volume_model.trunc_dist(cfg), max_weight=float(cfg.tsdf_max_weight),
+        q_grid=q_grid, q_min=cfg.fusion_quality_min, packed=packed,
+        incidence_floor=cfg.fusion_incidence_floor, sdf_scale=cfg.fusion_sdf_incidence_scale,
     )
 
 
@@ -481,15 +551,24 @@ def integrate_bricks(
     g: int,
     intr: Intrinsics,
     ok: Optional[torch.Tensor] = None,
+    q_grid: Optional[torch.Tensor] = None,
+    conf: Optional[torch.Tensor] = None,
+    phase: Optional[torch.Tensor] = None,
+    split: int = 1,
     plain: bool = False,
 ) -> torch.Tensor:
     """Brick-sparse projective TSDF fusion, IN PLACE on ``vol``.
     ``cam_grid`` holds camera-frame positions of the voxel grid at stride
-    ``g``. Bricks past the static caps keep their old values this frame.
-    Returns the (3,) int32 (band, wide, dropped) counts, zero where the
-    device flag ``ok`` is False (the whole update is skipped then)."""
+    ``g``; ``q_grid`` an optional (G, G, G) observation weight prolonged
+    alongside them (band/wide voxels fuse with weight q and skip q <=
+    fusion_quality_min; front bricks keep unit weight); ``conf`` an
+    optional (H, W) incidence confidence. Bricks past the static caps keep
+    their old values this frame. Returns the (3,) int32 (band, wide,
+    dropped) counts, zero where the device flag ``ok`` is False (the whole
+    update is skipped then)."""
     if ok is None:
         ok = torch.ones((), dtype=torch.bool, device=dists.device)
-    bp = plan(cfg, dists, cam_grid, g, intr)
-    fuse(cfg, vol, dists, cam_grid, g, intr, bp, ok, plain)
+    bp = plan(cfg, dists, cam_grid, g, intr, phase, split)
+    lookup = dists if conf is None else pack_depth_conf(dists, conf)
+    fuse(cfg, vol, lookup, cam_grid, g, intr, bp, ok, q_grid, conf is not None, plain)
     return torch.where(ok, bp.work.counts, 0)

@@ -237,8 +237,10 @@ def raycast(
 ) -> RaycastResult:
     """Per-pixel ray march for the zero crossing (``rays`` says which
     interval each ray marches); points/normals in the camera frame."""
-    if cfg.raycast_refine != "secant" or cfg.raycast_smooth_normals:
-        raise NotImplementedError("raycast refine other than secant: non-rigid slice")
+    if cfg.raycast_refine != "secant":
+        raise NotImplementedError("newton refine: a later slice")
+    if cfg.raycast_smooth_normals:
+        raise NotImplementedError("smoothed raycast normals: a later slice")
     ray_org, dirs, tmin, tmax = rays(cfg, cam2vol, intr, rows, cols, t_seed, t_band)
     found, vertex_vol, normal_vol = march_and_refine(cfg, vol.tsdf, ray_org, dirs, tmin, tmax, plain=plain)
     nn = torch.linalg.vector_norm(normal_vol, dim=-1, keepdim=True)

@@ -1,11 +1,14 @@
-"""The frame pipeline (port of ``dynamicfusion_tpu.pipeline.kinfu``, the
-rigid KinectFusion slice: ``cfg.rigid_only``).
+"""The frame pipeline (port of ``dynamicfusion_tpu.pipeline.kinfu``).
 
-A frame is preprocess -> coarse-to-fine ICP -> brick-sparse fusion (gated
-on ICP health) -> model raycast in a temporal march band. Every stage
-stays on the device: the ICP health flag gates fusion as a device tensor
-that kernel D reads, and no step of the frame reads a value back to the
-host. The volume is updated in place.
+A non-rigid frame is preprocess -> coarse-to-fine ICP -> rigid
+pre-alignment -> warp-field solve -> the shared coarse KNN+DQB field ->
+non-rigid brick fusion (gated on ICP health and the fusion interval) ->
+node insertion with its lifecycle -> model raycast in a temporal march
+band, the tracking maps warped into the live frame. ``cfg.rigid_only`` is
+plain KinectFusion: track, rigid fusion, raycast. Every stage stays on the
+device: the ICP health flag gates fusion, insertion and the warp update as
+device tensors, and no step of the frame reads a value back to the host.
+The volume is updated in place.
 
 ``plain=True`` runs the plain PyTorch version of every kernel on the same
 device (the reference the kernels are held against); by default CUDA
@@ -27,8 +30,8 @@ from dynamicfusion_tpu_torch.models import volume as volume_model
 from dynamicfusion_tpu_torch.models import warpfield
 from dynamicfusion_tpu_torch.models.volume import TsdfVolume
 from dynamicfusion_tpu_torch.models.warpfield import WarpField
-from dynamicfusion_tpu_torch.ops import preprocess, tsdf as tsdf_ops
-from dynamicfusion_tpu_torch.solvers import icp
+from dynamicfusion_tpu_torch.ops import fusion, preprocess, tsdf as tsdf_ops
+from dynamicfusion_tpu_torch.solvers import icp, warp_solver
 
 INF = float("inf")
 
@@ -47,8 +50,8 @@ class PipelineState(NamedTuple):
 class StepOutputs(NamedTuple):
     icp_ok: torch.Tensor
     pose: torch.Tensor
-    solver_cost0: torch.Tensor
-    solver_cost1: torch.Tensor
+    solver_cost0: torch.Tensor  # () the warp solve's robust cost before ...
+    solver_cost1: torch.Tensor  # ... and after its LM iterations (0 in rigid mode)
     node_count: torch.Tensor
     brick_counts: torch.Tensor  # (3,) int32 (band, wide, dropped)
     model_points: torch.Tensor
@@ -120,15 +123,18 @@ def _model_maps(
     cfg: DynamicFusionConfig,
     vol: TsdfVolume,
     pose: torch.Tensor,
+    warp: Optional[WarpField] = None,
     t_seed: Optional[torch.Tensor] = None,
     t_band: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    dq_grid: Optional[torch.Tensor] = None,
     plain: bool = False,
 ):
     """Raycast the model at ``pose`` at 1/raycast_subsample resolution;
-    return (tracking pyramid, base-level maps). Rigid mode tracks against
-    the canonical maps themselves."""
-    if not cfg.rigid_only:
-        raise NotImplementedError("non-rigid model maps: next slice")
+    return (tracking pyramid, canonical base-level maps). In non-rigid
+    mode (``track_against_warped``) the tracking maps are the canonical
+    maps DQB-warped into the live frame: through the coarse field's
+    ``dq_grid`` (trilinear, kernel E) where given, else by the exact
+    per-point warp."""
     cam2vol = se3.compose(se3.inverse(_vol_pose(cfg, pose.device)), pose)
     rows_t = cfg.rows // cfg.raycast_subsample
     cols_t = cfg.cols // cfg.raycast_subsample
@@ -138,7 +144,20 @@ def _model_maps(
         cfg, vol, cam2vol, cfg.intr.level(cfg.raycast_shift), rows_t, cols_t,
         t_seed=t_seed, t_band=t_band, plain=plain,
     )
-    return _pyramid_from_maps(cfg, res.points, res.normals), res.points, res.normals
+    if cfg.track_against_warped and not cfg.rigid_only:
+        shape = res.points.shape
+        pts_w = se3.transform_points(pose, res.points).reshape(-1, 3)
+        nrm_w = se3.rotate_dirs(pose, res.normals).reshape(-1, 3)
+        if dq_grid is not None:
+            wp, wn = fusion.warp_points_trilinear(cfg, dq_grid, pts_w, nrm_w, plain=plain)
+        else:
+            wp, wn = warpfield.warp_points(warp, pts_w, nrm_w, k=cfg.knn_k, plain=plain)
+        w2c = se3.inverse(pose)
+        track_pts = se3.transform_points(w2c, wp).reshape(shape)
+        track_nrm = se3.rotate_dirs(w2c, wn).reshape(shape)
+    else:
+        track_pts, track_nrm = res.points, res.normals
+    return _pyramid_from_maps(cfg, track_pts, track_nrm), res.points, res.normals
 
 
 def init_state(cfg: DynamicFusionConfig, device="cuda") -> PipelineState:
@@ -177,7 +196,7 @@ def first_frame(
     )
     warp = warpfield.init_from_cloud(cfg, cloud.points, cloud.valid)
     (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(
-        cfg, state.vol, state.pose, t_seed=_raycast_seed(cfg, dists), plain=plain
+        cfg, state.vol, state.pose, warp, t_seed=_raycast_seed(cfg, dists), plain=plain
     )
     return PipelineState(
         vol=state.vol, warp=warp, pose=state.pose,
@@ -190,10 +209,10 @@ def first_frame(
 def step(
     cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False
 ) -> Tuple[PipelineState, StepOutputs]:
-    """One frame of plain KinectFusion: track, fuse (skipped on ICP
-    failure), raycast the model for the next frame."""
+    """One frame: the rigid KinectFusion step under ``cfg.rigid_only``,
+    else the full DynamicFusion step (``_nonrigid_step``)."""
     if not cfg.rigid_only:
-        raise NotImplementedError("non-rigid step: next slice")
+        return _nonrigid_step(cfg, state, depth_mm, plain)
     shift = cfg.raycast_shift
     _, pts_pyr, nrm_pyr, dists = preprocess.build_frame_pyramid(
         cfg, depth_mm, first_point_level=shift, plain=plain
@@ -221,6 +240,118 @@ def step(
     outputs = StepOutputs(
         icp_ok=icp_res.ok, pose=pose, solver_cost0=zero, solver_cost1=zero,
         node_count=state.warp.count, brick_counts=bcounts,
+        model_points=prev_pts[0], model_normals=prev_nrm[0],
+    )
+    return new_state, outputs
+
+
+def incidence_confidence(points: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
+    """Per-pixel |cos| of the live normal against the viewing ray, 0 where
+    invalid: the fusion's incidence confidence."""
+    pn = points / torch.clamp(torch.linalg.vector_norm(points, dim=-1, keepdim=True), min=1e-9)
+    return torch.nan_to_num(torch.abs((normals * pn).sum(dim=-1)))
+
+
+class Tracked(NamedTuple):
+    icp_res: icp.IcpResult
+    pose: torch.Tensor                    # (4, 4) after ICP and the rigid pre-alignment
+    inputs: warp_solver.WarpSolveInputs   # the warp solve's point sets, pre-aligned
+    points: Tuple[torch.Tensor, ...]      # the live pyramid (level 0 for the incidence confidence)
+    normals: Tuple[torch.Tensor, ...]
+    dists: torch.Tensor
+
+
+def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False) -> Tracked:
+    """The non-rigid step up to the warp solve: preprocess, coarse-to-fine
+    ICP against the warped model maps, the solve's point sets and the
+    rigid pre-alignment folded into the pose (where ICP succeeded)."""
+    shift = cfg.raycast_shift
+    # level 0 only for the incidence confidence of the fusion
+    first = 0 if cfg.fusion_incidence_weight else shift
+    _, pts_pyr, nrm_pyr, dists = preprocess.build_frame_pyramid(cfg, depth_mm, first_point_level=first, plain=plain)
+
+    icp_res = icp.estimate_transform(
+        cfg, list(pts_pyr[shift:]), list(nrm_pyr[shift:]),
+        list(state.prev_points), list(state.prev_normals),
+        level_offset=shift, plain=plain,
+    )
+    pose = torch.where(icp_res.ok, se3.compose(state.pose, icp_res.transform), state.pose)
+
+    # the solve's point sets, world frame, every stride-th pixel of the
+    # model maps: the previous frame's canonical raycast (at the old pose)
+    # and the live surface, its points from the RAW depth (what fusion
+    # integrates), its normals filtered
+    stride = max(1, cfg.solver_point_stride // cfg.raycast_subsample)
+    can_pts_w = se3.transform_points(state.pose, state.can_points)
+    can_nrm_w = se3.rotate_dirs(state.pose, state.can_normals)
+    if cfg.solver_live_raw:
+        sub = cfg.raycast_subsample
+        raw_pts, _ = preprocess.compute_points_normals(cfg.intr.level(shift), depth_mm[::sub, ::sub])
+    else:
+        raw_pts = pts_pyr[shift]
+    live_pts_w = se3.transform_points(pose, raw_pts)
+    live_nrm_w = se3.rotate_dirs(pose, nrm_pyr[shift])
+
+    def flat(a):
+        return a[::stride, ::stride].reshape(-1, 3)
+
+    inputs = warp_solver.WarpSolveInputs(
+        p_can=flat(can_pts_w), n_can=flat(can_nrm_w), p_live=flat(live_pts_w), n_live=flat(live_nrm_w),
+    )
+    if cfg.solver_rigid_prealign:
+        t_pre = warp_solver.rigid_prealign(cfg, state.warp, inputs, plain=plain)
+        pose = torch.where(icp_res.ok, se3.compose(t_pre, pose), pose)
+        inputs = inputs._replace(
+            p_live=se3.transform_points(t_pre, inputs.p_live), n_live=se3.rotate_dirs(t_pre, inputs.n_live)
+        )
+    return Tracked(icp_res, pose, inputs, tuple(pts_pyr), tuple(nrm_pyr), dists)
+
+
+def _nonrigid_step(
+    cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False
+) -> Tuple[PipelineState, StepOutputs]:
+    """One DynamicFusion frame (the JAX package's non-rigid ``step``)."""
+    if not cfg.reuse_model_raycast:
+        raise NotImplementedError("a fresh canonical raycast per frame: a later slice")
+    if cfg.solver_remove_net_rigid:
+        raise NotImplementedError("remove_net_rigid: a later slice")
+    icp_res, pose, inputs, pts_pyr, nrm_pyr, dists = track(cfg, state, depth_mm, plain)
+    warp, stats = warp_solver.solve(cfg, state.warp, inputs, plain=plain)
+    # a frame whose tracking failed leaves the warp field (and, below, the
+    # volume and the node set) untouched
+    warp = WarpField(*(torch.where(icp_res.ok, a, b) for a, b in zip(warp, state.warp)))
+
+    full_scale = inputs.p_can.shape[0] > 8192
+    cf = fusion.coarse_field(cfg, warp, plain=plain)
+
+    sub_interval = max(cfg.fusion_interval // cfg.fusion_phase_split, 1)
+    fuse_now = icp_res.ok & (state.frame_idx % sub_interval == 0)
+    phase = (state.frame_idx // sub_interval) % cfg.fusion_phase_split
+    conf = incidence_confidence(pts_pyr[0], nrm_pyr[0]) if cfg.fusion_incidence_weight else None
+    bcounts = fusion.integrate_nonrigid(
+        cfg, state.vol, cf, dists, se3.inverse(pose), cfg.intr, fuse_now, conf=conf, phase=phase, plain=plain
+    )
+
+    ins = cfg.node_insert_stride if full_scale else 1
+    cand = inputs.p_can[::ins]
+    warp = warpfield.insert_nodes(
+        cfg, warp, cand, icp_res.ok & ~torch.isnan(cand[:, 0]), state.frame_idx, plain=plain
+    )
+
+    band = _temporal_band(cfg, state.can_points, dists) if cfg.raycast_temporal_band else None
+    (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(
+        cfg, state.vol, pose, warp, t_seed=_raycast_seed(cfg, dists), t_band=band,
+        dq_grid=cf.dq if full_scale else None, plain=plain,
+    )
+    new_state = PipelineState(
+        vol=state.vol, warp=warp, pose=pose,
+        prev_points=prev_pts, prev_normals=prev_nrm,
+        can_points=can_pts, can_normals=can_nrm,
+        frame_idx=state.frame_idx + 1,
+    )
+    outputs = StepOutputs(
+        icp_ok=icp_res.ok, pose=pose, solver_cost0=stats.initial_cost, solver_cost1=stats.final_cost,
+        node_count=warp.count, brick_counts=bcounts,
         model_points=prev_pts[0], model_normals=prev_nrm[0],
     )
     return new_state, outputs

@@ -142,6 +142,17 @@ def test_synthetic_copy_matches():
         )
 
 
+def test_deforming_frames_are_the_bench_scene():
+    """bench.py's frames(): two spheres over z = 1.25, the small one
+    oscillating, seen from the identity pose."""
+    cfg = jconfig.DynamicFusionConfig.small()
+    got = tsyn.deforming_frames(tconfig.DynamicFusionConfig.small().intr, cfg.rows, cfg.cols, 3)
+    for t, d in enumerate(got):
+        sp = [dict(center=(0.0, 0.0, 0.95), radius=0.22),
+              dict(center=(0.2 + 0.008 * np.sin(0.4 * t), 0.1, 0.8), radius=0.1)]
+        np.testing.assert_array_equal(d, jsyn.scene_depth(cfg.intr, cfg.rows, cfg.cols, spheres=sp, plane_z=1.25))
+
+
 def test_first_true_is_static_nonzero():
     rng = np.random.RandomState(3)
     for n, size, p in ((1000, 64, 0.02), (1000, 64, 0.5), (37, 50, 0.3), (10, 4, 0.0)):
@@ -188,11 +199,13 @@ def test_cuda_is_the_default_device():
 
 
 def test_non_rigid_step_is_not_in_this_slice():
-    cfg = tconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80)
+    """The non-rigid step runs with the secant refine; the preset's newton8
+    refine is not in this slice and raises."""
+    cfg = dataclasses.replace(tconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80), raycast_refine="newton8")
     assert not cfg.rigid_only
     state = tkinfu.init_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="non-rigid step: next slice"):
-        tkinfu.step(cfg, state, torch.zeros((60, 80), dtype=torch.uint16))
+    with pytest.raises(NotImplementedError, match="newton refine: a later slice"):
+        tkinfu.first_frame(cfg, state, torch.zeros((60, 80), dtype=torch.uint16))
 
 
 WRAPPER_CALLS = {
@@ -212,7 +225,56 @@ WRAPPER_CALLS = {
         brick=16, stride=16, intr=tconfig.DynamicFusionConfig.small().intr, rect=8, trunc=0.04,
         max_weight=64.0,
     ),
+    "knn_blend": lambda: kernels.knn_blend(
+        torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool), torch.ones(8), torch.zeros((8, 8)),
+        torch.zeros((4, 3)), 8,
+    ),
+    "data_term": lambda: kernels.data_term(
+        *(torch.zeros((4, 3)),) * 3, torch.ones(4, dtype=torch.bool), torch.zeros((4, 8), dtype=torch.int64),
+        torch.zeros((4, 8)), torch.zeros((8, 8)), torch.zeros(32, dtype=torch.int32),
+        torch.zeros(9, dtype=torch.int32), 0.05, True,
+    ),
+    "mutual_nearest": lambda: kernels.mutual_nearest(
+        torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool), torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool),
+    ),
+    "warp_trilinear": lambda: kernels.warp_trilinear(
+        torch.zeros((3, 3, 3, 8)), torch.zeros((4, 3)), torch.zeros((4, 3)), (0.0, 0.0, 0.0), 0.1,
+    ),
+    "edge_term": lambda: kernels.edge_term(
+        torch.zeros((8, 8)), *(torch.zeros(32, dtype=torch.int64),) * 2, torch.ones(32, dtype=torch.bool),
+        torch.zeros((32, 3)), torch.ones(32), torch.zeros(32, dtype=torch.int32), torch.zeros(9, dtype=torch.int32),
+        1.0, 1e-3,
+    ),
+    "spd6_inv": lambda: kernels.spd6_inv(torch.zeros((8, 6, 6))),
+    "matvec": lambda: kernels.matvec(_factored_system(), torch.zeros(48)),
+    "pcg": lambda: kernels.pcg(
+        _factored_system(), torch.zeros((8, 6, 6)), torch.zeros(48), 12, 1e-3, torch.ones((), dtype=torch.bool),
+    ),
+    "insert_select": lambda: kernels.insert_select(
+        torch.zeros((4, 3)), torch.zeros(4), torch.ones(4, dtype=torch.bool), torch.zeros(8, dtype=torch.bool),
+        torch.zeros((), dtype=torch.int32), torch.ones((), dtype=torch.bool), 0.025,
+    ),
+    "insert_apply": lambda: kernels.insert_apply(
+        torch.zeros((8, 3)), torch.zeros((8, 8)), torch.ones(8), torch.zeros(8, dtype=torch.bool),
+        torch.zeros((), dtype=torch.int32), torch.zeros(8, dtype=torch.int32), torch.full((8,), 8),
+        torch.zeros((8, 3)), torch.zeros((8, 8)), torch.zeros((), dtype=torch.int32), 0.05,
+    ),
 }
+
+
+def _factored_system():
+    """A (P = 4, N = 8, 4 edges a node) factored system on the CPU."""
+    return kernels.FactoredSystem(
+        rows=torch.zeros((4, 8, 6), dtype=torch.bfloat16), knn_idx=torch.zeros((4, 8), dtype=torch.int64),
+        pt_order=torch.zeros(32, dtype=torch.int32), pt_off=torch.zeros(9, dtype=torch.int32),
+        h_ii=torch.zeros((32, 6, 6)), h_jj=torch.zeros((32, 6, 6)), h_ij=torch.zeros((32, 6, 6)),
+        e_dst=torch.zeros(32, dtype=torch.int64),
+        e_order=torch.zeros(32, dtype=torch.int32), e_off=torch.zeros(9, dtype=torch.int32), damp=torch.zeros(48),
+    )
+
+
+def test_every_kernel_has_a_wrapper_check():
+    assert sorted(WRAPPER_CALLS) == sorted(kernels.KERNELS)
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPER_CALLS))
