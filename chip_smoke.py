@@ -9,30 +9,44 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. build the CUDA kernels from ``dynamicfusion_tpu_torch/csrc`` (nvcc,
    sm_90a) and print the build time;
-2. run each kernel on the card at the slices' shapes, on seeded synthetic
-   inputs, hold it against its plain PyTorch version on the same inputs,
-   and time both: kernels A-D at the rigid slice's (640x480 depth, 256^3
-   volume, 160x120 model maps), kernels E-H and D's non-rigid arguments at
-   the non-rigid slice's (1024 nodes, 33^3 coarse corners, 19 200 map
-   points, 3 200 solve points, 4 096 edges, 4 800 insertion candidates);
+2. run each kernel on the card at the main paths' shapes, on seeded
+   synthetic inputs, hold it against its plain PyTorch version on the same
+   inputs, and time both: kernels A-D at the rigid slice's (640x480 depth,
+   256^3 volume, 160x120 model maps), kernels E-H and D's non-rigid
+   arguments at the dynamicfusion preset's (1024 nodes, 33^3 coarse
+   corners, 19 200 map points, 3 200 solve points, 4 096 edges, 4 800
+   insertion candidates), and at the preset's shapes kernel C's newton8
+   branch, kernel I (dists, the depth pyramid to 80x60, point/normal maps
+   with the incidence confidence, the 2x2 map resize), kernel J (the
+   160x120 march band) and kernel K (the 11-level mip, 4 096 brick classes
+   and the work list, which must equal the plain version's bit for bit);
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
-   read just after; kernels A-D must have launched and ICP must succeed on
-   every frame; then the same frames through the plain path, poses
-   compared, the final pose held against the analytic orbit;
-4. drive ``DynamicFusion`` on the non-rigid slice config
-   (``nonrigid_slice()``: 640x480 / 256^3 / 1024 nodes) for M frames of
-   ``bench.py``'s deforming scene, counters reset just before and read just
-   after, the steady frames under ``torch.cuda.set_sync_debug_mode("error")``
-   (a step that waits for the device raises); every kernel of the path must
-   have launched, ICP must succeed and the solve must not raise its cost on
-   every frame, fusion must run on the frames 6, 12, 18, ...; then the same
-   frames through the plain path, poses and node transforms compared;
+   read just after; kernels A-D (C's secant branch) and I-K must have
+   launched and ICP must succeed on every frame; then the same frames
+   through the plain path, poses compared, the final pose held against the
+   analytic orbit;
+4. drive ``DynamicFusion`` on the dynamicfusion preset itself
+   (``default_dynamicfusion()``: 640x480 / 256^3 / 1024 nodes, the newton8
+   refine) for M frames of ``bench.py``'s deforming scene, counters reset
+   just before and read just after, the steady frames under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a step that waits for the
+   device raises); every kernel of the path (A-K) must have launched, ICP
+   must succeed and the solve must not raise its cost on every frame,
+   fusion must run on the frames 6, 12, 18, ...; then the plain path's
+   step from each of the kernel path's states, pose and initial solve
+   cost held against the kernel path's; then the same frames through the
+   plain path free running, node sets held equal, poses printed beside
+   both paths' own spread (the solve's bf16 rows make the trajectories
+   part chaotically, by up to ~1 mm in 20 frames);
 5. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler table and trace of 3 non-rigid
 frames and prints the device's busy time and idle share over them.
+``--dump-solve FILE`` writes the warp field and the solve's point sets of
+the phase-2 state (the preset after three frames, the next frame tracked)
+to an ``.npz``, for holding another solver against the same system.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -70,11 +84,29 @@ TOL_SPD6_REL = 1e-4           # spd6_inv on the damped solver blocks
 TOL_MATVEC_REL = 1e-3         # one bf16 rounding of t may flip with the sum order (2^-8 of one entry)
 TOL_PCG_REL = 1e-2            # 12 iterations amplify such a flip
 TOL_POSE_PLAIN_M = 1e-3       # kernel path vs plain path, any frame's translation
-# non-rigid: per frame within max(TOL_POSE_PLAIN_M, SPREAD x the kernel path's
-# own spread under a 1e-7 perturbation of its frame-0 node positions)
+# non-rigid: the plain step from the kernel path's previous state. ICP, the
+# pre-alignment and the solve's initial cost see the same inputs and differ
+# only by the two implementations' roundings (sum orders of the ICP
+# system); one flipped projective association moves a pose by ~1e-5 m
+TOL_STEP_POSE = 1e-5          # translation (m) and rotation entries
+TOL_STEP_COST0_REL = 1e-4     # the solve's initial cost, relative
+# non-rigid, free running (printed, not a check): the bf16 rows of the solve
+# let a last bit move the LM step and ICP carries it into the pose, so the
+# two paths part by up to ~1 mm in 20 frames; the print sets the distance
+# beside max(TOL_POSE_PLAIN_M, SPREAD x the paths' own spread: the kernel
+# path from frame-0 node positions moved by 1e-7 relative, the plain path
+# run again, whose index_add_ sums in atomic order)
 SPREAD = 2.0
 PERTURB_SEEDS = (0, 1)
 TOL_POSE_TRUTH_M = 0.01       # kernel path vs analytic orbit, final translation
+# kernel I: CUDA PyTorch divides by a Python scalar as a product with its
+# reciprocal where the kernel divides (as the JAX package does), so dists,
+# points and normals may differ in the last bits; the pyramid and the
+# resize are exact (sums of whole millimetres, the same sum order)
+TOL_DISTS_REL = 1e-6          # dists, relative
+TOL_POINTS_M = 1e-6           # point maps (m)
+TOL_NORMAL = 1e-4             # normals and incidence confidence, ...
+TOL_NORMAL_FRAC = 1e-3        # ... except on this fraction of valid pixels
 
 # H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s, float32 (no tensor core) 67 TFLOP/s
 PEAK_BYTES = 3.35e12
@@ -96,13 +128,24 @@ TARGET = (0.0, 0.0, 1.0)
 ANGLE_STEP = 0.005  # rad per frame, ~5 mm of camera motion
 
 RIGID_KERNELS = ("bilateral", "icp_reduce", "raycast", "fuse_bricks")
-# (source, the TPU kernel-role function it replaces) of each JSON row
+# the kernels of the per-frame stencils and the brick plan (I-K): both paths run them
+STENCIL_KERNELS = ("depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "brick_plan")
+# (source, the TPU kernel-role function it replaces) of each JSON row; a
+# row's launches are its counter's (the row name, but for the rows below)
+# on the rigid path for A-D and on the preset's path for the rest
 ROWS = {
     "bilateral": ("bilateral.cu", "dynamicfusion_tpu/ops/preprocess.py:43"),
     "icp_reduce": ("icp_reduce.cu", "dynamicfusion_tpu/solvers/icp.py:38"),
     "raycast": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:386"),
+    "raycast_newton8": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:529"),
     "fuse_bricks": ("fuse_bricks.cu", "dynamicfusion_tpu/ops/bricks.py:552"),
     "fuse_bricks_nonrigid": ("fuse_bricks.cu", "dynamicfusion_tpu/ops/bricks.py:552"),
+    "depth_dists": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:165"),
+    "pyramid_down": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:91"),
+    "points_normals": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:124"),
+    "resize_maps": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:172"),
+    "march_bands": ("bands.cu", "dynamicfusion_tpu/pipeline/kinfu.py:107"),
+    "brick_plan": ("classify.cu", "dynamicfusion_tpu/ops/bricks.py:213"),
     "knn_blend": ("knn_blend.cu", "dynamicfusion_tpu/models/warpfield.py:148"),
     "mutual_nearest": ("knn_blend.cu", "dynamicfusion_tpu/models/warpfield.py:267"),
     "warp_trilinear": ("knn_blend.cu", "dynamicfusion_tpu/ops/fusion.py:109"),
@@ -113,6 +156,7 @@ ROWS = {
     "insert_select": ("insert_nodes.cu", "dynamicfusion_tpu/models/warpfield.py:372"),
     "insert_apply": ("insert_nodes.cu", "dynamicfusion_tpu/models/warpfield.py:433"),
 }
+COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks"}
 
 
 def smi() -> str:
@@ -275,22 +319,7 @@ def rigid_kernels(torch, args, report, dev, card):
           f"hit/miss differs on {found_frac:.2e} of rays (tol {TOL_RAYCAST_FOUND_FRAC}), "
           f"max vertex diff {err:.3e} m (tol {TOL_RAYCAST_M}), max normal diff {nerr:.3e}; "
           f"{int(fk.sum())} of {fk.numel()} rays hit")
-    # samples this run's rays need: march steps (counted as the plain loop runs them)
-    inv_vs = 1.0 / cfg.voxel_size
-    t = tmin.clone()
-    done = tmin >= tmax
-    prev = tsdf_ops.fetch_nearest(st.vol.tsdf, (ray_org + dirs * t[..., None]) * inv_vs)
-    samples = torch.ones_like(t)
-    for _ in range(tsdf_ops.march_steps(cfg)):
-        dtt = torch.where(prev > 0.99, 2.0 * step, step)
-        tn = t + dtt
-        act = ~done & (t < tmax)
-        nxt = tsdf_ops.fetch_nearest(st.vol.tsdf, (ray_org + dirs * tn[..., None]) * inv_vs)
-        samples = samples + act.float()
-        done = done | (act & (((prev > 0) & (nxt < 0)) | ((prev < 0) & (nxt > 0)))) | (tn >= tmax)
-        t = torch.where(act, tn, t)
-        prev = torch.where(act, nxt, prev)
-    n_samples = float(samples.sum()) + 24.0 * int(fk.sum())
+    n_samples = march_samples(torch, cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax) + 24.0 * int(fk.sum())
     n_rays = rows_t * cols_t
     report["raycast"] = dict(
         err=err,
@@ -328,6 +357,30 @@ def rigid_kernels(torch, args, report, dev, card):
     )
 
 
+def march_samples(torch, cfg, tsdf, ray_org, dirs, tmin, tmax) -> float:
+    """The nearest-voxel samples this run's rays march (counted as the
+    plain loop runs them): the data-dependent work of kernel C's march."""
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+
+    step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
+    inv_vs = 1.0 / cfg.voxel_size
+    t = tmin.clone()
+    done = tmin >= tmax
+    prev = tsdf_ops.fetch_nearest(tsdf, (ray_org + dirs * t[..., None]) * inv_vs)
+    samples = torch.ones_like(t)
+    for _ in range(tsdf_ops.march_steps(cfg)):
+        dtt = torch.where(prev > 0.99, 2.0 * step, step)
+        tn = t + dtt
+        act = ~done & (t < tmax)
+        nxt = tsdf_ops.fetch_nearest(tsdf, (ray_org + dirs * tn[..., None]) * inv_vs)
+        samples = samples + act.float()
+        done = done | (act & (((prev > 0) & (nxt < 0)) | ((prev < 0) & (nxt > 0)))) | (tn >= tmax)
+        t = torch.where(act, tn, t)
+        prev = torch.where(act, nxt, prev)
+    return float(samples.sum())
+
+
 def rigid_frame_fn(cfg):
     from dynamicfusion_tpu_torch.io import synthetic
 
@@ -338,9 +391,10 @@ def rigid_frame_fn(cfg):
     return frame
 
 
-def nonrigid_kernels(torch, report, dev, nr_depths):
-    """Phase 2 for kernels E-H and D's non-rigid arguments at the non-rigid
-    slice's shapes, on the state after three frames of the kernel path."""
+def nonrigid_kernels(torch, args, report, dev, nr_depths):
+    """Phase 2 for kernels E-H and D's non-rigid arguments at the preset's
+    shapes, on the state after three frames of the kernel path; then C's
+    newton8 branch and kernels I-K (``stencil_kernels``)."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.core import se3
@@ -350,7 +404,7 @@ def nonrigid_kernels(torch, report, dev, nr_depths):
     from dynamicfusion_tpu_torch.pipeline import kinfu
     from dynamicfusion_tpu_torch.solvers import warp_solver as ws
 
-    cfg = DynamicFusionConfig.nonrigid_slice()
+    cfg = DynamicFusionConfig.default_dynamicfusion()
     df = kinfu.DynamicFusion(cfg, device=dev)
     for d in nr_depths[:3]:
         df(d)
@@ -362,6 +416,13 @@ def nonrigid_kernels(torch, report, dev, nr_depths):
     inputs, pts_pyr, nrm_pyr, dists = tr.inputs, tr.points, tr.normals, tr.dists
     check("nonrigid_state", bool(tr.icp_res.ok), f"nodes {int(field.count)} of {n}, solve inputs P = "
           f"{inputs.p_can.shape[0]}, ICP ok on the next frame")
+    if args.dump_solve:
+        np.savez_compressed(
+            args.dump_solve, **{f"warp_{k}": v.cpu().numpy() for k, v in field._asdict().items()},
+            **{f"inputs_{k}": v.cpu().numpy() for k, v in inputs._asdict().items()},
+        )
+        print(f"[dump] warp field and solve inputs -> {args.dump_solve}", flush=True)
+    stencil_kernels(torch, report, dev, cfg, st, nr_depths[3])
 
     # E: KNN + DQB blend + warp at the coarse corners (the shared coarse field)
     q = fusion.coarse_corner_points(cfg, dev)
@@ -582,7 +643,7 @@ def nonrigid_kernels(torch, report, dev, nr_depths):
     )
 
     # D with the non-rigid arguments: warped coarse grid, blend quality, packed confidence
-    conf = kinfu.incidence_confidence(pts_pyr[0], nrm_pyr[0])
+    conf = tr.conf
     w2c = se3.inverse(tr.pose)
     ok_t = torch.ones((), dtype=torch.bool, device=dev)
     vk = volume_model.TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())
@@ -619,6 +680,185 @@ def nonrigid_kernels(torch, report, dev, nr_depths):
         library_ms=None,
     )
     del scratch, vk, vp, df
+
+
+def stencil_kernels(torch, report, dev, cfg, st, depth_np):
+    """Phase 2 for kernel C's newton8 branch and kernels I-K at the preset's
+    shapes: the preset's state after three frames, its next depth frame
+    with seeded noise and holes."""
+    import torch.nn.functional as F
+
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.core import se3
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+    from dynamicfusion_tpu_torch.ops import bricks, fusion, preprocess, tsdf as tsdf_ops
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    intr = cfg.intr
+    rng = np.random.RandomState(5)
+    d = depth_np.astype(np.int32)
+    d = np.where(d > 0, d + rng.randint(-3, 4, d.shape), 0)
+    d = np.where(rng.rand(*d.shape) < 0.01, 0, d)  # sensor holes
+    d_t = torch.from_numpy(d.astype(np.uint16)).to(dev)
+    rows, cols = d_t.shape
+    npx = rows * cols
+
+    # I: dists (and the truncation, off in the preset, in the same launch)
+    dk = preprocess.compute_dists(intr, d_t)
+    dp = preprocess.compute_dists(intr, d_t, plain=True)
+    err = float(((dk - dp).abs() / dp.clamp(min=1e-6)).max())
+    check("depth_dists", err <= TOL_DISTS_REL, f"{cols}x{rows}: max relative diff {err:.2e} (tol {TOL_DISTS_REL})")
+    report["depth_dists"] = dict(
+        err=abs_err(torch, dk, dp),
+        ms=cuda_ms(torch, lambda: kernels.depth_dists(d_t, intr)),
+        plain_ms=cuda_ms(torch, lambda: preprocess.compute_dists(intr, d_t, plain=True)),
+        # uint16 depth in, float32 dists out; ~12 operations a pixel
+        bound=bound_ms(npx * (2 + 4), npx * 12.0),
+        library_ms=None,
+    )
+
+    # I: the depth pyramid (exact); the row times the 640x480 -> 320x240 call
+    sig = cfg.bilateral_sigma_depth
+    f0 = preprocess.bilateral_filter(d_t, cfg.bilateral_kernel_size, cfg.bilateral_sigma_spatial, sig)
+    pyr, exact = [f0], True
+    for _ in range(1, cfg.pyramid_levels):
+        nk = preprocess.depth_pyramid_down(pyr[-1], sig)
+        exact = exact and torch.equal(nk.to(torch.int32), preprocess.depth_pyramid_down(pyr[-1], sig, plain=True).to(torch.int32))
+        pyr.append(nk)
+    check("pyramid_down", exact, f"levels {' -> '.join(f'{p.shape[1]}x{p.shape[0]}' for p in pyr)} equal the plain version's")
+    report["pyramid_down"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.pyramid_down(f0, sig)),
+        plain_ms=cuda_ms(torch, lambda: preprocess.depth_pyramid_down(f0, sig, plain=True)),
+        # the level read once, the half-size level written; 25 taps of ~5 operations an output pixel
+        bound=bound_ms(npx * 2 + npx // 4 * 2, npx // 4 * 25 * 5.0),
+        library_ms=None,
+    )
+
+    # I: point/normal maps: level 0 with the incidence confidence, the
+    # tracking levels 2 and 3, the raw level-2 points of the solve (stride 4)
+    worst = [0.0, 0.0, 0.0]
+    for img, stride, lvl, conf in ((pyr[0], 1, 0, True), (pyr[2], 1, 2, False), (pyr[3], 1, 3, False), (d_t, 4, 2, False)):
+        pk, nk, ck = kernels.points_normals(img, intr.level(lvl), stride, conf=conf)
+        pp, npl = preprocess.compute_points_normals(intr.level(lvl), img, stride=stride, plain=True)
+        valid = ~torch.isnan(pp[..., 0])
+        same_nan = torch.equal(torch.isnan(pk), torch.isnan(pp)) and torch.equal(torch.isnan(nk), torch.isnan(npl))
+        perr = float((pk - pp)[valid].abs().max())
+        nfrac = float(((nk - npl)[valid].abs().amax(-1) > TOL_NORMAL).float().mean())
+        cfrac = float(((ck - preprocess.incidence_confidence(pp, npl)).abs() > TOL_NORMAL).float().mean()) if conf else 0.0
+        check("points_normals", same_nan and perr <= TOL_POINTS_M and nfrac <= TOL_NORMAL_FRAC and cfrac <= TOL_NORMAL_FRAC,
+              f"level {lvl} stride {stride} ({pp.shape[1]}x{pp.shape[0]}, {float(valid.float().mean()):.3f} valid): "
+              f"NaNs alike {same_nan}, max point diff {perr:.2e} m (tol {TOL_POINTS_M}), normals > {TOL_NORMAL} apart "
+              f"on {nfrac:.2e}, confidence on {cfrac:.2e} (tol {TOL_NORMAL_FRAC})")
+        worst = [max(worst[0], perr), max(worst[1], abs_err(torch, nk[valid], npl[valid])), worst[2]]
+
+    def pn_plain():
+        p, n = preprocess.compute_points_normals(intr, f0, plain=True)
+        return preprocess.incidence_confidence(p, n)
+
+    report["points_normals"] = dict(
+        err=max(worst),
+        ms=cuda_ms(torch, lambda: kernels.points_normals(f0, intr, conf=True)),
+        plain_ms=cuda_ms(torch, pn_plain),
+        # level-0 depth in; points, normals and confidence out; ~90 operations a pixel
+        bound=bound_ms(npx * (2 + 12 + 12 + 4), npx * 90.0),
+        library_ms=None,
+    )
+
+    # I: the 2x2 resize of the warped model maps (exact)
+    mp, mn = st.prev_points[0], st.prev_normals[0]
+    rk = preprocess.resize_points_normals(mp, mn)
+    rp = preprocess.resize_points_normals(mp, mn, plain=True)
+    exact = all(torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                for a, b in zip(rk, rp))
+    check("resize_maps", exact, f"{mp.shape[1]}x{mp.shape[0]} -> {rk[0].shape[1]}x{rk[0].shape[0]} equal the plain version's")
+    stack6 = torch.cat([mp, mn], dim=-1).permute(2, 0, 1)[None].contiguous()
+    nm = mp.shape[0] * mp.shape[1]
+    report["resize_maps"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.resize_maps(mp, mn)),
+        plain_ms=cuda_ms(torch, lambda: preprocess.resize_points_normals(mp, mn, plain=True)),
+        bound=bound_ms(nm * 24 + nm // 4 * 24, nm // 4 * 6 * 4.0),
+        library_ms=cuda_ms(torch, lambda: F.avg_pool2d(stack6, 2)),
+    )
+
+    # J: the temporal march band (exact)
+    (_, bk), (_, bp) = kinfu._march_bands(cfg, st.can_points, dk), kinfu._march_bands(cfg, st.can_points, dk, plain=True)
+    exact = torch.equal(bk[0], bp[0]) and torch.equal(bk[1], bp[1])
+    check("march_bands", exact and bool((bk[1] > bk[0]).any()),
+          f"{bk[0].shape[1]}x{bk[0].shape[0]} band equal the plain version's; {int((bk[1] > bk[0]).sum())} rays banded")
+    can = st.can_points.contiguous()
+    nt = can.shape[0] * can.shape[1]
+    lo_src = bk[0][None, None].contiguous()
+    report["march_bands"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.march_bands(dk, cfg.raycast_subsample, can, cfg.raycast_band_margin, False)),
+        plain_ms=cuda_ms(torch, lambda: kinfu._march_bands(cfg, st.can_points, dk, plain=True)),
+        # strided dists and the model map in, lo and hi out; 25 taps of ~6 operations
+        bound=bound_ms(nt * (4 + 12 + 8), nt * (25 * 6.0 + 10.0)),
+        library_ms=cuda_ms(torch, lambda: F.max_pool2d(lo_src, 5, 1, padding=2)),
+    )
+
+    # C: the newton8 branch, in the band, at the preset's model-map resolution
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), st.pose)
+    ray_org, dirs, tmin, tmax = tsdf_ops.rays(cfg, cam2vol, intr.level(cfg.raycast_shift), rows_t, cols_t, t_band=bk)
+    fk, vk_, nk_ = tsdf_ops.march_and_refine(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax)
+    fp, vp_, np_ = tsdf_ops.march_and_refine_plain(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax)
+    both = fk & fp
+    found_frac = float((fk != fp).float().mean())
+    err = float((vk_ - vp_)[both].abs().max()) if bool(both.any()) else 0.0
+    nan_same = torch.equal(torch.isnan(nk_[both]), torch.isnan(np_[both]))
+    nerr = float(torch.nan_to_num((nk_ - np_)[both].abs(), nan=0.0).max()) if bool(both.any()) else 0.0
+    check("raycast_newton8", found_frac <= TOL_RAYCAST_FOUND_FRAC and err <= TOL_RAYCAST_M and nan_same,
+          f"hit/miss differs on {found_frac:.2e} of rays (tol {TOL_RAYCAST_FOUND_FRAC}), "
+          f"max vertex diff {err:.3e} m (tol {TOL_RAYCAST_M}), max normal diff {nerr:.3e}; "
+          f"{int(fk.sum())} of {fk.numel()} rays hit")
+    step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
+    n_samples = march_samples(torch, cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax) + 8.0 * int(fk.sum())
+    report["raycast_newton8"] = dict(
+        err=err,
+        ms=cuda_ms(torch, lambda: kernels.march_and_refine(
+            st.vol.tsdf, ray_org, dirs, tmin, tmax, cfg.voxel_size, step, tsdf_ops.march_steps(cfg),
+            cfg.raycast_adaptive_step, refine=1)),
+        plain_ms=cuda_ms(torch, lambda: tsdf_ops.march_and_refine_plain(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax), reps=3),
+        # int16 samples (march + 8 corners a hit), the rays in, found/vertex/normal out
+        bound=bound_ms(n_samples * 2 + rows_t * cols_t * (12 + 8 + 1 + 24), n_samples * 12.0 + int(fk.sum()) * 120.0),
+        library_ms=None,
+    )
+
+    # K: the brick plan at the preset's non-rigid fusion grid (exact)
+    g = cfg.knn_field_stride
+    cf = fusion.coarse_field(cfg, st.warp)
+    cam_grid = se3.transform_points(se3.inverse(st.pose), cf.warped).contiguous()
+    pk_ = bricks.plan(cfg, dk, cam_grid, g, intr)
+    pp_ = bricks.plan(cfg, dk, cam_grid, g, intr, plain=True)
+    exact = all(torch.equal(a, b) for a, b in zip(pk_.classes, pp_.classes)) and all(
+        torch.equal(a, b) for a, b in zip(pk_.work, pp_.work))
+    nbr = pk_.classes.cls.shape[0]
+    levels = int(math.ceil(math.log2(max(rows, cols)))) + 1
+    pyr_ref = bricks.build_depth_pyramid(dk, levels)
+    kargs = (dk, cam_grid, cfg.brick_size, g, intr, pk_.rect, volume_model.trunc_dist(cfg), bricks._ZEPS, levels,
+             bricks._brick_perm_on(nbr, dev), min(cfg.integrate_band_cap, nbr), min(cfg.integrate_wide_cap, nbr))
+    (mk, xk, ak), _, _ = kernels.brick_plan(*kargs)
+    exact_mip = torch.equal(mk, pyr_ref.dmin) and torch.equal(xk, pyr_ref.dmax) and torch.equal(ak, pyr_ref.allvalid)
+    hist = torch.bincount(pk_.classes.cls, minlength=4).tolist()
+    check("brick_plan", exact and exact_mip,
+          f"{levels}-level mip equal {exact_mip}; {nbr} bricks (skip, front, band, wide) {hist}, work list of "
+          f"{int(pk_.work.count[0])}, counts {pk_.work.counts.tolist()}: classes and list equal the plain version's {exact}")
+    gp = cam_grid.shape[0]
+    total = mk.numel()
+    report["brick_plan"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.brick_plan(*kargs)),
+        plain_ms=cuda_ms(torch, lambda: bricks.plan(cfg, dk, cam_grid, g, intr, plain=True)),
+        # dists, the grid and the permutation in; the mip, classes, windows,
+        # flags and the list out; ~3 operations a mip cell, ~25 a grid point
+        # of a brick's window, ~50 a mip query
+        bound=bound_ms(npx * 4 + gp ** 3 * 12 + nbr * 8 + total * 12 + nbr * (8 + 4 + 4 + 1 + 8) + 16,
+                       total * 3.0 + nbr * (27 * 25.0 + 16 * 50.0)),
+        library_ms=None,
+    )
 
 
 def pcg_iterations(torch, ws, s, sysm, minv, b, iters, rtol) -> int:
@@ -672,7 +912,8 @@ def rigid_main(torch, args, dev, card):
     counts = [c.tolist() for c in counts]
     print(f"[rigid] {args.frames} frames at {cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3; launches {launches}", flush=True)
     print(f"[rigid] icp_ok {sum(oks)}/{len(oks)}; brick counts (band, wide, dropped) first {counts[0]} last {counts[-1]}")
-    check("rigid_launches", all(launches[k] > 0 for k in RIGID_KERNELS), f"kernels A-D launched: {launches}")
+    check("rigid_launches", all(launches[k] > 0 for k in RIGID_KERNELS + STENCIL_KERNELS),
+          f"kernels A-D and I-K launched: {launches}")
     check("rigid_icp_ok", all(oks), f"ICP healthy on every tracked frame ({sum(oks)}/{len(oks)})")
     steady = sorted(frame_ms[2:])
     print(f"[time] {card} | rigid frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{args.frames - 1}), "
@@ -707,17 +948,19 @@ def rigid_main(torch, args, dev, card):
 
 
 def nonrigid_main(torch, args, dev, card, nr_depths):
-    """Phase 4: the non-rigid slice's frame loop, kernel path (steady
+    """Phase 4: the dynamicfusion preset's frame loop, kernel path (steady
     frames under the sync debug mode) and plain path."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.pipeline import kinfu
 
-    cfg = DynamicFusionConfig.nonrigid_slice()
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+
+    cfg = DynamicFusionConfig.default_dynamicfusion()
     frames = nr_depths[: args.nr_frames]
     df = kinfu.DynamicFusion(cfg, device=dev)
     kernels.reset_launches()
-    outs, frame_ms = [], []
+    outs, frame_ms, states = [], [], []
     for i, d in enumerate(frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -731,6 +974,10 @@ def nonrigid_main(torch, args, dev, card, nr_depths):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         if i > 0:
             outs.append(df.last_outputs)
+        # the state after this frame, for the plain step from it (the step
+        # updates the volume in place; every other field is made anew)
+        st = df.state
+        states.append(st._replace(vol=TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())))
     launches = dict(kernels.launches)
     poses_k = [p.cpu().numpy() for p in df.poses]
     rows = [dict(ok=bool(o.icp_ok), c0=float(o.solver_cost0), c1=float(o.solver_cost1), nodes=int(o.node_count),
@@ -761,6 +1008,26 @@ def nonrigid_main(torch, args, dev, card, nr_depths):
     print(f"[time] {card} | non-rigid frame ms median {med:.3f} (frames 2..{len(frames) - 1}), "
           f"frame 0 {frame_ms[0]:.3f}, frame 1 {frame_ms[1]:.3f}, min {steady[0]:.3f}, max {steady[-1]:.3f}", flush=True)
 
+    # the plain step from the kernel path's previous state, frame by frame
+    step_t, step_r, step_c, step_same = [], [], [], True
+    for f in range(1, len(frames)):
+        _, o = kinfu.step(cfg, states[f - 1], torch.from_numpy(frames[f]).to(dev), plain=True)
+        pk, pp = poses_k[f], o.pose.cpu().numpy()
+        step_t.append(float(np.abs(pk[:3, 3] - pp[:3, 3]).max()))
+        step_r.append(float(np.abs(pk[:3, :3] - pp[:3, :3]).max()))
+        step_c.append(abs(float(o.solver_cost0) - rows[f - 1]["c0"]) / rows[f - 1]["c0"])
+        step_same = step_same and bool(o.icp_ok) == rows[f - 1]["ok"] and int(o.node_count) == rows[f - 1]["nodes"]
+    del states
+    print(f"[nonrigid-step] plain step from the kernel path's state, per frame: translation diff (m) "
+          f"{' '.join(f'{v:.2e}' for v in step_t)}; rotation entry {' '.join(f'{v:.2e}' for v in step_r)}; "
+          f"initial solve cost, relative {' '.join(f'{v:.2e}' for v in step_c)}")
+    check("nonrigid_step_vs_plain",
+          step_same and max(step_t) <= TOL_STEP_POSE and max(step_r) <= TOL_STEP_POSE
+          and max(step_c) <= TOL_STEP_COST0_REL,
+          f"ICP health and node counts equal {step_same}; max translation diff {max(step_t):.3e} m, rotation "
+          f"entry {max(step_r):.3e} (tol {TOL_STEP_POSE}); initial solve cost {max(step_c):.3e} relative "
+          f"(tol {TOL_STEP_COST0_REL})")
+
     plain = kinfu.DynamicFusion(cfg, device=dev, plain=True)
     plain_ms = []
     for d in frames:
@@ -781,20 +1048,28 @@ def nonrigid_main(torch, args, dev, card, nr_depths):
     print(f"[nonrigid-plain] node dq max diff {dq_err:.3e} over {int(both.sum())} nodes active in both; "
           f"nodes {int(wk.count)} / {int(wp.count)}")
     print(f"[time] {card} | non-rigid plain-path frame ms median {psteady[len(psteady) // 2]:.3f}")
-    # the path's own sensitivity: the kernel path again from frame-0 node
+    # the paths' own sensitivity: the kernel path again from frame-0 node
     # positions moved by 1e-7 relative (the bf16 rows of the solve let a
-    # last bit move the LM step, and ICP carries it into the pose)
+    # last bit move the LM step, and ICP carries it into the pose), and the
+    # plain path run again
     spread = [0.0] * len(frames)
     for seed in PERTURB_SEEDS:
         poses_s = perturbed_run(torch, kinfu, cfg, dev, frames, seed)
         spread = [max(v, float(np.abs(a[:3, 3] - b[:3, 3]).max())) for v, a, b in zip(spread, poses_s, poses_k)]
     print(f"[nonrigid-spread] kernel path vs itself from perturbed nodes, per frame (m): "
           f"{' '.join(f'{v:.2e}' for v in spread)}")
+    plain2 = kinfu.DynamicFusion(cfg, device=dev, plain=True)
+    for d in frames:
+        plain2(d, block=False)
+    rerun = [float(np.abs(a[:3, 3] - b.cpu().numpy()[:3, 3]).max()) for a, b in zip(poses_p, plain2.poses)]
+    del plain2
+    print(f"[nonrigid-spread] plain path vs itself run again, per frame (m): {' '.join(f'{v:.2e}' for v in rerun)}")
+    spread = [max(a, b) for a, b in zip(spread, rerun)]
     tol = [max(TOL_POSE_PLAIN_M, SPREAD * v) for v in spread]
     worst = max(range(len(frames)), key=lambda i: per_frame[i] / tol[i])
-    check("nonrigid_pose_vs_plain", all(a <= t for a, t in zip(per_frame, tol)),
-          f"max |t_kernel - t_plain| {max(per_frame):.3e} m; worst against its tolerance at frame {worst}: "
-          f"{per_frame[worst]:.3e} m (tol max({TOL_POSE_PLAIN_M}, {SPREAD} x spread) = {tol[worst]:.3e})")
+    print(f"[nonrigid-plain] free running: max |t_kernel - t_plain| {max(per_frame):.3e} m; frames past "
+          f"max({TOL_POSE_PLAIN_M}, {SPREAD} x spread): {[i for i in range(len(frames)) if per_frame[i] > tol[i]]}; "
+          f"worst at frame {worst}: {per_frame[worst]:.3e} m against {tol[worst]:.3e}")
     check("nonrigid_nodes_vs_plain", int(wk.count) == int(wp.count) and torch.equal(wk.active, wp.active),
           f"node count {int(wk.count)} / {int(wp.count)}, active sets equal")
     rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
@@ -857,6 +1132,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=15, help="frames of the rigid slice")
     ap.add_argument("--nr-frames", type=int, default=20, help="frames of the non-rigid slice")
     ap.add_argument("--profile", default=None, help="write a torch.profiler table of 3 non-rigid frames here")
+    ap.add_argument("--dump-solve", default=None, help="write the phase-2 warp field and solve inputs to this .npz")
     args = ap.parse_args()
 
     import torch
@@ -889,12 +1165,12 @@ def main() -> int:
             print("  " + line.strip())
 
     # ---------------- 2. kernels vs plain ----------------
-    nr = DynamicFusionConfig.nonrigid_slice()
+    nr = DynamicFusionConfig.default_dynamicfusion()
     n_prof = 3 if args.profile else 0
     nr_depths = synthetic.deforming_frames(nr.intr, nr.rows, nr.cols, max(args.nr_frames, 4) + n_prof)
     report = {}
     rigid_kernels(torch, args, report, dev, card)
-    nonrigid_kernels(torch, report, dev, nr_depths)
+    nonrigid_kernels(torch, args, report, dev, nr_depths)
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---------------- 3. the rigid main path ----------------
@@ -912,8 +1188,7 @@ def main() -> int:
     for name, (src, rep) in ROWS.items():
         r = report[name]
         rigid = name in RIGID_KERNELS
-        counter = "fuse_bricks" if name == "fuse_bricks_nonrigid" else name
-        n_launch = (rigid_launches if rigid else nr_launches)[counter]
+        n_launch = (rigid_launches if rigid else nr_launches)[COUNTER.get(name, name)]
         rows_out.append(dict(
             name=name, route="cuda", source=f"dynamicfusion_tpu_torch/csrc/{src}", replaces=rep,
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],

@@ -263,7 +263,8 @@ class DynamicFusionConfig:
 
     @classmethod
     def nonrigid_slice(cls) -> "DynamicFusionConfig":
-        """The non-rigid DynamicFusion slice at 640x480 / 256^3 / 1024 nodes:
-        the dynamicfusion preset with the secant refine (the base default)
-        in place of newton8, which the port does not have yet."""
+        """The secant variant of the dynamicfusion preset (640x480 / 256^3 /
+        1024 nodes, the secant refine of the base default in place of
+        newton8): the non-rigid step with kernel C's other branch, for
+        tests that hold a solve independent of the refine."""
         return dataclasses.replace(cls.default_dynamicfusion(), raycast_refine="secant")

@@ -1,23 +1,28 @@
-// Kernel C: per-ray TSDF march + secant refine + Newton polish.
+// Kernel C: per-ray TSDF march + refine (secant + Newton polish, or newton8).
 //
-// Replaces dynamicfusion_tpu/ops/tsdf.py:386 march_and_refine (secant
-// branch :570-607), called by raycast :281. On the TPU every ray marches
-// in lockstep (a while_loop over the whole image, finished rays masked),
-// so each trip costs as much as the slowest ray.
+// Replaces dynamicfusion_tpu/ops/tsdf.py:386 march_and_refine, called by
+// raycast :281: the secant branch :570-607 (refine 0) and the newton8
+// branch :529-569 (refine 1, the dynamicfusion preset's). On the TPU every
+// ray marches in lockstep (a while_loop over the whole image, finished rays
+// masked), so each trip costs as much as the slowest ray.
 //
 // Bound on the H100: memory latency. A ray takes up to 60 dependent
-// nearest-voxel int16 loads scattered through a 33.5 MB volume, then 24
-// trilinear corner loads; at 160x120 rays the bytes are small (a few MB,
-// mostly from L2: the volume fits the 50 MB L2), so the dependent-load
-// chain of the longest rays sets the time.
+// nearest-voxel int16 loads scattered through a 33.5 MB volume, then the
+// refine's trilinear corner loads (24 for secant: two values and one fused
+// value + gradient; 8 for newton8: one fused fetch); at 160x120 rays the
+// bytes are small (a few MB, mostly from L2: the volume fits the 50 MB L2),
+// so the dependent-load chain of the longest rays sets the time.
 // Design: one thread per ray with its own early exit, so a ray that hits
 // early stops loading; int16 codes are loaded through the read-only path
 // and decoded after the load. The march keeps the JAX semantics exactly:
 // nearest fetch rounded half-to-even (rintf) and clipped, step doubled
 // where the previous sample is > 0.99, the step cap is n_steps rounded up
-// to even (the JAX loop runs two steps per trip), and the bracket, secant
-// and Newton arithmetic with its 1e-12 guards follow :581-606 operation
-// for operation. The normal is the unnormalized trilinear gradient.
+// to even (the JAX loop runs two steps per trip). newton8 keeps the
+// nearest-fetched bracket values f0/f1 of the crossing in registers; its
+// clipped secant alpha, the fused fetch and the clamped Newton step follow
+// :548-566 operation for operation, as the secant branch follows :581-606,
+// with the same 1e-12 guards. The normal is the unnormalized trilinear
+// gradient: for newton8 at the secant point, before the Newton step.
 #include "common.cuh"
 
 namespace {
@@ -115,7 +120,7 @@ struct Vol {
 __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
                                const float* __restrict__ dirs, const float* __restrict__ tmin_p,
                                const float* __restrict__ tmax_p, int n, float inv_vs, float step,
-                               int max_steps, int adaptive, bool* __restrict__ found_out,
+                               int max_steps, int adaptive, int refine, bool* __restrict__ found_out,
                                float* __restrict__ vertex_out, float* __restrict__ normal_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
@@ -126,6 +131,7 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
   bool done = t >= tmax;
   bool found = false;
   float t_hit = 0.0f, dt_hit = step;
+  float f0 = 1.0f, f1 = -1.0f;  // nearest-fetched bracket values (newton8)
   float prev = vol.nearest((ox + dx * t) * inv_vs, (oy + dy * t) * inv_vs, (oz + dz * t) * inv_vs);
   for (int i = 0; i < max_steps && !done; ++i) {
     if (!(t < tmax)) break;  // the JAX `active` test (only NaN bounds reach it)
@@ -139,6 +145,8 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
       found = true;
       t_hit = t;
       dt_hit = dt;
+      f0 = prev;
+      f1 = next;
     }
     t = tn;
     prev = next;
@@ -151,17 +159,25 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
     for (int a = 0; a < 3; ++a) vertex_out[3 * r + a] = normal_out[3 * r + a] = nan;
     return;
   }
-  // secant between the trilinear values at the bracket ends
-  const float t1 = t_hit + dt_hit;
-  const float ft = vol.interp((ox + dx * t_hit) * inv_vs, (oy + dy * t_hit) * inv_vs,
-                              (oz + dz * t_hit) * inv_vs);
-  const float ftdt =
-      vol.interp((ox + dx * t1) * inv_vs, (oy + dy * t1) * inv_vs, (oz + dz * t1) * inv_vs);
-  const float denom = ftdt - ft;
-  float ts = t_hit - dt_hit * ft / (fabsf(denom) > 1e-12f ? denom : 1e-12f);
-  if (isnan(ft) || isnan(ftdt)) ts = t_hit;
-  // Newton polish with the fused value + gradient fetch
+  float ts;
   float grad[3];
+  if (refine == 1) {
+    // newton8: the secant of the nearest-fetched bracket values, clipped
+    const float denom0 = f0 - f1;
+    const float alpha = fminf(fmaxf(f0 / (fabsf(denom0) > 1e-12f ? denom0 : 1e-12f), 0.0f), 1.0f);
+    ts = t_hit + dt_hit * alpha;
+  } else {
+    // secant between the trilinear values at the bracket ends
+    const float t1 = t_hit + dt_hit;
+    const float ft = vol.interp((ox + dx * t_hit) * inv_vs, (oy + dy * t_hit) * inv_vs,
+                                (oz + dz * t_hit) * inv_vs);
+    const float ftdt =
+        vol.interp((ox + dx * t1) * inv_vs, (oy + dy * t1) * inv_vs, (oz + dz * t1) * inv_vs);
+    const float denom = ftdt - ft;
+    ts = t_hit - dt_hit * ft / (fabsf(denom) > 1e-12f ? denom : 1e-12f);
+    if (isnan(ft) || isnan(ftdt)) ts = t_hit;
+  }
+  // one clamped Newton step with the fused value + gradient fetch
   const float fv =
       vol.interp_grad((ox + dx * ts) * inv_vs, (oy + dy * ts) * inv_vs, (oz + dz * ts) * inv_vs, grad);
   const float dfdt = (grad[0] * dx + grad[1] * dy + grad[2] * dz) * inv_vs;
@@ -179,7 +195,7 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
 
 extern "C" int df_raycast(const void* tsdf, int d, const void* ray_org, const void* dirs,
                           const void* tmin, const void* tmax, int n, float inv_vs, float step,
-                          int max_steps, int adaptive, float decode_scale, void* found,
+                          int max_steps, int adaptive, int refine, float decode_scale, void* found,
                           void* vertex, void* normal, void* stream) {
   Vol vol{static_cast<const int16_t*>(tsdf), d, decode_scale};
   const int threads = 128;
@@ -188,7 +204,7 @@ extern "C" int df_raycast(const void* tsdf, int d, const void* ray_org, const vo
     raycast_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         vol, static_cast<const float*>(ray_org), static_cast<const float*>(dirs),
         static_cast<const float*>(tmin), static_cast<const float*>(tmax), n, inv_vs, step,
-        max_steps, adaptive, static_cast<bool*>(found), static_cast<float*>(vertex),
+        max_steps, adaptive, refine, static_cast<bool*>(found), static_cast<float*>(vertex),
         static_cast<float*>(normal));
   }
   return static_cast<int>(cudaGetLastError());

@@ -34,6 +34,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = (
     "bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu",
     "knn_blend.cu", "data_term.cu", "pcg.cu", "insert_nodes.cu",
+    "preprocess.cu", "bands.cu", "classify.cu",
 )
 HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh")
 NVCC_FLAGS = (
@@ -46,11 +47,13 @@ NVCC_FLAGS = (
 )
 
 # one launch counter per wrapper; a wrapper's kernel is the letter in its
-# docstring (A-D the rigid slice, E-H the non-rigid one)
+# docstring (A-D the rigid slice, E-H the non-rigid one, I-K the per-frame
+# stencils and the brick plan)
 KERNELS = (
     "bilateral", "icp_reduce", "raycast", "fuse_bricks",
     "knn_blend", "mutual_nearest", "warp_trilinear", "data_term",
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
+    "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "brick_plan",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -64,7 +67,7 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "df_bilateral": (_P, _P, _I, _I, _I, _D, _F, _P),
     "df_icp_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
-    "df_raycast": (_P, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _F, _P, _P, _P, _P),
+    "df_raycast": (_P, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
     "df_fuse_bricks": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
@@ -79,6 +82,15 @@ _SIGNATURES = {
     "df_pcg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
     "df_insert_select": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P),
     "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P),
+    "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
+    "df_pyramid_down": (_P, _I, _I, _F, _P, _P),
+    "df_points_normals": (_P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
+    "df_resize_maps": (_P, _P, _I, _I, _P, _P, _P),
+    "df_march_bands": (_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P),
+    "df_brick_plan": (
+        _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+        _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
 }
 
 
@@ -283,10 +295,14 @@ def march_and_refine(
     step: float,
     max_steps: int,
     adaptive: bool,
+    refine: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel C (csrc/raycast.cu): per-ray march + secant/Newton refine on
-    an int16 volume. Returns (found, vertex_vol, normal_vol); rays that
-    found nothing carry NaN vertex and normal."""
+    """Kernel C (csrc/raycast.cu): per-ray march + refine on an int16
+    volume, ``refine`` 0 = secant + Newton polish, 1 = newton8. Returns
+    (found, vertex_vol, normal_vol); rays that found nothing carry NaN
+    vertex and normal."""
+    if refine not in (0, 1):
+        raise ValueError(f"refine: expected 0 (secant) or 1 (newton8), got {refine}")
     if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1:
         raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
     _check(tsdf, "tsdf", torch.int16)
@@ -305,7 +321,7 @@ def march_and_refine(
     rc = lib.df_raycast(
         tsdf.data_ptr(), tsdf.shape[0], ray_org.data_ptr(), dirs.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), tmin.numel(),
-        _f32(1.0 / voxel_size), _f32(step), max_steps, int(adaptive),
+        _f32(1.0 / voxel_size), _f32(step), max_steps, int(adaptive), refine,
         _f32(1.0 / 32767.0), found.data_ptr(), vertex.data_ptr(), normal.data_ptr(),
         _stream(dev),
     )
@@ -703,3 +719,188 @@ def insert_apply(positions, dq, radius, active, count, last_support, slots, new_
     )
     _done("insert_apply", rc)
     return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# kernel I: the preprocessing stencils
+# --------------------------------------------------------------------------
+
+
+def _check_depth(depth: torch.Tensor, name: str = "depth_mm") -> None:
+    _check(depth, name, torch.uint16)
+    if depth.dim() != 2:
+        raise ValueError(f"{name}: expected (H, W), got {tuple(depth.shape)}")
+
+
+def depth_dists(depth_mm: torch.Tensor, intr, filtered: Optional[torch.Tensor] = None, max_dist_m: float = 0.0):
+    """Kernel I's first entry (csrc/preprocess.cu): (dists (H, W) float32
+    ray distance in metres of the raw uint16 mm depth, and, given
+    ``filtered``, that image with depth beyond ``max_dist_m`` zeroed, else
+    None), one launch."""
+    _check_depth(depth_mm)
+    if filtered is not None:
+        _check(filtered, "filtered", torch.uint16, depth_mm.shape)
+        _same_device(depth_mm, filtered)
+    lib = load()
+    rows, cols = depth_mm.shape
+    dists = torch.empty(depth_mm.shape, dtype=torch.float32, device=depth_mm.device)
+    trunc = torch.empty_like(filtered) if filtered is not None else None
+    rc = lib.df_depth_dists(
+        depth_mm.data_ptr(), rows, cols, _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
+        None if filtered is None else filtered.data_ptr(), _f32(max_dist_m * 1000.0), dists.data_ptr(),
+        None if trunc is None else trunc.data_ptr(), _stream(depth_mm.device),
+    )
+    _done("depth_dists", rc)
+    return dists, trunc
+
+
+def pyramid_down(depth_mm: torch.Tensor, sigma_depth_m: float) -> torch.Tensor:
+    """Kernel I: the depth-aware 2x downsample, (H, W) -> (H // 2, W // 2)
+    uint16 mm."""
+    _check_depth(depth_mm)
+    lib = load()
+    h, w = depth_mm.shape
+    out = torch.empty((h // 2, w // 2), dtype=torch.uint16, device=depth_mm.device)
+    rc = lib.df_pyramid_down(depth_mm.data_ptr(), h, w, _f32(sigma_depth_m * 1000.0 * 3.0), out.data_ptr(),
+                             _stream(depth_mm.device))
+    _done("pyramid_down", rc)
+    return out
+
+
+def points_normals(depth_mm: torch.Tensor, intr, stride: int = 1, normals: bool = True, conf: bool = False):
+    """Kernel I: (points, normals | None, incidence confidence | None) of
+    ``depth_mm[::stride, ::stride]``, each (H', W', 3) / (H', W') float32,
+    read in place from the full image."""
+    _check_depth(depth_mm)
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    lib = load()
+    rows, cols = depth_mm.shape
+    h, w = (rows + stride - 1) // stride, (cols + stride - 1) // stride
+    dev = depth_mm.device
+    pts = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    nrm = torch.empty((h, w, 3), dtype=torch.float32, device=dev) if normals else None
+    cf = torch.empty((h, w), dtype=torch.float32, device=dev) if conf else None
+    rc = lib.df_points_normals(
+        depth_mm.data_ptr(), h, w, stride, cols, _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
+        pts.data_ptr(), None if nrm is None else nrm.data_ptr(), None if cf is None else cf.data_ptr(),
+        _stream(dev),
+    )
+    _done("points_normals", rc)
+    return pts, nrm, cf
+
+
+def resize_maps(points: torch.Tensor, normals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel I: the 2x2 mean of (H, W, 3) point and normal maps, valid only
+    where all four points are."""
+    _check(points, "points", torch.float32)
+    if points.dim() != 3 or points.shape[-1] != 3:
+        raise ValueError(f"points: expected (H, W, 3), got {tuple(points.shape)}")
+    _check(normals, "normals", torch.float32, points.shape)
+    _same_device(points, normals)
+    lib = load()
+    h, w = points.shape[:2]
+    op = torch.empty((h // 2, w // 2, 3), dtype=torch.float32, device=points.device)
+    on = torch.empty_like(op)
+    rc = lib.df_resize_maps(points.data_ptr(), normals.data_ptr(), h, w, op.data_ptr(), on.data_ptr(),
+                            _stream(points.device))
+    _done("resize_maps", rc)
+    return op, on
+
+
+# --------------------------------------------------------------------------
+# kernel J: march band and seed
+# --------------------------------------------------------------------------
+
+
+def march_bands(dists: torch.Tensor, stride: int, prev_points: Optional[torch.Tensor], margin: float, seed: bool):
+    """Kernel J (csrc/bands.cu): from ``dists[::stride, ::stride]`` and the
+    previous (H', W', 3) model map, the raycast seed (None without
+    ``seed``) and the temporal band (lo, hi) (None without
+    ``prev_points``), one launch."""
+    _check(dists, "dists", torch.float32)
+    if dists.dim() != 2:
+        raise ValueError(f"dists: expected (H, W), got {tuple(dists.shape)}")
+    rows, cols = (dists.shape[0] + stride - 1) // stride, (dists.shape[1] + stride - 1) // stride
+    if prev_points is not None:
+        _check(prev_points, "prev_points", torch.float32, (rows, cols, 3))
+        _same_device(dists, prev_points)
+    if prev_points is None and not seed:
+        raise ValueError("march_bands: nothing to compute")
+    lib = load()
+    dev = dists.device
+    lo = torch.empty((rows, cols), dtype=torch.float32, device=dev) if prev_points is not None else None
+    hi = torch.empty_like(lo) if lo is not None else None
+    sd = torch.empty((rows, cols), dtype=torch.float32, device=dev) if seed else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.df_march_bands(dists.data_ptr(), dists.shape[1], stride, rows, cols, ptr(prev_points), _f32(margin),
+                            ptr(lo), ptr(hi), ptr(sd), _stream(dev))
+    _done("march_bands", rc)
+    return sd, (None if lo is None else (lo, hi))
+
+
+# --------------------------------------------------------------------------
+# kernel K: brick classification and work list
+# --------------------------------------------------------------------------
+
+
+def brick_plan(
+    dists: torch.Tensor,
+    cam_grid: torch.Tensor,
+    brick: int,
+    stride: int,
+    intr,
+    rect: int,
+    trunc: float,
+    zeps: float,
+    levels: int,
+    perm: torch.Tensor,
+    band_cap: int,
+    wide_cap: int,
+    phase: Optional[torch.Tensor] = None,
+    split: int = 1,
+):
+    """Kernel K (csrc/classify.cu, two launches): the min/max/all-valid mip
+    of ``dists`` (``levels`` levels, concatenated), every brick's class,
+    window origin and surface flag (bricks outside the x-plane ``phase``
+    mod ``split`` skipped) and the work list. Returns ((dmin, dmax,
+    allvalid), (cls (NBR,) int64, u0, v0 (NBR,) int32, surf (NBR,) bool),
+    (ids, kind (NBR,) int32, count (1,) int32, counts (3,) int32))."""
+    _check(dists, "dists", torch.float32)
+    if dists.dim() != 2:
+        raise ValueError(f"dists: expected (H, W), got {tuple(dists.shape)}")
+    _check(cam_grid, "cam_grid", torch.float32)
+    gp = cam_grid.shape[0]
+    if cam_grid.dim() != 4 or cam_grid.shape != (gp, gp, gp, 3) or brick % stride or (gp - 1) % (brick // stride):
+        raise ValueError(f"cam_grid: bad grid {tuple(cam_grid.shape)} for brick {brick}, stride {stride}")
+    w = brick // stride
+    nb = (gp - 1) // w
+    nbr = nb ** 3
+    _check(perm, "perm", torch.int64, (nbr,))
+    if phase is not None:
+        _check(phase, "phase", torch.int32, ())
+    elif split > 1:
+        raise ValueError("a phase split needs the phase")
+    _same_device(dists, cam_grid, perm, *([phase] if phase is not None else []))
+    lib = load()
+    dev = dists.device
+    rows, cols = dists.shape
+    total, h, wd = 0, rows, cols
+    for _ in range(levels):
+        total += h * wd
+        h, wd = (h + 1) // 2, (wd + 1) // 2
+    pyr = torch.empty((3, total), dtype=torch.float32, device=dev)
+    cls = torch.empty((nbr,), dtype=torch.int64, device=dev)
+    uv = torch.empty((2, nbr), dtype=torch.int32, device=dev)
+    surf = torch.empty((nbr,), dtype=torch.bool, device=dev)
+    work = torch.empty((2 * nbr + 4,), dtype=torch.int32, device=dev)
+    ids, kind, count, counts = work[:nbr], work[nbr : 2 * nbr], work[2 * nbr : 2 * nbr + 1], work[2 * nbr + 1 :]
+    rc = lib.df_brick_plan(
+        dists.data_ptr(), rows, cols, levels, pyr[0].data_ptr(), pyr[1].data_ptr(), pyr[2].data_ptr(),
+        cam_grid.data_ptr(), gp, w, nb, _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
+        rect, _f32(trunc), _f32(zeps), None if phase is None else phase.data_ptr(), split, perm.data_ptr(),
+        band_cap, wide_cap, cls.data_ptr(), uv[0].data_ptr(), uv[1].data_ptr(), surf.data_ptr(),
+        ids.data_ptr(), kind.data_ptr(), count.data_ptr(), counts.data_ptr(), _stream(dev),
+    )
+    _done("brick_plan", rc)
+    return (pyr[0], pyr[1], pyr[2]), (cls, uv[0], uv[1], surf), (ids, kind, count, counts)

@@ -3,11 +3,13 @@
 Each 16^3 brick is classified from a coarse camera-frame grid of its
 corners and a min/max depth pyramid as skip, front (free space: constant
 update), band (straddles the truncation band: per-voxel depth lookup) or
-wide (footprint larger than the band window). The classification and the
-capped, prioritized selection of band bricks run as PyTorch on the device
-with static shapes: ``_plan`` ranks bricks with cumulative sums and
-compacts them into one work list with a scatter, and the count of real
-entries stays a device tensor. No step of it syncs with the host.
+wide (footprint larger than the band window). The pyramid, the
+classification and the capped, prioritized selection of band bricks are
+CUDA kernel K (``csrc/classify.cu``) on CUDA tensors; the plain version
+runs as PyTorch with static shapes: ``_plan`` ranks bricks with cumulative
+sums and compacts them into one work list with a scatter. Either way the
+count of real entries stays a device tensor and no step syncs with the
+host.
 
 The fuse itself is CUDA kernel D (``csrc/fuse_bricks.cu``) on CUDA
 tensors: one block per listed brick, IN PLACE on the (D, D, D) volume,
@@ -115,7 +117,9 @@ def query_rect(pyr: DepthPyramid, u0, u1, v0, v1, ncells: int = 4):
     dev = u0.device
     ext = torch.maximum(u1 - u0, v1 - v0)
     # log(x)/log(2), as jnp.log2 computes it: the level choice must agree
-    x = torch.clamp(ext, min=1.0) / (ncells - 1)
+    # a true division (by a tensor: CUDA PyTorch multiplies by the
+    # reciprocal of a Python scalar), as kernel K and the JAX package divide
+    x = torch.clamp(ext, min=1.0) / torch.full((), float(ncells - 1), device=dev)
     lvl = torch.ceil(torch.log(x) / torch.log(torch.full((), 2.0, device=dev)))
     lvl = lvl.clamp(0, pyr.levels - 1).to(torch.int64)
     cell = torch.exp2(lvl.to(torch.float32))
@@ -490,25 +494,33 @@ class BrickPlan(NamedTuple):
 
 def plan(
     cfg: DynamicFusionConfig, dists: torch.Tensor, cam_grid: torch.Tensor, g: int, intr: Intrinsics,
-    phase: Optional[torch.Tensor] = None, split: int = 1,
+    phase: Optional[torch.Tensor] = None, split: int = 1, plain: bool = False,
 ) -> BrickPlan:
     """Classify every brick against the dists image and list the ones to
-    fuse (``_plan``), all on the device. With ``split`` > 1 only bricks
-    whose x-plane index is ``phase`` (a device tensor) modulo ``split``
-    take part, and the caps divide by ``split``."""
+    fuse (``_plan``), all on the device: kernel K on CUDA tensors, the
+    plain version on CPU tensors or where the caller asks for it. With
+    ``split`` > 1 only bricks whose x-plane index is ``phase`` (a device
+    tensor) modulo ``split`` take part, and the caps divide by ``split``."""
     d, b = cfg.volume_dims, cfg.brick_size
     nbr = (d // b) ** 3
     rows, cols = dists.shape
     rect = min(cfg.integrate_rect, 1 << int(math.log2(min(rows, cols))))
     levels = int(math.ceil(math.log2(max(rows, cols)))) + 1
+    band_cap = min(max(cfg.integrate_band_cap // split, 1), nbr)
+    wide_cap = min(max(cfg.integrate_wide_cap // split, 1), nbr)
+    if not (plain or dists.device.type == "cpu"):
+        _, (cls, u0, v0, surf), (ids, kind, count, counts) = kernels.brick_plan(
+            dists, cam_grid, b, g, intr, rect, volume_model.trunc_dist(cfg), _ZEPS, levels,
+            _brick_perm_on(nbr, dists.device), band_cap, wide_cap,
+            phase=None if split == 1 else phase.to(torch.int32).reshape(()), split=split,
+        )
+        return BrickPlan(BrickClasses(cls, u0, v0, surf), WorkList(ids, kind, count, counts), rect)
     pyr = build_depth_pyramid(dists, levels)
     bc = classify(cfg, cam_grid, g, pyr, intr, rows, cols, rect)
     if split > 1:
         nb_x = d // b
         bx = torch.arange(nbr, device=dists.device) // (nb_x * nb_x)
         bc = bc._replace(cls=torch.where((bx % split) == phase, bc.cls, SKIP))
-    band_cap = min(max(cfg.integrate_band_cap // split, 1), nbr)
-    wide_cap = min(max(cfg.integrate_wide_cap // split, 1), nbr)
     return BrickPlan(bc, _plan(bc, band_cap, wide_cap), rect)
 
 
@@ -568,7 +580,7 @@ def integrate_bricks(
     update is skipped then)."""
     if ok is None:
         ok = torch.ones((), dtype=torch.bool, device=dists.device)
-    bp = plan(cfg, dists, cam_grid, g, intr, phase, split)
+    bp = plan(cfg, dists, cam_grid, g, intr, phase, split, plain)
     lookup = dists if conf is None else pack_depth_conf(dists, conf)
     fuse(cfg, vol, lookup, cam_grid, g, intr, bp, ok, q_grid, conf is not None, plain)
     return torch.where(ok, bp.work.counts, 0)

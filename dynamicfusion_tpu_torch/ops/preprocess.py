@@ -6,7 +6,10 @@ float32 ray distance in meters; point/normal maps (H, W, 3) float32
 camera-space, NaN = invalid.
 
 ``bilateral_filter`` owns CUDA kernel A (``csrc/bilateral.cu``); the other
-stencils run as plain PyTorch on every device for now.
+stencils (dists and depth truncation, the depth pyramid, point/normal maps
+with the fusion's incidence confidence, the 2x2 map resize) own kernel I
+(``csrc/preprocess.cu``). CUDA tensors go through the kernels, CPU tensors
+(or ``plain=True``) through the plain versions below.
 """
 
 from __future__ import annotations
@@ -79,6 +82,10 @@ def bilateral_filter(
     return kernels.bilateral_filter(depth_mm, kernel_size, sigma_spatial, sigma_depth_m)
 
 
+def _plain(t: torch.Tensor, plain: bool) -> bool:
+    return plain or t.device.type == "cpu"
+
+
 def truncate_depth(depth_mm: torch.Tensor, max_dist_m: float) -> torch.Tensor:
     """Zero out depth beyond max_dist meters."""
     far = depth_mm.to(torch.float32) > max_dist_m * 1000.0
@@ -86,9 +93,12 @@ def truncate_depth(depth_mm: torch.Tensor, max_dist_m: float) -> torch.Tensor:
     return torch.where(far, 0, depth_mm.to(torch.int32)).to(depth_mm.dtype)
 
 
-def depth_pyramid_down(depth_mm: torch.Tensor, sigma_depth_m: float = 0.04) -> torch.Tensor:
+def depth_pyramid_down(depth_mm: torch.Tensor, sigma_depth_m: float = 0.04, plain: bool = False) -> torch.Tensor:
     """Depth-aware 2x downsample: mean of the 5x5 window around (2y, 2x)
-    over values within 3σ of the centre (truncated to integer mm)."""
+    over values within 3σ of the centre (truncated to integer mm); kernel I
+    on CUDA tensors."""
+    if not _plain(depth_mm, plain):
+        return kernels.pyramid_down(depth_mm, sigma_depth_m)
     d = depth_mm.to(torch.float32)
     h, w = d.shape
     thresh = sigma_depth_m * 1000.0 * 3.0
@@ -106,11 +116,15 @@ def depth_pyramid_down(depth_mm: torch.Tensor, sigma_depth_m: float = 0.04) -> t
 
 
 def compute_points_normals(
-    intr: Intrinsics, depth_mm: torch.Tensor
+    intr: Intrinsics, depth_mm: torch.Tensor, stride: int = 1, plain: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Vertex map + forward-difference normal map; a pixel is valid only if
-    it and its right and lower neighbours have depth."""
-    z00 = depth_mm.to(torch.float32) * 0.001
+    """Vertex map + forward-difference normal map of
+    ``depth_mm[::stride, ::stride]``; a pixel is valid only if it and its
+    right and lower neighbours have depth. Kernel I on CUDA tensors."""
+    if not _plain(depth_mm, plain):
+        p, n, _ = kernels.points_normals(depth_mm, intr, stride)
+        return p, n
+    z00 = depth_mm[::stride, ::stride].to(torch.float32) * 0.001
     z01 = _shift(z00, 0, 1, 0.0)
     z10 = _shift(z00, 1, 0, 0.0)
     h, w = z00.shape
@@ -127,25 +141,43 @@ def compute_points_normals(
     )
 
 
-def compute_dists(intr: Intrinsics, depth_mm: torch.Tensor) -> torch.Tensor:
-    """z-depth (mm) -> ray distance (m): d = z * ||K⁻¹ (u, v, 1)||."""
+def incidence_confidence(points: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
+    """Per-pixel |cos| of the live normal against the viewing ray, 0 where
+    invalid: the fusion's incidence confidence (kernel I computes it with
+    the level-0 maps)."""
+    pn = points / torch.clamp(torch.linalg.vector_norm(points, dim=-1, keepdim=True), min=1e-9)
+    return torch.nan_to_num(torch.abs((normals * pn).sum(dim=-1)))
+
+
+def compute_dists(intr: Intrinsics, depth_mm: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """z-depth (mm) -> ray distance (m): d = z * ||K⁻¹ (u, v, 1)||; kernel I
+    on CUDA tensors."""
+    if not _plain(depth_mm, plain):
+        return kernels.depth_dists(depth_mm, intr)[0]
     lam = camera.ray_norms(intr, *depth_mm.shape, device=depth_mm.device)
     return depth_mm.to(torch.float32) * lam * 0.001
 
 
 def resize_points_normals(
-    points: torch.Tensor, normals: torch.Tensor
+    points: torch.Tensor, normals: torch.Tensor, plain: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """2x2 block average of point+normal maps, valid only if all four points
-    are; normals are not renormalized."""
+    are; normals are not renormalized. Kernel I on CUDA tensors."""
+    if not _plain(points, plain):
+        return kernels.resize_maps(points.contiguous(), normals.contiguous())
     h, w = points.shape[:2]
     oh, ow = h // 2, w // 2
     p = points[: 2 * oh, : 2 * ow].reshape(oh, 2, ow, 2, 3)
     n = normals[: 2 * oh, : 2 * ow].reshape(oh, 2, ow, 2, 3)
     valid = ~torch.isnan(p[..., 0]).any(dim=3).any(dim=1)
+
+    def mean4(a):
+        # the block's sum in row-major order, as kernel I adds it
+        return (a[:, 0, :, 0] + a[:, 0, :, 1] + a[:, 1, :, 0] + a[:, 1, :, 1]) / 4.0
+
     return (
-        torch.where(valid[..., None], p.mean(dim=(1, 3)), float("nan")),
-        torch.where(valid[..., None], n.mean(dim=(1, 3)), float("nan")),
+        torch.where(valid[..., None], mean4(p), float("nan")),
+        torch.where(valid[..., None], mean4(n), float("nan")),
     )
 
 
@@ -154,28 +186,46 @@ def build_frame_pyramid(
     depth_mm: torch.Tensor,
     first_point_level: int = 0,
     plain: bool = False,
-) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]], List[Optional[torch.Tensor]], torch.Tensor]:
+    with_conf: bool = False,
+):
     """dists, bilateral filter, depth pyramid and per-level point/normal
-    maps. Returns (depth_pyr, points_pyr, normals_pyr, dists); point/normal
+    maps. Returns (depth_pyr, points_pyr, normals_pyr, dists), and with
+    ``with_conf`` the level-0 incidence confidence as a fifth item (level 0
+    is then computed whatever ``first_point_level`` says); point/normal
     maps below ``first_point_level`` are not computed (None)."""
-    dists = compute_dists(cfg.intr, depth_mm)
     d0 = bilateral_filter(
         depth_mm, cfg.bilateral_kernel_size, cfg.bilateral_sigma_spatial,
         cfg.bilateral_sigma_depth, plain=plain,
     )
-    if cfg.icp_truncate_depth_dist > 0:
-        d0 = truncate_depth(d0, cfg.icp_truncate_depth_dist)
+    trunc = cfg.icp_truncate_depth_dist > 0
+    if _plain(depth_mm, plain):
+        dists = compute_dists(cfg.intr, depth_mm, plain=True)
+        if trunc:
+            d0 = truncate_depth(d0, cfg.icp_truncate_depth_dist)
+    else:
+        # the dists and the truncation ride one launch of kernel I
+        dists, d_t = kernels.depth_dists(depth_mm, cfg.intr, d0 if trunc else None, cfg.icp_truncate_depth_dist)
+        d0 = d_t if trunc else d0
     depth_pyr = [d0]
     for _ in range(1, cfg.pyramid_levels):
-        depth_pyr.append(depth_pyramid_down(depth_pyr[-1], cfg.bilateral_sigma_depth))
+        depth_pyr.append(depth_pyramid_down(depth_pyr[-1], cfg.bilateral_sigma_depth, plain=plain))
     points_pyr: List[Optional[torch.Tensor]] = []
     normals_pyr: List[Optional[torch.Tensor]] = []
+    conf = None
     for lvl, d in enumerate(depth_pyr):
-        if lvl < first_point_level:
-            points_pyr.append(None)
-            normals_pyr.append(None)
-            continue
-        p, n = compute_points_normals(cfg.intr.level(lvl), d)
+        intr = cfg.intr.level(lvl)
+        if lvl == 0 and with_conf:
+            if _plain(d, plain):
+                p, n = compute_points_normals(intr, d, plain=True)
+                conf = incidence_confidence(p, n)
+            else:
+                p, n, conf = kernels.points_normals(d, intr, conf=True)
+        elif lvl < first_point_level:
+            p = n = None
+        else:
+            p, n = compute_points_normals(intr, d, plain=plain)
         points_pyr.append(p)
         normals_pyr.append(n)
+    if with_conf:
+        return depth_pyr, points_pyr, normals_pyr, dists, conf
     return depth_pyr, points_pyr, normals_pyr, dists

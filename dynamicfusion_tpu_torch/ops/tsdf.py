@@ -3,7 +3,9 @@ sampling, rigid integrate (brick dispatch), raycast, surface extraction.
 
 ``march_and_refine`` owns CUDA kernel C (``csrc/raycast.cu``): one thread
 per ray marches with its own early exit and refines the crossing with the
-secant + Newton polish. The plain version below keeps the JAX lockstep
+secant + Newton polish or, under ``raycast_refine="newton8"`` (the
+dynamicfusion preset's), with one Newton step from the secant of the
+march's own bracket values. The plain version below keeps the JAX lockstep
 loop (all rays step together, finished rays masked).
 """
 
@@ -237,8 +239,7 @@ def raycast(
 ) -> RaycastResult:
     """Per-pixel ray march for the zero crossing (``rays`` says which
     interval each ray marches); points/normals in the camera frame."""
-    if cfg.raycast_refine != "secant":
-        raise NotImplementedError("newton refine: a later slice")
+    _refine_mode(cfg)
     if cfg.raycast_smooth_normals:
         raise NotImplementedError("smoothed raycast normals: a later slice")
     ray_org, dirs, tmin, tmax = rays(cfg, cam2vol, intr, rows, cols, t_seed, t_band)
@@ -253,6 +254,18 @@ def raycast(
         points=torch.where(valid[..., None], vertex_cam, NAN),
         normals=torch.where(valid[..., None], normal_cam, NAN),
     )
+
+
+REFINES = ("secant", "newton8")
+
+
+def _refine_mode(cfg: DynamicFusionConfig) -> int:
+    """Kernel C's refine code of ``cfg.raycast_refine`` (0 secant, 1
+    newton8); the experimental newton16 and hybrid16 refines are not
+    ported and raise."""
+    if cfg.raycast_refine not in REFINES:
+        raise NotImplementedError(f"{cfg.raycast_refine} refine: a later slice")
+    return REFINES.index(cfg.raycast_refine)
 
 
 def march_steps(cfg: DynamicFusionConfig) -> int:
@@ -272,9 +285,14 @@ def march_and_refine_plain(
     tmax: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Lockstep march (nearest fetches, step doubled where the previous
-    sample is > 0.99) and secant + Newton-polish refine. Returns
+    sample is > 0.99) and the refine of ``cfg.raycast_refine``: "secant"
+    (secant between trilinear values at the bracket ends, then a Newton
+    polish) or "newton8" (secant from the march's nearest-fetched bracket
+    values f0/f1, then one clamped Newton step; the normal is the gradient
+    at the secant point, the vertex the point after the step). Returns
     (found, vertex_vol, normal_vol) in the volume frame; the normal is the
     unnormalized trilinear gradient."""
+    newton8 = _refine_mode(cfg) == 1
     inv_vs = 1.0 / cfg.voxel_size
     step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
 
@@ -286,6 +304,8 @@ def march_and_refine_plain(
     found = torch.zeros_like(done)
     t_hit = torch.zeros_like(tmin)
     dt_hit = torch.full_like(tmin, step)
+    f0 = torch.ones_like(tmin)
+    f1 = -torch.ones_like(tmin)
     tsdf_prev = fetch_nearest(tsdf, point(tmin))
     for i in range(march_steps(cfg)):
         if i % 2 == 0 and bool(done.all()):
@@ -301,10 +321,24 @@ def march_and_refine_plain(
         behind = (tsdf_prev < 0.0) & (tsdf_next > 0.0) & active
         t_hit = torch.where(crossing, t, t_hit)
         dt_hit = torch.where(crossing, dt, dt_hit)
+        if newton8:
+            f0 = torch.where(crossing, tsdf_prev, f0)
+            f1 = torch.where(crossing, tsdf_next, f1)
         t = torch.where(active, tnext, t)
         done = done | crossing | behind | (tnext >= tmax)
         found = found | crossing
         tsdf_prev = torch.where(active, tsdf_next, tsdf_prev)
+
+    if newton8:
+        denom0 = f0 - f1
+        alpha = torch.clamp(f0 / torch.where(torch.abs(denom0) > 1e-12, denom0, 1e-12), 0.0, 1.0)
+        ts = t_hit + dt_hit * alpha
+        f_v, normal_vol = interpolate_with_gradient(tsdf, point(ts))
+        dfdt = _dot3(normal_vol, dirs) * inv_vs
+        ts2 = ts - f_v / torch.where(torch.abs(dfdt) > 1e-12, dfdt, 1e-12)
+        good2 = torch.isfinite(ts2) & (torch.abs(ts2 - ts) < dt_hit) & ~torch.isnan(f_v)
+        ts = torch.where(good2, ts2, ts)
+        return found, ray_org + dirs * ts[..., None], normal_vol
 
     ft = interpolate(tsdf, point(t_hit))
     ftdt = interpolate(tsdf, point(t_hit + dt_hit))
@@ -340,6 +374,7 @@ def march_and_refine(
         step=volume_model.trunc_dist(cfg) * cfg.raycast_step_factor,
         max_steps=march_steps(cfg),
         adaptive=cfg.raycast_adaptive_step,
+        refine=_refine_mode(cfg),
     )
 
 

@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dynamicfusion_tpu_torch import device as device_mod
+from dynamicfusion_tpu_torch import device as device_mod, kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.core import se3
 from dynamicfusion_tpu_torch.models import volume as volume_model
@@ -64,10 +64,10 @@ def _vol_pose(cfg: DynamicFusionConfig, device) -> torch.Tensor:
     return m
 
 
-def _pyramid_from_maps(cfg: DynamicFusionConfig, pts0, nrm0):
+def _pyramid_from_maps(cfg: DynamicFusionConfig, pts0, nrm0, plain: bool = False):
     pts, nrm = [pts0], [nrm0]
     for _ in range(1, cfg.track_levels):
-        p, n = preprocess.resize_points_normals(pts[-1], nrm[-1])
+        p, n = preprocess.resize_points_normals(pts[-1], nrm[-1], plain=plain)
         pts.append(p)
         nrm.append(n)
     return tuple(pts), tuple(nrm)
@@ -105,7 +105,9 @@ def _temporal_band(cfg: DynamicFusionConfig, prev_can_points: torch.Tensor, dist
     """Per-pixel march band [min - m, max + m] over a 5x5 window of the
     previous model map's ray distances united with the live dists."""
     s = cfg.raycast_subsample
-    t_prev = torch.linalg.vector_norm(prev_can_points, dim=-1)
+    p = prev_can_points
+    # |p| summed in kernel J's order
+    t_prev = torch.sqrt(p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1] + p[..., 2] * p[..., 2])
     live = dists[::s, ::s]
     miss = torch.isnan(t_prev)
     lo_src = torch.minimum(torch.where(miss, INF, t_prev), torch.where(live > 0, live, INF))
@@ -117,6 +119,26 @@ def _temporal_band(cfg: DynamicFusionConfig, prev_can_points: torch.Tensor, dist
     lo = torch.where(any_hit, torch.clamp(lo - m, min=0.0), 0.0)
     hi = torch.where(any_hit, hi + m, 0.0)
     return lo, hi
+
+
+def _march_bands(cfg: DynamicFusionConfig, prev_can_points: Optional[torch.Tensor], dists: torch.Tensor,
+                 plain: bool = False):
+    """(raycast seed | None, temporal band (lo, hi) | None) of a frame: the
+    band needs ``prev_can_points`` and ``raycast_temporal_band``, the seed
+    ``raycast_seed_margin`` > 0. Kernel J computes both in one launch on
+    CUDA tensors; CPU tensors (or ``plain``) take ``_raycast_seed`` and
+    ``_temporal_band``."""
+    want_band = cfg.raycast_temporal_band and prev_can_points is not None
+    want_seed = cfg.raycast_seed_margin > 0.0
+    if not (want_band or want_seed):
+        return None, None
+    if plain or dists.device.type == "cpu":
+        band = _temporal_band(cfg, prev_can_points, dists) if want_band else None
+        return _raycast_seed(cfg, dists), band
+    return kernels.march_bands(
+        dists, cfg.raycast_subsample, prev_can_points.contiguous() if want_band else None,
+        cfg.raycast_band_margin, want_seed,
+    )
 
 
 def _model_maps(
@@ -157,7 +179,7 @@ def _model_maps(
         track_nrm = se3.rotate_dirs(w2c, wn).reshape(shape)
     else:
         track_pts, track_nrm = res.points, res.normals
-    return _pyramid_from_maps(cfg, track_pts, track_nrm), res.points, res.normals
+    return _pyramid_from_maps(cfg, track_pts, track_nrm, plain), res.points, res.normals
 
 
 def init_state(cfg: DynamicFusionConfig, device="cuda") -> PipelineState:
@@ -187,7 +209,7 @@ def first_frame(
 ) -> PipelineState:
     """Frame 0: integrate, sample warp nodes from the extracted surface,
     raycast the model."""
-    dists = preprocess.compute_dists(cfg.intr, depth_mm)
+    dists = preprocess.compute_dists(cfg.intr, depth_mm, plain=plain)
     vol2cam = se3.compose(se3.inverse(state.pose), _vol_pose(cfg, dists.device))
     tsdf_ops.integrate(cfg, state.vol, dists, vol2cam, cfg.intr, plain=plain)
     # min_weight=1: after one integrate every observed voxel weighs exactly 1
@@ -195,9 +217,8 @@ def first_frame(
         cfg, state.vol, max_points=max(cfg.max_nodes * cfg.node_sample_step, 1 << 20), min_weight=1.0
     )
     warp = warpfield.init_from_cloud(cfg, cloud.points, cloud.valid)
-    (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(
-        cfg, state.vol, state.pose, warp, t_seed=_raycast_seed(cfg, dists), plain=plain
-    )
+    seed, _ = _march_bands(cfg, None, dists, plain)
+    (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(cfg, state.vol, state.pose, warp, t_seed=seed, plain=plain)
     return PipelineState(
         vol=state.vol, warp=warp, pose=state.pose,
         prev_points=prev_pts, prev_normals=prev_nrm,
@@ -226,10 +247,8 @@ def step(
 
     vol2cam = se3.compose(se3.inverse(pose), _vol_pose(cfg, pose.device))
     bcounts = tsdf_ops.integrate(cfg, state.vol, dists, vol2cam, cfg.intr, ok=icp_res.ok, plain=plain)
-    band = _temporal_band(cfg, state.can_points, dists) if cfg.raycast_temporal_band else None
-    (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(
-        cfg, state.vol, pose, t_seed=_raycast_seed(cfg, dists), t_band=band, plain=plain
-    )
+    seed, band = _march_bands(cfg, state.can_points, dists, plain)
+    (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(cfg, state.vol, pose, t_seed=seed, t_band=band, plain=plain)
     new_state = PipelineState(
         vol=state.vol, warp=state.warp, pose=pose,
         prev_points=prev_pts, prev_normals=prev_nrm,
@@ -245,20 +264,14 @@ def step(
     return new_state, outputs
 
 
-def incidence_confidence(points: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
-    """Per-pixel |cos| of the live normal against the viewing ray, 0 where
-    invalid: the fusion's incidence confidence."""
-    pn = points / torch.clamp(torch.linalg.vector_norm(points, dim=-1, keepdim=True), min=1e-9)
-    return torch.nan_to_num(torch.abs((normals * pn).sum(dim=-1)))
-
-
 class Tracked(NamedTuple):
     icp_res: icp.IcpResult
     pose: torch.Tensor                    # (4, 4) after ICP and the rigid pre-alignment
     inputs: warp_solver.WarpSolveInputs   # the warp solve's point sets, pre-aligned
-    points: Tuple[torch.Tensor, ...]      # the live pyramid (level 0 for the incidence confidence)
+    points: Tuple[torch.Tensor, ...]      # the live pyramid
     normals: Tuple[torch.Tensor, ...]
     dists: torch.Tensor
+    conf: Optional[torch.Tensor]          # level-0 incidence confidence (with fusion_incidence_weight)
 
 
 def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False) -> Tracked:
@@ -267,8 +280,11 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
     rigid pre-alignment folded into the pose (where ICP succeeded)."""
     shift = cfg.raycast_shift
     # level 0 only for the incidence confidence of the fusion
-    first = 0 if cfg.fusion_incidence_weight else shift
-    _, pts_pyr, nrm_pyr, dists = preprocess.build_frame_pyramid(cfg, depth_mm, first_point_level=first, plain=plain)
+    pyr = preprocess.build_frame_pyramid(
+        cfg, depth_mm, first_point_level=shift, plain=plain, with_conf=cfg.fusion_incidence_weight
+    )
+    _, pts_pyr, nrm_pyr, dists = pyr[:4]
+    conf = pyr[4] if cfg.fusion_incidence_weight else None
 
     icp_res = icp.estimate_transform(
         cfg, list(pts_pyr[shift:]), list(nrm_pyr[shift:]),
@@ -285,8 +301,9 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
     can_pts_w = se3.transform_points(state.pose, state.can_points)
     can_nrm_w = se3.rotate_dirs(state.pose, state.can_normals)
     if cfg.solver_live_raw:
-        sub = cfg.raycast_subsample
-        raw_pts, _ = preprocess.compute_points_normals(cfg.intr.level(shift), depth_mm[::sub, ::sub])
+        raw_pts, _ = preprocess.compute_points_normals(
+            cfg.intr.level(shift), depth_mm, stride=cfg.raycast_subsample, plain=plain
+        )
     else:
         raw_pts = pts_pyr[shift]
     live_pts_w = se3.transform_points(pose, raw_pts)
@@ -304,7 +321,7 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
         inputs = inputs._replace(
             p_live=se3.transform_points(t_pre, inputs.p_live), n_live=se3.rotate_dirs(t_pre, inputs.n_live)
         )
-    return Tracked(icp_res, pose, inputs, tuple(pts_pyr), tuple(nrm_pyr), dists)
+    return Tracked(icp_res, pose, inputs, tuple(pts_pyr), tuple(nrm_pyr), dists, conf)
 
 
 def _nonrigid_step(
@@ -315,7 +332,7 @@ def _nonrigid_step(
         raise NotImplementedError("a fresh canonical raycast per frame: a later slice")
     if cfg.solver_remove_net_rigid:
         raise NotImplementedError("remove_net_rigid: a later slice")
-    icp_res, pose, inputs, pts_pyr, nrm_pyr, dists = track(cfg, state, depth_mm, plain)
+    icp_res, pose, inputs, _, _, dists, conf = track(cfg, state, depth_mm, plain)
     warp, stats = warp_solver.solve(cfg, state.warp, inputs, plain=plain)
     # a frame whose tracking failed leaves the warp field (and, below, the
     # volume and the node set) untouched
@@ -327,7 +344,6 @@ def _nonrigid_step(
     sub_interval = max(cfg.fusion_interval // cfg.fusion_phase_split, 1)
     fuse_now = icp_res.ok & (state.frame_idx % sub_interval == 0)
     phase = (state.frame_idx // sub_interval) % cfg.fusion_phase_split
-    conf = incidence_confidence(pts_pyr[0], nrm_pyr[0]) if cfg.fusion_incidence_weight else None
     bcounts = fusion.integrate_nonrigid(
         cfg, state.vol, cf, dists, se3.inverse(pose), cfg.intr, fuse_now, conf=conf, phase=phase, plain=plain
     )
@@ -338,10 +354,9 @@ def _nonrigid_step(
         cfg, warp, cand, icp_res.ok & ~torch.isnan(cand[:, 0]), state.frame_idx, plain=plain
     )
 
-    band = _temporal_band(cfg, state.can_points, dists) if cfg.raycast_temporal_band else None
+    seed, band = _march_bands(cfg, state.can_points, dists, plain)
     (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(
-        cfg, state.vol, pose, warp, t_seed=_raycast_seed(cfg, dists), t_band=band,
-        dq_grid=cf.dq if full_scale else None, plain=plain,
+        cfg, state.vol, pose, warp, t_seed=seed, t_band=band, dq_grid=cf.dq if full_scale else None, plain=plain,
     )
     new_state = PipelineState(
         vol=state.vol, warp=warp, pose=pose,

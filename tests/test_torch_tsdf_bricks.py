@@ -160,7 +160,9 @@ def test_march_step_cap():
     assert ttsdf.march_steps(TCfg.rigid_slice()) == 60
 
 
-def _raycast_both(vol, angle, band):
+def _raycast_both(vol, angle, band, refine="secant"):
+    jc = dataclasses.replace(JC, raycast_refine=refine)
+    tc = dataclasses.replace(TC, raycast_refine=refine)
     pose = _pose(angle)
     cam2vol = np.array(jse3.compose(jse3.inverse(jkinfu._vol_pose(JC)), jnp.asarray(pose)))
     rows, cols = JC.rows // JC.raycast_subsample, JC.cols // JC.raycast_subsample
@@ -171,11 +173,11 @@ def _raycast_both(vol, angle, band):
         lo = rng.uniform(0.2, 0.8, (rows, cols)).astype(np.float32)
         t_band = (lo, lo + rng.uniform(0.1, 0.6, (rows, cols)).astype(np.float32))
     jr = jtsdf.raycast(
-        JC, JVol(jnp.asarray(vol[0]), jnp.asarray(vol[1])), jnp.asarray(cam2vol), intr, rows, cols,
+        jc, JVol(jnp.asarray(vol[0]), jnp.asarray(vol[1])), jnp.asarray(cam2vol), intr, rows, cols,
         t_band=None if t_band is None else tuple(map(jnp.asarray, t_band)),
     )
     tr = ttsdf.raycast(
-        TC, _tvol(vol), torch.from_numpy(cam2vol), TC.intr.level(TC.raycast_shift), rows, cols,
+        tc, _tvol(vol), torch.from_numpy(cam2vol), tc.intr.level(tc.raycast_shift), rows, cols,
         t_band=None if t_band is None else tuple(map(torch.from_numpy, t_band)),
     )
     return jr, tr
@@ -193,6 +195,33 @@ def test_raycast_secant_matches(vol2, band):
     both = vj & vt
     assert np.abs(jp[both] - tp[both]).max() <= 1e-5
     assert np.abs(jn[both] - tn[both]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("band", [False, True], ids=["full_ray", "band"])
+def test_raycast_newton8_matches(vol2, band):
+    """The dynamicfusion preset's refine: the secant of the march's
+    nearest-fetched bracket values, one fused value+gradient fetch there
+    and one clamped Newton step; the normal is the gradient at the secant
+    point. Found mask exact, points 1e-5 m, normals 1e-4 (float32 in the
+    same order; the libraries may round a division apart by an ulp)."""
+    jr, tr = _raycast_both(vol2, 0.03, band, refine="newton8")
+    jp, tp = np.asarray(jr.points), tr.points.numpy()
+    jn, tn = np.asarray(jr.normals), tr.normals.numpy()
+    vj, vt = ~np.isnan(jp[..., 0]), ~np.isnan(tp[..., 0])
+    np.testing.assert_array_equal(vj, vt)
+    assert vj.mean() > 0.1
+    assert np.abs(jp[vj] - tp[vj]).max() <= 1e-5
+    assert np.abs(jn[vj] - tn[vj]).max() <= 1e-4
+    # not the secant's answer: the refine changed the crossings
+    _, ts = _raycast_both(vol2, 0.03, band)
+    assert np.nanmax(np.abs(ts.points.numpy() - tp)) > 1e-5
+
+
+def test_unported_refines_raise(vol2):
+    cam2vol = torch.from_numpy(np.array(jse3.compose(jse3.inverse(jkinfu._vol_pose(JC)), jnp.asarray(_pose(0.03)))))
+    for refine in ("newton16", "hybrid16"):
+        with pytest.raises(NotImplementedError, match=f"{refine} refine"):
+            ttsdf.raycast(dataclasses.replace(TC, raycast_refine=refine), _tvol(vol2), cam2vol, TC.intr, 8, 8)
 
 
 @pytest.mark.parametrize("max_points", [1 << 16, 700])

@@ -259,6 +259,57 @@ def test_spd6_inv_matches_jax_and_inverts():
     assert _rel(got, np.linalg.inv(m.astype(np.float64))) <= TOL_SPD6
 
 
+def _coupled_blocks(spread, lam, n=1024, k=24, seed=0):
+    """Damped 6x6 blocks as the factored solve builds them, for nodes about
+    1 m from the world origin whose points lie within ``spread`` of the
+    node: twist rows [p x n, n] sqrt(w) of point-to-plane residuals, their
+    Gram, then lam * diag_eff + 1e-8 on the diagonal (diag_eff floored at
+    solver_damping_floor times the mean). A rotation about the origin and a
+    translation are then nearly the same motion."""
+    rng = np.random.RandomState(seed)
+    c = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n), rng.uniform(0.8, 1.2, n)], -1)
+    p = c[:, None, :] + spread * rng.randn(n, k, 3)
+    nrm = rng.randn(n, k, 3)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    w = rng.uniform(0.2, 1.0, (n, k, 1))
+    j = np.concatenate([np.cross(p, nrm), nrm], -1) * np.sqrt(w)
+    jtj = np.einsum("nki,nkj->nij", j, j).astype(np.float32)
+    diag = np.diagonal(jtj, axis1=1, axis2=2)
+    eff = np.maximum(diag, TC.solver_damping_floor * diag.mean())
+    return (jtj + np.einsum("ni,ij->nij", lam * eff + 1e-8, np.eye(6))).astype(np.float32)
+
+
+@pytest.mark.parametrize("spread,lam", [(0.01, 1e-4), (0.005, 1e-4), (0.01, 1e-3)])
+def test_spd6_inv_on_coupled_damped_blocks_matches_jax(spread, lam):
+    """The closed form on the solver's ill-conditioned blocks (median
+    condition numbers 1e4 to 5e4): the Schur complement cancels, so both
+    packages are far from the float64 inverse on some blocks. The port must
+    fail the same way: the same NaN and inf pattern (blocks with a zero, a
+    NaN and an inf entry added) and the same error distribution against
+    float64 (median within 1.5x of JAX's, 99th percentile within 2x)."""
+    m = _coupled_blocks(spread, lam)
+    cond = np.linalg.cond(m.astype(np.float64))
+    assert np.median(cond) > 1e4
+    specials = np.zeros((3, 6, 6), np.float32)
+    specials[1] = specials[2] = np.eye(6)
+    specials[1, 0, 4] = np.nan
+    specials[2, 5, 5] = np.inf
+    m = np.concatenate([m, specials])
+    jo = np.asarray(js.spd6_inv(jnp.asarray(m)))
+    to = ts.spd6_inv(_t(m)).numpy()
+    np.testing.assert_array_equal(np.isnan(to), np.isnan(jo))
+    np.testing.assert_array_equal(np.isinf(to), np.isinf(jo))
+    np.testing.assert_array_equal(to[-3], jo[-3])  # the zero block: the guarded 3x3 adjugate gives zeros
+    assert not np.isfinite(to[-2:]).all((1, 2)).any()
+    ref = np.linalg.inv(m[:-3].astype(np.float64))
+    scale = np.abs(ref).max((1, 2))
+    ej = np.abs(jo[:-3] - ref).max((1, 2)) / scale
+    et = np.abs(to[:-3] - ref).max((1, 2)) / scale
+    assert np.median(ej) > 1e-4  # far from the well-conditioned 1e-6
+    assert np.median(et) <= 1.5 * np.median(ej)
+    assert np.quantile(et, 0.99) <= 2.0 * np.quantile(ej, 0.99)
+
+
 def _jax_system(prob, lam=1e-4):
     """JAX's factored system (rows, damping, preconditioner, mv) at the
     field's linearization point, as solve builds it."""

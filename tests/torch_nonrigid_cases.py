@@ -18,11 +18,12 @@ from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.io import synthetic
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
 
-# the non-rigid slice's settings that small() leaves at the base defaults
-# (fusion stays on every frame, so every step fuses)
+# the dynamicfusion preset's settings that small() leaves at the base
+# defaults, its newton8 refine included (fusion stays on every frame, so
+# every step fuses)
 SLICE = dict(
     solver_linear="pcg", solver_linear_iters=12, fusion_incidence_weight=True, fusion_incidence_floor=0.35,
-    fusion_sdf_incidence_scale=True, raycast_temporal_band=True,
+    fusion_sdf_incidence_scale=True, raycast_temporal_band=True, raycast_refine="newton8",
 )
 
 # tolerances
@@ -199,7 +200,7 @@ def check_step_from_jax_state(jc, tc, jax_frames, depths, frame):
     # normal (test_torch_preprocess_icp.py); the fusion takes JAX's
     _, pts, nrm, dists = preprocess.build_frame_pyramid(tc, depth)
     jd, jconf = jax_fusion_inputs(jc, depths[frame])
-    conf = tkinfu.incidence_confidence(pts[0], nrm[0])
+    conf = preprocess.incidence_confidence(pts[0], nrm[0])
     np.testing.assert_allclose(dists.numpy(), jd, atol=1e-6, rtol=0)
     assert (np.abs(conf.numpy() - jconf) > 1e-5).mean() <= TOL_PIXEL_FRAC
     dists, conf = torch.from_numpy(jd.copy()), torch.from_numpy(jconf.copy())
