@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--frames N] [--nr-frames M] [--profile DIR]
+    python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--profile DIR]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -20,6 +20,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    with the incidence confidence, the 2x2 map resize), kernel J (the
    160x120 march band) and kernel K (the 11-level mip, 4 096 brick classes
    and the work list, which must equal the plain version's bit for bit);
+   kernels F and G with the tangential rows of ``quality_dynamicfusion()``
+   (three residual rows a point) on the same state; kernel L (frame 0's
+   extraction into 1 << 20 rows and node sampling into 1 024 slots) on the
+   preset's frame-0 volume, bit-equal to its plain version;
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -31,19 +35,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    refine) for M frames of ``bench.py``'s deforming scene, counters reset
    just before and read just after, the steady frames under
    ``torch.cuda.set_sync_debug_mode("error")`` (a step that waits for the
-   device raises); every kernel of the path (A-K) must have launched, ICP
-   must succeed and the solve must not raise its cost on every frame,
-   fusion must run on the frames 6, 12, 18, ...; then the plain path's
-   step from each of the kernel path's states, pose and initial solve
-   cost held against the kernel path's; then the same frames through the
-   plain path free running, node sets held equal, poses printed beside
+   device raises); every kernel of the path (A-L) must have launched, L
+   once, ICP must succeed and the solve must not raise its cost on every
+   frame, fusion must run on the frames 6, 12, 18, ...; then the plain
+   path's step from each of the kernel path's states, pose and initial
+   solve cost held against the kernel path's; then the same frames through
+   the plain path free running, node sets held equal, poses printed beside
    both paths' own spread (the solve's bf16 rows make the trajectories
    part chaotically, by up to ~1 mm in 20 frames);
-5. print the per-kernel JSON line, the card's name and power limit, and
+5. the same for ``quality_dynamicfusion()`` (the preset with the
+   tangential data term) over Q frames of ``bench.py``'s hinge scene (two
+   spheres scissoring about a hinge over a plane): the same checks, the
+   plain step from each state; free-running poses printed;
+6. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` adds a torch.profiler table and trace of 3 non-rigid
-frames and prints the device's busy time and idle share over them.
+``--profile DIR`` adds a torch.profiler table and trace of 3 frames of
+each non-rigid preset (after its run) and prints the device's busy time
+and idle share over them.
 ``--dump-solve FILE`` writes the warp field and the solve's point sets of
 the phase-2 state (the preset after three frames, the next frame tracked)
 to an ``.npz``, for holding another solver against the same system.
@@ -54,6 +63,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -155,8 +165,18 @@ ROWS = {
     "pcg": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:823"),
     "insert_select": ("insert_nodes.cu", "dynamicfusion_tpu/models/warpfield.py:372"),
     "insert_apply": ("insert_nodes.cu", "dynamicfusion_tpu/models/warpfield.py:433"),
+    "extract_cloud": ("extract.cu", "dynamicfusion_tpu/ops/tsdf.py:669"),
+    "sample_nodes": ("extract.cu", "dynamicfusion_tpu/models/warpfield.py:105"),
+    "data_term_tangential": ("data_term.cu", "dynamicfusion_tpu/solvers/warp_solver.py:299"),
+    "pcg_tangential": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:823"),
 }
-COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks"}
+COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", "data_term_tangential": "data_term",
+           "pcg_tangential": "pcg"}
+# the run whose counters a row's launches are: kernels A-D the rigid path's,
+# kernel L the preset's (frame 0), the tangential rows the quality preset's,
+# the rest the preset's
+PATH = {**dict.fromkeys(RIGID_KERNELS, "rigid"), "extract_cloud": "frame0", "sample_nodes": "frame0",
+        "data_term_tangential": "quality", "pcg_tangential": "quality"}
 
 
 def smi() -> str:
@@ -197,6 +217,21 @@ def check(name: str, ok: bool, msg: str) -> None:
     print(f"[check] {name}: {msg} -> {'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"chip_smoke: {name} failed: {msg}")
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's scatter sums (``index_add_``) on the card in a fixed order
+    (each node's entries in entry order, as the kernels sum them), for the
+    plain PCG references: in atomic order their last bits change run to
+    run, and twelve iterations amplify a flipped bf16 rounding past the
+    tolerance in some runs."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
 
 
 def rel_err(torch, a, b) -> float:
@@ -574,7 +609,8 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     # its blocks as the preconditioner
     ip = exact_m.float().contiguous()
     xk = ws.pcg(s, sysm, ip, b, iters, rtol, on)
-    xp = ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True)
+    with deterministic(torch):
+        xp = ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True)
     finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
     err = rel_err(torch, xk, xp) if finite else float("inf")
     check("pcg", finite and err <= TOL_PCG_REL and not bool(ws.pcg(s, sysm, ip, b, iters, rtol, ~on).any()),
@@ -594,6 +630,7 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         library_ms=None,
         iterations=ran,
     )
+    tangential_kernels(torch, report, dev, field, inputs)
 
     # H: insertion into a field with half its slots free
     half = torch.arange(n, device=dev) % 2 == 0
@@ -680,6 +717,132 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         library_ms=None,
     )
     del scratch, vk, vp, df
+
+
+def tangential_kernels(torch, report, dev, field, inputs):
+    """Phase 2 for kernels F and G with the tangential rows of
+    ``quality_dynamicfusion()`` (three residual rows a point) on the
+    preset's phase-2 state: the data term, one matvec and the PCG solve."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = DynamicFusionConfig.quality_dynamicfusion()
+    n = field.positions.shape[0]
+    s = ws.prepare(cfg, field, inputs)
+    npt = s.p_can.shape[0]
+    dk = ws.data_term(cfg, s, field.dq, True)
+    dp = ws.data_term(cfg, s, field.dq, True, plain=True)
+    errs = [rel_err(torch, dk.jtr, dp.jtr), rel_err(torch, dk.blocks, dp.blocks), rel_err(torch, dk.cost, dp.cost)]
+    check("data_term_tangential", max(errs) <= TOL_DATA_REL and tuple(dk.rows.shape) == (npt, 3, 8, 6),
+          f"{npt} points x 3 rows: relative diff Jᵀr {errs[0]:.2e}, blocks {errs[1]:.2e}, cost {errs[2]:.2e} "
+          f"(tol {TOL_DATA_REL}); rows {tuple(dk.rows.shape)}")
+    lists_b = (npt * 8 + n + 1) * 4
+    report["data_term_tangential"] = dict(
+        err=max(abs_err(torch, dk.jtr, dp.jtr), abs_err(torch, dk.blocks, dp.blocks)),
+        ms=cuda_ms(torch, lambda: ws.data_term(cfg, s, field.dq, True)),
+        plain_ms=cuda_ms(torch, lambda: ws.data_term(cfg, s, field.dq, True, plain=True), reps=3),
+        # as the one-row term, plus the tangent basis and weight in and
+        # three rows out; ~1500 operations a point and row, 48 a (point,
+        # neighbour, row) entry
+        bound=bound_ms(npt * (36 + 1 + 64 + 32 + 24 + 4) + n * 32 + lists_b + npt * 3 * 96 + n * 144 + n * 24 + 4,
+                       npt * 3 * 1500.0 + npt * 8 * 3 * 48.0),
+        library_ms=None,
+    )
+    ep = ws.edge_term(cfg, s, field.dq, plain=True)
+    blocks_full = dp.blocks + ep.diag
+    diag_eff, unit = ws.damping_terms(cfg, field.active, blocks_full)
+    damp = cfg.solver_lm_lambda_init * diag_eff + unit
+    sysm = ws.System(dp.rows, ep, damp)
+    pv = torch.from_numpy(np.random.RandomState(1).randn(6 * n).astype(np.float32)).to(dev)
+    err = rel_err(torch, ws.matvec(s, sysm, pv), ws.matvec(s, sysm, pv, plain=True))
+    check("matvec_tangential", err <= TOL_MATVEC_REL,
+          f"6N = {6 * n}, {npt} x 3 rows: max relative diff {err:.2e} (tol {TOL_MATVEC_REL})")
+    # the PCG is held with the float64 inverse of the damped blocks as the
+    # preconditioner, as the one-row PCG is
+    m = blocks_full + torch.diag_embed(damp.reshape(n, 6))
+    ip = torch.linalg.inv(m.double()).float().contiguous()
+    b = dp.jtr + ep.jtr
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    iters, rtol = cfg.solver_linear_iters, cfg.solver_linear_tol
+    xk = ws.pcg(s, sysm, ip, b, iters, rtol, on)
+    with deterministic(torch):
+        xp = ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True)
+    finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
+    err = rel_err(torch, xk, xp) if finite else float("inf")
+    check("pcg_tangential", finite and err <= TOL_PCG_REL and not bool(ws.pcg(s, sysm, ip, b, iters, rtol, ~on).any()),
+          f"up to {iters} iterations over 6N = {6 * n}, {npt} x 3 rows: finite {finite}, max relative diff "
+          f"{err:.2e} (tol {TOL_PCG_REL}); inactive -> 0")
+    ran = pcg_iterations(torch, ws, s, sysm, ip, b, iters, rtol)
+    ne = s.e_src.shape[0]
+    per_iter = npt * 3 * 8 * 6 * 2 * 2 + ne * 2 * 72 * 2 + n * (72 + 60)
+    report["pcg_tangential"] = dict(
+        err=abs_err(torch, xk, xp),
+        ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on)),
+        plain_ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True), reps=5),
+        # as the one-row PCG with three bf16 rows a point
+        bound=bound_ms(npt * (3 * 96 + 32) + lists_b + ne * (3 * 144 + 8 + 4) + (n + 1) * 4 + n * (24 + 144 + 24)
+                       + n * 24, ran * per_iter + n * 72.0),
+        library_ms=None,
+        iterations=ran,
+    )
+
+
+def extract_kernels(torch, report, dev, nr_depths):
+    """Phase 2 for kernel L on the preset's frame-0 volume of the deforming
+    scene: the extraction and the node sampling, each bit-equal to its
+    plain version."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.models import warpfield
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    cfg = DynamicFusionConfig.default_dynamicfusion()
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    df(nr_depths[0])
+    vol = df.state.vol
+    maxp = max(cfg.max_nodes * cfg.node_sample_step, 1 << 20)
+    ck = tsdf_ops.extract_cloud(cfg, vol, maxp, min_weight=1.0)
+    cp = tsdf_ops.extract_cloud(cfg, vol, maxp, min_weight=1.0, plain=True)
+    count = int(cp.count)
+    same = (torch.equal(ck.valid, cp.valid) and torch.equal(ck.count, cp.count)
+            and torch.equal(torch.isnan(ck.points), torch.isnan(cp.points))
+            and torch.equal(torch.nan_to_num(ck.points), torch.nan_to_num(cp.points)))
+    check("extract_cloud", same and 0 < count,
+          f"{cfg.volume_dims}^3 frame-0 volume: {count} crossings into {maxp} rows; points, flags and count "
+          f"equal the plain version's bit for bit {same}")
+    fk = warpfield.init_from_cloud(cfg, cp.points, cp.valid)
+    fp = warpfield.init_from_cloud(cfg, cp.points, cp.valid, plain=True)
+    same_n = all(torch.equal(a, b) for a, b in zip(fk, fp))
+    path_same = torch.equal(df.state.warp.positions, fp.positions) and torch.equal(df.state.warp.active, fp.active)
+    mc = (maxp + cfg.node_sample_step - 1) // cfg.node_sample_step
+    check("sample_nodes", same_n and path_same and int(fk.count) > 0,
+          f"{mc} candidates -> {int(fk.count)} of {cfg.max_nodes} nodes: field equal the plain version's bit for bit "
+          f"{same_n}; DynamicFusion's frame-0 field the same {path_same}")
+    d = cfg.volume_dims
+    org = tuple(float(v) for v in cfg.volume_origin)
+    perm = warpfield._fair_perm_on(mc, dev)
+    report["extract_cloud"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.extract_cloud(vol.tsdf, vol.weight, 1.0, maxp, cfg.voxel_size, org)),
+        plain_ms=cuda_ms(torch, lambda: tsdf_ops.extract_cloud_plain(cfg, vol, maxp, 1.0), reps=3),
+        # tsdf and weight read once, points and flags written, the count;
+        # ~8 operations a crossing test, ~10 a crossing
+        bound=bound_ms(d ** 3 * 4 + maxp * 13 + 4, 3.0 * (d - 1) * d * d * 8.0 + count * 10.0),
+        library_ms=None,
+    )
+    nsel = int(fk.count)
+    report["sample_nodes"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.sample_nodes(cp.points, cp.valid, cfg.node_sample_step, perm, cfg.max_nodes)),
+        plain_ms=cuda_ms(torch, lambda: warpfield._sample_nodes_plain(cp.points, cp.valid, cfg.node_sample_step, perm,
+                                                                       cfg.max_nodes)),
+        # the permutation and the candidates' flags read, the chosen rows
+        # read, positions, flags and the count written
+        bound=bound_ms(mc * (8 + 1) + nsel * 12 + cfg.max_nodes * 13 + 4, float(mc + cfg.max_nodes)),
+        library_ms=None,
+    )
+    del df
 
 
 def stencil_kernels(torch, report, dev, cfg, st, depth_np):
@@ -947,17 +1110,15 @@ def rigid_main(torch, args, dev, card):
     return launches
 
 
-def nonrigid_main(torch, args, dev, card, nr_depths):
-    """Phase 4: the dynamicfusion preset's frame loop, kernel path (steady
-    frames under the sync debug mode) and plain path."""
+def drive_kernel_path(torch, cfg, dev, frames):
+    """The kernel path over ``frames`` through ``DynamicFusion``: every
+    launch counter reset just before and read just after, the steady
+    frames under ``set_sync_debug_mode("error")``. Returns (the DynamicFusion,
+    launches, per-frame output rows, frame ms, the state after each frame)."""
     from dynamicfusion_tpu_torch import kernels
-    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
     from dynamicfusion_tpu_torch.pipeline import kinfu
 
-    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
-
-    cfg = DynamicFusionConfig.default_dynamicfusion()
-    frames = nr_depths[: args.nr_frames]
     df = kinfu.DynamicFusion(cfg, device=dev)
     kernels.reset_launches()
     outs, frame_ms, states = [], [], []
@@ -979,36 +1140,54 @@ def nonrigid_main(torch, args, dev, card, nr_depths):
         st = df.state
         states.append(st._replace(vol=TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())))
     launches = dict(kernels.launches)
-    poses_k = [p.cpu().numpy() for p in df.poses]
     rows = [dict(ok=bool(o.icp_ok), c0=float(o.solver_cost0), c1=float(o.solver_cost1), nodes=int(o.node_count),
                  bricks=o.brick_counts.tolist()) for o in outs]
-    print(f"[nonrigid] {len(frames)} frames at {cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3 / {cfg.max_nodes} nodes; "
+    return df, launches, rows, frame_ms, states
+
+
+def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k):
+    """A non-rigid run's checks: every kernel of the path (A-L) launched,
+    kernel L once (frame 0), ICP healthy and the solve's cost not raised
+    on every frame, fusion on the due frames."""
+    from dynamicfusion_tpu_torch import kernels
+
+    print(f"[{tag}] {len(frames)} frames at {cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3 / {cfg.max_nodes} nodes; "
           f"launches {launches}", flush=True)
     for i, r in enumerate(rows, start=1):
-        print(f"[nonrigid] frame {i:2d}: icp_ok {r['ok']}, solver_cost0 {r['c0']:.6e}, solver_cost1 {r['c1']:.6e}, "
+        print(f"[{tag}] frame {i:2d}: icp_ok {r['ok']}, solver_cost0 {r['c0']:.6e}, solver_cost1 {r['c1']:.6e}, "
               f"nodes {r['nodes']}, bricks (band, wide, dropped) {r['bricks']}")
     path = [k for k in kernels.KERNELS if k != "matvec"]  # the PCG launch does its own matvecs
-    check("nonrigid_launches", all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
-    check("nonrigid_icp_ok", all(r["ok"] for r in rows),
+    check(f"{tag}_launches", all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
+    check(f"{tag}_frame0_kernels", launches["extract_cloud"] == 1 and launches["sample_nodes"] == 1,
+          f"kernel L once in frame 0: extract_cloud {launches['extract_cloud']}, sample_nodes "
+          f"{launches['sample_nodes']}")
+    check(f"{tag}_icp_ok", all(r["ok"] for r in rows),
           f"ICP healthy on every tracked frame ({sum(r['ok'] for r in rows)}/{len(rows)})")
-    check("nonrigid_solver", all(r["c1"] <= r["c0"] and r["c0"] > 0 for r in rows),
+    check(f"{tag}_solver", all(r["c1"] <= r["c0"] and r["c0"] > 0 for r in rows),
           "solver_cost1 <= solver_cost0 on every frame")
     fused = [i for i, r in enumerate(rows, start=1) if r["bricks"][0] + r["bricks"][1] > 0]
     due = [i for i in range(1, len(frames)) if i % cfg.fusion_interval == 0]
-    check("nonrigid_fusion", fused == due, f"fusion on frames {fused} (due {due})")
-    check("nonrigid_no_sync", True, f"frames 2..{len(frames) - 1} ran under set_sync_debug_mode('error')")
-    # the camera of the deforming scene does not move: the pose's distance
-    # from the identity is the tracker's drift
+    check(f"{tag}_fusion", fused == due, f"fusion on frames {fused} (due {due})")
+    check(f"{tag}_no_sync", True, f"frames 2..{len(frames) - 1} ran under set_sync_debug_mode('error')")
+    # the camera of the scene does not move: the pose's distance from the
+    # identity is the tracker's drift
     drift_t = float(np.abs(poses_k[-1][:3, 3]).max())
     drift_r = float(np.abs(poses_k[-1][:3, :3] - np.eye(3)).max())
-    print(f"[nonrigid] drift of the static camera after {len(frames) - 1} steps: max |t| {drift_t:.3e} m, "
+    print(f"[{tag}] drift of the static camera after {len(frames) - 1} steps: max |t| {drift_t:.3e} m, "
           f"max rotation entry {drift_r:.3e}")
     steady = sorted(frame_ms[2:])
-    med = steady[len(steady) // 2]
-    print(f"[time] {card} | non-rigid frame ms median {med:.3f} (frames 2..{len(frames) - 1}), "
-          f"frame 0 {frame_ms[0]:.3f}, frame 1 {frame_ms[1]:.3f}, min {steady[0]:.3f}, max {steady[-1]:.3f}", flush=True)
+    slowest = max(range(2, len(frame_ms)), key=frame_ms.__getitem__)
+    print(f"[time] {card} | {tag} frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{len(frames) - 1}), "
+          f"frame 0 {frame_ms[0]:.3f}, frame 1 {frame_ms[1]:.3f}, min {steady[0]:.3f}, max {steady[-1]:.3f} "
+          f"(frame {slowest})", flush=True)
 
-    # the plain step from the kernel path's previous state, frame by frame
+
+def check_steps_vs_plain(torch, tag, cfg, dev, frames, states, poses_k, rows):
+    """The plain path's step from each of the kernel path's states: pose
+    and initial solve cost held against the kernel path's, ICP health and
+    node counts equal."""
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
     step_t, step_r, step_c, step_same = [], [], [], True
     for f in range(1, len(frames)):
         _, o = kinfu.step(cfg, states[f - 1], torch.from_numpy(frames[f]).to(dev), plain=True)
@@ -1017,16 +1196,20 @@ def nonrigid_main(torch, args, dev, card, nr_depths):
         step_r.append(float(np.abs(pk[:3, :3] - pp[:3, :3]).max()))
         step_c.append(abs(float(o.solver_cost0) - rows[f - 1]["c0"]) / rows[f - 1]["c0"])
         step_same = step_same and bool(o.icp_ok) == rows[f - 1]["ok"] and int(o.node_count) == rows[f - 1]["nodes"]
-    del states
-    print(f"[nonrigid-step] plain step from the kernel path's state, per frame: translation diff (m) "
+    print(f"[{tag}-step] plain step from the kernel path's state, per frame: translation diff (m) "
           f"{' '.join(f'{v:.2e}' for v in step_t)}; rotation entry {' '.join(f'{v:.2e}' for v in step_r)}; "
           f"initial solve cost, relative {' '.join(f'{v:.2e}' for v in step_c)}")
-    check("nonrigid_step_vs_plain",
+    check(f"{tag}_step_vs_plain",
           step_same and max(step_t) <= TOL_STEP_POSE and max(step_r) <= TOL_STEP_POSE
           and max(step_c) <= TOL_STEP_COST0_REL,
           f"ICP health and node counts equal {step_same}; max translation diff {max(step_t):.3e} m, rotation "
           f"entry {max(step_r):.3e} (tol {TOL_STEP_POSE}); initial solve cost {max(step_c):.3e} relative "
           f"(tol {TOL_STEP_COST0_REL})")
+
+
+def run_plain_path(torch, cfg, dev, frames):
+    """The plain path free running over ``frames``: (the DynamicFusion, frame ms)."""
+    from dynamicfusion_tpu_torch.pipeline import kinfu
 
     plain = kinfu.DynamicFusion(cfg, device=dev, plain=True)
     plain_ms = []
@@ -1036,6 +1219,24 @@ def nonrigid_main(torch, args, dev, card, nr_depths):
         plain(d, block=False)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
+    return plain, plain_ms
+
+
+def nonrigid_main(torch, args, dev, card, nr_depths):
+    """Phase 4: the dynamicfusion preset's frame loop, kernel path (steady
+    frames under the sync debug mode) and plain path."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    cfg = DynamicFusionConfig.default_dynamicfusion()
+    frames = nr_depths[: args.nr_frames]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    check_nonrigid_run("nonrigid", card, cfg, frames, launches, rows, frame_ms, poses_k)
+    check_steps_vs_plain(torch, "nonrigid", cfg, dev, frames, states, poses_k, rows)
+    del states
+
+    plain, plain_ms = run_plain_path(torch, cfg, dev, frames)
     poses_p = [p.cpu().numpy() for p in plain.poses]
     per_frame = [float(np.abs(a[:3, 3] - b[:3, 3]).max()) for a, b in zip(poses_k, poses_p)]
     rot = [float(np.abs(a[:3, :3] - b[:3, :3]).max()) for a, b in zip(poses_k, poses_p)]
@@ -1079,6 +1280,37 @@ def nonrigid_main(torch, args, dev, card, nr_depths):
     return launches, df
 
 
+def quality_main(torch, args, dev, card):
+    """Phase 5: ``quality_dynamicfusion()`` (the preset with the tangential
+    data term) over ``bench.py``'s hinge scene, kernel path and the plain
+    step from each of its states; free-running poses printed."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.io import synthetic
+
+    cfg = DynamicFusionConfig.quality_dynamicfusion()
+    n_prof = 3 if args.profile else 0
+    frames = synthetic.hinge_frames(cfg.intr, cfg.rows, cfg.cols, args.q_frames + n_prof)
+    frames, prof_frames = frames[: args.q_frames], frames[args.q_frames:]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    check_nonrigid_run("quality", card, cfg, frames, launches, rows, frame_ms, poses_k)
+    check_steps_vs_plain(torch, "quality", cfg, dev, frames, states, poses_k, rows)
+    del states
+    plain, plain_ms = run_plain_path(torch, cfg, dev, frames)
+    per_frame = [float(np.abs(a[:3, 3] - b.cpu().numpy()[:3, 3]).max()) for a, b in zip(poses_k, plain.poses)]
+    psteady = sorted(plain_ms[2:])
+    print(f"[quality-plain] free running, pose diff kernel vs plain path per frame (m; printed, not checked): "
+          f"{' '.join(f'{v:.2e}' for v in per_frame)}; nodes {int(df.state.warp.count)} / {int(plain.state.warp.count)}")
+    print(f"[time] {card} | quality plain-path frame ms median {psteady[len(psteady) // 2]:.3f}")
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    mp = df.last_outputs.model_points
+    check("quality_model_maps", tuple(mp.shape) == (rows_t, cols_t, 3) and bool(torch.isfinite(mp).any()),
+          f"warped model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
+    if args.profile:
+        profile_frames(torch, args, dev, card, df, prof_frames, tag="quality")
+    return launches
+
+
 def perturbed_run(torch, kinfu, cfg, dev, frames, seed):
     """Poses of the kernel path with its frame-0 node positions moved by
     1e-7 relative (seeded)."""
@@ -1093,9 +1325,10 @@ def perturbed_run(torch, kinfu, cfg, dev, frames, seed):
     return [p.cpu().numpy() for p in df.poses]
 
 
-def profile_frames(torch, args, dev, card, df, depths):
+def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid"):
     """3 non-rigid frames under torch.profiler: the table, the trace, and
-    the device's busy time over the frames' wall time."""
+    the device's busy time over the frames' wall time (files named by
+    ``tag``)."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
@@ -1110,9 +1343,9 @@ def profile_frames(torch, args, dev, card, df, depths):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
-    (out / "frame_profile.txt").write_text(f"{card}\n{table}\n")
-    prof.export_chrome_trace(str(out / "frame_trace.json"))
-    events = json.loads((out / "frame_trace.json").read_text())["traceEvents"]
+    (out / f"{tag}_profile.txt").write_text(f"{card}\n{table}\n")
+    prof.export_chrome_trace(str(out / f"{tag}_trace.json"))
+    events = json.loads((out / f"{tag}_trace.json").read_text())["traceEvents"]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
     busy, end = 0.0, -1.0
@@ -1122,16 +1355,17 @@ def profile_frames(torch, args, dev, card, df, depths):
             end = b
     launches = sum(1 for e in events if e.get("name") in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     syncs = sum(1 for e in events if "Synchronize" in str(e.get("name", "")))
-    print(f"[profile] {card} | {len(depths)} non-rigid frames: wall {wall_ms:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+    print(f"[profile] {card} | {len(depths)} {tag} frames: wall {wall_ms:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"idle share {1.0 - busy / 1e3 / wall_ms:.3f}; {len(spans)} device ops, {launches} kernel launches, "
-          f"{syncs} synchronize calls -> {out}/frame_profile.txt", flush=True)
+          f"{syncs} synchronize calls -> {out}/{tag}_profile.txt", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--frames", type=int, default=15, help="frames of the rigid slice")
-    ap.add_argument("--nr-frames", type=int, default=20, help="frames of the non-rigid slice")
-    ap.add_argument("--profile", default=None, help="write a torch.profiler table of 3 non-rigid frames here")
+    ap.add_argument("--nr-frames", type=int, default=20, help="frames of the dynamicfusion preset")
+    ap.add_argument("--q-frames", type=int, default=20, help="frames of the quality preset (the hinge scene)")
+    ap.add_argument("--profile", default=None, help="write torch.profiler tables of 3 frames of each non-rigid preset here")
     ap.add_argument("--dump-solve", default=None, help="write the phase-2 warp field and solve inputs to this .npz")
     args = ap.parse_args()
 
@@ -1171,6 +1405,7 @@ def main() -> int:
     report = {}
     rigid_kernels(torch, args, report, dev, card)
     nonrigid_kernels(torch, args, report, dev, nr_depths)
+    extract_kernels(torch, report, dev, nr_depths)
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---------------- 3. the rigid main path ----------------
@@ -1182,21 +1417,27 @@ def main() -> int:
     print(f"[phase] non-rigid path done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.profile:
         profile_frames(torch, args, dev, card, df, nr_depths[args.nr_frames:])
+    del df
 
-    # ---------------- 5. report ----------------
+    # ---------------- 5. the quality preset ----------------
+    q_launches = quality_main(torch, args, dev, card)
+    print(f"[phase] quality path done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 6. report ----------------
+    runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches}
     rows_out = []
     for name, (src, rep) in ROWS.items():
         r = report[name]
-        rigid = name in RIGID_KERNELS
-        n_launch = (rigid_launches if rigid else nr_launches)[COUNTER.get(name, name)]
+        path = PATH.get(name, "nonrigid")
+        n_launch = runs[path][COUNTER.get(name, name)]
         rows_out.append(dict(
             name=name, route="cuda", source=f"dynamicfusion_tpu_torch/csrc/{src}", replaces=rep,
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"], path="rigid" if rigid else "nonrigid",
+            bound_by=r["bound"][1], library_ms=r["library_ms"], path=path,
         ))
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {card} | {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
-              f"({r['bound'][1]}), library {lib}, launches {n_launch} ({'rigid' if rigid else 'non-rigid'} path)"
+              f"({r['bound'][1]}), library {lib}, launches {n_launch} ({path} path)"
               + (f", {r['iterations']} iterations" if "iterations" in r else ""))
     print(f"[phase] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"{card}")

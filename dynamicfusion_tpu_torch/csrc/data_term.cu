@@ -1,28 +1,32 @@
-// Kernel F: the warp solver's point-to-plane data term at eps = 0.
+// Kernel F: the warp solver's data term at eps = 0, point-to-plane (one
+// residual row) or with the tangential point terms (three rows).
 //
 // Replaces dynamicfusion_tpu/solvers/warp_solver.py:299
-// data_residual_and_jac (vmap(jacrev) of the residual), :403
-// data_grad_cost and :545 data_jtr with :391 _scatter_jtr (bf16 hi+lo
-// one-hot matmuls), and the rows and blocks_d of the factored system_fn
-// (:1049-1089, one-hot einsums on the MXU).
+// data_residual_and_jac (vmap(jacrev) of the residual :82 or :88 with
+// :122 tangent_basis), :403 data_grad_cost and :545 data_jtr with :391
+// _scatter_jtr (bf16 hi+lo one-hot matmuls), and the rows and blocks_d of
+// the factored system_fn (:1049-1089, one-hot einsums on the MXU).
 //
 // Bound on the H100 (NVIDIA H100 80GB HBM3, 700.00 W: 3.35 TB/s, 67 TFLOP/s
 // float32, data-sheet peaks; measured times in PERF.md): bytes and latency. At
-// the slice's 3 200 solve points and 8 neighbours the pass reads ~0.3 MB
+// the preset's 3 200 solve points and 8 neighbours the pass reads ~0.3 MB
 // (points, neighbour ids and weights, 8 dual quaternions a point from a 32 KB
-// node table) and writes the (P, 8, 6) rows in float32 and bf16 (~0.9 MB); ~1
-// 500 flops a point are ~5 MFLOP. Both are microseconds: launch latency
-// dominates.
+// node table) and writes the (P, R, 8, 6) rows in float32 and bf16 (~0.9 MB
+// a row); ~1 500 flops a point and row are ~5-15 MFLOP. Both are
+// microseconds: launch latency dominates.
 // Design: pass 1, one thread per point: the DQB blend of its neighbours,
-// the transform, the residual n·(W(p) - l), Tukey weight and cost, and the
-// closed-form Jacobian jac_k = w_k s_k g M(dq_k): g (1x8) is the gradient
-// of n·transform(normalize(b)) at the blended b (dq.cuh grad_transform,
-// chained through the dual-quaternion normalize), M(dq_k) the fixed 8x6
-// derivative of from_twist(eps) ⊗ dq_k at eps = 0 (dq.cuh twist_row).
-// Pass 2, one thread per node: Jᵀr and (for the system) the 6x6 diagonal
-// block, summed over the node's (point, neighbour) entries in the order of
-// a per-solve node-sorted list: no float atomics, so the result is the
-// same in every run. Pass 3, one block: the cost, summed in a fixed tree.
+// the transform, the residual rows [n·d] or [n·d, sw t1·d, sw t2·d] (d =
+// W(p) - l, sw a per-point weight), the Tukey weight and cost on their
+// joint norm, and the closed-form Jacobian: each row's g (1x8), the
+// gradient of u·transform(normalize(b)) at the blend b along its direction
+// u = n, sw t1 or sw t2 (dq.cuh grad_blend_transform; one gradient for the
+// point-to-plane term, as before the tangential rows); jac_k = w_k s_k g M(dq_k),
+// M(dq_k) the fixed 8x6 derivative of from_twist(eps) ⊗ dq_k at eps = 0
+// (dq.cuh twist_row). Pass 2, one thread per node: Jᵀr and (for the
+// system) the 6x6 diagonal block, summed over the node's (point,
+// neighbour) entries in the order of a per-solve node-sorted list (the
+// rows of an entry first): no float atomics, so the result is the same in
+// every run. Pass 3, one block: the cost, summed in a fixed tree.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -34,9 +38,11 @@ namespace {
 constexpr int kK = 8;
 constexpr int kThreads = 128;
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 data_points_kernel(const float* __restrict__ p_can, const float* __restrict__ p_live,
-                   const float* __restrict__ n_live, const bool* __restrict__ valid,
+                   const float* __restrict__ n_live, const float* __restrict__ t1v, const float* __restrict__ t2v,
+                   const float* __restrict__ psw, const bool* __restrict__ valid,
                    const int64_t* __restrict__ knn_idx, const float* __restrict__ w_knn,
                    const float* __restrict__ dqs, int np, float c, float cc6,
                    float* __restrict__ jac, __nv_bfloat16* __restrict__ rows, float* __restrict__ rw,
@@ -56,65 +62,65 @@ data_points_kernel(const float* __restrict__ p_can, const float* __restrict__ p_
     sg[k] = dfk::blend_sign(a[k].r, a[0].r);
     dfk::blend_add(b, a[k], w[k], sg[k], k == 0);
   }
-  // dual-quaternion normalize, keeping its intermediates for the chain rule
-  const float n2 = dfk::dot4(b.r, b.r);
-  const bool small = n2 < 1e-12f;
-  const float sn = sqrtf(small ? 1.0f : n2);
-  const dfk::Quat r = dfk::qdiv(b.r, sn);
-  const dfk::Quat d0 = dfk::qdiv(b.d, sn);
-  const float rd0 = dfk::dot4(r, d0);
-  const dfk::Quat d = dfk::qsub(d0, dfk::qscale(r, rd0));
   const dfk::Vec3 p = {p_can[3 * i], p_can[3 * i + 1], p_can[3 * i + 2]};
   const dfk::Vec3 l = {p_live[3 * i], p_live[3 * i + 1], p_live[3 * i + 2]};
-  const dfk::Vec3 nl = {n_live[3 * i], n_live[3 * i + 1], n_live[3 * i + 2]};
-  const dfk::Vec3 y = dfk::dq_transform({r, d}, p);
-  const float res = (nl.x * (y.x - l.x) + nl.y * (y.y - l.y)) + nl.z * (y.z - l.z);
-  const float rn = sqrtf(res * res);
+  const dfk::Vec3 y = dfk::dq_transform(dfk::dq_normalize(b), p);
+  const dfk::Vec3 d = {y.x - l.x, y.y - l.y, y.z - l.z};
+  // the rows' directions and residuals: n, then sw t1 and sw t2
+  dfk::Vec3 dir[R];
+  float res[R];
+  dir[0] = {n_live[3 * i], n_live[3 * i + 1], n_live[3 * i + 2]};
+  res[0] = dfk::dot3(dir[0], d);
+  if constexpr (R == 3) {
+    const float sw = psw[i];
+    const dfk::Vec3 t1 = {t1v[3 * i], t1v[3 * i + 1], t1v[3 * i + 2]};
+    const dfk::Vec3 t2 = {t2v[3 * i], t2v[3 * i + 1], t2v[3 * i + 2]};
+    res[1] = sw * dfk::dot3(t1, d);
+    res[2] = sw * dfk::dot3(t2, d);
+    dir[1] = {t1.x * sw, t1.y * sw, t1.z * sw};
+    dir[2] = {t2.x * sw, t2.y * sw, t2.z * sw};
+  }
+  float rr = res[0] * res[0];
+#pragma unroll
+  for (int j = 1; j < R; ++j) rr = rr + res[j] * res[j];
+  const float rn = sqrtf(rr);
   const float x = rn / c;
   const bool ok = valid[i];
-  const float sw = ok ? (fabsf(x) <= 1.0f ? 1.0f - x * x : 0.0f) : 0.0f;
+  const float tw = ok ? (fabsf(x) <= 1.0f ? 1.0f - x * x : 0.0f) : 0.0f;
   const float x2 = (rn / c) * (rn / c);
   const float t = 1.0f - x2;
   const float rho = x2 <= 1.0f ? cc6 * (1.0f - (t * t) * t) : cc6;
   rho_v[i] = ok ? rho : 0.0f;
-  rw[i] = res * sw;
-  float* jrow = jac + static_cast<size_t>(i) * kK * 6;
-  __nv_bfloat16* brow = rows == nullptr ? nullptr : rows + static_cast<size_t>(i) * kK * 6;
-  if (sw == 0.0f) {
-    for (int e = 0; e < kK * 6; ++e) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) rw[i * R + j] = res[j] * tw;
+  float* jrow = jac + static_cast<size_t>(i) * R * kK * 6;
+  __nv_bfloat16* brow = rows == nullptr ? nullptr : rows + static_cast<size_t>(i) * R * kK * 6;
+  if (tw == 0.0f) {
+    for (int e = 0; e < R * kK * 6; ++e) {
       jrow[e] = 0.0f;
       if (brow != nullptr) brow[e] = __float2bfloat16_rn(0.0f);
     }
     return;
   }
-  dfk::Quat gr, gd;
-  dfk::grad_transform(r, d, p, nl, gr, gd);
-  // chain through d = d0 - (r·d0) r, d0 = b_d / s, r = b_r / s
-  const float rgd = dfk::dot4(r, gd);
-  const dfk::Quat h = dfk::qsub(gd, dfk::qscale(r, rgd));
-  const dfk::Quat G = dfk::qsub(dfk::qsub(gr, dfk::qscale(gd, rd0)), dfk::qscale(d0, rgd));
-  dfk::Quat gq, ge;
-  if (small) {
-    gq = G;
-    ge = h;
-  } else {
-    gq = dfk::qsub(dfk::qdiv(dfk::qsub(G, dfk::qscale(r, dfk::dot4(r, G))), sn),
-                   dfk::qdiv(dfk::qscale(r, dfk::dot4(d0, h)), sn));
-    ge = dfk::qdiv(h, sn);
-  }
 #pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    float row[6];
-    dfk::twist_row(gq, ge, a[k], w[k] * sg[k], row);
+  for (int j = 0; j < R; ++j) {
+    dfk::Quat gq, ge;
+    dfk::grad_blend_transform(b, p, dir[j], gq, ge);
 #pragma unroll
-    for (int e = 0; e < 6; ++e) {
-      const float v = row[e] * sw;
-      jrow[k * 6 + e] = v;
-      if (brow != nullptr) brow[k * 6 + e] = __float2bfloat16_rn(v);
+    for (int k = 0; k < kK; ++k) {
+      float row[6];
+      dfk::twist_row(gq, ge, a[k], w[k] * sg[k], row);
+#pragma unroll
+      for (int e = 0; e < 6; ++e) {
+        const float v = row[e] * tw;
+        jrow[(j * kK + k) * 6 + e] = v;
+        if (brow != nullptr) brow[(j * kK + k) * 6 + e] = __float2bfloat16_rn(v);
+      }
     }
   }
 }
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 data_nodes_kernel(const float* __restrict__ jac, const float* __restrict__ rw, const int* __restrict__ order,
                   const int* __restrict__ off, int n, float* __restrict__ jtr, float* __restrict__ blocks) {
@@ -126,20 +132,36 @@ data_nodes_kernel(const float* __restrict__ jac, const float* __restrict__ rw, c
   for (int e = 0; e < 21; ++e) h[e] = 0.0f;
   for (int q = off[nd]; q < off[nd + 1]; ++q) {
     const int ent = order[q];
-    const float* j = jac + static_cast<size_t>(ent) * 6;
-    const float r = rw[ent / kK];
-    float v[6];
+    const int pt = ent / kK;
+    // row j of entry (pt, k) of the (P, R, K, 6) Jacobian: ent + (pt (R - 1) + j) K
+    const size_t e0 = static_cast<size_t>(ent) + static_cast<size_t>(pt) * (R - 1) * kK;
+    float v[R][6], r[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float* jr = jac + (e0 + j * kK) * 6;
+      r[j] = rw[pt * R + j];
+#pragma unroll
+      for (int a = 0; a < 6; ++a) v[j][a] = jr[a];
+    }
+    // an entry's rows are summed first, as the plain version does
 #pragma unroll
     for (int a = 0; a < 6; ++a) {
-      v[a] = j[a];
-      g[a] += v[a] * r;
+      float s = v[0][a] * r[0];
+#pragma unroll
+      for (int j = 1; j < R; ++j) s = s + v[j][a] * r[j];
+      g[a] += s;
     }
     if (blocks != nullptr) {
       int e = 0;
 #pragma unroll
       for (int a = 0; a < 6; ++a) {
 #pragma unroll
-        for (int b2 = a; b2 < 6; ++b2) h[e++] += v[a] * v[b2];
+        for (int b2 = a; b2 < 6; ++b2) {
+          float s = v[0][a] * v[0][b2];
+#pragma unroll
+          for (int j = 1; j < R; ++j) s = s + v[j][a] * v[j][b2];
+          h[e++] += s;
+        }
       }
     }
   }
@@ -160,26 +182,46 @@ data_nodes_kernel(const float* __restrict__ jac, const float* __restrict__ rw, c
   }
 }
 
-}  // namespace
-
-extern "C" int df_data_term(const void* p_can, const void* p_live, const void* n_live, const void* valid,
-                            const void* knn_idx, const void* w_knn, const void* dqs, int np, int n,
-                            const void* order, const void* off, float c, float cc6, void* jac, void* rows,
-                            void* rw, void* rho_v, void* jtr, void* blocks, void* cost, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <int R>
+cudaError_t launch(const void* p_can, const void* p_live, const void* n_live, const void* t1, const void* t2,
+                   const void* sw, const void* valid, const void* knn_idx, const void* w_knn, const void* dqs, int np,
+                   int n, const void* order, const void* off, float c, float cc6, void* jac, void* rows, void* rw,
+                   void* rho_v, void* jtr, void* blocks, cudaStream_t s) {
   if (np > 0) {
-    data_points_kernel<<<(np + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+    data_points_kernel<R><<<(np + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         static_cast<const float*>(p_can), static_cast<const float*>(p_live), static_cast<const float*>(n_live),
+        static_cast<const float*>(t1), static_cast<const float*>(t2), static_cast<const float*>(sw),
         static_cast<const bool*>(valid), static_cast<const int64_t*>(knn_idx), static_cast<const float*>(w_knn),
         static_cast<const float*>(dqs), np, c, cc6, static_cast<float*>(jac),
         static_cast<__nv_bfloat16*>(rows), static_cast<float*>(rw), static_cast<float*>(rho_v));
     cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
   }
-  data_nodes_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+  data_nodes_kernel<R><<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       static_cast<const float*>(jac), static_cast<const float*>(rw), static_cast<const int*>(order),
       static_cast<const int*>(off), n, static_cast<float*>(jtr), static_cast<float*>(blocks));
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// nrows 1: point-to-plane (t1, t2, sw unused); 3: with the tangential rows
+extern "C" int df_data_term(const void* p_can, const void* p_live, const void* n_live, const void* t1,
+                            const void* t2, const void* sw, const void* valid, const void* knn_idx, const void* w_knn,
+                            const void* dqs, int np, int n, int nrows, const void* order, const void* off, float c,
+                            float cc6, void* jac, void* rows, void* rw, void* rho_v, void* jtr, void* blocks,
+                            void* cost, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (nrows == 1) {
+    err = launch<1>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c, cc6, jac,
+                    rows, rw, rho_v, jtr, blocks, s);
+  } else if (nrows == 3) {
+    err = launch<3>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c, cc6, jac,
+                    rows, rw, rho_v, jtr, blocks, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_kernel<<<1, kReduceThreads, 0, s>>>(static_cast<const float*>(rho_v), np, static_cast<float*>(cost));
   return static_cast<int>(cudaGetLastError());

@@ -1,4 +1,5 @@
-// Quaternion and dual-quaternion helpers of kernels E, F, G and H.
+// Quaternion and dual-quaternion helpers of kernels E, F, G and H (and
+// the closed-form Jacobians of F and G).
 //
 // Each function repeats its plain PyTorch counterpart in
 // dynamicfusion_tpu_torch/core/quat.py and core/dualquat.py operation for
@@ -153,6 +154,33 @@ __device__ __forceinline__ void grad_transform(Quat rin, Quat d, Vec3 v, Vec3 n,
   gr = {gw, gu.x, gu.y, gu.z};
   gd = {-2.0f * nu, 2.0f * (w * n.x + nxu.x), 2.0f * (w * n.y + nxu.y), 2.0f * (w * n.z + nxu.z)};
   if (!small) gr = qdiv(qsub(gr, qscale(r, dot4(r, gr))), s);
+}
+
+// Gradient of u · transform(normalize(b), v) with respect to the blend b,
+// as its real (gq) and dual (ge) parts: grad_transform along u, chained
+// through dualquat.normalize (r = b_r / s, d = d0 - (r·d0) r, d0 = b_d /
+// s). Linear in u, so a data row's direction (n, sw t1 or sw t2) takes it
+// directly, as the residual's reverse-mode Jacobian does.
+__device__ __forceinline__ void grad_blend_transform(DualQuat b, Vec3 v, Vec3 u, Quat& gq, Quat& ge) {
+  const float n2 = dot4(b.r, b.r);
+  const bool small = n2 < 1e-12f;
+  const float sn = sqrtf(small ? 1.0f : n2);
+  const Quat r = qdiv(b.r, sn);
+  const Quat d0 = qdiv(b.d, sn);
+  const float rd0 = dot4(r, d0);
+  const Quat d = qsub(d0, qscale(r, rd0));
+  Quat gr, gd;
+  grad_transform(r, d, v, u, gr, gd);
+  const float rgd = dot4(r, gd);
+  const Quat h = qsub(gd, qscale(r, rgd));
+  const Quat g = qsub(qsub(gr, qscale(gd, rd0)), qscale(d0, rgd));
+  if (small) {
+    gq = g;
+    ge = h;
+  } else {
+    gq = qsub(qdiv(qsub(g, qscale(r, dot4(r, g))), sn), qdiv(qscale(r, dot4(d0, h)), sn));
+    ge = qdiv(h, sn);
+  }
 }
 
 // Row of the twist Jacobian: d(g · (from_twist(eps) ⊗ a))/d eps at eps = 0,

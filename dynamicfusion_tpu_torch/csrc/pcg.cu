@@ -10,7 +10,8 @@
 //
 // Bound on the H100 (NVIDIA H100 80GB HBM3, 700.00 W: 3.35 TB/s, 67 TFLOP/s
 // float32, data-sheet peaks; measured times in PERF.md): latency. One matvec
-// at the slice's shapes reads the bf16 rows (3 200 x 8 x 6 x 2 B = 0.3 MB),
+// at the preset's shapes reads the bf16 rows (3 200 x R x 8 x 6 x 2 B = 0.3 MB
+// a residual row; R = 3 with the tangential term),
 // the per-edge blocks (4 096 x 3 x 144 B = 1.8 MB) and a few 6 144-long
 // vectors, and does ~1.3 MFLOP; twelve PCG iterations are ~25 MB and ~16
 // MFLOP, a few microseconds of bandwidth on the whole card. The iterations are
@@ -18,8 +19,8 @@
 // would pay ~40 launches and a host round trip per early-exit test.
 // Design: the whole PCG solve is ONE launch of one 1024-thread block.
 // Each thread owns whole nodes (their 6 dofs) for every vector update;
-// the matvec runs in two phases (one thread per point: t = bf16(rows ·
-// bf16(p)); one thread per node: the node's data entries from the
+// the matvec runs in two phases (one thread per (point, row): t =
+// bf16(row · bf16(p)); one thread per node: the node's data entries from the
 // per-solve node-sorted list, its source-side edges (edge e = node * k +
 // c) and its destination-side edges from a second sorted list, plus the
 // damping); dot products are fixed-order block reductions. The early exit
@@ -199,7 +200,7 @@ __global__ void spd6_inv_kernel(const float* __restrict__ m, int n, float* __res
 // ---------------------------------------------------------------- matvec and PCG
 
 struct Sys {
-  const __nv_bfloat16* rows;  // (P, K, 6)
+  const __nv_bfloat16* rows;  // (P, R, K, 6): R = 1 point-to-plane, 3 with the tangential rows
   const int* idx;             // (P, K)
   const int* pt_order;        // (P K,) entries sorted by node
   const int* pt_off;          // (N + 1,)
@@ -213,28 +214,41 @@ struct Sys {
   int np, n, kc;
 };
 
-// ap = A p for the whole block; t is (P,) scratch. Ends synchronized.
+// ap = A p for the whole block, R residual rows a point; t is (P R,)
+// scratch, one entry per (point, row). Ends synchronized.
+template <int R>
 __device__ void block_matvec(const Sys& S, const float* __restrict__ p, float* __restrict__ ap,
                              float* __restrict__ t) {
-  for (int pt = threadIdx.x; pt < S.np; pt += blockDim.x) {
+  for (int q = threadIdx.x; q < S.np * R; q += blockDim.x) {
+    const int pt = q / R;
     float acc = 0.0f;
     for (int k = 0; k < kK; ++k) {
       const int nd = S.idx[pt * kK + k];
-      const __nv_bfloat16* r = S.rows + (static_cast<size_t>(pt) * kK + k) * 6;
+      const __nv_bfloat16* r = S.rows + (static_cast<size_t>(q) * kK + k) * 6;
 #pragma unroll
       for (int d = 0; d < 6; ++d) acc += __bfloat162float(r[d]) * bf16r(p[6 * nd + d]);
     }
-    t[pt] = bf16r(acc);
+    t[q] = bf16r(acc);
   }
   __syncthreads();
   for (int nd = threadIdx.x; nd < S.n; nd += blockDim.x) {
     float dat[6] = {0, 0, 0, 0, 0, 0}, edg[6] = {0, 0, 0, 0, 0, 0};
     for (int q = S.pt_off[nd]; q < S.pt_off[nd + 1]; ++q) {
       const int ent = S.pt_order[q];
-      const float tv = t[ent / kK];
-      const __nv_bfloat16* r = S.rows + static_cast<size_t>(ent) * 6;
+      const int pt = ent / kK;
+      // row j of entry (pt, k) of the (P, R, K, 6) rows: ent + (pt (R - 1) + j) K
+      const size_t e0 = static_cast<size_t>(ent) + static_cast<size_t>(pt) * (R - 1) * kK;
+      // an entry's rows are summed first, as the plain version does
+      float s[6];
 #pragma unroll
-      for (int d = 0; d < 6; ++d) dat[d] += __bfloat162float(r[d]) * tv;
+      for (int j = 0; j < R; ++j) {
+        const float tv = t[pt * R + j];
+        const __nv_bfloat16* r = S.rows + (e0 + j * kK) * 6;
+#pragma unroll
+        for (int d = 0; d < 6; ++d) s[d] = j == 0 ? __bfloat162float(r[d]) * tv : s[d] + __bfloat162float(r[d]) * tv;
+      }
+#pragma unroll
+      for (int d = 0; d < 6; ++d) dat[d] += s[d];
     }
     float pn[6];
 #pragma unroll
@@ -316,11 +330,13 @@ __device__ void apply_m(const float* __restrict__ minv, const float* __restrict_
   }
 }
 
+template <int R>
 __global__ void __launch_bounds__(kBlock) matvec_kernel(Sys S, const float* __restrict__ p, float* __restrict__ ap,
                                                         float* __restrict__ t) {
-  block_matvec(S, p, ap, t);
+  block_matvec<R>(S, p, ap, t);
 }
 
+template <int R>
 __global__ void __launch_bounds__(kBlock)
 pcg_kernel(Sys S, const float* __restrict__ minv, const float* __restrict__ b, int iters, float rtol2,
            const bool* __restrict__ active, float* __restrict__ x, float* __restrict__ work) {
@@ -354,7 +370,7 @@ pcg_kernel(Sys S, const float* __restrict__ minv, const float* __restrict__ b, i
   for (int it = 0; it < iters; ++it) {
     const float rr = block_sum(node_dot(r, r, n), red);
     if (!(rr > stop2)) break;
-    block_matvec(S, p, ap, t);
+    block_matvec<R>(S, p, ap, t);
     const float alpha = rz / fmaxf(block_sum(node_dot(p, ap, n), red), 1e-30f);
     for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
 #pragma unroll
@@ -419,20 +435,36 @@ extern "C" int df_spd6_inv(const void* m, int n, void* out, void* stream) {
 
 extern "C" int df_matvec(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* h_ii,
                          const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order, const void* e_off,
-                         const void* damp, int np, int n, int kc, const void* p, void* ap, void* t, void* stream) {
+                         const void* damp, int np, int n, int kc, int nrows, const void* p, void* ap, void* t,
+                         void* stream) {
   const Sys S = make_sys(rows, idx, pt_order, pt_off, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc);
-  matvec_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(S, static_cast<const float*>(p),
-                                                                      static_cast<float*>(ap), static_cast<float*>(t));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pp = static_cast<const float*>(p);
+  if (nrows == 1) {
+    matvec_kernel<1><<<1, kBlock, 0, st>>>(S, pp, static_cast<float*>(ap), static_cast<float*>(t));
+  } else if (nrows == 3) {
+    matvec_kernel<3><<<1, kBlock, 0, st>>>(S, pp, static_cast<float*>(ap), static_cast<float*>(t));
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int df_pcg(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* h_ii,
                       const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order, const void* e_off,
-                      const void* damp, int np, int n, int kc, const void* minv, const void* b, int iters,
-                      float rtol2, const void* active, void* x, void* work, void* stream) {
+                      const void* damp, int np, int n, int kc, int nrows, const void* minv, const void* b,
+                      int iters, float rtol2, const void* active, void* x, void* work, void* stream) {
   const Sys S = make_sys(rows, idx, pt_order, pt_off, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc);
-  pcg_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      S, static_cast<const float*>(minv), static_cast<const float*>(b), iters, rtol2,
-      static_cast<const bool*>(active), static_cast<float*>(x), static_cast<float*>(work));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(minv);
+  const float* bb = static_cast<const float*>(b);
+  const bool* on = static_cast<const bool*>(active);
+  if (nrows == 1) {
+    pcg_kernel<1><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, static_cast<float*>(x), static_cast<float*>(work));
+  } else if (nrows == 3) {
+    pcg_kernel<3><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, static_cast<float*>(x), static_cast<float*>(work));
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

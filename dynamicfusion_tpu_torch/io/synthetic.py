@@ -1,6 +1,7 @@
 """Synthetic depth scenes with analytic ground truth (numpy copy of
-``scene_depth`` and ``orbit_pose`` from ``dynamicfusion_tpu.io.synthetic``).
-Depth maps are uint16 millimeters."""
+``scene_depth`` and ``orbit_pose`` from ``dynamicfusion_tpu.io.synthetic``,
+and of ``bench.py``'s deforming and hinge scenes). Depth maps are uint16
+millimeters."""
 
 from __future__ import annotations
 
@@ -74,3 +75,29 @@ def deforming_frames(intr: Intrinsics, rows: int, cols: int, n: int) -> list:
         )
         for t in range(n)
     ]
+
+
+HINGE = dict(h=(0.0, 0.0, 0.95), d=0.16, r=0.12)  # bench.py's HINGE
+
+
+def hinge_centers(t: float):
+    """``bench.py``'s scissor articulation: two spheres about the hinge h at
+    angles theta and pi - theta from +x in the x/y plane, theta = 0.2
+    sin(0.25 t); at t = 0 the spheres sit at h +- d along x."""
+    th = 0.2 * np.sin(0.25 * t)
+    h, d = np.asarray(HINGE["h"], np.float64), HINGE["d"]
+    return h + d * np.array([np.cos(th), np.sin(th), 0.0]), h + d * np.array([-np.cos(th), np.sin(th), 0.0])
+
+
+def hinge_frames(intr: Intrinsics, rows: int, cols: int, n: int) -> list:
+    """``bench.py``'s articulated hold-out scene (the hinge) seen by a static
+    camera: the two spheres of ``hinge_centers`` (radius 0.12) over the
+    plane z = 1.3, frames t = 0 .. n - 1."""
+    out = []
+    for t in range(n):
+        ca, cb = hinge_centers(t)
+        out.append(scene_depth(
+            intr, rows, cols, plane_z=1.3,
+            spheres=[dict(center=tuple(ca), radius=HINGE["r"]), dict(center=tuple(cb), radius=HINGE["r"])],
+        ))
+    return out

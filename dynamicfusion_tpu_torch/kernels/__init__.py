@@ -34,7 +34,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = (
     "bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu",
     "knn_blend.cu", "data_term.cu", "pcg.cu", "insert_nodes.cu",
-    "preprocess.cu", "bands.cu", "classify.cu",
+    "preprocess.cu", "bands.cu", "classify.cu", "extract.cu",
 )
 HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh")
 NVCC_FLAGS = (
@@ -48,12 +48,13 @@ NVCC_FLAGS = (
 
 # one launch counter per wrapper; a wrapper's kernel is the letter in its
 # docstring (A-D the rigid slice, E-H the non-rigid one, I-K the per-frame
-# stencils and the brick plan)
+# stencils and the brick plan, L frame 0's extraction and node sampling)
 KERNELS = (
     "bilateral", "icp_reduce", "raycast", "fuse_bricks",
     "knn_blend", "mutual_nearest", "warp_trilinear", "data_term",
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
     "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "brick_plan",
+    "extract_cloud", "sample_nodes",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -75,11 +76,13 @@ _SIGNATURES = {
     "df_knn_blend": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
     "df_warp_trilinear": (_P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
-    "df_data_term": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
+    "df_data_term": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
     "df_edge_term": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "df_spd6_inv": (_P, _I, _P, _P),
-    "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "df_pcg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
+    "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "df_pcg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
     "df_insert_select": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P),
     "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P),
     "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
@@ -91,6 +94,8 @@ _SIGNATURES = {
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
+    "df_extract_cloud": (_P, _P, _I, _F, _F, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P, _P),
+    "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
 }
 
 
@@ -504,14 +509,24 @@ def _check_lists(order, off, m: int, n: int) -> None:
     _check(off, "off", torch.int32, (n + 1,))
 
 
-def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tukey_c: float, system: bool):
+def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tukey_c: float, system: bool,
+              t1=None, t2=None, sw=None):
     """Kernel F (csrc/data_term.cu): (Jᵀr (6N,), cost (), bf16 rows
-    (P, 8, 6) | None, diagonal blocks (N, 6, 6) | None) of the Tukey-
-    weighted point-to-plane term at eps = 0; the rows and blocks only with
-    ``system``."""
+    (P, R, 8, 6) | None, diagonal blocks (N, 6, 6) | None) of the Tukey-
+    weighted data term at eps = 0; the rows and blocks only with
+    ``system``. R = 1, point-to-plane; with the tangent basis ``t1``, ``t2``
+    (P, 3) and the per-point weight ``sw`` (P,), R = 3: [n·d, sw t1·d,
+    sw t2·d]."""
     np_ = _check_points(p_can, "p_can")
     for t, nm in ((p_live, "p_live"), (n_live, "n_live")):
         _check(t, nm, torch.float32, (np_, 3))
+    tangential = t1 is not None
+    if tangential != (t2 is not None) or tangential != (sw is not None):
+        raise ValueError("the tangential rows need t1, t2 and sw together")
+    if tangential:
+        _check(t1, "t1", torch.float32, (np_, 3))
+        _check(t2, "t2", torch.float32, (np_, 3))
+        _check(sw, "sw", torch.float32, (np_,))
     _check(valid, "valid", torch.bool, (np_,))
     _check(knn_idx, "knn_idx", torch.int64, (np_, 8))
     _check(w_knn, "w_knn", torch.float32, (np_, 8))
@@ -520,22 +535,23 @@ def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tuk
     if dqs.shape != (n, 8):
         raise ValueError(f"dqs: expected (N, 8), got {tuple(dqs.shape)}")
     _check_lists(order, off, np_ * 8, n)
-    _same_device(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off)
+    _same_device(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, *((t1, t2, sw) if tangential else ()))
     lib = load()
     dev = dqs.device
-    jac = torch.empty((np_, 8, 6), dtype=torch.float32, device=dev)
-    rows = torch.empty((np_, 8, 6), dtype=torch.bfloat16, device=dev) if system else None
-    rw = torch.empty((np_,), dtype=torch.float32, device=dev)
+    nr = 3 if tangential else 1
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    jac = torch.empty((np_, nr, 8, 6), dtype=torch.float32, device=dev)
+    rows = torch.empty((np_, nr, 8, 6), dtype=torch.bfloat16, device=dev) if system else None
+    rw = torch.empty((np_, nr), dtype=torch.float32, device=dev)
     rho = torch.empty((np_,), dtype=torch.float32, device=dev)
     jtr = torch.empty((6 * n,), dtype=torch.float32, device=dev)
     blocks = torch.empty((n, 6, 6), dtype=torch.float32, device=dev) if system else None
     cost = torch.empty((), dtype=torch.float32, device=dev)
     rc = lib.df_data_term(
-        p_can.data_ptr(), p_live.data_ptr(), n_live.data_ptr(), valid.data_ptr(), knn_idx.data_ptr(),
-        w_knn.data_ptr(), dqs.data_ptr(), np_, n, order.data_ptr(), off.data_ptr(),
-        _f32(tukey_c), _f32(tukey_c * tukey_c / 6.0), jac.data_ptr(),
-        None if rows is None else rows.data_ptr(), rw.data_ptr(), rho.data_ptr(), jtr.data_ptr(),
-        None if blocks is None else blocks.data_ptr(), cost.data_ptr(), _stream(dev),
+        p_can.data_ptr(), p_live.data_ptr(), n_live.data_ptr(), ptr(t1), ptr(t2), ptr(sw), valid.data_ptr(),
+        knn_idx.data_ptr(), w_knn.data_ptr(), dqs.data_ptr(), np_, n, nr, order.data_ptr(), off.data_ptr(),
+        _f32(tukey_c), _f32(tukey_c * tukey_c / 6.0), jac.data_ptr(), ptr(rows), rw.data_ptr(), rho.data_ptr(),
+        jtr.data_ptr(), ptr(blocks), cost.data_ptr(), _stream(dev),
     )
     _done("data_term", rc)
     return jtr, cost, rows, blocks
@@ -595,7 +611,7 @@ def spd6_inv(m: torch.Tensor) -> torch.Tensor:
 class FactoredSystem(NamedTuple):
     """The factored normal equations as kernel G takes them."""
 
-    rows: torch.Tensor      # (P, 8, 6) bf16
+    rows: torch.Tensor      # (P, R, 8, 6) bf16, R = 1 or 3 residual rows a point
     knn_idx: torch.Tensor   # (P, 8) int64
     pt_order: torch.Tensor  # (8P,) int32
     pt_off: torch.Tensor    # (N + 1,) int32
@@ -609,10 +625,12 @@ class FactoredSystem(NamedTuple):
 
 
 def _system_args(s: FactoredSystem):
-    np_ = s.rows.shape[0]
+    _check(s.rows, "rows", torch.bfloat16)
+    if s.rows.dim() != 4 or s.rows.shape[1] not in (1, 3) or s.rows.shape[2:] != (8, 6):
+        raise ValueError(f"rows: expected (P, 1 or 3, 8, 6), got {tuple(s.rows.shape)}")
+    np_, nr = s.rows.shape[:2]
     n = s.damp.shape[0] // 6
     ne = s.e_dst.shape[0]
-    _check(s.rows, "rows", torch.bfloat16, (np_, 8, 6))
     _check(s.knn_idx, "knn_idx", torch.int64, (np_, 8))
     _check_lists(s.pt_order, s.pt_off, np_ * 8, n)
     for t, nm in ((s.h_ii, "h_ii"), (s.h_jj, "h_jj"), (s.h_ij, "h_ij")):
@@ -628,19 +646,19 @@ def _system_args(s: FactoredSystem):
     ptrs = (
         s.rows.data_ptr(), idx32.data_ptr(), s.pt_order.data_ptr(), s.pt_off.data_ptr(),
         s.h_ii.data_ptr(), s.h_jj.data_ptr(), s.h_ij.data_ptr(), dst32.data_ptr(),
-        s.e_order.data_ptr(), s.e_off.data_ptr(), s.damp.data_ptr(), np_, n, ne // n,
+        s.e_order.data_ptr(), s.e_off.data_ptr(), s.damp.data_ptr(), np_, n, ne // n, nr,
     )
-    return ptrs, (idx32, dst32), np_, n
+    return ptrs, (idx32, dst32), np_ * nr, n
 
 
 def matvec(s: FactoredSystem, p: torch.Tensor) -> torch.Tensor:
     """Kernel G: (rows_bf16ᵀ bf16(rows_bf16 bf16(p))) + edge blocks p +
-    damp p, one block."""
-    ptrs, keep, np_, n = _system_args(s)
+    damp p, one block; t = bf16(row · bf16(p)) per (point, row)."""
+    ptrs, keep, n_rows, n = _system_args(s)
     _check(p, "p", torch.float32, (6 * n,))
     lib = load()
     ap = torch.empty_like(p)
-    t = torch.empty((max(np_, 1),), dtype=torch.float32, device=p.device)
+    t = torch.empty((max(n_rows, 1),), dtype=torch.float32, device=p.device)
     rc = lib.df_matvec(*ptrs, p.data_ptr(), ap.data_ptr(), t.data_ptr(), _stream(p.device))
     _done("matvec", rc)
     del keep
@@ -651,14 +669,14 @@ def pcg(s: FactoredSystem, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol
     """Kernel G: the whole block-Jacobi PCG solve from x = 0 in one launch;
     at most ``iters`` iterations while rᵀr > rtol² bᵀb; ``active`` (a ()
     bool device tensor) False returns zeros."""
-    ptrs, keep, np_, n = _system_args(s)
+    ptrs, keep, n_rows, n = _system_args(s)
     _check(minv, "minv", torch.float32, (n, 6, 6))
     _check(b, "b", torch.float32, (6 * n,))
     _check(active, "active", torch.bool, ())
     _same_device(b, minv, active, s.damp)
     lib = load()
     x = torch.empty_like(b)
-    work = torch.empty((4 * 6 * n + max(np_, 1),), dtype=torch.float32, device=b.device)
+    work = torch.empty((4 * 6 * n + max(n_rows, 1),), dtype=torch.float32, device=b.device)
     rc = lib.df_pcg(
         *ptrs, minv.data_ptr(), b.data_ptr(), iters, _f32(rtol * rtol), active.data_ptr(),
         x.data_ptr(), work.data_ptr(), _stream(b.device),
@@ -904,3 +922,68 @@ def brick_plan(
     )
     _done("brick_plan", rc)
     return (pyr[0], pyr[1], pyr[2]), (cls, uv[0], uv[1], surf), (ids, kind, count, counts)
+
+
+# --------------------------------------------------------------------------
+# kernel L: frame 0's surface extraction and node sampling
+# --------------------------------------------------------------------------
+
+_TILE = 16 * 256  # crossing tests per tile of csrc/extract.cu
+
+
+def extract_cloud(tsdf: torch.Tensor, weight: torch.Tensor, min_weight: float, max_points: int, voxel_size: float,
+                  origin) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel L (csrc/extract.cu, four launches): the +x/+y/+z zero
+    crossings of an int16/uint16 (D, D, D) volume where both voxels weigh
+    at least ``min_weight``, in the JAX order (axis-major, raster order
+    within an axis). Returns (points (max_points, 3) world frame, NaN past
+    the count; valid (max_points,) bool; count () int32, uncapped)."""
+    d = tsdf.shape[0]
+    if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1 or d < 2:
+        raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
+    _check(tsdf, "tsdf", torch.int16)
+    _check(weight, "weight", torch.uint16, tsdf.shape)
+    _same_device(tsdf, weight)
+    if 3 * (d - 1) * d * d >= 2 ** 31:
+        raise ValueError(f"tsdf: {d}^3 is past the kernel's int32 crossing count")
+    if max_points < 1:
+        raise ValueError(f"max_points must be >= 1, got {max_points}")
+    lib = load()
+    dev = tsdf.device
+    ntiles = (3 * (d - 1) * d * d + _TILE - 1) // _TILE
+    scratch = torch.empty((2 * ntiles,), dtype=torch.int32, device=dev)
+    points = torch.empty((max_points, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((max_points,), dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    rc = lib.df_extract_cloud(
+        tsdf.data_ptr(), weight.data_ptr(), d, _f32(1.0 / 32767.0), _f32(min_weight), max_points,
+        _f32(voxel_size), *(_f32(v) for v in origin), scratch[:ntiles].data_ptr(), scratch[ntiles:].data_ptr(),
+        ntiles, points.data_ptr(), valid.data_ptr(), count.data_ptr(), _stream(dev),
+    )
+    _done("extract_cloud", rc)
+    return points, valid, count
+
+
+def sample_nodes(points: torch.Tensor, valid: torch.Tensor, step: int, perm: torch.Tensor, max_nodes: int):
+    """Kernel L's node sampling, one block: of the candidates
+    ``points[::step]`` in the order ``perm``, the first ``max_nodes``
+    valid ones. Returns (positions (max_nodes, 3), 0 past the count;
+    active (max_nodes,) bool; count () int32)."""
+    m = _check_points(points, "points")
+    _check(valid, "valid", torch.bool, (m,))
+    if step < 1:
+        raise ValueError(f"step must be >= 1, got {step}")
+    mc = (m + step - 1) // step
+    _check(perm, "perm", torch.int64, (mc,))
+    _same_device(points, valid, perm)
+    lib = load()
+    dev = points.device
+    pos = torch.empty((max_nodes, 3), dtype=torch.float32, device=dev)
+    active = torch.empty((max_nodes,), dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    rc = lib.df_sample_nodes(
+        points.data_ptr(), valid.data_ptr(), step, perm.data_ptr(), mc, max_nodes, pos.data_ptr(),
+        active.data_ptr(), count.data_ptr(), _stream(dev),
+    )
+    _done("sample_nodes", rc)
+    return pos, active, count

@@ -32,7 +32,9 @@ class TsdfVolume(NamedTuple):
     weight: torch.Tensor  # (D, D, D) uint16 (x 512) | float32
 
 
-def create(cfg: DynamicFusionConfig, device=None) -> TsdfVolume:
+def create(cfg: DynamicFusionConfig, device="cuda") -> TsdfVolume:
+    """An empty volume on ``device`` (CUDA unless the CPU is asked for)."""
+    device = device_mod.resolve(device)
     d = cfg.volume_dims
     return TsdfVolume(
         tsdf=torch.zeros((d, d, d), dtype=_TSDF_DTYPES[cfg.tsdf_dtype], device=device),

@@ -5,7 +5,8 @@ lifecycle.
 
 KNN, the blend and the point warp are CUDA kernel E (``csrc/knn_blend.cu``)
 on CUDA tensors; the insertion's decimation, ranking and slot allocation
-are kernel H (``csrc/insert_nodes.cu``). The plain versions here do the
+are kernel H (``csrc/insert_nodes.cu``); frame 0's node sampling is kernel
+L (``csrc/extract.cu``). The plain versions here do the
 same arithmetic for CPU tensors (or where the caller asks for them). The
 squared distance is the JAX package's expansion
 ``(|q|^2 - 2 q.n) + |n|^2 (+ 1e9 for inactive nodes)``, clamped at 0 after
@@ -22,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from dynamicfusion_tpu_torch import kernels
+from dynamicfusion_tpu_torch import device as device_mod, kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.core import compact, dualquat
 
@@ -37,6 +38,13 @@ def _fair_perm(p: int) -> np.ndarray:
     return np.random.RandomState(0).permutation(p).astype(np.int64)
 
 
+@functools.lru_cache(maxsize=8)
+def _fair_perm_on(p: int, device: torch.device) -> torch.Tensor:
+    """``_fair_perm`` on the device, copied once per size (a copy from
+    pageable host memory waits for the device)."""
+    return torch.from_numpy(_fair_perm(p)).to(device)
+
+
 class WarpField(NamedTuple):
     positions: torch.Tensor     # (N, 3) canonical node positions
     dq: torch.Tensor            # (N, 8) node transforms
@@ -46,7 +54,9 @@ class WarpField(NamedTuple):
     last_support: torch.Tensor  # (N,) int32 frame of the last canonical-surface support
 
 
-def create(cfg: DynamicFusionConfig, device=None) -> WarpField:
+def create(cfg: DynamicFusionConfig, device="cuda") -> WarpField:
+    """An empty field on ``device`` (CUDA unless the CPU is asked for)."""
+    device = device_mod.resolve(device)
     n = cfg.max_nodes
     return WarpField(
         positions=torch.zeros((n, 3), dtype=torch.float32, device=device),
@@ -58,30 +68,40 @@ def create(cfg: DynamicFusionConfig, device=None) -> WarpField:
     )
 
 
+def _sample_nodes_plain(points: torch.Tensor, valid: torch.Tensor, step: int, perm: torch.Tensor, n: int):
+    """The plain version of kernel L's node sampling: (positions, active,
+    count) of the first ``n`` valid candidates of ``points[::step]`` in the
+    order ``perm``, by a static-size compaction."""
+    pts = points[::step][perm]
+    sel = compact.first_true(valid[::step][perm], n)
+    ok = sel >= 0
+    pos = torch.where(ok[:, None], pts[sel.clamp(min=0)], 0.0)
+    return pos, ok, ok.sum(dtype=torch.int32)
+
+
 def init_from_cloud(
-    cfg: DynamicFusionConfig, points: torch.Tensor, valid: torch.Tensor
+    cfg: DynamicFusionConfig, points: torch.Tensor, valid: torch.Tensor, plain: bool = False
 ) -> WarpField:
     """Every ``node_sample_step``-th valid surface vertex becomes a node
     with identity transform; candidates are permuted first (``_fair_perm``)
-    and truncated at ``max_nodes`` with a static-size compaction."""
+    and truncated at ``max_nodes``. Kernel L on CUDA tensors, the plain
+    version on CPU tensors or where the caller asks."""
     if cfg.node_radius_adaptive:
         raise NotImplementedError("adaptive node radius: a later slice")
     dev = points.device
-    pts = points[:: cfg.node_sample_step]
-    val = valid[:: cfg.node_sample_step]
+    step = cfg.node_sample_step
     n = cfg.max_nodes
-    perm = torch.from_numpy(_fair_perm(pts.shape[0])).to(dev)
-    pts = pts[perm]
-    val = val[perm]
-    sel = compact.first_true(val, n)
-    ok = sel >= 0
-    pos = torch.where(ok[:, None], pts[sel.clamp(min=0)], 0.0)
+    perm = _fair_perm_on((points.shape[0] + step - 1) // step, dev)
+    if plain or dev.type == "cpu":
+        pos, ok, count = _sample_nodes_plain(points, valid, step, perm, n)
+    else:
+        pos, ok, count = kernels.sample_nodes(points.contiguous(), valid.contiguous(), step, perm, n)
     return WarpField(
         positions=pos,
         dq=dualquat.identity(dev).expand(n, 8).clone(),
         radius=torch.full((n,), cfg.node_radius, dtype=torch.float32, device=dev),
         active=ok,
-        count=ok.sum(dtype=torch.int32),
+        count=count,
         last_support=torch.zeros((n,), dtype=torch.int32, device=dev),
     )
 

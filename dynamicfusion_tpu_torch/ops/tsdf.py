@@ -6,7 +6,9 @@ per ray marches with its own early exit and refines the crossing with the
 secant + Newton polish or, under ``raycast_refine="newton8"`` (the
 dynamicfusion preset's), with one Newton step from the secant of the
 march's own bracket values. The plain version below keeps the JAX lockstep
-loop (all rays step together, finished rays masked).
+loop (all rays step together, finished rays masked). ``extract_cloud``
+owns kernel L's extraction (``csrc/extract.cu``): tile counts, their scan
+and an ordered write, equal to the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -389,22 +391,14 @@ class ExtractedCloud(NamedTuple):
     count: torch.Tensor   # () int32
 
 
-def extract_cloud(
-    cfg: DynamicFusionConfig,
-    vol: TsdfVolume,
-    max_points: int,
-    min_weight: float | None = None,
-) -> ExtractedCloud:
-    """Zero-crossing surface cloud in world coordinates: for each voxel and
-    its +x/+y/+z neighbour, both observed (weight >= min_weight) with a
-    sign change, the linearly interpolated crossing. Static-size
-    compaction in the JAX order (axis-major, then x-major voxel order)."""
+def extract_cloud_plain(cfg: DynamicFusionConfig, vol: TsdfVolume, max_points: int, mw: float) -> ExtractedCloud:
+    """The plain version of kernel L's extraction: the crossing flags of
+    all three axes concatenated and compacted with a cumulative sum."""
     d = cfg.volume_dims
     vs = cfg.voxel_size
     dev = vol.tsdf.device
     tsdf = volume_model.decode_tsdf(vol.tsdf)
     w = volume_model.decode_weight(vol.weight)
-    mw = cfg.extract_min_weight if min_weight is None else min_weight
 
     crosses = []
     for axis in range(3):
@@ -436,3 +430,24 @@ def extract_cloud(
     out = idx * vs + volume_model.origin(cfg, dev)
     out = torch.where(ok[:, None], out, NAN)
     return ExtractedCloud(points=out, valid=ok, count=valid.sum(dtype=torch.int32))
+
+
+def extract_cloud(
+    cfg: DynamicFusionConfig,
+    vol: TsdfVolume,
+    max_points: int,
+    min_weight: float | None = None,
+    plain: bool = False,
+) -> ExtractedCloud:
+    """Zero-crossing surface cloud in world coordinates: for each voxel and
+    its +x/+y/+z neighbour, both observed (weight >= min_weight) with a
+    sign change, the linearly interpolated crossing. Static-size
+    compaction in the JAX order (axis-major, then x-major voxel order);
+    ``count`` is the uncapped total. Kernel L (``csrc/extract.cu``) on CUDA
+    tensors, the plain version on CPU tensors or where the caller asks."""
+    mw = cfg.extract_min_weight if min_weight is None else min_weight
+    if plain or vol.tsdf.device.type == "cpu":
+        return extract_cloud_plain(cfg, vol, max_points, mw)
+    return ExtractedCloud(*kernels.extract_cloud(
+        vol.tsdf, vol.weight, mw, max_points, cfg.voxel_size, tuple(float(v) for v in cfg.volume_origin),
+    ))

@@ -214,9 +214,9 @@ def first_frame(
     tsdf_ops.integrate(cfg, state.vol, dists, vol2cam, cfg.intr, plain=plain)
     # min_weight=1: after one integrate every observed voxel weighs exactly 1
     cloud = tsdf_ops.extract_cloud(
-        cfg, state.vol, max_points=max(cfg.max_nodes * cfg.node_sample_step, 1 << 20), min_weight=1.0
+        cfg, state.vol, max_points=max(cfg.max_nodes * cfg.node_sample_step, 1 << 20), min_weight=1.0, plain=plain
     )
-    warp = warpfield.init_from_cloud(cfg, cloud.points, cloud.valid)
+    warp = warpfield.init_from_cloud(cfg, cloud.points, cloud.valid, plain=plain)
     seed, _ = _march_bands(cfg, None, dists, plain)
     (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(cfg, state.vol, state.pose, warp, t_seed=seed, plain=plain)
     return PipelineState(
@@ -312,8 +312,11 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
     def flat(a):
         return a[::stride, ::stride].reshape(-1, 3)
 
+    # the tangential term's per-point gate is ones (None) unless
+    # solver_p2p_adaptive, which the solver refuses (_p2p_gate not ported)
     inputs = warp_solver.WarpSolveInputs(
         p_can=flat(can_pts_w), n_can=flat(can_nrm_w), p_live=flat(live_pts_w), n_live=flat(live_nrm_w),
+        p2p_gate=None,
     )
     if cfg.solver_rigid_prealign:
         t_pre = warp_solver.rigid_prealign(cfg, state.warp, inputs, plain=plain)

@@ -1,13 +1,15 @@
 """Non-rigid warp-field estimation (port of the factored-PCG path of
 ``dynamicfusion_tpu.solvers.warp_solver``): Levenberg-Marquardt over
-per-node 6-dof twists, point-to-plane data term with Tukey weights, ARAP
-edge term with Huber weights, lagged JᵀJ, block-Jacobi PCG.
+per-node 6-dof twists, point-to-plane data term with Tukey weights (and,
+with ``solver_p2p_weight`` > 0, the tangential point terms: three residual
+rows a point), ARAP edge term with Huber weights, lagged JᵀJ, block-Jacobi
+PCG.
 
 Unknowns are delta twists eps = (r, t) per node, applied as
 dq <- from_twist(eps) ⊗ dq and re-linearized at eps = 0. The data term's
-Jacobian is a point's (K, 6) row over its K neighbour nodes; the normal
-equations stay factored: the rows (rounded to bf16, as the JAX package
-stores them), the per-node (N, 6, 6) diagonal blocks, and per-edge 6x6
+Jacobian is a point's (R, K, 6) rows over its K neighbour nodes (R = 1 or
+3 residual rows); the normal equations stay factored: the rows (rounded to
+bf16, as the JAX package stores them), the per-node (N, 6, 6) diagonal blocks, and per-edge 6x6
 blocks of the ARAP term. The linear solve is PCG over matvecs of those
 factors plus the LM damping.
 
@@ -24,8 +26,9 @@ The JAX loops that exit early (PCG on its residual, LM on convergence)
 become fixed trip counts with device-side flags that turn the remaining
 iterations into no-ops: no step of a solve reads a value back to the host.
 
-Not ported (off in the dynamicfusion preset): the dense and Cholesky
-paths, the point-to-point and tangential data terms.
+Not ported (off in every preset): the dense and Cholesky paths, the
+point-to-point data term, the adaptive aperture gate of the tangential
+term and its row subsampling and lagged variants (``_check_cfg``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ class WarpSolveInputs(NamedTuple):
     n_can: torch.Tensor   # (P, 3) canonical normals
     p_live: torch.Tensor  # (P, 3) live targets (NaN = invalid)
     n_live: torch.Tensor  # (P, 3) live normals
+    # (P, 1) per-point gate in [0, 1] of the tangential term's weight
+    # (solver_p2p_weight * gate); None means ones
+    p2p_gate: Optional[torch.Tensor] = None
 
 
 # --------------------------------------------------------------------------
@@ -94,6 +100,28 @@ def _data_residual(eps_k, dq_k, w_k, p_can, p_live, n_live):
     """Point-to-plane residual n_live · (warp(p_can) - p_live), (1,)."""
     d = _warp_one(eps_k, dq_k, w_k, p_can) - p_live
     return ((n_live[0] * d[0] + n_live[1] * d[1]) + n_live[2] * d[2]).reshape(1)
+
+
+def _data_residual_tangential(eps_k, dq_k, w_k, p_can, p_live, n_live, t1, t2, sw):
+    """Point-to-plane plus the per-point-weighted tangential point terms,
+    (3,): [n · d, sw (t1 · d), sw (t2 · d)], d = warp(p_can) - p_live."""
+    d = _warp_one(eps_k, dq_k, w_k, p_can) - p_live
+
+    def dot(u):
+        return (u[0] * d[0] + u[1] * d[1]) + u[2] * d[2]
+
+    return torch.stack([dot(n_live), sw * dot(t1), sw * dot(t2)])
+
+
+def tangent_basis(n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(P, 3) unit normals -> orthonormal tangent frames (t1, t2): the world
+    axis least aligned with n (the first on ties) as the helper; a zero
+    normal gives zero tangents."""
+    ax = torch.argmin(torch.abs(n), dim=-1)
+    helper = (ax[:, None] == torch.arange(3, device=n.device)).to(n.dtype)
+    t1 = torch.linalg.cross(n, helper)
+    t1 = t1 / torch.clamp(_norm3(t1), min=1e-9)[:, None]
+    return t1, torch.linalg.cross(n, t1)
 
 
 def _edge_residual(eps_i, dq_i, eps_j, dq_j, v_j):
@@ -154,16 +182,31 @@ class SolveStructure(NamedTuple):
     alpha: torch.Tensor    # (E,) ARAP edge weights
     pts_by_node: NodeLists  # the P*K (point, neighbour) entries by node
     edges_by_dst: NodeLists  # the E edges by dst node
+    # the tangential term's tangent basis of n_live (P, 3) and per-point
+    # sqrt weight (P,); None when solver_p2p_weight is 0 (one row a point)
+    t1: Optional[torch.Tensor] = None
+    t2: Optional[torch.Tensor] = None
+    p2p_sw: Optional[torch.Tensor] = None
 
 
 def prepare(cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs, plain: bool = False) -> SolveStructure:
     """Subsample by ``solver_hessian_stride`` (above 8192 points), KNN the
-    solve points, build the edge graph and the node lists."""
+    solve points, build the edge graph and the node lists; with the
+    tangential term, the tangent basis and the per-point weight
+    sqrt(solver_p2p_weight * clip(gate, 0, 1))."""
     n = field.positions.shape[0]
     hs = cfg.solver_hessian_stride if inputs.p_can.shape[0] > 8192 else 1
     p_can, p_live, n_live = (a[::hs] for a in (inputs.p_can, inputs.p_live, inputs.n_live))
     valid = ~torch.isnan(p_can[:, 0]) & ~torch.isnan(p_live[:, 0]) & ~torch.isnan(n_live[:, 0])
     p_can, p_live, n_live = (torch.nan_to_num(a) for a in (p_can, p_live, n_live))
+    t1 = t2 = p2p_sw = None
+    if cfg.solver_p2p_weight > 0.0:
+        if inputs.p2p_gate is None:
+            gate = torch.ones_like(p_can[:, 0])
+        else:
+            gate = torch.clamp(torch.nan_to_num(inputs.p2p_gate[::hs, 0]), 0.0, 1.0)
+        p2p_sw = torch.sqrt(cfg.solver_p2p_weight * gate)
+        t1, t2 = (a.contiguous() for a in tangent_basis(n_live))
     kb = warpfield.knn_blend(field, p_can, cfg.knn_k, plain=plain)
     wsum = kb.w[:, 0]
     for j in range(1, cfg.knn_k):
@@ -176,6 +219,7 @@ def prepare(cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs,
         knn_idx=kb.idx, w_knn=kb.w.contiguous(),
         e_src=e_src, e_dst=e_dst, e_valid=e_valid, v_dst=field.positions[e_dst].contiguous(), alpha=alpha,
         pts_by_node=node_lists(kb.idx, n), edges_by_dst=node_lists(e_dst, n),
+        t1=t1, t2=t2, p2p_sw=p2p_sw,
     )
 
 
@@ -187,35 +231,45 @@ def prepare(cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs,
 class DataTerm(NamedTuple):
     jtr: torch.Tensor              # (6N,) Jᵀr, node-major
     cost: torch.Tensor             # () Tukey cost at the linearization point
-    rows: Optional[torch.Tensor]   # (P, K, 6) bf16 weighted Jacobian rows
+    rows: Optional[torch.Tensor]   # (P, R, K, 6) bf16 weighted Jacobian rows
     blocks: Optional[torch.Tensor]  # (N, 6, 6) per-node diagonal blocks
 
 
 def data_residual_and_jac(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor):
-    """Weighted residuals (P,), weighted Jacobians (P, K, 6) and the Tukey
-    cost, with the Jacobian from ``torch.func.jacrev`` at eps = 0."""
+    """Weighted residuals (P, R), weighted Jacobians (P, R, K, 6) and the
+    Tukey cost, with the Jacobian from ``torch.func.jacrev`` at eps = 0;
+    R = 1 (point-to-plane) or 3 (with the tangential rows, ``s.t1``). The
+    Tukey weight and cost take the rows' joint norm."""
     p, k = s.knn_idx.shape
     dq_k = dqs[s.knn_idx]
     eps0 = torch.zeros((p, k, 6), dtype=torch.float32, device=dqs.device)
     args = (eps0, dq_k, s.w_knn, s.p_can, s.p_live, s.n_live)
-    r = torch.func.vmap(_data_residual)(*args)[:, 0]
-    jac = torch.func.vmap(torch.func.jacrev(_data_residual))(*args)[:, 0]
-    rn = torch.sqrt(r * r)
+    fn = _data_residual
+    if s.t1 is not None:
+        fn, args = _data_residual_tangential, args + (s.t1, s.t2, s.p2p_sw)
+    r = torch.func.vmap(fn)(*args)
+    jac = torch.func.vmap(torch.func.jacrev(fn))(*args)
+    rr = r[:, 0] * r[:, 0]
+    for j in range(1, r.shape[1]):
+        rr = rr + r[:, j] * r[:, j]
+    rn = torch.sqrt(rr)
     sw = tukey_sqrt_weight(rn, cfg.solver_tukey_c) * s.valid
     cost = (tukey_rho(rn, cfg.solver_tukey_c) * s.valid).sum()
-    return r * sw, jac * sw[:, None, None], cost
+    return r * sw[:, None], jac * sw[:, None, None, None], cost
 
 
 def data_term_plain(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor, system: bool) -> DataTerm:
     n = dqs.shape[0]
     r, jac, cost = data_residual_and_jac(cfg, s, dqs)
     flat = s.knn_idx.reshape(-1)
-    jr = (jac * r[:, None, None]).reshape(-1, 6)
+    # an entry's rows are summed first, then the entries by node
+    jr = (jac * r[:, :, None, None]).sum(1).reshape(-1, 6)
     jtr = torch.zeros((n, 6), device=dqs.device).index_add_(0, flat, jr).reshape(-1)
     if not system:
         return DataTerm(jtr, cost, None, None)
-    jf = jac.reshape(-1, 6)
-    blocks = torch.zeros((n, 6, 6), device=dqs.device).index_add_(0, flat, jf[:, :, None] * jf[:, None, :])
+    jf = jac.transpose(1, 2).reshape(-1, jac.shape[1], 6)
+    outer = (jf[:, :, :, None] * jf[:, :, None, :]).sum(1)
+    blocks = torch.zeros((n, 6, 6), device=dqs.device).index_add_(0, flat, outer)
     return DataTerm(jtr, cost, jac.to(torch.bfloat16), blocks)
 
 
@@ -226,7 +280,7 @@ def data_term(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor, sy
         return data_term_plain(cfg, s, dqs, system)
     return DataTerm(*kernels.data_term(
         s.p_can, s.p_live, s.n_live, s.valid, s.knn_idx, s.w_knn, dqs,
-        s.pts_by_node.order, s.pts_by_node.off, cfg.solver_tukey_c, system,
+        s.pts_by_node.order, s.pts_by_node.off, cfg.solver_tukey_c, system, s.t1, s.t2, s.p2p_sw,
     ))
 
 
@@ -332,20 +386,21 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 class System(NamedTuple):
     """The factored normal equations at one linearization point."""
 
-    rows: torch.Tensor  # (P, K, 6) bf16
+    rows: torch.Tensor  # (P, R, K, 6) bf16
     edge: EdgeTerm
     damp: torch.Tensor  # (6N,) LM damping plus the unit diagonal of empty dofs
 
 
 def matvec_plain(s: SolveStructure, sys: System, p: torch.Tensor) -> torch.Tensor:
     """(rows_bf16ᵀ · bf16(rows_bf16 · bf16(p))) + edge blocks · p + damp * p,
-    accumulated in float32 (the JAX package's rounding points)."""
+    accumulated in float32 (the JAX package's rounding points: t is
+    rounded per (point, row))."""
     n = sys.damp.shape[0] // 6
     rows = sys.rows.to(torch.float32)
     pm = _bf16(p).reshape(n, 6)
-    t = _bf16((rows * pm[s.knn_idx]).sum((1, 2)))
+    t = _bf16((rows * pm[s.knn_idx][:, None]).sum((2, 3)))
     data = torch.zeros((n, 6), device=p.device).index_add_(
-        0, s.knn_idx.reshape(-1), (rows * t[:, None, None]).reshape(-1, 6)
+        0, s.knn_idx.reshape(-1), (rows * t[:, :, None, None]).sum(1).reshape(-1, 6)
     )
     pv = p.reshape(n, 6)
     p_i, p_j = pv[s.e_src], pv[s.e_dst]
@@ -460,10 +515,23 @@ def rigid_prealign(
 
 
 def _check_cfg(cfg: DynamicFusionConfig) -> None:
-    if not (cfg.solver_linear == "pcg" and cfg.solver_lagged_jtj and cfg.point_to_plane):
-        raise NotImplementedError("the port solves the factored-PCG path (pcg, lagged JᵀJ, point-to-plane) only")
+    """Refuse, one option at a time, what the port does not solve."""
+    if cfg.solver_linear != "pcg":
+        raise NotImplementedError(f"solver_linear={cfg.solver_linear!r}: the dense/Cholesky path is not ported")
+    if not cfg.solver_lagged_jtj:
+        raise NotImplementedError("solver_lagged_jtj=False (a fresh JᵀJ every LM iteration) is not ported")
+    if not cfg.point_to_plane:
+        raise NotImplementedError("point_to_plane=False (the point-to-point data term) is not ported")
     if cfg.solver_p2p_weight > 0.0:
-        raise NotImplementedError("the tangential point-to-point data term: a later slice")
+        if cfg.solver_p2p_adaptive:
+            raise NotImplementedError("solver_p2p_adaptive=True (the aperture gate, kinfu._p2p_gate): a later slice")
+        if cfg.solver_p2p_hessian_stride > 1:
+            raise NotImplementedError(
+                f"solver_p2p_hessian_stride={cfg.solver_p2p_hessian_stride} (tangential rows subsampled in the "
+                "PCG matrix) is not ported")
+        if cfg.solver_p2p_lag_hessian:
+            raise NotImplementedError(
+                "solver_p2p_lag_hessian=True (tangential rows kept out of the PCG matrix) is not ported")
 
 
 def damping_terms(cfg: DynamicFusionConfig, active: torch.Tensor, blocks: torch.Tensor):

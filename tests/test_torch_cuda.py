@@ -210,6 +210,27 @@ def test_fuse_kernel(dev, model, ok):
         assert torch.equal(vk.tsdf, model.vol.tsdf)
 
 
+@pytest.mark.parametrize("max_points", [1 << 16, 700])
+def test_extract_kernel(dev, model, max_points):
+    """Kernel L: the cloud (points, flags, uncapped count) and the node
+    sampling equal their plain versions bit for bit, capped or not."""
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    ck = tsdf.extract_cloud(CFG, model.vol, max_points, min_weight=1.0)
+    cp = tsdf.extract_cloud(CFG, model.vol, max_points, min_weight=1.0, plain=True)
+    torch.cuda.synchronize()
+    assert int(cp.count) > 700
+    assert torch.equal(ck.count, cp.count) and torch.equal(ck.valid, cp.valid)
+    assert torch.equal(torch.isnan(ck.points), torch.isnan(cp.points))
+    assert torch.equal(torch.nan_to_num(ck.points), torch.nan_to_num(cp.points))
+    fk = warpfield.init_from_cloud(CFG, cp.points, cp.valid)
+    fp = warpfield.init_from_cloud(CFG, cp.points, cp.valid, plain=True)
+    for name, a, b in zip(warpfield.WarpField._fields, fk, fp):
+        assert torch.equal(a, b), name
+    # every valid candidate of the (capped) cloud, up to the node capacity
+    assert int(fk.count) == min(CFG.max_nodes, int(cp.valid[:: CFG.node_sample_step].sum())) > 0
+
+
 def test_slice_on_the_card_goes_through_every_kernel(dev):
     kernels.reset_launches()
     df = kinfu.DynamicFusion(CFG, device=dev)
@@ -313,6 +334,35 @@ def test_solver_kernels(dev, nr_model):
     assert not bool(ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, ~on).any())
 
 
+def test_solver_kernels_tangential(dev, nr_model):
+    """Kernels F and G with the tangential rows (three a point) against
+    their plain versions: the data term, one matvec and the PCG."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = dataclasses.replace(NR, solver_p2p_weight=0.25)
+    st, inputs, _ = nr_model
+    n = st.warp.dq.shape[0]
+    s = ws.prepare(cfg, st.warp, inputs)
+    dk = ws.data_term(cfg, s, st.warp.dq, True)
+    dp = ws.data_term(cfg, s, st.warp.dq, True, plain=True)
+    torch.cuda.synchronize()
+    assert dk.rows.shape == dp.rows.shape == (s.p_can.shape[0], 3, 8, 6)
+    assert _close(dk.jtr, dp.jtr, 1e-4) and _close(dk.blocks, dp.blocks, 1e-4) and _close(dk.cost, dp.cost, 1e-5)
+    assert _close(dk.rows.float(), dp.rows.float(), 1e-2)
+    ev = ws.data_term(cfg, s, st.warp.dq, False)
+    assert _close(ev.jtr, dp.jtr, 1e-4) and ev.rows is None
+    ep = ws.edge_term(cfg, s, st.warp.dq, plain=True)
+    blocks = dp.blocks + ep.diag + torch.diag_embed(torch.ones(n, 6, device=dev))
+    sysm = ws.System(dp.rows, ep, torch.ones(6 * n, device=dev))
+    pv = torch.randn(6 * n, generator=torch.Generator().manual_seed(0)).to(dev)
+    assert _close(ws.matvec(s, sysm, pv), ws.matvec(s, sysm, pv, plain=True), 1e-3)
+    minv = ws.spd6_inv(blocks, plain=True)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    xk = ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on)
+    xp = ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on, plain=True)
+    assert _close(xk, xp, 1e-2)
+
+
 def test_insert_kernel(dev, nr_model):
     from dynamicfusion_tpu_torch.models import warpfield
 
@@ -359,16 +409,21 @@ def test_fuse_kernel_nonrigid(dev, nr_model):
     assert not torch.equal(vk.tsdf, st.vol.tsdf)
 
 
-def test_nonrigid_slice_on_the_card_goes_through_every_kernel(dev):
+@pytest.mark.parametrize("p2p", [0.0, 0.25])
+def test_nonrigid_slice_on_the_card_goes_through_every_kernel(dev, p2p):
+    """The preset's slice and, with the tangential term, the quality
+    preset's: every kernel launches (kernel L once, in frame 0)."""
+    cfg = dataclasses.replace(NR, solver_p2p_weight=p2p)
     kernels.reset_launches()
-    df = kinfu.DynamicFusion(NR, device=dev)
+    df = kinfu.DynamicFusion(cfg, device=dev)
     for d in NR_DEPTHS:
         df(d, block=False)
     torch.cuda.synchronize()
     # small() is below the full-scale branches: the trilinear map warp does not run
     path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear")]
     assert all(kernels.launches[k] > 0 for k in path), kernels.launches
-    ref = kinfu.DynamicFusion(NR, device="cpu")
+    assert kernels.launches["extract_cloud"] == kernels.launches["sample_nodes"] == 1
+    ref = kinfu.DynamicFusion(cfg, device="cpu")
     for d in NR_DEPTHS:
         ref(d)
     assert bool(df.last_outputs.icp_ok)

@@ -272,13 +272,20 @@ WRAPPER_CALLS = {
         torch.zeros((8, 8)), torch.zeros((5, 5, 5, 3)), 16, 8, tconfig.DynamicFusionConfig.small().intr,
         8, 0.04, 1e-3, 4, torch.arange(8), 8, 2,
     ),
+    "extract_cloud": lambda: kernels.extract_cloud(
+        torch.zeros((8, 8, 8), dtype=torch.int16), torch.zeros((8, 8, 8), dtype=torch.uint16), 1.0, 64, 0.01,
+        (0.0, 0.0, 0.0),
+    ),
+    "sample_nodes": lambda: kernels.sample_nodes(
+        torch.zeros((64, 3)), torch.ones(64, dtype=torch.bool), 8, torch.arange(8), 4,
+    ),
 }
 
 
 def _factored_system():
     """A (P = 4, N = 8, 4 edges a node) factored system on the CPU."""
     return kernels.FactoredSystem(
-        rows=torch.zeros((4, 8, 6), dtype=torch.bfloat16), knn_idx=torch.zeros((4, 8), dtype=torch.int64),
+        rows=torch.zeros((4, 1, 8, 6), dtype=torch.bfloat16), knn_idx=torch.zeros((4, 8), dtype=torch.int64),
         pt_order=torch.zeros(32, dtype=torch.int32), pt_off=torch.zeros(9, dtype=torch.int32),
         h_ii=torch.zeros((32, 6, 6)), h_jj=torch.zeros((32, 6, 6)), h_ij=torch.zeros((32, 6, 6)),
         e_dst=torch.zeros(32, dtype=torch.int64),

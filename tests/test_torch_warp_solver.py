@@ -130,8 +130,9 @@ def test_data_term_matches_jax(prob):
     jfield, tfield, _, _, s, t = prob
     r, jac, cost = js.data_residual_and_jac(JC, s, jfield.dq, True)
     tr, tjac, tcost = ts.data_residual_and_jac(TC, t, tfield.dq)
-    assert _rel(tr.numpy(), r[:, 0]) <= TOL_DATA
-    assert _rel(tjac.numpy(), jac[:, 0]) <= TOL_DATA
+    assert tr.shape == r.shape and tjac.shape == jac.shape  # (P, 1) and (P, 1, K, 6): one residual row
+    assert _rel(tr.numpy(), r) <= TOL_DATA
+    assert _rel(tjac.numpy(), jac) <= TOL_DATA
     assert _rel(tcost.numpy(), cost) <= TOL_DATA
     dt = ts.data_term(TC, t, tfield.dq, system=True)
     assert _rel(dt.jtr.numpy(), js.data_jtr(s, jac, r, N)) <= TOL_DATA
@@ -139,7 +140,7 @@ def test_data_term_matches_jax(prob):
     h_p = jnp.einsum("prkd,prke->pkde", jac, jac, precision=hi)
     blocks = jnp.einsum("pkn,pkde->nde", jax.nn.one_hot(s.knn_idx, N, dtype=jnp.float32), h_p, precision=hi)
     assert _rel(dt.blocks.numpy(), blocks) <= TOL_DATA
-    assert dt.rows.dtype == torch.bfloat16 and dt.rows.shape == (t.knn_idx.shape[0], 8, 6)
+    assert dt.rows.dtype == torch.bfloat16 and dt.rows.shape == (t.knn_idx.shape[0], 1, 8, 6)
     # the lagged-JᵀJ evaluation: gradient and cost in one vjp pass (JAX)
     jg, jcost = js.data_grad_cost(JC, s, jfield.dq, N, True)
     ev = ts.data_term(TC, t, tfield.dq, system=False)
@@ -342,7 +343,7 @@ def _jax_system(prob, lam=1e-4):
 def _port_system(prob, jac, damp):
     """The port's System from JAX's own bf16 rows and damping."""
     _, tfield, _, _, _, t = prob
-    rows = torch.from_numpy(np.array(jac[:, 0].astype(jnp.float32))).to(torch.bfloat16)
+    rows = torch.from_numpy(np.array(jac.astype(jnp.float32))).to(torch.bfloat16)
     return ts.System(rows, ts.edge_term(TC, t, tfield.dq), _t(damp))
 
 
