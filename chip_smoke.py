@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--profile DIR]
+    python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--a-frames A] [--p-frames P]
+                          [--profile DIR] [--dump-solve FILE]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -23,7 +24,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    kernels F and G with the tangential rows of ``quality_dynamicfusion()``
    (three residual rows a point) on the same state; kernel L (frame 0's
    extraction into 1 << 20 rows and node sampling into 1 024 slots) on the
-   preset's frame-0 volume, bit-equal to its plain version;
+   preset's frame-0 volume, bit-equal to its plain version; kernel M (the
+   aperture gate of ``solver_p2p_adaptive``) on the phase-2 state at
+   160x120, gate and depth bins bit-equal to its plain version, some
+   pixels open part way (the closed form exercised); and at the
+   reference resolution of ``reference_parity()`` on the phase-2 volume:
+   kernel C's 160x120 coarse march, kernel J's coarse band (640x480,
+   bit-equal), C at 640x480 in that band and as ``render(pose)``'s full
+   march, kernel B at 640x480;
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -47,12 +55,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    tangential data term) over Q frames of ``bench.py``'s hinge scene (two
    spheres scissoring about a hinge over a plane): the same checks, the
    plain step from each state; free-running poses printed;
-6. print the per-kernel JSON line, the card's name and power limit, and
+6. ``quality_dynamicfusion()`` with ``solver_p2p_adaptive`` (the aperture
+   gate) over A hinge frames: the checks of phase 5, kernel M once a step,
+   the plain step from each state, kernel M held bit-equal to its plain
+   version on every step's inputs (some pixels open part way); the mean
+   gate over the spheres and over the plane printed; then 8 frames of
+   ``bench.py``'s bulge scene (a bump travelling over a plane): M held on
+   every step's inputs, the rest printed only;
+7. ``reference_parity()`` with ``rigid_only`` (the reference's
+   KinectFusion at its own resolution: 640x480 model maps, the coarse band
+   every frame) over P frames of the rigid orbit: C and J's coarse band on
+   every frame, ICP, the pose against the orbit and the plain path; then
+   ``render(0)``, ``render(3)`` and ``render(pose=...)`` (a fresh 640x480
+   march), the last against the plain path's render of the same state;
+8. three frames of ``default_dynamicfusion()`` with
+   ``reuse_model_raycast=False`` (a fresh canonical raycast every step),
+   the plain step from each state;
+9. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler table and trace of 3 frames of
-each non-rigid preset (after its run) and prints the device's busy time
-and idle share over them.
+each non-rigid preset, of the adaptive-gate path and of the
+reference-resolution rigid path (after each run) and prints the device's
+busy time, idle share and busiest kernels over them.
 ``--dump-solve FILE`` writes the warp field and the solve's point sets of
 the phase-2 state (the preset after three frames, the next frame tracked)
 to an ``.npz``, for holding another solver against the same system.
@@ -117,6 +142,10 @@ TOL_DISTS_REL = 1e-6          # dists, relative
 TOL_POINTS_M = 1e-6           # point maps (m)
 TOL_NORMAL = 1e-4             # normals and incidence confidence, ...
 TOL_NORMAL_FRAC = 1e-3        # ... except on this fraction of valid pixels
+# kernel M: the same sums in the same order and the closed form under
+# -fmad=false with true divisions; the plain version divides by tensors
+TOL_GATE = 0.0                # max |gate_kernel - gate_plain|; the depth bins bit for bit
+TOL_IMAGE_FRAC = 1e-3         # render pixels more than one level from the plain render (a hit may flip)
 
 # H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s, float32 (no tensor core) 67 TFLOP/s
 PEAK_BYTES = 3.35e12
@@ -136,6 +165,7 @@ SCENE = dict(
 )
 TARGET = (0.0, 0.0, 1.0)
 ANGLE_STEP = 0.005  # rad per frame, ~5 mm of camera motion
+BULGE_FRAMES = 8    # of the bulge scene under the aperture gate (printed, not checked)
 
 RIGID_KERNELS = ("bilateral", "icp_reduce", "raycast", "fuse_bricks")
 # the kernels of the per-frame stencils and the brick plan (I-K): both paths run them
@@ -169,14 +199,25 @@ ROWS = {
     "sample_nodes": ("extract.cu", "dynamicfusion_tpu/models/warpfield.py:105"),
     "data_term_tangential": ("data_term.cu", "dynamicfusion_tpu/solvers/warp_solver.py:299"),
     "pcg_tangential": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:823"),
+    "p2p_gate": ("p2p_gate.cu", "dynamicfusion_tpu/pipeline/kinfu.py:205"),
+    "coarse_band": ("bands.cu", "dynamicfusion_tpu/ops/tsdf.py:620"),
+    "raycast_coarse": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:386"),
+    "raycast_full_res": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:386"),
+    "raycast_render": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:386"),
+    "icp_reduce_full_res": ("icp_reduce.cu", "dynamicfusion_tpu/solvers/icp.py:38"),
 }
 COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", "data_term_tangential": "data_term",
-           "pcg_tangential": "pcg"}
+           "pcg_tangential": "pcg", "raycast_coarse": "raycast", "raycast_full_res": "raycast",
+           "raycast_render": "raycast", "icp_reduce_full_res": "icp_reduce"}
 # the run whose counters a row's launches are: kernels A-D the rigid path's,
 # kernel L the preset's (frame 0), the tangential rows the quality preset's,
+# kernel M the adaptive-gate path's, the full-resolution rows the
+# reference-resolution rigid path's (the render's march its render calls'),
 # the rest the preset's
 PATH = {**dict.fromkeys(RIGID_KERNELS, "rigid"), "extract_cloud": "frame0", "sample_nodes": "frame0",
-        "data_term_tangential": "quality", "pcg_tangential": "quality"}
+        "data_term_tangential": "quality", "pcg_tangential": "quality", "p2p_gate": "adaptive",
+        **dict.fromkeys(("coarse_band", "raycast_coarse", "raycast_full_res", "icp_reduce_full_res"), "parity_rigid"),
+        "raycast_render": "render"}
 
 
 def smi() -> str:
@@ -340,31 +381,8 @@ def rigid_kernels(torch, args, report, dev, card):
     intr_t = intr.level(cfg.raycast_shift)
     cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), pose)
     band = kinfu._temporal_band(cfg, st.can_points, dists)
-    ray_org, dirs, tmin, tmax = tsdf_ops.rays(cfg, cam2vol, intr_t, rows_t, cols_t, t_band=band)
-    step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
-    fk, vk_, nk_ = tsdf_ops.march_and_refine(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax)
-    fp, vp_, np_ = tsdf_ops.march_and_refine_plain(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax)
-    both = fk & fp
-    found_frac = float((fk != fp).float().mean())
-    err = float((vk_ - vp_)[both].abs().max()) if bool(both.any()) else 0.0
-    # a hit whose refined point left the volume carries a NaN normal in both
-    nan_same = torch.equal(torch.isnan(nk_[both]), torch.isnan(np_[both]))
-    nerr = float(torch.nan_to_num((nk_ - np_)[both].abs(), nan=0.0).max()) if bool(both.any()) else 0.0
-    check("raycast", found_frac <= TOL_RAYCAST_FOUND_FRAC and err <= TOL_RAYCAST_M and nan_same,
-          f"hit/miss differs on {found_frac:.2e} of rays (tol {TOL_RAYCAST_FOUND_FRAC}), "
-          f"max vertex diff {err:.3e} m (tol {TOL_RAYCAST_M}), max normal diff {nerr:.3e}; "
-          f"{int(fk.sum())} of {fk.numel()} rays hit")
-    n_samples = march_samples(torch, cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax) + 24.0 * int(fk.sum())
-    n_rays = rows_t * cols_t
-    report["raycast"] = dict(
-        err=err,
-        ms=cuda_ms(torch, lambda: kernels.march_and_refine(
-            st.vol.tsdf, ray_org, dirs, tmin, tmax, cfg.voxel_size, step, tsdf_ops.march_steps(cfg),
-            cfg.raycast_adaptive_step)),
-        plain_ms=cuda_ms(torch, lambda: tsdf_ops.march_and_refine_plain(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax), reps=3),
-        bound=bound_ms(n_samples * 2 + n_rays * (12 + 8 + 1 + 24), n_samples * 12.0 + int(fk.sum()) * 250.0),
-        library_ms=None,
-    )
+    hold_raycast(torch, report, "raycast", cfg, st.vol.tsdf,
+                 tsdf_ops.rays(cfg, cam2vol, intr_t, rows_t, cols_t, t_band=band), 24)
 
     # B: ICP system at the tracking resolution (live frame vs the model maps)
     _, pts_pyr, nrm_pyr, _ = preprocess.build_frame_pyramid(cfg, dnext, first_point_level=cfg.raycast_shift)
@@ -631,6 +649,8 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         iterations=ran,
     )
     tangential_kernels(torch, report, dev, field, inputs)
+    gate_kernels(torch, report, dev, st, tr)
+    full_res_kernels(torch, report, dev, st, nr_depths[3])
 
     # H: insertion into a field with half its slots free
     half = torch.arange(n, device=dev) % 2 == 0
@@ -784,6 +804,190 @@ def tangential_kernels(torch, report, dev, field, inputs):
                        + n * 24, ran * per_iter + n * 72.0),
         library_ms=None,
         iterations=ran,
+    )
+
+
+def hold_raycast(torch, report, name, cfg, tsdf, rays, refine_gathers):
+    """Kernel C against its plain version on the same rays (hit/miss, vertex
+    and normal), timed, with its bound for this run's march: the samples
+    the rays take plus ``refine_gathers`` corner loads a hit."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+
+    ray_org, dirs, tmin, tmax = rays
+    fk, vk_, nk_ = tsdf_ops.march_and_refine(cfg, tsdf, ray_org, dirs, tmin, tmax)
+    fp, vp_, np_ = tsdf_ops.march_and_refine_plain(cfg, tsdf, ray_org, dirs, tmin, tmax)
+    both = fk & fp
+    found_frac = float((fk != fp).float().mean())
+    err = float((vk_ - vp_)[both].abs().max()) if bool(both.any()) else 0.0
+    # a hit whose refined point left the volume carries a NaN normal in both
+    nan_same = torch.equal(torch.isnan(nk_[both]), torch.isnan(np_[both]))
+    nerr = float(torch.nan_to_num((nk_ - np_)[both].abs(), nan=0.0).max()) if bool(both.any()) else 0.0
+    check(name, found_frac <= TOL_RAYCAST_FOUND_FRAC and err <= TOL_RAYCAST_M and nan_same,
+          f"{dirs.shape[1]}x{dirs.shape[0]}: hit/miss differs on {found_frac:.2e} of rays "
+          f"(tol {TOL_RAYCAST_FOUND_FRAC}), "
+          f"max vertex diff {err:.3e} m (tol {TOL_RAYCAST_M}), max normal diff {nerr:.3e}; "
+          f"{int(fk.sum())} of {fk.numel()} rays hit")
+    hits = int(fk.sum())
+    n_samples = march_samples(torch, cfg, tsdf, ray_org, dirs, tmin, tmax) + refine_gathers * hits
+    step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
+    refine = tsdf_ops._refine_mode(cfg)
+    report[name] = dict(
+        err=err,
+        ms=cuda_ms(torch, lambda: kernels.march_and_refine(
+            tsdf, ray_org, dirs, tmin, tmax, cfg.voxel_size, step, tsdf_ops.march_steps(cfg),
+            cfg.raycast_adaptive_step, refine=refine)),
+        plain_ms=cuda_ms(torch, lambda: tsdf_ops.march_and_refine_plain(cfg, tsdf, ray_org, dirs, tmin, tmax), reps=3),
+        # int16 samples (the march, the refine's corners), the rays in,
+        # found/vertex/normal out; ~12 operations a sample, the refine's a hit
+        bound=bound_ms(n_samples * 2 + fk.numel() * (12 + 8 + 1 + 24),
+                       n_samples * 12.0 + hits * (250.0 if refine == 0 else 120.0)),
+        library_ms=None,
+    )
+    return fk
+
+
+def gate_inputs(torch, cfg, st, tr):
+    """Kernel M's inputs as ``track`` builds them from the state before a
+    step and its tracking: the filtered live points and normals at the ICP
+    pose, the previous warped model map (world frame), the live depth."""
+    from dynamicfusion_tpu_torch.core import se3
+
+    s = cfg.raycast_shift
+    pose = torch.where(tr.icp_res.ok, se3.compose(st.pose, tr.icp_res.transform), st.pose)
+    return (se3.transform_points(pose, tr.points[s]).contiguous(), se3.rotate_dirs(pose, tr.normals[s]).contiguous(),
+            se3.transform_points(st.pose, st.prev_points[0]).contiguous(), tr.points[s][..., 2].contiguous())
+
+
+def hold_gate(torch, cfg, gin):
+    """Kernel M against its plain version on ``gin``: (kernel gate, its
+    depth bins, bins equal, max |gate diff|, pixels not bit-equal, pixels
+    with the gate strictly between 0 and 1)."""
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    gk, bins = kinfu.p2p_gate_kernel(cfg, *gin)
+    gp = kinfu.p2p_gate(cfg, *gin, plain=True)
+    bins_same = torch.equal(bins.long(), kinfu.gate_bins(gin[3]))
+    return (gk, bins, bins_same, float((gk - gp).abs().max()), int((gk != gp).sum()),
+            int(((gk > 0) & (gk < 1)).sum()))
+
+
+def gate_kernels(torch, report, dev, st, tr):
+    """Phase 2 for kernel M under the adaptive-gate configuration
+    (``quality_dynamicfusion()`` with ``solver_p2p_adaptive``) on the
+    preset's phase-2 state: the gate of the next frame as ``track`` makes
+    it (the filtered live surface at the ICP pose against the previous
+    warped model map, 160x120), depth bins and gate held to the plain
+    version. Some pixels must open the gate part way, so that the closed
+    form is exercised, not only the empty windows' zeros (phase 6 holds M
+    again on every state of the hinge and the bulge)."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    cfg = dataclasses.replace(DynamicFusionConfig.quality_dynamicfusion(), solver_p2p_adaptive=True)
+    gin = gate_inputs(torch, cfg, st, tr)
+    w = cfg.solver_p2p_gate_window
+    gk, bins, bins_same, err, n_diff, n_part = hold_gate(torch, cfg, gin)
+    rows, cols = gk.shape
+    check("p2p_gate", bins_same and err <= TOL_GATE and n_part > 0,
+          f"{cols}x{rows}, {w}x{w} window: depth bins equal the plain version's {bins_same}; max |gate diff| "
+          f"{err:.3e} (tol {TOL_GATE}), {n_diff} pixels not bit-equal; mean gate {float(gk.mean()):.4f}, "
+          f"{int((gk > 0).sum())} pixels open, {n_part} of them part way (need > 0), "
+          f"{len(torch.unique(bins))} bins in use")
+    npx = rows * cols
+    report["p2p_gate"] = dict(
+        err=err,
+        ms=cuda_ms(torch, lambda: kinfu.p2p_gate_kernel(cfg, *gin)),
+        plain_ms=cuda_ms(torch, lambda: kinfu.p2p_gate(cfg, *gin, plain=True), reps=3),
+        # the function's least work: three point/normal maps and the depth
+        # in, the gate and its bins out (48 bytes a pixel); box sums by
+        # running sums, one add and one subtract a (bin, channel) along
+        # each axis (2 x 2 x 16 x 11), the three bins' 11 sums added (66),
+        # ~150 operations of features and closed form a pixel
+        bound=bound_ms(npx * (3 * 12 + 4) + npx * (4 + 4),
+                       npx * (2.0 * 2 * kinfu.GATE_BINS * kinfu.GATE_CHANNELS + 66 + 150)),
+        library_ms=None,
+    )
+
+
+def full_res_kernels(torch, report, dev, st, depth_np):
+    """Phase 2 for the reference resolution of ``reference_parity()`` (rigid,
+    640x480 model maps) on the preset's phase-2 volume at its camera: kernel
+    C's coarse march (160x120, no band), kernel J's coarse band (bit-equal
+    to its plain version from the same coarse hits), C at 640x480 in that
+    band and as the full march of ``render(pose)``, and kernel B at 640x480
+    (the next frame's level-0 maps against the banded model maps)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.core import se3
+    from dynamicfusion_tpu_torch.ops import preprocess, tsdf as tsdf_ops
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+    from dynamicfusion_tpu_torch.solvers import icp
+
+    cfg = dataclasses.replace(DynamicFusionConfig.reference_parity(), rigid_only=True, raycast_refine="secant")
+    rows, cols, intr = cfg.rows, cfg.cols, cfg.intr
+    f = cfg.raycast_coarse_factor
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), st.pose)
+    tsdf = st.vol.tsdf
+
+    # C: the coarse march
+    hold_raycast(torch, report, "raycast_coarse", cfg, tsdf, tsdf_ops.rays(cfg, cam2vol, intr.level(2), rows // f,
+                                                                          cols // f), 24)
+    # J: the coarse band from the kernel's coarse hits (exact)
+    coarse = tsdf_ops.raycast(cfg, st.vol, cam2vol, intr.level(2), rows // f, cols // f)
+    pts_c = coarse.points.contiguous()
+    m = cfg.raycast_band_margin
+    bk = kernels.coarse_band(pts_c, f, m)
+    bp = tsdf_ops.coarse_band_plain(pts_c, f, m)
+    exact = torch.equal(bk[0], bp[0]) and torch.equal(bk[1], bp[1])
+    banded = int((bk[1] > bk[0]).sum())
+    check("coarse_band", exact and 0 < banded < rows * cols,
+          f"{cols // f}x{rows // f} coarse hits -> {cols}x{rows} band equal the plain version's bit for bit {exact}; "
+          f"{banded} rays banded, {rows * cols - banded} empty")
+    n_c = pts_c.shape[0] * pts_c.shape[1]
+    t_src = torch.linalg.vector_norm(pts_c, dim=-1)[None, None].contiguous()
+    report["coarse_band"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.coarse_band(pts_c, f, m)),
+        plain_ms=cuda_ms(torch, lambda: tsdf_ops.coarse_band_plain(pts_c, f, m)),
+        # the coarse hits in, lo and hi at the fine resolution out; ~6
+        # operations a coarse |p| and 9 taps of ~3 a fine pixel
+        bound=bound_ms(n_c * 12 + rows * cols * 8, n_c * 6.0 + rows * cols * 30.0),
+        library_ms=cuda_ms(torch, lambda: F.max_pool2d(t_src, 3, 1, padding=1)),
+    )
+    # C: 640x480 in the coarse band, and the render's full march
+    hold_raycast(torch, report, "raycast_full_res", cfg, tsdf, tsdf_ops.rays(cfg, cam2vol, intr, rows, cols, t_band=bk),
+                 24)
+    hold_raycast(torch, report, "raycast_render", cfg, tsdf, tsdf_ops.rays(cfg, cam2vol, intr, rows, cols), 24)
+
+    # B: the ICP system at 640x480
+    model = tsdf_ops.raycast(cfg, st.vol, cam2vol, intr, rows, cols, t_band=bk)
+    _, pts_pyr, nrm_pyr, _ = preprocess.build_frame_pyramid(cfg, torch.from_numpy(depth_np).to(dev))
+    cp, cn, pp, pn = pts_pyr[0], nrm_pyr[0], model.points.contiguous(), model.normals.contiguous()
+    dist2 = cfg.icp_dist_thres ** 2
+    min_cos = math.cos(cfg.icp_angle_thres)
+    t_cur = torch.eye(4, device=dev)
+    ak, bk_ = icp._build_system(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)
+    ap_, bp_ = icp._build_system_plain(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)
+    scale = float(torch.maximum(ap_.abs().max(), bp_.abs().max()))
+    err = float(torch.maximum((ak - ap_).abs().max(), (bk_ - bp_).abs().max()))
+    check("icp_reduce_full_res", err <= TOL_ICP_REL * scale and scale > 0,
+          f"{cols}x{rows}: max |diff| {err:.3e} over max |entry| {scale:.3e} (rel tol {TOL_ICP_REL}); "
+          f"{int(torch.isfinite(pp[..., 0]).sum())} model pixels")
+    npx = cp.shape[0] * cp.shape[1]
+    report["icp_reduce_full_res"] = dict(
+        err=err,
+        ms=cuda_ms(torch, lambda: kernels.icp_build_system(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)),
+        plain_ms=cuda_ms(torch, lambda: icp._build_system_plain(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)),
+        bound=bound_ms((npx + pp.shape[0] * pp.shape[1]) * 24 * 2 + 64 + 27 * 4, npx * 100.0),
+        library_ms=None,
     )
 
 
@@ -965,30 +1169,8 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
     # C: the newton8 branch, in the band, at the preset's model-map resolution
     rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
     cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), st.pose)
-    ray_org, dirs, tmin, tmax = tsdf_ops.rays(cfg, cam2vol, intr.level(cfg.raycast_shift), rows_t, cols_t, t_band=bk)
-    fk, vk_, nk_ = tsdf_ops.march_and_refine(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax)
-    fp, vp_, np_ = tsdf_ops.march_and_refine_plain(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax)
-    both = fk & fp
-    found_frac = float((fk != fp).float().mean())
-    err = float((vk_ - vp_)[both].abs().max()) if bool(both.any()) else 0.0
-    nan_same = torch.equal(torch.isnan(nk_[both]), torch.isnan(np_[both]))
-    nerr = float(torch.nan_to_num((nk_ - np_)[both].abs(), nan=0.0).max()) if bool(both.any()) else 0.0
-    check("raycast_newton8", found_frac <= TOL_RAYCAST_FOUND_FRAC and err <= TOL_RAYCAST_M and nan_same,
-          f"hit/miss differs on {found_frac:.2e} of rays (tol {TOL_RAYCAST_FOUND_FRAC}), "
-          f"max vertex diff {err:.3e} m (tol {TOL_RAYCAST_M}), max normal diff {nerr:.3e}; "
-          f"{int(fk.sum())} of {fk.numel()} rays hit")
-    step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
-    n_samples = march_samples(torch, cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax) + 8.0 * int(fk.sum())
-    report["raycast_newton8"] = dict(
-        err=err,
-        ms=cuda_ms(torch, lambda: kernels.march_and_refine(
-            st.vol.tsdf, ray_org, dirs, tmin, tmax, cfg.voxel_size, step, tsdf_ops.march_steps(cfg),
-            cfg.raycast_adaptive_step, refine=1)),
-        plain_ms=cuda_ms(torch, lambda: tsdf_ops.march_and_refine_plain(cfg, st.vol.tsdf, ray_org, dirs, tmin, tmax), reps=3),
-        # int16 samples (march + 8 corners a hit), the rays in, found/vertex/normal out
-        bound=bound_ms(n_samples * 2 + rows_t * cols_t * (12 + 8 + 1 + 24), n_samples * 12.0 + int(fk.sum()) * 120.0),
-        library_ms=None,
-    )
+    hold_raycast(torch, report, "raycast_newton8", cfg, st.vol.tsdf,
+                 tsdf_ops.rays(cfg, cam2vol, intr.level(cfg.raycast_shift), rows_t, cols_t, t_band=bk), 8)
 
     # K: the brick plan at the preset's non-rigid fusion grid (exact)
     g = cfg.knn_field_stride
@@ -1156,8 +1338,14 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     for i, r in enumerate(rows, start=1):
         print(f"[{tag}] frame {i:2d}: icp_ok {r['ok']}, solver_cost0 {r['c0']:.6e}, solver_cost1 {r['c1']:.6e}, "
               f"nodes {r['nodes']}, bricks (band, wide, dropped) {r['bricks']}")
-    path = [k for k in kernels.KERNELS if k != "matvec"]  # the PCG launch does its own matvecs
+    # the PCG launch does its own matvecs; the coarse band runs with model
+    # maps at the frame size only; the aperture gate with solver_p2p_adaptive
+    off = {"matvec", "coarse_band"} | (set() if cfg.solver_p2p_adaptive else {"p2p_gate"})
+    path = [k for k in kernels.KERNELS if k not in off]
     check(f"{tag}_launches", all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
+    if cfg.solver_p2p_adaptive:
+        check(f"{tag}_gate_launches", launches["p2p_gate"] == len(frames) - 1,
+              f"kernel M once a step: {launches['p2p_gate']} launches in {len(frames) - 1} steps")
     check(f"{tag}_frame0_kernels", launches["extract_cloud"] == 1 and launches["sample_nodes"] == 1,
           f"kernel L once in frame 0: extract_cloud {launches['extract_cloud']}, sample_nodes "
           f"{launches['sample_nodes']}")
@@ -1311,6 +1499,189 @@ def quality_main(torch, args, dev, card):
     return launches
 
 
+def gate_means(torch, tag, cfg, dev, frames, states, moving):
+    """Per step, the mean aperture gate over the moving part's pixels and
+    over the rest of the surface, from ``track`` on the kernel path's
+    state before the step (``moving(cam_z)`` marks the moving part by the
+    live depth in m). Kernel M is held to its plain version on every
+    step's inputs: bins equal, the gate within TOL_GATE, and some pixels
+    open part way over the run."""
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    out, same, err, n_diff, n_part = [], True, 0.0, 0, 0
+    for f in range(1, len(frames)):
+        tr = kinfu.track(cfg, states[f - 1], torch.from_numpy(frames[f]).to(dev))
+        gin = gate_inputs(torch, cfg, states[f - 1], tr)
+        gk, _, b_same, e, nd, npart = hold_gate(torch, cfg, gin)
+        same, err, n_diff, n_part = same and b_same, max(err, e), n_diff + nd, n_part + npart
+        z = gin[3]
+        mov = moving(z) & torch.isfinite(z)
+        rest = torch.isfinite(z) & ~mov
+        out.append((float(gk[mov].mean()), float(gk[rest].mean())))
+    check(f"{tag}_p2p_gate", same and err <= TOL_GATE and n_part > 0,
+          f"kernel M on the {len(frames) - 1} steps' inputs: depth bins equal the plain version's {same}; "
+          f"max |gate diff| {err:.3e} (tol {TOL_GATE}), {n_diff} pixels not bit-equal; {n_part} pixel-steps "
+          f"open part way (need > 0)")
+    return out
+
+
+def adaptive_main(torch, args, dev, card):
+    """Phase 6: ``quality_dynamicfusion()`` with the aperture gate
+    (``solver_p2p_adaptive``) over ``bench.py``'s hinge scene, kernel path
+    and the plain step from each of its states; then the bulge scene (a
+    bump travelling over a plane), printed only. The mean gate over the
+    moving part and over the rest of the surface is printed for both."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.io import synthetic
+
+    cfg = dataclasses.replace(DynamicFusionConfig.quality_dynamicfusion(), solver_p2p_adaptive=True)
+    n_prof = 3 if args.profile else 0
+    frames = synthetic.hinge_frames(cfg.intr, cfg.rows, cfg.cols, args.a_frames + n_prof)
+    frames, prof_frames = frames[: args.a_frames], frames[args.a_frames:]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    check_nonrigid_run("adaptive", card, cfg, frames, launches, rows, frame_ms, poses_k)
+    check_steps_vs_plain(torch, "adaptive", cfg, dev, frames, states, poses_k, rows)
+    # the spheres stand in front of the plane z = 1.3
+    means = gate_means(torch, "adaptive", cfg, dev, frames, states, lambda z: z < 1.25)
+    print(f"[adaptive] hinge, mean gate per step (spheres / plane): "
+          f"{' '.join(f'{a:.3f}/{b:.3f}' for a, b in means)}")
+    del states
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    mp = df.last_outputs.model_points
+    check("adaptive_model_maps", tuple(mp.shape) == (rows_t, cols_t, 3) and bool(torch.isfinite(mp).any()),
+          f"warped model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
+    if args.profile:
+        profile_frames(torch, args, dev, card, df, prof_frames, tag="adaptive", focus=("gate_",))
+    del df
+
+    bulge = synthetic.bulge_frames(cfg.intr, cfg.rows, cfg.cols, BULGE_FRAMES)
+    df, b_launches, b_rows, b_ms, b_states = drive_kernel_path(torch, cfg, dev, bulge)
+    steady = sorted(b_ms[2:])
+    # the bump rises up to 8 cm from the plane z = 1.1
+    means = gate_means(torch, "bulge", cfg, dev, bulge, b_states, lambda z: z < 1.095)
+    costs = " ".join("{:.3e}->{:.3e}".format(r["c0"], r["c1"]) for r in b_rows)
+    print(f"[adaptive] bulge, {len(bulge)} frames (printed, not checked): icp_ok {[r['ok'] for r in b_rows]}, "
+          f"solver cost0 -> cost1 {costs}; frame ms median {steady[len(steady) // 2]:.3f}; kernel M launches "
+          f"{b_launches['p2p_gate']}")
+    print(f"[adaptive] bulge, mean gate per step (bump / plane): {' '.join(f'{a:.3f}/{b:.3f}' for a, b in means)}")
+    del df, b_states
+    return launches
+
+
+def parity_main(torch, args, dev, card):
+    """Phase 7: ``reference_parity()`` with ``rigid_only`` (the reference's
+    KinectFusion at its own resolution: 640x480 model maps, ICP at 640x480
+    down to 80x60, the coarse band every frame, fusion every frame) over the
+    rigid orbit, kernel path and plain path; then the renders. Returns (the
+    path's launches, the render calls' launches)."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.io import synthetic
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    cfg = dataclasses.replace(DynamicFusionConfig.reference_parity(), rigid_only=True)
+    frame = rigid_frame_fn(cfg)
+    frames = [frame(i) for i in range(args.p_frames)]
+    prof_frames = [frame(i) for i in range(args.p_frames, args.p_frames + 3)] if args.profile else []
+    truth = [synthetic.orbit_pose(ANGLE_STEP * i, target=TARGET) for i in range(args.p_frames)]
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    kernels.reset_launches()
+    oks, frame_ms = [], []
+    for i, d in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        df(d, block=False)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if i > 0:
+            oks.append(df.last_outputs.icp_ok)
+    launches = dict(kernels.launches)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    oks = [bool(o) for o in oks]
+    n = len(frames)
+    print(f"[parity] reference_parity() rigid: {n} frames at {cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3, model maps "
+          f"{cfg.cols // cfg.raycast_subsample}x{cfg.rows // cfg.raycast_subsample}, refine {df.cfg.raycast_refine}; "
+          f"launches {launches}", flush=True)
+    check("parity_launches", all(launches[k] > 0 for k in RIGID_KERNELS + STENCIL_KERNELS if k != "march_bands")
+          and launches["coarse_band"] == n and launches["raycast"] == 2 * n,
+          f"kernels A-D, I, K launched; the coarse band once a frame ({launches['coarse_band']} in {n} frames) and C "
+          f"twice, its coarse march and the banded march ({launches['raycast']})")
+    check("parity_icp_ok", all(oks), f"ICP healthy on every tracked frame ({sum(oks)}/{len(oks)})")
+    steady = sorted(frame_ms[2:])
+    print(f"[time] {card} | parity frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{n - 1}), "
+          f"frame 0 {frame_ms[0]:.3f}, min {steady[0]:.3f}, max {steady[-1]:.3f}", flush=True)
+
+    plain, plain_ms = run_plain_path(torch, cfg, dev, frames)
+    poses_p = [p.cpu().numpy() for p in plain.poses]
+    per_frame = [float(np.abs(a[:3, 3] - b[:3, 3]).max()) for a, b in zip(poses_k, poses_p)]
+    psteady = sorted(plain_ms[2:])
+    print(f"[parity-plain] pose diff kernel vs plain path per frame (m): {' '.join(f'{v:.2e}' for v in per_frame)}")
+    print(f"[time] {card} | parity plain-path frame ms median {psteady[len(psteady) // 2]:.3f}")
+    check("parity_pose_vs_plain", max(per_frame) <= TOL_POSE_PLAIN_M,
+          f"max |t_kernel - t_plain| {max(per_frame):.3e} m (tol {TOL_POSE_PLAIN_M})")
+    err_truth = float(np.linalg.norm(poses_k[-1][:3, 3] - truth[-1][:3, 3]))
+    check("parity_pose_vs_truth", err_truth <= TOL_POSE_TRUTH_M,
+          f"final |t - t_orbit| {err_truth:.3e} m (tol {TOL_POSE_TRUTH_M})")
+    mp = df.last_outputs.model_points
+    check("parity_model_maps", tuple(mp.shape) == (cfg.rows, cfg.cols, 3) and bool(torch.isfinite(mp).any()),
+          f"model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
+    del plain
+    if args.profile:
+        profile_frames(torch, args, dev, card, df, prof_frames, tag="parity", focus=("coarse_band", "raycast"))
+
+    # the renders: from the last model maps, and a fresh full march at the
+    # current pose; the plain path renders the same state
+    pose = df.get_pose()
+    kernels.reset_launches()
+    imgs = {0: df.render(0), 3: df.render(3)}
+    t0 = time.perf_counter()
+    imgs["pose"] = df.render(0, pose=pose)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    render_launches = dict(kernels.launches)
+    ref = kinfu.DynamicFusion(cfg, device=dev, plain=True)
+    st = df.state
+    ref.state = st._replace(vol=TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone()))
+    ref_img = ref.render(0, pose=pose)
+    shapes = {0: (cfg.rows, cfg.cols, 3), 3: (cfg.rows, 2 * cfg.cols, 3), "pose": (cfg.rows, cfg.cols, 3)}
+    ok = all(imgs[k].dtype == torch.uint8 and imgs[k].device.type == "cuda" and tuple(imgs[k].shape) == shapes[k]
+             and float(imgs[k].float().std()) > 1.0 for k in imgs)
+    far = float((imgs["pose"].int() - ref_img.int()).abs().amax(-1).gt(1).float().mean())
+    check("render", ok and far <= TOL_IMAGE_FRAC and render_launches["raycast"] == 1,
+          f"render(0) {tuple(imgs[0].shape)}, render(3) {tuple(imgs[3].shape)}, render(pose) "
+          f"{tuple(imgs['pose'].shape)}: uint8 on the card, not constant {ok}; render(pose) against the plain "
+          f"path's render of the same state: {far:.2e} of pixels more than one level apart (tol {TOL_IMAGE_FRAC}); "
+          f"one march ({render_launches['raycast']}) in {render_ms:.3f} ms")
+    return launches, render_launches
+
+
+def fresh_main(torch, args, dev, card, nr_depths):
+    """Phase 8: ``default_dynamicfusion()`` with ``reuse_model_raycast=False``
+    (a fresh canonical raycast in the temporal band every frame) for three
+    frames; the plain step from each of the kernel path's states."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+
+    cfg = dataclasses.replace(DynamicFusionConfig.default_dynamicfusion(), reuse_model_raycast=False)
+    frames = nr_depths[:3]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    print(f"[fresh] reuse_model_raycast=False: {len(frames)} frames, raycast launches {launches['raycast']} "
+          f"(two a step), frame ms {' '.join(f'{v:.3f}' for v in frame_ms)}", flush=True)
+    check("fresh_launches", launches["raycast"] == 2 * (len(frames) - 1) + 1 and all(r["ok"] for r in rows)
+          and all(r["c1"] <= r["c0"] for r in rows),
+          f"the fresh raycast and the model raycast every step ({launches['raycast']}); ICP healthy and the solve's "
+          f"cost not raised on every step")
+    check_steps_vs_plain(torch, "fresh", cfg, dev, frames, states, poses_k, rows)
+
+
 def perturbed_run(torch, kinfu, cfg, dev, frames, seed):
     """Poses of the kernel path with its frame-0 node positions moved by
     1e-7 relative (seeded)."""
@@ -1325,10 +1696,11 @@ def perturbed_run(torch, kinfu, cfg, dev, frames, seed):
     return [p.cpu().numpy() for p in df.poses]
 
 
-def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid"):
-    """3 non-rigid frames under torch.profiler: the table, the trace, and
-    the device's busy time over the frames' wall time (files named by
-    ``tag``)."""
+def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid", focus=()):
+    """3 frames under torch.profiler: the table, the trace, the device's
+    busy time over the frames' wall time, the device time of the busiest
+    kernels and of those whose names hold a ``focus`` string (files named
+    by ``tag``)."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
@@ -1358,6 +1730,15 @@ def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid"):
     print(f"[profile] {card} | {len(depths)} {tag} frames: wall {wall_ms:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"idle share {1.0 - busy / 1e3 / wall_ms:.3f}; {len(spans)} device ops, {launches} kernel launches, "
           f"{syncs} synchronize calls -> {out}/{tag}_profile.txt", flush=True)
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            n, us = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, us + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    top += [kv for kv in by_name.items() if any(f in kv[0] for f in focus) and kv not in top]
+    for name, (n, us) in top:
+        print(f"[profile] {tag}: {name[:90]}: {us / 1e3:.3f} ms in {n} launches, {us / busy:.3f} of device busy")
 
 
 def main() -> int:
@@ -1365,7 +1746,12 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=15, help="frames of the rigid slice")
     ap.add_argument("--nr-frames", type=int, default=20, help="frames of the dynamicfusion preset")
     ap.add_argument("--q-frames", type=int, default=20, help="frames of the quality preset (the hinge scene)")
-    ap.add_argument("--profile", default=None, help="write torch.profiler tables of 3 frames of each non-rigid preset here")
+    ap.add_argument("--a-frames", type=int, default=20,
+                    help="hinge frames of the quality preset with the aperture gate")
+    ap.add_argument("--p-frames", type=int, default=15, help="frames of reference_parity() rigid at 640x480")
+    ap.add_argument("--profile", default=None,
+                    help="write torch.profiler tables of 3 frames of each non-rigid preset and of the reference-"
+                         "resolution rigid path here")
     ap.add_argument("--dump-solve", default=None, help="write the phase-2 warp field and solve inputs to this .npz")
     args = ap.parse_args()
 
@@ -1423,8 +1809,21 @@ def main() -> int:
     q_launches = quality_main(torch, args, dev, card)
     print(f"[phase] quality path done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---------------- 6. report ----------------
-    runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches}
+    # ---------------- 6. the quality preset with the aperture gate ----------------
+    a_launches = adaptive_main(torch, args, dev, card)
+    print(f"[phase] adaptive-gate path done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 7. reference_parity() rigid at 640x480, the renders ----------------
+    p_launches, r_launches = parity_main(torch, args, dev, card)
+    print(f"[phase] reference-resolution rigid path done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 8. the fresh canonical raycast ----------------
+    fresh_main(torch, args, dev, card, nr_depths)
+    print(f"[phase] fresh-raycast steps done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 9. report ----------------
+    runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches,
+            "adaptive": a_launches, "parity_rigid": p_launches, "render": r_launches}
     rows_out = []
     for name, (src, rep) in ROWS.items():
         r = report[name]

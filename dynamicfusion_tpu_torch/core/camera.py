@@ -14,16 +14,22 @@ def pixel_grid(rows: int, cols: int, device=None, dtype=torch.float32):
     return u, v
 
 
+def _per(x: torch.Tensor, f: float) -> torch.Tensor:
+    """x / f with f as a tensor: CUDA PyTorch multiplies by the reciprocal
+    of a Python scalar, where kernel I (and the JAX package) divide."""
+    return x / torch.tensor(f, dtype=x.dtype, device=x.device)
+
+
 def backproject(intr: Intrinsics, u: torch.Tensor, v: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Pixel (u, v) at depth z -> camera-space (..., 3)."""
-    x = z * (u - intr.cx) / intr.fx
-    y = z * (v - intr.cy) / intr.fy
+    x = _per(z * (u - intr.cx), intr.fx)
+    y = _per(z * (v - intr.cy), intr.fy)
     return torch.stack([x, y, z], dim=-1)
 
 
 def ray_norms(intr: Intrinsics, rows: int, cols: int, device=None) -> torch.Tensor:
     """Per-pixel ||K⁻¹ (u, v, 1)||: z-depth to ray distance."""
     u, v = pixel_grid(rows, cols, device)
-    xl = (u - intr.cx) / intr.fx
-    yl = (v - intr.cy) / intr.fy
+    xl = _per(u - intr.cx, intr.fx)
+    yl = _per(v - intr.cy, intr.fy)
     return torch.sqrt(xl * xl + yl * yl + 1.0)

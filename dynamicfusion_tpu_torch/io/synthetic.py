@@ -1,6 +1,7 @@
 """Synthetic depth scenes with analytic ground truth (numpy copy of
 ``scene_depth`` and ``orbit_pose`` from ``dynamicfusion_tpu.io.synthetic``,
-and of ``bench.py``'s deforming and hinge scenes). Depth maps are uint16
+of ``bulge_depth``, and of ``bench.py``'s deforming, hinge and bulge
+scenes). Depth maps are uint16
 millimeters."""
 
 from __future__ import annotations
@@ -101,3 +102,37 @@ def hinge_frames(intr: Intrinsics, rows: int, cols: int, n: int) -> list:
             spheres=[dict(center=tuple(ca), radius=HINGE["r"]), dict(center=tuple(cb), radius=HINGE["r"])],
         ))
     return out
+
+
+def bulge_depth(
+    intr: Intrinsics,
+    rows: int,
+    cols: int,
+    t: float,
+    plane_z: float = 1.1,
+    amp: float = 0.08,
+    sigma: float = 0.06,
+    x0: float = -0.1,
+    speed: float = 0.01,
+) -> np.ndarray:
+    """A plane at ``plane_z`` with a Gaussian bulge (height ``amp``, width
+    ``sigma``) whose centre travels along x at ``speed`` m a frame; the
+    heightfield is rendered by fixed-point iteration along each ray."""
+    u, v = np.meshgrid(np.arange(cols, dtype=np.float64), np.arange(rows, dtype=np.float64))
+    dx = (u - intr.cx) / intr.fx
+    dy = (v - intr.cy) / intr.fy
+    xc = x0 + speed * t
+
+    def z_surf(x, y):
+        return plane_z - amp * np.exp(-((x - xc) ** 2 + y * y) / (2.0 * sigma * sigma))
+
+    z = np.full(dx.shape, plane_z)
+    for _ in range(16):
+        z = z_surf(z * dx, z * dy)
+    return np.clip(z * 1000.0, 0, 65535).astype(np.uint16)
+
+
+def bulge_frames(intr: Intrinsics, rows: int, cols: int, n: int) -> list:
+    """``bench.py``'s travelling-wave hold-out scene (the bulge) seen by a
+    static camera: ``bulge_depth`` at frames t = 0 .. n - 1."""
+    return [bulge_depth(intr, rows, cols, t) for t in range(n)]

@@ -34,7 +34,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = (
     "bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu",
     "knn_blend.cu", "data_term.cu", "pcg.cu", "insert_nodes.cu",
-    "preprocess.cu", "bands.cu", "classify.cu", "extract.cu",
+    "preprocess.cu", "bands.cu", "classify.cu", "extract.cu", "p2p_gate.cu",
 )
 HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh")
 NVCC_FLAGS = (
@@ -48,13 +48,14 @@ NVCC_FLAGS = (
 
 # one launch counter per wrapper; a wrapper's kernel is the letter in its
 # docstring (A-D the rigid slice, E-H the non-rigid one, I-K the per-frame
-# stencils and the brick plan, L frame 0's extraction and node sampling)
+# stencils and the brick plan, L frame 0's extraction and node sampling, M
+# the aperture gate)
 KERNELS = (
     "bilateral", "icp_reduce", "raycast", "fuse_bricks",
     "knn_blend", "mutual_nearest", "warp_trilinear", "data_term",
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
-    "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "brick_plan",
-    "extract_cloud", "sample_nodes",
+    "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "coarse_band", "brick_plan",
+    "extract_cloud", "sample_nodes", "p2p_gate",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -90,12 +91,14 @@ _SIGNATURES = {
     "df_points_normals": (_P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
     "df_resize_maps": (_P, _P, _I, _I, _P, _P, _P),
     "df_march_bands": (_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P),
+    "df_coarse_band": (_P, _I, _I, _I, _F, _P, _P, _P),
     "df_brick_plan": (
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     "df_extract_cloud": (_P, _P, _I, _F, _F, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P, _P),
     "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
+    "df_p2p_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
 }
 
 
@@ -857,6 +860,27 @@ def march_bands(dists: torch.Tensor, stride: int, prev_points: Optional[torch.Te
     return sd, (None if lo is None else (lo, hi))
 
 
+def coarse_band(points_c: torch.Tensor, factor: int, margin: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel J's coarse-band entry (csrc/bands.cu): from the (Hc, Wc, 3)
+    camera-frame hits of the coarse march, the fine (Hc f, Wc f) march band
+    (lo, hi): [min - m, max + m] of |p| over each coarse cell's 3x3 window,
+    (0, 0) where none of it hit, one launch."""
+    _check(points_c, "points_c", torch.float32)
+    if points_c.dim() != 3 or points_c.shape[-1] != 3:
+        raise ValueError(f"points_c: expected (Hc, Wc, 3), got {tuple(points_c.shape)}")
+    if factor < 1:
+        raise ValueError(f"factor must be >= 1, got {factor}")
+    lib = load()
+    rows_c, cols_c = points_c.shape[:2]
+    dev = points_c.device
+    lo = torch.empty((rows_c * factor, cols_c * factor), dtype=torch.float32, device=dev)
+    hi = torch.empty_like(lo)
+    rc = lib.df_coarse_band(points_c.data_ptr(), rows_c, cols_c, factor, _f32(margin), lo.data_ptr(), hi.data_ptr(),
+                            _stream(dev))
+    _done("coarse_band", rc)
+    return lo, hi
+
+
 # --------------------------------------------------------------------------
 # kernel K: brick classification and work list
 # --------------------------------------------------------------------------
@@ -987,3 +1011,45 @@ def sample_nodes(points: torch.Tensor, valid: torch.Tensor, step: int, perm: tor
     )
     _done("sample_nodes", rc)
     return pos, active, count
+
+
+# --------------------------------------------------------------------------
+# kernel M: the aperture gate of the tangential data term
+# --------------------------------------------------------------------------
+
+def p2p_gate(live_pts_w, live_nrm_w, prev_model_w, cam_z, window: int, cond0: float, fit0: float, gain: float,
+             z_lo: float, bin_width: float, n_bins: int, n_channels: int, reg: float, min_count: float):
+    """Kernel M (csrc/p2p_gate.cu, two launches): the adaptive aperture
+    gate of (H, W, 3) live points, live normals and previous model points
+    (world frame) and the (H, W) live depth, over a ``window`` x ``window``
+    box restricted to the depth bin and its neighbours: ``n_bins`` bins of
+    ``bin_width`` from ``z_lo``, ``n_channels`` features a pixel (the
+    kernel's own layout, checked), the second moment's ridge ``reg`` per
+    sample, no gate below ``min_count`` samples. The caller owns these
+    constants (``pipeline/kinfu``). Returns (gate (H, W) float32, depth
+    bins (H, W) int32)."""
+    _check(cam_z, "cam_z", torch.float32)
+    if cam_z.dim() != 2:
+        raise ValueError(f"cam_z: expected (H, W), got {tuple(cam_z.shape)}")
+    rows, cols = cam_z.shape
+    for t, nm in ((live_pts_w, "live_pts_w"), (live_nrm_w, "live_nrm_w"), (prev_model_w, "prev_model_w")):
+        _check(t, nm, torch.float32, (rows, cols, 3))
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if cols * (n_channels + 1) * 4 > 227 * 1024:
+        raise ValueError(f"cam_z: {cols} columns are past the kernel's shared-memory row")
+    _same_device(live_pts_w, live_nrm_w, prev_model_w, cam_z)
+    lib = load()
+    dev = cam_z.device
+    gate = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    bins = torch.empty((rows, cols), dtype=torch.int32, device=dev)
+    hsum = torch.empty((n_bins * n_channels, rows, cols), dtype=torch.float32, device=dev)
+    lo = (window - 1) // 2
+    rc = lib.df_p2p_gate(
+        live_pts_w.data_ptr(), live_nrm_w.data_ptr(), prev_model_w.data_ptr(), cam_z.data_ptr(), rows, cols,
+        lo, window - 1 - lo, n_bins, n_channels, _f32(z_lo), _f32(bin_width), _f32(reg), _f32(cond0), _f32(fit0),
+        _f32(max(1.0 - fit0, 1e-6)), _f32(gain), _f32(min_count), bins.data_ptr(), hsum.data_ptr(),
+        gate.data_ptr(), _stream(dev),
+    )
+    _done("p2p_gate", rc)
+    return gate, bins

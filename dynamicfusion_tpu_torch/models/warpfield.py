@@ -369,3 +369,9 @@ def insert_nodes(
         field.positions, field.dq, field.radius, field.active, field.count, field.last_support,
         plan.slots, plan.new_pos, seed_dq, fi, cfg.node_radius,
     ))
+
+
+def live_node_positions(field: WarpField) -> torch.Tensor:
+    """Node positions warped into the live frame, positions + t(dq) (the
+    warp graph as the renders overlay it)."""
+    return field.positions + dualquat.translation(field.dq)

@@ -380,6 +380,52 @@ def march_and_refine(
     )
 
 
+def coarse_band_plain(points_c: torch.Tensor, factor: int, margin: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel J's coarse-band entry: ray distances |p|
+    of the coarse hits (summed in the kernel's order), their 3x3 window
+    min and max (+-inf outside, a miss counts as none), widened by
+    ``margin``, empty where no neighbour hit, each coarse value repeated
+    ``factor`` x ``factor``."""
+    import torch.nn.functional as F
+
+    p = points_c
+    t = torch.sqrt(p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1] + p[..., 2] * p[..., 2])
+    hit = ~torch.isnan(t)
+    inf = float("inf")
+    lo_c = -F.max_pool2d(-torch.where(hit, t, inf)[None, None], 3, 1, padding=1)[0, 0]
+    hi_c = F.max_pool2d(torch.where(hit, t, -inf)[None, None], 3, 1, padding=1)[0, 0]
+    any_hit = torch.isfinite(lo_c)
+    lo_c = torch.where(any_hit, torch.clamp(lo_c - margin, min=0.0), 0.0)
+    hi_c = torch.where(any_hit, hi_c + margin, 0.0)
+    return tuple(a.repeat_interleave(factor, 0).repeat_interleave(factor, 1) for a in (lo_c, hi_c))
+
+
+def raycast_coarse_band(
+    cfg: DynamicFusionConfig,
+    vol: TsdfVolume,
+    cam2vol: torch.Tensor,
+    intr: Intrinsics,
+    rows: int,
+    cols: int,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coarse-to-fine march band of a (rows, cols) raycast: a full march at
+    1/f resolution (f = ``raycast_coarse_factor``, kernel C), then each fine
+    pixel's band [min - m, max + m] of the hit distances over its coarse
+    cell's 3x3 window (m = ``raycast_band_margin``; kernel J's
+    ``coarse_band`` on CUDA tensors, ``coarse_band_plain`` on CPU tensors or
+    where the caller asks). Fine rays whose whole window missed do not
+    march."""
+    f = cfg.raycast_coarse_factor
+    lvl = f.bit_length() - 1
+    if f != 1 << lvl or rows % f or cols % f:
+        raise ValueError(f"coarse factor {f} must be a power of two dividing {rows}x{cols}")
+    res_c = raycast(cfg, vol, cam2vol, intr.level(lvl), rows // f, cols // f, plain=plain)
+    if plain or vol.tsdf.device.type == "cpu":
+        return coarse_band_plain(res_c.points, f, cfg.raycast_band_margin)
+    return kernels.coarse_band(res_c.points.contiguous(), f, cfg.raycast_band_margin)
+
+
 # --------------------------------------------------------------------------
 # extraction
 # --------------------------------------------------------------------------

@@ -75,7 +75,8 @@ def _pyramid_from_maps(cfg: DynamicFusionConfig, pts0, nrm0, plain: bool = False
 
 def _use_coarse_band(cfg: DynamicFusionConfig, rows_t: int, cols_t: int) -> bool:
     """The coarse-to-fine raycast prepass only runs on a coarse grid of at
-    least 2048 rays; it is off at the slice's 160x120 model maps."""
+    least 2048 rays: off at the presets' 160x120 model maps, on at
+    ``reference_parity()``'s 640x480."""
     f = cfg.raycast_coarse_factor
     return f > 1 and (rows_t // f) * (cols_t // f) >= 2048
 
@@ -141,6 +142,26 @@ def _march_bands(cfg: DynamicFusionConfig, prev_can_points: Optional[torch.Tenso
     )
 
 
+def _raycast_model(
+    cfg: DynamicFusionConfig,
+    vol: TsdfVolume,
+    pose: torch.Tensor,
+    t_seed: Optional[torch.Tensor],
+    t_band: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    plain: bool,
+) -> tsdf_ops.RaycastResult:
+    """The canonical model raycast at ``pose`` at 1/raycast_subsample
+    resolution, in ``t_band`` where given, else in the coarse band where
+    ``_use_coarse_band``, else seeded by ``t_seed`` (or the full ray)."""
+    cam2vol = se3.compose(se3.inverse(_vol_pose(cfg, pose.device)), pose)
+    rows_t = cfg.rows // cfg.raycast_subsample
+    cols_t = cfg.cols // cfg.raycast_subsample
+    intr_t = cfg.intr.level(cfg.raycast_shift)
+    if t_band is None and _use_coarse_band(cfg, rows_t, cols_t):
+        t_band = tsdf_ops.raycast_coarse_band(cfg, vol, cam2vol, intr_t, rows_t, cols_t, plain=plain)
+    return tsdf_ops.raycast(cfg, vol, cam2vol, intr_t, rows_t, cols_t, t_seed=t_seed, t_band=t_band, plain=plain)
+
+
 def _model_maps(
     cfg: DynamicFusionConfig,
     vol: TsdfVolume,
@@ -157,15 +178,7 @@ def _model_maps(
     maps DQB-warped into the live frame: through the coarse field's
     ``dq_grid`` (trilinear, kernel E) where given, else by the exact
     per-point warp."""
-    cam2vol = se3.compose(se3.inverse(_vol_pose(cfg, pose.device)), pose)
-    rows_t = cfg.rows // cfg.raycast_subsample
-    cols_t = cfg.cols // cfg.raycast_subsample
-    if t_band is None and _use_coarse_band(cfg, rows_t, cols_t):
-        raise NotImplementedError("coarse-band raycast prepass: a later slice")
-    res = tsdf_ops.raycast(
-        cfg, vol, cam2vol, cfg.intr.level(cfg.raycast_shift), rows_t, cols_t,
-        t_seed=t_seed, t_band=t_band, plain=plain,
-    )
+    res = _raycast_model(cfg, vol, pose, t_seed, t_band, plain)
     if cfg.track_against_warped and not cfg.rigid_only:
         shape = res.points.shape
         pts_w = se3.transform_points(pose, res.points).reshape(-1, 3)
@@ -180,6 +193,156 @@ def _model_maps(
     else:
         track_pts, track_nrm = res.points, res.normals
     return _pyramid_from_maps(cfg, track_pts, track_nrm, plain), res.points, res.normals
+
+
+# the aperture gate's constants (kernel M takes them from here)
+GATE_BINS = 16            # depth bins of the gate's window over [0.3, 1.9) m
+GATE_Z_LO, GATE_Z_HI = 0.3, 1.9
+GATE_BIN_W = (GATE_Z_HI - GATE_Z_LO) / GATE_BINS
+GATE_CHANNELS = 11        # [S, xx, yy, zz, xy, xz, yz, bx, by, bz, bb]
+GATE_REG = 1e-3           # ridge of the 3x3 second moment, per sample
+GATE_MIN_FILL = 0.15      # share of the window's pixels a gate needs
+
+
+def gate_bins(cam_z: torch.Tensor) -> torch.Tensor:
+    """(H, W) int64 depth bin of each pixel of the aperture gate:
+    floor((z - 0.3) / 0.1) clipped to [0, 15], NaN depth in bin 0. The
+    width divides as a tensor (CUDA PyTorch would multiply by the
+    reciprocal of a Python scalar, and one ulp moves a plane on a bin
+    edge into the next bin)."""
+    bw = torch.tensor(GATE_BIN_W, dtype=torch.float32, device=cam_z.device)
+    z = torch.nan_to_num(cam_z, nan=-1.0)
+    return torch.clamp(torch.floor((z - GATE_Z_LO) / bw), 0, GATE_BINS - 1).to(torch.int64)
+
+
+def _box_sum(x: torch.Tensor, w: int) -> torch.Tensor:
+    """Separable (w x w) box SUM over the leading two axes of (H, W, C),
+    SAME size with zeros outside: along W first, then along H, each window
+    summed tap by tap from zero in image order (kernel M's order, so the
+    two sum alike bit for bit)."""
+    lo = (w - 1) // 2
+    hi = w - 1 - lo
+    rows, cols = x.shape[:2]
+    xp = F.pad(x, (0, 0, lo, hi))
+    acc = torch.zeros_like(x)
+    for k in range(w):
+        acc = acc + xp[:, k:k + cols]
+    xp = F.pad(acc, (0, 0, 0, 0, lo, hi))
+    acc = torch.zeros_like(x)
+    for k in range(w):
+        acc = acc + xp[k:k + rows]
+    return acc
+
+
+def _p2p_gate_plain(
+    cfg: DynamicFusionConfig,
+    live_pts_w: torch.Tensor,
+    live_nrm_w: torch.Tensor,
+    prev_model_w: torch.Tensor,
+    cam_z: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of kernel M: the adaptive aperture gate (see
+    ``p2p_gate``). The features are scattered one-hot over the depth bins
+    and box-summed per (bin, channel) with ``_box_sum``; each pixel then
+    sums its own bin and the two beside it."""
+    w = cfg.solver_p2p_gate_window
+    dev = cam_z.device
+    rows, cols = cam_z.shape
+    delta = live_pts_w - prev_model_w
+    n = live_nrm_w
+    valid = torch.isfinite(delta).all(-1) & torch.isfinite(n).all(-1)
+    nz = torch.where(valid[..., None], torch.nan_to_num(n), 0.0)
+    b = torch.where(valid, tsdf_ops._dot3(nz, torch.nan_to_num(delta)), 0.0)
+    nx, ny, nzz = nz[..., 0], nz[..., 1], nz[..., 2]
+    feats = torch.stack(
+        [valid.to(torch.float32), nx * nx, ny * ny, nzz * nzz, nx * ny, nx * nzz, ny * nzz,
+         nx * b, ny * b, nzz * b, b * b], dim=-1,
+    )
+    zb = gate_bins(cam_z)
+    oh = F.one_hot(zb, GATE_BINS).to(torch.float32) * valid[..., None]
+    fb = (feats[..., None, :] * oh[..., :, None]).reshape(rows, cols, GATE_BINS * GATE_CHANNELS)
+    sb = _box_sum(fb, w).reshape(rows, cols, GATE_BINS, GATE_CHANNELS)
+
+    def gather(i):
+        ok = (i >= 0) & (i < GATE_BINS)
+        idx = i.clamp(0, GATE_BINS - 1)[..., None, None].expand(rows, cols, 1, GATE_CHANNELS)
+        return torch.gather(sb, 2, idx)[..., 0, :] * ok[..., None]
+
+    s = gather(zb - 1) + gather(zb) + gather(zb + 1)
+    cnt = s[..., 0]
+    g1, g2, g3 = s[..., 7], s[..., 8], s[..., 9]
+    bb = s[..., 10]
+    cnt1 = torch.clamp(cnt, min=1.0)
+
+    # the regularised 3x3 second moment: closed-form det and adjugate solve
+    reg = GATE_REG * cnt1
+    a11, a22, a33 = s[..., 1] + reg, s[..., 2] + reg, s[..., 3] + reg
+    a12, a13, a23 = s[..., 4], s[..., 5], s[..., 6]
+    c11 = a22 * a33 - a23 * a23
+    c12 = a13 * a23 - a12 * a33
+    c13 = a12 * a23 - a13 * a22
+    c22 = a11 * a33 - a13 * a13
+    c23 = a12 * a13 - a11 * a23
+    c33 = a11 * a22 - a12 * a12
+    det_r = a11 * c11 + a12 * c12 + a13 * c13
+    inv_det = 1.0 / torch.clamp(det_r, min=1e-30)
+    t1 = (c11 * g1 + c12 * g2 + c13 * g3) * inv_det
+    t2 = (c12 * g1 + c22 * g2 + c23 * g3) * inv_det
+    t3 = (c13 * g1 + c23 * g2 + c33 * g3) * inv_det
+    expl = (t1 * g1 + t2 * g2 + t3 * g3) / torch.clamp(bb, min=1e-12)
+
+    # conditioning: the det of the unregularised second moment per sample
+    b11, b22, b33 = s[..., 1], s[..., 2], s[..., 3]
+    cond = (
+        b11 * (b22 * b33 - a23 * a23)
+        + a12 * (a13 * a23 - a12 * b33)
+        + a13 * (a12 * a23 - a13 * b22)
+    ) / (cnt1 * cnt1 * cnt1)
+
+    def const(v):  # a divisor as a tensor: CUDA PyTorch multiplies by a Python scalar's reciprocal
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    gate_cond = torch.clamp(cond / const(cfg.solver_p2p_gate_cond), 0.0, 1.0)
+    f0 = cfg.solver_p2p_gate_fit
+    gate_fit = torch.clamp((expl - f0) / const(max(1.0 - f0, 1e-6)), 0.0, 1.0)
+    enough = cnt > GATE_MIN_FILL * (w * w)
+    gate = torch.clamp(cfg.solver_p2p_gate_gain * gate_cond * gate_fit, 0.0, 1.0)
+    return torch.where(enough, gate, 0.0)
+
+
+def p2p_gate(
+    cfg: DynamicFusionConfig,
+    live_pts_w: torch.Tensor,    # (Ht, Wt, 3) live surface, world frame
+    live_nrm_w: torch.Tensor,    # (Ht, Wt, 3) live normals, world frame
+    prev_model_w: torch.Tensor,  # (Ht, Wt, 3) previous warped model map, world frame
+    cam_z: torch.Tensor,         # (Ht, Wt) live camera-frame depth (NaN where none)
+    plain: bool = False,
+) -> torch.Tensor:
+    """The adaptive aperture gate of the tangential data term: a per-pixel
+    weight in [0, 1] from a windowed translation fit of the apparent motion
+    b = n . (live - previous model). Over a (w x w) window restricted to
+    the pixel's depth bin and the two beside it, the normal second moment
+    N = sum n nᵀ says whether the window's geometry observes a 3-dof
+    translation (its normalised det, high on curved patches, ~0 on flat
+    ones) and the best-fit translation's share of the b-energy says whether
+    the motion is coherent; gate = clip(gain clip(det / cond0)
+    clip((explained - fit0) / (1 - fit0))), 0 where the window holds fewer
+    than 0.15 w² samples. Kernel M (``csrc/p2p_gate.cu``) on CUDA tensors,
+    ``_p2p_gate_plain`` on CPU tensors or where the caller asks."""
+    if plain or cam_z.device.type == "cpu":
+        return _p2p_gate_plain(cfg, live_pts_w, live_nrm_w, prev_model_w, cam_z)
+    return p2p_gate_kernel(cfg, live_pts_w, live_nrm_w, prev_model_w, cam_z)[0]
+
+
+def p2p_gate_kernel(cfg: DynamicFusionConfig, live_pts_w, live_nrm_w, prev_model_w, cam_z):
+    """Kernel M on CUDA tensors with the gate's constants: (gate, depth
+    bins as int32)."""
+    w = cfg.solver_p2p_gate_window
+    return kernels.p2p_gate(
+        live_pts_w.contiguous(), live_nrm_w.contiguous(), prev_model_w.contiguous(), cam_z.contiguous(),
+        w, cfg.solver_p2p_gate_cond, cfg.solver_p2p_gate_fit, cfg.solver_p2p_gate_gain,
+        GATE_Z_LO, GATE_BIN_W, GATE_BINS, GATE_CHANNELS, GATE_REG, GATE_MIN_FILL * (w * w),
+    )
 
 
 def init_state(cfg: DynamicFusionConfig, device="cuda") -> PipelineState:
@@ -272,6 +435,7 @@ class Tracked(NamedTuple):
     normals: Tuple[torch.Tensor, ...]
     dists: torch.Tensor
     conf: Optional[torch.Tensor]          # level-0 incidence confidence (with fusion_incidence_weight)
+    bands: Tuple                          # (raycast seed | None, temporal band | None) of the frame
 
 
 def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False) -> Tracked:
@@ -294,12 +458,21 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
     pose = torch.where(icp_res.ok, se3.compose(state.pose, icp_res.transform), state.pose)
 
     # the solve's point sets, world frame, every stride-th pixel of the
-    # model maps: the previous frame's canonical raycast (at the old pose)
-    # and the live surface, its points from the RAW depth (what fusion
+    # model maps: the previous frame's canonical raycast (at the old pose;
+    # with reuse_model_raycast=False a fresh one at the new pose) and the
+    # live surface, its points from the RAW depth (what fusion
     # integrates), its normals filtered
     stride = max(1, cfg.solver_point_stride // cfg.raycast_subsample)
-    can_pts_w = se3.transform_points(state.pose, state.can_points)
-    can_nrm_w = se3.rotate_dirs(state.pose, state.can_normals)
+    seed, band = _march_bands(cfg, state.can_points, dists, plain)
+    if cfg.reuse_model_raycast:
+        can_pts_w = se3.transform_points(state.pose, state.can_points)
+        can_nrm_w = se3.rotate_dirs(state.pose, state.can_normals)
+    else:
+        # a fresh canonical raycast from the ICP pose, in the temporal band
+        # where it is on, else in the coarse band where that runs
+        model = _raycast_model(cfg, state.vol, pose, seed, band, plain)
+        can_pts_w = se3.transform_points(pose, model.points)
+        can_nrm_w = se3.rotate_dirs(pose, model.normals)
     if cfg.solver_live_raw:
         raw_pts, _ = preprocess.compute_points_normals(
             cfg.intr.level(shift), depth_mm, stride=cfg.raycast_subsample, plain=plain
@@ -312,11 +485,21 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
     def flat(a):
         return a[::stride, ::stride].reshape(-1, 3)
 
-    # the tangential term's per-point gate is ones (None) unless
-    # solver_p2p_adaptive, which the solver refuses (_p2p_gate not ported)
+    # the tangential term's per-point gate: ones (None) unless
+    # solver_p2p_adaptive, then the aperture gate against the previous
+    # warped model map (the field's live-surface prediction, pixel-
+    # associated like ICP) from the FILTERED live surface at the ICP pose
+    gate = None
+    if cfg.solver_p2p_weight > 0.0 and cfg.solver_p2p_adaptive:
+        prev_model_w = se3.transform_points(state.pose, state.prev_points[0])
+        gmap = p2p_gate(
+            cfg, se3.transform_points(pose, pts_pyr[shift]), live_nrm_w, prev_model_w, pts_pyr[shift][..., 2],
+            plain=plain,
+        )
+        gate = gmap[::stride, ::stride].reshape(-1, 1)
     inputs = warp_solver.WarpSolveInputs(
         p_can=flat(can_pts_w), n_can=flat(can_nrm_w), p_live=flat(live_pts_w), n_live=flat(live_nrm_w),
-        p2p_gate=None,
+        p2p_gate=gate,
     )
     if cfg.solver_rigid_prealign:
         t_pre = warp_solver.rigid_prealign(cfg, state.warp, inputs, plain=plain)
@@ -324,18 +507,16 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
         inputs = inputs._replace(
             p_live=se3.transform_points(t_pre, inputs.p_live), n_live=se3.rotate_dirs(t_pre, inputs.n_live)
         )
-    return Tracked(icp_res, pose, inputs, tuple(pts_pyr), tuple(nrm_pyr), dists, conf)
+    return Tracked(icp_res, pose, inputs, tuple(pts_pyr), tuple(nrm_pyr), dists, conf, (seed, band))
 
 
 def _nonrigid_step(
     cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False
 ) -> Tuple[PipelineState, StepOutputs]:
     """One DynamicFusion frame (the JAX package's non-rigid ``step``)."""
-    if not cfg.reuse_model_raycast:
-        raise NotImplementedError("a fresh canonical raycast per frame: a later slice")
     if cfg.solver_remove_net_rigid:
         raise NotImplementedError("remove_net_rigid: a later slice")
-    icp_res, pose, inputs, _, _, dists, conf = track(cfg, state, depth_mm, plain)
+    icp_res, pose, inputs, _, _, dists, conf, (seed, band) = track(cfg, state, depth_mm, plain)
     warp, stats = warp_solver.solve(cfg, state.warp, inputs, plain=plain)
     # a frame whose tracking failed leaves the warp field (and, below, the
     # volume and the node set) untouched
@@ -357,7 +538,6 @@ def _nonrigid_step(
         cfg, warp, cand, icp_res.ok & ~torch.isnan(cand[:, 0]), state.frame_idx, plain=plain
     )
 
-    seed, band = _march_bands(cfg, state.can_points, dists, plain)
     (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(
         cfg, state.vol, pose, warp, t_seed=seed, t_band=band, dq_grid=cf.dq if full_scale else None, plain=plain,
     )
@@ -441,3 +621,20 @@ class DynamicFusion:
         if not (-len(self.poses) <= time < len(self.poses)):
             time = -1
         return self.poses[time]
+
+    def render(self, mode: int = 0, pose=None) -> torch.Tensor:
+        """An (H, W, 3) uint8 image on ``self.device`` (mode 0 Phong, 2
+        normal colours, 3 both side by side, (H, 2W, 3)): from the last
+        model maps, pixel-replicated to the frame size, or with ``pose``
+        (camera-to-world (4, 4)) from a fresh full-resolution raycast of the
+        volume from that viewpoint, which marches every ray with no band
+        (kernel C)."""
+        from dynamicfusion_tpu_torch.pipeline import render as render_mod
+
+        if pose is None:
+            return render_mod.render_state(self.cfg, self.state, mode)
+        cfg = self.cfg
+        pose = torch.as_tensor(pose, dtype=torch.float32).to(self.device)
+        cam2vol = se3.compose(se3.inverse(_vol_pose(cfg, self.device)), pose)
+        res = tsdf_ops.raycast(cfg, self.state.vol, cam2vol, cfg.intr, cfg.rows, cfg.cols, plain=self.plain)
+        return render_mod.render_maps(cfg, res.points, res.normals, mode)

@@ -523,8 +523,6 @@ def _check_cfg(cfg: DynamicFusionConfig) -> None:
     if not cfg.point_to_plane:
         raise NotImplementedError("point_to_plane=False (the point-to-point data term) is not ported")
     if cfg.solver_p2p_weight > 0.0:
-        if cfg.solver_p2p_adaptive:
-            raise NotImplementedError("solver_p2p_adaptive=True (the aperture gate, kinfu._p2p_gate): a later slice")
         if cfg.solver_p2p_hessian_stride > 1:
             raise NotImplementedError(
                 f"solver_p2p_hessian_stride={cfg.solver_p2p_hessian_stride} (tangential rows subsampled in the "

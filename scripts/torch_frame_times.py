@@ -1,0 +1,92 @@
+"""Frame times of one of the port's non-rigid presets on the card, for a
+tree given on the command line: the kernel path through ``DynamicFusion``
+over ``bench.py``'s hinge scene (or its deforming scene) at full width,
+640x480 / 256^3 / 1024 nodes, then ``--profile`` frames under
+torch.profiler (``chip_smoke.profile_frames``: device busy time, idle
+share, launches).
+
+    python3 scripts/torch_frame_times.py --root DIR [--preset quality] [--frames 20] [--profile OUT]
+
+``--root`` is the directory holding the ``dynamicfusion_tpu_torch`` to time
+(this checkout by default; an unpacked ``git archive`` of another commit
+for an A/B on one card: run parent, change, change, parent in one call,
+each in its own process). The kernels build from that tree's sources.
+Prints the card, every frame's host time around one frame ending in
+``torch.cuda.synchronize()``, and the median of the steady frames
+(2..N-1) as chip_smoke.py measures it.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--root", default=str(HERE), help="directory holding the dynamicfusion_tpu_torch to time")
+    ap.add_argument("--preset", choices=("quality", "default"), default="quality",
+                    help="quality_dynamicfusion() on the hinge scene, or default_dynamicfusion() on the "
+                         "deforming scene")
+    ap.add_argument("--frames", type=int, default=20, help="timed frames (frame 0 included)")
+    ap.add_argument("--profile", default=None, help="profile 3 more frames and write the table and trace here")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_frame_times: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    sys.path.insert(1, str(HERE))
+    from chip_smoke import profile_frames
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.io import synthetic
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    assert Path(kinfu.__file__).resolve().is_relative_to(root), kinfu.__file__
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    kernels.load()
+    print(f"[build] {root}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    if args.preset == "quality":
+        cfg = DynamicFusionConfig.quality_dynamicfusion()
+        make = synthetic.hinge_frames
+    else:
+        cfg = DynamicFusionConfig.default_dynamicfusion()
+        make = synthetic.deforming_frames
+    n_prof = 3 if args.profile else 0
+    frames = make(cfg.intr, cfg.rows, cfg.cols, args.frames + n_prof)
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    ms = []
+    for d in frames[: args.frames]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        df(d, block=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    steady = sorted(ms[2:])
+    print(f"[time] {card} | {root.name} {args.preset} frame ms median {steady[len(steady) // 2]:.3f} "
+          f"(frames 2..{len(ms) - 1}), min {steady[0]:.3f}, max {steady[-1]:.3f}; per frame "
+          + " ".join(f"{v:.1f}" for v in ms), flush=True)
+    if args.profile:
+        profile_frames(torch, args, dev, card, df, frames[args.frames:], tag=f"{root.name}_{args.preset}")
+    print(json.dumps({"root": str(root), "preset": args.preset, "median_ms": steady[len(steady) // 2],
+                      "frame_ms": ms, "card": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

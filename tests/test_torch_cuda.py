@@ -147,6 +147,71 @@ def test_preprocess_kernels(dev):
         assert torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
 
 
+def test_coarse_band_kernel(dev, model):
+    """Kernel J's coarse band equals its plain version bit for bit, from the
+    coarse march of the slice's volume at a quarter of 160x120 and at the
+    reference resolution's 160x120 coarse grid of the same volume."""
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(CFG, dev)), model.pose)
+    for rows, cols in ((120, 160), (480, 640)):
+        intr = CFG.intr if rows == CFG.rows else DynamicFusionConfig.small(rows=rows, cols=cols).intr
+        coarse = tsdf.raycast(CFG, model.vol, cam2vol, intr.level(2), rows // 4, cols // 4, plain=True)
+        before = kernels.launches["coarse_band"]
+        lo, hi = kernels.coarse_band(coarse.points.contiguous(), 4, CFG.raycast_band_margin)
+        plo, phi = tsdf.coarse_band_plain(coarse.points, 4, CFG.raycast_band_margin)
+        torch.cuda.synchronize()
+        assert kernels.launches["coarse_band"] == before + 1
+        assert lo.shape == (rows, cols)
+        assert torch.equal(lo, plo) and torch.equal(hi, phi)
+        assert bool((hi > lo).any()) and bool((hi == 0).any())
+
+
+def _gate_field(dev, h=120, w=160, seed=7):
+    """A random gate input: depths over every bin, unit normals, motions,
+    holes; and a translating sphere over a plane."""
+    rng = np.random.RandomState(seed)
+    u, v = np.meshgrid(np.arange(w) - w / 2, np.arange(h) - h / 2)
+    f = 570.342 / 4
+    z = rng.uniform(0.1, 2.2, (h, w))
+    z[rng.rand(h, w) < 0.05] = np.nan
+    prev = np.stack([u / f * z, v / f * z, z], -1)
+    nrm = rng.randn(h, w, 3)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm[rng.rand(h, w) < 0.03] = np.nan
+    live = prev + rng.normal(0, 0.004, (h, w, 3))
+    def on_card(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in arrays)
+
+    out = [on_card(live, nrm, prev, live[..., 2])]
+    r, z0 = 0.12, 0.9
+    x, y = u * z0 / f, v * z0 / f
+    on = x * x + y * y < (r * 0.95) ** 2
+    zs = z0 - np.sqrt(np.maximum(r * r - x * x - y * y, 1e-9))
+    pts = np.stack([x, y, np.where(on, zs, 1.3)], -1)
+    n = np.where(on[..., None], np.stack([x / r, y / r, (zs - z0) / r], -1), np.array([0.0, 0.0, -1.0]))
+    live = pts + np.where(on[..., None], np.array([0.005, 0.0, 0.0]), 0.0)
+    out.append(on_card(live, n, pts, live[..., 2]))
+    return out
+
+
+def test_p2p_gate_kernel(dev):
+    """Kernel M: the gate and the depth bins equal the plain version's bit
+    for bit (the same sums in the same order, the closed form under
+    -fmad=false with true divisions)."""
+    cfg = DynamicFusionConfig.quality_dynamicfusion()
+    opened = 0
+    for inputs in _gate_field(dev):
+        before = kernels.launches["p2p_gate"]
+        gk = kinfu.p2p_gate(cfg, *inputs)
+        gp = kinfu.p2p_gate(cfg, *inputs, plain=True)
+        _, bins = kinfu.p2p_gate_kernel(cfg, *inputs)
+        torch.cuda.synchronize()
+        assert kernels.launches["p2p_gate"] == before + 2
+        assert torch.equal(bins.long(), kinfu.gate_bins(inputs[3]))
+        assert torch.equal(gk, gp)
+        opened += int((gk > 0).sum())
+    assert opened > 0  # the translating sphere opens the gate
+
+
 def test_bands_kernel(dev, model):
     """Kernel J: band and seed equal the plain versions bit for bit."""
     cfg = dataclasses.replace(CFG, raycast_temporal_band=True, raycast_seed_margin=0.1)
@@ -419,8 +484,10 @@ def test_nonrigid_slice_on_the_card_goes_through_every_kernel(dev, p2p):
     for d in NR_DEPTHS:
         df(d, block=False)
     torch.cuda.synchronize()
-    # small() is below the full-scale branches: the trilinear map warp does not run
-    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear")]
+    # small() is below the full-scale branches: the trilinear map warp does
+    # not run; nor do the coarse band (160x120 maps) and the aperture gate
+    # (test_adaptive_slice_on_the_card_goes_through_every_kernel)
+    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band", "p2p_gate")]
     assert all(kernels.launches[k] > 0 for k in path), kernels.launches
     assert kernels.launches["extract_cloud"] == kernels.launches["sample_nodes"] == 1
     ref = kinfu.DynamicFusion(cfg, device="cpu")
@@ -434,3 +501,52 @@ def test_nonrigid_slice_on_the_card_goes_through_every_kernel(dev, p2p):
     a, b = df.get_pose().cpu(), ref.get_pose()
     assert float((a[:3, 3] - b[:3, 3]).abs().max()) <= 3e-3
     assert float((a[:3, :3] - b[:3, :3]).abs().max()) <= 8e-3
+
+
+def test_adaptive_slice_on_the_card_goes_through_every_kernel(dev):
+    """The quality preset's slice with the aperture gate: kernel M launches
+    once a step, and the kernel path's pose stays within the plain path's
+    reach as the gate-off slice's does."""
+    cfg = dataclasses.replace(NR, solver_p2p_weight=0.25, solver_p2p_adaptive=True)
+    kernels.reset_launches()
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    for d in NR_DEPTHS:
+        df(d, block=False)
+    torch.cuda.synchronize()
+    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band")]
+    assert all(kernels.launches[k] > 0 for k in path), kernels.launches
+    assert kernels.launches["p2p_gate"] == len(NR_DEPTHS) - 1
+    ref = kinfu.DynamicFusion(cfg, device="cpu")
+    for d in NR_DEPTHS:
+        ref(d)
+    assert bool(df.last_outputs.icp_ok)
+    a, b = df.get_pose().cpu(), ref.get_pose()
+    assert float((a[:3, 3] - b[:3, 3]).abs().max()) <= 3e-3
+
+
+def test_full_resolution_rigid_on_the_card(dev):
+    """``raycast_subsample=1``: the model maps at the frame size through the
+    coarse band (kernels C and J) every frame, and the renders."""
+    cfg = dataclasses.replace(
+        DynamicFusionConfig.small(dims=64, rows=240, cols=320), max_nodes=64, node_sample_step=17, rigid_only=True,
+        raycast_subsample=1,
+    )
+    depths = [synthetic.scene_depth(cfg.intr, cfg.rows, cfg.cols, synthetic.orbit_pose(a, target=TARGET), **SCENE)
+              for a in ANGLES]
+    kernels.reset_launches()
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    for d in depths:
+        df(d, block=False)
+    torch.cuda.synchronize()
+    assert kernels.launches["coarse_band"] == len(depths)
+    assert kernels.launches["raycast"] == 2 * len(depths)
+    ref = kinfu.DynamicFusion(cfg, device="cpu")
+    for d in depths:
+        ref(d)
+    assert float((df.get_pose().cpu() - ref.get_pose()).abs().max()) <= 1e-3
+    for mode, shape in ((0, (240, 320, 3)), (3, (240, 640, 3))):
+        img = df.render(mode)
+        assert img.device.type == "cuda" and img.dtype == torch.uint8 and tuple(img.shape) == shape
+    img = df.render(0, pose=df.get_pose())
+    ref_img = ref.render(0, pose=ref.get_pose())
+    assert float((img.cpu().int() - ref_img.int()).abs().amax(-1).gt(1).float().mean()) <= 1e-3

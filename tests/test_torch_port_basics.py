@@ -153,6 +153,16 @@ def test_deforming_frames_are_the_bench_scene():
         np.testing.assert_array_equal(d, jsyn.scene_depth(cfg.intr, cfg.rows, cfg.cols, spheres=sp, plane_z=1.25))
 
 
+def test_bulge_frames_are_the_bench_scene():
+    """bench.py's bulge scene: ``bulge_depth`` of the JAX package's
+    ``io.synthetic`` at frames t = 0, 1, 2."""
+    cfg = jconfig.DynamicFusionConfig.small()
+    got = tsyn.bulge_frames(tconfig.DynamicFusionConfig.small().intr, cfg.rows, cfg.cols, 3)
+    for t, d in enumerate(got):
+        np.testing.assert_array_equal(d, jsyn.bulge_depth(cfg.intr, cfg.rows, cfg.cols, t))
+    assert (got[0] != got[2]).any()
+
+
 def test_first_true_is_static_nonzero():
     rng = np.random.RandomState(3)
     for n, size, p in ((1000, 64, 0.02), (1000, 64, 0.5), (37, 50, 0.3), (10, 4, 0.0)):
@@ -268,6 +278,10 @@ WRAPPER_CALLS = {
     ),
     "resize_maps": lambda: kernels.resize_maps(torch.zeros((8, 8, 3)), torch.zeros((8, 8, 3))),
     "march_bands": lambda: kernels.march_bands(torch.zeros((16, 16)), 2, torch.zeros((8, 8, 3)), 0.06, True),
+    "coarse_band": lambda: kernels.coarse_band(torch.zeros((8, 8, 3)), 4, 0.06),
+    "p2p_gate": lambda: kernels.p2p_gate(
+        *(torch.zeros((8, 8, 3)),) * 3, torch.zeros((8, 8)), 41, 0.01, 0.35, 2.0, 0.3, 0.1, 16, 11, 1e-3, 252.15,
+    ),
     "brick_plan": lambda: kernels.brick_plan(
         torch.zeros((8, 8)), torch.zeros((5, 5, 5, 3)), 16, 8, tconfig.DynamicFusionConfig.small().intr,
         8, 0.04, 1e-3, 4, torch.arange(8), 8, 2,

@@ -242,11 +242,12 @@ def test_free_running_matches_jax(jax_frames, port_frames, spread, frame):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("solver_p2p_adaptive", True), ("solver_p2p_hessian_stride", 2), ("solver_p2p_lag_hessian", True),
+    ("solver_p2p_hessian_stride", 2), ("solver_p2p_lag_hessian", True),
 ])
 def test_unported_tangential_options_raise(solve_case, option, value):
-    """The aperture gate (next slice) and the two row-matrix variants (off
-    in every preset) raise, each naming itself."""
+    """The two row-matrix variants (off in every preset) raise, each naming
+    itself; the aperture gate (``solver_p2p_adaptive``) is ported
+    (tests/test_torch_adaptive_gate.py)."""
     _, tfield, arrs = solve_case
     cfg = dataclasses.replace(TC, **{option: value})
     with pytest.raises(NotImplementedError, match=option):

@@ -170,11 +170,12 @@ def jax_fusion_inputs(jc, depth):
     return tuple(np.asarray(a) for a in _jitted_fusion_inputs(jc)(jnp.asarray(depth)))
 
 
-def check_step_from_jax_state(jc, tc, jax_frames, depths, frame):
+def check_step_from_jax_state(jc, tc, jax_frames, depths, frame, tol_cost0=TOL_COST0):
     """The port's step from JAX's previous state: ICP and pre-alignment
-    give JAX's pose and the solve starts from JAX's cost; the fusion, the
-    node insertion and the model maps, run on JAX's solved field at JAX's
-    pose, give JAX's volume, nodes and maps."""
+    give JAX's pose and the solve starts from JAX's cost (within
+    ``tol_cost0``, relative); the fusion, the node insertion and the model
+    maps, run on JAX's solved field at JAX's pose, give JAX's volume, nodes
+    and maps."""
     from dynamicfusion_tpu_torch.core import se3
     from dynamicfusion_tpu_torch.models import warpfield
     from dynamicfusion_tpu_torch.ops import fusion, preprocess
@@ -185,7 +186,7 @@ def check_step_from_jax_state(jc, tc, jax_frames, depths, frame):
     assert bool(to.icp_ok) == bool(jo.icp_ok)
     assert np.abs(jo.pose - to.pose.numpy()).max() <= TOL_POSE
     c0 = float(jo.solver_cost0)
-    assert abs(float(to.solver_cost0) - c0) <= TOL_COST0 * c0
+    assert abs(float(to.solver_cost0) - c0) <= tol_cost0 * c0
     assert float(to.solver_cost1) <= float(to.solver_cost0)
 
     st = interop.state_from_numpy(j_prev, "cpu")
