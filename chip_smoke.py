@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--a-frames A] [--p-frames P]
-                          [--profile DIR] [--dump-solve FILE]
+                          [--d-frames D] [--r-frames R] [--profile DIR] [--dump-solve FILE]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -31,7 +31,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    reference resolution of ``reference_parity()`` on the phase-2 volume:
    kernel C's 160x120 coarse march, kernel J's coarse band (640x480,
    bit-equal), C at 640x480 in that band and as ``render(pose)``'s full
-   march, kernel B at 640x480;
+   march, kernel B at 640x480; and on the base ``DynamicFusionConfig()``'s
+   state after three frames (3 200 solve points, 6N = 6 144): kernel N's
+   column scales and int8 Gram (bit-equal), its bf16 Gram, kernel O,
+   cuSOLVER's factor (an all-NaN factor where the matrix is not positive
+   definite) and kernel F's point-to-point rows;
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -71,13 +75,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 8. three frames of ``default_dynamicfusion()`` with
    ``reuse_model_raycast=False`` (a fresh canonical raycast every step),
    the plain step from each state;
-9. print the per-kernel JSON line, the card's name and power limit, and
+9. the base ``DynamicFusionConfig()`` non-rigid (the direct solve: kernels
+   N and O and cuSOLVER's factor under the lagged JᵀJ with one factor
+   reused; secant refine, fusion every 2nd frame, no incidence weight, no
+   temporal band) over D frames of the deforming scene: the checks of
+   phase 4, one Gram a step and a factor every LM iteration, the plain
+   step from each state, a profile of 3 more frames (device busy and idle
+   shares, launches a frame);
+10. the base config's dense variants, three steps each from its state
+   after frame 3 (``solver_jtj_int8=False``, ``solver_lagged_jtj=False``,
+   ``point_to_plane=False``), each step held against the plain step;
+11. ``reference_parity()`` non-rigid (640x480 maps, 12 800 solve points)
+   over R frames, known unstable as a running configuration: the plain
+   step from each state; P, the factor's time and its ``info`` printed;
+12. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler table and trace of 3 frames of
 each non-rigid preset, of the adaptive-gate path and of the
 reference-resolution rigid path (after each run) and prints the device's
-busy time, idle share and busiest kernels over them.
+busy time, idle share and busiest kernels over them; the base config's 3
+frames are profiled in every run (into DIR, else ``build/profile``).
 ``--dump-solve FILE`` writes the warp field and the solve's point sets of
 the phase-2 state (the preset after three frames, the next frame tracked)
 to an ``.npz``, for holding another solver against the same system.
@@ -146,10 +164,18 @@ TOL_NORMAL_FRAC = 1e-3        # ... except on this fraction of valid pixels
 # -fmad=false with true divisions; the plain version divides by tensors
 TOL_GATE = 0.0                # max |gate_kernel - gate_plain|; the depth bins bit for bit
 TOL_IMAGE_FRAC = 1e-3         # render pixels more than one level from the plain render (a hit may flip)
+# kernel N: the int8 Gram bit-equal (integer sums are exact in any order, the
+# plain version sums the integer products exactly in float64, the scale
+# product in the same order); the bf16 Gram within the float32 sums' order
+TOL_GRAM_BF16_REL = 1e-6      # max |diff| over max |entry|
+# kernel O: off the diagonal a copy; the diagonal within the mean's sum order
+TOL_DAMP_REL = 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s, float32 (no tensor core) 67 TFLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 
 # four spheres and a plane: one sphere centred over a plane is symmetric
 # about the plane's normal through its centre, which leaves the rotation
@@ -205,10 +231,19 @@ ROWS = {
     "raycast_full_res": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:386"),
     "raycast_render": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:386"),
     "icp_reduce_full_res": ("icp_reduce.cu", "dynamicfusion_tpu/solvers/icp.py:38"),
+    "data_term_p2p": ("data_term.cu", "dynamicfusion_tpu/solvers/warp_solver.py:76"),
+    "insert_select_full_res": ("insert_nodes.cu", "dynamicfusion_tpu/models/warpfield.py:372"),
+    "gram_scales": ("dense_system.cu", "dynamicfusion_tpu/solvers/warp_solver.py:505"),
+    "dense_gram": ("dense_system.cu", "dynamicfusion_tpu/solvers/warp_solver.py:505"),
+    "dense_gram_bf16": ("dense_system.cu", "dynamicfusion_tpu/solvers/warp_solver.py:505"),
+    "dense_damp": ("dense_system.cu", "dynamicfusion_tpu/solvers/warp_solver.py:479"),
+    # the factor is cuSOLVER's (the JAX package's is its library's too)
+    "cholesky": ("dynamicfusion_tpu_torch/kernels/__init__.py", "dynamicfusion_tpu/solvers/warp_solver.py:872"),
 }
 COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", "data_term_tangential": "data_term",
            "pcg_tangential": "pcg", "raycast_coarse": "raycast", "raycast_full_res": "raycast",
-           "raycast_render": "raycast", "icp_reduce_full_res": "icp_reduce"}
+           "raycast_render": "raycast", "icp_reduce_full_res": "icp_reduce", "data_term_p2p": "data_term",
+           "dense_gram_bf16": "dense_gram", "insert_select_full_res": "insert_select"}
 # the run whose counters a row's launches are: kernels A-D the rigid path's,
 # kernel L the preset's (frame 0), the tangential rows the quality preset's,
 # kernel M the adaptive-gate path's, the full-resolution rows the
@@ -217,7 +252,16 @@ COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", 
 PATH = {**dict.fromkeys(RIGID_KERNELS, "rigid"), "extract_cloud": "frame0", "sample_nodes": "frame0",
         "data_term_tangential": "quality", "pcg_tangential": "quality", "p2p_gate": "adaptive",
         **dict.fromkeys(("coarse_band", "raycast_coarse", "raycast_full_res", "icp_reduce_full_res"), "parity_rigid"),
-        "raycast_render": "render"}
+        "raycast_render": "render",
+        **dict.fromkeys(("gram_scales", "dense_gram", "dense_damp", "cholesky"), "base"),
+        "dense_gram_bf16": "base_bf16", "data_term_p2p": "base_p2p", "insert_select_full_res": "parity_nr"}
+# the direct solve's kernels (N, O) and its factor: the PCG presets run none
+# of them, the base config none of the PCG's
+DENSE_KERNELS = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
+PCG_KERNELS = ("spd6_inv", "pcg")
+# the base config's dense variants, three steps each from its state
+VARIANTS = (("bf16", dict(solver_jtj_int8=False)), ("unlagged", dict(solver_lagged_jtj=False)),
+            ("p2p", dict(point_to_plane=False)))
 
 
 def smi() -> str:
@@ -248,9 +292,10 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_F32):
+    """max(bytes / the memory rate, operations / ``peak``) in ms."""
     tb = nbytes / PEAK_BYTES * 1e3
-    to = flops / PEAK_F32 * 1e3
+    to = flops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -653,25 +698,10 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     full_res_kernels(torch, report, dev, st, nr_depths[3])
 
     # H: insertion into a field with half its slots free
-    half = torch.arange(n, device=dev) % 2 == 0
-    act = field.active & half
-    hfield = field._replace(active=act, count=act.sum(dtype=torch.int32))
     hcand = (cand + 0.03).contiguous()
     hvalid = ~torch.isnan(hcand[:, 0])
     fi = torch.tensor(9, dtype=torch.int32).to(dev)
-    hk = warpfield.insert_nodes(cfg, hfield, hcand, hvalid, fi)
-    hp = warpfield.insert_nodes(cfg, hfield, hcand, hvalid, fi, plain=True)
-    grew = int(hk.count) - int(hfield.count)
-    err = 0.0
-    exact = True
-    for name, a, b_ in zip(warpfield.WarpField._fields, hk, hp):
-        if a.dtype == torch.float32:
-            err = max(err, abs_err(torch, a, b_))
-        else:
-            exact = exact and torch.equal(a, b_)
-    check("insert_nodes", exact and err <= TOL_FIELD and grew > 0,
-          f"{nc} candidates, {n - int(hfield.count)} free slots: {grew} inserted; slots, active set, counts "
-          f"equal {exact}; max position/dq diff {err:.2e} (tol {TOL_FIELD})")
+    hfield, exact, err = hold_insert(torch, "insert_nodes", cfg, field, hcand, hvalid, fi)
     cd2, _ = warpfield.mutual_nearest(hfield, hcand, hvalid)
     gate = hfield.count < n
     plan = warpfield.InsertPlan(*kernels.insert_select(hcand, cd2, hvalid, hfield.active, hfield.count, gate,
@@ -737,6 +767,32 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         library_ms=None,
     )
     del scratch, vk, vp, df
+
+
+def hold_insert(torch, name, cfg, field, cand, valid, fi, min_candidates=1):
+    """Kernel H's insertion of ``cand`` into ``field`` with half its slots
+    freed, held against the plain version (slots, active set and counts
+    equal, positions and dqs within TOL_FIELD, some nodes inserted).
+    Returns (the half-free field, exact, max float diff)."""
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    n = field.positions.shape[0]
+    act = field.active & (torch.arange(n, device=cand.device) % 2 == 0)
+    hfield = field._replace(active=act, count=act.sum(dtype=torch.int32))
+    hk = warpfield.insert_nodes(cfg, hfield, cand, valid, fi)
+    hp = warpfield.insert_nodes(cfg, hfield, cand, valid, fi, plain=True)
+    grew = int(hk.count) - int(hfield.count)
+    exact, err = True, 0.0
+    for a, b in zip(hk, hp):
+        if a.dtype == torch.float32:
+            err = max(err, abs_err(torch, a, b))
+        else:
+            exact = exact and torch.equal(a, b)
+    nc = cand.shape[0]
+    check(name, exact and err <= TOL_FIELD and grew > 0 and nc >= min_candidates,
+          f"{nc} candidates (need >= {min_candidates}), {n - int(hfield.count)} free slots: {grew} inserted; slots, "
+          f"active set, counts equal {exact}; max position/dq diff {err:.2e} (tol {TOL_FIELD})")
+    return hfield, exact, err
 
 
 def tangential_kernels(torch, report, dev, field, inputs):
@@ -1292,13 +1348,20 @@ def rigid_main(torch, args, dev, card):
     return launches
 
 
+def clone_state(st):
+    """A state whose volume the next step may update in place (every other
+    field the step makes anew)."""
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+
+    return st._replace(vol=TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone()))
+
+
 def drive_kernel_path(torch, cfg, dev, frames):
     """The kernel path over ``frames`` through ``DynamicFusion``: every
     launch counter reset just before and read just after, the steady
     frames under ``set_sync_debug_mode("error")``. Returns (the DynamicFusion,
     launches, per-frame output rows, frame ms, the state after each frame)."""
     from dynamicfusion_tpu_torch import kernels
-    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
     from dynamicfusion_tpu_torch.pipeline import kinfu
 
     df = kinfu.DynamicFusion(cfg, device=dev)
@@ -1317,10 +1380,8 @@ def drive_kernel_path(torch, cfg, dev, frames):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         if i > 0:
             outs.append(df.last_outputs)
-        # the state after this frame, for the plain step from it (the step
-        # updates the volume in place; every other field is made anew)
-        st = df.state
-        states.append(st._replace(vol=TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())))
+        # the state after this frame, for the plain step from it
+        states.append(clone_state(df.state))
     launches = dict(kernels.launches)
     rows = [dict(ok=bool(o.icp_ok), c0=float(o.solver_cost0), c1=float(o.solver_cost1), nodes=int(o.node_count),
                  bricks=o.brick_counts.tolist()) for o in outs]
@@ -1339,8 +1400,15 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
         print(f"[{tag}] frame {i:2d}: icp_ok {r['ok']}, solver_cost0 {r['c0']:.6e}, solver_cost1 {r['c1']:.6e}, "
               f"nodes {r['nodes']}, bricks (band, wide, dropped) {r['bricks']}")
     # the PCG launch does its own matvecs; the coarse band runs with model
-    # maps at the frame size only; the aperture gate with solver_p2p_adaptive
+    # maps at the frame size only; the aperture gate with solver_p2p_adaptive;
+    # the direct solve runs N, O and the factor in place of the PCG's; kernel
+    # J's march bands need the temporal band or a raycast seed
     off = {"matvec", "coarse_band"} | (set() if cfg.solver_p2p_adaptive else {"p2p_gate"})
+    off |= set(PCG_KERNELS if cfg.solver_linear == "direct" else DENSE_KERNELS)
+    if cfg.solver_linear == "direct" and not cfg.solver_jtj_int8:
+        off.add("gram_scales")
+    if not cfg.raycast_temporal_band and cfg.raycast_seed_margin <= 0.0:
+        off.add("march_bands")
     path = [k for k in kernels.KERNELS if k not in off]
     check(f"{tag}_launches", all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
     if cfg.solver_p2p_adaptive:
@@ -1682,6 +1750,296 @@ def fresh_main(torch, args, dev, card, nr_depths):
     check_steps_vs_plain(torch, "fresh", cfg, dev, frames, states, poses_k, rows)
 
 
+def dense_kernels(torch, report, dev, nr_depths):
+    """Phase 2 for kernels N, O, F's point-to-point rows and the factor on
+    the base config's state after three frames of the kernel path, the
+    next frame tracked (3 200 solve points, 6N = 6 144)."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = DynamicFusionConfig()
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    for d in nr_depths[:3]:
+        df(d)
+    st = df.state
+    field = st.warp
+    n = field.positions.shape[0]
+    tr = kinfu.track(cfg, st, torch.from_numpy(nr_depths[3]).to(dev))
+    s = ws.prepare(cfg, field, tr.inputs)
+    npt = s.p_can.shape[0]
+    ne = s.e_src.shape[0]
+    dt = ws.data_term(cfg, s, field.dq, True)
+    et = ws.edge_term(cfg, s, field.dq)
+    check("dense_state", bool(tr.icp_res.ok), f"base config: nodes {int(field.count)} of {n}, solve points P = {npt}, "
+          f"6N = {6 * n}, ICP ok on the next frame")
+    lists_b = (npt * 8 + n + 1) * 4
+    mat_b = (6 * n) ** 2 * 4
+    # rows, neighbour ids, node lists, edge blocks, dsts and lists, diagonal
+    # blocks in; the matrix out
+    gram_in = npt * (96 + 64) + lists_b + ne * (144 + 8 + 4) + (n + 1) * 4 + n * 144
+
+    # N, the int8 Gram (the base config's) and its column scales
+    a = ws.dense_rows(dt.rows, s.knn_idx, n)
+    ck = kernels.gram_scales(dt.rows, s.pts_by_node.order, s.pts_by_node.off)
+    cp = ws.gram_scales_plain(a)
+    check("gram_scales", torch.equal(ck, cp), f"{6 * n} column scales bit-equal to the plain version's")
+    report["gram_scales"] = dict(
+        err=abs_err(torch, ck, cp),
+        ms=cuda_ms(torch, lambda: kernels.gram_scales(dt.rows, s.pts_by_node.order, s.pts_by_node.off)),
+        plain_ms=cuda_ms(torch, lambda: ws.gram_scales_plain(ws.dense_rows(dt.rows, s.knn_idx, n)), reps=5),
+        bound=bound_ms(npt * 96 + lists_b + 6 * n * 4, npt * 8 * 6 * 2.0),
+        library_ms=cuda_ms(torch, lambda: torch.abs(a).amax(0)),
+    )
+    gk = ws.dense_gram(cfg, s, dt, et)
+    gp = ws.dense_gram(cfg, s, dt, et, plain=True)
+    same = torch.equal(gk, gp)
+    check("dense_gram", same, f"({6 * n})^2 int8 Gram plus the edge blocks, {npt} x 1 rows: bit-equal to the plain "
+          f"version {same} (max |diff| {abs_err(torch, gk, gp):.3e})")
+    q = torch.clamp(torch.round(a / cp), -127.0, 127.0).to(torch.int8)
+    qt = q.T.contiguous()
+    products = npt * 8 * 288 * dt.rows.shape[1]  # each entry's (k, a, b) products over its rows
+    report["dense_gram"] = dict(
+        err=abs_err(torch, gk, gp),
+        ms=cuda_ms(torch, lambda: ws.dense_gram(cfg, s, dt, et), reps=10),
+        plain_ms=cuda_ms(torch, lambda: ws.dense_gram(cfg, s, dt, et, plain=True), reps=3),
+        bound=bound_ms(gram_in + mat_b, 2.0 * products, PEAK_INT8),
+        # JAX's syrk itself on the expanded int8 rows (the scales and the
+        # edge blocks not included)
+        library_ms=cuda_ms(torch, lambda: torch._int_mm(qt, qt.T), reps=10),
+    )
+    del q, qt
+    cfg16 = dataclasses.replace(cfg, solver_jtj_int8=False)
+    bk = ws.dense_gram(cfg16, s, dt, et)
+    bp = ws.dense_gram(cfg16, s, dt, et, plain=True)
+    err = rel_err(torch, bk, bp)
+    check("dense_gram_bf16", err <= TOL_GRAM_BF16_REL,
+          f"({6 * n})^2 bf16 Gram plus the edge blocks: max relative diff {err:.2e} (tol {TOL_GRAM_BF16_REL})")
+    ab = a.to(torch.bfloat16)
+    report["dense_gram_bf16"] = dict(
+        err=abs_err(torch, bk, bp),
+        ms=cuda_ms(torch, lambda: ws.dense_gram(cfg16, s, dt, et), reps=10),
+        plain_ms=cuda_ms(torch, lambda: ws.dense_gram(cfg16, s, dt, et, plain=True), reps=3),
+        bound=bound_ms(gram_in + mat_b, 2.0 * products, PEAK_BF16),
+        library_ms=cuda_ms(torch, lambda: torch.matmul(ab.T, ab), reps=10),
+    )
+    del bk, bp, ab, a
+
+    # O, the damping at the solve's first lambda
+    lam = torch.full((), cfg.solver_lm_lambda_init, device=dev)
+    floor = cfg.solver_damping_floor
+    ok_ = ws.dense_damp(gk, lam, field.active, floor)
+    op_ = ws.dense_damp(gk, lam, field.active, floor, plain=True)
+    off = ~torch.eye(6 * n, dtype=torch.bool, device=dev)
+    off_same = torch.equal(ok_[off], op_[off])
+    err = rel_err(torch, ok_.diagonal(), op_.diagonal())
+    del off
+    check("dense_damp", off_same and err <= TOL_DAMP_REL,
+          f"({6 * n})^2 damped: off the diagonal bit-equal {off_same}; diagonal max relative diff {err:.2e} "
+          f"(tol {TOL_DAMP_REL})")
+    report["dense_damp"] = dict(
+        err=abs_err(torch, ok_, op_),
+        ms=cuda_ms(torch, lambda: ws.dense_damp(gk, lam, field.active, floor)),
+        plain_ms=cuda_ms(torch, lambda: ws.dense_damp(gk, lam, field.active, floor, plain=True)),
+        bound=bound_ms(2 * mat_b + n + 4, 6 * n * 6.0),
+        library_ms=None,
+    )
+    del op_
+
+    # the factor: cuSOLVER through cholesky_ex, NaN where not positive definite
+    chol = ws.cholesky(ok_)
+    info = int(torch.linalg.cholesky_ex(ok_, check_errors=False)[1])
+    same = torch.equal(torch.nan_to_num(chol, nan=7.0), torch.nan_to_num(ws.cholesky(ok_, plain=True), nan=7.0))
+    bad = ok_.clone()
+    bad[5, 5] = -1.0
+    nan_bad = not bool(torch.isfinite(ws.cholesky(bad)).any())
+    del bad
+    step = ws.chol_step(chol, dt.jtr + et.jtr)
+    check("cholesky", same and nan_bad and (info != 0 or bool(torch.isfinite(step).all())),
+          f"6N = {6 * n}: info {info}; the wrapper's factor equals the plain call's {same}; a matrix that is not "
+          f"positive definite gives an all-NaN factor {nan_bad}; the step finite where info is 0")
+    dof = 6 * n
+    report["cholesky"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: ws.cholesky(ok_), reps=10),
+        plain_ms=cuda_ms(torch, lambda: ws.cholesky(ok_, plain=True), reps=10),
+        # n^3 / 3 float32 operations (cuSOLVER's potrf, no tensor cores)
+        bound=bound_ms(2 * mat_b, dof ** 3 / 3.0),
+        library_ms=cuda_ms(torch, lambda: torch.linalg.cholesky_ex(ok_, check_errors=False), reps=10),
+        solve_ms=cuda_ms(torch, lambda: ws.chol_step(chol, dt.jtr + et.jtr), reps=10),
+        info=info,
+    )
+    print(f"[info] the factor at 6N = {dof}: {report['cholesky']['ms']:.3f} ms, info {info}; its solve "
+          f"{report['cholesky']['solve_ms']:.3f} ms", flush=True)
+    del ok_, chol, gk, gp
+
+    # F with the point-to-point rows (point_to_plane=False)
+    cfg_p = dataclasses.replace(cfg, point_to_plane=False)
+    sp = ws.prepare(cfg_p, field, tr.inputs)
+    dk = ws.data_term(cfg_p, sp, field.dq, True)
+    dp = ws.data_term(cfg_p, sp, field.dq, True, plain=True)
+    errs = [rel_err(torch, dk.jtr, dp.jtr), rel_err(torch, dk.blocks, dp.blocks), rel_err(torch, dk.cost, dp.cost)]
+    check("data_term_p2p", max(errs) <= TOL_DATA_REL and tuple(dk.rows.shape) == (npt, 3, 8, 6),
+          f"{npt} points x 3 point-to-point rows: relative diff Jᵀr {errs[0]:.2e}, blocks {errs[1]:.2e}, cost "
+          f"{errs[2]:.2e} (tol {TOL_DATA_REL}); rows {tuple(dk.rows.shape)}")
+    report["data_term_p2p"] = dict(
+        err=max(abs_err(torch, dk.jtr, dp.jtr), abs_err(torch, dk.blocks, dp.blocks)),
+        ms=cuda_ms(torch, lambda: ws.data_term(cfg_p, sp, field.dq, True)),
+        plain_ms=cuda_ms(torch, lambda: ws.data_term(cfg_p, sp, field.dq, True, plain=True), reps=3),
+        # as the tangential rows' without the basis and weight
+        bound=bound_ms(npt * (36 + 1 + 64 + 32) + n * 32 + lists_b + npt * 3 * 96 + n * 144 + n * 24 + 4,
+                       npt * 3 * 1500.0 + npt * 8 * 3 * 48.0),
+        library_ms=None,
+    )
+    del df
+
+
+def base_main(torch, args, dev, card, nr_depths):
+    """Phase 9: the base ``DynamicFusionConfig()`` non-rigid (the direct
+    solve: kernels N and O, cuSOLVER's factor, the lagged JᵀJ with one
+    factor reused; secant refine, fusion every 2nd frame without the
+    incidence weight, no temporal band) over ``bench.py``'s deforming
+    scene: the preset's checks, the plain step from each state, a profile
+    of 3 more frames. Returns (launches, the states after each frame)."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+
+    cfg = DynamicFusionConfig()
+    frames = nr_depths[: args.d_frames]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    check_nonrigid_run("base", card, cfg, frames, launches, rows, frame_ms, poses_k)
+    steps = len(frames) - 1
+    check("base_dense_launches", launches["cholesky"] == steps * cfg.solver_nonlinear_iters
+          and launches["dense_gram"] == steps and launches["dense_damp"] == launches["cholesky"],
+          f"one Gram a step ({launches['dense_gram']}), a damping and a factor every LM iteration "
+          f"({launches['dense_damp']}, {launches['cholesky']}) in {steps} steps")
+    check_steps_vs_plain(torch, "base", cfg, dev, frames, states, poses_k, rows)
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    mp = df.last_outputs.model_points
+    check("base_model_maps", tuple(mp.shape) == (rows_t, cols_t, 3) and bool(torch.isfinite(mp).any()),
+          f"warped model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
+    prof = profile_frames(torch, args, dev, card, df, nr_depths[args.d_frames: args.d_frames + 3], tag="base",
+                          focus=("dense_gram", "damp_", "potrf", "trsm", "trsv"))
+    per = {k: launches[k] / steps for k in ("gram_scales", "dense_gram", "dense_damp", "cholesky")}
+    steady = sorted(frame_ms[2:])
+    print(f"[base] {card} | frame ms median {steady[len(steady) // 2]:.3f}; device busy "
+          f"{prof['busy_ms'] / prof['wall_ms']:.3f}, idle {1.0 - prof['busy_ms'] / prof['wall_ms']:.3f} of 3 profiled "
+          f"frames; {prof['launches'] / 3:.0f} kernel launches a frame; a step: N {per['dense_gram']:.1f} "
+          f"(+ {per['gram_scales']:.1f} scale passes), O {per['dense_damp']:.1f}, factor {per['cholesky']:.1f}",
+          flush=True)
+    del df
+    return launches, states
+
+
+def variants_main(torch, args, dev, card, nr_depths, base_states):
+    """Phase 10: the base config's dense variants (the bf16 Gram, the
+    unlagged JᵀJ, the point-to-point term), three steps each from the base
+    config's state after frame 3, each step held against the plain step
+    from the same state. Returns each variant's launches."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    out = {}
+    for name, changes in VARIANTS:
+        cfg = dataclasses.replace(DynamicFusionConfig(), **changes)
+        st = clone_state(base_states[3])
+        kernels.reset_launches()
+        t_err, c_err, same, ms = [], [], True, []
+        for f in range(4, 7):
+            depth = torch.from_numpy(nr_depths[f]).to(dev)
+            before = clone_state(st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, o = kinfu.step(cfg, st, depth)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            _, op = kinfu.step(cfg, before, depth, plain=True)
+            pk, pp = o.pose.cpu().numpy(), op.pose.cpu().numpy()
+            t_err.append(max(float(np.abs(pk[:3, 3] - pp[:3, 3]).max()), float(np.abs(pk[:3, :3] - pp[:3, :3]).max())))
+            c_err.append(abs(float(op.solver_cost0) - float(o.solver_cost0)) / float(o.solver_cost0))
+            same = same and bool(o.icp_ok) == bool(op.icp_ok) and bool(o.icp_ok) and int(o.node_count) == int(
+                op.node_count) and float(o.solver_cost1) <= float(o.solver_cost0)
+        out[name] = dict(kernels.launches)
+        print(f"[variant] {name} {changes}: 3 steps, ms {' '.join(f'{v:.3f}' for v in ms)}; launches N "
+              f"{out[name]['dense_gram']}, O {out[name]['dense_damp']}, factor {out[name]['cholesky']}, F "
+              f"{out[name]['data_term']}", flush=True)
+        check(f"variant_{name}_step_vs_plain",
+              same and max(t_err) <= TOL_STEP_POSE and max(c_err) <= TOL_STEP_COST0_REL
+              and out[name]["dense_gram"] > 0 and out[name]["cholesky"] > 0,
+              f"ICP healthy, node counts equal, cost not raised {same}; plain step pose diff "
+              f"{' '.join(f'{v:.2e}' for v in t_err)} (tol {TOL_STEP_POSE}), initial cost relative "
+              f"{' '.join(f'{v:.2e}' for v in c_err)} (tol {TOL_STEP_COST0_REL}); N and the factor launched")
+    return out
+
+
+def parity_nonrigid_main(torch, args, dev, card, nr_depths, report):
+    """Phase 11: ``reference_parity()`` non-rigid (maps at 640x480, 12 800
+    solve points after the stride, node radius 3, Tukey c 0.01, ARAP 200,
+    fusion every frame) over 5 frames of the deforming scene. Known
+    unstable as a running configuration (the JAX package's config.py), so
+    only the plain step from each kernel-path state is checked; printed a
+    frame: P, the factor's time and whether it succeeded (info). Kernel
+    H is held at this path's 19 200 insertion candidates (its sort keys in
+    device memory). Returns the path's launches."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.models import warpfield
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = DynamicFusionConfig.reference_parity()
+    frames = nr_depths[: args.r_frames]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    del df
+
+    # H: the first step's candidates into the frame-0 field, past the
+    # 16 384 whose sort keys fit in shared memory
+    tr = kinfu.track(cfg, states[0], torch.from_numpy(frames[1]).to(dev))
+    cand = tr.inputs.p_can[:: cfg.node_insert_stride].contiguous()
+    valid = ~torch.isnan(cand[:, 0])
+    n = states[0].warp.positions.shape[0]
+    nc = cand.shape[0]
+    hfield, exact, _ = hold_insert(torch, "insert_nodes_full_res", cfg, states[0].warp, cand, valid,
+                                   states[0].frame_idx, min_candidates=16385)
+    cd2, _ = warpfield.mutual_nearest(hfield, cand, valid)
+    gate = hfield.count < n
+    np2 = 1 << (nc - 1).bit_length()
+    sort_ops = 2 * (np2 // 2) * int(math.log2(np2)) * (int(math.log2(np2)) + 1) // 2
+    report["insert_select_full_res"] = dict(
+        err=0.0 if exact else 1.0,
+        ms=cuda_ms(torch, lambda: kernels.insert_select(cand, cd2, valid, hfield.active, hfield.count, gate,
+                                                        cfg.node_coverage)),
+        plain_ms=cuda_ms(torch, lambda: warpfield._insert_select_plain(cfg, hfield, cand, valid, cd2, gate), reps=5),
+        bound=bound_ms(nc * 17 + n + 5 + n * 20, float(sort_ops + nc * 12)),
+        library_ms=None,
+    )
+    del tr
+    for i, r in enumerate(rows, start=1):
+        tr = kinfu.track(cfg, states[i - 1], torch.from_numpy(frames[i]).to(dev))
+        s = ws.prepare(cfg, states[i - 1].warp, tr.inputs)
+        dt = ws.data_term(cfg, s, states[i - 1].warp.dq, True)
+        et = ws.edge_term(cfg, s, states[i - 1].warp.dq)
+        damped = ws.dense_damp(ws.dense_gram(cfg, s, dt, et), torch.full((), cfg.solver_lm_lambda_init, device=dev),
+                               states[i - 1].warp.active, cfg.solver_damping_floor)
+        f_ms = cuda_ms(torch, lambda: torch.linalg.cholesky_ex(damped, check_errors=False), reps=3, warmup=1)
+        info = int(torch.linalg.cholesky_ex(damped, check_errors=False)[1])
+        print(f"[parity-nr] frame {i}: icp_ok {r['ok']}, P = {s.p_can.shape[0]}, solver_cost0 {r['c0']:.6e}, "
+              f"solver_cost1 {r['c1']:.6e}, nodes {r['nodes']}, factor {f_ms:.3f} ms at the first lambda, info {info}, "
+              f"frame {frame_ms[i]:.3f} ms", flush=True)
+        del damped
+    check("parity_nr_launches", all(launches[k] > 0 for k in DENSE_KERNELS) and launches["coarse_band"] > 0,
+          f"N, O, the factor and the coarse band launched: {launches}")
+    check_steps_vs_plain(torch, "parity_nr", cfg, dev, frames, states, poses_k, rows)
+    return launches
+
+
 def perturbed_run(torch, kinfu, cfg, dev, frames, seed):
     """Poses of the kernel path with its frame-0 node positions moved by
     1e-7 relative (seeded)."""
@@ -1705,7 +2063,7 @@ def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid", focus=())
 
     from torch.profiler import ProfilerActivity, profile
 
-    out = Path(args.profile)
+    out = Path(args.profile or "build/profile")
     out.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1730,6 +2088,7 @@ def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid", focus=())
     print(f"[profile] {card} | {len(depths)} {tag} frames: wall {wall_ms:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"idle share {1.0 - busy / 1e3 / wall_ms:.3f}; {len(spans)} device ops, {launches} kernel launches, "
           f"{syncs} synchronize calls -> {out}/{tag}_profile.txt", flush=True)
+    result = dict(wall_ms=wall_ms, busy_ms=busy / 1e3, launches=launches)
     by_name = {}
     for e in events:
         if e.get("cat") == "kernel" and "dur" in e:
@@ -1739,6 +2098,7 @@ def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid", focus=())
     top += [kv for kv in by_name.items() if any(f in kv[0] for f in focus) and kv not in top]
     for name, (n, us) in top:
         print(f"[profile] {tag}: {name[:90]}: {us / 1e3:.3f} ms in {n} launches, {us / busy:.3f} of device busy")
+    return result
 
 
 def main() -> int:
@@ -1749,6 +2109,8 @@ def main() -> int:
     ap.add_argument("--a-frames", type=int, default=20,
                     help="hinge frames of the quality preset with the aperture gate")
     ap.add_argument("--p-frames", type=int, default=15, help="frames of reference_parity() rigid at 640x480")
+    ap.add_argument("--d-frames", type=int, default=20, help="frames of the base DynamicFusionConfig() non-rigid")
+    ap.add_argument("--r-frames", type=int, default=5, help="frames of reference_parity() non-rigid")
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of 3 frames of each non-rigid preset and of the reference-"
                          "resolution rigid path here")
@@ -1786,12 +2148,14 @@ def main() -> int:
 
     # ---------------- 2. kernels vs plain ----------------
     nr = DynamicFusionConfig.default_dynamicfusion()
-    n_prof = 3 if args.profile else 0
-    nr_depths = synthetic.deforming_frames(nr.intr, nr.rows, nr.cols, max(args.nr_frames, 4) + n_prof)
+    # the deforming scene's frames, and 3 more after the longest run for the profiles
+    n_depths = max(args.nr_frames, args.d_frames, args.r_frames, 7) + 3
+    nr_depths = synthetic.deforming_frames(nr.intr, nr.rows, nr.cols, n_depths)
     report = {}
     rigid_kernels(torch, args, report, dev, card)
     nonrigid_kernels(torch, args, report, dev, nr_depths)
     extract_kernels(torch, report, dev, nr_depths)
+    dense_kernels(torch, report, dev, nr_depths)
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---------------- 3. the rigid main path ----------------
@@ -1802,7 +2166,7 @@ def main() -> int:
     nr_launches, df = nonrigid_main(torch, args, dev, card, nr_depths)
     print(f"[phase] non-rigid path done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.profile:
-        profile_frames(torch, args, dev, card, df, nr_depths[args.nr_frames:])
+        profile_frames(torch, args, dev, card, df, nr_depths[args.nr_frames: args.nr_frames + 3])
     del df
 
     # ---------------- 5. the quality preset ----------------
@@ -1821,16 +2185,30 @@ def main() -> int:
     fresh_main(torch, args, dev, card, nr_depths)
     print(f"[phase] fresh-raycast steps done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---------------- 9. report ----------------
+    # ---------------- 9. the base config: the direct solve ----------------
+    base_launches, base_states = base_main(torch, args, dev, card, nr_depths)
+    print(f"[phase] base-config path done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 10. its dense variants ----------------
+    v_launches = variants_main(torch, args, dev, card, nr_depths, base_states)
+    del base_states
+    print(f"[phase] dense variants done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 11. reference_parity() non-rigid ----------------
+    pnr_launches = parity_nonrigid_main(torch, args, dev, card, nr_depths, report)
+    print(f"[phase] reference-parity non-rigid steps done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 12. report ----------------
     runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches,
-            "adaptive": a_launches, "parity_rigid": p_launches, "render": r_launches}
+            "adaptive": a_launches, "parity_rigid": p_launches, "render": r_launches, "base": base_launches,
+            "base_bf16": v_launches["bf16"], "base_p2p": v_launches["p2p"], "parity_nr": pnr_launches}
     rows_out = []
     for name, (src, rep) in ROWS.items():
         r = report[name]
         path = PATH.get(name, "nonrigid")
         n_launch = runs[path][COUNTER.get(name, name)]
         rows_out.append(dict(
-            name=name, route="cuda", source=f"dynamicfusion_tpu_torch/csrc/{src}", replaces=rep,
+            name=name, route="cuda", source=src if "/" in src else f"dynamicfusion_tpu_torch/csrc/{src}", replaces=rep,
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"], path=path,
         ))

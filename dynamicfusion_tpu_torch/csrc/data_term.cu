@@ -1,9 +1,10 @@
 // Kernel F: the warp solver's data term at eps = 0, point-to-plane (one
-// residual row) or with the tangential point terms (three rows).
+// residual row), with the tangential point terms (three rows) or
+// point-to-point (three rows).
 //
 // Replaces dynamicfusion_tpu/solvers/warp_solver.py:299
-// data_residual_and_jac (vmap(jacrev) of the residual :82 or :88 with
-// :122 tangent_basis), :403 data_grad_cost and :545 data_jtr with :391
+// data_residual_and_jac (vmap(jacrev) of the residual :82, :88 with
+// :122 tangent_basis, or :76), :403 data_grad_cost and :545 data_jtr with :391
 // _scatter_jtr (bf16 hi+lo one-hot matmuls), and the rows and blocks_d of
 // the factored system_fn (:1049-1089, one-hot einsums on the MXU).
 //
@@ -19,7 +20,8 @@
 // W(p) - l, sw a per-point weight), the Tukey weight and cost on their
 // joint norm, and the closed-form Jacobian: each row's g (1x8), the
 // gradient of u·transform(normalize(b)) at the blend b along its direction
-// u = n, sw t1 or sw t2 (dq.cuh grad_blend_transform; one gradient for the
+// u = n, sw t1 or sw t2, or for the point-to-point rows [d.x, d.y, d.z]
+// the world axes (dq.cuh grad_blend_transform; one gradient for the
 // point-to-plane term, as before the tangential rows); jac_k = w_k s_k g M(dq_k),
 // M(dq_k) the fixed 8x6 derivative of from_twist(eps) ⊗ dq_k at eps = 0
 // (dq.cuh twist_row). Pass 2, one thread per node: Jᵀr and (for the
@@ -38,7 +40,7 @@ namespace {
 constexpr int kK = 8;
 constexpr int kThreads = 128;
 
-template <int R>
+template <int R, bool kPoint>
 __global__ void __launch_bounds__(kThreads)
 data_points_kernel(const float* __restrict__ p_can, const float* __restrict__ p_live,
                    const float* __restrict__ n_live, const float* __restrict__ t1v, const float* __restrict__ t2v,
@@ -66,12 +68,23 @@ data_points_kernel(const float* __restrict__ p_can, const float* __restrict__ p_
   const dfk::Vec3 l = {p_live[3 * i], p_live[3 * i + 1], p_live[3 * i + 2]};
   const dfk::Vec3 y = dfk::dq_transform(dfk::dq_normalize(b), p);
   const dfk::Vec3 d = {y.x - l.x, y.y - l.y, y.z - l.z};
-  // the rows' directions and residuals: n, then sw t1 and sw t2
+  // the rows' directions and residuals: n, then sw t1 and sw t2; or the
+  // axes and d itself
   dfk::Vec3 dir[R];
   float res[R];
-  dir[0] = {n_live[3 * i], n_live[3 * i + 1], n_live[3 * i + 2]};
-  res[0] = dfk::dot3(dir[0], d);
-  if constexpr (R == 3) {
+  if constexpr (kPoint) {
+    static_assert(R == 3, "point-to-point has three rows");
+    dir[0] = {1.0f, 0.0f, 0.0f};
+    dir[1] = {0.0f, 1.0f, 0.0f};
+    dir[2] = {0.0f, 0.0f, 1.0f};
+    res[0] = d.x;
+    res[1] = d.y;
+    res[2] = d.z;
+  } else {
+    dir[0] = {n_live[3 * i], n_live[3 * i + 1], n_live[3 * i + 2]};
+    res[0] = dfk::dot3(dir[0], d);
+  }
+  if constexpr (R == 3 && !kPoint) {
     const float sw = psw[i];
     const dfk::Vec3 t1 = {t1v[3 * i], t1v[3 * i + 1], t1v[3 * i + 2]};
     const dfk::Vec3 t2 = {t2v[3 * i], t2v[3 * i + 1], t2v[3 * i + 2]};
@@ -182,13 +195,13 @@ data_nodes_kernel(const float* __restrict__ jac, const float* __restrict__ rw, c
   }
 }
 
-template <int R>
+template <int R, bool kPoint>
 cudaError_t launch(const void* p_can, const void* p_live, const void* n_live, const void* t1, const void* t2,
                    const void* sw, const void* valid, const void* knn_idx, const void* w_knn, const void* dqs, int np,
                    int n, const void* order, const void* off, float c, float cc6, void* jac, void* rows, void* rw,
                    void* rho_v, void* jtr, void* blocks, cudaStream_t s) {
   if (np > 0) {
-    data_points_kernel<R><<<(np + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+    data_points_kernel<R, kPoint><<<(np + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         static_cast<const float*>(p_can), static_cast<const float*>(p_live), static_cast<const float*>(n_live),
         static_cast<const float*>(t1), static_cast<const float*>(t2), static_cast<const float*>(sw),
         static_cast<const bool*>(valid), static_cast<const int64_t*>(knn_idx), static_cast<const float*>(w_knn),
@@ -205,20 +218,26 @@ cudaError_t launch(const void* p_can, const void* p_live, const void* n_live, co
 
 }  // namespace
 
-// nrows 1: point-to-plane (t1, t2, sw unused); 3: with the tangential rows
+// nrows 1: point-to-plane (t1, t2, sw unused); 3: with the tangential rows,
+// or with ``point`` the point-to-point rows (n_live, t1, t2, sw unused)
 extern "C" int df_data_term(const void* p_can, const void* p_live, const void* n_live, const void* t1,
                             const void* t2, const void* sw, const void* valid, const void* knn_idx, const void* w_knn,
-                            const void* dqs, int np, int n, int nrows, const void* order, const void* off, float c,
-                            float cc6, void* jac, void* rows, void* rw, void* rho_v, void* jtr, void* blocks,
+                            const void* dqs, int np, int n, int nrows, int point, const void* order, const void* off,
+                            float c, float cc6, void* jac, void* rows, void* rw, void* rho_v, void* jtr, void* blocks,
                             void* cost, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (nrows == 1) {
-    err = launch<1>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c, cc6, jac,
-                    rows, rw, rho_v, jtr, blocks, s);
+  if (point && nrows == 3) {
+    err = launch<3, true>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c, cc6,
+                          jac, rows, rw, rho_v, jtr, blocks, s);
+  } else if (point) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (nrows == 1) {
+    err = launch<1, false>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c,
+                           cc6, jac, rows, rw, rho_v, jtr, blocks, s);
   } else if (nrows == 3) {
-    err = launch<3>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c, cc6, jac,
-                    rows, rw, rho_v, jtr, blocks, s);
+    err = launch<3, false>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c,
+                           cc6, jac, rows, rw, rho_v, jtr, blocks, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

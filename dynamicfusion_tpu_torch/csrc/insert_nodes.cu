@@ -12,7 +12,10 @@
 // call sorts 4 800 candidates twice (64 KB of keys) and writes at most 1 024
 // nodes: ~0.2 MB and a few hundred thousand compare-exchanges, single
 // microseconds of work.
-// Design: one block of 1024 threads, everything in shared memory. Pass 1
+// Design: one block of 1024 threads, everything in shared memory up to
+// 16 384 candidates; above that (the 19 200 of reference_parity()'s
+// 640x480 maps) the sort keys live in a device-memory scratch the wrapper
+// allocates, the rest stays in shared memory. Pass 1
 // (select): each candidate becomes a 64-bit key (cell id in the order of
 // its int32 value, then the candidate index) and a bitonic sort orders
 // them: the lowest index of each cell comes first, as with the stable
@@ -71,9 +74,12 @@ __global__ void __launch_bounds__(kBlock)
 insert_select_kernel(const float* __restrict__ cand, const float* __restrict__ cand_d2,
                      const bool* __restrict__ valid, int nc, int np2, const bool* __restrict__ active,
                      const int* __restrict__ count, const bool* __restrict__ gate, int cap, float cov,
-                     float cov2, int64_t* __restrict__ slots, float* __restrict__ new_pos) {
-  extern __shared__ unsigned long long keys[];                     // np2
-  unsigned char* keep = reinterpret_cast<unsigned char*>(keys + np2);  // np2
+                     float cov2, int64_t* __restrict__ slots, float* __restrict__ new_pos,
+                     unsigned long long* __restrict__ gkeys) {
+  extern __shared__ unsigned long long smem[];
+  // np2 keys in shared memory, or in the device-memory scratch gkeys
+  unsigned long long* keys = gkeys != nullptr ? gkeys : smem;
+  unsigned char* keep = reinterpret_cast<unsigned char*>(gkeys != nullptr ? smem : smem + np2);  // np2
   int* free_idx = reinterpret_cast<int*>(keep + np2);                // cap
   int* scan = free_idx + cap;                                        // blockDim
   // 1. decimation: lowest candidate index of each coverage cell
@@ -158,17 +164,19 @@ insert_apply_kernel(float* __restrict__ pos, float* __restrict__ dq, float* __re
 
 }  // namespace
 
+// gkeys: null (the keys in shared memory) or a (np2,) 64-bit device scratch
 extern "C" int df_insert_select(const void* cand, const void* cand_d2, const void* valid, int nc, int np2,
                                 const void* active, const void* count, const void* gate, int cap, float cov,
-                                float cov2, void* slots, void* new_pos, void* stream) {
-  const size_t smem = static_cast<size_t>(np2) * 9 + static_cast<size_t>(cap) * 4 + kBlock * 4;
+                                float cov2, void* slots, void* new_pos, void* gkeys, void* stream) {
+  const size_t key_bytes = gkeys != nullptr ? 0 : static_cast<size_t>(np2) * 8;
+  const size_t smem = key_bytes + static_cast<size_t>(np2) + static_cast<size_t>(cap) * 4 + kBlock * 4;
   cudaError_t err = cudaFuncSetAttribute(insert_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   insert_select_kernel<<<1, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cand), static_cast<const float*>(cand_d2), static_cast<const bool*>(valid), nc, np2,
       static_cast<const bool*>(active), static_cast<const int*>(count), static_cast<const bool*>(gate), cap, cov,
-      cov2, static_cast<int64_t*>(slots), static_cast<float*>(new_pos));
+      cov2, static_cast<int64_t*>(slots), static_cast<float*>(new_pos), static_cast<unsigned long long*>(gkeys));
   return static_cast<int>(cudaGetLastError());
 }
 

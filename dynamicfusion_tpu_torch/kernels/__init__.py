@@ -34,7 +34,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = (
     "bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu",
     "knn_blend.cu", "data_term.cu", "pcg.cu", "insert_nodes.cu",
-    "preprocess.cu", "bands.cu", "classify.cu", "extract.cu", "p2p_gate.cu",
+    "preprocess.cu", "bands.cu", "classify.cu", "extract.cu", "p2p_gate.cu", "dense_system.cu",
 )
 HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh")
 NVCC_FLAGS = (
@@ -49,13 +49,15 @@ NVCC_FLAGS = (
 # one launch counter per wrapper; a wrapper's kernel is the letter in its
 # docstring (A-D the rigid slice, E-H the non-rigid one, I-K the per-frame
 # stencils and the brick plan, L frame 0's extraction and node sampling, M
-# the aperture gate)
+# the aperture gate, N and O the dense normal equations and their damping
+# of the direct solve); ``cholesky`` counts the direct solve's factor, a
+# cuSOLVER call, as the JAX package's is its library's
 KERNELS = (
     "bilateral", "icp_reduce", "raycast", "fuse_bricks",
     "knn_blend", "mutual_nearest", "warp_trilinear", "data_term",
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
     "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "coarse_band", "brick_plan",
-    "extract_cloud", "sample_nodes", "p2p_gate",
+    "extract_cloud", "sample_nodes", "p2p_gate", "gram_scales", "dense_gram", "dense_damp", "cholesky",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -78,13 +80,13 @@ _SIGNATURES = {
     "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
     "df_warp_trilinear": (_P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
     "df_data_term": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     "df_edge_term": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "df_spd6_inv": (_P, _I, _P, _P),
     "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "df_pcg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
-    "df_insert_select": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P),
+    "df_insert_select": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P),
     "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P),
     "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
     "df_pyramid_down": (_P, _I, _I, _F, _P, _P),
@@ -99,6 +101,9 @@ _SIGNATURES = {
     "df_extract_cloud": (_P, _P, _I, _F, _F, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P, _P),
     "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
     "df_p2p_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
+    "df_gram_scales": (_P, _I, _P, _P, _I, _P, _P),
+    "df_dense_gram": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "df_dense_damp": (_P, _P, _P, _I, _F, _P, _P, _P),
 }
 
 
@@ -513,19 +518,21 @@ def _check_lists(order, off, m: int, n: int) -> None:
 
 
 def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tukey_c: float, system: bool,
-              t1=None, t2=None, sw=None):
+              t1=None, t2=None, sw=None, point: bool = False):
     """Kernel F (csrc/data_term.cu): (Jᵀr (6N,), cost (), bf16 rows
     (P, R, 8, 6) | None, diagonal blocks (N, 6, 6) | None) of the Tukey-
     weighted data term at eps = 0; the rows and blocks only with
     ``system``. R = 1, point-to-plane; with the tangent basis ``t1``, ``t2``
     (P, 3) and the per-point weight ``sw`` (P,), R = 3: [n·d, sw t1·d,
-    sw t2·d]."""
+    sw t2·d]; with ``point``, R = 3: d = warp(p_can) - p_live itself."""
     np_ = _check_points(p_can, "p_can")
     for t, nm in ((p_live, "p_live"), (n_live, "n_live")):
         _check(t, nm, torch.float32, (np_, 3))
     tangential = t1 is not None
     if tangential != (t2 is not None) or tangential != (sw is not None):
         raise ValueError("the tangential rows need t1, t2 and sw together")
+    if tangential and point:
+        raise ValueError("the point-to-point rows take no tangent basis")
     if tangential:
         _check(t1, "t1", torch.float32, (np_, 3))
         _check(t2, "t2", torch.float32, (np_, 3))
@@ -541,7 +548,7 @@ def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tuk
     _same_device(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, *((t1, t2, sw) if tangential else ()))
     lib = load()
     dev = dqs.device
-    nr = 3 if tangential else 1
+    nr = 3 if tangential or point else 1
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     jac = torch.empty((np_, nr, 8, 6), dtype=torch.float32, device=dev)
     rows = torch.empty((np_, nr, 8, 6), dtype=torch.bfloat16, device=dev) if system else None
@@ -552,7 +559,7 @@ def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tuk
     cost = torch.empty((), dtype=torch.float32, device=dev)
     rc = lib.df_data_term(
         p_can.data_ptr(), p_live.data_ptr(), n_live.data_ptr(), ptr(t1), ptr(t2), ptr(sw), valid.data_ptr(),
-        knn_idx.data_ptr(), w_knn.data_ptr(), dqs.data_ptr(), np_, n, nr, order.data_ptr(), off.data_ptr(),
+        knn_idx.data_ptr(), w_knn.data_ptr(), dqs.data_ptr(), np_, n, nr, int(point), order.data_ptr(), off.data_ptr(),
         _f32(tukey_c), _f32(tukey_c * tukey_c / 6.0), jac.data_ptr(), ptr(rows), rw.data_ptr(), rho.data_ptr(),
         jtr.data_ptr(), ptr(blocks), cost.data_ptr(), _stream(dev),
     )
@@ -690,16 +697,116 @@ def pcg(s: FactoredSystem, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol
 
 
 # --------------------------------------------------------------------------
+# kernels N and O: the dense normal equations and their damping; the factor
+# --------------------------------------------------------------------------
+
+
+def gram_scales(rows: torch.Tensor, order: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """Kernel N's scale entry (csrc/dense_system.cu): the (6N,) int8 column
+    scales max(max |row|, 1e-12) / 127 of the bf16 (P, R, 8, 6) rows, over
+    each node's (point, neighbour) entries (``order``, ``off``)."""
+    _check(rows, "rows", torch.bfloat16)
+    if rows.dim() != 4 or rows.shape[1] not in (1, 3) or rows.shape[2:] != (8, 6):
+        raise ValueError(f"rows: expected (P, 1 or 3, 8, 6), got {tuple(rows.shape)}")
+    n = off.shape[0] - 1
+    _check_lists(order, off, rows.shape[0] * 8, n)
+    _same_device(rows, order, off)
+    lib = load()
+    scale = torch.empty((6 * n,), dtype=torch.float32, device=rows.device)
+    rc = lib.df_gram_scales(rows.data_ptr(), rows.shape[1], order.data_ptr(), off.data_ptr(), n, scale.data_ptr(),
+                            _stream(rows.device))
+    _done("gram_scales", rc)
+    return scale
+
+
+def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int8: bool) -> torch.Tensor:
+    """Kernel N (csrc/dense_system.cu): the dense (6N, 6N) float32 normal
+    equations, the data Gram of the bf16 rows (int8 with ``gram_scales``'
+    column scales and exact int32 sums, or the bf16 rows' float32 sums in
+    each node's entry order) plus the ARAP blocks ``h_ij`` (E, 6, 6) placed
+    at (src, dst) and transposed at (dst, src) and the diagonal blocks
+    ``diag`` (N, 6, 6). Edge e's source node must be e // (E / N)."""
+    _check(rows, "rows", torch.bfloat16)
+    if rows.dim() != 4 or rows.shape[1] not in (1, 3) or rows.shape[2:] != (8, 6):
+        raise ValueError(f"rows: expected (P, 1 or 3, 8, 6), got {tuple(rows.shape)}")
+    np_ = rows.shape[0]
+    _check(diag, "diag", torch.float32)
+    n = diag.shape[0]
+    if diag.shape != (n, 6, 6):
+        raise ValueError(f"diag: expected (N, 6, 6), got {tuple(diag.shape)}")
+    ne = e_dst.shape[0]
+    if ne % n:
+        raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
+    _check(knn_idx, "knn_idx", torch.int64, (np_, 8))
+    _check_lists(order, off, np_ * 8, n)
+    _check(h_ij, "h_ij", torch.float32, (ne, 6, 6))
+    _check(e_dst, "e_dst", torch.int64, (ne,))
+    _check_lists(e_order, e_off, ne, n)
+    _same_device(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off)
+    smem = 36 * n * 4
+    if smem > 232448:
+        raise ValueError(f"dense_gram: {n} nodes need {smem} bytes of shared memory a block, past the 232 448")
+    scale = gram_scales(rows, order, off) if int8 else torch.empty((1,), dtype=torch.float32, device=rows.device)
+    lib = load()
+    knn32 = knn_idx.to(torch.int32)
+    dst32 = e_dst.to(torch.int32)
+    out = torch.empty((6 * n, 6 * n), dtype=torch.float32, device=rows.device)
+    rc = lib.df_dense_gram(
+        rows.data_ptr(), rows.shape[1], knn32.data_ptr(), order.data_ptr(), off.data_ptr(), scale.data_ptr(),
+        h_ij.data_ptr(), diag.data_ptr(), dst32.data_ptr(), e_order.data_ptr(), e_off.data_ptr(), ne // n, n,
+        int(int8), out.data_ptr(), _stream(rows.device),
+    )
+    _done("dense_gram", rc)
+    return out
+
+
+def dense_damp(jtj: torch.Tensor, lm_lambda: torch.Tensor, active: torch.Tensor, floor: float) -> torch.Tensor:
+    """Kernel O (csrc/dense_system.cu): jtj with (d + lambda d_eff) + unit
+    on its diagonal, d_eff = max(d, floor x the mean of d over the active
+    dofs), unit 1e-8 where the dof is active and d > 1e-12, else 1;
+    ``lm_lambda`` a () float32 device tensor."""
+    _check(jtj, "jtj", torch.float32)
+    dof = jtj.shape[0]
+    if jtj.dim() != 2 or jtj.shape[1] != dof or dof % 6:
+        raise ValueError(f"jtj: expected (6N, 6N), got {tuple(jtj.shape)}")
+    n = dof // 6
+    _check(lm_lambda, "lm_lambda", torch.float32, ())
+    _check(active, "active", torch.bool, (n,))
+    _same_device(jtj, lm_lambda, active)
+    lib = load()
+    thresh = torch.empty((1,), dtype=torch.float32, device=jtj.device)
+    out = torch.empty_like(jtj)
+    rc = lib.df_dense_damp(jtj.data_ptr(), active.data_ptr(), lm_lambda.data_ptr(), n, _f32(floor),
+                           thresh.data_ptr(), out.data_ptr(), _stream(jtj.device))
+    _done("dense_damp", rc)
+    return out
+
+
+def cholesky(a: torch.Tensor) -> torch.Tensor:
+    """The direct solve's factor: cuSOLVER's lower Cholesky factor through
+    ``torch.linalg.cholesky_ex`` (no host sync), NaN where ``a`` is not
+    positive definite, as the JAX package's ``cho_factor`` gives."""
+    _check(a, "a", torch.float32)
+    if a.dim() != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"a: expected a square matrix, got {tuple(a.shape)}")
+    chol, info = torch.linalg.cholesky_ex(a, check_errors=False)
+    launches["cholesky"] += 1
+    return chol.masked_fill_(info != 0, float("nan"))
+
+
+# --------------------------------------------------------------------------
 # kernel H: node insertion
 # --------------------------------------------------------------------------
 
 
 def insert_select(candidates, cand_d2, valid, active, count, gate, coverage: float):
     """Kernel H's select pass (csrc/insert_nodes.cu): (slots (N,) int64, the
-    slot of the r-th new node or N for none; new positions (N, 3))."""
+    slot of the r-th new node or N for none; new positions (N, 3)). Up to
+    16 384 candidates sort in shared memory, up to 65 536 in a device
+    scratch."""
     nc = _check_points(candidates, "candidates")
-    if not 1 <= nc <= 16384:
-        raise ValueError(f"insert_select takes 1 to 16384 candidates, got {nc}")
+    if not 1 <= nc <= 65536:
+        raise ValueError(f"insert_select takes 1 to 65536 candidates, got {nc}")
     _check(cand_d2, "cand_d2", torch.float32, (nc,))
     _check(valid, "valid", torch.bool, (nc,))
     _check(active, "active", torch.bool)
@@ -712,10 +819,11 @@ def insert_select(candidates, cand_d2, valid, active, count, gate, coverage: flo
     dev = candidates.device
     slots = torch.empty((cap,), dtype=torch.int64, device=dev)
     new_pos = torch.empty((cap, 3), dtype=torch.float32, device=dev)
+    gkeys = torch.empty((np2,), dtype=torch.int64, device=dev) if np2 > 16384 else None
     rc = lib.df_insert_select(
         candidates.data_ptr(), cand_d2.data_ptr(), valid.data_ptr(), nc, np2, active.data_ptr(),
         count.data_ptr(), gate.data_ptr(), cap, _f32(coverage), _f32(coverage * coverage),
-        slots.data_ptr(), new_pos.data_ptr(), _stream(dev),
+        slots.data_ptr(), new_pos.data_ptr(), None if gkeys is None else gkeys.data_ptr(), _stream(dev),
     )
     _done("insert_select", rc)
     return slots, new_pos

@@ -32,9 +32,23 @@ class TsdfVolume(NamedTuple):
     weight: torch.Tensor  # (D, D, D) uint16 (x 512) | float32
 
 
+def check_storage(cfg: DynamicFusionConfig, device: torch.device) -> None:
+    """Refuse on CUDA the storages the kernels do not take: kernels C, D and
+    L read and write the i16 tsdf and u16 weight codes only. The plain
+    path (CPU tensors) runs every storage."""
+    if device.type != "cuda":
+        return
+    if cfg.tsdf_dtype != "i16":
+        raise NotImplementedError(f"tsdf_dtype={cfg.tsdf_dtype!r} on CUDA: the kernels take the i16 tsdf only")
+    if cfg.weight_dtype != "u16":
+        raise NotImplementedError(f"weight_dtype={cfg.weight_dtype!r} on CUDA: the kernels take the u16 weight only")
+
+
 def create(cfg: DynamicFusionConfig, device="cuda") -> TsdfVolume:
-    """An empty volume on ``device`` (CUDA unless the CPU is asked for)."""
+    """An empty volume on ``device`` (CUDA unless the CPU is asked for);
+    ``check_storage`` refuses the storages the kernels do not take."""
     device = device_mod.resolve(device)
+    check_storage(cfg, device)
     d = cfg.volume_dims
     return TsdfVolume(
         tsdf=torch.zeros((d, d, d), dtype=_TSDF_DTYPES[cfg.tsdf_dtype], device=device),

@@ -1,34 +1,49 @@
-"""Non-rigid warp-field estimation (port of the factored-PCG path of
+"""Non-rigid warp-field estimation (port of
 ``dynamicfusion_tpu.solvers.warp_solver``): Levenberg-Marquardt over
-per-node 6-dof twists, point-to-plane data term with Tukey weights (and,
-with ``solver_p2p_weight`` > 0, the tangential point terms: three residual
-rows a point), ARAP edge term with Huber weights, lagged JᵀJ, block-Jacobi
-PCG.
+per-node 6-dof twists, a point-to-plane data term with Tukey weights (with
+``solver_p2p_weight`` > 0 plus the tangential point terms, three residual
+rows a point; with ``point_to_plane=False`` the point-to-point term, three
+rows ``warp(p) - p_live``), ARAP edge term with Huber weights.
 
 Unknowns are delta twists eps = (r, t) per node, applied as
 dq <- from_twist(eps) ⊗ dq and re-linearized at eps = 0. The data term's
 Jacobian is a point's (R, K, 6) rows over its K neighbour nodes (R = 1 or
-3 residual rows); the normal equations stay factored: the rows (rounded to
-bf16, as the JAX package stores them), the per-node (N, 6, 6) diagonal blocks, and per-edge 6x6
-blocks of the ARAP term. The linear solve is PCG over matvecs of those
-factors plus the LM damping.
+3 residual rows), rounded to bf16 as the JAX package stores them. Two
+linear solvers, as in the JAX package:
 
-On CUDA tensors the data term is kernel F (``csrc/data_term.cu``), the
+- ``solver_linear="pcg"`` (the presets): the normal equations stay
+  factored (the bf16 rows, the per-node (N, 6, 6) diagonal blocks, the
+  per-edge 6x6 blocks of the ARAP term) under the lagged JᵀJ, and the
+  step is block-Jacobi PCG over matvecs of those factors plus the LM
+  damping;
+- ``solver_linear="direct"`` (the base config): the dense (6N, 6N)
+  normal equations (the data Gram of the one-hot-expanded rows, int8 with
+  per-column scales and an exact integer sum or bf16 with float32 sums,
+  plus the ARAP blocks placed), damped, Cholesky-factored and solved;
+  with the lagged JᵀJ or a fresh system every LM iteration
+  (``solver_lagged_jtj=False``), and one factor reused across
+  iterations under ``solver_chol_reuse``.
+
+On CUDA tensors the data term is kernel F (``csrc/data_term.cu``); the
 edge term, ``spd6_inv``, the matvec and the whole PCG solve are kernel G
-(``csrc/pcg.cu``). Their reductions over nodes run through a per-solve
-node-sorted list of the (point, neighbour) and (edge, dst) entries, in a
-fixed order: no float atomics, so the LM accept/reject comparisons are
-bit-stable from run to run. The plain versions here take their
-Jacobians from ``torch.func.jacrev``, as the JAX package takes them from
-``jax.jacrev``; the kernels use the closed form.
+(``csrc/pcg.cu``); the dense Gram with the edge blocks placed is kernel N
+and the damping kernel O (``csrc/dense_system.cu``); the factor and its
+solve are cuSOLVER's (``torch.linalg.cholesky_ex``, ``cholesky_solve``),
+as the JAX package leaves them to its linear-algebra library. Their
+reductions over nodes run through a per-solve node-sorted list of the
+(point, neighbour) and (edge, dst) entries, in a fixed order: no float
+atomics, so the LM accept/reject comparisons are bit-stable from run to
+run. The plain versions here take their Jacobians from
+``torch.func.jacrev``, as the JAX package takes them from ``jax.jacrev``;
+the kernels use the closed form.
 
 The JAX loops that exit early (PCG on its residual, LM on convergence)
 become fixed trip counts with device-side flags that turn the remaining
 iterations into no-ops: no step of a solve reads a value back to the host.
 
-Not ported (off in every preset): the dense and Cholesky paths, the
-point-to-point data term, the adaptive aperture gate of the tangential
-term and its row subsampling and lagged variants (``_check_cfg``).
+Not ported (off in every preset; ``_check_cfg``): the dense-matrix PCG
+of ``solver_linear="pcg"`` with the unlagged JᵀJ, and the tangential
+rows subsampled in or kept out of the PCG matrix.
 """
 
 from __future__ import annotations
@@ -94,6 +109,11 @@ def _warp_one(eps_k, dq_k, w_k, p):
     blend(w, from_twist(eps) ⊗ dq)."""
     delta = dualquat.from_twist(eps_k[:, :3], eps_k[:, 3:])
     return dualquat.transform(dualquat.blend(w_k, dualquat.mul(delta, dq_k)), p)
+
+
+def _data_residual_p2p(eps_k, dq_k, w_k, p_can, p_live):
+    """Point-to-point residual warp(p_can) - p_live, (3,)."""
+    return _warp_one(eps_k, dq_k, w_k, p_can) - p_live
 
 
 def _data_residual(eps_k, dq_k, w_k, p_can, p_live, n_live):
@@ -189,18 +209,27 @@ class SolveStructure(NamedTuple):
     p2p_sw: Optional[torch.Tensor] = None
 
 
+def _tangential(cfg: DynamicFusionConfig) -> bool:
+    """The data term has the tangential rows: point-to-plane with
+    ``solver_p2p_weight`` > 0 (the JAX package's ``_data_fn_args`` order)."""
+    return cfg.point_to_plane and cfg.solver_p2p_weight > 0.0
+
+
 def prepare(cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs, plain: bool = False) -> SolveStructure:
     """Subsample by ``solver_hessian_stride`` (above 8192 points), KNN the
     solve points, build the edge graph and the node lists; with the
     tangential term, the tangent basis and the per-point weight
-    sqrt(solver_p2p_weight * clip(gate, 0, 1))."""
+    sqrt(solver_p2p_weight * clip(gate, 0, 1)). The live normal must be
+    finite only where a row projects on it (point-to-plane)."""
     n = field.positions.shape[0]
     hs = cfg.solver_hessian_stride if inputs.p_can.shape[0] > 8192 else 1
     p_can, p_live, n_live = (a[::hs] for a in (inputs.p_can, inputs.p_live, inputs.n_live))
-    valid = ~torch.isnan(p_can[:, 0]) & ~torch.isnan(p_live[:, 0]) & ~torch.isnan(n_live[:, 0])
+    valid = ~torch.isnan(p_can[:, 0]) & ~torch.isnan(p_live[:, 0])
+    if cfg.point_to_plane:
+        valid = valid & ~torch.isnan(n_live[:, 0])
     p_can, p_live, n_live = (torch.nan_to_num(a) for a in (p_can, p_live, n_live))
     t1 = t2 = p2p_sw = None
-    if cfg.solver_p2p_weight > 0.0:
+    if _tangential(cfg):
         if inputs.p2p_gate is None:
             gate = torch.ones_like(p_can[:, 0])
         else:
@@ -238,8 +267,9 @@ class DataTerm(NamedTuple):
 def data_residual_and_jac(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor):
     """Weighted residuals (P, R), weighted Jacobians (P, R, K, 6) and the
     Tukey cost, with the Jacobian from ``torch.func.jacrev`` at eps = 0;
-    R = 1 (point-to-plane) or 3 (with the tangential rows, ``s.t1``). The
-    Tukey weight and cost take the rows' joint norm."""
+    R = 1 (point-to-plane) or 3 (with the tangential rows, ``s.t1``, or
+    point-to-point, ``point_to_plane=False``). The Tukey weight and cost
+    take the rows' joint norm."""
     p, k = s.knn_idx.shape
     dq_k = dqs[s.knn_idx]
     eps0 = torch.zeros((p, k, 6), dtype=torch.float32, device=dqs.device)
@@ -247,6 +277,8 @@ def data_residual_and_jac(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torc
     fn = _data_residual
     if s.t1 is not None:
         fn, args = _data_residual_tangential, args + (s.t1, s.t2, s.p2p_sw)
+    elif not cfg.point_to_plane:
+        fn, args = _data_residual_p2p, args[:5]
     r = torch.func.vmap(fn)(*args)
     jac = torch.func.vmap(torch.func.jacrev(fn))(*args)
     rr = r[:, 0] * r[:, 0]
@@ -281,6 +313,7 @@ def data_term(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor, sy
     return DataTerm(*kernels.data_term(
         s.p_can, s.p_live, s.n_live, s.valid, s.knn_idx, s.w_knn, dqs,
         s.pts_by_node.order, s.pts_by_node.off, cfg.solver_tukey_c, system, s.t1, s.t2, s.p2p_sw,
+        point=not cfg.point_to_plane,
     ))
 
 
@@ -469,6 +502,122 @@ def pcg(
 
 
 # --------------------------------------------------------------------------
+# the dense normal equations: plain versions of kernels N and O, the factor
+# --------------------------------------------------------------------------
+
+
+def dense_rows(rows: torch.Tensor, knn_idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The (P R, 6N) float32 one-hot-expanded rows of the bf16 (P, R, K, 6)
+    Jacobian rows, node-major columns (the JAX package's ``a``): a point's
+    K neighbours are distinct, so each entry is one bf16 row value."""
+    p, r, k, _ = rows.shape
+    a = torch.zeros((p, r, n, 6), dtype=torch.float32, device=rows.device)
+    ip = torch.arange(p, device=rows.device)[:, None, None]
+    ir = torch.arange(r, device=rows.device)[None, :, None]
+    a[ip, ir, knn_idx[:, None, :]] = rows.to(torch.float32)
+    return a.reshape(p * r, 6 * n)
+
+
+def gram_scales_plain(a: torch.Tensor) -> torch.Tensor:
+    """Per-column int8 scales c = max(max |a|, 1e-12) / 127, taken as the
+    jitted JAX package takes them: XLA folds the division by the constant
+    127 into a product with its float32 reciprocal."""
+    cmax = torch.abs(a).amax(0)
+    return torch.clamp(cmax, min=1e-12) * torch.full((), 1.0 / 127.0, device=a.device)
+
+
+def dense_gram_plain(
+    rows: torch.Tensor, knn_idx: torch.Tensor, int8: bool, h_ij: torch.Tensor, diag: torch.Tensor,
+    e_src: torch.Tensor, e_dst: torch.Tensor,
+) -> torch.Tensor:
+    """The dense (6N, 6N) normal equations of the lagged or fresh system:
+    the data Gram of the one-hot-expanded bf16 rows plus the ARAP blocks
+    placed, summed as the JAX package sums them, data + ((A + Aᵀ) + D)
+    with A the h_ij blocks at (src, dst) and D the diagonal blocks. With
+    ``int8`` the rows are quantized per column, q = clip(round(a / c),
+    ±127) (a true division, as XLA keeps it), and the Gram is float(QᵀQ)
+    (c_i c_j), QᵀQ summed exactly in float64 (exact below 2^53; int32
+    matrix products do not run on CUDA); else the bf16 rows' Gram summed
+    exactly and rounded once."""
+    n = diag.shape[0]
+    a = dense_rows(rows, knn_idx, n)
+    if int8:
+        c = gram_scales_plain(a)
+        q = torch.clamp(torch.round(a / c), -127.0, 127.0).to(torch.float64)
+        data = (q.T @ q).to(torch.float32) * (c[:, None] * c[None, :])
+    else:
+        a = a.to(torch.float64)
+        data = (a.T @ a).to(torch.float32)
+    blocks = torch.zeros((n, 6, n, 6), dtype=torch.float32, device=rows.device)
+    blocks[e_src, :, e_dst, :] = h_ij
+    ar = torch.arange(n, device=rows.device)
+    d = torch.zeros_like(blocks)
+    d[ar, :, ar, :] = diag
+    edge = (blocks + blocks.permute(2, 3, 0, 1)) + d
+    return data + edge.reshape(6 * n, 6 * n)
+
+
+def dense_gram(cfg: DynamicFusionConfig, s: SolveStructure, dt: DataTerm, et: EdgeTerm, plain: bool = False):
+    """Kernel N on CUDA tensors: the dense normal equations from kernel F's
+    bf16 rows and kernel G's edge blocks (``solver_jtj_int8`` picks the
+    Gram)."""
+    if plain or dt.rows.device.type == "cpu":
+        return dense_gram_plain(dt.rows, s.knn_idx, cfg.solver_jtj_int8, et.h_ij, et.diag, s.e_src, s.e_dst)
+    return kernels.dense_gram(
+        dt.rows, s.knn_idx, s.pts_by_node.order, s.pts_by_node.off, et.h_ij, et.diag, s.e_dst,
+        s.edges_by_dst.order, s.edges_by_dst.off, cfg.solver_jtj_int8,
+    )
+
+
+def _damping_from_diag(floor: float, active: torch.Tensor, diag: torch.Tensor):
+    """(diag_eff, unit) of the LM damping lambda * diag_eff + unit: the
+    diagonal floored at ``floor`` times its mean over active dofs, and a
+    unit diagonal on dofs the system does not see (1e-8 on the others)."""
+    active_dof = active[:, None].expand(active.shape[0], 6).reshape(-1)
+    mean_diag = torch.where(active_dof, diag, 0.0).sum() / torch.clamp(active_dof.sum().to(torch.float32), min=1.0)
+    diag_eff = torch.maximum(diag, floor * mean_diag)
+    unit = torch.where(active_dof & (diag > 1e-12), 1e-8, 1.0)
+    return diag_eff, unit
+
+
+def dense_damp_plain(jtj: torch.Tensor, lm_lambda: torch.Tensor, active: torch.Tensor, floor: float) -> torch.Tensor:
+    """The damped dense system: (jtj_ii + lambda diag_eff_i) + unit_i on the
+    diagonal, jtj elsewhere; the damping from the matrix's own diagonal."""
+    diag = torch.diagonal(jtj)
+    diag_eff, unit = _damping_from_diag(floor, active, diag)
+    out = jtj.clone()
+    out.diagonal().copy_((diag + lm_lambda * diag_eff) + unit)
+    return out
+
+
+def dense_damp(jtj: torch.Tensor, lm_lambda: torch.Tensor, active: torch.Tensor, floor: float, plain: bool = False):
+    """Kernel O on CUDA tensors; ``lm_lambda`` a () device tensor."""
+    if plain or jtj.device.type == "cpu":
+        return dense_damp_plain(jtj, lm_lambda, active, floor)
+    return kernels.dense_damp(jtj, lm_lambda, active, floor)
+
+
+def cholesky_plain(a: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor, NaN where ``a`` is not positive definite
+    (the JAX package's ``cho_factor`` gives NaN there; ``cholesky_ex``
+    gives a finite partial factor and ``info`` > 0): no host sync."""
+    chol, info = torch.linalg.cholesky_ex(a, check_errors=False)
+    return chol.masked_fill_(info != 0, float("nan"))
+
+
+def cholesky(a: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The factor: cuSOLVER's on CUDA tensors (``kernels.cholesky``)."""
+    if plain or a.device.type == "cpu":
+        return cholesky_plain(a)
+    return kernels.cholesky(a)
+
+
+def chol_step(chol: torch.Tensor, jtr: torch.Tensor) -> torch.Tensor:
+    """The Gauss-Newton step -(L Lᵀ)⁻¹ Jᵀr (NaN from a NaN factor)."""
+    return -torch.cholesky_solve(jtr[:, None], chol)[:, 0]
+
+
+# --------------------------------------------------------------------------
 # rigid pre-alignment
 # --------------------------------------------------------------------------
 
@@ -516,13 +665,10 @@ def rigid_prealign(
 
 def _check_cfg(cfg: DynamicFusionConfig) -> None:
     """Refuse, one option at a time, what the port does not solve."""
-    if cfg.solver_linear != "pcg":
-        raise NotImplementedError(f"solver_linear={cfg.solver_linear!r}: the dense/Cholesky path is not ported")
-    if not cfg.solver_lagged_jtj:
-        raise NotImplementedError("solver_lagged_jtj=False (a fresh JᵀJ every LM iteration) is not ported")
-    if not cfg.point_to_plane:
-        raise NotImplementedError("point_to_plane=False (the point-to-point data term) is not ported")
-    if cfg.solver_p2p_weight > 0.0:
+    if cfg.solver_linear == "pcg" and not cfg.solver_lagged_jtj:
+        raise NotImplementedError(
+            "solver_linear='pcg' with solver_lagged_jtj=False (the dense-matrix PCG) is not ported")
+    if _tangential(cfg):
         if cfg.solver_p2p_hessian_stride > 1:
             raise NotImplementedError(
                 f"solver_p2p_hessian_stride={cfg.solver_p2p_hessian_stride} (tangential rows subsampled in the "
@@ -533,51 +679,76 @@ def _check_cfg(cfg: DynamicFusionConfig) -> None:
 
 
 def damping_terms(cfg: DynamicFusionConfig, active: torch.Tensor, blocks: torch.Tensor):
-    """(diag_eff, unit) of the LM damping lambda * diag_eff + unit: the
-    blocks' diagonal floored at ``solver_damping_floor`` times its mean
-    over active dofs, and a unit diagonal on dofs the system does not see
-    (1e-8 on the others)."""
-    n = blocks.shape[0]
+    """(diag_eff, unit) of the factored system's LM damping, from the
+    (N, 6, 6) diagonal blocks' diagonal (``_damping_from_diag``)."""
     diag = torch.diagonal(blocks, dim1=-2, dim2=-1).reshape(-1)
-    active_dof = active[:, None].expand(n, 6).reshape(-1)
-    mean_diag = torch.where(active_dof, diag, 0.0).sum() / torch.clamp(active_dof.sum().to(torch.float32), min=1.0)
-    diag_eff = torch.maximum(diag, cfg.solver_damping_floor * mean_diag)
-    unit = torch.where(active_dof & (diag > 1e-12), 1e-8, 1.0)
-    return diag_eff, unit
+    return _damping_from_diag(cfg.solver_damping_floor, active, diag)
 
 
 def solve(
     cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs, plain: bool = False
 ) -> Tuple[WarpField, SolveStats]:
-    """Estimate the warp field for the current frame: ``cfg.solver_nonlinear_iters``
-    LM iterations over the factored system assembled ONCE at the start
-    (lagged JᵀJ); each candidate is evaluated exactly (gradient and cost),
-    accepted if the cost falls, and the loop stops (no-op iterations) once
-    an accepted step improves the cost by <= solver_function_tolerance."""
+    """Estimate the warp field for the current frame:
+    ``cfg.solver_nonlinear_iters`` LM iterations. Under the lagged JᵀJ the
+    system is assembled ONCE at the start and each candidate is evaluated
+    exactly (gradient and cost); with ``solver_lagged_jtj=False`` (dense
+    only) the system is rebuilt at the current point every iteration and
+    candidates are scored by their cost. A candidate is accepted if the
+    cost falls, and the loop stops (no-op iterations) once an accepted step
+    improves the cost by <= solver_function_tolerance.
+
+    The dense path's factor under ``solver_chol_reuse`` (lagged only) is
+    the factor of the system damped with the lambda of its last rebuild
+    (iteration 0 or after a rejected step): the loop has no host branch, so
+    it factors every iteration, but a matrix equal to the reused one."""
     _check_cfg(cfg)
     n = field.positions.shape[0]
     dev = field.dq.device
     s = prepare(cfg, field, inputs, plain=plain)
     dqs = field.dq
-    dt = data_term(cfg, s, dqs, system=True, plain=plain)
-    et = edge_term(cfg, s, dqs, plain=plain)
-    jtr = dt.jtr + et.jtr
-    cost_prev = dt.cost + et.cost
-    cost0 = cost_prev
-    blocks_full = dt.blocks + et.diag
-    diag_eff, unit = damping_terms(cfg, field.active, blocks_full)
+    dense = cfg.solver_linear != "pcg"  # anything else is the direct solve, as in the JAX package
+    lagged = cfg.solver_lagged_jtj
+    reuse = dense and lagged and cfg.solver_chol_reuse
+    floor = cfg.solver_damping_floor
 
     lm_lambda = torch.full((), cfg.solver_lm_lambda_init, device=dev)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
     running = torch.ones((), dtype=torch.bool, device=dev)
     rebuild = torch.ones((), dtype=torch.bool, device=dev)  # iteration 0, or the last step was rejected
-    minv = None
-    for _ in range(cfg.solver_nonlinear_iters):
-        damp = lm_lambda * diag_eff + unit
-        sys = System(dt.rows, et, damp)
-        fresh = spd6_inv(blocks_full + torch.diag_embed(damp.reshape(n, 6)), plain=plain)
-        minv = fresh if minv is None else torch.where(rebuild, fresh, minv)
-        step = -pcg(s, sys, minv, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)
+    if lagged:
+        dt = data_term(cfg, s, dqs, system=True, plain=plain)
+        et = edge_term(cfg, s, dqs, plain=plain)
+        jtr = dt.jtr + et.jtr
+        cost_prev = dt.cost + et.cost
+        cost0 = cost_prev
+        if dense:
+            jtj = dense_gram(cfg, s, dt, et, plain=plain)
+        else:
+            blocks_full = dt.blocks + et.diag
+            diag_eff, unit = damping_terms(cfg, field.active, blocks_full)
+    minv = lam_f = None
+    for it in range(cfg.solver_nonlinear_iters):
+        if not lagged:
+            # relinearize at the current point: after a rejected step the
+            # point is unchanged and the deterministic kernels give the same
+            # system again, as the JAX package's kept one
+            dt = data_term(cfg, s, dqs, system=True, plain=plain)
+            et = edge_term(cfg, s, dqs, plain=plain)
+            jtj = dense_gram(cfg, s, dt, et, plain=plain)
+            jtr = dt.jtr + et.jtr
+            cost_lin = dt.cost + et.cost
+            cost_prev = cost_lin if it == 0 else torch.where(running, cost_lin, cost_prev)
+            if it == 0:
+                cost0 = cost_lin
+        if dense:
+            lam_f = lm_lambda if lam_f is None or not reuse else torch.where(rebuild, lm_lambda, lam_f)
+            step = chol_step(cholesky(dense_damp(jtj, lam_f, field.active, floor, plain=plain), plain=plain), jtr)
+        else:
+            damp = lm_lambda * diag_eff + unit
+            sys = System(dt.rows, et, damp)
+            fresh = spd6_inv(blocks_full + torch.diag_embed(damp.reshape(n, 6)), plain=plain)
+            minv = fresh if minv is None else torch.where(rebuild, fresh, minv)
+            step = -pcg(s, sys, minv, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)
         step = step.reshape(n, 6)
         step = torch.where(field.active[:, None] & torch.isfinite(step).all(-1, keepdim=True), step, 0.0)
         sn = torch.linalg.vector_norm(step, dim=-1, keepdim=True)
@@ -589,7 +760,8 @@ def solve(
         better = running & (cand_cost < cost_prev)
         improvement = torch.where(better, cost_prev - cand_cost, 0.0)
         dqs = torch.where(better, cand, dqs)
-        jtr = torch.where(better, dc.jtr + ec.jtr, jtr)
+        if lagged:
+            jtr = torch.where(better, dc.jtr + ec.jtr, jtr)
         cost_prev = torch.where(better, cand_cost, cost_prev)
         lm_lambda = torch.where(running, torch.clamp(torch.where(better, lm_lambda * 0.5, lm_lambda * 8.0), 1e-8, 1e6), lm_lambda)
         accepted = accepted + better.to(torch.int32)

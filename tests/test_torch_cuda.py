@@ -321,6 +321,8 @@ NR = dataclasses.replace(
 
 
 NR_DEPTHS = synthetic.deforming_frames(NR.intr, NR.rows, NR.cols, 4)
+# the direct solve's kernels (N, O) and its factor; the PCG presets do not run them
+DENSE = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 
 
 @pytest.fixture
@@ -428,13 +430,17 @@ def test_solver_kernels_tangential(dev, nr_model):
     assert _close(xk, xp, 1e-2)
 
 
-def test_insert_kernel(dev, nr_model):
+@pytest.mark.parametrize("copies", [1, 5])
+def test_insert_kernel(dev, nr_model, copies):
+    """Kernel H's insertion; with five shifted copies of the candidates
+    past the 16 384 whose sort keys fit in shared memory."""
     from dynamicfusion_tpu_torch.models import warpfield
 
     st, inputs, _ = nr_model
     half = torch.arange(st.warp.active.shape[0], device=dev) % 2 == 0
     field = st.warp._replace(active=st.warp.active & half, count=(st.warp.active & half).sum(dtype=torch.int32))
-    cand = inputs.p_can + 0.03
+    cand = torch.cat([inputs.p_can + 0.03 * (c + 1) for c in range(copies)])
+    assert (cand.shape[0] > 16384) == (copies > 1)
     valid = ~torch.isnan(cand[:, 0])
     fi = torch.tensor(9, dtype=torch.int32, device=dev)
     k = warpfield.insert_nodes(NR, field, cand, valid, fi)
@@ -474,6 +480,70 @@ def test_fuse_kernel_nonrigid(dev, nr_model):
     assert not torch.equal(vk.tsdf, st.vol.tsdf)
 
 
+@pytest.mark.parametrize("point_to_plane", [True, False])
+def test_dense_kernels(dev, nr_model, point_to_plane):
+    """Kernel N (int8: bit-equal to the plain version, whose float64 sum of
+    the integer products is exact; bf16 within float32 sum-order bits),
+    kernel O (off-diagonal bit-equal, the diagonal within the mean's sum
+    order) and kernel F's point-to-point rows."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = dataclasses.replace(NR, solver_linear="direct", point_to_plane=point_to_plane)
+    st, inputs, _ = nr_model
+    n = st.warp.dq.shape[0]
+    s = ws.prepare(cfg, st.warp, inputs)
+    dk = ws.data_term(cfg, s, st.warp.dq, True)
+    dp = ws.data_term(cfg, s, st.warp.dq, True, plain=True)
+    torch.cuda.synchronize()
+    assert dk.rows.shape == dp.rows.shape == (s.p_can.shape[0], 1 if point_to_plane else 3, 8, 6)
+    assert _close(dk.jtr, dp.jtr, 1e-4) and _close(dk.blocks, dp.blocks, 1e-4) and _close(dk.cost, dp.cost, 1e-5)
+    et = ws.edge_term(cfg, s, st.warp.dq)
+    for int8 in (False, True):  # the int8 Gram (the base config's) last, for O and the factor
+        c8 = dataclasses.replace(cfg, solver_jtj_int8=int8)
+        gk = ws.dense_gram(c8, s, dk, et)
+        gp = ws.dense_gram(c8, s, dk, et, plain=True)
+        torch.cuda.synchronize()
+        if int8:
+            assert torch.equal(gk, gp)
+        else:
+            assert _close(gk, gp, 1e-6)
+    lam = torch.tensor(1e-4, device=dev)
+    ok = ws.dense_damp(gk, lam, st.warp.active, cfg.solver_damping_floor)
+    op = ws.dense_damp(gk, lam, st.warp.active, cfg.solver_damping_floor, plain=True)
+    off = ~torch.eye(6 * n, dtype=torch.bool, device=dev)
+    assert torch.equal(ok[off], op[off]) and _close(ok.diagonal(), op.diagonal(), 1e-6)
+    chol = ws.cholesky(ok)
+    assert torch.equal(chol, ws.cholesky(ok, plain=True))
+    bad = ok.clone()
+    bad[3, 3] = -1.0
+    assert not bool(torch.isfinite(ws.chol_step(ws.cholesky(bad), dk.jtr)).any())
+
+
+def test_base_config_on_the_card_goes_through_every_kernel(dev):
+    """The base config (the direct solve: kernels N and O, cuSOLVER's
+    factor) at small(): every kernel of its path launches, and the kernel
+    path's pose stays within the plain path's reach."""
+    cfg = DynamicFusionConfig.small()
+    kernels.reset_launches()
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    for d in NR_DEPTHS:
+        df(d, block=False)
+    torch.cuda.synchronize()
+    # no temporal band or seed (march_bands), the PCG's kernels, the
+    # incidence-weighted fusion's packed lookup is kernel D's other argument
+    off = ("matvec", "pcg", "spd6_inv", "warp_trilinear", "coarse_band", "p2p_gate", "march_bands")
+    path = [k for k in kernels.KERNELS if k not in off]
+    assert all(kernels.launches[k] > 0 for k in path), kernels.launches
+    assert kernels.launches["cholesky"] == (len(NR_DEPTHS) - 1) * cfg.solver_nonlinear_iters
+    ref = kinfu.DynamicFusion(cfg, device="cpu")
+    for d in NR_DEPTHS:
+        ref(d)
+    assert bool(df.last_outputs.icp_ok)
+    assert float(df.last_outputs.solver_cost1) <= float(df.last_outputs.solver_cost0)
+    a, b = df.get_pose().cpu(), ref.get_pose()
+    assert float((a[:3, 3] - b[:3, 3]).abs().max()) <= 3e-3
+
+
 @pytest.mark.parametrize("p2p", [0.0, 0.25])
 def test_nonrigid_slice_on_the_card_goes_through_every_kernel(dev, p2p):
     """The preset's slice and, with the tangential term, the quality
@@ -486,8 +556,9 @@ def test_nonrigid_slice_on_the_card_goes_through_every_kernel(dev, p2p):
     torch.cuda.synchronize()
     # small() is below the full-scale branches: the trilinear map warp does
     # not run; nor do the coarse band (160x120 maps) and the aperture gate
-    # (test_adaptive_slice_on_the_card_goes_through_every_kernel)
-    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band", "p2p_gate")]
+    # (test_adaptive_slice_on_the_card_goes_through_every_kernel), nor the
+    # direct solve's kernels (test_base_config_on_the_card_goes_through_every_kernel)
+    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band", "p2p_gate") + DENSE]
     assert all(kernels.launches[k] > 0 for k in path), kernels.launches
     assert kernels.launches["extract_cloud"] == kernels.launches["sample_nodes"] == 1
     ref = kinfu.DynamicFusion(cfg, device="cpu")
@@ -513,7 +584,7 @@ def test_adaptive_slice_on_the_card_goes_through_every_kernel(dev):
     for d in NR_DEPTHS:
         df(d, block=False)
     torch.cuda.synchronize()
-    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band")]
+    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band") + DENSE]
     assert all(kernels.launches[k] > 0 for k in path), kernels.launches
     assert kernels.launches["p2p_gate"] == len(NR_DEPTHS) - 1
     ref = kinfu.DynamicFusion(cfg, device="cpu")

@@ -293,6 +293,20 @@ WRAPPER_CALLS = {
     "sample_nodes": lambda: kernels.sample_nodes(
         torch.zeros((64, 3)), torch.ones(64, dtype=torch.bool), 8, torch.arange(8), 4,
     ),
+    "gram_scales": lambda: kernels.gram_scales(
+        torch.zeros((4, 3, 8, 6), dtype=torch.bfloat16), torch.zeros(32, dtype=torch.int32),
+        torch.zeros(9, dtype=torch.int32),
+    ),
+    "dense_gram": lambda: kernels.dense_gram(
+        torch.zeros((4, 1, 8, 6), dtype=torch.bfloat16), torch.zeros((4, 8), dtype=torch.int64),
+        torch.zeros(32, dtype=torch.int32), torch.zeros(9, dtype=torch.int32), torch.zeros((32, 6, 6)),
+        torch.zeros((8, 6, 6)), torch.zeros(32, dtype=torch.int64), torch.zeros(32, dtype=torch.int32),
+        torch.zeros(9, dtype=torch.int32), True,
+    ),
+    "dense_damp": lambda: kernels.dense_damp(
+        torch.zeros((48, 48)), torch.ones(()), torch.ones(8, dtype=torch.bool), 0.05,
+    ),
+    "cholesky": lambda: kernels.cholesky(torch.eye(48)),
 }
 
 

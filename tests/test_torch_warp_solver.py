@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_nonrigid_cases as cases
 from torch_nonrigid_cases import one_torch_thread  # noqa: F401  (autouse)
 
 from dynamicfusion_tpu.config import DynamicFusionConfig as JCfg
@@ -64,32 +65,7 @@ def _rel(got, ref):
 
 def _problem(seed=0):
     """(JAX field, port field, JAX inputs, port inputs) on a sphere."""
-    rng = np.random.RandomState(seed)
-    c = np.array([0.0, 0.0, 1.0], np.float32)
-
-    def sphere(m):
-        v = rng.randn(m, 3)
-        v[:, 2] = -np.abs(v[:, 2])  # the camera-facing half
-        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
-
-    nrm_n = sphere(N)
-    pos = c + 0.2 * nrm_n
-    act = rng.rand(N) < 0.95
-    dq = np.asarray(jdq.from_twist(jnp.asarray(rng.randn(N, 3).astype(np.float32) * 0.01),
-                                   jnp.asarray(rng.randn(N, 3).astype(np.float32) * 0.002)))
-    jfield = jw.WarpField(jnp.asarray(pos), jnp.asarray(dq), jnp.full((N,), 0.05, jnp.float32), jnp.asarray(act),
-                          jnp.int32(act.sum()), jnp.zeros((N,), jnp.int32))
-    n = sphere(P)
-    p_can = c + 0.2 * n
-    bump = 0.004 * np.exp(-np.sum((n - [0.3, 0.0, -0.95]) ** 2, axis=1) / 0.1)
-    p_live = p_can + n * bump[:, None] + rng.randn(P, 3).astype(np.float32) * 5e-4
-    n_live = n.copy()
-    p_can[::37] = np.nan
-    p_live[::41] = np.nan
-    arrs = [p_can.astype(np.float32), n.astype(np.float32), p_live.astype(np.float32), n_live.astype(np.float32)]
-    ji = js.WarpSolveInputs(*(jnp.asarray(a) for a in arrs))
-    ti = ts.WarpSolveInputs(*(_t(a) for a in arrs))
-    return jfield, tw.WarpField(*(_t(a) for a in jfield)), ji, ti
+    return cases.sphere_problem(seed, N, P)
 
 
 @pytest.fixture(scope="module")
@@ -236,6 +212,20 @@ def test_closed_form_data_jacobian_matches_jacrev(prob, antipodal):
     eps0 = torch.zeros(dq_k.shape[:2] + (6,))
     ref = torch.func.vmap(torch.func.jacrev(ts._data_residual))(eps0, dq_k, t.w_knn, t.p_can, t.p_live, t.n_live)[:, 0]
     got = data_jac_closed_form(dq_k, t.w_knn, t.p_can, t.n_live)
+    assert _rel(got.numpy(), ref.numpy()) <= TOL_CLOSED
+
+
+def test_closed_form_point_to_point_jacobian_matches_jacrev(prob):
+    """Kernel F's point-to-point rows: the closed form along each world axis
+    is the Jacobian of that component of warp(p_can) - p_live."""
+    _, tfield, _, _, _, t = prob
+    dq_k = tfield.dq[t.knn_idx]
+    eps0 = torch.zeros(dq_k.shape[:2] + (6,))
+    ref = torch.func.vmap(torch.func.jacrev(ts._data_residual_p2p))(eps0, dq_k, t.w_knn, t.p_can, t.p_live)
+    axes = torch.eye(3)
+    got = torch.stack([data_jac_closed_form(dq_k, t.w_knn, t.p_can, axes[j].expand(t.p_can.shape)) for j in range(3)],
+                      1)
+    assert got.shape == ref.shape == (t.p_can.shape[0], 3, 8, 6)
     assert _rel(got.numpy(), ref.numpy()) <= TOL_CLOSED
 
 
