@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--a-frames A] [--p-frames P]
-                          [--d-frames D] [--r-frames R] [--profile DIR] [--dump-solve FILE]
+                          [--d-frames D] [--r-frames R] [--o-frames O] [--profile DIR] [--dump-solve FILE]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -35,7 +35,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    state after three frames (3 200 solve points, 6N = 6 144): kernel N's
    column scales and int8 Gram (bit-equal), its bf16 Gram, kernel O,
    cuSOLVER's factor (an all-NaN factor where the matrix is not positive
-   definite) and kernel F's point-to-point rows;
+   definite), kernel F's point-to-point rows and kernel P (the PCG over
+   the damped dense matrix, within four times the plain PCG's own spread
+   under a one-ulp move of the matrix); and for the options, on the
+   preset's phase-2 state: kernel E's adaptive radius at frame 0's 1024
+   nodes and at the insertion shape (bit-equal), kernel Q on a real
+   pre/post-solve pair and on a field with two active nodes (left as it
+   is), kernels F and G with the tangential rows of every 2nd and 4th
+   point and with the plane rows only;
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -84,16 +91,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    shares, launches a frame);
 10. the base config's dense variants, three steps each from its state
    after frame 3 (``solver_jtj_int8=False``, ``solver_lagged_jtj=False``,
-   ``point_to_plane=False``), each step held against the plain step;
-11. ``reference_parity()`` non-rigid (640x480 maps, 12 800 solve points)
+   ``point_to_plane=False``, and ``solver_linear="pcg"`` with
+   ``solver_lagged_jtj=False``: kernel P), each step held against the
+   plain step;
+11. the options cell: ``quality_dynamicfusion()`` with the aperture gate,
+   ``solver_p2p_hessian_stride=4``, ``node_radius_adaptive`` and
+   ``solver_remove_net_rigid`` at alpha 0.5 over O hinge frames, the
+   quality cell's checks, kernel E's radius in frame 0 and M, Q and E's
+   radius once a step; then three steps with ``solver_p2p_lag_hessian``
+   from its state after frame 3, each held against the plain step;
+12. ``reference_parity()`` non-rigid (640x480 maps, 12 800 solve points)
    over R frames, known unstable as a running configuration: the plain
    step from each state; P, the factor's time and its ``info`` printed;
-12. print the per-kernel JSON line, the card's name and power limit, and
+13. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler table and trace of 3 frames of
-each non-rigid preset, of the adaptive-gate path and of the
-reference-resolution rigid path (after each run) and prints the device's
+each non-rigid preset, of the adaptive-gate path, of the options cell and
+of the reference-resolution rigid path (after each run) and prints the device's
 busy time, idle share and busiest kernels over them; the base config's 3
 frames are profiled in every run (into DIR, else ``build/profile``).
 ``--dump-solve FILE`` writes the warp field and the solve's point sets of
@@ -170,6 +185,20 @@ TOL_IMAGE_FRAC = 1e-3         # render pixels more than one level from the plain
 TOL_GRAM_BF16_REL = 1e-6      # max |diff| over max |entry|
 # kernel O: off the diagonal a copy; the diagonal within the mean's sum order
 TOL_DAMP_REL = 1e-6
+# kernel Q against its plain version (a float64 SVD through
+# torch.linalg.svd): the centroids and H are float32 sums in two orders;
+# the transforms are unit dual quaternions
+TOL_NET_RIGID = 1e-5
+# kernel P, and kernel G under the tangential rows' row modes, against the
+# plain PCG on the same system: within SPREAD_PCG times the plain PCG's own
+# spread when every entry of the matrix (P) or of the right-hand side (G)
+# moves by one ulp (the systems are ill conditioned at small lambda, and a
+# flipped bf16 rounding of G's t grows over the iterations: the strided
+# mode read 1.39e-02 against the plain version where the three-row mode
+# read 8.46e-03), and never held tighter than TOL_DENSE_PCG_FLOOR (P) or
+# TOL_PCG_REL (G)
+SPREAD_PCG = 4.0
+TOL_DENSE_PCG_FLOOR = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s, float32 (no tensor core) 67 TFLOP/s
 PEAK_BYTES = 3.35e12
@@ -239,29 +268,46 @@ ROWS = {
     "dense_damp": ("dense_system.cu", "dynamicfusion_tpu/solvers/warp_solver.py:479"),
     # the factor is cuSOLVER's (the JAX package's is its library's too)
     "cholesky": ("dynamicfusion_tpu_torch/kernels/__init__.py", "dynamicfusion_tpu/solvers/warp_solver.py:872"),
+    "node_radius": ("knn_blend.cu", "dynamicfusion_tpu/models/warpfield.py:78"),
+    "node_radius_insert": ("knn_blend.cu", "dynamicfusion_tpu/models/warpfield.py:78"),
+    "net_rigid": ("net_rigid.cu", "dynamicfusion_tpu/models/warpfield.py:463"),
+    "data_term_strided": ("data_term.cu", "dynamicfusion_tpu/solvers/warp_solver.py:1063"),
+    "pcg_strided": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:1035"),
+    "pcg_lagged": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:1035"),
+    "dense_pcg": ("dense_pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:860"),
 }
 COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", "data_term_tangential": "data_term",
            "pcg_tangential": "pcg", "raycast_coarse": "raycast", "raycast_full_res": "raycast",
            "raycast_render": "raycast", "icp_reduce_full_res": "icp_reduce", "data_term_p2p": "data_term",
-           "dense_gram_bf16": "dense_gram", "insert_select_full_res": "insert_select"}
+           "dense_gram_bf16": "dense_gram", "insert_select_full_res": "insert_select",
+           "node_radius_insert": "node_radius", "data_term_strided": "data_term", "pcg_strided": "pcg",
+           "pcg_lagged": "pcg"}
 # the run whose counters a row's launches are: kernels A-D the rigid path's,
 # kernel L the preset's (frame 0), the tangential rows the quality preset's,
 # kernel M the adaptive-gate path's, the full-resolution rows the
 # reference-resolution rigid path's (the render's march its render calls'),
-# the rest the preset's
+# the options' rows the options cell's (the plane-rows-only PCG its lagged
+# steps', kernel P the base config's dense-PCG variant's), the rest the
+# preset's
 PATH = {**dict.fromkeys(RIGID_KERNELS, "rigid"), "extract_cloud": "frame0", "sample_nodes": "frame0",
         "data_term_tangential": "quality", "pcg_tangential": "quality", "p2p_gate": "adaptive",
         **dict.fromkeys(("coarse_band", "raycast_coarse", "raycast_full_res", "icp_reduce_full_res"), "parity_rigid"),
         "raycast_render": "render",
         **dict.fromkeys(("gram_scales", "dense_gram", "dense_damp", "cholesky"), "base"),
-        "dense_gram_bf16": "base_bf16", "data_term_p2p": "base_p2p", "insert_select_full_res": "parity_nr"}
+        "dense_gram_bf16": "base_bf16", "data_term_p2p": "base_p2p", "insert_select_full_res": "parity_nr",
+        **dict.fromkeys(("node_radius", "node_radius_insert", "net_rigid", "data_term_strided", "pcg_strided"),
+                        "options"),
+        "pcg_lagged": "options_lag", "dense_pcg": "base_pcg"}
+# the options cell (phase 11): quality_dynamicfusion() with these
+OPTIONS = dict(solver_p2p_adaptive=True, solver_p2p_hessian_stride=4, node_radius_adaptive=True,
+               solver_remove_net_rigid=True, solver_net_rigid_alpha=0.5)
 # the direct solve's kernels (N, O) and its factor: the PCG presets run none
 # of them, the base config none of the PCG's
 DENSE_KERNELS = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 PCG_KERNELS = ("spd6_inv", "pcg")
 # the base config's dense variants, three steps each from its state
 VARIANTS = (("bf16", dict(solver_jtj_int8=False)), ("unlagged", dict(solver_lagged_jtj=False)),
-            ("p2p", dict(point_to_plane=False)))
+            ("p2p", dict(point_to_plane=False)), ("pcg_unlagged", dict(solver_linear="pcg", solver_lagged_jtj=False)))
 
 
 def smi() -> str:
@@ -309,15 +355,29 @@ def check(name: str, ok: bool, msg: str) -> None:
 def deterministic(torch):
     """PyTorch's scatter sums (``index_add_``) on the card in a fixed order
     (each node's entries in entry order, as the kernels sum them), for the
-    plain PCG references: in atomic order their last bits change run to
-    run, and twelve iterations amplify a flipped bf16 rounding past the
-    tolerance in some runs."""
+    plain PCG references and the plain systems they are held on: in atomic
+    order their last bits change run to run, and twelve iterations amplify
+    a flipped bf16 rounding past the tolerance in some runs (the preset's
+    PCG check read 4.51e-03 in one run and 1.10e-02 in another with the
+    same kernel G, the system's sums in atomic order)."""
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         yield
     finally:
         torch.use_deterministic_algorithms(prev)
+
+
+def ulp_moves(torch, t):
+    """``t`` with every entry moved by one ulp: up, down, and alternately
+    up and down (a symmetric matrix stays symmetric only under the first
+    two); one at a time, for the plain PCGs' own spread."""
+    up = torch.full_like(t, float("inf"))
+    yield torch.nextafter(t, up)
+    yield torch.nextafter(t, -up)
+    if t.dim() == 1:
+        sign = torch.where(torch.arange(t.shape[0], device=t.device) % 2 == 0, 1.0, -1.0)
+        yield torch.nextafter(t, sign * up)
 
 
 def rel_err(torch, a, b) -> float:
@@ -591,7 +651,8 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     s = ws.prepare(cfg, field, inputs)
     npt = s.p_can.shape[0]
     dk = ws.data_term(cfg, s, field.dq, True)
-    dp = ws.data_term(cfg, s, field.dq, True, plain=True)
+    with deterministic(torch):  # the PCG below is held on this system: the same one every run
+        dp = ws.data_term(cfg, s, field.dq, True, plain=True)
     errs = [rel_err(torch, dk.jtr, dp.jtr), rel_err(torch, dk.blocks, dp.blocks), rel_err(torch, dk.cost, dp.cost)]
     check("data_term", max(errs) <= TOL_DATA_REL,
           f"{npt} points: relative diff Jᵀr {errs[0]:.2e}, blocks {errs[1]:.2e}, cost {errs[2]:.2e} (tol {TOL_DATA_REL})")
@@ -612,7 +673,8 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     # G: the edge term, spd6_inv, one matvec and the PCG solve
     ne = s.e_src.shape[0]
     ek = ws.edge_term(cfg, s, field.dq)
-    ep = ws.edge_term(cfg, s, field.dq, plain=True)
+    with deterministic(torch):
+        ep = ws.edge_term(cfg, s, field.dq, plain=True)
     err = max(rel_err(torch, a, b) for a, b in zip(ek, ep))
     check("edge_term", err <= TOL_EDGE_REL, f"{ne} edges: max relative diff {err:.2e} (tol {TOL_EDGE_REL})")
     report["edge_term"] = dict(
@@ -694,6 +756,7 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         iterations=ran,
     )
     tangential_kernels(torch, report, dev, field, inputs)
+    option_kernels(torch, report, dev, nr_depths, field, inputs)
     gate_kernels(torch, report, dev, st, tr)
     full_res_kernels(torch, report, dev, st, nr_depths[3])
 
@@ -719,13 +782,14 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         bound=bound_ms(nc * 17 + n + 5 + n * 20, float(sort_ops + nc * 12)),
         library_ms=None,
     )
+    rad = torch.full((n,), cfg.node_radius, device=dev)
     report["insert_apply"] = dict(
         err=err,
         ms=cuda_ms(torch, lambda: kernels.insert_apply(
             hfield.positions, hfield.dq, hfield.radius, hfield.active, hfield.count, hfield.last_support,
-            plan.slots, plan.new_pos, seed, fi, cfg.node_radius)),
-        plain_ms=cuda_ms(torch, lambda: warpfield._insert_apply_plain(cfg, hfield, plan, seed, fi), reps=5),
-        bound=bound_ms(n * 53 * 2 + n * 52 + 8, n * 60.0),
+            plan.slots, plan.new_pos, seed, fi, rad)),
+        plain_ms=cuda_ms(torch, lambda: warpfield._insert_apply_plain(hfield, plan, seed, fi, rad), reps=5),
+        bound=bound_ms(n * 53 * 2 + n * 56 + 8, n * 60.0),
         library_ms=None,
     )
 
@@ -807,7 +871,8 @@ def tangential_kernels(torch, report, dev, field, inputs):
     s = ws.prepare(cfg, field, inputs)
     npt = s.p_can.shape[0]
     dk = ws.data_term(cfg, s, field.dq, True)
-    dp = ws.data_term(cfg, s, field.dq, True, plain=True)
+    with deterministic(torch):  # the PCG below is held on this system: the same one every run
+        dp = ws.data_term(cfg, s, field.dq, True, plain=True)
     errs = [rel_err(torch, dk.jtr, dp.jtr), rel_err(torch, dk.blocks, dp.blocks), rel_err(torch, dk.cost, dp.cost)]
     check("data_term_tangential", max(errs) <= TOL_DATA_REL and tuple(dk.rows.shape) == (npt, 3, 8, 6),
           f"{npt} points x 3 rows: relative diff Jᵀr {errs[0]:.2e}, blocks {errs[1]:.2e}, cost {errs[2]:.2e} "
@@ -824,7 +889,8 @@ def tangential_kernels(torch, report, dev, field, inputs):
                        npt * 3 * 1500.0 + npt * 8 * 3 * 48.0),
         library_ms=None,
     )
-    ep = ws.edge_term(cfg, s, field.dq, plain=True)
+    with deterministic(torch):
+        ep = ws.edge_term(cfg, s, field.dq, plain=True)
     blocks_full = dp.blocks + ep.diag
     diag_eff, unit = ws.damping_terms(cfg, field.active, blocks_full)
     damp = cfg.solver_lm_lambda_init * diag_eff + unit
@@ -861,6 +927,188 @@ def tangential_kernels(torch, report, dev, field, inputs):
         library_ms=None,
         iterations=ran,
     )
+
+
+def options_config():
+    """The options cell's configuration: ``quality_dynamicfusion()`` with
+    the aperture gate, the tangential rows of every 4th point in the PCG
+    matrix, the adaptive node radius and half the net rigid motion removed
+    a frame."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+
+    return dataclasses.replace(DynamicFusionConfig.quality_dynamicfusion(), **OPTIONS)
+
+
+def _bf16_ulps(torch, a, b) -> int:
+    """Largest distance in bf16 steps between two bf16 tensors."""
+    def ordered(t):
+        v = t.view(torch.int16).to(torch.int32)
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def option_kernels(torch, report, dev, nr_depths, field, inputs):
+    """Phase 2 for the solver and warp-field options on the preset's
+    phase-2 state (1024 nodes, 3 200 solve points): kernel E's radius entry
+    at frame 0's nodes and at the insertion shape (1024 candidates against
+    the field), bit-equal; kernel Q on the pre/post-solve pair of the
+    quality preset's solve and on a field with two active nodes (which it
+    must leave as it is), no host sync; kernels F and G under the
+    tangential rows' row modes (every 2nd and 4th point, and the plane rows
+    only), as the three-row mode is held."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.models import warpfield
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = options_config()
+    n = field.positions.shape[0]
+
+    # E: the adaptive radius at frame 0 (each node against the others) and
+    # at insertion (candidates against the field's nodes)
+    f0 = kinfu.first_frame(cfg, kinfu.init_state(cfg, dev), torch.from_numpy(nr_depths[0]).to(dev)).warp
+    cand = torch.nan_to_num(inputs.p_can[~torch.isnan(inputs.p_can[:, 0])][:n]).contiguous()
+    for name, q, ref, ok, self_ref in (("node_radius", f0.positions, f0.positions, f0.active, True),
+                                       ("node_radius_insert", cand, field.positions, field.active, False)):
+        k = cfg.node_radius_knn + int(self_ref)
+        rk = warpfield.adaptive_radius(cfg, q, ref, ok, self_ref)
+        rp = warpfield.adaptive_radius(cfg, q, ref, ok, self_ref, plain=True)
+        same = torch.equal(rk, rp)
+        inside = float(((rk > cfg.node_radius_min) & (rk < cfg.node_radius_max)).float().mean())
+        check(name, same, f"{q.shape[0]} queries x {ref.shape[0]} nodes ({int(ok.sum())} active), k = {k}: bit-equal "
+              f"to the plain version {same} (max |diff| {abs_err(torch, rk, rp):.2e}); radii {float(rk.min()):.4f}.."
+              f"{float(rk.max()):.4f} m, {inside:.3f} of them inside the clip")
+        m, nn = q.shape[0], ref.shape[0]
+        report[name] = dict(
+            err=abs_err(torch, rk, rp),
+            ms=cuda_ms(torch, lambda: kernels.node_radius(ref, ok, q, k, cfg.node_radius_scale, cfg.node_radius_min,
+                                                          cfg.node_radius_max)),
+            plain_ms=cuda_ms(torch, lambda: warpfield.adaptive_radius(cfg, q, ref, ok, self_ref, plain=True), reps=5),
+            # queries and nodes in, radii out; ~10 operations a (query, node)
+            # pair for the expansion and the compare
+            bound=bound_ms(m * 12 + nn * 13 + m * 4, m * nn * 10.0),
+            library_ms=cuda_ms(torch, lambda: torch.topk(torch.cdist(q, ref), k, largest=False)),
+        )
+
+    # Q: the net rigid removal on the quality preset's solve from this state
+    qcfg = DynamicFusionConfig.quality_dynamicfusion()
+    solved, _ = ws.solve(qcfg, field, inputs)
+    alpha = cfg.solver_net_rigid_alpha
+    dk, gk = kernels.net_rigid(field.positions, field.dq, field.active, solved.dq, solved.active, alpha)
+    dp, gp = warpfield._remove_net_rigid_plain(field, solved, alpha)
+    err = abs_err(torch, dk, dp)
+    gerr = abs_err(torch, gk, gp)
+    moved = abs_err(torch, dk, solved.dq)
+    two = field.active & (torch.cumsum(field.active.to(torch.int32), 0) <= 2)
+    few = kernels.net_rigid(field.positions, field.dq, two, solved.dq, solved.active, alpha)[0]
+    h3 = torch.randn((3, 3), generator=torch.Generator().manual_seed(3)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.net_rigid(field.positions, field.dq, field.active, solved.dq, solved.active, alpha)
+        try:
+            torch.linalg.svd(h3)
+            svd_syncs = False
+        except RuntimeError:
+            svd_syncs = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[info] torch.linalg.svd of a 3x3 on the card {'waits for the device (a host sync)' if svd_syncs else 'does not sync'}"
+          f" under set_sync_debug_mode('error'); kernel Q does not", flush=True)
+    check("net_rigid", err <= TOL_NET_RIGID and gerr <= TOL_NET_RIGID and torch.equal(few, solved.dq),
+          f"{int(field.active.sum())} active nodes, alpha {alpha}: transforms max |diff| {err:.2e}, G⁻¹ {gerr:.2e} "
+          f"(tol {TOL_NET_RIGID}); the removal moves them by up to {moved:.2e}; two active nodes leave the field as "
+          f"it is {torch.equal(few, solved.dq)}")
+    report["net_rigid"] = dict(
+        err=max(err, gerr),
+        ms=cuda_ms(torch, lambda: kernels.net_rigid(field.positions, field.dq, field.active, solved.dq, solved.active,
+                                                    alpha)),
+        plain_ms=cuda_ms(torch, lambda: warpfield._remove_net_rigid_plain(field, solved, alpha), reps=5),
+        # positions, both transform sets and both masks in, the transforms
+        # out; two transforms, H's products and the cleaned product a node
+        bound=bound_ms(n * (12 + 32 + 32 + 2) + n * 32 + 32, n * 400.0),
+        library_ms=cuda_ms(torch, lambda: torch.linalg.svd(h3)),
+    )
+
+    # F and G under the row modes of the tangential rows
+    lists_b = None
+    for tag, changes in (("stride2", dict(solver_p2p_hessian_stride=2)), ("strided", dict(solver_p2p_hessian_stride=4)),
+                         ("lagged", dict(solver_p2p_lag_hessian=True))):
+        mcfg = dataclasses.replace(qcfg, **changes)
+        used, stride = ws.row_mode(mcfg)
+        s = ws.prepare(mcfg, field, inputs)
+        npt, ne = s.p_can.shape[0], s.e_src.shape[0]
+        lists_b = (npt * 8 + n + 1) * 4
+        dk_ = ws.data_term(mcfg, s, field.dq, True, row_stride=stride)
+        with deterministic(torch):  # the PCG below is held on this system: the same one every run
+            dp_ = ws.data_term(mcfg, s, field.dq, True, plain=True, row_stride=stride)
+        ulps = _bf16_ulps(torch, dk_.rows, dp_.rows)
+        errs = [rel_err(torch, dk_.jtr, dp_.jtr), rel_err(torch, dk_.blocks, dp_.blocks)]
+        check(f"data_term_{tag}", ulps <= 1 and max(errs) <= TOL_DATA_REL,
+              f"{npt} points x 3 rows, row stride {stride}: bf16 rows within {ulps} bf16 step of the plain version's "
+              f"(tol 1); relative diff Jᵀr {errs[0]:.2e}, blocks {errs[1]:.2e} (tol {TOL_DATA_REL})")
+        if tag == "strided":
+            report["data_term_strided"] = dict(
+                err=max(abs_err(torch, dk_.jtr, dp_.jtr), abs_err(torch, dk_.blocks, dp_.blocks)),
+                ms=cuda_ms(torch, lambda: ws.data_term(mcfg, s, field.dq, True, row_stride=stride)),
+                plain_ms=cuda_ms(torch, lambda: ws.data_term(mcfg, s, field.dq, True, plain=True, row_stride=stride),
+                                 reps=3),
+                bound=bound_ms(npt * (36 + 1 + 64 + 32 + 24 + 4) + n * 32 + lists_b + npt * 3 * 96 + n * 144 + n * 24
+                               + 4, npt * 3 * 1500.0 + npt * 8 * 3 * 48.0),
+                library_ms=None,
+            )
+        with deterministic(torch):
+            ep = ws.edge_term(mcfg, s, field.dq, plain=True)
+        blocks_full = dp_.blocks + ep.diag
+        diag_eff, unit = ws.damping_terms(mcfg, field.active, blocks_full)
+        damp = mcfg.solver_lm_lambda_init * diag_eff + unit
+        sysm = ws.System(dp_.rows, ep, damp, used, stride)
+        pv = torch.from_numpy(np.random.RandomState(1).randn(6 * n).astype(np.float32)).to(dev)
+        ak = ws.matvec(s, sysm, pv)
+        err = rel_err(torch, ak, ws.matvec(s, sysm, pv, plain=True))
+        apart = rel_err(torch, ak, ws.matvec(s, ws.System(dp_.rows, ep, damp), pv))
+        check(f"matvec_{tag}", err <= TOL_MATVEC_REL and apart > TOL_MATVEC_REL,
+              f"6N = {6 * n}, rows used {used or 3}, stride {stride}: max relative diff {err:.2e} (tol "
+              f"{TOL_MATVEC_REL}); {apart:.2e} from the all-rows matvec")
+        m = blocks_full + torch.diag_embed(damp.reshape(n, 6))
+        ip = torch.linalg.inv(m.double()).float().contiguous()
+        b = dp_.jtr + ep.jtr
+        on = torch.ones((), dtype=torch.bool, device=dev)
+        iters, rtol = mcfg.solver_linear_iters, mcfg.solver_linear_tol
+        xk = ws.pcg(s, sysm, ip, b, iters, rtol, on)
+        with deterministic(torch):
+            xp = ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True)
+            spread = max(rel_err(torch, ws.pcg(s, sysm, ip, b1, iters, rtol, on, plain=True), xp)
+                         for b1 in ulp_moves(torch, b))
+        finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
+        err = rel_err(torch, xk, xp) if finite else float("inf")
+        tol = max(TOL_PCG_REL, SPREAD_PCG * spread)
+        check(f"pcg_{tag}", finite and err <= tol,
+              f"up to {iters} iterations over 6N = {6 * n}, rows used {used or 3}, stride {stride}: finite {finite}, "
+              f"max relative diff {err:.2e} (tol max({TOL_PCG_REL}, {SPREAD_PCG} x the plain PCG's one-ulp spread "
+              f"{spread:.2e}))")
+        if tag == "stride2":
+            continue
+        ran = pcg_iterations(torch, ws, s, sysm, ip, b, iters, rtol)
+        # the rows in the matrix: every point's plane row, the tangential
+        # rows of one point in ``stride`` (none with the plane rows only)
+        rows_in = npt + (0 if used == 1 else 2 * ((npt + stride - 1) // stride))
+        per_iter = rows_in * 8 * 6 * 2 * 2 + ne * 2 * 72 * 2 + n * (72 + 60)
+        report[f"pcg_{tag}"] = dict(
+            err=abs_err(torch, xk, xp),
+            ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on)),
+            plain_ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True), reps=5),
+            bound=bound_ms(rows_in * 96 + npt * 32 + lists_b + ne * (3 * 144 + 8 + 4) + (n + 1) * 4
+                           + n * (24 + 144 + 24) + n * 24, ran * per_iter + n * 72.0),
+            library_ms=None,
+            iterations=ran,
+        )
 
 
 def hold_raycast(torch, report, name, cfg, tsdf, rays, refine_gathers):
@@ -1407,6 +1655,10 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     off |= set(PCG_KERNELS if cfg.solver_linear == "direct" else DENSE_KERNELS)
     if cfg.solver_linear == "direct" and not cfg.solver_jtj_int8:
         off.add("gram_scales")
+    # the options' kernels: the adaptive radius (E), the net rigid removal
+    # (Q); the dense-matrix PCG (P) runs only in the dense variants
+    off |= {"dense_pcg"} | (set() if cfg.node_radius_adaptive else {"node_radius"})
+    off |= set() if cfg.solver_remove_net_rigid else {"net_rigid"}
     if not cfg.raycast_temporal_band and cfg.raycast_seed_margin <= 0.0:
         off.add("march_bands")
     path = [k for k in kernels.KERNELS if k not in off]
@@ -1874,7 +2126,9 @@ def dense_kernels(torch, report, dev, nr_depths):
     )
     print(f"[info] the factor at 6N = {dof}: {report['cholesky']['ms']:.3f} ms, info {info}; its solve "
           f"{report['cholesky']['solve_ms']:.3f} ms", flush=True)
-    del ok_, chol, gk, gp
+    del ok_, chol
+    dense_pcg_kernel(torch, report, dev, cfg, field, gk, dt.jtr + et.jtr)
+    del gk, gp
 
     # F with the point-to-point rows (point_to_plane=False)
     cfg_p = dataclasses.replace(cfg, point_to_plane=False)
@@ -1895,6 +2149,87 @@ def dense_kernels(torch, report, dev, nr_depths):
         library_ms=None,
     )
     del df
+
+
+def dense_pcg_iterations(torch, ws, a, minv, b, iters, rtol) -> int:
+    """The iterations the plain dense-matrix PCG runs on this system before
+    rᵀr <= rtol² bᵀb (the work this run's data needs)."""
+    r = b
+    z = ws._apply_m(minv, r)
+    p = z
+    rz = torch.dot(r, z)
+    stop2 = rtol * rtol * float(torch.dot(b, b))
+    for it in range(iters):
+        if not float(torch.dot(r, r)) > stop2:
+            return it
+        ap = a @ p
+        r = r - rz / torch.clamp(torch.dot(p, ap), min=1e-30) * ap
+        z = ws._apply_m(minv, r)
+        rz_n = torch.dot(r, z)
+        p = z + rz_n / torch.clamp(rz, min=1e-30) * p
+        rz = rz_n
+    return iters
+
+
+def dense_pcg_kernel(torch, report, dev, cfg, field, jtj, b):
+    """Phase 2 for kernel P (the PCG of solver_linear="pcg" with the
+    unlagged JᵀJ) on the base config's dense system: damped with the
+    solve's first lambda, or the first lambda after rejected steps (x8
+    each) on which the plain PCG's solution is finite; held against the
+    plain PCG within its own spread under a one-ulp move of every matrix
+    entry."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    pcfg = dataclasses.replace(cfg, solver_linear="pcg", solver_lagged_jtj=False)
+    iters, rtol = pcfg.solver_linear_iters, pcfg.solver_linear_tol
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    lam = pcfg.solver_lm_lambda_init
+    for tries in range(8):
+        a = ws.dense_damp(jtj, torch.full((), lam, device=dev), field.active, pcfg.solver_damping_floor)
+        minv = ws.spd6_inv(ws.diag_blocks(a))
+        xp = ws.dense_pcg_plain(a, minv, b, iters, rtol, on)
+        xk = kernels.dense_pcg(a, minv, b, iters, rtol, on)
+        if tries == 0:
+            print(f"[info] kernel P at the first lambda {lam:.1e}: non-finite entries kernel "
+                  f"{int((~torch.isfinite(xk)).sum())}, plain {int((~torch.isfinite(xp)).sum())} of {b.shape[0]}",
+                  flush=True)
+        if bool(torch.isfinite(xp).all()):
+            break
+        lam *= 8.0
+    spread = max(rel_err(torch, ws.dense_pcg_plain(a1, minv, b, iters, rtol, on), xp) for a1 in ulp_moves(torch, a))
+    finite = bool(torch.isfinite(xk).all())
+    err = rel_err(torch, xk, xp) if finite else float("inf")
+    tol = max(TOL_DENSE_PCG_FLOOR, SPREAD_PCG * spread)
+    again = torch.equal(xk, kernels.dense_pcg(a, minv, b, iters, rtol, on))
+    off = not bool(kernels.dense_pcg(a, minv, b, iters, rtol, ~on).any())
+    ran = dense_pcg_iterations(torch, ws, a, minv, b, iters, rtol)
+    check("dense_pcg", finite and err <= tol and again and off,
+          f"6N = {b.shape[0]}, lambda {lam:.1e}, {ran} of {iters} iterations: finite {finite}, max relative diff "
+          f"{err:.2e} (tol max({TOL_DENSE_PCG_FLOOR}, {SPREAD_PCG} x the plain PCG's one-ulp spread {spread:.2e})); "
+          f"the same bits run again {again}; inactive -> 0 {off}")
+    dof = b.shape[0]
+    pv = xp.contiguous()
+    report["dense_pcg"] = dict(
+        err=abs_err(torch, xk, xp),
+        ms=cuda_ms(torch, lambda: kernels.dense_pcg(a, minv, b, iters, rtol, on), reps=10),
+        plain_ms=cuda_ms(torch, lambda: ws.dense_pcg_plain(a, minv, b, iters, rtol, on), reps=3),
+        # the matrix, the preconditioner and b read once, x written (the
+        # matrix does not fit in L2: each iteration reads it again, 151 MB
+        # at 6N = 6 144); 2 (6N)^2 operations an iteration
+        bound=bound_ms(dof * dof * 4 + dof * 6 * 4 + dof * 8, ran * 2.0 * dof * dof),
+        # one GEMV of the damped matrix, as one iteration's matvec
+        library_ms=cuda_ms(torch, lambda: torch.mv(a, pv), reps=10),
+        iterations=ran,
+        iteration_ms=None,
+    )
+    report["dense_pcg"]["iteration_ms"] = report["dense_pcg"]["ms"] / max(ran, 1)
+    print(f"[info] kernel P: {report['dense_pcg']['ms']:.4f} ms a solve of {ran} iterations "
+          f"({report['dense_pcg']['iteration_ms']:.4f} ms an iteration, one torch.mv "
+          f"{report['dense_pcg']['library_ms']:.4f} ms, the matrix read {dof * dof * 4 / 3.35e9:.4f} ms at 3.35 TB/s)",
+          flush=True)
 
 
 def base_main(torch, args, dev, card, nr_depths):
@@ -1936,46 +2271,104 @@ def base_main(torch, args, dev, card, nr_depths):
 
 def variants_main(torch, args, dev, card, nr_depths, base_states):
     """Phase 10: the base config's dense variants (the bf16 Gram, the
-    unlagged JᵀJ, the point-to-point term), three steps each from the base
+    unlagged JᵀJ, the point-to-point term, and the PCG over the dense
+    matrix with the unlagged JᵀJ: kernel P), three steps each from the base
     config's state after frame 3, each step held against the plain step
     from the same state. Returns each variant's launches."""
     import dataclasses
 
-    from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
-    from dynamicfusion_tpu_torch.pipeline import kinfu
 
     out = {}
     for name, changes in VARIANTS:
         cfg = dataclasses.replace(DynamicFusionConfig(), **changes)
-        st = clone_state(base_states[3])
-        kernels.reset_launches()
-        t_err, c_err, same, ms = [], [], True, []
-        for f in range(4, 7):
-            depth = torch.from_numpy(nr_depths[f]).to(dev)
-            before = clone_state(st)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, o = kinfu.step(cfg, st, depth)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            _, op = kinfu.step(cfg, before, depth, plain=True)
-            pk, pp = o.pose.cpu().numpy(), op.pose.cpu().numpy()
-            t_err.append(max(float(np.abs(pk[:3, 3] - pp[:3, 3]).max()), float(np.abs(pk[:3, :3] - pp[:3, :3]).max())))
-            c_err.append(abs(float(op.solver_cost0) - float(o.solver_cost0)) / float(o.solver_cost0))
-            same = same and bool(o.icp_ok) == bool(op.icp_ok) and bool(o.icp_ok) and int(o.node_count) == int(
-                op.node_count) and float(o.solver_cost1) <= float(o.solver_cost0)
-        out[name] = dict(kernels.launches)
-        print(f"[variant] {name} {changes}: 3 steps, ms {' '.join(f'{v:.3f}' for v in ms)}; launches N "
-              f"{out[name]['dense_gram']}, O {out[name]['dense_damp']}, factor {out[name]['cholesky']}, F "
-              f"{out[name]['data_term']}", flush=True)
-        check(f"variant_{name}_step_vs_plain",
-              same and max(t_err) <= TOL_STEP_POSE and max(c_err) <= TOL_STEP_COST0_REL
-              and out[name]["dense_gram"] > 0 and out[name]["cholesky"] > 0,
-              f"ICP healthy, node counts equal, cost not raised {same}; plain step pose diff "
-              f"{' '.join(f'{v:.2e}' for v in t_err)} (tol {TOL_STEP_POSE}), initial cost relative "
-              f"{' '.join(f'{v:.2e}' for v in c_err)} (tol {TOL_STEP_COST0_REL}); N and the factor launched")
+        # the direct variants factor; the dense-matrix PCG runs kernel P instead
+        must = ("dense_gram", "dense_pcg") if cfg.solver_linear == "pcg" else ("dense_gram", "cholesky")
+        out[name] = hold_variant(torch, name, cfg, dev, nr_depths[4:7], base_states[3], must)
     return out
+
+
+def hold_variant(torch, name, cfg, dev, frames, state, must):
+    """Three (``len(frames)``) kernel-path steps of a variant from
+    ``state``, each held against the plain step from the same state (pose
+    TOL_STEP_POSE, initial cost TOL_STEP_COST0_REL relative, ICP health
+    and node counts equal, the cost not raised); the kernels ``must`` have
+    launched. Returns the steps' launches."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    st = clone_state(state)
+    kernels.reset_launches()
+    t_err, c_err, same, ms = [], [], True, []
+    for d in frames:
+        depth = torch.from_numpy(d).to(dev)
+        before = clone_state(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, o = kinfu.step(cfg, st, depth)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        _, op = kinfu.step(cfg, before, depth, plain=True)
+        pk, pp = o.pose.cpu().numpy(), op.pose.cpu().numpy()
+        t_err.append(max(float(np.abs(pk[:3, 3] - pp[:3, 3]).max()), float(np.abs(pk[:3, :3] - pp[:3, :3]).max())))
+        c_err.append(abs(float(op.solver_cost0) - float(o.solver_cost0)) / float(o.solver_cost0))
+        same = same and bool(o.icp_ok) == bool(op.icp_ok) and bool(o.icp_ok) and int(o.node_count) == int(
+            op.node_count) and float(o.solver_cost1) <= float(o.solver_cost0)
+    out = dict(kernels.launches)
+    print(f"[variant] {name}: {len(frames)} steps, ms {' '.join(f'{v:.3f}' for v in ms)}; launches "
+          f"{ {k: out[k] for k in must + ('data_term', 'pcg') if out[k]} }", flush=True)
+    check(f"variant_{name}_step_vs_plain",
+          same and max(t_err) <= TOL_STEP_POSE and max(c_err) <= TOL_STEP_COST0_REL and all(out[k] > 0 for k in must),
+          f"ICP healthy, node counts equal, cost not raised {same}; plain step pose diff "
+          f"{' '.join(f'{v:.2e}' for v in t_err)} (tol {TOL_STEP_POSE}), initial cost relative "
+          f"{' '.join(f'{v:.2e}' for v in c_err)} (tol {TOL_STEP_COST0_REL}); {', '.join(must)} launched")
+    return out
+
+
+def options_main(torch, args, dev, card):
+    """Phase 11: the options cell, ``quality_dynamicfusion()`` with the
+    aperture gate, the tangential rows of every 4th point in the PCG
+    matrix, the adaptive node radius and the net rigid removal at alpha
+    0.5 (``OPTIONS``), over O frames of the hinge scene: the quality
+    cell's checks, kernel L and E's radius entry in frame 0, and M, Q and
+    E's radius (at insertion) once a step; the plain step from each state;
+    then three steps with ``solver_p2p_lag_hessian`` (the plane rows only
+    in the PCG matrix) from the state after frame 3. Returns (the cell's
+    launches, the lagged steps' launches)."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch.io import synthetic
+
+    cfg = options_config()
+    n_prof = 3 if args.profile else 0
+    frames = synthetic.hinge_frames(cfg.intr, cfg.rows, cfg.cols, args.o_frames + n_prof)
+    frames, prof_frames = frames[: args.o_frames], frames[args.o_frames:]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    check_nonrigid_run("options", card, cfg, frames, launches, rows, frame_ms, poses_k)
+    steps = len(frames) - 1
+    check("options_per_step", launches["node_radius"] == 1 + steps and launches["net_rigid"] == steps
+          and launches["p2p_gate"] == steps,
+          f"E's radius once in frame 0 and once a step ({launches['node_radius']}), Q once a step "
+          f"({launches['net_rigid']}), M once a step ({launches['p2p_gate']}) in {steps} steps")
+    w = df.state.warp
+    radius = w.radius[w.active]
+    inside = float(((radius > cfg.node_radius_min) & (radius < cfg.node_radius_max)).float().mean())
+    check("options_radius", inside > 0.0,
+          f"{int(w.count)} nodes, radius min {float(radius.min()):.4f} median {float(radius.median()):.4f} max "
+          f"{float(radius.max()):.4f} m; {inside:.3f} inside the clip [{cfg.node_radius_min}, {cfg.node_radius_max}]")
+    check_steps_vs_plain(torch, "options", cfg, dev, frames, states, poses_k, rows)
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    mp = df.last_outputs.model_points
+    check("options_model_maps", tuple(mp.shape) == (rows_t, cols_t, 3) and bool(torch.isfinite(mp).any()),
+          f"warped model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
+    if args.profile:
+        profile_frames(torch, args, dev, card, df, prof_frames, tag="options", focus=("net_rigid", "node_radius"))
+    del df
+    lag = hold_variant(torch, "options_lag", dataclasses.replace(cfg, solver_p2p_lag_hessian=True), dev, frames[4:7],
+                       states[3], ("pcg", "net_rigid", "node_radius"))
+    del states
+    return launches, lag
 
 
 def parity_nonrigid_main(torch, args, dev, card, nr_depths, report):
@@ -2111,6 +2504,7 @@ def main() -> int:
     ap.add_argument("--p-frames", type=int, default=15, help="frames of reference_parity() rigid at 640x480")
     ap.add_argument("--d-frames", type=int, default=20, help="frames of the base DynamicFusionConfig() non-rigid")
     ap.add_argument("--r-frames", type=int, default=5, help="frames of reference_parity() non-rigid")
+    ap.add_argument("--o-frames", type=int, default=20, help="hinge frames of the options cell")
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of 3 frames of each non-rigid preset and of the reference-"
                          "resolution rigid path here")
@@ -2194,14 +2588,19 @@ def main() -> int:
     del base_states
     print(f"[phase] dense variants done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---------------- 11. reference_parity() non-rigid ----------------
+    # ---------------- 11. the options cell ----------------
+    o_launches, lag_launches = options_main(torch, args, dev, card)
+    print(f"[phase] options cell done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 12. reference_parity() non-rigid ----------------
     pnr_launches = parity_nonrigid_main(torch, args, dev, card, nr_depths, report)
     print(f"[phase] reference-parity non-rigid steps done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---------------- 12. report ----------------
+    # ---------------- 13. report ----------------
     runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches,
             "adaptive": a_launches, "parity_rigid": p_launches, "render": r_launches, "base": base_launches,
-            "base_bf16": v_launches["bf16"], "base_p2p": v_launches["p2p"], "parity_nr": pnr_launches}
+            "base_bf16": v_launches["bf16"], "base_p2p": v_launches["p2p"], "parity_nr": pnr_launches,
+            "options": o_launches, "options_lag": lag_launches, "base_pcg": v_launches["pcg_unlagged"]}
     rows_out = []
     for name, (src, rep) in ROWS.items():
         r = report[name]

@@ -28,7 +28,11 @@
 // system) the 6x6 diagonal block, summed over the node's (point,
 // neighbour) entries in the order of a per-solve node-sorted list (the
 // rows of an entry first): no float atomics, so the result is the same in
-// every run. Pass 3, one block: the cost, summed in a fixed tree.
+// every run. Pass 3, one block: the cost, summed in a fixed tree. With
+// solver_p2p_hessian_stride = s (:1063-1071) pass 1 writes the bf16
+// tangential rows of the points i % s == 0 as bf16(sqrt(s) jac), the rows
+// the factored PCG's matvec reads (kernel G's row mode); the float32
+// Jacobian, Jᵀr and the blocks keep every row unscaled.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -46,7 +50,7 @@ data_points_kernel(const float* __restrict__ p_can, const float* __restrict__ p_
                    const float* __restrict__ n_live, const float* __restrict__ t1v, const float* __restrict__ t2v,
                    const float* __restrict__ psw, const bool* __restrict__ valid,
                    const int64_t* __restrict__ knn_idx, const float* __restrict__ w_knn,
-                   const float* __restrict__ dqs, int np, float c, float cc6,
+                   const float* __restrict__ dqs, int np, float c, float cc6, int hstride, float hscale,
                    float* __restrict__ jac, __nv_bfloat16* __restrict__ rows, float* __restrict__ rw,
                    float* __restrict__ rho_v) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -115,6 +119,8 @@ data_points_kernel(const float* __restrict__ p_can, const float* __restrict__ p_
     }
     return;
   }
+  // the strided tangential rows of the PCG matrix: bf16(sqrt(s) jac)
+  const bool scaled = hstride > 1 && i % hstride == 0;
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     dfk::Quat gq, ge;
@@ -127,7 +133,7 @@ data_points_kernel(const float* __restrict__ p_can, const float* __restrict__ p_
       for (int e = 0; e < 6; ++e) {
         const float v = row[e] * tw;
         jrow[(j * kK + k) * 6 + e] = v;
-        if (brow != nullptr) brow[(j * kK + k) * 6 + e] = __float2bfloat16_rn(v);
+        if (brow != nullptr) brow[(j * kK + k) * 6 + e] = __float2bfloat16_rn(j > 0 && scaled ? v * hscale : v);
       }
     }
   }
@@ -198,14 +204,14 @@ data_nodes_kernel(const float* __restrict__ jac, const float* __restrict__ rw, c
 template <int R, bool kPoint>
 cudaError_t launch(const void* p_can, const void* p_live, const void* n_live, const void* t1, const void* t2,
                    const void* sw, const void* valid, const void* knn_idx, const void* w_knn, const void* dqs, int np,
-                   int n, const void* order, const void* off, float c, float cc6, void* jac, void* rows, void* rw,
-                   void* rho_v, void* jtr, void* blocks, cudaStream_t s) {
+                   int n, const void* order, const void* off, float c, float cc6, int hstride, float hscale,
+                   void* jac, void* rows, void* rw, void* rho_v, void* jtr, void* blocks, cudaStream_t s) {
   if (np > 0) {
     data_points_kernel<R, kPoint><<<(np + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         static_cast<const float*>(p_can), static_cast<const float*>(p_live), static_cast<const float*>(n_live),
         static_cast<const float*>(t1), static_cast<const float*>(t2), static_cast<const float*>(sw),
         static_cast<const bool*>(valid), static_cast<const int64_t*>(knn_idx), static_cast<const float*>(w_knn),
-        static_cast<const float*>(dqs), np, c, cc6, static_cast<float*>(jac),
+        static_cast<const float*>(dqs), np, c, cc6, hstride, hscale, static_cast<float*>(jac),
         static_cast<__nv_bfloat16*>(rows), static_cast<float*>(rw), static_cast<float*>(rho_v));
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -219,25 +225,28 @@ cudaError_t launch(const void* p_can, const void* p_live, const void* n_live, co
 }  // namespace
 
 // nrows 1: point-to-plane (t1, t2, sw unused); 3: with the tangential rows,
-// or with ``point`` the point-to-point rows (n_live, t1, t2, sw unused)
+// or with ``point`` the point-to-point rows (n_live, t1, t2, sw unused);
+// hstride > 1 (tangential rows only): the bf16 rows 1 and 2 of the points
+// i % hstride == 0 are bf16(hscale jac), hscale = sqrt(hstride)
 extern "C" int df_data_term(const void* p_can, const void* p_live, const void* n_live, const void* t1,
                             const void* t2, const void* sw, const void* valid, const void* knn_idx, const void* w_knn,
                             const void* dqs, int np, int n, int nrows, int point, const void* order, const void* off,
-                            float c, float cc6, void* jac, void* rows, void* rw, void* rho_v, void* jtr, void* blocks,
-                            void* cost, void* stream) {
+                            float c, float cc6, int hstride, float hscale, void* jac, void* rows, void* rw, void* rho_v,
+                            void* jtr, void* blocks, void* cost, void* stream) {
+  if (hstride < 1 || (hstride > 1 && (point || nrows != 3))) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (point && nrows == 3) {
     err = launch<3, true>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c, cc6,
-                          jac, rows, rw, rho_v, jtr, blocks, s);
+                          hstride, hscale, jac, rows, rw, rho_v, jtr, blocks, s);
   } else if (point) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else if (nrows == 1) {
     err = launch<1, false>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c,
-                           cc6, jac, rows, rw, rho_v, jtr, blocks, s);
+                           cc6, hstride, hscale, jac, rows, rw, rho_v, jtr, blocks, s);
   } else if (nrows == 3) {
     err = launch<3, false>(p_can, p_live, n_live, t1, t2, sw, valid, knn_idx, w_knn, dqs, np, n, order, off, c,
-                           cc6, jac, rows, rw, rho_v, jtr, blocks, s);
+                           cc6, hstride, hscale, jac, rows, rw, rho_v, jtr, blocks, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,9 +25,10 @@
 // A block scan lists the free slots in ascending order. A device flag
 // (count < cap) gates the whole insertion, so the frame never syncs. The
 // seed dual quaternions of the new nodes come from kernel E (warp_dq_at)
-// between the two passes. Pass 2 (apply): each new node is written into
-// its slot as old + (new - old), the JAX package's delta scatter, and the
-// count grows by a fixed-order block sum.
+// between the two passes, and their radii (node_radius, or kernel E's
+// adaptive radius against the field after the retirement). Pass 2 (apply):
+// each new node is written into its slot as old + (new - old), the JAX
+// package's delta scatter, and the count grows by a fixed-order block sum.
 #include "common.cuh"
 #include "dq.cuh"
 
@@ -141,8 +142,8 @@ __global__ void __launch_bounds__(kBlock)
 insert_apply_kernel(float* __restrict__ pos, float* __restrict__ dq, float* __restrict__ radius,
                     bool* __restrict__ active, int* __restrict__ count, int* __restrict__ last_support,
                     const int64_t* __restrict__ slots, const float* __restrict__ new_pos,
-                    const float* __restrict__ seed_dq, const int* __restrict__ frame_idx, float node_radius,
-                    int cap) {
+                    const float* __restrict__ seed_dq, const int* __restrict__ frame_idx,
+                    const float* __restrict__ new_radius, int cap) {
   __shared__ int sm[kBlock];
   const int fi = *frame_idx;
   int added = 0;
@@ -153,7 +154,7 @@ insert_apply_kernel(float* __restrict__ pos, float* __restrict__ dq, float* __re
     for (int a = 0; a < 3; ++a) pos[3 * s + a] = pos[3 * s + a] + (new_pos[3 * r + a] - pos[3 * s + a]);
 #pragma unroll
     for (int a = 0; a < 8; ++a) dq[8 * s + a] = dq[8 * s + a] + (seed_dq[8 * r + a] - dq[8 * s + a]);
-    radius[s] = radius[s] + (node_radius - radius[s]);
+    radius[s] = radius[s] + (new_radius[r] - radius[s]);
     active[s] = true;
     last_support[s] = last_support[s] + (fi - last_support[s]);
     ++added;
@@ -182,11 +183,11 @@ extern "C" int df_insert_select(const void* cand, const void* cand_d2, const voi
 
 extern "C" int df_insert_apply(void* pos, void* dq, void* radius, void* active, void* count, void* last_support,
                                const void* slots, const void* new_pos, const void* seed_dq, const void* frame_idx,
-                               float node_radius, int cap, void* stream) {
+                               const void* new_radius, int cap, void* stream) {
   insert_apply_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(pos), static_cast<float*>(dq), static_cast<float*>(radius), static_cast<bool*>(active),
       static_cast<int*>(count), static_cast<int*>(last_support), static_cast<const int64_t*>(slots),
       static_cast<const float*>(new_pos), static_cast<const float*>(seed_dq), static_cast<const int*>(frame_idx),
-      node_radius, cap);
+      static_cast<const float*>(new_radius), cap);
   return static_cast<int>(cudaGetLastError());
 }

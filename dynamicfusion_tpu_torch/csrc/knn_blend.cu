@@ -5,7 +5,7 @@
 //
 // Replaces dynamicfusion_tpu/models/warpfield.py:148 knn, :199
 // nearest_dist2, :225 weights_from_dist2, :233 warp_points, :267
-// _mutual_nearest, :529 warp_dq_at; solvers/warp_solver.py:159 build_edges'
+// _mutual_nearest, :529 warp_dq_at, :78 _adaptive_radius; solvers/warp_solver.py:159 build_edges'
 // KNN; ops/fusion.py:77 coarse_field, :109 warp_points_trilinear, :153
 // warp_coarse_grid. On the TPU the (queries, nodes) distance matrix is an
 // MXU matmul followed by lax.top_k; here the matrix is never formed.
@@ -25,6 +25,16 @@
 // (+1e9 for inactive nodes), clamped at 0 after the selection. The blend,
 // the sign pivot (first neighbour) and the transform follow dq.cuh, which
 // mirrors the plain PyTorch version.
+// _adaptive_radius (warpfield.py:78, the per-node radius of
+// node_radius_adaptive) is one thread per query too: the expansion against
+// the staged reference nodes with its three-term sums as the JAX package's
+// jitted graph on the CPU computes them, chains of fused multiply-adds
+// (x2 y2 + (x1 y1 + x0 y0), each rounded once: __fmaf_rn, which
+// -fmad=false leaves alone), so that the k-th value, and through the
+// cancellation of the expansion the radius, come out bit for bit; the k
+// smallest squared distances kept in registers (only the k-th enters the
+// radius, so ties need no order), then clip(scale sqrt(max(d2_k, 0)),
+// min, max).
 // _mutual_nearest's per-node minimum over valid candidates is reduced in
 // shared memory and then across blocks with an integer atomicMin on the
 // bits of the (clamped, non-negative) float: a min does not depend on the
@@ -178,6 +188,54 @@ mutual_nearest_kernel(const float* __restrict__ pos, const bool* __restrict__ ac
   if (live) cand_d2[i] = fmaxf(best, 0.0f);
 }
 
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+node_radius_kernel(const float* __restrict__ ref, const bool* __restrict__ ref_ok, int n,
+                   const float* __restrict__ queries, int nq, float scale, float rmin, float rmax,
+                   float* __restrict__ out) {
+  __shared__ float sx[kTile], sy[kTile], sz[kTile], snn[kTile], sbig[kTile];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < nq;
+  const float qx = live ? queries[3 * i] : 0.0f;
+  const float qy = live ? queries[3 * i + 1] : 0.0f;
+  const float qz = live ? queries[3 * i + 2] : 0.0f;
+  const float qq = __fmaf_rn(qz, qz, __fmaf_rn(qy, qy, qx * qx));
+  float bd[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) bd[s] = INFINITY;
+  for (int base = 0; base < n; base += kTile) {
+    __syncthreads();
+    for (int j = threadIdx.x; j < kTile && base + j < n; j += blockDim.x) {
+      const float px = ref[3 * (base + j)], py = ref[3 * (base + j) + 1], pz = ref[3 * (base + j) + 2];
+      sx[j] = px;
+      sy[j] = py;
+      sz[j] = pz;
+      snn[j] = __fmaf_rn(pz, pz, __fmaf_rn(py, py, px * px));
+      sbig[j] = ref_ok[base + j] ? 0.0f : kBig;
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int m = min(kTile, n - base);
+    for (int j = 0; j < m; ++j) {
+      const float qn = __fmaf_rn(qz, sz[j], __fmaf_rn(qy, sy[j], qx * sx[j]));
+      float cd = ((qq - 2.0f * qn) + snn[j]) + sbig[j];
+      if (!(cd < bd[K - 1])) continue;
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        if (cd < bd[s]) {
+          const float t = bd[s];
+          bd[s] = cd;
+          cd = t;
+        }
+      }
+    }
+  }
+  if (!live) return;
+  float r = scale * sqrtf(fmaxf(bd[K - 1], 0.0f));
+  r = r < rmin ? rmin : r;
+  out[i] = r > rmax ? rmax : r;
+}
+
 __global__ void fill_bits_kernel(int* __restrict__ bits, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) bits[i] = __float_as_int(kBig);
@@ -282,5 +340,29 @@ extern "C" int df_warp_trilinear(const void* grid, int dc, const void* pts, cons
   warp_trilinear_kernel<<<(nq + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(grid), dc, static_cast<const float*>(pts), static_cast<const float*>(nrm), nq,
       ox, oy, oz, cell, static_cast<float*>(pts_out), static_cast<float*>(nrm_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// radius (Q,) of each query: clip(scale x the k-th smallest squared
+// distance's root, rmin, rmax) over the active reference nodes (1 <= k <= 16)
+extern "C" int df_node_radius(const void* ref, const void* ref_ok, int n, const void* queries, int nq, int k,
+                              float scale, float rmin, float rmax, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  const int blocks = (nq + kThreads - 1) / kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DF_RADIUS(K)                                                                                        \
+  case K:                                                                                                   \
+    node_radius_kernel<K><<<blocks, kThreads, 0, s>>>(static_cast<const float*>(ref),                       \
+                                                      static_cast<const bool*>(ref_ok), n,                  \
+                                                      static_cast<const float*>(queries), nq, scale, rmin, \
+                                                      rmax, static_cast<float*>(out));                      \
+    break;
+  switch (k) {
+    DF_RADIUS(1) DF_RADIUS(2) DF_RADIUS(3) DF_RADIUS(4) DF_RADIUS(5) DF_RADIUS(6) DF_RADIUS(7) DF_RADIUS(8)
+    DF_RADIUS(9) DF_RADIUS(10) DF_RADIUS(11) DF_RADIUS(12) DF_RADIUS(13) DF_RADIUS(14) DF_RADIUS(15) DF_RADIUS(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DF_RADIUS
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,13 @@
 // `active` flag in device memory turns the launch into x = 0, so an LM
 // iteration that is past convergence costs nothing and the host never
 // reads a value. The bf16 rounding points are the JAX package's: the
-// vector and the intermediate t are rounded, sums run in float32.
+// vector and the intermediate t are rounded, sums run in float32. The row
+// modes of the tangential term (:1035-1085) are arguments of the matvec:
+// solver_p2p_lag_hessian reads only the plane row of each point, and
+// solver_p2p_hessian_stride = s the plane row of every point and the two
+// tangential rows of the points pt % s == 0 (pt in the solve structure's
+// order, JAX's jac[::s]), which kernel F wrote as bf16(sqrt(s) jac); rows
+// out of the matrix are neither read nor summed.
 // The edge entry is one thread per edge (closed-form Jacobians from
 // dq.cuh) and one thread per node for its share of Jᵀr and of the
 // diagonal blocks, again in list order; spd6_inv is one thread per node,
@@ -212,15 +218,38 @@ struct Sys {
   const int* e_off;    // (N + 1,)
   const float* damp;   // (6N,)
   int np, n, kc;
+  // the tangential rows' stride of the strided row mode
+  int stride;
 };
+
+// the row modes of the matvec, template arguments so that the three-row
+// matrix keeps its own code: every row of every point; the plane rows only
+// (solver_p2p_lag_hessian); the plane row of every point and the
+// tangential rows of the points pt % stride == 0 (solver_p2p_hessian_stride,
+// rows kernel F wrote scaled by sqrt(stride))
+enum RowMode { kAllRows = 0, kPlaneRows = 1, kStridedRows = 2 };
+
+// the rows of point pt in the matrix
+template <int R, int M>
+__device__ __forceinline__ int rows_in(const Sys& S, int pt) {
+  if constexpr (M == kAllRows) return R;
+  else if constexpr (M == kPlaneRows) return 1;
+  else return pt % S.stride == 0 ? R : 1;
+}
 
 // ap = A p for the whole block, R residual rows a point; t is (P R,)
 // scratch, one entry per (point, row). Ends synchronized.
-template <int R>
+template <int R, int M>
 __device__ void block_matvec(const Sys& S, const float* __restrict__ p, float* __restrict__ ap,
                              float* __restrict__ t) {
-  for (int q = threadIdx.x; q < S.np * R; q += blockDim.x) {
+  // (point, row) pairs; the plane-rows mode walks the points' plane rows only
+  const int nq = M == kPlaneRows ? S.np : S.np * R;
+  for (int i = threadIdx.x; i < nq; i += blockDim.x) {
+    const int q = M == kPlaneRows ? i * R : i;
     const int pt = q / R;
+    if constexpr (M == kStridedRows) {
+      if (q - pt * R >= rows_in<R, M>(S, pt)) continue;
+    }
     float acc = 0.0f;
     for (int k = 0; k < kK; ++k) {
       const int nd = S.idx[pt * kK + k];
@@ -239,9 +268,11 @@ __device__ void block_matvec(const Sys& S, const float* __restrict__ p, float* _
       // row j of entry (pt, k) of the (P, R, K, 6) rows: ent + (pt (R - 1) + j) K
       const size_t e0 = static_cast<size_t>(ent) + static_cast<size_t>(pt) * (R - 1) * kK;
       // an entry's rows are summed first, as the plain version does
+      const int nrow = rows_in<R, M>(S, pt);
       float s[6];
 #pragma unroll
       for (int j = 0; j < R; ++j) {
+        if (M != kAllRows && j >= nrow) continue;
         const float tv = t[pt * R + j];
         const __nv_bfloat16* r = S.rows + (e0 + j * kK) * 6;
 #pragma unroll
@@ -289,24 +320,6 @@ __device__ void block_matvec(const Sys& S, const float* __restrict__ p, float* _
   __syncthreads();
 }
 
-// fixed-order block sum of one value per thread; every thread gets the total
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float t = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.0f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
-    if (threadIdx.x == 0) red[32] = t;
-  }
-  __syncthreads();
-  const float total = red[32];
-  __syncthreads();
-  return total;
-}
-
 // sum over the thread's nodes of a·b
 __device__ float node_dot(const float* a, const float* b, int n) {
   float s = 0.0f;
@@ -330,13 +343,13 @@ __device__ void apply_m(const float* __restrict__ minv, const float* __restrict_
   }
 }
 
-template <int R>
+template <int R, int M>
 __global__ void __launch_bounds__(kBlock) matvec_kernel(Sys S, const float* __restrict__ p, float* __restrict__ ap,
                                                         float* __restrict__ t) {
-  block_matvec<R>(S, p, ap, t);
+  block_matvec<R, M>(S, p, ap, t);
 }
 
-template <int R>
+template <int R, int M>
 __global__ void __launch_bounds__(kBlock)
 pcg_kernel(Sys S, const float* __restrict__ minv, const float* __restrict__ b, int iters, float rtol2,
            const bool* __restrict__ active, float* __restrict__ x, float* __restrict__ work) {
@@ -370,7 +383,7 @@ pcg_kernel(Sys S, const float* __restrict__ minv, const float* __restrict__ b, i
   for (int it = 0; it < iters; ++it) {
     const float rr = block_sum(node_dot(r, r, n), red);
     if (!(rr > stop2)) break;
-    block_matvec<R>(S, p, ap, t);
+    block_matvec<R, M>(S, p, ap, t);
     const float alpha = rz / fmaxf(block_sum(node_dot(p, ap, n), red), 1e-30f);
     for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
 #pragma unroll
@@ -394,11 +407,19 @@ pcg_kernel(Sys S, const float* __restrict__ minv, const float* __restrict__ b, i
 
 Sys make_sys(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* h_ii,
              const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order, const void* e_off,
-             const void* damp, int np, int n, int kc) {
+             const void* damp, int np, int n, int kc, int stride) {
   return {static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(idx), static_cast<const int*>(pt_order),
           static_cast<const int*>(pt_off), static_cast<const float*>(h_ii), static_cast<const float*>(h_jj),
           static_cast<const float*>(h_ij), static_cast<const int*>(e_dst), static_cast<const int*>(e_order),
-          static_cast<const int*>(e_off), static_cast<const float*>(damp), np, n, kc};
+          static_cast<const int*>(e_off), static_cast<const float*>(damp), np, n, kc, stride};
+}
+
+// the row mode of (R rows, ``used`` of them, tangential ``stride``), -1 if invalid
+int row_mode(int nrows, int used, int stride) {
+  if (!(nrows == 1 || nrows == 3) || !(used == 1 || used == nrows) || stride < 1) return -1;
+  if (nrows == 1 || (used == nrows && stride == 1)) return kAllRows;
+  if (used == 1) return stride == 1 ? kPlaneRows : -1;
+  return kStridedRows;
 }
 
 }  // namespace
@@ -435,36 +456,48 @@ extern "C" int df_spd6_inv(const void* m, int n, void* out, void* stream) {
 
 extern "C" int df_matvec(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* h_ii,
                          const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order, const void* e_off,
-                         const void* damp, int np, int n, int kc, int nrows, const void* p, void* ap, void* t,
-                         void* stream) {
-  const Sys S = make_sys(rows, idx, pt_order, pt_off, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc);
+                         const void* damp, int np, int n, int kc, int nrows, int used, int stride, const void* p,
+                         void* ap, void* t, void* stream) {
+  const int mode = row_mode(nrows, used, stride);
+  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Sys S = make_sys(rows, idx, pt_order, pt_off, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc, stride);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* pp = static_cast<const float*>(p);
+  float* a = static_cast<float*>(ap);
+  float* tt = static_cast<float*>(t);
   if (nrows == 1) {
-    matvec_kernel<1><<<1, kBlock, 0, st>>>(S, pp, static_cast<float*>(ap), static_cast<float*>(t));
-  } else if (nrows == 3) {
-    matvec_kernel<3><<<1, kBlock, 0, st>>>(S, pp, static_cast<float*>(ap), static_cast<float*>(t));
+    matvec_kernel<1, kAllRows><<<1, kBlock, 0, st>>>(S, pp, a, tt);
+  } else if (mode == kAllRows) {
+    matvec_kernel<3, kAllRows><<<1, kBlock, 0, st>>>(S, pp, a, tt);
+  } else if (mode == kPlaneRows) {
+    matvec_kernel<3, kPlaneRows><<<1, kBlock, 0, st>>>(S, pp, a, tt);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    matvec_kernel<3, kStridedRows><<<1, kBlock, 0, st>>>(S, pp, a, tt);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int df_pcg(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* h_ii,
                       const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order, const void* e_off,
-                      const void* damp, int np, int n, int kc, int nrows, const void* minv, const void* b,
-                      int iters, float rtol2, const void* active, void* x, void* work, void* stream) {
-  const Sys S = make_sys(rows, idx, pt_order, pt_off, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc);
+                      const void* damp, int np, int n, int kc, int nrows, int used, int stride, const void* minv,
+                      const void* b, int iters, float rtol2, const void* active, void* x, void* work, void* stream) {
+  const int mode = row_mode(nrows, used, stride);
+  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Sys S = make_sys(rows, idx, pt_order, pt_off, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc, stride);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(minv);
   const float* bb = static_cast<const float*>(b);
   const bool* on = static_cast<const bool*>(active);
+  float* xv = static_cast<float*>(x);
+  float* w = static_cast<float*>(work);
   if (nrows == 1) {
-    pcg_kernel<1><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, static_cast<float*>(x), static_cast<float*>(work));
-  } else if (nrows == 3) {
-    pcg_kernel<3><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, static_cast<float*>(x), static_cast<float*>(work));
+    pcg_kernel<1, kAllRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
+  } else if (mode == kAllRows) {
+    pcg_kernel<3, kAllRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
+  } else if (mode == kPlaneRows) {
+    pcg_kernel<3, kPlaneRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    pcg_kernel<3, kStridedRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
   }
   return static_cast<int>(cudaGetLastError());
 }

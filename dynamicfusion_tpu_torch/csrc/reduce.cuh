@@ -1,5 +1,5 @@
-// Fixed-order reductions shared by kernels F and G: no float atomics, the
-// same association in every run.
+// Fixed-order reductions shared by kernels F, G and P: no float atomics,
+// the same association in every run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,6 +24,24 @@ __global__ void __launch_bounds__(kReduceThreads) sum_kernel(const float* __rest
     for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
     if (threadIdx.x == 0) out[0] = t;
   }
+}
+
+// fixed-order block sum of one value per thread; every thread gets the total
+__device__ inline float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float t = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
+    if (threadIdx.x == 0) red[32] = t;
+  }
+  __syncthreads();
+  const float total = red[32];
+  __syncthreads();
+  return total;
 }
 
 }  // namespace

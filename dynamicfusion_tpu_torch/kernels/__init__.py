@@ -35,6 +35,7 @@ SOURCES = (
     "bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu",
     "knn_blend.cu", "data_term.cu", "pcg.cu", "insert_nodes.cu",
     "preprocess.cu", "bands.cu", "classify.cu", "extract.cu", "p2p_gate.cu", "dense_system.cu",
+    "net_rigid.cu", "dense_pcg.cu",
 )
 HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh")
 NVCC_FLAGS = (
@@ -50,14 +51,16 @@ NVCC_FLAGS = (
 # docstring (A-D the rigid slice, E-H the non-rigid one, I-K the per-frame
 # stencils and the brick plan, L frame 0's extraction and node sampling, M
 # the aperture gate, N and O the dense normal equations and their damping
-# of the direct solve); ``cholesky`` counts the direct solve's factor, a
-# cuSOLVER call, as the JAX package's is its library's
+# of the direct solve, P the dense-matrix PCG, Q the net rigid removal);
+# ``cholesky`` counts the direct solve's factor, a cuSOLVER call, as the
+# JAX package's is its library's
 KERNELS = (
     "bilateral", "icp_reduce", "raycast", "fuse_bricks",
     "knn_blend", "mutual_nearest", "warp_trilinear", "data_term",
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
     "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "coarse_band", "brick_plan",
     "extract_cloud", "sample_nodes", "p2p_gate", "gram_scales", "dense_gram", "dense_damp", "cholesky",
+    "node_radius", "dense_pcg", "net_rigid",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -80,14 +83,15 @@ _SIGNATURES = {
     "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
     "df_warp_trilinear": (_P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
     "df_data_term": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P, _P, _P, _P,
+        _P,
     ),
     "df_edge_term": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "df_spd6_inv": (_P, _I, _P, _P),
-    "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "df_pcg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
+    "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "df_pcg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
     "df_insert_select": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P),
-    "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P),
+    "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
     "df_pyramid_down": (_P, _I, _I, _F, _P, _P),
     "df_points_normals": (_P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
@@ -104,6 +108,9 @@ _SIGNATURES = {
     "df_gram_scales": (_P, _I, _P, _P, _I, _P, _P),
     "df_dense_gram": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "df_dense_damp": (_P, _P, _P, _I, _F, _P, _P, _P),
+    "df_node_radius": (_P, _P, _I, _P, _I, _I, _F, _F, _F, _P, _P),
+    "df_dense_pcg": (_P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
+    "df_net_rigid": (_P, _P, _P, _P, _P, _I, _F, _F, _P, _P, _P),
 }
 
 
@@ -507,6 +514,24 @@ def warp_trilinear(dq_grid, points, normals, origin, cell: float):
     return wp, wn
 
 
+def node_radius(ref_pos, ref_ok, queries, k: int, scale: float, rmin: float, rmax: float) -> torch.Tensor:
+    """Kernel E's radius entry: (Q,) clip(scale sqrt(max(d2_k, 0)), rmin,
+    rmax), d2_k the k-th smallest squared distance (the expansion, +1e9
+    for references not ``ref_ok``) of each finite query to the (N, 3)
+    reference nodes, 1 <= k <= min(16, N)."""
+    n = _check_field(ref_pos, ref_ok, None, None)
+    nq = _check_points(queries, "queries")
+    if not 1 <= k <= min(16, n):
+        raise ValueError(f"node_radius: k must be in [1, min(16, {n})], got {k}")
+    _same_device(ref_pos, ref_ok, queries)
+    lib = load()
+    out = torch.empty((nq,), dtype=torch.float32, device=queries.device)
+    rc = lib.df_node_radius(ref_pos.data_ptr(), ref_ok.data_ptr(), n, queries.data_ptr(), nq, k, _f32(scale),
+                            _f32(rmin), _f32(rmax), out.data_ptr(), _stream(queries.device))
+    _done("node_radius", rc)
+    return out
+
+
 # --------------------------------------------------------------------------
 # kernel F: data term
 # --------------------------------------------------------------------------
@@ -518,13 +543,15 @@ def _check_lists(order, off, m: int, n: int) -> None:
 
 
 def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tukey_c: float, system: bool,
-              t1=None, t2=None, sw=None, point: bool = False):
+              t1=None, t2=None, sw=None, point: bool = False, row_stride: int = 1):
     """Kernel F (csrc/data_term.cu): (Jᵀr (6N,), cost (), bf16 rows
     (P, R, 8, 6) | None, diagonal blocks (N, 6, 6) | None) of the Tukey-
     weighted data term at eps = 0; the rows and blocks only with
     ``system``. R = 1, point-to-plane; with the tangent basis ``t1``, ``t2``
     (P, 3) and the per-point weight ``sw`` (P,), R = 3: [n·d, sw t1·d,
-    sw t2·d]; with ``point``, R = 3: d = warp(p_can) - p_live itself."""
+    sw t2·d]; with ``point``, R = 3: d = warp(p_can) - p_live itself.
+    ``row_stride`` s > 1 (tangential rows only) writes the bf16 tangential
+    rows of the points p % s == 0 as bf16(sqrt(s) jac)."""
     np_ = _check_points(p_can, "p_can")
     for t, nm in ((p_live, "p_live"), (n_live, "n_live")):
         _check(t, nm, torch.float32, (np_, 3))
@@ -533,6 +560,8 @@ def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tuk
         raise ValueError("the tangential rows need t1, t2 and sw together")
     if tangential and point:
         raise ValueError("the point-to-point rows take no tangent basis")
+    if row_stride < 1 or (row_stride > 1 and not tangential):
+        raise ValueError(f"row_stride {row_stride}: a stride > 1 needs the tangential rows")
     if tangential:
         _check(t1, "t1", torch.float32, (np_, 3))
         _check(t2, "t2", torch.float32, (np_, 3))
@@ -560,7 +589,8 @@ def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tuk
     rc = lib.df_data_term(
         p_can.data_ptr(), p_live.data_ptr(), n_live.data_ptr(), ptr(t1), ptr(t2), ptr(sw), valid.data_ptr(),
         knn_idx.data_ptr(), w_knn.data_ptr(), dqs.data_ptr(), np_, n, nr, int(point), order.data_ptr(), off.data_ptr(),
-        _f32(tukey_c), _f32(tukey_c * tukey_c / 6.0), jac.data_ptr(), ptr(rows), rw.data_ptr(), rho.data_ptr(),
+        _f32(tukey_c), _f32(tukey_c * tukey_c / 6.0), row_stride, _f32(np.sqrt(row_stride)), jac.data_ptr(),
+        ptr(rows), rw.data_ptr(), rho.data_ptr(),
         jtr.data_ptr(), ptr(blocks), cost.data_ptr(), _stream(dev),
     )
     _done("data_term", rc)
@@ -634,6 +664,16 @@ class FactoredSystem(NamedTuple):
     damp: torch.Tensor      # (6N,)
 
 
+def _row_mode(nr: int, used: Optional[int], stride: int) -> Tuple[int, int]:
+    """(rows used, tangential stride) of the matvec's row mode: all R rows
+    of every point by default; 1 the plane row only; with R = 3, ``stride``
+    s > 1 the tangential rows of the points p % s == 0 only."""
+    used = nr if used is None else used
+    if used not in (1, nr) or stride < 1 or (stride > 1 and (nr != 3 or used != 3)):
+        raise ValueError(f"row mode: {used} of {nr} rows, stride {stride}")
+    return used, stride
+
+
 def _system_args(s: FactoredSystem):
     _check(s.rows, "rows", torch.bfloat16)
     if s.rows.dim() != 4 or s.rows.shape[1] not in (1, 3) or s.rows.shape[2:] != (8, 6):
@@ -661,25 +701,30 @@ def _system_args(s: FactoredSystem):
     return ptrs, (idx32, dst32), np_ * nr, n
 
 
-def matvec(s: FactoredSystem, p: torch.Tensor) -> torch.Tensor:
+def matvec(s: FactoredSystem, p: torch.Tensor, used: Optional[int] = None, stride: int = 1) -> torch.Tensor:
     """Kernel G: (rows_bf16ᵀ bf16(rows_bf16 bf16(p))) + edge blocks p +
-    damp p, one block; t = bf16(row · bf16(p)) per (point, row)."""
+    damp p, one block; t = bf16(row · bf16(p)) per (point, row), over the
+    rows of the row mode (``used``, ``stride``: ``_row_mode``)."""
     ptrs, keep, n_rows, n = _system_args(s)
+    mode = _row_mode(s.rows.shape[1], used, stride)
     _check(p, "p", torch.float32, (6 * n,))
     lib = load()
     ap = torch.empty_like(p)
     t = torch.empty((max(n_rows, 1),), dtype=torch.float32, device=p.device)
-    rc = lib.df_matvec(*ptrs, p.data_ptr(), ap.data_ptr(), t.data_ptr(), _stream(p.device))
+    rc = lib.df_matvec(*ptrs, *mode, p.data_ptr(), ap.data_ptr(), t.data_ptr(), _stream(p.device))
     _done("matvec", rc)
     del keep
     return ap
 
 
-def pcg(s: FactoredSystem, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float, active: torch.Tensor):
+def pcg(s: FactoredSystem, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float, active: torch.Tensor,
+        used: Optional[int] = None, stride: int = 1):
     """Kernel G: the whole block-Jacobi PCG solve from x = 0 in one launch;
     at most ``iters`` iterations while rᵀr > rtol² bᵀb; ``active`` (a ()
-    bool device tensor) False returns zeros."""
+    bool device tensor) False returns zeros; the matvec's row mode as in
+    ``matvec``."""
     ptrs, keep, n_rows, n = _system_args(s)
+    mode = _row_mode(s.rows.shape[1], used, stride)
     _check(minv, "minv", torch.float32, (n, 6, 6))
     _check(b, "b", torch.float32, (6 * n,))
     _check(active, "active", torch.bool, ())
@@ -688,7 +733,7 @@ def pcg(s: FactoredSystem, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol
     x = torch.empty_like(b)
     work = torch.empty((4 * 6 * n + max(n_rows, 1),), dtype=torch.float32, device=b.device)
     rc = lib.df_pcg(
-        *ptrs, minv.data_ptr(), b.data_ptr(), iters, _f32(rtol * rtol), active.data_ptr(),
+        *ptrs, *mode, minv.data_ptr(), b.data_ptr(), iters, _f32(rtol * rtol), active.data_ptr(),
         x.data_ptr(), work.data_ptr(), _stream(b.device),
     )
     _done("pcg", rc)
@@ -782,6 +827,31 @@ def dense_damp(jtj: torch.Tensor, lm_lambda: torch.Tensor, active: torch.Tensor,
     return out
 
 
+def dense_pcg(a: torch.Tensor, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float,
+              active: torch.Tensor) -> torch.Tensor:
+    """Kernel P (csrc/dense_pcg.cu, 1 + 2 ``iters`` launches): block-Jacobi
+    PCG from x = 0 over the dense (6N, 6N) float32 matrix ``a`` with the
+    (N, 6, 6) preconditioner ``minv``, at most ``iters`` iterations while
+    rᵀr > rtol² bᵀb (a device flag, no host sync); ``active`` (a () bool
+    device tensor) False returns zeros."""
+    _check(a, "a", torch.float32)
+    dof = a.shape[0]
+    if a.dim() != 2 or a.shape[1] != dof or dof % 6:
+        raise ValueError(f"a: expected (6N, 6N), got {tuple(a.shape)}")
+    n = dof // 6
+    _check(minv, "minv", torch.float32, (n, 6, 6))
+    _check(b, "b", torch.float32, (dof,))
+    _check(active, "active", torch.bool, ())
+    _same_device(a, minv, b, active)
+    lib = load()
+    x = torch.empty_like(b)
+    work = torch.empty((4 * dof + 3,), dtype=torch.float32, device=b.device)
+    rc = lib.df_dense_pcg(a.data_ptr(), minv.data_ptr(), b.data_ptr(), n, iters, _f32(rtol * rtol), active.data_ptr(),
+                          x.data_ptr(), work.data_ptr(), _stream(b.device))
+    _done("dense_pcg", rc)
+    return x
+
+
 def cholesky(a: torch.Tensor) -> torch.Tensor:
     """The direct solve's factor: cuSOLVER's lower Cholesky factor through
     ``torch.linalg.cholesky_ex`` (no host sync), NaN where ``a`` is not
@@ -829,9 +899,10 @@ def insert_select(candidates, cand_d2, valid, active, count, gate, coverage: flo
     return slots, new_pos
 
 
-def insert_apply(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx, node_radius):
+def insert_apply(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx, new_radius):
     """Kernel H's apply pass: a NEW field with the selected nodes written
-    into their slots (old + (new - old)) and the count raised."""
+    into their slots (old + (new - old)), the r-th new node with the radius
+    ``new_radius[r]``, and the count raised."""
     n = _check_field(positions, active, radius, dq)
     _check(count, "count", torch.int32, ())
     _check(last_support, "last_support", torch.int32, (n,))
@@ -839,12 +910,13 @@ def insert_apply(positions, dq, radius, active, count, last_support, slots, new_
     _check(new_pos, "new_pos", torch.float32, (n, 3))
     _check(seed_dq, "seed_dq", torch.float32, (n, 8))
     _check(frame_idx, "frame_idx", torch.int32, ())
-    _same_device(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx)
+    _check(new_radius, "new_radius", torch.float32, (n,))
+    _same_device(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx, new_radius)
     lib = load()
     out = [t.clone() for t in (positions, dq, radius, active, count, last_support)]
     rc = lib.df_insert_apply(
         *(t.data_ptr() for t in out), slots.data_ptr(), new_pos.data_ptr(), seed_dq.data_ptr(),
-        frame_idx.data_ptr(), _f32(node_radius), n, _stream(positions.device),
+        frame_idx.data_ptr(), new_radius.data_ptr(), n, _stream(positions.device),
     )
     _done("insert_apply", rc)
     return tuple(out)
@@ -1161,3 +1233,29 @@ def p2p_gate(live_pts_w, live_nrm_w, prev_model_w, cam_z, window: int, cond0: fl
     )
     _done("p2p_gate", rc)
     return gate, bins
+
+
+# --------------------------------------------------------------------------
+# kernel Q: the net rigid removal
+# --------------------------------------------------------------------------
+
+
+def net_rigid(positions, prev_dq, prev_active, new_dq, new_active, alpha: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel Q (csrc/net_rigid.cu, one launch): (the new transforms (N, 8)
+    with the net rigid motion between the pre-solve (``prev_dq``) and the
+    post-solve (``new_dq``) live node positions removed from every node
+    active in ``new_active``, the removed G⁻¹ blended toward the identity
+    by ``alpha`` (8,)); the weights are ``prev_active``; nothing changes
+    unless at least three nodes weigh and all is finite."""
+    n = _check_field(positions, prev_active, None, prev_dq)
+    _check(new_dq, "new_dq", torch.float32, (n, 8))
+    _check(new_active, "new_active", torch.bool, (n,))
+    _same_device(positions, prev_dq, prev_active, new_dq, new_active)
+    lib = load()
+    out = torch.empty_like(new_dq)
+    g = torch.empty((8,), dtype=torch.float32, device=new_dq.device)
+    rc = lib.df_net_rigid(positions.data_ptr(), prev_dq.data_ptr(), prev_active.data_ptr(), new_dq.data_ptr(),
+                          new_active.data_ptr(), n, _f32(alpha), _f32(1.0 - alpha), out.data_ptr(), g.data_ptr(),
+                          _stream(new_dq.device))
+    _done("net_rigid", rc)
+    return out, g

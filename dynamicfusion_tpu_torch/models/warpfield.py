@@ -3,10 +3,12 @@ a static-capacity set of nodes with an active mask, exact brute-force KNN,
 Gaussian blending weights, DQB warps, and node insertion with its capacity
 lifecycle.
 
-KNN, the blend and the point warp are CUDA kernel E (``csrc/knn_blend.cu``)
-on CUDA tensors; the insertion's decimation, ranking and slot allocation
-are kernel H (``csrc/insert_nodes.cu``); frame 0's node sampling is kernel
-L (``csrc/extract.cu``). The plain versions here do the
+KNN, the blend, the point warp and the adaptive node radius are CUDA
+kernel E (``csrc/knn_blend.cu``) on CUDA tensors; the insertion's
+decimation, ranking and slot allocation are kernel H
+(``csrc/insert_nodes.cu``); frame 0's node sampling is kernel L
+(``csrc/extract.cu``); the removal of the net rigid motion is kernel Q
+(``csrc/net_rigid.cu``). The plain versions here do the
 same arithmetic for CPU tensors (or where the caller asks for them). The
 squared distance is the JAX package's expansion
 ``(|q|^2 - 2 q.n) + |n|^2 (+ 1e9 for inactive nodes)``, clamped at 0 after
@@ -25,7 +27,7 @@ import torch
 
 from dynamicfusion_tpu_torch import device as device_mod, kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
-from dynamicfusion_tpu_torch.core import compact, dualquat
+from dynamicfusion_tpu_torch.core import compact, dualquat, quat
 
 _BIG = 1e9
 _CHUNK = 4096  # queries per distance-matrix chunk of the plain versions
@@ -84,10 +86,10 @@ def init_from_cloud(
 ) -> WarpField:
     """Every ``node_sample_step``-th valid surface vertex becomes a node
     with identity transform; candidates are permuted first (``_fair_perm``)
-    and truncated at ``max_nodes``. Kernel L on CUDA tensors, the plain
-    version on CPU tensors or where the caller asks."""
-    if cfg.node_radius_adaptive:
-        raise NotImplementedError("adaptive node radius: a later slice")
+    and truncated at ``max_nodes``; with ``node_radius_adaptive`` each node
+    takes the radius of its own sampling density (``adaptive_radius``).
+    Kernel L on CUDA tensors, the plain version on CPU tensors or where the
+    caller asks."""
     dev = points.device
     step = cfg.node_sample_step
     n = cfg.max_nodes
@@ -96,10 +98,14 @@ def init_from_cloud(
         pos, ok, count = _sample_nodes_plain(points, valid, step, perm, n)
     else:
         pos, ok, count = kernels.sample_nodes(points.contiguous(), valid.contiguous(), step, perm, n)
+    if cfg.node_radius_adaptive:
+        radius = torch.where(ok, adaptive_radius(cfg, pos, pos, ok, self_ref=True, plain=plain), cfg.node_radius)
+    else:
+        radius = torch.full((n,), cfg.node_radius, dtype=torch.float32, device=dev)
     return WarpField(
         positions=pos,
         dq=dualquat.identity(dev).expand(n, 8).clone(),
-        radius=torch.full((n,), cfg.node_radius, dtype=torch.float32, device=dev),
+        radius=radius,
         active=ok,
         count=count,
         last_support=torch.zeros((n,), dtype=torch.int32, device=dev),
@@ -130,6 +136,58 @@ def _knn_plain(field: WarpField, queries: torch.Tensor, k: int) -> Tuple[torch.T
         d2s.append(vals[:, :k])
         idxs.append(idx[:, :k])
     return torch.clamp(torch.cat(d2s), min=0.0), torch.cat(idxs)
+
+
+def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x y + z in float32 with one rounding, as a fused multiply-add: the
+    float64 product of two float32 values is exact, the float64 sum is
+    rounded once more before float32 (a double rounding that moves the
+    result by one ulp only when the float64 sum falls on a float32
+    tie, ~2^-29 of sums)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def _dist2_fma(q: torch.Tensor, nodes: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """(Q, N) squared distances by the expansion with each three-term sum a
+    chain of fused multiply-adds, as the JAX package's jitted
+    ``_adaptive_radius`` takes them on the CPU (XLA contracts the products
+    of its dot and of its fused row sums)."""
+
+    def sq(v):
+        return _fma(v[:, 2], v[:, 2], _fma(v[:, 1], v[:, 1], v[:, 0] * v[:, 0]))
+
+    qn = _fma(q[:, None, 2], nodes[None, :, 2], _fma(q[:, None, 1], nodes[None, :, 1], q[:, None, 0] * nodes[None, :, 0]))
+    big = torch.where(ok, 0.0, _BIG)
+    return ((sq(q)[:, None] - 2.0 * qn) + sq(nodes)[None, :]) + big[None, :]
+
+
+def _adaptive_radius_plain(
+    cfg: DynamicFusionConfig, positions: torch.Tensor, ref_pos: torch.Tensor, ref_ok: torch.Tensor, k: int
+) -> torch.Tensor:
+    d2s = []
+    for s in range(0, max(positions.shape[0], 1), _CHUNK):
+        d2 = _dist2_fma(positions[s : s + _CHUNK], ref_pos, ref_ok)
+        d2s.append(torch.kthvalue(d2, k, dim=1).values)
+    dk = torch.sqrt(torch.clamp(torch.cat(d2s), min=0.0))
+    return torch.clamp(cfg.node_radius_scale * dk, cfg.node_radius_min, cfg.node_radius_max)
+
+
+def adaptive_radius(
+    cfg: DynamicFusionConfig, positions: torch.Tensor, ref_pos: torch.Tensor, ref_ok: torch.Tensor,
+    self_ref: bool, plain: bool = False,
+) -> torch.Tensor:
+    """(M,) radius of each (finite) position from the local node density:
+    ``node_radius_scale`` times the distance to the ``node_radius_knn``-th
+    nearest reference node (one more when the references are the positions
+    themselves, ``self_ref``), clipped to [``node_radius_min``,
+    ``node_radius_max``]; references not ``ref_ok`` are 1e9 further away.
+    The distance is the expansion, its sums fused multiply-adds
+    (``_dist2_fma``). Kernel E on CUDA tensors."""
+    k = cfg.node_radius_knn + (1 if self_ref else 0)
+    if plain or positions.device.type == "cpu":
+        return _adaptive_radius_plain(cfg, positions, ref_pos, ref_ok, k)
+    return kernels.node_radius(ref_pos, ref_ok, positions.contiguous(), k, cfg.node_radius_scale,
+                               cfg.node_radius_min, cfg.node_radius_max)
 
 
 def weights_from_dist2(radius: torch.Tensor, dist2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -308,17 +366,17 @@ def _put_rows(dst: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> tor
 
 
 def _insert_apply_plain(
-    cfg: DynamicFusionConfig, field: WarpField, plan: InsertPlan, seed_dq: torch.Tensor, frame_idx: torch.Tensor
+    field: WarpField, plan: InsertPlan, seed_dq: torch.Tensor, frame_idx: torch.Tensor, new_radius: torch.Tensor
 ) -> WarpField:
     """Write the new nodes into their slots as the JAX package's delta
-    scatter does (old + (new - old))."""
+    scatter does (old + (new - old)), the r-th with ``new_radius[r]``."""
     cap = field.positions.shape[0]
     s = plan.slots
     sc = s.clamp(max=cap - 1)
     upd = s < cap
     pos = _put_rows(field.positions, s, field.positions[sc] + (plan.new_pos - field.positions[sc]))
     dq = _put_rows(field.dq, s, field.dq[sc] + (seed_dq - field.dq[sc]))
-    radius = _put_rows(field.radius, s, field.radius[sc] + (cfg.node_radius - field.radius[sc]))
+    radius = _put_rows(field.radius, s, field.radius[sc] + (new_radius - field.radius[sc]))
     active = _put_rows(field.active, s, torch.ones_like(upd))
     fi = frame_idx.to(torch.int32)
     ls = _put_rows(field.last_support, s, field.last_support[sc] + (fi - field.last_support[sc]))
@@ -340,9 +398,9 @@ def insert_nodes(
     then, while ``count < cap`` (a device flag: nothing syncs), insert
     uncovered candidates (nearest node farther than ``node_coverage``)
     decimated to one per coverage cell, farthest first, into free slots,
-    with transforms seeded from the field's blend at their positions."""
-    if cfg.node_radius_adaptive:
-        raise NotImplementedError("adaptive node radius: a later slice")
+    with transforms seeded from the field's blend at their positions and,
+    with ``node_radius_adaptive``, radii from the density of the field's
+    nodes after the retirement."""
     cap = field.positions.shape[0]
     cand_d2, node_d2 = mutual_nearest(field, candidates, valid, plain=plain)
     fi = frame_idx.to(torch.int32)
@@ -362,13 +420,74 @@ def insert_nodes(
             candidates.contiguous(), cand_d2, valid.contiguous(), field.active, field.count, gate,
             cfg.node_coverage,
         ))
-    seed_dq = warp_dq_at(field, torch.nan_to_num(plan.new_pos), k=min(8, cap), plain=plain)
+    new_pos = torch.nan_to_num(plan.new_pos)
+    seed_dq = warp_dq_at(field, new_pos, k=min(8, cap), plain=plain)
+    if cfg.node_radius_adaptive:
+        new_radius = adaptive_radius(cfg, new_pos, field.positions, field.active, self_ref=False, plain=plain)
+    else:
+        new_radius = torch.full((cap,), cfg.node_radius, dtype=torch.float32, device=candidates.device)
     if plain or candidates.device.type == "cpu":
-        return _insert_apply_plain(cfg, field, plan, seed_dq, fi)
+        return _insert_apply_plain(field, plan, seed_dq, fi, new_radius)
     return WarpField(*kernels.insert_apply(
         field.positions, field.dq, field.radius, field.active, field.count, field.last_support,
-        plan.slots, plan.new_pos, seed_dq, fi, cfg.node_radius,
+        plan.slots, plan.new_pos, seed_dq, fi, new_radius,
     ))
+
+
+# --------------------------------------------------------------------------
+# the net rigid removal: plain version of kernel Q
+# --------------------------------------------------------------------------
+
+
+def _dot3_rows(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """m @ v for a 3x3 m, each row's sum written out left to right."""
+    return (m[:, 0] * v[0] + m[:, 1] * v[1]) + m[:, 2] * v[2]
+
+
+def _det3(m: torch.Tensor) -> torch.Tensor:
+    return (m[0, 0] * (m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1]) - m[0, 1] * (m[1, 0] * m[2, 2] - m[1, 2] * m[2, 0])
+            + m[0, 2] * (m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0]))
+
+
+def _remove_net_rigid_plain(prev: WarpField, new: WarpField, alpha: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    p = prev.positions
+    w = prev.active.to(torch.float32)
+    wsum = w.sum()
+    cnt = torch.clamp(wsum, min=1.0)
+    a = dualquat.transform(prev.dq, p)  # pre-solve live node positions
+    b = dualquat.transform(new.dq, p)   # post-solve
+    ca = (a * w[:, None]).sum(0) / cnt
+    cb = (b * w[:, None]).sum(0) / cnt
+    h = (((a - ca) * w[:, None])[:, :, None] * (b - cb)[:, None, :]).sum(0)
+    # the SVD in float64 (the kernel's precision); R = V diag(1, 1, det(V Uᵀ)) Uᵀ
+    u, _, vh = torch.linalg.svd(h.double())
+    v = vh.T
+    d = _det3(v) * _det3(u)
+    r = (v * torch.stack([torch.ones_like(d), torch.ones_like(d), d])[None, :] @ u.T).to(torch.float32)
+    t = cb - _dot3_rows(r, ca)
+    rt = r.T.contiguous()
+    g = dualquat.from_rot_trans(quat.from_matrix(rt), -_dot3_rows(rt, t))
+    if alpha < 1.0:
+        g = dualquat.normalize(alpha * g + (1.0 - alpha) * dualquat.identity(p.device))
+    cleaned = dualquat.normalize(dualquat.mul(g[None], new.dq))
+    ok = (wsum >= 3.0) & torch.isfinite(r).all() & torch.isfinite(t).all() & torch.isfinite(cleaned).all()
+    return torch.where(ok & new.active[:, None], cleaned, new.dq), g
+
+
+def remove_net_rigid(prev: WarpField, new: WarpField, alpha: float = 1.0, plain: bool = False) -> WarpField:
+    """Project the net rigid component out of one frame's warp increment
+    (the JAX package's leaky gauge anchor): the weighted Kabsch fit G of
+    the active nodes' pre-solve (``prev``) to post-solve (``new``) live
+    positions, its inverse blended toward the identity by ``alpha``, is
+    left-multiplied into every active node's transform; nothing changes
+    unless at least three nodes are active and everything is finite.
+    Kernel Q on CUDA tensors (no host sync); the plain version takes the
+    3x3 SVD from ``torch.linalg.svd``."""
+    if plain or new.dq.device.type == "cpu":
+        dq, _ = _remove_net_rigid_plain(prev, new, alpha)
+    else:
+        dq, _ = kernels.net_rigid(prev.positions, prev.dq, prev.active, new.dq, new.active, alpha)
+    return new._replace(dq=dq)
 
 
 def live_node_positions(field: WarpField) -> torch.Tensor:

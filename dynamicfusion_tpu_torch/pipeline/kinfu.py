@@ -514,10 +514,12 @@ def _nonrigid_step(
     cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False
 ) -> Tuple[PipelineState, StepOutputs]:
     """One DynamicFusion frame (the JAX package's non-rigid ``step``)."""
-    if cfg.solver_remove_net_rigid:
-        raise NotImplementedError("remove_net_rigid: a later slice")
     icp_res, pose, inputs, _, _, dists, conf, (seed, band) = track(cfg, state, depth_mm, plain)
     warp, stats = warp_solver.solve(cfg, state.warp, inputs, plain=plain)
+    if cfg.solver_remove_net_rigid:
+        # the optional gauge anchor: the net rigid part of the solve's
+        # increment is left to ICP
+        warp = warpfield.remove_net_rigid(state.warp, warp, alpha=cfg.solver_net_rigid_alpha, plain=plain)
     # a frame whose tracking failed leaves the warp field (and, below, the
     # volume and the node set) untouched
     warp = WarpField(*(torch.where(icp_res.ok, a, b) for a, b in zip(warp, state.warp)))

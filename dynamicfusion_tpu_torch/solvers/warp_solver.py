@@ -15,7 +15,12 @@ linear solvers, as in the JAX package:
   factored (the bf16 rows, the per-node (N, 6, 6) diagonal blocks, the
   per-edge 6x6 blocks of the ARAP term) under the lagged JᵀJ, and the
   step is block-Jacobi PCG over matvecs of those factors plus the LM
-  damping;
+  damping; with the tangential rows the matrix may keep only the plane
+  rows (``solver_p2p_lag_hessian``) or the tangential rows of every s-th
+  point scaled by sqrt(s) (``solver_p2p_hessian_stride``), while the
+  gradient, the cost and the diagonal blocks keep every row. With the
+  unlagged JᵀJ the step is block-Jacobi PCG over the dense damped matrix
+  of the direct solve, rebuilt every LM iteration;
 - ``solver_linear="direct"`` (the base config): the dense (6N, 6N)
   normal equations (the data Gram of the one-hot-expanded rows, int8 with
   per-column scales and an exact integer sum or bf16 with float32 sums,
@@ -27,7 +32,8 @@ linear solvers, as in the JAX package:
 On CUDA tensors the data term is kernel F (``csrc/data_term.cu``); the
 edge term, ``spd6_inv``, the matvec and the whole PCG solve are kernel G
 (``csrc/pcg.cu``); the dense Gram with the edge blocks placed is kernel N
-and the damping kernel O (``csrc/dense_system.cu``); the factor and its
+and the damping kernel O (``csrc/dense_system.cu``); the PCG over the
+dense matrix is kernel P (``csrc/dense_pcg.cu``); the factor and its
 solve are cuSOLVER's (``torch.linalg.cholesky_ex``, ``cholesky_solve``),
 as the JAX package leaves them to its linear-algebra library. Their
 reductions over nodes run through a per-solve node-sorted list of the
@@ -40,10 +46,6 @@ the kernels use the closed form.
 The JAX loops that exit early (PCG on its residual, LM on convergence)
 become fixed trip counts with device-side flags that turn the remaining
 iterations into no-ops: no step of a solve reads a value back to the host.
-
-Not ported (off in every preset; ``_check_cfg``): the dense-matrix PCG
-of ``solver_linear="pcg"`` with the unlagged JᵀJ, and the tangential
-rows subsampled in or kept out of the PCG matrix.
 """
 
 from __future__ import annotations
@@ -290,7 +292,20 @@ def data_residual_and_jac(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torc
     return r * sw[:, None], jac * sw[:, None, None, None], cost
 
 
-def data_term_plain(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor, system: bool) -> DataTerm:
+def bf16_rows(jac: torch.Tensor, row_stride: int = 1) -> torch.Tensor:
+    """The (P, R, K, 6) bf16 rows of the PCG matrix from the weighted
+    Jacobian; with ``row_stride`` s > 1 the tangential rows of every s-th
+    point are bf16(sqrt(s) jac), scaled before the rounding, as the JAX
+    package's strided row matrix is."""
+    rows = jac.to(torch.bfloat16)
+    if row_stride > 1:
+        rows[::row_stride, 1:] = (jac[::row_stride, 1:] * math.sqrt(row_stride)).to(torch.bfloat16)
+    return rows
+
+
+def data_term_plain(
+    cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor, system: bool, row_stride: int = 1
+) -> DataTerm:
     n = dqs.shape[0]
     r, jac, cost = data_residual_and_jac(cfg, s, dqs)
     flat = s.knn_idx.reshape(-1)
@@ -302,18 +317,21 @@ def data_term_plain(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tens
     jf = jac.transpose(1, 2).reshape(-1, jac.shape[1], 6)
     outer = (jf[:, :, :, None] * jf[:, :, None, :]).sum(1)
     blocks = torch.zeros((n, 6, 6), device=dqs.device).index_add_(0, flat, outer)
-    return DataTerm(jtr, cost, jac.to(torch.bfloat16), blocks)
+    return DataTerm(jtr, cost, bf16_rows(jac, row_stride), blocks)
 
 
-def data_term(cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor, system: bool, plain: bool = False) -> DataTerm:
+def data_term(
+    cfg: DynamicFusionConfig, s: SolveStructure, dqs: torch.Tensor, system: bool, plain: bool = False,
+    row_stride: int = 1,
+) -> DataTerm:
     """Kernel F on CUDA tensors: Jᵀr and the cost, and with ``system`` the
-    bf16 rows and the per-node diagonal blocks."""
+    bf16 rows (``bf16_rows``) and the per-node diagonal blocks."""
     if plain or dqs.device.type == "cpu":
-        return data_term_plain(cfg, s, dqs, system)
+        return data_term_plain(cfg, s, dqs, system, row_stride)
     return DataTerm(*kernels.data_term(
         s.p_can, s.p_live, s.n_live, s.valid, s.knn_idx, s.w_knn, dqs,
         s.pts_by_node.order, s.pts_by_node.off, cfg.solver_tukey_c, system, s.t1, s.t2, s.p2p_sw,
-        point=not cfg.point_to_plane,
+        point=not cfg.point_to_plane, row_stride=row_stride,
     ))
 
 
@@ -422,14 +440,46 @@ class System(NamedTuple):
     rows: torch.Tensor  # (P, R, K, 6) bf16
     edge: EdgeTerm
     damp: torch.Tensor  # (6N,) LM damping plus the unit diagonal of empty dofs
+    # the row mode (``row_mode``): rows used of the R, and with R = 3 the
+    # stride of the points whose tangential rows are in the matrix
+    used: Optional[int] = None
+    stride: int = 1
+
+
+def row_mode(cfg: DynamicFusionConfig) -> Tuple[Optional[int], int]:
+    """(rows used, tangential stride) of the factored PCG's row matrix (the
+    JAX package's ``jac_rows`` and ``tang_stride``): with the tangential
+    rows, the plane row only under ``solver_p2p_lag_hessian``, else the
+    tangential rows of every ``solver_p2p_hessian_stride``-th point; all
+    rows of every point otherwise."""
+    if not _tangential(cfg):
+        return None, 1
+    if cfg.solver_p2p_lag_hessian:
+        return 1, 1
+    return 3, cfg.solver_p2p_hessian_stride
+
+
+def _rows_in(sys: System, p: int) -> torch.Tensor:
+    """(P, R) float32 mask of the rows in the matrix under the row mode."""
+    r = sys.rows.shape[1]
+    used = r if sys.used is None else sys.used
+    mask = torch.ones((p, r), device=sys.rows.device)
+    if used == 1:
+        mask[:, 1:] = 0.0
+    elif sys.stride > 1:
+        keep = (torch.arange(p, device=sys.rows.device) % sys.stride) == 0
+        mask[:, 1:] = keep[:, None].to(torch.float32)
+    return mask
 
 
 def matvec_plain(s: SolveStructure, sys: System, p: torch.Tensor) -> torch.Tensor:
     """(rows_bf16ᵀ · bf16(rows_bf16 · bf16(p))) + edge blocks · p + damp * p,
     accumulated in float32 (the JAX package's rounding points: t is
-    rounded per (point, row))."""
+    rounded per (point, row)), over the rows of the row mode."""
     n = sys.damp.shape[0] // 6
     rows = sys.rows.to(torch.float32)
+    if sys.used is not None or sys.stride > 1:
+        rows = rows * _rows_in(sys, rows.shape[0])[:, :, None, None]
     pm = _bf16(p).reshape(n, 6)
     t = _bf16((rows * pm[s.knn_idx][:, None]).sum((2, 3)))
     data = torch.zeros((n, 6), device=p.device).index_add_(
@@ -448,7 +498,7 @@ def matvec_plain(s: SolveStructure, sys: System, p: torch.Tensor) -> torch.Tenso
 def matvec(s: SolveStructure, sys: System, p: torch.Tensor, plain: bool = False) -> torch.Tensor:
     if plain or p.device.type == "cpu":
         return matvec_plain(s, sys, p)
-    return kernels.matvec(_kernel_system(s, sys), p)
+    return kernels.matvec(_kernel_system(s, sys), p, used=sys.used, stride=sys.stride)
 
 
 def _apply_m(minv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -498,7 +548,7 @@ def pcg(
     """Kernel G's PCG entry (the whole solve in one launch) on CUDA tensors."""
     if plain or b.device.type == "cpu":
         return pcg_plain(s, sys, minv, b, iters, rtol, active)
-    return kernels.pcg(_kernel_system(s, sys), minv, b, iters, rtol, active)
+    return kernels.pcg(_kernel_system(s, sys), minv, b, iters, rtol, active, used=sys.used, stride=sys.stride)
 
 
 # --------------------------------------------------------------------------
@@ -618,6 +668,58 @@ def chol_step(chol: torch.Tensor, jtr: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# the dense-matrix PCG: plain version of kernel P
+# --------------------------------------------------------------------------
+
+
+def diag_blocks(a: torch.Tensor) -> torch.Tensor:
+    """The (N, 6, 6) diagonal blocks of a (6N, 6N) matrix."""
+    n = a.shape[0] // 6
+    return torch.diagonal(a.reshape(n, 6, n, 6), dim1=0, dim2=2).permute(2, 0, 1).contiguous()
+
+
+def dense_pcg_plain(
+    a: torch.Tensor, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float, active: torch.Tensor
+) -> torch.Tensor:
+    """Block-Jacobi PCG from x = 0 over the dense matrix ``a`` with the
+    preconditioner ``minv`` (N, 6, 6), at most ``iters`` iterations while
+    rᵀr > rtol² bᵀb, the remaining iterations no-ops (device flags);
+    ``active`` False returns 0 (the JAX package's ``_pcg`` over a @ p)."""
+    x = torch.zeros_like(b)
+    r = b
+    z = _apply_m(minv, r)
+    p = z
+    stop2 = (rtol * rtol) * torch.dot(b, b)
+    rz = torch.dot(r, z)
+    run = active
+    for _ in range(iters):
+        run = run & (torch.dot(r, r) > stop2)
+        ap = a @ p
+        alpha = rz / torch.clamp(torch.dot(p, ap), min=1e-30)
+        x_n = x + alpha * p
+        r_n = r - alpha * ap
+        z = _apply_m(minv, r_n)
+        rz_n = torch.dot(r_n, z)
+        beta = rz_n / torch.clamp(rz, min=1e-30)
+        p_n = z + beta * p
+        x, r, p, rz = (torch.where(run, v, o) for v, o in ((x_n, x), (r_n, r), (p_n, p), (rz_n, rz)))
+    return torch.where(active, x, 0.0)
+
+
+def dense_pcg(
+    a: torch.Tensor, b: torch.Tensor, iters: int, rtol: float, active: torch.Tensor, plain: bool = False
+) -> torch.Tensor:
+    """The dense-matrix PCG's solution of a x = b (the JAX package's
+    ``_pcg_solve``): the preconditioner is ``spd6_inv`` (kernel G's entry)
+    of ``a``'s diagonal blocks; the iterations are kernel P on CUDA
+    tensors."""
+    minv = spd6_inv(diag_blocks(a), plain=plain)
+    if plain or a.device.type == "cpu":
+        return dense_pcg_plain(a, minv, b, iters, rtol, active)
+    return kernels.dense_pcg(a, minv, b, iters, rtol, active)
+
+
+# --------------------------------------------------------------------------
 # rigid pre-alignment
 # --------------------------------------------------------------------------
 
@@ -664,18 +766,10 @@ def rigid_prealign(
 
 
 def _check_cfg(cfg: DynamicFusionConfig) -> None:
-    """Refuse, one option at a time, what the port does not solve."""
-    if cfg.solver_linear == "pcg" and not cfg.solver_lagged_jtj:
-        raise NotImplementedError(
-            "solver_linear='pcg' with solver_lagged_jtj=False (the dense-matrix PCG) is not ported")
-    if _tangential(cfg):
-        if cfg.solver_p2p_hessian_stride > 1:
-            raise NotImplementedError(
-                f"solver_p2p_hessian_stride={cfg.solver_p2p_hessian_stride} (tangential rows subsampled in the "
-                "PCG matrix) is not ported")
-        if cfg.solver_p2p_lag_hessian:
-            raise NotImplementedError(
-                "solver_p2p_lag_hessian=True (tangential rows kept out of the PCG matrix) is not ported")
+    """Refuse solver options that have no meaning (the JAX package fails on
+    them inside its trace): a tangential row stride below 1."""
+    if _tangential(cfg) and cfg.solver_p2p_hessian_stride < 1:
+        raise ValueError(f"solver_p2p_hessian_stride must be >= 1, got {cfg.solver_p2p_hessian_stride}")
 
 
 def damping_terms(cfg: DynamicFusionConfig, active: torch.Tensor, blocks: torch.Tensor):
@@ -706,17 +800,21 @@ def solve(
     dev = field.dq.device
     s = prepare(cfg, field, inputs, plain=plain)
     dqs = field.dq
-    dense = cfg.solver_linear != "pcg"  # anything else is the direct solve, as in the JAX package
     lagged = cfg.solver_lagged_jtj
-    reuse = dense and lagged and cfg.solver_chol_reuse
+    # the dense system: the direct solve (anything but "pcg", as in the JAX
+    # package), or the PCG over the dense matrix with the unlagged JᵀJ
+    dense = cfg.solver_linear != "pcg" or not lagged
+    direct = cfg.solver_linear != "pcg"
+    reuse = direct and lagged and cfg.solver_chol_reuse
     floor = cfg.solver_damping_floor
 
     lm_lambda = torch.full((), cfg.solver_lm_lambda_init, device=dev)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
     running = torch.ones((), dtype=torch.bool, device=dev)
     rebuild = torch.ones((), dtype=torch.bool, device=dev)  # iteration 0, or the last step was rejected
+    used, stride = row_mode(cfg)
     if lagged:
-        dt = data_term(cfg, s, dqs, system=True, plain=plain)
+        dt = data_term(cfg, s, dqs, system=True, plain=plain, row_stride=1 if dense else stride)
         et = edge_term(cfg, s, dqs, plain=plain)
         jtr = dt.jtr + et.jtr
         cost_prev = dt.cost + et.cost
@@ -740,12 +838,15 @@ def solve(
             cost_prev = cost_lin if it == 0 else torch.where(running, cost_lin, cost_prev)
             if it == 0:
                 cost0 = cost_lin
-        if dense:
+        if direct:
             lam_f = lm_lambda if lam_f is None or not reuse else torch.where(rebuild, lm_lambda, lam_f)
             step = chol_step(cholesky(dense_damp(jtj, lam_f, field.active, floor, plain=plain), plain=plain), jtr)
+        elif dense:
+            damped = dense_damp(jtj, lm_lambda, field.active, floor, plain=plain)
+            step = -dense_pcg(damped, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)
         else:
             damp = lm_lambda * diag_eff + unit
-            sys = System(dt.rows, et, damp)
+            sys = System(dt.rows, et, damp, used, stride)
             fresh = spd6_inv(blocks_full + torch.diag_embed(damp.reshape(n, 6)), plain=plain)
             minv = fresh if minv is None else torch.where(rebuild, fresh, minv)
             step = -pcg(s, sys, minv, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)

@@ -323,6 +323,9 @@ NR = dataclasses.replace(
 NR_DEPTHS = synthetic.deforming_frames(NR.intr, NR.rows, NR.cols, 4)
 # the direct solve's kernels (N, O) and its factor; the PCG presets do not run them
 DENSE = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
+# the kernels of options that no preset turns on: the adaptive node radius
+# (E's radius entry), the dense-matrix PCG (P) and the net rigid removal (Q)
+OPTIONS = ("node_radius", "dense_pcg", "net_rigid")
 
 
 @pytest.fixture
@@ -531,7 +534,7 @@ def test_base_config_on_the_card_goes_through_every_kernel(dev):
     torch.cuda.synchronize()
     # no temporal band or seed (march_bands), the PCG's kernels, the
     # incidence-weighted fusion's packed lookup is kernel D's other argument
-    off = ("matvec", "pcg", "spd6_inv", "warp_trilinear", "coarse_band", "p2p_gate", "march_bands")
+    off = ("matvec", "pcg", "spd6_inv", "warp_trilinear", "coarse_band", "p2p_gate", "march_bands") + OPTIONS
     path = [k for k in kernels.KERNELS if k not in off]
     assert all(kernels.launches[k] > 0 for k in path), kernels.launches
     assert kernels.launches["cholesky"] == (len(NR_DEPTHS) - 1) * cfg.solver_nonlinear_iters
@@ -558,7 +561,8 @@ def test_nonrigid_slice_on_the_card_goes_through_every_kernel(dev, p2p):
     # not run; nor do the coarse band (160x120 maps) and the aperture gate
     # (test_adaptive_slice_on_the_card_goes_through_every_kernel), nor the
     # direct solve's kernels (test_base_config_on_the_card_goes_through_every_kernel)
-    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band", "p2p_gate") + DENSE]
+    path = [k for k in kernels.KERNELS
+            if k not in ("matvec", "warp_trilinear", "coarse_band", "p2p_gate") + DENSE + OPTIONS]
     assert all(kernels.launches[k] > 0 for k in path), kernels.launches
     assert kernels.launches["extract_cloud"] == kernels.launches["sample_nodes"] == 1
     ref = kinfu.DynamicFusion(cfg, device="cpu")
@@ -584,7 +588,7 @@ def test_adaptive_slice_on_the_card_goes_through_every_kernel(dev):
     for d in NR_DEPTHS:
         df(d, block=False)
     torch.cuda.synchronize()
-    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band") + DENSE]
+    path = [k for k in kernels.KERNELS if k not in ("matvec", "warp_trilinear", "coarse_band") + DENSE + OPTIONS]
     assert all(kernels.launches[k] > 0 for k in path), kernels.launches
     assert kernels.launches["p2p_gate"] == len(NR_DEPTHS) - 1
     ref = kinfu.DynamicFusion(cfg, device="cpu")
@@ -593,6 +597,169 @@ def test_adaptive_slice_on_the_card_goes_through_every_kernel(dev):
     assert bool(df.last_outputs.icp_ok)
     a, b = df.get_pose().cpu(), ref.get_pose()
     assert float((a[:3, 3] - b[:3, 3]).abs().max()) <= 3e-3
+
+
+# ---------------------------------------------------------------- the solver and warp-field options
+
+
+@pytest.mark.parametrize("self_ref", [True, False])
+def test_node_radius_kernel(dev, nr_model, self_ref):
+    """Kernel E's radius entry, bit-equal to its plain version (both take
+    the expansion's sums as fused multiply-adds), with inactive
+    references; and kernel H's insertion with those radii."""
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    cfg = dataclasses.replace(NR, node_radius_adaptive=True)
+    st, inputs, _ = nr_model
+    f = st.warp
+    q = f.positions if self_ref else torch.nan_to_num(inputs.p_can[::7])
+    rk = warpfield.adaptive_radius(cfg, q, f.positions, f.active, self_ref)
+    rp = warpfield.adaptive_radius(cfg, q, f.positions, f.active, self_ref, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rk, rp)
+    assert bool(((rk > cfg.node_radius_min) & (rk < cfg.node_radius_max)).any())
+    if not self_ref:
+        half = torch.arange(f.active.shape[0], device=dev) % 2 == 0
+        field = f._replace(active=f.active & half, count=(f.active & half).sum(dtype=torch.int32))
+        fi = torch.tensor(9, dtype=torch.int32, device=dev)
+        valid = ~torch.isnan(inputs.p_can[:, 0])
+        k = warpfield.insert_nodes(cfg, field, inputs.p_can, valid, fi)
+        p = warpfield.insert_nodes(cfg, field, inputs.p_can, valid, fi, plain=True)
+        assert int(k.count) > int(field.count)
+        assert torch.equal(k.radius, p.radius) and torch.equal(k.active, p.active)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+def test_net_rigid_kernel(dev, nr_model, alpha):
+    """Kernel Q against its plain version (float64 SVD): a field moved by
+    a small rigid motion plus noise, and a field with two active nodes,
+    which stays as it is."""
+    from dynamicfusion_tpu_torch.core import dualquat, quat
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    st, _, _ = nr_model
+    prev = st.warp
+    g = dualquat.from_rot_trans(quat.from_rotvec(torch.tensor([0.01, -0.02, 0.015], device=dev)),
+                                torch.tensor([0.02, 0.01, -0.03], device=dev))
+    noise = 1e-3 * torch.randn(prev.dq.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    new = prev._replace(dq=dualquat.normalize(dualquat.mul(g[None], prev.dq)) + noise)
+    k = warpfield.remove_net_rigid(prev, new, alpha)
+    p = warpfield.remove_net_rigid(prev, new, alpha, plain=True)
+    torch.cuda.synchronize()
+    assert float((k.dq - p.dq).abs().max()) <= 1e-5
+    assert float((k.dq - new.dq)[prev.active].abs().max()) > 1e-3
+    assert torch.equal(k.dq[~new.active], new.dq[~new.active])
+    two = prev.active & (torch.cumsum(prev.active.int(), 0) <= 2)
+    few = warpfield.remove_net_rigid(prev._replace(active=two), new, alpha)
+    assert torch.equal(few.dq, new.dq)
+
+
+def test_net_rigid_kernel_close_singular_values(dev):
+    """Kernel Q's one-sided Jacobi SVD where H is a multiple of the
+    identity but for the motion (nodes on the axes and diagonals of three
+    shells, whose second moment is isotropic; a net motion of ~1e-5, as a
+    static camera's), against the plain version's float64 SVD."""
+    from dynamicfusion_tpu_torch.core import dualquat, quat
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    axes = [[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0], [0, -1.0, 0], [0, 0, 1.0], [0, 0, -1.0]]
+    dirs = torch.tensor(axes + [[x, y, z] for x in (-1.0, 1.0) for y in (-1.0, 1.0) for z in (-1.0, 1.0)])
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    pos = (torch.cat([r * dirs for r in (0.1, 0.15, 0.2)]) + torch.tensor([0.0, 0.0, 1.0])).to(dev)
+    n = pos.shape[0]
+    dq = dualquat.identity(dev).expand(n, 8).clone()
+    on = torch.ones(n, dtype=torch.bool, device=dev)
+    prev = warpfield.WarpField(pos, dq, torch.full((n,), 0.05, device=dev), on,
+                               torch.tensor(n, dtype=torch.int32, device=dev), torch.zeros(n, dtype=torch.int32,
+                                                                                          device=dev))
+    m = dualquat.from_rot_trans(quat.from_rotvec(torch.tensor([1e-5, -2e-5, 1e-5], device=dev)),
+                                torch.tensor([3e-5, -1e-5, 2e-5], device=dev))
+    g = torch.Generator().manual_seed(4)
+    new = prev._replace(dq=dualquat.normalize(dualquat.mul(m[None], dq))
+                        + 1e-6 * torch.randn((n, 8), generator=g).to(dev))
+    k = warpfield.remove_net_rigid(prev, new, 1.0)
+    p = warpfield.remove_net_rigid(prev, new, 1.0, plain=True)
+    torch.cuda.synchronize()
+    assert float((k.dq - p.dq).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("mode", ["stride2", "stride4", "lag"])
+def test_solver_kernels_row_modes(dev, nr_model, mode):
+    """Kernels F and G under the tangential rows' row modes: F's strided
+    rows (bf16 of sqrt(s) jac) equal to the plain version's within one bf16
+    rounding, G's matvec and PCG over the rows of the mode."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    changes = dict(solver_p2p_lag_hessian=True) if mode == "lag" else dict(solver_p2p_hessian_stride=int(mode[-1]))
+    cfg = dataclasses.replace(NR, solver_p2p_weight=0.25, **changes)
+    st, inputs, _ = nr_model
+    n = st.warp.dq.shape[0]
+    used, stride = ws.row_mode(cfg)
+    s = ws.prepare(cfg, st.warp, inputs)
+    dk = ws.data_term(cfg, s, st.warp.dq, True, row_stride=stride)
+    dp = ws.data_term(cfg, s, st.warp.dq, True, plain=True, row_stride=stride)
+    torch.cuda.synchronize()
+    assert _close(dk.rows.float(), dp.rows.float(), 1e-2) and _close(dk.blocks, dp.blocks, 1e-4)
+    ep = ws.edge_term(cfg, s, st.warp.dq, plain=True)
+    blocks = dp.blocks + ep.diag + torch.diag_embed(torch.ones(n, 6, device=dev))
+    sysm = ws.System(dp.rows, ep, torch.ones(6 * n, device=dev), used, stride)
+    full = ws.System(dp.rows, ep, torch.ones(6 * n, device=dev))
+    pv = torch.randn(6 * n, generator=torch.Generator().manual_seed(0)).to(dev)
+    ak = ws.matvec(s, sysm, pv)
+    assert _close(ak, ws.matvec(s, sysm, pv, plain=True), 1e-3)
+    assert not _close(ak, ws.matvec(s, full, pv), 1e-3)  # the mode leaves rows out
+    minv = ws.spd6_inv(blocks, plain=True)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    xk = ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on)
+    xp = ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on, plain=True)
+    assert _close(xk, xp, 1e-2)
+
+
+def test_dense_pcg_kernel(dev, nr_model):
+    """Kernel P on the damped dense system of the unlagged solve, against
+    its plain version; ``active`` False gives zeros."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = dataclasses.replace(NR, solver_lagged_jtj=False)
+    st, inputs, _ = nr_model
+    s = ws.prepare(cfg, st.warp, inputs)
+    dt = ws.data_term(cfg, s, st.warp.dq, True, plain=True)
+    et = ws.edge_term(cfg, s, st.warp.dq, plain=True)
+    a = ws.dense_damp(ws.dense_gram(cfg, s, dt, et, plain=True), torch.tensor(8.0, device=dev), st.warp.active,
+                      cfg.solver_damping_floor, plain=True)
+    b = dt.jtr + et.jtr
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    xk = ws.dense_pcg(a, b, cfg.solver_linear_iters, cfg.solver_linear_tol, on)
+    xp = ws.dense_pcg(a, b, cfg.solver_linear_iters, cfg.solver_linear_tol, on, plain=True)
+    torch.cuda.synchronize()
+    assert _close(xk, xp, 1e-3)
+    assert torch.equal(xk, ws.dense_pcg(a, b, cfg.solver_linear_iters, cfg.solver_linear_tol, on))
+    assert not bool(ws.dense_pcg(a, b, cfg.solver_linear_iters, cfg.solver_linear_tol, ~on).any())
+
+
+def test_options_on_the_card_go_through_their_kernels(dev):
+    """The quality slice with the adaptive radius, the strided tangential
+    rows and the net rigid removal, then a step with the dense-matrix PCG:
+    each option's kernel launches."""
+    cfg = dataclasses.replace(NR, solver_p2p_weight=0.25, solver_p2p_hessian_stride=4, node_radius_adaptive=True,
+                              solver_remove_net_rigid=True, solver_net_rigid_alpha=0.5)
+    kernels.reset_launches()
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    for d in NR_DEPTHS:
+        df(d, block=False)
+    torch.cuda.synchronize()
+    assert kernels.launches["net_rigid"] == len(NR_DEPTHS) - 1
+    assert kernels.launches["node_radius"] >= 1 + (len(NR_DEPTHS) - 1)
+    assert bool(df.last_outputs.icp_ok)
+    assert float(df.last_outputs.solver_cost1) <= float(df.last_outputs.solver_cost0)
+    radius = df.state.warp.radius[df.state.warp.active]
+    assert bool((radius != cfg.node_radius).any())
+    base = dataclasses.replace(DynamicFusionConfig.small(), solver_linear="pcg", solver_lagged_jtj=False)
+    kernels.reset_launches()
+    st = kinfu.first_frame(base, kinfu.init_state(base, dev), torch.from_numpy(NR_DEPTHS[0]).to(dev))
+    _, o = kinfu.step(base, st, torch.from_numpy(NR_DEPTHS[1]).to(dev))
+    assert kernels.launches["dense_pcg"] == base.solver_nonlinear_iters
+    assert bool(o.icp_ok) and float(o.solver_cost1) <= float(o.solver_cost0)
 
 
 def test_full_resolution_rigid_on_the_card(dev):

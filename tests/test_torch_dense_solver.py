@@ -40,6 +40,7 @@ Tolerances, each with its reason:
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -83,6 +84,10 @@ j_edge = jax.jit(js.edge_residual_and_jac, static_argnums=0)
 j_data_jtj = jax.jit(js.data_jtj, static_argnums=(0, 3))
 j_edge_jtj = jax.jit(js.edge_jtj, static_argnums=3)
 j_system = jax.jit(js.gn_system_dense, static_argnums=(0, 3, 4))
+j_prepare = jax.jit(js.prepare, static_argnums=(0, 3))
+j_data_jtr = jax.jit(js.data_jtr, static_argnums=3)
+j_data_grad_cost = jax.jit(js.data_grad_cost, static_argnums=(0, 3, 4))
+j_solve_linear = jax.jit(js._solve_linear, static_argnums=(0, 3))
 
 
 def _t(a):
@@ -96,24 +101,41 @@ def _rel(got, ref):
 
 def _structures(jc, tc, prob):
     """JAX's structure and the port's, the port's on JAX's neighbour lists
-    and weights (KNN's near ties are held in test_torch_warp_solver.py)."""
+    and weights (KNN's near ties are held in test_torch_warp_solver.py);
+    built once per problem and term (the solver options here leave the
+    structure alone)."""
+    return _structures_of(prob, jc.point_to_plane, jc.max_nodes)
+
+
+@functools.lru_cache(maxsize=8)
+def _structures_of(prob, point_to_plane, n):
     jfield, tfield, ji, ti = prob
-    s = js.prepare(jc, jfield, ji, jc.point_to_plane)
+    jc = dataclasses.replace(JC, max_nodes=n, point_to_plane=point_to_plane)
+    tc = dataclasses.replace(TC, max_nodes=n, point_to_plane=point_to_plane)
+    s = j_prepare(jc, jfield, ji, point_to_plane)
     t = ts.prepare(tc, tfield, ti)
     idx = _t(s.knn_idx).long()
-    n = tfield.positions.shape[0]
     return s, t._replace(knn_idx=idx, w_knn=_t(s.w_knn), valid=_t(s.valid), pts_by_node=ts.node_lists(idx, n))
+
+
+class _Problem(tuple):
+    """A problem tuple hashed by identity, for the structure cache."""
+
+    __hash__ = object.__hash__
+
+    def __eq__(self, other):
+        return self is other
 
 
 @pytest.fixture(scope="module")
 def prob():
-    return cases.sphere_problem(0, N, P)
+    return _Problem(cases.sphere_problem(0, N, P))
 
 
 @pytest.fixture(scope="module")
 def sparse_prob():
     """Few active nodes: every point's 8 neighbours include inactive ones."""
-    return cases.sphere_problem(1, 16, 600, active_frac=0.4)
+    return _Problem(cases.sphere_problem(1, 16, 600, active_frac=0.4))
 
 
 def _rows(jac):
@@ -233,7 +255,7 @@ def test_damped_system_and_step_match_jax(system, lm_lambda):
     np.testing.assert_array_equal(got.numpy()[off], ref[off])
     assert _rel(np.diagonal(got.numpy()), np.diagonal(ref)) <= TOL_DAMP
     step = ts.chol_step(ts.cholesky(_t(ref)), _t(jtr)).numpy()
-    jstep = np.asarray(js._solve_linear(JC, jnp.asarray(ref), jtr, N))
+    jstep = np.asarray(j_solve_linear(JC, jnp.asarray(ref), jtr, N))
     exact = -np.linalg.solve(ref.astype(np.float64), np.asarray(jtr, np.float64))
     print(f"lambda {lm_lambda}: condition number {np.linalg.cond(ref.astype(np.float64)):.3e}, step relative to "
           f"JAX's {_rel(step, jstep):.3e}, to float64 port {_rel(step, exact):.3e} JAX {_rel(jstep, exact):.3e}")
@@ -250,7 +272,7 @@ def test_not_positive_definite_gives_a_zero_step(system):
     _, jtj, jtr = system
     bad = np.array(jtj)
     bad[10, 10] = -1.0
-    jstep = np.asarray(js._solve_linear(JC, jnp.asarray(bad), jtr, N)).reshape(N, 6)
+    jstep = np.asarray(j_solve_linear(JC, jnp.asarray(bad), jtr, N)).reshape(N, 6)
     tstep = ts.chol_step(ts.cholesky(_t(bad)), _t(jtr)).reshape(N, 6)
     assert not np.isfinite(jstep).any() and not torch.isfinite(tstep).any()
     zero = torch.where(torch.isfinite(tstep).all(-1, keepdim=True), tstep, 0.0)
@@ -274,8 +296,8 @@ def test_point_to_point_term_matches_jax(prob):
     assert _rel(tcost.numpy(), cost) <= TOL_DATA
     dt = ts.data_term(tc, t, tfield.dq, system=True)
     assert dt.rows.shape == (t.knn_idx.shape[0], 3, 8, 6)
-    assert _rel(dt.jtr.numpy(), js.data_jtr(s, jac, r, N)) <= TOL_DATA
-    jg, jcost = js.data_grad_cost(jc, s, jfield.dq, N, False)
+    assert _rel(dt.jtr.numpy(), j_data_jtr(s, jac, r, N)) <= TOL_DATA
+    jg, jcost = j_data_grad_cost(jc, s, jfield.dq, N, False)
     assert _rel(dt.jtr.numpy(), jg) <= TOL_DATA and _rel(dt.cost.numpy(), jcost) <= TOL_DATA
 
 
@@ -288,7 +310,7 @@ def test_prepare_point_to_point_ignores_the_normals(prob):
     ji, ti = ji._replace(n_live=jnp.asarray(n_live)), ti._replace(n_live=_t(n_live))
     for p2pl in (False, True):
         jc, tc = (dataclasses.replace(c, point_to_plane=p2pl) for c in (JC, TC))
-        s = js.prepare(jc, jfield, ji, p2pl)
+        s = j_prepare(jc, jfield, ji, p2pl)
         t = ts.prepare(tc, tfield, ti)
         np.testing.assert_array_equal(t.valid.numpy(), np.asarray(s.valid))
         assert bool(t.valid[::5].any()) != p2pl
@@ -332,13 +354,14 @@ def test_oracle_scenes_match_jax(scene):
     changes, can, live, tol = _oracle_scene(scene)
     jc = dataclasses.replace(JCfg(**ORACLE), **changes)
     tc = dataclasses.replace(TCfg(**ORACLE), **changes)
-    jfield = jw.init_from_cloud(jc, jnp.asarray(CUBE), jnp.ones(8, bool))
+    jfield = jax.jit(lambda p, v: jw.init_from_cloud(jc, p, v))(jnp.asarray(CUBE), jnp.ones(8, bool))
     tfield = tw.WarpField(*(_t(a) for a in jfield))
     nrm = np.broadcast_to(np.array([0.0, 0.0, 1.0], np.float32), can.shape).copy()
     arrs = (can, nrm, live, nrm)
-    jf, jst = js.solve(jc, jfield, js.WarpSolveInputs(*(jnp.asarray(a) for a in arrs)), point_to_plane=False)
+    jf, jst = jax.jit(lambda f, i: js.solve(jc, f, i, point_to_plane=False))(
+        jfield, js.WarpSolveInputs(*(jnp.asarray(a) for a in arrs)))
     tf, tst = ts.solve(tc, tfield, ts.WarpSolveInputs(*(_t(a) for a in arrs)))
-    jwarped = np.asarray(jw.warp_points(jf, jnp.asarray(can)))
+    jwarped = np.asarray(jax.jit(jw.warp_points)(jf, jnp.asarray(can)))
     twarped = tw.warp_points(tf, _t(can), k=8).numpy()
     np.testing.assert_allclose(twarped, live, atol=tol)
     np.testing.assert_allclose(twarped, jwarped, atol=tol)
@@ -353,7 +376,8 @@ def test_oracle_scenes_match_jax(scene):
     dict(),  # the base config: int8 Gram, lagged JᵀJ, one factor reused
     dict(solver_lagged_jtj=False),
     dict(solver_jtj_int8=False),
-], ids=["lagged_int8_reuse", "unlagged", "bf16_gram"])
+    dict(solver_linear="pcg", solver_lagged_jtj=False),  # block-Jacobi PCG over the dense matrix
+], ids=["lagged_int8_reuse", "unlagged", "bf16_gram", "pcg_unlagged"])
 def test_solve_matches_jax(variant):
     jfield, tfield, ji, ti = cases.sphere_problem(1, N, P)
     jc, tc = (dataclasses.replace(c, **variant) for c in (JC, TC))
@@ -389,15 +413,24 @@ def test_solve_matches_jax(variant):
 
 
 def test_check_cfg_takes_the_dense_options_and_refuses_the_rest():
+    """Every solver option the JAX package solves is taken, the dense-matrix
+    PCG (``solver_linear="pcg"`` with ``solver_lagged_jtj=False``, once
+    refused) among them: its solve against JAX's is
+    test_solve_matches_jax[pcg_unlagged], its linear solve
+    tests/test_torch_dense_pcg.py. What is left to refuse is a tangential
+    row stride below 1, which has no meaning."""
     for changes in (dict(), dict(solver_lagged_jtj=False), dict(solver_jtj_int8=False), dict(point_to_plane=False),
-                    dict(solver_chol_reuse=False), dict(point_to_plane=False, solver_linear="pcg")):
+                    dict(solver_chol_reuse=False), dict(point_to_plane=False, solver_linear="pcg"),
+                    dict(solver_linear="pcg", solver_lagged_jtj=False),
+                    dict(solver_linear="pcg", solver_p2p_weight=0.25, solver_p2p_hessian_stride=4),
+                    dict(solver_linear="pcg", solver_p2p_weight=0.25, solver_p2p_lag_hessian=True)):
         ts._check_cfg(dataclasses.replace(TCfg(), **changes))
     ts._check_cfg(TCfg.reference_parity())
-    with pytest.raises(NotImplementedError, match="solver_lagged_jtj=False"):
-        ts._check_cfg(dataclasses.replace(TCfg(), solver_linear="pcg", solver_lagged_jtj=False))
+    with pytest.raises(ValueError, match="solver_p2p_hessian_stride"):
+        ts._check_cfg(dataclasses.replace(TCfg(), solver_p2p_weight=0.25, solver_p2p_hessian_stride=0))
     # the tangential rows' variants need the tangential rows
     ts._check_cfg(dataclasses.replace(TCfg(), point_to_plane=False, solver_p2p_weight=0.25,
-                                      solver_p2p_lag_hessian=True))
+                                      solver_p2p_hessian_stride=0))
 
 
 # ---------------------------------------------------------------- the base config's steps

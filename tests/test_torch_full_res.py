@@ -322,24 +322,33 @@ def test_fresh_canonical_raycast_step_from_jax_state(fresh_frames, frame):
     assert int(to.node_count) == int(jo.node_count)
 
 
-@pytest.mark.parametrize("option,refused", [
+@pytest.mark.parametrize("option,against_jax", [
     ("coarse_band", False), ("reuse_model_raycast", False), ("solver_remove_net_rigid", True),
 ])
-def test_pipeline_options_refuse_as_ported(option, refused):
-    """The coarse-band prepass and the fresh canonical raycast run; the net
-    rigid removal of the warp field is a later slice and refuses."""
-    base = cases.configs(dims=32, rows=60, cols=80)[1]
+def test_pipeline_options_refuse_as_ported(option, against_jax):
+    """None of these pipeline options refuses any more: the coarse-band
+    prepass and the fresh canonical raycast run, and the net rigid removal
+    of the warp field (once refused) runs too, held against the JAX
+    package: the port's step from JAX's state with the removal gives
+    JAX's pose, initial solve cost, fusion, node insertion and maps
+    (tests/torch_nonrigid_cases.py; the removal itself is held in
+    tests/test_torch_warp_options.py)."""
+    jbase, base = cases.configs(dims=32, rows=60, cols=80)
     cfg = {
         "coarse_band": dataclasses.replace(base, raycast_subsample=1, rows=240, cols=320, rigid_only=True,
                                            intr=TCfg.small(rows=240, cols=320).intr),
         "reuse_model_raycast": dataclasses.replace(base, reuse_model_raycast=False),
-        "solver_remove_net_rigid": dataclasses.replace(base, solver_remove_net_rigid=True),
+        "solver_remove_net_rigid": dataclasses.replace(base, solver_remove_net_rigid=True, solver_net_rigid_alpha=0.5),
     }[option]
+    if against_jax:
+        jc = dataclasses.replace(jbase, solver_remove_net_rigid=True, solver_net_rigid_alpha=0.5)
+        # the step of frame 2, from JAX's state after its first removal (at
+        # this size frame 1's ICP from frame 0's state is sensitive with the
+        # option off too: 3 mm)
+        depths = cases.bench_depths(cfg, 3)
+        cases.check_step_from_jax_state(jc, cfg, cases.jax_run(jc, depths), depths, 2)
+        return
     depth = torch.from_numpy(cases.bench_depths(cfg, 1)[0])
     state = tkinfu.first_frame(cfg, tkinfu.init_state(cfg, "cpu"), depth)
-    if refused:
-        with pytest.raises(NotImplementedError, match="remove_net_rigid"):
-            tkinfu.step(cfg, state, depth)
-    else:
-        _, out = tkinfu.step(cfg, state, depth)
-        assert bool(out.icp_ok)
+    _, out = tkinfu.step(cfg, state, depth)
+    assert bool(out.icp_ok)

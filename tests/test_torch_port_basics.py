@@ -267,7 +267,17 @@ WRAPPER_CALLS = {
     "insert_apply": lambda: kernels.insert_apply(
         torch.zeros((8, 3)), torch.zeros((8, 8)), torch.ones(8), torch.zeros(8, dtype=torch.bool),
         torch.zeros((), dtype=torch.int32), torch.zeros(8, dtype=torch.int32), torch.full((8,), 8),
-        torch.zeros((8, 3)), torch.zeros((8, 8)), torch.zeros((), dtype=torch.int32), 0.05,
+        torch.zeros((8, 3)), torch.zeros((8, 8)), torch.zeros((), dtype=torch.int32), torch.full((8,), 0.05),
+    ),
+    "node_radius": lambda: kernels.node_radius(
+        torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool), torch.zeros((4, 3)), 4, 1.0, 0.03, 0.1,
+    ),
+    "dense_pcg": lambda: kernels.dense_pcg(
+        torch.eye(48), torch.zeros((8, 6, 6)), torch.zeros(48), 32, 1e-3, torch.ones((), dtype=torch.bool),
+    ),
+    "net_rigid": lambda: kernels.net_rigid(
+        torch.zeros((8, 3)), torch.zeros((8, 8)), torch.ones(8, dtype=torch.bool), torch.zeros((8, 8)),
+        torch.ones(8, dtype=torch.bool), 0.5,
     ),
     "depth_dists": lambda: kernels.depth_dists(
         torch.zeros((8, 8), dtype=torch.uint16), tconfig.DynamicFusionConfig.small().intr,

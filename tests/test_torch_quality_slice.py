@@ -13,6 +13,9 @@ blocks within 1e-4, the bf16 rows within one bf16 ulp of JAX's on every
 entry. One LM solve: initial cost within 1e-5 relative, final cost within
 four times JAX's own spread under 1e-7 perturbations of p_live (the bf16
 rows make the LM step sensitive to last bits, test_torch_warp_solver.py).
+The same solve with the tangential rows of every 2nd point, or only the
+plane rows, in the PCG matrix (``solver_p2p_hessian_stride=2``,
+``solver_p2p_lag_hessian``), on the same terms.
 Then three steps of the pipeline, held as tests/test_torch_nonrigid_slice.py
 holds the preset's: the port's step from JAX's state (pose 1e-4, initial
 cost 1e-5, fusion, nodes and maps) and the free-running pose within
@@ -245,15 +248,31 @@ def test_free_running_matches_jax(jax_frames, port_frames, spread, frame):
     ("solver_p2p_hessian_stride", 2), ("solver_p2p_lag_hessian", True),
 ])
 def test_unported_tangential_options_raise(solve_case, option, value):
-    """The two row-matrix variants (off in every preset) raise, each naming
-    itself; the aperture gate (``solver_p2p_adaptive``) is ported
-    (tests/test_torch_adaptive_gate.py)."""
-    _, tfield, arrs = solve_case
-    cfg = dataclasses.replace(TC, **{option: value})
-    with pytest.raises(NotImplementedError, match=option):
-        ts.solve(cfg, tfield, ts.WarpSolveInputs(*(_t(a) for a in arrs)))
+    """The two row-matrix variants (off in every preset), once refused,
+    now solve as the JAX package does: the tangential rows of every 2nd
+    point scaled by sqrt(2) in the PCG matrix, or the plane rows only; the
+    solve held as test_tangential_solve_matches_jax holds the preset's
+    (tests/test_torch_row_modes.py holds the rows and the matvec)."""
+    jfield, tfield, arrs = solve_case
+    jc, tc = (dataclasses.replace(c, **{option: value}) for c in (JC, TC))
+    ji = js.WarpSolveInputs(*(jnp.asarray(a) for a in arrs))
+    solve = jax.jit(lambda f, i: js.solve(jc, f, i))
+    _, jst = solve(jfield, ji)
+    rng = np.random.RandomState(5)
+    costs = []
+    for _ in range(3):
+        pert = ji._replace(p_live=ji.p_live * (1.0 + jnp.asarray(rng.randn(*arrs[2].shape).astype(np.float32)) * 1e-7))
+        costs.append(float(solve(jfield, pert)[1].final_cost))
+    tf, tst = ts.solve(tc, tfield, ts.WarpSolveInputs(*(_t(a) for a in arrs)))
+    c0, c1 = float(jst.initial_cost), float(jst.final_cost)
+    assert abs(float(tst.initial_cost) - c0) <= 1e-5 * c0
+    assert float(tst.final_cost) <= float(tst.initial_cost)
+    spread_c = max(abs(c - c1) for c in costs)
+    assert abs(float(tst.final_cost) - c1) <= SPREAD * spread_c + 1e-3 * c1
+    print(f"{option}={value}: accepted steps JAX {int(jst.accepted_steps)}, port {int(tst.accepted_steps)}; "
+          f"final cost JAX {c1:.6e}, port {float(tst.final_cost):.6e}, JAX's spread {spread_c:.3e}")
     # with the term off the options change nothing, as in the JAX package
-    ts._check_cfg(dataclasses.replace(cfg, solver_p2p_weight=0.0))
+    ts._check_cfg(dataclasses.replace(tc, solver_p2p_weight=0.0))
 
 
 def test_quality_preset_is_the_preset_with_the_tangential_term():
