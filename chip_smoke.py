@@ -4,7 +4,8 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--a-frames A] [--p-frames P]
-                          [--d-frames D] [--r-frames R] [--o-frames O] [--profile DIR] [--dump-solve FILE]
+                          [--d-frames D] [--r-frames R] [--o-frames O] [--dn-frames E] [--profile DIR]
+                          [--dump-solve FILE]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -42,7 +43,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    nodes and at the insertion shape (bit-equal), kernel Q on a real
    pre/post-solve pair and on a field with two active nodes (left as it
    is), kernels F and G with the tangential rows of every 2nd and 4th
-   point and with the plane rows only;
+   point and with the plane rows only; kernel C's refine codes 2
+   (newton16) and 3 (hybrid16) and its six-sample normal on every refine,
+   at the preset's 160x120 maps and at 640x480, the hit mask exact; and
+   kernels F1 and F2 (the dense fusion) at 256^3 on the preset's phase-2
+   state and the next frame, F2 with the incidence confidence and the
+   phase split, codes within 1 LSB and weights equal, then each against
+   the brick path (K + D) on the same frame and volume (printed);
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -103,7 +110,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 12. ``reference_parity()`` non-rigid (640x480 maps, 12 800 solve points)
    over R frames, known unstable as a running configuration: the plain
    step from each state; P, the factor's time and its ``info`` printed;
-13. print the per-kernel JSON line, the card's name and power limit, and
+13. the reference-shaped rigid cell: ``reference_parity()`` with
+   ``rigid_only``, ``integrate_mode="dense"`` and
+   ``raycast_smooth_normals`` over P orbit frames (kernel F1 every frame,
+   C's six-sample normal in the coarse and the banded march): the checks
+   and renders of phase 7, 3 more frames profiled;
+14. the dense non-rigid cell: ``default_dynamicfusion()`` with
+   ``integrate_mode="dense"`` and ``raycast_refine="newton16"`` over E
+   deforming-scene frames (F1 in frame 0, F2 every step, C's code 2): the
+   checks of phase 4 (fusion read from the volume), the plain step from
+   each state, 3 more frames profiled; then three steps each of hybrid16
+   and of the six-sample normal on newton8, newton16 and hybrid16 from its
+   state after frame 3, each held against the plain step;
+15. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler table and trace of 3 frames of
@@ -136,12 +155,12 @@ TOL_BILATERAL_FRAC = 1e-4     # fraction of pixels allowed to differ at all
 TOL_ICP_REL = 1e-4            # max |diff| of A and b over max |entry|: sum order differs
 TOL_RAYCAST_FOUND_FRAC = 1e-3  # fraction of rays whose hit/miss differs
 TOL_RAYCAST_M = 1e-4          # max vertex diff (m) where both hit
+TOL_RAYCAST_NORMAL = 1e-5     # max normal diff where both hit (the same float32 operations)
 TOL_FUSE_LSB = 1              # max code diff of tsdf/weight
 TOL_FUSE_FRAC = 1e-4          # fraction of voxels whose codes differ at all
 # non-rigid fusion: codes differing by more than 1 LSB on < 1e-4 of voxels,
-# weights within 1 LSB (PyTorch on CUDA divides by a Python scalar as a
-# product with its reciprocal: the plain unpacked depth and confidence may
-# differ from the kernel's quotients in the last bit)
+# weights equal (kernel D and its plain version unpack the packed depth and
+# confidence with the same products by float32 reciprocals)
 TOL_FUSE_NR_FRAC = 1e-4
 TOL_KNN_IDX_FRAC = 1e-4       # queries whose neighbour lists differ (a tie within an ulp)
 TOL_FIELD = 1e-5              # blended dual quaternions, quality, warped points (m), weights
@@ -275,13 +294,25 @@ ROWS = {
     "pcg_strided": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:1035"),
     "pcg_lagged": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:1035"),
     "dense_pcg": ("dense_pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:860"),
+    "raycast_newton16": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:529"),
+    "raycast_hybrid16": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:475"),
+    "raycast_grad6_coarse": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:610"),
+    "raycast_full_res_grad6_secant": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:610"),
+    "raycast_grad6_newton8": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:610"),
+    "raycast_grad6_newton16": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:610"),
+    "raycast_grad6_hybrid16": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:610"),
+    "integrate_dense": ("fuse_dense.cu", "dynamicfusion_tpu/ops/tsdf.py:169"),
+    "integrate_dense_nonrigid": ("fuse_dense.cu", "dynamicfusion_tpu/ops/fusion.py:174"),
 }
 COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", "data_term_tangential": "data_term",
            "pcg_tangential": "pcg", "raycast_coarse": "raycast", "raycast_full_res": "raycast",
            "raycast_render": "raycast", "icp_reduce_full_res": "icp_reduce", "data_term_p2p": "data_term",
            "dense_gram_bf16": "dense_gram", "insert_select_full_res": "insert_select",
            "node_radius_insert": "node_radius", "data_term_strided": "data_term", "pcg_strided": "pcg",
-           "pcg_lagged": "pcg"}
+           "pcg_lagged": "pcg",
+           **{k: "raycast" for k in ("raycast_newton16", "raycast_hybrid16", "raycast_grad6_coarse",
+                                     "raycast_full_res_grad6_secant", "raycast_grad6_newton8",
+                                     "raycast_grad6_newton16", "raycast_grad6_hybrid16")}}
 # the run whose counters a row's launches are: kernels A-D the rigid path's,
 # kernel L the preset's (frame 0), the tangential rows the quality preset's,
 # kernel M the adaptive-gate path's, the full-resolution rows the
@@ -297,7 +328,14 @@ PATH = {**dict.fromkeys(RIGID_KERNELS, "rigid"), "extract_cloud": "frame0", "sam
         "dense_gram_bf16": "base_bf16", "data_term_p2p": "base_p2p", "insert_select_full_res": "parity_nr",
         **dict.fromkeys(("node_radius", "node_radius_insert", "net_rigid", "data_term_strided", "pcg_strided"),
                         "options"),
-        "pcg_lagged": "options_lag", "dense_pcg": "base_pcg"}
+        "pcg_lagged": "options_lag", "dense_pcg": "base_pcg",
+        # the reference-shaped rigid cell (phase 13): F1 and C's six-sample
+        # normal; the dense non-rigid cell (phase 14): F2, C's newton16, and
+        # its variants' three steps
+        **dict.fromkeys(("integrate_dense", "raycast_grad6_coarse", "raycast_full_res_grad6_secant"), "ref_rigid"),
+        "integrate_dense_nonrigid": "dense_nr", "raycast_newton16": "dense_nr",
+        "raycast_hybrid16": "dense_nr_hybrid16", "raycast_grad6_newton8": "dense_nr_newton8_grad6",
+        "raycast_grad6_newton16": "dense_nr_newton16_grad6", "raycast_grad6_hybrid16": "dense_nr_hybrid16_grad6"}
 # the options cell (phase 11): quality_dynamicfusion() with these
 OPTIONS = dict(solver_p2p_adaptive=True, solver_p2p_hessian_stride=4, node_radius_adaptive=True,
                solver_remove_net_rigid=True, solver_net_rigid_alpha=0.5)
@@ -487,7 +525,7 @@ def rigid_kernels(torch, args, report, dev, card):
     cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), pose)
     band = kinfu._temporal_band(cfg, st.can_points, dists)
     hold_raycast(torch, report, "raycast", cfg, st.vol.tsdf,
-                 tsdf_ops.rays(cfg, cam2vol, intr_t, rows_t, cols_t, t_band=band), 24)
+                 tsdf_ops.rays(cfg, cam2vol, intr_t, rows_t, cols_t, t_band=band))
 
     # B: ICP system at the tracking resolution (live frame vs the model maps)
     _, pts_pyr, nrm_pyr, _ = preprocess.build_frame_pyramid(cfg, dnext, first_point_level=cfg.raycast_shift)
@@ -805,10 +843,10 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     dw_ = (vk.weight.to(torch.int32) - vp.weight.to(torch.int32)).abs()
     frac = float((dt_ > 1).float().mean())
     changed = int((vk.tsdf != st.vol.tsdf).sum())
-    check("fuse_bricks_nonrigid", torch.equal(cnt_k, cnt_p) and frac < TOL_FUSE_NR_FRAC and int(dw_.max()) <= 1
+    check("fuse_bricks_nonrigid", torch.equal(cnt_k, cnt_p) and frac < TOL_FUSE_NR_FRAC and int(dw_.max()) == 0
           and changed > 0,
           f"counts {cnt_k.tolist()} / {cnt_p.tolist()}; codes > 1 LSB apart on {frac:.2e} (tol {TOL_FUSE_NR_FRAC}), "
-          f"max code diff {int(dt_.max())}, max weight diff {int(dw_.max())} (tol 1); {changed} voxels changed")
+          f"max code diff {int(dt_.max())}, max weight diff {int(dw_.max())} (tol 0); {changed} voxels changed")
     g = cfg.knn_field_stride
     cam_grid = se3.transform_points(w2c, cf.warped)
     bp = bricks.plan(cfg, dists, cam_grid, g, cfg.intr)
@@ -831,6 +869,124 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         library_ms=None,
     )
     del scratch, vk, vp, df
+    dense_fusion_kernels(torch, report, dev, cfg, st, tr, cf)
+
+
+def hold_dense(torch, name, fuse, vol, launches):
+    """A dense fusion kernel (``fuse(v, plain)`` fuses volume ``v`` in place
+    and returns the plain version's update mask) against its plain version
+    on clones of ``vol``: codes within TOL_FUSE_LSB, weights equal. Returns
+    (the kernel's volume, the update mask, max code diff, share of voxels
+    whose codes differ)."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+
+    vk = TsdfVolume(vol.tsdf.clone(), vol.weight.clone())
+    vp = TsdfVolume(vol.tsdf.clone(), vol.weight.clone())
+    before = kernels.launches[launches]
+    fuse(vk, False)
+    upd = fuse(vp, True)
+    dt_ = (vk.tsdf.to(torch.int32) - vp.tsdf.to(torch.int32)).abs()
+    w_same = torch.equal(vk.weight.view(torch.int16), vp.weight.view(torch.int16))
+    err = int(dt_.max())
+    frac = float((dt_ > 0).float().mean())
+    n_upd = int(upd.sum())
+    check(name, err <= TOL_FUSE_LSB and w_same and n_upd > 0 and kernels.launches[launches] == before + 1,
+          f"{tuple(vol.tsdf.shape)}: max code diff {err} (tol {TOL_FUSE_LSB}), codes differ on {frac:.2e} of "
+          f"voxels, weights equal {w_same} (the update masks agree on every voxel); {n_upd} voxels updated")
+    return vk, upd, err, frac
+
+
+def dense_fusion_kernels(torch, report, dev, cfg, st, tr, cf):
+    """Phase 2 for kernels F1 and F2 at 256^3 on the preset's phase-2 state
+    and the next deforming-scene frame (tracked): F1 at the tracked pose,
+    F2 with the incidence confidence and ``fusion_phase_split=2`` (phase
+    1), each against its plain version; then, on the same frame and
+    volume, F1 against the brick path (K + D) and F2 (no split) against
+    D's non-rigid entry (K + D), timed and compared voxel by voxel."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch.core import se3
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+    from dynamicfusion_tpu_torch.ops import bricks, fusion, tsdf as tsdf_ops
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    dense = dataclasses.replace(cfg, integrate_mode="dense")
+    dists, conf, intr = tr.dists, tr.conf, cfg.intr
+    d = cfg.volume_dims
+    nvox = d ** 3
+    rows, cols = dists.shape
+    ok_t = torch.ones((), dtype=torch.bool, device=dev)
+    vol2cam = se3.compose(se3.inverse(tr.pose), kinfu._vol_pose(cfg, dev))
+    w2c = se3.inverse(tr.pose)
+    phase = torch.ones((), dtype=torch.int32, device=dev)
+    split2 = dataclasses.replace(dense, fusion_phase_split=2)
+
+    def f1(v, plain):
+        if plain:
+            return tsdf_ops.integrate_dense_plain(dense, v, dists, vol2cam, intr, ok_t)
+        tsdf_ops.integrate(dense, v, dists, vol2cam, intr, ok=ok_t)
+
+    def f2(c):
+        lookup = bricks.pack_depth_conf(dists, conf)
+
+        def run(v, plain):
+            if plain:
+                return fusion.integrate_dense_nonrigid_plain(c, v, cf, lookup, w2c, intr, ok_t, True, phase)
+            fusion.integrate_nonrigid(c, v, cf, dists, w2c, intr, ok_t, conf=conf, phase=phase)
+        return run
+
+    scratch = volume_model.TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())
+    out = {}
+    for name, fuse, c, prolong in (("integrate_dense", f1, dense, False),
+                                   ("integrate_dense_nonrigid", f2(split2), split2, True)):
+        vk, upd, err, frac = hold_dense(torch, name, fuse, st.vol, name)
+        n_upd = int(upd.sum())
+        # the least work: the updated voxels' codes read and written (8 B),
+        # the image (and F2's grid) read once; ~30 operations a voxel's
+        # projection (F2: + 4 channels x 7 of the prolongation), ~20 an update
+        nbytes = n_upd * 8 + rows * cols * 4 + 48 + (cf.warped.numel() * 4 + cf.q.numel() * 4 if prolong else 0)
+        vox = nvox // 2 if prolong else nvox  # F2 projects the phase's half of the x-planes
+        flops = vox * (30.0 + (28.0 if prolong else 0.0)) + n_upd * 20.0
+        report[name] = dict(
+            err=err,
+            ms=cuda_ms(torch, lambda: fuse(scratch, False)),
+            plain_ms=cuda_ms(torch, lambda: fuse(scratch, True), reps=3),
+            bound=bound_ms(nbytes, flops),
+            library_ms=None,
+        )
+        out[name] = (vk, frac)
+    print(f"[dense] F1 codes differ from the plain version's on {out['integrate_dense'][1]:.2e} of voxels, F2 (split 2) "
+          f"on {out['integrate_dense_nonrigid'][1]:.2e}; weights equal in both", flush=True)
+
+    # the dense fusion against the brick path on the same frame and volume
+    def rigid(c):
+        return lambda: tsdf_ops.integrate(c, scratch, dists, vol2cam, intr, ok=ok_t)
+
+    def nonrigid(c):
+        return lambda: fusion.integrate_nonrigid(c, scratch, cf, dists, w2c, intr, ok_t, conf=conf, phase=phase)
+
+    for tag, make in (("rigid", rigid), ("non-rigid", nonrigid)):
+        ms = {m: cuda_ms(torch, make(dataclasses.replace(cfg, integrate_mode=m))) for m in ("brick", "dense")}
+        ms["brick_2"] = cuda_ms(torch, make(cfg))
+        ms["dense_2"] = cuda_ms(torch, make(dense))
+        vols = {}
+        for m in ("brick", "dense"):
+            v = volume_model.TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())
+            c = dataclasses.replace(cfg, integrate_mode=m)
+            if tag == "rigid":
+                tsdf_ops.integrate(c, v, dists, vol2cam, intr, ok=ok_t)
+            else:
+                fusion.integrate_nonrigid(c, v, cf, dists, w2c, intr, ok_t, conf=conf, phase=phase)
+            vols[m] = v
+        dt_ = (vols["brick"].tsdf.to(torch.int32) - vols["dense"].tsdf.to(torch.int32)).abs()
+        dw_ = vols["brick"].weight.to(torch.int32) != vols["dense"].weight.to(torch.int32)
+        print(f"[compare] {tag} fusion at {d}^3, {cols}x{rows}, same frame and volume: brick (K + D) "
+              f"{ms['brick']:.4f} / {ms['brick_2']:.4f} ms, dense ({'F2' if tag != 'rigid' else 'F1'}) "
+              f"{ms['dense']:.4f} / {ms['dense_2']:.4f} ms (two turns each); the two volumes' codes differ on "
+              f"{float((dt_ > 0).float().mean()):.3e} of voxels (by more than 1 LSB on "
+              f"{float((dt_ > 1).float().mean()):.3e}), weights on {float(dw_.float().mean()):.3e}", flush=True)
+    del scratch, out
 
 
 def hold_insert(torch, name, cfg, field, cand, valid, fi, min_candidates=1):
@@ -1111,10 +1267,33 @@ def option_kernels(torch, report, dev, nr_depths, field, inputs):
         )
 
 
-def hold_raycast(torch, report, name, cfg, tsdf, rays, refine_gathers):
+def refine_work(cfg):
+    """(corner gathers, operations) of kernel C's refine a hit under
+    ``cfg``: secant two values and a fused fetch (24), newton8 one fused
+    fetch (8), newton16 and hybrid16 two (16); the six-sample normal adds
+    six trilinear values (48) and takes the secant's fused fetch away."""
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+
+    refine = tsdf_ops._refine_mode(cfg)
+    gathers, ops = {0: (24, 250.0), 1: (8, 120.0), 2: (16, 220.0), 3: (16, 260.0)}[refine]
+    if cfg.raycast_smooth_normals:
+        gathers, ops = gathers + 48 - (8 if refine == 0 else 0), ops + 6 * 40.0 - (100.0 if refine == 0 else 0.0)
+    return gathers, ops
+
+
+# the raycast variants held in phase 2 (R1, R2): (row suffix, refine,
+# six-sample normal); each also runs on a path (phases 13-14)
+RAYCAST_VARIANTS = (("newton16", "newton16", False), ("hybrid16", "hybrid16", False),
+                    ("grad6_secant", "secant", True), ("grad6_newton8", "newton8", True),
+                    ("grad6_newton16", "newton16", True), ("grad6_hybrid16", "hybrid16", True))
+
+
+def hold_raycast(torch, report, name, cfg, tsdf, rays, exact_found=False):
     """Kernel C against its plain version on the same rays (hit/miss, vertex
     and normal), timed, with its bound for this run's march: the samples
-    the rays take plus ``refine_gathers`` corner loads a hit."""
+    the rays take plus the refine's corner loads a hit (``refine_work``).
+    ``exact_found``: the hit mask must equal the plain version's on every
+    ray."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.models import volume as volume_model
     from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
@@ -1128,28 +1307,43 @@ def hold_raycast(torch, report, name, cfg, tsdf, rays, refine_gathers):
     # a hit whose refined point left the volume carries a NaN normal in both
     nan_same = torch.equal(torch.isnan(nk_[both]), torch.isnan(np_[both]))
     nerr = float(torch.nan_to_num((nk_ - np_)[both].abs(), nan=0.0).max()) if bool(both.any()) else 0.0
-    check(name, found_frac <= TOL_RAYCAST_FOUND_FRAC and err <= TOL_RAYCAST_M and nan_same,
-          f"{dirs.shape[1]}x{dirs.shape[0]}: hit/miss differs on {found_frac:.2e} of rays "
-          f"(tol {TOL_RAYCAST_FOUND_FRAC}), "
-          f"max vertex diff {err:.3e} m (tol {TOL_RAYCAST_M}), max normal diff {nerr:.3e}; "
-          f"{int(fk.sum())} of {fk.numel()} rays hit")
+    found_tol = 0.0 if exact_found else TOL_RAYCAST_FOUND_FRAC
+    mode = f"{cfg.raycast_refine}{', six-sample normal' if cfg.raycast_smooth_normals else ''}"
+    check(name, found_frac <= found_tol and err <= TOL_RAYCAST_M and nan_same and nerr <= TOL_RAYCAST_NORMAL,
+          f"{dirs.shape[1]}x{dirs.shape[0]} ({mode}): hit/miss differs on {found_frac:.2e} of rays "
+          f"(tol {found_tol}), "
+          f"max vertex diff {err:.3e} m (tol {TOL_RAYCAST_M}), max normal diff {nerr:.3e} (tol {TOL_RAYCAST_NORMAL}), "
+          f"NaN normals alike {nan_same}; {int(fk.sum())} of {fk.numel()} rays hit")
     hits = int(fk.sum())
-    n_samples = march_samples(torch, cfg, tsdf, ray_org, dirs, tmin, tmax) + refine_gathers * hits
+    gathers, ops = refine_work(cfg)
+    n_samples = march_samples(torch, cfg, tsdf, ray_org, dirs, tmin, tmax) + gathers * hits
     step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
     refine = tsdf_ops._refine_mode(cfg)
     report[name] = dict(
-        err=err,
+        err=max(err, nerr),
         ms=cuda_ms(torch, lambda: kernels.march_and_refine(
             tsdf, ray_org, dirs, tmin, tmax, cfg.voxel_size, step, tsdf_ops.march_steps(cfg),
-            cfg.raycast_adaptive_step, refine=refine)),
+            cfg.raycast_adaptive_step, refine=refine, smooth=cfg.raycast_smooth_normals,
+            delta=cfg.gradient_delta_factor)),
         plain_ms=cuda_ms(torch, lambda: tsdf_ops.march_and_refine_plain(cfg, tsdf, ray_org, dirs, tmin, tmax), reps=3),
         # int16 samples (the march, the refine's corners), the rays in,
         # found/vertex/normal out; ~12 operations a sample, the refine's a hit
-        bound=bound_ms(n_samples * 2 + fk.numel() * (12 + 8 + 1 + 24),
-                       n_samples * 12.0 + hits * (250.0 if refine == 0 else 120.0)),
+        bound=bound_ms(n_samples * 2 + fk.numel() * (12 + 8 + 1 + 24), n_samples * 12.0 + hits * ops),
         library_ms=None,
     )
     return fk
+
+
+def hold_raycast_variants(torch, report, prefix, cfg, tsdf, rays):
+    """Kernel C's refine codes 2 and 3 and its six-sample normal mode on
+    every refine (``RAYCAST_VARIANTS``), each against its plain version on
+    the same rays, the hit mask exact."""
+    import dataclasses
+
+    for suffix, refine, smooth in RAYCAST_VARIANTS:
+        hold_raycast(torch, report, f"{prefix}_{suffix}",
+                     dataclasses.replace(cfg, raycast_refine=refine, raycast_smooth_normals=smooth), tsdf, rays,
+                     exact_found=True)
 
 
 def gate_inputs(torch, cfg, st, tr):
@@ -1243,7 +1437,7 @@ def full_res_kernels(torch, report, dev, st, depth_np):
 
     # C: the coarse march
     hold_raycast(torch, report, "raycast_coarse", cfg, tsdf, tsdf_ops.rays(cfg, cam2vol, intr.level(2), rows // f,
-                                                                          cols // f), 24)
+                                                                          cols // f))
     # J: the coarse band from the kernel's coarse hits (exact)
     coarse = tsdf_ops.raycast(cfg, st.vol, cam2vol, intr.level(2), rows // f, cols // f)
     pts_c = coarse.points.contiguous()
@@ -1267,9 +1461,16 @@ def full_res_kernels(torch, report, dev, st, depth_np):
         library_ms=cuda_ms(torch, lambda: F.max_pool2d(t_src, 3, 1, padding=1)),
     )
     # C: 640x480 in the coarse band, and the render's full march
-    hold_raycast(torch, report, "raycast_full_res", cfg, tsdf, tsdf_ops.rays(cfg, cam2vol, intr, rows, cols, t_band=bk),
-                 24)
-    hold_raycast(torch, report, "raycast_render", cfg, tsdf, tsdf_ops.rays(cfg, cam2vol, intr, rows, cols), 24)
+    rays_f = tsdf_ops.rays(cfg, cam2vol, intr, rows, cols, t_band=bk)
+    hold_raycast(torch, report, "raycast_full_res", cfg, tsdf, rays_f)
+    hold_raycast(torch, report, "raycast_render", cfg, tsdf, tsdf_ops.rays(cfg, cam2vol, intr, rows, cols))
+    # C's new modes at 640x480 in the same band; the reference-shaped rigid
+    # path (phase 13) runs the six-sample normal on the secant there and in
+    # its 160x120 coarse march
+    hold_raycast_variants(torch, report, "raycast_full_res", cfg, tsdf, rays_f)
+    smooth = dataclasses.replace(cfg, raycast_smooth_normals=True)
+    hold_raycast(torch, report, "raycast_grad6_coarse", smooth, tsdf,
+                 tsdf_ops.rays(cfg, cam2vol, intr.level(2), rows // f, cols // f), exact_found=True)
 
     # B: the ICP system at 640x480
     model = tsdf_ops.raycast(cfg, st.vol, cam2vol, intr, rows, cols, t_band=bk)
@@ -1473,8 +1674,10 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
     # C: the newton8 branch, in the band, at the preset's model-map resolution
     rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
     cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), st.pose)
-    hold_raycast(torch, report, "raycast_newton8", cfg, st.vol.tsdf,
-                 tsdf_ops.rays(cfg, cam2vol, intr.level(cfg.raycast_shift), rows_t, cols_t, t_band=bk), 8)
+    rays_t = tsdf_ops.rays(cfg, cam2vol, intr.level(cfg.raycast_shift), rows_t, cols_t, t_band=bk)
+    hold_raycast(torch, report, "raycast_newton8", cfg, st.vol.tsdf, rays_t)
+    # C's refine codes 2 and 3 and the six-sample normal on the same rays
+    hold_raycast_variants(torch, report, "raycast", cfg, st.vol.tsdf, rays_t)
 
     # K: the brick plan at the preset's non-rigid fusion grid (exact)
     g = cfg.knn_field_stride
@@ -1636,10 +1839,11 @@ def drive_kernel_path(torch, cfg, dev, frames):
     return df, launches, rows, frame_ms, states
 
 
-def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k):
+def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k, fused=None):
     """A non-rigid run's checks: every kernel of the path (A-L) launched,
     kernel L once (frame 0), ICP healthy and the solve's cost not raised
-    on every frame, fusion on the due frames."""
+    on every frame, fusion on the due frames (``fused``: the frames whose
+    fusion changed the volume, else those with brick counts)."""
     from dynamicfusion_tpu_torch import kernels
 
     print(f"[{tag}] {len(frames)} frames at {cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3 / {cfg.max_nodes} nodes; "
@@ -1661,6 +1865,9 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     off |= set() if cfg.solver_remove_net_rigid else {"net_rigid"}
     if not cfg.raycast_temporal_band and cfg.raycast_seed_margin <= 0.0:
         off.add("march_bands")
+    # the dense fusion (F1 in frame 0, F2 a step) in place of the brick plan and fusion (K, D)
+    off |= {"integrate_dense", "integrate_dense_nonrigid"} if cfg.integrate_mode == "brick" else {"brick_plan",
+                                                                                                 "fuse_bricks"}
     path = [k for k in kernels.KERNELS if k not in off]
     check(f"{tag}_launches", all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
     if cfg.solver_p2p_adaptive:
@@ -1673,7 +1880,8 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
           f"ICP healthy on every tracked frame ({sum(r['ok'] for r in rows)}/{len(rows)})")
     check(f"{tag}_solver", all(r["c1"] <= r["c0"] and r["c0"] > 0 for r in rows),
           "solver_cost1 <= solver_cost0 on every frame")
-    fused = [i for i, r in enumerate(rows, start=1) if r["bricks"][0] + r["bricks"][1] > 0]
+    if fused is None:
+        fused = [i for i, r in enumerate(rows, start=1) if r["bricks"][0] + r["bricks"][1] > 0]
     due = [i for i in range(1, len(frames)) if i % cfg.fusion_interval == 0]
     check(f"{tag}_fusion", fused == due, f"fusion on frames {fused} (due {due})")
     check(f"{tag}_no_sync", True, f"frames 2..{len(frames) - 1} ran under set_sync_debug_mode('error')")
@@ -1891,12 +2099,16 @@ def adaptive_main(torch, args, dev, card):
     return launches
 
 
-def parity_main(torch, args, dev, card):
+def parity_main(torch, args, dev, card, dense=False):
     """Phase 7: ``reference_parity()`` with ``rigid_only`` (the reference's
     KinectFusion at its own resolution: 640x480 model maps, ICP at 640x480
     down to 80x60, the coarse band every frame, fusion every frame) over the
-    rigid orbit, kernel path and plain path; then the renders. Returns (the
-    path's launches, the render calls' launches)."""
+    rigid orbit, kernel path and plain path; then the renders. With
+    ``dense``, phase 13, the reference-shaped rigid cell: the same with
+    ``integrate_mode="dense"`` (kernel F1 every frame in place of K + D)
+    and ``raycast_smooth_normals`` (kernel C's six-sample normal in the
+    coarse march and the banded march), and 3 more frames profiled.
+    Returns (the path's launches, the render calls' launches)."""
     import dataclasses
 
     from dynamicfusion_tpu_torch import kernels
@@ -1905,10 +2117,13 @@ def parity_main(torch, args, dev, card):
     from dynamicfusion_tpu_torch.models.volume import TsdfVolume
     from dynamicfusion_tpu_torch.pipeline import kinfu
 
+    tag = "ref_rigid" if dense else "parity"
     cfg = dataclasses.replace(DynamicFusionConfig.reference_parity(), rigid_only=True)
+    if dense:
+        cfg = dataclasses.replace(cfg, integrate_mode="dense", raycast_smooth_normals=True)
     frame = rigid_frame_fn(cfg)
     frames = [frame(i) for i in range(args.p_frames)]
-    prof_frames = [frame(i) for i in range(args.p_frames, args.p_frames + 3)] if args.profile else []
+    prof_frames = [frame(i) for i in range(args.p_frames, args.p_frames + 3)] if args.profile or dense else []
     truth = [synthetic.orbit_pose(ANGLE_STEP * i, target=TARGET) for i in range(args.p_frames)]
     df = kinfu.DynamicFusion(cfg, device=dev)
     kernels.reset_launches()
@@ -1925,35 +2140,49 @@ def parity_main(torch, args, dev, card):
     poses_k = [p.cpu().numpy() for p in df.poses]
     oks = [bool(o) for o in oks]
     n = len(frames)
-    print(f"[parity] reference_parity() rigid: {n} frames at {cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3, model maps "
+    print(f"[{tag}] reference_parity() rigid{', dense fusion, six-sample normals' if dense else ''}: {n} frames at "
+          f"{cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3, model maps "
           f"{cfg.cols // cfg.raycast_subsample}x{cfg.rows // cfg.raycast_subsample}, refine {df.cfg.raycast_refine}; "
           f"launches {launches}", flush=True)
-    check("parity_launches", all(launches[k] > 0 for k in RIGID_KERNELS + STENCIL_KERNELS if k != "march_bands")
-          and launches["coarse_band"] == n and launches["raycast"] == 2 * n,
-          f"kernels A-D, I, K launched; the coarse band once a frame ({launches['coarse_band']} in {n} frames) and C "
-          f"twice, its coarse march and the banded march ({launches['raycast']})")
-    check("parity_icp_ok", all(oks), f"ICP healthy on every tracked frame ({sum(oks)}/{len(oks)})")
+    if dense:
+        path = [k for k in RIGID_KERNELS + STENCIL_KERNELS if k not in ("march_bands", "fuse_bricks", "brick_plan")]
+        check(f"{tag}_launches", all(launches[k] > 0 for k in path) and launches["integrate_dense"] == n
+              and launches["fuse_bricks"] == 0 and launches["brick_plan"] == 0 and launches["coarse_band"] == n
+              and launches["raycast"] == 2 * n,
+              f"kernels A-C, I launched; F1 once a frame ({launches['integrate_dense']} in {n} frames), K and D "
+              f"never; the coarse band once a frame ({launches['coarse_band']}) and C twice, its coarse march and "
+              f"the banded march ({launches['raycast']})")
+    else:
+        check("parity_launches", all(launches[k] > 0 for k in RIGID_KERNELS + STENCIL_KERNELS if k != "march_bands")
+              and launches["coarse_band"] == n and launches["raycast"] == 2 * n,
+              f"kernels A-D, I, K launched; the coarse band once a frame ({launches['coarse_band']} in {n} frames) "
+              f"and C twice, its coarse march and the banded march ({launches['raycast']})")
+    check(f"{tag}_icp_ok", all(oks), f"ICP healthy on every tracked frame ({sum(oks)}/{len(oks)})")
     steady = sorted(frame_ms[2:])
-    print(f"[time] {card} | parity frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{n - 1}), "
+    print(f"[time] {card} | {tag} frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{n - 1}), "
           f"frame 0 {frame_ms[0]:.3f}, min {steady[0]:.3f}, max {steady[-1]:.3f}", flush=True)
 
     plain, plain_ms = run_plain_path(torch, cfg, dev, frames)
     poses_p = [p.cpu().numpy() for p in plain.poses]
     per_frame = [float(np.abs(a[:3, 3] - b[:3, 3]).max()) for a, b in zip(poses_k, poses_p)]
     psteady = sorted(plain_ms[2:])
-    print(f"[parity-plain] pose diff kernel vs plain path per frame (m): {' '.join(f'{v:.2e}' for v in per_frame)}")
-    print(f"[time] {card} | parity plain-path frame ms median {psteady[len(psteady) // 2]:.3f}")
-    check("parity_pose_vs_plain", max(per_frame) <= TOL_POSE_PLAIN_M,
+    print(f"[{tag}-plain] pose diff kernel vs plain path per frame (m): {' '.join(f'{v:.2e}' for v in per_frame)}")
+    print(f"[time] {card} | {tag} plain-path frame ms median {psteady[len(psteady) // 2]:.3f}")
+    check(f"{tag}_pose_vs_plain", max(per_frame) <= TOL_POSE_PLAIN_M,
           f"max |t_kernel - t_plain| {max(per_frame):.3e} m (tol {TOL_POSE_PLAIN_M})")
     err_truth = float(np.linalg.norm(poses_k[-1][:3, 3] - truth[-1][:3, 3]))
-    check("parity_pose_vs_truth", err_truth <= TOL_POSE_TRUTH_M,
-          f"final |t - t_orbit| {err_truth:.3e} m (tol {TOL_POSE_TRUTH_M})")
+    err_plain = float(np.linalg.norm(poses_p[-1][:3, 3] - truth[-1][:3, 3]))
+    check(f"{tag}_pose_vs_truth", err_truth <= TOL_POSE_TRUTH_M,
+          f"final |t - t_orbit| {err_truth:.3e} m (tol {TOL_POSE_TRUTH_M}); the plain path's {err_plain:.3e} m")
     mp = df.last_outputs.model_points
-    check("parity_model_maps", tuple(mp.shape) == (cfg.rows, cfg.cols, 3) and bool(torch.isfinite(mp).any()),
+    check(f"{tag}_model_maps", tuple(mp.shape) == (cfg.rows, cfg.cols, 3) and bool(torch.isfinite(mp).any()),
           f"model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
     del plain
-    if args.profile:
-        profile_frames(torch, args, dev, card, df, prof_frames, tag="parity", focus=("coarse_band", "raycast"))
+    if prof_frames:
+        focus = ("fuse_dense", "raycast") if dense else ("coarse_band", "raycast")
+        prof = profile_frames(torch, args, dev, card, df, prof_frames, tag=tag, focus=focus)
+        print(f"[{tag}] {card} | frame ms median {steady[len(steady) // 2]:.3f}; device idle "
+              f"{1.0 - prof['busy_ms'] / prof['wall_ms']:.3f} of 3 profiled frames", flush=True)
 
     # the renders: from the last model maps, and a fresh full march at the
     # current pose; the plain path renders the same state
@@ -1973,7 +2202,7 @@ def parity_main(torch, args, dev, card):
     ok = all(imgs[k].dtype == torch.uint8 and imgs[k].device.type == "cuda" and tuple(imgs[k].shape) == shapes[k]
              and float(imgs[k].float().std()) > 1.0 for k in imgs)
     far = float((imgs["pose"].int() - ref_img.int()).abs().amax(-1).gt(1).float().mean())
-    check("render", ok and far <= TOL_IMAGE_FRAC and render_launches["raycast"] == 1,
+    check(f"{tag}_render" if dense else "render", ok and far <= TOL_IMAGE_FRAC and render_launches["raycast"] == 1,
           f"render(0) {tuple(imgs[0].shape)}, render(3) {tuple(imgs[3].shape)}, render(pose) "
           f"{tuple(imgs['pose'].shape)}: uint8 on the card, not constant {ok}; render(pose) against the plain "
           f"path's render of the same state: {far:.2e} of pixels more than one level apart (tol {TOL_IMAGE_FRAC}); "
@@ -2433,6 +2662,59 @@ def parity_nonrigid_main(torch, args, dev, card, nr_depths, report):
     return launches
 
 
+# the raycast variants run for three steps each from the dense non-rigid
+# cell's state after frame 3 (phase 14): (tag, config changes)
+DENSE_VARIANTS = (("hybrid16", dict(raycast_refine="hybrid16")),
+                  ("newton8_grad6", dict(raycast_refine="newton8", raycast_smooth_normals=True)),
+                  ("newton16_grad6", dict(raycast_smooth_normals=True)),
+                  ("hybrid16_grad6", dict(raycast_refine="hybrid16", raycast_smooth_normals=True)))
+
+
+def dense_nonrigid_main(torch, args, dev, card, nr_depths):
+    """Phase 14: ``default_dynamicfusion()`` with ``integrate_mode="dense"``
+    and ``raycast_refine="newton16"`` over N deforming-scene frames at full
+    width (640x480, 256^3, 1024 nodes): kernel F1 in frame 0, F2 every step
+    (gated on the device: the volume changes on the fusion frames only),
+    C's code 2 every frame; the preset's checks, the plain step from each
+    state, a profile of 3 more frames; then three steps each of the raycast
+    variants (``DENSE_VARIANTS``) from its state after frame 3, each held
+    against the plain step. Returns (the cell's launches, each variant's)."""
+    import dataclasses
+
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+
+    cfg = dataclasses.replace(DynamicFusionConfig.default_dynamicfusion(), integrate_mode="dense",
+                              raycast_refine="newton16")
+    frames = nr_depths[: args.dn_frames]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    fused = [i for i in range(1, len(frames))
+             if not torch.equal(states[i].vol.weight.view(torch.int16), states[i - 1].vol.weight.view(torch.int16))]
+    check_nonrigid_run("dense_nr", card, cfg, frames, launches, rows, frame_ms, poses_k, fused=fused)
+    steps = len(frames) - 1
+    check("dense_nr_fusion_launches", launches["integrate_dense"] == 1 and launches["integrate_dense_nonrigid"] == steps
+          and launches["fuse_bricks"] == 0 and launches["brick_plan"] == 0,
+          f"F1 once in frame 0 ({launches['integrate_dense']}), F2 once a step ({launches['integrate_dense_nonrigid']} "
+          f"in {steps} steps), K and D never; C {launches['raycast']} launches")
+    check_steps_vs_plain(torch, "dense_nr", cfg, dev, frames, states, poses_k, rows)
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    mp = df.last_outputs.model_points
+    check("dense_nr_model_maps", tuple(mp.shape) == (rows_t, cols_t, 3) and bool(torch.isfinite(mp).any()),
+          f"warped model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
+    prof = profile_frames(torch, args, dev, card, df, nr_depths[args.dn_frames: args.dn_frames + 3], tag="dense_nr",
+                          focus=("fuse_dense", "raycast"))
+    steady = sorted(frame_ms[2:])
+    print(f"[dense_nr] {card} | frame ms median {steady[len(steady) // 2]:.3f}; device idle "
+          f"{1.0 - prof['busy_ms'] / prof['wall_ms']:.3f} of 3 profiled frames", flush=True)
+    del df
+    out = {}
+    for name, changes in DENSE_VARIANTS:
+        out[name] = hold_variant(torch, f"dense_nr_{name}", dataclasses.replace(cfg, **changes), dev,
+                                 nr_depths[4:7], states[3], ("raycast", "integrate_dense_nonrigid"))
+    del states
+    return launches, out
+
+
 def perturbed_run(torch, kinfu, cfg, dev, frames, seed):
     """Poses of the kernel path with its frame-0 node positions moved by
     1e-7 relative (seeded)."""
@@ -2505,6 +2787,8 @@ def main() -> int:
     ap.add_argument("--d-frames", type=int, default=20, help="frames of the base DynamicFusionConfig() non-rigid")
     ap.add_argument("--r-frames", type=int, default=5, help="frames of reference_parity() non-rigid")
     ap.add_argument("--o-frames", type=int, default=20, help="hinge frames of the options cell")
+    ap.add_argument("--dn-frames", type=int, default=20,
+                    help="deforming-scene frames of the dense non-rigid cell (newton16)")
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of 3 frames of each non-rigid preset and of the reference-"
                          "resolution rigid path here")
@@ -2543,7 +2827,7 @@ def main() -> int:
     # ---------------- 2. kernels vs plain ----------------
     nr = DynamicFusionConfig.default_dynamicfusion()
     # the deforming scene's frames, and 3 more after the longest run for the profiles
-    n_depths = max(args.nr_frames, args.d_frames, args.r_frames, 7) + 3
+    n_depths = max(args.nr_frames, args.d_frames, args.r_frames, args.dn_frames, 7) + 3
     nr_depths = synthetic.deforming_frames(nr.intr, nr.rows, nr.cols, n_depths)
     report = {}
     rigid_kernels(torch, args, report, dev, card)
@@ -2596,11 +2880,21 @@ def main() -> int:
     pnr_launches = parity_nonrigid_main(torch, args, dev, card, nr_depths, report)
     print(f"[phase] reference-parity non-rigid steps done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---------------- 13. report ----------------
+    # ---------------- 13. reference-shaped rigid: dense fusion, six-sample normals ----------------
+    rr_launches, _ = parity_main(torch, args, dev, card, dense=True)
+    print(f"[phase] reference-shaped rigid path done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 14. dense non-rigid with newton16, the raycast variants ----------------
+    dn_launches, dv_launches = dense_nonrigid_main(torch, args, dev, card, nr_depths)
+    print(f"[phase] dense non-rigid path done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 15. report ----------------
     runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches,
             "adaptive": a_launches, "parity_rigid": p_launches, "render": r_launches, "base": base_launches,
             "base_bf16": v_launches["bf16"], "base_p2p": v_launches["p2p"], "parity_nr": pnr_launches,
-            "options": o_launches, "options_lag": lag_launches, "base_pcg": v_launches["pcg_unlagged"]}
+            "options": o_launches, "options_lag": lag_launches, "base_pcg": v_launches["pcg_unlagged"],
+            "ref_rigid": rr_launches, "dense_nr": dn_launches,
+            **{f"dense_nr_{k}": v for k, v in dv_launches.items()}}
     rows_out = []
     for name, (src, rep) in ROWS.items():
         r = report[name]

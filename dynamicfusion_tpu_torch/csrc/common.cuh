@@ -14,6 +14,11 @@ constexpr float kTsdfScale = 32767.0f;       // i16 tsdf code = round(tsdf * 327
 constexpr float kWeightScale = 512.0f;       // u16 weight code = round(weight * 512)
 constexpr float kWeightDecode = 1.0f / 512.0f;  // exact
 constexpr float kWeightMax = 65535.0f / 512.0f; // exact
+// the packed depth + confidence image (bricks.unpack_depth_conf): XLA
+// compiles the JAX package's divisions by 15 and 4000 there as products
+// with these float32 reciprocals
+constexpr float kInvConf = 1.0f / 15.0f;
+constexpr float kInvDepth = 1.0f / 4000.0f;
 
 // round half to even, as torch.round / jnp.round
 __device__ __forceinline__ int16_t encode_tsdf(float x) {

@@ -120,8 +120,8 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
     float dp = look, conf = 0.0f;
     if (packed) {
       const float dq = floorf(look / 16.0f);
-      conf = (look - dq * 16.0f) / 15.0f;
-      dp = dq / 4000.0f;
+      conf = (look - dq * 16.0f) * dfk::kInvConf;
+      dp = dq * dfk::kInvDepth;
     }
     const float psdf = dp - rdist;
     bool update = inb && inw && dp != 0.0f && psdf >= -trunc;

@@ -35,9 +35,9 @@ SOURCES = (
     "bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu",
     "knn_blend.cu", "data_term.cu", "pcg.cu", "insert_nodes.cu",
     "preprocess.cu", "bands.cu", "classify.cu", "extract.cu", "p2p_gate.cu", "dense_system.cu",
-    "net_rigid.cu", "dense_pcg.cu",
+    "net_rigid.cu", "dense_pcg.cu", "fuse_dense.cu",
 )
-HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh")
+HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh", "volume.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -51,7 +51,8 @@ NVCC_FLAGS = (
 # docstring (A-D the rigid slice, E-H the non-rigid one, I-K the per-frame
 # stencils and the brick plan, L frame 0's extraction and node sampling, M
 # the aperture gate, N and O the dense normal equations and their damping
-# of the direct solve, P the dense-matrix PCG, Q the net rigid removal);
+# of the direct solve, P the dense-matrix PCG, Q the net rigid removal,
+# F1 and F2 the dense rigid and non-rigid fusion);
 # ``cholesky`` counts the direct solve's factor, a cuSOLVER call, as the
 # JAX package's is its library's
 KERNELS = (
@@ -60,7 +61,7 @@ KERNELS = (
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
     "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "coarse_band", "brick_plan",
     "extract_cloud", "sample_nodes", "p2p_gate", "gram_scales", "dense_gram", "dense_damp", "cholesky",
-    "node_radius", "dense_pcg", "net_rigid",
+    "node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -74,7 +75,7 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "df_bilateral": (_P, _P, _I, _I, _I, _D, _F, _P),
     "df_icp_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
-    "df_raycast": (_P, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _F, _P, _P, _P, _P),
+    "df_raycast": (_P, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P),
     "df_fuse_bricks": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
@@ -111,6 +112,10 @@ _SIGNATURES = {
     "df_node_radius": (_P, _P, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "df_dense_pcg": (_P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
     "df_net_rigid": (_P, _P, _P, _P, _P, _I, _F, _F, _P, _P, _P),
+    "df_fuse_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
+    "df_fuse_dense_nonrigid": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _I, _P,
+    ),
 }
 
 
@@ -316,13 +321,17 @@ def march_and_refine(
     max_steps: int,
     adaptive: bool,
     refine: int = 0,
+    smooth: bool = False,
+    *,
+    delta: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel C (csrc/raycast.cu): per-ray march + refine on an int16
-    volume, ``refine`` 0 = secant + Newton polish, 1 = newton8. Returns
-    (found, vertex_vol, normal_vol); rays that found nothing carry NaN
-    vertex and normal."""
-    if refine not in (0, 1):
-        raise ValueError(f"refine: expected 0 (secant) or 1 (newton8), got {refine}")
+    volume, ``refine`` 0 = secant + Newton polish, 1 = newton8, 2 =
+    newton16, 3 = hybrid16; ``smooth`` takes the normal as the six-sample
+    central difference at +-``delta`` voxels. Returns (found, vertex_vol,
+    normal_vol); rays that found nothing carry NaN vertex and normal."""
+    if refine not in (0, 1, 2, 3):
+        raise ValueError(f"refine: expected 0 (secant), 1 (newton8), 2 (newton16) or 3 (hybrid16), got {refine}")
     if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1:
         raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
     _check(tsdf, "tsdf", torch.int16)
@@ -341,12 +350,111 @@ def march_and_refine(
     rc = lib.df_raycast(
         tsdf.data_ptr(), tsdf.shape[0], ray_org.data_ptr(), dirs.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), tmin.numel(),
-        _f32(1.0 / voxel_size), _f32(step), max_steps, int(adaptive), refine,
+        _f32(1.0 / voxel_size), _f32(step), max_steps, int(adaptive), refine, int(smooth), _f32(delta),
         _f32(1.0 / 32767.0), found.data_ptr(), vertex.data_ptr(), normal.data_ptr(),
         _stream(dev),
     )
     _done("raycast", rc)
     return found, vertex, normal
+
+
+def _check_volume(tsdf: torch.Tensor, weight: torch.Tensor) -> int:
+    if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1:
+        raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
+    _check(tsdf, "tsdf", torch.int16)
+    _check(weight, "weight", torch.uint16, tsdf.shape)
+    return tsdf.shape[0]
+
+
+def _check_image(img: torch.Tensor, name: str) -> Tuple[int, int]:
+    _check(img, name, torch.float32)
+    if img.dim() != 2:
+        raise ValueError(f"{name}: expected (H, W), got {tuple(img.shape)}")
+    return img.shape[0], img.shape[1]
+
+
+def integrate_dense(
+    tsdf: torch.Tensor,
+    weight: torch.Tensor,
+    dists: torch.Tensor,
+    rt: torch.Tensor,
+    ok: torch.Tensor,
+    intr,
+    trunc: float,
+    max_weight: float,
+) -> None:
+    """Kernel F1 (csrc/fuse_dense.cu): the dense rigid update of every voxel
+    IN PLACE on the int16 tsdf and uint16 weight volumes. ``rt`` (12,) holds
+    the volume-to-camera rotation times the voxel size (row-major) and the
+    translation; ``ok`` False skips the whole update."""
+    d = _check_volume(tsdf, weight)
+    rows, cols = _check_image(dists, "dists")
+    _check(rt, "rt", torch.float32, (12,))
+    _check(ok, "ok", torch.bool, ())
+    _same_device(tsdf, weight, dists, rt, ok)
+    lib = load()
+    rc = lib.df_fuse_dense(
+        tsdf.data_ptr(), weight.data_ptr(), dists.data_ptr(), rt.data_ptr(), ok.data_ptr(), d, rows, cols,
+        _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), _f32(trunc), _f32(max_weight),
+        _f32(1.0 / 32767.0), _stream(tsdf.device),
+    )
+    _done("integrate_dense", rc)
+
+
+def integrate_dense_nonrigid(
+    tsdf: torch.Tensor,
+    weight: torch.Tensor,
+    lookup: torch.Tensor,
+    warped: torch.Tensor,
+    q_grid: Optional[torch.Tensor],
+    rt: torch.Tensor,
+    ok: torch.Tensor,
+    phase: Optional[torch.Tensor],
+    stride: int,
+    brick: int,
+    split: int,
+    intr,
+    trunc: float,
+    max_weight: float,
+    q_min: float = 0.0,
+    packed: bool = False,
+    incidence_floor: float = 0.0,
+    sdf_scale: bool = False,
+) -> None:
+    """Kernel F2 (csrc/fuse_dense.cu): the dense non-rigid update of every
+    voxel IN PLACE: its warped world position (and, given ``q_grid``, its
+    observation weight, gating at > ``q_min``) prolonged from the (G, G, G)
+    coarse corners ``warped`` (G = D / stride + 1), put into the camera
+    frame by ``rt`` (12,: world-to-camera rotation row-major, translation)
+    and fused from ``lookup`` (the dists image, or with ``packed`` the
+    packed depth+confidence image). With ``split`` > 1 only the voxels of
+    the brick x-planes whose index is ``phase`` (a () int32 device tensor)
+    modulo ``split`` take part; ``ok`` False skips the whole update."""
+    d = _check_volume(tsdf, weight)
+    if d % stride or d % brick:
+        raise ValueError(f"volume side {d} must be a multiple of stride {stride} and brick {brick}")
+    gp = d // stride + 1
+    rows, cols = _check_image(lookup, "lookup")
+    _check(warped, "warped", torch.float32, (gp, gp, gp, 3))
+    _check(rt, "rt", torch.float32, (12,))
+    _check(ok, "ok", torch.bool, ())
+    _same_device(tsdf, weight, lookup, warped, rt, ok)
+    if q_grid is not None:
+        _check(q_grid, "q_grid", torch.float32, (gp, gp, gp))
+        _same_device(tsdf, q_grid)
+    if split > 1:
+        _check(phase, "phase", torch.int32, ())
+        _same_device(tsdf, phase)
+    lib = load()
+    rc = lib.df_fuse_dense_nonrigid(
+        tsdf.data_ptr(), weight.data_ptr(), lookup.data_ptr(), warped.data_ptr(),
+        None if q_grid is None else q_grid.data_ptr(), rt.data_ptr(), ok.data_ptr(),
+        None if split == 1 else phase.data_ptr(), d, stride, brick, split, rows, cols,
+        _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), _f32(trunc), _f32(max_weight),
+        _f32(1.0 / 32767.0), _f32(q_min), int(packed), _f32(incidence_floor), int(sdf_scale),
+        _stream(tsdf.device),
+    )
+    _done("integrate_dense_nonrigid", rc)
 
 
 def fuse_bricks(

@@ -355,6 +355,9 @@ def _project(cam_pts: torch.Tensor, intr: Intrinsics, rows: int, cols: int):
 
 PACK_DP = 4000.0  # 0.25 mm depth quantization in the packed image
 PACK_C = 16.0     # confidence levels
+# float32 reciprocals (exact in float32, so the Python scalars multiply as is)
+_INV_C = float(np.float32(1.0) / np.float32(PACK_C - 1.0))
+_INV_DP = float(np.float32(1.0) / np.float32(PACK_DP))
 
 
 def pack_depth_conf(dists: torch.Tensor, conf: torch.Tensor) -> torch.Tensor:
@@ -366,9 +369,13 @@ def pack_depth_conf(dists: torch.Tensor, conf: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_depth_conf(v: torch.Tensor):
-    dq = torch.floor(v / PACK_C)
-    c = (v - dq * PACK_C) / (PACK_C - 1.0)
-    return dq / PACK_DP, c
+    """The packed image's (depth m, confidence [0, 1]). The divisions by
+    the constants are products with their float32 reciprocals, as XLA
+    compiles the JAX package's jitted ``unpack_depth_conf`` (and kernels D
+    and F2 multiply); 1/16 is exact."""
+    dq = torch.floor(v * (1.0 / PACK_C))
+    c = (v - dq * PACK_C) * _INV_C
+    return dq * _INV_DP, c
 
 
 def incidence_weight_scale(cfg: DynamicFusionConfig, conf: Optional[torch.Tensor]):

@@ -1,14 +1,20 @@
 """TSDF volume ops (port of ``dynamicfusion_tpu.ops.tsdf``): trilinear
-sampling, rigid integrate (brick dispatch), raycast, surface extraction.
+sampling, rigid integrate (brick dispatch or dense), raycast, surface
+extraction.
 
 ``march_and_refine`` owns CUDA kernel C (``csrc/raycast.cu``): one thread
 per ray marches with its own early exit and refines the crossing with the
-secant + Newton polish or, under ``raycast_refine="newton8"`` (the
-dynamicfusion preset's), with one Newton step from the secant of the
-march's own bracket values. The plain version below keeps the JAX lockstep
-loop (all rays step together, finished rays masked). ``extract_cloud``
-owns kernel L's extraction (``csrc/extract.cu``): tile counts, their scan
-and an ordered write, equal to the plain version bit for bit.
+secant + Newton polish, or from the bracket values of the march itself:
+newton8 (the dynamicfusion preset's, one Newton step from their secant),
+newton16 (two steps) or hybrid16 (two fused fetches and an exact two-point
+secant). Under ``raycast_smooth_normals`` the normal is the reference's
+six-sample central difference at the vertex. The plain version below
+keeps the JAX lockstep loop (all rays step together, finished rays
+masked). ``integrate_dense`` owns kernel F1 (``csrc/fuse_dense.cu``), the
+dense projective update of every voxel under ``integrate_mode="dense"``.
+``extract_cloud`` owns kernel L's extraction (``csrc/extract.cu``): tile
+counts, their scan and an ordered write, equal to the plain version bit
+for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from dynamicfusion_tpu_torch import device as device_mod
 from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig, Intrinsics
 from dynamicfusion_tpu_torch.core import compact, se3
@@ -130,17 +137,121 @@ def integrate(
     ok: Optional[torch.Tensor] = None,
     plain: bool = False,
 ) -> torch.Tensor:
-    """Rigid projective TSDF fusion of one dists image, brick-sparse
-    (``ops.bricks``), IN PLACE on ``vol``. ``vol2cam`` maps volume-frame
-    meters to the camera frame. ``ok`` (a () bool device tensor) gates the
-    whole update without a host sync. Returns the (3,) int32
-    (band, wide, dropped) brick counts (zeros where ``ok`` is False)."""
+    """Rigid projective TSDF fusion of one dists image, IN PLACE on ``vol``:
+    brick-sparse (``ops.bricks``) or, with ``integrate_mode="dense"``,
+    every voxel (``integrate_dense``). ``vol2cam`` maps volume-frame meters
+    to the camera frame. ``ok`` (a () bool device tensor) gates the whole
+    update without a host sync. Returns the (3,) int32 (band, wide,
+    dropped) brick counts (zeros where ``ok`` is False, and on the dense
+    path, which caps nothing)."""
+    if ok is None:
+        ok = torch.ones((), dtype=torch.bool, device=dists.device)
     if cfg.integrate_mode != "brick":
-        raise NotImplementedError("dense integrate: a later slice")
+        integrate_dense(cfg, vol, dists, vol2cam, intr, ok, plain=plain)
+        return torch.zeros((3,), dtype=torch.int32, device=dists.device)
     from dynamicfusion_tpu_torch.ops import bricks
 
     return bricks.integrate_bricks(
         cfg, vol, dists, brick_grid(cfg, vol2cam), cfg.brick_size, intr, ok=ok, plain=plain
+    )
+
+
+def dense_update_plain(
+    cfg: DynamicFusionConfig,
+    vol: TsdfVolume,
+    lookup: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    z: torch.Tensor,
+    intr: Intrinsics,
+    ok: torch.Tensor,
+    q: Optional[torch.Tensor] = None,
+    packed: bool = False,
+    slab: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The projective update of every voxel, IN PLACE, from its camera-frame
+    position (x, y, z), each (D, D, D): project, fetch the nearest pixel of
+    ``lookup`` (the dists image, or with ``packed`` the packed
+    depth+confidence image, unpacked into the incidence weight and the SDF
+    scale), and fold min(1, psdf * scale / trunc) into the running average
+    where the pixel is in the image, observed and psdf >= -trunc, with
+    observation weight ``q`` (None = 1; voxels with q <= fusion_quality_min
+    are not updated) times the incidence weight, on the voxels where
+    ``slab`` (a broadcastable bool mask, the phase split) holds. The JAX
+    dense branches (ops/tsdf.py:214-256, ops/fusion.py:263-322) with one
+    arithmetic: the rigid update is the q = 1 case bit for bit. Divides by
+    tensors, as the kernels divide. Returns the (D, D, D) update mask (the
+    voxels the kernels write)."""
+    from dynamicfusion_tpu_torch.ops import bricks
+
+    rows, cols = lookup.shape
+    dev = lookup.device
+    trunc = volume_model.trunc_dist(cfg)
+    u = x * intr.fx / z + intr.cx
+    v = y * intr.fy / z + intr.cy
+    inb = (u >= 0) & (v >= 0) & (u < cols) & (v < rows) & (z > 0)
+    # the pixel is read only where it is in the image: clipped before the
+    # gather (u is inf or NaN where z <= 0), masked after it
+    ui = torch.nan_to_num(torch.floor(u)).clamp(0, cols - 1).to(torch.int64)
+    vi = torch.nan_to_num(torch.floor(v)).clamp(0, rows - 1).to(torch.int64)
+    dp = lookup.reshape(-1)[vi * cols + ui]
+    conf = None
+    if packed:
+        dp, conf = bricks.unpack_depth_conf(dp)
+    obs_w, sdf_scale = bricks.incidence_weight_scale(cfg, conf)
+    psdf = dp - torch.sqrt(x * x + y * y + z * z)
+    update = inb & (dp != 0.0) & (psdf >= -trunc) & ok
+    if slab is not None:
+        update = update & slab
+    if q is None:
+        q = 1.0
+    else:
+        update = update & (q > cfg.fusion_quality_min)
+    q = q * obs_w
+    obs = torch.clamp(psdf * sdf_scale / torch.full((), trunc, device=dev), max=1.0)
+    t32 = volume_model.decode_tsdf(vol.tsdf)
+    w32 = volume_model.decode_weight(vol.weight)
+    wq = w32 + q
+    fused = (t32 * w32 + obs * q) / torch.clamp(wq, min=1e-12)
+    new_t = volume_model.encode_tsdf(torch.where(update & (wq > 1e-12), fused, t32), vol.tsdf.dtype)
+    new_w = volume_model.encode_weight(
+        torch.where(update, torch.clamp(wq, max=float(cfg.tsdf_max_weight)), w32), vol.weight.dtype
+    )
+    vol.tsdf.copy_(new_t)
+    volume_model.storage_view(vol.weight).copy_(volume_model.storage_view(new_w))
+    return update
+
+
+def integrate_dense_plain(
+    cfg: DynamicFusionConfig, vol: TsdfVolume, dists: torch.Tensor, vol2cam: torch.Tensor, intr: Intrinsics,
+    ok: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of kernel F1: the camera-frame position of every
+    voxel corner i * voxel_size as r[a, 0] * i + r[a, 1] * j + r[a, 2] * k
+    + t[a] with r = R * voxel_size (JAX ops/tsdf.py:214-222, no + 0.5),
+    then ``dense_update_plain``; returns its update mask."""
+    d = cfg.volume_dims
+    r = vol2cam[:3, :3] * cfg.voxel_size
+    t = vol2cam[:3, 3]
+    ax = torch.arange(d, dtype=torch.float32, device=dists.device)
+    i, j, k = ax[:, None, None], ax[None, :, None], ax[None, None, :]
+    x, y, z = (r[a, 0] * i + r[a, 1] * j + r[a, 2] * k + t[a] for a in range(3))
+    return dense_update_plain(cfg, vol, dists, x, y, z, intr, ok)
+
+
+def integrate_dense(
+    cfg: DynamicFusionConfig, vol: TsdfVolume, dists: torch.Tensor, vol2cam: torch.Tensor, intr: Intrinsics,
+    ok: torch.Tensor, plain: bool = False,
+) -> None:
+    """Dense rigid integrate IN PLACE: kernel F1 on CUDA tensors, the plain
+    version on CPU tensors or where the caller asks for it."""
+    if plain or dists.device.type == "cpu":
+        integrate_dense_plain(cfg, vol, dists, vol2cam, intr, ok)
+        return
+    rt = torch.cat([(vol2cam[:3, :3] * cfg.voxel_size).reshape(-1), vol2cam[:3, 3]]).contiguous()
+    kernels.integrate_dense(
+        vol.tsdf, vol.weight, dists.contiguous(), rt, ok, intr,
+        trunc=volume_model.trunc_dist(cfg), max_weight=float(cfg.tsdf_max_weight),
     )
 
 
@@ -241,9 +352,6 @@ def raycast(
 ) -> RaycastResult:
     """Per-pixel ray march for the zero crossing (``rays`` says which
     interval each ray marches); points/normals in the camera frame."""
-    _refine_mode(cfg)
-    if cfg.raycast_smooth_normals:
-        raise NotImplementedError("smoothed raycast normals: a later slice")
     ray_org, dirs, tmin, tmax = rays(cfg, cam2vol, intr, rows, cols, t_seed, t_band)
     found, vertex_vol, normal_vol = march_and_refine(cfg, vol.tsdf, ray_org, dirs, tmin, tmax, plain=plain)
     nn = torch.linalg.vector_norm(normal_vol, dim=-1, keepdim=True)
@@ -258,16 +366,27 @@ def raycast(
     )
 
 
-REFINES = ("secant", "newton8")
+REFINES = ("secant", "newton8", "newton16", "hybrid16")
 
 
 def _refine_mode(cfg: DynamicFusionConfig) -> int:
-    """Kernel C's refine code of ``cfg.raycast_refine`` (0 secant, 1
-    newton8); the experimental newton16 and hybrid16 refines are not
-    ported and raise."""
+    """Kernel C's refine code of ``cfg.raycast_refine``: 0 secant, 1
+    newton8, 2 newton16 (the Newton refines take that many steps), 3
+    hybrid16."""
     if cfg.raycast_refine not in REFINES:
-        raise NotImplementedError(f"{cfg.raycast_refine} refine: a later slice")
+        raise ValueError(f"raycast_refine {cfg.raycast_refine!r}: expected one of {REFINES}")
     return REFINES.index(cfg.raycast_refine)
+
+
+def _grad6(tsdf: torch.Tensor, p_voxels: torch.Tensor, delta: float) -> torch.Tensor:
+    """The reference's six-sample central difference at fractional voxel
+    coords (..., 3): trilinear samples at +-delta voxels along each axis
+    (NaN outside), unnormalized (JAX ops/tsdf.py:610 ``_grad6``)."""
+    comps = []
+    for axis in range(3):
+        e = device_mod.const(tuple(delta if a == axis else 0.0 for a in range(3)), torch.float32, p_voxels.device)
+        comps.append(interpolate(tsdf, p_voxels + e) - interpolate(tsdf, p_voxels - e))
+    return torch.stack(comps, dim=-1)
 
 
 def march_steps(cfg: DynamicFusionConfig) -> int:
@@ -287,14 +406,20 @@ def march_and_refine_plain(
     tmax: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Lockstep march (nearest fetches, step doubled where the previous
-    sample is > 0.99) and the refine of ``cfg.raycast_refine``: "secant"
-    (secant between trilinear values at the bracket ends, then a Newton
-    polish) or "newton8" (secant from the march's nearest-fetched bracket
-    values f0/f1, then one clamped Newton step; the normal is the gradient
-    at the secant point, the vertex the point after the step). Returns
-    (found, vertex_vol, normal_vol) in the volume frame; the normal is the
-    unnormalized trilinear gradient."""
-    newton8 = _refine_mode(cfg) == 1
+    sample is > 0.99) and the refine of ``cfg.raycast_refine``:
+    "secant" (secant between trilinear values at the bracket ends, then a
+    Newton polish); "newton8"/"newton16" (secant from the march's
+    nearest-fetched bracket values f0/f1, then one/two clamped Newton steps,
+    each from a fused value + gradient fetch; the normal is the last
+    fetch's gradient, at that step's start point); "hybrid16" (a fused
+    fetch at the f0/f1 secant point, a march-slope step clipped to +-dt, a
+    second fused fetch there, then a step along the two-point secant slope
+    or, where it is healthy, the local gradient, clamped). With
+    ``raycast_smooth_normals`` the normal is the six-sample central
+    difference at the vertex, and the secant refine keeps its secant point
+    (no polish), as JAX does. Returns (found, vertex_vol, normal_vol) in the
+    volume frame; the normal is unnormalized."""
+    refine = _refine_mode(cfg)
     inv_vs = 1.0 / cfg.voxel_size
     step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
 
@@ -323,7 +448,7 @@ def march_and_refine_plain(
         behind = (tsdf_prev < 0.0) & (tsdf_next > 0.0) & active
         t_hit = torch.where(crossing, t, t_hit)
         dt_hit = torch.where(crossing, dt, dt_hit)
-        if newton8:
+        if refine:
             f0 = torch.where(crossing, tsdf_prev, f0)
             f1 = torch.where(crossing, tsdf_next, f1)
         t = torch.where(active, tnext, t)
@@ -331,29 +456,50 @@ def march_and_refine_plain(
         found = found | crossing
         tsdf_prev = torch.where(active, tsdf_next, tsdf_prev)
 
-    if newton8:
+    def newton(ts, f_v, grad):
+        """One Newton step from ts with a fused fetch there, kept where it
+        is finite and shorter than the bracket."""
+        dfdt = _dot3(grad, dirs) * inv_vs
+        ts2 = ts - f_v / torch.where(torch.abs(dfdt) > 1e-12, dfdt, 1e-12)
+        good2 = torch.isfinite(ts2) & (torch.abs(ts2 - ts) < dt_hit) & ~torch.isnan(f_v)
+        return torch.where(good2, ts2, ts)
+
+    if refine in (1, 2):
         denom0 = f0 - f1
         alpha = torch.clamp(f0 / torch.where(torch.abs(denom0) > 1e-12, denom0, 1e-12), 0.0, 1.0)
         ts = t_hit + dt_hit * alpha
-        f_v, normal_vol = interpolate_with_gradient(tsdf, point(ts))
+        for _ in range(refine):
+            f_v, normal_vol = interpolate_with_gradient(tsdf, point(ts))
+            ts = newton(ts, f_v, normal_vol)
+    elif refine == 3:
+        slope_march = torch.clamp((f1 - f0) / dt_hit, max=-1e-6)
+        d0 = f0 - f1
+        alpha0 = torch.clamp(f0 / torch.where(torch.abs(d0) > 1e-12, d0, 1e-12), 0.0, 1.0)
+        t_m = t_hit + dt_hit * alpha0
+        f_m0 = torch.nan_to_num(interpolate_with_gradient(tsdf, point(t_m))[0])
+        t_c = t_m + torch.minimum(torch.maximum(-f_m0 / slope_march, -dt_hit), dt_hit)
+        f_c, normal_vol = interpolate_with_gradient(tsdf, point(t_c))
+        f_c0 = torch.nan_to_num(f_c)
+        dt_sec = t_c - t_m
+        slope_sec = torch.where(torch.abs(dt_sec) > 1e-6 * dt_hit, (f_c0 - f_m0) / dt_sec, slope_march)
+        slope_sec = torch.clamp(slope_sec, max=-1e-6)
         dfdt = _dot3(normal_vol, dirs) * inv_vs
-        ts2 = ts - f_v / torch.where(torch.abs(dfdt) > 1e-12, dfdt, 1e-12)
-        good2 = torch.isfinite(ts2) & (torch.abs(ts2 - ts) < dt_hit) & ~torch.isnan(f_v)
-        ts = torch.where(good2, ts2, ts)
-        return found, ray_org + dirs * ts[..., None], normal_vol
-
-    ft = interpolate(tsdf, point(t_hit))
-    ftdt = interpolate(tsdf, point(t_hit + dt_hit))
-    denom = ftdt - ft
-    ts = t_hit - dt_hit * ft / torch.where(torch.abs(denom) > 1e-12, denom, 1e-12)
-    ts = torch.where(torch.isnan(ft) | torch.isnan(ftdt), t_hit, ts)
-    f_v, normal_vol = interpolate_with_gradient(tsdf, point(ts))
-    dfdt = _dot3(normal_vol, dirs) * inv_vs
-    ts2 = ts - f_v / torch.where(torch.abs(dfdt) > 1e-12, dfdt, 1e-12)
-    good2 = torch.isfinite(ts2) & (torch.abs(ts2 - ts) < dt_hit) & ~torch.isnan(f_v)
-    ts = torch.where(good2, ts2, ts)
-    vertex_vol = ray_org + dirs * ts[..., None]
-    return found, vertex_vol, normal_vol
+        use_local = torch.abs(dfdt) > 0.25 * torch.abs(slope_sec)
+        ts = t_c - f_c0 / torch.where(use_local & (dfdt < -1e-12), dfdt, slope_sec)
+        good2 = torch.isfinite(ts) & (torch.abs(ts - t_c) < dt_hit) & ~torch.isnan(f_c)
+        ts = torch.where(good2, ts, t_c)
+    else:
+        ft = interpolate(tsdf, point(t_hit))
+        ftdt = interpolate(tsdf, point(t_hit + dt_hit))
+        denom = ftdt - ft
+        ts = t_hit - dt_hit * ft / torch.where(torch.abs(denom) > 1e-12, denom, 1e-12)
+        ts = torch.where(torch.isnan(ft) | torch.isnan(ftdt), t_hit, ts)
+        if not cfg.raycast_smooth_normals:
+            f_v, normal_vol = interpolate_with_gradient(tsdf, point(ts))
+            ts = newton(ts, f_v, normal_vol)
+    if cfg.raycast_smooth_normals:
+        normal_vol = _grad6(tsdf, point(ts), cfg.gradient_delta_factor)
+    return found, ray_org + dirs * ts[..., None], normal_vol
 
 
 def march_and_refine(
@@ -377,6 +523,8 @@ def march_and_refine(
         max_steps=march_steps(cfg),
         adaptive=cfg.raycast_adaptive_step,
         refine=_refine_mode(cfg),
+        smooth=cfg.raycast_smooth_normals,
+        delta=cfg.gradient_delta_factor,
     )
 
 

@@ -324,8 +324,9 @@ NR_DEPTHS = synthetic.deforming_frames(NR.intr, NR.rows, NR.cols, 4)
 # the direct solve's kernels (N, O) and its factor; the PCG presets do not run them
 DENSE = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 # the kernels of options that no preset turns on: the adaptive node radius
-# (E's radius entry), the dense-matrix PCG (P) and the net rigid removal (Q)
-OPTIONS = ("node_radius", "dense_pcg", "net_rigid")
+# (E's radius entry), the dense-matrix PCG (P), the net rigid removal (Q)
+# and the dense fusion (F1, F2)
+OPTIONS = ("node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid")
 
 
 @pytest.fixture
@@ -473,13 +474,12 @@ def test_fuse_kernel_nonrigid(dev, nr_model):
     cp = fusion.integrate_nonrigid(NR, vp, cf, dists, w2c, NR.intr, ok, conf=conf, plain=True)
     torch.cuda.synchronize()
     assert torch.equal(ck, cp)
-    # codes differing by more than 1 LSB on < 1e-4 of voxels, weights within
-    # 1 LSB: on CUDA tensors PyTorch divides by a Python scalar as a product
-    # with its reciprocal, so the plain version's unpacked depth and
-    # confidence may differ from the kernel's true quotients in the last bit
+    # codes differing by more than 1 LSB on < 1e-4 of voxels, weights equal:
+    # the kernel and the plain version unpack the packed depth and confidence
+    # with the same products by float32 reciprocals
     dt = (vk.tsdf.to(torch.int32) - vp.tsdf.to(torch.int32)).abs()
     dw = (vk.weight.to(torch.int32) - vp.weight.to(torch.int32)).abs()
-    assert float((dt > 1).float().mean()) < 1e-4 and int(dw.max()) <= 1
+    assert float((dt > 1).float().mean()) < 1e-4 and int(dw.max()) == 0
     assert not torch.equal(vk.tsdf, st.vol.tsdf)
 
 
@@ -788,3 +788,115 @@ def test_full_resolution_rigid_on_the_card(dev):
     img = df.render(0, pose=df.get_pose())
     ref_img = ref.render(0, pose=ref.get_pose())
     assert float((img.cpu().int() - ref_img.int()).abs().amax(-1).gt(1).float().mean()) <= 1e-3
+
+
+# ---------------------------------------------------------------- the raycast variants and dense fusion
+
+VARIANTS = [("newton16", False), ("newton16", True), ("hybrid16", False), ("hybrid16", True),
+            ("secant", True), ("newton8", True)]
+
+
+@pytest.mark.parametrize("refine,smooth", VARIANTS, ids=[f"{r}-{'grad6' if s else 'cell'}" for r, s in VARIANTS])
+def test_raycast_kernel_variants(dev, model, refine, smooth):
+    """Kernel C's refine codes 2 and 3 and its six-sample normal mode
+    against the plain version: the found mask exact, vertices and normals
+    within 1e-5 (float32 in the same order under -fmad=false)."""
+    cfg = dataclasses.replace(CFG, raycast_refine=refine, raycast_smooth_normals=smooth)
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), model.pose)
+    rows, cols = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    rays = tsdf.rays(cfg, cam2vol, cfg.intr.level(cfg.raycast_shift), rows, cols)
+    before = kernels.launches["raycast"]
+    fk, vk, nk = tsdf.march_and_refine(cfg, model.vol.tsdf, *rays)
+    fp, vp, np_ = tsdf.march_and_refine(cfg, model.vol.tsdf, *rays, plain=True)
+    assert kernels.launches["raycast"] == before + 1
+    assert torch.equal(fk, fp) and float(fk.float().mean()) > 0.3
+    assert float((vk - vp)[fk].abs().max()) <= 1e-5
+    assert torch.equal(torch.isnan(nk[fk]), torch.isnan(np_[fk]))
+    assert float(torch.nan_to_num((nk - np_)[fk].abs()).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("ok", [True, False])
+def test_dense_fuse_kernel(dev, model, ok):
+    """Kernel F1 against its plain version: codes within 1 LSB, weights
+    equal; nothing changes where ``ok`` is False."""
+    cfg = dataclasses.replace(CFG, integrate_mode="dense")
+    dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+    vol2cam = se3.compose(se3.inverse(model.pose), kinfu._vol_pose(cfg, dev))
+    ok_t = torch.tensor(ok, device=dev)
+    vk = TsdfVolume(model.vol.tsdf.clone(), model.vol.weight.clone())
+    vp = TsdfVolume(model.vol.tsdf.clone(), model.vol.weight.clone())
+    before = kernels.launches["integrate_dense"]
+    ck = tsdf.integrate(cfg, vk, dists, vol2cam, cfg.intr, ok=ok_t)
+    tsdf.integrate(cfg, vp, dists, vol2cam, cfg.intr, ok=ok_t, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["integrate_dense"] == before + 1 and ck.tolist() == [0, 0, 0]
+    dt = (vk.tsdf.to(torch.int32) - vp.tsdf.to(torch.int32)).abs()
+    assert int(dt.max()) <= 1
+    assert torch.equal(vk.weight.to(torch.int32), vp.weight.to(torch.int32))
+    assert torch.equal(vk.tsdf, model.vol.tsdf) != ok
+
+
+@pytest.mark.parametrize("stride,split", [(2, 1), (4, 2)])
+def test_dense_fuse_kernel_nonrigid(dev, nr_model, stride, split):
+    """Kernel F2 against its plain version with the incidence confidence:
+    codes within 1 LSB, weights equal; with the phase split only the
+    phase's brick x-planes change. Stride 4 takes the prolongation's
+    inexact weights (its fused multiply-adds)."""
+    from dynamicfusion_tpu_torch.ops import fusion
+
+    st, _, _ = nr_model
+    cfg = dataclasses.replace(NR, integrate_mode="dense", knn_field_stride=stride, fusion_phase_split=split,
+                              fusion_interval=2)
+    depth = torch.from_numpy(NR_DEPTHS[3]).to(dev)
+    _, pts, nrm, dists = preprocess.build_frame_pyramid(cfg, depth)
+    conf = preprocess.incidence_confidence(pts[0], nrm[0])
+    cf = fusion.coarse_field(cfg, st.warp, plain=True)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    phase = torch.ones((), dtype=torch.int32, device=dev) if split > 1 else None
+    w2c = se3.inverse(st.pose)
+    vk = TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())
+    vp = TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())
+    before = kernels.launches["integrate_dense_nonrigid"]
+    fusion.integrate_nonrigid(cfg, vk, cf, dists, w2c, cfg.intr, ok, conf=conf, phase=phase)
+    fusion.integrate_nonrigid(cfg, vp, cf, dists, w2c, cfg.intr, ok, conf=conf, phase=phase, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["integrate_dense_nonrigid"] == before + 1
+    dt = (vk.tsdf.to(torch.int32) - vp.tsdf.to(torch.int32)).abs()
+    assert int(dt.max()) <= 1
+    assert torch.equal(vk.weight.to(torch.int32), vp.weight.to(torch.int32))
+    changed = (vk.weight.to(torch.int32) != st.vol.weight.to(torch.int32)).any(dim=2).any(dim=1)
+    assert bool(changed.any())
+    if split > 1:
+        bx = (torch.arange(cfg.volume_dims, device=dev) // cfg.brick_size) % split
+        assert not bool(changed[bx != 1].any())
+
+
+def test_dense_configs_on_the_card_go_through_their_kernels(dev):
+    """Dense rigid fusion with the six-sample normals, and dense non-rigid
+    fusion with newton16 then hybrid16: F1 in frame 0 and each rigid step,
+    F2 on each fusion step, C every frame; poses within the plain path's
+    reach."""
+    rigid = dataclasses.replace(CFG, integrate_mode="dense", raycast_smooth_normals=True)
+    kernels.reset_launches()
+    df = kinfu.DynamicFusion(rigid, device=dev)
+    for d in DEPTHS:
+        df(d, block=False)
+    torch.cuda.synchronize()
+    assert kernels.launches["integrate_dense"] == len(DEPTHS) and kernels.launches["fuse_bricks"] == 0
+    ref = kinfu.DynamicFusion(rigid, device="cpu")
+    for d in DEPTHS:
+        ref(d)
+    assert bool(df.last_outputs.icp_ok)
+    assert float((df.get_pose().cpu() - ref.get_pose()).abs().max()) <= 1e-3
+    for refine in ("newton16", "hybrid16"):
+        cfg = dataclasses.replace(NR, integrate_mode="dense", raycast_refine=refine)
+        kernels.reset_launches()
+        df = kinfu.DynamicFusion(cfg, device=dev)
+        for d in NR_DEPTHS:
+            df(d, block=False)
+        torch.cuda.synchronize()
+        assert kernels.launches["integrate_dense"] == 1
+        assert kernels.launches["integrate_dense_nonrigid"] == len(NR_DEPTHS) - 1
+        assert kernels.launches["fuse_bricks"] == 0 and kernels.launches["brick_plan"] == 0
+        assert bool(df.last_outputs.icp_ok)
+        assert float(df.last_outputs.solver_cost1) <= float(df.last_outputs.solver_cost0)

@@ -208,14 +208,24 @@ def test_cuda_is_the_default_device():
     assert tdevice.resolve("cpu").type == "cpu"
 
 
-def test_non_rigid_step_is_not_in_this_slice():
-    """The non-rigid step runs with the secant and the preset's newton8
-    refine; the experimental newton16 refine is not ported and raises."""
-    cfg = dataclasses.replace(tconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80), raycast_refine="newton16")
+@pytest.mark.parametrize("refine", ["newton16", "hybrid16"])
+def test_non_rigid_frame0_runs_the_variants(refine):
+    """Frame 0 of a non-rigid config with dense fusion, the newton16 or
+    hybrid16 refine and the six-sample normals runs on the CPU: the volume
+    is fused, nodes are sampled, the model maps hold unit normals."""
+    cfg = dataclasses.replace(
+        tconfig.DynamicFusionConfig.small(dims=32, rows=60, cols=80), raycast_refine=refine,
+        integrate_mode="dense", raycast_smooth_normals=True,
+    )
     assert not cfg.rigid_only
-    state = tkinfu.init_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="newton16 refine: a later slice"):
-        tkinfu.first_frame(cfg, state, torch.zeros((60, 80), dtype=torch.uint16))
+    depth = tsyn.scene_depth(cfg.intr, cfg.rows, cfg.cols, np.eye(4), spheres=[dict(center=(0.0, 0.0, 0.9),
+                                                                                     radius=0.2)], plane_z=1.2)
+    state = tkinfu.first_frame(cfg, tkinfu.init_state(cfg, "cpu"), torch.from_numpy(depth))
+    assert int((state.vol.weight.to(torch.int32) > 0).sum()) > 0 and int(state.warp.count) > 0
+    n = state.prev_normals[0]
+    hit = ~torch.isnan(n[..., 0])
+    assert float(hit.float().mean()) > 0.3
+    assert torch.allclose(torch.linalg.vector_norm(n[hit], dim=-1), torch.ones(()), atol=1e-5)
 
 
 WRAPPER_CALLS = {
@@ -225,7 +235,7 @@ WRAPPER_CALLS = {
     ),
     "raycast": lambda: kernels.march_and_refine(
         torch.zeros((32, 32, 32), dtype=torch.int16), torch.zeros(3), torch.zeros((4, 3)),
-        torch.zeros(4), torch.ones(4), 0.03, 0.03, 10, True,
+        torch.zeros(4), torch.ones(4), 0.03, 0.03, 10, True, delta=0.5,
     ),
     "fuse_bricks": lambda: kernels.fuse_bricks(
         torch.zeros((32, 32, 32), dtype=torch.int16), torch.zeros((32, 32, 32), dtype=torch.uint16),
@@ -317,6 +327,17 @@ WRAPPER_CALLS = {
         torch.zeros((48, 48)), torch.ones(()), torch.ones(8, dtype=torch.bool), 0.05,
     ),
     "cholesky": lambda: kernels.cholesky(torch.eye(48)),
+    "integrate_dense": lambda: kernels.integrate_dense(
+        torch.zeros((32, 32, 32), dtype=torch.int16), torch.zeros((32, 32, 32), dtype=torch.uint16),
+        torch.zeros((8, 8)), torch.zeros(12), torch.ones((), dtype=torch.bool),
+        tconfig.DynamicFusionConfig.small().intr, 0.04, 64.0,
+    ),
+    "integrate_dense_nonrigid": lambda: kernels.integrate_dense_nonrigid(
+        torch.zeros((32, 32, 32), dtype=torch.int16), torch.zeros((32, 32, 32), dtype=torch.uint16),
+        torch.zeros((8, 8)), torch.zeros((17, 17, 17, 3)), torch.ones((17, 17, 17)), torch.zeros(12),
+        torch.ones((), dtype=torch.bool), torch.zeros((), dtype=torch.int32), 2, 16, 2,
+        tconfig.DynamicFusionConfig.small().intr, 0.04, 64.0,
+    ),
 }
 
 

@@ -217,11 +217,22 @@ def test_raycast_newton8_matches(vol2, band):
     assert np.nanmax(np.abs(ts.points.numpy() - tp)) > 1e-5
 
 
-def test_unported_refines_raise(vol2):
+@pytest.mark.parametrize("smooth", [False, True], ids=["cell_normal", "grad6"])
+def test_every_refine_runs(vol2, smooth):
+    """All four refines (kernel C's codes 0-3) run in either normal mode
+    and give unit normals on the rays that hit; an unknown refine name is
+    refused. tests/test_torch_raycast_variants.py holds them against JAX."""
     cam2vol = torch.from_numpy(np.array(jse3.compose(jse3.inverse(jkinfu._vol_pose(JC)), jnp.asarray(_pose(0.03)))))
-    for refine in ("newton16", "hybrid16"):
-        with pytest.raises(NotImplementedError, match=f"{refine} refine"):
-            ttsdf.raycast(dataclasses.replace(TC, raycast_refine=refine), _tvol(vol2), cam2vol, TC.intr, 8, 8)
+    intr = TC.intr.level(TC.raycast_shift)
+    for code, refine in enumerate(ttsdf.REFINES):
+        cfg = dataclasses.replace(TC, raycast_refine=refine, raycast_smooth_normals=smooth)
+        assert ttsdf._refine_mode(cfg) == code
+        r = ttsdf.raycast(cfg, _tvol(vol2), cam2vol, intr, 60, 80)
+        hit = ~torch.isnan(r.points[..., 0])
+        assert r.points.shape == r.normals.shape == (60, 80, 3) and float(hit.float().mean()) > 0.1
+        assert torch.allclose(torch.linalg.vector_norm(r.normals[hit], dim=-1), torch.ones(()), atol=1e-5)
+    with pytest.raises(ValueError, match="raycast_refine"):
+        ttsdf.raycast(dataclasses.replace(TC, raycast_refine="newton4"), _tvol(vol2), cam2vol, intr, 8, 8)
 
 
 @pytest.mark.parametrize("max_points", [1 << 16, 700])
