@@ -4,8 +4,8 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--a-frames A] [--p-frames P]
-                          [--d-frames D] [--r-frames R] [--o-frames O] [--dn-frames E] [--profile DIR]
-                          [--dump-solve FILE]
+                          [--d-frames D] [--r-frames R] [--o-frames O] [--dn-frames E] [--demo-frames F]
+                          [--profile DIR] [--dump-solve FILE]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -122,7 +122,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    each state, 3 more frames profiled; then three steps each of hybrid16
    and of the six-sample normal on newton8, newton16 and hybrid16 from its
    state after frame 3, each held against the plain step;
-15. print the per-kernel JSON line, the card's name and power limit, and
+15. the depth-variant ICP (``estimate_transform_depth``, frame to frame)
+   at ``rigid_slice()``'s 640x480 on two orbit frames, the camera moved by
+   (4, -3, 5) mm: kernels I and B launched, the pose against the plain
+   path on the same pyramids (1e-4 m, rotation 1e-5) and against the
+   motion (2e-3 m); I and B timed at its level-0 shapes;
+16. ``apps/demo_torch.py``'s ``main`` in this process on ``synthetic:F``
+   (F = 10) under ``default_dynamicfusion()`` into a temporary directory,
+   counters reset just before and read just after (every kernel of the
+   preset's path, R once); then kernel R on the final cloud's 1 << 20
+   rows, bit-equal to its plain version; kernel E's ``warp_points`` at the
+   canonical mesh's vertex count (neighbour lists by the near-tie rule);
+   the checkpoint into a fresh ``DynamicFusion``, every leaf bit-equal,
+   and one more step from it and from the live state with equal poses and
+   volumes; the PLYs' vertex and face counts; the host times of the mesh
+   extraction, the writers and the checkpoint printed;
+17. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler table and trace of 3 frames of
@@ -218,6 +233,13 @@ TOL_NET_RIGID = 1e-5
 # TOL_PCG_REL (G)
 SPREAD_PCG = 4.0
 TOL_DENSE_PCG_FLOOR = 1e-5
+# the depth-variant ICP (phase 15): kernel path against plain on the same
+# pyramids, and against the camera's known motion (as tests/test_icp.py
+# holds JAX)
+TOL_T1_M = 1e-4
+TOL_T1_ROT = 1e-5
+TOL_T1_TRUTH_M = 2e-3
+T1_DELTA = (0.004, -0.003, 0.005)  # the camera's motion between the two frames (m, camera frame)
 
 # H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s, float32 (no tensor core) 67 TFLOP/s
 PEAK_BYTES = 3.35e12
@@ -303,13 +325,18 @@ ROWS = {
     "raycast_grad6_hybrid16": ("raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:610"),
     "integrate_dense": ("fuse_dense.cu", "dynamicfusion_tpu/ops/tsdf.py:169"),
     "integrate_dense_nonrigid": ("fuse_dense.cu", "dynamicfusion_tpu/ops/fusion.py:174"),
+    "points_normals_depth": ("preprocess.cu", "dynamicfusion_tpu/solvers/icp.py:188"),
+    "icp_reduce_depth": ("icp_reduce.cu", "dynamicfusion_tpu/solvers/icp.py:188"),
+    "extract_normals": ("normals.cu", "dynamicfusion_tpu/ops/tsdf.py:724"),
+    "knn_blend_mesh": ("knn_blend.cu", "dynamicfusion_tpu/models/warpfield.py:233"),
 }
 COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", "data_term_tangential": "data_term",
            "pcg_tangential": "pcg", "raycast_coarse": "raycast", "raycast_full_res": "raycast",
            "raycast_render": "raycast", "icp_reduce_full_res": "icp_reduce", "data_term_p2p": "data_term",
            "dense_gram_bf16": "dense_gram", "insert_select_full_res": "insert_select",
            "node_radius_insert": "node_radius", "data_term_strided": "data_term", "pcg_strided": "pcg",
-           "pcg_lagged": "pcg",
+           "pcg_lagged": "pcg", "points_normals_depth": "points_normals", "icp_reduce_depth": "icp_reduce",
+           "knn_blend_mesh": "knn_blend",
            **{k: "raycast" for k in ("raycast_newton16", "raycast_hybrid16", "raycast_grad6_coarse",
                                      "raycast_full_res_grad6_secant", "raycast_grad6_newton8",
                                      "raycast_grad6_newton16", "raycast_grad6_hybrid16")}}
@@ -335,7 +362,10 @@ PATH = {**dict.fromkeys(RIGID_KERNELS, "rigid"), "extract_cloud": "frame0", "sam
         **dict.fromkeys(("integrate_dense", "raycast_grad6_coarse", "raycast_full_res_grad6_secant"), "ref_rigid"),
         "integrate_dense_nonrigid": "dense_nr", "raycast_newton16": "dense_nr",
         "raycast_hybrid16": "dense_nr_hybrid16", "raycast_grad6_newton8": "dense_nr_newton8_grad6",
-        "raycast_grad6_newton16": "dense_nr_newton16_grad6", "raycast_grad6_hybrid16": "dense_nr_hybrid16_grad6"}
+        "raycast_grad6_newton16": "dense_nr_newton16_grad6", "raycast_grad6_hybrid16": "dense_nr_hybrid16_grad6",
+        # the depth-variant ICP (phase 15) and the demo (phase 16: R, E at the mesh)
+        "points_normals_depth": "depth_icp", "icp_reduce_depth": "depth_icp",
+        "extract_normals": "demo", "knn_blend_mesh": "demo"}
 # the options cell (phase 11): quality_dynamicfusion() with these
 OPTIONS = dict(solver_p2p_adaptive=True, solver_p2p_hessian_stride=4, node_radius_adaptive=True,
                solver_remove_net_rigid=True, solver_net_rigid_alpha=0.5)
@@ -1854,8 +1884,9 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     # the PCG launch does its own matvecs; the coarse band runs with model
     # maps at the frame size only; the aperture gate with solver_p2p_adaptive;
     # the direct solve runs N, O and the factor in place of the PCG's; kernel
-    # J's march bands need the temporal band or a raycast seed
-    off = {"matvec", "coarse_band"} | (set() if cfg.solver_p2p_adaptive else {"p2p_gate"})
+    # J's march bands need the temporal band or a raycast seed; the export
+    # path's normals (R) are no frame's
+    off = {"matvec", "coarse_band", "extract_normals"} | (set() if cfg.solver_p2p_adaptive else {"p2p_gate"})
     off |= set(PCG_KERNELS if cfg.solver_linear == "direct" else DENSE_KERNELS)
     if cfg.solver_linear == "direct" and not cfg.solver_jtj_int8:
         off.add("gram_scales")
@@ -2729,6 +2760,263 @@ def perturbed_run(torch, kinfu, cfg, dev, frames, seed):
     return [p.cpu().numpy() for p in df.poses]
 
 
+def depth_icp_main(torch, report, dev, card, cfg):
+    """Phase 15: the depth-variant ICP (frame to frame, the reference's
+    ``USE_DEPTH`` path) at ``cfg``'s resolution on two frames of the orbit
+    scene, the second from the camera moved by ``T1_DELTA``: the kernel path
+    (I's point maps, B's systems) against the plain path on the same
+    pyramids and against the motion; I and B timed at its level-0 shapes."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.io import synthetic
+    from dynamicfusion_tpu_torch.ops import preprocess
+    from dynamicfusion_tpu_torch.solvers import icp
+
+    delta = np.asarray(T1_DELTA)
+    pose0 = synthetic.orbit_pose(0.0, target=TARGET)
+    pose1 = pose0.copy()
+    pose1[:3, 3] += pose0[:3, :3] @ delta
+    pyr = [preprocess.build_frame_pyramid(cfg, torch.from_numpy(
+        synthetic.scene_depth(cfg.intr, cfg.rows, cfg.cols, p, **SCENE)).to(dev)) for p in (pose1, pose0)]
+    args = (pyr[0][0], pyr[0][2], pyr[1][0], pyr[1][2])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rk = icp.estimate_transform_depth(cfg, *args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    rp = icp.estimate_transform_depth(cfg, *args, plain=True)
+    tk, tp = rk.transform.cpu().numpy(), rp.transform.cpu().numpy()
+    dt = float(np.abs(tk[:3, 3] - tp[:3, 3]).max())
+    dr = float(np.abs(tk[:3, :3] - tp[:3, :3]).max())
+    print(f"[depth-icp] {cfg.cols}x{cfg.rows}, {cfg.pyramid_levels} levels, iterations {cfg.icp_iters}: "
+          f"launches I {launches['points_normals']}, B {launches['icp_reduce']}", flush=True)
+    check("depth_icp_launches", launches["points_normals"] > 0 and launches["icp_reduce"] > 0,
+          f"kernels I and B launched: points_normals {launches['points_normals']}, icp_reduce {launches['icp_reduce']}")
+    check("depth_icp_vs_plain", bool(rk.ok) and bool(rp.ok) and dt <= TOL_T1_M and dr <= TOL_T1_ROT,
+          f"ok {bool(rk.ok)}/{bool(rp.ok)}; |t_kernel - t_plain| {dt:.3e} m (tol {TOL_T1_M}), rotation entry "
+          f"{dr:.3e} (tol {TOL_T1_ROT})")
+    et = float(np.abs(tk[:3, 3] - delta).max())
+    check("depth_icp_vs_truth", et <= TOL_T1_TRUTH_M,
+          f"translation {np.array2string(tk[:3, 3], precision=6)} against the motion {delta.tolist()}: max diff "
+          f"{et:.3e} m (tol {TOL_T1_TRUTH_M}), rotation entry from identity {float(np.abs(tk[:3, :3] - np.eye(3)).max()):.3e}")
+
+    # I at level 0: both frames' point maps (the normals come with them)
+    intr = cfg.intr
+    d0 = args[0][0]
+    npx = d0.shape[0] * d0.shape[1]
+    pk = preprocess.compute_points_normals(intr, d0)
+    pp = preprocess.compute_points_normals(intr, d0, plain=True)
+    same_nan = torch.equal(torch.isnan(pk[0]), torch.isnan(pp[0]))
+    perr = abs_err(torch, pk[0], pp[0])
+    check("points_normals_depth", same_nan and perr <= TOL_POINTS_M,
+          f"level 0 ({d0.shape[1]}x{d0.shape[0]}): NaNs alike {same_nan}, max point diff {perr:.2e} m (tol {TOL_POINTS_M})")
+    report["points_normals_depth"] = dict(
+        err=perr,
+        ms=cuda_ms(torch, lambda: kernels.points_normals(d0, intr)),
+        plain_ms=cuda_ms(torch, lambda: preprocess.compute_points_normals(intr, d0, plain=True)),
+        # depth in; points and normals out; ~80 operations a pixel
+        bound=bound_ms(npx * (2 + 12 + 12), npx * 80.0),
+        library_ms=None,
+    )
+
+    # B at level 0 with the final transform: current points against the
+    # previous frame's back-projected points and normals
+    cp, cn = pk[0], args[1][0]
+    prev_p = preprocess.compute_points_normals(intr, args[2][0])[0]
+    pn = args[3][0]
+    t_cur = rk.transform
+    dist2 = cfg.icp_dist_thres ** 2
+    min_cos = math.cos(cfg.icp_angle_thres)
+    ak, bk = icp._build_system(intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos)
+    ap_, bp_ = icp._build_system_plain(intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos)
+    scale = float(torch.maximum(ap_.abs().max(), bp_.abs().max()))
+    err = float(torch.maximum((ak - ap_).abs().max(), (bk - bp_).abs().max()))
+    check("icp_reduce_depth", err <= TOL_ICP_REL * scale,
+          f"level 0: max |diff| {err:.3e} over max |entry| {scale:.3e} (rel tol {TOL_ICP_REL})")
+    report["icp_reduce_depth"] = dict(
+        err=err,
+        ms=cuda_ms(torch, lambda: kernels.icp_build_system(intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos)),
+        plain_ms=cuda_ms(torch, lambda: icp._build_system_plain(intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos)),
+        bound=bound_ms(npx * 24 * 2 + 64 + 27 * 4, npx * 100.0),
+        library_ms=None,
+    )
+    return launches
+
+
+def _ply_counts(path: str):
+    """(vertices, faces) of a PLY header."""
+    counts = {"vertex": 0, "face": 0}
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"element"):
+                _, name, n = line.split()
+                counts[name.decode()] = int(n)
+            if line.startswith(b"end_header"):
+                break
+    return counts["vertex"], counts["face"]
+
+
+def demo_main(torch, args, report, dev, card, path_kernels):
+    """Phase 16: ``apps/demo_torch.py``'s ``main`` in this process on
+    ``synthetic:N`` under ``default_dynamicfusion()``, writing into a
+    temporary directory; every counter reset just before and read just
+    after. Then kernel R on the final cloud's 1 << 20 rows against its plain
+    version; the checkpoint into a fresh DynamicFusion, leaf for leaf, and
+    one more step from it and from the live state; kernel E's
+    ``warp_points`` at the canonical mesh's vertex count; the PLYs' counts."""
+    import ctypes.util
+    import importlib.util
+    import pathlib
+    import tempfile
+
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.io import capture
+    from dynamicfusion_tpu_torch.models import warpfield
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+    from dynamicfusion_tpu_torch.utils import checkpoint
+
+    root = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("demo_torch", root / "apps" / "demo_torch.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    print("[demo] not run: the dataset path (DatasetSource through native/libdfio.so); the frames are "
+          f"synthetic, and libpng16 for libdfio.so is {'here' if ctypes.util.find_library('png16') else 'missing'}",
+          flush=True)
+    if importlib.util.find_spec("PIL") is None:
+        print("[demo] not run: the rendered PNG frames (PIL is missing on this machine); every kernel and hold "
+              "below runs", flush=True)
+        demo.save_png = lambda path, img: None
+    cfg = DynamicFusionConfig.default_dynamicfusion()
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = demo.main(["--synthetic", str(args.demo_frames), "--out", out, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        df, timer, meshes = res["df"], res["timer"], res["meshes"]
+        print(f"[demo] {args.demo_frames} frames of synthetic:{args.demo_frames} at {cfg.cols}x{cfg.rows} / "
+              f"{cfg.volume_dims}^3 / {cfg.max_nodes} nodes in {wall:.1f} s; launches {launches}", flush=True)
+        print(f"[time] {card} | demo host times (ms, mean per call):\n{timer.report()}", flush=True)
+        missing = [k for k in path_kernels + ("extract_normals", "knn_blend") if launches[k] == 0]
+        check("demo_launches", not missing and launches["extract_normals"] == 1 and launches["extract_cloud"] == 2,
+              f"every kernel of the preset's path, R once and L twice (frame 0, the final cloud) launched; "
+              f"missing {missing}")
+        for name, (nv, nf) in meshes.items():
+            got = _ply_counts(str(pathlib.Path(out) / name))
+            check(f"demo_{name}", got == (nv, nf) and nv > 1000 and nf > 1000,
+                  f"{name}: header {got[0]} vertices, {got[1]} faces; printed {nv}, {nf}")
+        names = sorted(p.name for p in pathlib.Path(out).iterdir())
+        print(f"[demo] artifacts: {names}", flush=True)
+        check("demo_artifacts", {"canonical_cloud.ply", "final_state.npz"} <= set(names),
+              f"cloud and checkpoint written ({len(names)} files)")
+
+        # R on the final cloud's 1 << 20 rows
+        vol = df.state.vol
+        pts = tsdf_ops.extract_cloud(cfg, vol, max_points=1 << 20).points
+        nk = tsdf_ops.extract_normals(cfg, vol, pts)
+        npl = tsdf_ops.extract_normals(cfg, vol, pts, plain=True)
+        valid = ~torch.isnan(nk[:, 0])
+        same_nan = torch.equal(torch.isnan(nk), torch.isnan(npl))
+        same = same_nan and torch.equal(torch.nan_to_num(nk), torch.nan_to_num(npl))
+        nvalid = int(valid.sum())
+        check("extract_normals", same and nvalid > 0,
+              f"{pts.shape[0]} rows, {int((~torch.isnan(pts[:, 0])).sum())} points, {nvalid} normals: NaNs alike "
+              f"{same_nan}, equal the plain version's bit for bit {same}")
+        # the voxels the valid rows' six samples read (each once), the rows in and out
+        p_vox = (pts[valid] - torch.tensor(cfg.volume_origin, device=dev)) / cfg.voxel_size
+        d = cfg.volume_dims
+        cells = []
+        for axis in range(3):
+            for sgn in (1.0, -1.0):
+                q = p_vox.clone()
+                q[:, axis] += sgn * cfg.gradient_delta_factor
+                base = torch.floor(q).long().clamp(0, d - 2)
+                for dx in (0, 1):
+                    for dy in (0, 1):
+                        for dz in (0, 1):
+                            cells.append(((base[:, 0] + dx) * d + base[:, 1] + dy) * d + base[:, 2] + dz)
+        nvox = int(torch.unique(torch.cat(cells)).numel())
+        del cells
+        org = tuple(float(v) for v in cfg.volume_origin)
+        report["extract_normals"] = dict(
+            err=abs_err(torch, nk, npl),
+            ms=cuda_ms(torch, lambda: kernels.extract_normals(vol.tsdf, pts, cfg.voxel_size, org,
+                                                              cfg.gradient_delta_factor)),
+            plain_ms=cuda_ms(torch, lambda: tsdf_ops.extract_normals(cfg, vol, pts, plain=True), reps=5),
+            # rows in and out, the int16 codes the samples read; ~400
+            # operations a valid row (six trilinear samples, the norm)
+            bound=bound_ms(pts.shape[0] * 24 + nvox * 2, nvalid * 400.0),
+            library_ms=None,
+        )
+        print(f"[demo] R reads {nvox} distinct voxels for {nvalid} normals", flush=True)
+
+        # E at the canonical mesh's vertex count
+        t0 = time.perf_counter()
+        mesh = df.extract_mesh()
+        mesh_s = time.perf_counter() - t0
+        print(f"[time] {card} | host mesh extraction ({cfg.volume_dims}^3 marching tetrahedra, numpy): {mesh_s:.3f} s, "
+              f"{len(mesh.vertices)} vertices, {len(mesh.faces)} faces", flush=True)
+        field = df.state.warp
+        mv = torch.from_numpy(mesh.vertices).to(dev)
+        mn = torch.from_numpy(mesh.normals).to(dev)
+        k8 = cfg.knn_k
+        kb = warpfield.knn_blend(field, mv, k8, warp=True, normals=mn)
+        pb = warpfield.knn_blend(field, mv, k8, warp=True, normals=mn, plain=True)
+        same_idx = (kb.idx == pb.idx).all(dim=1)
+        idx_frac = float((~same_idx).float().mean())
+        err = max(abs_err(torch, a[same_idx], b[same_idx]) for a, b in ((kb.points, pb.points), (kb.normals, pb.normals),
+                                                                         (kb.w, pb.w)))
+        d2err = abs_err(torch, kb.d2, pb.d2)
+        nq, n = mv.shape[0], field.positions.shape[0]
+        check("knn_blend_mesh", idx_frac <= TOL_KNN_IDX_FRAC and err <= TOL_FIELD and d2err <= TOL_D2,
+              f"{nq} mesh vertices x {n} nodes: neighbour lists differ on {idx_frac:.2e} (tol {TOL_KNN_IDX_FRAC}), "
+              f"max d2 diff {d2err:.2e} (tol {TOL_D2}), max warped point/normal/weight diff {err:.2e} (tol {TOL_FIELD})")
+        report["knn_blend_mesh"] = dict(
+            err=max(err, d2err),
+            ms=cuda_ms(torch, lambda: kernels.knn_blend(field.positions, field.active, field.radius, field.dq, mv, k8,
+                                                         warp=True, normals=mn)),
+            plain_ms=cuda_ms(torch, lambda: warpfield.knn_blend(field, mv, k8, warp=True, normals=mn, plain=True),
+                             reps=3),
+            # nodes, vertices and normals in; d2, idx, w and the warped
+            # vertices and normals out; ~10 operations a (vertex, node) pair
+            bound=bound_ms(n * 49 + nq * 24 + nq * (k8 * 16 + 24), nq * n * 10.0 + nq * k8 * 250.0),
+            library_ms=None,
+        )
+
+        # the checkpoint: into a fresh DynamicFusion, then one more step from both
+        t0 = time.perf_counter()
+        loaded = checkpoint.load(str(pathlib.Path(out) / "final_state.npz"), cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        df2 = kinfu.DynamicFusion(cfg, device=dev)
+        df2.restore(loaded)
+        flat_a, flat_b = checkpoint.leaves(df.state), checkpoint.leaves(df2.state)
+        def bits(t):  # NaN map pixels compare by their bits
+            return t.view({torch.float32: torch.int32, torch.uint16: torch.int16}.get(t.dtype, t.dtype))
+
+        same_leaves = len(flat_a) == len(flat_b) and all(
+            a.dtype == b.dtype and a.shape == b.shape and a.device == b.device and torch.equal(bits(a), bits(b))
+            for a, b in zip(flat_a, flat_b))
+        check("checkpoint_leaves", same_leaves and df2._started,
+              f"{len(flat_b)} leaves loaded in {load_s:.3f} s, bit-equal to the saved state {same_leaves}")
+        src = capture.SyntheticSource(cfg, args.demo_frames + 1)
+        for _ in range(args.demo_frames):
+            src.grab()
+        nxt = src.grab()[0]
+        df(nxt)
+        df2(nxt)
+        same_pose = torch.equal(df.get_pose(), df2.get_pose())
+        same_vol = torch.equal(df.state.vol.tsdf, df2.state.vol.tsdf) and torch.equal(
+            df.state.vol.weight.view(torch.int16), df2.state.vol.weight.view(torch.int16))
+        check("checkpoint_next_step", same_pose and same_vol and bool(df2.last_outputs.icp_ok),
+              f"frame {args.demo_frames} from the loaded and from the live state: poses equal {same_pose}, volumes "
+              f"equal {same_vol}, ICP ok {bool(df2.last_outputs.icp_ok)}")
+    return launches
+
+
 def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid", focus=()):
     """3 frames under torch.profiler: the table, the trace, the device's
     busy time over the frames' wall time, the device time of the busiest
@@ -2789,6 +3077,8 @@ def main() -> int:
     ap.add_argument("--o-frames", type=int, default=20, help="hinge frames of the options cell")
     ap.add_argument("--dn-frames", type=int, default=20,
                     help="deforming-scene frames of the dense non-rigid cell (newton16)")
+    ap.add_argument("--demo-frames", type=int, default=10,
+                    help="synthetic frames of apps/demo_torch.py under default_dynamicfusion()")
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of 3 frames of each non-rigid preset and of the reference-"
                          "resolution rigid path here")
@@ -2888,12 +3178,20 @@ def main() -> int:
     dn_launches, dv_launches = dense_nonrigid_main(torch, args, dev, card, nr_depths)
     print(f"[phase] dense non-rigid path done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---------------- 15. report ----------------
+    # ---------------- 15. the depth-variant ICP ----------------
+    t1_launches = depth_icp_main(torch, report, dev, card, DynamicFusionConfig.rigid_slice())
+    print(f"[phase] depth-variant ICP done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 16. the demo: export, checkpoint, the live mesh ----------------
+    demo_launches = demo_main(torch, args, report, dev, card, tuple(k for k, v in nr_launches.items() if v))
+    print(f"[phase] demo done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 17. report ----------------
     runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches,
             "adaptive": a_launches, "parity_rigid": p_launches, "render": r_launches, "base": base_launches,
             "base_bf16": v_launches["bf16"], "base_p2p": v_launches["p2p"], "parity_nr": pnr_launches,
             "options": o_launches, "options_lag": lag_launches, "base_pcg": v_launches["pcg_unlagged"],
-            "ref_rigid": rr_launches, "dense_nr": dn_launches,
+            "ref_rigid": rr_launches, "dense_nr": dn_launches, "depth_icp": t1_launches, "demo": demo_launches,
             **{f"dense_nr_{k}": v for k, v in dv_launches.items()}}
     rows_out = []
     for name, (src, rep) in ROWS.items():

@@ -7,8 +7,10 @@ GPU, its hot kernels hand-written in CUDA (``csrc/``, loaded by
 
 Layout mirrors the JAX package: ``core`` (SE(3), camera), ``models``
 (volume, warp field), ``ops`` (preprocess, TSDF, bricks), ``solvers``
-(ICP), ``pipeline`` (the frame loop), ``io`` (synthetic scenes), plus
-``interop`` (state conversion from/to numpy) and ``kernels``.
+(ICP, the warp solve), ``pipeline`` (the frame loop), ``io`` (synthetic
+scenes, dataset and capture sources, mesh export), ``utils``
+(checkpoints, timing), plus ``interop`` (state conversion from/to numpy)
+and ``kernels``.
 
 Entry points take a ``device`` that defaults to ``"cuda"``; the plain
 PyTorch path runs only where the caller asks for the CPU.

@@ -1,1 +1,2 @@
-"""Synthetic depth scenes with analytic ground truth."""
+"""Frame input (synthetic scenes, dataset PNG sequences through the native
+loader, capture sources) and mesh / point-cloud export."""

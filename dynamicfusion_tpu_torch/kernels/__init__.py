@@ -35,7 +35,7 @@ SOURCES = (
     "bilateral.cu", "icp_reduce.cu", "raycast.cu", "fuse_bricks.cu",
     "knn_blend.cu", "data_term.cu", "pcg.cu", "insert_nodes.cu",
     "preprocess.cu", "bands.cu", "classify.cu", "extract.cu", "p2p_gate.cu", "dense_system.cu",
-    "net_rigid.cu", "dense_pcg.cu", "fuse_dense.cu",
+    "net_rigid.cu", "dense_pcg.cu", "fuse_dense.cu", "normals.cu",
 )
 HEADERS = ("common.cuh", "dq.cuh", "reduce.cuh", "volume.cuh")
 NVCC_FLAGS = (
@@ -52,7 +52,8 @@ NVCC_FLAGS = (
 # stencils and the brick plan, L frame 0's extraction and node sampling, M
 # the aperture gate, N and O the dense normal equations and their damping
 # of the direct solve, P the dense-matrix PCG, Q the net rigid removal,
-# F1 and F2 the dense rigid and non-rigid fusion);
+# F1 and F2 the dense rigid and non-rigid fusion, R the extracted point
+# list's normals);
 # ``cholesky`` counts the direct solve's factor, a cuSOLVER call, as the
 # JAX package's is its library's
 KERNELS = (
@@ -61,7 +62,7 @@ KERNELS = (
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
     "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "coarse_band", "brick_plan",
     "extract_cloud", "sample_nodes", "p2p_gate", "gram_scales", "dense_gram", "dense_damp", "cholesky",
-    "node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid",
+    "node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid", "extract_normals",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -116,6 +117,7 @@ _SIGNATURES = {
     "df_fuse_dense_nonrigid": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _I, _P,
     ),
+    "df_extract_normals": (_P, _I, _F, _P, _I, _F, _F, _F, _F, _F, _P, _P),
 }
 
 
@@ -1274,6 +1276,34 @@ def extract_cloud(tsdf: torch.Tensor, weight: torch.Tensor, min_weight: float, m
     )
     _done("extract_cloud", rc)
     return points, valid, count
+
+
+def extract_normals(tsdf: torch.Tensor, points: torch.Tensor, voxel_size: float, origin, delta: float) -> torch.Tensor:
+    """Kernel R (csrc/normals.cu): at each world-frame row of ``points``
+    (N, 3), the six-sample central difference of the int16 (D, D, D)
+    volume's trilinear TSDF at +-``delta`` voxels, divided by max(|g|,
+    1e-12); NaN rows (and rows whose samples leave the volume) give NaN.
+    Returns (N, 3) float32."""
+    d = tsdf.shape[0]
+    if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1 or d < 2:
+        raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
+    _check(tsdf, "tsdf", torch.int16)
+    if points.dim() != 2 or points.shape[1] != 3:
+        raise ValueError(f"points: expected (N, 3), got {tuple(points.shape)}")
+    _check(points, "points", torch.float32)
+    _same_device(tsdf, points)
+    n = points.shape[0]
+    if n >= 2 ** 31 // 3:
+        raise ValueError(f"points: {n} rows is past the kernel's int32 index")
+    lib = load()
+    dev = tsdf.device
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rc = lib.df_extract_normals(
+        tsdf.data_ptr(), d, _f32(1.0 / 32767.0), points.data_ptr(), n, *(_f32(v) for v in origin),
+        _f32(voxel_size), _f32(delta), out.data_ptr(), _stream(dev),
+    )
+    _done("extract_normals", rc)
+    return out
 
 
 def sample_nodes(points: torch.Tensor, valid: torch.Tensor, step: int, perm: torch.Tensor, max_nodes: int):

@@ -90,6 +90,15 @@ def storage_view(a: torch.Tensor) -> torch.Tensor:
     return a.view(torch.int16) if a.dtype == torch.uint16 else a
 
 
+def convert(vol: TsdfVolume, cfg: DynamicFusionConfig) -> TsdfVolume:
+    """Re-encode a volume to the config's storage dtypes, on the volume's
+    device (the checkpoint's migration across storage settings)."""
+    return TsdfVolume(
+        tsdf=encode_tsdf(decode_tsdf(vol.tsdf), _TSDF_DTYPES[cfg.tsdf_dtype]),
+        weight=encode_weight(decode_weight(vol.weight), _WEIGHT_DTYPES[cfg.weight_dtype]),
+    )
+
+
 def trunc_dist(cfg: DynamicFusionConfig) -> float:
     """Effective truncation distance: max(configured, 2.1 * voxel size)."""
     return max(cfg.tsdf_trunc_dist, 2.1 * cfg.voxel_size)

@@ -14,7 +14,8 @@ masked). ``integrate_dense`` owns kernel F1 (``csrc/fuse_dense.cu``), the
 dense projective update of every voxel under ``integrate_mode="dense"``.
 ``extract_cloud`` owns kernel L's extraction (``csrc/extract.cu``): tile
 counts, their scan and an ordered write, equal to the plain version bit
-for bit.
+for bit. ``extract_normals`` owns kernel R (``csrc/normals.cu``): one
+thread a point of an extracted list, the six-sample gradient normalized.
 """
 
 from __future__ import annotations
@@ -378,15 +379,23 @@ def _refine_mode(cfg: DynamicFusionConfig) -> int:
     return REFINES.index(cfg.raycast_refine)
 
 
-def _grad6(tsdf: torch.Tensor, p_voxels: torch.Tensor, delta: float) -> torch.Tensor:
-    """The reference's six-sample central difference at fractional voxel
-    coords (..., 3): trilinear samples at +-delta voxels along each axis
-    (NaN outside), unnormalized (JAX ops/tsdf.py:610 ``_grad6``)."""
+def gradient(tsdf: torch.Tensor, p_voxels: torch.Tensor, delta_voxels) -> torch.Tensor:
+    """Central-difference TSDF gradient (unnormalized) at fractional voxel
+    coords (..., 3): trilinear samples at +-``delta_voxels[axis]`` voxels
+    along each axis, NaN outside (JAX ops/tsdf.py:152 ``gradient``)."""
     comps = []
     for axis in range(3):
-        e = device_mod.const(tuple(delta if a == axis else 0.0 for a in range(3)), torch.float32, p_voxels.device)
+        e = device_mod.const(
+            tuple(float(delta_voxels[axis]) if a == axis else 0.0 for a in range(3)), torch.float32, p_voxels.device
+        )
         comps.append(interpolate(tsdf, p_voxels + e) - interpolate(tsdf, p_voxels - e))
     return torch.stack(comps, dim=-1)
+
+
+def _grad6(tsdf: torch.Tensor, p_voxels: torch.Tensor, delta: float) -> torch.Tensor:
+    """The reference's six-sample central difference at +-delta voxels on
+    every axis (JAX ops/tsdf.py:610 ``_grad6``)."""
+    return gradient(tsdf, p_voxels, (delta,) * 3)
 
 
 def march_steps(cfg: DynamicFusionConfig) -> int:
@@ -645,3 +654,43 @@ def extract_cloud(
     return ExtractedCloud(*kernels.extract_cloud(
         vol.tsdf, vol.weight, mw, max_points, cfg.voxel_size, tuple(float(v) for v in cfg.volume_origin),
     ))
+
+
+def extract_normals_plain(cfg: DynamicFusionConfig, vol: TsdfVolume, points_world: torch.Tensor) -> torch.Tensor:
+    """The plain version of kernel R: the six-sample gradient at each point,
+    divided by max(|g|, 1e-12). The coordinates are divided by a tensor
+    (PyTorch on CUDA multiplies by the reciprocal of a Python scalar). The
+    norm is the JAX package's ``jnp.linalg.norm`` to the bit: XLA (jitted
+    or op by op) takes the sum of squares as the fused multiply-adds
+    fma(z, z, fma(y, y, x x)), each here the float64 sum of an exact
+    product rounded once more (see ``warpfield._fma``); the square root is
+    taken in float64 and rounded, the correctly rounded float32 root that
+    XLA and CUDA's ``sqrtf`` give (CPU PyTorch's float32 ``sqrt`` is off by
+    an ulp on some inputs)."""
+    dev = points_world.device
+    vs = device_mod.const((cfg.voxel_size,), torch.float32, dev)
+    p_vox = (points_world - volume_model.origin(cfg, dev)) / vs
+    g = _grad6(vol.tsdf, p_vox, cfg.gradient_delta_factor)
+    gx, gy, gz = g.double().unbind(-1)
+    ss = (gy * gy + (g[..., 0] * g[..., 0]).double()).float()
+    ss = (gz * gz + ss.double()).float()
+    norm = torch.sqrt(ss.double()).float()
+    return g / torch.clamp(norm, min=1e-12)[..., None]
+
+
+def extract_normals(
+    cfg: DynamicFusionConfig, vol: TsdfVolume, points_world: torch.Tensor, plain: bool = False
+) -> torch.Tensor:
+    """Unit normals at world-frame points (N, 3), e.g. ``extract_cloud``'s
+    rows: the trilinear TSDF gradient's six-sample central difference at
+    +-``cfg.gradient_delta_factor`` voxels, normalized; NaN where a point
+    is NaN or a sample leaves the volume. Kernel R (``csrc/normals.cu``) on
+    CUDA tensors, the plain version on CPU tensors or where the caller
+    asks."""
+    if plain or points_world.device.type == "cpu":
+        return extract_normals_plain(cfg, vol, points_world)
+    volume_model.check_storage(cfg, points_world.device)
+    return kernels.extract_normals(
+        vol.tsdf, points_world.contiguous(), cfg.voxel_size, tuple(float(v) for v in cfg.volume_origin),
+        cfg.gradient_delta_factor,
+    )

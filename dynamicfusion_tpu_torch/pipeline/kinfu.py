@@ -624,6 +624,39 @@ class DynamicFusion:
             time = -1
         return self.poses[time]
 
+    def extract_mesh(self, live: bool = False):
+        """Triangle mesh (``io.export.Mesh``, numpy) of the canonical surface
+        by marching tetrahedra over the TSDF zero crossing, on the host.
+        With ``live=True`` the vertices and normals are warped by the
+        current field into the live frame (kernel E at the vertex count)."""
+        from dynamicfusion_tpu_torch.io import export as export_mod
+
+        mesh = export_mod.extract_mesh(self.cfg, self.state.vol)
+        if live and len(mesh.vertices):
+            v, n = warpfield.warp_points(
+                self.state.warp,
+                torch.from_numpy(mesh.vertices).to(self.device),
+                torch.from_numpy(mesh.normals).to(self.device),
+                k=self.cfg.knn_k,
+                plain=self.plain,
+            )
+            mesh = mesh._replace(vertices=v.cpu().numpy(), normals=n.cpu().numpy())
+        return mesh
+
+    def save_mesh(self, path: str, live: bool = False):
+        """Extract and write the surface mesh (.ply binary or .obj)."""
+        from dynamicfusion_tpu_torch.io import export as export_mod
+
+        export_mod.save_mesh(path, self.extract_mesh(live=live))
+
+    def save_cloud(self, path: str):
+        """Write the canonical surface's zero-crossing cloud (kernel L at
+        1 << 20 rows) as a PLY."""
+        from dynamicfusion_tpu_torch.io import export as export_mod
+
+        cloud = tsdf_ops.extract_cloud(self.cfg, self.state.vol, max_points=1 << 20, plain=self.plain)
+        export_mod.save_ply(path, cloud.points.cpu().numpy())
+
     def render(self, mode: int = 0, pose=None) -> torch.Tensor:
         """An (H, W, 3) uint8 image on ``self.device`` (mode 0 Phong, 2
         normal colours, 3 both side by side, (H, 2W, 3)): from the last

@@ -8,6 +8,9 @@ JAX early exit (a ``while_loop`` on the step norm) becomes a fixed trip
 count per level with an ``active`` mask that freezes the pose and the
 health flag once the level has converged, so no iteration syncs with the
 host. The kernel skips its work on inactive iterations.
+``estimate_transform_depth`` is the reference's frame-to-frame variant:
+it builds both vertex maps from depth pyramids (kernel I) and runs the
+same loop.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig, Intrinsics
 from dynamicfusion_tpu_torch.core import se3
+from dynamicfusion_tpu_torch.ops import preprocess
 
 
 class IcpResult(NamedTuple):
@@ -151,3 +155,27 @@ def estimate_transform(
             active = active & (step_norm > cfg.icp_step_tol)
         ok = good
     return IcpResult(transform=t, ok=ok)
+
+
+def estimate_transform_depth(
+    cfg: DynamicFusionConfig,
+    curr_depth_pyr: List[torch.Tensor],
+    curr_nrm_pyr: List[torch.Tensor],
+    prev_depth_pyr: List[torch.Tensor],
+    prev_nrm_pyr: List[torch.Tensor],
+    level_offset: int = 0,
+    plain: bool = False,
+) -> IcpResult:
+    """The reference's depth-variant ICP (its ``USE_DEPTH`` compile path):
+    frame-to-frame tracking whose association targets are back-projected
+    from the PREVIOUS frame's depth pyramid instead of the raycast model
+    maps. Per level both vertex maps come from the uint16 depth pyramids
+    (kernel I on CUDA tensors), then ``estimate_transform`` runs (kernel B)."""
+    curr_pts, prev_pts = [], []
+    for lvl, (dc, dp) in enumerate(zip(curr_depth_pyr, prev_depth_pyr)):
+        intr_l = cfg.intr.level(lvl + level_offset)
+        curr_pts.append(preprocess.compute_points_normals(intr_l, dc, plain=plain)[0])
+        prev_pts.append(preprocess.compute_points_normals(intr_l, dp, plain=plain)[0])
+    return estimate_transform(
+        cfg, curr_pts, list(curr_nrm_pyr), prev_pts, list(prev_nrm_pyr), level_offset=level_offset, plain=plain,
+    )

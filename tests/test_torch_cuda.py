@@ -323,10 +323,11 @@ NR = dataclasses.replace(
 NR_DEPTHS = synthetic.deforming_frames(NR.intr, NR.rows, NR.cols, 4)
 # the direct solve's kernels (N, O) and its factor; the PCG presets do not run them
 DENSE = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
-# the kernels of options that no preset turns on: the adaptive node radius
-# (E's radius entry), the dense-matrix PCG (P), the net rigid removal (Q)
-# and the dense fusion (F1, F2)
-OPTIONS = ("node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid")
+# the kernels no preset's frame step runs: those of options that no preset
+# turns on, the adaptive node radius (E's radius entry), the dense-matrix
+# PCG (P), the net rigid removal (Q) and the dense fusion (F1, F2), and the
+# export path's extracted normals (R)
+OPTIONS = ("node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid", "extract_normals")
 
 
 @pytest.fixture
@@ -900,3 +901,43 @@ def test_dense_configs_on_the_card_go_through_their_kernels(dev):
         assert kernels.launches["fuse_bricks"] == 0 and kernels.launches["brick_plan"] == 0
         assert bool(df.last_outputs.icp_ok)
         assert float(df.last_outputs.solver_cost1) <= float(df.last_outputs.solver_cost0)
+
+
+@pytest.mark.parametrize("max_points", [1 << 16, 700])
+def test_extract_normals_kernel(dev, model, max_points):
+    """Kernel R on kernel L's cloud (the NaN tail included) and on points
+    leaving the volume: bit-equal to its plain version."""
+    cloud = tsdf.extract_cloud(CFG, model.vol, max_points, min_weight=1.0).points
+    o = torch.tensor(CFG.volume_origin, device=dev)
+    edge = torch.tensor([[-0.01, 0.3, 0.3], [0.999, 0.3, 0.3], [float("nan"), 0.0, 0.0]], device=dev) + o
+    pts = torch.cat([cloud, edge])
+    kernels.reset_launches()
+    got = tsdf.extract_normals(CFG, model.vol, pts)
+    ref = tsdf.extract_normals(CFG, model.vol, pts, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["extract_normals"] == 1
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+    valid = ~torch.isnan(got[:, 0])
+    assert int(valid.sum()) > 500 and bool(torch.isnan(got[-3:]).all())
+
+
+def test_depth_icp_kernels(dev):
+    """The depth-variant ICP (kernels I and B) against its plain version on
+    the same pyramids, and the camera's motion recovered."""
+    delta = np.array([0.004, -0.003, 0.005])
+    pose1 = synthetic.orbit_pose(0.0, target=TARGET)
+    pose1[:3, 3] += pose1[:3, :3] @ delta
+    pyr = [preprocess.build_frame_pyramid(CFG, torch.from_numpy(synthetic.scene_depth(
+        CFG.intr, CFG.rows, CFG.cols, p, **SCENE)).to(dev)) for p in (pose1, synthetic.orbit_pose(0.0, target=TARGET))]
+    args = (pyr[0][0], pyr[0][2], pyr[1][0], pyr[1][2])
+    kernels.reset_launches()
+    got = icp.estimate_transform_depth(CFG, *args)
+    torch.cuda.synchronize()
+    assert kernels.launches["points_normals"] == 2 * CFG.pyramid_levels and kernels.launches["icp_reduce"] > 0
+    ref = icp.estimate_transform_depth(CFG, *args, plain=True)
+    assert bool(got.ok) and bool(ref.ok)
+    a, b = got.transform.cpu(), ref.transform.cpu()
+    assert float((a[:3, 3] - b[:3, 3]).abs().max()) <= 1e-4
+    assert float((a[:3, :3] - b[:3, :3]).abs().max()) <= 1e-5
+    assert np.abs(a[:3, 3].numpy() - delta).max() <= 2e-3

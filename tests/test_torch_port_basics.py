@@ -17,6 +17,10 @@ import pytest
 import torch
 
 from dynamicfusion_tpu import config as jconfig
+from dynamicfusion_tpu.io import capture as jcapture
+from dynamicfusion_tpu.io import dataset as jdataset
+from dynamicfusion_tpu.io import export as jexport
+from dynamicfusion_tpu.io import native_loader as jnative
 from dynamicfusion_tpu.io import synthetic as jsyn
 from dynamicfusion_tpu.models import volume as jvolume
 from dynamicfusion_tpu.pipeline import kinfu as jkinfu
@@ -24,12 +28,17 @@ from dynamicfusion_tpu_torch import config as tconfig
 from dynamicfusion_tpu_torch import device as tdevice
 from dynamicfusion_tpu_torch import interop, kernels
 from dynamicfusion_tpu_torch.core import compact
+from dynamicfusion_tpu_torch.io import capture as tcapture
+from dynamicfusion_tpu_torch.io import dataset as tdataset
+from dynamicfusion_tpu_torch.io import export as texport
+from dynamicfusion_tpu_torch.io import native_loader as tnative
 from dynamicfusion_tpu_torch.io import synthetic as tsyn
 from dynamicfusion_tpu_torch.models import volume as tvolume
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "dynamicfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "dynamicfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                           ROOT / "apps" / "demo_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "dynamicfusion_tpu")
 
 
@@ -161,6 +170,55 @@ def test_bulge_frames_are_the_bench_scene():
     for t, d in enumerate(got):
         np.testing.assert_array_equal(d, jsyn.bulge_depth(cfg.intr, cfg.rows, cfg.cols, t))
     assert (got[0] != got[2]).any()
+
+
+def _code(module, name: str) -> str:
+    """The AST of a top-level function or class of ``module``, without its
+    docstrings and with the port's package name read as the JAX package's
+    (comments are not in the AST)."""
+    tree = ast.parse(pathlib.Path(module.__file__).read_text())
+    (node,) = [n for n in tree.body if getattr(n, "name", None) == name]
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if (isinstance(sub, (ast.FunctionDef, ast.ClassDef)) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
+            sub.body = body[1:] or [ast.Pass()]
+        if isinstance(sub, ast.ImportFrom) and sub.module:
+            sub.module = sub.module.replace("dynamicfusion_tpu_torch", "dynamicfusion_tpu")
+    return ast.dump(node)
+
+
+# the port's copies of the JAX package's numpy-only modules: the same code
+# but for docstrings and ``extract_mesh``, which reads the port's volume
+COPIES = [
+    (jexport, texport, ("_trilinear_gradient", "marching_tetrahedra", "save_ply", "save_obj", "save_mesh", "Mesh")),
+    (jcapture, tcapture, ("FrameSource", "DatasetSource", "SyntheticSource", "OpenNISource", "open_source")),
+    (jdataset, tdataset, ("_sorted_pngs", "DepthSequence")),
+    (jnative, tnative, ("_load", "native_available", "_image_from_handle", "read_png", "PrefetchingSequence")),
+]
+
+
+@pytest.mark.parametrize("jmod,tmod,names", COPIES, ids=[c[0].__name__.rsplit(".", 1)[1] for c in COPIES])
+def test_io_copies_match(jmod, tmod, names):
+    for name in names:
+        assert _code(jmod, name) == _code(tmod, name), f"{tmod.__name__}.{name} differs from its original"
+
+
+def test_export_tables_and_mesh_match():
+    for table in ("_CUBE", "_TETS", "_TET_EDGES", "_TRI_TABLE"):
+        a, b = getattr(jexport, table), getattr(texport, table)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.RandomState(4)
+    g = np.linspace(-1.0, 1.0, 24)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    tsdf = (np.sqrt(x ** 2 + y ** 2 + z ** 2) - 0.6 + rng.normal(0.0, 0.02, x.shape)).astype(np.float32)
+    weight = (rng.rand(*x.shape) > 0.05).astype(np.float32)
+    ref = jexport.marching_tetrahedra(tsdf, weight, 0.01, (0.1, -0.2, 0.3))
+    got = texport.marching_tetrahedra(tsdf, weight, 0.01, (0.1, -0.2, 0.3))
+    assert len(got.faces) > 100
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_first_true_is_static_nonzero():
@@ -331,6 +389,9 @@ WRAPPER_CALLS = {
         torch.zeros((32, 32, 32), dtype=torch.int16), torch.zeros((32, 32, 32), dtype=torch.uint16),
         torch.zeros((8, 8)), torch.zeros(12), torch.ones((), dtype=torch.bool),
         tconfig.DynamicFusionConfig.small().intr, 0.04, 64.0,
+    ),
+    "extract_normals": lambda: kernels.extract_normals(
+        torch.zeros((8, 8, 8), dtype=torch.int16), torch.zeros((4, 3)), 0.01, (0.0, 0.0, 0.0), 0.5,
     ),
     "integrate_dense_nonrigid": lambda: kernels.integrate_dense_nonrigid(
         torch.zeros((32, 32, 32), dtype=torch.int16), torch.zeros((32, 32, 32), dtype=torch.uint16),
