@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--a-frames A] [--p-frames P]
                           [--d-frames D] [--r-frames R] [--o-frames O] [--dn-frames E] [--demo-frames F]
-                          [--profile DIR] [--dump-solve FILE]
+                          [--s-frames S] [--profile DIR] [--dump-solve FILE]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -137,7 +137,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and one more step from it and from the live state with equal poses and
    volumes; the PLYs' vertex and face counts; the host times of the mesh
    extraction, the writers and the checkpoint printed;
-17. print the per-kernel JSON line, the card's name and power limit, and
+17. ``default_dynamicfusion()`` over ``parallel.sharded.make_mesh(4)`` on
+   the one card (64-plane slabs: kernel C's slab mode, K's and D's, the
+   distributed PCG of G's data-only matvec and step with P's init and
+   update) for S frames (``--s-frames``), counters reset just before and
+   read just after; every step after frame 2 held against the
+   single-device step with the fixed-step march from the same state (pose,
+   initial cost, the canonical model maps, the volume's codes); at full
+   width the slab modes against their plain versions on every shard, the
+   distributed PCG against the plain one, ``enabled=False`` as the
+   identity; 3 sharded frames profiled beside 3 single-device frames (n
+   shards on one card: the cost of sharding, not a multi-card rate);
+18. three steps of the base ``DynamicFusionConfig()`` over ``make_mesh(4)``
+   (the summed assembly: kernel N's shard mode with the pmax'd column
+   scales), each held as in phase 17; N's shard mode bit-equal to its plain
+   version, the psum'd Gram against the single-device N on the same rows;
+19. ``python -m dynamicfusion_tpu_torch.parallel.multihost`` as two
+   processes on the card over gloo, two shards each, 3 preset frames: the
+   ranks equal and every step bit-equal to the one-process mesh (NCCL only
+   with a card a rank, else a line says it did not run);
+20. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler table and trace of 3 frames of
@@ -156,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -373,6 +393,8 @@ OPTIONS = dict(solver_p2p_adaptive=True, solver_p2p_hessian_stride=4, node_radiu
 # of them, the base config none of the PCG's
 DENSE_KERNELS = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 PCG_KERNELS = ("spd6_inv", "pcg")
+# the sharded step's distributed PCG: G's data-only matvec and step, P's init
+SHARD_KERNELS = ("data_matvec", "pcg_init", "pcg_step")
 # the base config's dense variants, three steps each from its state
 VARIANTS = (("bf16", dict(solver_jtj_int8=False)), ("unlagged", dict(solver_lagged_jtj=False)),
             ("p2p", dict(point_to_plane=False)), ("pcg_unlagged", dict(solver_linear="pcg", solver_lagged_jtj=False)))
@@ -1899,6 +1921,8 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     # the dense fusion (F1 in frame 0, F2 a step) in place of the brick plan and fusion (K, D)
     off |= {"integrate_dense", "integrate_dense_nonrigid"} if cfg.integrate_mode == "brick" else {"brick_plan",
                                                                                                  "fuse_bricks"}
+    # the distributed PCG runs in the sharded step only
+    off |= set(SHARD_KERNELS)
     path = [k for k in kernels.KERNELS if k not in off]
     check(f"{tag}_launches", all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
     if cfg.solver_p2p_adaptive:
@@ -2480,16 +2504,41 @@ def dense_pcg_kernel(torch, report, dev, cfg, field, jtj, b):
         # matrix does not fit in L2: each iteration reads it again, 151 MB
         # at 6N = 6 144); 2 (6N)^2 operations an iteration
         bound=bound_ms(dof * dof * 4 + dof * 6 * 4 + dof * 8, ran * 2.0 * dof * dof),
-        # one GEMV of the damped matrix, as one iteration's matvec
-        library_ms=cuda_ms(torch, lambda: torch.mv(a, pv), reps=10),
+        # the same work in PyTorch calls: ``ran`` iterations of torch.mv and
+        # the vector update (the GEMV alone printed below)
+        library_ms=cuda_ms(torch, lambda: library_pcg(torch, a, minv, b, ran), reps=5),
         iterations=ran,
         iteration_ms=None,
+        gemv_ms=cuda_ms(torch, lambda: torch.mv(a, pv), reps=10),
     )
     report["dense_pcg"]["iteration_ms"] = report["dense_pcg"]["ms"] / max(ran, 1)
     print(f"[info] kernel P: {report['dense_pcg']['ms']:.4f} ms a solve of {ran} iterations "
           f"({report['dense_pcg']['iteration_ms']:.4f} ms an iteration, one torch.mv "
+          f"{report['dense_pcg']['gemv_ms']:.4f} ms, {ran} iterations of torch.mv and the update "
           f"{report['dense_pcg']['library_ms']:.4f} ms, the matrix read {dof * dof * 4 / 3.35e9:.4f} ms at 3.35 TB/s)",
           flush=True)
+
+
+def library_pcg(torch, a, minv, b, iters):
+    """``iters`` iterations of block-Jacobi PCG over the dense matrix in
+    PyTorch calls (``torch.mv``, ``torch.bmm``, ``torch.dot``): kernel P's
+    yardstick for the same work."""
+    n = minv.shape[0]
+    x = torch.zeros_like(b)
+    r = b.clone()
+    z = torch.bmm(minv, r.view(n, 6, 1)).view(-1)
+    p = z.clone()
+    rz = torch.dot(r, z)
+    for _ in range(iters):
+        ap = torch.mv(a, p)
+        alpha = rz / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = torch.bmm(minv, r.view(n, 6, 1)).view(-1)
+        rz_n = torch.dot(r, z)
+        p = z + (rz_n / rz) * p
+        rz = rz_n
+    return x
 
 
 def base_main(torch, args, dev, card, nr_depths):
@@ -3064,6 +3113,779 @@ def profile_frames(torch, args, dev, card, df, depths, tag="nonrigid", focus=())
     return result
 
 
+# ---------------------------------------------------------------- the sharded step (phases 17-19)
+
+# the sharded step against the single-device step from the same state
+# (phases 17, 18), held three ways:
+# (1) the single-device step with the fixed-step march: the pose and the
+#     initial cost, as phase 4 holds the plain step. Its canonical maps,
+#     volume and final cost are printed, not held: the distributed solve
+#     sums its shards' products in another order than the single device's,
+#     and from the second LM iteration on an accept, a reject or the stop
+#     test can flip, after which the fields part (chaos, not a bias: (3)
+#     reads the single device's own parting under a one-ulp change of its
+#     inputs, and holds the median);
+# (2) the same single-device step given the sharded step's solve (its
+#     hooks, the same field): the slab raycast and the slab fusion against
+#     the whole-volume ones, model-map hits differing on at most
+#     TOL_SH_MAP_FRAC of the pixels, points within TOL_SH_MAP_M wherever
+#     both hit, the codes within 1 LSB and the weights equal;
+# (3) the distributed solve itself (the distributed PCG, or the base
+#     config's summed assembly) against the single-device solve on the
+#     step's field and inputs, iteration by iteration (``solve``'s trace):
+#     each candidate's step within max(TOL_PCG_REL, SPREAD_PCG x what
+#     moving every live point by one ulp moves the single device's), as
+#     phase 2 holds a PCG, and its cost within max(TOL_STEP_COST0_REL,
+#     that step tolerance x the single device's cost change, SPREAD_PCG x
+#     what the one-ulp move does) of the initial cost, up to the first
+#     iteration whose accept or stop test parts; that test must lie within
+#     the same band of its bar on the single device (a knife edge). The
+#     whole solve over 2, 4 and 8 shards, and the single device's on the
+#     moved inputs: the final costs' ratios to the single device's
+#     printed, and the median of the sharded ones within
+#     TOL_SOLVE_MEDIAN_REL of 1 (a bias moves the median; a flipped test
+#     moves one step)
+TOL_SH_MAP_FRAC = 1e-3        # model-map pixels that hit in one step only
+TOL_SH_MAP_M = 1e-4           # model-map points (m) where both hit
+TOL_SOLVE_MEDIAN_REL = 1e-3
+SOLVE_SHARDS = (2, 4, 8)
+# the slab kernels against their plain versions: C's found and exit events
+# equal, the refined t and the vertex within TOL_RAYCAST_M where found;
+# K's classes and list equal; D's codes within 1 LSB on < TOL_FUSE_NR_FRAC,
+# weights equal; the distributed PCG and P's init bit-equal to their plain
+# versions in the kernels' order (``warp_solver.pcg_sharded_plain``), the
+# distributed PCG against kernel G's whole PCG on the same system within
+# max(TOL_PCG_REL, SPREAD_PCG x the plain PCG's one-ulp spread) as phase 2
+# holds G; N's shard Gram bit-equal, the psum'd Gram within
+# TOL_SHARD_GRAM_REL of the single-device N on the same rows (only the
+# float sums of the shards' dequantized Grams differ)
+TOL_SHARD_GRAM_REL = 1e-6
+SHARDS = 4
+MP_TIMEOUT_S = 600            # the two-process run's own limit
+SHARD_ROWS = {
+    "raycast_slab": ("raycast.cu", "dynamicfusion_tpu/parallel/sharded_raycast.py:176"),
+    "brick_plan_slab": ("classify.cu", "dynamicfusion_tpu/parallel/sharded_fusion.py:133"),
+    "fuse_bricks_slab": ("fuse_bricks.cu", "dynamicfusion_tpu/parallel/sharded_fusion.py:156"),
+    "data_matvec": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:1228"),
+    "pcg_init": ("dense_pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:823"),
+    "pcg_step": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:823"),
+    "dense_gram_shard": ("dense_system.cu", "dynamicfusion_tpu/parallel/distributed_gn.py:96"),
+}
+ROWS.update(SHARD_ROWS)
+COUNTER.update(raycast_slab="raycast", brick_plan_slab="brick_plan", fuse_bricks_slab="fuse_bricks",
+               dense_gram_shard="dense_gram")
+PATH.update(**dict.fromkeys(("raycast_slab", "brick_plan_slab", "fuse_bricks_slab", "data_matvec", "pcg_init",
+                             "pcg_step"), "sharded"), dense_gram_shard="sharded_base")
+
+
+class ShardedRunner:
+    """A sharded step with ``DynamicFusion``'s call (for ``profile_frames``)."""
+
+    def __init__(self, torch, step, state, device):
+        self.torch, self.step, self.state, self.device = torch, step, state, device
+        self.last_outputs = None
+
+    def __call__(self, depth, block: bool = False):
+        self.state, self.last_outputs = self.step(self.state, self.torch.as_tensor(depth).to(self.device))
+        return True
+
+
+def _maps_apart(torch, a, b):
+    """(share of pixels that hit in one map only, share of the common hits
+    further apart than TOL_SH_MAP_M, the largest distance) of two maps."""
+    ha, hb = ~torch.isnan(a[..., 0]), ~torch.isnan(b[..., 0])
+    both = ha & hb
+    dist = (a - b)[both].abs().amax(-1) if bool(both.any()) else torch.zeros(1, device=a.device)
+    return float((ha != hb).float().mean()), float((dist > TOL_SH_MAP_M).float().mean()), float(dist.max())
+
+
+def hold_sharded_step(torch, tag, cfg, mesh, state, out, ref, ro, ref2, i):
+    """One sharded step against the single-device step from the same state
+    (``ref``, ``ro``) and against it with the sharded step's solve
+    (``ref2``); the module constants' bars."""
+    from dynamicfusion_tpu_torch.parallel import sharded
+
+    pose_err = float((out.pose - ro.pose).abs().max())
+    c0 = float(ro.solver_cost0)
+    c0_rel = abs(float(out.solver_cost0) - c0) / max(c0, 1e-30)
+    hit, far, far_max = _maps_apart(torch, state.can_points, ref.can_points)
+    vol = sharded.gather_state(mesh, state).vol
+    codes = (vol.tsdf.to(torch.int32) - ref.vol.tsdf.to(torch.int32)).abs()
+    vol_frac = float((codes > 1).float().mean())
+    hit2, _, map2 = _maps_apart(torch, state.can_points, ref2.can_points)
+    codes2 = int((vol.tsdf.to(torch.int32) - ref2.vol.tsdf.to(torch.int32)).abs().max())
+    w_same = torch.equal(vol.weight.to(torch.int32), ref2.vol.weight.to(torch.int32))
+    _, _, track = _maps_apart(torch, out.model_points, ro.model_points)
+    ok = (bool(out.icp_ok) and bool(ro.icp_ok) and pose_err <= TOL_STEP_POSE and c0_rel <= TOL_STEP_COST0_REL
+          and hit2 <= TOL_SH_MAP_FRAC and map2 <= TOL_SH_MAP_M and codes2 <= 1 and w_same)
+    check(f"{tag}_step_{i}", ok,
+          f"(1) single device: pose {pose_err:.2e} (tol {TOL_STEP_POSE}), cost0 {c0_rel:.2e} (tol "
+          f"{TOL_STEP_COST0_REL}); printed: cost1 {float(out.solver_cost1):.6e} / {float(ro.solver_cost1):.6e}, "
+          f"canonical map hits differ on {hit:.2e}, points > {TOL_SH_MAP_M} m apart on {far:.2e} of the hits "
+          f"(max {far_max:.2e} m), codes > 1 LSB apart on {vol_frac:.2e}, warped tracking maps {track:.2e} m. (2) "
+          f"with the sharded solve: map hits differ on {hit2:.2e} (tol {TOL_SH_MAP_FRAC}), points {map2:.2e} m "
+          f"(tol {TOL_SH_MAP_M}); max code diff {codes2} (tol 1), weights equal {w_same}")
+    return float(out.solver_cost1), float(ro.solver_cost1)
+
+
+def traced_solve(torch, cfg, field, inputs, mesh=None):
+    """A warp solve's LM iterations as host values: [(step size, candidate
+    dq, candidate cost, tested against, accepted, running)], and its final
+    cost; over ``mesh`` the sharded step's solve (the distributed PCG, else
+    the summed assembly, as ``make_sharded_step`` dispatches)."""
+    from dynamicfusion_tpu_torch.parallel import distributed_gn
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    trace = []
+    if mesh is None:
+        _, st = ws.solve(cfg, field, inputs, trace=trace)
+    elif cfg.solver_linear == "pcg" and cfg.solver_lagged_jtj:
+        parts, p = distributed_gn.shard_inputs(cfg, inputs, mesh)
+        _, st = ws.solve(cfg, field, parts, mesh=mesh, global_points=p, trace=trace)
+    else:
+        _, st = ws.solve(cfg, field, inputs, system_fn=distributed_gn.make_system_fn(cfg, mesh),
+                         eval_fn=distributed_gn.make_eval_fn(cfg, mesh) if cfg.solver_lagged_jtj else None,
+                         trace=trace)
+    its = [(float((cand - dq).abs().max()), cand, float(c), float(prev), bool(acc), bool(run))
+           for dq, cand, c, prev, acc, run in trace]
+    return its, float(st.final_cost), float(st.initial_cost)
+
+
+def first_step_finite(torch, cfg, field, inputs):
+    """(active nodes whose damped block's closed-form inverse is
+    non-finite, the linear step finite) of the single device's first LM
+    iteration under the factored PCG."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    s = ws.prepare(cfg, field, inputs)
+    used, stride = ws.row_mode(cfg)
+    dt = ws.data_term(cfg, s, field.dq, True, row_stride=stride)
+    et = ws.edge_term(cfg, s, field.dq)
+    blocks = dt.blocks + et.diag
+    diag_eff, unit = ws.damping_terms(cfg, field.active, blocks)
+    damp = cfg.solver_lm_lambda_init * diag_eff + unit
+    minv = ws.spd6_inv(blocks + torch.diag_embed(damp.reshape(-1, 6)))
+    bad = int((~torch.isfinite(minv).all(-1).all(-1) & field.active).sum())
+    x = ws.pcg(s, ws.System(dt.rows, et, damp, used, stride), minv, dt.jtr + et.jtr, cfg.solver_linear_iters,
+               cfg.solver_linear_tol, torch.ones((), dtype=torch.bool, device=minv.device))
+    return bad, bool(torch.isfinite(x).all())
+
+
+def hold_sharded_solve(torch, tag, cfg, mesh, whole, depth, i):
+    """(3) above at one step: the LM iterations held up to the first whose
+    accept or stop test parts; the final costs returned as {"single",
+    "nudged", n: ...}."""
+    from dynamicfusion_tpu_torch.parallel import sharded
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    inputs = kinfu.track(cfg, whole, depth).inputs
+    field = whole.warp
+    ki, k_final, c0 = traced_solve(torch, cfg, field, inputs)
+    si, s_final, _ = traced_solve(torch, cfg, field, inputs, mesh)
+    moves = [traced_solve(torch, cfg, field, inputs._replace(p_live=p))
+             for p in ulp_moves(torch, inputs.p_live)]
+    held, ok, parted = [], True, None
+    for it, (k, s_) in enumerate(zip(ki, si)):
+        step = max(k[0], 1e-30)
+        dq_err = float((s_[1] - k[1]).abs().max()) / step
+        c_err = abs(s_[2] - k[2]) / c0
+        # the moved inputs' runs that took the single device's path so far
+        same = [m[0][it] for m in moves if all(a[4:] == b[4:] for a, b in zip(m[0][:it], ki[:it]))]
+        dq_tol = max([TOL_PCG_REL] + [SPREAD_PCG * float((m[1] - k[1]).abs().max()) / step for m in same])
+        change = abs(k[2] - k[3]) / c0
+        c_tol = max([TOL_STEP_COST0_REL, dq_tol * change] + [SPREAD_PCG * abs(m[2] - k[2]) / c0 for m in same])
+        good = dq_err <= dq_tol and c_err <= c_tol
+        held.append(f"{it}: step {k[0]:.2e} apart {dq_err:.2e} (tol {dq_tol:.2e}), cost change {change:.2e} apart "
+                    f"{c_err:.2e} (tol {c_tol:.2e}), accepted {int(s_[4])}/{int(k[4])}")
+        if s_[4:] != k[4:]:
+            # a parted test needs the single device's own test within the
+            # held band: the previous iteration's improvement against the
+            # stop bar (``running`` parts), else this candidate's cost
+            # against the cost it is tested on
+            if s_[5] != k[5]:
+                kp = ki[it - 1]
+                test = "stop test"
+                margin = abs((kp[3] - kp[2]) - cfg.solver_function_tolerance * max(kp[2], 1e-20)) / c0
+            else:
+                test = "accept"
+                margin = abs(k[2] - k[3]) / c0
+            good = good and margin <= c_tol
+            parted = f"the {test} parted at iteration {it} (the single device's margin {margin:.2e} of the initial cost)"
+        ok = ok and good
+        if parted:
+            break
+    why = ""
+    if cfg.solver_linear == "pcg" and cfg.solver_lagged_jtj:
+        bad, fin = first_step_finite(torch, cfg, field, inputs)
+        why = (f"; the single device's iteration 0: {bad} active nodes' damped blocks with a non-finite "
+               f"closed-form inverse, its PCG step finite {fin}")
+    check(f"{tag}_solve_{i}", ok,
+          f"{mesh.n} shards against the single device, LM iterations {'; '.join(held)}; "
+          + (parted or "no accept or stop test parted") + why)
+    # the farther of the two one-ulp moves from the single device's cost
+    out = dict(single=k_final, nudged=max((m[1] for m in moves), key=lambda c: abs(c - k_final)))
+    for n in SOLVE_SHARDS:
+        out[n] = s_final if n == mesh.n else traced_solve(
+            torch, cfg, field, inputs, sharded.make_mesh(n, devices=[mesh.device] * n))[1]
+    return out
+
+
+def report_sharded_solves(tag, solves):
+    """(3)'s whole solves over the held steps: each step's final-cost
+    ratios printed; the median of the sharded ones held."""
+    if not solves:
+        return
+    for i, c in solves:
+        print(f"[{tag}] step {i} final solve cost {c['single']:.6e}; ratio to it: one-ulp moved inputs "
+              f"{c['nudged'] / c['single']:.6f}, " + ", ".join(f"{n} shards {c[n] / c['single']:.6f}"
+                                                                for n in SOLVE_SHARDS), flush=True)
+
+    def apart(key):
+        r = [c[key] / c["single"] for _, c in solves]
+        return sum(x > 1.0 + 1e-3 for x in r), sum(x < 1.0 - 1e-3 for x in r)
+
+    ratios = sorted(c[n] / c["single"] for _, c in solves for n in SOLVE_SHARDS)
+    med = ratios[len(ratios) // 2]
+    parted = ", ".join(f"{n} shards higher {apart(n)[0]} / lower {apart(n)[1]}" for n in SOLVE_SHARDS)
+    check(f"{tag}_solve_median", abs(med - 1.0) <= TOL_SOLVE_MEDIAN_REL,
+          f"{len(ratios)} sharded solves over {len(solves)} steps: median final-cost ratio to the single device "
+          f"{med:.6f} (tol 1 +- {TOL_SOLVE_MEDIAN_REL}); more than 1e-3 apart: {parted}; the single device on "
+          f"one-ulp moved inputs higher {apart('nudged')[0]} / lower {apart('nudged')[1]}")
+
+
+def drive_sharded(torch, tag, cfg, mesh, dev, frames, hold_from=3):
+    """The sharded step over ``frames`` (frame 0 replicated, then split),
+    the launch counters reset just before and read just after; from step
+    ``hold_from`` on, each step held against the single-device fixed-step
+    step from the same state (its launches taken back out of the
+    counters). Returns (launches, rows, frame ms, the runner)."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+    from dynamicfusion_tpu_torch.parallel import sharded
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    ref_cfg = dataclasses.replace(cfg, raycast_adaptive_step=False)
+    first = sharded.make_sharded_first_frame(cfg, mesh)
+    step = sharded.make_sharded_step(cfg, mesh)
+    print(f"[{tag}] {mesh}: pieces {step.pieces}", flush=True)
+    kernels.reset_launches()
+    frame_ms, rows, costs, solves = [], [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = first(kinfu.init_state(cfg, dev), torch.from_numpy(frames[0]).to(dev))
+    torch.cuda.synchronize()
+    frame_ms.append((time.perf_counter() - t0) * 1e3)
+    for i, d in enumerate(frames[1:], start=1):
+        depth = torch.from_numpy(d).to(dev)
+        ref = None
+        if i >= hold_from:
+            saved = dict(kernels.launches)
+            whole = sharded.gather_state(mesh, state)
+
+            def copy():
+                return whole._replace(vol=TsdfVolume(whole.vol.tsdf.clone(), whole.vol.weight.clone()))
+
+            ref, ro = kinfu.step(ref_cfg, copy(), depth)
+            ref2, _ = kinfu.step(ref_cfg, copy(), depth, **step.solver_hooks)
+            if step.pieces["solve"] or step.pieces["system"]:
+                solves.append((i, hold_sharded_solve(torch, tag, cfg, mesh, whole, depth, i)))
+            torch.cuda.synchronize()
+            kernels.launches.update(saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(state, depth)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(dict(ok=bool(out.icp_ok), c0=float(out.solver_cost0), c1=float(out.solver_cost1),
+                         nodes=int(out.node_count), bricks=out.brick_counts.tolist()))
+        if ref is not None:
+            saved = dict(kernels.launches)
+            costs.append(hold_sharded_step(torch, tag, cfg, mesh, state, out, ref, ro, ref2, i))
+            kernels.launches.update(saved)
+    launches = dict(kernels.launches)
+    worse = sum(a > b * (1.0 + 1e-3) for a, b in costs)
+    better = sum(a < b * (1.0 - 1e-3) for a, b in costs)
+    print(f"[{tag}] final solve cost, sharded against single device over {len(costs)} steps: higher by > 1e-3 "
+          f"relative on {worse}, lower on {better}; median ratio "
+          f"{sorted(a / b for a, b in costs)[len(costs) // 2]:.6f}", flush=True)
+    report_sharded_solves(tag, solves)
+    return launches, rows, frame_ms, ShardedRunner(torch, step, state, dev)
+
+
+def slab_samples(torch, cfg, ext, x_off, ray_org, dirs, lo, hi) -> float:
+    """The nearest-voxel samples a shard's fixed-step march takes on this
+    run's rays (its window, its slab's codes)."""
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+
+    step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
+    inv_vs, d = 1.0 / cfg.voxel_size, cfg.volume_dims
+    t, done = lo.clone(), lo >= hi
+    prev = tsdf_ops.fetch_nearest(ext, (ray_org + dirs * t[..., None]) * inv_vs, x_off, d)
+    samples = torch.ones_like(t)
+    for _ in range(tsdf_ops.march_steps(cfg)):
+        tn = t + step
+        act = ~done & (t < hi)
+        nxt = tsdf_ops.fetch_nearest(ext, (ray_org + dirs * tn[..., None]) * inv_vs, x_off, d)
+        samples = samples + act.float()
+        done = done | (act & (((prev > 0) & (nxt < 0)) | ((prev < 0) & (nxt > 0)))) | (tn >= hi)
+        t = torch.where(act, tn, t)
+        prev = torch.where(act, nxt, prev)
+    return float(samples.sum())
+
+
+def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
+    """Phase 17's kernel checks at full width on the sharded state: C's,
+    K's and D's slab modes on every shard, G's data-only matvec and the
+    distributed PCG, P's init, ``enabled=False`` as the identity."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.core import se3
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+    from dynamicfusion_tpu_torch.ops import bricks, fusion, tsdf as tsdf_ops
+    from dynamicfusion_tpu_torch.parallel import distributed_gn, sharded, sharded_fusion, sharded_raycast
+    from dynamicfusion_tpu_torch.parallel.mesh import SlabVolume
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    n, d = mesh.n, cfg.volume_dims
+    depth = torch.from_numpy(depth_np).to(dev)
+    whole = sharded.gather_state(mesh, state)
+    tr = kinfu.track(cfg, whole, depth)
+
+    # C's slab mode: the model raycast's rays of the next frame, in its band
+    halo = sharded_raycast._halo_planes(cfg)
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), tr.pose)
+    seed, band = tr.bands
+    org, dirs, tmin, tmax = tsdf_ops.rays(cfg, cam2vol, cfg.intr.level(cfg.raycast_shift), rows_t, cols_t, seed, band)
+    exts = mesh.halo(state.vol.tsdf, halo)
+    wins = [sharded_raycast.slab_window(cfg, k, n, org, dirs, tmin, tmax) for k in range(n)]
+    errs, found, samples = [], 0, 0.0
+    exact = True
+    for k in range(n):
+        x_off = k * (d // n) - halo
+        got = tsdf_ops.march_slab(cfg, exts[k], x_off, org, dirs, *wins[k])
+        ref = tsdf_ops.march_slab(cfg, exts[k], x_off, org, dirs, *wins[k], plain=True)
+        f = ref[0]
+        exact = exact and torch.equal(got[0], f) and torch.equal(got[4], ref[4])
+        if bool(f.any()):
+            errs += [float((got[1] - ref[1])[f].abs().max()), float((got[2] - ref[2])[f].abs().max()),
+                     float(torch.nan_to_num((got[3] - ref[3])[f].abs(), nan=0.0).max())]
+        found += int(f.sum())
+        samples += slab_samples(torch, cfg, exts[k], x_off, org, dirs, *wins[k])
+    err = max(errs + [0.0])
+    check("raycast_slab", exact and err <= TOL_RAYCAST_M,
+          f"{n} slabs of {d // n} + 2 x {halo} planes, {cols_t}x{rows_t} rays ({cfg.raycast_refine}): found and exit "
+          f"events equal {exact}, max t/vertex/normal diff {err:.2e} (tol {TOL_RAYCAST_M}); {found} slab hits")
+    step_len = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
+    refine = tsdf_ops._refine_mode(cfg)
+
+    def march_all(plain):
+        for k in range(n):
+            if plain:
+                tsdf_ops.march_slab(cfg, exts[k], k * (d // n) - halo, org, dirs, *wins[k], plain=True)
+            else:
+                kernels.march_and_refine(exts[k], org, dirs, *wins[k], cfg.voxel_size, step_len,
+                                         tsdf_ops.march_steps(cfg), False, refine=refine,
+                                         smooth=cfg.raycast_smooth_normals, delta=cfg.gradient_delta_factor,
+                                         x_off=k * (d // n) - halo, d=d)
+
+    gathers, ops = refine_work(cfg)
+    nr = dirs.numel() // 3
+    report["raycast_slab"] = dict(
+        err=err, ms=cuda_ms(torch, lambda: march_all(False)), plain_ms=cuda_ms(torch, lambda: march_all(True), reps=3),
+        # every shard: its slab's int16 samples and refine corners, the rays
+        # and windows in, found/t/t_behind/vertex/normal out
+        bound=bound_ms((samples + gathers * found) * 2 + n * nr * (12 + 8 + 1 + 8 + 24),
+                       samples * 12.0 + found * ops),
+        library_ms=None,
+    )
+    # the whole raycast's ownership against the single-device fixed-step raycast
+    rc = sharded_raycast.make_sharded_raycast(cfg, mesh)
+    ref_cfg = dataclasses.replace(cfg, raycast_adaptive_step=False)
+    got = rc(cfg, state.vol, cam2vol, cfg.intr.level(cfg.raycast_shift), rows_t, cols_t, t_seed=seed, t_band=band)
+    ref = tsdf_ops.raycast(ref_cfg, whole.vol, cam2vol, cfg.intr.level(cfg.raycast_shift), rows_t, cols_t,
+                           t_seed=seed, t_band=band)
+    ha, hb = ~torch.isnan(got.points[..., 0]), ~torch.isnan(ref.points[..., 0])
+    both = ha & hb
+    perr = float((got.points - ref.points)[both].abs().max())
+    check("sharded_raycast", torch.equal(ha, hb) and perr <= TOL_RAYCAST_M,
+          f"{n}-slab raycast against the fixed-step whole raycast: hit sets equal {torch.equal(ha, hb)} "
+          f"({int(ha.sum())} hits), max point diff {perr:.2e} m (tol {TOL_RAYCAST_M})")
+
+    # K and D's slab modes: the next frame's fusion of every slab
+    g, b = cfg.knn_field_stride, cfg.brick_size
+    cf = fusion.coarse_field(cfg, whole.warp)
+    grid = se3.transform_points(se3.inverse(tr.pose), cf.warped)
+    lookup = bricks.pack_depth_conf(tr.dists, tr.conf)
+    band_cap, wide_cap = sharded_fusion.caps(cfg, n)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    plans, exact, fuse_err, dw_max, n_work, n_front = [], True, 0.0, 0, 0, 0
+    dl = d // n
+    for k in range(n):
+        gk, qk = bricks.corner_slab(grid, k, n, b, g), bricks.corner_slab(cf.q, k, n, b, g)
+        pk = bricks.plan_slab(cfg, tr.dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap)
+        pp = bricks.plan_slab(cfg, tr.dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap, plain=True)
+        exact = exact and all(torch.equal(x, y) for x, y in zip(pk.classes, pp.classes)) and all(
+            torch.equal(x, y) for x, y in zip(pk.work, pp.work))
+        vk = TsdfVolume(state.vol.tsdf[k].clone(), state.vol.weight[k].clone())
+        vp = TsdfVolume(state.vol.tsdf[k].clone(), state.vol.weight[k].clone())
+        bricks.fuse(cfg, vk, lookup, gk, g, cfg.intr, pk, on, qk, True)
+        bricks.fuse(cfg, vp, lookup, gk, g, cfg.intr, pp, on, qk, True, plain=True)
+        dt_ = (vk.tsdf.to(torch.int32) - vp.tsdf.to(torch.int32)).abs()
+        fuse_err = max(fuse_err, float((dt_ > 1).float().mean()))
+        dw_max = max(dw_max, int((vk.weight.to(torch.int32) - vp.weight.to(torch.int32)).abs().max()))
+        cnt = int(pk.work.count[0])
+        n_work += cnt
+        n_front += int((pk.work.kind[:cnt] == bricks.FRONT).sum())
+        plans.append((gk, qk, pk))
+    check("brick_plan_slab", exact, f"{n} slabs of {band_cap} bricks (wide cap {wide_cap}): classes and lists equal "
+          f"the plain version's {exact}; {n_work} listed bricks")
+    check("fuse_bricks_slab", fuse_err < TOL_FUSE_NR_FRAC and dw_max == 0,
+          f"codes > 1 LSB apart on {fuse_err:.2e} (tol {TOL_FUSE_NR_FRAC}), max weight diff {dw_max} (tol 0)")
+    rows, cols = tr.dists.shape
+    levels = int(math.ceil(math.log2(max(rows, cols)))) + 1
+    total = sum((((rows + (1 << l) - 1) >> l) * ((cols + (1 << l) - 1) >> l)) for l in range(levels))
+    nbr_loc = band_cap
+    report["brick_plan_slab"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: [bricks.plan_slab(cfg, tr.dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap)
+                                   for k, (gk, _, _) in enumerate(plans)]),
+        plain_ms=cuda_ms(torch, lambda: [bricks.plan_slab(cfg, tr.dists, gk, g, cfg.intr, k * dl // b, band_cap,
+                                                          wide_cap, plain=True) for k, (gk, _, _) in enumerate(plans)],
+                         reps=3),
+        # every shard: dists, its grid slab and permutation in; the mip,
+        # classes, windows, flags and list out (brick_plan's reckoning)
+        bound=bound_ms(n * (rows * cols * 4 + plans[0][0].numel() * 4 + nbr_loc * 8 + total * 12
+                            + nbr_loc * (8 + 4 + 4 + 1 + 8) + 16),
+                       n * (total * 3.0 + nbr_loc * (27 * 25.0 + 16 * 50.0))),
+        library_ms=None,
+    )
+    scratch = [TsdfVolume(t.clone(), w.clone()) for t, w in zip(state.vol.tsdf, state.vol.weight)]
+    bv = b ** 3
+
+    def fuse_all(plain):
+        for v, (gk, qk, pk) in zip(scratch, plans):
+            bricks.fuse(cfg, v, lookup, gk, g, cfg.intr, pk, on, qk, True, plain=plain)
+
+    report["fuse_bricks_slab"] = dict(
+        err=float(fuse_err > 0),
+        ms=cuda_ms(torch, lambda: fuse_all(False)),
+        plain_ms=cuda_ms(torch, lambda: fuse_all(True), reps=3),
+        bound=bound_ms(n_work * bv * 8 + n * (lookup.numel() * 4 + plans[0][0].numel() * 4 + plans[0][1].numel() * 4
+                                              + nbr_loc * 16),
+                       n_front * bv * 8.0 + (n_work - n_front) * bv * 100.0),
+        library_ms=None,
+    )
+    del scratch
+    # enabled=False: every slab bit-identical
+    fn = sharded_fusion.make_sharded_integrate(cfg, mesh)
+    copy = SlabVolume(tuple(t.clone() for t in state.vol.tsdf), tuple(w.clone() for w in state.vol.weight))
+    _, cnt = fn(cfg, copy, cf, tr.dists, se3.inverse(tr.pose), cfg.intr, ~on, conf=tr.conf,
+                phase=torch.zeros((), dtype=torch.int32, device=dev))
+    same = all(torch.equal(a, c) for a, c in zip(copy.tsdf, state.vol.tsdf)) and all(
+        torch.equal(a.view(torch.int16), c.view(torch.int16)) for a, c in zip(copy.weight, state.vol.weight))
+    check("sharded_fusion_disabled", same and cnt.tolist() == [0, 0, 0],
+          f"enabled=False leaves every slab bit-identical {same}, counts {cnt.tolist()}")
+
+    # G's data-only matvec and the distributed PCG on the next frame's system
+    parts, p_all = distributed_gn.shard_inputs(cfg, tr.inputs, mesh)
+    field = whole.warp
+    nn_ = field.positions.shape[0]
+    s = None
+    shards = []
+    for inp in parts:
+        sk = ws.prepare(cfg, field, inp, global_points=p_all, edges=s)
+        s = sk if s is None else s
+        shards.append(sk)
+    dts = [ws.data_term(cfg, sk, field.dq, True) for sk in shards]
+    et = ws.edge_term(cfg, s, field.dq)
+    with deterministic(torch):
+        blocks = mesh.psum([dt.blocks for dt in dts]) + et.diag
+    diag_eff, unit = ws.damping_terms(cfg, field.active, blocks)
+    damp = cfg.solver_lm_lambda_init * diag_eff + unit
+    sysm = ws.System(dts[0].rows, et, damp)
+    # the preconditioner as phase 2 holds kernel G's PCG: the float64
+    # inverse of the damped blocks (the closed form is non-finite on some
+    # of the solver's nearly singular blocks, in the kernel and the plain
+    # version alike)
+    minv = torch.linalg.inv((blocks + torch.diag_embed(damp.reshape(nn_, 6))).double()).float().contiguous()
+    b_vec = mesh.psum([dt.jtr for dt in dts]) + et.jtr
+    pv = torch.from_numpy(np.random.RandomState(2).randn(6 * nn_).astype(np.float32)).to(dev)
+    errs, bits = [], True
+    for sk, dt in zip(shards, dts):
+        mk = kernels.data_matvec(dt.rows, sk.knn_idx, sk.pts_by_node.order, sk.pts_by_node.off, pv)
+        with deterministic(torch):
+            mp = ws.data_matvec_plain(sk, sysm._replace(rows=dt.rows), pv).reshape(-1)
+        errs.append(rel_err(torch, mk, mp))
+        bits = bits and torch.equal(mk, ws.data_matvec_ordered(sk, sysm._replace(rows=dt.rows), pv).reshape(-1))
+    check("data_matvec", max(errs) <= TOL_MATVEC_REL and bits,
+          f"{n} shards of {shards[0].p_can.shape[0]} points: max relative diff {max(errs):.2e} (tol {TOL_MATVEC_REL}); "
+          f"bit-equal to the plain version in the kernel's order {bits}")
+    npt = shards[0].p_can.shape[0]
+    lists_b = (npt * 8 + nn_ + 1) * 4
+    sh0, dt0 = shards[0], dts[0]
+    report["data_matvec"] = dict(
+        err=max(errs),
+        ms=cuda_ms(torch, lambda: kernels.data_matvec(dt0.rows, sh0.knn_idx, sh0.pts_by_node.order,
+                                                      sh0.pts_by_node.off, pv)),
+        plain_ms=cuda_ms(torch, lambda: ws.data_matvec_plain(sh0, sysm._replace(rows=dt0.rows), pv), reps=5),
+        # one shard: its bf16 rows, neighbour ids and node lists, p in; Ap out
+        bound=bound_ms(npt * (96 + 32) + lists_b + nn_ * 48, npt * 8 * 6 * 2 * 2.0),
+        library_ms=None,
+    )
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    iters, rtol = cfg.solver_linear_iters, cfg.solver_linear_tol
+    sh_parts = [ws.Shard(sk, dt.rows) for sk, dt in zip(shards, dts)]
+    xk = ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on)
+    with deterministic(torch):
+        xp = ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on, plain=True)
+    finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
+    bits = torch.equal(xk, xp)
+    off_ok = not bool(ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, ~on).any())
+    # the same system solved whole by kernel G's one-block PCG (the shards'
+    # rows are the whole subsample's, cut in n): another sum order, held as
+    # phase 2 holds G against its plain version
+    s1 = ws.prepare(cfg, field, tr.inputs)
+    d1 = ws.data_term(cfg, s1, field.dq, True)
+    x1 = ws.pcg(s1, ws.System(d1.rows, et, damp), minv, b_vec, iters, rtol, on)
+    err1 = rel_err(torch, xk, x1)
+    with deterministic(torch):
+        spread = max(rel_err(torch, ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b1, iters, rtol, on, plain=True),
+                             xp) for b1 in ulp_moves(torch, b_vec))
+    tol1 = max(TOL_PCG_REL, SPREAD_PCG * spread)
+    check("pcg_sharded", finite and bits and off_ok and err1 <= tol1,
+          f"{n} shards, up to {iters} iterations over 6N = {6 * nn_}: finite {finite}, bit-equal to the plain version "
+          f"in the kernels' order {bits} (max relative diff {rel_err(torch, xk, xp):.2e}); inactive -> 0 {off_ok}; "
+          f"against kernel G's whole PCG on the same system {err1:.2e} (tol max({TOL_PCG_REL}, {SPREAD_PCG} x the "
+          f"plain PCG's one-ulp spread {spread:.2e}))")
+    # the iterations this right-hand side runs (the plain version's loop)
+    ran, x, r = iters, torch.zeros_like(b_vec), b_vec
+    z = ws.apply_m_ordered(minv, r)
+    pdir, rz = z, ws.dot_ordered(r, z)
+    stop2 = (rtol * rtol) * ws.dot_ordered(b_vec, b_vec)
+    for it in range(iters):
+        if not bool(ws.dot_ordered(r, r) > stop2):
+            ran = it
+            break
+        apd = mesh.psum([ws.data_matvec_ordered(sk, sysm._replace(rows=dt.rows), pdir).reshape(-1)
+                         for sk, dt in zip(shards, dts)])
+        ap = ws.edge_apply_plain(s, et, pdir, apd, damp)
+        alpha = rz / torch.clamp(ws.dot_ordered(pdir, ap), min=1e-30)
+        x, r = x + alpha * pdir, r - alpha * ap
+        z = ws.apply_m_ordered(minv, r)
+        rz_n = ws.dot_ordered(r, z)
+        pdir, rz = z + rz_n / torch.clamp(rz, min=1e-30) * pdir, rz_n
+    ne = s.e_src.shape[0]
+    per_iter = n * npt * 8 * 6 * 2 * 2 + ne * 2 * 72 * 2 + nn_ * (72 + 60)
+    report["pcg_step"] = dict(
+        err=abs_err(torch, xk, xp),
+        ms=cuda_ms(torch, lambda: ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on)),
+        plain_ms=cuda_ms(torch, lambda: ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on,
+                                                       plain=True), reps=3),
+        # the whole distributed solve: every shard's rows and lists, the
+        # edge blocks, damping, preconditioner and b read once, x written
+        bound=bound_ms(n * (npt * (96 + 32) + lists_b) + ne * (3 * 144 + 8 + 4) + (nn_ + 1) * 4
+                       + nn_ * (24 + 144 + 24) + nn_ * 24, ran * per_iter + nn_ * 72.0),
+        library_ms=None,
+        iterations=ran,
+    )
+    xi, work = kernels.pcg_sharded_init(minv, b_vec, iters, rtol, on)
+    zp = ws.apply_m_ordered(minv, b_vec)
+    init_ok = (torch.equal(xi, torch.zeros_like(xi)) and torch.equal(work[:6 * nn_], b_vec)
+               and torch.equal(work[6 * nn_: 12 * nn_], zp) and torch.equal(work[12 * nn_: 18 * nn_], zp)
+               and float(work[4 * 6 * nn_]) == float(ws.dot_ordered(b_vec, zp)))
+    check("pcg_init", init_ok, f"x = 0, r = b, p = z, z = M b and rᵀz bit-equal to the plain version in kernel P's "
+          f"order {init_ok} (max |z - z_plain| {abs_err(torch, work[6 * nn_: 12 * nn_], zp):.2e})")
+    report["pcg_init"] = dict(
+        err=abs_err(torch, work[6 * nn_: 12 * nn_], zp),
+        ms=cuda_ms(torch, lambda: kernels.pcg_sharded_init(minv, b_vec, iters, rtol, on)),
+        plain_ms=cuda_ms(torch, lambda: (torch.zeros_like(b_vec), ws.dot_ordered(b_vec, b_vec),
+                                         ws.dot_ordered(b_vec, ws.apply_m_ordered(minv, b_vec)))),
+        # M and b in; x, r, z, p and the loop state out
+        bound=bound_ms(nn_ * (144 + 24) + nn_ * 24 * 4 + 12, nn_ * 72.0 + nn_ * 24.0),
+        library_ms=cuda_ms(torch, lambda: torch.bmm(minv, b_vec.reshape(nn_, 6, 1))),
+    )
+    print(f"[info] {n} shards: the distributed PCG ran {ran} of {iters} iterations; one shard's data matvec "
+          f"{report['data_matvec']['ms']:.4f} ms", flush=True)
+
+
+def sharded_main(torch, args, dev, card, nr_depths, report, cfg=None):
+    """Phase 17: ``default_dynamicfusion()`` (or ``cfg``) over
+    ``make_mesh(4)`` on the card (64-plane slabs): the sharded step's
+    checks, the kernel checks of the slab and shard modes, the profile
+    beside the single-device preset's."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.parallel import sharded
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    cfg = cfg or DynamicFusionConfig.default_dynamicfusion()
+    mesh = sharded.make_mesh(SHARDS, devices=[dev] * SHARDS)
+    frames = nr_depths[: args.s_frames]
+    launches, rows, frame_ms, runner = drive_sharded(torch, "sharded", cfg, mesh, dev, frames)
+    shard_kernels = ("raycast", "brick_plan", "fuse_bricks", "data_matvec", "pcg_init", "pcg_step", "data_term",
+                     "edge_term", "spd6_inv", "knn_blend", "insert_select", "insert_apply", "extract_cloud",
+                     "sample_nodes", "march_bands", "icp_reduce", "bilateral")
+    check("sharded_launches", all(launches[k] > 0 for k in shard_kernels) and launches["pcg"] == 0,
+          f"every kernel of the sharded path launched, kernel G's one-block PCG none: {launches}")
+    check("sharded_icp_ok", all(r["ok"] for r in rows), f"ICP healthy on every step ({len(rows)})")
+    due = [i for i in range(1, len(frames)) if i % cfg.fusion_interval == 0]
+    fused = [i for i, r in enumerate(rows, start=1) if r["bricks"][0] + r["bricks"][1] > 0]
+    check("sharded_fusion", fused == due, f"fusion on frames {fused} (due {due})")
+    steps = len(frames) - 1
+    steady = sorted(frame_ms[2:])
+    print(f"[time] {card} | sharded ({SHARDS} shards on one card) frame ms median {steady[len(steady) // 2]:.3f} "
+          f"(frames 2..{steps}), frame 0 {frame_ms[0]:.3f}; the port's kernels launched "
+          f"{sum(launches.values()) / steps:.1f} times a step", flush=True)
+    sharded_kernels(torch, report, dev, cfg, mesh, runner.state, nr_depths[args.s_frames])
+    prof = profile_frames(torch, args, dev, card, runner, nr_depths[args.s_frames + 1: args.s_frames + 4],
+                          tag="sharded", focus=("raycast_kernel", "data_rows", "data_nodes", "edge_apply",
+                                                "update_kernel", "fuse_bricks"))
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    for d in nr_depths[: args.s_frames]:
+        df(d, block=False)
+    one = profile_frames(torch, args, dev, card, df, nr_depths[args.s_frames + 1: args.s_frames + 4], tag="single")
+    print(f"[sharded] {card} | {SHARDS} shards on one H100 (the cost of sharding, not a multi-card rate): 3 frames "
+          f"{prof['wall_ms'] / 3:.3f} ms a frame, idle {1.0 - prof['busy_ms'] / prof['wall_ms']:.3f}, "
+          f"{prof['launches'] / 3:.0f} launches a frame; single device {one['wall_ms'] / 3:.3f} ms, idle "
+          f"{1.0 - one['busy_ms'] / one['wall_ms']:.3f}, {one['launches'] / 3:.0f} launches a frame", flush=True)
+    return launches
+
+
+def sharded_base_main(torch, args, dev, card, nr_depths, report, cfg=None):
+    """Phase 18: three steps of the base ``DynamicFusionConfig()`` over
+    ``make_mesh(4)`` (the summed Schur assembly: N's shard mode with the
+    pmax'd scales), each held against the single-device step; N's shard
+    mode against its plain version and the psum'd Gram against the
+    single-device N."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.parallel import distributed_gn, sharded
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = cfg or DynamicFusionConfig()
+    mesh = sharded.make_mesh(SHARDS, devices=[dev] * SHARDS)
+    launches, rows, frame_ms, runner = drive_sharded(torch, "sharded_base", cfg, mesh, dev, nr_depths[:4],
+                                                     hold_from=1)
+    check("sharded_base_launches", all(launches[k] > 0 for k in ("gram_scales", "dense_gram", "dense_damp",
+                                                                 "cholesky", "raycast", "brick_plan", "fuse_bricks")),
+          f"N (shard mode), O, the factor, the slab raycast and fusion launched: {launches}")
+    # N's shard mode at the next frame's system
+    whole = sharded.gather_state(mesh, runner.state)
+    tr = kinfu.track(cfg, whole, torch.from_numpy(nr_depths[4]).to(dev))
+    s = ws.prepare(cfg, whole.warp, tr.inputs)
+    shards = distributed_gn.shard_structure(s, mesh)
+    dq = whole.warp.dq
+    dts = [ws.data_term(cfg, sk, dq, True) for sk in shards]
+    scale = mesh.pmax([ws.gram_scales(sk, dt) for sk, dt in zip(shards, dts)])
+    grams, same = [], True
+    for sk, dt in zip(shards, dts):
+        gk = ws.data_gram(cfg, sk, dt, scale)
+        same = same and torch.equal(gk, ws.data_gram(cfg, sk, dt, scale, plain=True))
+        grams.append(gk)
+    et = ws.edge_term(cfg, s, dq)
+    dt1 = ws.data_term(cfg, s, dq, True)
+    one = ws.dense_gram(cfg, s, dt1, et)
+    summed = mesh.psum(grams) + ws.edge_jtj(s, et)
+    err = rel_err(torch, summed, one)
+    scale1 = ws.gram_scales(s, dt1)
+    check("dense_gram_shard", same and err <= TOL_SHARD_GRAM_REL and torch.equal(scale, scale1),
+          f"{SHARDS} shards' int8 Grams with the pmax'd scales (equal to the whole rows' {torch.equal(scale, scale1)}) "
+          f"bit-equal to the plain version {same}; psum + edge blocks against the single-device N: max relative "
+          f"diff {err:.2e} (tol {TOL_SHARD_GRAM_REL})")
+    n = dq.shape[0]
+    npt = shards[0].p_can.shape[0]
+    sk0, dt0 = shards[0], dts[0]
+    products = npt * 8 * 288 * dt0.rows.shape[1]
+    report["dense_gram_shard"] = dict(
+        err=0.0 if same else float("inf"),
+        ms=cuda_ms(torch, lambda: ws.data_gram(cfg, sk0, dt0, scale), reps=10),
+        plain_ms=cuda_ms(torch, lambda: ws.data_gram(cfg, sk0, dt0, scale, plain=True), reps=3),
+        # one shard: its rows, ids, lists and the scales in, the (6N)^2 matrix out
+        bound=bound_ms(npt * (96 + 64) + (npt * 8 + n + 1) * 4 + 6 * n * 4 + (6 * n) ** 2 * 4, 2.0 * products,
+                       PEAK_INT8),
+        library_ms=None,
+    )
+    steady = sorted(frame_ms[1:])
+    print(f"[time] {card} | sharded base config ({SHARDS} shards on one card) frame ms median "
+          f"{steady[len(steady) // 2]:.3f} over {len(steady)} steps", flush=True)
+    return launches
+
+
+def multiprocess_main(torch, args, dev, card, config="preset"):
+    """Phase 19: ``parallel.multihost``'s worker as two processes on the
+    card over gloo, two local shards each, for 3 preset frames at full
+    width: the ranks' results equal, and every frame's pose and costs
+    bit-equal to the one-process ``make_mesh(4)`` run (the same reduction
+    tree); NCCL on distinct cards where there are two."""
+    import os
+    import socket
+    import tempfile
+
+    from dynamicfusion_tpu_torch.parallel import multihost, sharded
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def launch(world, device, frames, backend=None):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        tmp = tempfile.mkdtemp(prefix="df_mp_")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "dynamicfusion_tpu_torch.parallel.multihost", "--init-method",
+             f"tcp://localhost:{port}", "--world-size", str(world), "--rank", str(r), "--local-shards", "2",
+             "--device", device, "--config", config, "--frames", str(frames), "--out", outs[r]]
+            + (["--backend", backend] if backend else []),
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                print(log[-4000:])
+            check(f"multihost_rank{r}", p.returncode == 0, f"rank {r} exited {p.returncode}")
+        return [json.loads(open(o).read()) for o in outs]
+
+    t0 = time.perf_counter()
+    res = launch(2, dev.type, 3, backend="gloo")
+    wall = time.perf_counter() - t0
+    one = multihost.run_frames(multihost.worker_config(config), sharded.make_mesh(4, devices=[dev] * 4), 3)
+    ranks_equal = res[0]["frames"] == res[1]["frames"]
+    bit_equal = res[0]["frames"] == one
+    print(f"[multihost] {card} | 2 ranks x 2 shards over {res[0]['backend']} on {res[0]['device']}: {wall:.1f} s "
+          f"wall (each rank {res[0]['seconds']:.1f} s for frame 0 and 3 steps)", flush=True)
+    for i, (a, b) in enumerate(zip(res[0]["frames"], one), start=1):
+        print(f"[multihost] step {i}: pose max |diff| {max(abs(x - y) for x, y in zip(a['pose'], b['pose'])):.3e}, "
+              f"cost0 {a['cost0']!r} / {b['cost0']!r}, cost1 {a['cost1']!r} / {b['cost1']!r}")
+    if not bit_equal:
+        # the fallback the design allows: the first step within the step tolerances
+        a, b = res[0]["frames"][0], one[0]
+        pose = max(abs(x - y) for x, y in zip(a["pose"], b["pose"]))
+        c0 = abs(a["cost0"] - b["cost0"]) / max(abs(b["cost0"]), 1e-30)
+        print("[multihost] NOT bit-equal to the one-process mesh: holding the first step instead", flush=True)
+        check("multihost_first_step", pose <= TOL_STEP_POSE and c0 <= TOL_STEP_COST0_REL,
+              f"pose {pose:.2e} (tol {TOL_STEP_POSE}), cost0 {c0:.2e} (tol {TOL_STEP_COST0_REL})")
+    check("multihost", ranks_equal and all(f["icp_ok"] for f in one),
+          f"ranks' poses and costs equal {ranks_equal}; bit-equal to make_mesh(4) in one process on every step "
+          f"{bit_equal}")
+    if torch.cuda.device_count() >= 2:
+        res = launch(2, "cuda", 3, backend="nccl")
+        check("multihost_nccl", res[0]["backend"] == "nccl" and res[0]["frames"] == res[1]["frames"],
+              f"NCCL on two cards: backend {res[0]['backend']}, ranks equal")
+    else:
+        print(f"[multihost] NCCL did not run: {torch.cuda.device_count()} card (NCCL needs one card a rank)",
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--frames", type=int, default=15, help="frames of the rigid slice")
@@ -3079,6 +3901,8 @@ def main() -> int:
                     help="deforming-scene frames of the dense non-rigid cell (newton16)")
     ap.add_argument("--demo-frames", type=int, default=10,
                     help="synthetic frames of apps/demo_torch.py under default_dynamicfusion()")
+    ap.add_argument("--s-frames", type=int, default=20,
+                    help="deforming-scene frames of default_dynamicfusion() over make_mesh(4) on the card")
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of 3 frames of each non-rigid preset and of the reference-"
                          "resolution rigid path here")
@@ -3117,7 +3941,7 @@ def main() -> int:
     # ---------------- 2. kernels vs plain ----------------
     nr = DynamicFusionConfig.default_dynamicfusion()
     # the deforming scene's frames, and 3 more after the longest run for the profiles
-    n_depths = max(args.nr_frames, args.d_frames, args.r_frames, args.dn_frames, 7) + 3
+    n_depths = max(args.nr_frames, args.d_frames, args.r_frames, args.dn_frames, args.s_frames + 1, 7) + 3
     nr_depths = synthetic.deforming_frames(nr.intr, nr.rows, nr.cols, n_depths)
     report = {}
     rigid_kernels(torch, args, report, dev, card)
@@ -3186,8 +4010,21 @@ def main() -> int:
     demo_launches = demo_main(torch, args, report, dev, card, tuple(k for k, v in nr_launches.items() if v))
     print(f"[phase] demo done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---------------- 17. report ----------------
+    # ---------------- 17. the sharded preset over make_mesh(4) on the card ----------------
+    s_launches = sharded_main(torch, args, dev, card, nr_depths, report)
+    print(f"[phase] sharded preset done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 18. the base config sharded ----------------
+    sb_launches = sharded_base_main(torch, args, dev, card, nr_depths, report)
+    print(f"[phase] sharded base config done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 19. two processes on the card ----------------
+    multiprocess_main(torch, args, dev, card)
+    print(f"[phase] two-process run done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 20. report ----------------
     runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches,
+            "sharded": s_launches, "sharded_base": sb_launches,
             "adaptive": a_launches, "parity_rigid": p_launches, "render": r_launches, "base": base_launches,
             "base_bf16": v_launches["bf16"], "base_p2p": v_launches["p2p"], "parity_nr": pnr_launches,
             "options": o_launches, "options_lag": lag_launches, "base_pcg": v_launches["pcg_unlagged"],

@@ -26,6 +26,16 @@
 // log(x) / log(2) as jnp.log2 computes it); every pool and window is a min
 // or a max, exact, so classes, windows and the work list equal the plain
 // version's bit for bit.
+//
+// Slab mode (the sharded fusion's classification, dynamicfusion_tpu/
+// parallel/sharded_fusion.py:133-154): the grid is one shard's x-slab of
+// corner points, (nbx w + 1, G, G) with its +1 overlap plane, and the
+// bricks are the slab's nbx x nb x nb local ones (local id ((bi nb) + bj)
+// nb + bk, as the whole volume's); the phase split tests the GLOBAL brick
+// x-plane bx0 + bi. The caps are the caller's: the sharded fusion lists
+// every front and band brick (1 024 local bricks at 256^3 over 4 shards,
+// one a thread of the second launch) and the wide ones up to its cap, in
+// local-id order.
 #include "common.cuh"
 
 namespace {
@@ -103,8 +113,9 @@ __global__ void __launch_bounds__(kTile* kTile) mip_tiles_kernel(const float* __
 }
 
 struct Geo {
-  const float* cam;  // (G, G, G, 3) camera-frame grid points at voxel stride g
-  int g_pts, w, nb;  // G, grid points per brick per axis, bricks per axis
+  const float* cam;  // (nbx w + 1, G, G, 3) camera-frame grid points at voxel stride g
+  int g_pts, w, nb;  // G, grid points per brick per axis, bricks along y and z
+  int nbx, bx0;      // bricks along x, the global x-plane of the first
   float fx, fy, cx, cy;
   int rows, cols, rect;
   float trunc, zeps, two;  // two: 2.0f, a run-time value so log(2) is the library's
@@ -187,7 +198,7 @@ classify_plan_kernel(Mip m, Geo k, const int* phase, int split, const int64_t* _
   level_dims(m, m.levels - 1, &h_last, &w_last, &total);
   total += h_last * w_last;
   // 2. classify
-  const int nbr = k.nb * k.nb * k.nb;
+  const int nbr = k.nbx * k.nb * k.nb;
   const int ph_sel = phase != nullptr ? *phase : 0;
   for (int b = threadIdx.x; b < nbr; b += blockDim.x) {
     const int bi = b / (k.nb * k.nb), bj = (b / k.nb) % k.nb, bk = b % k.nb;
@@ -235,7 +246,7 @@ classify_plan_kernel(Mip m, Geo k, const int* phase, int split, const int64_t* _
     const float side = static_cast<float>(k.rect - 2);
     const bool narrow = (umax - umin) <= side && (vmax - vmin) <= side && zfront;
     int c = (!visible || (zfront && no_band)) ? SKIP : (is_front ? FRONT : (narrow ? BAND : WIDE));
-    if (split > 1 && bi % split != ph_sel) c = SKIP;
+    if (split > 1 && (k.bx0 + bi) % split != ph_sel) c = SKIP;
     cls[b] = c;
     u0_out[b] = dfk::floor_clamp(umin, max(k.cols - k.rect, 0));
     v0_out[b] = dfk::floor_clamp(vmin, max(k.rows - k.rect, 0));
@@ -311,7 +322,8 @@ classify_plan_kernel(Mip m, Geo k, const int* phase, int split, const int64_t* _
 }  // namespace
 
 extern "C" int df_brick_plan(const void* dists, int rows, int cols, int levels, void* dmin, void* dmax, void* av,
-                             const void* cam, int g_pts, int w, int nb, float fx, float fy, float cx, float cy,
+                             const void* cam, int g_pts, int w, int nb, int nbx, int bx0, float fx, float fy,
+                             float cx, float cy,
                              int rect, float trunc, float zeps, const void* phase, int split, const void* perm,
                              int band_cap, int wide_cap, void* cls, void* u0, void* v0, void* surf, void* ids,
                              void* kind, void* count, void* counts, void* stream) {
@@ -322,7 +334,7 @@ extern "C" int df_brick_plan(const void* dists, int rows, int cols, int levels, 
   mip_tiles_kernel<<<grid, tile, 0, st>>>(static_cast<const float*>(dists), m);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  Geo k{static_cast<const float*>(cam), g_pts, w, nb, fx, fy, cx, cy, rows, cols, rect, trunc, zeps, 2.0f};
+  Geo k{static_cast<const float*>(cam), g_pts, w, nb, nbx, bx0, fx, fy, cx, cy, rows, cols, rect, trunc, zeps, 2.0f};
   classify_plan_kernel<<<1, kBlock, 0, st>>>(
       m, k, static_cast<const int*>(phase), split, static_cast<const int64_t*>(perm), band_cap, wide_cap,
       static_cast<int64_t*>(cls), static_cast<int*>(u0), static_cast<int*>(v0), static_cast<bool*>(surf),

@@ -33,6 +33,14 @@ __device__ __forceinline__ float decode_weight(uint16_t w) {
   return static_cast<float>(w) * kWeightDecode;
 }
 
+// the loop state of kernel P's PCG (csrc/dense_pcg.cu), the last three
+// words of its work; kernel G's distributed PCG (csrc/pcg.cu) reads it too
+struct PcgState {
+  float rz;     // rᵀz of the current residual
+  float stop2;  // rtol² bᵀb
+  int done;     // the loop has ended
+};
+
 // floor(x) clamped into [0, hi] before the integer conversion (NaN -> 0)
 __device__ __forceinline__ int floor_clamp(float x, int hi) {
   return static_cast<int>(fminf(fmaxf(floorf(x), 0.0f), static_cast<float>(hi)));

@@ -32,11 +32,7 @@ namespace {
 constexpr int kRowsPerBlock = 8;  // one warp a row
 constexpr int kBlock = 1024;
 
-struct State {
-  float rz;     // rᵀz of the current residual
-  float stop2;  // rtol² bᵀb
-  int done;     // the loop has ended
-};
+using State = dfk::PcgState;
 
 __device__ float node_dot(const float* a, const float* b, int n) {
   float s = 0.0f;
@@ -176,4 +172,29 @@ extern "C" int df_dense_pcg(const void* a, const void* minv, const void* b, int 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// The distributed PCG of kernel G's shard mode (csrc/pcg.cu) runs this
+// kernel's init and update around its own matvec: work as df_dense_pcg's
+// (r, z, p, Ap, then the 3-word loop state)
+extern "C" int df_pcg_init(const void* minv, const void* b, int n, int iters, float rtol2, const void* active, void* x,
+                           void* work, void* stream) {
+  if (n <= 0) return 0;
+  const int dof = 6 * n;
+  float* r = static_cast<float*>(work);
+  State* st = reinterpret_cast<State*>(r + 4 * dof);
+  init_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(minv), static_cast<const float*>(b), n, iters, rtol2,
+      static_cast<const bool*>(active), static_cast<float*>(x), r, r + dof, r + 2 * dof, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int df_pcg_update(const void* minv, int n, void* x, void* work, void* stream) {
+  if (n <= 0) return 0;
+  const int dof = 6 * n;
+  float* r = static_cast<float*>(work);
+  State* st = reinterpret_cast<State*>(r + 4 * dof);
+  update_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(minv), r + 3 * dof, n, static_cast<float*>(x), r, r + dof, r + 2 * dof, st);
+  return static_cast<int>(cudaGetLastError());
 }

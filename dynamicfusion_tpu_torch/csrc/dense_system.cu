@@ -34,6 +34,13 @@
 // of the jitted JAX package's division by the constant 127); q =
 // clip(rint(row / c), +-127), a true division, as XLA keeps it.
 //
+// Shard mode (the base config's sharded step, dynamicfusion_tpu/parallel/
+// distributed_gn.py:96-108 with warp_solver.py:505-545's col_scale_reduce):
+// the rows are one shard's points, the column scales are given (the pmax
+// of every shard's gram_scales, so that each shard quantizes alike and the
+// int32 sums of the shards add up to the whole Gram's), and the edge share
+// is left out (the caller adds the ARAP blocks once, after the psum).
+//
 // Design of O (entry dense_damp): one block sums the diagonal over the
 // active dofs in a fixed tree (reduce.cuh's order) and writes the floor;
 // then a block per row copies the matrix, adding (d + lambda d_eff) + unit
@@ -87,7 +94,7 @@ __global__ void __launch_bounds__(kGramThreads)
 dense_gram_kernel(const __nv_bfloat16* __restrict__ rows, int nrows, const int* __restrict__ knn,
                   const int* __restrict__ order, const int* __restrict__ off, const float* __restrict__ scale,
                   const float* __restrict__ h_ij, const float* __restrict__ diag, const int* __restrict__ e_dst,
-                  const int* __restrict__ e_order, const int* __restrict__ e_off, int ce, int n,
+                  const int* __restrict__ e_order, const int* __restrict__ e_off, int ce, int n, int with_edges,
                   float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   using Acc = typename std::conditional<kInt8, int, float>::type;
@@ -133,8 +140,8 @@ dense_gram_kernel(const __nv_bfloat16* __restrict__ rows, int nrows, const int* 
   // the edge share: out-edges n -> m put h_ij at (n, m), in-edges m -> n
   // put h_ijᵀ there, the diagonal block at (n, n); data + ((A + B) + D)
   const int o0 = node * ce;
-  const int i0 = e_off[node], i1 = e_off[node + 1];
-  const int items = (ce + (i1 - i0) + 1) * 36;
+  const int i0 = with_edges ? e_off[node] : 0, i1 = with_edges ? e_off[node + 1] : 0;
+  const int items = with_edges ? (ce + (i1 - i0) + 1) * 36 : 0;
   for (int t = threadIdx.x; t < items; t += blockDim.x) {
     const int slot = t / 36, ab = t % 36, ea = ab / 6, eb = ab % 6;
     int m;
@@ -235,11 +242,12 @@ extern "C" int df_gram_scales(const void* rows, int nrows, const void* order, co
 }
 
 // out (6N, 6N) float32: the data Gram (int8 with ``scale``, or bf16 when
-// int8 is 0) plus the edge blocks; ce = E / N out-edges a node
+// int8 is 0) plus, with with_edges, the edge blocks; ce = E / N out-edges a
+// node (the edge arguments are not read without with_edges)
 extern "C" int df_dense_gram(const void* rows, int nrows, const void* knn, const void* order, const void* off,
                              const void* scale, const void* h_ij, const void* diag, const void* e_dst,
-                             const void* e_order, const void* e_off, int ce, int n, int int8, void* out,
-                             void* stream) {
+                             const void* e_order, const void* e_off, int ce, int n, int int8, int with_edges,
+                             void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(36) * n * sizeof(float);
   auto* rw = static_cast<const __nv_bfloat16*>(rows);
@@ -258,12 +266,14 @@ extern "C" int df_dense_gram(const void* rows, int nrows, const void* knn, const
     err = cudaFuncSetAttribute(dense_gram_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dense_gram_kernel<true><<<n, kGramThreads, smem, s>>>(rw, nrows, kn, od, of, sc, h, dg, ed, eo, ef, ce, n, o);
+    dense_gram_kernel<true><<<n, kGramThreads, smem, s>>>(rw, nrows, kn, od, of, sc, h, dg, ed, eo, ef, ce, n,
+                                                          with_edges, o);
   } else {
     err = cudaFuncSetAttribute(dense_gram_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dense_gram_kernel<false><<<n, kGramThreads, smem, s>>>(rw, nrows, kn, od, of, sc, h, dg, ed, eo, ef, ce, n, o);
+    dense_gram_kernel<false><<<n, kGramThreads, smem, s>>>(rw, nrows, kn, od, of, sc, h, dg, ed, eo, ef, ce, n,
+                                                           with_edges, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,15 @@
 // into the incidence weight max(conf, floor) and the SDF scale
 // clip(conf, 0.25, 1). Without them the weight is 1 and the update is the
 // rigid one, bit for bit.
+//
+// Slab mode (the sharded fusion, dynamicfusion_tpu/parallel/
+// sharded_fusion.py:156-212): the volume is one shard's (D/n, D, D) x-slab,
+// the grid its (D/n / g + 1, G, G) corner slab and the work list holds
+// local brick ids ((bi nb) + bj) nb + bk with nb = D / b along y and z. A
+// voxel's address and its grid corners are computed from the local brick
+// id with the y and z strides of the whole volume (D, G), so the same code
+// serves a slab and the whole volume (n = 1); ``dx`` is checked against
+// the list and the ``ok`` flag is the sharded step's fusion gate.
 #include "common.cuh"
 
 namespace {
@@ -49,7 +58,7 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
                    const float* __restrict__ dists, const float* __restrict__ grid,
                    const int* __restrict__ ids, const int* __restrict__ kinds,
                    const int* __restrict__ count, const bool* __restrict__ ok,
-                   const int* __restrict__ u0s, const int* __restrict__ v0s, int d, int b,
+                   const int* __restrict__ u0s, const int* __restrict__ v0s, int dx, int d, int b,
                    int g, int rows, int cols, float fx, float fy, float cx, float cy, int rect,
                    float trunc, float max_w, float tsdf_decode, const float* __restrict__ qgrid,
                    float q_min, int packed, float inc_floor, int sdf_scale) {
@@ -58,6 +67,7 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
   const int kind = kinds[blockIdx.x];
   const int nb = d / b;
   const int bi = brick / (nb * nb), bj = (brick / nb) % nb, bk = brick % nb;
+  if ((bi + 1) * b > dx) return;  // not a brick of this slab
   const int gp = d / g + 1;     // grid points per axis
   const int per = b / g;        // grid cells per brick per axis
   const int u0 = u0s[brick], v0 = v0s[brick];
@@ -148,7 +158,7 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
 
 extern "C" int df_fuse_bricks(void* tsdf, void* weight, const void* dists, const void* grid,
                               const void* ids, const void* kinds, const void* count,
-                              const void* ok, const void* u0, const void* v0, int d, int b,
+                              const void* ok, const void* u0, const void* v0, int dx, int d, int b,
                               int g, int rows, int cols, int nbr, float fx, float fy, float cx,
                               float cy, int rect, float trunc, float max_w, float tsdf_decode,
                               const void* qgrid, float q_min, int packed, float inc_floor, int sdf_scale,
@@ -159,7 +169,7 @@ extern "C" int df_fuse_bricks(void* tsdf, void* weight, const void* dists, const
         static_cast<const float*>(dists), static_cast<const float*>(grid),
         static_cast<const int*>(ids), static_cast<const int*>(kinds),
         static_cast<const int*>(count), static_cast<const bool*>(ok),
-        static_cast<const int*>(u0), static_cast<const int*>(v0), d, b, g, rows, cols, fx, fy,
+        static_cast<const int*>(u0), static_cast<const int*>(v0), dx, d, b, g, rows, cols, fx, fy,
         cx, cy, rect, trunc, max_w, tsdf_decode, static_cast<const float*>(qgrid), q_min, packed, inc_floor,
         sdf_scale);
   }

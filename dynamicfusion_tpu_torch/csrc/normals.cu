@@ -57,7 +57,7 @@ extern "C" int df_extract_normals(const void* tsdf, int d, float decode_scale, c
   if (n == 0) return 0;
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
-  Vol vol{static_cast<const int16_t*>(tsdf), d, decode_scale};
+  Vol vol{static_cast<const int16_t*>(tsdf), d, decode_scale, 0, d};
   normals_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       vol, static_cast<const float*>(pts), n, ox, oy, oz, vs, delta, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -237,6 +237,88 @@ __device__ __forceinline__ int rows_in(const Sys& S, int pt) {
   else return pt % S.stride == 0 ? R : 1;
 }
 
+// t[q] = bf16(row q · bf16(p)) of (point, row) q = pt R + j, where the row
+// is in the matrix under the row mode
+template <int R, int M>
+__device__ __forceinline__ void row_t(const Sys& S, const float* __restrict__ p, float* __restrict__ t, int q) {
+  const int pt = q / R;
+  if constexpr (M == kStridedRows) {
+    if (q - pt * R >= rows_in<R, M>(S, pt)) return;
+  }
+  float acc = 0.0f;
+  for (int k = 0; k < kK; ++k) {
+    const int nd = S.idx[pt * kK + k];
+    const __nv_bfloat16* r = S.rows + (static_cast<size_t>(q) * kK + k) * 6;
+#pragma unroll
+    for (int d = 0; d < 6; ++d) acc += __bfloat162float(r[d]) * bf16r(p[6 * nd + d]);
+  }
+  t[q] = bf16r(acc);
+}
+
+// node nd's data product: its entries' rows times their points' t, in
+// list order
+template <int R, int M>
+__device__ __forceinline__ void node_data(const Sys& S, const float* __restrict__ t, int nd, float dat[6]) {
+#pragma unroll
+  for (int d = 0; d < 6; ++d) dat[d] = 0.0f;
+  for (int q = S.pt_off[nd]; q < S.pt_off[nd + 1]; ++q) {
+    const int ent = S.pt_order[q];
+    const int pt = ent / kK;
+    // row j of entry (pt, k) of the (P, R, K, 6) rows: ent + (pt (R - 1) + j) K
+    const size_t e0 = static_cast<size_t>(ent) + static_cast<size_t>(pt) * (R - 1) * kK;
+    // an entry's rows are summed first, as the plain version does
+    const int nrow = rows_in<R, M>(S, pt);
+    float s[6];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (M != kAllRows && j >= nrow) continue;
+      const float tv = t[pt * R + j];
+      const __nv_bfloat16* r = S.rows + (e0 + j * kK) * 6;
+#pragma unroll
+      for (int d = 0; d < 6; ++d) s[d] = j == 0 ? __bfloat162float(r[d]) * tv : s[d] + __bfloat162float(r[d]) * tv;
+    }
+#pragma unroll
+    for (int d = 0; d < 6; ++d) dat[d] += s[d];
+  }
+}
+
+// node nd's edge product: its source-side and destination-side blocks
+__device__ __forceinline__ void node_edge(const Sys& S, const float* __restrict__ p, int nd, const float pn[6],
+                                          float edg[6]) {
+#pragma unroll
+  for (int d = 0; d < 6; ++d) edg[d] = 0.0f;
+  for (int c = 0; c < S.kc; ++c) {  // source side: q_i = h_ii p_i + h_ij p_j
+    const int e = nd * S.kc + c;
+    const int j = S.e_dst[e];
+    const float* hii = S.h_ii + 36 * static_cast<size_t>(e);
+    const float* hij = S.h_ij + 36 * static_cast<size_t>(e);
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      float s = 0.0f;
+#pragma unroll
+      for (int b = 0; b < 6; ++b) s += hii[6 * a + b] * pn[b];
+#pragma unroll
+      for (int b = 0; b < 6; ++b) s += hij[6 * a + b] * p[6 * j + b];
+      edg[a] += s;
+    }
+  }
+  for (int q = S.e_off[nd]; q < S.e_off[nd + 1]; ++q) {  // dst side: q_j = h_ijᵀ p_i + h_jj p_j
+    const int e = S.e_order[q];
+    const int i = e / S.kc;
+    const float* hjj = S.h_jj + 36 * static_cast<size_t>(e);
+    const float* hij = S.h_ij + 36 * static_cast<size_t>(e);
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      float s = 0.0f;
+#pragma unroll
+      for (int b = 0; b < 6; ++b) s += hij[6 * b + a] * p[6 * i + b];
+#pragma unroll
+      for (int b = 0; b < 6; ++b) s += hjj[6 * a + b] * pn[b];
+      edg[a] += s;
+    }
+  }
+}
+
 // ap = A p for the whole block, R residual rows a point; t is (P R,)
 // scratch, one entry per (point, row). Ends synchronized.
 template <int R, int M>
@@ -244,80 +326,66 @@ __device__ void block_matvec(const Sys& S, const float* __restrict__ p, float* _
                              float* __restrict__ t) {
   // (point, row) pairs; the plane-rows mode walks the points' plane rows only
   const int nq = M == kPlaneRows ? S.np : S.np * R;
-  for (int i = threadIdx.x; i < nq; i += blockDim.x) {
-    const int q = M == kPlaneRows ? i * R : i;
-    const int pt = q / R;
-    if constexpr (M == kStridedRows) {
-      if (q - pt * R >= rows_in<R, M>(S, pt)) continue;
-    }
-    float acc = 0.0f;
-    for (int k = 0; k < kK; ++k) {
-      const int nd = S.idx[pt * kK + k];
-      const __nv_bfloat16* r = S.rows + (static_cast<size_t>(q) * kK + k) * 6;
-#pragma unroll
-      for (int d = 0; d < 6; ++d) acc += __bfloat162float(r[d]) * bf16r(p[6 * nd + d]);
-    }
-    t[q] = bf16r(acc);
-  }
+  for (int i = threadIdx.x; i < nq; i += blockDim.x) row_t<R, M>(S, p, t, M == kPlaneRows ? i * R : i);
   __syncthreads();
   for (int nd = threadIdx.x; nd < S.n; nd += blockDim.x) {
-    float dat[6] = {0, 0, 0, 0, 0, 0}, edg[6] = {0, 0, 0, 0, 0, 0};
-    for (int q = S.pt_off[nd]; q < S.pt_off[nd + 1]; ++q) {
-      const int ent = S.pt_order[q];
-      const int pt = ent / kK;
-      // row j of entry (pt, k) of the (P, R, K, 6) rows: ent + (pt (R - 1) + j) K
-      const size_t e0 = static_cast<size_t>(ent) + static_cast<size_t>(pt) * (R - 1) * kK;
-      // an entry's rows are summed first, as the plain version does
-      const int nrow = rows_in<R, M>(S, pt);
-      float s[6];
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (M != kAllRows && j >= nrow) continue;
-        const float tv = t[pt * R + j];
-        const __nv_bfloat16* r = S.rows + (e0 + j * kK) * 6;
-#pragma unroll
-        for (int d = 0; d < 6; ++d) s[d] = j == 0 ? __bfloat162float(r[d]) * tv : s[d] + __bfloat162float(r[d]) * tv;
-      }
-#pragma unroll
-      for (int d = 0; d < 6; ++d) dat[d] += s[d];
-    }
-    float pn[6];
+    float dat[6], edg[6], pn[6];
+    node_data<R, M>(S, t, nd, dat);
 #pragma unroll
     for (int d = 0; d < 6; ++d) pn[d] = p[6 * nd + d];
-    for (int c = 0; c < S.kc; ++c) {  // source side: q_i = h_ii p_i + h_ij p_j
-      const int e = nd * S.kc + c;
-      const int j = S.e_dst[e];
-      const float* hii = S.h_ii + 36 * static_cast<size_t>(e);
-      const float* hij = S.h_ij + 36 * static_cast<size_t>(e);
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        float s = 0.0f;
-#pragma unroll
-        for (int b = 0; b < 6; ++b) s += hii[6 * a + b] * pn[b];
-#pragma unroll
-        for (int b = 0; b < 6; ++b) s += hij[6 * a + b] * p[6 * j + b];
-        edg[a] += s;
-      }
-    }
-    for (int q = S.e_off[nd]; q < S.e_off[nd + 1]; ++q) {  // dst side: q_j = h_ijᵀ p_i + h_jj p_j
-      const int e = S.e_order[q];
-      const int i = e / S.kc;
-      const float* hjj = S.h_jj + 36 * static_cast<size_t>(e);
-      const float* hij = S.h_ij + 36 * static_cast<size_t>(e);
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        float s = 0.0f;
-#pragma unroll
-        for (int b = 0; b < 6; ++b) s += hij[6 * b + a] * p[6 * i + b];
-#pragma unroll
-        for (int b = 0; b < 6; ++b) s += hjj[6 * a + b] * pn[b];
-        edg[a] += s;
-      }
-    }
+    node_edge(S, p, nd, pn, edg);
 #pragma unroll
     for (int d = 0; d < 6; ++d) ap[6 * nd + d] = (dat[d] + edg[d]) + S.damp[6 * nd + d] * pn[d];
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------- the distributed PCG
+//
+// dynamicfusion_tpu/solvers/warp_solver.py:1228-1240 under axis_name: each
+// shard's matvec is its own points' data product only (psum'd across the
+// shards by the caller), then the edge blocks and the damping are applied
+// once to the sum, and the PCG update runs on it (kernel P's init and
+// update entries, csrc/dense_pcg.cu, whose loop state carries the stop
+// flag in device memory; every launch here reads it first and returns once
+// the loop is done).
+
+using LoopState = dfk::PcgState;  // kernel P's loop state
+
+template <int R, int M>
+__global__ void __launch_bounds__(kThreads)
+data_rows_kernel(Sys S, const float* __restrict__ p, float* __restrict__ t, const LoopState* __restrict__ st) {
+  if (st != nullptr && st->done) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nq = M == kPlaneRows ? S.np : S.np * R;
+  if (i < nq) row_t<R, M>(S, p, t, M == kPlaneRows ? i * R : i);
+}
+
+template <int R, int M>
+__global__ void __launch_bounds__(kThreads)
+data_nodes_kernel(Sys S, const float* __restrict__ t, float* __restrict__ ap, const LoopState* __restrict__ st) {
+  if (st != nullptr && st->done) return;
+  const int nd = blockIdx.x * blockDim.x + threadIdx.x;
+  if (nd >= S.n) return;
+  float dat[6];
+  node_data<R, M>(S, t, nd, dat);
+#pragma unroll
+  for (int d = 0; d < 6; ++d) ap[6 * nd + d] = dat[d];
+}
+
+// ap = (apd + edge blocks p) + damp p, the matvec's sum order
+__global__ void __launch_bounds__(kThreads)
+edge_apply_kernel(Sys S, const float* __restrict__ p, const float* __restrict__ apd, float* __restrict__ ap,
+                  const LoopState* __restrict__ st) {
+  if (st != nullptr && st->done) return;
+  const int nd = blockIdx.x * blockDim.x + threadIdx.x;
+  if (nd >= S.n) return;
+  float edg[6], pn[6];
+#pragma unroll
+  for (int d = 0; d < 6; ++d) pn[d] = p[6 * nd + d];
+  node_edge(S, p, nd, pn, edg);
+#pragma unroll
+  for (int d = 0; d < 6; ++d) ap[6 * nd + d] = (apd[6 * nd + d] + edg[d]) + S.damp[6 * nd + d] * pn[d];
 }
 
 // sum over the thread's nodes of a·b
@@ -499,5 +567,59 @@ extern "C" int df_pcg(const void* rows, const void* idx, const void* pt_order, c
   } else {
     pcg_kernel<3, kStridedRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the data-only matvec of one shard's rows: ap = rowsᵀ bf16(rows bf16(p)),
+// no edge blocks, no damping; t (P R,) scratch; st (kernel P's loop state)
+// may be null, else a done loop makes both launches return at once
+extern "C" int df_data_matvec(const void* rows, const void* idx, const void* pt_order, const void* pt_off, int np,
+                              int n, int nrows, int used, int stride, const void* p, void* ap, void* t,
+                              const void* st, void* stream) {
+  const int mode = row_mode(nrows, used, stride);
+  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Sys S = make_sys(rows, idx, pt_order, pt_off, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         np, n, 1, stride);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pp = static_cast<const float*>(p);
+  float* a = static_cast<float*>(ap);
+  float* tt = static_cast<float*>(t);
+  const LoopState* ls = static_cast<const LoopState*>(st);
+  const int nq = (mode == kPlaneRows ? np : np * nrows);
+  const int gq = (nq + kThreads - 1) / kThreads, gn = (n + kThreads - 1) / kThreads;
+  if (gq > 0) {
+    if (nrows == 1) {
+      data_rows_kernel<1, kAllRows><<<gq, kThreads, 0, s>>>(S, pp, tt, ls);
+    } else if (mode == kAllRows) {
+      data_rows_kernel<3, kAllRows><<<gq, kThreads, 0, s>>>(S, pp, tt, ls);
+    } else if (mode == kPlaneRows) {
+      data_rows_kernel<3, kPlaneRows><<<gq, kThreads, 0, s>>>(S, pp, tt, ls);
+    } else {
+      data_rows_kernel<3, kStridedRows><<<gq, kThreads, 0, s>>>(S, pp, tt, ls);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (nrows == 1) {
+    data_nodes_kernel<1, kAllRows><<<gn, kThreads, 0, s>>>(S, tt, a, ls);
+  } else if (mode == kAllRows) {
+    data_nodes_kernel<3, kAllRows><<<gn, kThreads, 0, s>>>(S, tt, a, ls);
+  } else if (mode == kPlaneRows) {
+    data_nodes_kernel<3, kPlaneRows><<<gn, kThreads, 0, s>>>(S, tt, a, ls);
+  } else {
+    data_nodes_kernel<3, kStridedRows><<<gn, kThreads, 0, s>>>(S, tt, a, ls);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ap = (apd + edge blocks p) + damp p for the distributed PCG's step
+extern "C" int df_edge_apply(const void* h_ii, const void* h_jj, const void* h_ij, const void* e_dst,
+                             const void* e_order, const void* e_off, const void* damp, int n, int kc, const void* p,
+                             const void* apd, void* ap, const void* st, void* stream) {
+  const Sys S = make_sys(nullptr, nullptr, nullptr, nullptr, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, 0, n, kc,
+                         1);
+  edge_apply_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      S, static_cast<const float*>(p), static_cast<const float*>(apd), static_cast<float*>(ap),
+      static_cast<const LoopState*>(st));
   return static_cast<int>(cudaGetLastError());
 }

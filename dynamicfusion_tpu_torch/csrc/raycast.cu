@@ -38,6 +38,19 @@
 // the loop compiles as before. With the six-sample normal the normal is
 // taken at the final vertex, and the secant refine keeps its secant point
 // (no polish), as in JAX.
+//
+// Slab mode (the sharded raycast, dynamicfusion_tpu/parallel/
+// sharded_raycast.py:57-127 and :176-260, with the core's extra outputs of
+// ops/tsdf.py:386-470): the volume is one shard's extended x-slab (its
+// D/n planes and a halo each side, the first plane the global plane
+// x_off), every fetch clipped globally first and then into the slab
+// (dfk::Vol); the march is fixed-step inside each ray's slab window
+// (tmin/tmax, snapped to the global step grid by the caller), and the
+// kernel also writes the refined ray distance ts (NaN where nothing was
+// found) and the bracket start of the first exit-geometry event t_behind
+// (+inf where none), which decide which shard owns a crossing. The work is
+// the whole-volume march's, cut into n windows: each shard's launch reads
+// only its slab, about 1/n of each ray's samples.
 #include "volume.cuh"
 
 namespace {
@@ -49,7 +62,8 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
                                const float* __restrict__ tmax_p, int n, float inv_vs, float step,
                                int max_steps, int adaptive, int refine, int smooth, float delta,
                                bool* __restrict__ found_out, float* __restrict__ vertex_out,
-                               float* __restrict__ normal_out) {
+                               float* __restrict__ normal_out, float* __restrict__ ts_out,
+                               float* __restrict__ behind_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const float ox = org_p[0], oy = org_p[1], oz = org_p[2];
@@ -60,6 +74,7 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
   bool found = false;
   float t_hit = 0.0f, dt_hit = step;
   float f0 = 1.0f, f1 = -1.0f;  // nearest-fetched bracket values
+  float t_behind = __int_as_float(0x7f800000);
   float prev = vol.nearest((ox + dx * t) * inv_vs, (oy + dy * t) * inv_vs, (oz + dz * t) * inv_vs);
   for (int i = 0; i < max_steps && !done; ++i) {
     if (!(t < tmax)) break;  // the JAX `active` test (only NaN bounds reach it)
@@ -76,15 +91,18 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
       f0 = prev;
       f1 = next;
     }
+    if (behind) t_behind = t;
     t = tn;
     prev = next;
     done = crossing || behind || tn >= tmax;
   }
   found_out[r] = found;
+  if (behind_out != nullptr) behind_out[r] = t_behind;
   if (!found) {
     const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
     for (int a = 0; a < 3; ++a) vertex_out[3 * r + a] = normal_out[3 * r + a] = nan;
+    if (ts_out != nullptr) ts_out[r] = nan;
     return;
   }
   float ts;
@@ -144,6 +162,7 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
       if (isfinite(ts2) && fabsf(ts2 - ts) < dt_hit && !isnan(fv)) ts = ts2;
     }
   }
+  if (ts_out != nullptr) ts_out[r] = ts;
   const float vx = ox + dx * ts, vy = oy + dy * ts, vz = oz + dz * ts;
   if (smooth) vol.grad6(vx * inv_vs, vy * inv_vs, vz * inv_vs, delta, grad);
   vertex_out[3 * r] = vx;
@@ -156,11 +175,14 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
 
 }  // namespace
 
-extern "C" int df_raycast(const void* tsdf, int d, const void* ray_org, const void* dirs,
+// tsdf holds dx planes of d x d codes from the global plane x_off (the
+// whole volume: x_off 0, dx d); ts and t_behind may be null
+extern "C" int df_raycast(const void* tsdf, int d, int x_off, int dx, const void* ray_org, const void* dirs,
                           const void* tmin, const void* tmax, int n, float inv_vs, float step,
                           int max_steps, int adaptive, int refine, int smooth, float delta,
-                          float decode_scale, void* found, void* vertex, void* normal, void* stream) {
-  Vol vol{static_cast<const int16_t*>(tsdf), d, decode_scale};
+                          float decode_scale, void* found, void* vertex, void* normal, void* ts,
+                          void* t_behind, void* stream) {
+  Vol vol{static_cast<const int16_t*>(tsdf), d, decode_scale, x_off, dx};
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   if (blocks > 0) {
@@ -168,7 +190,8 @@ extern "C" int df_raycast(const void* tsdf, int d, const void* ray_org, const vo
         vol, static_cast<const float*>(ray_org), static_cast<const float*>(dirs),
         static_cast<const float*>(tmin), static_cast<const float*>(tmax), n, inv_vs, step,
         max_steps, adaptive, refine, smooth, delta, static_cast<bool*>(found),
-        static_cast<float*>(vertex), static_cast<float*>(normal));
+        static_cast<float*>(vertex), static_cast<float*>(normal), static_cast<float*>(ts),
+        static_cast<float*>(t_behind));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,13 +11,23 @@
 
 namespace dfk {
 
+// The volume, or an x-slab of it (kernel C's slab mode, the sharded
+// raycast's extended slab of dynamicfusion_tpu/parallel/sharded_raycast.py:57):
+// v holds dx planes of D x D codes, its first plane the global x-plane
+// x_off. Every sampler clips its indices on the global [0, d-1] (or the
+// cell origin on [0, d-2]) first, as on the whole volume, and only then
+// the x index into the slab; the whole volume is x_off = 0, dx = d, where
+// that second clip changes nothing.
 struct Vol {
   const int16_t* __restrict__ v;
   int d;
   float sc;  // decode scale, float32(1/32767)
+  int x_off;
+  int dx;
 
   __device__ __forceinline__ float code(int x, int y, int z) const {
-    return static_cast<float>(__ldg(v + (static_cast<size_t>(x) * d + y) * d + z));
+    const int xs = min(max(x - x_off, 0), dx - 1);
+    return static_cast<float>(__ldg(v + (static_cast<size_t>(xs) * d + y) * d + z));
   }
 
   __device__ __forceinline__ float nearest(float px, float py, float pz) const {

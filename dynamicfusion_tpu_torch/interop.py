@@ -1,7 +1,9 @@
 """State conversion between numpy and the port: the JAX package's
 ``PipelineState`` (converted to numpy arrays, as a nested NamedTuple, tuple
 or dict in its field order) becomes the port's state and back, with
-identical dtypes. Tests start both packages from the same state with it."""
+identical dtypes. Tests start both packages from the same state with it. A
+sharded state (``parallel``) is gathered on the way out and split on the
+way in, given its mesh."""
 
 from __future__ import annotations
 
@@ -27,8 +29,14 @@ def _t(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
-def state_from_numpy(d: Any, device="cuda") -> PipelineState:
-    """JAX ``PipelineState`` as numpy -> the port's state on ``device``."""
+def state_from_numpy(d: Any, device="cuda", mesh=None, cfg=None) -> PipelineState:
+    """JAX ``PipelineState`` as numpy -> the port's state on ``device``, or
+    with ``mesh`` (and the ``cfg``) laid out over it (``parallel.sharded.
+    shard_state``)."""
+    if mesh is not None:
+        from dynamicfusion_tpu_torch.parallel import sharded
+
+        return sharded.shard_state(cfg, mesh, state_from_numpy(d, mesh.device))
     dev = device_mod.resolve(device)
     s = _fields(d, PipelineState._fields)
     vol = _fields(s["vol"], TsdfVolume._fields)
@@ -45,13 +53,19 @@ def state_from_numpy(d: Any, device="cuda") -> PipelineState:
     )
 
 
-def state_to_numpy(state: PipelineState) -> Dict[str, Any]:
+def state_to_numpy(state: PipelineState, mesh=None) -> Dict[str, Any]:
     """The port's state -> nested dict of numpy arrays in the JAX field
     layout (vol and warp as dicts, map pyramids as tuples). The arrays are
-    copies: the port updates its volume in place."""
+    copies: the port updates its volume in place. A sharded state's volume
+    is gathered over its ``mesh``."""
 
     def n(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().numpy().copy()
+
+    if not isinstance(state.vol, TsdfVolume):
+        if mesh is None:
+            raise ValueError("state_to_numpy: a sharded state needs its mesh")
+        state = state._replace(vol=mesh.whole(state.vol))
 
     return {
         "vol": {k: n(v) for k, v in state.vol._asdict().items()},

@@ -53,7 +53,8 @@ NVCC_FLAGS = (
 # the aperture gate, N and O the dense normal equations and their damping
 # of the direct solve, P the dense-matrix PCG, Q the net rigid removal,
 # F1 and F2 the dense rigid and non-rigid fusion, R the extracted point
-# list's normals);
+# list's normals; the sharded step's distributed PCG: G's data-only matvec
+# of a shard and its per-iteration step, with P's init and update);
 # ``cholesky`` counts the direct solve's factor, a cuSOLVER call, as the
 # JAX package's is its library's
 KERNELS = (
@@ -63,6 +64,7 @@ KERNELS = (
     "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "coarse_band", "brick_plan",
     "extract_cloud", "sample_nodes", "p2p_gate", "gram_scales", "dense_gram", "dense_damp", "cholesky",
     "node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid", "extract_normals",
+    "data_matvec", "pcg_init", "pcg_step",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -76,10 +78,10 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "df_bilateral": (_P, _P, _I, _I, _I, _D, _F, _P),
     "df_icp_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
-    "df_raycast": (_P, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P),
+    "df_raycast": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
     "df_fuse_bricks": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
     ),
     "df_knn_blend": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
@@ -101,14 +103,18 @@ _SIGNATURES = {
     "df_march_bands": (_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P),
     "df_coarse_band": (_P, _I, _I, _I, _F, _P, _P, _P),
     "df_brick_plan": (
-        _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+        _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     "df_extract_cloud": (_P, _P, _I, _F, _F, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P, _P),
     "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
     "df_p2p_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
     "df_gram_scales": (_P, _I, _P, _P, _I, _P, _P),
-    "df_dense_gram": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "df_dense_gram": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "df_data_matvec": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "df_edge_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "df_pcg_init": (_P, _P, _I, _I, _F, _P, _P, _P, _P),
+    "df_pcg_update": (_P, _I, _P, _P, _P),
     "df_dense_damp": (_P, _P, _P, _I, _F, _P, _P, _P),
     "df_node_radius": (_P, _P, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "df_dense_pcg": (_P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
@@ -326,15 +332,28 @@ def march_and_refine(
     smooth: bool = False,
     *,
     delta: float,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    x_off: Optional[int] = None,
+    d: Optional[int] = None,
+):
     """Kernel C (csrc/raycast.cu): per-ray march + refine on an int16
     volume, ``refine`` 0 = secant + Newton polish, 1 = newton8, 2 =
     newton16, 3 = hybrid16; ``smooth`` takes the normal as the six-sample
     central difference at +-``delta`` voxels. Returns (found, vertex_vol,
-    normal_vol); rays that found nothing carry NaN vertex and normal."""
+    normal_vol); rays that found nothing carry NaN vertex and normal.
+
+    Slab mode (``x_off`` and ``d`` given): ``tsdf`` is a (dx, d, d) x-slab
+    of the (d, d, d) volume whose first plane is the global plane ``x_off``;
+    returns (found, ts, vertex_vol, normal_vol, t_behind), ts NaN where
+    nothing was found, t_behind +inf where no exit event was met."""
     if refine not in (0, 1, 2, 3):
         raise ValueError(f"refine: expected 0 (secant), 1 (newton8), 2 (newton16) or 3 (hybrid16), got {refine}")
-    if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1:
+    slab = x_off is not None
+    if slab != (d is not None):
+        raise ValueError("slab mode needs both x_off and d")
+    if slab:
+        if tsdf.dim() != 3 or tsdf.shape[1:] != (d, d) or tsdf.shape[0] < 1:
+            raise ValueError(f"tsdf: expected a (dx, {d}, {d}) slab, got {tuple(tsdf.shape)}")
+    elif tsdf.dim() != 3 or len(set(tsdf.shape)) != 1:
         raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
     _check(tsdf, "tsdf", torch.int16)
     _check(ray_org, "ray_org", torch.float32, (3,))
@@ -349,14 +368,18 @@ def march_and_refine(
     found = torch.empty(dirs.shape[:-1], dtype=torch.bool, device=dev)
     vertex = torch.empty(dirs.shape, dtype=torch.float32, device=dev)
     normal = torch.empty(dirs.shape, dtype=torch.float32, device=dev)
+    ts = torch.empty(dirs.shape[:-1], dtype=torch.float32, device=dev) if slab else None
+    t_behind = torch.empty_like(ts) if slab else None
     rc = lib.df_raycast(
-        tsdf.data_ptr(), tsdf.shape[0], ray_org.data_ptr(), dirs.data_ptr(),
+        tsdf.data_ptr(), tsdf.shape[1], x_off or 0, tsdf.shape[0], ray_org.data_ptr(), dirs.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), tmin.numel(),
         _f32(1.0 / voxel_size), _f32(step), max_steps, int(adaptive), refine, int(smooth), _f32(delta),
         _f32(1.0 / 32767.0), found.data_ptr(), vertex.data_ptr(), normal.data_ptr(),
-        _stream(dev),
+        ts.data_ptr() if slab else None, t_behind.data_ptr() if slab else None, _stream(dev),
     )
     _done("raycast", rc)
+    if slab:
+        return found, ts, vertex, normal, t_behind
     return found, vertex, normal
 
 
@@ -487,18 +510,21 @@ def fuse_bricks(
     slot; slots at or past ``count[0]`` and every slot when ``ok`` is False
     do nothing. ``dists`` is the depth image, or with ``packed`` the packed
     depth+confidence image; ``q_grid`` the optional (G, G, G) observation
-    weight prolonged with the grid."""
-    d = tsdf.shape[0]
-    if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1 or d % brick or brick % stride:
+    weight prolonged with the grid. Slab mode: ``tsdf`` and ``weight`` a
+    (dx, D, D) x-slab, ``cam_grid`` and ``q_grid`` its (dx / stride + 1, G,
+    G) corner slab, the list's ids local to the slab."""
+    dx, d = tsdf.shape[0], tsdf.shape[-1]
+    if tsdf.dim() != 3 or tsdf.shape[1] != d or d % brick or dx % brick or brick % stride:
         raise ValueError(f"tsdf: bad volume {tuple(tsdf.shape)} for brick {brick}, stride {stride}")
-    nbr = (d // brick) ** 3
+    nbr = (dx // brick) * (d // brick) ** 2
     gp = d // stride + 1
+    gx = dx // stride + 1
     _check(tsdf, "tsdf", torch.int16)
     _check(weight, "weight", torch.uint16, tsdf.shape)
     _check(dists, "dists", torch.float32)
     if dists.dim() != 2:
         raise ValueError(f"dists: expected (H, W), got {tuple(dists.shape)}")
-    _check(cam_grid, "cam_grid", torch.float32, (gp, gp, gp, 3))
+    _check(cam_grid, "cam_grid", torch.float32, (gx, gp, gp, 3))
     _check(ids, "ids", torch.int32, (nbr,))
     _check(kind, "kind", torch.int32, (nbr,))
     _check(count, "count", torch.int32, (1,))
@@ -507,7 +533,7 @@ def fuse_bricks(
     _check(v0, "v0", torch.int32, (nbr,))
     _same_device(tsdf, weight, dists, cam_grid, ids, kind, count, ok, u0, v0)
     if q_grid is not None:
-        _check(q_grid, "q_grid", torch.float32, (gp, gp, gp))
+        _check(q_grid, "q_grid", torch.float32, (gx, gp, gp))
         _same_device(tsdf, q_grid)
     lib = load()
     rows, cols = dists.shape
@@ -515,7 +541,7 @@ def fuse_bricks(
         tsdf.data_ptr(), weight.data_ptr(), dists.data_ptr(), cam_grid.data_ptr(),
         ids.data_ptr(), kind.data_ptr(), count.data_ptr(), ok.data_ptr(),
         u0.data_ptr(), v0.data_ptr(),
-        d, brick, stride, rows, cols, nbr,
+        dx, d, brick, stride, rows, cols, nbr,
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), rect,
         _f32(trunc), _f32(max_weight), _f32(1.0 / 32767.0),
         None if q_grid is None else q_grid.data_ptr(), _f32(q_min), int(packed), _f32(incidence_floor),
@@ -851,6 +877,96 @@ def pcg(s: FactoredSystem, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol
     return x
 
 
+def data_matvec(rows: torch.Tensor, knn_idx: torch.Tensor, order: torch.Tensor, off: torch.Tensor, p: torch.Tensor,
+                used: Optional[int] = None, stride: int = 1, state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel G's shard entry (csrc/pcg.cu, two launches: a thread per
+    (point, row), a thread per node): one shard's data product rowsᵀ
+    bf16(rows bf16(p)) in the matvec's rounding and sum order, no edge
+    blocks, no damping; the row mode as ``matvec``'s. ``state`` (the loop
+    state of ``pcg_sharded_init``'s work) makes a finished loop's launches
+    return at once (the output then keeps what it held)."""
+    _check(rows, "rows", torch.bfloat16)
+    if rows.dim() != 4 or rows.shape[1] not in (1, 3) or rows.shape[2:] != (8, 6):
+        raise ValueError(f"rows: expected (P, 1 or 3, 8, 6), got {tuple(rows.shape)}")
+    np_, nr = rows.shape[:2]
+    n = off.shape[0] - 1
+    _check(knn_idx, "knn_idx", torch.int64, (np_, 8))
+    _check_lists(order, off, np_ * 8, n)
+    _check(p, "p", torch.float32, (6 * n,))
+    mode = _row_mode(nr, used, stride)
+    _same_device(rows, knn_idx, order, off, p)
+    if state is not None:
+        _check(state, "state", torch.float32, (3,))
+        _same_device(p, state)
+    lib = load()
+    idx32 = knn_idx.to(torch.int32)
+    ap = torch.empty_like(p)
+    t = torch.empty((max(np_ * nr, 1),), dtype=torch.float32, device=p.device)
+    rc = lib.df_data_matvec(
+        rows.data_ptr(), idx32.data_ptr(), order.data_ptr(), off.data_ptr(), np_, n, nr, *mode, p.data_ptr(),
+        ap.data_ptr(), t.data_ptr(), None if state is None else state.data_ptr(), _stream(p.device),
+    )
+    _done("data_matvec", rc)
+    return ap
+
+
+def pcg_sharded_init(minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float, active: torch.Tensor):
+    """The distributed PCG's start (kernel P's init, csrc/dense_pcg.cu): x
+    = 0, r = b, z = p = M b and the loop state. Returns (x, work): work
+    holds r, z, p, Ap (6N each) and the state (rz, rtol² bᵀb, done) as its
+    last three words; ``work[2 * 6N: 3 * 6N]`` is the direction p."""
+    _check(b, "b", torch.float32)
+    dof = b.shape[0]
+    if b.dim() != 1 or dof % 6:
+        raise ValueError(f"b: expected (6N,), got {tuple(b.shape)}")
+    _check(minv, "minv", torch.float32, (dof // 6, 6, 6))
+    _check(active, "active", torch.bool, ())
+    _same_device(minv, b, active)
+    lib = load()
+    x = torch.empty_like(b)
+    work = torch.empty((4 * dof + 3,), dtype=torch.float32, device=b.device)
+    rc = lib.df_pcg_init(minv.data_ptr(), b.data_ptr(), dof // 6, iters, _f32(rtol * rtol), active.data_ptr(),
+                         x.data_ptr(), work.data_ptr(), _stream(b.device))
+    _done("pcg_init", rc)
+    return x, work
+
+
+def pcg_sharded_step(s: FactoredSystem, minv: torch.Tensor, apd: torch.Tensor, x: torch.Tensor,
+                     work: torch.Tensor) -> None:
+    """One iteration of the distributed PCG, in place on ``x`` and ``work``
+    (two launches): kernel G's ``Ap = (apd + edge blocks p) + damp p``
+    from the psum'd data product ``apd`` (csrc/pcg.cu, a thread per node),
+    then kernel P's one-block update of x, r, z, p and the loop state;
+    both return at once when the loop is done. ``s``'s data fields are not
+    read."""
+    n = s.damp.shape[0] // 6
+    dof = 6 * n
+    ne = s.e_dst.shape[0]
+    for t, nm in ((s.h_ii, "h_ii"), (s.h_jj, "h_jj"), (s.h_ij, "h_ij")):
+        _check(t, nm, torch.float32, (ne, 6, 6))
+    _check(s.e_dst, "e_dst", torch.int64, (ne,))
+    _check_lists(s.e_order, s.e_off, ne, n)
+    _check(s.damp, "damp", torch.float32, (dof,))
+    if ne % n:
+        raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
+    _check(minv, "minv", torch.float32, (n, 6, 6))
+    _check(apd, "apd", torch.float32, (dof,))
+    _check(x, "x", torch.float32, (dof,))
+    _check(work, "work", torch.float32, (4 * dof + 3,))
+    _same_device(s.h_ii, s.h_jj, s.h_ij, s.e_dst, s.e_order, s.e_off, s.damp, minv, apd, x, work)
+    lib = load()
+    dst32 = s.e_dst.to(torch.int32)
+    st = work[4 * dof:]
+    rc = lib.df_edge_apply(
+        s.h_ii.data_ptr(), s.h_jj.data_ptr(), s.h_ij.data_ptr(), dst32.data_ptr(), s.e_order.data_ptr(),
+        s.e_off.data_ptr(), s.damp.data_ptr(), n, ne // n, work[2 * dof:].data_ptr(), apd.data_ptr(),
+        work[3 * dof:].data_ptr(), st.data_ptr(), _stream(x.device),
+    )
+    if rc == 0:
+        rc = lib.df_pcg_update(minv.data_ptr(), n, x.data_ptr(), work.data_ptr(), _stream(x.device))
+    _done("pcg_step", rc)
+
+
 # --------------------------------------------------------------------------
 # kernels N and O: the dense normal equations and their damping; the factor
 # --------------------------------------------------------------------------
@@ -874,42 +990,60 @@ def gram_scales(rows: torch.Tensor, order: torch.Tensor, off: torch.Tensor) -> t
     return scale
 
 
-def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int8: bool) -> torch.Tensor:
+def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int8: bool,
+               scale: Optional[torch.Tensor] = None, edges: bool = True) -> torch.Tensor:
     """Kernel N (csrc/dense_system.cu): the dense (6N, 6N) float32 normal
     equations, the data Gram of the bf16 rows (int8 with ``gram_scales``'
     column scales and exact int32 sums, or the bf16 rows' float32 sums in
     each node's entry order) plus the ARAP blocks ``h_ij`` (E, 6, 6) placed
     at (src, dst) and transposed at (dst, src) and the diagonal blocks
-    ``diag`` (N, 6, 6). Edge e's source node must be e // (E / N)."""
+    ``diag`` (N, 6, 6). Edge e's source node must be e // (E / N).
+
+    Shard mode: ``scale`` the (6N,) column scales to quantize with (the
+    pmax of the shards' ``gram_scales``) and ``edges=False`` the data Gram
+    alone (the edge arguments may be None then)."""
     _check(rows, "rows", torch.bfloat16)
     if rows.dim() != 4 or rows.shape[1] not in (1, 3) or rows.shape[2:] != (8, 6):
         raise ValueError(f"rows: expected (P, 1 or 3, 8, 6), got {tuple(rows.shape)}")
     np_ = rows.shape[0]
-    _check(diag, "diag", torch.float32)
-    n = diag.shape[0]
-    if diag.shape != (n, 6, 6):
-        raise ValueError(f"diag: expected (N, 6, 6), got {tuple(diag.shape)}")
-    ne = e_dst.shape[0]
-    if ne % n:
-        raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
+    n = off.shape[0] - 1
     _check(knn_idx, "knn_idx", torch.int64, (np_, 8))
     _check_lists(order, off, np_ * 8, n)
-    _check(h_ij, "h_ij", torch.float32, (ne, 6, 6))
-    _check(e_dst, "e_dst", torch.int64, (ne,))
-    _check_lists(e_order, e_off, ne, n)
-    _same_device(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off)
+    _same_device(rows, knn_idx, order, off)
+    if edges:
+        _check(diag, "diag", torch.float32, (n, 6, 6))
+        ne = e_dst.shape[0]
+        if ne % n:
+            raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
+        _check(h_ij, "h_ij", torch.float32, (ne, 6, 6))
+        _check(e_dst, "e_dst", torch.int64, (ne,))
+        _check_lists(e_order, e_off, ne, n)
+        _same_device(rows, h_ij, diag, e_dst, e_order, e_off)
     smem = 36 * n * 4
     if smem > 232448:
         raise ValueError(f"dense_gram: {n} nodes need {smem} bytes of shared memory a block, past the 232 448")
-    scale = gram_scales(rows, order, off) if int8 else torch.empty((1,), dtype=torch.float32, device=rows.device)
+    if scale is not None:
+        if not int8:
+            raise ValueError("dense_gram: column scales are for the int8 Gram")
+        _check(scale, "scale", torch.float32, (6 * n,))
+        _same_device(rows, scale)
+    elif int8:
+        scale = gram_scales(rows, order, off)
+    else:
+        scale = torch.empty((1,), dtype=torch.float32, device=rows.device)
     lib = load()
     knn32 = knn_idx.to(torch.int32)
-    dst32 = e_dst.to(torch.int32)
+    dst32 = e_dst.to(torch.int32) if edges else None
     out = torch.empty((6 * n, 6 * n), dtype=torch.float32, device=rows.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rc = lib.df_dense_gram(
         rows.data_ptr(), rows.shape[1], knn32.data_ptr(), order.data_ptr(), off.data_ptr(), scale.data_ptr(),
-        h_ij.data_ptr(), diag.data_ptr(), dst32.data_ptr(), e_order.data_ptr(), e_off.data_ptr(), ne // n, n,
-        int(int8), out.data_ptr(), _stream(rows.device),
+        ptr(h_ij) if edges else None, ptr(diag) if edges else None, ptr(dst32), ptr(e_order) if edges else None,
+        ptr(e_off) if edges else None, e_dst.shape[0] // n if edges else 1, n, int(int8), int(edges), out.data_ptr(),
+        _stream(rows.device),
     )
     _done("dense_gram", rc)
     return out
@@ -1191,23 +1325,29 @@ def brick_plan(
     wide_cap: int,
     phase: Optional[torch.Tensor] = None,
     split: int = 1,
+    x_brick0: int = 0,
 ):
     """Kernel K (csrc/classify.cu, two launches): the min/max/all-valid mip
     of ``dists`` (``levels`` levels, concatenated), every brick's class,
     window origin and surface flag (bricks outside the x-plane ``phase``
     mod ``split`` skipped) and the work list. Returns ((dmin, dmax,
     allvalid), (cls (NBR,) int64, u0, v0 (NBR,) int32, surf (NBR,) bool),
-    (ids, kind (NBR,) int32, count (1,) int32, counts (3,) int32))."""
+    (ids, kind (NBR,) int32, count (1,) int32, counts (3,) int32)).
+    Slab mode: ``cam_grid`` a (nbx w + 1, G, G, 3) x-slab of corner points
+    whose first brick x-plane is the global plane ``x_brick0`` (the phase
+    test's), NBR = nbx (G - 1)² / w² local bricks."""
     _check(dists, "dists", torch.float32)
     if dists.dim() != 2:
         raise ValueError(f"dists: expected (H, W), got {tuple(dists.shape)}")
     _check(cam_grid, "cam_grid", torch.float32)
-    gp = cam_grid.shape[0]
-    if cam_grid.dim() != 4 or cam_grid.shape != (gp, gp, gp, 3) or brick % stride or (gp - 1) % (brick // stride):
+    gx, gp = cam_grid.shape[0], cam_grid.shape[1]
+    w = brick // stride if stride and brick % stride == 0 else 0
+    if (cam_grid.dim() != 4 or cam_grid.shape != (gx, gp, gp, 3) or not w or (gp - 1) % w or (gx - 1) % w
+            or gx < w + 1):
         raise ValueError(f"cam_grid: bad grid {tuple(cam_grid.shape)} for brick {brick}, stride {stride}")
-    w = brick // stride
     nb = (gp - 1) // w
-    nbr = nb ** 3
+    nbx = (gx - 1) // w
+    nbr = nbx * nb * nb
     _check(perm, "perm", torch.int64, (nbr,))
     if phase is not None:
         _check(phase, "phase", torch.int32, ())
@@ -1229,7 +1369,7 @@ def brick_plan(
     ids, kind, count, counts = work[:nbr], work[nbr : 2 * nbr], work[2 * nbr : 2 * nbr + 1], work[2 * nbr + 1 :]
     rc = lib.df_brick_plan(
         dists.data_ptr(), rows, cols, levels, pyr[0].data_ptr(), pyr[1].data_ptr(), pyr[2].data_ptr(),
-        cam_grid.data_ptr(), gp, w, nb, _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
+        cam_grid.data_ptr(), gp, w, nb, nbx, x_brick0, _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
         rect, _f32(trunc), _f32(zeps), None if phase is None else phase.data_ptr(), split, perm.data_ptr(),
         band_cap, wide_cap, cls.data_ptr(), uv[0].data_ptr(), uv[1].data_ptr(), surf.data_ptr(),
         ids.data_ptr(), kind.data_ptr(), count.data_ptr(), counts.data_ptr(), _stream(dev),

@@ -298,7 +298,10 @@ def _prolong_weights(b: int, g: int, device=None) -> torch.Tensor:
 
 
 def _corner_indices(d: int, b: int, g: int, brick_ids: torch.Tensor) -> torch.Tensor:
-    """Flat (G^3,) grid indices of each brick's (B/g+1)^3 grid points."""
+    """Flat (G^3,) grid indices of each brick's (B/g+1)^3 grid points. With
+    a slab's local ids the indices are into the slab's corner grid
+    (``corner_slab``): the y and z strides are the whole grid's (JAX
+    ``parallel/sharded_fusion.py:64`` ``_corner_indices_slab``)."""
     nb = d // b
     gpts = d // g + 1
     w = b // g
@@ -311,6 +314,16 @@ def _corner_indices(d: int, b: int, g: int, brick_ids: torch.Tensor) -> torch.Te
     kk = bk[:, None] * w + a[None, :]
     return ((ii[:, :, None, None] * gpts + jj[:, None, :, None]) * gpts
             + kk[:, None, None, :]).reshape(brick_ids.shape[0], -1)
+
+
+def corner_slab(grid: torch.Tensor, k: int, n: int, b: int, g: int) -> torch.Tensor:
+    """Shard ``k`` of ``n``'s x-slab of a (G, G, G, ...) corner grid: the
+    corners of its D/n/b brick planes plus the +1 overlap plane that its
+    last bricks share with the next shard (JAX ``sharded_fusion.py:122-128``);
+    a view."""
+    w = b // g
+    nb_loc = (grid.shape[0] - 1) // w // n
+    return grid[k * nb_loc * w: (k + 1) * nb_loc * w + 1]
 
 
 def _voxel_positions(cam_flat: torch.Tensor, corner_idx: torch.Tensor, b: int, g: int) -> torch.Tensor:
@@ -430,7 +443,9 @@ def _fuse_front_rows(cfg: DynamicFusionConfig, ft, fw):
 
 def _voxel_addresses(d: int, b: int, brick_ids: torch.Tensor) -> torch.Tensor:
     """(K, B^3) flat (D, D, D) addresses of each brick's voxels, in-brick
-    order ((oi * B) + oj) * B + ok."""
+    order ((oi * B) + oj) * B + ok; with a slab's local ids, addresses in
+    the (dx, D, D) slab (the port fuses in place, so the brick-major
+    transposes of JAX ``sharded_fusion.py:45-61`` have no counterpart)."""
     nb = d // b
     o = torch.arange(b, device=brick_ids.device)
     x = (brick_ids // (nb * nb))[:, None] * b + o[None, :]
@@ -510,23 +525,38 @@ def plan(
     tensor) modulo ``split`` take part, and the caps divide by ``split``."""
     d, b = cfg.volume_dims, cfg.brick_size
     nbr = (d // b) ** 3
+    band_cap = min(max(cfg.integrate_band_cap // split, 1), nbr)
+    wide_cap = min(max(cfg.integrate_wide_cap // split, 1), nbr)
+    return plan_slab(cfg, dists, cam_grid, g, intr, 0, band_cap, wide_cap, phase, split, plain)
+
+
+def plan_slab(
+    cfg: DynamicFusionConfig, dists: torch.Tensor, cam_grid: torch.Tensor, g: int, intr: Intrinsics,
+    x_brick0: int, band_cap: int, wide_cap: int, phase: Optional[torch.Tensor] = None, split: int = 1,
+    plain: bool = False,
+) -> BrickPlan:
+    """``plan`` over the bricks of an x-slab of the corner grid: ``cam_grid``
+    (nbx w + 1, G, G, 3), its first brick x-plane the global plane
+    ``x_brick0`` (the phase split's), local brick ids ((bi nb) + bj) nb +
+    bk, with the given caps (the whole volume is ``x_brick0`` 0)."""
+    b = cfg.brick_size
+    w = b // g
+    nb = (cam_grid.shape[1] - 1) // w
+    nbr = ((cam_grid.shape[0] - 1) // w) * nb * nb
     rows, cols = dists.shape
     rect = min(cfg.integrate_rect, 1 << int(math.log2(min(rows, cols))))
     levels = int(math.ceil(math.log2(max(rows, cols)))) + 1
-    band_cap = min(max(cfg.integrate_band_cap // split, 1), nbr)
-    wide_cap = min(max(cfg.integrate_wide_cap // split, 1), nbr)
     if not (plain or dists.device.type == "cpu"):
         _, (cls, u0, v0, surf), (ids, kind, count, counts) = kernels.brick_plan(
             dists, cam_grid, b, g, intr, rect, volume_model.trunc_dist(cfg), _ZEPS, levels,
             _brick_perm_on(nbr, dists.device), band_cap, wide_cap,
-            phase=None if split == 1 else phase.to(torch.int32).reshape(()), split=split,
+            phase=None if split == 1 else phase.to(torch.int32).reshape(()), split=split, x_brick0=x_brick0,
         )
         return BrickPlan(BrickClasses(cls, u0, v0, surf), WorkList(ids, kind, count, counts), rect)
     pyr = build_depth_pyramid(dists, levels)
     bc = classify(cfg, cam_grid, g, pyr, intr, rows, cols, rect)
     if split > 1:
-        nb_x = d // b
-        bx = torch.arange(nbr, device=dists.device) // (nb_x * nb_x)
+        bx = x_brick0 + torch.arange(nbr, device=dists.device) // (nb * nb)
         bc = bc._replace(cls=torch.where((bx % split) == phase, bc.cls, SKIP))
     return BrickPlan(bc, _plan(bc, band_cap, wide_cap), rect)
 

@@ -33,6 +33,7 @@ from dynamicfusion_tpu_torch.models import volume as volume_model
 from dynamicfusion_tpu_torch.models.volume import TsdfVolume
 
 NAN = float("nan")
+INF = float("inf")
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,38 +46,49 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def fetch_nearest(tsdf: torch.Tensor, p_voxels: torch.Tensor) -> torch.Tensor:
+def fetch_nearest(tsdf: torch.Tensor, p_voxels: torch.Tensor, x_off: int = 0, d: Optional[int] = None) -> torch.Tensor:
     """Nearest-neighbour fetch at fractional voxel coords (..., 3), rounded
-    half-to-even and clipped into the volume; decoded after the gather."""
-    d = tsdf.shape[0]
+    half-to-even and clipped into the volume; decoded after the gather.
+    On a slab (``d`` the global side, the slab's first plane the global
+    x-plane ``x_off``, JAX ``parallel/sharded_raycast.py:57``) the index is
+    clipped globally first, then its x into the slab (on the whole volume
+    the second clip changes nothing)."""
+    d = tsdf.shape[-1] if d is None else d
     idx = torch.round(p_voxels).clamp(0, d - 1).to(torch.int64)
-    flat = (idx[..., 0] * d + idx[..., 1]) * d + idx[..., 2]
+    flat = (_clampx(tsdf, idx[..., 0], x_off) * d + idx[..., 1]) * d + idx[..., 2]
     v = tsdf.reshape(-1)[flat]
     return v.to(torch.float32) * volume_model.tsdf_decode_scale(tsdf.dtype)
 
 
-def _corners(tsdf: torch.Tensor, p_voxels: torch.Tensor):
-    """Cell origin fraction, out-of-bounds mask and the 8 corner values."""
-    d = tsdf.shape[0]
+def _clampx(slab: torch.Tensor, x: torch.Tensor, x_off: int) -> torch.Tensor:
+    """Global x-plane index -> the slab's plane, clipped into the slab."""
+    return (x - x_off).clamp(0, slab.shape[0] - 1)
+
+
+def _corners(tsdf: torch.Tensor, p_voxels: torch.Tensor, x_off: int = 0, d: Optional[int] = None):
+    """Cell origin fraction, out-of-bounds mask and the 8 corner values; on
+    a slab (``fetch_nearest``) the out-of-bounds test and the clip are on
+    the global indices, then each corner's x is clipped into the slab."""
+    d = tsdf.shape[-1] if d is None else d
     g = torch.floor(p_voxels)
     f = p_voxels - g
     gi = torch.nan_to_num(g, nan=-1.0).clamp(-1, d).to(torch.int64)
     oob = ((gi < 0) | (gi >= d - 1)).any(dim=-1)
     gi = gi.clamp(0, d - 2)
-    base = (gi[..., 0] * d + gi[..., 1]) * d + gi[..., 2]
     flat = tsdf.reshape(-1)
+    xs = (_clampx(tsdf, gi[..., 0], x_off), _clampx(tsdf, gi[..., 0] + 1, x_off))
     cor = {}
     for dx in (0, 1):
         for dy in (0, 1):
             for dz in (0, 1):
-                cor[dx, dy, dz] = flat[base + (dx * d + dy) * d + dz].to(torch.float32)
+                cor[dx, dy, dz] = flat[(xs[dx] * d + gi[..., 1] + dy) * d + gi[..., 2] + dz].to(torch.float32)
     return f, oob, cor
 
 
-def interpolate(tsdf: torch.Tensor, p_voxels: torch.Tensor) -> torch.Tensor:
+def interpolate(tsdf: torch.Tensor, p_voxels: torch.Tensor, x_off: int = 0, d: Optional[int] = None) -> torch.Tensor:
     """Trilinear interpolation at fractional voxel coords (..., 3); NaN
-    outside the interpolation region."""
-    f, oob, cor = _corners(tsdf, p_voxels)
+    outside the interpolation region (on a slab as ``fetch_nearest``)."""
+    f, oob, cor = _corners(tsdf, p_voxels, x_off, d)
     a, b, c = f[..., 0], f[..., 1], f[..., 2]
     out = torch.zeros(p_voxels.shape[:-1], dtype=torch.float32, device=p_voxels.device)
     for dx in (0, 1):
@@ -91,11 +103,12 @@ def interpolate(tsdf: torch.Tensor, p_voxels: torch.Tensor) -> torch.Tensor:
 
 
 def interpolate_with_gradient(
-    tsdf: torch.Tensor, p_voxels: torch.Tensor
+    tsdf: torch.Tensor, p_voxels: torch.Tensor, x_off: int = 0, d: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trilinear value and its analytic in-cell gradient (tsdf per voxel)
-    from one set of 8 corner fetches; NaN outside the region."""
-    f, oob, cor = _corners(tsdf, p_voxels)
+    from one set of 8 corner fetches; NaN outside the region (on a slab as
+    ``fetch_nearest``)."""
+    f, oob, cor = _corners(tsdf, p_voxels, x_off, d)
     a, b, c = f[..., 0], f[..., 1], f[..., 2]
     wa0, wa1 = 1.0 - a, a
     wb0, wb1 = 1.0 - b, b
@@ -379,7 +392,9 @@ def _refine_mode(cfg: DynamicFusionConfig) -> int:
     return REFINES.index(cfg.raycast_refine)
 
 
-def gradient(tsdf: torch.Tensor, p_voxels: torch.Tensor, delta_voxels) -> torch.Tensor:
+def gradient(
+    tsdf: torch.Tensor, p_voxels: torch.Tensor, delta_voxels, x_off: int = 0, d: Optional[int] = None
+) -> torch.Tensor:
     """Central-difference TSDF gradient (unnormalized) at fractional voxel
     coords (..., 3): trilinear samples at +-``delta_voxels[axis]`` voxels
     along each axis, NaN outside (JAX ops/tsdf.py:152 ``gradient``)."""
@@ -388,14 +403,14 @@ def gradient(tsdf: torch.Tensor, p_voxels: torch.Tensor, delta_voxels) -> torch.
         e = device_mod.const(
             tuple(float(delta_voxels[axis]) if a == axis else 0.0 for a in range(3)), torch.float32, p_voxels.device
         )
-        comps.append(interpolate(tsdf, p_voxels + e) - interpolate(tsdf, p_voxels - e))
+        comps.append(interpolate(tsdf, p_voxels + e, x_off, d) - interpolate(tsdf, p_voxels - e, x_off, d))
     return torch.stack(comps, dim=-1)
 
 
-def _grad6(tsdf: torch.Tensor, p_voxels: torch.Tensor, delta: float) -> torch.Tensor:
+def _grad6(tsdf: torch.Tensor, p_voxels: torch.Tensor, delta: float, x_off: int = 0, d: Optional[int] = None):
     """The reference's six-sample central difference at +-delta voxels on
     every axis (JAX ops/tsdf.py:610 ``_grad6``)."""
-    return gradient(tsdf, p_voxels, (delta,) * 3)
+    return gradient(tsdf, p_voxels, (delta,) * 3, x_off, d)
 
 
 def march_steps(cfg: DynamicFusionConfig) -> int:
@@ -428,6 +443,32 @@ def march_and_refine_plain(
     difference at the vertex, and the secant refine keeps its secant point
     (no polish), as JAX does. Returns (found, vertex_vol, normal_vol) in the
     volume frame; the normal is unnormalized."""
+    found, _, vertex, normal, _ = _march_core(cfg, tsdf, ray_org, dirs, tmin, tmax, cfg.raycast_adaptive_step)
+    return found, vertex, normal
+
+
+def march_slab_plain(
+    cfg: DynamicFusionConfig,
+    ext: torch.Tensor,
+    x_off: int,
+    ray_org: torch.Tensor,
+    dirs: torch.Tensor,
+    tmin: torch.Tensor,
+    tmax: torch.Tensor,
+):
+    """The plain version of kernel C's slab mode: the fixed-step march and
+    refine of ``march_and_refine_plain`` over an extended slab ``ext``
+    ((dx, D, D) codes, its first plane the global x-plane ``x_off``; every
+    fetch clipped globally first, then into the slab). Returns (found, ts,
+    vertex_vol, normal_vol, t_behind): the refined ray distance and the
+    bracket start of the first exit-geometry event (+inf where none), the
+    ownership inputs of the sharded raycast (JAX ``ops/tsdf.py:386-470``)."""
+    return _march_core(cfg, ext, ray_org, dirs, tmin, tmax, False, x_off, cfg.volume_dims)
+
+
+def _march_core(cfg, tsdf, ray_org, dirs, tmin, tmax, adaptive: bool, x_off: int = 0, d: Optional[int] = None):
+    """The raycast core over a volume or, with ``d``, a slab of one: (found,
+    ts, vertex_vol, normal_vol, t_behind)."""
     refine = _refine_mode(cfg)
     inv_vs = 1.0 / cfg.voxel_size
     step = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
@@ -435,28 +476,36 @@ def march_and_refine_plain(
     def point(t):
         return (ray_org + dirs * t[..., None]) * inv_vs
 
+    def fetch(t):
+        return fetch_nearest(tsdf, point(t), x_off, d)
+
+    def interp_grad(t):
+        return interpolate_with_gradient(tsdf, point(t), x_off, d)
+
     t = tmin
     done = tmin >= tmax
     found = torch.zeros_like(done)
     t_hit = torch.zeros_like(tmin)
     dt_hit = torch.full_like(tmin, step)
+    t_behind = torch.full_like(tmin, INF)
     f0 = torch.ones_like(tmin)
     f1 = -torch.ones_like(tmin)
-    tsdf_prev = fetch_nearest(tsdf, point(tmin))
+    tsdf_prev = fetch(tmin)
     for i in range(march_steps(cfg)):
         if i % 2 == 0 and bool(done.all()):
             break
-        if cfg.raycast_adaptive_step:
+        if adaptive:
             dt = torch.where(tsdf_prev > 0.99, 2.0 * step, step)
         else:
             dt = torch.full_like(tsdf_prev, step)
         tnext = t + dt
         active = ~done & (t < tmax)
-        tsdf_next = fetch_nearest(tsdf, point(tnext))
+        tsdf_next = fetch(tnext)
         crossing = (tsdf_prev > 0.0) & (tsdf_next < 0.0) & active
         behind = (tsdf_prev < 0.0) & (tsdf_next > 0.0) & active
         t_hit = torch.where(crossing, t, t_hit)
         dt_hit = torch.where(crossing, dt, dt_hit)
+        t_behind = torch.where(behind, t, t_behind)
         if refine:
             f0 = torch.where(crossing, tsdf_prev, f0)
             f1 = torch.where(crossing, tsdf_next, f1)
@@ -478,16 +527,16 @@ def march_and_refine_plain(
         alpha = torch.clamp(f0 / torch.where(torch.abs(denom0) > 1e-12, denom0, 1e-12), 0.0, 1.0)
         ts = t_hit + dt_hit * alpha
         for _ in range(refine):
-            f_v, normal_vol = interpolate_with_gradient(tsdf, point(ts))
+            f_v, normal_vol = interp_grad(ts)
             ts = newton(ts, f_v, normal_vol)
     elif refine == 3:
         slope_march = torch.clamp((f1 - f0) / dt_hit, max=-1e-6)
         d0 = f0 - f1
         alpha0 = torch.clamp(f0 / torch.where(torch.abs(d0) > 1e-12, d0, 1e-12), 0.0, 1.0)
         t_m = t_hit + dt_hit * alpha0
-        f_m0 = torch.nan_to_num(interpolate_with_gradient(tsdf, point(t_m))[0])
+        f_m0 = torch.nan_to_num(interp_grad(t_m)[0])
         t_c = t_m + torch.minimum(torch.maximum(-f_m0 / slope_march, -dt_hit), dt_hit)
-        f_c, normal_vol = interpolate_with_gradient(tsdf, point(t_c))
+        f_c, normal_vol = interp_grad(t_c)
         f_c0 = torch.nan_to_num(f_c)
         dt_sec = t_c - t_m
         slope_sec = torch.where(torch.abs(dt_sec) > 1e-6 * dt_hit, (f_c0 - f_m0) / dt_sec, slope_march)
@@ -498,17 +547,17 @@ def march_and_refine_plain(
         good2 = torch.isfinite(ts) & (torch.abs(ts - t_c) < dt_hit) & ~torch.isnan(f_c)
         ts = torch.where(good2, ts, t_c)
     else:
-        ft = interpolate(tsdf, point(t_hit))
-        ftdt = interpolate(tsdf, point(t_hit + dt_hit))
+        ft = interpolate(tsdf, point(t_hit), x_off, d)
+        ftdt = interpolate(tsdf, point(t_hit + dt_hit), x_off, d)
         denom = ftdt - ft
         ts = t_hit - dt_hit * ft / torch.where(torch.abs(denom) > 1e-12, denom, 1e-12)
         ts = torch.where(torch.isnan(ft) | torch.isnan(ftdt), t_hit, ts)
         if not cfg.raycast_smooth_normals:
-            f_v, normal_vol = interpolate_with_gradient(tsdf, point(ts))
+            f_v, normal_vol = interp_grad(ts)
             ts = newton(ts, f_v, normal_vol)
     if cfg.raycast_smooth_normals:
-        normal_vol = _grad6(tsdf, point(ts), cfg.gradient_delta_factor)
-    return found, ray_org + dirs * ts[..., None], normal_vol
+        normal_vol = _grad6(tsdf, point(ts), cfg.gradient_delta_factor, x_off, d)
+    return found, ts, ray_org + dirs * ts[..., None], normal_vol, t_behind
 
 
 def march_and_refine(
@@ -534,6 +583,35 @@ def march_and_refine(
         refine=_refine_mode(cfg),
         smooth=cfg.raycast_smooth_normals,
         delta=cfg.gradient_delta_factor,
+    )
+
+
+def march_slab(
+    cfg: DynamicFusionConfig,
+    ext: torch.Tensor,
+    x_off: int,
+    ray_org: torch.Tensor,
+    dirs: torch.Tensor,
+    tmin: torch.Tensor,
+    tmax: torch.Tensor,
+    plain: bool = False,
+):
+    """Kernel C's slab mode on CUDA tensors (``march_slab_plain`` on CPU
+    tensors or where the caller asks): (found, ts, vertex_vol, normal_vol,
+    t_behind) of a fixed-step march over the extended slab ``ext``."""
+    if plain or ext.device.type == "cpu":
+        return march_slab_plain(cfg, ext, x_off, ray_org, dirs, tmin, tmax)
+    return kernels.march_and_refine(
+        ext, ray_org, dirs, tmin, tmax,
+        voxel_size=cfg.voxel_size,
+        step=volume_model.trunc_dist(cfg) * cfg.raycast_step_factor,
+        max_steps=march_steps(cfg),
+        adaptive=False,
+        refine=_refine_mode(cfg),
+        smooth=cfg.raycast_smooth_normals,
+        delta=cfg.gradient_delta_factor,
+        x_off=x_off,
+        d=cfg.volume_dims,
     )
 
 

@@ -149,17 +149,21 @@ def _raycast_model(
     t_seed: Optional[torch.Tensor],
     t_band: Optional[Tuple[torch.Tensor, torch.Tensor]],
     plain: bool,
+    raycast_fn=None,
 ) -> tsdf_ops.RaycastResult:
     """The canonical model raycast at ``pose`` at 1/raycast_subsample
     resolution, in ``t_band`` where given, else in the coarse band where
-    ``_use_coarse_band``, else seeded by ``t_seed`` (or the full ray)."""
+    ``_use_coarse_band``, else seeded by ``t_seed`` (or the full ray);
+    through ``raycast_fn`` (``tsdf.raycast``'s signature) where given."""
     cam2vol = se3.compose(se3.inverse(_vol_pose(cfg, pose.device)), pose)
     rows_t = cfg.rows // cfg.raycast_subsample
     cols_t = cfg.cols // cfg.raycast_subsample
     intr_t = cfg.intr.level(cfg.raycast_shift)
     if t_band is None and _use_coarse_band(cfg, rows_t, cols_t):
         t_band = tsdf_ops.raycast_coarse_band(cfg, vol, cam2vol, intr_t, rows_t, cols_t, plain=plain)
-    return tsdf_ops.raycast(cfg, vol, cam2vol, intr_t, rows_t, cols_t, t_seed=t_seed, t_band=t_band, plain=plain)
+    return (raycast_fn or tsdf_ops.raycast)(
+        cfg, vol, cam2vol, intr_t, rows_t, cols_t, t_seed=t_seed, t_band=t_band, plain=plain
+    )
 
 
 def _model_maps(
@@ -171,6 +175,7 @@ def _model_maps(
     t_band: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     dq_grid: Optional[torch.Tensor] = None,
     plain: bool = False,
+    raycast_fn=None,
 ):
     """Raycast the model at ``pose`` at 1/raycast_subsample resolution;
     return (tracking pyramid, canonical base-level maps). In non-rigid
@@ -178,7 +183,7 @@ def _model_maps(
     maps DQB-warped into the live frame: through the coarse field's
     ``dq_grid`` (trilinear, kernel E) where given, else by the exact
     per-point warp."""
-    res = _raycast_model(cfg, vol, pose, t_seed, t_band, plain)
+    res = _raycast_model(cfg, vol, pose, t_seed, t_band, plain, raycast_fn)
     if cfg.track_against_warped and not cfg.rigid_only:
         shape = res.points.shape
         pts_w = se3.transform_points(pose, res.points).reshape(-1, 3)
@@ -391,12 +396,24 @@ def first_frame(
 
 
 def step(
-    cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False
+    cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False,
+    warp_system_fn=None, warp_eval_fn=None, integrate_fn=None, warp_solve_fn=None, raycast_fn=None,
 ) -> Tuple[PipelineState, StepOutputs]:
     """One frame: the rigid KinectFusion step under ``cfg.rigid_only``,
-    else the full DynamicFusion step (``_nonrigid_step``)."""
+    else the full DynamicFusion step (``_nonrigid_step``).
+
+    The sharded step's hooks (``parallel.sharded.make_sharded_step``; JAX
+    ``kinfu.py:395-420``): ``warp_system_fn`` and ``warp_eval_fn`` the warp
+    solve's assembly and candidate evaluation (``warp_solver.solve``'s
+    ``system_fn``, ``eval_fn``); ``integrate_fn(cfg, vol, cf, dists,
+    world2cam, intr, enabled, conf, phase, plain) -> (vol, counts)`` the
+    non-rigid fusion, gated by ``enabled`` inside; ``warp_solve_fn(field,
+    inputs) -> (field, stats)`` the whole solve (before the other two);
+    ``raycast_fn`` the model raycasts (``tsdf.raycast``'s signature). With
+    none given the step is the single-device one."""
     if not cfg.rigid_only:
-        return _nonrigid_step(cfg, state, depth_mm, plain)
+        return _nonrigid_step(cfg, state, depth_mm, plain, warp_system_fn, warp_eval_fn, integrate_fn,
+                              warp_solve_fn, raycast_fn)
     shift = cfg.raycast_shift
     _, pts_pyr, nrm_pyr, dists = preprocess.build_frame_pyramid(
         cfg, depth_mm, first_point_level=shift, plain=plain
@@ -411,7 +428,9 @@ def step(
     vol2cam = se3.compose(se3.inverse(pose), _vol_pose(cfg, pose.device))
     bcounts = tsdf_ops.integrate(cfg, state.vol, dists, vol2cam, cfg.intr, ok=icp_res.ok, plain=plain)
     seed, band = _march_bands(cfg, state.can_points, dists, plain)
-    (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(cfg, state.vol, pose, t_seed=seed, t_band=band, plain=plain)
+    (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(
+        cfg, state.vol, pose, t_seed=seed, t_band=band, plain=plain, raycast_fn=raycast_fn
+    )
     new_state = PipelineState(
         vol=state.vol, warp=state.warp, pose=pose,
         prev_points=prev_pts, prev_normals=prev_nrm,
@@ -438,10 +457,13 @@ class Tracked(NamedTuple):
     bands: Tuple                          # (raycast seed | None, temporal band | None) of the frame
 
 
-def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False) -> Tracked:
+def track(
+    cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False, raycast_fn=None
+) -> Tracked:
     """The non-rigid step up to the warp solve: preprocess, coarse-to-fine
     ICP against the warped model maps, the solve's point sets and the
-    rigid pre-alignment folded into the pose (where ICP succeeded)."""
+    rigid pre-alignment folded into the pose (where ICP succeeded);
+    ``raycast_fn`` the fresh canonical raycast's hook."""
     shift = cfg.raycast_shift
     # level 0 only for the incidence confidence of the fusion
     pyr = preprocess.build_frame_pyramid(
@@ -470,7 +492,7 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
     else:
         # a fresh canonical raycast from the ICP pose, in the temporal band
         # where it is on, else in the coarse band where that runs
-        model = _raycast_model(cfg, state.vol, pose, seed, band, plain)
+        model = _raycast_model(cfg, state.vol, pose, seed, band, plain, raycast_fn)
         can_pts_w = se3.transform_points(pose, model.points)
         can_nrm_w = se3.rotate_dirs(pose, model.normals)
     if cfg.solver_live_raw:
@@ -511,11 +533,17 @@ def track(cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor
 
 
 def _nonrigid_step(
-    cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False
+    cfg: DynamicFusionConfig, state: PipelineState, depth_mm: torch.Tensor, plain: bool = False,
+    warp_system_fn=None, warp_eval_fn=None, integrate_fn=None, warp_solve_fn=None, raycast_fn=None,
 ) -> Tuple[PipelineState, StepOutputs]:
     """One DynamicFusion frame (the JAX package's non-rigid ``step``)."""
-    icp_res, pose, inputs, _, _, dists, conf, (seed, band) = track(cfg, state, depth_mm, plain)
-    warp, stats = warp_solver.solve(cfg, state.warp, inputs, plain=plain)
+    icp_res, pose, inputs, _, _, dists, conf, (seed, band) = track(cfg, state, depth_mm, plain, raycast_fn)
+    if warp_solve_fn is not None:
+        warp, stats = warp_solve_fn(state.warp, inputs)
+    else:
+        warp, stats = warp_solver.solve(
+            cfg, state.warp, inputs, plain=plain, system_fn=warp_system_fn, eval_fn=warp_eval_fn
+        )
     if cfg.solver_remove_net_rigid:
         # the optional gauge anchor: the net rigid part of the solve's
         # increment is left to ICP
@@ -530,9 +558,15 @@ def _nonrigid_step(
     sub_interval = max(cfg.fusion_interval // cfg.fusion_phase_split, 1)
     fuse_now = icp_res.ok & (state.frame_idx % sub_interval == 0)
     phase = (state.frame_idx // sub_interval) % cfg.fusion_phase_split
-    bcounts = fusion.integrate_nonrigid(
-        cfg, state.vol, cf, dists, se3.inverse(pose), cfg.intr, fuse_now, conf=conf, phase=phase, plain=plain
-    )
+    if integrate_fn is not None:
+        vol, bcounts = integrate_fn(
+            cfg, state.vol, cf, dists, se3.inverse(pose), cfg.intr, fuse_now, conf=conf, phase=phase, plain=plain
+        )
+    else:
+        vol = state.vol
+        bcounts = fusion.integrate_nonrigid(
+            cfg, vol, cf, dists, se3.inverse(pose), cfg.intr, fuse_now, conf=conf, phase=phase, plain=plain
+        )
 
     ins = cfg.node_insert_stride if full_scale else 1
     cand = inputs.p_can[::ins]
@@ -541,10 +575,11 @@ def _nonrigid_step(
     )
 
     (prev_pts, prev_nrm), can_pts, can_nrm = _model_maps(
-        cfg, state.vol, pose, warp, t_seed=seed, t_band=band, dq_grid=cf.dq if full_scale else None, plain=plain,
+        cfg, vol, pose, warp, t_seed=seed, t_band=band, dq_grid=cf.dq if full_scale else None, plain=plain,
+        raycast_fn=raycast_fn,
     )
     new_state = PipelineState(
-        vol=state.vol, warp=warp, pose=pose,
+        vol=vol, warp=warp, pose=pose,
         prev_points=prev_pts, prev_normals=prev_nrm,
         can_points=can_pts, can_normals=can_nrm,
         frame_idx=state.frame_idx + 1,

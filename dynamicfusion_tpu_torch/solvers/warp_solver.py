@@ -217,14 +217,23 @@ def _tangential(cfg: DynamicFusionConfig) -> bool:
     return cfg.point_to_plane and cfg.solver_p2p_weight > 0.0
 
 
-def prepare(cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs, plain: bool = False) -> SolveStructure:
+def prepare(
+    cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs, plain: bool = False,
+    global_points: Optional[int] = None, edges: Optional[SolveStructure] = None,
+) -> SolveStructure:
     """Subsample by ``solver_hessian_stride`` (above 8192 points), KNN the
     solve points, build the edge graph and the node lists; with the
     tangential term, the tangent basis and the per-point weight
     sqrt(solver_p2p_weight * clip(gate, 0, 1)). The live normal must be
-    finite only where a row projects on it (point-to-plane)."""
+    finite only where a row projects on it (point-to-plane).
+
+    ``global_points``: the whole solve's point count where ``inputs`` is
+    one shard of it, so that the 8192-point and stride decisions are the
+    whole solve's (JAX ``warp_solver.py:229-250``); ``edges``: a structure
+    whose edge graph to reuse (the sharded solve builds it once)."""
     n = field.positions.shape[0]
-    hs = cfg.solver_hessian_stride if inputs.p_can.shape[0] > 8192 else 1
+    gp = inputs.p_can.shape[0] if global_points is None else global_points
+    hs = cfg.solver_hessian_stride if gp > 8192 else 1
     p_can, p_live, n_live = (a[::hs] for a in (inputs.p_can, inputs.p_live, inputs.n_live))
     valid = ~torch.isnan(p_can[:, 0]) & ~torch.isnan(p_live[:, 0])
     if cfg.point_to_plane:
@@ -243,13 +252,19 @@ def prepare(cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs,
     for j in range(1, cfg.knn_k):
         wsum = wsum + kb.w[:, j]
     valid = valid & (wsum > 1e-8)
-    e_src, e_dst, e_valid = build_edges(field, plain=plain)
-    alpha = torch.maximum(field.radius[e_src], field.radius[e_dst]) * (1.0 / hs)
+    if edges is None:
+        e_src, e_dst, e_valid = build_edges(field, plain=plain)
+        alpha = torch.maximum(field.radius[e_src], field.radius[e_dst]) * (1.0 / hs)
+        v_dst, edges_by_dst = field.positions[e_dst].contiguous(), node_lists(e_dst, n)
+    else:
+        e_src, e_dst, e_valid, v_dst, alpha, edges_by_dst = (
+            edges.e_src, edges.e_dst, edges.e_valid, edges.v_dst, edges.alpha, edges.edges_by_dst
+        )
     return SolveStructure(
         p_can=p_can.contiguous(), p_live=p_live.contiguous(), n_live=n_live.contiguous(), valid=valid,
         knn_idx=kb.idx, w_knn=kb.w.contiguous(),
-        e_src=e_src, e_dst=e_dst, e_valid=e_valid, v_dst=field.positions[e_dst].contiguous(), alpha=alpha,
-        pts_by_node=node_lists(kb.idx, n), edges_by_dst=node_lists(e_dst, n),
+        e_src=e_src, e_dst=e_dst, e_valid=e_valid, v_dst=v_dst, alpha=alpha,
+        pts_by_node=node_lists(kb.idx, n), edges_by_dst=edges_by_dst,
         t1=t1, t2=t2, p2p_sw=p2p_sw,
     )
 
@@ -472,27 +487,38 @@ def _rows_in(sys: System, p: int) -> torch.Tensor:
     return mask
 
 
-def matvec_plain(s: SolveStructure, sys: System, p: torch.Tensor) -> torch.Tensor:
-    """(rows_bf16ᵀ · bf16(rows_bf16 · bf16(p))) + edge blocks · p + damp * p,
+def data_matvec_plain(s: SolveStructure, sys: System, p: torch.Tensor) -> torch.Tensor:
+    """The data product rows_bf16ᵀ · bf16(rows_bf16 · bf16(p)), (N, 6),
     accumulated in float32 (the JAX package's rounding points: t is
-    rounded per (point, row)), over the rows of the row mode."""
-    n = sys.damp.shape[0] // 6
+    rounded per (point, row)), over the rows of the row mode: the plain
+    version of kernel G's shard entry (``kernels.data_matvec``), in
+    torch's sum order (``data_matvec_ordered`` takes the kernel's)."""
+    n = p.shape[0] // 6
     rows = sys.rows.to(torch.float32)
     if sys.used is not None or sys.stride > 1:
         rows = rows * _rows_in(sys, rows.shape[0])[:, :, None, None]
     pm = _bf16(p).reshape(n, 6)
     t = _bf16((rows * pm[s.knn_idx][:, None]).sum((2, 3)))
-    data = torch.zeros((n, 6), device=p.device).index_add_(
+    return torch.zeros((n, 6), device=p.device).index_add_(
         0, s.knn_idx.reshape(-1), (rows * t[:, :, None, None]).sum(1).reshape(-1, 6)
     )
+
+
+def edge_matvec_plain(s: SolveStructure, e: EdgeTerm, p: torch.Tensor) -> torch.Tensor:
+    """The edge blocks' product, (N, 6)."""
+    n = p.shape[0] // 6
     pv = p.reshape(n, 6)
     p_i, p_j = pv[s.e_src], pv[s.e_dst]
-    e = sys.edge
     q_i = (e.h_ii @ p_i[:, :, None] + e.h_ij @ p_j[:, :, None])[..., 0]
     q_j = (e.h_ij.transpose(1, 2) @ p_i[:, :, None] + e.h_jj @ p_j[:, :, None])[..., 0]
     c = s.e_src.shape[0] // n
-    edge = q_i.reshape(n, c, 6).sum(1) + torch.zeros((n, 6), device=p.device).index_add_(0, s.e_dst, q_j)
-    return (data + edge).reshape(-1) + sys.damp * p
+    return q_i.reshape(n, c, 6).sum(1) + torch.zeros((n, 6), device=p.device).index_add_(0, s.e_dst, q_j)
+
+
+def matvec_plain(s: SolveStructure, sys: System, p: torch.Tensor) -> torch.Tensor:
+    """(rows_bf16ᵀ · bf16(rows_bf16 · bf16(p))) + edge blocks · p + damp * p
+    (``data_matvec_plain``, ``edge_matvec_plain``)."""
+    return (data_matvec_plain(s, sys, p) + edge_matvec_plain(s, sys.edge, p)).reshape(-1) + sys.damp * p
 
 
 def matvec(s: SolveStructure, sys: System, p: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -551,6 +577,162 @@ def pcg(
     return kernels.pcg(_kernel_system(s, sys), minv, b, iters, rtol, active, used=sys.used, stride=sys.stride)
 
 
+class Shard(NamedTuple):
+    """One shard's part of a sharded solve: its structure (its points; the
+    edge fields are the shared graph's) and its bf16 rows."""
+
+    s: SolveStructure
+    rows: Optional[torch.Tensor] = None
+
+
+def _seq_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis left to right from 0 (a CUDA loop's ``s +=``
+    without fused multiply-adds)."""
+    s = torch.zeros_like(terms[..., 0])
+    for k in range(terms.shape[-1]):
+        s = s + terms[..., k]
+    return s
+
+
+def apply_m_ordered(minv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """z = M v per node in kernel P's order (``apply_m``): each entry the
+    six rounded products summed left to right."""
+    return _seq_sum(minv * v.reshape(-1, 1, 6)).reshape(-1)
+
+
+def dot_ordered(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """aᵀb in kernel P's order (``node_dot``, then ``block_sum``): thread t
+    of its 1024-thread block sums its nodes t, t + 1024, ... (six products
+    each) in order, then a halving tree adds each warp's 32 partial sums
+    and then the 32 warps' (``__shfl_down_sync`` by 16, 8, 4, 2, 1)."""
+    threads = 1024
+    n = a.shape[0] // 6
+    k = -(-n // threads)
+    prod = torch.zeros(k * threads * 6, dtype=a.dtype, device=a.device)
+    prod[: 6 * n] = a * b
+    part = _seq_sum(prod.reshape(k, threads, 6).permute(1, 0, 2).reshape(threads, 6 * k))
+    v = part.reshape(threads // 32, 32)
+    for _ in range(2):
+        while v.shape[-1] > 1:
+            h = v.shape[-1] // 2
+            v = v[..., :h] + v[..., h:]
+        v = v.reshape(1, -1)
+    return v.reshape(())
+
+
+def _list_sums(values: torch.Tensor, lists: NodeLists, start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, 6): node n's ``values`` rows at ``lists.order[off[n]:off[n + 1]]``
+    added one by one in list order to ``start`` (default 0), as a kernel's
+    per-node loop adds them."""
+    off = lists.off.to(torch.int64)
+    n = off.shape[0] - 1
+    slot = off[:-1, None] + torch.arange(int((off[1:] - off[:-1]).max()) if n else 0, device=values.device)
+    mine = slot < off[1:, None]
+    picked = values[lists.order.to(torch.int64)[torch.where(mine, slot, 0)]]
+    out = torch.zeros((n, 6), dtype=values.dtype, device=values.device) if start is None else start
+    for k in range(slot.shape[1]):
+        out = out + torch.where(mine[:, k, None], picked[:, k], 0.0)
+    return out
+
+
+def data_matvec_ordered(s: SolveStructure, sys: System, p: torch.Tensor) -> torch.Tensor:
+    """``data_matvec_plain`` in kernel G's order (``row_t``, ``node_data``):
+    each (point, row)'s 48 products summed left to right before t's bf16
+    rounding, then a node's entries in ``pts_by_node`` order, each entry's
+    rows summed first. (N, 6)."""
+    n = p.shape[0] // 6
+    rows = sys.rows.to(torch.float32)
+    if sys.used is not None or sys.stride > 1:
+        rows = rows * _rows_in(sys, rows.shape[0])[:, :, None, None]
+    pm = _bf16(p).reshape(n, 6)
+    prod = rows * pm[s.knn_idx][:, None]
+    t = _bf16(_seq_sum(prod.reshape(prod.shape[0], prod.shape[1], -1)))
+    ent = rows * t[:, :, None, None]
+    per_entry = ent[:, 0]
+    for j in range(1, ent.shape[1]):
+        per_entry = per_entry + ent[:, j]
+    return _list_sums(per_entry.reshape(-1, 6), s.pts_by_node)
+
+
+def edge_apply_plain(s: SolveStructure, e: EdgeTerm, p: torch.Tensor, apd: torch.Tensor,
+                     damp: torch.Tensor) -> torch.Tensor:
+    """(apd + edge blocks p) + damp p in kernel G's node order
+    (``node_edge``): each edge's twelve products left to right, a node's
+    source edges in edge order, then its destination edges in
+    ``edges_by_dst`` order."""
+    n = p.shape[0] // 6
+    pv = p.reshape(n, 6)
+    p_i, p_j = pv[s.e_src], pv[s.e_dst]
+    q_i = _seq_sum(torch.cat([e.h_ii * p_i[:, None, :], e.h_ij * p_j[:, None, :]], -1))
+    q_j = _seq_sum(torch.cat([e.h_ij.transpose(1, 2) * p_i[:, None, :], e.h_jj * p_j[:, None, :]], -1))
+    edg = torch.zeros((n, 6), device=p.device)
+    for q in q_i.reshape(n, -1, 6).unbind(1):
+        edg = edg + q
+    edg = _list_sums(q_j, s.edges_by_dst, start=edg)
+    return (apd + edg.reshape(-1)) + damp * p
+
+
+def pcg_sharded_plain(
+    mesh, shards, s: SolveStructure, sys: System, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float,
+    active: torch.Tensor,
+) -> torch.Tensor:
+    """``pcg_plain`` under a mesh: every matvec is the psum of the shards'
+    data products (each shard's rows) plus the edge blocks and the damping
+    applied once (JAX ``warp_solver.py:1228-1240`` under ``axis_name``).
+    ``s`` and ``sys`` give the edge graph, its blocks and the damping;
+    ``shards`` the local ``Shard``s. Every sum takes the kernels' order
+    (``data_matvec_ordered``, ``edge_apply_plain``, ``dot_ordered``,
+    ``apply_m_ordered``), so that with the same psum each iteration rounds
+    as ``pcg_sharded``'s kernels do."""
+    x = torch.zeros_like(b)
+    r = b
+    z = apply_m_ordered(minv, r)
+    p = z
+    stop2 = (rtol * rtol) * dot_ordered(b, b)
+    rz = dot_ordered(r, z)
+    run = active
+    for _ in range(iters):
+        run = run & (dot_ordered(r, r) > stop2)
+        data = mesh.psum([
+            data_matvec_ordered(sh.s, sys._replace(rows=sh.rows), p_k).reshape(-1)
+            for sh, p_k in zip(shards, mesh.replicate(p))
+        ])
+        ap = edge_apply_plain(s, sys.edge, p, data, sys.damp)
+        alpha = rz / torch.clamp(dot_ordered(p, ap), min=1e-30)
+        x_n = x + alpha * p
+        r_n = r - alpha * ap
+        z = apply_m_ordered(minv, r_n)
+        rz_n = dot_ordered(r_n, z)
+        beta = rz_n / torch.clamp(rz, min=1e-30)
+        p_n = z + beta * p
+        x, r, p, rz = (torch.where(run, a, o) for a, o in ((x_n, x), (r_n, r), (p_n, p), (rz_n, rz)))
+    return torch.where(active, x, 0.0)
+
+
+def pcg_sharded(
+    mesh, shards, s: SolveStructure, sys: System, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float,
+    active: torch.Tensor, plain: bool = False,
+) -> torch.Tensor:
+    """The distributed PCG: kernel G's data-only matvec on every shard
+    (``kernels.data_matvec``), the psum, then G's per-iteration step with
+    kernel P's init and update (``kernels.pcg_sharded_step``) on CUDA
+    tensors; the loop's stop flag stays in device memory."""
+    if plain or b.device.type == "cpu":
+        return pcg_sharded_plain(mesh, shards, s, sys, minv, b, iters, rtol, active)
+    x, work = kernels.pcg_sharded_init(minv, b, iters, rtol, active)
+    dof = b.shape[0]
+    p, state = work[2 * dof: 3 * dof], work[4 * dof:]
+    ks = _kernel_system(s, sys)
+    for _ in range(iters):
+        parts = [
+            kernels.data_matvec(sh.rows, sh.s.knn_idx, sh.s.pts_by_node.order, sh.s.pts_by_node.off, p_k,
+                                used=sys.used, stride=sys.stride, state=st_k)
+            for sh, p_k, st_k in zip(shards, mesh.replicate(p), mesh.replicate(state))
+        ]
+        kernels.pcg_sharded_step(ks, minv, mesh.psum(parts), x, work)
+    return x
+
+
 # --------------------------------------------------------------------------
 # the dense normal equations: plain versions of kernels N and O, the factor
 # --------------------------------------------------------------------------
@@ -577,8 +759,9 @@ def gram_scales_plain(a: torch.Tensor) -> torch.Tensor:
 
 
 def dense_gram_plain(
-    rows: torch.Tensor, knn_idx: torch.Tensor, int8: bool, h_ij: torch.Tensor, diag: torch.Tensor,
-    e_src: torch.Tensor, e_dst: torch.Tensor,
+    rows: torch.Tensor, knn_idx: torch.Tensor, int8: bool, h_ij: Optional[torch.Tensor], diag: Optional[torch.Tensor],
+    e_src: Optional[torch.Tensor], e_dst: Optional[torch.Tensor], scale: Optional[torch.Tensor] = None,
+    n: Optional[int] = None,
 ) -> torch.Tensor:
     """The dense (6N, 6N) normal equations of the lagged or fresh system:
     the data Gram of the one-hot-expanded bf16 rows plus the ARAP blocks
@@ -588,16 +771,20 @@ def dense_gram_plain(
     ±127) (a true division, as XLA keeps it), and the Gram is float(QᵀQ)
     (c_i c_j), QᵀQ summed exactly in float64 (exact below 2^53; int32
     matrix products do not run on CUDA); else the bf16 rows' Gram summed
-    exactly and rounded once."""
-    n = diag.shape[0]
+    exactly and rounded once. Shard mode (kernel N's): ``scale`` the
+    column scales to quantize with, and without ``h_ij`` the data Gram
+    alone of ``n`` nodes."""
+    n = diag.shape[0] if diag is not None else n
     a = dense_rows(rows, knn_idx, n)
     if int8:
-        c = gram_scales_plain(a)
+        c = gram_scales_plain(a) if scale is None else scale
         q = torch.clamp(torch.round(a / c), -127.0, 127.0).to(torch.float64)
         data = (q.T @ q).to(torch.float32) * (c[:, None] * c[None, :])
     else:
         a = a.to(torch.float64)
         data = (a.T @ a).to(torch.float32)
+    if h_ij is None:
+        return data
     blocks = torch.zeros((n, 6, n, 6), dtype=torch.float32, device=rows.device)
     blocks[e_src, :, e_dst, :] = h_ij
     ar = torch.arange(n, device=rows.device)
@@ -617,6 +804,39 @@ def dense_gram(cfg: DynamicFusionConfig, s: SolveStructure, dt: DataTerm, et: Ed
         dt.rows, s.knn_idx, s.pts_by_node.order, s.pts_by_node.off, et.h_ij, et.diag, s.e_dst,
         s.edges_by_dst.order, s.edges_by_dst.off, cfg.solver_jtj_int8,
     )
+
+
+def gram_scales(s: SolveStructure, dt: DataTerm, plain: bool = False) -> torch.Tensor:
+    """The int8 column scales of the data term's rows (kernel N's scale
+    entry on CUDA tensors)."""
+    if plain or dt.rows.device.type == "cpu":
+        return gram_scales_plain(dense_rows(dt.rows, s.knn_idx, s.pts_by_node.off.shape[0] - 1))
+    return kernels.gram_scales(dt.rows, s.pts_by_node.order, s.pts_by_node.off)
+
+
+def data_gram(cfg: DynamicFusionConfig, s: SolveStructure, dt: DataTerm, scale: Optional[torch.Tensor],
+              plain: bool = False) -> torch.Tensor:
+    """One shard's data Gram with the given int8 column scales (None for
+    the bf16 Gram), no edge blocks: kernel N's shard mode on CUDA tensors."""
+    n = s.pts_by_node.off.shape[0] - 1
+    if plain or dt.rows.device.type == "cpu":
+        return dense_gram_plain(dt.rows, s.knn_idx, cfg.solver_jtj_int8, None, None, None, None, scale=scale, n=n)
+    return kernels.dense_gram(dt.rows, s.knn_idx, s.pts_by_node.order, s.pts_by_node.off, None, None, None, None,
+                              None, cfg.solver_jtj_int8, scale=scale, edges=False)
+
+
+def edge_jtj(s: SolveStructure, et: EdgeTerm, plain: bool = False) -> torch.Tensor:
+    """The ARAP blocks placed in a dense (6N, 6N) matrix alone: kernel N
+    (``dense_gram``) over no data rows, 0 + the edge share, exact."""
+    n = et.diag.shape[0]
+    dev = et.diag.device
+    rows = torch.zeros((0, 1, 8, 6), dtype=torch.bfloat16, device=dev)
+    knn = torch.zeros((0, 8), dtype=torch.int64, device=dev)
+    if plain or dev.type == "cpu":
+        return dense_gram_plain(rows, knn, False, et.h_ij, et.diag, s.e_src, s.e_dst)
+    empty = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+    return kernels.dense_gram(rows, knn, empty[:0], empty, et.h_ij, et.diag, s.e_dst, s.edges_by_dst.order,
+                              s.edges_by_dst.off, False)
 
 
 def _damping_from_diag(floor: float, active: torch.Tensor, diag: torch.Tensor):
@@ -780,7 +1000,8 @@ def damping_terms(cfg: DynamicFusionConfig, active: torch.Tensor, blocks: torch.
 
 
 def solve(
-    cfg: DynamicFusionConfig, field: WarpField, inputs: WarpSolveInputs, plain: bool = False
+    cfg: DynamicFusionConfig, field: WarpField, inputs, plain: bool = False, system_fn=None, eval_fn=None,
+    mesh=None, global_points: Optional[int] = None, trace: Optional[list] = None,
 ) -> Tuple[WarpField, SolveStats]:
     """Estimate the warp field for the current frame:
     ``cfg.solver_nonlinear_iters`` LM iterations. Under the lagged JᵀJ the
@@ -794,19 +1015,75 @@ def solve(
     The dense path's factor under ``solver_chol_reuse`` (lagged only) is
     the factor of the system damped with the lambda of its last rebuild
     (iteration 0 or after a rejected step): the loop has no host branch, so
-    it factors every iteration, but a matrix equal to the reused one."""
+    it factors every iteration, but a matrix equal to the reused one.
+
+    The sharded step's hooks (JAX ``warp_solver.py:963-1118``):
+    ``system_fn(s, dqs) -> (jtj, jtr, cost)`` assembles the dense normal
+    equations (``parallel.distributed_gn.make_system_fn``: shard Grams,
+    one psum, the edge blocks once) and ``eval_fn(s, dqs) -> (jtr, cost)``
+    evaluates a candidate (``make_eval_fn``); a ``system_fn`` takes the
+    dense path. ``mesh`` is the distributed PCG mode (JAX's ``axis_name``
+    and ``axis_size``): ``inputs`` is a tuple of the mesh's local shards'
+    point sets, ``global_points`` the whole solve's (unpadded) point count;
+    each shard keeps its own bf16 rows, the gradient, the cost and the
+    (N, 6, 6) diagonal blocks are psum'd, and every PCG matvec is the psum
+    of the shards' data products plus the edge blocks and the damping
+    applied once (``pcg_sharded``). Needs the lagged JᵀJ and the PCG.
+
+    ``trace``, a list, receives each LM iteration's (point, candidate,
+    candidate's cost, the cost it is tested against, accepted, running)
+    as device tensors, for holding one solve's iterations against
+    another's; nothing is recorded without it."""
     _check_cfg(cfg)
     n = field.positions.shape[0]
     dev = field.dq.device
-    s = prepare(cfg, field, inputs, plain=plain)
-    dqs = field.dq
     lagged = cfg.solver_lagged_jtj
+    if mesh is not None:
+        if not (lagged and cfg.solver_linear == "pcg"):
+            raise ValueError("the distributed PCG solve needs solver_lagged_jtj and solver_linear='pcg'")
+        if system_fn is not None or eval_fn is not None:
+            raise ValueError("the distributed PCG solve takes no system_fn or eval_fn")
+        if len(inputs) != len(mesh.local):
+            raise ValueError(f"expected {len(mesh.local)} local shards' inputs, got {len(inputs)}")
+        if global_points is None:
+            # JAX's fallback: the padded count, every shard as large as this one
+            global_points = inputs[0].p_can.shape[0] * mesh.n
+        s = None
+        shards = []
+        for inp, fk in zip(inputs, zip(*(mesh.replicate(a) for a in field))):
+            sk = prepare(cfg, WarpField(*fk), inp, plain=plain, global_points=global_points, edges=s)
+            s = sk if s is None else s
+            shards.append(Shard(sk))
+    else:
+        s = prepare(cfg, field, inputs, plain=plain)
+    dqs = field.dq
     # the dense system: the direct solve (anything but "pcg", as in the JAX
-    # package), or the PCG over the dense matrix with the unlagged JᵀJ
-    dense = cfg.solver_linear != "pcg" or not lagged
+    # package), or the PCG over the dense matrix with the unlagged JᵀJ or
+    # an assembly hook
+    dense = cfg.solver_linear != "pcg" or not lagged or system_fn is not None
     direct = cfg.solver_linear != "pcg"
     reuse = direct and lagged and cfg.solver_chol_reuse
     floor = cfg.solver_damping_floor
+
+    def data_terms(dq, system: bool, row_stride: int = 1):
+        """(jtr, cost, blocks) of the data term at ``dq`` and the shards'
+        rows: psum'd over the mesh's shards, else the one data term."""
+        if mesh is None:
+            dt = data_term(cfg, s, dq, system=system, plain=plain, row_stride=row_stride)
+            return dt.jtr, dt.cost, dt.blocks, [dt.rows]
+        dts = [data_term(cfg, sh.s, dq_k, system=system, plain=plain, row_stride=row_stride)
+               for sh, dq_k in zip(shards, mesh.replicate(dq))]
+        blocks = mesh.psum([d.blocks for d in dts]) if system else None
+        return mesh.psum([d.jtr for d in dts]), mesh.psum([d.cost for d in dts]), blocks, [d.rows for d in dts]
+
+    def evaluate(dq):
+        """(jtr, cost) of a candidate (``eval_fn``'s, else the data and edge
+        terms'; an unlagged solve scores by the cost alone)."""
+        if eval_fn is not None:
+            return eval_fn(s, dq)
+        jtr_d, cost_d, _, _ = data_terms(dq, system=False)
+        ec = edge_term(cfg, s, dq, plain=plain)
+        return jtr_d + ec.jtr, cost_d + ec.cost
 
     lm_lambda = torch.full((), cfg.solver_lm_lambda_init, device=dev)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
@@ -814,27 +1091,35 @@ def solve(
     rebuild = torch.ones((), dtype=torch.bool, device=dev)  # iteration 0, or the last step was rejected
     used, stride = row_mode(cfg)
     if lagged:
-        dt = data_term(cfg, s, dqs, system=True, plain=plain, row_stride=1 if dense else stride)
-        et = edge_term(cfg, s, dqs, plain=plain)
-        jtr = dt.jtr + et.jtr
-        cost_prev = dt.cost + et.cost
-        cost0 = cost_prev
-        if dense:
-            jtj = dense_gram(cfg, s, dt, et, plain=plain)
+        if system_fn is not None:
+            jtj, jtr, cost_prev = system_fn(s, dqs)
         else:
-            blocks_full = dt.blocks + et.diag
-            diag_eff, unit = damping_terms(cfg, field.active, blocks_full)
+            jtr_d, cost_d, blocks_d, rows = data_terms(dqs, system=True, row_stride=1 if dense else stride)
+            et = edge_term(cfg, s, dqs, plain=plain)
+            jtr = jtr_d + et.jtr
+            cost_prev = cost_d + et.cost
+            if dense:
+                jtj = dense_gram(cfg, s, DataTerm(jtr_d, cost_d, rows[0], blocks_d), et, plain=plain)
+            else:
+                blocks_full = blocks_d + et.diag
+                diag_eff, unit = damping_terms(cfg, field.active, blocks_full)
+                if mesh is not None:
+                    shards = [sh._replace(rows=r) for sh, r in zip(shards, rows)]
+        cost0 = cost_prev
     minv = lam_f = None
     for it in range(cfg.solver_nonlinear_iters):
         if not lagged:
             # relinearize at the current point: after a rejected step the
             # point is unchanged and the deterministic kernels give the same
             # system again, as the JAX package's kept one
-            dt = data_term(cfg, s, dqs, system=True, plain=plain)
-            et = edge_term(cfg, s, dqs, plain=plain)
-            jtj = dense_gram(cfg, s, dt, et, plain=plain)
-            jtr = dt.jtr + et.jtr
-            cost_lin = dt.cost + et.cost
+            if system_fn is not None:
+                jtj, jtr, cost_lin = system_fn(s, dqs)
+            else:
+                dt = data_term(cfg, s, dqs, system=True, plain=plain)
+                et = edge_term(cfg, s, dqs, plain=plain)
+                jtj = dense_gram(cfg, s, dt, et, plain=plain)
+                jtr = dt.jtr + et.jtr
+                cost_lin = dt.cost + et.cost
             cost_prev = cost_lin if it == 0 else torch.where(running, cost_lin, cost_prev)
             if it == 0:
                 cost0 = cost_lin
@@ -846,23 +1131,27 @@ def solve(
             step = -dense_pcg(damped, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)
         else:
             damp = lm_lambda * diag_eff + unit
-            sys = System(dt.rows, et, damp, used, stride)
+            sys = System(rows[0], et, damp, used, stride)
             fresh = spd6_inv(blocks_full + torch.diag_embed(damp.reshape(n, 6)), plain=plain)
             minv = fresh if minv is None else torch.where(rebuild, fresh, minv)
-            step = -pcg(s, sys, minv, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)
+            if mesh is None:
+                step = -pcg(s, sys, minv, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)
+            else:
+                step = -pcg_sharded(mesh, shards, s, sys, minv, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol,
+                                    running, plain=plain)
         step = step.reshape(n, 6)
         step = torch.where(field.active[:, None] & torch.isfinite(step).all(-1, keepdim=True), step, 0.0)
         sn = torch.linalg.vector_norm(step, dim=-1, keepdim=True)
         step = step * torch.clamp(cfg.solver_max_step / torch.clamp(sn, min=1e-12), max=1.0)
         cand = dualquat.normalize(dualquat.mul(dualquat.from_twist(step[:, :3], step[:, 3:]), dqs))
-        dc = data_term(cfg, s, cand, system=False, plain=plain)
-        ec = edge_term(cfg, s, cand, plain=plain)
-        cand_cost = dc.cost + ec.cost
+        jtr_c, cand_cost = evaluate(cand)
         better = running & (cand_cost < cost_prev)
+        if trace is not None:
+            trace.append((dqs, cand, cand_cost, cost_prev, better, running))
         improvement = torch.where(better, cost_prev - cand_cost, 0.0)
         dqs = torch.where(better, cand, dqs)
         if lagged:
-            jtr = torch.where(better, dc.jtr + ec.jtr, jtr)
+            jtr = torch.where(better, jtr_c, jtr)
         cost_prev = torch.where(better, cand_cost, cost_prev)
         lm_lambda = torch.where(running, torch.clamp(torch.where(better, lm_lambda * 0.5, lm_lambda * 8.0), 1e-8, 1e6), lm_lambda)
         accepted = accepted + better.to(torch.int32)

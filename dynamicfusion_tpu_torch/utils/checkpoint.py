@@ -5,7 +5,9 @@ state's leaves in the order ``jax.tree.flatten`` gives the JAX package's
 fields in order, the map pyramids level by level). A checkpoint written by
 either package loads in the other. ``load`` checks the leaves' shapes
 against the config and re-encodes a volume written under other storage
-dtypes (``models.volume.convert``).
+dtypes (``models.volume.convert``). A sharded state (``parallel``) is
+gathered to write and split to restore: the file is the same whatever the
+shard count.
 """
 
 from __future__ import annotations
@@ -47,8 +49,14 @@ def unflatten(flat: List, levels: int) -> kinfu.PipelineState:
     return kinfu.PipelineState(vol, warp, pose, prev_points, prev_normals, can_points, can_normals, frame_idx)
 
 
-def save(path: str, state: kinfu.PipelineState) -> None:
-    """Write the state as one compressed .npz (copied to the host)."""
+def save(path: str, state: kinfu.PipelineState, mesh=None) -> None:
+    """Write the state as one compressed .npz (copied to the host); a
+    sharded state's volume gathered over its ``mesh`` (every rank of a
+    multi-process mesh takes part; write from one)."""
+    if not isinstance(state.vol, TsdfVolume):
+        if mesh is None:
+            raise ValueError("save: a sharded state needs its mesh")
+        state = state._replace(vol=mesh.whole(state.vol))
     flat = leaves(state)
     if any(t.dtype == torch.bfloat16 for t in flat):
         raise NotImplementedError("bf16 volume storage: numpy has no bfloat16 to write it as")
@@ -58,12 +66,15 @@ def save(path: str, state: kinfu.PipelineState) -> None:
 
 
 def load(path: str, cfg: DynamicFusionConfig, mesh=None, device="cuda") -> kinfu.PipelineState:
-    """Restore a state onto ``device`` (CUDA unless the CPU is asked for).
-    Raises ValueError when the checkpoint's leaves do not fit the config's
-    state; a volume stored under other dtypes is re-encoded to the
-    config's. ``mesh`` (a sharded restore) is not ported yet."""
+    """Restore a state onto ``device`` (CUDA unless the CPU is asked for),
+    or with ``mesh`` onto the mesh (the volume split into its slabs, the
+    rest on ``mesh.device``). Raises ValueError when the checkpoint's
+    leaves do not fit the config's state; a volume stored under other
+    dtypes is re-encoded to the config's."""
     if mesh is not None:
-        raise NotImplementedError("load(mesh=...): the sharded pipeline (parallel/) is not ported yet")
+        from dynamicfusion_tpu_torch.parallel import sharded
+
+        return sharded.shard_state(cfg, mesh, load(path, cfg, device=mesh.device))
     dev = device_mod.resolve(device)
     volume_model.check_storage(cfg, dev)
     with np.load(path) as data:

@@ -16,6 +16,7 @@ from dynamicfusion_tpu.utils import checkpoint as jckpt
 from dynamicfusion_tpu_torch import interop
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.models import volume as tvolume
+from dynamicfusion_tpu_torch.parallel import sharded as psharded
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
 from dynamicfusion_tpu_torch.utils import checkpoint as tckpt
 
@@ -108,8 +109,10 @@ def test_load_rejects_a_wrong_config(tmp_path):
     with pytest.raises(ValueError, match="leaves"):
         tckpt.load(path, dataclasses.replace(TC, pyramid_levels=TC.pyramid_levels + 1,
                                              icp_iters=tuple(TC.icp_iters) + (1,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tckpt.load(path, TC, mesh=object(), device="cpu")
+    # a restore onto a mesh checks the leaves as well
+    mesh = psharded.make_mesh(4, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="incompatible"):
+        tckpt.load(path, dataclasses.replace(TC, volume_dims=64), mesh=mesh)
 
 
 def test_f32_migration(tmp_path):

@@ -325,9 +325,12 @@ NR_DEPTHS = synthetic.deforming_frames(NR.intr, NR.rows, NR.cols, 4)
 DENSE = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 # the kernels no preset's frame step runs: those of options that no preset
 # turns on, the adaptive node radius (E's radius entry), the dense-matrix
-# PCG (P), the net rigid removal (Q) and the dense fusion (F1, F2), and the
-# export path's extracted normals (R)
-OPTIONS = ("node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid", "extract_normals")
+# PCG (P), the net rigid removal (Q) and the dense fusion (F1, F2), the
+# export path's extracted normals (R), and the sharded step's distributed
+# PCG (G's data-only matvec and step, P's init)
+SHARDED = ("data_matvec", "pcg_init", "pcg_step")
+OPTIONS = ("node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid",
+           "extract_normals") + SHARDED
 
 
 @pytest.fixture
@@ -941,3 +944,148 @@ def test_depth_icp_kernels(dev):
     assert float((a[:3, 3] - b[:3, 3]).abs().max()) <= 1e-4
     assert float((a[:3, :3] - b[:3, :3]).abs().max()) <= 1e-5
     assert np.abs(a[:3, 3].numpy() - delta).max() <= 2e-3
+
+
+# ---------------------------------------------------------------- the sharded step's modes
+
+
+def test_slab_raycast_kernel(dev, model):
+    """Kernel C's slab mode on each shard's extended slab (4 shards) against
+    its plain version: found and the first exit event's t equal, the
+    refined t and the vertex within 1e-4 m where found, the normal within
+    1e-5 (NaN alike)."""
+    from dynamicfusion_tpu_torch.parallel import sharded_raycast
+
+    cfg = dataclasses.replace(CFG, raycast_adaptive_step=False)
+    d, n, halo = cfg.volume_dims, 4, sharded_raycast._halo_planes(cfg)
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), model.pose)
+    org, dirs, tmin, tmax = tsdf.rays(cfg, cam2vol, cfg.intr, cfg.rows, cfg.cols)
+    for k in range(n):
+        x_off = k * (d // n) - halo
+        ext = model.vol.tsdf[max(x_off, 0): x_off + d // n + 2 * halo]
+        if x_off < 0:
+            ext = torch.cat([model.vol.tsdf[x_off:], ext])
+        if ext.shape[0] < d // n + 2 * halo:
+            ext = torch.cat([ext, model.vol.tsdf[: d // n + 2 * halo - ext.shape[0]]])
+        lo, hi = sharded_raycast.slab_window(cfg, k, n, org, dirs, tmin, tmax)
+        ext = ext.contiguous()
+        got = tsdf.march_slab(cfg, ext, x_off, org, dirs, lo, hi)
+        ref = tsdf.march_slab(cfg, ext, x_off, org, dirs, lo, hi, plain=True)
+        torch.cuda.synchronize()
+        f = ref[0]
+        assert torch.equal(got[0], f) and torch.equal(got[4], ref[4])
+        assert float((got[1][f] - ref[1][f]).abs().max()) <= 1e-4
+        assert float((got[2][f] - ref[2][f]).abs().max()) <= 1e-4
+        # a hit whose refined point left the volume carries a NaN normal in both
+        assert torch.equal(torch.isnan(got[3][f]), torch.isnan(ref[3][f]))
+        assert float(torch.nan_to_num((got[3][f] - ref[3][f]).abs(), nan=0.0).max()) <= 1e-5
+        assert bool(torch.isnan(got[1][~f]).all())
+
+
+@pytest.mark.parametrize("split", [1, 2])
+def test_slab_brick_plan_and_fuse_kernels(dev, nr_model, split):
+    """Kernels K and D's slab modes (4 slabs of the non-rigid state): the
+    classes and the work list equal the plain version's bit for bit (the
+    phase on the global brick plane), the fused codes within 1 LSB on a
+    1e-4 share and the weights equal."""
+    from dynamicfusion_tpu_torch.ops import fusion
+    from dynamicfusion_tpu_torch.parallel import sharded_fusion
+
+    cfg = dataclasses.replace(NR, fusion_phase_split=split, fusion_interval=2)
+    st, _, _ = nr_model
+    n, b, g = 4, cfg.brick_size, cfg.knn_field_stride
+    dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(NR_DEPTHS[3]).to(dev))
+    cf = fusion.coarse_field(cfg, st.warp, plain=True)
+    grid = se3.transform_points(se3.inverse(st.pose), cf.warped)
+    band_cap, wide_cap = sharded_fusion.caps(cfg, n)
+    phase = torch.ones((), dtype=torch.int32, device=dev)
+    dl = cfg.volume_dims // n
+    for k in range(n):
+        gk = bricks.corner_slab(grid, k, n, b, g).contiguous()
+        qk = bricks.corner_slab(cf.q, k, n, b, g).contiguous()
+        bk = bricks.plan_slab(cfg, dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap, phase, split)
+        bp = bricks.plan_slab(cfg, dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap, phase, split, plain=True)
+        for a, c in zip(bk.classes, bp.classes):
+            assert torch.equal(a, c)
+        for a, c in zip(bk.work, bp.work):
+            assert torch.equal(a, c)
+        vk = TsdfVolume(st.vol.tsdf[k * dl:(k + 1) * dl].clone(), st.vol.weight[k * dl:(k + 1) * dl].clone())
+        vp = TsdfVolume(vk.tsdf.clone(), vk.weight.clone())
+        on = torch.ones((), dtype=torch.bool, device=dev)
+        bricks.fuse(cfg, vk, dists, gk, g, cfg.intr, bk, on, qk)
+        bricks.fuse(cfg, vp, dists, gk, g, cfg.intr, bp, on, qk, plain=True)
+        dt = (vk.tsdf.to(torch.int32) - vp.tsdf.to(torch.int32)).abs()
+        assert int(dt.max()) <= 1 and float((dt > 0).float().mean()) <= 1e-4
+        assert torch.equal(vk.weight.to(torch.int32), vp.weight.to(torch.int32))
+
+
+def test_distributed_pcg_and_shard_gram_kernels(dev, nr_model):
+    """G's data-only matvec of each of 4 shards against its plain version
+    (one bf16 rounding of t may flip with the sum order) and bit-equal to
+    the plain version in its order, the distributed PCG bit-equal to the
+    plain distributed PCG (every sum in the kernels' order), a finished loop as no-op launches, and N's shard mode
+    with the pmax'd scales bit-equal to its plain version, whose psum with
+    the edge blocks placed once is the single-device int8 Gram within the
+    float sums of the shards' dequantized Grams."""
+    from dynamicfusion_tpu_torch.parallel import distributed_gn, sharded
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    st, inputs, _ = nr_model
+    mesh = sharded.make_mesh(4, devices=[dev] * 4)
+    n = st.warp.dq.shape[0]
+    s = ws.prepare(NR, st.warp, inputs)
+    shards = distributed_gn.shard_structure(s, mesh)
+    dts = [ws.data_term(NR, sk, st.warp.dq, True, plain=True) for sk in shards]
+    et = ws.edge_term(NR, s, st.warp.dq, plain=True)
+    pv = torch.randn(6 * n, generator=torch.Generator().manual_seed(0)).to(dev)
+    sys0 = ws.System(dts[0].rows, et, torch.ones(6 * n, device=dev))
+    for sk, dt in zip(shards, dts):
+        got = kernels.data_matvec(dt.rows, sk.knn_idx, sk.pts_by_node.order, sk.pts_by_node.off, pv)
+        ref = ws.data_matvec_plain(sk, sys0._replace(rows=dt.rows), pv).reshape(-1)
+        assert _close(got, ref, 1e-3)
+        assert torch.equal(got, ws.data_matvec_ordered(sk, sys0._replace(rows=dt.rows), pv).reshape(-1))
+    blocks = mesh.psum([dt.blocks for dt in dts]) + et.diag
+    damp = 1e-3 * torch.diagonal(blocks, dim1=-2, dim2=-1).reshape(-1) + 1e-8
+    sysm = ws.System(dts[0].rows, et, damp)
+    minv = ws.spd6_inv(blocks + torch.diag_embed(damp.reshape(n, 6)), plain=True)
+    b = mesh.psum([dt.jtr for dt in dts]) + et.jtr
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    parts = [ws.Shard(sk, dt.rows) for sk, dt in zip(shards, dts)]
+    xk = ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on)
+    xp = ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on, plain=True)
+    assert torch.equal(xk, xp)  # the plain version sums in the kernels' order
+    assert not bool(ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, ~on).any())
+    cfg = dataclasses.replace(NR, solver_linear="direct")
+    scale = mesh.pmax([ws.gram_scales(sk, dt) for sk, dt in zip(shards, dts)])
+    grams = []
+    for sk, dt in zip(shards, dts):
+        gk = ws.data_gram(cfg, sk, dt, scale)
+        assert torch.equal(gk, ws.data_gram(cfg, sk, dt, scale, plain=True))
+        grams.append(gk)
+    whole = ws.data_term(cfg, s, st.warp.dq, True, plain=True)
+    one = ws.dense_gram(cfg, s, whole, et)
+    summed = mesh.psum(grams) + ws.edge_jtj(s, et)
+    assert torch.equal(ws.edge_jtj(s, et), ws.edge_jtj(s, et, plain=True))
+    assert _close(summed, one, 1e-6)
+
+
+def test_sharded_step_on_the_card_goes_through_its_kernels(dev):
+    """The preset's slice over 4 shards on one card: the slab modes of C,
+    K and D and the distributed PCG launch; each step against the
+    single-device fixed-step step from the same state (pose 1e-4)."""
+    from dynamicfusion_tpu_torch.parallel import sharded
+
+    mesh = sharded.make_mesh(4, devices=[dev] * 4)
+    step = sharded.make_sharded_step(NR, mesh)
+    ref_cfg = dataclasses.replace(NR, raycast_adaptive_step=False)
+    state = sharded.make_sharded_first_frame(NR, mesh)(kinfu.init_state(NR, dev), torch.from_numpy(NR_DEPTHS[0]))
+    kernels.reset_launches()
+    for d in NR_DEPTHS[1:]:
+        whole = sharded.gather_state(mesh, state)
+        _, ro = kinfu.step(ref_cfg, whole._replace(vol=TsdfVolume(whole.vol.tsdf.clone(), whole.vol.weight.clone())),
+                           torch.from_numpy(d).to(dev))
+        state, out = step(state, torch.from_numpy(d))
+        assert bool(out.icp_ok)
+        assert float((out.pose - ro.pose).abs().max()) <= 1e-4
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] > 0 for k in ("raycast", "brick_plan", "fuse_bricks") + SHARDED), kernels.launches

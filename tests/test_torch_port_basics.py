@@ -59,6 +59,18 @@ def test_port_file_imports_no_jax(path):
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
 
 
+def test_import_check_covers_the_parallel_package():
+    """The sharded pipeline's modules are among the files checked above,
+    every one of the JAX package's parallel/ modules has its counterpart,
+    and the multi-process worker module imports only the port."""
+    port = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
+    jax_mods = {p.name for p in (ROOT / "dynamicfusion_tpu" / "parallel").glob("*.py")}
+    assert jax_mods <= port and "mesh.py" in port
+    mods = set(_imported_modules(ROOT / "dynamicfusion_tpu_torch" / "parallel" / "multihost.py"))
+    assert all(m.split(".")[0] in ("torch", "dynamicfusion_tpu_torch", "__future__", "argparse", "dataclasses",
+                                   "json", "os", "sys", "time", "typing") for m in mods), mods
+
+
 PRESETS = [
     ("default", lambda c: c()),
     ("default_dynamicfusion", lambda c: c.default_dynamicfusion()),
@@ -327,6 +339,16 @@ WRAPPER_CALLS = {
     "matvec": lambda: kernels.matvec(_factored_system(), torch.zeros(48)),
     "pcg": lambda: kernels.pcg(
         _factored_system(), torch.zeros((8, 6, 6)), torch.zeros(48), 12, 1e-3, torch.ones((), dtype=torch.bool),
+    ),
+    "data_matvec": lambda: kernels.data_matvec(
+        torch.zeros((4, 1, 8, 6), dtype=torch.bfloat16), torch.zeros((4, 8), dtype=torch.int64),
+        torch.zeros(32, dtype=torch.int32), torch.zeros(9, dtype=torch.int32), torch.zeros(48),
+    ),
+    "pcg_init": lambda: kernels.pcg_sharded_init(
+        torch.zeros((8, 6, 6)), torch.zeros(48), 12, 1e-3, torch.ones((), dtype=torch.bool),
+    ),
+    "pcg_step": lambda: kernels.pcg_sharded_step(
+        _factored_system(), torch.zeros((8, 6, 6)), torch.zeros(48), torch.zeros(48), torch.zeros(4 * 48 + 3),
     ),
     "insert_select": lambda: kernels.insert_select(
         torch.zeros((4, 3)), torch.zeros(4), torch.ones(4, dtype=torch.bool), torch.zeros(8, dtype=torch.bool),
