@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--frames N] [--nr-frames M] [--q-frames Q] [--a-frames A] [--p-frames P]
                           [--d-frames D] [--r-frames R] [--o-frames O] [--dn-frames E] [--demo-frames F]
-                          [--s-frames S] [--profile DIR] [--dump-solve FILE]
+                          [--s-frames S] [--f-frames F] [--k-frames K] [--profile DIR] [--dump-solve FILE]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 
@@ -156,7 +156,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    processes on the card over gloo, two shards each, 3 preset frames: the
    ranks equal and every step bit-equal to the one-process mesh (NCCL only
    with a card a rank, else a line says it did not run);
-20. print the per-kernel JSON line, the card's name and power limit, and
+20. kernels C, D, F1, F2, L and R at the float volume storages, at full
+   width on the preset's state after three frames re-encoded into each
+   storage (and its frame-0 volume for L and R), each bit-equal to its
+   plain version: C's every refine with the in-cell and the six-sample
+   normal, and its slab mode on 4 shards, and R at the f32 and bf16 tsdf;
+   D rigid, non-rigid and on 4 slabs, F1, F2 (phase split, incidence
+   confidence) and L at the five (tsdf, weight) pairs beside i16/u16;
+21. ``default_dynamicfusion()`` at each pair through ``DynamicFusion``:
+   f32/f32 for F frames (``--f-frames``), the others for 7 (frame 6
+   fuses), phase 4's checks and the plain step from each state, then the
+   demo's export from the final state (L's cloud, R's normals); 3 steps of
+   the dense non-rigid cell (F1, F2, C's newton16) at every pair and of the
+   reference-shaped rigid cell (F1, C's six-sample normal) under f32/f32,
+   each against the plain step;
+22. the preset under f32/f32 over ``make_mesh(4)`` for 7 frames, the last
+   3 steps held as phase 17 holds its steps;
+23. ``default_kinfu()`` (512^3 over 3 m, the direct solve) over K frames
+   (``--k-frames``) of the deforming scene rendered with its own
+   intrinsics: phase 9's checks, the plain step from each state, 3 more
+   frames profiled; kernel K at its 32^3 brick grid and L at 512^3 against
+   their plain versions, timed;
+24. print the per-kernel JSON line, the card's name and power limit, and
    last the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler table and trace of 3 frames of
@@ -1340,12 +1361,13 @@ RAYCAST_VARIANTS = (("newton16", "newton16", False), ("hybrid16", "hybrid16", Fa
                     ("grad6_newton16", "newton16", True), ("grad6_hybrid16", "hybrid16", True))
 
 
-def hold_raycast(torch, report, name, cfg, tsdf, rays, exact_found=False):
+def hold_raycast(torch, report, name, cfg, tsdf, rays, exact_found=False, exact=False):
     """Kernel C against its plain version on the same rays (hit/miss, vertex
     and normal), timed, with its bound for this run's march: the samples
-    the rays take plus the refine's corner loads a hit (``refine_work``).
-    ``exact_found``: the hit mask must equal the plain version's on every
-    ray."""
+    the rays take plus the refine's corner loads a hit (``refine_work``),
+    at the tsdf's width. ``exact_found``: the hit mask must equal the
+    plain version's on every ray; ``exact``: the hits' vertices and normals
+    too, bit for bit."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.models import volume as volume_model
     from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
@@ -1359,13 +1381,13 @@ def hold_raycast(torch, report, name, cfg, tsdf, rays, exact_found=False):
     # a hit whose refined point left the volume carries a NaN normal in both
     nan_same = torch.equal(torch.isnan(nk_[both]), torch.isnan(np_[both]))
     nerr = float(torch.nan_to_num((nk_ - np_)[both].abs(), nan=0.0).max()) if bool(both.any()) else 0.0
-    found_tol = 0.0 if exact_found else TOL_RAYCAST_FOUND_FRAC
+    found_tol = 0.0 if exact_found or exact else TOL_RAYCAST_FOUND_FRAC
+    tol_m, tol_n = (0.0, 0.0) if exact else (TOL_RAYCAST_M, TOL_RAYCAST_NORMAL)
     mode = f"{cfg.raycast_refine}{', six-sample normal' if cfg.raycast_smooth_normals else ''}"
-    check(name, found_frac <= found_tol and err <= TOL_RAYCAST_M and nan_same and nerr <= TOL_RAYCAST_NORMAL,
-          f"{dirs.shape[1]}x{dirs.shape[0]} ({mode}): hit/miss differs on {found_frac:.2e} of rays "
-          f"(tol {found_tol}), "
-          f"max vertex diff {err:.3e} m (tol {TOL_RAYCAST_M}), max normal diff {nerr:.3e} (tol {TOL_RAYCAST_NORMAL}), "
-          f"NaN normals alike {nan_same}; {int(fk.sum())} of {fk.numel()} rays hit")
+    check(name, found_frac <= found_tol and err <= tol_m and nan_same and nerr <= tol_n and int(fk.sum()) > 0,
+          f"{str(tsdf.dtype)[6:]} tsdf, {dirs.shape[1]}x{dirs.shape[0]} ({mode}): hit/miss differs on "
+          f"{found_frac:.2e} of rays (tol {found_tol}), max vertex diff {err:.3e} m (tol {tol_m}), max normal diff "
+          f"{nerr:.3e} (tol {tol_n}), NaN normals alike {nan_same}; {int(fk.sum())} of {fk.numel()} rays hit")
     hits = int(fk.sum())
     gathers, ops = refine_work(cfg)
     n_samples = march_samples(torch, cfg, tsdf, ray_org, dirs, tmin, tmax) + gathers * hits
@@ -1378,9 +1400,11 @@ def hold_raycast(torch, report, name, cfg, tsdf, rays, exact_found=False):
             cfg.raycast_adaptive_step, refine=refine, smooth=cfg.raycast_smooth_normals,
             delta=cfg.gradient_delta_factor)),
         plain_ms=cuda_ms(torch, lambda: tsdf_ops.march_and_refine_plain(cfg, tsdf, ray_org, dirs, tmin, tmax), reps=3),
-        # int16 samples (the march, the refine's corners), the rays in,
-        # found/vertex/normal out; ~12 operations a sample, the refine's a hit
-        bound=bound_ms(n_samples * 2 + fk.numel() * (12 + 8 + 1 + 24), n_samples * 12.0 + hits * ops),
+        # the samples (the march, the refine's corners) at the tsdf's width,
+        # the rays in, found/vertex/normal out; ~12 operations a sample, the
+        # refine's a hit
+        bound=bound_ms(n_samples * tsdf.element_size() + fk.numel() * (12 + 8 + 1 + 24),
+                       n_samples * 12.0 + hits * ops),
         library_ms=None,
     )
     return fk
@@ -1555,7 +1579,6 @@ def extract_kernels(torch, report, dev, nr_depths):
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.models import warpfield
-    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
     from dynamicfusion_tpu_torch.pipeline import kinfu
 
     cfg = DynamicFusionConfig.default_dynamicfusion()
@@ -1563,15 +1586,7 @@ def extract_kernels(torch, report, dev, nr_depths):
     df(nr_depths[0])
     vol = df.state.vol
     maxp = max(cfg.max_nodes * cfg.node_sample_step, 1 << 20)
-    ck = tsdf_ops.extract_cloud(cfg, vol, maxp, min_weight=1.0)
-    cp = tsdf_ops.extract_cloud(cfg, vol, maxp, min_weight=1.0, plain=True)
-    count = int(cp.count)
-    same = (torch.equal(ck.valid, cp.valid) and torch.equal(ck.count, cp.count)
-            and torch.equal(torch.isnan(ck.points), torch.isnan(cp.points))
-            and torch.equal(torch.nan_to_num(ck.points), torch.nan_to_num(cp.points)))
-    check("extract_cloud", same and 0 < count,
-          f"{cfg.volume_dims}^3 frame-0 volume: {count} crossings into {maxp} rows; points, flags and count "
-          f"equal the plain version's bit for bit {same}")
+    cp = hold_extract(torch, report, "extract_cloud", cfg, vol, maxp)
     fk = warpfield.init_from_cloud(cfg, cp.points, cp.valid)
     fp = warpfield.init_from_cloud(cfg, cp.points, cp.valid, plain=True)
     same_n = all(torch.equal(a, b) for a, b in zip(fk, fp))
@@ -1580,18 +1595,7 @@ def extract_kernels(torch, report, dev, nr_depths):
     check("sample_nodes", same_n and path_same and int(fk.count) > 0,
           f"{mc} candidates -> {int(fk.count)} of {cfg.max_nodes} nodes: field equal the plain version's bit for bit "
           f"{same_n}; DynamicFusion's frame-0 field the same {path_same}")
-    d = cfg.volume_dims
-    org = tuple(float(v) for v in cfg.volume_origin)
     perm = warpfield._fair_perm_on(mc, dev)
-    report["extract_cloud"] = dict(
-        err=0.0,
-        ms=cuda_ms(torch, lambda: kernels.extract_cloud(vol.tsdf, vol.weight, 1.0, maxp, cfg.voxel_size, org)),
-        plain_ms=cuda_ms(torch, lambda: tsdf_ops.extract_cloud_plain(cfg, vol, maxp, 1.0), reps=3),
-        # tsdf and weight read once, points and flags written, the count;
-        # ~8 operations a crossing test, ~10 a crossing
-        bound=bound_ms(d ** 3 * 4 + maxp * 13 + 4, 3.0 * (d - 1) * d * d * 8.0 + count * 10.0),
-        library_ms=None,
-    )
     nsel = int(fk.count)
     report["sample_nodes"] = dict(
         err=0.0,
@@ -2975,20 +2979,7 @@ def demo_main(torch, args, report, dev, card, path_kernels):
               f"{pts.shape[0]} rows, {int((~torch.isnan(pts[:, 0])).sum())} points, {nvalid} normals: NaNs alike "
               f"{same_nan}, equal the plain version's bit for bit {same}")
         # the voxels the valid rows' six samples read (each once), the rows in and out
-        p_vox = (pts[valid] - torch.tensor(cfg.volume_origin, device=dev)) / cfg.voxel_size
-        d = cfg.volume_dims
-        cells = []
-        for axis in range(3):
-            for sgn in (1.0, -1.0):
-                q = p_vox.clone()
-                q[:, axis] += sgn * cfg.gradient_delta_factor
-                base = torch.floor(q).long().clamp(0, d - 2)
-                for dx in (0, 1):
-                    for dy in (0, 1):
-                        for dz in (0, 1):
-                            cells.append(((base[:, 0] + dx) * d + base[:, 1] + dy) * d + base[:, 2] + dz)
-        nvox = int(torch.unique(torch.cat(cells)).numel())
-        del cells
+        nvox = normal_voxels(torch, cfg, pts, valid)
         org = tuple(float(v) for v in cfg.volume_origin)
         report["extract_normals"] = dict(
             err=abs_err(torch, nk, npl),
@@ -3210,11 +3201,13 @@ def hold_sharded_step(torch, tag, cfg, mesh, state, out, ref, ro, ref2, i):
     c0_rel = abs(float(out.solver_cost0) - c0) / max(c0, 1e-30)
     hit, far, far_max = _maps_apart(torch, state.can_points, ref.can_points)
     vol = sharded.gather_state(mesh, state).vol
-    codes = (vol.tsdf.to(torch.int32) - ref.vol.tsdf.to(torch.int32)).abs()
+    # codes (ulps of a float storage) apart
+    codes = (ordered(torch, vol.tsdf) - ordered(torch, ref.vol.tsdf)).abs()
     vol_frac = float((codes > 1).float().mean())
+    del codes
     hit2, _, map2 = _maps_apart(torch, state.can_points, ref2.can_points)
-    codes2 = int((vol.tsdf.to(torch.int32) - ref2.vol.tsdf.to(torch.int32)).abs().max())
-    w_same = torch.equal(vol.weight.to(torch.int32), ref2.vol.weight.to(torch.int32))
+    codes2 = apart(torch, vol.tsdf, ref2.vol.tsdf)
+    w_same = apart(torch, vol.weight, ref2.vol.weight) == 0
     _, _, track = _maps_apart(torch, out.model_points, ro.model_points)
     ok = (bool(out.icp_ok) and bool(ro.icp_ok) and pose_err <= TOL_STEP_POSE and c0_rel <= TOL_STEP_COST0_REL
           and hit2 <= TOL_SH_MAP_FRAC and map2 <= TOL_SH_MAP_M and codes2 <= 1 and w_same)
@@ -3886,6 +3879,545 @@ def multiprocess_main(torch, args, dev, card, config="preset"):
               flush=True)
 
 
+# ---------------------------------------------------------------- the float storages, default_kinfu() (phases 20-23)
+
+# the (tsdf, weight) storages of the JAX config (config.py:484-499) beside the
+# default (i16, u16); kernels C and R read the tsdf only, held at its two
+# float storages
+STORAGES = (("i16", "f32"), ("f32", "u16"), ("f32", "f32"), ("bf16", "u16"), ("bf16", "f32"))
+TSDF_STORAGES = ("f32", "bf16")
+# kernel C's modes held at each float tsdf: every refine, with the in-cell
+# and with the six-sample normal
+STORAGE_RAYCASTS = tuple((r, s) for s in (False, True) for r in ("secant", "newton8", "newton16", "hybrid16"))
+# the preset's frames under the storages other than f32/f32 (frame 6 fuses)
+STORAGE_FRAMES = 7
+# every kernel at every float storage is held bit-equal to its plain
+# version on the same inputs: the codes, weights and counts of D, F1, F2
+# and L, the hits, vertices, normals (and the slab mode's t and exit
+# events) of C, the normals of R; the float storages decode by 1 and the
+# float32 arithmetic is the plain version's operation for operation
+
+def _storage_row(name, src, rep, counter, path):
+    ROWS[name] = (src, rep)
+    COUNTER[name] = counter
+    PATH[name] = path
+
+
+# the JSON rows of the storages and of the 512^3 volume: (source, the TPU
+# kernel-role function, the launch counter, the run whose counters they are)
+for _t in TSDF_STORAGES:
+    _storage_row(f"raycast_newton8_{_t}", "raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:529", "raycast",
+                 f"preset_{_t}_f32")
+    _storage_row(f"raycast_newton16_{_t}", "raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:529", "raycast",
+                 f"dense_{_t}_f32")
+    _storage_row(f"extract_normals_{_t}", "normals.cu", "dynamicfusion_tpu/ops/tsdf.py:724", "extract_normals",
+                 f"export_{_t}_f32")
+for _t, _w in STORAGES:
+    _tag = f"{_t}_{_w}"
+    _storage_row(f"fuse_bricks_nonrigid_{_tag}", "fuse_bricks.cu", "dynamicfusion_tpu/ops/bricks.py:552",
+                 "fuse_bricks", f"preset_{_tag}")
+    _storage_row(f"integrate_dense_{_tag}", "fuse_dense.cu", "dynamicfusion_tpu/ops/tsdf.py:169", "integrate_dense",
+                 f"dense_{_tag}")
+    _storage_row(f"integrate_dense_nonrigid_{_tag}", "fuse_dense.cu", "dynamicfusion_tpu/ops/fusion.py:174",
+                 "integrate_dense_nonrigid", f"dense_{_tag}")
+    _storage_row(f"extract_cloud_{_tag}", "extract.cu", "dynamicfusion_tpu/ops/tsdf.py:669", "extract_cloud",
+                 f"preset_{_tag}")
+_storage_row("raycast_grad6_secant_f32", "raycast.cu", "dynamicfusion_tpu/ops/tsdf.py:610", "raycast",
+             "ref_rigid_f32_f32")
+_storage_row("raycast_slab_f32", "raycast.cu", "dynamicfusion_tpu/parallel/sharded_raycast.py:176", "raycast",
+             "sharded_f32_f32")
+_storage_row("fuse_bricks_slab_f32_f32", "fuse_bricks.cu", "dynamicfusion_tpu/parallel/sharded_fusion.py:156",
+             "fuse_bricks", "sharded_f32_f32")
+# default_kinfu()'s 512^3 volume: K at its 32^3 brick grid, L at ~98 000 tiles
+_storage_row("brick_plan_512", "classify.cu", "dynamicfusion_tpu/ops/bricks.py:213", "brick_plan", "kinfu")
+_storage_row("extract_cloud_512", "extract.cu", "dynamicfusion_tpu/ops/tsdf.py:669", "extract_cloud", "kinfu")
+
+
+def stored(cfg, vol, tsdf_dtype, weight_dtype="f32"):
+    """(``cfg`` with that storage, ``vol`` re-encoded into it)."""
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+
+    c = dataclasses.replace(cfg, tsdf_dtype=tsdf_dtype, weight_dtype=weight_dtype)
+    return c, volume_model.convert(vol, c)
+
+
+def ordered(torch, t):
+    """A volume tensor's values as integers in value order, so that the
+    difference of two is their distance in codes (i16, u16) or ulps (f32,
+    bf16)."""
+    if t.dtype == torch.int16:
+        return t.to(torch.int64)
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int64) & 0xFFFF
+    width = 16 if t.element_size() == 2 else 32
+    b = t.view(torch.int16 if width == 16 else torch.int32).to(torch.int64) & ((1 << width) - 1)
+    sign = 1 << (width - 1)
+    return torch.where(b & sign != 0, -(b & (sign - 1)), b)
+
+
+def apart(torch, a, b):
+    """The largest distance of two volume tensors in codes or ulps."""
+    return int((ordered(torch, a) - ordered(torch, b)).abs().max())
+
+
+def same_map(torch, a, b) -> bool:
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def vox_bytes(vol) -> int:
+    """A voxel's stored bytes, tsdf and weight."""
+    return vol.tsdf.element_size() + vol.weight.element_size()
+
+
+def normal_voxels(torch, cfg, pts, valid) -> int:
+    """The distinct voxels that kernel R's six samples read at the valid
+    rows (each once, for its bound)."""
+    p_vox = (pts[valid] - torch.tensor(cfg.volume_origin, device=pts.device)) / cfg.voxel_size
+    d = cfg.volume_dims
+    cells = []
+    for axis in range(3):
+        for sgn in (1.0, -1.0):
+            q = p_vox.clone()
+            q[:, axis] += sgn * cfg.gradient_delta_factor
+            base = torch.floor(q).long().clamp(0, d - 2)
+            for dx in (0, 1):
+                for dy in (0, 1):
+                    for dz in (0, 1):
+                        cells.append(((base[:, 0] + dx) * d + base[:, 1] + dy) * d + base[:, 2] + dz)
+    return int(torch.unique(torch.cat(cells)).numel())
+
+
+def hold_extract(torch, report, name, cfg, vol, maxp):
+    """Kernel L's extraction against its plain version (points, flags and
+    the uncapped count bit for bit), timed. Returns the plain cloud."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+
+    ck = tsdf_ops.extract_cloud(cfg, vol, maxp, min_weight=1.0)
+    cp = tsdf_ops.extract_cloud(cfg, vol, maxp, min_weight=1.0, plain=True)
+    count = int(cp.count)
+    same = torch.equal(ck.valid, cp.valid) and torch.equal(ck.count, cp.count) and same_map(torch, ck.points, cp.points)
+    d = cfg.volume_dims
+    tiles = (3 * (d - 1) * d * d + 4095) // 4096
+    check(name, same and count > 0,
+          f"{d}^3 ({str(vol.tsdf.dtype)[6:]} tsdf, {str(vol.weight.dtype)[6:]} weight; {tiles} tiles): {count} "
+          f"crossings into {maxp} rows; points, flags and count equal the plain version's bit for bit {same}")
+    org = tuple(float(v) for v in cfg.volume_origin)
+    report[name] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.extract_cloud(vol.tsdf, vol.weight, 1.0, maxp, cfg.voxel_size, org)),
+        plain_ms=cuda_ms(torch, lambda: tsdf_ops.extract_cloud_plain(cfg, vol, maxp, 1.0), reps=3),
+        # tsdf and weight read once, points and flags written, the count;
+        # ~8 operations a crossing test, ~10 a crossing
+        bound=bound_ms(d ** 3 * vox_bytes(vol) + maxp * 13 + 4, 3.0 * (d - 1) * d * d * 8.0 + count * 10.0),
+        library_ms=None,
+    )
+    return cp
+
+
+def storage_kernels(torch, report, dev, nr_depths):
+    """Phase 20: kernels C, D, F1, F2, L and R at the float storages, at
+    full width on the preset's state after three frames of the deforming
+    scene (re-encoded into each storage) and its next frame tracked, L and
+    R on its frame-0 volume: C's every refine and normal mode and its slab
+    mode (4 shards) and R at the two float tsdfs; D rigid, non-rigid and
+    on 4 slabs, F1, F2 (the phase split, the incidence confidence) and L at
+    the five storage pairs; each bit-equal to its plain version, timed."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.core import se3
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+    from dynamicfusion_tpu_torch.ops import bricks, fusion, tsdf as tsdf_ops
+    from dynamicfusion_tpu_torch.parallel import sharded, sharded_fusion, sharded_raycast
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    cfg = DynamicFusionConfig.default_dynamicfusion()
+    df = kinfu.DynamicFusion(cfg, device=dev)
+    df(nr_depths[0])
+    vol0 = clone_state(df.state).vol
+    for d in nr_depths[1:3]:
+        df(d)
+    st = df.state
+    del df
+    tr = kinfu.track(cfg, st, torch.from_numpy(nr_depths[3]).to(dev))
+    intr, d, n = cfg.intr, cfg.volume_dims, SHARDS
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), st.pose)
+    seed, band = tr.bands
+    rays = tsdf_ops.rays(cfg, cam2vol, intr.level(cfg.raycast_shift), rows_t, cols_t, seed, band)
+    mesh = sharded.make_mesh(n, devices=[dev] * n)
+    halo = sharded_raycast._halo_planes(cfg)
+    slab_cfg = dataclasses.replace(cfg, raycast_adaptive_step=False)
+    maxp = max(cfg.max_nodes * cfg.node_sample_step, 1 << 20)
+    org = tuple(float(v) for v in cfg.volume_origin)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+
+    for t in TSDF_STORAGES:
+        # C: every refine and normal mode on the preset's rays, its band
+        _, vt = stored(cfg, st.vol, t)
+        for refine, smooth in STORAGE_RAYCASTS:
+            name = f"raycast_{'grad6_' if smooth else ''}{refine}_{t}"
+            hold_raycast(torch, report, name,
+                         dataclasses.replace(cfg, raycast_refine=refine, raycast_smooth_normals=smooth), vt.tsdf,
+                         rays, exact=True)
+        # C's slab mode on the 4 shards' extended slabs
+        exts = mesh.halo(mesh.split(vt.tsdf), halo)
+        wins = [sharded_raycast.slab_window(slab_cfg, k, n, *rays) for k in range(n)]
+        same, found, samples = True, 0, 0.0
+        for k in range(n):
+            x_off = k * (d // n) - halo
+            got = tsdf_ops.march_slab(slab_cfg, exts[k], x_off, rays[0], rays[1], *wins[k])
+            ref = tsdf_ops.march_slab(slab_cfg, exts[k], x_off, rays[0], rays[1], *wins[k], plain=True)
+            f = ref[0]
+            same = same and torch.equal(got[0], f) and torch.equal(got[4], ref[4]) and all(
+                same_map(torch, a[f], b[f]) for a, b in zip(got[1:4], ref[1:4]))
+            found += int(f.sum())
+            samples += slab_samples(torch, slab_cfg, exts[k], x_off, rays[0], rays[1], *wins[k])
+        check(f"raycast_slab_{t}", same and found > 0,
+              f"{t} tsdf, {n} slabs of {d // n} + 2 x {halo} planes: found, t, vertex, normal and exit events equal "
+              f"the plain version's bit for bit {same}; {found} slab hits")
+        step_len = volume_model.trunc_dist(cfg) * cfg.raycast_step_factor
+
+        def march_all(plain, exts=exts, wins=wins):
+            for k in range(n):
+                if plain:
+                    tsdf_ops.march_slab(slab_cfg, exts[k], k * (d // n) - halo, rays[0], rays[1], *wins[k],
+                                        plain=True)
+                else:
+                    kernels.march_and_refine(exts[k], rays[0], rays[1], *wins[k], cfg.voxel_size, step_len,
+                                             tsdf_ops.march_steps(cfg), False, refine=tsdf_ops._refine_mode(cfg),
+                                             smooth=False, delta=cfg.gradient_delta_factor,
+                                             x_off=k * (d // n) - halo, d=d)
+
+        gathers, ops = refine_work(cfg)
+        report[f"raycast_slab_{t}"] = dict(
+            err=0.0, ms=cuda_ms(torch, lambda: march_all(False)),
+            plain_ms=cuda_ms(torch, lambda: march_all(True), reps=3),
+            bound=bound_ms((samples + gathers * found) * vt.tsdf.element_size() + n * rays[1].numel() // 3 * 53,
+                           samples * 12.0 + found * ops),
+            library_ms=None,
+        )
+        del exts
+        # R on L's frame-0 cloud (1 << 20 rows, the NaN tail included)
+        c0, v0 = stored(cfg, vol0, t)
+        pts = tsdf_ops.extract_cloud(c0, v0, max_points=1 << 20, plain=True).points
+        nk = tsdf_ops.extract_normals(c0, v0, pts)
+        npl = tsdf_ops.extract_normals(c0, v0, pts, plain=True)
+        valid = ~torch.isnan(nk[:, 0])
+        nvalid = int(valid.sum())
+        same = same_map(torch, nk, npl)
+        check(f"extract_normals_{t}", same and nvalid > 0,
+              f"{t} tsdf, {pts.shape[0]} rows, {nvalid} normals: equal the plain version's bit for bit {same}")
+        nvox = normal_voxels(torch, cfg, pts, valid)
+        report[f"extract_normals_{t}"] = dict(
+            err=0.0,
+            ms=cuda_ms(torch, lambda: kernels.extract_normals(v0.tsdf, pts, cfg.voxel_size, org,
+                                                              cfg.gradient_delta_factor)),
+            plain_ms=cuda_ms(torch, lambda: tsdf_ops.extract_normals(c0, v0, pts, plain=True), reps=5),
+            bound=bound_ms(pts.shape[0] * 24 + nvox * v0.tsdf.element_size(), nvalid * 400.0),
+            library_ms=None,
+        )
+        del v0, vt
+
+    # D, F1, F2 and L at the five pairs
+    g, b = cfg.knn_field_stride, cfg.brick_size
+    w2c = se3.inverse(tr.pose)
+    vol2cam = se3.compose(w2c, kinfu._vol_pose(cfg, dev))
+    cf = fusion.coarse_field(cfg, st.warp)
+    cam_grid = se3.transform_points(w2c, cf.warped)
+    bp = bricks.plan(cfg, tr.dists, cam_grid, g, intr)
+    lookup = bricks.pack_depth_conf(tr.dists, tr.conf)
+    phase = torch.ones((), dtype=torch.int32, device=dev)
+    band_cap, wide_cap = sharded_fusion.caps(cfg, n)
+    dl = d // n
+    n_work = int(bp.work.count[0])
+    n_front = int((bp.work.kind[:n_work] == bricks.FRONT).sum())
+    bv, nbr = b ** 3, (d // b) ** 3
+    rows, cols = tr.dists.shape
+    for t, w in STORAGES:
+        tag = f"{t}_{w}"
+        cp_, vp_ = stored(cfg, st.vol, t, w)
+        vb = vox_bytes(vp_)
+
+        def pair(v):
+            return TsdfVolume(v.tsdf.clone(), v.weight.clone())
+
+        # D non-rigid (the warped grid, the blend quality, the packed confidence), then rigid
+        vk, vp = pair(vp_), pair(vp_)
+        ck = fusion.integrate_nonrigid(cp_, vk, cf, tr.dists, w2c, intr, on, conf=tr.conf)
+        cq = fusion.integrate_nonrigid(cp_, vp, cf, tr.dists, w2c, intr, on, conf=tr.conf, plain=True)
+        err = max(apart(torch, vk.tsdf, vp.tsdf), apart(torch, vk.weight, vp.weight))
+        changed = apart(torch, vk.tsdf, vp_.tsdf) > 0
+        check(f"fuse_bricks_nonrigid_{tag}", torch.equal(ck, cq) and err == 0 and changed,
+              f"{t}/{w}: counts {ck.tolist()} / {cq.tolist()}, tsdf and weight equal the plain version's bit for bit "
+              f"(max distance {err} codes or ulps)")
+        scratch = pair(vp_)
+        report[f"fuse_bricks_nonrigid_{tag}"] = dict(
+            err=float(err),
+            ms=cuda_ms(torch, lambda: bricks.fuse(cp_, scratch, lookup, cam_grid, g, intr, bp, on, q_grid=cf.q,
+                                                   packed=True)),
+            plain_ms=cuda_ms(torch, lambda: bricks.fuse(cp_, scratch, lookup, cam_grid, g, intr, bp, on, q_grid=cf.q,
+                                                         packed=True, plain=True), reps=3),
+            bound=bound_ms(n_work * bv * 2 * vb + lookup.numel() * 4 + cam_grid.numel() * 4 + cf.q.numel() * 4
+                           + nbr * 16, n_front * bv * 8.0 + (n_work - n_front) * bv * 100.0),
+            library_ms=None,
+        )
+        vk, vp = pair(vp_), pair(vp_)
+        rigid = dataclasses.replace(cp_, integrate_mode="brick")
+        tsdf_ops.integrate(rigid, vk, tr.dists, vol2cam, intr, ok=on)
+        tsdf_ops.integrate(rigid, vp, tr.dists, vol2cam, intr, ok=on, plain=True)
+        err = max(apart(torch, vk.tsdf, vp.tsdf), apart(torch, vk.weight, vp.weight))
+        check(f"fuse_bricks_rigid_{tag}", err == 0, f"{t}/{w}: the rigid brick fusion equal the plain version's "
+              f"bit for bit (max distance {err})")
+        # D's slab mode on the 4 shards
+        err, listed, plans = 0, 0, []
+        for k in range(n):
+            gk, qk = bricks.corner_slab(cam_grid, k, n, b, g), bricks.corner_slab(cf.q, k, n, b, g)
+            pk = bricks.plan_slab(cp_, tr.dists, gk, g, intr, k * dl // b, band_cap, wide_cap)
+            slab = TsdfVolume(vp_.tsdf[k * dl:(k + 1) * dl], vp_.weight[k * dl:(k + 1) * dl])
+            sk, sp = pair(slab), pair(slab)
+            bricks.fuse(cp_, sk, lookup, gk, g, intr, pk, on, qk, True)
+            bricks.fuse(cp_, sp, lookup, gk, g, intr, pk, on, qk, True, plain=True)
+            err = max(err, apart(torch, sk.tsdf, sp.tsdf), apart(torch, sk.weight, sp.weight))
+            listed += int(pk.work.count[0])
+            plans.append((gk, qk, pk, slab))
+        check(f"fuse_bricks_slab_{tag}", err == 0 and listed > 0,
+              f"{t}/{w}, {n} slabs, {listed} listed bricks: equal the plain version's bit for bit (max distance {err})")
+        if tag == "f32_f32":
+            scratch = [pair(s) for _, _, _, s in plans]
+
+            def fuse_all(plain):
+                for v, (gk, qk, pk, _) in zip(scratch, plans):
+                    bricks.fuse(cp_, v, lookup, gk, g, intr, pk, on, qk, True, plain=plain)
+
+            n_front_s = sum(int((pk.work.kind[:int(pk.work.count[0])] == bricks.FRONT).sum()) for _, _, pk, _ in plans)
+            report["fuse_bricks_slab_f32_f32"] = dict(
+                err=0.0, ms=cuda_ms(torch, lambda: fuse_all(False)),
+                plain_ms=cuda_ms(torch, lambda: fuse_all(True), reps=3),
+                bound=bound_ms(listed * bv * 2 * vb + n * (lookup.numel() * 4 + plans[0][0].numel() * 4
+                                                           + plans[0][1].numel() * 4 + band_cap * 16),
+                               n_front_s * bv * 8.0 + (listed - n_front_s) * bv * 100.0),
+                library_ms=None,
+            )
+        del plans
+        # F1 at the tracked pose, F2 with the confidence and the phase split
+        dense = dataclasses.replace(cp_, integrate_mode="dense")
+        split2 = dataclasses.replace(dense, fusion_phase_split=2)
+
+        def f1(v, plain):
+            if plain:
+                return tsdf_ops.integrate_dense_plain(dense, v, tr.dists, vol2cam, intr, on)
+            tsdf_ops.integrate(dense, v, tr.dists, vol2cam, intr, ok=on)
+
+        def f2(v, plain):
+            if plain:
+                return fusion.integrate_dense_nonrigid_plain(split2, v, cf, lookup, w2c, intr, on, True, phase)
+            fusion.integrate_nonrigid(split2, v, cf, tr.dists, w2c, intr, on, conf=tr.conf, phase=phase)
+
+        for name, fuse, prolong in (("integrate_dense", f1, False), ("integrate_dense_nonrigid", f2, True)):
+            vk, vp = pair(vp_), pair(vp_)
+            before = kernels.launches[name]
+            fuse(vk, False)
+            upd = fuse(vp, True)
+            err = max(apart(torch, vk.tsdf, vp.tsdf), apart(torch, vk.weight, vp.weight))
+            n_upd = int(upd.sum())
+            check(f"{name}_{tag}", err == 0 and n_upd > 0 and kernels.launches[name] == before + 1,
+                  f"{t}/{w}: equal the plain version's bit for bit (max distance {err}); {n_upd} voxels updated")
+            scratch = pair(vp_)
+            nbytes = n_upd * 2 * vb + rows * cols * 4 + 48 + (cf.warped.numel() * 4 + cf.q.numel() * 4 if prolong else 0)
+            vox = d ** 3 // 2 if prolong else d ** 3
+            report[f"{name}_{tag}"] = dict(
+                err=0.0, ms=cuda_ms(torch, lambda: fuse(scratch, False)),
+                plain_ms=cuda_ms(torch, lambda: fuse(scratch, True), reps=3),
+                bound=bound_ms(nbytes, vox * (30.0 + (28.0 if prolong else 0.0)) + n_upd * 20.0),
+                library_ms=None,
+            )
+        del scratch, vk, vp
+        # L on the frame-0 volume
+        c0, v0 = stored(cfg, vol0, t, w)
+        hold_extract(torch, report, f"extract_cloud_{tag}", c0, v0, maxp)
+        del v0, vp_
+
+
+def rigid_steps_vs_plain(torch, tag, cfg, dev, frames, states, poses_k, rows):
+    """A rigid path's plain step from each of its states: the pose within
+    TOL_STEP_POSE, ICP health equal."""
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    errs, same = [], True
+    for f in range(1, len(frames)):
+        _, o = kinfu.step(cfg, states[f - 1], torch.from_numpy(frames[f]).to(dev), plain=True)
+        errs.append(float(np.abs(poses_k[f] - o.pose.cpu().numpy()).max()))
+        same = same and bool(o.icp_ok) == rows[f - 1]["ok"] and rows[f - 1]["ok"]
+    check(f"{tag}_step_vs_plain", same and max(errs) <= TOL_STEP_POSE,
+          f"ICP healthy and equal {same}; plain step pose diff {' '.join(f'{v:.2e}' for v in errs)} "
+          f"(tol {TOL_STEP_POSE})")
+
+
+def storage_paths_main(torch, args, dev, card, nr_depths):
+    """Phase 21: the preset at each float storage pair, through
+    ``DynamicFusion``: f32/f32 for F frames (``--f-frames``) with the
+    preset's checks, the other pairs for 7 (frame 6 fuses), the plain step
+    from each state; at its final state the demo's export (L's cloud, R's
+    normals); then 3 steps each of the dense non-rigid cell (F1 in frame
+    0, F2, C's newton16) at every pair and of the reference-shaped rigid
+    cell (F1 every frame, C's six-sample normal) under f32/f32, each step
+    against the plain step. Returns the runs' launches."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+
+    runs = {}
+    for t, w in STORAGES:
+        tag = f"{t}_{w}"
+        cfg = dataclasses.replace(DynamicFusionConfig.default_dynamicfusion(), tsdf_dtype=t, weight_dtype=w)
+        frames = nr_depths[: args.f_frames if tag == "f32_f32" else STORAGE_FRAMES]
+        df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+        poses_k = [p.cpu().numpy() for p in df.poses]
+        kept = (df.state.vol.tsdf.dtype == volume_model._TSDF_DTYPES[t]
+                and df.state.vol.weight.dtype == volume_model._WEIGHT_DTYPES[w])
+        check(f"preset_{tag}_storage", kept, f"the volume stays {df.state.vol.tsdf.dtype} / {df.state.vol.weight.dtype}")
+        check_nonrigid_run(f"preset_{tag}", card, cfg, frames, launches, rows, frame_ms, poses_k)
+        check_steps_vs_plain(torch, f"preset_{tag}", cfg, dev, frames, states, poses_k, rows)
+        runs[f"preset_{tag}"] = launches
+        # the export of the demo from the final state: L's cloud, R's normals
+        kernels.reset_launches()
+        cloud = tsdf_ops.extract_cloud(cfg, df.state.vol, max_points=1 << 20)
+        normals = tsdf_ops.extract_normals(cfg, df.state.vol, cloud.points)
+        torch.cuda.synchronize()
+        runs[f"export_{tag}"] = dict(kernels.launches)
+        nn_ = int((~torch.isnan(normals[:, 0])).sum())
+        check(f"export_{tag}", runs[f"export_{tag}"]["extract_normals"] == 1 and nn_ > 0,
+              f"the final cloud's {int(cloud.count)} crossings, {nn_} normals (kernel R once)")
+        del df, states
+    for t, w in STORAGES:
+        tag = f"{t}_{w}"
+        cfg = dataclasses.replace(DynamicFusionConfig.default_dynamicfusion(), integrate_mode="dense",
+                                  raycast_refine="newton16", tsdf_dtype=t, weight_dtype=w)
+        frames = nr_depths[:4]
+        df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+        poses_k = [p.cpu().numpy() for p in df.poses]
+        check(f"dense_{tag}_launches", launches["integrate_dense"] == 1 and launches["integrate_dense_nonrigid"] == 3
+              and launches["raycast"] > 0 and launches["fuse_bricks"] == 0 and all(r["ok"] for r in rows),
+              f"{t}/{w}: F1 once in frame 0, F2 once a step ({launches['integrate_dense_nonrigid']} in 3), C "
+              f"{launches['raycast']}, D never; ICP healthy; frame ms {' '.join(f'{v:.3f}' for v in frame_ms)}")
+        check_steps_vs_plain(torch, f"dense_{tag}", cfg, dev, frames, states, poses_k, rows)
+        runs[f"dense_{tag}"] = launches
+        del df, states
+    cfg = dataclasses.replace(DynamicFusionConfig.reference_parity(), rigid_only=True, integrate_mode="dense",
+                              raycast_smooth_normals=True, tsdf_dtype="f32", weight_dtype="f32")
+    frame = rigid_frame_fn(cfg)
+    frames = [frame(i) for i in range(4)]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    check("ref_rigid_f32_f32_launches", launches["integrate_dense"] == 4 and launches["raycast"] > 0,
+          f"F1 every frame ({launches['integrate_dense']}), C {launches['raycast']}; frame ms "
+          f"{' '.join(f'{v:.3f}' for v in frame_ms)}")
+    rigid_steps_vs_plain(torch, "ref_rigid_f32_f32", cfg, dev, frames, states, [p.cpu().numpy() for p in df.poses],
+                         rows)
+    runs["ref_rigid_f32_f32"] = launches
+    return runs
+
+
+def sharded_storage_main(torch, args, dev, card, nr_depths):
+    """Phase 22: the preset under f32/f32 over ``make_mesh(4)`` on the card
+    for 7 frames (frame 6 fuses: C's, K's and D's slab modes at the float
+    storage), the last 3 steps held as phase 17 holds its steps. Returns
+    the run's launches."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.parallel import sharded
+
+    cfg = dataclasses.replace(DynamicFusionConfig.default_dynamicfusion(), tsdf_dtype="f32", weight_dtype="f32")
+    mesh = sharded.make_mesh(SHARDS, devices=[dev] * SHARDS)
+    frames = nr_depths[:STORAGE_FRAMES]
+    launches, rows, frame_ms, runner = drive_sharded(torch, "sharded_f32_f32", cfg, mesh, dev, frames,
+                                                     hold_from=STORAGE_FRAMES - 3)
+    kept = all(t.dtype == torch.float32 for t in runner.state.vol.tsdf + runner.state.vol.weight)
+    due = [i for i in range(1, len(frames)) if i % cfg.fusion_interval == 0]
+    fused = [i for i, r in enumerate(rows, start=1) if r["bricks"][0] + r["bricks"][1] > 0]
+    check("sharded_f32_f32", kept and all(r["ok"] for r in rows) and fused == due and all(
+        launches[k] > 0 for k in ("raycast", "brick_plan", "fuse_bricks", "data_matvec", "pcg_init", "pcg_step")),
+          f"f32 slabs kept {kept}, ICP healthy on every step, fusion on {fused} (due {due}), the slab and shard "
+          f"kernels launched: {launches}; frame ms {' '.join(f'{v:.3f}' for v in frame_ms)}")
+    return launches
+
+
+def kinfu_main(torch, args, dev, card, report):
+    """Phase 23: ``default_kinfu()`` (512^3 over 3 m, non-rigid, the direct
+    solve) over K frames (``--k-frames``) of the deforming scene rendered
+    with its intrinsics: the base cell's checks (phase 9), the plain step
+    from each state, a profile of 3 more frames; K at its 32^3 brick grid
+    and L at 512^3 against their plain versions, timed. Returns the run's
+    launches."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.core import se3
+    from dynamicfusion_tpu_torch.io import synthetic
+    from dynamicfusion_tpu_torch.ops import bricks, fusion
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    cfg = DynamicFusionConfig.default_kinfu()
+    depths = synthetic.deforming_frames(cfg.intr, cfg.rows, cfg.cols, args.k_frames + 3)
+    frames = depths[: args.k_frames]
+    df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
+    poses_k = [p.cpu().numpy() for p in df.poses]
+    check_nonrigid_run("kinfu", card, cfg, frames, launches, rows, frame_ms, poses_k)
+    steps = len(frames) - 1
+    check("kinfu_dense_launches", launches["cholesky"] == steps * cfg.solver_nonlinear_iters
+          and launches["dense_gram"] == steps and launches["dense_damp"] == launches["cholesky"],
+          f"one Gram a step ({launches['dense_gram']}), a damping and a factor every LM iteration "
+          f"({launches['dense_damp']}, {launches['cholesky']}) in {steps} steps")
+    check_steps_vs_plain(torch, "kinfu", cfg, dev, frames, states, poses_k, rows)
+    rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    mp = df.last_outputs.model_points
+    check("kinfu_model_maps", tuple(mp.shape) == (rows_t, cols_t, 3) and bool(torch.isfinite(mp).any()),
+          f"warped model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
+    prof = profile_frames(torch, args, dev, card, df, depths[args.k_frames: args.k_frames + 3], tag="kinfu",
+                          focus=("classify_plan", "count_kernel", "write_kernel", "fuse_bricks", "raycast", "potrf"))
+    del df
+    # K at the 32^3 brick grid: the plan of the next frame from the state after frame 3
+    st = states[3]
+    tr = kinfu.track(cfg, st, torch.from_numpy(depths[4]).to(dev))
+    g = cfg.knn_field_stride
+    cf = fusion.coarse_field(cfg, st.warp)
+    cam_grid = se3.transform_points(se3.inverse(tr.pose), cf.warped).contiguous()
+    pk = bricks.plan(cfg, tr.dists, cam_grid, g, cfg.intr)
+    pp = bricks.plan(cfg, tr.dists, cam_grid, g, cfg.intr, plain=True)
+    exact = all(torch.equal(a, c) for a, c in zip(pk.classes, pp.classes)) and all(
+        torch.equal(a, c) for a, c in zip(pk.work, pp.work))
+    nbr = pk.classes.cls.shape[0]
+    hist = torch.bincount(pk.classes.cls, minlength=4).tolist()
+    rows_i, cols_i = tr.dists.shape
+    levels = int(math.ceil(math.log2(max(rows_i, cols_i)))) + 1
+    check("brick_plan_512", exact and nbr == 32 ** 3,
+          f"{nbr} bricks (skip, front, band, wide) {hist}, work list of {int(pk.work.count[0])}, counts "
+          f"{pk.work.counts.tolist()}: classes and list equal the plain version's bit for bit {exact}")
+    total = sum((((rows_i + (1 << l) - 1) >> l) * ((cols_i + (1 << l) - 1) >> l)) for l in range(levels))
+    gp = cam_grid.shape[0]
+    report["brick_plan_512"] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: bricks.plan(cfg, tr.dists, cam_grid, g, cfg.intr)),
+        plain_ms=cuda_ms(torch, lambda: bricks.plan(cfg, tr.dists, cam_grid, g, cfg.intr, plain=True), reps=3),
+        # dists, the grid and the permutation in; the mip, classes, windows,
+        # flags and the list out (brick_plan's reckoning at 32 768 bricks)
+        bound=bound_ms(rows_i * cols_i * 4 + gp ** 3 * 12 + nbr * 8 + total * 12 + nbr * (8 + 4 + 4 + 1 + 8) + 16,
+                       total * 3.0 + nbr * (27 * 25.0 + 16 * 50.0)),
+        library_ms=None,
+    )
+    # L on the frame-0 volume
+    maxp = max(cfg.max_nodes * cfg.node_sample_step, 1 << 20)
+    hold_extract(torch, report, "extract_cloud_512", cfg, states[0].vol, maxp)
+    del states
+    steady = sorted(frame_ms[2:])
+    print(f"[kinfu] {card} | default_kinfu() {cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3 over {cfg.volume_size} m / "
+          f"{cfg.max_nodes} nodes: frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{steps}); "
+          f"{prof['launches'] / 3:.0f} kernel launches a frame, device idle "
+          f"{1.0 - prof['busy_ms'] / prof['wall_ms']:.3f} of 3 profiled frames; K at {nbr} bricks "
+          f"{report['brick_plan_512']['ms']:.4f} ms ({launches['brick_plan']} launches), L at 512^3 "
+          f"{report['extract_cloud_512']['ms']:.4f} ms ({launches['extract_cloud']} launch)", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--frames", type=int, default=15, help="frames of the rigid slice")
@@ -3903,6 +4435,9 @@ def main() -> int:
                     help="synthetic frames of apps/demo_torch.py under default_dynamicfusion()")
     ap.add_argument("--s-frames", type=int, default=20,
                     help="deforming-scene frames of default_dynamicfusion() over make_mesh(4) on the card")
+    ap.add_argument("--f-frames", type=int, default=20,
+                    help="deforming-scene frames of default_dynamicfusion() under the f32 tsdf and weight")
+    ap.add_argument("--k-frames", type=int, default=20, help="deforming-scene frames of default_kinfu() (512^3)")
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of 3 frames of each non-rigid preset and of the reference-"
                          "resolution rigid path here")
@@ -3941,7 +4476,8 @@ def main() -> int:
     # ---------------- 2. kernels vs plain ----------------
     nr = DynamicFusionConfig.default_dynamicfusion()
     # the deforming scene's frames, and 3 more after the longest run for the profiles
-    n_depths = max(args.nr_frames, args.d_frames, args.r_frames, args.dn_frames, args.s_frames + 1, 7) + 3
+    n_depths = max(args.nr_frames, args.d_frames, args.r_frames, args.dn_frames, args.s_frames + 1, args.f_frames,
+                   STORAGE_FRAMES) + 3
     nr_depths = synthetic.deforming_frames(nr.intr, nr.rows, nr.cols, n_depths)
     report = {}
     rigid_kernels(torch, args, report, dev, card)
@@ -4022,8 +4558,24 @@ def main() -> int:
     multiprocess_main(torch, args, dev, card)
     print(f"[phase] two-process run done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # ---------------- 20. report ----------------
-    runs = {"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches,
+    # ---------------- 20. the kernels at the float storages ----------------
+    storage_kernels(torch, report, dev, nr_depths)
+    print(f"[phase] float-storage kernels checked at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 21. the preset and the dense cells at the float storages ----------------
+    storage_runs = storage_paths_main(torch, args, dev, card, nr_depths)
+    print(f"[phase] float-storage paths done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 22. the sharded preset under f32/f32 ----------------
+    sf_launches = sharded_storage_main(torch, args, dev, card, nr_depths)
+    print(f"[phase] sharded f32 preset done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 23. default_kinfu(): the 512^3 volume ----------------
+    k_launches = kinfu_main(torch, args, dev, card, report)
+    print(f"[phase] default_kinfu() done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------- 24. report ----------------
+    runs = {**storage_runs, "sharded_f32_f32": sf_launches, "kinfu": k_launches,"rigid": rigid_launches, "nonrigid": nr_launches, "frame0": nr_launches, "quality": q_launches,
             "sharded": s_launches, "sharded_base": sb_launches,
             "adaptive": a_launches, "parity_rigid": p_launches, "render": r_launches, "base": base_launches,
             "base_bf16": v_launches["bf16"], "base_p2p": v_launches["p2p"], "parity_nr": pnr_launches,

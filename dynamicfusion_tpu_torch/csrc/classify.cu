@@ -14,7 +14,9 @@
 // and writes 1.6 MB; classification reads 27 corner points for each of
 // 4 096 bricks (33^3 x 12 B = 0.4 MB) and 16 mip cells; the work list is a
 // scan over 4 096 entries. A few microseconds of work on any part of the
-// card.
+// card. default_kinfu()'s 512^3 volume has 32^3 = 32 768 bricks: the one
+// block classifies 32 a thread and scans 32 entries a thread, ~7x the 16^3
+// grid's time (PERF.md).
 // Design: two launches. (1) one block per 32x32 tile of the image builds
 // mip levels 0-5 of its tile in shared memory (cells outside a level's
 // extent carry the neutral +inf / -inf / 0, as the plain version's

@@ -10,8 +10,9 @@
 // compactions; the port's plain version scans ~50 M int64 entries.
 //
 // Bound on the H100 (NVIDIA H100 80GB HBM3, 700.00 W: 3.35 TB/s; measured
-// times in PERF.md): bytes. extract_cloud reads the int16 tsdf and uint16
-// weight once (2 x 33.5 MB at 256^3) and writes (max_points, 3) float32
+// times in PERF.md): bytes. extract_cloud reads the tsdf and weight once
+// (2 x 33.5 MB at 256^3 as i16 + u16 codes, 2 x 67 MB as f32) and writes
+// (max_points, 3) float32
 // points and a bool flag each (12.6 + 1 MB at 1 << 20): ~0.024 ms. The
 // sampling reads ~21 k candidate flags and rows: latency.
 // Design. extract_cloud: a tile is 16 x 256 consecutive crossing tests of
@@ -23,7 +24,11 @@
 // linear index), rows below max_points only; a last pass writes the flags
 // and NaN-fills the rows past the count. No CUB: the scans are written
 // here. The arithmetic is the plain version's (-fmad=false, a true
-// division for alpha), so the points are bit-equal to it. The sampling is
+// division for alpha), so the points are bit-equal to it. The three
+// volume passes are instantiated for each (tsdf, weight) storage pair (the
+// storage code of df_extract_cloud; common.cuh). 512^3 (default_kinfu())
+// is ~98 000 tiles: the scan block's threads take ~96 tile counts each.
+// The sampling is
 // one block: a block scan over per-thread chunks of the permuted validity.
 #include <cstdint>
 
@@ -40,13 +45,14 @@ static_assert(kIters * kWarps == 4 * 32, "write_kernel scans the warp counts fou
 
 // 32-bit indices throughout: the wrapper refuses volumes with 3 (d-1) d^2
 // >= 2^31 crossing tests
+template <typename T, typename W>
 struct Vol {
-  const int16_t* tsdf;
-  const uint16_t* weight;
+  const T* tsdf;
+  const W* weight;
   int d;
   int per_axis;  // (d - 1) d d
   int total;     // 3 per_axis
-  float scale;   // the tsdf decode factor, 1 / 32767 as float32
+  float scale;   // the tsdf decode factor: 1 / 32767 as float32 for the i16 codes, 1 for the float storages
   float min_weight;
 };
 
@@ -56,7 +62,8 @@ struct Edge {
   int axis, i, j, k, a, b;
 };
 
-__device__ __forceinline__ Edge edge_at(const Vol& v, int q) {
+template <typename T, typename W>
+__device__ __forceinline__ Edge edge_at(const Vol<T, W>& v, int q) {
   const int axis = q / v.per_axis;
   const int rem = q - axis * v.per_axis;
   const int d = v.d;
@@ -74,17 +81,19 @@ __device__ __forceinline__ Edge edge_at(const Vol& v, int q) {
   return e;
 }
 
-__device__ __forceinline__ bool crosses(const Vol& v, int q, Edge* e, float* t0) {
+template <typename T, typename W>
+__device__ __forceinline__ bool crosses(const Vol<T, W>& v, int q, Edge* e, float* t0) {
   if (q >= v.total) return false;
   *e = edge_at(v, q);
-  const float ta = static_cast<float>(v.tsdf[e->a]) * v.scale;
-  const float tb = static_cast<float>(v.tsdf[e->b]) * v.scale;
+  const float ta = dfk::code_value(v.tsdf[e->a]) * v.scale;
+  const float tb = dfk::code_value(v.tsdf[e->b]) * v.scale;
   *t0 = ta;
   return dfk::decode_weight(v.weight[e->a]) >= v.min_weight && dfk::decode_weight(v.weight[e->b]) >= v.min_weight &&
          ta * tb < 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads) count_kernel(Vol v, int* __restrict__ tile_count) {
+template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads) count_kernel(Vol<T, W> v, int* __restrict__ tile_count) {
   __shared__ int sm[kWarps];
   const int base = blockIdx.x * kTile;
   int c = 0;
@@ -135,8 +144,9 @@ scan_kernel(const int* __restrict__ tile_count, int ntiles, int* __restrict__ ti
   if (threadIdx.x == kScan - 1) count[0] = incl;
 }
 
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-write_kernel(Vol v, const int* __restrict__ tile_off, int max_points, float vs, float ox, float oy, float oz,
+write_kernel(Vol<T, W> v, const int* __restrict__ tile_off, int max_points, float vs, float ox, float oy, float oz,
              float* __restrict__ points) {
   __shared__ int wcount[kIters * kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -183,7 +193,7 @@ write_kernel(Vol v, const int* __restrict__ tile_off, int max_points, float vs, 
     Edge e;
     float t0;
     crosses(v, base + it * kThreads + static_cast<int>(threadIdx.x), &e, &t0);
-    const float t1 = static_cast<float>(v.tsdf[e.b]) * v.scale;
+    const float t1 = dfk::code_value(v.tsdf[e.b]) * v.scale;
     const float den = t0 - t1;
     const float alpha = t0 / (fabsf(den) > 1e-12f ? den : 1e-12f);
     // idx + e_axis alpha, then * voxel + origin (the off-axis terms add 0)
@@ -247,7 +257,8 @@ sample_nodes_kernel(const float* __restrict__ points, const bool* __restrict__ v
 
 }  // namespace
 
-extern "C" int df_extract_cloud(const void* tsdf, const void* weight, int d, float scale, float min_weight,
+// tsdf and weight stored as the storage code says (common.cuh)
+extern "C" int df_extract_cloud(const void* tsdf, const void* weight, int storage, int d, float scale, float min_weight,
                                 int max_points, float vs, float ox, float oy, float oz, void* tile_count,
                                 void* tile_off, int ntiles, void* points, void* valid, void* count, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -255,24 +266,28 @@ extern "C" int df_extract_cloud(const void* tsdf, const void* weight, int d, flo
   if (d < 2 || 3 * per_axis >= (1LL << 31) || ntiles != static_cast<int>((3 * per_axis + kTile - 1) / kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Vol v{static_cast<const int16_t*>(tsdf), static_cast<const uint16_t*>(weight), d,
-              static_cast<int>(per_axis), static_cast<int>(3 * per_axis), scale, min_weight};
-  count_kernel<<<ntiles, kThreads, 0, st>>>(v, static_cast<int*>(tile_count));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_kernel<<<1, kScan, 0, st>>>(static_cast<const int*>(tile_count), ntiles, static_cast<int*>(tile_off),
-                                   static_cast<int*>(count));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  write_kernel<<<ntiles, kThreads, 0, st>>>(v, static_cast<const int*>(tile_off), max_points, vs, ox, oy, oz,
-                                            static_cast<float*>(points));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (max_points > 0) {
-    fill_kernel<<<(max_points + 255) / 256, 256, 0, st>>>(static_cast<const int*>(count), max_points,
-                                                          static_cast<float*>(points), static_cast<bool*>(valid));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dfk::dispatch_storage(storage, [&](auto tt, auto wt) {
+    using T = typename decltype(tt)::type;
+    using W = typename decltype(wt)::type;
+    const Vol<T, W> v{static_cast<const T*>(tsdf), static_cast<const W*>(weight), d,
+                      static_cast<int>(per_axis), static_cast<int>(3 * per_axis), scale, min_weight};
+    count_kernel<T, W><<<ntiles, kThreads, 0, st>>>(v, static_cast<int*>(tile_count));
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    scan_kernel<<<1, kScan, 0, st>>>(static_cast<const int*>(tile_count), ntiles, static_cast<int*>(tile_off),
+                                     static_cast<int*>(count));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    write_kernel<T, W><<<ntiles, kThreads, 0, st>>>(v, static_cast<const int*>(tile_off), max_points, vs, ox, oy,
+                                                    oz, static_cast<float*>(points));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (max_points > 0) {
+      fill_kernel<<<(max_points + 255) / 256, 256, 0, st>>>(static_cast<const int*>(count), max_points,
+                                                            static_cast<float*>(points), static_cast<bool*>(valid));
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int df_sample_nodes(const void* points, const void* valid, int step, const void* perm, int mc, int n,

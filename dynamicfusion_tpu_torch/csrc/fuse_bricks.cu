@@ -10,10 +10,10 @@
 // rows, fused and transposed back; band depths are selected from a
 // 128x128 window by one-hot matmuls.
 //
-// Bound on the H100: bytes. Each listed voxel reads and writes its int16
-// tsdf and uint16 weight (8 B) and a band voxel loads one float depth;
-// with ~2-3 thousand listed bricks of 4096 voxels that is tens of MB a
-// frame, against ~40 flops a voxel.
+// Bound on the H100: bytes. Each listed voxel reads and writes its tsdf
+// and weight (8 B as i16 + u16 codes, 16 B as f32 + f32) and a band voxel
+// loads one float depth; with ~2-3 thousand listed bricks of 4096 voxels
+// that is tens of MB a frame, against ~40 flops a voxel.
 // Design: one block per slot of the compacted work list (front, then
 // band, then wide); a block past the device-side count, or every block
 // when the device-side ICP flag is false, exits at once, so the launch is
@@ -25,7 +25,10 @@
 // float32 as bricks._voxel_positions does; a band voxel fetches
 // dists[v, u] directly (the one-hot window lookup selects exactly that
 // value) under the same `inb & inw` window mask; the update rule and the
-// half-to-even encodes are bricks._fuse_rows / _fuse_front_rows.
+// encodes are bricks._fuse_rows / _fuse_front_rows: the kernel is
+// instantiated for each (tsdf, weight) storage pair (the storage code of
+// df_fuse_bricks; common.cuh), the i16/u16 codes rounded half to even and
+// clipped, f32 stored as computed, bf16 rounded to nearest even.
 // Non-rigid fusion passes three more inputs: a per-grid-point observation
 // weight (the warp's blend quality), prolonged as a fourth channel with
 // the positions and gating the voxel at > q_min; a lookup image that
@@ -53,8 +56,9 @@ constexpr int kBand = 2;
 constexpr int kWide = 3;
 constexpr int kThreads = 256;
 
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
+fuse_bricks_kernel(T* __restrict__ tsdf, W* __restrict__ weight,
                    const float* __restrict__ dists, const float* __restrict__ grid,
                    const int* __restrict__ ids, const int* __restrict__ kinds,
                    const int* __restrict__ count, const bool* __restrict__ ok,
@@ -77,11 +81,11 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
     const int vx = o / (b * b), vy = (o / b) % b, vz = o % b;
     const size_t addr =
         (static_cast<size_t>(bi * b + vx) * d + (bj * b + vy)) * d + (bk * b + vz);
-    const float t32 = static_cast<float>(tsdf[addr]) * tsdf_decode;
+    const float t32 = dfk::code_value(tsdf[addr]) * tsdf_decode;
     const float w32 = dfk::decode_weight(weight[addr]);
     if (kind == kFront) {
-      tsdf[addr] = dfk::encode_tsdf((t32 * w32 + 1.0f) / (w32 + 1.0f));
-      weight[addr] = dfk::encode_weight(fminf(w32 + 1.0f, max_w));
+      tsdf[addr] = dfk::encode_tsdf<T>((t32 * w32 + 1.0f) / (w32 + 1.0f));
+      weight[addr] = dfk::encode_weight<W>(fminf(w32 + 1.0f, max_w));
       continue;
     }
     // trilinear prolongation of the grid corners of the voxel's cell
@@ -148,30 +152,33 @@ fuse_bricks_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
     if (update) {
       const float obs = fminf(psdf * scale / trunc, 1.0f);
       const float wq = w32 + q;
-      if (wq > 1e-12f) tsdf[addr] = dfk::encode_tsdf((t32 * w32 + obs * q) / fmaxf(wq, 1e-12f));
-      weight[addr] = dfk::encode_weight(fminf(wq, max_w));
+      if (wq > 1e-12f) tsdf[addr] = dfk::encode_tsdf<T>((t32 * w32 + obs * q) / fmaxf(wq, 1e-12f));
+      weight[addr] = dfk::encode_weight<W>(fminf(wq, max_w));
     }
   }
 }
 
 }  // namespace
 
-extern "C" int df_fuse_bricks(void* tsdf, void* weight, const void* dists, const void* grid,
+// tsdf and weight stored as the storage code says (common.cuh)
+extern "C" int df_fuse_bricks(void* tsdf, void* weight, int storage, const void* dists, const void* grid,
                               const void* ids, const void* kinds, const void* count,
                               const void* ok, const void* u0, const void* v0, int dx, int d, int b,
                               int g, int rows, int cols, int nbr, float fx, float fy, float cx,
                               float cy, int rect, float trunc, float max_w, float tsdf_decode,
                               const void* qgrid, float q_min, int packed, float inc_floor, int sdf_scale,
                               void* stream) {
-  if (nbr > 0) {
-    fuse_bricks_kernel<<<nbr, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int16_t*>(tsdf), static_cast<uint16_t*>(weight),
-        static_cast<const float*>(dists), static_cast<const float*>(grid),
-        static_cast<const int*>(ids), static_cast<const int*>(kinds),
-        static_cast<const int*>(count), static_cast<const bool*>(ok),
-        static_cast<const int*>(u0), static_cast<const int*>(v0), dx, d, b, g, rows, cols, fx, fy,
-        cx, cy, rect, trunc, max_w, tsdf_decode, static_cast<const float*>(qgrid), q_min, packed, inc_floor,
-        sdf_scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dfk::dispatch_storage(storage, [&](auto tt, auto wt) {
+    using T = typename decltype(tt)::type;
+    using W = typename decltype(wt)::type;
+    if (nbr > 0) {
+      fuse_bricks_kernel<T, W><<<nbr, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<T*>(tsdf), static_cast<W*>(weight), static_cast<const float*>(dists),
+          static_cast<const float*>(grid), static_cast<const int*>(ids), static_cast<const int*>(kinds),
+          static_cast<const int*>(count), static_cast<const bool*>(ok), static_cast<const int*>(u0),
+          static_cast<const int*>(v0), dx, d, b, g, rows, cols, fx, fy, cx, cy, rect, trunc, max_w, tsdf_decode,
+          static_cast<const float*>(qgrid), q_min, packed, inc_floor, sdf_scale);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -14,8 +14,9 @@
 // On the TPU the voxel positions come from matmuls (no gathers) and the
 // depth from one big gather isolated by optimization barriers.
 //
-// Bound on the H100: bytes. Each voxel reads and writes its int16 tsdf and
-// uint16 weight (8 B; 134 MB at 256^3, ~0.04 ms at 3.35 TB/s); the 640x480
+// Bound on the H100: bytes. Each voxel reads and writes its tsdf and weight
+// (8 B as i16 + u16 codes, 134 MB at 256^3, ~0.04 ms at 3.35 TB/s; 16 B as
+// f32 + f32); the 640x480
 // float image (1.2 MB) and F2's coarse grid (33^3 x 4 floats, 0.57 MB) stay
 // in L2 and are read through the read-only path.
 // Design: one thread per voxel, z fastest, so a warp reads and writes 64
@@ -26,7 +27,8 @@
 // it, as in JAX: u is inf or NaN where z <= 0 and nothing is read outside
 // the image. The arithmetic repeats the plain versions
 // (ops/tsdf.dense_update_plain, ops/fusion.prolong) operation for
-// operation under -fmad=false, with the codec of kernel D (common.cuh); the
+// operation under -fmad=false, with the codecs of kernel D (common.cuh:
+// both kernels are instantiated for each (tsdf, weight) storage pair); the
 // prolongation's two-term dots are fused multiply-adds, fma(w1, x1, w0 x0),
 // because XLA's dot takes them so on the CPU (the plain version rounds an
 // exact float64 product-sum).
@@ -44,7 +46,8 @@ struct Proj {
 
 // the update of one voxel from its camera-frame position (x, y, z): the
 // rigid one with q = 1 and no packed image, as dense_update_plain
-__device__ __forceinline__ void update_voxel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
+template <typename T, typename W>
+__device__ __forceinline__ void update_voxel(T* __restrict__ tsdf, W* __restrict__ weight,
                                              size_t addr, const float* __restrict__ lookup,
                                              const Proj& p, float x, float y, float z, float q,
                                              bool gate, int packed, float inc_floor, int sdf_scale) {
@@ -68,16 +71,17 @@ __device__ __forceinline__ void update_voxel(int16_t* __restrict__ tsdf, uint16_
     q = q * (conf > 0.0f ? fmaxf(conf, inc_floor) : 0.0f);
     if (sdf_scale) scale = conf > 0.0f ? fminf(fmaxf(conf, 0.25f), 1.0f) : 1.0f;
   }
-  const float t32 = static_cast<float>(tsdf[addr]) * p.tsdf_decode;
+  const float t32 = dfk::code_value(tsdf[addr]) * p.tsdf_decode;
   const float w32 = dfk::decode_weight(weight[addr]);
   const float obs = fminf(psdf * scale / p.trunc, 1.0f);
   const float wq = w32 + q;
-  if (wq > 1e-12f) tsdf[addr] = dfk::encode_tsdf((t32 * w32 + obs * q) / fmaxf(wq, 1e-12f));
-  weight[addr] = dfk::encode_weight(fminf(wq, p.max_w));
+  if (wq > 1e-12f) tsdf[addr] = dfk::encode_tsdf<T>((t32 * w32 + obs * q) / fmaxf(wq, 1e-12f));
+  weight[addr] = dfk::encode_weight<W>(fminf(wq, p.max_w));
 }
 
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-fuse_dense_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight, const float* __restrict__ dists,
+fuse_dense_kernel(T* __restrict__ tsdf, W* __restrict__ weight, const float* __restrict__ dists,
                   const float* __restrict__ rt, const bool* __restrict__ ok, int d, Proj p) {
   if (!*ok) return;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // d^3 < 2^31 for d <= 1290
@@ -98,8 +102,9 @@ __device__ __forceinline__ float lerp_dot(float w0, float x0, float w1, float x1
   return __fmaf_rn(w1, x1, w0 * x0);
 }
 
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-fuse_dense_nonrigid_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ weight,
+fuse_dense_nonrigid_kernel(T* __restrict__ tsdf, W* __restrict__ weight,
                            const float* __restrict__ lookup, const float* __restrict__ warped,
                            const float* __restrict__ qgrid, const float* __restrict__ rt,
                            const bool* __restrict__ ok, const int* __restrict__ phase, int d, int stride,
@@ -152,21 +157,26 @@ fuse_dense_nonrigid_kernel(int16_t* __restrict__ tsdf, uint16_t* __restrict__ we
 
 }  // namespace
 
-extern "C" int df_fuse_dense(void* tsdf, void* weight, const void* dists, const void* rt, const void* ok, int d,
+// tsdf and weight stored as the storage code says (common.cuh)
+extern "C" int df_fuse_dense(void* tsdf, void* weight, int storage, const void* dists, const void* rt, const void* ok, int d,
                              int rows, int cols, float fx, float fy, float cx, float cy, float trunc, float max_w,
                              float tsdf_decode, void* stream) {
   const Proj p{fx, fy, cx, cy, rows, cols, trunc, max_w, tsdf_decode};
   const size_t n = static_cast<size_t>(d) * d * d;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  if (blocks > 0) {
-    fuse_dense_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int16_t*>(tsdf), static_cast<uint16_t*>(weight), static_cast<const float*>(dists),
-        static_cast<const float*>(rt), static_cast<const bool*>(ok), d, p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dfk::dispatch_storage(storage, [&](auto tt, auto wt) {
+    using T = typename decltype(tt)::type;
+    using W = typename decltype(wt)::type;
+    if (blocks > 0) {
+      fuse_dense_kernel<T, W><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<T*>(tsdf), static_cast<W*>(weight), static_cast<const float*>(dists),
+          static_cast<const float*>(rt), static_cast<const bool*>(ok), d, p);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
-extern "C" int df_fuse_dense_nonrigid(void* tsdf, void* weight, const void* lookup, const void* warped,
+extern "C" int df_fuse_dense_nonrigid(void* tsdf, void* weight, int storage, const void* lookup, const void* warped,
                                       const void* qgrid, const void* rt, const void* ok, const void* phase, int d,
                                       int stride, int brick, int split, int rows, int cols, float fx, float fy,
                                       float cx, float cy, float trunc, float max_w, float tsdf_decode, float q_min,
@@ -174,12 +184,16 @@ extern "C" int df_fuse_dense_nonrigid(void* tsdf, void* weight, const void* look
   const Proj p{fx, fy, cx, cy, rows, cols, trunc, max_w, tsdf_decode};
   const size_t n = static_cast<size_t>(d) * d * d;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  if (blocks > 0) {
-    fuse_dense_nonrigid_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int16_t*>(tsdf), static_cast<uint16_t*>(weight), static_cast<const float*>(lookup),
-        static_cast<const float*>(warped), static_cast<const float*>(qgrid), static_cast<const float*>(rt),
-        static_cast<const bool*>(ok), static_cast<const int*>(phase), d, stride, brick, split, p, q_min, packed,
-        inc_floor, sdf_scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dfk::dispatch_storage(storage, [&](auto tt, auto wt) {
+    using T = typename decltype(tt)::type;
+    using W = typename decltype(wt)::type;
+    if (blocks > 0) {
+      fuse_dense_nonrigid_kernel<T, W><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<T*>(tsdf), static_cast<W*>(weight), static_cast<const float*>(lookup),
+          static_cast<const float*>(warped), static_cast<const float*>(qgrid), static_cast<const float*>(rt),
+          static_cast<const bool*>(ok), static_cast<const int*>(phase), d, stride, brick, split, p, q_min, packed,
+          inc_floor, sdf_scale);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -9,12 +9,14 @@
 //
 // Bound on the H100 (3.35 TB/s; measured times in PERF.md): bytes. Each
 // row reads 12 B and writes 12 B (25 MB at 1 << 20 rows, ~0.0075 ms); a
-// valid row gathers 48 int16 codes (six samples of 8 corners), which
-// neighbouring surface points share, so they come mostly from L1/L2.
+// valid row gathers 48 stored values (six samples of 8 corners; 2 B each
+// for the i16 and bf16 tsdf, 4 B for f32), which neighbouring surface
+// points share, so they come mostly from L1/L2.
 // Design: one thread a row. A NaN row writes NaN normals and loads nothing,
 // so the tail costs its 24 bytes; a row with a sample outside the volume
 // gets NaN in all three components, as the plain version. The six samples are dfk::Vol::grad6
-// (volume.cuh, the samplers of kernel C's six-sample normal). The norm's
+// (volume.cuh, the samplers of kernel C's six-sample normal), instantiated
+// for the tsdf storage that the storage code names. The norm's
 // sum of squares is the JAX package's: XLA takes jnp.linalg.norm as
 // fma(gz, gz, fma(gy, gy, gx gx)), written here with explicit fused
 // multiply-adds (-fmad=false contracts nothing else); the division is a
@@ -26,7 +28,8 @@ namespace {
 
 using dfk::Vol;
 
-__global__ void normals_kernel(Vol vol, const float* __restrict__ pts, int n, float ox, float oy, float oz,
+template <typename T>
+__global__ void normals_kernel(Vol<T> vol, const float* __restrict__ pts, int n, float ox, float oy, float oz,
                                float vs, float delta, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -52,13 +55,16 @@ __global__ void normals_kernel(Vol vol, const float* __restrict__ pts, int n, fl
 
 }  // namespace
 
-extern "C" int df_extract_normals(const void* tsdf, int d, float decode_scale, const void* pts, int n, float ox,
+extern "C" int df_extract_normals(const void* tsdf, int storage, int d, float decode_scale, const void* pts, int n, float ox,
                                   float oy, float oz, float vs, float delta, void* out, void* stream) {
   if (n == 0) return 0;
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
-  Vol vol{static_cast<const int16_t*>(tsdf), d, decode_scale, 0, d};
-  normals_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vol, static_cast<const float*>(pts), n, ox, oy, oz, vs, delta, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return dfk::dispatch_tsdf(storage, [&](auto tt) {
+    using T = typename decltype(tt)::type;
+    const Vol<T> vol{static_cast<const T*>(tsdf), d, decode_scale, 0, d};
+    normals_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        vol, static_cast<const float*>(pts), n, ox, oy, oz, vs, delta, static_cast<float*>(out));
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -10,7 +10,8 @@
 // finished rays masked), so each trip costs as much as the slowest ray.
 //
 // Bound on the H100: memory latency. A ray takes up to 60 dependent
-// nearest-voxel int16 loads scattered through a 33.5 MB volume, then the
+// nearest-voxel loads (2 B for the i16 and bf16 tsdf, 4 B for f32)
+// scattered through a 33.5 MB volume (67 MB as f32; 256^3), then the
 // refine's trilinear corner loads (24 for secant: two values and one fused
 // value + gradient; 8 for newton8; 16 for newton16 and hybrid16: two fused
 // fetches; the six-sample normal adds 48, and under it the secant drops its
@@ -18,8 +19,11 @@
 // L2: the volume fits the 50 MB L2), so the dependent-load chain of the
 // longest rays sets the time.
 // Design: one thread per ray with its own early exit, so a ray that hits
-// early stops loading; int16 codes are loaded through the read-only path
-// and decoded after the load (dfk::Vol, volume.cuh). The march keeps the
+// early stops loading; the stored values are loaded through the read-only
+// path and decoded after the load (dfk::Vol, volume.cuh). The kernel is
+// instantiated for each tsdf storage (i16 codes, f32, bf16; the storage
+// code of df_raycast picks one), with one body: a float storage decodes
+// by 1, so its samples are the plain version's bit for bit. The march keeps the
 // JAX semantics exactly: nearest fetch rounded half-to-even (rintf) and
 // clipped, step doubled where the previous sample is > 0.99, the step cap
 // is n_steps rounded up to even (the JAX loop runs two steps per trip).
@@ -57,7 +61,8 @@ namespace {
 
 using dfk::Vol;
 
-__global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
+template <typename T>
+__global__ void raycast_kernel(Vol<T> vol, const float* __restrict__ org_p,
                                const float* __restrict__ dirs, const float* __restrict__ tmin_p,
                                const float* __restrict__ tmax_p, int n, float inv_vs, float step,
                                int max_steps, int adaptive, int refine, int smooth, float delta,
@@ -175,23 +180,27 @@ __global__ void raycast_kernel(Vol vol, const float* __restrict__ org_p,
 
 }  // namespace
 
-// tsdf holds dx planes of d x d codes from the global plane x_off (the
-// whole volume: x_off 0, dx d); ts and t_behind may be null
-extern "C" int df_raycast(const void* tsdf, int d, int x_off, int dx, const void* ray_org, const void* dirs,
+// tsdf holds dx planes of d x d values from the global plane x_off (the
+// whole volume: x_off 0, dx d), stored as the storage code says
+// (common.cuh; the weight code is ignored); ts and t_behind may be null
+extern "C" int df_raycast(const void* tsdf, int storage, int d, int x_off, int dx, const void* ray_org, const void* dirs,
                           const void* tmin, const void* tmax, int n, float inv_vs, float step,
                           int max_steps, int adaptive, int refine, int smooth, float delta,
                           float decode_scale, void* found, void* vertex, void* normal, void* ts,
                           void* t_behind, void* stream) {
-  Vol vol{static_cast<const int16_t*>(tsdf), d, decode_scale, x_off, dx};
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
-  if (blocks > 0) {
-    raycast_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        vol, static_cast<const float*>(ray_org), static_cast<const float*>(dirs),
-        static_cast<const float*>(tmin), static_cast<const float*>(tmax), n, inv_vs, step,
-        max_steps, adaptive, refine, smooth, delta, static_cast<bool*>(found),
-        static_cast<float*>(vertex), static_cast<float*>(normal), static_cast<float*>(ts),
-        static_cast<float*>(t_behind));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dfk::dispatch_tsdf(storage, [&](auto tt) {
+    using T = typename decltype(tt)::type;
+    if (blocks > 0) {
+      const Vol<T> vol{static_cast<const T*>(tsdf), d, decode_scale, x_off, dx};
+      raycast_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          vol, static_cast<const float*>(ray_org), static_cast<const float*>(dirs),
+          static_cast<const float*>(tmin), static_cast<const float*>(tmax), n, inv_vs, step,
+          max_steps, adaptive, refine, smooth, delta, static_cast<bool*>(found),
+          static_cast<float*>(vertex), static_cast<float*>(normal), static_cast<float*>(ts),
+          static_cast<float*>(t_behind));
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }

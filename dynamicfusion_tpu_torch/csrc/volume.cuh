@@ -1,10 +1,14 @@
-// The int16 TSDF volume's samplers, shared by the kernels that read the
-// volume at fractional voxel coordinates: nearest fetch, trilinear value,
+// The TSDF volume's samplers, shared by the kernels that read the volume
+// at fractional voxel coordinates: nearest fetch, trilinear value,
 // trilinear value + in-cell gradient, and the six-sample central
 // difference. Each repeats its plain PyTorch version in ops/tsdf.py
 // (fetch_nearest, interpolate, interpolate_with_gradient, _grad6)
-// operation for operation; codes are loaded through the read-only path and
-// decoded after the load.
+// operation for operation. Vol<T> reads the tsdf stored as T (int16_t
+// codes, float or __nv_bfloat16; common.cuh): values are loaded through
+// the read-only path, turned into float32 exactly (code_value), and the
+// decode scale (1/32767 for the i16 codes, 1 for the float storages) is
+// applied after the load and after the trilinear sum, as the plain
+// versions apply it.
 #pragma once
 
 #include "common.cuh"
@@ -18,16 +22,17 @@ namespace dfk {
 // cell origin on [0, d-2]) first, as on the whole volume, and only then
 // the x index into the slab; the whole volume is x_off = 0, dx = d, where
 // that second clip changes nothing.
+template <typename T>
 struct Vol {
-  const int16_t* __restrict__ v;
+  const T* __restrict__ v;
   int d;
-  float sc;  // decode scale, float32(1/32767)
+  float sc;  // decode scale: float32(1/32767) for the i16 codes, 1 for the float storages
   int x_off;
   int dx;
 
   __device__ __forceinline__ float code(int x, int y, int z) const {
     const int xs = min(max(x - x_off, 0), dx - 1);
-    return static_cast<float>(__ldg(v + (static_cast<size_t>(xs) * d + y) * d + z));
+    return load_code(v + (static_cast<size_t>(xs) * d + y) * d + z);
   }
 
   __device__ __forceinline__ float nearest(float px, float py, float pz) const {

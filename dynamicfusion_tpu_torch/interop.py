@@ -3,7 +3,13 @@
 or dict in its field order) becomes the port's state and back, with
 identical dtypes. Tests start both packages from the same state with it. A
 sharded state (``parallel``) is gathered on the way out and split on the
-way in, given its mesh."""
+way in, given its mesh.
+
+numpy has no bfloat16 of its own: a bf16 volume (``tsdf_dtype="bf16"``)
+comes in as any numpy dtype of kind ``"V"`` and itemsize 2 (JAX's
+``bfloat16``, or the ``"V2"`` leaves ``np.savez`` writes for it), taken as
+its 16 bits, and goes out as those bits typed ``"V2"``. The port imports no
+``ml_dtypes``."""
 
 from __future__ import annotations
 
@@ -25,8 +31,24 @@ def _fields(obj: Any, names) -> Dict[str, Any]:
     return dict(zip(names, obj))
 
 
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2
+
+
 def _t(a, dev) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+    a = np.array(a, copy=True)
+    if _is_bf16(a):
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy of ``t`` on the host as numpy; bfloat16 as its bits, typed
+    ``"V2"`` (what ``_t`` takes back)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().view("V2").copy()
+    return t.numpy().copy()
 
 
 def state_from_numpy(d: Any, device="cuda", mesh=None, cfg=None) -> PipelineState:
@@ -58,22 +80,18 @@ def state_to_numpy(state: PipelineState, mesh=None) -> Dict[str, Any]:
     layout (vol and warp as dicts, map pyramids as tuples). The arrays are
     copies: the port updates its volume in place. A sharded state's volume
     is gathered over its ``mesh``."""
-
-    def n(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy().copy()
-
     if not isinstance(state.vol, TsdfVolume):
         if mesh is None:
             raise ValueError("state_to_numpy: a sharded state needs its mesh")
         state = state._replace(vol=mesh.whole(state.vol))
 
     return {
-        "vol": {k: n(v) for k, v in state.vol._asdict().items()},
-        "warp": {k: n(v) for k, v in state.warp._asdict().items()},
-        "pose": n(state.pose),
-        "prev_points": tuple(n(a) for a in state.prev_points),
-        "prev_normals": tuple(n(a) for a in state.prev_normals),
-        "can_points": n(state.can_points),
-        "can_normals": n(state.can_normals),
-        "frame_idx": n(state.frame_idx),
+        "vol": {k: to_numpy(v) for k, v in state.vol._asdict().items()},
+        "warp": {k: to_numpy(v) for k, v in state.warp._asdict().items()},
+        "pose": to_numpy(state.pose),
+        "prev_points": tuple(to_numpy(a) for a in state.prev_points),
+        "prev_normals": tuple(to_numpy(a) for a in state.prev_normals),
+        "can_points": to_numpy(state.can_points),
+        "can_normals": to_numpy(state.can_normals),
+        "frame_idx": to_numpy(state.frame_idx),
     }

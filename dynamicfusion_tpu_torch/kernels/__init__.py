@@ -28,6 +28,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dynamicfusion_tpu_torch.models import volume as volume_model
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -78,9 +80,9 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "df_bilateral": (_P, _P, _I, _I, _I, _D, _F, _P),
     "df_icp_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
-    "df_raycast": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
+    "df_raycast": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
     "df_fuse_bricks": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
     ),
     "df_knn_blend": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
@@ -106,7 +108,7 @@ _SIGNATURES = {
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
-    "df_extract_cloud": (_P, _P, _I, _F, _F, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P, _P),
+    "df_extract_cloud": (_P, _P, _I, _I, _F, _F, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P, _P),
     "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
     "df_p2p_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
     "df_gram_scales": (_P, _I, _P, _P, _I, _P, _P),
@@ -119,11 +121,11 @@ _SIGNATURES = {
     "df_node_radius": (_P, _P, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "df_dense_pcg": (_P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
     "df_net_rigid": (_P, _P, _P, _P, _P, _I, _F, _F, _P, _P, _P),
-    "df_fuse_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
+    "df_fuse_dense": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
     "df_fuse_dense_nonrigid": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _I, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _I, _P,
     ),
-    "df_extract_normals": (_P, _I, _F, _P, _I, _F, _F, _F, _F, _F, _P, _P),
+    "df_extract_normals": (_P, _I, _I, _F, _P, _I, _F, _F, _F, _F, _F, _P, _P),
 }
 
 
@@ -240,6 +242,40 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+# the volume's storages (csrc/common.cuh): a kernel that reads or writes the
+# volume takes one storage code, tsdf code | weight code << 2
+_TSDF_CODES = {torch.int16: 0, torch.float32: 1, torch.bfloat16: 2}
+_WEIGHT_CODES = {torch.uint16: 0, torch.float32: 1}
+
+
+def storage_code(tsdf_dtype: torch.dtype, weight_dtype: Optional[torch.dtype] = None) -> int:
+    """The kernels' code of a volume storage: the tsdf as i16 codes,
+    float32 or bfloat16, the weight as u16 codes or float32 (the six pairs
+    of the JAX config; the weight's code 0 where it is not given)."""
+    if tsdf_dtype not in _TSDF_CODES:
+        raise TypeError(f"tsdf: expected int16, float32 or bfloat16, got {tsdf_dtype}")
+    if weight_dtype is not None and weight_dtype not in _WEIGHT_CODES:
+        raise TypeError(f"weight: expected uint16 or float32, got {weight_dtype}")
+    return _TSDF_CODES[tsdf_dtype] | (0 if weight_dtype is None else _WEIGHT_CODES[weight_dtype]) << 2
+
+
+def _check_volume(tsdf: torch.Tensor, weight: Optional[torch.Tensor] = None) -> int:
+    """The storage code of a volume (or slab) on a card, contiguous, its
+    weight (if given) of the tsdf's shape on the same card."""
+    code = storage_code(tsdf.dtype, None if weight is None else weight.dtype)
+    _check(tsdf, "tsdf", tsdf.dtype)
+    if weight is not None:
+        _check(weight, "weight", weight.dtype, tsdf.shape)
+        _same_device(tsdf, weight)
+    return code
+
+
+def _decode_scale(tsdf: torch.Tensor) -> float:
+    """The tsdf's decode factor as float32: 1/32767 for the i16 codes, 1 for
+    the float storages."""
+    return _f32(volume_model.tsdf_decode_scale(tsdf.dtype))
+
+
 # --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
@@ -335,8 +371,8 @@ def march_and_refine(
     x_off: Optional[int] = None,
     d: Optional[int] = None,
 ):
-    """Kernel C (csrc/raycast.cu): per-ray march + refine on an int16
-    volume, ``refine`` 0 = secant + Newton polish, 1 = newton8, 2 =
+    """Kernel C (csrc/raycast.cu): per-ray march + refine on the tsdf
+    stored as i16 codes, float32 or bfloat16, ``refine`` 0 = secant + Newton polish, 1 = newton8, 2 =
     newton16, 3 = hybrid16; ``smooth`` takes the normal as the six-sample
     central difference at +-``delta`` voxels. Returns (found, vertex_vol,
     normal_vol); rays that found nothing carry NaN vertex and normal.
@@ -355,7 +391,7 @@ def march_and_refine(
             raise ValueError(f"tsdf: expected a (dx, {d}, {d}) slab, got {tuple(tsdf.shape)}")
     elif tsdf.dim() != 3 or len(set(tsdf.shape)) != 1:
         raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
-    _check(tsdf, "tsdf", torch.int16)
+    storage = _check_volume(tsdf)
     _check(ray_org, "ray_org", torch.float32, (3,))
     _check(dirs, "dirs", torch.float32)
     if dirs.shape[-1] != 3:
@@ -371,10 +407,10 @@ def march_and_refine(
     ts = torch.empty(dirs.shape[:-1], dtype=torch.float32, device=dev) if slab else None
     t_behind = torch.empty_like(ts) if slab else None
     rc = lib.df_raycast(
-        tsdf.data_ptr(), tsdf.shape[1], x_off or 0, tsdf.shape[0], ray_org.data_ptr(), dirs.data_ptr(),
+        tsdf.data_ptr(), storage, tsdf.shape[1], x_off or 0, tsdf.shape[0], ray_org.data_ptr(), dirs.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), tmin.numel(),
         _f32(1.0 / voxel_size), _f32(step), max_steps, int(adaptive), refine, int(smooth), _f32(delta),
-        _f32(1.0 / 32767.0), found.data_ptr(), vertex.data_ptr(), normal.data_ptr(),
+        _decode_scale(tsdf), found.data_ptr(), vertex.data_ptr(), normal.data_ptr(),
         ts.data_ptr() if slab else None, t_behind.data_ptr() if slab else None, _stream(dev),
     )
     _done("raycast", rc)
@@ -383,12 +419,11 @@ def march_and_refine(
     return found, vertex, normal
 
 
-def _check_volume(tsdf: torch.Tensor, weight: torch.Tensor) -> int:
+def _check_cube(tsdf: torch.Tensor, weight: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """(D, storage code) of a whole (D, D, D) volume (``_check_volume``)."""
     if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1:
         raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
-    _check(tsdf, "tsdf", torch.int16)
-    _check(weight, "weight", torch.uint16, tsdf.shape)
-    return tsdf.shape[0]
+    return tsdf.shape[0], _check_volume(tsdf, weight)
 
 
 def _check_image(img: torch.Tensor, name: str) -> Tuple[int, int]:
@@ -409,19 +444,20 @@ def integrate_dense(
     max_weight: float,
 ) -> None:
     """Kernel F1 (csrc/fuse_dense.cu): the dense rigid update of every voxel
-    IN PLACE on the int16 tsdf and uint16 weight volumes. ``rt`` (12,) holds
+    IN PLACE on the tsdf (i16 codes, float32 or bfloat16) and weight (u16
+    codes or float32) volumes. ``rt`` (12,) holds
     the volume-to-camera rotation times the voxel size (row-major) and the
     translation; ``ok`` False skips the whole update."""
-    d = _check_volume(tsdf, weight)
+    d, storage = _check_cube(tsdf, weight)
     rows, cols = _check_image(dists, "dists")
     _check(rt, "rt", torch.float32, (12,))
     _check(ok, "ok", torch.bool, ())
     _same_device(tsdf, weight, dists, rt, ok)
     lib = load()
     rc = lib.df_fuse_dense(
-        tsdf.data_ptr(), weight.data_ptr(), dists.data_ptr(), rt.data_ptr(), ok.data_ptr(), d, rows, cols,
+        tsdf.data_ptr(), weight.data_ptr(), storage, dists.data_ptr(), rt.data_ptr(), ok.data_ptr(), d, rows, cols,
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), _f32(trunc), _f32(max_weight),
-        _f32(1.0 / 32767.0), _stream(tsdf.device),
+        _decode_scale(tsdf), _stream(tsdf.device),
     )
     _done("integrate_dense", rc)
 
@@ -447,7 +483,7 @@ def integrate_dense_nonrigid(
     sdf_scale: bool = False,
 ) -> None:
     """Kernel F2 (csrc/fuse_dense.cu): the dense non-rigid update of every
-    voxel IN PLACE: its warped world position (and, given ``q_grid``, its
+    voxel IN PLACE (the volume in any storage F1 takes): its warped world position (and, given ``q_grid``, its
     observation weight, gating at > ``q_min``) prolonged from the (G, G, G)
     coarse corners ``warped`` (G = D / stride + 1), put into the camera
     frame by ``rt`` (12,: world-to-camera rotation row-major, translation)
@@ -455,7 +491,7 @@ def integrate_dense_nonrigid(
     packed depth+confidence image). With ``split`` > 1 only the voxels of
     the brick x-planes whose index is ``phase`` (a () int32 device tensor)
     modulo ``split`` take part; ``ok`` False skips the whole update."""
-    d = _check_volume(tsdf, weight)
+    d, storage = _check_cube(tsdf, weight)
     if d % stride or d % brick:
         raise ValueError(f"volume side {d} must be a multiple of stride {stride} and brick {brick}")
     gp = d // stride + 1
@@ -472,11 +508,11 @@ def integrate_dense_nonrigid(
         _same_device(tsdf, phase)
     lib = load()
     rc = lib.df_fuse_dense_nonrigid(
-        tsdf.data_ptr(), weight.data_ptr(), lookup.data_ptr(), warped.data_ptr(),
+        tsdf.data_ptr(), weight.data_ptr(), storage, lookup.data_ptr(), warped.data_ptr(),
         None if q_grid is None else q_grid.data_ptr(), rt.data_ptr(), ok.data_ptr(),
         None if split == 1 else phase.data_ptr(), d, stride, brick, split, rows, cols,
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), _f32(trunc), _f32(max_weight),
-        _f32(1.0 / 32767.0), _f32(q_min), int(packed), _f32(incidence_floor), int(sdf_scale),
+        _decode_scale(tsdf), _f32(q_min), int(packed), _f32(incidence_floor), int(sdf_scale),
         _stream(tsdf.device),
     )
     _done("integrate_dense_nonrigid", rc)
@@ -506,7 +542,8 @@ def fuse_bricks(
     sdf_scale: bool = False,
 ) -> None:
     """Kernel D (csrc/fuse_bricks.cu): front/band/wide brick updates IN
-    PLACE on the int16 tsdf and uint16 weight volumes, one block per work
+    PLACE on the tsdf (i16 codes, float32 or bfloat16) and weight (u16
+    codes or float32) volumes, one block per work
     slot; slots at or past ``count[0]`` and every slot when ``ok`` is False
     do nothing. ``dists`` is the depth image, or with ``packed`` the packed
     depth+confidence image; ``q_grid`` the optional (G, G, G) observation
@@ -519,8 +556,7 @@ def fuse_bricks(
     nbr = (dx // brick) * (d // brick) ** 2
     gp = d // stride + 1
     gx = dx // stride + 1
-    _check(tsdf, "tsdf", torch.int16)
-    _check(weight, "weight", torch.uint16, tsdf.shape)
+    storage = _check_volume(tsdf, weight)
     _check(dists, "dists", torch.float32)
     if dists.dim() != 2:
         raise ValueError(f"dists: expected (H, W), got {tuple(dists.shape)}")
@@ -538,12 +574,12 @@ def fuse_bricks(
     lib = load()
     rows, cols = dists.shape
     rc = lib.df_fuse_bricks(
-        tsdf.data_ptr(), weight.data_ptr(), dists.data_ptr(), cam_grid.data_ptr(),
+        tsdf.data_ptr(), weight.data_ptr(), storage, dists.data_ptr(), cam_grid.data_ptr(),
         ids.data_ptr(), kind.data_ptr(), count.data_ptr(), ok.data_ptr(),
         u0.data_ptr(), v0.data_ptr(),
         dx, d, brick, stride, rows, cols, nbr,
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), rect,
-        _f32(trunc), _f32(max_weight), _f32(1.0 / 32767.0),
+        _f32(trunc), _f32(max_weight), _decode_scale(tsdf),
         None if q_grid is None else q_grid.data_ptr(), _f32(q_min), int(packed), _f32(incidence_floor),
         int(sdf_scale), _stream(tsdf.device),
     )
@@ -1388,16 +1424,14 @@ _TILE = 16 * 256  # crossing tests per tile of csrc/extract.cu
 def extract_cloud(tsdf: torch.Tensor, weight: torch.Tensor, min_weight: float, max_points: int, voxel_size: float,
                   origin) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel L (csrc/extract.cu, four launches): the +x/+y/+z zero
-    crossings of an int16/uint16 (D, D, D) volume where both voxels weigh
+    crossings of a (D, D, D) volume (the tsdf as i16 codes, float32 or
+    bfloat16, the weight as u16 codes or float32) where both voxels weigh
     at least ``min_weight``, in the JAX order (axis-major, raster order
     within an axis). Returns (points (max_points, 3) world frame, NaN past
     the count; valid (max_points,) bool; count () int32, uncapped)."""
-    d = tsdf.shape[0]
-    if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1 or d < 2:
+    d, storage = _check_cube(tsdf, weight)
+    if d < 2:
         raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
-    _check(tsdf, "tsdf", torch.int16)
-    _check(weight, "weight", torch.uint16, tsdf.shape)
-    _same_device(tsdf, weight)
     if 3 * (d - 1) * d * d >= 2 ** 31:
         raise ValueError(f"tsdf: {d}^3 is past the kernel's int32 crossing count")
     if max_points < 1:
@@ -1410,7 +1444,7 @@ def extract_cloud(tsdf: torch.Tensor, weight: torch.Tensor, min_weight: float, m
     valid = torch.empty((max_points,), dtype=torch.bool, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     rc = lib.df_extract_cloud(
-        tsdf.data_ptr(), weight.data_ptr(), d, _f32(1.0 / 32767.0), _f32(min_weight), max_points,
+        tsdf.data_ptr(), weight.data_ptr(), storage, d, _decode_scale(tsdf), _f32(min_weight), max_points,
         _f32(voxel_size), *(_f32(v) for v in origin), scratch[:ntiles].data_ptr(), scratch[ntiles:].data_ptr(),
         ntiles, points.data_ptr(), valid.data_ptr(), count.data_ptr(), _stream(dev),
     )
@@ -1420,14 +1454,13 @@ def extract_cloud(tsdf: torch.Tensor, weight: torch.Tensor, min_weight: float, m
 
 def extract_normals(tsdf: torch.Tensor, points: torch.Tensor, voxel_size: float, origin, delta: float) -> torch.Tensor:
     """Kernel R (csrc/normals.cu): at each world-frame row of ``points``
-    (N, 3), the six-sample central difference of the int16 (D, D, D)
-    volume's trilinear TSDF at +-``delta`` voxels, divided by max(|g|,
+    (N, 3), the six-sample central difference of the (D, D, D) volume's
+    trilinear TSDF (stored as i16 codes, float32 or bfloat16) at +-``delta`` voxels, divided by max(|g|,
     1e-12); NaN rows (and rows whose samples leave the volume) give NaN.
     Returns (N, 3) float32."""
-    d = tsdf.shape[0]
-    if tsdf.dim() != 3 or len(set(tsdf.shape)) != 1 or d < 2:
+    d, storage = _check_cube(tsdf)
+    if d < 2:
         raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
-    _check(tsdf, "tsdf", torch.int16)
     if points.dim() != 2 or points.shape[1] != 3:
         raise ValueError(f"points: expected (N, 3), got {tuple(points.shape)}")
     _check(points, "points", torch.float32)
@@ -1439,7 +1472,7 @@ def extract_normals(tsdf: torch.Tensor, points: torch.Tensor, voxel_size: float,
     dev = tsdf.device
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rc = lib.df_extract_normals(
-        tsdf.data_ptr(), d, _f32(1.0 / 32767.0), points.data_ptr(), n, *(_f32(v) for v in origin),
+        tsdf.data_ptr(), storage, d, _decode_scale(tsdf), points.data_ptr(), n, *(_f32(v) for v in origin),
         _f32(voxel_size), _f32(delta), out.data_ptr(), _stream(dev),
     )
     _done("extract_normals", rc)

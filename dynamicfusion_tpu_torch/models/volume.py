@@ -1,8 +1,9 @@
 """The canonical TSDF volume (port of ``dynamicfusion_tpu.models.volume``).
 
 Two dense (D, D, D) tensors indexed [x, y, z] (z innermost). Storage
-dtypes follow the config: tsdf i16 fixed point (x 32767) or f32, weight
-u16 fixed point (x 512) or f32. All arithmetic is float32; codes are
+dtypes follow the config: tsdf i16 fixed point (x 32767), f32 or bf16,
+weight u16 fixed point (x 512) or f32; the plain path and the CUDA
+kernels (csrc/common.cuh) take all six pairs. All arithmetic is float32; codes are
 decoded through int32/float, never with int16 arithmetic (the weight code
 reaches 64 x 512 = 32768, past int16). Rounding is half-to-even, as
 ``torch.round`` and the CUDA kernels' ``rintf`` do.
@@ -32,23 +33,10 @@ class TsdfVolume(NamedTuple):
     weight: torch.Tensor  # (D, D, D) uint16 (x 512) | float32
 
 
-def check_storage(cfg: DynamicFusionConfig, device: torch.device) -> None:
-    """Refuse on CUDA the storages the kernels do not take: kernels C, D and
-    L read and write the i16 tsdf and u16 weight codes only. The plain
-    path (CPU tensors) runs every storage."""
-    if device.type != "cuda":
-        return
-    if cfg.tsdf_dtype != "i16":
-        raise NotImplementedError(f"tsdf_dtype={cfg.tsdf_dtype!r} on CUDA: the kernels take the i16 tsdf only")
-    if cfg.weight_dtype != "u16":
-        raise NotImplementedError(f"weight_dtype={cfg.weight_dtype!r} on CUDA: the kernels take the u16 weight only")
-
-
 def create(cfg: DynamicFusionConfig, device="cuda") -> TsdfVolume:
-    """An empty volume on ``device`` (CUDA unless the CPU is asked for);
-    ``check_storage`` refuses the storages the kernels do not take."""
+    """An empty volume on ``device`` (CUDA unless the CPU is asked for), in
+    the config's storage; the kernels take every storage."""
     device = device_mod.resolve(device)
-    check_storage(cfg, device)
     d = cfg.volume_dims
     return TsdfVolume(
         tsdf=torch.zeros((d, d, d), dtype=_TSDF_DTYPES[cfg.tsdf_dtype], device=device),

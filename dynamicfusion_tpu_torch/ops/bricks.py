@@ -418,7 +418,9 @@ def _fuse_rows(cfg: DynamicFusionConfig, tsdf_rows, w_rows, dp, rdist, inb, q=No
         update = update & (q > cfg.fusion_quality_min)
     obs_w, sdf_scale = incidence_weight_scale(cfg, conf)
     q = q * obs_w
-    tsdf_obs = torch.clamp(psdf * sdf_scale / trunc, max=1.0)
+    # a true division, as kernel D's (CUDA torch takes a division by a
+    # Python scalar as a product with its reciprocal)
+    tsdf_obs = torch.clamp(psdf * sdf_scale / torch.full((), trunc, device=psdf.device), max=1.0)
     t32 = volume_model.decode_tsdf(tsdf_rows)
     w32 = volume_model.decode_weight(w_rows)
     wq = w32 + q

@@ -767,7 +767,6 @@ def extract_normals(
     asks."""
     if plain or points_world.device.type == "cpu":
         return extract_normals_plain(cfg, vol, points_world)
-    volume_model.check_storage(cfg, points_world.device)
     return kernels.extract_normals(
         vol.tsdf, points_world.contiguous(), cfg.voxel_size, tuple(float(v) for v in cfg.volume_origin),
         cfg.gradient_delta_factor,

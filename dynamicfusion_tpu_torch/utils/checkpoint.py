@@ -59,7 +59,8 @@ def save(path: str, state: kinfu.PipelineState, mesh=None) -> None:
         state = state._replace(vol=mesh.whole(state.vol))
     flat = leaves(state)
     if any(t.dtype == torch.bfloat16 for t in flat):
-        raise NotImplementedError("bf16 volume storage: numpy has no bfloat16 to write it as")
+        raise NotImplementedError("bf16 volume storage: the JAX package's checkpoint cannot load one back "
+                                  "(numpy writes its bfloat16 leaves as 'V2'), so the format holds none")
     arrays = {f"a{i}": t.detach().cpu().numpy() for i, t in enumerate(flat)}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez_compressed(path, n=len(flat), **arrays)
@@ -76,7 +77,6 @@ def load(path: str, cfg: DynamicFusionConfig, mesh=None, device="cuda") -> kinfu
 
         return sharded.shard_state(cfg, mesh, load(path, cfg, device=mesh.device))
     dev = device_mod.resolve(device)
-    volume_model.check_storage(cfg, dev)
     with np.load(path) as data:
         n = int(data["n"])
         flat = [data[f"a{i}"] for i in range(n)]
@@ -87,7 +87,8 @@ def load(path: str, cfg: DynamicFusionConfig, mesh=None, device="cuda") -> kinfu
         if tuple(a.shape) != tuple(b.shape):
             raise ValueError(f"checkpoint shape {a.shape} incompatible with config shape {tuple(b.shape)}")
         if a.dtype.kind == "V":
-            raise NotImplementedError("bf16 volume storage: numpy has no bfloat16 to read it as")
+            raise NotImplementedError("bf16 volume storage ('V2' leaves): the JAX package's checkpoint cannot "
+                                      "load one back, so the format holds none")
     state = interop.state_from_numpy(unflatten(flat, cfg.track_levels), dev)
     if state.vol.tsdf.dtype != template[0].dtype or state.vol.weight.dtype != template[1].dtype:
         state = state._replace(vol=volume_model.convert(state.vol, cfg))

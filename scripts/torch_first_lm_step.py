@@ -1,24 +1,44 @@
 """The first LM iteration of the warp solve at full width, in the JAX
-package and in the port's plain version, on the CPU, from one dumped
-system.
+package and in the port's plain version, on the CPU.
 
-``python3 chip_smoke.py --dump-solve FILE`` writes the warp field and the
-solve's point sets of its phase-2 state (the dynamicfusion preset after
-three frames of the deforming scene, the next frame tracked: 1024 nodes,
-19 200 map points). This script loads that file and, for both packages,
-builds the first iteration's damped 6x6 blocks as the factored solve does,
+Run mode (no argument): the JAX package runs ``default_dynamicfusion()``
+(640x480 / 256^3 / 1024 nodes) jitted over ``--frames`` frames of the
+deforming scene that ``chip_smoke.py`` drives (``io/synthetic.
+deforming_frames``), and every step's warp field and solve point sets are
+captured as the step hands them to the solve. For each captured system
+both packages then run the first LM iteration and the whole solve, and the
+script prints, for JAX and for the port's plain path from JAX's system:
+
+- whether the first PCG step is finite (its non-finite entries, and the
+  active nodes whose step the solve zeroes);
+- whether iteration 0 accepts its candidate, and whether that candidate is
+  the renormalized field (every active node's step zeroed);
+- whether the solve then stops at its initial cost (one accepted step,
+  the final cost within the stop test's 1e-6 of the initial one);
+
+and the counts over the run for each package.
+
+Dump mode: ``python3 chip_smoke.py --dump-solve FILE`` writes the warp
+field and the solve's point sets of its phase-2 state (the preset after
+three frames, the next frame tracked); given that file, the script builds
+the first iteration's damped 6x6 blocks as the factored solve does,
 inverts them with the closed-form ``spd6_inv``, runs the PCG from them and
 prints how many entries of the step are not finite, the blocks' condition
-numbers and the inverse's error against float64; then each package's whole
-solve (initial and final cost, accepted steps).
+numbers and the inverse's error against float64; then each package's
+whole solve (initial and final cost, accepted steps).
 
+    python3 scripts/torch_first_lm_step.py [--frames 20] [--threads 4]
     python3 scripts/torch_first_lm_step.py solve.npz
 
-Imports both packages, as the parity tests do; runs on the CPU only.
+Imports both packages, as the parity tests do; runs on the CPU only (the
+run mode takes ~10 min and a few GB).
 """
 
+import argparse
+import dataclasses
 import os
 import sys
+import time
 from pathlib import Path
 
 os.environ["JAX_PLATFORMS"] = "cpu"
@@ -33,8 +53,10 @@ jax.config.update("jax_platforms", "cpu")
 
 from dynamicfusion_tpu.config import DynamicFusionConfig as JCfg  # noqa: E402
 from dynamicfusion_tpu.models import warpfield as jw  # noqa: E402
+from dynamicfusion_tpu.pipeline import kinfu as jkinfu  # noqa: E402
 from dynamicfusion_tpu.solvers import warp_solver as js  # noqa: E402
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg  # noqa: E402
+from dynamicfusion_tpu_torch.io import synthetic  # noqa: E402
 from dynamicfusion_tpu_torch.models import warpfield as tw  # noqa: E402
 from dynamicfusion_tpu_torch.solvers import warp_solver as ts  # noqa: E402
 
@@ -110,21 +132,23 @@ def report(name, m, minv, step, step64):
           f"closed-form preconditioner, {int((~np.isfinite(step64)).sum())} with the float64 inverse")
 
 
-def main() -> int:
-    if len(sys.argv) != 2:
-        print(f"usage: {sys.argv[0]} SOLVE_NPZ", file=sys.stderr)
-        return 2
-    z = np.load(sys.argv[1])
-    jc, tc = JCfg.default_dynamicfusion(), TCfg.default_dynamicfusion()
+def load_dump(path):
+    """(warp field, solve inputs) of a ``--dump-solve`` file as numpy dicts."""
+    z = np.load(path)
     warp = {k[5:]: z[k] for k in z.files if k.startswith("warp_")}
     ins = {k[7:]: z[k] for k in z.files if k.startswith("inputs_")}
+    return warp, ins
+
+
+def dump_main(path) -> int:
+    jc, tc = JCfg.default_dynamicfusion(), TCfg.default_dynamicfusion()
+    warp, ins = load_dump(path)
     jfield = jw.WarpField(**{k: jnp.asarray(v) for k, v in warp.items()})
     jin = js.WarpSolveInputs(**{k: jnp.asarray(v) for k, v in ins.items()})
     tfield = tw.WarpField(**{k: torch.from_numpy(v) for k, v in warp.items()})
     tin = ts.WarpSolveInputs(**{k: torch.from_numpy(v) for k, v in ins.items()})
     print(f"system: {int(warp['count'])} of {warp['active'].shape[0]} nodes active, "
           f"{ins['p_can'].shape[0]} map points")
-    torch.set_num_threads(4)
     report("jax", *jax_first_step(jc, jfield, jin))
     report("port", *port_first_step(tc, tfield, tin))
     _, jst = jax.jit(lambda f, i: js.solve(jc, f, i))(jfield, jin)
@@ -133,6 +157,103 @@ def main() -> int:
         print(f"[{name}] solve: cost0 {float(st.initial_cost):.6e}, cost1 {float(st.final_cost):.6e}, "
               f"accepted {int(st.accepted_steps)} of {jc.solver_nonlinear_iters}")
     return 0
+
+
+def zeroed_nodes(step, active) -> int:
+    """Active nodes whose step has a non-finite entry: the solve zeroes them."""
+    bad = ~np.isfinite(np.asarray(step).reshape(-1, 6)).all(-1)
+    return int((bad & np.asarray(active)).sum())
+
+
+def stops_at_initial(cfg, stats) -> bool:
+    """One accepted step and the final cost within the stop test's
+    tolerance of the initial one: the solve ended at iteration 0."""
+    c0, c1 = float(stats.initial_cost), float(stats.final_cost)
+    return int(stats.accepted_steps) == 1 and abs(c0 - c1) <= cfg.solver_function_tolerance * max(c1, 1e-20)
+
+
+def classify_jax(jc, warp, ins, solve_full, solve_one):
+    field = jw.WarpField(**{k: jnp.asarray(v) for k, v in warp.items()})
+    inputs = js.WarpSolveInputs(**{k: jnp.asarray(v) for k, v in ins.items()})
+    _, _, step, _ = jax_first_step(jc, field, inputs)
+    _, one = solve_one(field, inputs)
+    _, full = solve_full(field, inputs)
+    return dict(nonfinite=int((~np.isfinite(step)).sum()), size=step.size,
+                zeroed=zeroed_nodes(step, warp["active"]), accept0=bool(int(one.accepted_steps) == 1),
+                stop=stops_at_initial(jc, full), cost0=float(full.initial_cost), cost1=float(full.final_cost),
+                accepted=int(full.accepted_steps))
+
+
+def classify_port(tc, warp, ins):
+    field = tw.WarpField(**{k: torch.from_numpy(np.array(v)) for k, v in warp.items()})
+    inputs = ts.WarpSolveInputs(**{k: torch.from_numpy(np.array(v)) for k, v in ins.items()})
+    _, _, step, _ = port_first_step(tc, field, inputs)
+    trace = []
+    _, full = ts.solve(tc, field, inputs, trace=trace)
+    return dict(nonfinite=int((~np.isfinite(step)).sum()), size=step.size,
+                zeroed=zeroed_nodes(step, warp["active"]), accept0=bool(trace[0][4]),
+                stop=stops_at_initial(tc, full), cost0=float(full.initial_cost), cost1=float(full.final_cost),
+                accepted=int(full.accepted_steps))
+
+
+def run_main(frames: int) -> int:
+    jc, tc = JCfg.default_dynamicfusion(), TCfg.default_dynamicfusion()
+    depths = synthetic.deforming_frames(tc.intr, tc.rows, tc.cols, frames)
+    print(f"default_dynamicfusion(): {tc.cols}x{tc.rows} / {tc.volume_dims}^3 / {tc.max_nodes} nodes, "
+          f"{frames} frames of the deforming scene; CPU", flush=True)
+    captured = []
+
+    def record(field, inputs):
+        captured.append(({k: np.array(v) for k, v in field._asdict().items()},
+                         {k: np.array(v) for k, v in inputs._asdict().items() if v is not None}))
+
+    def solve_fn(field, inputs):
+        jax.debug.callback(record, field, inputs)
+        return js.solve(jc, field, inputs)
+
+    first = jax.jit(lambda s, d: jkinfu.first_frame(jc, s, d))
+    step = jax.jit(lambda s, d: jkinfu.step(jc, s, d, warp_solve_fn=solve_fn))
+    solve_full = jax.jit(lambda f, i: js.solve(jc, f, i))
+    jc1 = dataclasses.replace(jc, solver_nonlinear_iters=1)
+    solve_one = jax.jit(lambda f, i: js.solve(jc1, f, i))
+    t0 = time.perf_counter()
+    state = first(jkinfu.init_state(jc), jnp.asarray(depths[0]))
+    outs = []
+    for d in depths[1:]:
+        state, o = step(state, jnp.asarray(d))
+        outs.append((bool(o.icp_ok), float(o.solver_cost0), float(o.solver_cost1)))
+    jax.effects_barrier()
+    print(f"JAX: {len(captured)} steps captured at {time.perf_counter() - t0:.1f} s", flush=True)
+    print("step | icp_ok | package: first step non-finite entries / size, zeroed active nodes | iteration 0 "
+          "accepts | candidate is the renormalized field | solve stops at its initial cost | cost0 -> cost1, "
+          "accepted", flush=True)
+    counts = {"jax": [0, 0, 0, 0], "port": [0, 0, 0, 0]}
+    for i, ((warp, ins), (ok, c0, c1)) in enumerate(zip(captured, outs), start=1):
+        n_active = int(np.asarray(warp["active"]).sum())
+        for name, r in (("jax", classify_jax(jc, warp, ins, solve_full, solve_one)),
+                        ("port", classify_port(tc, warp, ins))):
+            null = r["zeroed"] == n_active
+            for k, v in enumerate((r["nonfinite"] > 0, r["accept0"], r["accept0"] and null, r["stop"])):
+                counts[name][k] += int(v)
+            print(f"{i:4d} | {ok} | {name}: {r['nonfinite']} / {r['size']}, {r['zeroed']} of {n_active} | "
+                  f"{r['accept0']} | {null} | {r['stop']} | {r['cost0']:.6e} -> {r['cost1']:.6e}, "
+                  f"{r['accepted']}", flush=True)
+    n = len(captured)
+    for name, (nf, acc, acc_null, stop) in counts.items():
+        print(f"[{name}] of {n} steps: first step non-finite on {nf}; iteration 0 accepts on {acc}, the "
+              f"renormalized field on {acc_null}; the solve stops at its initial cost on {stop}", flush=True)
+    print(f"done at {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("solve", nargs="?", default=None, help="a chip_smoke.py --dump-solve file (dump mode)")
+    ap.add_argument("--frames", type=int, default=20, help="frames of the deforming scene (run mode)")
+    ap.add_argument("--threads", type=int, default=4, help="PyTorch intra-op threads")
+    args = ap.parse_args()
+    torch.set_num_threads(args.threads)
+    return dump_main(args.solve) if args.solve else run_main(args.frames)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ over ``bench.py``'s hinge scene (or its deforming scene) at full width,
 torch.profiler (``chip_smoke.profile_frames``: device busy time, idle
 share, launches).
 
-    python3 scripts/torch_frame_times.py --root DIR [--preset quality] [--frames 20] [--profile OUT]
+    python3 scripts/torch_frame_times.py --root DIR [--preset quality] [--storage f32/f32] [--frames 20]
+                                         [--profile OUT]
 
 ``--root`` is the directory holding the ``dynamicfusion_tpu_torch`` to time
 (this checkout by default; an unpacked ``git archive`` of another commit
@@ -13,10 +14,14 @@ for an A/B on one card: run parent, change, change, parent in one call,
 each in its own process). The kernels build from that tree's sources.
 Prints the card, every frame's host time around one frame ending in
 ``torch.cuda.synchronize()``, and the median of the steady frames
-(2..N-1) as chip_smoke.py measures it.
+(2..N-1) as chip_smoke.py measures it. ``--storage TSDF/WEIGHT`` runs the
+preset with that volume storage (``f32/f32``, ``bf16/f32``, ...; the
+preset's ``i16/u16`` by default): alternate storages in one call for an
+A/B of the storage.
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,6 +39,7 @@ def main() -> int:
     ap.add_argument("--preset", choices=("quality", "default"), default="quality",
                     help="quality_dynamicfusion() on the hinge scene, or default_dynamicfusion() on the "
                          "deforming scene")
+    ap.add_argument("--storage", default="i16/u16", help="the volume's tsdf/weight storage, e.g. f32/f32")
     ap.add_argument("--frames", type=int, default=20, help="timed frames (frame 0 included)")
     ap.add_argument("--profile", default=None, help="profile 3 more frames and write the table and trace here")
     args = ap.parse_args()
@@ -67,6 +73,8 @@ def main() -> int:
     else:
         cfg = DynamicFusionConfig.default_dynamicfusion()
         make = synthetic.deforming_frames
+    tsdf_dtype, weight_dtype = args.storage.split("/")
+    cfg = dataclasses.replace(cfg, tsdf_dtype=tsdf_dtype, weight_dtype=weight_dtype)
     n_prof = 3 if args.profile else 0
     frames = make(cfg.intr, cfg.rows, cfg.cols, args.frames + n_prof)
     df = kinfu.DynamicFusion(cfg, device=dev)
@@ -78,12 +86,14 @@ def main() -> int:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     steady = sorted(ms[2:])
-    print(f"[time] {card} | {root.name} {args.preset} frame ms median {steady[len(steady) // 2]:.3f} "
+    print(f"[time] {card} | {root.name} {args.preset} {args.storage} frame ms median {steady[len(steady) // 2]:.3f} "
           f"(frames 2..{len(ms) - 1}), min {steady[0]:.3f}, max {steady[-1]:.3f}; per frame "
           + " ".join(f"{v:.1f}" for v in ms), flush=True)
     if args.profile:
-        profile_frames(torch, args, dev, card, df, frames[args.frames:], tag=f"{root.name}_{args.preset}")
-    print(json.dumps({"root": str(root), "preset": args.preset, "median_ms": steady[len(steady) // 2],
+        profile_frames(torch, args, dev, card, df, frames[args.frames:],
+                       tag=f"{root.name}_{args.preset}_{args.storage.replace('/', '_')}")
+    print(json.dumps({"root": str(root), "preset": args.preset, "storage": args.storage,
+                      "median_ms": steady[len(steady) // 2],
                       "frame_ms": ms, "card": card}))
     return 0
 

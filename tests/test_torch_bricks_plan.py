@@ -5,7 +5,8 @@ with their band windows and surface flags, and the fusion's work list
 in the fixed permutation's order, then wide bricks; the caps and the
 (band, wide, dropped) counts). At ``small()`` and at the dynamicfusion
 preset's own grid (256^3 in 4 096 bricks of 16^3, 640x480 dists, 11 mip
-levels, the caps 2 048 / 128), which is cheap on the CPU.
+levels, the caps 2 048 / 128) and at ``default_kinfu()``'s (512^3 in
+32 768 bricks), which is cheap on the CPU.
 
 Every pool and window is a min or a max and the float arithmetic runs in
 the same order, so everything is held exactly. Inputs: the synthetic
@@ -49,6 +50,9 @@ CASES = {
     # the camera 0.3 m closer: the nearest bricks' footprints pass the band window (wide)
     "preset_capped_near": ("default_dynamicfusion", dict(integrate_band_cap=300, integrate_wide_cap=8), 8, 2e-3, 1,
                            0.3),
+    # default_kinfu(): 512^3 over 3 m in 32 768 bricks of 16^3 (kernel K's
+    # 32^3 brick grid), its own intrinsics, the warped grid at stride 8
+    "kinfu_warped": ("default_kinfu", {}, 8, 2e-3, 1, 0.0),
 }
 
 
@@ -154,6 +158,8 @@ def test_brick_plan_matches(name):
         assert jcounts[2] > 0
     if name.startswith("preset"):
         assert jpyr.levels == 11 and bp.classes.cls.shape == (4096,)
+    if name.startswith("kinfu"):
+        assert jpyr.levels == 11 and bp.classes.cls.shape == (32768,) and jcount > 0
 
 
 def test_cases_cover_every_class():

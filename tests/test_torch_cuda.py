@@ -949,6 +949,19 @@ def test_depth_icp_kernels(dev):
 # ---------------------------------------------------------------- the sharded step's modes
 
 
+def _ext_slab(tsdf_vol, k, n, halo):
+    """(x_off, shard k's extended slab): its D/n planes and ``halo``
+    wrapped planes each side, as ``mesh.halo`` builds it."""
+    d = tsdf_vol.shape[0]
+    x_off = k * (d // n) - halo
+    ext = tsdf_vol[max(x_off, 0): x_off + d // n + 2 * halo]
+    if x_off < 0:
+        ext = torch.cat([tsdf_vol[x_off:], ext])
+    if ext.shape[0] < d // n + 2 * halo:
+        ext = torch.cat([ext, tsdf_vol[: d // n + 2 * halo - ext.shape[0]]])
+    return x_off, ext.contiguous()
+
+
 def test_slab_raycast_kernel(dev, model):
     """Kernel C's slab mode on each shard's extended slab (4 shards) against
     its plain version: found and the first exit event's t equal, the
@@ -961,14 +974,8 @@ def test_slab_raycast_kernel(dev, model):
     cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), model.pose)
     org, dirs, tmin, tmax = tsdf.rays(cfg, cam2vol, cfg.intr, cfg.rows, cfg.cols)
     for k in range(n):
-        x_off = k * (d // n) - halo
-        ext = model.vol.tsdf[max(x_off, 0): x_off + d // n + 2 * halo]
-        if x_off < 0:
-            ext = torch.cat([model.vol.tsdf[x_off:], ext])
-        if ext.shape[0] < d // n + 2 * halo:
-            ext = torch.cat([ext, model.vol.tsdf[: d // n + 2 * halo - ext.shape[0]]])
+        x_off, ext = _ext_slab(model.vol.tsdf, k, n, halo)
         lo, hi = sharded_raycast.slab_window(cfg, k, n, org, dirs, tmin, tmax)
-        ext = ext.contiguous()
         got = tsdf.march_slab(cfg, ext, x_off, org, dirs, lo, hi)
         ref = tsdf.march_slab(cfg, ext, x_off, org, dirs, lo, hi, plain=True)
         torch.cuda.synchronize()
@@ -1089,3 +1096,197 @@ def test_sharded_step_on_the_card_goes_through_its_kernels(dev):
         assert float((out.pose - ro.pose).abs().max()) <= 1e-4
     torch.cuda.synchronize()
     assert all(kernels.launches[k] > 0 for k in ("raycast", "brick_plan", "fuse_bricks") + SHARDED), kernels.launches
+
+
+# ---------------------------------------------------------------- the float volume storages
+
+# the (tsdf, weight) storages of the JAX config beside the default (i16, u16)
+STORAGES = [("i16", "f32"), ("f32", "u16"), ("f32", "f32"), ("bf16", "u16"), ("bf16", "f32")]
+STORAGE_IDS = [f"{t}-{w}" for t, w in STORAGES]
+# kernels C and R read the tsdf only: its two float storages
+TSDF_STORAGES = ["f32", "bf16"]
+RAYCAST_MODES = [("secant", False), ("newton8", False)] + VARIANTS
+
+
+def _stored(cfg, vol, tsdf_dtype, weight_dtype="u16"):
+    """(the config with that storage, ``vol`` re-encoded into it)."""
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+
+    c = dataclasses.replace(cfg, tsdf_dtype=tsdf_dtype, weight_dtype=weight_dtype)
+    return c, volume_model.convert(vol, c)
+
+
+def _bits(t):
+    """A volume tensor's stored bits."""
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+def _same_volume(a, b):
+    return torch.equal(_bits(a.tsdf), _bits(b.tsdf)) and torch.equal(_bits(a.weight), _bits(b.weight))
+
+
+def _same_map(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def _clones(vol):
+    return (TsdfVolume(vol.tsdf.clone(), vol.weight.clone()), TsdfVolume(vol.tsdf.clone(), vol.weight.clone()))
+
+
+@pytest.mark.parametrize("tsdf_dtype", TSDF_STORAGES)
+@pytest.mark.parametrize("refine,smooth", RAYCAST_MODES, ids=[f"{r}-{'grad6' if s else 'cell'}" for r, s in RAYCAST_MODES])
+def test_raycast_kernel_float_storages(dev, model, refine, smooth, tsdf_dtype):
+    """Kernel C on a float tsdf, every refine and normal mode: found,
+    vertices and normals bit-equal to its plain version (the decode is by
+    1, the float32 arithmetic the same)."""
+    cfg, vol = _stored(dataclasses.replace(CFG, raycast_refine=refine, raycast_smooth_normals=smooth), model.vol,
+                       tsdf_dtype)
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), model.pose)
+    rows, cols = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
+    rays = tsdf.rays(cfg, cam2vol, cfg.intr.level(cfg.raycast_shift), rows, cols)
+    before = kernels.launches["raycast"]
+    got = tsdf.march_and_refine(cfg, vol.tsdf, *rays)
+    ref = tsdf.march_and_refine(cfg, vol.tsdf, *rays, plain=True)
+    assert kernels.launches["raycast"] == before + 1
+    f = ref[0]
+    assert torch.equal(got[0], f) and float(f.float().mean()) > 0.3
+    # rays that found nothing: NaN from the kernel, unused in the plain version
+    assert _same_map(got[1][f], ref[1][f]) and _same_map(got[2][f], ref[2][f])
+
+
+@pytest.mark.parametrize("tsdf_dtype", TSDF_STORAGES)
+def test_slab_raycast_kernel_float_storages(dev, model, tsdf_dtype):
+    """Kernel C's slab mode on a float tsdf: every output bit-equal to its
+    plain version on each of 4 shards' extended slabs."""
+    from dynamicfusion_tpu_torch.parallel import sharded_raycast
+
+    cfg, vol = _stored(dataclasses.replace(CFG, raycast_adaptive_step=False), model.vol, tsdf_dtype)
+    n, halo = 4, sharded_raycast._halo_planes(cfg)
+    cam2vol = se3.compose(se3.inverse(kinfu._vol_pose(cfg, dev)), model.pose)
+    org, dirs, tmin, tmax = tsdf.rays(cfg, cam2vol, cfg.intr, cfg.rows, cfg.cols)
+    for k in range(n):
+        x_off, ext = _ext_slab(vol.tsdf, k, n, halo)
+        lo, hi = sharded_raycast.slab_window(cfg, k, n, org, dirs, tmin, tmax)
+        got = tsdf.march_slab(cfg, ext, x_off, org, dirs, lo, hi)
+        ref = tsdf.march_slab(cfg, ext, x_off, org, dirs, lo, hi, plain=True)
+        f = ref[0]
+        assert torch.equal(got[0], f) and torch.equal(got[4], ref[4])
+        assert all(_same_map(a[f], b[f]) for a, b in zip(got[1:4], ref[1:4]))
+
+
+@pytest.mark.parametrize("tsdf_dtype,weight_dtype", STORAGES, ids=STORAGE_IDS)
+@pytest.mark.parametrize("mode", ["rigid", "nonrigid", "slab"])
+def test_fuse_kernel_float_storages(dev, model, nr_model, mode, tsdf_dtype, weight_dtype):
+    """Kernel D at each storage pair, rigid, non-rigid (warped grid, blend
+    quality, packed confidence) and on 4 shards' slabs: the volume bit-equal
+    to its plain version's."""
+    from dynamicfusion_tpu_torch.ops import fusion
+    from dynamicfusion_tpu_torch.parallel import sharded_fusion
+
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    if mode == "rigid":
+        cfg, vol = _stored(CFG, model.vol, tsdf_dtype, weight_dtype)
+        dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+        grid = tsdf.brick_grid(cfg, se3.compose(se3.inverse(model.pose), kinfu._vol_pose(cfg, dev)))
+        bp = bricks.plan(cfg, dists, grid, cfg.brick_size, cfg.intr)
+        vk, vp = _clones(vol)
+        bricks.fuse(cfg, vk, dists, grid, cfg.brick_size, cfg.intr, bp, on)
+        bricks.fuse(cfg, vp, dists, grid, cfg.brick_size, cfg.intr, bp, on, plain=True)
+        assert _same_volume(vk, vp) and not torch.equal(_bits(vk.tsdf), _bits(vol.tsdf))
+        return
+    st = nr_model[0]
+    cfg, vol = _stored(NR, st.vol, tsdf_dtype, weight_dtype)
+    depth = torch.from_numpy(NR_DEPTHS[3]).to(dev)
+    _, pts, nrm, dists = preprocess.build_frame_pyramid(cfg, depth)
+    conf = preprocess.incidence_confidence(pts[0], nrm[0])
+    cf = fusion.coarse_field(cfg, st.warp, plain=True)
+    w2c = se3.inverse(st.pose)
+    if mode == "nonrigid":
+        vk, vp = _clones(vol)
+        ck = fusion.integrate_nonrigid(cfg, vk, cf, dists, w2c, cfg.intr, on, conf=conf)
+        cp = fusion.integrate_nonrigid(cfg, vp, cf, dists, w2c, cfg.intr, on, conf=conf, plain=True)
+        assert torch.equal(ck, cp) and _same_volume(vk, vp) and not torch.equal(_bits(vk.tsdf), _bits(vol.tsdf))
+        return
+    n, b, g = 4, cfg.brick_size, cfg.knn_field_stride
+    grid = se3.transform_points(w2c, cf.warped)
+    lookup = bricks.pack_depth_conf(dists, conf)
+    band_cap, wide_cap = sharded_fusion.caps(cfg, n)
+    dl = cfg.volume_dims // n
+    for k in range(n):
+        gk = bricks.corner_slab(grid, k, n, b, g).contiguous()
+        qk = bricks.corner_slab(cf.q, k, n, b, g).contiguous()
+        bp = bricks.plan_slab(cfg, dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap, plain=True)
+        slab = TsdfVolume(vol.tsdf[k * dl:(k + 1) * dl], vol.weight[k * dl:(k + 1) * dl])
+        vk, vp = _clones(slab)
+        bricks.fuse(cfg, vk, lookup, gk, g, cfg.intr, bp, on, qk, packed=True)
+        bricks.fuse(cfg, vp, lookup, gk, g, cfg.intr, bp, on, qk, packed=True, plain=True)
+        assert _same_volume(vk, vp)
+
+
+@pytest.mark.parametrize("tsdf_dtype,weight_dtype", STORAGES, ids=STORAGE_IDS)
+@pytest.mark.parametrize("nonrigid", [False, True], ids=["F1", "F2"])
+def test_dense_fuse_kernels_float_storages(dev, model, nr_model, nonrigid, tsdf_dtype, weight_dtype):
+    """Kernels F1 and F2 (with the incidence confidence and the phase
+    split) at each storage pair: the volume bit-equal to its plain
+    version's."""
+    from dynamicfusion_tpu_torch.ops import fusion
+
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    if not nonrigid:
+        cfg, vol = _stored(dataclasses.replace(CFG, integrate_mode="dense"), model.vol, tsdf_dtype, weight_dtype)
+        dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+        vol2cam = se3.compose(se3.inverse(model.pose), kinfu._vol_pose(cfg, dev))
+        vk, vp = _clones(vol)
+        tsdf.integrate(cfg, vk, dists, vol2cam, cfg.intr, ok=ok)
+        tsdf.integrate(cfg, vp, dists, vol2cam, cfg.intr, ok=ok, plain=True)
+    else:
+        st = nr_model[0]
+        cfg, vol = _stored(dataclasses.replace(NR, integrate_mode="dense", fusion_phase_split=2, fusion_interval=2),
+                           st.vol, tsdf_dtype, weight_dtype)
+        _, pts, nrm, dists = preprocess.build_frame_pyramid(cfg, torch.from_numpy(NR_DEPTHS[3]).to(dev))
+        conf = preprocess.incidence_confidence(pts[0], nrm[0])
+        cf = fusion.coarse_field(cfg, st.warp, plain=True)
+        phase = torch.ones((), dtype=torch.int32, device=dev)
+        w2c = se3.inverse(st.pose)
+        vk, vp = _clones(vol)
+        fusion.integrate_nonrigid(cfg, vk, cf, dists, w2c, cfg.intr, ok, conf=conf, phase=phase)
+        fusion.integrate_nonrigid(cfg, vp, cf, dists, w2c, cfg.intr, ok, conf=conf, phase=phase, plain=True)
+    torch.cuda.synchronize()
+    assert _same_volume(vk, vp) and not torch.equal(_bits(vk.weight), _bits(vol.weight))
+
+
+@pytest.mark.parametrize("tsdf_dtype,weight_dtype", STORAGES, ids=STORAGE_IDS)
+def test_extract_kernels_float_storages(dev, model, tsdf_dtype, weight_dtype):
+    """Kernels L and R at each storage pair: the cloud, its flags and count,
+    and its normals bit-equal to their plain versions."""
+    cfg, vol = _stored(CFG, model.vol, tsdf_dtype, weight_dtype)
+    ck = tsdf.extract_cloud(cfg, vol, 1 << 16, min_weight=1.0)
+    cp = tsdf.extract_cloud(cfg, vol, 1 << 16, min_weight=1.0, plain=True)
+    assert torch.equal(ck.count, cp.count) and torch.equal(ck.valid, cp.valid) and int(cp.count) > 700
+    assert _same_map(ck.points, cp.points)
+    got = tsdf.extract_normals(cfg, vol, cp.points)
+    ref = tsdf.extract_normals(cfg, vol, cp.points, plain=True)
+    assert _same_map(got, ref) and int((~torch.isnan(got[:, 0])).sum()) > 500
+
+
+@pytest.mark.parametrize("tsdf_dtype,weight_dtype", STORAGES, ids=STORAGE_IDS)
+def test_float_storages_on_the_card_go_through_their_kernels(dev, tsdf_dtype, weight_dtype):
+    """The non-rigid slice and its dense variant in each storage: the
+    volume keeps its storage, C, D, L (F1, F2 dense) launch, each step
+    against the plain step from the same state (pose 1e-5)."""
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+
+    for mode in ("brick", "dense"):
+        cfg = dataclasses.replace(NR, integrate_mode=mode, tsdf_dtype=tsdf_dtype, weight_dtype=weight_dtype)
+        kernels.reset_launches()
+        state = kinfu.first_frame(cfg, kinfu.init_state(cfg, dev), torch.from_numpy(NR_DEPTHS[0]).to(dev))
+        for d in NR_DEPTHS[1:]:
+            prev = state._replace(vol=TsdfVolume(state.vol.tsdf.clone(), state.vol.weight.clone()))
+            _, ref = kinfu.step(cfg, prev, torch.from_numpy(d).to(dev), plain=True)
+            state, out = kinfu.step(cfg, state, torch.from_numpy(d).to(dev))
+            assert bool(out.icp_ok) and float((out.pose - ref.pose).abs().max()) <= 1e-5
+        torch.cuda.synchronize()
+        assert state.vol.tsdf.dtype == volume_model._TSDF_DTYPES[tsdf_dtype]
+        assert state.vol.weight.dtype == volume_model._WEIGHT_DTYPES[weight_dtype]
+        fused = ("integrate_dense", "integrate_dense_nonrigid") if mode == "dense" else ("fuse_bricks",)
+        assert all(kernels.launches[k] > 0 for k in ("raycast", "extract_cloud") + fused), kernels.launches

@@ -226,15 +226,19 @@ def test_slab_march_matches_jax_slab_samplers(rc_volume):
 FU = dataclasses.replace(JCfg.small(dims=64, rows=120, cols=160), max_nodes=64, node_radius=0.3, knn_field_stride=2)
 
 
-@pytest.mark.parametrize("incidence", [False, True])
-def test_slab_fusion_matches_single_device(incidence):
+@pytest.mark.parametrize("incidence,storage", [pytest.param(False, "i16", id="False"),
+                                               pytest.param(True, "i16", id="True"),
+                                               pytest.param(True, "f32", id="True-f32")])
+def test_slab_fusion_matches_single_device(incidence, storage):
     """64^3 over 4 slabs (whole brick planes) against JAX's
     ``integrate_nonrigid``: codes within 1 LSB, weights equal (within 1 LSB
     with the incidence weight), the same band and wide counts; against the
     port's single-device fusion bit for bit; ``enabled=False`` leaves every
-    slab as it was."""
+    slab as it was. Under the f32 tsdf and weight the LSBs are the i16 and
+    u16 codes' (1 / 32767, 1 / 512)."""
     jc = dataclasses.replace(FU, fusion_incidence_weight=incidence, fusion_sdf_incidence_scale=incidence,
-                             fusion_incidence_floor=0.35 if incidence else 0.0)
+                             fusion_incidence_floor=0.35 if incidence else 0.0,
+                             tsdf_dtype=storage, weight_dtype="f32" if storage == "f32" else "u16")
     tc = tcfg(jc)
     rng = np.random.default_rng(0)
     g = np.linspace(-0.35, 0.35, 4)
@@ -265,13 +269,17 @@ def test_slab_fusion_matches_single_device(incidence):
     sv = mesh.slabs(TsdfVolume(_t(vol.tsdf), _t(vol.weight)))
     out, counts = fn(tc, sv, *args, torch.tensor(True), tconf, None)
     w = mesh.whole(out)
-    assert np.abs(w.tsdf.numpy().astype(np.int32) - np.asarray(ref.tsdf).astype(np.int32)).max() <= TOL_FUSE_LSB
-    dw = np.abs(w.weight.numpy().astype(np.int32) - np.asarray(ref.weight).astype(np.int32)).max()
+    assert w.tsdf.dtype == tvolume._TSDF_DTYPES[storage]
+    # distances in the i16 and u16 codes' units (exact integers for the codes)
+    lsb_t, lsb_w = (32767.0, 512.0) if storage == "f32" else (1.0, 1.0)
+    dt = np.abs(w.tsdf.numpy().astype(np.float64) - np.asarray(ref.tsdf).astype(np.float64)) * lsb_t
+    assert dt.max() <= TOL_FUSE_LSB
+    dw = np.abs(w.weight.numpy().astype(np.float64) - np.asarray(ref.weight).astype(np.float64)).max() * lsb_w
     assert dw <= (TOL_FUSE_W_LSB if incidence else 0)
     assert counts.tolist()[:2] == np.asarray(cref).tolist()[:2]
     one = TsdfVolume(_t(vol.tsdf), _t(vol.weight))
     c1 = tfusion.integrate_nonrigid(tc, one, *args, torch.tensor(True), conf=tconf)
-    assert torch.equal(w.tsdf, one.tsdf) and torch.equal(w.weight.to(torch.int32), one.weight.to(torch.int32))
+    assert torch.equal(w.tsdf, one.tsdf) and torch.equal(w.weight.view(torch.int16), one.weight.view(torch.int16))
     assert counts.tolist() == c1.tolist()
     sv = mesh.slabs(TsdfVolume(_t(vol.tsdf), _t(vol.weight)))
     out, counts = fn(tc, sv, *args, torch.tensor(False), tconf, None)

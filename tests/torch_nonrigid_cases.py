@@ -111,15 +111,27 @@ def port_run(tc, depths):
     return out
 
 
+def _bf16_ulps(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bits (uint16) as integers in value order, so that the
+    difference of two is their distance in ulps."""
+    b = bits.astype(np.int64)
+    return np.where(b & 0x8000, -(b & 0x7FFF), b)
+
+
 def check_volume(jv, tv):
     """Codes differing by more than 1 LSB on < TOL_LSB_FRAC of voxels,
     weights within 1 LSB (fractional observation weights make a weight a
     sum of rounded codes). Float storages are held to the same: the tsdf
     within one i16 LSB (1 / 32767) and the weight within one u16 LSB
-    (1 / 512)."""
+    (1 / 512); a bf16 tsdf within one bf16 ulp on all but TOL_LSB_FRAC of
+    voxels (JAX's bf16 arrays come as numpy dtype kind "V")."""
     jt, tt = np.asarray(jv.tsdf), tv.tsdf.float().numpy()
     if jt.dtype == np.int16:
         assert (np.abs(jt.astype(np.int64) - tt.astype(np.int64)) > 1).mean() < TOL_LSB_FRAC
+    elif jt.dtype.kind == "V" and jt.dtype.itemsize == 2:
+        assert tv.tsdf.dtype == torch.bfloat16
+        ulps = np.abs(_bf16_ulps(jt.view(np.uint16)) - _bf16_ulps(tv.tsdf.view(torch.int16).numpy().view(np.uint16)))
+        assert (ulps > 1).mean() < TOL_LSB_FRAC
     else:
         assert (np.abs(jt.astype(np.float32) - tt) > 1.0 / 32767.0).mean() < TOL_LSB_FRAC
     jw_, tw_ = np.asarray(jv.weight), tv.weight
