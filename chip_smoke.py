@@ -34,7 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    bit-equal), C at 640x480 in that band and as ``render(pose)``'s full
    march, kernel B at 640x480; and on the base ``DynamicFusionConfig()``'s
    state after three frames (3 200 solve points, 6N = 6 144): kernel N's
-   column scales and int8 Gram (bit-equal), its bf16 Gram, kernel O,
+   column scales and int8 Gram (bit-equal), its bf16 Gram (within 1e-6,
+   the same on a second call), each timed beside its PyTorch route (the
+   expansion, quantization, product, scale product and edge blocks in
+   PyTorch calls), and N at 2048 nodes on seeded skewed rows (every mode
+   held), kernel O,
    cuSOLVER's factor (an all-NaN factor where the matrix is not positive
    definite), kernel F's point-to-point rows and kernel P (the PCG over
    the damped dense matrix, within four times the plain PCG's own spread
@@ -202,6 +206,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -258,6 +263,16 @@ TOL_IMAGE_FRAC = 1e-3         # render pixels more than one level from the plain
 # plain version sums the integer products exactly in float64, the scale
 # product in the same order); the bf16 Gram within the float32 sums' order
 TOL_GRAM_BF16_REL = 1e-6      # max |diff| over max |entry|
+# kernel J's yardsticks (PyTorch calls): |p| by vector_norm, not in the kernel's order
+TOL_BAND_LIBRARY_M = 1e-6
+# kernel N's yardsticks (PyTorch calls) against the plain version: the edge
+# blocks added one after the other, data + A + Aᵀ + D, not data + ((A + Aᵀ)
+# + D), and (bf16) the product summed in another order
+TOL_GRAM_LIBRARY_REL = 1e-5
+# kernel P's init yardstick (PyTorch calls) against the kernel: z = M b by
+# torch.bmm and rᵀz, bᵀb by torch.dot, not in the kernel's order (a dot's
+# difference over the sum of its terms' magnitudes)
+TOL_PCG_LIBRARY_REL = 1e-5
 # kernel O: off the diagonal a copy; the diagonal within the mean's sum order
 TOL_DAMP_REL = 1e-6
 # kernel Q against its plain version (a float64 SVD through
@@ -1487,6 +1502,57 @@ def gate_kernels(torch, report, dev, st, tr):
     )
 
 
+def library_coarse_band(torch, pts_c, f, m):
+    """Kernel J's coarse band in PyTorch calls, its yardstick: |p| of the
+    coarse hits, their 3x3 window min and max (two max pools), widened by
+    the margin, empty where none hit, each value repeated f x f."""
+    import torch.nn.functional as F
+
+    t = torch.linalg.vector_norm(pts_c, dim=-1)
+    hit = ~torch.isnan(t)
+    inf = float("inf")
+    src = torch.stack([torch.where(hit, -t, -inf), torch.where(hit, t, -inf)])[None]
+    pooled = F.max_pool2d(src, 3, 1, padding=1)
+    lo, hi = -pooled[:, :1], pooled[:, 1:]
+    band = torch.where(torch.isfinite(lo), torch.cat([torch.clamp(lo - m, min=0.0), hi + m], 1), 0.0)
+    out = F.interpolate(band, scale_factor=f, mode="nearest")[0]
+    return out[0], out[1]
+
+
+def library_march_band(torch, dists, s, can, m):
+    """Kernel J's temporal band in PyTorch calls, its yardstick: |p| of the
+    previous model map united with the strided live dists, their 5x5
+    window min and max (two max pools), widened by the margin, empty where
+    none is valid."""
+    import torch.nn.functional as F
+
+    t = torch.linalg.vector_norm(can, dim=-1)
+    live = dists[::s, ::s]
+    miss = torch.isnan(t)
+    inf = float("inf")
+    lo_src = torch.minimum(torch.where(miss, inf, t), torch.where(live > 0, live, inf))
+    hi_src = torch.maximum(torch.where(miss, -inf, t), torch.where(live > 0, live, -inf))
+    pooled = F.max_pool2d(torch.stack([-lo_src, hi_src])[None], 5, 1, padding=2)[0]
+    lo, hi = -pooled[0], pooled[1]
+    hit = torch.isfinite(lo)
+    return torch.where(hit, torch.clamp(lo - m, min=0.0), 0.0), torch.where(hit, hi + m, 0.0)
+
+
+def library_pcg_init(torch, minv, b, rtol, active):
+    """Kernel P's init in PyTorch calls, its yardstick: x = 0, r = b,
+    z = M b (``torch.bmm``), p = z, rᵀz, the stop threshold rtol² bᵀb and
+    the done flag."""
+    n = minv.shape[0]
+    x = torch.zeros_like(b)
+    r = b.clone()
+    z = torch.bmm(minv, b.view(n, 6, 1)).view(-1)
+    p = z.clone()
+    bb = torch.dot(b, b)
+    rz = torch.dot(r, z)
+    stop2 = (rtol * rtol) * bb
+    return x, r, z, p, rz, stop2, ~active | ~(bb > stop2)
+
+
 def full_res_kernels(torch, report, dev, st, depth_np):
     """Phase 2 for the reference resolution of ``reference_parity()`` (rigid,
     640x480 model maps) on the preset's phase-2 volume at its camera: kernel
@@ -1495,8 +1561,6 @@ def full_res_kernels(torch, report, dev, st, depth_np):
     band and as the full march of ``render(pose)``, and kernel B at 640x480
     (the next frame's level-0 maps against the banded model maps)."""
     import dataclasses
-
-    import torch.nn.functional as F
 
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
@@ -1526,7 +1590,9 @@ def full_res_kernels(torch, report, dev, st, depth_np):
           f"{cols // f}x{rows // f} coarse hits -> {cols}x{rows} band equal the plain version's bit for bit {exact}; "
           f"{banded} rays banded, {rows * cols - banded} empty")
     n_c = pts_c.shape[0] * pts_c.shape[1]
-    t_src = torch.linalg.vector_norm(pts_c, dim=-1)[None, None].contiguous()
+    err = max(abs_err(torch, x, y) for x, y in zip(library_coarse_band(torch, pts_c, f, m), bk))
+    check("coarse_band_library", err <= TOL_BAND_LIBRARY_M,
+          f"the yardstick (PyTorch calls) computes the same band: max |diff| {err:.2e} m (tol {TOL_BAND_LIBRARY_M})")
     report["coarse_band"] = dict(
         err=0.0,
         ms=cuda_ms(torch, lambda: kernels.coarse_band(pts_c, f, m)),
@@ -1534,7 +1600,7 @@ def full_res_kernels(torch, report, dev, st, depth_np):
         # the coarse hits in, lo and hi at the fine resolution out; ~6
         # operations a coarse |p| and 9 taps of ~3 a fine pixel
         bound=bound_ms(n_c * 12 + rows * cols * 8, n_c * 6.0 + rows * cols * 30.0),
-        library_ms=cuda_ms(torch, lambda: F.max_pool2d(t_src, 3, 1, padding=1)),
+        library_ms=cuda_ms(torch, lambda: library_coarse_band(torch, pts_c, f, m)),
     )
     # C: 640x480 in the coarse band, and the render's full march
     rays_f = tsdf_ops.rays(cfg, cam2vol, intr, rows, cols, t_band=bk)
@@ -1717,14 +1783,17 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
           f"{bk[0].shape[1]}x{bk[0].shape[0]} band equal the plain version's; {int((bk[1] > bk[0]).sum())} rays banded")
     can = st.can_points.contiguous()
     nt = can.shape[0] * can.shape[1]
-    lo_src = bk[0][None, None].contiguous()
+    s_ = cfg.raycast_subsample
+    err = max(abs_err(torch, x, y) for x, y in zip(library_march_band(torch, dk, s_, can, cfg.raycast_band_margin), bk))
+    check("march_bands_library", err <= TOL_BAND_LIBRARY_M,
+          f"the yardstick (PyTorch calls) computes the same band: max |diff| {err:.2e} m (tol {TOL_BAND_LIBRARY_M})")
     report["march_bands"] = dict(
         err=0.0,
         ms=cuda_ms(torch, lambda: kernels.march_bands(dk, cfg.raycast_subsample, can, cfg.raycast_band_margin, False)),
         plain_ms=cuda_ms(torch, lambda: kinfu._march_bands(cfg, st.can_points, dk, plain=True)),
         # strided dists and the model map in, lo and hi out; 25 taps of ~6 operations
         bound=bound_ms(nt * (4 + 12 + 8), nt * (25 * 6.0 + 10.0)),
-        library_ms=cuda_ms(torch, lambda: F.max_pool2d(lo_src, 5, 1, padding=2)),
+        library_ms=cuda_ms(torch, lambda: library_march_band(torch, dk, s_, can, cfg.raycast_band_margin)),
     )
 
     # C: the newton8 branch, in the band, at the preset's model-map resolution
@@ -2290,6 +2359,131 @@ def fresh_main(torch, args, dev, card, nr_depths):
     check_steps_vs_plain(torch, "fresh", cfg, dev, frames, states, poses_k, rows)
 
 
+def library_gram(torch, rows, knn_idx, n, int8, scale=None, h_ij=None, diag=None, e_src=None, e_dst=None):
+    """Kernel N's yardstick: the same function in PyTorch calls, as JAX's
+    data_jtj and edge_jtj compute it. The rows expanded one-hot to (P R,
+    6N); int8: quantized by the column scales, ``torch._int_mm`` (the rows
+    padded with zeros to a multiple of 8), float(g) (c_i c_j); bf16:
+    ``torch.mm`` with a float32 result; then the edge blocks placed (with
+    ``h_ij``). Never called by the port."""
+    p, r = rows.shape[:2]
+    dt = torch.float32 if int8 else torch.bfloat16
+    a = torch.zeros((p, r, n, 6), dtype=dt, device=rows.device)
+    a[torch.arange(p, device=rows.device)[:, None, None], torch.arange(r, device=rows.device)[None, :, None],
+      knn_idx[:, None, :]] = rows.to(dt)
+    a = a.reshape(p * r, 6 * n)
+    if int8:
+        q = torch.clamp(torch.round(a / scale), -127.0, 127.0).to(torch.int8)
+        if q.shape[0] % 8:
+            q = torch.cat([q, q.new_zeros((8 - q.shape[0] % 8, 6 * n))])
+        g = torch._int_mm(q.T.contiguous(), q).float() * (scale[:, None] * scale[None, :])
+    else:
+        g = torch.mm(a.T, a, out_dtype=torch.float32)
+    if h_ij is not None:
+        v = g.view(n, 6, n, 6)
+        ar = torch.arange(n, device=rows.device)
+        v[e_src, :, e_dst, :] += h_ij
+        v[e_dst, :, e_src, :] += h_ij.transpose(1, 2)
+        v[ar, :, ar, :] += diag
+    return g
+
+
+def entry_counts(torch, off):
+    """(max, mean, share of the top 5% of nodes) of the entries a node."""
+    cnt = (off[1:] - off[:-1]).double()
+    top = torch.sort(cnt, descending=True).values[: max(1, cnt.shape[0] // 20)]
+    return int(cnt.max()), float(cnt.mean()), float(top.sum() / cnt.sum().clamp(min=1.0))
+
+
+class GramInputs(NamedTuple):
+    rows: object
+    knn: object
+    lists: object
+    h_ij: object
+    diag: object
+    e_src: object
+    e_dst: object
+    e_lists: object
+
+
+def skewed_gram_inputs(torch, dev, n, npt, nrows, seed):
+    """Seeded inputs of kernel N at ``n`` nodes: bf16 rows (npt, nrows, 8,
+    6) over six decades; each point's 8 distinct neighbours drawn from
+    nodes 1 .. n - n/32 - 1, with node 0 in place of one of them for 60% of
+    the points (the skewed node) and the last n/32 nodes in none; 4
+    out-edges a node to distinct other nodes, their 6x6 blocks and the
+    diagonal blocks."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    rng = np.random.default_rng(seed)
+    live = n - n // 32
+    knn = 1 + rng.random((npt, live - 1)).argsort(1)[:, :8]
+    knn[:, 0] = np.where(rng.random(npt) < 0.6, 0, knn[:, 0])
+    knn = rng.permuted(knn, axis=1)
+    rows = rng.standard_normal((npt, nrows, 8, 6)) * 10.0 ** rng.uniform(-3, 3, (npt, 1, 1, 1))
+    other = rng.random((n, n - 1)).argsort(1)[:, :4]
+    e_dst = (other + (other >= np.arange(n)[:, None])).reshape(-1)
+    knn_t = torch.from_numpy(knn).to(dev)
+    e_dst_t = torch.from_numpy(e_dst).to(dev)
+    return GramInputs(
+        torch.from_numpy(rows.astype(np.float32)).to(dev).to(torch.bfloat16), knn_t, ws.node_lists(knn_t, n),
+        torch.from_numpy(rng.standard_normal((4 * n, 6, 6)).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.standard_normal((n, 6, 6)).astype(np.float32)).to(dev),
+        torch.arange(n, device=dev).repeat_interleave(4), e_dst_t, ws.node_lists(e_dst_t, n),
+    )
+
+
+def gram_2048(torch, dev, n=2048, npt=6400):
+    """Phase 2 for kernel N at 2048 nodes (12 288 dofs; the one-block-a-node
+    design this kernel replaced refused more than 1 614): skewed seeded
+    inputs (``skewed_gram_inputs``, 6 400 points) at R = 1 and 3; the int8
+    Gram bit-equal to the plain version, the bf16 one within
+    TOL_GRAM_BF16_REL and the same on a second call, the shard mode
+    (given scales, no edges) bit-equal, the edge-only call exact; both
+    modes and their PyTorch routes timed at R = 1."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    for nrows in (1, 3):
+        g = skewed_gram_inputs(torch, dev, n, npt, nrows, seed=12 + nrows)
+        args = (g.rows, g.knn, g.lists.order, g.lists.off, g.h_ij, g.diag, g.e_dst, g.e_lists.order, g.e_lists.off)
+        eargs = (g.h_ij, g.diag, g.e_src, g.e_dst)
+        same8 = torch.equal(kernels.dense_gram(*args, True), ws.dense_gram_plain(g.rows, g.knn, True, *eargs))
+        bk = kernels.dense_gram(*args, False)
+        err = rel_err(torch, bk, ws.dense_gram_plain(g.rows, g.knn, False, *eargs))
+        again = torch.equal(bk, kernels.dense_gram(*args, False))
+        del bk
+        scale = kernels.gram_scales(g.rows, g.lists.order, g.lists.off)
+        shard = torch.equal(
+            kernels.dense_gram(g.rows, g.knn, g.lists.order, g.lists.off, None, None, None, None, None, True,
+                               scale=scale, edges=False),
+            ws.dense_gram_plain(g.rows, g.knn, True, None, None, None, None, scale=scale, n=n))
+        rows0 = torch.zeros((0, 1, 8, 6), dtype=torch.bfloat16, device=dev)
+        knn0 = torch.zeros((0, 8), dtype=torch.int64, device=dev)
+        off0 = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+        edge = torch.equal(
+            kernels.dense_gram(rows0, knn0, off0[:0], off0, g.h_ij, g.diag, g.e_dst, g.e_lists.order, g.e_lists.off,
+                               False),
+            ws.dense_gram_plain(rows0, knn0, False, *eargs))
+        emax, emean, etop = entry_counts(torch, g.lists.off)
+        check(f"dense_gram_2048_r{nrows}", same8 and err <= TOL_GRAM_BF16_REL and again and shard and edge,
+              f"{n} nodes, {npt} x {nrows} rows, entries a node max {emax} (node 0), mean {emean:.1f}, the top 5% "
+              f"hold {etop:.3f}, {int((g.lists.off[1:] == g.lists.off[:-1]).sum())} nodes none: int8 bit-equal "
+              f"{same8}; bf16 max relative diff {err:.2e} (tol {TOL_GRAM_BF16_REL}), the same on a second call "
+              f"{again}; shard mode bit-equal {shard}; the edge-only call exact {edge}")
+        if nrows == 1:
+            cp = ws.gram_scales_plain(ws.dense_rows(g.rows, g.knn, n))
+            t8 = cuda_ms(torch, lambda: kernels.dense_gram(*args, True), reps=10)
+            t16 = cuda_ms(torch, lambda: kernels.dense_gram(*args, False), reps=10)
+            l8 = cuda_ms(torch, lambda: library_gram(torch, g.rows, g.knn, n, True, cp, *eargs), reps=5)
+            l16 = cuda_ms(torch, lambda: library_gram(torch, g.rows, g.knn, n, False, None, *eargs), reps=5)
+            bound = bound_ms((6 * n) ** 2 * 4 + npt * (96 + 64), 0.0)[0]
+            print(f"[time] {smi()} | N at {n} nodes, {npt} x 1 rows: int8 {t8:.4f} ms (PyTorch route {l8:.4f}), "
+                  f"bf16 {t16:.4f} ms (PyTorch route {l16:.4f}); the matrix's write {bound:.4f} ms",
+                  flush=True)
+        del g
+
+
 def dense_kernels(torch, report, dev, nr_depths):
     """Phase 2 for kernels N, O, F's point-to-point rows and the factor on
     the base config's state after three frames of the kernel path, the
@@ -2339,34 +2533,56 @@ def dense_kernels(torch, report, dev, nr_depths):
     same = torch.equal(gk, gp)
     check("dense_gram", same, f"({6 * n})^2 int8 Gram plus the edge blocks, {npt} x 1 rows: bit-equal to the plain "
           f"version {same} (max |diff| {abs_err(torch, gk, gp):.3e})")
-    q = torch.clamp(torch.round(a / cp), -127.0, 127.0).to(torch.int8)
-    qt = q.T.contiguous()
+    emax, emean, etop = entry_counts(torch, s.pts_by_node.off)
+    blocks, threads, tile = kernels.gram_launch(n)
+    print(f"[info] N at the base config: entries a node max {emax}, mean {emean:.1f}, the top 5% of the {n} nodes "
+          f"hold {etop:.3f}; {blocks} blocks of {threads} threads ({-(-n // tile)} column tiles of {tile} nodes a "
+          f"node)", flush=True)
+    e_args = dict(h_ij=et.h_ij, diag=et.diag, e_src=s.e_src, e_dst=s.e_dst)
+    lib8 = lambda: library_gram(torch, dt.rows, s.knn_idx, n, True, cp, **e_args)  # noqa: E731
+    err = rel_err(torch, lib8(), gp)
+    check("dense_gram_library", err <= TOL_GRAM_LIBRARY_REL,
+          f"the int8 yardstick (expansion, quantization, torch._int_mm, the scale product, the edge blocks placed) "
+          f"computes the same function: max relative diff {err:.2e} (tol {TOL_GRAM_LIBRARY_REL})")
     products = npt * 8 * 288 * dt.rows.shape[1]  # each entry's (k, a, b) products over its rows
     report["dense_gram"] = dict(
         err=abs_err(torch, gk, gp),
         ms=cuda_ms(torch, lambda: ws.dense_gram(cfg, s, dt, et), reps=10),
         plain_ms=cuda_ms(torch, lambda: ws.dense_gram(cfg, s, dt, et, plain=True), reps=3),
         bound=bound_ms(gram_in + mat_b, 2.0 * products, PEAK_INT8),
-        # JAX's syrk itself on the expanded int8 rows (the scales and the
-        # edge blocks not included)
-        library_ms=cuda_ms(torch, lambda: torch._int_mm(qt, qt.T), reps=10),
+        library_ms=cuda_ms(torch, lib8, reps=10),
     )
-    del q, qt
     cfg16 = dataclasses.replace(cfg, solver_jtj_int8=False)
     bk = ws.dense_gram(cfg16, s, dt, et)
     bp = ws.dense_gram(cfg16, s, dt, et, plain=True)
     err = rel_err(torch, bk, bp)
-    check("dense_gram_bf16", err <= TOL_GRAM_BF16_REL,
-          f"({6 * n})^2 bf16 Gram plus the edge blocks: max relative diff {err:.2e} (tol {TOL_GRAM_BF16_REL})")
-    ab = a.to(torch.bfloat16)
+    again = torch.equal(bk, ws.dense_gram(cfg16, s, dt, et))
+    check("dense_gram_bf16", err <= TOL_GRAM_BF16_REL and again,
+          f"({6 * n})^2 bf16 Gram plus the edge blocks: max relative diff {err:.2e} (tol {TOL_GRAM_BF16_REL}); "
+          f"the same on a second call {again}")
+    lib16 = lambda: library_gram(torch, dt.rows, s.knn_idx, n, False, **e_args)  # noqa: E731
+    err = rel_err(torch, lib16(), bp)
+    check("dense_gram_bf16_library", err <= TOL_GRAM_LIBRARY_REL,
+          f"the bf16 yardstick (expansion, torch.mm with a float32 result, the edge blocks placed) computes the "
+          f"same function: max relative diff {err:.2e} (tol {TOL_GRAM_LIBRARY_REL})")
     report["dense_gram_bf16"] = dict(
         err=abs_err(torch, bk, bp),
         ms=cuda_ms(torch, lambda: ws.dense_gram(cfg16, s, dt, et), reps=10),
         plain_ms=cuda_ms(torch, lambda: ws.dense_gram(cfg16, s, dt, et, plain=True), reps=3),
         bound=bound_ms(gram_in + mat_b, 2.0 * products, PEAK_BF16),
-        library_ms=cuda_ms(torch, lambda: torch.matmul(ab.T, ab), reps=10),
+        library_ms=cuda_ms(torch, lib16, reps=10),
     )
-    del bk, bp, ab, a
+    # the product alone, the single calls the library column timed before it was restated
+    q = torch.clamp(torch.round(a / cp), -127.0, 127.0).to(torch.int8)
+    qt = q.T.contiguous()
+    ab = a.to(torch.bfloat16)
+    one8 = cuda_ms(torch, lambda: torch._int_mm(qt, qt.T), reps=10)
+    one16 = cuda_ms(torch, lambda: torch.mm(ab.T, ab, out_dtype=torch.float32), reps=10)
+    print(f"[time] {smi()} | N at the base config: int8 kernel {report['dense_gram']['ms']:.4f} ms, "
+          f"PyTorch route {report['dense_gram']['library_ms']:.4f} (torch._int_mm alone {one8:.4f}); bf16 kernel "
+          f"{report['dense_gram_bf16']['ms']:.4f}, PyTorch route {report['dense_gram_bf16']['library_ms']:.4f} "
+          f"(torch.mm alone {one16:.4f}); bound {report['dense_gram']['bound'][0]:.4f}", flush=True)
+    del bk, bp, ab, a, q, qt
 
     # O, the damping at the solve's first lambda
     lam = torch.full((), cfg.solver_lm_lambda_init, device=dev)
@@ -3691,6 +3907,20 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
                and float(work[4 * 6 * nn_]) == float(ws.dot_ordered(b_vec, zp)))
     check("pcg_init", init_ok, f"x = 0, r = b, p = z, z = M b and rᵀz bit-equal to the plain version in kernel P's "
           f"order {init_ok} (max |z - z_plain| {abs_err(torch, work[6 * nn_: 12 * nn_], zp):.2e})")
+    lx, lr, lz, lp, lrz, lstop, ldone = library_pcg_init(torch, minv, b_vec, rtol, on)
+    st = work[4 * 6 * nn_:]
+    # the dots' differences over the sums of their terms' magnitudes (rᵀz's
+    # terms cancel), the vectors' over their largest entry
+    lerrs = (rel_err(torch, work[6 * nn_: 12 * nn_], lz), rel_err(torch, work[12 * nn_: 18 * nn_], lp),
+             abs(float(st[0]) - float(lrz)) / max(float((b_vec * lz).abs().sum()), 1e-30),
+             abs(float(st[1]) - float(lstop)) / max(abs(float(lstop)), 1e-30))
+    lsame = (torch.equal(lx, xi) and torch.equal(lr, work[:6 * nn_])
+             and bool(ldone) == bool(int(st[2:3].view(torch.int32))))
+    check("pcg_init_library", lsame and max(lerrs) <= TOL_PCG_LIBRARY_REL,
+          f"the yardstick (PyTorch calls) computes kernel P's init: x and r equal, the done flag equal {lsame}; "
+          f"relative diffs z {lerrs[0]:.2e}, p {lerrs[1]:.2e}, rᵀz {lerrs[2]:.2e} (of the sum of |r_i z_i|, "
+          f"rᵀz itself {abs(float(st[0]) - float(lrz)) / max(abs(float(lrz)), 1e-30):.2e}), rtol² bᵀb "
+          f"{lerrs[3]:.2e} (tol {TOL_PCG_LIBRARY_REL})")
     report["pcg_init"] = dict(
         err=abs_err(torch, work[6 * nn_: 12 * nn_], zp),
         ms=cuda_ms(torch, lambda: kernels.pcg_sharded_init(minv, b_vec, iters, rtol, on)),
@@ -3698,7 +3928,7 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
                                          ws.dot_ordered(b_vec, ws.apply_m_ordered(minv, b_vec)))),
         # M and b in; x, r, z, p and the loop state out
         bound=bound_ms(nn_ * (144 + 24) + nn_ * 24 * 4 + 12, nn_ * 72.0 + nn_ * 24.0),
-        library_ms=cuda_ms(torch, lambda: torch.bmm(minv, b_vec.reshape(nn_, 6, 1))),
+        library_ms=cuda_ms(torch, lambda: library_pcg_init(torch, minv, b_vec, rtol, on)),
     )
     print(f"[info] {n} shards: the distributed PCG ran {ran} of {iters} iterations; one shard's data matvec "
           f"{report['data_matvec']['ms']:.4f} ms", flush=True)
@@ -3791,6 +4021,12 @@ def sharded_base_main(torch, args, dev, card, nr_depths, report, cfg=None):
     npt = shards[0].p_can.shape[0]
     sk0, dt0 = shards[0], dts[0]
     products = npt * 8 * 288 * dt0.rows.shape[1]
+    lib_shard = lambda: library_gram(torch, dt0.rows, sk0.knn_idx, n, True, scale)  # noqa: E731
+    err = rel_err(torch, lib_shard(), ws.dense_gram_plain(dt0.rows, sk0.knn_idx, True, None, None, None, None,
+                                                          scale=scale, n=n))
+    check("dense_gram_shard_library", err <= TOL_GRAM_LIBRARY_REL,
+          f"the shard mode's yardstick (expansion, quantization by the given scales, torch._int_mm, the scale "
+          f"product) computes the same function: max relative diff {err:.2e} (tol {TOL_GRAM_LIBRARY_REL})")
     report["dense_gram_shard"] = dict(
         err=0.0 if same else float("inf"),
         ms=cuda_ms(torch, lambda: ws.data_gram(cfg, sk0, dt0, scale), reps=10),
@@ -3798,7 +4034,8 @@ def sharded_base_main(torch, args, dev, card, nr_depths, report, cfg=None):
         # one shard: its rows, ids, lists and the scales in, the (6N)^2 matrix out
         bound=bound_ms(npt * (96 + 64) + (npt * 8 + n + 1) * 4 + 6 * n * 4 + (6 * n) ** 2 * 4, 2.0 * products,
                        PEAK_INT8),
-        library_ms=None,
+        # the shard's rows expanded, quantized by the given scales, torch._int_mm and the scale product
+        library_ms=cuda_ms(torch, lib_shard, reps=10),
     )
     steady = sorted(frame_ms[1:])
     print(f"[time] {card} | sharded base config ({SHARDS} shards on one card) frame ms median "
@@ -4484,6 +4721,7 @@ def main() -> int:
     nonrigid_kernels(torch, args, report, dev, nr_depths)
     extract_kernels(torch, report, dev, nr_depths)
     dense_kernels(torch, report, dev, nr_depths)
+    gram_2048(torch, dev)
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---------------- 3. the rigid main path ----------------

@@ -112,7 +112,8 @@ _SIGNATURES = {
     "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
     "df_p2p_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
     "df_gram_scales": (_P, _I, _P, _P, _I, _P, _P),
-    "df_dense_gram": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "df_gram_launch": (_I, _P),
+    "df_dense_gram": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "df_data_matvec": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "df_edge_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "df_pcg_init": (_P, _P, _I, _I, _F, _P, _P, _P, _P),
@@ -1026,14 +1027,30 @@ def gram_scales(rows: torch.Tensor, order: torch.Tensor, off: torch.Tensor) -> t
     return scale
 
 
+def gram_launch(n: int) -> Tuple[int, int, int]:
+    """(blocks, threads a block, column nodes a block) of kernel N at ``n``
+    nodes, as the library (csrc/dense_system.cu) launches it: a block a
+    (node, column tile), shared memory fixed whatever n. Its one limit of
+    its own is the grid, n x ceil(n / tile) blocks below 2^31; the (6n)^2
+    float32 matrix must also fit in device memory (~23 500 nodes on 80 GB)."""
+    geom = (ctypes.c_int * 3)()
+    if load().df_gram_launch(n, geom):
+        raise ValueError(f"dense_gram: {n} nodes: kernel N takes at least one node and a grid of n x ceil(n / "
+                         f"{geom[2]}) blocks below 2^31")
+    return geom[0], geom[1], geom[2]
+
+
 def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int8: bool,
                scale: Optional[torch.Tensor] = None, edges: bool = True) -> torch.Tensor:
     """Kernel N (csrc/dense_system.cu): the dense (6N, 6N) float32 normal
     equations, the data Gram of the bf16 rows (int8 with ``gram_scales``'
-    column scales and exact int32 sums, or the bf16 rows' float32 sums in
-    each node's entry order) plus the ARAP blocks ``h_ij`` (E, 6, 6) placed
-    at (src, dst) and transposed at (dst, src) and the diagonal blocks
-    ``diag`` (N, 6, 6). Edge e's source node must be e // (E / N).
+    column scales, each row value quantized once, and exact int32 sums,
+    or the bf16 products summed in float64 in each node's entry order and
+    rounded once) plus the ARAP blocks ``h_ij`` (E, 6, 6) placed at (src,
+    dst) and transposed at (dst, src) and the diagonal blocks ``diag`` (N,
+    6, 6). Edge e's source node must be e // (E / N). Three launches in
+    int8 mode (the codes, the nodes' order, the Gram), two in bf16 mode;
+    any N that ``gram_launch`` takes.
 
     Shard mode: ``scale`` the (6N,) column scales to quantize with (the
     pmax of the shards' ``gram_scales``) and ``edges=False`` the data Gram
@@ -1046,6 +1063,8 @@ def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int
     _check(knn_idx, "knn_idx", torch.int64, (np_, 8))
     _check_lists(order, off, np_ * 8, n)
     _same_device(rows, knn_idx, order, off)
+    if n < 1:
+        raise ValueError(f"dense_gram: needs at least one node, got {n}")
     if edges:
         _check(diag, "diag", torch.float32, (n, 6, 6))
         ne = e_dst.shape[0]
@@ -1055,9 +1074,6 @@ def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int
         _check(e_dst, "e_dst", torch.int64, (ne,))
         _check_lists(e_order, e_off, ne, n)
         _same_device(rows, h_ij, diag, e_dst, e_order, e_off)
-    smem = 36 * n * 4
-    if smem > 232448:
-        raise ValueError(f"dense_gram: {n} nodes need {smem} bytes of shared memory a block, past the 232 448")
     if scale is not None:
         if not int8:
             raise ValueError("dense_gram: column scales are for the int8 Gram")
@@ -1067,19 +1083,24 @@ def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int
         scale = gram_scales(rows, order, off)
     else:
         scale = torch.empty((1,), dtype=torch.float32, device=rows.device)
+    gram_launch(n)
     lib = load()
+    if rows.data_ptr() % 16:  # the kernel copies a point's rows in 16-byte pieces
+        rows = rows.clone()
     knn32 = knn_idx.to(torch.int32)
     dst32 = e_dst.to(torch.int32) if edges else None
+    codes = torch.empty((np_ * rows.shape[1] * 48,) if int8 else (0,), dtype=torch.int8, device=rows.device)
+    perm = torch.empty((n,), dtype=torch.int32, device=rows.device)
     out = torch.empty((6 * n, 6 * n), dtype=torch.float32, device=rows.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = lib.df_dense_gram(
-        rows.data_ptr(), rows.shape[1], knn32.data_ptr(), order.data_ptr(), off.data_ptr(), scale.data_ptr(),
+        rows.data_ptr(), rows.shape[1], np_, knn32.data_ptr(), order.data_ptr(), off.data_ptr(), scale.data_ptr(),
         ptr(h_ij) if edges else None, ptr(diag) if edges else None, ptr(dst32), ptr(e_order) if edges else None,
-        ptr(e_off) if edges else None, e_dst.shape[0] // n if edges else 1, n, int(int8), int(edges), out.data_ptr(),
-        _stream(rows.device),
+        ptr(e_off) if edges else None, e_dst.shape[0] // n if edges else 1, n, int(int8), int(edges),
+        codes.data_ptr(), perm.data_ptr(), out.data_ptr(), _stream(rows.device),
     )
     _done("dense_gram", rc)
     return out

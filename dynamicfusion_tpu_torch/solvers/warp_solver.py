@@ -758,6 +758,29 @@ def gram_scales_plain(a: torch.Tensor) -> torch.Tensor:
     return torch.clamp(cmax, min=1e-12) * torch.full((), 1.0 / 127.0, device=a.device)
 
 
+def gram_codes_plain(rows: torch.Tensor, knn_idx: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel N's int8 codes (P, R, K, 6): each bf16 row value quantized once
+    by the scale of its column 6 knn[p, k] + d, clip(round(v / c), ±127) (a
+    true division), the entries of the expanded rows that ``dense_gram_plain``
+    quantizes."""
+    c = scale.reshape(-1, 6)[knn_idx][:, None]
+    return torch.clamp(torch.round(rows.to(torch.float32) / c), -127.0, 127.0).to(torch.int8)
+
+
+def block_gram_plain(vals: torch.Tensor, knn_idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The (6N, 6N) float64 data Gram summed over the 6x6 blocks that exist,
+    as kernel N sums it: each point adds sum_r v[p,r,i]ᵀ v[p,r,j] to block
+    (knn[p, i], knn[p, j]) for its K x K neighbour pairs (``vals`` the int8
+    codes, exact, or the bf16 rows). The blocks of distinct neighbours are
+    the expanded rows' Gram."""
+    v = vals.to(torch.float64)
+    blocks = torch.einsum("prka,prlb->pklab", v, v)
+    cell = (knn_idx[:, :, None] * n + knn_idx[:, None, :]).reshape(-1)
+    out = torch.zeros((n * n, 6, 6), dtype=torch.float64, device=vals.device)
+    out.index_add_(0, cell, blocks.reshape(-1, 6, 6))
+    return out.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
+
+
 def dense_gram_plain(
     rows: torch.Tensor, knn_idx: torch.Tensor, int8: bool, h_ij: Optional[torch.Tensor], diag: Optional[torch.Tensor],
     e_src: Optional[torch.Tensor], e_dst: Optional[torch.Tensor], scale: Optional[torch.Tensor] = None,

@@ -526,6 +526,50 @@ def test_dense_kernels(dev, nr_model, point_to_plane):
     assert not bool(torch.isfinite(ws.chol_step(ws.cholesky(bad), dk.jtr)).any())
 
 
+def test_gram_launch_takes_any_node_count(dev):
+    """Kernel N keeps its shared memory fixed (a tile of 128 column nodes a
+    block, the library's geometry), so the 1 614-node refusal of its
+    one-block-a-node design is gone; the grid of N x ceil(N / 128) blocks
+    below 2^31 is its limit."""
+    assert kernels.gram_launch(2048) == (2048 * 16, 288, 128)
+    assert kernels.gram_launch(1615) == (1615 * 13, 288, 128)
+    assert kernels.gram_launch(1) == (1, 288, 128)
+    with pytest.raises(ValueError, match="at least one node"):
+        kernels.gram_launch(0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        kernels.gram_launch(600_000)
+
+
+@pytest.mark.parametrize("n,npt", [(2048, 2048), (301, 512)], ids=["2048_nodes", "301_nodes"])
+@pytest.mark.parametrize("nrows", [1, 3])
+def test_dense_gram_kernel_any_node_count(dev, n, npt, nrows):
+    """Kernel N past the 1 614 nodes its one-block-a-node design took, and at
+    an odd node count (8-byte stores, a ragged last tile): a skewed node and
+    empty nodes; the int8 Gram bit-equal to the plain version, the bf16 one
+    within 1e-6 of the largest entry and the same on a second call, the
+    shard mode (given scales, no edges) bit-equal, the edge-only call
+    exact."""
+    from chip_smoke import skewed_gram_inputs
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    rows, knn, lists, h_ij, diag, e_src, e_dst, e_lists = skewed_gram_inputs(torch, dev, n, npt, nrows, n + nrows)
+    assert int((lists.off[1:] - lists.off[:-1]).argmax()) == 0 and bool((lists.off[-n // 32:] == lists.off[-1]).all())
+    args = (rows, knn, lists.order, lists.off, h_ij, diag, e_dst, e_lists.order, e_lists.off)
+    gk = kernels.dense_gram(*args, True)
+    assert torch.equal(gk, ws.dense_gram_plain(rows, knn, True, h_ij, diag, e_src, e_dst))
+    bk = kernels.dense_gram(*args, False)
+    assert _close(bk, ws.dense_gram_plain(rows, knn, False, h_ij, diag, e_src, e_dst), 1e-6)
+    assert torch.equal(bk, kernels.dense_gram(*args, False))
+    scale = kernels.gram_scales(rows, lists.order, lists.off)
+    sk = kernels.dense_gram(rows, knn, lists.order, lists.off, None, None, None, None, None, True, scale=scale,
+                            edges=False)
+    assert torch.equal(sk, ws.dense_gram_plain(rows, knn, True, None, None, None, None, scale=scale, n=n))
+    rows0 = rows[:0, :1]
+    off0 = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+    ek = kernels.dense_gram(rows0, knn[:0], off0[:0], off0, h_ij, diag, e_dst, e_lists.order, e_lists.off, False)
+    assert torch.equal(ek, ws.dense_gram_plain(rows0, knn[:0], False, h_ij, diag, e_src, e_dst))
+
+
 def test_base_config_on_the_card_goes_through_every_kernel(dev):
     """The base config (the direct solve: kernels N and O, cuSOLVER's
     factor) at small(): every kernel of its path launches, and the kernel

@@ -1,11 +1,12 @@
 """The port's direct (dense/Cholesky) warp solve against the JAX package,
 on the CPU: the dense Gram of the data rows (kernel N's plain version,
-int8 and bf16), the ARAP blocks placed in it, the damping (kernel O's
-plain version), the Cholesky step, the point-to-point data term, the JAX
-package's solver-oracle scenes, one solve each of the lagged loop with one
-factor reused, the unlagged loop and the bf16 Gram, and the base config's
-and the non-rigid ``reference_parity()``'s steps on bench.py's deforming
-scene at ``small()``.
+int8 and bf16, and its block-summed form over the int8 codes), the ARAP
+blocks placed in it, the damping (kernel O's plain version), the Cholesky
+step, the point-to-point data term, the JAX package's solver-oracle
+scenes, one solve each of the lagged loop with one factor reused, the
+unlagged loop and the bf16 Gram, and the base config's and the non-rigid
+``reference_parity()``'s steps on bench.py's deforming scene at
+``small()``.
 
 The JAX package's functions run jitted here, as its pipeline runs them:
 XLA folds data_jtj's division of the column maxima by the constant 127
@@ -167,6 +168,36 @@ def test_data_gram_matches_jax(request, which, point_to_plane):
             np.testing.assert_array_equal(got, ref)
         else:
             assert _rel(got, ref) <= TOL_BF16_GRAM
+
+
+@pytest.mark.parametrize("point_to_plane", [True, False], ids=["R1", "R3"])
+@pytest.mark.parametrize("which", ["prob", "sparse_prob"])
+def test_block_gram_matches_jax(request, which, point_to_plane):
+    """Kernel N's intermediates: the int8 codes (each row value quantized
+    once, by its node's column scale) are the expanded rows' quantized
+    entries, and the Gram summed over the 6x6 blocks that exist is the
+    jitted JAX data_jtj, bit for bit (int8) and within TOL_BF16_GRAM
+    (bf16), as the expanded plain version is."""
+    pr = request.getfixturevalue(which)
+    n = pr[1].positions.shape[0]
+    jc = dataclasses.replace(JC, max_nodes=n, point_to_plane=point_to_plane)
+    tc = dataclasses.replace(TC, max_nodes=n, point_to_plane=point_to_plane)
+    s, t = _structures(jc, tc, pr)
+    _, jac, _ = j_data(jc, s, pr[0].dq, point_to_plane)
+    rows = _rows(jac)
+    a = ts.dense_rows(rows, t.knn_idx, n)
+    c = ts.gram_scales_plain(a)
+    codes = ts.gram_codes_plain(rows, t.knn_idx, c)
+    assert codes.dtype == torch.int8 and codes.shape == rows.shape
+    assert torch.equal(ts.dense_rows(codes, t.knn_idx, n), torch.clamp(torch.round(a / c), -127.0, 127.0))
+    got8 = ts.block_gram_plain(codes, t.knn_idx, n).to(torch.float32) * (c[:, None] * c[None, :])
+    ref8 = np.asarray(j_data_jtj(dataclasses.replace(jc, solver_jtj_int8=True), s, jac, n))
+    np.testing.assert_array_equal(got8.numpy(), ref8)
+    got16 = ts.block_gram_plain(rows, t.knn_idx, n).to(torch.float32).numpy()
+    ref16 = np.asarray(j_data_jtj(dataclasses.replace(jc, solver_jtj_int8=False), s, jac, n))
+    assert _rel(got16, ref16) <= TOL_BF16_GRAM
+    plain16 = ts.dense_gram_plain(rows, t.knn_idx, False, None, None, None, None, n=n).numpy()
+    assert _rel(got16, plain16) <= TOL_BF16_GRAM
 
 
 def test_gram_scales_match_jax(prob):

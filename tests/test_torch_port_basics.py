@@ -447,3 +447,101 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     with pytest.raises(ValueError, match="CUDA tensor"):
         WRAPPER_CALLS[name]()
     assert kernels.launches == before
+
+
+# ---------------------------------------------------------------- kernel N's launch, on the meta device
+
+class _FakeLib:
+    """Records the kernel library's calls; every launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _check_on_meta(t, name, dtype, shape=None):
+    """``kernels._check`` with the meta device standing in for the card."""
+    assert t.device.type == "meta", name
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+@pytest.fixture
+def meta_lib(monkeypatch):
+    """The wrappers on meta tensors: no card, no library, no launch counted."""
+    lib = _FakeLib()
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    monkeypatch.setattr(kernels, "_check", _check_on_meta)
+    monkeypatch.setattr(kernels, "_stream", lambda dev: 0)
+    monkeypatch.setattr(kernels, "launches", dict(kernels.launches))
+    return lib
+
+
+def _gram_args(n, npt=64, nrows=1, ce=4):
+    meta = dict(device="meta")
+    return dict(
+        rows=torch.empty((npt, nrows, 8, 6), dtype=torch.bfloat16, **meta),
+        knn_idx=torch.empty((npt, 8), dtype=torch.int64, **meta),
+        order=torch.empty((npt * 8,), dtype=torch.int32, **meta), off=torch.empty((n + 1,), dtype=torch.int32, **meta),
+        h_ij=torch.empty((ce * n, 6, 6), **meta), diag=torch.empty((n, 6, 6), **meta),
+        e_dst=torch.empty((ce * n,), dtype=torch.int64, **meta),
+        e_order=torch.empty((ce * n,), dtype=torch.int32, **meta),
+        e_off=torch.empty((n + 1,), dtype=torch.int32, **meta),
+    )
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16", "shard", "edges_only"])
+def test_dense_gram_wrapper_takes_2048_nodes(meta_lib, mode):
+    """The wrapper hands 2048 nodes (12 288 dofs) to kernel N in each mode:
+    the int8 Gram (column scales first), the bf16 one, the shard mode
+    (given scales, no edges) and the edge-only call (no rows)."""
+    n = 2048
+    args = _gram_args(n, npt=0 if mode == "edges_only" else 64)
+    kw = {}
+    if mode == "shard":
+        kw = dict(scale=torch.empty((6 * n,), device="meta"), edges=False)
+        args.update(h_ij=None, diag=None, e_dst=None, e_order=None, e_off=None)
+    out = kernels.dense_gram(**args, int8=mode in ("int8", "shard"), **kw)
+    assert out.shape == (6 * n, 6 * n) and out.dtype == torch.float32
+    names = [c[0] for c in meta_lib.calls]
+    assert names == (["df_gram_scales"] if mode == "int8" else []) + ["df_gram_launch", "df_dense_gram"]
+    assert meta_lib.calls[-2][1][0] == n
+    call = meta_lib.calls[-1][1]
+    # (.., ce, n, int8, with_edges, codes, perm, out, stream)
+    assert call[-8:-4] == (1 if mode == "shard" else 4, n, int(mode in ("int8", "shard")), int(mode != "shard"))
+    assert kernels.launches["dense_gram"] == 1
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(int8=False, scale=torch.empty((48,), device="meta")), "column scales are for the int8 Gram"),
+    (dict(rows=torch.empty((64, 2, 8, 6), dtype=torch.bfloat16, device="meta")), "rows: expected"),
+    (dict(off=torch.empty((1,), dtype=torch.int32, device="meta"), diag=torch.empty((0, 6, 6), device="meta"),
+          e_off=torch.empty((1,), dtype=torch.int32, device="meta")), "at least one node"),
+    (dict(e_dst=torch.empty((30,), dtype=torch.int64, device="meta")), "not a multiple"),
+], ids=["scales_for_bf16", "two_rows", "no_nodes", "edges_per_node"])
+def test_dense_gram_wrapper_refuses(meta_lib, bad, match):
+    """What kernel N does not take is refused before anything launches."""
+    args = dict(_gram_args(8), int8=True)
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        kernels.dense_gram(**args)
+    assert meta_lib.calls == []
+
+
+def test_dense_gram_wrapper_states_the_grid_limit(meta_lib, monkeypatch):
+    """Where the library refuses kernel N's grid, the wrapper's error names
+    the limit (n x ceil(n / tile) blocks below 2^31) and nothing launches."""
+    def refuse(n, geom):
+        meta_lib.calls.append(("df_gram_launch", (n,)))
+        geom[2] = 128
+        return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(meta_lib, "df_gram_launch", refuse, raising=False)
+    with pytest.raises(ValueError, match=r"ceil\(n / 128\) blocks below 2\^31"):
+        kernels.dense_gram(**_gram_args(8), int8=False)
+    assert [c[0] for c in meta_lib.calls] == ["df_gram_launch"]
+    assert kernels.launches["dense_gram"] == 0
