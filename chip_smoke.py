@@ -53,7 +53,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    kernels F1 and F2 (the dense fusion) at 256^3 on the preset's phase-2
    state and the next frame, F2 with the incidence confidence and the
    phase split, codes within 1 LSB and weights equal, then each against
-   the brick path (K + D) on the same frame and volume (printed);
+   the brick path (K + D) on the same frame and volume (printed); every
+   hold of kernel G's cluster PCG (``hold_pcg``: one row, three rows, the
+   row modes, and at 2048 seeded skewed nodes with one and three rows)
+   is within max(TOL_PCG_REL, SPREAD_PCG x the plain PCG's own one-ulp
+   spread) of the plain PCG, and also needs the same bits on a second
+   launch, p in device memory bit-equal to p in shared memory, inactive as
+   x = 0, and the library route (``library_pcg_factored``: cuSPARSE CSR
+   products) within the hold's tolerance; it prints the cluster, one
+   iteration's time and how far a PCG with bf16 vectors lands (a control
+   the tolerance must tell apart);
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -279,14 +288,14 @@ TOL_DAMP_REL = 1e-6
 # torch.linalg.svd): the centroids and H are float32 sums in two orders;
 # the transforms are unit dual quaternions
 TOL_NET_RIGID = 1e-5
-# kernel P, and kernel G under the tangential rows' row modes, against the
+# kernel P, and kernel G in every PCG hold (``hold_pcg``), against the
 # plain PCG on the same system: within SPREAD_PCG times the plain PCG's own
 # spread when every entry of the matrix (P) or of the right-hand side (G)
 # moves by one ulp (the systems are ill conditioned at small lambda, and a
-# flipped bf16 rounding of G's t grows over the iterations: the strided
-# mode read 1.39e-02 against the plain version where the three-row mode
-# read 8.46e-03), and never held tighter than TOL_DENSE_PCG_FLOOR (P) or
-# TOL_PCG_REL (G)
+# flipped bf16 rounding of G's t grows over the iterations: on the
+# three-row system the plain PCG parts from itself by ~9e-3 under such a
+# move, so a fixed 1e-2 sits at the noise floor), and never held tighter
+# than TOL_DENSE_PCG_FLOOR (P) or TOL_PCG_REL (G)
 SPREAD_PCG = 4.0
 TOL_DENSE_PCG_FLOOR = 1e-5
 # the depth-variant ICP (phase 15): kernel path against plain on the same
@@ -859,28 +868,7 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     # the PCG kernel is held on the same system with the float64 inverse of
     # its blocks as the preconditioner
     ip = exact_m.float().contiguous()
-    xk = ws.pcg(s, sysm, ip, b, iters, rtol, on)
-    with deterministic(torch):
-        xp = ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True)
-    finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
-    err = rel_err(torch, xk, xp) if finite else float("inf")
-    check("pcg", finite and err <= TOL_PCG_REL and not bool(ws.pcg(s, sysm, ip, b, iters, rtol, ~on).any()),
-          f"up to {iters} iterations over 6N = {6 * n}: finite {finite}, max relative diff {err:.2e} "
-          f"(tol {TOL_PCG_REL}); inactive -> 0")
-    ran = pcg_iterations(torch, ws, s, sysm, ip, b, iters, rtol)
-    per_iter = npt * 8 * 6 * 2 * 2 + ne * 2 * 72 * 2 + n * (72 + 60)
-    report["pcg"] = dict(
-        err=abs_err(torch, xk, xp),
-        ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on)),
-        plain_ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True), reps=5),
-        # bf16 rows, neighbour ids and node lists, the edge blocks and lists,
-        # damping, preconditioner and right-hand side read once, x written;
-        # the iterations this right-hand side runs (``ran``)
-        bound=bound_ms(npt * (96 + 32) + lists_b + ne * (3 * 144 + 8 + 4) + (n + 1) * 4 + n * (24 + 144 + 24) + n * 24,
-                       ran * per_iter + n * 72.0),
-        library_ms=None,
-        iterations=ran,
-    )
+    hold_pcg(torch, report, "pcg", s, sysm, ip, b, iters, rtol, f"up to {iters} iterations over 6N = {6 * n}")
     tangential_kernels(torch, report, dev, field, inputs)
     option_kernels(torch, report, dev, nr_depths, field, inputs)
     gate_kernels(torch, report, dev, st, tr)
@@ -1148,29 +1136,8 @@ def tangential_kernels(torch, report, dev, field, inputs):
     m = blocks_full + torch.diag_embed(damp.reshape(n, 6))
     ip = torch.linalg.inv(m.double()).float().contiguous()
     b = dp.jtr + ep.jtr
-    on = torch.ones((), dtype=torch.bool, device=dev)
-    iters, rtol = cfg.solver_linear_iters, cfg.solver_linear_tol
-    xk = ws.pcg(s, sysm, ip, b, iters, rtol, on)
-    with deterministic(torch):
-        xp = ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True)
-    finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
-    err = rel_err(torch, xk, xp) if finite else float("inf")
-    check("pcg_tangential", finite and err <= TOL_PCG_REL and not bool(ws.pcg(s, sysm, ip, b, iters, rtol, ~on).any()),
-          f"up to {iters} iterations over 6N = {6 * n}, {npt} x 3 rows: finite {finite}, max relative diff "
-          f"{err:.2e} (tol {TOL_PCG_REL}); inactive -> 0")
-    ran = pcg_iterations(torch, ws, s, sysm, ip, b, iters, rtol)
-    ne = s.e_src.shape[0]
-    per_iter = npt * 3 * 8 * 6 * 2 * 2 + ne * 2 * 72 * 2 + n * (72 + 60)
-    report["pcg_tangential"] = dict(
-        err=abs_err(torch, xk, xp),
-        ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on)),
-        plain_ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True), reps=5),
-        # as the one-row PCG with three bf16 rows a point
-        bound=bound_ms(npt * (3 * 96 + 32) + lists_b + ne * (3 * 144 + 8 + 4) + (n + 1) * 4 + n * (24 + 144 + 24)
-                       + n * 24, ran * per_iter + n * 72.0),
-        library_ms=None,
-        iterations=ran,
-    )
+    hold_pcg(torch, report, "pcg_tangential", s, sysm, ip, b, cfg.solver_linear_iters, cfg.solver_linear_tol,
+             f"up to {cfg.solver_linear_iters} iterations over 6N = {6 * n}, {npt} x 3 rows")
 
 
 def options_config():
@@ -1287,7 +1254,7 @@ def option_kernels(torch, report, dev, nr_depths, field, inputs):
         mcfg = dataclasses.replace(qcfg, **changes)
         used, stride = ws.row_mode(mcfg)
         s = ws.prepare(mcfg, field, inputs)
-        npt, ne = s.p_can.shape[0], s.e_src.shape[0]
+        npt = s.p_can.shape[0]
         lists_b = (npt * 8 + n + 1) * 4
         dk_ = ws.data_term(mcfg, s, field.dq, True, row_stride=stride)
         with deterministic(torch):  # the PCG below is held on this system: the same one every run
@@ -1323,36 +1290,9 @@ def option_kernels(torch, report, dev, nr_depths, field, inputs):
         m = blocks_full + torch.diag_embed(damp.reshape(n, 6))
         ip = torch.linalg.inv(m.double()).float().contiguous()
         b = dp_.jtr + ep.jtr
-        on = torch.ones((), dtype=torch.bool, device=dev)
-        iters, rtol = mcfg.solver_linear_iters, mcfg.solver_linear_tol
-        xk = ws.pcg(s, sysm, ip, b, iters, rtol, on)
-        with deterministic(torch):
-            xp = ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True)
-            spread = max(rel_err(torch, ws.pcg(s, sysm, ip, b1, iters, rtol, on, plain=True), xp)
-                         for b1 in ulp_moves(torch, b))
-        finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
-        err = rel_err(torch, xk, xp) if finite else float("inf")
-        tol = max(TOL_PCG_REL, SPREAD_PCG * spread)
-        check(f"pcg_{tag}", finite and err <= tol,
-              f"up to {iters} iterations over 6N = {6 * n}, rows used {used or 3}, stride {stride}: finite {finite}, "
-              f"max relative diff {err:.2e} (tol max({TOL_PCG_REL}, {SPREAD_PCG} x the plain PCG's one-ulp spread "
-              f"{spread:.2e}))")
-        if tag == "stride2":
-            continue
-        ran = pcg_iterations(torch, ws, s, sysm, ip, b, iters, rtol)
-        # the rows in the matrix: every point's plane row, the tangential
-        # rows of one point in ``stride`` (none with the plane rows only)
-        rows_in = npt + (0 if used == 1 else 2 * ((npt + stride - 1) // stride))
-        per_iter = rows_in * 8 * 6 * 2 * 2 + ne * 2 * 72 * 2 + n * (72 + 60)
-        report[f"pcg_{tag}"] = dict(
-            err=abs_err(torch, xk, xp),
-            ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on)),
-            plain_ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True), reps=5),
-            bound=bound_ms(rows_in * 96 + npt * 32 + lists_b + ne * (3 * 144 + 8 + 4) + (n + 1) * 4
-                           + n * (24 + 144 + 24) + n * 24, ran * per_iter + n * 72.0),
-            library_ms=None,
-            iterations=ran,
-        )
+        hold_pcg(torch, report, f"pcg_{tag}", s, sysm, ip, b, mcfg.solver_linear_iters, mcfg.solver_linear_tol,
+                 f"up to {mcfg.solver_linear_iters} iterations over 6N = {6 * n}, rows used {used or 3}, stride "
+                 f"{stride}", timed=tag != "stride2")
 
 
 def refine_work(cfg):
@@ -1836,6 +1776,233 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
                        total * 3.0 + nbr * (27 * 25.0 + 16 * 50.0)),
         library_ms=None,
     )
+
+
+def factored_csr(torch, ws, s, sysm, edges=True):
+    """Kernel G's system as cuSPARSE takes it (PyTorch calls; the yardstick
+    only, never called by the port): the expanded bf16 rows of the row mode
+    as a float32 (P R, 6N) CSR matrix (the bf16 values exactly; rows out of
+    the matrix not stored) and its transpose, and with ``edges`` the edge
+    blocks and the damping assembled into one (6N, 6N) CSR matrix."""
+    rows = sysm.rows
+    npt, r = rows.shape[:2]
+    n = sysm.damp.shape[0] // 6
+    dev = rows.device
+    vals = rows.float()
+    if sysm.used is not None or sysm.stride > 1:
+        vals = vals * ws._rows_in(sysm, npt)[:, :, None, None]
+    a6 = torch.arange(6, device=dev)
+    ri = (torch.arange(npt, device=dev)[:, None, None, None] * r
+          + torch.arange(r, device=dev)[None, :, None, None]).expand(npt, r, 8, 6)
+    ci = (6 * s.knn_idx[:, None, :, None] + a6).expand(npt, r, 8, 6)
+    keep = vals != 0.0
+    ri, ci, v = ri[keep], ci[keep], vals[keep]
+    a = torch.sparse_coo_tensor(torch.stack([ri, ci]), v, (npt * r, 6 * n)).coalesce().to_sparse_csr()
+    at = torch.sparse_coo_tensor(torch.stack([ci, ri]), v, (6 * n, npt * r)).coalesce().to_sparse_csr()
+    if not edges:
+        return a, at, None
+    e = sysm.edge
+    parts = ((s.e_src, s.e_src, e.h_ii), (s.e_dst, s.e_dst, e.h_jj), (s.e_src, s.e_dst, e.h_ij),
+             (s.e_dst, s.e_src, e.h_ij.transpose(1, 2)))
+    er = [(6 * i[:, None, None] + a6[:, None]).expand(-1, 6, 6).reshape(-1) for i, _, _ in parts]
+    ec = [(6 * j[:, None, None] + a6[None, :]).expand(-1, 6, 6).reshape(-1) for _, j, _ in parts]
+    dof = torch.arange(6 * n, device=dev)
+    ed = torch.sparse_coo_tensor(torch.stack([torch.cat(er + [dof]), torch.cat(ec + [dof])]),
+                                 torch.cat([h.reshape(-1) for _, _, h in parts] + [sysm.damp]),
+                                 (6 * n, 6 * n)).coalesce().to_sparse_csr()
+    return a, at, ed
+
+
+def library_data_matvec(torch, csr, p):
+    """The data product rowsᵀ bf16(rows bf16(p)) as two cuSPARSE CSR
+    products (``torch.sparse.mm``), t rounded to bf16 between them."""
+    a, at, _ = csr
+    t = torch.sparse.mm(a, p.to(torch.bfloat16).float()[:, None]).to(torch.bfloat16).float()
+    return torch.sparse.mm(at, t)[:, 0]
+
+
+def library_pcg_factored(torch, csr, minv, b, iters, rtol, active):
+    """Kernel G's PCG in PyTorch calls, its yardstick (the port never calls
+    it): the same iterations, the factored matvec as the two CSR products
+    of ``library_data_matvec`` plus one CSR product of the edge blocks and
+    the damping (``factored_csr``), z = M r by ``torch.bmm``, the dot
+    products by ``torch.dot``, the early exit as device flags."""
+    n = minv.shape[0]
+    x = torch.zeros_like(b)
+    r = b
+    z = torch.bmm(minv, r.view(n, 6, 1)).view(-1)
+    p = z
+    stop2 = (rtol * rtol) * torch.dot(b, b)
+    rz = torch.dot(r, z)
+    run = active
+    for _ in range(iters):
+        run = run & (torch.dot(r, r) > stop2)
+        ap = library_data_matvec(torch, csr, p) + torch.sparse.mm(csr[2], p[:, None])[:, 0]
+        alpha = rz / torch.clamp(torch.dot(p, ap), min=1e-30)
+        x_n = x + alpha * p
+        r_n = r - alpha * ap
+        z = torch.bmm(minv, r_n.view(n, 6, 1)).view(-1)
+        rz_n = torch.dot(r_n, z)
+        p_n = z + (rz_n / torch.clamp(rz, min=1e-30)) * p
+        x, r, p, rz = (torch.where(run, u, o) for u, o in ((x_n, x), (r_n, r), (p_n, p), (rz_n, rz)))
+    return torch.where(active, x, 0.0)
+
+
+def pcg_bf16_control(torch, ws, s, sysm, minv, b, iters, rtol):
+    """The plain PCG with its vectors (x, r, z, p) rounded to bf16 after
+    every update: the fault of a kernel that kept them in bf16, which a PCG
+    hold must tell apart from a sound float32 solve."""
+    def bf(v):
+        return v.to(torch.bfloat16).float()
+
+    x = torch.zeros_like(b)
+    r = bf(b)
+    z = bf(ws._apply_m(minv, r))
+    p = z
+    rz = torch.dot(r, z)
+    stop2 = rtol * rtol * float(torch.dot(b, b))
+    for _ in range(iters):
+        if not float(torch.dot(r, r)) > stop2:
+            break
+        ap = ws.matvec(s, sysm, p, plain=True)
+        alpha = rz / torch.clamp(torch.dot(p, ap), min=1e-30)
+        x, r = bf(x + alpha * p), bf(r - alpha * ap)
+        z = bf(ws._apply_m(minv, r))
+        rz_n = torch.dot(r, z)
+        p = bf(z + rz_n / torch.clamp(rz, min=1e-30) * p)
+        rz = rz_n
+    return x
+
+
+def hold_pcg(torch, report, name, s, sysm, ip, b, iters, rtol, what, timed=True):
+    """Kernel G's cluster PCG held on one system: against the plain PCG
+    within max(TOL_PCG_REL, SPREAD_PCG x the plain PCG's own spread under a
+    one-ulp move of b) (the tolerance follows the system's noise floor:
+    12 float32 iterations on an ill-conditioned system part by ~1e-2
+    under a one-ulp change, so a fixed 1e-2 could not tell two sound sum
+    orders apart), finite, the same bits on a second launch, p in device
+    memory bit-equal to p in shared memory (the same sums), inactive -> 0;
+    then ``library_pcg_factored`` against the kernel within the same
+    tolerance. Prints how far ``pcg_bf16_control`` lands from the plain
+    PCG beside the tolerance. With ``timed``, ``report[name]``: the
+    solve's time, its plain version's and the library route's (its CSR
+    matrices built beforehand), one iteration's time (the solve's less a
+    solve of no iteration, over the iterations this b runs) and the
+    cluster."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    on = torch.ones((), dtype=torch.bool, device=b.device)
+    n = b.shape[0] // 6
+    xk = ws.pcg(s, sysm, ip, b, iters, rtol, on)
+    with deterministic(torch):
+        xp = ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True)
+        spread = max(rel_err(torch, ws.pcg(s, sysm, ip, b1, iters, rtol, on, plain=True), xp)
+                     for b1 in ulp_moves(torch, b))
+        control = rel_err(torch, pcg_bf16_control(torch, ws, s, sysm, ip, b, iters, rtol), xp)
+    tol = max(TOL_PCG_REL, SPREAD_PCG * spread)
+    tol_s = f"max({TOL_PCG_REL}, {SPREAD_PCG} x the plain PCG's one-ulp spread {spread:.2e})"
+    finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
+    err = rel_err(torch, xk, xp) if finite else float("inf")
+    again = torch.equal(xk, ws.pcg(s, sysm, ip, b, iters, rtol, on))
+    plan = kernels.cluster_plan(True, n, sysm.rows.shape[1], sysm.used, sysm.stride, device=b.device)
+    in_dev = torch.equal(xk, kernels.pcg(ws._kernel_system(s, sysm), ip, b, iters, rtol, on, used=sysm.used,
+                                         stride=sysm.stride, shared_p=False))
+    off = not bool(ws.pcg(s, sysm, ip, b, iters, rtol, ~on).any())
+    check(name, finite and err <= tol and again and in_dev and off,
+          f"{what}: finite {finite}, max relative diff {err:.2e} (tol {tol_s}); the same bits on a second launch "
+          f"{again}; p in device memory bit-equal {in_dev}; inactive -> 0 {off}; one cluster of {plan.cluster} CTAs, "
+          f"p in {'shared' if plan.shared_p else 'device'} memory ({plan.smem} bytes of shared memory a CTA)")
+    print(f"[info] {name}: the bf16-vector control lands {control:.2e} from the plain PCG (tol {tol:.2e}; told apart "
+          f"{control > tol})", flush=True)
+    csr = factored_csr(torch, ws, s, sysm)
+    xl = library_pcg_factored(torch, csr, ip, b, iters, rtol, on)
+    lerr = rel_err(torch, xl, xk) if bool(torch.isfinite(xl).all()) else float("inf")
+    check(f"{name}_library", lerr <= tol,
+          f"the yardstick (cuSPARSE CSR products via torch.sparse.mm, PyTorch calls) computes the same solve: max "
+          f"relative diff {lerr:.2e} from the kernel (tol {tol_s})")
+    if not timed:
+        return
+    ran = pcg_iterations(torch, ws, s, sysm, ip, b, iters, rtol)
+    npt, nr = sysm.rows.shape[:2]
+    ne = s.e_src.shape[0]
+    # the (point, row) pairs in the matrix: every row, the plane rows only,
+    # or the plane rows and the tangential rows of one point in ``stride``
+    used = nr if sysm.used is None else sysm.used
+    rows_in = npt * used if sysm.stride == 1 else npt + (nr - 1) * ((npt + sysm.stride - 1) // sysm.stride)
+    per_iter = rows_in * 8 * 6 * 2 * 2 + ne * 2 * 72 * 2 + n * (72 + 60)
+    ms = cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on))
+    ms0 = cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, 0, rtol, on))
+    report[name] = dict(
+        err=abs_err(torch, xk, xp),
+        ms=ms,
+        plain_ms=cuda_ms(torch, lambda: ws.pcg(s, sysm, ip, b, iters, rtol, on, plain=True), reps=5),
+        # the rows in the matrix, neighbour ids, node lists and the
+        # heavy-first order, the edge blocks and lists, damping,
+        # preconditioner and right-hand side read once, x written; the
+        # iterations this right-hand side runs (``ran``)
+        bound=bound_ms(rows_in * 96 + npt * 32 + (npt * 8 + n + 1) * 4 + n * 8 + ne * (3 * 144 + 4 + 4)
+                       + (n + 1) * 4 + n * (24 + 144 + 24) + n * 24, ran * per_iter + n * 72.0),
+        library_ms=cuda_ms(torch, lambda: library_pcg_factored(torch, csr, ip, b, iters, rtol, on), reps=5),
+        iterations=ran,
+        iteration_ms=(ms - ms0) / max(ran, 1),
+        cluster=plan.cluster,
+    )
+
+
+def skewed_pcg_system(torch, dev, n, npt, nrows):
+    """Kernel G's PCG on ``skewed_gram_inputs``' seeded system (``gram_2048``'s
+    at n = 2048): the edge blocks made positive semi-definite (h = Jᵀ J of
+    seeded 3 x 6 Jacobians at each edge's ends), the damping of the
+    preset's first LM iteration, the float64 inverse of the damped
+    diagonal blocks as the preconditioner and a seeded right-hand side.
+    Returns (structure, system, preconditioner, b, the gram inputs)."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = DynamicFusionConfig.default_dynamicfusion()
+    g = skewed_gram_inputs(torch, dev, n, npt, nrows, seed=12 + nrows)
+    rng = np.random.default_rng(20 + nrows)
+    ji, jj = (torch.from_numpy(rng.standard_normal((4 * n, 3, 6)).astype(np.float32)).to(dev) for _ in range(2))
+    h_ii, h_jj, h_ij = ji.transpose(1, 2) @ ji, jj.transpose(1, 2) @ jj, ji.transpose(1, 2) @ jj
+    rows = g.rows.float()
+    data = torch.zeros((n, 6, 6), device=dev).index_add_(
+        0, g.knn.reshape(-1), torch.einsum("prkd,prke->pkde", rows, rows).reshape(-1, 6, 6))
+    diag = torch.zeros_like(data).index_add_(0, g.e_src, h_ii).index_add_(0, g.e_dst, h_jj)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    diag_eff, unit = ws.damping_terms(cfg, active, data + diag)
+    damp = cfg.solver_lm_lambda_init * diag_eff + unit
+    ip = torch.linalg.inv((data + diag + torch.diag_embed(damp.reshape(n, 6))).double()).float().contiguous()
+    s = ws.SolveStructure(
+        p_can=None, p_live=None, n_live=None, valid=None, knn_idx=g.knn, w_knn=None, e_src=g.e_src,
+        e_dst=g.e_dst, e_valid=None, v_dst=None, alpha=None, pts_by_node=ws.node_lists(g.knn, n, heavy=True),
+        edges_by_dst=g.e_lists, knn_idx32=g.knn.to(torch.int32), e_dst32=g.e_dst.to(torch.int32))
+    sysm = ws.System(g.rows, ws.EdgeTerm(None, None, h_ii, h_jj, h_ij, diag), damp)
+    b = torch.from_numpy(rng.standard_normal(6 * n).astype(np.float32)).to(dev)
+    return s, sysm, ip, b, g
+
+
+def pcg_2048(torch, dev, n=2048, npt=6400):
+    """Phase 2 for kernel G's cluster PCG at 2048 nodes (12 288 dofs) on
+    ``skewed_pcg_system`` (node 0 in 60% of 6 400 points), one row and
+    three rows, held and timed as phase 2 holds G (``hold_pcg``, within the
+    plain PCG's spread: the rows span six decades)."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+
+    cfg = DynamicFusionConfig.default_dynamicfusion()
+    for nrows in (1, 3):
+        s, sysm, ip, b, g = skewed_pcg_system(torch, dev, n, npt, nrows)
+        emax, emean, etop = entry_counts(torch, g.lists.off)
+        rep = {}
+        hold_pcg(torch, rep, f"pcg_2048_r{nrows}", s, sysm, ip, b, cfg.solver_linear_iters, cfg.solver_linear_tol,
+                 f"{n} nodes, {npt} x {nrows} rows, entries a node max {emax}, mean {emean:.1f}, the top 5% hold "
+                 f"{etop:.3f}; up to {cfg.solver_linear_iters} iterations")
+        r = rep[f"pcg_2048_r{nrows}"]
+        print(f"[time] {smi()} | G's PCG at {n} nodes, {npt} x {nrows} rows: {r['ms']:.4f} ms ({r['iterations']} "
+              f"iterations, {r['iteration_ms']:.4f} ms each, a cluster of {r['cluster']}), plain {r['plain_ms']:.4f} "
+              f"ms, library route {r['library_ms']:.4f} ms; bound {r['bound'][0]:.5f} ms ({r['bound'][1]})",
+              flush=True)
+        del g
 
 
 def pcg_iterations(torch, ws, s, sysm, minv, b, iters, rtol) -> int:
@@ -2446,7 +2613,8 @@ def gram_2048(torch, dev, n=2048, npt=6400):
 
     for nrows in (1, 3):
         g = skewed_gram_inputs(torch, dev, n, npt, nrows, seed=12 + nrows)
-        args = (g.rows, g.knn, g.lists.order, g.lists.off, g.h_ij, g.diag, g.e_dst, g.e_lists.order, g.e_lists.off)
+        knn32, dst32 = g.knn.to(torch.int32), g.e_dst.to(torch.int32)  # the ids as a prepared structure holds them
+        args = (g.rows, knn32, g.lists.order, g.lists.off, g.h_ij, g.diag, dst32, g.e_lists.order, g.e_lists.off)
         eargs = (g.h_ij, g.diag, g.e_src, g.e_dst)
         same8 = torch.equal(kernels.dense_gram(*args, True), ws.dense_gram_plain(g.rows, g.knn, True, *eargs))
         bk = kernels.dense_gram(*args, False)
@@ -2455,15 +2623,15 @@ def gram_2048(torch, dev, n=2048, npt=6400):
         del bk
         scale = kernels.gram_scales(g.rows, g.lists.order, g.lists.off)
         shard = torch.equal(
-            kernels.dense_gram(g.rows, g.knn, g.lists.order, g.lists.off, None, None, None, None, None, True,
+            kernels.dense_gram(g.rows, knn32, g.lists.order, g.lists.off, None, None, None, None, None, True,
                                scale=scale, edges=False),
             ws.dense_gram_plain(g.rows, g.knn, True, None, None, None, None, scale=scale, n=n))
         rows0 = torch.zeros((0, 1, 8, 6), dtype=torch.bfloat16, device=dev)
         knn0 = torch.zeros((0, 8), dtype=torch.int64, device=dev)
         off0 = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
         edge = torch.equal(
-            kernels.dense_gram(rows0, knn0, off0[:0], off0, g.h_ij, g.diag, g.e_dst, g.e_lists.order, g.e_lists.off,
-                               False),
+            kernels.dense_gram(rows0, knn32[:0], off0[:0], off0, g.h_ij, g.diag, dst32, g.e_lists.order,
+                               g.e_lists.off, False),
             ws.dense_gram_plain(rows0, knn0, False, *eargs))
         emax, emean, etop = entry_counts(torch, g.lists.off)
         check(f"dense_gram_2048_r{nrows}", same8 and err <= TOL_GRAM_BF16_REL and again and shard and edge,
@@ -3824,7 +3992,8 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
     pv = torch.from_numpy(np.random.RandomState(2).randn(6 * nn_).astype(np.float32)).to(dev)
     errs, bits = [], True
     for sk, dt in zip(shards, dts):
-        mk = kernels.data_matvec(dt.rows, sk.knn_idx, sk.pts_by_node.order, sk.pts_by_node.off, pv)
+        mk = kernels.data_matvec(dt.rows, sk.knn_idx32, sk.pts_by_node.order, sk.pts_by_node.off,
+                                 sk.pts_by_node.heavy, pv)
         with deterministic(torch):
             mp = ws.data_matvec_plain(sk, sysm._replace(rows=dt.rows), pv).reshape(-1)
         errs.append(rel_err(torch, mk, mp))
@@ -3835,14 +4004,23 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
     npt = shards[0].p_can.shape[0]
     lists_b = (npt * 8 + nn_ + 1) * 4
     sh0, dt0 = shards[0], dts[0]
+    # the yardstick: the PCG route's data product (two cuSPARSE CSR products)
+    csr0 = factored_csr(torch, ws, sh0, sysm._replace(rows=dt0.rows), edges=False)
+    mk0 = kernels.data_matvec(dt0.rows, sh0.knn_idx32, sh0.pts_by_node.order, sh0.pts_by_node.off,
+                              sh0.pts_by_node.heavy, pv)
+    lerr = rel_err(torch, library_data_matvec(torch, csr0, pv), mk0)
+    check("data_matvec_library", lerr <= TOL_MATVEC_REL,
+          f"the yardstick (two cuSPARSE CSR products via torch.sparse.mm) computes the same product: max relative "
+          f"diff {lerr:.2e} from the kernel (tol {TOL_MATVEC_REL})")
     report["data_matvec"] = dict(
         err=max(errs),
-        ms=cuda_ms(torch, lambda: kernels.data_matvec(dt0.rows, sh0.knn_idx, sh0.pts_by_node.order,
-                                                      sh0.pts_by_node.off, pv)),
+        ms=cuda_ms(torch, lambda: kernels.data_matvec(dt0.rows, sh0.knn_idx32, sh0.pts_by_node.order,
+                                                      sh0.pts_by_node.off, sh0.pts_by_node.heavy, pv)),
         plain_ms=cuda_ms(torch, lambda: ws.data_matvec_plain(sh0, sysm._replace(rows=dt0.rows), pv), reps=5),
-        # one shard: its bf16 rows, neighbour ids and node lists, p in; Ap out
-        bound=bound_ms(npt * (96 + 32) + lists_b + nn_ * 48, npt * 8 * 6 * 2 * 2.0),
-        library_ms=None,
+        # one shard: its bf16 rows, neighbour ids, node lists and order, p
+        # in; Ap out
+        bound=bound_ms(npt * (96 + 32) + lists_b + nn_ * 8 + nn_ * 48, npt * 8 * 6 * 2 * 2.0),
+        library_ms=cuda_ms(torch, lambda: library_data_matvec(torch, csr0, pv)),
     )
     on = torch.ones((), dtype=torch.bool, device=dev)
     iters, rtol = cfg.solver_linear_iters, cfg.solver_linear_tol
@@ -3853,7 +4031,7 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
     finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
     bits = torch.equal(xk, xp)
     off_ok = not bool(ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, ~on).any())
-    # the same system solved whole by kernel G's one-block PCG (the shards'
+    # the same system solved whole by kernel G's cluster PCG (the shards'
     # rows are the whole subsample's, cut in n): another sum order, held as
     # phase 2 holds G against its plain version
     s1 = ws.prepare(cfg, field, tr.inputs)
@@ -3895,7 +4073,7 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
                                                        plain=True), reps=3),
         # the whole distributed solve: every shard's rows and lists, the
         # edge blocks, damping, preconditioner and b read once, x written
-        bound=bound_ms(n * (npt * (96 + 32) + lists_b) + ne * (3 * 144 + 8 + 4) + (nn_ + 1) * 4
+        bound=bound_ms(n * (npt * (96 + 32) + lists_b + nn_ * 8) + ne * (3 * 144 + 4 + 4) + (nn_ + 1) * 4
                        + nn_ * (24 + 144 + 24) + nn_ * 24, ran * per_iter + nn_ * 72.0),
         library_ms=None,
         iterations=ran,
@@ -3951,7 +4129,7 @@ def sharded_main(torch, args, dev, card, nr_depths, report, cfg=None):
                      "edge_term", "spd6_inv", "knn_blend", "insert_select", "insert_apply", "extract_cloud",
                      "sample_nodes", "march_bands", "icp_reduce", "bilateral")
     check("sharded_launches", all(launches[k] > 0 for k in shard_kernels) and launches["pcg"] == 0,
-          f"every kernel of the sharded path launched, kernel G's one-block PCG none: {launches}")
+          f"every kernel of the sharded path launched, kernel G's cluster PCG none: {launches}")
     check("sharded_icp_ok", all(r["ok"] for r in rows), f"ICP healthy on every step ({len(rows)})")
     due = [i for i in range(1, len(frames)) if i % cfg.fusion_interval == 0]
     fused = [i for i, r in enumerate(rows, start=1) if r["bricks"][0] + r["bricks"][1] > 0]
@@ -4722,6 +4900,7 @@ def main() -> int:
     extract_kernels(torch, report, dev, nr_depths)
     dense_kernels(torch, report, dev, nr_depths)
     gram_2048(torch, dev)
+    pcg_2048(torch, dev)
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---------------- 3. the rigid main path ----------------
@@ -4829,11 +5008,13 @@ def main() -> int:
             name=name, route="cuda", source=src if "/" in src else f"dynamicfusion_tpu_torch/csrc/{src}", replaces=rep,
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"], path=path,
+            **{k: r[k] for k in ("iterations", "iteration_ms", "cluster") if k in r},
         ))
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {card} | {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
               f"({r['bound'][1]}), library {lib}, launches {n_launch} ({path} path)"
-              + (f", {r['iterations']} iterations" if "iterations" in r else ""))
+              + (f", {r['iterations']} iterations" if "iterations" in r else "")
+              + (f" ({r['iteration_ms']:.4f} ms each, a cluster of {r['cluster']})" if "cluster" in r else ""))
     print(f"[phase] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"{card}")
     print(json.dumps({"kernels": rows_out}))

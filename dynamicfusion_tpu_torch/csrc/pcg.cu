@@ -16,40 +16,70 @@
 // vectors, and does ~1.3 MFLOP; twelve PCG iterations are ~25 MB and ~16
 // MFLOP, a few microseconds of bandwidth on the whole card. The iterations are
 // sequential and each needs three global dot products, so a multi-kernel PCG
-// would pay ~40 launches and a host round trip per early-exit test.
-// Design: the whole PCG solve is ONE launch of one 1024-thread block.
-// Each thread owns whole nodes (their 6 dofs) for every vector update;
-// the matvec runs in two phases (one thread per (point, row): t =
-// bf16(row · bf16(p)); one thread per node: the node's data entries from the
-// per-solve node-sorted list, its source-side edges (edge e = node * k +
-// c) and its destination-side edges from a second sorted list, plus the
-// damping); dot products are fixed-order block reductions. The early exit
-// on rᵀr <= rtol² bᵀb is a uniform branch inside the kernel, and an
-// `active` flag in device memory turns the launch into x = 0, so an LM
-// iteration that is past convergence costs nothing and the host never
-// reads a value. The bf16 rounding points are the JAX package's: the
-// vector and the intermediate t are rounded, sums run in float32. The row
-// modes of the tangential term (:1035-1085) are arguments of the matvec:
-// solver_p2p_lag_hessian reads only the plane row of each point, and
-// solver_p2p_hessian_stride = s the plane row of every point and the two
-// tangential rows of the points pt % s == 0 (pt in the solve structure's
-// order, JAX's jac[::s]), which kernel F wrote as bf16(sqrt(s) jac); rows
-// out of the matrix are neither read nor summed.
+// would pay ~40 launches and a host round trip per early-exit test; and
+// the node lists are skewed (the base config's largest node holds 1 151
+// entries, the mean is 25), so one thread walking a node's list serially
+// waits on the heaviest node every iteration.
+// Design: the whole PCG solve is ONE launch of a thread-block cluster of
+// kPcgCluster = 16 CTAs (the non-portable maximum) of kPcgThreads = 512
+// threads (the wrapper refuses a cluster the card cannot schedule),
+// phases separated by the cluster's hardware barrier. Each CTA owns a
+// contiguous range of nodes for the vector updates (x, r, z, p) and the
+// block-Jacobi apply. After each
+// update of p every CTA writes its slice of p into every CTA's copy of p in
+// shared memory (distributed shared memory), so the matvec's gathers read
+// local shared memory; where 6N values and a CTA's r, z and x do not fit
+// in shared memory (~8 500 nodes), the same kernel (template
+// flag) keeps them in device memory. The matvec runs in two phases: one thread per
+// (point, row) over the cluster: t = bf16(row · bf16(p)); then one WARP per
+// node, nodes taken heaviest first (the per-solve order ``heavy``): lane l
+// walks the node's data entries l, l + 32, ... of the per-solve
+// node-sorted list (each entry's rows summed first) and its edge items
+// (the kc source-side edges e = node * kc + c, then the destination-side
+// edges of a second sorted list), and a fixed shuffle tree (16, 8, 4, 2, 1)
+// adds the lanes, so a 1 151-entry node takes 36 steps and one warp, not
+// one thread, sums each node. Dot products are deterministic and the same
+// in every CTA: each CTA sums its share in a fixed order (threads, a
+// shuffle tree, warps in order), writes the partial into a slot of every
+// CTA, and after the barrier every CTA adds the C partials in rank order;
+// rᵀr and rᵀz of one update share one exchange. So the early exit on rᵀr
+// <= rtol² bᵀb branches alike in every CTA, no CTA waits at a barrier the
+// others skipped, and a launch gives the same bits every run. An `active`
+// flag in device memory turns the launch into x = 0, so an LM iteration
+// that is past convergence costs nothing and the host never reads a value.
+// A last cluster barrier keeps every CTA resident until no other can write
+// into its shared memory. The bf16 rounding points are the JAX package's:
+// the vector and the intermediate t are rounded, and everything runs in
+// float32, as the JAX package's solve does (float64 would change the
+// solve's behaviour, not only its bits: PERF.md §6). The
+// row modes of the tangential term (:1035-1085) are arguments of the
+// matvec: solver_p2p_lag_hessian reads only the plane row of each point,
+// and solver_p2p_hessian_stride = s the plane row of every point and the
+// two tangential rows of the points pt % s == 0 (pt in the solve
+// structure's order, JAX's jac[::s]), which kernel F wrote as bf16(sqrt(s)
+// jac); rows out of the matrix are neither read nor summed. The single
+// matvec entry is the same cluster's two phases.
+// The distributed PCG's data-only matvec of a shard (two launches: a
+// thread per (point, row), then a warp per node, heaviest first, with the
+// PCG's per-lane walk and shuffle tree) and its edge step (a thread per
+// node, the serial walk) are below.
 // The edge entry is one thread per edge (closed-form Jacobians from
 // dq.cuh) and one thread per node for its share of Jᵀr and of the
 // diagonal blocks, again in list order; spd6_inv is one thread per node,
 // the Schur-complement closed form of the plain version.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 #include "dq.cuh"
 #include "reduce.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kK = 8;
 constexpr int kThreads = 128;
-constexpr int kBlock = 1024;
 
 __device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -210,10 +240,11 @@ struct Sys {
   const int* idx;             // (P, K)
   const int* pt_order;        // (P K,) entries sorted by node
   const int* pt_off;          // (N + 1,)
+  const int64_t* heavy;       // (N,) nodes by descending entry count, ties by index
   const float* h_ii;          // (E, 36)
   const float* h_jj;
   const float* h_ij;
-  const int* e_dst;   // (E,)
+  const int* e_dst;    // (E,)
   const int* e_order;  // (E,) edges sorted by dst
   const int* e_off;    // (N + 1,)
   const float* damp;   // (6N,)
@@ -237,9 +268,29 @@ __device__ __forceinline__ int rows_in(const Sys& S, int pt) {
   else return pt % S.stride == 0 ? R : 1;
 }
 
+// p as the matvec reads it: from this CTA's shared copy, or (kSharedP
+// false) from device memory written by other CTAs of the cluster, past
+// this SM's L1
+template <bool kSharedP>
+__device__ __forceinline__ float load_p(const float* p) {
+  if constexpr (kSharedP) return *p;
+  else return __ldcg(p);
+}
+
+// six bf16 values at a 4-byte aligned address, as float32
+__device__ __forceinline__ void load_row(const __nv_bfloat16* r, float v[6]) {
+  const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(r);
+#pragma unroll
+  for (int h = 0; h < 3; ++h) {
+    const __nv_bfloat162 w = r2[h];
+    v[2 * h] = __bfloat162float(w.x);
+    v[2 * h + 1] = __bfloat162float(w.y);
+  }
+}
+
 // t[q] = bf16(row q · bf16(p)) of (point, row) q = pt R + j, where the row
 // is in the matrix under the row mode
-template <int R, int M>
+template <int R, int M, bool kSharedP>
 __device__ __forceinline__ void row_t(const Sys& S, const float* __restrict__ p, float* __restrict__ t, int q) {
   const int pt = q / R;
   if constexpr (M == kStridedRows) {
@@ -248,41 +299,369 @@ __device__ __forceinline__ void row_t(const Sys& S, const float* __restrict__ p,
   float acc = 0.0f;
   for (int k = 0; k < kK; ++k) {
     const int nd = S.idx[pt * kK + k];
-    const __nv_bfloat16* r = S.rows + (static_cast<size_t>(q) * kK + k) * 6;
+    float r[6];
+    load_row(S.rows + (static_cast<size_t>(q) * kK + k) * 6, r);
 #pragma unroll
-    for (int d = 0; d < 6; ++d) acc += __bfloat162float(r[d]) * bf16r(p[6 * nd + d]);
+    for (int d = 0; d < 6; ++d) acc += r[d] * bf16r(load_p<kSharedP>(p + 6 * nd + d));
   }
   t[q] = bf16r(acc);
 }
 
-// node nd's data product: its entries' rows times their points' t, in
-// list order
+// entry ent = (pt, k)'s rows times their point's t, the rows summed first
+// (as the plain version does); t is read past L1 (other CTAs wrote it)
 template <int R, int M>
-__device__ __forceinline__ void node_data(const Sys& S, const float* __restrict__ t, int nd, float dat[6]) {
+__device__ __forceinline__ void entry_sum(const Sys& S, const float* __restrict__ t, int ent, float s[6]) {
+  const int pt = ent / kK;
+  // row j of entry (pt, k) of the (P, R, K, 6) rows: ent + (pt (R - 1) + j) K
+  const size_t e0 = static_cast<size_t>(ent) + static_cast<size_t>(pt) * (R - 1) * kK;
+  const int nrow = rows_in<R, M>(S, pt);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    if (M != kAllRows && j >= nrow) continue;
+    const float tv = __ldcg(t + pt * R + j);
+    float r[6];
+    load_row(S.rows + (e0 + j * kK) * 6, r);
+#pragma unroll
+    for (int d = 0; d < 6; ++d) s[d] = j == 0 ? r[d] * tv : s[d] + r[d] * tv;
+  }
+}
+
+// lane's share of node nd's data product: the node's entries lane, lane
+// + 32, ... added in list order
+template <int R, int M>
+__device__ __forceinline__ void lane_data(const Sys& S, const float* __restrict__ t, int nd, int lane, float dat[6]) {
 #pragma unroll
   for (int d = 0; d < 6; ++d) dat[d] = 0.0f;
-  for (int q = S.pt_off[nd]; q < S.pt_off[nd + 1]; ++q) {
-    const int ent = S.pt_order[q];
-    const int pt = ent / kK;
-    // row j of entry (pt, k) of the (P, R, K, 6) rows: ent + (pt (R - 1) + j) K
-    const size_t e0 = static_cast<size_t>(ent) + static_cast<size_t>(pt) * (R - 1) * kK;
-    // an entry's rows are summed first, as the plain version does
-    const int nrow = rows_in<R, M>(S, pt);
+  const int q1 = S.pt_off[nd + 1];
+#pragma unroll 2
+  for (int q = S.pt_off[nd] + lane; q < q1; q += 32) {
     float s[6];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      if (M != kAllRows && j >= nrow) continue;
-      const float tv = t[pt * R + j];
-      const __nv_bfloat16* r = S.rows + (e0 + j * kK) * 6;
-#pragma unroll
-      for (int d = 0; d < 6; ++d) s[d] = j == 0 ? __bfloat162float(r[d]) * tv : s[d] + __bfloat162float(r[d]) * tv;
-    }
+    entry_sum<R, M>(S, t, S.pt_order[q], s);
 #pragma unroll
     for (int d = 0; d < 6; ++d) dat[d] += s[d];
   }
 }
 
-// node nd's edge product: its source-side and destination-side blocks
+// lane's share of node nd's edge product: its edge items lane, lane + 32,
+// ...: the kc source-side edges (q_i = h_ii p_i + h_ij p_j), then its
+// destination-side edges in list order (q_j = h_ijᵀ p_i + h_jj p_j)
+template <bool kSharedP>
+__device__ __forceinline__ void lane_edge(const Sys& S, const float* __restrict__ p, int nd, const float pn[6],
+                                          int lane, float edg[6]) {
+#pragma unroll
+  for (int d = 0; d < 6; ++d) edg[d] = 0.0f;
+  const int q0 = S.e_off[nd];
+  const int items = S.kc + S.e_off[nd + 1] - q0;
+  for (int i = lane; i < items; i += 32) {
+    float po[6];
+    if (i < S.kc) {
+      const int e = nd * S.kc + i;
+      const int j = S.e_dst[e];
+      const float* hii = S.h_ii + 36 * static_cast<size_t>(e);
+      const float* hij = S.h_ij + 36 * static_cast<size_t>(e);
+#pragma unroll
+      for (int b = 0; b < 6; ++b) po[b] = load_p<kSharedP>(p + 6 * j + b);
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        float s = 0.0f;
+#pragma unroll
+        for (int b = 0; b < 6; ++b) s += hii[6 * a + b] * pn[b];
+#pragma unroll
+        for (int b = 0; b < 6; ++b) s += hij[6 * a + b] * po[b];
+        edg[a] += s;
+      }
+    } else {
+      const int e = S.e_order[q0 + i - S.kc];
+      const int src = e / S.kc;
+      const float* hjj = S.h_jj + 36 * static_cast<size_t>(e);
+      const float* hij = S.h_ij + 36 * static_cast<size_t>(e);
+#pragma unroll
+      for (int b = 0; b < 6; ++b) po[b] = load_p<kSharedP>(p + 6 * src + b);
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        float s = 0.0f;
+#pragma unroll
+        for (int b = 0; b < 6; ++b) s += hij[6 * b + a] * po[b];
+#pragma unroll
+        for (int b = 0; b < 6; ++b) s += hjj[6 * a + b] * pn[b];
+        edg[a] += s;
+      }
+    }
+  }
+}
+
+// the warp's lanes added into lane 0 by a fixed halving tree
+__device__ __forceinline__ void warp_sum6(float v[6]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int d = 0; d < 6; ++d) v[d] += __shfl_down_sync(0xffffffffu, v[d], o);
+  }
+}
+
+__device__ __forceinline__ float floor30(float v) { return fmaxf(v, 1e-30f); }
+
+// (Ap)_nd = (data + edges) + damp p_nd by one warp; lane 0 writes it and
+// returns p_ndᵀ(Ap)_nd (the other lanes 0)
+template <int R, int M, bool kSharedP>
+__device__ __forceinline__ float warp_ap(const Sys& S, const float* __restrict__ p, const float* __restrict__ t,
+                                         int nd, int lane, float* __restrict__ ap) {
+  float pn[6], dat[6], edg[6];
+#pragma unroll
+  for (int d = 0; d < 6; ++d) pn[d] = load_p<kSharedP>(p + 6 * nd + d);
+  lane_data<R, M>(S, t, nd, lane, dat);
+  lane_edge<kSharedP>(S, p, nd, pn, lane, edg);
+  warp_sum6(dat);
+  warp_sum6(edg);
+  float pap = 0.0f;
+  if (lane == 0) {
+#pragma unroll
+    for (int d = 0; d < 6; ++d) {
+      const float a = (dat[d] + edg[d]) + S.damp[6 * nd + d] * pn[d];
+      ap[6 * nd + d] = a;
+      pap += pn[d] * a;
+    }
+  }
+  return pap;
+}
+
+// 512 threads a CTA (up to 128 registers a thread), the faster of 512
+// and 1024 (scripts/torch_pcg_variants.py, ``threads1024``)
+constexpr int kPcgThreads = 512;
+// CTAs a cluster: the fastest of 4, 8 and 16 (the same script), 16 being
+// the non-portable maximum
+constexpr int kPcgCluster = 16;
+constexpr int kStaticSmem = 2048;  // room kept for the kernels' static shared memory
+
+// the dot products' exchange slots, one row of kPcgCluster a use
+enum Slot { kSlotBB = 0, kSlotBZ, kSlotPAP, kSlotRR, kSlotRZ, kSlots };
+
+// the cluster as the PCG uses it: its barrier, the slots of the dot
+// products' partials and the copies of p, in every CTA's shared memory
+struct Cluster {
+  cg::cluster_group g;
+  float* slots;  // (kSlots, kPcgCluster) of this CTA
+  __device__ int rank() const { return static_cast<int>(g.block_rank()); }
+  __device__ void sync() { g.sync(); }
+  // this CTA's partial into its slot of use s in every CTA
+  __device__ void put(int s, float v) {
+    for (int c = 0; c < kPcgCluster; ++c) g.map_shared_rank(slots, c)[s * kPcgCluster + rank()] = v;
+  }
+  // the partials of use s added in rank order (after a barrier)
+  __device__ float total(int s) const {
+    float t = 0.0f;
+    for (int c = 0; c < kPcgCluster; ++c) t += slots[s * kPcgCluster + c];
+    return t;
+  }
+  // p[i] = v in every CTA's copy
+  __device__ void put_p(float* p, int i, float v) {
+    for (int c = 0; c < kPcgCluster; ++c) g.map_shared_rank(p, c)[i] = v;
+  }
+};
+
+// fixed-order sums of a and b over the block (a halving shuffle tree in
+// each warp, then one over the warps' sums in warp order): thread 0's
+__device__ __forceinline__ void block_sum2(float& a, float& b, float (*red)[32]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, o);
+    b += __shfl_down_sync(0xffffffffu, b, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    red[0][threadIdx.x >> 5] = a;
+    red[1][threadIdx.x >> 5] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const bool in = threadIdx.x < (blockDim.x >> 5);
+    a = in ? red[0][threadIdx.x] : 0.0f;
+    b = in ? red[1][threadIdx.x] : 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, o);
+      b += __shfl_down_sync(0xffffffffu, b, o);
+    }
+  }
+}
+
+// the matvec's two phases over the cluster: t for every (point, row),
+// barrier, then Ap a warp a node, heaviest first; returns this thread's
+// share of pᵀAp (lane 0s')
+template <int R, int M, bool kSharedP>
+__device__ __forceinline__ float cluster_matvec(Cluster& grp, const Sys& S, const float* __restrict__ p,
+                                                float* __restrict__ t, float* __restrict__ ap) {
+  const int nq = M == kPlaneRows ? S.np : S.np * R;  // the plane-rows mode walks the plane rows only
+  for (int i = grp.rank() * blockDim.x + threadIdx.x; i < nq; i += kPcgCluster * blockDim.x)
+    row_t<R, M, kSharedP>(S, p, t, M == kPlaneRows ? i * R : i);
+  grp.sync();
+  const int warps = blockDim.x >> 5;
+  float pap = 0.0f;
+  for (int k = grp.rank() * warps + (threadIdx.x >> 5); k < S.n; k += kPcgCluster * warps)
+    pap += warp_ap<R, M, kSharedP>(S, p, t, static_cast<int>(S.heavy[k]), threadIdx.x & 31, ap);
+  return pap;
+}
+
+// the dynamic shared memory of both cluster kernels
+__device__ __forceinline__ float* dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<float*>(smem_raw);
+}
+
+template <int R, int M, bool kSharedP>
+__global__ void __launch_bounds__(kPcgThreads, 1)
+matvec_kernel(Sys S, const float* __restrict__ p_in, float* __restrict__ ap, float* __restrict__ t) {
+  __shared__ float slots[kSlots * kPcgCluster];
+  Cluster grp{cg::this_cluster(), slots};
+  if constexpr (kSharedP) {  // p into this CTA's shared memory
+    float* p = dynamic_smem();
+    for (int i = threadIdx.x; i < 6 * S.n; i += blockDim.x) p[i] = p_in[i];
+    __syncthreads();
+    cluster_matvec<R, M, true>(grp, S, p, t, ap);
+  } else {
+    cluster_matvec<R, M, false>(grp, S, p_in, t, ap);
+  }
+}
+
+// x solves A x = b by block-Jacobi PCG from x = 0: at most ``iters``
+// iterations while rᵀr > rtol2 bᵀb; work: r, z, p (device-memory mode),
+// Ap and x (6N each), then t (P R floats)
+template <int R, int M, bool kSharedP>
+__global__ void __launch_bounds__(kPcgThreads, 1)
+pcg_kernel(Sys S, const float* __restrict__ minv, const float* __restrict__ b, int iters, float rtol2,
+           const bool* __restrict__ active, float* __restrict__ x, float* __restrict__ work) {
+  __shared__ float red[2][32];
+  __shared__ float slots[kSlots * kPcgCluster];
+  Cluster grp{cg::this_cluster(), slots};
+  const int n = S.n;
+  const int dof = 6 * n;
+  const int per = (n + kPcgCluster - 1) / kPcgCluster;  // nodes a CTA owns
+  const int d0 = 6 * min(n, grp.rank() * per), d1 = 6 * min(n, (grp.rank() + 1) * per);
+  const int tid = threadIdx.x;
+  if (!*active) {
+    for (int i = d0 + tid; i < d1; i += blockDim.x) x[i] = 0.0f;
+    grp.sync();
+    return;
+  }
+  // kSharedP: p (6N), then this CTA's r, z and x, indexed i - d0; else
+  // the same in device memory
+  float* smem = dynamic_smem();
+  float* r = kSharedP ? smem + dof : work + d0;
+  float* z = kSharedP ? smem + dof + 6 * per : work + dof + d0;
+  float* xs = kSharedP ? smem + dof + 12 * per : work + 4 * dof + d0;
+  float* p = kSharedP ? smem : work + 2 * dof;
+  float* ap = work + 3 * dof;
+  float* t = work + 5 * dof;
+  auto set_p = [&](int i, float v) {
+    if constexpr (kSharedP) grp.put_p(p, i, v);
+    else p[i] = v;
+  };
+  // x = 0, r = b, z = p = M b on the owned dofs; bᵀb and bᵀz
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int i = d0 + tid; i < d1; i += blockDim.x) {
+    const int nd = i / 6;
+    const float* m = minv + 36 * static_cast<size_t>(nd) + 6 * (i - 6 * nd);
+    float zi = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) zi += m[c] * b[6 * nd + c];
+    const float bi = b[i];
+    xs[i - d0] = 0.0f;
+    r[i - d0] = bi;
+    z[i - d0] = zi;
+    set_p(i, zi);
+    s0 += bi * bi;
+    s1 += bi * zi;
+  }
+  block_sum2(s0, s1, red);
+  if (tid == 0) {
+    grp.put(kSlotBB, s0);
+    grp.put(kSlotBZ, s1);
+  }
+  grp.sync();
+  float rr = grp.total(kSlotBB);  // r = b here
+  const float stop2 = rtol2 * rr;
+  float rz = grp.total(kSlotBZ);
+  for (int it = 0; it < iters && rr > stop2; ++it) {
+    float pap = cluster_matvec<R, M, kSharedP>(grp, S, p, t, ap);
+    float none = 0.0f;
+    block_sum2(pap, none, red);
+    if (tid == 0) grp.put(kSlotPAP, pap);
+    grp.sync();
+    const float alpha = rz / floor30(grp.total(kSlotPAP));
+    for (int i = d0 + tid; i < d1; i += blockDim.x) {
+      xs[i - d0] = xs[i - d0] + alpha * load_p<kSharedP>(p + i);
+      r[i - d0] = r[i - d0] - alpha * __ldcg(ap + i);
+    }
+    __syncthreads();
+    float s_rr = 0.0f, s_rz = 0.0f;
+    for (int i = d0 + tid; i < d1; i += blockDim.x) {
+      const int nd = i / 6;
+      const float* m = minv + 36 * static_cast<size_t>(nd) + 6 * (i - 6 * nd);
+      const float* rn = r + 6 * nd - d0;
+      float zi = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) zi += m[c] * rn[c];
+      z[i - d0] = zi;
+      const float ri = r[i - d0];
+      s_rr += ri * ri;
+      s_rz += ri * zi;
+    }
+    block_sum2(s_rr, s_rz, red);
+    if (tid == 0) {
+      grp.put(kSlotRR, s_rr);
+      grp.put(kSlotRZ, s_rz);
+    }
+    grp.sync();
+    rr = grp.total(kSlotRR);
+    const float rz_new = grp.total(kSlotRZ);
+    const float beta = rz_new / floor30(rz);
+    for (int i = d0 + tid; i < d1; i += blockDim.x) set_p(i, z[i - d0] + beta * load_p<kSharedP>(p + i));
+    rz = rz_new;
+    grp.sync();
+  }
+  for (int i = d0 + tid; i < d1; i += blockDim.x) x[i] = xs[i - d0];
+  grp.sync();  // no CTA leaves while another may still write into its shared memory
+}
+
+// ---------------------------------------------------------------- the distributed PCG
+//
+// dynamicfusion_tpu/solvers/warp_solver.py:1228-1240 under axis_name: each
+// shard's matvec is its own points' data product only (psum'd across the
+// shards by the caller), then the edge blocks and the damping are applied
+// once to the sum, and the PCG update runs on it (kernel P's init and
+// update entries, csrc/dense_pcg.cu, whose loop state carries the stop
+// flag in device memory; every launch here reads it first and returns once
+// the loop is done).
+
+using LoopState = dfk::PcgState;  // kernel P's loop state
+
+template <int R, int M>
+__global__ void __launch_bounds__(kThreads)
+data_rows_kernel(Sys S, const float* __restrict__ p, float* __restrict__ t, const LoopState* __restrict__ st) {
+  if (st != nullptr && st->done) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nq = M == kPlaneRows ? S.np : S.np * R;
+  if (i < nq) row_t<R, M, true>(S, p, t, M == kPlaneRows ? i * R : i);
+}
+
+// a warp a node, heaviest first: the PCG's per-lane walk and shuffle tree
+template <int R, int M>
+__global__ void __launch_bounds__(kThreads)
+data_nodes_kernel(Sys S, const float* __restrict__ t, float* __restrict__ ap, const LoopState* __restrict__ st) {
+  if (st != nullptr && st->done) return;
+  const int k = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (k >= S.n) return;  // the whole warp
+  const int nd = static_cast<int>(S.heavy[k]);
+  float dat[6];
+  lane_data<R, M>(S, t, nd, threadIdx.x & 31, dat);
+  warp_sum6(dat);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int d = 0; d < 6; ++d) ap[6 * nd + d] = dat[d];
+  }
+}
+
+// node nd's edge product, one thread: its source-side blocks in edge
+// order, then its destination-side blocks in list order
 __device__ __forceinline__ void node_edge(const Sys& S, const float* __restrict__ p, int nd, const float pn[6],
                                           float edg[6]) {
 #pragma unroll
@@ -319,60 +698,6 @@ __device__ __forceinline__ void node_edge(const Sys& S, const float* __restrict_
   }
 }
 
-// ap = A p for the whole block, R residual rows a point; t is (P R,)
-// scratch, one entry per (point, row). Ends synchronized.
-template <int R, int M>
-__device__ void block_matvec(const Sys& S, const float* __restrict__ p, float* __restrict__ ap,
-                             float* __restrict__ t) {
-  // (point, row) pairs; the plane-rows mode walks the points' plane rows only
-  const int nq = M == kPlaneRows ? S.np : S.np * R;
-  for (int i = threadIdx.x; i < nq; i += blockDim.x) row_t<R, M>(S, p, t, M == kPlaneRows ? i * R : i);
-  __syncthreads();
-  for (int nd = threadIdx.x; nd < S.n; nd += blockDim.x) {
-    float dat[6], edg[6], pn[6];
-    node_data<R, M>(S, t, nd, dat);
-#pragma unroll
-    for (int d = 0; d < 6; ++d) pn[d] = p[6 * nd + d];
-    node_edge(S, p, nd, pn, edg);
-#pragma unroll
-    for (int d = 0; d < 6; ++d) ap[6 * nd + d] = (dat[d] + edg[d]) + S.damp[6 * nd + d] * pn[d];
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------- the distributed PCG
-//
-// dynamicfusion_tpu/solvers/warp_solver.py:1228-1240 under axis_name: each
-// shard's matvec is its own points' data product only (psum'd across the
-// shards by the caller), then the edge blocks and the damping are applied
-// once to the sum, and the PCG update runs on it (kernel P's init and
-// update entries, csrc/dense_pcg.cu, whose loop state carries the stop
-// flag in device memory; every launch here reads it first and returns once
-// the loop is done).
-
-using LoopState = dfk::PcgState;  // kernel P's loop state
-
-template <int R, int M>
-__global__ void __launch_bounds__(kThreads)
-data_rows_kernel(Sys S, const float* __restrict__ p, float* __restrict__ t, const LoopState* __restrict__ st) {
-  if (st != nullptr && st->done) return;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nq = M == kPlaneRows ? S.np : S.np * R;
-  if (i < nq) row_t<R, M>(S, p, t, M == kPlaneRows ? i * R : i);
-}
-
-template <int R, int M>
-__global__ void __launch_bounds__(kThreads)
-data_nodes_kernel(Sys S, const float* __restrict__ t, float* __restrict__ ap, const LoopState* __restrict__ st) {
-  if (st != nullptr && st->done) return;
-  const int nd = blockIdx.x * blockDim.x + threadIdx.x;
-  if (nd >= S.n) return;
-  float dat[6];
-  node_data<R, M>(S, t, nd, dat);
-#pragma unroll
-  for (int d = 0; d < 6; ++d) ap[6 * nd + d] = dat[d];
-}
-
 // ap = (apd + edge blocks p) + damp p, the matvec's sum order
 __global__ void __launch_bounds__(kThreads)
 edge_apply_kernel(Sys S, const float* __restrict__ p, const float* __restrict__ apd, float* __restrict__ ap,
@@ -388,98 +713,16 @@ edge_apply_kernel(Sys S, const float* __restrict__ p, const float* __restrict__ 
   for (int d = 0; d < 6; ++d) ap[6 * nd + d] = (apd[6 * nd + d] + edg[d]) + S.damp[6 * nd + d] * pn[d];
 }
 
-// sum over the thread's nodes of a·b
-__device__ float node_dot(const float* a, const float* b, int n) {
-  float s = 0.0f;
-  for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
-#pragma unroll
-    for (int d = 0; d < 6; ++d) s += a[6 * nd + d] * b[6 * nd + d];
-  }
-  return s;
-}
+// ---------------------------------------------------------------- host side
 
-__device__ void apply_m(const float* __restrict__ minv, const float* __restrict__ r, float* __restrict__ z, int n) {
-  for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
-    const float* m = minv + 36 * static_cast<size_t>(nd);
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      float s = 0.0f;
-#pragma unroll
-      for (int b = 0; b < 6; ++b) s += m[6 * a + b] * r[6 * nd + b];
-      z[6 * nd + a] = s;
-    }
-  }
-}
-
-template <int R, int M>
-__global__ void __launch_bounds__(kBlock) matvec_kernel(Sys S, const float* __restrict__ p, float* __restrict__ ap,
-                                                        float* __restrict__ t) {
-  block_matvec<R, M>(S, p, ap, t);
-}
-
-template <int R, int M>
-__global__ void __launch_bounds__(kBlock)
-pcg_kernel(Sys S, const float* __restrict__ minv, const float* __restrict__ b, int iters, float rtol2,
-           const bool* __restrict__ active, float* __restrict__ x, float* __restrict__ work) {
-  __shared__ float red[33];
-  const int n = S.n;
-  const int dof = 6 * n;
-  if (!*active) {
-    for (int i = threadIdx.x; i < dof; i += blockDim.x) x[i] = 0.0f;
-    return;
-  }
-  float* r = work;
-  float* p = work + dof;
-  float* z = work + 2 * dof;
-  float* ap = work + 3 * dof;
-  float* t = work + 4 * dof;
-  // every vector update below is done by the thread that owns the node
-  for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
-#pragma unroll
-    for (int d = 0; d < 6; ++d) {
-      x[6 * nd + d] = 0.0f;
-      r[6 * nd + d] = b[6 * nd + d];
-    }
-  }
-  apply_m(minv, b, z, n);
-  for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
-#pragma unroll
-    for (int d = 0; d < 6; ++d) p[6 * nd + d] = z[6 * nd + d];
-  }
-  const float stop2 = rtol2 * block_sum(node_dot(b, b, n), red);
-  float rz = block_sum(node_dot(b, z, n), red);  // r = b here
-  for (int it = 0; it < iters; ++it) {
-    const float rr = block_sum(node_dot(r, r, n), red);
-    if (!(rr > stop2)) break;
-    block_matvec<R, M>(S, p, ap, t);
-    const float alpha = rz / fmaxf(block_sum(node_dot(p, ap, n), red), 1e-30f);
-    for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
-#pragma unroll
-      for (int d = 0; d < 6; ++d) {
-        const int i = 6 * nd + d;
-        x[i] = x[i] + alpha * p[i];
-        r[i] = r[i] - alpha * ap[i];
-      }
-    }
-    apply_m(minv, r, z, n);
-    const float rz_new = block_sum(node_dot(r, z, n), red);
-    const float beta = rz_new / fmaxf(rz, 1e-30f);
-    for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
-#pragma unroll
-      for (int d = 0; d < 6; ++d) p[6 * nd + d] = z[6 * nd + d] + beta * p[6 * nd + d];
-    }
-    rz = rz_new;
-    __syncthreads();
-  }
-}
-
-Sys make_sys(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* h_ii,
-             const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order, const void* e_off,
-             const void* damp, int np, int n, int kc, int stride) {
+Sys make_sys(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* heavy,
+             const void* h_ii, const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order,
+             const void* e_off, const void* damp, int np, int n, int kc, int stride) {
   return {static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(idx), static_cast<const int*>(pt_order),
-          static_cast<const int*>(pt_off), static_cast<const float*>(h_ii), static_cast<const float*>(h_jj),
-          static_cast<const float*>(h_ij), static_cast<const int*>(e_dst), static_cast<const int*>(e_order),
-          static_cast<const int*>(e_off), static_cast<const float*>(damp), np, n, kc, stride};
+          static_cast<const int*>(pt_off), static_cast<const int64_t*>(heavy), static_cast<const float*>(h_ii),
+          static_cast<const float*>(h_jj), static_cast<const float*>(h_ij), static_cast<const int*>(e_dst),
+          static_cast<const int*>(e_order), static_cast<const int*>(e_off), static_cast<const float*>(damp), np, n,
+          kc, stride};
 }
 
 // the row mode of (R rows, ``used`` of them, tangential ``stride``), -1 if invalid
@@ -488,6 +731,117 @@ int row_mode(int nrows, int used, int stride) {
   if (nrows == 1 || (used == nrows && stride == 1)) return kAllRows;
   if (used == 1) return stride == 1 ? kPlaneRows : -1;
   return kStridedRows;
+}
+
+// the instantiation of a cluster kernel for (R, row mode, p's place)
+template <template <int, int, bool> class K>
+typename K<1, kAllRows, true>::Fn pick(int nrows, int mode, bool shared_p) {
+  if (shared_p) {
+    if (nrows == 1) return K<1, kAllRows, true>::fn();
+    if (mode == kAllRows) return K<3, kAllRows, true>::fn();
+    if (mode == kPlaneRows) return K<3, kPlaneRows, true>::fn();
+    return K<3, kStridedRows, true>::fn();
+  }
+  if (nrows == 1) return K<1, kAllRows, false>::fn();
+  if (mode == kAllRows) return K<3, kAllRows, false>::fn();
+  if (mode == kPlaneRows) return K<3, kPlaneRows, false>::fn();
+  return K<3, kStridedRows, false>::fn();
+}
+
+template <int R, int M, bool kS>
+struct PcgK {
+  using Fn = decltype(&pcg_kernel<1, kAllRows, true>);
+  static Fn fn() { return pcg_kernel<R, M, kS>; }
+};
+template <int R, int M, bool kS>
+struct MatvecK {
+  using Fn = decltype(&matvec_kernel<1, kAllRows, true>);
+  static Fn fn() { return matvec_kernel<R, M, kS>; }
+};
+
+// dynamic shared memory of a cluster kernel: the PCG's p copy and its
+// CTA's r, z and x, the matvec's p copy; 0 when p stays in device memory
+size_t cluster_smem(bool pcg, int n, bool shared_p) {
+  if (!shared_p) return 0;
+  const size_t per = (static_cast<size_t>(n) + kPcgCluster - 1) / kPcgCluster;
+  return sizeof(float) * (6 * static_cast<size_t>(n) + (pcg ? 18 * per : 0));
+}
+
+// the current device's opt-in shared memory a block (0 if unknown)
+int smem_optin() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return v;
+}
+
+// p's place: -1 shared memory where it fits, else device memory; 0 device
+// memory; 1 shared memory (refused where it does not fit). 1 or 0, or -1
+// if refused
+int resolve_shared(bool pcg, int n, int want) {
+  const bool fits = cluster_smem(pcg, n, true) + kStaticSmem <= static_cast<size_t>(smem_optin());
+  if (want < 0) return fits ? 1 : 0;
+  if (want == 1 && !fits) return -1;
+  return want;
+}
+
+// the attributes a launch needs, which belong to the current device's
+// context: set once a (kernel, device) and raised as needed
+cudaError_t setup(const void* fn, size_t smem) {
+  struct Done {
+    const void* fn;
+    int dev;
+    size_t smem;
+    bool wide;
+  };
+  constexpr int kDone = 128;  // the 16 cluster kernels on 8 devices
+  static Done done[kDone];
+  static int count = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int k = 0;
+  while (k < count && (done[k].fn != fn || done[k].dev != dev)) ++k;
+  if (k == count) {
+    if (count == kDone) return cudaErrorUnknown;
+    done[count++] = {fn, dev, 0, false};
+  }
+  if (smem > done[k].smem) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    done[k].smem = smem;
+  }
+  if (kPcgCluster > 8 && !done[k].wide) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    done[k].wide = true;
+  }
+  return err;
+}
+
+void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, size_t smem, cudaStream_t st) {
+  cfg = {};
+  cfg.gridDim = dim3(kPcgCluster, 1, 1);
+  cfg.blockDim = dim3(kPcgThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kPcgCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), size_t smem, cudaStream_t st, Args... args) {
+  cudaError_t err = setup(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cluster_config(cfg, attr, smem, st);
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
 }
 
 }  // namespace
@@ -522,71 +876,80 @@ extern "C" int df_spd6_inv(const void* m, int n, void* out, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int df_matvec(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* h_ii,
-                         const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order, const void* e_off,
-                         const void* damp, int np, int n, int kc, int nrows, int used, int stride, const void* p,
-                         void* ap, void* t, void* stream) {
+// the cluster launch of the PCG (``pcg`` 1) or the single matvec at n
+// nodes on the current device: out = (CTAs a cluster, dynamic shared
+// memory bytes, p in shared memory 1 / device memory 0, clusters the card
+// can hold at once) for p's place (``resolve_shared``); returns an error
+// code where it is refused
+extern "C" int df_pcg_plan(int pcg, int n, int nrows, int used, int stride, int shared_p, int* out) {
   const int mode = row_mode(nrows, used, stride);
-  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Sys S = make_sys(rows, idx, pt_order, pt_off, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc, stride);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* pp = static_cast<const float*>(p);
-  float* a = static_cast<float*>(ap);
-  float* tt = static_cast<float*>(t);
-  if (nrows == 1) {
-    matvec_kernel<1, kAllRows><<<1, kBlock, 0, st>>>(S, pp, a, tt);
-  } else if (mode == kAllRows) {
-    matvec_kernel<3, kAllRows><<<1, kBlock, 0, st>>>(S, pp, a, tt);
-  } else if (mode == kPlaneRows) {
-    matvec_kernel<3, kPlaneRows><<<1, kBlock, 0, st>>>(S, pp, a, tt);
-  } else {
-    matvec_kernel<3, kStridedRows><<<1, kBlock, 0, st>>>(S, pp, a, tt);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (mode < 0 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int sh = resolve_shared(pcg != 0, n, shared_p);
+  if (sh < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = cluster_smem(pcg != 0, n, sh == 1);
+  const void* fn = pcg ? reinterpret_cast<const void*>(pick<PcgK>(nrows, mode, sh == 1))
+                       : reinterpret_cast<const void*>(pick<MatvecK>(nrows, mode, sh == 1));
+  cudaError_t err = setup(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cluster_config(cfg, attr, smem, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = kPcgCluster;
+  out[1] = static_cast<int>(smem);
+  out[2] = sh;
+  out[3] = clusters;
+  return 0;
 }
 
-extern "C" int df_pcg(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* h_ii,
-                      const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order, const void* e_off,
-                      const void* damp, int np, int n, int kc, int nrows, int used, int stride, const void* minv,
-                      const void* b, int iters, float rtol2, const void* active, void* x, void* work, void* stream) {
+extern "C" int df_matvec(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* heavy,
+                         const void* h_ii, const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order,
+                         const void* e_off, const void* damp, int np, int n, int kc, int nrows, int used, int stride,
+                         int shared_p, const void* p, void* ap, void* t, void* stream) {
   const int mode = row_mode(nrows, used, stride);
-  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Sys S = make_sys(rows, idx, pt_order, pt_off, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc, stride);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(minv);
-  const float* bb = static_cast<const float*>(b);
-  const bool* on = static_cast<const bool*>(active);
-  float* xv = static_cast<float*>(x);
-  float* w = static_cast<float*>(work);
-  if (nrows == 1) {
-    pcg_kernel<1, kAllRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
-  } else if (mode == kAllRows) {
-    pcg_kernel<3, kAllRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
-  } else if (mode == kPlaneRows) {
-    pcg_kernel<3, kPlaneRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
-  } else {
-    pcg_kernel<3, kStridedRows><<<1, kBlock, 0, st>>>(S, m, bb, iters, rtol2, on, xv, w);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (mode < 0 || (shared_p != 0 && shared_p != 1) || resolve_shared(false, n, shared_p) < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sys S = make_sys(rows, idx, pt_order, pt_off, heavy, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc,
+                         stride);
+  return static_cast<int>(launch_cluster(pick<MatvecK>(nrows, mode, shared_p == 1),
+                                         cluster_smem(false, n, shared_p == 1), static_cast<cudaStream_t>(stream), S,
+                                         p, ap, t));
+}
+
+extern "C" int df_pcg(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* heavy,
+                      const void* h_ii, const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order,
+                      const void* e_off, const void* damp, int np, int n, int kc, int nrows, int used, int stride,
+                      int shared_p, const void* minv, const void* b, int iters, float rtol2, const void* active,
+                      void* x, void* work, void* stream) {
+  const int mode = row_mode(nrows, used, stride);
+  if (mode < 0 || (shared_p != 0 && shared_p != 1) || resolve_shared(true, n, shared_p) < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sys S = make_sys(rows, idx, pt_order, pt_off, heavy, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, np, n, kc,
+                         stride);
+  return static_cast<int>(launch_cluster(pick<PcgK>(nrows, mode, shared_p == 1), cluster_smem(true, n, shared_p == 1),
+                                         static_cast<cudaStream_t>(stream), S, minv, b, iters, rtol2, active, x,
+                                         work));
 }
 
 // the data-only matvec of one shard's rows: ap = rowsᵀ bf16(rows bf16(p)),
 // no edge blocks, no damping; t (P R,) scratch; st (kernel P's loop state)
 // may be null, else a done loop makes both launches return at once
-extern "C" int df_data_matvec(const void* rows, const void* idx, const void* pt_order, const void* pt_off, int np,
-                              int n, int nrows, int used, int stride, const void* p, void* ap, void* t,
-                              const void* st, void* stream) {
+extern "C" int df_data_matvec(const void* rows, const void* idx, const void* pt_order, const void* pt_off,
+                              const void* heavy, int np, int n, int nrows, int used, int stride, const void* p,
+                              void* ap, void* t, const void* st, void* stream) {
   const int mode = row_mode(nrows, used, stride);
   if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Sys S = make_sys(rows, idx, pt_order, pt_off, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                         np, n, 1, stride);
+  const Sys S = make_sys(rows, idx, pt_order, pt_off, heavy, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, np, n, 1, stride);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pp = static_cast<const float*>(p);
   float* a = static_cast<float*>(ap);
   float* tt = static_cast<float*>(t);
   const LoopState* ls = static_cast<const LoopState*>(st);
   const int nq = (mode == kPlaneRows ? np : np * nrows);
-  const int gq = (nq + kThreads - 1) / kThreads, gn = (n + kThreads - 1) / kThreads;
+  const int gq = (nq + kThreads - 1) / kThreads, gn = (32 * n + kThreads - 1) / kThreads;
   if (gq > 0) {
     if (nrows == 1) {
       data_rows_kernel<1, kAllRows><<<gq, kThreads, 0, s>>>(S, pp, tt, ls);
@@ -616,8 +979,8 @@ extern "C" int df_data_matvec(const void* rows, const void* idx, const void* pt_
 extern "C" int df_edge_apply(const void* h_ii, const void* h_jj, const void* h_ij, const void* e_dst,
                              const void* e_order, const void* e_off, const void* damp, int n, int kc, const void* p,
                              const void* apd, void* ap, const void* st, void* stream) {
-  const Sys S = make_sys(nullptr, nullptr, nullptr, nullptr, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, 0, n, kc,
-                         1);
+  const Sys S = make_sys(nullptr, nullptr, nullptr, nullptr, nullptr, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, 0,
+                         n, kc, 1);
   edge_apply_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       S, static_cast<const float*>(p), static_cast<const float*>(apd), static_cast<float*>(ap),
       static_cast<const LoopState*>(st));

@@ -16,6 +16,7 @@ never reach a wrapper (the ops modules send them to the plain versions).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -94,8 +95,11 @@ _SIGNATURES = {
     ),
     "df_edge_term": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "df_spd6_inv": (_P, _I, _P, _P),
-    "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    "df_pcg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P),
+    "df_pcg_plan": (_I, _I, _I, _I, _I, _I, _P),
+    "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "df_pcg": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P,
+    ),
     "df_insert_select": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P),
     "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
@@ -114,7 +118,7 @@ _SIGNATURES = {
     "df_gram_scales": (_P, _I, _P, _P, _I, _P, _P),
     "df_gram_launch": (_I, _P),
     "df_dense_gram": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "df_data_matvec": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "df_data_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "df_edge_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "df_pcg_init": (_P, _P, _I, _I, _F, _P, _P, _P, _P),
     "df_pcg_update": (_P, _I, _P, _P, _P),
@@ -230,6 +234,13 @@ def _same_device(*ts: torch.Tensor) -> None:
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current CUDA device around a library call whose state
+    belongs to the current device (kernel G's cluster attributes and
+    occupancy)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def _done(name: str, rc: int) -> None:
@@ -822,16 +833,19 @@ def spd6_inv(m: torch.Tensor) -> torch.Tensor:
 
 
 class FactoredSystem(NamedTuple):
-    """The factored normal equations as kernel G takes them."""
+    """The factored normal equations as kernel G takes them (the int32
+    copies and the heavy-first order are built once a solve structure, by
+    ``warp_solver.prepare``)."""
 
     rows: torch.Tensor      # (P, R, 8, 6) bf16, R = 1 or 3 residual rows a point
-    knn_idx: torch.Tensor   # (P, 8) int64
+    knn_idx: torch.Tensor   # (P, 8) int32
     pt_order: torch.Tensor  # (8P,) int32
     pt_off: torch.Tensor    # (N + 1,) int32
+    heavy: torch.Tensor     # (N,) int64: nodes by descending entry count, ties by index
     h_ii: torch.Tensor      # (E, 6, 6)
     h_jj: torch.Tensor
     h_ij: torch.Tensor
-    e_dst: torch.Tensor     # (E,) int64; edge e's source node is e // (E / N)
+    e_dst: torch.Tensor     # (E,) int32; edge e's source node is e // (E / N)
     e_order: torch.Tensor   # (E,) int32
     e_off: torch.Tensor     # (N + 1,) int32
     damp: torch.Tensor      # (6N,)
@@ -854,94 +868,135 @@ def _system_args(s: FactoredSystem):
     np_, nr = s.rows.shape[:2]
     n = s.damp.shape[0] // 6
     ne = s.e_dst.shape[0]
-    _check(s.knn_idx, "knn_idx", torch.int64, (np_, 8))
+    _check(s.knn_idx, "knn_idx", torch.int32, (np_, 8))
     _check_lists(s.pt_order, s.pt_off, np_ * 8, n)
+    _check(s.heavy, "heavy", torch.int64, (n,))
     for t, nm in ((s.h_ii, "h_ii"), (s.h_jj, "h_jj"), (s.h_ij, "h_ij")):
         _check(t, nm, torch.float32, (ne, 6, 6))
-    _check(s.e_dst, "e_dst", torch.int64, (ne,))
+    _check(s.e_dst, "e_dst", torch.int32, (ne,))
     _check_lists(s.e_order, s.e_off, ne, n)
     _check(s.damp, "damp", torch.float32, (6 * n,))
     if ne % n:
         raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
     _same_device(*s)
-    idx32 = s.knn_idx.to(torch.int32)
-    dst32 = s.e_dst.to(torch.int32)
-    ptrs = (
-        s.rows.data_ptr(), idx32.data_ptr(), s.pt_order.data_ptr(), s.pt_off.data_ptr(),
-        s.h_ii.data_ptr(), s.h_jj.data_ptr(), s.h_ij.data_ptr(), dst32.data_ptr(),
-        s.e_order.data_ptr(), s.e_off.data_ptr(), s.damp.data_ptr(), np_, n, ne // n, nr,
-    )
-    return ptrs, (idx32, dst32), np_ * nr, n
+    return tuple(t.data_ptr() for t in s) + (np_, n, ne // n, nr), np_ * nr, n
+
+
+class ClusterPlan(NamedTuple):
+    """A launch of kernel G's cluster (``df_pcg_plan``) on one device."""
+
+    cluster: int   # CTAs in the cluster
+    smem: int      # dynamic shared memory a CTA, bytes
+    shared_p: bool  # p's copies in shared memory (else p in device memory)
+    clusters: int  # such clusters the card can hold at once (the launch needs 1)
+
+
+_PLANS: Dict[Tuple, ClusterPlan] = {}
+
+
+def cluster_plan(pcg: bool, n: int, nrows: int, used: Optional[int] = None, stride: int = 1,
+                 shared_p: Optional[bool] = None, device: Optional[torch.device] = None) -> ClusterPlan:
+    """Kernel G's cluster launch at ``n`` nodes for the PCG (``pcg``) or the
+    single matvec on ``device`` (None: the current CUDA device): p in
+    shared memory where it fits (``shared_p`` None) or as asked. Raises
+    where the card cannot schedule the cluster: there is no other route."""
+    mode = _row_mode(nrows, used, stride)
+    want = -1 if shared_p is None else int(shared_p)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    key = (dev, bool(pcg), n, nrows, *mode, want)
+    plan = _PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_int * 4)()
+        with _on(dev):
+            rc = load().df_pcg_plan(int(pcg), n, nrows, *mode, want, out)
+        if rc != 0:
+            raise ValueError(f"kernel G's cluster at {n} nodes, p in "
+                             f"{'shared memory' if shared_p else 'any memory'}: refused (error {rc})")
+        plan = ClusterPlan(out[0], out[1], bool(out[2]), out[3])
+        if plan.clusters < 1:
+            raise RuntimeError(f"kernel G: a cluster of {plan.cluster} CTAs with {plan.smem} bytes of shared memory "
+                               f"each cannot be scheduled on this card")
+        _PLANS[key] = plan
+    return plan
 
 
 def matvec(s: FactoredSystem, p: torch.Tensor, used: Optional[int] = None, stride: int = 1) -> torch.Tensor:
     """Kernel G: (rows_bf16ᵀ bf16(rows_bf16 bf16(p))) + edge blocks p +
-    damp p, one block; t = bf16(row · bf16(p)) per (point, row), over the
-    rows of the row mode (``used``, ``stride``: ``_row_mode``)."""
-    ptrs, keep, n_rows, n = _system_args(s)
+    damp p, one cluster launch (``cluster_plan``); t = bf16(row · bf16(p))
+    per (point, row), over the rows of the row mode (``used``, ``stride``:
+    ``_row_mode``)."""
+    ptrs, n_rows, n = _system_args(s)
     mode = _row_mode(s.rows.shape[1], used, stride)
     _check(p, "p", torch.float32, (6 * n,))
+    _same_device(p, s.damp)
+    plan = cluster_plan(False, n, s.rows.shape[1], used, stride, device=p.device)
     lib = load()
     ap = torch.empty_like(p)
     t = torch.empty((max(n_rows, 1),), dtype=torch.float32, device=p.device)
-    rc = lib.df_matvec(*ptrs, *mode, p.data_ptr(), ap.data_ptr(), t.data_ptr(), _stream(p.device))
+    with _on(p.device):
+        rc = lib.df_matvec(*ptrs, *mode, int(plan.shared_p), p.data_ptr(), ap.data_ptr(), t.data_ptr(),
+                           _stream(p.device))
     _done("matvec", rc)
-    del keep
     return ap
 
 
 def pcg(s: FactoredSystem, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float, active: torch.Tensor,
-        used: Optional[int] = None, stride: int = 1):
-    """Kernel G: the whole block-Jacobi PCG solve from x = 0 in one launch;
-    at most ``iters`` iterations while rᵀr > rtol² bᵀb; ``active`` (a ()
-    bool device tensor) False returns zeros; the matvec's row mode as in
-    ``matvec``."""
-    ptrs, keep, n_rows, n = _system_args(s)
+        used: Optional[int] = None, stride: int = 1, shared_p: Optional[bool] = None):
+    """Kernel G: the whole block-Jacobi PCG solve from x = 0 in one cluster
+    launch (``cluster_plan``; ``shared_p`` False keeps p in device memory,
+    the path of systems too large for shared memory); at most ``iters``
+    iterations while rᵀr > rtol² bᵀb; ``active`` (a () bool device tensor)
+    False returns zeros; the matvec's row mode as in ``matvec``."""
+    ptrs, n_rows, n = _system_args(s)
     mode = _row_mode(s.rows.shape[1], used, stride)
     _check(minv, "minv", torch.float32, (n, 6, 6))
     _check(b, "b", torch.float32, (6 * n,))
     _check(active, "active", torch.bool, ())
     _same_device(b, minv, active, s.damp)
+    plan = cluster_plan(True, n, s.rows.shape[1], used, stride, shared_p, device=b.device)
     lib = load()
     x = torch.empty_like(b)
-    work = torch.empty((4 * 6 * n + max(n_rows, 1),), dtype=torch.float32, device=b.device)
-    rc = lib.df_pcg(
-        *ptrs, *mode, minv.data_ptr(), b.data_ptr(), iters, _f32(rtol * rtol), active.data_ptr(),
-        x.data_ptr(), work.data_ptr(), _stream(b.device),
-    )
+    # r, z, p, Ap and x (6N each), then t
+    work = torch.empty((5 * 6 * n + max(n_rows, 1),), dtype=torch.float32, device=b.device)
+    with _on(b.device):
+        rc = lib.df_pcg(
+            *ptrs, *mode, int(plan.shared_p), minv.data_ptr(), b.data_ptr(), iters, _f32(rtol * rtol),
+            active.data_ptr(), x.data_ptr(), work.data_ptr(), _stream(b.device),
+        )
     _done("pcg", rc)
-    del keep
     return x
 
 
-def data_matvec(rows: torch.Tensor, knn_idx: torch.Tensor, order: torch.Tensor, off: torch.Tensor, p: torch.Tensor,
-                used: Optional[int] = None, stride: int = 1, state: Optional[torch.Tensor] = None) -> torch.Tensor:
+def data_matvec(rows: torch.Tensor, knn_idx: torch.Tensor, order: torch.Tensor, off: torch.Tensor,
+                heavy: torch.Tensor, p: torch.Tensor, used: Optional[int] = None, stride: int = 1,
+                state: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel G's shard entry (csrc/pcg.cu, two launches: a thread per
-    (point, row), a thread per node): one shard's data product rowsᵀ
-    bf16(rows bf16(p)) in the matvec's rounding and sum order, no edge
-    blocks, no damping; the row mode as ``matvec``'s. ``state`` (the loop
-    state of ``pcg_sharded_init``'s work) makes a finished loop's launches
-    return at once (the output then keeps what it held)."""
+    (point, row), then a warp per node, heaviest first by ``heavy``): one
+    shard's data product rowsᵀ bf16(rows bf16(p)) in the PCG's rounding
+    and per-lane sum order, no edge blocks, no damping; ``knn_idx`` int32;
+    the row mode as ``matvec``'s. ``state`` (the loop state of
+    ``pcg_sharded_init``'s work) makes a finished loop's launches return at
+    once (the output then keeps what it held)."""
     _check(rows, "rows", torch.bfloat16)
     if rows.dim() != 4 or rows.shape[1] not in (1, 3) or rows.shape[2:] != (8, 6):
         raise ValueError(f"rows: expected (P, 1 or 3, 8, 6), got {tuple(rows.shape)}")
     np_, nr = rows.shape[:2]
     n = off.shape[0] - 1
-    _check(knn_idx, "knn_idx", torch.int64, (np_, 8))
+    _check(knn_idx, "knn_idx", torch.int32, (np_, 8))
     _check_lists(order, off, np_ * 8, n)
+    _check(heavy, "heavy", torch.int64, (n,))
     _check(p, "p", torch.float32, (6 * n,))
     mode = _row_mode(nr, used, stride)
-    _same_device(rows, knn_idx, order, off, p)
+    _same_device(rows, knn_idx, order, off, heavy, p)
     if state is not None:
         _check(state, "state", torch.float32, (3,))
         _same_device(p, state)
     lib = load()
-    idx32 = knn_idx.to(torch.int32)
     ap = torch.empty_like(p)
     t = torch.empty((max(np_ * nr, 1),), dtype=torch.float32, device=p.device)
     rc = lib.df_data_matvec(
-        rows.data_ptr(), idx32.data_ptr(), order.data_ptr(), off.data_ptr(), np_, n, nr, *mode, p.data_ptr(),
-        ap.data_ptr(), t.data_ptr(), None if state is None else state.data_ptr(), _stream(p.device),
+        rows.data_ptr(), knn_idx.data_ptr(), order.data_ptr(), off.data_ptr(), heavy.data_ptr(), np_, n, nr, *mode,
+        p.data_ptr(), ap.data_ptr(), t.data_ptr(), None if state is None else state.data_ptr(), _stream(p.device),
     )
     _done("data_matvec", rc)
     return ap
@@ -981,7 +1036,7 @@ def pcg_sharded_step(s: FactoredSystem, minv: torch.Tensor, apd: torch.Tensor, x
     ne = s.e_dst.shape[0]
     for t, nm in ((s.h_ii, "h_ii"), (s.h_jj, "h_jj"), (s.h_ij, "h_ij")):
         _check(t, nm, torch.float32, (ne, 6, 6))
-    _check(s.e_dst, "e_dst", torch.int64, (ne,))
+    _check(s.e_dst, "e_dst", torch.int32, (ne,))
     _check_lists(s.e_order, s.e_off, ne, n)
     _check(s.damp, "damp", torch.float32, (dof,))
     if ne % n:
@@ -992,10 +1047,9 @@ def pcg_sharded_step(s: FactoredSystem, minv: torch.Tensor, apd: torch.Tensor, x
     _check(work, "work", torch.float32, (4 * dof + 3,))
     _same_device(s.h_ii, s.h_jj, s.h_ij, s.e_dst, s.e_order, s.e_off, s.damp, minv, apd, x, work)
     lib = load()
-    dst32 = s.e_dst.to(torch.int32)
     st = work[4 * dof:]
     rc = lib.df_edge_apply(
-        s.h_ii.data_ptr(), s.h_jj.data_ptr(), s.h_ij.data_ptr(), dst32.data_ptr(), s.e_order.data_ptr(),
+        s.h_ii.data_ptr(), s.h_jj.data_ptr(), s.h_ij.data_ptr(), s.e_dst.data_ptr(), s.e_order.data_ptr(),
         s.e_off.data_ptr(), s.damp.data_ptr(), n, ne // n, work[2 * dof:].data_ptr(), apd.data_ptr(),
         work[3 * dof:].data_ptr(), st.data_ptr(), _stream(x.device),
     )
@@ -1048,9 +1102,11 @@ def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int
     or the bf16 products summed in float64 in each node's entry order and
     rounded once) plus the ARAP blocks ``h_ij`` (E, 6, 6) placed at (src,
     dst) and transposed at (dst, src) and the diagonal blocks ``diag`` (N,
-    6, 6). Edge e's source node must be e // (E / N). Three launches in
-    int8 mode (the codes, the nodes' order, the Gram), two in bf16 mode;
-    any N that ``gram_launch`` takes.
+    6, 6). Edge e's source node must be e // (E / N). ``knn_idx`` and
+    ``e_dst`` int32 (built once a solve structure, by
+    ``warp_solver.prepare``). Three launches in int8 mode (the codes, the
+    nodes' order, the Gram), two in bf16 mode; any N that ``gram_launch``
+    takes.
 
     Shard mode: ``scale`` the (6N,) column scales to quantize with (the
     pmax of the shards' ``gram_scales``) and ``edges=False`` the data Gram
@@ -1060,7 +1116,7 @@ def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int
         raise ValueError(f"rows: expected (P, 1 or 3, 8, 6), got {tuple(rows.shape)}")
     np_ = rows.shape[0]
     n = off.shape[0] - 1
-    _check(knn_idx, "knn_idx", torch.int64, (np_, 8))
+    _check(knn_idx, "knn_idx", torch.int32, (np_, 8))
     _check_lists(order, off, np_ * 8, n)
     _same_device(rows, knn_idx, order, off)
     if n < 1:
@@ -1071,7 +1127,7 @@ def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int
         if ne % n:
             raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
         _check(h_ij, "h_ij", torch.float32, (ne, 6, 6))
-        _check(e_dst, "e_dst", torch.int64, (ne,))
+        _check(e_dst, "e_dst", torch.int32, (ne,))
         _check_lists(e_order, e_off, ne, n)
         _same_device(rows, h_ij, diag, e_dst, e_order, e_off)
     if scale is not None:
@@ -1087,8 +1143,6 @@ def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int
     lib = load()
     if rows.data_ptr() % 16:  # the kernel copies a point's rows in 16-byte pieces
         rows = rows.clone()
-    knn32 = knn_idx.to(torch.int32)
-    dst32 = e_dst.to(torch.int32) if edges else None
     codes = torch.empty((np_ * rows.shape[1] * 48,) if int8 else (0,), dtype=torch.int8, device=rows.device)
     perm = torch.empty((n,), dtype=torch.int32, device=rows.device)
     out = torch.empty((6 * n, 6 * n), dtype=torch.float32, device=rows.device)
@@ -1097,8 +1151,9 @@ def dense_gram(rows, knn_idx, order, off, h_ij, diag, e_dst, e_order, e_off, int
         return None if t is None else t.data_ptr()
 
     rc = lib.df_dense_gram(
-        rows.data_ptr(), rows.shape[1], np_, knn32.data_ptr(), order.data_ptr(), off.data_ptr(), scale.data_ptr(),
-        ptr(h_ij) if edges else None, ptr(diag) if edges else None, ptr(dst32), ptr(e_order) if edges else None,
+        rows.data_ptr(), rows.shape[1], np_, knn_idx.data_ptr(), order.data_ptr(), off.data_ptr(), scale.data_ptr(),
+        ptr(h_ij) if edges else None, ptr(diag) if edges else None, ptr(e_dst) if edges else None,
+        ptr(e_order) if edges else None,
         ptr(e_off) if edges else None, e_dst.shape[0] // n if edges else 1, n, int(int8), int(edges),
         codes.data_ptr(), perm.data_ptr(), out.data_ptr(), _stream(rows.device),
     )

@@ -31,7 +31,7 @@ from dynamicfusion_tpu_torch.parallel.mesh import Mesh
 from dynamicfusion_tpu_torch.solvers import warp_solver
 from dynamicfusion_tpu_torch.solvers.warp_solver import SolveStructure, WarpSolveInputs
 
-_POINT_FIELDS = ("p_can", "p_live", "n_live", "valid", "knn_idx", "w_knn", "t1", "t2", "p2p_sw")
+_POINT_FIELDS = ("p_can", "p_live", "n_live", "valid", "knn_idx", "w_knn", "t1", "t2", "p2p_sw", "knn_idx32")
 
 
 def _pad_points(s: SolveStructure, n: int) -> SolveStructure:

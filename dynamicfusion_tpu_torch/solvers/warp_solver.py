@@ -164,16 +164,26 @@ def _norm3(v: torch.Tensor) -> torch.Tensor:
 
 class NodeLists(NamedTuple):
     """Entries grouped by node: ``order`` lists entry ids sorted by their
-    node (ties in entry order), node n owns order[off[n]:off[n + 1]]."""
+    node (ties in entry order), node n owns order[off[n]:off[n + 1]];
+    ``heavy`` (with ``node_lists(heavy=True)``) the nodes by descending
+    list length, ties by index, the order in which kernel G's warps take
+    them."""
 
     order: torch.Tensor  # (M,) int32
     off: torch.Tensor    # (N + 1,) int32
+    heavy: Optional[torch.Tensor] = None  # (N,) int64
 
 
-def node_lists(keys: torch.Tensor, n_nodes: int) -> NodeLists:
+def node_lists(keys: torch.Tensor, n_nodes: int, heavy: bool = False) -> NodeLists:
     srt, order = torch.sort(keys.reshape(-1), stable=True)
     off = torch.searchsorted(srt, torch.arange(n_nodes + 1, device=keys.device, dtype=srt.dtype))
-    return NodeLists(order.to(torch.int32), off.to(torch.int32))
+    lists = NodeLists(order.to(torch.int32), off.to(torch.int32))
+    return lists._replace(heavy=heavy_order(lists)) if heavy else lists
+
+
+def heavy_order(lists: NodeLists) -> torch.Tensor:
+    """The nodes of ``lists`` by descending list length, ties by index."""
+    return torch.sort(lists.off[1:] - lists.off[:-1], descending=True, stable=True).indices
 
 
 def build_edges(field: WarpField, k_edge: int = 4, plain: bool = False):
@@ -209,6 +219,15 @@ class SolveStructure(NamedTuple):
     t1: Optional[torch.Tensor] = None
     t2: Optional[torch.Tensor] = None
     p2p_sw: Optional[torch.Tensor] = None
+    # int32 copies of knn_idx and e_dst, as kernels G and N take them
+    knn_idx32: Optional[torch.Tensor] = None
+    e_dst32: Optional[torch.Tensor] = None
+
+
+def _factored(cfg: DynamicFusionConfig) -> bool:
+    """The solve runs kernel G's factored PCG (the lagged JᵀJ and the PCG;
+    anything else assembles the dense system)."""
+    return cfg.solver_linear == "pcg" and cfg.solver_lagged_jtj
 
 
 def _tangential(cfg: DynamicFusionConfig) -> bool:
@@ -225,7 +244,10 @@ def prepare(
     solve points, build the edge graph and the node lists; with the
     tangential term, the tangent basis and the per-point weight
     sqrt(solver_p2p_weight * clip(gate, 0, 1)). The live normal must be
-    finite only where a row projects on it (point-to-plane).
+    finite only where a row projects on it (point-to-plane). The kernels'
+    inputs are built here once a structure: the int32 copies of the
+    neighbour ids and edge destinations (kernels G and N) and, where the
+    solve runs kernel G's factored PCG, the heavy-first node order.
 
     ``global_points``: the whole solve's point count where ``inputs`` is
     one shard of it, so that the 8192-point and stride decisions are the
@@ -256,16 +278,17 @@ def prepare(
         e_src, e_dst, e_valid = build_edges(field, plain=plain)
         alpha = torch.maximum(field.radius[e_src], field.radius[e_dst]) * (1.0 / hs)
         v_dst, edges_by_dst = field.positions[e_dst].contiguous(), node_lists(e_dst, n)
+        e_dst32 = e_dst.to(torch.int32)
     else:
-        e_src, e_dst, e_valid, v_dst, alpha, edges_by_dst = (
-            edges.e_src, edges.e_dst, edges.e_valid, edges.v_dst, edges.alpha, edges.edges_by_dst
+        e_src, e_dst, e_valid, v_dst, alpha, edges_by_dst, e_dst32 = (
+            edges.e_src, edges.e_dst, edges.e_valid, edges.v_dst, edges.alpha, edges.edges_by_dst, edges.e_dst32
         )
     return SolveStructure(
         p_can=p_can.contiguous(), p_live=p_live.contiguous(), n_live=n_live.contiguous(), valid=valid,
         knn_idx=kb.idx, w_knn=kb.w.contiguous(),
         e_src=e_src, e_dst=e_dst, e_valid=e_valid, v_dst=v_dst, alpha=alpha,
-        pts_by_node=node_lists(kb.idx, n), edges_by_dst=edges_by_dst,
-        t1=t1, t2=t2, p2p_sw=p2p_sw,
+        pts_by_node=node_lists(kb.idx, n, heavy=_factored(cfg)), edges_by_dst=edges_by_dst,
+        t1=t1, t2=t2, p2p_sw=p2p_sw, knn_idx32=kb.idx.to(torch.int32), e_dst32=e_dst32,
     )
 
 
@@ -559,10 +582,14 @@ def pcg_plain(
 
 
 def _kernel_system(s: SolveStructure, sys: System):
+    """Kernel G's system; a structure prepared for the dense solve carries
+    no heavy-first order, and gets one here."""
     e = sys.edge
+    heavy = s.pts_by_node.heavy
     return kernels.FactoredSystem(
-        rows=sys.rows, knn_idx=s.knn_idx, pt_order=s.pts_by_node.order, pt_off=s.pts_by_node.off,
-        h_ii=e.h_ii, h_jj=e.h_jj, h_ij=e.h_ij, e_dst=s.e_dst,
+        rows=sys.rows, knn_idx=s.knn_idx32, pt_order=s.pts_by_node.order, pt_off=s.pts_by_node.off,
+        heavy=heavy_order(s.pts_by_node) if heavy is None else heavy, h_ii=e.h_ii, h_jj=e.h_jj, h_ij=e.h_ij,
+        e_dst=s.e_dst32,
         e_order=s.edges_by_dst.order, e_off=s.edges_by_dst.off, damp=sys.damp,
     )
 
@@ -571,7 +598,8 @@ def pcg(
     s: SolveStructure, sys: System, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float,
     active: torch.Tensor, plain: bool = False,
 ) -> torch.Tensor:
-    """Kernel G's PCG entry (the whole solve in one launch) on CUDA tensors."""
+    """Kernel G's PCG entry (the whole solve in one cluster launch) on CUDA
+    tensors."""
     if plain or b.device.type == "cpu":
         return pcg_plain(s, sys, minv, b, iters, rtol, active)
     return kernels.pcg(_kernel_system(s, sys), minv, b, iters, rtol, active, used=sys.used, stride=sys.stride)
@@ -635,11 +663,33 @@ def _list_sums(values: torch.Tensor, lists: NodeLists, start: Optional[torch.Ten
     return out
 
 
+def _lane_sums(values: torch.Tensor, lists: NodeLists) -> torch.Tensor:
+    """(N, 6): node n's ``values`` rows at ``lists.order[off[n]:off[n + 1]]``
+    summed as one warp of kernel G sums them (``lane_data``,
+    ``warp_sum6``): lane l adds the rows l, l + 32, ... one by one in list
+    order from 0, then a halving tree (16, 8, 4, 2, 1) adds the 32 lanes."""
+    off = lists.off.to(torch.int64)
+    n = off.shape[0] - 1
+    dev = values.device
+    steps = -(-int((off[1:] - off[:-1]).max()) // 32) if n else 0
+    slot = off[:-1, None, None] + 32 * torch.arange(steps, device=dev)[:, None] + torch.arange(32, device=dev)
+    mine = slot < off[1:, None, None]
+    picked = values[lists.order.to(torch.int64)[torch.where(mine, slot, 0)]]
+    v = torch.zeros((n, 32, 6), dtype=values.dtype, device=dev)
+    for k in range(steps):
+        v = v + torch.where(mine[:, k, :, None], picked[:, k], 0.0)
+    h = 16
+    while h:
+        v = v[:, :h] + v[:, h: 2 * h]
+        h //= 2
+    return v[:, 0]
+
+
 def data_matvec_ordered(s: SolveStructure, sys: System, p: torch.Tensor) -> torch.Tensor:
-    """``data_matvec_plain`` in kernel G's order (``row_t``, ``node_data``):
+    """``data_matvec_plain`` in kernel G's order (``row_t``, ``lane_data``):
     each (point, row)'s 48 products summed left to right before t's bf16
-    rounding, then a node's entries in ``pts_by_node`` order, each entry's
-    rows summed first. (N, 6)."""
+    rounding, each entry's rows summed first, then a node's entries by one
+    warp (``_lane_sums``). (N, 6)."""
     n = p.shape[0] // 6
     rows = sys.rows.to(torch.float32)
     if sys.used is not None or sys.stride > 1:
@@ -651,7 +701,7 @@ def data_matvec_ordered(s: SolveStructure, sys: System, p: torch.Tensor) -> torc
     per_entry = ent[:, 0]
     for j in range(1, ent.shape[1]):
         per_entry = per_entry + ent[:, j]
-    return _list_sums(per_entry.reshape(-1, 6), s.pts_by_node)
+    return _lane_sums(per_entry.reshape(-1, 6), s.pts_by_node)
 
 
 def edge_apply_plain(s: SolveStructure, e: EdgeTerm, p: torch.Tensor, apd: torch.Tensor,
@@ -723,11 +773,14 @@ def pcg_sharded(
     dof = b.shape[0]
     p, state = work[2 * dof: 3 * dof], work[4 * dof:]
     ks = _kernel_system(s, sys)
+    # shards split by ``distributed_gn.shard_structure`` carry no order
+    heavy = [sh.s.pts_by_node.heavy if sh.s.pts_by_node.heavy is not None else heavy_order(sh.s.pts_by_node)
+             for sh in shards]
     for _ in range(iters):
         parts = [
-            kernels.data_matvec(sh.rows, sh.s.knn_idx, sh.s.pts_by_node.order, sh.s.pts_by_node.off, p_k,
+            kernels.data_matvec(sh.rows, sh.s.knn_idx32, sh.s.pts_by_node.order, sh.s.pts_by_node.off, hv, p_k,
                                 used=sys.used, stride=sys.stride, state=st_k)
-            for sh, p_k, st_k in zip(shards, mesh.replicate(p), mesh.replicate(state))
+            for sh, hv, p_k, st_k in zip(shards, heavy, mesh.replicate(p), mesh.replicate(state))
         ]
         kernels.pcg_sharded_step(ks, minv, mesh.psum(parts), x, work)
     return x
@@ -824,7 +877,7 @@ def dense_gram(cfg: DynamicFusionConfig, s: SolveStructure, dt: DataTerm, et: Ed
     if plain or dt.rows.device.type == "cpu":
         return dense_gram_plain(dt.rows, s.knn_idx, cfg.solver_jtj_int8, et.h_ij, et.diag, s.e_src, s.e_dst)
     return kernels.dense_gram(
-        dt.rows, s.knn_idx, s.pts_by_node.order, s.pts_by_node.off, et.h_ij, et.diag, s.e_dst,
+        dt.rows, s.knn_idx32, s.pts_by_node.order, s.pts_by_node.off, et.h_ij, et.diag, s.e_dst32,
         s.edges_by_dst.order, s.edges_by_dst.off, cfg.solver_jtj_int8,
     )
 
@@ -844,7 +897,7 @@ def data_gram(cfg: DynamicFusionConfig, s: SolveStructure, dt: DataTerm, scale: 
     n = s.pts_by_node.off.shape[0] - 1
     if plain or dt.rows.device.type == "cpu":
         return dense_gram_plain(dt.rows, s.knn_idx, cfg.solver_jtj_int8, None, None, None, None, scale=scale, n=n)
-    return kernels.dense_gram(dt.rows, s.knn_idx, s.pts_by_node.order, s.pts_by_node.off, None, None, None, None,
+    return kernels.dense_gram(dt.rows, s.knn_idx32, s.pts_by_node.order, s.pts_by_node.off, None, None, None, None,
                               None, cfg.solver_jtj_int8, scale=scale, edges=False)
 
 
@@ -854,12 +907,12 @@ def edge_jtj(s: SolveStructure, et: EdgeTerm, plain: bool = False) -> torch.Tens
     n = et.diag.shape[0]
     dev = et.diag.device
     rows = torch.zeros((0, 1, 8, 6), dtype=torch.bfloat16, device=dev)
-    knn = torch.zeros((0, 8), dtype=torch.int64, device=dev)
     if plain or dev.type == "cpu":
-        return dense_gram_plain(rows, knn, False, et.h_ij, et.diag, s.e_src, s.e_dst)
+        return dense_gram_plain(rows, torch.zeros((0, 8), dtype=torch.int64, device=dev), False, et.h_ij, et.diag,
+                                s.e_src, s.e_dst)
     empty = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
-    return kernels.dense_gram(rows, knn, empty[:0], empty, et.h_ij, et.diag, s.e_dst, s.edges_by_dst.order,
-                              s.edges_by_dst.off, False)
+    return kernels.dense_gram(rows, empty[:0].view(0, 8), empty[:0], empty, et.h_ij, et.diag, s.e_dst32,
+                              s.edges_by_dst.order, s.edges_by_dst.off, False)
 
 
 def _damping_from_diag(floor: float, active: torch.Tensor, diag: torch.Tensor):
@@ -1083,7 +1136,7 @@ def solve(
     # the dense system: the direct solve (anything but "pcg", as in the JAX
     # package), or the PCG over the dense matrix with the unlagged JᵀJ or
     # an assembly hook
-    dense = cfg.solver_linear != "pcg" or not lagged or system_fn is not None
+    dense = not _factored(cfg) or system_fn is not None
     direct = cfg.solver_linear != "pcg"
     reuse = direct and lagged and cfg.solver_chol_reuse
     floor = cfg.solver_damping_floor

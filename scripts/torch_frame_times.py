@@ -1,7 +1,9 @@
-"""Frame times of one of the port's non-rigid presets on the card, for a
-tree given on the command line: the kernel path through ``DynamicFusion``
-over ``bench.py``'s hinge scene (or its deforming scene) at full width,
-640x480 / 256^3 / 1024 nodes, then ``--profile`` frames under
+"""Frame times of one of the port's non-rigid configurations on the card,
+for a tree given on the command line: the kernel path through
+``DynamicFusion`` over ``bench.py``'s hinge scene (``quality``) or its
+deforming scene (``default``, ``base``: the base ``DynamicFusionConfig()``
+with the direct solve, ``kinfu``: ``default_kinfu()``'s 512^3 volume at
+its own intrinsics) at full width, then ``--profile`` frames under
 torch.profiler (``chip_smoke.profile_frames``: device busy time, idle
 share, launches).
 
@@ -36,10 +38,11 @@ HERE = Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--root", default=str(HERE), help="directory holding the dynamicfusion_tpu_torch to time")
-    ap.add_argument("--preset", choices=("quality", "default"), default="quality",
-                    help="quality_dynamicfusion() on the hinge scene, or default_dynamicfusion() on the "
-                         "deforming scene")
-    ap.add_argument("--storage", default="i16/u16", help="the volume's tsdf/weight storage, e.g. f32/f32")
+    ap.add_argument("--preset", choices=("quality", "default", "base", "kinfu"), default="quality",
+                    help="quality_dynamicfusion() on the hinge scene, or default_dynamicfusion(), "
+                         "DynamicFusionConfig() or default_kinfu() on the deforming scene")
+    ap.add_argument("--storage", default=None, help="the volume's tsdf/weight storage, e.g. f32/f32 (default: the "
+                                                    "configuration's)")
     ap.add_argument("--frames", type=int, default=20, help="timed frames (frame 0 included)")
     ap.add_argument("--profile", default=None, help="profile 3 more frames and write the table and trace here")
     args = ap.parse_args()
@@ -67,14 +70,13 @@ def main() -> int:
     kernels.load()
     print(f"[build] {root}: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    if args.preset == "quality":
-        cfg = DynamicFusionConfig.quality_dynamicfusion()
-        make = synthetic.hinge_frames
-    else:
-        cfg = DynamicFusionConfig.default_dynamicfusion()
-        make = synthetic.deforming_frames
-    tsdf_dtype, weight_dtype = args.storage.split("/")
-    cfg = dataclasses.replace(cfg, tsdf_dtype=tsdf_dtype, weight_dtype=weight_dtype)
+    make = synthetic.hinge_frames if args.preset == "quality" else synthetic.deforming_frames
+    cfg = {"quality": DynamicFusionConfig.quality_dynamicfusion, "default": DynamicFusionConfig.default_dynamicfusion,
+           "base": DynamicFusionConfig, "kinfu": DynamicFusionConfig.default_kinfu}[args.preset]()
+    if args.storage:
+        tsdf_dtype, weight_dtype = args.storage.split("/")
+        cfg = dataclasses.replace(cfg, tsdf_dtype=tsdf_dtype, weight_dtype=weight_dtype)
+    args.storage = f"{cfg.tsdf_dtype}/{cfg.weight_dtype}"
     n_prof = 3 if args.profile else 0
     frames = make(cfg.intr, cfg.rows, cfg.cols, args.frames + n_prof)
     df = kinfu.DynamicFusion(cfg, device=dev)

@@ -554,19 +554,20 @@ def test_dense_gram_kernel_any_node_count(dev, n, npt, nrows):
 
     rows, knn, lists, h_ij, diag, e_src, e_dst, e_lists = skewed_gram_inputs(torch, dev, n, npt, nrows, n + nrows)
     assert int((lists.off[1:] - lists.off[:-1]).argmax()) == 0 and bool((lists.off[-n // 32:] == lists.off[-1]).all())
-    args = (rows, knn, lists.order, lists.off, h_ij, diag, e_dst, e_lists.order, e_lists.off)
+    knn32, dst32 = knn.to(torch.int32), e_dst.to(torch.int32)  # the ids as a prepared structure holds them
+    args = (rows, knn32, lists.order, lists.off, h_ij, diag, dst32, e_lists.order, e_lists.off)
     gk = kernels.dense_gram(*args, True)
     assert torch.equal(gk, ws.dense_gram_plain(rows, knn, True, h_ij, diag, e_src, e_dst))
     bk = kernels.dense_gram(*args, False)
     assert _close(bk, ws.dense_gram_plain(rows, knn, False, h_ij, diag, e_src, e_dst), 1e-6)
     assert torch.equal(bk, kernels.dense_gram(*args, False))
     scale = kernels.gram_scales(rows, lists.order, lists.off)
-    sk = kernels.dense_gram(rows, knn, lists.order, lists.off, None, None, None, None, None, True, scale=scale,
+    sk = kernels.dense_gram(rows, knn32, lists.order, lists.off, None, None, None, None, None, True, scale=scale,
                             edges=False)
     assert torch.equal(sk, ws.dense_gram_plain(rows, knn, True, None, None, None, None, scale=scale, n=n))
     rows0 = rows[:0, :1]
     off0 = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
-    ek = kernels.dense_gram(rows0, knn[:0], off0[:0], off0, h_ij, diag, e_dst, e_lists.order, e_lists.off, False)
+    ek = kernels.dense_gram(rows0, knn32[:0], off0[:0], off0, h_ij, diag, dst32, e_lists.order, e_lists.off, False)
     assert torch.equal(ek, ws.dense_gram_plain(rows0, knn[:0], False, h_ij, diag, e_src, e_dst))
 
 
@@ -761,6 +762,41 @@ def test_solver_kernels_row_modes(dev, nr_model, mode):
     xk = ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on)
     xp = ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on, plain=True)
     assert _close(xk, xp, 1e-2)
+
+
+PCG_MODES = {"one_row": dict(), "three_rows": dict(solver_p2p_weight=0.25),
+             "stride4": dict(solver_p2p_weight=0.25, solver_p2p_hessian_stride=4),
+             "lag": dict(solver_p2p_weight=0.25, solver_p2p_lag_hessian=True)}
+
+
+@pytest.mark.parametrize("mode", sorted(PCG_MODES))
+def test_cluster_pcg_kernel(dev, nr_model, mode):
+    """Kernel G's cluster PCG in each row mode against the plain PCG (the
+    sums' order differs: 1e-2 of the largest entry, as above), the same
+    bits on a second launch, p in device memory bit-equal to p in shared
+    memory (the same sums), one launch a solve, and inactive as x = 0."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = dataclasses.replace(NR, **PCG_MODES[mode])
+    st, inputs, _ = nr_model
+    n = st.warp.dq.shape[0]
+    used, stride = ws.row_mode(cfg)
+    s = ws.prepare(cfg, st.warp, inputs)
+    dp = ws.data_term(cfg, s, st.warp.dq, True, plain=True, row_stride=stride)
+    ep = ws.edge_term(cfg, s, st.warp.dq, plain=True)
+    blocks = dp.blocks + ep.diag + torch.diag_embed(torch.ones(n, 6, device=dev))
+    sysm = ws.System(dp.rows, ep, torch.ones(6 * n, device=dev), used, stride)
+    minv = ws.spd6_inv(blocks, plain=True)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    before = kernels.launches["pcg"]
+    xk = ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on)
+    assert kernels.launches["pcg"] == before + 1
+    xp = ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on, plain=True)
+    assert bool(torch.isfinite(xk).all()) and _close(xk, xp, 1e-2)
+    assert torch.equal(xk, ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, on))
+    ks = ws._kernel_system(s, sysm)
+    assert torch.equal(xk, kernels.pcg(ks, minv, dp.jtr, 12, 1e-3, on, used=used, stride=stride, shared_p=False))
+    assert not bool(ws.pcg(s, sysm, minv, dp.jtr, 12, 1e-3, ~on).any())
 
 
 def test_dense_pcg_kernel(dev, nr_model):
@@ -1091,7 +1127,8 @@ def test_distributed_pcg_and_shard_gram_kernels(dev, nr_model):
     pv = torch.randn(6 * n, generator=torch.Generator().manual_seed(0)).to(dev)
     sys0 = ws.System(dts[0].rows, et, torch.ones(6 * n, device=dev))
     for sk, dt in zip(shards, dts):
-        got = kernels.data_matvec(dt.rows, sk.knn_idx, sk.pts_by_node.order, sk.pts_by_node.off, pv)
+        got = kernels.data_matvec(dt.rows, sk.knn_idx32, sk.pts_by_node.order, sk.pts_by_node.off,
+                                  ws.heavy_order(sk.pts_by_node), pv)
         ref = ws.data_matvec_plain(sk, sys0._replace(rows=dt.rows), pv).reshape(-1)
         assert _close(got, ref, 1e-3)
         assert torch.equal(got, ws.data_matvec_ordered(sk, sys0._replace(rows=dt.rows), pv).reshape(-1))

@@ -7,6 +7,7 @@ made with numpy from a seed and handed to both packages.
 """
 
 import ast
+import contextlib
 import dataclasses
 import pathlib
 
@@ -341,8 +342,8 @@ WRAPPER_CALLS = {
         _factored_system(), torch.zeros((8, 6, 6)), torch.zeros(48), 12, 1e-3, torch.ones((), dtype=torch.bool),
     ),
     "data_matvec": lambda: kernels.data_matvec(
-        torch.zeros((4, 1, 8, 6), dtype=torch.bfloat16), torch.zeros((4, 8), dtype=torch.int64),
-        torch.zeros(32, dtype=torch.int32), torch.zeros(9, dtype=torch.int32), torch.zeros(48),
+        torch.zeros((4, 1, 8, 6), dtype=torch.bfloat16), torch.zeros((4, 8), dtype=torch.int32),
+        torch.zeros(32, dtype=torch.int32), torch.zeros(9, dtype=torch.int32), torch.arange(8), torch.zeros(48),
     ),
     "pcg_init": lambda: kernels.pcg_sharded_init(
         torch.zeros((8, 6, 6)), torch.zeros(48), 12, 1e-3, torch.ones((), dtype=torch.bool),
@@ -398,9 +399,9 @@ WRAPPER_CALLS = {
         torch.zeros(9, dtype=torch.int32),
     ),
     "dense_gram": lambda: kernels.dense_gram(
-        torch.zeros((4, 1, 8, 6), dtype=torch.bfloat16), torch.zeros((4, 8), dtype=torch.int64),
+        torch.zeros((4, 1, 8, 6), dtype=torch.bfloat16), torch.zeros((4, 8), dtype=torch.int32),
         torch.zeros(32, dtype=torch.int32), torch.zeros(9, dtype=torch.int32), torch.zeros((32, 6, 6)),
-        torch.zeros((8, 6, 6)), torch.zeros(32, dtype=torch.int64), torch.zeros(32, dtype=torch.int32),
+        torch.zeros((8, 6, 6)), torch.zeros(32, dtype=torch.int32), torch.zeros(32, dtype=torch.int32),
         torch.zeros(9, dtype=torch.int32), True,
     ),
     "dense_damp": lambda: kernels.dense_damp(
@@ -424,15 +425,21 @@ WRAPPER_CALLS = {
 }
 
 
-def _factored_system():
-    """A (P = 4, N = 8, 4 edges a node) factored system on the CPU."""
-    return kernels.FactoredSystem(
-        rows=torch.zeros((4, 1, 8, 6), dtype=torch.bfloat16), knn_idx=torch.zeros((4, 8), dtype=torch.int64),
-        pt_order=torch.zeros(32, dtype=torch.int32), pt_off=torch.zeros(9, dtype=torch.int32),
-        h_ii=torch.zeros((32, 6, 6)), h_jj=torch.zeros((32, 6, 6)), h_ij=torch.zeros((32, 6, 6)),
-        e_dst=torch.zeros(32, dtype=torch.int64),
-        e_order=torch.zeros(32, dtype=torch.int32), e_off=torch.zeros(9, dtype=torch.int32), damp=torch.zeros(48),
+def _factored_system(device="cpu", n=8, npt=4, nrows=1, **changes):
+    """A (P = npt, N = n, 4 edges a node) factored system on ``device``."""
+    kw = dict(device=device)
+    fields = dict(
+        rows=torch.zeros((npt, nrows, 8, 6), dtype=torch.bfloat16, **kw),
+        knn_idx=torch.zeros((npt, 8), dtype=torch.int32, **kw),
+        pt_order=torch.zeros(8 * npt, dtype=torch.int32, **kw), pt_off=torch.zeros(n + 1, dtype=torch.int32, **kw),
+        heavy=torch.zeros(n, dtype=torch.int64, **kw),
+        h_ii=torch.zeros((4 * n, 6, 6), **kw), h_jj=torch.zeros((4 * n, 6, 6), **kw),
+        h_ij=torch.zeros((4 * n, 6, 6), **kw), e_dst=torch.zeros(4 * n, dtype=torch.int32, **kw),
+        e_order=torch.zeros(4 * n, dtype=torch.int32, **kw), e_off=torch.zeros(n + 1, dtype=torch.int32, **kw),
+        damp=torch.zeros(6 * n, **kw),
     )
+    fields.update(changes)
+    return kernels.FactoredSystem(**fields)
 
 
 def test_every_kernel_has_a_wrapper_check():
@@ -485,10 +492,10 @@ def _gram_args(n, npt=64, nrows=1, ce=4):
     meta = dict(device="meta")
     return dict(
         rows=torch.empty((npt, nrows, 8, 6), dtype=torch.bfloat16, **meta),
-        knn_idx=torch.empty((npt, 8), dtype=torch.int64, **meta),
+        knn_idx=torch.empty((npt, 8), dtype=torch.int32, **meta),
         order=torch.empty((npt * 8,), dtype=torch.int32, **meta), off=torch.empty((n + 1,), dtype=torch.int32, **meta),
         h_ij=torch.empty((ce * n, 6, 6), **meta), diag=torch.empty((n, 6, 6), **meta),
-        e_dst=torch.empty((ce * n,), dtype=torch.int64, **meta),
+        e_dst=torch.empty((ce * n,), dtype=torch.int32, **meta),
         e_order=torch.empty((ce * n,), dtype=torch.int32, **meta),
         e_off=torch.empty((n + 1,), dtype=torch.int32, **meta),
     )
@@ -545,3 +552,94 @@ def test_dense_gram_wrapper_states_the_grid_limit(meta_lib, monkeypatch):
         kernels.dense_gram(**_gram_args(8), int8=False)
     assert [c[0] for c in meta_lib.calls] == ["df_gram_launch"]
     assert kernels.launches["dense_gram"] == 0
+
+
+# ---------------------------------------------------------------- kernel G's cluster launch, on the meta device
+
+
+def _plan_lib(meta_lib, monkeypatch, clusters=1, shared=1):
+    """The library's ``df_pcg_plan`` answering (cluster, smem, shared_p,
+    clusters the card holds); the wrappers' plan cache emptied."""
+    def plan(pcg, n, nrows, used, stride, shared_p, out):
+        meta_lib.calls.append(("df_pcg_plan", (pcg, n, nrows, used, stride, shared_p)))
+        out[0], out[1], out[2], out[3] = 16, 24 * n * shared, shared, clusters
+        return 0
+
+    monkeypatch.setattr(meta_lib, "df_pcg_plan", plan, raising=False)
+    monkeypatch.setattr(kernels, "_PLANS", {})
+
+
+@pytest.mark.parametrize("shared_p", [None, True, False])
+def test_pcg_wrapper_launches_one_cluster(meta_lib, monkeypatch, shared_p):
+    """Kernel G's PCG is one cluster launch: the wrapper hands the library
+    the planned cluster size and p's place, and counts one launch."""
+    _plan_lib(meta_lib, monkeypatch, shared=0 if shared_p is False else 1)
+    n = 2048
+    s = _factored_system("meta", n=n, npt=64, nrows=3)
+    x = kernels.pcg(s, torch.empty((n, 6, 6), device="meta"), torch.empty(6 * n, device="meta"), 12, 1e-3,
+                    torch.empty((), dtype=torch.bool, device="meta"), used=3, stride=4, shared_p=shared_p)
+    assert x.shape == (6 * n,)
+    assert [c[0] for c in meta_lib.calls] == ["df_pcg_plan", "df_pcg"]
+    assert meta_lib.calls[0][1] == (1, n, 3, 3, 4, -1 if shared_p is None else int(shared_p))
+    call = meta_lib.calls[1][1]
+    # (.., np, n, kc, nrows, used, stride, shared_p, minv, b, iters, ...): the cluster's size is the library's
+    assert call[12:19] == (64, n, 4, 3, 3, 4, 0 if shared_p is False else 1)
+    assert kernels.launches["pcg"] == 1
+    # the plan is asked once a shape
+    kernels.pcg(s, torch.empty((n, 6, 6), device="meta"), torch.empty(6 * n, device="meta"), 12, 1e-3,
+                torch.empty((), dtype=torch.bool, device="meta"), used=3, stride=4, shared_p=shared_p)
+    assert [c[0] for c in meta_lib.calls] == ["df_pcg_plan", "df_pcg", "df_pcg"]
+
+
+def test_pcg_wrapper_refuses_an_unschedulable_cluster(meta_lib, monkeypatch):
+    """Where the card holds no such cluster the wrapper raises: there is no
+    one-block or plain route behind it."""
+    _plan_lib(meta_lib, monkeypatch, clusters=0)
+    s = _factored_system("meta")
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        kernels.matvec(s, torch.empty(48, device="meta"))
+    assert [c[0] for c in meta_lib.calls] == ["df_pcg_plan"]
+    assert kernels.launches["matvec"] == 0
+
+
+@pytest.mark.parametrize("field,dtype", [("knn_idx", torch.int64), ("e_dst", torch.int64), ("heavy", torch.int32)])
+def test_factored_wrappers_take_the_prepared_types(meta_lib, monkeypatch, field, dtype):
+    """The int32 ids and the int64 heavy-first order are built once a solve
+    structure: a wrapper refuses the other type instead of converting."""
+    _plan_lib(meta_lib, monkeypatch)
+    good = _factored_system("meta")
+    s = good._replace(**{field: getattr(good, field).to(dtype)})
+    with pytest.raises(TypeError, match=field):
+        kernels.matvec(s, torch.empty(48, device="meta"))
+    assert meta_lib.calls == []
+
+
+@pytest.mark.parametrize("field", ["knn_idx", "e_dst"])
+def test_dense_gram_wrapper_takes_the_prepared_types(meta_lib, field):
+    """Kernel N reads the int32 ids a solve structure carries: the wrapper
+    refuses int64 ids instead of converting them on every call."""
+    args = _gram_args(8)
+    args[field] = args[field].to(torch.int64)
+    with pytest.raises(TypeError, match=field):
+        kernels.dense_gram(**args, int8=False)
+    assert meta_lib.calls == []
+    assert kernels.launches["dense_gram"] == 0
+
+
+def test_cluster_plan_is_asked_once_a_device(meta_lib, monkeypatch):
+    """Kernel G's cluster attributes and occupancy belong to a device: the
+    plan is asked with that device current, once a (device, shape)."""
+    _plan_lib(meta_lib, monkeypatch)
+    current = []
+
+    @contextlib.contextmanager
+    def on(dev):
+        current.append(dev)
+        yield
+
+    monkeypatch.setattr(kernels, "_on", on)
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1), torch.device("cuda", 0)]
+    plans = [kernels.cluster_plan(True, 64, 1, device=d) for d in devs]
+    assert plans[0] == plans[2] and plans[0].cluster == 16
+    assert [c[0] for c in meta_lib.calls] == ["df_pcg_plan", "df_pcg_plan"]
+    assert current == devs[:2]
