@@ -62,7 +62,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    x = 0, and the library route (``library_pcg_factored``: cuSPARSE CSR
    products) within the hold's tolerance; it prints the cluster, one
    iteration's time and how far a PCG with bf16 vectors lands (a control
-   the tolerance must tell apart);
+   the tolerance must tell apart); kernel F in every mode (and at 2048
+   seeded skewed nodes) bit for bit against its order
+   (``hold_data_order``: Jᵀr and blocks against
+   ``warp_solver.data_sums_ordered`` of the kernel's own Jacobian, the
+   cost against ``sum_ordered``, the bf16 rows against ``bf16_rows``);
+   kernel E at the coarse corners, the solve points, the nodes (k = 5)
+   and the demo's mesh (``knn_row``): against its plain version, bit for
+   bit against the one-thread-a-query kernel (``lanes=0``), its library
+   route (``library_knn``) held to its neighbour lists; E's rows count the
+   launches of their kind of call (``kernels.knn_kinds``);
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -332,8 +341,10 @@ RIGID_KERNELS = ("bilateral", "icp_reduce", "raycast", "fuse_bricks")
 # the kernels of the per-frame stencils and the brick plan (I-K): both paths run them
 STENCIL_KERNELS = ("depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "brick_plan")
 # (source, the TPU kernel-role function it replaces) of each JSON row; a
-# row's launches are its counter's (the row name, but for the rows below)
-# on the rigid path for A-D and on the preset's path for the rest
+# row's launches are its counter's (the row name, but for the rows below;
+# kernel E's rows count the launches of their kind of call,
+# ``knn_counted``) on the rigid path for A-D and on the preset's path for
+# the rest
 ROWS = {
     "bilateral": ("bilateral.cu", "dynamicfusion_tpu/ops/preprocess.py:43"),
     "icp_reduce": ("icp_reduce.cu", "dynamicfusion_tpu/solvers/icp.py:38"),
@@ -394,6 +405,8 @@ ROWS = {
     "icp_reduce_depth": ("icp_reduce.cu", "dynamicfusion_tpu/solvers/icp.py:188"),
     "extract_normals": ("normals.cu", "dynamicfusion_tpu/ops/tsdf.py:724"),
     "knn_blend_mesh": ("knn_blend.cu", "dynamicfusion_tpu/models/warpfield.py:233"),
+    "knn_blend_points": ("knn_blend.cu", "dynamicfusion_tpu/solvers/warp_solver.py:268"),
+    "knn_blend_nodes": ("knn_blend.cu", "dynamicfusion_tpu/solvers/warp_solver.py:170"),
 }
 COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", "data_term_tangential": "data_term",
            "pcg_tangential": "pcg", "raycast_coarse": "raycast", "raycast_full_res": "raycast",
@@ -401,7 +414,8 @@ COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", 
            "dense_gram_bf16": "dense_gram", "insert_select_full_res": "insert_select",
            "node_radius_insert": "node_radius", "data_term_strided": "data_term", "pcg_strided": "pcg",
            "pcg_lagged": "pcg", "points_normals_depth": "points_normals", "icp_reduce_depth": "icp_reduce",
-           "knn_blend_mesh": "knn_blend",
+           "knn_blend": "knn_blend[k8 blend warp]", "knn_blend_points": "knn_blend[k8]",
+           "knn_blend_nodes": "knn_blend[k5]", "knn_blend_mesh": "knn_blend[k8 warp normals]",
            **{k: "raycast" for k in ("raycast_newton16", "raycast_hybrid16", "raycast_grad6_coarse",
                                      "raycast_full_res_grad6_secant", "raycast_grad6_newton8",
                                      "raycast_grad6_newton16", "raycast_grad6_hybrid16")}}
@@ -522,6 +536,192 @@ def rel_err(torch, a, b) -> float:
 
 def abs_err(torch, a, b) -> float:
     return float(torch.nan_to_num((a.float() - b.float()).abs(), nan=0.0).max())
+
+
+def same_bits(torch, a, b) -> bool:
+    """a and b alike in shape, type and every bit (NaNs by their bits)."""
+    if a is None or b is None:
+        return a is None and b is None
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a if view is None else a.view(view), b if view is None else b.view(view))
+
+
+def hold_data_order(torch, name, cfg, s, dq, row_stride=1, what=""):
+    """Kernel F bit for bit against its order (with and without the system):
+    Jᵀr and the diagonal blocks against ``warp_solver.data_sums_ordered`` of
+    the kernel's own float32 Jacobian and residuals in the library's node
+    lanes, the cost against ``warp_solver.sum_ordered`` of its per-point
+    costs (the order of the one-block sum the node pass's cost block
+    replaced), the bf16 rows against ``bf16_rows`` of its Jacobian."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    point_lanes, lanes = kernels.data_term_lanes()
+    parts = {}
+    for system in (True, False):
+        jtr, cost, rows, blocks, jac, rw, rho = kernels.data_term(
+            s.p_can, s.p_live, s.n_live, s.valid, s.knn_idx, s.w_knn, dq, s.pts_by_node.order, s.pts_by_node.off,
+            cfg.solver_tukey_c, system, s.t1, s.t2, s.p2p_sw, point=not cfg.point_to_plane, row_stride=row_stride,
+            internals=True)
+        ojtr, oblocks = ws.data_sums_ordered(jac, rw, s.pts_by_node, lanes)
+        tag = "system" if system else "no system"
+        parts[f"jtr ({tag})"] = same_bits(torch, jtr, ojtr)
+        parts[f"cost ({tag})"] = same_bits(torch, cost, ws.sum_ordered(rho))
+        if system:
+            parts["blocks"] = same_bits(torch, blocks, oblocks)
+            parts["bf16 rows"] = same_bits(torch, rows, ws.bf16_rows(jac, row_stride))
+    emax, emean, _ = entry_counts(torch, s.pts_by_node.off)
+    check(name, all(parts.values()),
+          f"{s.p_can.shape[0]} points x {jac.shape[1]} rows{what}, {point_lanes} lanes a point, {lanes} lanes a node "
+          f"(entries a node max {emax}, mean {emean:.1f}): bit for bit against data_sums_ordered / sum_ordered / "
+          f"bf16_rows {parts}")
+
+
+def library_knn(torch, field, q, k, blend=False, warp=False, normals=None, margin=8):
+    """Kernel E's function in PyTorch calls (its library column; the port
+    never calls it): the squared distances as one ``torch.addmm`` of the
+    expansion (|q|^2 + |n|^2 + the inactive offset - 2 q nᵀ) and the
+    k + ``margin`` nearest by ``torch.topk(largest=False)``; those
+    candidates re-scored by the kernel's expression ((|q|^2 - 2 q.n) +
+    |n|^2) + offset and the k best taken under (distance, index) by a
+    stable sort (the addmm's rounding alone decides near-ties otherwise: it
+    parted from the kernel on 2.75e-3 of the coarse corners); then the
+    plain weights, quality, blend and warp."""
+    from dynamicfusion_tpu_torch.core import dualquat
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    qn = torch.nan_to_num(q)
+    pos = field.positions
+    big = torch.where(field.active, 0.0, 1e9)
+    d = torch.addmm((qn * qn).sum(1, keepdim=True) + ((pos * pos).sum(1) + big), qn, pos.T, alpha=-2.0)
+    cand = torch.sort(torch.topk(d, k + margin, dim=1, largest=False, sorted=False).indices, dim=1).values
+    c = pos[cand]
+    qq = (qn[:, 0] * qn[:, 0] + qn[:, 1] * qn[:, 1]) + qn[:, 2] * qn[:, 2]
+    cn = (c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]) + c[..., 2] * c[..., 2]
+    dot = (qn[:, None, 0] * c[..., 0] + qn[:, None, 1] * c[..., 1]) + qn[:, None, 2] * c[..., 2]
+    dc = ((qq[:, None] - 2.0 * dot) + cn) + big[cand]
+    d2, order = torch.sort(dc, dim=1, stable=True)
+    idx = torch.gather(cand, 1, order[:, :k])
+    d2 = d2[:, :k].clamp(min=0.0)
+    w = warpfield.weights_from_dist2(field.radius, d2, idx)
+    b = dualquat.blend(w, field.dq[idx]) if blend or warp else None
+    wp, wn = warpfield._warp_with(b, q, normals) if warp else (None, None)
+    return d2, idx, w, b, warpfield.quality(w) if blend else None, wp, wn
+
+
+def knn_row(torch, report, name, field, q, k, what, blend=False, warp=False, normals=None):
+    """Kernel E at one shape: held against its plain version (neighbour
+    lists within TOL_KNN_IDX_FRAC, distances, weights, blend, quality,
+    warped points and normals), bit for bit against the one-thread-a-query
+    kernel (``lanes=0``), its library route (``library_knn``) held to its
+    neighbour lists within TOL_KNN_IDX_FRAC; the kernel, the serial kernel,
+    the plain version and the library route timed."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    nq, n = q.shape[0], field.positions.shape[0]
+    kw = dict(blend=blend, warp=warp, normals=normals)
+    args = (field.positions, field.active, field.radius, field.dq, q, k)
+    kb = warpfield.knn_blend(field, q, k, **kw)
+    pb = warpfield.knn_blend(field, q, k, plain=True, **kw)
+    same = (kb.idx == pb.idx).all(dim=1)
+    idx_frac = float((~same).float().mean())
+    err = max(abs_err(torch, a[same], b[same]) for a, b in zip(kb[2:], pb[2:]) if a is not None)
+    d2err = abs_err(torch, kb.d2, pb.d2)
+    check(name, idx_frac <= TOL_KNN_IDX_FRAC and err <= TOL_FIELD and d2err <= TOL_D2,
+          f"{nq} {what} x {n} nodes, k = {k}: neighbour lists differ on {idx_frac:.2e} (tol {TOL_KNN_IDX_FRAC}), "
+          f"max d2 diff {d2err:.2e} (tol {TOL_D2}), max weight/blend/quality/point/normal diff {err:.2e} "
+          f"(tol {TOL_FIELD})")
+    serial = kernels.knn_blend(*args, **kw, lanes=0)
+    split_same = {f: same_bits(torch, a, b) for f, a, b in zip(kb._fields, kb, serial)}
+    check(f"{name}_split", all(split_same.values()),
+          f"the split scan ({kernels.knn_lanes(nq)} lanes a query) against the one-thread-a-query kernel, bit for bit: "
+          f"{split_same}")
+    lib = library_knn(torch, field, q, k, **kw)
+    lib_frac = float((lib[1] != kb.idx).any(dim=1).float().mean())
+    check(f"{name}_library", lib_frac <= TOL_KNN_IDX_FRAC,
+          f"library route (addmm, topk, re-scored): neighbour lists differ from the kernel's on {lib_frac:.2e} of the "
+          f"queries "
+          f"(tol {TOL_KNN_IDX_FRAC})")
+    # the nodes (positions, active, radius; the transforms where blended)
+    # and the queries (and normals) in; d2, idx, w, blend, quality and the
+    # warped queries (and normals) out; ~10 operations a (query, node) pair
+    # for the expansion and the compare, ~250 a neighbour for the blend
+    moved = blend or warp
+    nbytes = (n * (12 + 1 + 4 + (32 if moved else 0)) + nq * (12 + (12 if normals is not None else 0))
+              + nq * (k * 16 + (36 if blend else 0) + (12 if warp else 0) + (12 if normals is not None else 0)))
+    report[name] = dict(
+        err=max(err, d2err),
+        ms=cuda_ms(torch, lambda: kernels.knn_blend(*args, **kw)),
+        serial_ms=cuda_ms(torch, lambda: kernels.knn_blend(*args, **kw, lanes=0)),
+        plain_ms=cuda_ms(torch, lambda: warpfield.knn_blend(field, q, k, plain=True, **kw), reps=3),
+        bound=bound_ms(nbytes, nq * n * 10.0 + (nq * k * 250.0 if moved else 0.0)),
+        library_ms=cuda_ms(torch, lambda: library_knn(torch, field, q, k, **kw)),
+    )
+    r = report[name]
+    print(f"[time] {smi()} | E {name} ({nq} {what}, k = {k}): {r['ms']:.4f} ms ({kernels.knn_lanes(nq)} lanes a query), "
+          f"one thread a query {r['serial_ms']:.4f} ms, library {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+          f"ms; bound {r['bound'][0]:.5f} ms ({r['bound'][1]})", flush=True)
+
+
+def skewed_data_structure(torch, dev, n, npt, nrows, seed):
+    """Kernel F's inputs at ``n`` nodes on ``skewed_gram_inputs``' neighbour
+    lists (node 0 in 60% of the points): nodes in a 1 m cube with small
+    seeded transforms, each point beside its first neighbour, its live
+    position ~1 cm away, a seeded unit normal, weights in [0.1, 1], 5% of
+    the points invalid; one row (the preset), or three with the tangent
+    basis and sqrt(0.25) as the tangential weight (the quality preset).
+    Returns (config, structure, node transforms)."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.core import dualquat
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = DynamicFusionConfig.default_dynamicfusion() if nrows == 1 else DynamicFusionConfig.quality_dynamicfusion()
+    g = skewed_gram_inputs(torch, dev, n, npt, nrows, seed)
+    rng = np.random.default_rng(seed + 100)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    dq = dualquat.from_twist(f32(rng.standard_normal((n, 3)) * 0.01),
+                             f32(rng.standard_normal((n, 3)) * 0.002)).contiguous()
+    pos = rng.uniform(-0.5, 0.5, (n, 3))
+    p_can = pos[g.knn[:, 0].cpu().numpy()] + rng.normal(0.0, 0.01, (npt, 3))
+    nrm = rng.standard_normal((npt, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    n_live = f32(nrm)
+    t1 = t2 = sw = None
+    if nrows == 3:
+        t1, t2 = (a.contiguous() for a in ws.tangent_basis(n_live))
+        sw = torch.full((npt,), float(np.sqrt(0.25)), device=dev)
+    s = ws.SolveStructure(
+        p_can=f32(p_can), p_live=f32(p_can + rng.normal(0.0, 0.01, (npt, 3))), n_live=n_live,
+        valid=torch.from_numpy(rng.random(npt) < 0.95).to(dev), knn_idx=g.knn,
+        w_knn=f32(rng.uniform(0.1, 1.0, (npt, 8))), e_src=None, e_dst=None, e_valid=None, v_dst=None, alpha=None,
+        pts_by_node=g.lists, edges_by_dst=None, t1=t1, t2=t2, p2p_sw=sw)
+    return cfg, s, dq
+
+
+def data_2048(torch, dev, n=2048, npt=6400):
+    """Phase 2 for kernel F at 2048 nodes on ``skewed_data_structure`` (node
+    0 in 60% of 6 400 points), one row and three: held bit for bit against
+    its order (``hold_data_order``) and within TOL_DATA_REL against the
+    plain version, and timed."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    for nrows in (1, 3):
+        cfg, s, dq = skewed_data_structure(torch, dev, n, npt, nrows, seed=30 + nrows)
+        hold_data_order(torch, f"data_term_2048_r{nrows}_order", cfg, s, dq, what=f", {n} skewed nodes")
+        dk = ws.data_term(cfg, s, dq, True)
+        with deterministic(torch):
+            dp = ws.data_term(cfg, s, dq, True, plain=True)
+        errs = [rel_err(torch, dk.jtr, dp.jtr), rel_err(torch, dk.blocks, dp.blocks), rel_err(torch, dk.cost, dp.cost)]
+        check(f"data_term_2048_r{nrows}", max(errs) <= TOL_DATA_REL,
+              f"{n} nodes, {npt} x {nrows} rows: relative diff Jᵀr {errs[0]:.2e}, blocks {errs[1]:.2e}, cost "
+              f"{errs[2]:.2e} (tol {TOL_DATA_REL})")
+        ms = cuda_ms(torch, lambda: ws.data_term(cfg, s, dq, True))
+        print(f"[time] {smi()} | F at {n} skewed nodes, {npt} x {nrows} rows: {ms:.4f} ms", flush=True)
 
 
 def rigid_kernels(torch, args, report, dev, card):
@@ -719,29 +919,8 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
 
     # E: KNN + DQB blend + warp at the coarse corners (the shared coarse field)
     q = fusion.coarse_corner_points(cfg, dev)
-    nq = q.shape[0]
     k8 = cfg.knn_k
-    kb = warpfield.knn_blend(field, q, k8, blend=True, warp=True)
-    pb = warpfield.knn_blend(field, q, k8, blend=True, warp=True, plain=True)
-    same = (kb.idx == pb.idx).all(dim=1)
-    idx_frac = float((~same).float().mean())
-    err = max(abs_err(torch, a[same], b[same]) for a, b in
-              ((kb.w, pb.w), (kb.blend, pb.blend), (kb.quality, pb.quality), (kb.points, pb.points)))
-    d2err = abs_err(torch, kb.d2, pb.d2)
-    check("knn_blend", idx_frac <= TOL_KNN_IDX_FRAC and err <= TOL_FIELD and d2err <= TOL_D2,
-          f"{nq} corners x {n} nodes: neighbour lists differ on {idx_frac:.2e} (tol {TOL_KNN_IDX_FRAC}), "
-          f"max d2 diff {d2err:.2e} (tol {TOL_D2}), max weight/blend/quality/point diff {err:.2e} (tol {TOL_FIELD})")
-    node_b = n * (12 + 1 + 4 + 32)
-    report["knn_blend"] = dict(
-        err=max(err, d2err),
-        ms=cuda_ms(torch, lambda: kernels.knn_blend(field.positions, field.active, field.radius, field.dq, q, k8,
-                                                     blend=True, warp=True)),
-        plain_ms=cuda_ms(torch, lambda: warpfield.knn_blend(field, q, k8, blend=True, warp=True, plain=True), reps=3),
-        # nodes and queries in; d2, idx, w, blend, quality, warped point out;
-        # ~10 operations a (query, node) pair for the expansion and the compare
-        bound=bound_ms(node_b + nq * 12 + nq * (k8 * 16 + 32 + 4 + 12), nq * n * 10.0 + nq * k8 * 250.0),
-        library_ms=None,
-    )
+    knn_row(torch, report, "knn_blend", field, q, k8, "corners", blend=True, warp=True)
 
     # E: the mutual-nearest distances of node insertion
     ins = cfg.node_insert_stride
@@ -785,6 +964,10 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     # F: the data term with the system (rows, blocks) at the solve points
     s = ws.prepare(cfg, field, inputs)
     npt = s.p_can.shape[0]
+    # E at the solve points (prepare's KNN) and at the nodes (build_edges' k = 5)
+    knn_row(torch, report, "knn_blend_points", field, s.p_can, k8, "solve points")
+    knn_row(torch, report, "knn_blend_nodes", field, field.positions, 5, "nodes")
+    hold_data_order(torch, "data_term_order", cfg, s, field.dq)
     dk = ws.data_term(cfg, s, field.dq, True)
     with deterministic(torch):  # the PCG below is held on this system: the same one every run
         dp = ws.data_term(cfg, s, field.dq, True, plain=True)
@@ -1102,6 +1285,7 @@ def tangential_kernels(torch, report, dev, field, inputs):
     n = field.positions.shape[0]
     s = ws.prepare(cfg, field, inputs)
     npt = s.p_can.shape[0]
+    hold_data_order(torch, "data_term_tangential_order", cfg, s, field.dq)
     dk = ws.data_term(cfg, s, field.dq, True)
     with deterministic(torch):  # the PCG below is held on this system: the same one every run
         dp = ws.data_term(cfg, s, field.dq, True, plain=True)
@@ -1256,6 +1440,7 @@ def option_kernels(torch, report, dev, nr_depths, field, inputs):
         s = ws.prepare(mcfg, field, inputs)
         npt = s.p_can.shape[0]
         lists_b = (npt * 8 + n + 1) * 4
+        hold_data_order(torch, f"data_term_{tag}_order", mcfg, s, field.dq, row_stride=stride)
         dk_ = ws.data_term(mcfg, s, field.dq, True, row_stride=stride)
         with deterministic(torch):  # the PCG below is held on this system: the same one every run
             dp_ = ws.data_term(mcfg, s, field.dq, True, plain=True, row_stride=stride)
@@ -2099,6 +2284,12 @@ def clone_state(st):
     return st._replace(vol=TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone()))
 
 
+def knn_counted(kernels):
+    """The launch counters, with kernel E's split by what its calls ask for
+    (``kernels.knn_kinds``) as "knn_blend[kind]"."""
+    return {**kernels.launches, **{f"knn_blend[{k}]": v for k, v in kernels.knn_kinds.items()}}
+
+
 def drive_kernel_path(torch, cfg, dev, frames):
     """The kernel path over ``frames`` through ``DynamicFusion``: every
     launch counter reset just before and read just after, the steady
@@ -2125,7 +2316,7 @@ def drive_kernel_path(torch, cfg, dev, frames):
             outs.append(df.last_outputs)
         # the state after this frame, for the plain step from it
         states.append(clone_state(df.state))
-    launches = dict(kernels.launches)
+    launches = knn_counted(kernels)
     rows = [dict(ok=bool(o.icp_ok), c0=float(o.solver_cost0), c1=float(o.solver_cost1), nodes=int(o.node_count),
                  bricks=o.brick_counts.tolist()) for o in outs]
     return df, launches, rows, frame_ms, states
@@ -2805,6 +2996,7 @@ def dense_kernels(torch, report, dev, nr_depths):
     # F with the point-to-point rows (point_to_plane=False)
     cfg_p = dataclasses.replace(cfg, point_to_plane=False)
     sp = ws.prepare(cfg_p, field, tr.inputs)
+    hold_data_order(torch, "data_term_p2p_order", cfg_p, sp, field.dq)
     dk = ws.data_term(cfg_p, sp, field.dq, True)
     dp = ws.data_term(cfg_p, sp, field.dq, True, plain=True)
     errs = [rel_err(torch, dk.jtr, dp.jtr), rel_err(torch, dk.blocks, dp.blocks), rel_err(torch, dk.cost, dp.cost)]
@@ -3332,7 +3524,7 @@ def demo_main(torch, args, report, dev, card, path_kernels):
         res = demo.main(["--synthetic", str(args.demo_frames), "--out", out, "--device", str(dev)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(kernels.launches)
+        launches = knn_counted(kernels)
         df, timer, meshes = res["df"], res["timer"], res["meshes"]
         print(f"[demo] {args.demo_frames} frames of synthetic:{args.demo_frames} at {cfg.cols}x{cfg.rows} / "
               f"{cfg.volume_dims}^3 / {cfg.max_nodes} nodes in {wall:.1f} s; launches {launches}", flush=True)
@@ -3386,29 +3578,7 @@ def demo_main(torch, args, report, dev, card, path_kernels):
         field = df.state.warp
         mv = torch.from_numpy(mesh.vertices).to(dev)
         mn = torch.from_numpy(mesh.normals).to(dev)
-        k8 = cfg.knn_k
-        kb = warpfield.knn_blend(field, mv, k8, warp=True, normals=mn)
-        pb = warpfield.knn_blend(field, mv, k8, warp=True, normals=mn, plain=True)
-        same_idx = (kb.idx == pb.idx).all(dim=1)
-        idx_frac = float((~same_idx).float().mean())
-        err = max(abs_err(torch, a[same_idx], b[same_idx]) for a, b in ((kb.points, pb.points), (kb.normals, pb.normals),
-                                                                         (kb.w, pb.w)))
-        d2err = abs_err(torch, kb.d2, pb.d2)
-        nq, n = mv.shape[0], field.positions.shape[0]
-        check("knn_blend_mesh", idx_frac <= TOL_KNN_IDX_FRAC and err <= TOL_FIELD and d2err <= TOL_D2,
-              f"{nq} mesh vertices x {n} nodes: neighbour lists differ on {idx_frac:.2e} (tol {TOL_KNN_IDX_FRAC}), "
-              f"max d2 diff {d2err:.2e} (tol {TOL_D2}), max warped point/normal/weight diff {err:.2e} (tol {TOL_FIELD})")
-        report["knn_blend_mesh"] = dict(
-            err=max(err, d2err),
-            ms=cuda_ms(torch, lambda: kernels.knn_blend(field.positions, field.active, field.radius, field.dq, mv, k8,
-                                                         warp=True, normals=mn)),
-            plain_ms=cuda_ms(torch, lambda: warpfield.knn_blend(field, mv, k8, warp=True, normals=mn, plain=True),
-                             reps=3),
-            # nodes, vertices and normals in; d2, idx, w and the warped
-            # vertices and normals out; ~10 operations a (vertex, node) pair
-            bound=bound_ms(n * 49 + nq * 24 + nq * (k8 * 16 + 24), nq * n * 10.0 + nq * k8 * 250.0),
-            library_ms=None,
-        )
+        knn_row(torch, report, "knn_blend_mesh", field, mv, cfg.knn_k, "mesh vertices", warp=True, normals=mn)
 
         # the checkpoint: into a fresh DynamicFusion, then one more step from both
         t0 = time.perf_counter()
@@ -4901,6 +5071,7 @@ def main() -> int:
     dense_kernels(torch, report, dev, nr_depths)
     gram_2048(torch, dev)
     pcg_2048(torch, dev)
+    data_2048(torch, dev)
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---------------- 3. the rigid main path ----------------
@@ -4960,7 +5131,7 @@ def main() -> int:
     print(f"[phase] depth-variant ICP done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---------------- 16. the demo: export, checkpoint, the live mesh ----------------
-    demo_launches = demo_main(torch, args, report, dev, card, tuple(k for k, v in nr_launches.items() if v))
+    demo_launches = demo_main(torch, args, report, dev, card, tuple(k for k in kernels.KERNELS if nr_launches[k]))
     print(f"[phase] demo done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---------------- 17. the sharded preset over make_mesh(4) on the card ----------------
@@ -5008,7 +5179,7 @@ def main() -> int:
             name=name, route="cuda", source=src if "/" in src else f"dynamicfusion_tpu_torch/csrc/{src}", replaces=rep,
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"], path=path,
-            **{k: r[k] for k in ("iterations", "iteration_ms", "cluster") if k in r},
+            **{k: r[k] for k in ("iterations", "iteration_ms", "cluster", "serial_ms") if k in r},
         ))
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {card} | {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "

@@ -17,14 +17,31 @@
 // flops, ~5 us at the float32 peak, while its bytes (queries in, 8 neighbours
 // and a blend out) are ~2 MB. The node set (16 B a node) stays in shared
 // memory.
-// Design: one thread per query; the block stages the node positions,
-// their |n|^2 and the inactive offset in shared memory tile by tile, and
-// each thread keeps its K best (distance, index) pairs sorted in registers
-// (ascending distance, ties to the lower index: lax.top_k's order). The
-// squared distance is the JAX package's expansion (|q|^2 - 2 q.n) + |n|^2
-// (+1e9 for inactive nodes), clamped at 0 after the selection. The blend,
-// the sign pivot (first neighbour) and the transform follow dq.cuh, which
-// mirrors the plain PyTorch version.
+// Design: a query's scan is split over S lanes (kernels.knn_lanes picks S
+// from the query count: 16 for the solve points and the nodes, 2 for the
+// coarse corners, 1 for a mesh's vertices; a few queries need more lanes
+// to fill the card, many need fewer to keep the insertions rare): the
+// block stages the nodes as one float4 each, (x, y, z, |n|^2) with an
+// inactive node's |n|^2 stored negated, in shared memory tile by tile;
+// lane s tests the staged nodes s, s + S, ... four at a time and keeps its
+// K best (distance, index) pairs sorted in registers, a candidate waiting
+// in a small buffer until its warp inserts the buffers together; K rounds
+// of a shuffle butterfly then merge the S lists under the one total order
+// that the selection has (ascending distance, ties to the lower index:
+// lax.top_k's order), which does not depend on how the nodes are split.
+// The squared distance is the JAX package's expansion (|q|^2 - 2 q.n) +
+// |n|^2 (+1e9 for inactive nodes) with the same operands in every lane,
+// clamped at 0 after the selection, so the neighbours, their distances
+// and all that follows equal the one-thread-a-query scan's bit for bit
+// (knn_serial_kernel, the design before the split, kept for that hold and
+// for timing; no caller of the port asks for it). Lane 0 of each query
+// then computes the weights, the blend, the sign pivot (first neighbour)
+// and the transform as dq.cuh does, which mirrors the plain PyTorch
+// version. With one thread a query the preset's 3 200 solve points gave 25
+// blocks, each thread walking all 1 024 nodes; at 16 lanes a query each
+// lane walks 64. The time of the large calls (the 35 937 coarse corners, a
+// mesh's ~270 000 vertices) is the brute-force scan itself: a
+// spatial grid that skips far nodes is the next step.
 // _adaptive_radius (warpfield.py:78, the per-node radius of
 // node_radius_adaptive) is one thread per query too: the expansion against
 // the staged reference nodes with its three-term sums as the JAX package's
@@ -61,53 +78,45 @@ __device__ __forceinline__ void stage_nodes(const float* __restrict__ pos, const
   }
 }
 
+// the nodes of a tile as (x, y, z, |n|^2), an inactive node's |n|^2 stored
+// negated (-|n|^2, -0 for a node at the origin): its sign says to add the
+// 1e9 offset, so that a node is one 16-byte load
+__device__ __forceinline__ void stage_packed(const float* __restrict__ pos, const bool* __restrict__ active, int n,
+                                             int base, float4* sp) {
+  for (int j = threadIdx.x; j < kTile && base + j < n; j += blockDim.x) {
+    const float px = pos[3 * (base + j)], py = pos[3 * (base + j) + 1], pz = pos[3 * (base + j) + 2];
+    const float nn = (px * px + py * py) + pz * pz;
+    sp[j] = make_float4(px, py, pz, active[base + j] ? nn : -nn);
+  }
+}
+
+// insert (cd, ci) into the ascending list (bd, bi) under (distance, index)
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-knn_blend_kernel(const float* __restrict__ pos, const bool* __restrict__ active,
-                 const float* __restrict__ radius, const float* __restrict__ dq, int n,
-                 const float* __restrict__ queries, const float* __restrict__ normals, int nq,
-                 float* __restrict__ d2_out, int64_t* __restrict__ idx_out, float* __restrict__ w_out,
-                 float* __restrict__ blend_out, float* __restrict__ qual_out,
-                 float* __restrict__ pts_out, float* __restrict__ nrm_out) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile], snn[kTile], sbig[kTile];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < nq;
-  const float qx = live ? dfk::nan_to_num(queries[3 * i]) : 0.0f;
-  const float qy = live ? dfk::nan_to_num(queries[3 * i + 1]) : 0.0f;
-  const float qz = live ? dfk::nan_to_num(queries[3 * i + 2]) : 0.0f;
-  const float qq = (qx * qx + qy * qy) + qz * qz;
-  float bd[K];
-  int bi[K];
+__device__ __forceinline__ void insert_sorted(float (&bd)[K], int (&bi)[K], float cd, int ci) {
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    bd[s] = INFINITY;
-    bi[s] = 0x7fffffff;
-  }
-  for (int base = 0; base < n; base += kTile) {
-    __syncthreads();
-    stage_nodes(pos, active, n, base, sx, sy, sz, snn, sbig);
-    __syncthreads();
-    if (!live) continue;
-    const int m = min(kTile, n - base);
-    for (int j = 0; j < m; ++j) {
-      const float qn = (qx * sx[j] + qy * sy[j]) + qz * sz[j];
-      float cd = ((qq - 2.0f * qn) + snn[j]) + sbig[j];
-      if (!(cd < bd[K - 1])) continue;
-      int ci = base + j;
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        if (cd < bd[s] || (cd == bd[s] && ci < bi[s])) {
-          const float td = bd[s];
-          const int ti = bi[s];
-          bd[s] = cd;
-          bi[s] = ci;
-          cd = td;
-          ci = ti;
-        }
-      }
+    if (cd < bd[s] || (cd == bd[s] && ci < bi[s])) {
+      const float td = bd[s];
+      const int ti = bi[s];
+      bd[s] = cd;
+      bi[s] = ci;
+      cd = td;
+      ci = ti;
     }
   }
-  if (!live) return;
+}
+
+// query i's outputs from its K nearest (squared distance, index) pairs:
+// the clamped distances, the Gaussian weights, the quality, the blend and
+// the warped query (and normal)
+template <int K>
+__device__ __forceinline__ void knn_outputs(const float (&bd)[K], const int (&bi)[K], int i, float qx, float qy,
+                                            float qz, const float* __restrict__ radius,
+                                            const float* __restrict__ dq, const float* __restrict__ queries,
+                                            const float* __restrict__ normals, float* __restrict__ d2_out,
+                                            int64_t* __restrict__ idx_out, float* __restrict__ w_out,
+                                            float* __restrict__ blend_out, float* __restrict__ qual_out,
+                                            float* __restrict__ pts_out, float* __restrict__ nrm_out) {
   float w[K];
   dfk::DualQuat nb[K];
 #pragma unroll
@@ -150,6 +159,157 @@ knn_blend_kernel(const float* __restrict__ pos, const bool* __restrict__ active,
       nrm_out[3 * i + 1] = nbad ? NAN : rn.y;
       nrm_out[3 * i + 2] = nbad ? NAN : rn.z;
     }
+  }
+}
+
+#define DF_KNN_PARAMS                                                                                       \
+  const float *__restrict__ pos, const bool *__restrict__ active, const float *__restrict__ radius,         \
+      const float *__restrict__ dq, int n, const float *__restrict__ queries,                               \
+      const float *__restrict__ normals, int nq, float *__restrict__ d2_out, int64_t *__restrict__ idx_out, \
+      float *__restrict__ w_out, float *__restrict__ blend_out, float *__restrict__ qual_out,               \
+      float *__restrict__ pts_out, float *__restrict__ nrm_out
+#define DF_KNN_OUTPUTS radius, dq, queries, normals, d2_out, idx_out, w_out, blend_out, qual_out, pts_out, nrm_out
+
+// the one-thread-a-query scan (the design before the split): the hold and
+// the timing of knn_blend_kernel call it, the port does not
+template <int K>
+__global__ void __launch_bounds__(kThreads) knn_serial_kernel(DF_KNN_PARAMS) {
+  __shared__ float sx[kTile], sy[kTile], sz[kTile], snn[kTile], sbig[kTile];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < nq;
+  const float qx = live ? dfk::nan_to_num(queries[3 * i]) : 0.0f;
+  const float qy = live ? dfk::nan_to_num(queries[3 * i + 1]) : 0.0f;
+  const float qz = live ? dfk::nan_to_num(queries[3 * i + 2]) : 0.0f;
+  const float qq = (qx * qx + qy * qy) + qz * qz;
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = INFINITY;
+    bi[s] = 0x7fffffff;
+  }
+  for (int base = 0; base < n; base += kTile) {
+    __syncthreads();
+    stage_nodes(pos, active, n, base, sx, sy, sz, snn, sbig);
+    __syncthreads();
+    if (!live) continue;
+    const int m = min(kTile, n - base);
+    for (int j = 0; j < m; ++j) {
+      const float qn = (qx * sx[j] + qy * sy[j]) + qz * sz[j];
+      const float cd = ((qq - 2.0f * qn) + snn[j]) + sbig[j];
+      if (cd < bd[K - 1]) insert_sorted(bd, bi, cd, base + j);
+    }
+  }
+  if (live) knn_outputs<K>(bd, bi, i, qx, qy, qz, DF_KNN_OUTPUTS);
+}
+
+// a lane tests kUnroll nodes between two looks at its warp's buffers, and
+// holds up to kBuffer candidates (in shared memory) before its warp
+// inserts them
+constexpr int kUnroll = 4;
+constexpr int kBuffer = 8;
+
+// S lanes a query (S = 1 keeps one lane a query): lane s takes the staged
+// nodes s, s + S, ... (the tile padded with NaN nodes to a multiple of S
+// kUnroll, which never pass). A node that beats the lane's K-th goes to
+// its buffer, and when a lane of the warp may not have room for the next
+// kUnroll, every lane inserts its buffer in order (the insertion is a
+// branch: taken node by node, the whole warp waits for it whenever any
+// lane inserts). The K-th a node is tested against may lag behind the
+// buffer, which only lets more nodes in: the lists come out as
+// one-at-a-time insertion in scan order gives them. Then K rounds of a
+// butterfly over the S lanes merge the lists.
+template <int K, int S>
+__global__ void __launch_bounds__(kThreads) knn_blend_kernel(DF_KNN_PARAMS) {
+  static_assert(S >= 1 && S <= 32 && (S & (S - 1)) == 0, "a query's lanes: a power of two in a warp");
+  static_assert(kTile % (S * kUnroll) == 0 && kBuffer >= kUnroll, "whole steps in a tile, room for a step");
+  __shared__ float4 sp[kTile];
+  __shared__ float held_d[kBuffer][kThreads];
+  __shared__ int held_i[kBuffer][kThreads];
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int i = static_cast<int>(t / S);
+  const int lane = static_cast<int>(t % S);
+  const bool live = i < nq;
+  const float qx = live ? dfk::nan_to_num(queries[3 * i]) : 0.0f;
+  const float qy = live ? dfk::nan_to_num(queries[3 * i + 1]) : 0.0f;
+  const float qz = live ? dfk::nan_to_num(queries[3 * i + 2]) : 0.0f;
+  const float qq = (qx * qx + qy * qy) + qz * qz;
+  // a lane past the queries takes part in the warp's votes and shuffles
+  // but lets no node in (-inf)
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = live ? INFINITY : -INFINITY;
+    bi[s] = 0x7fffffff;
+  }
+  int held = 0;
+  for (int base = 0; base < n; base += kTile) {
+    __syncthreads();
+    stage_packed(pos, active, n, base, sp);
+    const int m = min(kTile, n - base);
+    const int mp = (m + S * kUnroll - 1) / (S * kUnroll) * (S * kUnroll);
+    for (int j = m + threadIdx.x; j < mp; j += blockDim.x) sp[j] = make_float4(NAN, NAN, NAN, NAN);
+    __syncthreads();
+    for (int j0 = lane; j0 < mp; j0 += S * kUnroll) {
+#pragma unroll
+      for (int r = 0; r < kUnroll; ++r) {
+        const int j = j0 + r * S;
+        const float4 p = sp[j];
+        const float qn = (qx * p.x + qy * p.y) + qz * p.z;
+        // ((qq - 2 qn) + |n|^2) + 0 or 1e9: the sum before the offset is
+        // never -0, so for an active node adding 0 would change no bit
+        const float u = (qq - 2.0f * qn) + fabsf(p.w);
+        if (u < bd[K - 1]) {
+          const float cd = signbit(p.w) ? u + kBig : u;
+          if (cd < bd[K - 1]) {
+            held_d[held][threadIdx.x] = cd;
+            held_i[held][threadIdx.x] = base + j;
+            ++held;
+          }
+        }
+      }
+      if (__any_sync(0xffffffffu, held > kBuffer - kUnroll)) {
+        for (int b = 0; b < held; ++b) insert_sorted(bd, bi, held_d[b][threadIdx.x], held_i[b][threadIdx.x]);
+        held = 0;
+      }
+    }
+  }
+  for (int b = 0; b < held; ++b) insert_sorted(bd, bi, held_d[b][threadIdx.x], held_i[b][threadIdx.x]);
+  if constexpr (S > 1) {
+    // each round the group's least head under (distance, index) goes to
+    // the output and leaves its lane's list (an index is in one lane's
+    // slice only; the empty slots (inf, INT_MAX) sort after every node)
+    float md[K];
+    int mi[K];
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      float cd = bd[0];
+      int ci = bi[0];
+#pragma unroll
+      for (int o = 1; o < S; o <<= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, cd, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, ci, o);
+        if (od < cd || (od == cd && oi < ci)) {
+          cd = od;
+          ci = oi;
+        }
+      }
+      md[r] = cd;
+      mi[r] = ci;
+      if (bi[0] == ci && bd[0] == cd) {
+#pragma unroll
+        for (int s = 0; s + 1 < K; ++s) {
+          bd[s] = bd[s + 1];
+          bi[s] = bi[s + 1];
+        }
+        bd[K - 1] = INFINITY;
+        bi[K - 1] = 0x7fffffff;
+      }
+    }
+    if (live && lane == 0) knn_outputs<K>(md, mi, i, qx, qy, qz, DF_KNN_OUTPUTS);
+  } else {
+    if (live) knn_outputs<K>(bd, bi, i, qx, qy, qz, DF_KNN_OUTPUTS);
   }
 }
 
@@ -295,13 +455,26 @@ warp_trilinear_kernel(const float* __restrict__ grid, int dc, const float* __res
   nrm_out[3 * i + 2] = nbad ? NAN : rn.z;
 }
 
+template <int K, int S>
+cudaError_t launch_knn(DF_KNN_PARAMS, cudaStream_t s) {
+  const long long threads = static_cast<long long>(nq) * S;
+  knn_blend_kernel<K, S><<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      pos, active, radius, dq, n, queries, normals, nq, d2_out, idx_out, w_out, blend_out, qual_out, pts_out, nrm_out);
+  return cudaGetLastError();
+}
+
+#undef DF_KNN_OUTPUTS
+#undef DF_KNN_PARAMS
+
 }  // namespace
 
+// lanes: the lanes a query's scan is split over (1, 2, 4, 8 or 16), or 0
+// for the one-thread-a-query kernel (the design before the split)
 extern "C" int df_knn_blend(const void* pos, const void* active, const void* radius, const void* dq, int n,
-                            const void* queries, const void* normals, int nq, int k, void* d2, void* idx,
+                            const void* queries, const void* normals, int nq, int k, int lanes, void* d2, void* idx,
                             void* w, void* blend, void* qual, void* pts_out, void* nrm_out, void* stream) {
   if (nq <= 0) return 0;
-  const int blocks = (nq + kThreads - 1) / kThreads;
+  if (k != 5 && k != 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DF_KNN_ARGS                                                                                   \
   static_cast<const float*>(pos), static_cast<const bool*>(active), static_cast<const float*>(radius), \
@@ -309,15 +482,29 @@ extern "C" int df_knn_blend(const void* pos, const void* active, const void* rad
       static_cast<const float*>(normals), nq, static_cast<float*>(d2), static_cast<int64_t*>(idx),      \
       static_cast<float*>(w), static_cast<float*>(blend), static_cast<float*>(qual),                    \
       static_cast<float*>(pts_out), static_cast<float*>(nrm_out)
-  if (k == 8) {
-    knn_blend_kernel<8><<<blocks, kThreads, 0, s>>>(DF_KNN_ARGS);
-  } else if (k == 5) {
-    knn_blend_kernel<5><<<blocks, kThreads, 0, s>>>(DF_KNN_ARGS);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (lanes) {
+    case 0: {
+      const unsigned blocks = static_cast<unsigned>((nq + kThreads - 1) / kThreads);
+      if (k == 8) {
+        knn_serial_kernel<8><<<blocks, kThreads, 0, s>>>(DF_KNN_ARGS);
+      } else {
+        knn_serial_kernel<5><<<blocks, kThreads, 0, s>>>(DF_KNN_ARGS);
+      }
+      err = cudaGetLastError();
+      break;
+    }
+#define DF_KNN_SPLIT(S)                                                               \
+  case S:                                                                             \
+    err = k == 8 ? launch_knn<8, S>(DF_KNN_ARGS, s) : launch_knn<5, S>(DF_KNN_ARGS, s); \
+    break;
+    DF_KNN_SPLIT(1) DF_KNN_SPLIT(2) DF_KNN_SPLIT(4) DF_KNN_SPLIT(8) DF_KNN_SPLIT(16)
+#undef DF_KNN_SPLIT
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef DF_KNN_ARGS
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" int df_mutual_nearest(const void* pos, const void* active, int n, const void* cand, const void* valid,

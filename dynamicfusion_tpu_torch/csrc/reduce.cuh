@@ -8,22 +8,37 @@ namespace {
 
 constexpr int kReduceThreads = 1024;
 
+// sum of x[0:n] in the order of one block of kReduceThreads threads
+// (thread t adds x[t], x[t + kReduceThreads], ..., then a shuffle tree
+// adds each warp's lanes and another the 32 warps' sums), taken by a block
+// of any multiple of 32 threads that divides kReduceThreads: each thread
+// stands for the threads t, t + blockDim.x, ... of that block. Every
+// thread of the block must call it; thread 0 gets the total.
+__device__ inline float ordered_sum(const float* __restrict__ x, int n) {
+  __shared__ float sm[kReduceThreads / 32];
+  for (int base = 0; base < kReduceThreads; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    float s = 0.0f;
+    for (int i = t; i < n; i += kReduceThreads) s += x[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if ((t & 31) == 0) sm[t >> 5] = s;
+  }
+  __syncthreads();
+  float total = 0.0f;
+  if (threadIdx.x < 32) {
+    total = sm[threadIdx.x];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) total += __shfl_down_sync(0xffffffffu, total, o);
+  }
+  return total;
+}
+
 // out[0] = sum of x[0:n], by one block of kReduceThreads threads
 __global__ void __launch_bounds__(kReduceThreads) sum_kernel(const float* __restrict__ x, int n,
                                                              float* __restrict__ out) {
-  __shared__ float sm[kReduceThreads / 32];
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s += x[i];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-  if ((threadIdx.x & 31) == 0) sm[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float t = sm[threadIdx.x];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
-    if (threadIdx.x == 0) out[0] = t;
-  }
+  const float total = ordered_sum(x, n);
+  if (threadIdx.x == 0) out[0] = total;
 }
 
 // fixed-order block sum of one value per thread; every thread gets the total

@@ -70,6 +70,10 @@ KERNELS = (
     "data_matvec", "pcg_init", "pcg_step",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# kernel E's launches split by what the call asks for ("k8", "k5",
+# "k8 blend warp", "k8 warp normals", ...): the same launches as
+# ``launches["knn_blend"]``, for the per-shape rows of a report
+knn_kinds: Dict[str, int] = {}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -86,9 +90,10 @@ _SIGNATURES = {
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
     ),
-    "df_knn_blend": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "df_knn_blend": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
     "df_warp_trilinear": (_P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
+    "df_data_term_lanes": (_P,),
     "df_data_term": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P, _P, _P, _P,
         _P,
@@ -137,6 +142,7 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    knn_kinds.clear()
 
 
 def _nvcc() -> str:
@@ -623,15 +629,36 @@ def _check_points(t: torch.Tensor, name: str) -> int:
     return t.shape[0]
 
 
-def knn_blend(positions, active, radius, dq, queries, k: int, blend: bool = False, warp: bool = False, normals=None):
+# kernel E (csrc/knn_blend.cu) splits a query's scan over more lanes the
+# fewer the queries: enough lanes in all to fill the card, at most 16
+KNN_THREADS = 1 << 16
+
+
+def knn_lanes(nq: int) -> int:
+    """Kernel E's lanes a query for ``nq`` queries: the least power of two
+    (1 to 16) that gives KNN_THREADS lanes in all."""
+    lanes = 1
+    while lanes < 16 and nq * lanes < KNN_THREADS:
+        lanes *= 2
+    return lanes
+
+
+def knn_blend(positions, active, radius, dq, queries, k: int, blend: bool = False, warp: bool = False, normals=None,
+              lanes: Optional[int] = None):
     """Kernel E (csrc/knn_blend.cu): (d2 (Q, k), idx (Q, k) int64, w (Q, k),
     blend (Q, 8) | None, quality (Q,) | None, warped points (Q, 3) | None,
     rotated normals (Q, 3) | None). ``blend`` asks for the blend and its
-    quality, ``warp`` for the warped queries (and ``normals``)."""
+    quality, ``warp`` for the warped queries (and ``normals``). ``lanes``:
+    the lanes of a query's scan (1, 2, 4, 8 or 16; ``knn_lanes`` by
+    default), or 0 for the one-thread-a-query kernel (the same bits; for
+    holds and timing)."""
     n = _check_field(positions, active, radius, dq)
     nq = _check_points(queries, "queries")
     if k not in (5, 8) or n < k:
         raise ValueError(f"knn: k must be 5 or 8 and at most the node count {n}, got {k}")
+    lanes = knn_lanes(nq) if lanes is None else lanes
+    if lanes not in (0, 1, 2, 4, 8, 16):
+        raise ValueError(f"knn: lanes must be 0, 1, 2, 4, 8 or 16, got {lanes}")
     if normals is not None:
         _check(normals, "normals", torch.float32, queries.shape)
         if not warp:
@@ -649,10 +676,12 @@ def knn_blend(positions, active, radius, dq, queries, k: int, blend: bool = Fals
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.df_knn_blend(
         positions.data_ptr(), active.data_ptr(), radius.data_ptr(), dq.data_ptr(), n,
-        queries.data_ptr(), ptr(normals), nq, k, d2.data_ptr(), idx.data_ptr(), w.data_ptr(),
+        queries.data_ptr(), ptr(normals), nq, k, lanes, d2.data_ptr(), idx.data_ptr(), w.data_ptr(),
         ptr(b), ptr(q), ptr(wp), ptr(wn), _stream(dev),
     )
     _done("knn_blend", rc)
+    kind = f"k{k}" + " blend" * blend + " warp" * warp + " normals" * (normals is not None)
+    knn_kinds[kind] = knn_kinds.get(kind, 0) + 1
     return d2, idx, w, b, q, wp, wn
 
 
@@ -727,7 +756,7 @@ def _check_lists(order, off, m: int, n: int) -> None:
 
 
 def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tukey_c: float, system: bool,
-              t1=None, t2=None, sw=None, point: bool = False, row_stride: int = 1):
+              t1=None, t2=None, sw=None, point: bool = False, row_stride: int = 1, internals: bool = False):
     """Kernel F (csrc/data_term.cu): (Jᵀr (6N,), cost (), bf16 rows
     (P, R, 8, 6) | None, diagonal blocks (N, 6, 6) | None) of the Tukey-
     weighted data term at eps = 0; the rows and blocks only with
@@ -735,7 +764,10 @@ def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tuk
     (P, 3) and the per-point weight ``sw`` (P,), R = 3: [n·d, sw t1·d,
     sw t2·d]; with ``point``, R = 3: d = warp(p_can) - p_live itself.
     ``row_stride`` s > 1 (tangential rows only) writes the bf16 tangential
-    rows of the points p % s == 0 as bf16(sqrt(s) jac)."""
+    rows of the points p % s == 0 as bf16(sqrt(s) jac). ``internals``
+    also returns the kernel's own float32 Jacobian (P, R, 8, 6), weighted
+    residuals (P, R) and per-point costs (P,), which its sums add up
+    (``warp_solver.data_sums_ordered``)."""
     np_ = _check_points(p_can, "p_can")
     for t, nm in ((p_live, "p_live"), (n_live, "n_live")):
         _check(t, nm, torch.float32, (np_, 3))
@@ -778,7 +810,17 @@ def data_term(p_can, p_live, n_live, valid, knn_idx, w_knn, dqs, order, off, tuk
         jtr.data_ptr(), ptr(blocks), cost.data_ptr(), _stream(dev),
     )
     _done("data_term", rc)
+    if internals:
+        return jtr, cost, rows, blocks, jac, rw, rho
     return jtr, cost, rows, blocks
+
+
+def data_term_lanes() -> Tuple[int, int]:
+    """Kernel F's lanes a point (pass 1) and a node (pass 2) in the loaded
+    library: ``warp_solver.data_sums_ordered`` takes the second."""
+    out = (ctypes.c_int * 2)()
+    load().df_data_term_lanes(ctypes.addressof(out))
+    return out[0], out[1]
 
 
 # --------------------------------------------------------------------------

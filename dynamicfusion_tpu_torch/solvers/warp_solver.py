@@ -628,24 +628,41 @@ def apply_m_ordered(minv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _seq_sum(minv * v.reshape(-1, 1, 6)).reshape(-1)
 
 
+def _block_tree(part: torch.Tensor) -> torch.Tensor:
+    """The total of 1024 per-thread partial sums (last axis) as a
+    1024-thread block adds them (``reduce.cuh``): a halving tree adds each
+    warp's 32 partial sums and then the 32 warps' (``__shfl_down_sync`` by
+    16, 8, 4, 2, 1)."""
+    v = part.reshape(*part.shape[:-1], 32, 32)
+    for _ in range(2):
+        while v.shape[-1] > 1:
+            h = v.shape[-1] // 2
+            v = v[..., :h] + v[..., h:]
+        v = v[..., 0]
+    return v
+
+
 def dot_ordered(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """aᵀb in kernel P's order (``node_dot``, then ``block_sum``): thread t
     of its 1024-thread block sums its nodes t, t + 1024, ... (six products
-    each) in order, then a halving tree adds each warp's 32 partial sums
-    and then the 32 warps' (``__shfl_down_sync`` by 16, 8, 4, 2, 1)."""
+    each) in order, then ``_block_tree``."""
     threads = 1024
     n = a.shape[0] // 6
     k = -(-n // threads)
     prod = torch.zeros(k * threads * 6, dtype=a.dtype, device=a.device)
     prod[: 6 * n] = a * b
-    part = _seq_sum(prod.reshape(k, threads, 6).permute(1, 0, 2).reshape(threads, 6 * k))
-    v = part.reshape(threads // 32, 32)
-    for _ in range(2):
-        while v.shape[-1] > 1:
-            h = v.shape[-1] // 2
-            v = v[..., :h] + v[..., h:]
-        v = v.reshape(1, -1)
-    return v.reshape(())
+    return _block_tree(_seq_sum(prod.reshape(k, threads, 6).permute(1, 0, 2).reshape(threads, 6 * k)))
+
+
+def sum_ordered(x: torch.Tensor) -> torch.Tensor:
+    """The sum of x (M,) in the order of one 1024-thread block
+    (``reduce.cuh`` ``ordered_sum``, kernel F's cost): thread t adds x[t],
+    x[t + 1024], ... in order, then ``_block_tree``."""
+    threads = 1024
+    k = -(-x.shape[0] // threads)
+    pad = torch.zeros(k * threads, dtype=x.dtype, device=x.device)
+    pad[: x.shape[0]] = x
+    return _block_tree(_seq_sum(pad.reshape(k, threads).T))
 
 
 def _list_sums(values: torch.Tensor, lists: NodeLists, start: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -663,22 +680,30 @@ def _list_sums(values: torch.Tensor, lists: NodeLists, start: Optional[torch.Ten
     return out
 
 
-def _lane_sums(values: torch.Tensor, lists: NodeLists) -> torch.Tensor:
-    """(N, 6): node n's ``values`` rows at ``lists.order[off[n]:off[n + 1]]``
-    summed as one warp of kernel G sums them (``lane_data``,
-    ``warp_sum6``): lane l adds the rows l, l + 32, ... one by one in list
-    order from 0, then a halving tree (16, 8, 4, 2, 1) adds the 32 lanes."""
+def _lane_sums(values: torch.Tensor, lists: NodeLists, lanes: int = 32) -> torch.Tensor:
+    """(N, C): node n's ``values`` rows (M, C) at ``lists.order[off[n]:off[n
+    + 1]]`` summed as ``lanes`` threads of a kernel sum them (kernel G's
+    ``lane_data`` and ``warp_sum6`` with one warp, kernel F's node pass with
+    ``lanes`` a multiple of 32): lane l adds the rows l, l + lanes, ... one
+    by one in list order from 0, a halving tree (16, 8, 4, 2, 1) adds each
+    warp's 32 lanes, then another the node's warps."""
     off = lists.off.to(torch.int64)
     n = off.shape[0] - 1
     dev = values.device
-    steps = -(-int((off[1:] - off[:-1]).max()) // 32) if n else 0
-    slot = off[:-1, None, None] + 32 * torch.arange(steps, device=dev)[:, None] + torch.arange(32, device=dev)
+    steps = -(-int((off[1:] - off[:-1]).max()) // lanes) if n else 0
+    slot = off[:-1, None, None] + lanes * torch.arange(steps, device=dev)[:, None] + torch.arange(lanes, device=dev)
     mine = slot < off[1:, None, None]
     picked = values[lists.order.to(torch.int64)[torch.where(mine, slot, 0)]]
-    v = torch.zeros((n, 32, 6), dtype=values.dtype, device=dev)
+    v = torch.zeros((n, lanes, values.shape[1]), dtype=values.dtype, device=dev)
     for k in range(steps):
         v = v + torch.where(mine[:, k, :, None], picked[:, k], 0.0)
+    v = v.reshape(n, lanes // 32, 32, -1)
     h = 16
+    while h:
+        v = v[:, :, :h] + v[:, :, h: 2 * h]
+        h //= 2
+    v = v[:, :, 0]
+    h = lanes // 64
     while h:
         v = v[:, :h] + v[:, h: 2 * h]
         h //= 2
@@ -702,6 +727,27 @@ def data_matvec_ordered(s: SolveStructure, sys: System, p: torch.Tensor) -> torc
     for j in range(1, ent.shape[1]):
         per_entry = per_entry + ent[:, j]
     return _lane_sums(per_entry.reshape(-1, 6), s.pts_by_node)
+
+
+def data_sums_ordered(jac: torch.Tensor, rw: torch.Tensor, lists: NodeLists, threads: int):
+    """(Jᵀr (6N,), diagonal blocks (N, 6, 6)) of kernel F's node pass in its
+    order, from its own float32 Jacobian ``jac`` (P, R, K, 6) and weighted
+    residuals ``rw`` (P, R): each (point, neighbour) entry's six Jᵀr terms
+    jac_0 r_0 + jac_1 r_1 + ... and 21 upper block terms jac_0a jac_0b +
+    jac_1a jac_1b + ... (its rows summed first, left to right), then a
+    node's entries by ``threads`` lanes (``_lane_sums``)."""
+    p, r, k, _ = jac.shape
+    iu, ju = torch.triu_indices(6, 6, device=jac.device)
+    g = jac[:, 0] * rw[:, 0, None, None]
+    h = jac[:, 0][..., iu] * jac[:, 0][..., ju]
+    for j in range(1, r):
+        g = g + jac[:, j] * rw[:, j, None, None]
+        h = h + jac[:, j][..., iu] * jac[:, j][..., ju]
+    sums = _lane_sums(torch.cat([g, h], -1).reshape(p * k, 27), lists, threads)
+    blocks = torch.zeros((sums.shape[0], 6, 6), dtype=jac.dtype, device=jac.device)
+    blocks[:, iu, ju] = sums[:, 6:]
+    blocks[:, ju, iu] = sums[:, 6:]
+    return sums[:, :6].reshape(-1), blocks
 
 
 def edge_apply_plain(s: SolveStructure, e: EdgeTerm, p: torch.Tensor, apd: torch.Tensor,

@@ -764,6 +764,94 @@ def test_solver_kernels_row_modes(dev, nr_model, mode):
     assert _close(xk, xp, 1e-2)
 
 
+def _bits(t):
+    """A tensor's bits (float32 as int32, bfloat16 as int16), None as is."""
+    if t is None:
+        return None
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype, t.dtype))
+
+
+DATA_MODES = {"one_row": dict(), "tangential": dict(solver_p2p_weight=0.25), "point": dict(point_to_plane=False),
+              "strided": dict(solver_p2p_weight=0.25, solver_p2p_hessian_stride=4)}
+
+
+@pytest.mark.parametrize("mode", sorted(DATA_MODES))
+def test_data_term_kernel_in_its_order(dev, nr_model, mode):
+    """Kernel F bit for bit against its order, with and without the system:
+    Jᵀr and the blocks against ``data_sums_ordered`` of its own Jacobian and
+    residuals in the library's node lanes, the cost against
+    ``sum_ordered`` of its per-point costs, the bf16 rows against
+    ``bf16_rows`` of its Jacobian."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    cfg = dataclasses.replace(NR, **DATA_MODES[mode])
+    st, inputs, _ = nr_model
+    _, stride = ws.row_mode(cfg)
+    s = ws.prepare(cfg, st.warp, inputs)
+    lanes = kernels.data_term_lanes()[1]
+    for system in (True, False):
+        jtr, cost, rows, blocks, jac, rw, rho = kernels.data_term(
+            s.p_can, s.p_live, s.n_live, s.valid, s.knn_idx, s.w_knn, st.warp.dq, s.pts_by_node.order,
+            s.pts_by_node.off, cfg.solver_tukey_c, system, s.t1, s.t2, s.p2p_sw, point=not cfg.point_to_plane,
+            row_stride=stride, internals=True)
+        ojtr, oblocks = ws.data_sums_ordered(jac, rw, s.pts_by_node, lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(jtr), _bits(ojtr)) and torch.equal(_bits(cost), _bits(ws.sum_ordered(rho)))
+        if system:
+            assert torch.equal(_bits(blocks), _bits(oblocks))
+            assert torch.equal(_bits(rows), _bits(ws.bf16_rows(jac, stride)))
+
+
+def _tie_field(dev, n=48, seed=0):
+    """Nodes on a 1/8 m grid (exact in float32), eight of them repeated at
+    other indices, about a quarter inactive; queries on the grid and off
+    it: many exact distance ties."""
+    from dynamicfusion_tpu_torch.core import dualquat
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    rng = np.random.RandomState(seed)
+    pos = rng.randint(-4, 5, (n, 3)).astype(np.float32) / 8.0
+    pos[n // 2:n // 2 + 8] = pos[:8]
+    active = rng.rand(n) > 0.25
+    queries = np.concatenate([rng.randint(-4, 5, (200, 3)).astype(np.float32) / 8.0,
+                              (rng.randn(56, 3) * 0.3).astype(np.float32)])
+    dq = dualquat.from_twist(torch.from_numpy(rng.randn(n, 3).astype(np.float32) * 0.01),
+                             torch.from_numpy(rng.randn(n, 3).astype(np.float32) * 0.002))
+    field = warpfield.WarpField(torch.from_numpy(pos).to(dev), dq.to(dev), torch.full((n,), 0.2, device=dev),
+                                torch.from_numpy(active).to(dev), torch.tensor(int(active.sum()), device=dev),
+                                torch.zeros(n, dtype=torch.int32, device=dev))
+    return field, torch.from_numpy(queries).to(dev)
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8, 16])
+def test_knn_blend_split_scan_is_the_serial_scan(dev, nr_model, lanes):
+    """Kernel E with a query's scan over ``lanes`` lanes (None: the wrapper's
+    choice) bit for bit against the one-thread-a-query kernel
+    (``lanes=0``): at the coarse corners (blend and warp),
+    the solve points (k = 8), the nodes (k = 5), warped points with their
+    normals, and on a node set with exact ties and inactive nodes."""
+    from dynamicfusion_tpu_torch.ops import fusion
+
+    st, inputs, pts = nr_model
+    f = st.warp
+    tie_field, tie_q = _tie_field(dev)
+    cases = [
+        (f, fusion.coarse_corner_points(NR, dev), 8, dict(blend=True, warp=True)),
+        (f, pts, 8, dict()),
+        (f, f.positions, 5, dict()),
+        (f, inputs.p_can.contiguous(), 8, dict(warp=True, normals=inputs.n_live.contiguous())),
+        (tie_field, tie_q, 8, dict(blend=True, warp=True)),
+        (tie_field, tie_q, 5, dict()),
+    ]
+    for field, q, k, kw in cases:
+        args = (field.positions, field.active, field.radius, field.dq, q, k)
+        split = kernels.knn_blend(*args, **kw, lanes=lanes)
+        serial = kernels.knn_blend(*args, **kw, lanes=0)
+        torch.cuda.synchronize()
+        for a, b in zip(split, serial):
+            assert (a is None and b is None) or torch.equal(_bits(a), _bits(b))
+
+
 PCG_MODES = {"one_row": dict(), "three_rows": dict(solver_p2p_weight=0.25),
              "stride4": dict(solver_p2p_weight=0.25, solver_p2p_hessian_stride=4),
              "lag": dict(solver_p2p_weight=0.25, solver_p2p_lag_hessian=True)}
