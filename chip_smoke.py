@@ -71,7 +71,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and the demo's mesh (``knn_row``): against its plain version, bit for
    bit against the one-thread-a-query kernel (``lanes=0``), its library
    route (``library_knn``) held to its neighbour lists; E's rows count the
-   launches of their kind of call (``kernels.knn_kinds``);
+   launches of their kind of call (``kernels.knn_kinds``); kernel H's
+   select (``hold_select``) with its table in shared and in device memory,
+   slots and new positions bit-equal to the plain select at 4 800 and
+   19 200 candidates and on the adversarial ``INSERT_CASES`` (also at
+   65 536 candidates), k printed; kernel B (``hold_icp``) at each shape
+   bit for bit against its two-pass mode, inactive as zeros, the ticket
+   back at zero, within TOL_ICP_REL of plain, beside ``library_icp``;
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -831,23 +837,11 @@ def rigid_kernels(torch, args, report, dev, card):
     dist2 = cfg.icp_dist_thres ** 2
     min_cos = math.cos(cfg.icp_angle_thres)
     t_cur = torch.eye(4, device=dev)
-    ak, bk = icp._build_system(intr_t, t_cur, cp, cn, pp, pn, dist2, min_cos)
-    ap_, bp_ = icp._build_system_plain(intr_t, t_cur, cp, cn, pp, pn, dist2, min_cos)
-    scale = float(torch.maximum(ap_.abs().max(), bp_.abs().max()))
-    err = float(torch.maximum((ak - ap_).abs().max(), (bk - bp_).abs().max()))
-    check("icp_reduce", err <= TOL_ICP_REL * scale,
-          f"max |diff| {err:.3e} over max |entry| {scale:.3e} (rel tol {TOL_ICP_REL})")
     npx = cp.shape[0] * cp.shape[1]
     n_model = pp.shape[0] * pp.shape[1]
-    report["icp_reduce"] = dict(
-        err=err,
-        ms=cuda_ms(torch, lambda: kernels.icp_build_system(intr_t, t_cur, cp, cn, pp, pn, dist2, min_cos)),
-        plain_ms=cuda_ms(torch, lambda: icp._build_system_plain(intr_t, t_cur, cp, cn, pp, pn, dist2, min_cos)),
-        # live points+normals and model points+normals read once, pose in, 27 sums out;
-        # ~100 float operations a pixel (transform, projection, gates, 27 products)
-        bound=bound_ms((npx + n_model) * 24 * 2 + 64 + 27 * 4, npx * 100.0),
-        library_ms=None,
-    )
+    # live points+normals and model points+normals read once, pose in, A and b out
+    hold_icp(torch, report, "icp_reduce", intr_t, t_cur, cp, cn, pp, pn, dist2, min_cos,
+             (npx + n_model) * 24 + 64 + 42 * 4)
 
 
 def march_samples(torch, cfg, tsdf, ray_org, dirs, tmin, tmax) -> float:
@@ -1064,20 +1058,23 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     hfield, exact, err = hold_insert(torch, "insert_nodes", cfg, field, hcand, hvalid, fi)
     cd2, _ = warpfield.mutual_nearest(hfield, hcand, hvalid)
     gate = hfield.count < n
+    hold_select(torch, "insert_select", cfg, hfield, hcand, hvalid, cd2, gate)
+    hold_select(torch, "insert_select_device_table", cfg, hfield, hcand, hvalid, cd2, gate, device_table=True)
+    hold_select_cases(torch, dev, nc, n)
+    hold_select_cases(torch, dev, nc, 2 * n, names=("overflow", "ties"))
     plan = warpfield.InsertPlan(*kernels.insert_select(hcand, cd2, hvalid, hfield.active, hfield.count, gate,
                                                        cfg.node_coverage))
     seed = warpfield.warp_dq_at(hfield, torch.nan_to_num(plan.new_pos), k=k8)
-    np2 = max(1024, 1 << (nc - 1).bit_length())
-    sort_ops = 2 * (np2 // 2) * int(math.log2(np2)) * (int(math.log2(np2)) + 1) // 2
     report["insert_select"] = dict(
-        err=0.0 if exact else 1.0,
+        err=0.0,
         ms=cuda_ms(torch, lambda: kernels.insert_select(hcand, cd2, hvalid, hfield.active, hfield.count, gate,
                                                         cfg.node_coverage)),
         plain_ms=cuda_ms(torch, lambda: warpfield._insert_select_plain(cfg, hfield, hcand, hvalid, cd2, gate), reps=5),
-        # candidates, their distances and flags, the active mask in; slots
-        # and positions out; two bitonic sorts of the padded keys
-        bound=bound_ms(nc * 17 + n + 5 + n * 20, float(sort_ops + nc * 12)),
-        library_ms=None,
+        # candidates, their distances and flags, the active mask, the count
+        # and the gate in; slots and positions out; the cell arithmetic
+        bound=bound_ms(nc * 17 + n + 5 + n * 20, nc * 12.0),
+        library_ms=cuda_ms(torch, lambda: library_insert_select(torch, cfg, hfield, hcand, hvalid, cd2, gate),
+                           reps=5),
     )
     rad = torch.full((n,), cfg.node_radius, device=dev)
     report["insert_apply"] = dict(
@@ -1272,6 +1269,196 @@ def hold_insert(torch, name, cfg, field, cand, valid, fi, min_candidates=1):
           f"{nc} candidates (need >= {min_candidates}), {n - int(hfield.count)} free slots: {grew} inserted; slots, "
           f"active set, counts equal {exact}; max position/dq diff {err:.2e} (tol {TOL_FIELD})")
     return hfield, exact, err
+
+
+# kernel H's adversarial select inputs (made with numpy from a seed; the
+# CPU tests hold the same cases against the JAX package): candidates
+# repeating a few cells; NaN and negative coordinates; invalid and covered
+# candidates ahead of a valid one in their cell; two distinct cells with
+# one hash; equal distances; more kept candidates than slots; the gate
+# closed; no free slot; infinite and NaN distances
+INSERT_CASES = ("repeated", "nan_negative", "shared_cell", "hash_twins", "ties", "overflow", "gate_closed", "full",
+                "nonfinite")
+
+
+def hash_twins(cov: float, seed: int = 0, span: int = 512):
+    """Two distinct integer cells whose int32 cell hashes are equal (a
+    birthday search over seeded random cells)."""
+    rs = np.random.RandomState(seed)
+    c = rs.randint(-span, span, size=(1 << 18, 3)).astype(np.int64)
+    h = ((c[:, 0] * 73856093) ^ (c[:, 1] * 19349663) ^ (c[:, 2] * 83492791)) & 0xFFFFFFFF
+    order = np.argsort(h, kind="stable")
+    hs = h[order]
+    for d in np.nonzero(hs[1:] == hs[:-1])[0]:
+        a, b = c[order[d]], c[order[d + 1]]
+        if (a != b).any():
+            return a, b
+    raise RuntimeError("no two cells with one hash")
+
+
+def insert_case(name: str, nc: int, cap: int, cov: float = 0.025, seed: int = 7) -> dict:
+    """One of ``INSERT_CASES`` as numpy arrays: cand (nc, 3) float32, valid
+    (nc,), d2 (nc,) float32 (the squared distance to the nearest node),
+    active (cap,), count, gate, cov."""
+    rs = np.random.RandomState(seed + INSERT_CASES.index(name))
+    cov2 = float(np.float32(cov) * np.float32(cov))
+    ncell = {"repeated": max(cap // 3, 1), "overflow": nc}.get(name, max(nc // 3, 1))
+    cells = rs.randint(-60, 60, size=(ncell, 3))
+    pick = rs.randint(0, ncell, size=nc) if name != "overflow" else rs.permutation(nc) % ncell
+    cand = ((cells[pick] + rs.uniform(0.05, 0.95, size=(nc, 3))) * cov).astype(np.float32)
+    valid = rs.rand(nc) > 0.1
+    d2 = (rs.uniform(1.5, 9.0, size=nc) * cov2).astype(np.float32)
+    d2[rs.rand(nc) < 0.25] = np.float32(0.5 * cov2)  # covered
+    active = rs.rand(cap) < 0.5
+    count, gate = int(active.sum()), True
+    if name == "nan_negative":
+        cand -= np.float32(4.0)
+        rows = rs.rand(nc) < 0.15
+        cand[rows, rs.randint(0, 3, size=int(rows.sum()))] = np.nan
+        valid[rows & (np.arange(nc) < nc // 2)] = True  # NaN rows the caller calls valid
+    elif name == "shared_cell":
+        # per cell: an invalid, then a covered, then a valid uncovered candidate
+        for j in range(0, nc - 2, 9):
+            cand[j + 1] = cand[j + 2] = cand[j]
+            valid[j], valid[j + 1], valid[j + 2] = False, True, True
+            d2[j + 1], d2[j + 2] = np.float32(0.5 * cov2), np.float32(4.0 * cov2)
+    elif name == "hash_twins":
+        a, b = hash_twins(cov)
+        for j in range(0, nc - 1, 50):
+            cand[j] = ((a + 0.5) * cov).astype(np.float32)
+            cand[j + 1] = ((b + 0.5) * cov).astype(np.float32)
+            valid[j] = valid[j + 1] = True
+            d2[j] = d2[j + 1] = np.float32(6.0 * cov2)
+    elif name == "ties":
+        d2 = (np.array([2.0, 3.0, 5.0], np.float32)[rs.randint(0, 3, size=nc)] * np.float32(cov2)).astype(np.float32)
+    elif name == "gate_closed":
+        gate = False
+    elif name == "full":
+        active[:] = True
+        count = cap
+    elif name == "nonfinite":
+        d2[rs.rand(nc) < 0.05] = np.inf
+        d2[rs.rand(nc) < 0.05] = np.nan
+    return dict(cand=cand, valid=valid, d2=d2, active=active, count=count, gate=gate, cov=cov)
+
+
+def select_inputs(torch, case: dict, dev):
+    """(cfg, field, cand, valid, d2, gate) on ``dev`` for the plain and the
+    kernel select of an ``insert_case``."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    cap = case["active"].shape[0]
+    cfg = dataclasses.replace(DynamicFusionConfig.default_dynamicfusion(), node_coverage=case["cov"], max_nodes=cap)
+    field = warpfield.WarpField(
+        torch.zeros((cap, 3), device=dev), torch.zeros((cap, 8), device=dev), torch.zeros((cap,), device=dev),
+        torch.from_numpy(case["active"]).to(dev), torch.tensor(case["count"], dtype=torch.int32, device=dev),
+        torch.zeros((cap,), dtype=torch.int32, device=dev))
+    return (cfg, field, torch.from_numpy(case["cand"]).to(dev), torch.from_numpy(case["valid"]).to(dev),
+            torch.from_numpy(case["d2"]).to(dev), torch.tensor(case["gate"], device=dev))
+
+
+def hold_select(torch, name, cfg, field, cand, valid, d2, gate, device_table=False) -> int:
+    """Kernel H's select bit for bit against the plain select (slots and
+    new positions, NaNs by their bits); returns the kept count k."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    cap, nc = field.active.shape[0], cand.shape[0]
+    kept = torch.zeros((), dtype=torch.int32, device=cand.device)
+    slots, new_pos = kernels.insert_select(cand, d2, valid, field.active, field.count, gate, cfg.node_coverage,
+                                           device_table=device_table, kept=kept)
+    ref = warpfield._insert_select_plain(cfg, field, cand, valid, d2, gate)
+    ok = torch.equal(slots, ref.slots) and same_bits(torch, new_pos, ref.new_pos)
+    words, in_device, smem = kernels.insert_plan(nc, cap, device_table, cand.device)
+    k = int(kept)
+    check(name, ok, f"{nc} candidates, k = {k} kept, {cap} slots ({cap - int(field.count)} free), gate "
+                    f"{bool(gate)}; table of {words} words in {'device' if in_device else 'shared'} memory "
+                    f"({smem} B shared): slots and new positions bit-equal to the plain select "
+                    f"({int((slots < cap).sum())} inserted)")
+    return k
+
+
+def hold_select_cases(torch, dev, nc: int, cap: int, names=INSERT_CASES) -> None:
+    """``hold_select`` on the adversarial cases at (nc, cap), with the table
+    where it fits and in device memory."""
+    for name in names:
+        cfg, field, cand, valid, d2, gate = select_inputs(torch, insert_case(name, nc, cap), dev)
+        for dt in (False, True):
+            hold_select(torch, f"insert_select_{name}_{nc}{'_device_table' if dt else ''}", cfg, field, cand, valid,
+                        d2, gate, device_table=dt)
+
+
+def library_insert_select(torch, cfg, field, cand, valid, d2, gate):
+    """Kernel H's select as PyTorch calls (a stable sort of the cell ids,
+    ``topk`` of the kept candidates' distances, ``nonzero`` of the free
+    slots): the yardstick of ``library_ms``; the port never calls it."""
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    cov, cap, dev = cfg.node_coverage, field.active.shape[0], cand.device
+    cell = warpfield._cell_ids(cand, cov)
+    order = torch.sort(cell, stable=True)[1]
+    sid = cell[order]
+    first = torch.ones_like(valid)
+    first[order[1:]] = sid[1:] != sid[:-1]
+    keep = first & valid & (d2 > cov * cov)
+    k = min(cap, cand.shape[0])
+    vals, idx = torch.topk(torch.where(keep, d2, -float("inf")), k)
+    sel = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+    sel[:k] = torch.where(torch.isfinite(vals), idx, -1)
+    nz = torch.nonzero(~field.active).flatten()
+    free_idx = torch.full((cap,), cap, dtype=torch.int64, device=dev)
+    free_idx[: nz.shape[0]] = nz
+    ok = (sel >= 0) & (torch.arange(cap, device=dev) < torch.clamp(cap - field.count, min=0)) & gate
+    return torch.where(ok, free_idx, cap), cand[sel.clamp(min=0)]
+
+
+def library_icp(torch, intr, t_cur, cp, cn, pp, pn, dist2, min_cos):
+    """Kernel B's system as PyTorch calls: the plain rows and one
+    ``torch.mm`` of [J | r]ᵀ J (the JAX package's einsum): the yardstick of
+    ``library_ms``; the port never calls it."""
+    from dynamicfusion_tpu_torch.solvers import icp
+
+    row, rhs = icp._rows_plain(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)
+    m = torch.mm(torch.cat([row, rhs[:, None]], dim=1).T, row)
+    return m[:6], m[6]
+
+
+def hold_icp(torch, report, name, intr, t_cur, cp, cn, pp, pn, dist2, min_cos, nbytes, what=""):
+    """Kernel B (one launch) within TOL_ICP_REL of the plain system, bit
+    for bit against its two-pass mode, zeros when inactive and the ticket
+    back at zero; timed beside the two-pass mode, the plain version and
+    ``library_icp``."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.solvers import icp
+
+    args = (intr, t_cur, cp, cn, pp, pn, dist2, min_cos)
+    ak, bk = icp._build_system(*args)
+    ap_, bp_ = icp._build_system_plain(*args)
+    a2, b2 = kernels.icp_build_system(*args, two_pass=True)
+    off = kernels.icp_build_system(*args, active=torch.zeros((), dtype=torch.bool, device=t_cur.device))
+    torch.cuda.synchronize()
+    scale = float(torch.maximum(ap_.abs().max(), bp_.abs().max()))
+    err = float(torch.maximum((ak - ap_).abs().max(), (bk - bp_).abs().max()))
+    check(name, err <= TOL_ICP_REL * scale and scale > 0,
+          f"{what}max |diff| {err:.3e} over max |entry| {scale:.3e} (rel tol {TOL_ICP_REL})")
+    ticket = int(kernels._ticket(t_cur.device))
+    check(f"{name}_order", same_bits(torch, ak, a2) and same_bits(torch, bk, b2)
+          and not bool(off[0].any()) and not bool(off[1].any()) and ticket == 0,
+          f"one launch bit-equal to the two-pass mode, A symmetric {bool(torch.equal(ak, ak.T))}; inactive "
+          f"zeros; ticket back at {ticket}")
+    npx = cp.shape[0] * cp.shape[1]
+    report[name] = dict(
+        err=err,
+        ms=cuda_ms(torch, lambda: kernels.icp_build_system(*args)),
+        plain_ms=cuda_ms(torch, lambda: icp._build_system_plain(*args)),
+        # ~100 float operations a pixel (transform, projection, gates, 27 products)
+        bound=bound_ms(nbytes, npx * 100.0),
+        library_ms=cuda_ms(torch, lambda: library_icp(torch, *args)),
+    )
+    two = cuda_ms(torch, lambda: kernels.icp_build_system(*args, two_pass=True))
+    print(f"[time] {name}: one launch {report[name]['ms']:.4f} ms, two-pass mode {two:.4f} ms, library "
+          f"{report[name]['library_ms']:.4f} ms, plain {report[name]['plain_ms']:.4f} ms", flush=True)
 
 
 def tangential_kernels(torch, report, dev, field, inputs):
@@ -1746,21 +1933,10 @@ def full_res_kernels(torch, report, dev, st, depth_np):
     dist2 = cfg.icp_dist_thres ** 2
     min_cos = math.cos(cfg.icp_angle_thres)
     t_cur = torch.eye(4, device=dev)
-    ak, bk_ = icp._build_system(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)
-    ap_, bp_ = icp._build_system_plain(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)
-    scale = float(torch.maximum(ap_.abs().max(), bp_.abs().max()))
-    err = float(torch.maximum((ak - ap_).abs().max(), (bk_ - bp_).abs().max()))
-    check("icp_reduce_full_res", err <= TOL_ICP_REL * scale and scale > 0,
-          f"{cols}x{rows}: max |diff| {err:.3e} over max |entry| {scale:.3e} (rel tol {TOL_ICP_REL}); "
-          f"{int(torch.isfinite(pp[..., 0]).sum())} model pixels")
     npx = cp.shape[0] * cp.shape[1]
-    report["icp_reduce_full_res"] = dict(
-        err=err,
-        ms=cuda_ms(torch, lambda: kernels.icp_build_system(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)),
-        plain_ms=cuda_ms(torch, lambda: icp._build_system_plain(intr, t_cur, cp, cn, pp, pn, dist2, min_cos)),
-        bound=bound_ms((npx + pp.shape[0] * pp.shape[1]) * 24 * 2 + 64 + 27 * 4, npx * 100.0),
-        library_ms=None,
-    )
+    hold_icp(torch, report, "icp_reduce_full_res", intr, t_cur, cp, cn, pp, pn, dist2, min_cos,
+             (npx + pp.shape[0] * pp.shape[1]) * 24 + 64 + 42 * 4,
+             what=f"{cols}x{rows}, {int(torch.isfinite(pp[..., 0]).sum())} model pixels: ")
 
 
 def extract_kernels(torch, report, dev, nr_depths):
@@ -3267,8 +3443,9 @@ def parity_nonrigid_main(torch, args, dev, card, nr_depths, report):
     unstable as a running configuration (the JAX package's config.py), so
     only the plain step from each kernel-path state is checked; printed a
     frame: P, the factor's time and whether it succeeded (info). Kernel
-    H is held at this path's 19 200 insertion candidates (its sort keys in
-    device memory). Returns the path's launches."""
+    H is held at this path's 19 200 insertion candidates (its hash table in
+    shared memory, and in device memory), on adversarial cases at that size
+    and at 65 536 candidates. Returns the path's launches."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.models import warpfield
@@ -3281,26 +3458,27 @@ def parity_nonrigid_main(torch, args, dev, card, nr_depths, report):
     poses_k = [p.cpu().numpy() for p in df.poses]
     del df
 
-    # H: the first step's candidates into the frame-0 field, past the
-    # 16 384 whose sort keys fit in shared memory
+    # H: the first step's candidates into the frame-0 field
     tr = kinfu.track(cfg, states[0], torch.from_numpy(frames[1]).to(dev))
     cand = tr.inputs.p_can[:: cfg.node_insert_stride].contiguous()
     valid = ~torch.isnan(cand[:, 0])
     n = states[0].warp.positions.shape[0]
     nc = cand.shape[0]
-    hfield, exact, _ = hold_insert(torch, "insert_nodes_full_res", cfg, states[0].warp, cand, valid,
+    hfield, _, _ = hold_insert(torch, "insert_nodes_full_res", cfg, states[0].warp, cand, valid,
                                    states[0].frame_idx, min_candidates=16385)
     cd2, _ = warpfield.mutual_nearest(hfield, cand, valid)
     gate = hfield.count < n
-    np2 = 1 << (nc - 1).bit_length()
-    sort_ops = 2 * (np2 // 2) * int(math.log2(np2)) * (int(math.log2(np2)) + 1) // 2
+    hold_select(torch, "insert_select_full_res", cfg, hfield, cand, valid, cd2, gate)
+    hold_select(torch, "insert_select_full_res_device_table", cfg, hfield, cand, valid, cd2, gate, device_table=True)
+    hold_select_cases(torch, dev, nc, n, names=("overflow", "hash_twins", "nonfinite"))
+    hold_select_cases(torch, dev, 65536, n, names=("overflow",))
     report["insert_select_full_res"] = dict(
-        err=0.0 if exact else 1.0,
+        err=0.0,
         ms=cuda_ms(torch, lambda: kernels.insert_select(cand, cd2, valid, hfield.active, hfield.count, gate,
                                                         cfg.node_coverage)),
         plain_ms=cuda_ms(torch, lambda: warpfield._insert_select_plain(cfg, hfield, cand, valid, cd2, gate), reps=5),
-        bound=bound_ms(nc * 17 + n + 5 + n * 20, float(sort_ops + nc * 12)),
-        library_ms=None,
+        bound=bound_ms(nc * 17 + n + 5 + n * 20, nc * 12.0),
+        library_ms=cuda_ms(torch, lambda: library_insert_select(torch, cfg, hfield, cand, valid, cd2, gate), reps=5),
     )
     del tr
     for i, r in enumerate(rows, start=1):
@@ -3455,19 +3633,8 @@ def depth_icp_main(torch, report, dev, card, cfg):
     t_cur = rk.transform
     dist2 = cfg.icp_dist_thres ** 2
     min_cos = math.cos(cfg.icp_angle_thres)
-    ak, bk = icp._build_system(intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos)
-    ap_, bp_ = icp._build_system_plain(intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos)
-    scale = float(torch.maximum(ap_.abs().max(), bp_.abs().max()))
-    err = float(torch.maximum((ak - ap_).abs().max(), (bk - bp_).abs().max()))
-    check("icp_reduce_depth", err <= TOL_ICP_REL * scale,
-          f"level 0: max |diff| {err:.3e} over max |entry| {scale:.3e} (rel tol {TOL_ICP_REL})")
-    report["icp_reduce_depth"] = dict(
-        err=err,
-        ms=cuda_ms(torch, lambda: kernels.icp_build_system(intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos)),
-        plain_ms=cuda_ms(torch, lambda: icp._build_system_plain(intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos)),
-        bound=bound_ms(npx * 24 * 2 + 64 + 27 * 4, npx * 100.0),
-        library_ms=None,
-    )
+    hold_icp(torch, report, "icp_reduce_depth", intr, t_cur, cp, cn, prev_p, pn, dist2, min_cos,
+             npx * 24 * 2 + 64 + 42 * 4, what="level 0: ")
     return launches
 
 

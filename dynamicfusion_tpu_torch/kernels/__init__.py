@@ -84,7 +84,7 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
     "df_bilateral": (_P, _P, _I, _I, _I, _D, _F, _P),
-    "df_icp_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    "df_icp_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
     "df_raycast": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
     "df_fuse_bricks": (
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -105,7 +105,8 @@ _SIGNATURES = {
     "df_pcg": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P,
     ),
-    "df_insert_select": (_P, _P, _P, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P),
+    "df_insert_plan": (_I, _I, _I, _P),
+    "df_insert_select": (_P, _P, _P, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P),
     "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
     "df_pyramid_down": (_P, _I, _I, _F, _P, _P),
@@ -319,29 +320,30 @@ def bilateral_filter(
     return out
 
 
-_SYM = None
+# kernel B's ticket, one a device: the blocks of a launch count themselves
+# out on it and the last one puts it back to zero. Every kernel of the port
+# is issued on the current stream (``_stream``), so no two launches of B on
+# a device hold it at once.
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
-def _sym_index(dev: torch.device) -> torch.Tensor:
-    """(36,) index from a full 6x6 into the 21 packed upper-triangle sums."""
-    global _SYM
-    if _SYM is None or _SYM.device != dev:
-        k = np.zeros((6, 6), np.int64)
-        n = 0
-        for i in range(6):
-            for j in range(i, 6):
-                k[i, j] = k[j, i] = n
-                n += 1
-        _SYM = torch.from_numpy(k.reshape(-1)).to(dev)
-    return _SYM
+def _ticket(dev: torch.device) -> torch.Tensor:
+    t = _TICKETS.get(dev)
+    if t is None:
+        t = _TICKETS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return t
 
 
 def icp_build_system(
-    intr, t_cur, curr_pts, curr_nrm, prev_pts, prev_nrm, dist2_thres, min_cosine, active=None
+    intr, t_cur, curr_pts, curr_nrm, prev_pts, prev_nrm, dist2_thres, min_cosine, active=None, two_pass=False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B (csrc/icp_reduce.cu): the 6x6 ICP normal equations (A, b).
-    ``active`` (() bool on the device) False makes both passes skip their
-    work and return zeros."""
+    """Kernel B (csrc/icp_reduce.cu, one launch): the 6x6 ICP normal
+    equations (A, b), views of one (42,) output. ``active`` (() bool on the
+    device) False makes the launch skip its work and return zeros.
+    ``two_pass`` launches the design before (the partials, then one block
+    that sums them), which sums in the same order: the reference the
+    one-launch kernel is held against bit for bit; no path of the port
+    asks for it."""
     _check(t_cur, "t_cur", torch.float32, (4, 4))
     _check(curr_pts, "curr_pts", torch.float32)
     _check(curr_nrm, "curr_nrm", torch.float32, curr_pts.shape)
@@ -360,16 +362,16 @@ def icp_build_system(
     threads = 256
     nblocks = max((n + threads - 1) // threads, 1)
     partial = torch.empty((nblocks, 27), dtype=torch.float32, device=dev)
-    out = torch.empty((27,), dtype=torch.float32, device=dev)
+    out = torch.empty((42,), dtype=torch.float32, device=dev)
     rc = lib.df_icp_reduce(
         t_cur.data_ptr(), curr_pts.data_ptr(), curr_nrm.data_ptr(), prev_pts.data_ptr(),
-        prev_nrm.data_ptr(), active.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, rows, cols, nblocks,
+        prev_nrm.data_ptr(), active.data_ptr(), partial.data_ptr(), None if two_pass else _ticket(dev).data_ptr(),
+        out.data_ptr(), n, rows, cols, nblocks,
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
-        _f32(dist2_thres), _f32(min_cosine), _stream(dev),
+        _f32(dist2_thres), _f32(min_cosine), int(two_pass), _stream(dev),
     )
     _done("icp_reduce", rc)
-    return out[_sym_index(dev)].reshape(6, 6), out[21:]
+    return out[:36].view(6, 6), out[36:]
 
 
 def march_and_refine(
@@ -1267,11 +1269,35 @@ def cholesky(a: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def insert_select(candidates, cand_d2, valid, active, count, gate, coverage: float):
-    """Kernel H's select pass (csrc/insert_nodes.cu): (slots (N,) int64, the
-    slot of the r-th new node or N for none; new positions (N, 3)). Up to
-    16 384 candidates sort in shared memory, up to 65 536 in a device
+_INSERT_PLANS: Dict[Tuple[torch.device, int, int, bool], Tuple[int, bool, int]] = {}
+
+
+def insert_plan(nc: int, cap: int, device_table: bool, dev: torch.device) -> Tuple[int, bool, int]:
+    """Kernel H's select table for ``nc`` candidates and ``cap`` slots on
+    the card ``dev`` (the library's ``df_insert_plan``): (words, in device
+    memory, dynamic shared bytes). The table sits in shared memory while it
+    fits, else in a device-memory scratch; ``device_table`` forces the
     scratch."""
+    key = (dev, nc, cap, device_table)
+    plan = _INSERT_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_int * 3)()
+        with _on(dev):
+            rc = load().df_insert_plan(nc, cap, int(device_table), ctypes.addressof(out))
+        if rc != 0:
+            raise ValueError(f"insert_select: no plan for {nc} candidates and {cap} slots (error {rc})")
+        plan = _INSERT_PLANS[key] = (out[0], bool(out[1]), out[2])
+    return plan
+
+
+def insert_select(candidates, cand_d2, valid, active, count, gate, coverage: float, device_table: bool = False,
+                  kept: Optional[torch.Tensor] = None):
+    """Kernel H's select pass (csrc/insert_nodes.cu, one launch): (slots
+    (N,) int64, the slot of the r-th new node or N for none; new positions
+    (N, 3)). 1 to 65 536 candidates; the decimation's hash table in shared
+    memory while it fits, else (or with ``device_table``) in a device
+    scratch. ``kept`` (() int32 on the device) receives the number of kept
+    candidates (valid, uncovered, first of their cell)."""
     nc = _check_points(candidates, "candidates")
     if not 1 <= nc <= 65536:
         raise ValueError(f"insert_select takes 1 to 65536 candidates, got {nc}")
@@ -1282,17 +1308,23 @@ def insert_select(candidates, cand_d2, valid, active, count, gate, coverage: flo
     _check(count, "count", torch.int32, ())
     _check(gate, "gate", torch.bool, ())
     _same_device(candidates, cand_d2, valid, active, count, gate)
+    if kept is not None:
+        _check(kept, "kept", torch.int32, ())
+        _same_device(candidates, kept)
     lib = load()
-    np2 = max(1024, 1 << (nc - 1).bit_length())
     dev = candidates.device
+    words, in_device, smem = insert_plan(nc, cap, device_table, dev)
+    plan = (ctypes.c_int * 3)(words, int(in_device), smem)
     slots = torch.empty((cap,), dtype=torch.int64, device=dev)
     new_pos = torch.empty((cap, 3), dtype=torch.float32, device=dev)
-    gkeys = torch.empty((np2,), dtype=torch.int64, device=dev) if np2 > 16384 else None
-    rc = lib.df_insert_select(
-        candidates.data_ptr(), cand_d2.data_ptr(), valid.data_ptr(), nc, np2, active.data_ptr(),
-        count.data_ptr(), gate.data_ptr(), cap, _f32(coverage), _f32(coverage * coverage),
-        slots.data_ptr(), new_pos.data_ptr(), None if gkeys is None else gkeys.data_ptr(), _stream(dev),
-    )
+    table = torch.empty((words,), dtype=torch.int64, device=dev) if in_device else None
+    with _on(dev):
+        rc = lib.df_insert_select(
+            candidates.data_ptr(), cand_d2.data_ptr(), valid.data_ptr(), nc, active.data_ptr(), count.data_ptr(),
+            gate.data_ptr(), cap, _f32(coverage), _f32(coverage * coverage), ctypes.addressof(plan),
+            slots.data_ptr(), new_pos.data_ptr(), None if table is None else table.data_ptr(),
+            None if kept is None else kept.data_ptr(), _stream(dev),
+        )
     _done("insert_select", rc)
     return slots, new_pos
 

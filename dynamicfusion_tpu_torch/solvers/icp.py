@@ -31,7 +31,7 @@ class IcpResult(NamedTuple):
     ok: torch.Tensor         # () bool: the finest executed level stayed well-conditioned
 
 
-def _build_system_plain(
+def _rows_plain(
     intr: Intrinsics,
     t_cur: torch.Tensor,
     curr_pts: torch.Tensor,
@@ -41,8 +41,8 @@ def _build_system_plain(
     dist2_thres: float,
     min_cosine: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked per-pixel rows J = [s x n_d, n_d], r = n_d . (d - s) reduced
-    to (A, b) of JᵀJ x = Jᵀr. Rows come from the current pixels; the
+    """Masked per-pixel rows J = [s x n_d, n_d] (P, 6) and residuals
+    r = n_d . (d - s) (P,). Rows come from the current pixels; the
     association targets the previous/model maps, whose shape sets the
     image bounds."""
     rows, cols = prev_pts.shape[:2]
@@ -66,7 +66,21 @@ def _build_system_plain(
     nd0 = torch.nan_to_num(nd)
     row = torch.cat([torch.linalg.cross(s0, nd0), nd0], dim=-1) * mask[..., None]
     rhs = (nd0 * (d0 - s0)).sum(dim=-1)
-    row = row.reshape(-1, 6)
+    return row.reshape(-1, 6), rhs.reshape(-1)
+
+
+def _build_system_plain(
+    intr: Intrinsics,
+    t_cur: torch.Tensor,
+    curr_pts: torch.Tensor,
+    curr_nrm: torch.Tensor,
+    prev_pts: torch.Tensor,
+    prev_nrm: torch.Tensor,
+    dist2_thres: float,
+    min_cosine: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The masked rows (``_rows_plain``) reduced to (A, b) of JᵀJ x = Jᵀr."""
+    row, rhs = _rows_plain(intr, t_cur, curr_pts, curr_nrm, prev_pts, prev_nrm, dist2_thres, min_cosine)
     # reductions, not matmuls: a threaded BLAS splits the pixel sum by its
     # thread count, which may change from call to call, and ICP turns the
     # last-bit differences into pose differences

@@ -3,7 +3,9 @@ for a tree given on the command line: the kernel path through
 ``DynamicFusion`` over ``bench.py``'s hinge scene (``quality``) or its
 deforming scene (``default``, ``base``: the base ``DynamicFusionConfig()``
 with the direct solve, ``kinfu``: ``default_kinfu()``'s 512^3 volume at
-its own intrinsics) at full width, then ``--profile`` frames under
+its own intrinsics) or ``chip_smoke.py``'s rigid orbit (``ref_rigid``: the
+reference-shaped rigid cell, ``reference_parity()`` rigid with dense
+fusion and the six-sample normals) at full width, then ``--profile`` frames under
 torch.profiler (``chip_smoke.profile_frames``: device busy time, idle
 share, launches).
 
@@ -38,9 +40,10 @@ HERE = Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--root", default=str(HERE), help="directory holding the dynamicfusion_tpu_torch to time")
-    ap.add_argument("--preset", choices=("quality", "default", "base", "kinfu"), default="quality",
-                    help="quality_dynamicfusion() on the hinge scene, or default_dynamicfusion(), "
-                         "DynamicFusionConfig() or default_kinfu() on the deforming scene")
+    ap.add_argument("--preset", choices=("quality", "default", "base", "kinfu", "ref_rigid"), default="quality",
+                    help="quality_dynamicfusion() on the hinge scene, default_dynamicfusion(), "
+                         "DynamicFusionConfig() or default_kinfu() on the deforming scene, or the reference-shaped "
+                         "rigid cell on the rigid orbit")
     ap.add_argument("--storage", default=None, help="the volume's tsdf/weight storage, e.g. f32/f32 (default: the "
                                                     "configuration's)")
     ap.add_argument("--frames", type=int, default=20, help="timed frames (frame 0 included)")
@@ -55,7 +58,7 @@ def main() -> int:
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     sys.path.insert(1, str(HERE))
-    from chip_smoke import profile_frames
+    from chip_smoke import profile_frames, rigid_frame_fn
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.io import synthetic
@@ -72,7 +75,14 @@ def main() -> int:
 
     make = synthetic.hinge_frames if args.preset == "quality" else synthetic.deforming_frames
     cfg = {"quality": DynamicFusionConfig.quality_dynamicfusion, "default": DynamicFusionConfig.default_dynamicfusion,
-           "base": DynamicFusionConfig, "kinfu": DynamicFusionConfig.default_kinfu}[args.preset]()
+           "base": DynamicFusionConfig, "kinfu": DynamicFusionConfig.default_kinfu,
+           "ref_rigid": DynamicFusionConfig.reference_parity}[args.preset]()
+    if args.preset == "ref_rigid":
+        cfg = dataclasses.replace(cfg, rigid_only=True, integrate_mode="dense", raycast_smooth_normals=True)
+
+        def make(intr, rows, cols, n):
+            frame = rigid_frame_fn(cfg)
+            return [frame(i) for i in range(n)]
     if args.storage:
         tsdf_dtype, weight_dtype = args.storage.split("/")
         cfg = dataclasses.replace(cfg, tsdf_dtype=tsdf_dtype, weight_dtype=weight_dtype)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import INSERT_CASES
 from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.core import se3
@@ -89,6 +90,31 @@ def test_icp_kernel(dev, model):
     # an inactive iteration does no work and returns zeros
     a_off, b_off = kernels.icp_build_system(*args, active=torch.zeros((), dtype=torch.bool, device=dev))
     assert not bool(a_off.any()) and not bool(b_off.any())
+
+
+def test_icp_kernel_one_launch_is_two_pass(dev, model):
+    """Kernel B's one launch bit for bit against its two-pass mode (the
+    same order of sums), at the tracking level and at level 0 against the
+    model maps, at the identity and at a small twist; an inactive call
+    writes zeros and every call leaves the device's ticket at zero."""
+    _, pts, nrm, _ = preprocess.build_frame_pyramid(CFG, torch.from_numpy(DEPTHS[3]).to(dev))
+    twist = se3.exp_twist(torch.tensor([0.003, -0.002, 0.001, 0.004, 0.002, -0.003], device=dev)).contiguous()
+    for lvl in (CFG.raycast_shift, 0):
+        for t in (torch.eye(4, device=dev), twist):
+            args = (CFG.intr.level(lvl), t, pts[lvl], nrm[lvl], model.prev_points[0], model.prev_normals[0],
+                    CFG.icp_dist_thres ** 2, math.cos(CFG.icp_angle_thres))
+            n0 = kernels.launches["icp_reduce"]
+            a, b = kernels.icp_build_system(*args)
+            a2, b2 = kernels.icp_build_system(*args, two_pass=True)
+            off = kernels.icp_build_system(*args, active=torch.zeros((), dtype=torch.bool, device=dev))
+            torch.cuda.synchronize()
+            assert kernels.launches["icp_reduce"] == n0 + 3
+            assert torch.equal(a.view(torch.int32), a2.view(torch.int32)) and torch.equal(a, a.T)
+            assert torch.equal(b.view(torch.int32), b2.view(torch.int32))
+            assert not bool(off[0].any()) and not bool(off[1].any())
+            assert int(kernels._ticket(t.device)) == 0
+            a0, _ = icp._build_system(*args, plain=True)
+            assert float((a - a0).abs().max()) <= 1e-4 * float(a0.abs().max())
 
 
 @pytest.mark.parametrize("refine", ["secant", "newton8"])
@@ -441,7 +467,7 @@ def test_solver_kernels_tangential(dev, nr_model):
 @pytest.mark.parametrize("copies", [1, 5])
 def test_insert_kernel(dev, nr_model, copies):
     """Kernel H's insertion; with five shifted copies of the candidates
-    past the 16 384 whose sort keys fit in shared memory."""
+    (past 16 384 of them)."""
     from dynamicfusion_tpu_torch.models import warpfield
 
     st, inputs, _ = nr_model
@@ -460,6 +486,29 @@ def test_insert_kernel(dev, nr_model, copies):
             assert float((a - b).abs().max()) <= 1e-5, name
         else:
             assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("name", INSERT_CASES)
+@pytest.mark.parametrize("nc, cap", [(600, 64), (4800, 1024), (4800, 2048)])
+def test_insert_select_kernel_adversarial(dev, name, nc, cap):
+    """Kernel H's select bit for bit against the plain select on the
+    adversarial cases (``chip_smoke.insert_case``), the table in shared
+    and in device memory; past 1 024 slots the kept keys sort in shared
+    memory, not in registers."""
+    from chip_smoke import insert_case, select_inputs
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    cfg, field, cand, valid, d2, gate = select_inputs(torch, insert_case(name, nc, cap), dev)
+    ref = warpfield._insert_select_plain(cfg, field, cand, valid, d2, gate)
+    for device_table in (False, True):
+        kept = torch.zeros((), dtype=torch.int32, device=dev)
+        slots, new_pos = kernels.insert_select(cand, d2, valid, field.active, field.count, gate, cfg.node_coverage,
+                                               device_table=device_table, kept=kept)
+        torch.cuda.synchronize()
+        assert kernels.insert_plan(nc, cap, device_table, dev)[1] == device_table
+        assert int(kept) > 0
+        assert torch.equal(slots, ref.slots)
+        assert torch.equal(new_pos.view(torch.int32), ref.new_pos.view(torch.int32))
 
 
 def test_fuse_kernel_nonrigid(dev, nr_model):
