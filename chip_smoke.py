@@ -78,6 +78,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    65 536 candidates), k printed; kernel B (``hold_icp``) at each shape
    bit for bit against its two-pass mode, inactive as zeros, the ticket
    back at zero, within TOL_ICP_REL of plain, beside ``library_icp``;
+   kernel G's edge term (``hold_edge_order``, also on the base config's
+   state in phase 9 and on the sharded solves' edge terms in phases 17
+   and 18) bit for bit against its three-launch mode in all six outputs;
+   kernel E's mutual-nearest pass (``hold_mutual``, also at phase 12's
+   19 200 candidates) bit for bit against the plain version and its
+   three-launch mode at 4 800 candidates and on the adversarial
+   ``MUTUAL_CASES``, beside ``library_mutual_nearest``; in every hold each
+   one device kernel a call, three in its three-launch mode, as its C
+   entry reports them (``kernels.device_kernels``), and one a call on
+   every non-rigid run of the main path; kernel D's launch on a frame that
+   does not fuse (ok false) timed;
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -385,6 +396,7 @@ ROWS = {
     "icp_reduce_full_res": ("icp_reduce.cu", "dynamicfusion_tpu/solvers/icp.py:38"),
     "data_term_p2p": ("data_term.cu", "dynamicfusion_tpu/solvers/warp_solver.py:76"),
     "insert_select_full_res": ("insert_nodes.cu", "dynamicfusion_tpu/models/warpfield.py:372"),
+    "mutual_nearest_full_res": ("knn_blend.cu", "dynamicfusion_tpu/models/warpfield.py:267"),
     "gram_scales": ("dense_system.cu", "dynamicfusion_tpu/solvers/warp_solver.py:505"),
     "dense_gram": ("dense_system.cu", "dynamicfusion_tpu/solvers/warp_solver.py:505"),
     "dense_gram_bf16": ("dense_system.cu", "dynamicfusion_tpu/solvers/warp_solver.py:505"),
@@ -418,6 +430,7 @@ COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", 
            "pcg_tangential": "pcg", "raycast_coarse": "raycast", "raycast_full_res": "raycast",
            "raycast_render": "raycast", "icp_reduce_full_res": "icp_reduce", "data_term_p2p": "data_term",
            "dense_gram_bf16": "dense_gram", "insert_select_full_res": "insert_select",
+           "mutual_nearest_full_res": "mutual_nearest",
            "node_radius_insert": "node_radius", "data_term_strided": "data_term", "pcg_strided": "pcg",
            "pcg_lagged": "pcg", "points_normals_depth": "points_normals", "icp_reduce_depth": "icp_reduce",
            "knn_blend": "knn_blend[k8 blend warp]", "knn_blend_points": "knn_blend[k8]",
@@ -438,6 +451,7 @@ PATH = {**dict.fromkeys(RIGID_KERNELS, "rigid"), "extract_cloud": "frame0", "sam
         "raycast_render": "render",
         **dict.fromkeys(("gram_scales", "dense_gram", "dense_damp", "cholesky"), "base"),
         "dense_gram_bf16": "base_bf16", "data_term_p2p": "base_p2p", "insert_select_full_res": "parity_nr",
+        "mutual_nearest_full_res": "parity_nr",
         **dict.fromkeys(("node_radius", "node_radius_insert", "net_rigid", "data_term_strided", "pcg_strided"),
                         "options"),
         "pcg_lagged": "options_lag", "dense_pcg": "base_pcg",
@@ -921,18 +935,8 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     cand = inputs.p_can[::ins].contiguous()
     valid = ~torch.isnan(cand[:, 0])
     nc = cand.shape[0]
-    ck, nk = warpfield.mutual_nearest(field, cand, valid)
-    cp, npl = warpfield.mutual_nearest(field, cand, valid, plain=True)
-    err = max(abs_err(torch, ck, cp), abs_err(torch, nk, npl))
-    check("mutual_nearest", err <= TOL_D2,
-          f"{nc} candidates x {n} nodes: max d2 diff {err:.2e} (tol {TOL_D2})")
-    report["mutual_nearest"] = dict(
-        err=err,
-        ms=cuda_ms(torch, lambda: kernels.mutual_nearest(field.positions, field.active, cand, valid)),
-        plain_ms=cuda_ms(torch, lambda: warpfield.mutual_nearest(field, cand, valid, plain=True), reps=5),
-        bound=bound_ms(n * 13 + nc * 13 + (nc + n) * 4, nc * n * 11.0),
-        library_ms=None,
-    )
+    hold_mutual(torch, report, "mutual_nearest", field, cand, valid)
+    hold_mutual_cases(torch, dev, nc, n)
 
     # E: the trilinear warp of the model maps through the coarse grid
     cf = fusion.coarse_field(cfg, field)
@@ -989,6 +993,7 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         ep = ws.edge_term(cfg, s, field.dq, plain=True)
     err = max(rel_err(torch, a, b) for a, b in zip(ek, ep))
     check("edge_term", err <= TOL_EDGE_REL, f"{ne} edges: max relative diff {err:.2e} (tol {TOL_EDGE_REL})")
+    three = hold_edge_order(torch, "edge_term_order", cfg, s, field.dq, "the preset's phase-2 state: ")
     report["edge_term"] = dict(
         err=max(abs_err(torch, a, b) for a, b in zip(ek, ep)),
         ms=cuda_ms(torch, lambda: ws.edge_term(cfg, s, field.dq)),
@@ -999,7 +1004,10 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
         bound=bound_ms(n * 32 + ne * (16 + 1 + 12 + 4 + 4) + (n + 1) * 4 + ne * 3 * 144 + n * (24 + 144) + 4,
                        ne * 2000.0),
         library_ms=None,
+        reference_ms=three,
     )
+    print(f"[time] edge_term: one launch {report['edge_term']['ms']:.4f} ms, three-launch mode {three:.4f} ms, "
+          f"plain {report['edge_term']['plain_ms']:.4f} ms", flush=True)
     # the first LM iteration's damped blocks, as the solve builds them
     blocks_full = dp.blocks + ep.diag
     diag_eff, unit = ws.damping_terms(cfg, field.active, blocks_full)
@@ -1124,6 +1132,17 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
                        n_front * bv * 8.0 + (n_work - n_front) * bv * 100.0),
         library_ms=None,
     )
+    # the launch of a frame that does not fuse (fusion_interval): ok false
+    # on the device, every block returns at once
+    off_t = torch.zeros((), dtype=torch.bool, device=dev)
+    before = scratch.tsdf.clone()
+    bricks.fuse(cfg, scratch, lookup, cam_grid, g, cfg.intr, bp, off_t, q_grid=cf.q, packed=True)
+    check("fuse_bricks_nonrigid_gated", torch.equal(scratch.tsdf, before), "ok false leaves the volume as it is")
+    gated = cuda_ms(torch, lambda: bricks.fuse(cfg, scratch, lookup, cam_grid, g, cfg.intr, bp, off_t, q_grid=cf.q,
+                                               packed=True))
+    report["fuse_bricks_nonrigid"]["gated_ms"] = gated
+    print(f"[time] fuse_bricks_nonrigid: a fusing launch {report['fuse_bricks_nonrigid']['ms']:.4f} ms, a gated "
+          f"launch (ok false) {gated:.4f} ms", flush=True)
     del scratch, vk, vp, df
     dense_fusion_kernels(torch, report, dev, cfg, st, tr, cf)
 
@@ -1279,6 +1298,52 @@ def hold_insert(torch, name, cfg, field, cand, valid, fi, min_candidates=1):
 # closed; no free slot; infinite and NaN distances
 INSERT_CASES = ("repeated", "nan_negative", "shared_cell", "hash_twins", "ties", "overflow", "gate_closed", "full",
                 "nonfinite")
+
+
+# kernel E's adversarial mutual-nearest inputs (made with numpy from a
+# seed; the CPU tests hold the plain version bit for bit against the JAX
+# package on the same cases): coordinates on a 1/256 grid, where every
+# product and sum of the distance expansion is exact; a quarter of the
+# nodes inactive, and nodes at the origin (|n|^2 = 0, active and
+# inactive); half the nodes inactive with the candidates around them;
+# NaN coordinates, some in rows the caller calls valid; no valid
+# candidate; no candidate; a count that is no multiple of a block;
+# candidates at equal distances from several nodes
+MUTUAL_CASES = ("inactive", "nan", "all_invalid", "empty", "odd", "ties")
+
+
+def mutual_case(name: str, nc: int, n: int, seed: int = 11) -> dict:
+    """One of ``MUTUAL_CASES`` as numpy arrays: positions (n, 3) float32,
+    active (n,), cand (nc', 3) float32, valid (nc',) (nc' = nc, but 0 for
+    "empty" and nc + 37 for "odd")."""
+    rs = np.random.RandomState(seed + MUTUAL_CASES.index(name))
+    nc = {"empty": 0, "odd": nc + 37}.get(name, nc)
+    grid, centre = 1.0 / 256.0, np.array([0.0, 0.0, 1.0])
+    pos = (rs.randint(-64, 64, size=(n, 3)) * grid + centre).astype(np.float32)
+    pos[0] = 0.0
+    active = rs.rand(n) < 0.75
+    active[0] = True
+    if n > 1:
+        pos[1], active[1] = 0.0, False
+    cand = (rs.randint(-72, 72, size=(nc, 3)) * grid + centre).astype(np.float32)
+    valid = rs.rand(nc) < 0.8
+    if name == "inactive":
+        active = rs.rand(n) < 0.5
+        near = np.nonzero(~active)[0]
+        pick = near[rs.randint(0, len(near), size=nc)]
+        cand = (pos[pick] + rs.randint(-3, 4, size=(nc, 3)) * grid).astype(np.float32)
+    elif name == "nan":
+        rows = rs.rand(nc) < 0.2
+        cand[rows, rs.randint(0, 3, size=int(rows.sum()))] = np.nan
+        cand[rs.rand(nc) < 0.05] = np.nan
+        valid[rows & (rs.rand(nc) < 0.5)] = True  # NaN rows the caller calls valid
+    elif name == "all_invalid":
+        valid[:] = False
+    elif name == "ties":
+        axes = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]])
+        cand = (pos[rs.randint(0, n, size=nc)] + 2 * grid * axes[rs.randint(0, 6, size=nc)]).astype(np.float32)
+        cand[1::7] = cand[::7][: len(cand[1::7])]
+    return dict(positions=pos, active=active, cand=cand, valid=valid)
 
 
 def hash_twins(cov: float, seed: int = 0, span: int = 512):
@@ -1459,6 +1524,111 @@ def hold_icp(torch, report, name, intr, t_cur, cp, cn, pp, pn, dist2, min_cos, n
     two = cuda_ms(torch, lambda: kernels.icp_build_system(*args, two_pass=True))
     print(f"[time] {name}: one launch {report[name]['ms']:.4f} ms, two-pass mode {two:.4f} ms, library "
           f"{report[name]['library_ms']:.4f} ms, plain {report[name]['plain_ms']:.4f} ms", flush=True)
+
+
+def kernels_a_call(name, fn):
+    """(fn's result, the device kernels the C entry of wrapper ``name``
+    reported launching in it: ``kernels.device_kernels``)."""
+    from dynamicfusion_tpu_torch import kernels
+
+    before = kernels.device_kernels[name]
+    out = fn()
+    return out, kernels.device_kernels[name] - before
+
+
+def edge_args(cfg, s, dq):
+    return (dq, s.e_src, s.e_dst, s.e_valid, s.v_dst, s.alpha, s.edges_by_dst.order, s.edges_by_dst.off,
+            cfg.solver_arap_weight, cfg.solver_huber_delta)
+
+
+def hold_edge_order(torch, name, cfg, s, dq, what=""):
+    """Kernel G's edge term (one launch) bit for bit against its
+    three-launch mode in all six outputs (Jᵀr, cost, h_ii, h_jj, h_ij, the
+    diagonal share); one device kernel a call against three
+    (``kernels_a_call``); the ticket back at zero. Returns the three-launch
+    mode's time."""
+    from dynamicfusion_tpu_torch import kernels
+
+    args = edge_args(cfg, s, dq)
+    one, k1 = kernels_a_call("edge_term", lambda: kernels.edge_term(*args))
+    three, k3 = kernels_a_call("edge_term", lambda: kernels.edge_term(*args, three_launch=True))
+    same = [same_bits(torch, a, b) for a, b in zip(one, three)]
+    ticket = int(kernels._ticket(dq.device))
+    check(name, all(same) and (k1, k3) == (1, 3) and ticket == 0,
+          f"{what}{s.e_src.shape[0]} edges, {dq.shape[0]} nodes: one launch bit-equal to the three-launch mode in "
+          f"(Jᵀr, cost, h_ii, h_jj, h_ij, diag) {same}; device kernels a call {k1} (three-launch mode {k3}); "
+          f"ticket back at {ticket}")
+    return cuda_ms(torch, lambda: kernels.edge_term(*args, three_launch=True))
+
+
+def library_mutual_nearest(torch, field, cand, valid):
+    """Kernel E's mutual-nearest pass as PyTorch calls (one ``torch.addmm``
+    of the expansion, then the two masked ``amin``s): the yardstick of
+    ``library_ms``; the port never calls it."""
+    q = torch.nan_to_num(cand)
+    pos = field.positions
+    nn = (pos * pos).sum(1) + torch.where(field.active, 0.0, 1e9)
+    d2 = torch.addmm(nn[None, :] + (q * q).sum(1, keepdim=True), q, pos.T, alpha=-2.0)
+    return d2.amin(1).clamp(min=0.0), torch.where(valid[:, None], d2, 1e9).amin(0).clamp(min=0.0)
+
+
+def hold_mutual(torch, report, name, field, cand, valid, what=""):
+    """Kernel E's mutual-nearest pass (one launch) bit for bit against the
+    plain version and the three-launch mode; one device kernel a call
+    against three (two without a candidate: ``kernels_a_call``); the ticket
+    back at zero, the node scratch back at 1e9; with ``report``, timed beside the
+    three-launch mode, the plain version and ``library_mutual_nearest``
+    (held within TOL_D2 on the active nodes)."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    args = (field.positions, field.active, cand, valid)
+    (ck, nk), k1 = kernels_a_call("mutual_nearest", lambda: kernels.mutual_nearest(*args))
+    cp, npl = warpfield.mutual_nearest(field, cand, valid, plain=True)
+    (c3, n3), k3 = kernels_a_call("mutual_nearest", lambda: kernels.mutual_nearest(*args, three_launch=True))
+    n, nc = field.positions.shape[0], cand.shape[0]
+    same = (same_bits(torch, ck, cp) and same_bits(torch, nk, npl), same_bits(torch, ck, c3) and same_bits(torch, nk, n3))
+    dev = cand.device
+    rest = bool((kernels._node_bits(dev, n) == kernels._BIG_BITS).all())
+    ticket = int(kernels._ticket(dev))
+    check(name, all(same) and (k1, k3) == (1, 3 if nc else 2) and rest and ticket == 0,
+          f"{what}{nc} candidates ({int(valid.sum())} valid) x {n} nodes ({int(field.active.sum())} active): "
+          f"bit-equal to the plain version {same[0]} and to the three-launch mode {same[1]}; nodes at 1e9 (no "
+          f"valid candidate, or inactive) {int((nk == 1e9).sum())}; device kernels a call {k1} (three-launch mode "
+          f"{k3}); node scratch back at 1e9 {rest}, ticket back at {ticket}")
+    if report is None:
+        return
+    lc, ln = library_mutual_nearest(torch, field, cand, valid)
+    act = field.active
+    lerr = max(abs_err(torch, lc, cp), abs_err(torch, ln[act], npl[act]))
+    check(f"{name}_library", lerr <= TOL_D2, f"library route within {lerr:.2e} of plain (tol {TOL_D2})")
+    report[name] = dict(
+        err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.mutual_nearest(*args)),
+        plain_ms=cuda_ms(torch, lambda: warpfield.mutual_nearest(field, cand, valid, plain=True), reps=5),
+        # nodes and flags, candidates and flags in; both distance lists out;
+        # ~11 operations a (candidate, node) pair
+        bound=bound_ms(n * 13 + nc * 13 + (nc + n) * 4, nc * n * 11.0),
+        library_ms=cuda_ms(torch, lambda: library_mutual_nearest(torch, field, cand, valid)),
+    )
+    three = report[name]["reference_ms"] = cuda_ms(torch, lambda: kernels.mutual_nearest(*args, three_launch=True))
+    print(f"[time] {name}: one launch {report[name]['ms']:.4f} ms, three-launch mode {three:.4f} ms, library "
+          f"{report[name]['library_ms']:.4f} ms, plain {report[name]['plain_ms']:.4f} ms", flush=True)
+
+
+def hold_mutual_cases(torch, dev, nc: int, n: int) -> None:
+    """``hold_mutual`` on the adversarial ``MUTUAL_CASES`` at (nc, n)."""
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    for name in MUTUAL_CASES:
+        case = mutual_case(name, nc, n)
+        act = torch.from_numpy(case["active"]).to(dev)
+        field = warpfield.WarpField(
+            torch.from_numpy(case["positions"]).to(dev), torch.zeros((n, 8), device=dev),
+            torch.full((n,), 0.05, device=dev), act, act.sum(dtype=torch.int32),
+            torch.zeros((n,), dtype=torch.int32, device=dev))
+        hold_mutual(torch, None, f"mutual_nearest_{name}_{nc}", field, torch.from_numpy(case["cand"]).to(dev),
+                    torch.from_numpy(case["valid"]).to(dev))
 
 
 def tangential_kernels(torch, report, dev, field, inputs):
@@ -2462,8 +2632,11 @@ def clone_state(st):
 
 def knn_counted(kernels):
     """The launch counters, with kernel E's split by what its calls ask for
-    (``kernels.knn_kinds``) as "knn_blend[kind]"."""
-    return {**kernels.launches, **{f"knn_blend[{k}]": v for k, v in kernels.knn_kinds.items()}}
+    (``kernels.knn_kinds``) as "knn_blend[kind]", and the device kernels
+    that G's edge term and E's mutual-nearest pass reported
+    (``kernels.device_kernels``) as "name[device kernels]"."""
+    return {**kernels.launches, **{f"knn_blend[{k}]": v for k, v in kernels.knn_kinds.items()},
+            **{f"{k}[device kernels]": v for k, v in kernels.device_kernels.items()}}
 
 
 def drive_kernel_path(torch, cfg, dev, frames):
@@ -2535,6 +2708,9 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     if cfg.solver_p2p_adaptive:
         check(f"{tag}_gate_launches", launches["p2p_gate"] == len(frames) - 1,
               f"kernel M once a step: {launches['p2p_gate']} launches in {len(frames) - 1} steps")
+    one = {k: (launches[k], launches[f"{k}[device kernels]"]) for k in kernels.device_kernels}
+    check(f"{tag}_one_launch", all(c == d for c, d in one.values()),
+          f"one device kernel a call of G's edge term and E's mutual-nearest pass (calls, device kernels): {one}")
     check(f"{tag}_frame0_kernels", launches["extract_cloud"] == 1 and launches["sample_nodes"] == 1,
           f"kernel L once in frame 0: extract_cloud {launches['extract_cloud']}, sample_nodes "
           f"{launches['sample_nodes']}")
@@ -3045,6 +3221,7 @@ def dense_kernels(torch, report, dev, nr_depths):
     et = ws.edge_term(cfg, s, field.dq)
     check("dense_state", bool(tr.icp_res.ok), f"base config: nodes {int(field.count)} of {n}, solve points P = {npt}, "
           f"6N = {6 * n}, ICP ok on the next frame")
+    hold_edge_order(torch, "edge_term_order_base", cfg, s, field.dq, "the base config's frame-3 state: ")
     lists_b = (npt * 8 + n + 1) * 4
     mat_b = (6 * n) ** 2 * 4
     # rows, neighbour ids, node lists, edge blocks, dsts and lists, diagonal
@@ -3466,6 +3643,8 @@ def parity_nonrigid_main(torch, args, dev, card, nr_depths, report):
     nc = cand.shape[0]
     hfield, _, _ = hold_insert(torch, "insert_nodes_full_res", cfg, states[0].warp, cand, valid,
                                    states[0].frame_idx, min_candidates=16385)
+    hold_mutual(torch, report, "mutual_nearest_full_res", hfield, cand, valid)
+    hold_mutual_cases(torch, dev, nc, n)
     cd2, _ = warpfield.mutual_nearest(hfield, cand, valid)
     gate = hfield.count < n
     hold_select(torch, "insert_select_full_res", cfg, hfield, cand, valid, cd2, gate)
@@ -4315,6 +4494,8 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
         shards.append(sk)
     dts = [ws.data_term(cfg, sk, field.dq, True) for sk in shards]
     et = ws.edge_term(cfg, s, field.dq)
+    hold_edge_order(torch, "edge_term_order_sharded", cfg, s, field.dq, f"the sharded solve's edge term ({SHARDS} "
+                    f"shards): ")
     with deterministic(torch):
         blocks = mesh.psum([dt.blocks for dt in dts]) + et.diag
     diag_eff, unit = ws.damping_terms(cfg, field.active, blocks)
@@ -4523,6 +4704,7 @@ def sharded_base_main(torch, args, dev, card, nr_depths, report, cfg=None):
         same = same and torch.equal(gk, ws.data_gram(cfg, sk, dt, scale, plain=True))
         grams.append(gk)
     et = ws.edge_term(cfg, s, dq)
+    hold_edge_order(torch, "edge_term_order_sharded_base", cfg, s, dq, "the sharded base config's edge term: ")
     dt1 = ws.data_term(cfg, s, dq, True)
     one = ws.dense_gram(cfg, s, dt1, et)
     summed = mesh.psum(grams) + ws.edge_jtj(s, et)
@@ -5346,7 +5528,8 @@ def main() -> int:
             name=name, route="cuda", source=src if "/" in src else f"dynamicfusion_tpu_torch/csrc/{src}", replaces=rep,
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"], path=path,
-            **{k: r[k] for k in ("iterations", "iteration_ms", "cluster", "serial_ms") if k in r},
+            **{k: r[k] for k in ("iterations", "iteration_ms", "cluster", "serial_ms", "reference_ms", "gated_ms")
+               if k in r},
         ))
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {card} | {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "

@@ -52,10 +52,18 @@
 // smallest squared distances kept in registers (only the k-th enters the
 // radius, so ties need no order), then clip(scale sqrt(max(d2_k, 0)),
 // min, max).
-// _mutual_nearest's per-node minimum over valid candidates is reduced in
-// shared memory and then across blocks with an integer atomicMin on the
-// bits of the (clamped, non-negative) float: a min does not depend on the
-// order, so the result is deterministic.
+// _mutual_nearest is one launch: a candidate's scan split over kMnLanes
+// = 32 lanes, a warp a candidate (the fastest of 1-32 at both the preset's
+// 4 800 candidates and reference_parity()'s 19 200; PERF.md gives the
+// other counts' times), so each lane's node gets one shared atomicMin on
+// the bits of the (clamped, non-negative) float a warp (at fewer lanes a
+// shuffle tree first takes the minimum over the warp's candidates), one
+// global atomicMin a block, and the last block converts the bits (a
+// ticket). The design before (a fill, a one-thread-a-candidate
+// scan whose every valid thread took atomicMin on one shared word in the
+// same step, 32 ways contended, and a conversion: three launches) stays
+// as the reference. A min does not depend on the order, so both give the
+// same bits every run.
 #include "common.cuh"
 #include "dq.cuh"
 
@@ -313,6 +321,120 @@ __global__ void __launch_bounds__(kThreads) knn_blend_kernel(DF_KNN_PARAMS) {
   }
 }
 
+// the one-launch mutual-nearest pass: S = kMnLanes lanes a candidate, lane
+// s taking the staged nodes s, s + S, ... A warp's lanes l, l + S, ... test
+// the same node for the warp's 32 / S candidates in the same step, so the
+// node's minimum over them is an xor-shuffle tree (one redux at S = 1,
+// none at S = 32) and one shared atomicMin from the first candidate's
+// lane, kMnUnroll
+// steps at a time; the block's minima go to node_bits with one global
+// atomicMin a node a tile. node_bits holds kBig's bits at every entry
+// between launches: the last block to finish (a ticket) converts each
+// entry to node_d2 and puts kBig back. A candidate's minimum (fminf,
+// which skips a NaN as the one-thread scan's did) merges its S lanes by
+// a shuffle tree.
+constexpr int kMnLanes = 32;
+constexpr int kMnThreads = 512;
+constexpr int kMnUnroll = 4;
+
+__global__ void __launch_bounds__(kMnThreads)
+mutual_nearest_one_kernel(const float* __restrict__ pos, const bool* __restrict__ active, int n,
+                          const float* __restrict__ cand, const bool* __restrict__ valid, int nc,
+                          float* __restrict__ cand_d2, int* __restrict__ node_bits, float* __restrict__ node_d2,
+                          unsigned int* __restrict__ ticket) {
+  constexpr int S = kMnLanes;
+  static_assert(S >= 1 && S <= 32 && (S & (S - 1)) == 0, "a candidate's lanes: a power of two in a warp");
+  constexpr int kBigBits = 0x4e6e6b28;  // __float_as_int(1e9f)
+  __shared__ float4 sp[kTile];
+  __shared__ int smin[kTile];
+  __shared__ bool last;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int i = static_cast<int>(t / S);
+  const int s = static_cast<int>(t % S);
+  const int lane = threadIdx.x & 31;
+  const bool live = i < nc;
+  const bool ok = live && valid[i];
+  const float qx = live ? dfk::nan_to_num(cand[3 * i]) : 0.0f;
+  const float qy = live ? dfk::nan_to_num(cand[3 * i + 1]) : 0.0f;
+  const float qz = live ? dfk::nan_to_num(cand[3 * i + 2]) : 0.0f;
+  const float qq = (qx * qx + qy * qy) + qz * qz;
+  float best = INFINITY;
+  // the block holds a candidate (the same for all its threads)
+  if (static_cast<long long>(blockIdx.x) * (blockDim.x / S) < nc) {
+    for (int base = 0; base < n; base += kTile) {
+      __syncthreads();
+      stage_packed(pos, active, n, base, sp);
+      for (int j = threadIdx.x; j < kTile; j += blockDim.x) smin[j] = kBigBits;
+      __syncthreads();
+      const int m = min(kTile, n - base);
+      // kMnUnroll steps at a time: their loads, distances, trees and
+      // atomics each issued together
+      for (int j0 = 0; j0 < m; j0 += S * kMnUnroll) {
+        float4 p[kMnUnroll];
+        int v[kMnUnroll];
+#pragma unroll
+        for (int u = 0; u < kMnUnroll; ++u) {
+          const int j = j0 + u * S + s;
+          p[u] = sp[j < m ? j : 0];
+        }
+#pragma unroll
+        for (int u = 0; u < kMnUnroll; ++u) {
+          v[u] = kBigBits;
+          if (j0 + u * S + s < m) {
+            const float qn = (qx * p[u].x + qy * p[u].y) + qz * p[u].z;
+            // ((qq - 2 qn) + |n|^2) + 0 or 1e9, as stage_nodes' two arrays
+            // give it: the sum before the offset is never -0
+            const float du = (qq - 2.0f * qn) + fabsf(p[u].w);
+            const float d = signbit(p[u].w) ? du + kBig : du;
+            best = fminf(best, d);
+            // non-negative floats order as their bit patterns
+            if (ok) v[u] = __float_as_int(fmaxf(d, 0.0f));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kMnUnroll; ++u) {
+          if constexpr (S == 1) {
+            v[u] = __reduce_min_sync(0xffffffffu, v[u]);
+          } else {
+#pragma unroll
+            for (int o = S; o < 32; o <<= 1) v[u] = min(v[u], __shfl_xor_sync(0xffffffffu, v[u], o));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kMnUnroll; ++u) {
+          const int j = j0 + u * S + s;
+          if (lane < S && j < m && v[u] != kBigBits) atomicMin(&smin[j], v[u]);
+        }
+      }
+      __syncthreads();
+      for (int j = threadIdx.x; j < m; j += blockDim.x) {
+        if (smin[j] != kBigBits) atomicMin(&node_bits[base + j], smin[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < S; o <<= 1) best = fminf(best, __shfl_xor_sync(0xffffffffu, best, o));
+  if (live && s == 0) cand_d2[i] = fmaxf(best, 0.0f);
+  __threadfence();  // this block's minima before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll 4
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int b = __ldcg(node_bits + j);
+    node_bits[j] = kBigBits;
+    node_d2[j] = __int_as_float(b);
+  }
+  if (threadIdx.x == 0) *ticket = 0u;  // ready for the next launch on this stream
+}
+
+// the three-launch design before (a fill of node_bits, this scan, a
+// conversion): one thread a candidate walking every node, every valid
+// thread of the block taking atomicMin on the node's shared word in the
+// same step; the reference the one launch is held against bit for bit,
+// no path of the port asks for it
 __global__ void __launch_bounds__(kThreads)
 mutual_nearest_kernel(const float* __restrict__ pos, const bool* __restrict__ active, int n,
                       const float* __restrict__ cand, const bool* __restrict__ valid, int nc,
@@ -338,7 +460,6 @@ mutual_nearest_kernel(const float* __restrict__ pos, const bool* __restrict__ ac
         const float qn = (qx * sx[j] + qy * sy[j]) + qz * sz[j];
         const float d = ((qq - 2.0f * qn) + snn[j]) + sbig[j];
         best = fminf(best, d);
-        // non-negative floats order as their bit patterns
         if (ok) atomicMin(&smin[j], __float_as_int(fmaxf(d, 0.0f)));
       }
     }
@@ -507,17 +628,38 @@ extern "C" int df_knn_blend(const void* pos, const void* active, const void* rad
   return static_cast<int>(err);
 }
 
+// the one launch: node_bits is the device's scratch at kBig between
+// launches and ticket its zero-between-launches counter; three_launch: the
+// design before (node_bits any scratch of n, ticket unused); *launched:
+// the kernels this call launched
 extern "C" int df_mutual_nearest(const void* pos, const void* active, int n, const void* cand, const void* valid,
-                                 int nc, void* cand_d2, void* node_bits, void* node_d2, void* stream) {
+                                 int nc, void* cand_d2, void* node_bits, void* node_d2, void* ticket,
+                                 int three_launch, int* launched, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fill_bits_kernel<<<(n + 255) / 256, 256, 0, s>>>(static_cast<int*>(node_bits), n);
-  if (nc > 0) {
-    mutual_nearest_kernel<<<(nc + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        static_cast<const float*>(pos), static_cast<const bool*>(active), n, static_cast<const float*>(cand),
-        static_cast<const bool*>(valid), nc, static_cast<float*>(cand_d2), static_cast<int*>(node_bits));
+  const float* p = static_cast<const float*>(pos);
+  const bool* act = static_cast<const bool*>(active);
+  const float* c = static_cast<const float*>(cand);
+  const bool* ok = static_cast<const bool*>(valid);
+  float* cd = static_cast<float*>(cand_d2);
+  int* bits = static_cast<int*>(node_bits);
+  float* nd = static_cast<float*>(node_d2);
+  if (!three_launch) {
+    if (ticket == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    unsigned int* tk = static_cast<unsigned int*>(ticket);
+    const long long threads = static_cast<long long>(nc) * kMnLanes;
+    const unsigned blocks = static_cast<unsigned>(threads > 0 ? (threads + kMnThreads - 1) / kMnThreads : 1);
+    mutual_nearest_one_kernel<<<blocks, kMnThreads, 0, s>>>(p, act, n, c, ok, nc, cd, bits, nd, tk);
+    *launched = 1;
+    return static_cast<int>(cudaGetLastError());
   }
-  bits_to_float_kernel<<<(n + 255) / 256, 256, 0, s>>>(static_cast<const int*>(node_bits),
-                                                        static_cast<float*>(node_d2), n);
+  fill_bits_kernel<<<(n + 255) / 256, 256, 0, s>>>(bits, n);
+  *launched = 1;
+  if (nc > 0) {
+    mutual_nearest_kernel<<<(nc + kThreads - 1) / kThreads, kThreads, 0, s>>>(p, act, n, c, ok, nc, cd, bits);
+    ++*launched;
+  }
+  bits_to_float_kernel<<<(n + 255) / 256, 256, 0, s>>>(bits, nd, n);
+  ++*launched;
   return static_cast<int>(cudaGetLastError());
 }
 

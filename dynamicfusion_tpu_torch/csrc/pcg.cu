@@ -63,10 +63,20 @@
 // thread per (point, row), then a warp per node, heaviest first, with the
 // PCG's per-lane walk and shuffle tree) and its edge step (a thread per
 // node, the serial walk) are below.
-// The edge entry is one thread per edge (closed-form Jacobians from
-// dq.cuh) and one thread per node for its share of Jᵀr and of the
-// diagonal blocks, again in list order; spd6_inv is one thread per node,
-// the Schur-complement closed form of the plain version.
+// The edge entry (closed-form Jacobians from dq.cuh) is one launch: a
+// block owns eight nodes and their source edges, six threads an edge
+// (side x residual axis) write the two 3x6 Jacobians to shared memory,
+// the block writes the edges' three 6x6 blocks and two gradients with
+// neighbouring threads on neighbouring addresses (the design before, a
+// thread an edge, stored at a 144 B stride a lane from 32 blocks at the
+// preset's 4 096 edges), and a thread a (node, entry) sums its node's 42
+// entries in list order. A node's destination-side edges belong to other
+// blocks; the block evaluates them again (~2 000 operations an edge)
+// rather than order a node phase after a grid-wide edge phase: the same
+// code under the same flags gives the same bits, so no block waits on
+// another, and the only cross-block step is the cost's ordered sum,
+// which the last block to finish takes (a ticket). spd6_inv is one
+// thread per node, the Schur-complement closed form of the plain version.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
@@ -85,51 +95,207 @@ __device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__floa
 
 // ---------------------------------------------------------------- edges
 
+struct EdgeArgs {
+  const float* dqs;
+  const int64_t* src;
+  const int64_t* dst;
+  const bool* valid;
+  const float* v_dst;
+  const float* alpha;
+  float lam, delta;
+};
+
+// edge e's endpoints, its Huber- and alpha-weighted residual scale swe and
+// its cost: the same operations wherever an edge is evaluated, so every
+// thread that evaluates edge e gets the same bits
+struct EdgeEval {
+  dfk::DualQuat ai, aj;
+  dfk::Vec3 v;
+  float re[3];
+  float swe, cost;
+};
+
+__device__ __forceinline__ EdgeEval edge_eval(const EdgeArgs& a, int e) {
+  EdgeEval r;
+  r.ai = dfk::load_dq(a.dqs + 8 * a.src[e]);
+  r.aj = dfk::load_dq(a.dqs + 8 * a.dst[e]);
+  r.v = {a.v_dst[3 * e], a.v_dst[3 * e + 1], a.v_dst[3 * e + 2]};
+  const dfk::Vec3 ti = dfk::dq_transform(r.ai, r.v);
+  const dfk::Vec3 tj = dfk::dq_transform(r.aj, r.v);
+  r.re[0] = ti.x - tj.x;
+  r.re[1] = ti.y - tj.y;
+  r.re[2] = ti.z - tj.z;
+  const float ren = sqrtf((r.re[0] * r.re[0] + r.re[1] * r.re[1]) + r.re[2] * r.re[2]);
+  const float la = a.lam * a.alpha[e];
+  const float ok = a.valid[e] ? 1.0f : 0.0f;
+  const float hub = ren <= a.delta ? 1.0f : sqrtf(a.delta / fmaxf(ren, 1e-20f));
+  r.swe = (hub * ok) * sqrtf(la);
+  const float rho = ren <= a.delta ? 0.5f * ren * ren : a.delta * (ren - 0.5f * a.delta);
+  r.cost = (rho * ok) * la;
+  return r;
+}
+
+// row c (the residual's axis c) of the weighted Jacobian of side 0 (J_i,
+// the source node's twist) or side 1 (J_j, the destination's)
+__device__ __forceinline__ void edge_row(const EdgeEval& r, int side, int c, float out[6]) {
+  const dfk::Vec3 axis = {c == 0 ? 1.0f : 0.0f, c == 1 ? 1.0f : 0.0f, c == 2 ? 1.0f : 0.0f};
+  const dfk::DualQuat a = side == 0 ? r.ai : r.aj;  // a copy: a reference would put r in local memory
+  dfk::Quat gr, gd;
+  dfk::grad_transform(a.r, a.d, r.v, axis, gr, gd);
+  dfk::twist_row(gr, gd, a, side == 0 ? r.swe : -r.swe, out);
+}
+
+// (J_xᵀ J_y)[p][q] and (J_xᵀ r_w)[p] from the rows, summed over the three
+// residual axes in order
+__device__ __forceinline__ float jtj_entry(const float (*x)[6], const float (*y)[6], int p, int q) {
+  return (x[0][p] * y[0][q] + x[1][p] * y[1][q]) + x[2][p] * y[2][q];
+}
+
+__device__ __forceinline__ float jtr_entry(const float (*x)[6], const float* rw, int p) {
+  return (x[0][p] * rw[0] + x[1][p] * rw[1]) + x[2][p] * rw[2];
+}
+
+// the one-launch edge term. Block b owns the nodes [b kEdgeNodes, ...) and
+// their source edges e = node * kc + c. Its jobs, in order: those source
+// edges (both sides), then the destination-side edges of its nodes in
+// e_order (side 1 only, evaluated again here: the edge's owner is another
+// block, and the same code gives the same bits). A round takes
+// kEdgeSlots jobs, six threads a job (side x residual axis) writing the
+// rows to shared memory; then the block writes the source edges' blocks
+// and gradients with neighbouring threads on neighbouring addresses, and
+// thread (node, entry) adds the round's terms of its node to its one sum
+// (36 diagonal entries, then 6 of Jᵀr) in job order: the kc source edges,
+// then the destination edges in list order, from zero, one add at a time,
+// as edge_nodes_kernel sums them. The last block to finish (a ticket, back
+// at zero after) sums the per-edge costs in sum_kernel's order.
+constexpr int kEdgeThreads = 512;
+constexpr int kEdgeNodes = 8;
+constexpr int kEdgeSlots = 85;
+constexpr int kEntries = 42;
+static_assert(kEdgeNodes * kEntries <= kEdgeThreads && 6 * kEdgeSlots <= kEdgeThreads, "a thread an item");
+
+__global__ void __launch_bounds__(kEdgeThreads)
+edge_term_kernel(EdgeArgs a, const int* __restrict__ e_order, const int* __restrict__ e_off, int n, int kc,
+                 float* __restrict__ h_ii, float* __restrict__ h_jj, float* __restrict__ h_ij,
+                 float* __restrict__ g_i, float* __restrict__ g_j, float* __restrict__ cost_e,
+                 float* __restrict__ jtr_out, float* __restrict__ diag, float* __restrict__ cost,
+                 unsigned int* __restrict__ ticket) {
+  __shared__ float rows[kEdgeSlots][2][3][6];
+  __shared__ float rws[kEdgeSlots][3];
+  __shared__ bool last;
+  const int n0 = blockIdx.x * kEdgeNodes;
+  const int nb = min(kEdgeNodes, n - n0);
+  const int ns = nb * kc, q0 = e_off[n0];
+  const int jobs = ns + (e_off[n0 + nb] - q0);
+  const int e0 = n0 * kc;
+  const int node = threadIdx.x / kEntries, entry = threadIdx.x % kEntries;
+  const bool summing = node < nb;
+  int src_lo = 0, src_hi = 0, dst_lo = 0, dst_hi = 0;
+  if (summing) {
+    src_lo = node * kc;
+    src_hi = src_lo + kc;
+    dst_lo = ns + (e_off[n0 + node] - q0);
+    dst_hi = ns + (e_off[n0 + node + 1] - q0);
+  }
+  float acc = 0.0f;
+  for (int j0 = 0; j0 < jobs; j0 += kEdgeSlots) {
+    const int m = min(kEdgeSlots, jobs - j0);
+    {
+      const int slot = threadIdx.x / 6, side = (threadIdx.x % 6) / 3, c = threadIdx.x % 3;
+      const int j = j0 + slot;
+      if (slot < m && (j < ns || side == 1)) {
+        const int e = j < ns ? e0 + j : e_order[q0 + j - ns];
+        const EdgeEval r = edge_eval(a, e);
+        edge_row(r, side, c, rows[slot][side][c]);
+        if (side == 1 && c == 0) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) rws[slot][k] = r.re[k] * r.swe;
+        }
+        if (j < ns && side == 0 && c == 0) cost_e[e0 + j] = r.cost;
+      }
+    }
+    __syncthreads();
+    // the round's source edges: rows j0 .. j0 + ms - 1 are edges e0 + j0 ...
+    const int ms = max(min(m, ns - j0), 0);
+    const size_t eb = static_cast<size_t>(e0 + j0);
+    for (int f = threadIdx.x; f < ms * 36; f += blockDim.x) {
+      const int slot = f / 36, p = (f % 36) / 6, q = f % 6;
+      const float(*ji)[6] = rows[slot][0];
+      const float(*jj)[6] = rows[slot][1];
+      h_ii[36 * eb + f] = jtj_entry(ji, ji, p, q);
+      h_jj[36 * eb + f] = jtj_entry(jj, jj, p, q);
+      h_ij[36 * eb + f] = jtj_entry(ji, jj, p, q);
+    }
+    for (int f = threadIdx.x; f < ms * 6; f += blockDim.x) {
+      const int slot = f / 6, p = f % 6;
+      g_i[6 * eb + f] = jtr_entry(rows[slot][0], rws[slot], p);
+      g_j[6 * eb + f] = jtr_entry(rows[slot][1], rws[slot], p);
+    }
+    if (summing) {
+      const int p = entry < 36 ? entry / 6 : entry - 36, q = entry % 6;
+      for (int j = max(src_lo, j0); j < min(src_hi, j0 + m); ++j) {
+        const float(*ji)[6] = rows[j - j0][0];
+        acc += entry < 36 ? jtj_entry(ji, ji, p, q) : jtr_entry(ji, rws[j - j0], p);
+      }
+      for (int j = max(dst_lo, j0); j < min(dst_hi, j0 + m); ++j) {
+        const float(*jj)[6] = rows[j - j0][1];
+        acc += entry < 36 ? jtj_entry(jj, jj, p, q) : jtr_entry(jj, rws[j - j0], p);
+      }
+    }
+    __syncthreads();
+  }
+  if (summing) {
+    const int nd = n0 + node;
+    if (entry >= 36) {
+      jtr_out[6 * nd + entry - 36] = acc;
+    } else if (diag != nullptr) {
+      diag[36 * nd + entry] = acc;
+    }
+  }
+  __threadfence();  // this block's costs before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float total = ordered_sum(cost_e, n * kc);
+  if (threadIdx.x == 0) {
+    *cost = total;
+    *ticket = 0u;  // ready for the next launch on this stream
+  }
+}
+
+// the three-launch design before (the reference the one launch is held
+// against bit for bit; no path of the port asks for it): a thread an
+// edge, ...
 __global__ void __launch_bounds__(kThreads)
-edge_kernel(const float* __restrict__ dqs, const int64_t* __restrict__ src, const int64_t* __restrict__ dst,
-            const bool* __restrict__ valid, const float* __restrict__ v_dst, const float* __restrict__ alpha,
-            int ne, float lam, float delta, float* __restrict__ h_ii, float* __restrict__ h_jj,
-            float* __restrict__ h_ij, float* __restrict__ g_i, float* __restrict__ g_j,
-            float* __restrict__ cost_e) {
+edge_kernel(EdgeArgs a, int ne, float* __restrict__ h_ii, float* __restrict__ h_jj, float* __restrict__ h_ij,
+            float* __restrict__ g_i, float* __restrict__ g_j, float* __restrict__ cost_e) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= ne) return;
-  const dfk::DualQuat ai = dfk::load_dq(dqs + 8 * src[e]);
-  const dfk::DualQuat aj = dfk::load_dq(dqs + 8 * dst[e]);
-  const dfk::Vec3 v = {v_dst[3 * e], v_dst[3 * e + 1], v_dst[3 * e + 2]};
-  const dfk::Vec3 ti = dfk::dq_transform(ai, v);
-  const dfk::Vec3 tj = dfk::dq_transform(aj, v);
-  const float re[3] = {ti.x - tj.x, ti.y - tj.y, ti.z - tj.z};
-  const float ren = sqrtf((re[0] * re[0] + re[1] * re[1]) + re[2] * re[2]);
-  const float la = lam * alpha[e];
-  const float ok = valid[e] ? 1.0f : 0.0f;
-  const float hub = ren <= delta ? 1.0f : sqrtf(delta / fmaxf(ren, 1e-20f));
-  const float swe = (hub * ok) * sqrtf(la);
-  const float rho = ren <= delta ? 0.5f * ren * ren : delta * (ren - 0.5f * delta);
-  cost_e[e] = (rho * ok) * la;
+  const EdgeEval r = edge_eval(a, e);
+  cost_e[e] = r.cost;
   float ji[3][6], jj[3][6];
-  const dfk::Vec3 axes[3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f}, {0.0f, 0.0f, 1.0f}};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    dfk::Quat gr, gd;
-    dfk::grad_transform(ai.r, ai.d, v, axes[c], gr, gd);
-    dfk::twist_row(gr, gd, ai, swe, ji[c]);
-    dfk::grad_transform(aj.r, aj.d, v, axes[c], gr, gd);
-    dfk::twist_row(gr, gd, aj, -swe, jj[c]);
+    edge_row(r, 0, c, ji[c]);
+    edge_row(r, 1, c, jj[c]);
   }
-  const float rw[3] = {re[0] * swe, re[1] * swe, re[2] * swe};
+  const float rw[3] = {r.re[0] * r.swe, r.re[1] * r.swe, r.re[2] * r.swe};
 #pragma unroll
-  for (int a = 0; a < 6; ++a) {
-    g_i[6 * e + a] = (ji[0][a] * rw[0] + ji[1][a] * rw[1]) + ji[2][a] * rw[2];
-    g_j[6 * e + a] = (jj[0][a] * rw[0] + jj[1][a] * rw[1]) + jj[2][a] * rw[2];
+  for (int p = 0; p < 6; ++p) {
+    g_i[6 * e + p] = jtr_entry(ji, rw, p);
+    g_j[6 * e + p] = jtr_entry(jj, rw, p);
 #pragma unroll
-    for (int b = 0; b < 6; ++b) {
-      h_ii[36 * e + 6 * a + b] = (ji[0][a] * ji[0][b] + ji[1][a] * ji[1][b]) + ji[2][a] * ji[2][b];
-      h_jj[36 * e + 6 * a + b] = (jj[0][a] * jj[0][b] + jj[1][a] * jj[1][b]) + jj[2][a] * jj[2][b];
-      h_ij[36 * e + 6 * a + b] = (ji[0][a] * jj[0][b] + ji[1][a] * jj[1][b]) + ji[2][a] * jj[2][b];
+    for (int q = 0; q < 6; ++q) {
+      h_ii[36 * e + 6 * p + q] = jtj_entry(ji, ji, p, q);
+      h_jj[36 * e + 6 * p + q] = jtj_entry(jj, jj, p, q);
+      h_ij[36 * e + 6 * p + q] = jtj_entry(ji, jj, p, q);
     }
   }
 }
 
+// ... a thread a node walking its edges serially, then sum_kernel's cost
 __global__ void __launch_bounds__(kThreads)
 edge_nodes_kernel(const float* __restrict__ h_ii, const float* __restrict__ h_jj, const float* __restrict__ g_i,
                   const float* __restrict__ g_j, const int* __restrict__ e_order, const int* __restrict__ e_off,
@@ -846,26 +1012,48 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), size_t smem, cudaStream_t s
 
 }  // namespace
 
+// ticket: the device's (1,) zero-between-launches counter of the one
+// launch; three_launch: the design before (edge_kernel, edge_nodes_kernel,
+// sum_kernel; the reference mode, ticket unused); *launched: the kernels
+// this call launched
 extern "C" int df_edge_term(const void* dqs, const void* src, const void* dst, const void* valid, const void* v_dst,
                             const void* alpha, int ne, int n, const void* e_order, const void* e_off, float lam,
                             float delta, void* h_ii, void* h_jj, void* h_ij, void* g_i, void* g_j, void* cost_e,
-                            void* jtr, void* diag, void* cost, void* stream) {
+                            void* jtr, void* diag, void* cost, void* ticket, int three_launch, int* launched,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ne % n != 0) return static_cast<int>(cudaErrorInvalidValue);
-  edge_kernel<<<(ne + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(dqs), static_cast<const int64_t*>(src), static_cast<const int64_t*>(dst),
-      static_cast<const bool*>(valid), static_cast<const float*>(v_dst), static_cast<const float*>(alpha), ne, lam,
-      delta, static_cast<float*>(h_ii), static_cast<float*>(h_jj), static_cast<float*>(h_ij),
-      static_cast<float*>(g_i), static_cast<float*>(g_j), static_cast<float*>(cost_e));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0 || ne % n != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const EdgeArgs a{static_cast<const float*>(dqs), static_cast<const int64_t*>(src),
+                   static_cast<const int64_t*>(dst), static_cast<const bool*>(valid),
+                   static_cast<const float*>(v_dst), static_cast<const float*>(alpha), lam, delta};
+  const int* order = static_cast<const int*>(e_order);
+  const int* off = static_cast<const int*>(e_off);
+  if (!three_launch) {
+    if (ticket == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    edge_term_kernel<<<(n + kEdgeNodes - 1) / kEdgeNodes, kEdgeThreads, 0, s>>>(
+        a, order, off, n, ne / n, static_cast<float*>(h_ii), static_cast<float*>(h_jj), static_cast<float*>(h_ij),
+        static_cast<float*>(g_i), static_cast<float*>(g_j), static_cast<float*>(cost_e), static_cast<float*>(jtr),
+        static_cast<float*>(diag), static_cast<float*>(cost), static_cast<unsigned int*>(ticket));
+    *launched = 1;
+    return static_cast<int>(cudaGetLastError());
+  }
+  *launched = 0;
+  if (ne > 0) {
+    edge_kernel<<<(ne + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        a, ne, static_cast<float*>(h_ii), static_cast<float*>(h_jj), static_cast<float*>(h_ij),
+        static_cast<float*>(g_i), static_cast<float*>(g_j), static_cast<float*>(cost_e));
+    ++*launched;
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   edge_nodes_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       static_cast<const float*>(h_ii), static_cast<const float*>(h_jj), static_cast<const float*>(g_i),
-      static_cast<const float*>(g_j), static_cast<const int*>(e_order), static_cast<const int*>(e_off), n, ne / n,
-      static_cast<float*>(jtr), static_cast<float*>(diag));
-  err = cudaGetLastError();
+      static_cast<const float*>(g_j), order, off, n, ne / n, static_cast<float*>(jtr), static_cast<float*>(diag));
+  ++*launched;
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_kernel<<<1, kReduceThreads, 0, s>>>(static_cast<const float*>(cost_e), ne, static_cast<float*>(cost));
+  ++*launched;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,14 +12,16 @@ constexpr int kReduceThreads = 1024;
 // (thread t adds x[t], x[t + kReduceThreads], ..., then a shuffle tree
 // adds each warp's lanes and another the 32 warps' sums), taken by a block
 // of any multiple of 32 threads that divides kReduceThreads: each thread
-// stands for the threads t, t + blockDim.x, ... of that block. Every
-// thread of the block must call it; thread 0 gets the total.
-__device__ inline float ordered_sum(const float* __restrict__ x, int n) {
+// stands for the threads t, t + blockDim.x, ... of that block. The loads
+// go through L2 (__ldcg), so a launch's last block may sum what its other
+// blocks wrote. Every thread of the block must call it; thread 0 gets the
+// total.
+__device__ inline float ordered_sum(const float* x, int n) {
   __shared__ float sm[kReduceThreads / 32];
   for (int base = 0; base < kReduceThreads; base += blockDim.x) {
     const int t = base + threadIdx.x;
     float s = 0.0f;
-    for (int i = t; i < n; i += kReduceThreads) s += x[i];
+    for (int i = t; i < n; i += kReduceThreads) s += __ldcg(x + i);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
     if ((t & 31) == 0) sm[t >> 5] = s;

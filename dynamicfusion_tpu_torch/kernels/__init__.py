@@ -74,6 +74,10 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # "k8 blend warp", "k8 warp normals", ...): the same launches as
 # ``launches["knn_blend"]``, for the per-shape rows of a report
 knn_kinds: Dict[str, int] = {}
+# the device kernels that the C entries of the wrappers with a reference
+# mode (G's edge term, E's mutual-nearest pass) report launching: one a
+# call, three in the mode kept as the reference
+device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -91,14 +95,16 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
     ),
     "df_knn_blend": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
+    "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P),
     "df_warp_trilinear": (_P, _I, _P, _P, _I, _F, _F, _F, _F, _P, _P, _P),
     "df_data_term_lanes": (_P,),
     "df_data_term": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P, _P, _P, _P,
         _P,
     ),
-    "df_edge_term": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "df_edge_term": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+    ),
     "df_spd6_inv": (_P, _I, _P, _P),
     "df_pcg_plan": (_I, _I, _I, _I, _I, _I, _P),
     "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -144,6 +150,8 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     knn_kinds.clear()
+    for k in device_kernels:
+        device_kernels[k] = 0
 
 
 def _nvcc() -> str:
@@ -320,10 +328,11 @@ def bilateral_filter(
     return out
 
 
-# kernel B's ticket, one a device: the blocks of a launch count themselves
-# out on it and the last one puts it back to zero. Every kernel of the port
-# is issued on the current stream (``_stream``), so no two launches of B on
-# a device hold it at once.
+# the ticket of kernels B, G's edge term and E's mutual-nearest pass, one a
+# device: the blocks of a launch count themselves out on it and the last
+# one puts it back to zero. Every kernel of the port is issued on the
+# current stream (``_stream``), so no two launches on a device hold it at
+# once.
 _TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -687,10 +696,27 @@ def knn_blend(positions, active, radius, dq, queries, k: int, blend: bool = Fals
     return d2, idx, w, b, q, wp, wn
 
 
-def mutual_nearest(positions, active, candidates, valid):
-    """Kernel E: (per-candidate squared distance to the nearest active node
-    (C,), per-node squared distance to the nearest valid candidate (N,)),
-    both clamped at 0; nodes with no valid candidate read 1e9."""
+# the one-launch mutual-nearest pass's per-node scratch, one a device: the
+# bits of 1e9 at every entry between launches (the last block of a launch
+# puts them back), grown to the largest node count asked for
+_BIG_BITS = int(np.float32(1e9).view(np.int32))
+_NODE_BITS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _node_bits(dev: torch.device, n: int) -> torch.Tensor:
+    t = _NODE_BITS.get(dev)
+    if t is None or t.shape[0] < n:
+        t = _NODE_BITS[dev] = torch.full((max(n, 1),), _BIG_BITS, dtype=torch.int32, device=dev)
+    return t
+
+
+def mutual_nearest(positions, active, candidates, valid, three_launch: bool = False):
+    """Kernel E (one launch): (per-candidate squared distance to the
+    nearest active node (C,), per-node squared distance to the nearest
+    valid candidate (N,)), both clamped at 0; nodes with no valid candidate
+    read 1e9. ``three_launch`` launches the design before (a fill, the
+    one-thread-a-candidate scan, a conversion), the same bits: the
+    reference of the holds; no path of the port asks for it."""
     n = _check_field(positions, active, None, None)
     nc = _check_points(candidates, "candidates")
     _check(valid, "valid", torch.bool, (nc,))
@@ -698,13 +724,16 @@ def mutual_nearest(positions, active, candidates, valid):
     lib = load()
     dev = candidates.device
     cand_d2 = torch.empty((nc,), dtype=torch.float32, device=dev)
-    bits = torch.empty((n,), dtype=torch.int32, device=dev)
     node_d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    bits = torch.empty((n,), dtype=torch.int32, device=dev) if three_launch else _node_bits(dev, n)
+    ran = ctypes.c_int(0)
     rc = lib.df_mutual_nearest(
         positions.data_ptr(), active.data_ptr(), n, candidates.data_ptr(), valid.data_ptr(), nc,
-        cand_d2.data_ptr(), bits.data_ptr(), node_d2.data_ptr(), _stream(dev),
+        cand_d2.data_ptr(), bits.data_ptr(), node_d2.data_ptr(), None if three_launch else _ticket(dev).data_ptr(),
+        int(three_launch), ctypes.byref(ran), _stream(dev),
     )
     _done("mutual_nearest", rc)
+    device_kernels["mutual_nearest"] += ran.value
     return cand_d2, node_d2
 
 
@@ -830,14 +859,19 @@ def data_term_lanes() -> Tuple[int, int]:
 # --------------------------------------------------------------------------
 
 
-def edge_term(dqs, e_src, e_dst, e_valid, v_dst, alpha, e_order, e_off, lam: float, delta: float):
-    """Kernel G's edge entry (csrc/pcg.cu): (Jᵀr (6N,), cost (), h_ii,
-    h_jj, h_ij (E, 6, 6), diagonal share (N, 6, 6)) of the Huber-weighted
-    ARAP term at eps = 0. Edge e's source node must be e // (E / N)."""
+def edge_term(dqs, e_src, e_dst, e_valid, v_dst, alpha, e_order, e_off, lam: float, delta: float,
+              three_launch: bool = False):
+    """Kernel G's edge entry (csrc/pcg.cu, one launch): (Jᵀr (6N,), cost (),
+    h_ii, h_jj, h_ij (E, 6, 6), diagonal share (N, 6, 6)) of the Huber-
+    weighted ARAP term at eps = 0. Edge e's source node must be e // (E /
+    N). ``three_launch`` launches the design before (a thread an edge, a
+    thread a node, one block for the cost), which sums in the same order:
+    the reference the one launch is held against bit for bit; no path of
+    the port asks for it."""
     _check(dqs, "dqs", torch.float32)
     n = dqs.shape[0]
     ne = e_src.shape[0]
-    if ne % n:
+    if n == 0 or ne % n:
         raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
     _check(e_src, "e_src", torch.int64, (ne,))
     _check(e_dst, "e_dst", torch.int64, (ne,))
@@ -854,13 +888,16 @@ def edge_term(dqs, e_src, e_dst, e_valid, v_dst, alpha, e_order, e_off, lam: flo
     jtr = torch.empty((6 * n,), dtype=torch.float32, device=dev)
     diag = torch.empty((n, 6, 6), dtype=torch.float32, device=dev)
     cost = torch.empty((), dtype=torch.float32, device=dev)
+    ran = ctypes.c_int(0)
     rc = lib.df_edge_term(
         dqs.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(), e_valid.data_ptr(), v_dst.data_ptr(),
         alpha.data_ptr(), ne, n, e_order.data_ptr(), e_off.data_ptr(), _f32(lam), _f32(delta),
         h[0].data_ptr(), h[1].data_ptr(), h[2].data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
-        cost_e.data_ptr(), jtr.data_ptr(), diag.data_ptr(), cost.data_ptr(), _stream(dev),
+        cost_e.data_ptr(), jtr.data_ptr(), diag.data_ptr(), cost.data_ptr(),
+        None if three_launch else _ticket(dev).data_ptr(), int(three_launch), ctypes.byref(ran), _stream(dev),
     )
     _done("edge_term", rc)
+    device_kernels["edge_term"] += ran.value
     return jtr, cost, h[0], h[1], h[2], diag
 
 

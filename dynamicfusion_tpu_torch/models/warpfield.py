@@ -286,8 +286,8 @@ def warp_dq_at(field: WarpField, points: torch.Tensor, k: int = 8, plain: bool =
 
 def _mutual_nearest_plain(field: WarpField, candidates: torch.Tensor, valid: torch.Tensor):
     q = torch.nan_to_num(candidates)
-    cand, node = [], torch.full((field.positions.shape[0],), _BIG, device=q.device)
-    for s in range(0, max(q.shape[0], 1), _CHUNK):
+    cand, node = [q.new_zeros((0,))], torch.full((field.positions.shape[0],), _BIG, device=q.device)
+    for s in range(0, q.shape[0], _CHUNK):
         d2 = _dist2_rows(q[s : s + _CHUNK], field.positions, field.active)
         cand.append(d2.amin(dim=1))
         node = torch.minimum(node, torch.where(valid[s : s + _CHUNK, None], d2, _BIG).amin(dim=0))

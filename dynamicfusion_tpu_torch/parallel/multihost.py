@@ -156,9 +156,32 @@ def run_frames(cfg: DynamicFusionConfig, mesh: Mesh, frames: int, plain: bool = 
     return out
 
 
+def shutdown() -> None:
+    """Leave the process group: every rank waits at a barrier (none tears
+    its end down while a peer is still in a collective), then the group is
+    destroyed. Drop every ``Mesh`` over the group first: a group that a
+    live object still holds is only freed when the interpreter exits, and
+    gloo's threads torn down there abort the process ("terminate called
+    without an active exception") after its work is done."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _run_rank(args, rank: int, world: int) -> dict:
+    """This rank's frames over the global mesh; the mesh is freed on
+    return."""
+    mesh = make_global_mesh()
+    t0 = time.perf_counter()
+    frames = run_frames(worker_config(args.config), mesh, args.frames)
+    return dict(rank=rank, world=world, shards=mesh.n, backend=_LAYOUT["backend"], device=str(mesh.device),
+                seconds=time.perf_counter() - t0, frames=frames)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--init-method", default="env://", help="tcp://HOST:PORT, or env:// (torchrun)")
+    ap.add_argument("--init-method", default="env://", help="tcp://HOST:PORT, file:///PATH, or env:// (torchrun)")
     ap.add_argument("--world-size", type=int, default=None)
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--local-shards", type=int, default=2)
@@ -177,18 +200,15 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     try:
-        mesh = make_global_mesh()
-        t0 = time.perf_counter()
-        frames = run_frames(worker_config(args.config), mesh, args.frames)
-        res = dict(rank=rank, world=world, shards=mesh.n, backend=_LAYOUT["backend"], device=str(mesh.device),
-                   seconds=time.perf_counter() - t0, frames=frames)
-        line = json.dumps(res)
-        if args.out:
-            with open(args.out, "w") as f:
-                f.write(line + "\n")
-        print("MULTIHOST_OK " + line, flush=True)
-    finally:
+        line = json.dumps(_run_rank(args, rank, world))
+    except BaseException:
         dist.destroy_process_group()
+        raise
+    shutdown()
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print("MULTIHOST_OK " + line, flush=True)
     return 0
 
 

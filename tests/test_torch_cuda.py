@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import INSERT_CASES
+from chip_smoke import INSERT_CASES, MUTUAL_CASES
 from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.core import se3
@@ -509,6 +509,59 @@ def test_insert_select_kernel_adversarial(dev, name, nc, cap):
         assert int(kept) > 0
         assert torch.equal(slots, ref.slots)
         assert torch.equal(new_pos.view(torch.int32), ref.new_pos.view(torch.int32))
+
+
+def test_edge_term_one_launch_is_three_launch(dev, nr_model):
+    """Kernel G's edge term in one launch within 1e-5 of the plain version
+    and bit for bit against the three-launch mode in all six outputs; one
+    device kernel a call, three in that mode; the ticket back at zero."""
+    from chip_smoke import edge_args
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    st, inputs, _ = nr_model
+    s = ws.prepare(NR, st.warp, inputs)
+    args = edge_args(NR, s, st.warp.dq)
+    k0 = kernels.device_kernels["edge_term"]
+    one = kernels.edge_term(*args)
+    k1 = kernels.device_kernels["edge_term"]
+    three = kernels.edge_term(*args, three_launch=True)
+    assert (k1 - k0, kernels.device_kernels["edge_term"] - k1) == (1, 3)
+    plain = ws.edge_term(NR, s, st.warp.dq, plain=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(one, three, plain):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert _close(a, c, 1e-5)
+    assert int(kernels._ticket(dev)) == 0
+
+
+@pytest.mark.parametrize("name", MUTUAL_CASES)
+@pytest.mark.parametrize("nc, n", [(300, 96), (4800, 1024)])
+def test_mutual_nearest_kernel_adversarial(dev, name, nc, n):
+    """Kernel E's mutual-nearest pass in one launch bit for bit against the
+    plain version and the three-launch mode on the adversarial cases
+    (``chip_smoke.mutual_case``); one device kernel a call, three in that
+    mode (two without a candidate); the node scratch and the ticket back
+    at rest."""
+    from chip_smoke import mutual_case
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    case = mutual_case(name, nc, n)
+    act = torch.from_numpy(case["active"]).to(dev)
+    field = warpfield.WarpField(torch.from_numpy(case["positions"]).to(dev), torch.zeros((n, 8), device=dev),
+                                torch.full((n,), 0.05, device=dev), act, act.sum(dtype=torch.int32),
+                                torch.zeros((n,), dtype=torch.int32, device=dev))
+    cand, valid = torch.from_numpy(case["cand"]).to(dev), torch.from_numpy(case["valid"]).to(dev)
+    ref = warpfield.mutual_nearest(field, cand, valid, plain=True)
+    k0 = kernels.device_kernels["mutual_nearest"]
+    outs = [kernels.mutual_nearest(field.positions, act, cand, valid)]
+    k1 = kernels.device_kernels["mutual_nearest"]
+    outs.append(kernels.mutual_nearest(field.positions, act, cand, valid, three_launch=True))
+    assert (k1 - k0, kernels.device_kernels["mutual_nearest"] - k1) == (1, 3 if len(cand) else 2)
+    torch.cuda.synchronize()
+    for got in outs:
+        for a, b in zip(got, ref):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert bool((kernels._node_bits(dev, n) == kernels._BIG_BITS).all()) and int(kernels._ticket(dev)) == 0
 
 
 def test_fuse_kernel_nonrigid(dev, nr_model):

@@ -16,7 +16,6 @@ field."""
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -193,24 +192,17 @@ def test_dispatch_follows_the_jax_conditions(name, kw, n, want):
         solve=False, system=False, eval=False, integrate=False, raycast=False, whole=True)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_two_processes_match_one_process_mesh(tmp_path):
     """Two gloo ranks of two CPU shards each (4 shards), one step of the
     JAX package's multi-process worker config: the ranks' poses and costs
     equal, and bit-equal to make_mesh(4) in one process (the same
     reduction tree)."""
-    port = _free_port()
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     outs = [str(tmp_path / f"rank{r}.json") for r in range(2)]
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "dynamicfusion_tpu_torch.parallel.multihost", "--init-method",
-             f"tcp://localhost:{port}", "--world-size", "2", "--rank", str(r), "--local-shards", "2",
+             f"file://{tmp_path / 'store'}", "--world-size", "2", "--rank", str(r), "--local-shards", "2",
              "--device", "cpu", "--config", "small", "--frames", "1", "--out", outs[r]],
             env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
@@ -282,14 +274,18 @@ def test_initialize_reads_the_host_layout(monkeypatch):
     assert calls == [("card", "cuda:0"), ("gloo", 2, 1)]
 
 
+# a rank of the test below; the mesh (which holds the process group) goes
+# before multihost.shutdown, so that the group is freed there and not at
+# the interpreter's exit
 _RANKS_SCRIPT = """
 import json, sys
 import torch
 import torch.distributed as dist
+from dynamicfusion_tpu_torch.parallel import multihost
 from dynamicfusion_tpu_torch.parallel.mesh import Mesh
-port, world, rank, per, out = sys.argv[1:]
+store, world, rank, per, out = sys.argv[1:]
 world, rank, per = int(world), int(rank), int(per)
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
 n = world * per
 mesh = Mesh(["cpu"] * n, group=dist.group.WORLD, local=range(rank * per, (rank + 1) * per))
 whole = torch.arange(n * 2 * 3, dtype=torch.int16).reshape(n * 2, 3) * 7 - 50
@@ -297,7 +293,8 @@ slabs = mesh.split(whole)
 res = dict(halo=[t.tolist() for t in mesh.halo(slabs, 2)], whole=mesh.gather(slabs).tolist(),
            weight=mesh.gather(mesh.split(whole.view(torch.uint16))).view(torch.int16).tolist(),
            psum=float(mesh.psum([torch.tensor(float(k + 1)) for k in mesh.local])))
-dist.destroy_process_group()
+del mesh, slabs
+multihost.shutdown()
 json.dump(res, open(out, "w"))
 """
 
@@ -307,10 +304,10 @@ def test_mesh_collectives_across_ranks(tmp_path):
     rank's planes to its neighbours, wrapped at the ends) equals the
     one-process mesh's; the gather of int16 and uint16 slabs gives the
     whole; the psum sums every shard."""
-    port, world, per = _free_port(), 3, 2
+    store, world, per = tmp_path / "store", 3, 2
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     outs = [str(tmp_path / f"r{r}.json") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, "-c", _RANKS_SCRIPT, str(port), str(world), str(r), str(per), outs[r]],
+    procs = [subprocess.Popen([sys.executable, "-c", _RANKS_SCRIPT, str(store), str(world), str(r), str(per), outs[r]],
                               env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     logs = []
