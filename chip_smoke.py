@@ -88,7 +88,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    one device kernel a call, three in its three-launch mode, as its C
    entry reports them (``kernels.device_kernels``), and one a call on
    every non-rigid run of the main path; kernel D's launch on a frame that
-   does not fuse (ok false) timed;
+   does not fuse (ok false) timed; kernel K's cluster (``hold_plan``) bit
+   for bit against its plain version and its one-block mode, two device
+   kernels a call in each, on the preset's grid and the numpy-made
+   ``PLAN_CASES`` (the capped lists, the phase split, 32^3 bricks,
+   ``small()``), and on 4 slabs in phase 17 and at 32^3 in phase 23, each
+   also gated (ok false: count 0, counts 0); the gated frame's integrate
+   leaves the volume as it is; kernel D's persistent grid
+   (``hold_fuse``) bit for bit against its reference mode (a block a
+   slot), rigid and non-rigid here, on 4 slabs in phase 17, at the five
+   float storages rigid, non-rigid and on 4 slabs in phase 20 and at
+   512^3 in phase 23, each gated too, each mode timed fusing and gated;
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -835,6 +845,12 @@ def rigid_kernels(torch, args, report, dev, card):
         library_ms=None,
     )
     del scratch, vk, vp
+    # D (the persistent grid) against its reference mode, fusing and gated
+    ref, ref_gated, gated = hold_fuse(torch, "fuse_bricks_reference", cfg, st.vol, dists, cam_grid, g, bp,
+                                      what="rigid, ")
+    report["fuse_bricks"].update(reference_ms=ref, gated_ms=gated, reference_gated_ms=ref_gated)
+    print(f"[time] fuse_bricks: a fusing launch {report['fuse_bricks']['ms']:.4f} ms (reference mode {ref:.4f}), "
+          f"a gated launch {gated:.4f} ms (reference mode {ref_gated:.4f})", flush=True)
 
     # C: ray march + refine at the model-map resolution with the temporal band
     rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
@@ -1141,8 +1157,11 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     gated = cuda_ms(torch, lambda: bricks.fuse(cfg, scratch, lookup, cam_grid, g, cfg.intr, bp, off_t, q_grid=cf.q,
                                                packed=True))
     report["fuse_bricks_nonrigid"]["gated_ms"] = gated
-    print(f"[time] fuse_bricks_nonrigid: a fusing launch {report['fuse_bricks_nonrigid']['ms']:.4f} ms, a gated "
-          f"launch (ok false) {gated:.4f} ms", flush=True)
+    ref, ref_gated, _ = hold_fuse(torch, "fuse_bricks_nonrigid_reference", cfg, st.vol, lookup, cam_grid, g, bp, cf.q,
+                                  True, what="non-rigid, ")
+    report["fuse_bricks_nonrigid"].update(reference_ms=ref, reference_gated_ms=ref_gated)
+    print(f"[time] fuse_bricks_nonrigid: a fusing launch {report['fuse_bricks_nonrigid']['ms']:.4f} ms (reference "
+          f"mode {ref:.4f}), a gated launch (ok false) {gated:.4f} ms (reference mode {ref_gated:.4f})", flush=True)
     del scratch, vk, vp, df
     dense_fusion_kernels(torch, report, dev, cfg, st, tr, cf)
 
@@ -1346,6 +1365,49 @@ def mutual_case(name: str, nc: int, n: int, seed: int = 11) -> dict:
     return dict(positions=pos, active=active, cand=cand, valid=valid)
 
 
+# kernel K's held cases beside the main paths' states: name: (config
+# maker, overrides, grid stride (None: the brick size), grid jitter (m)
+# standing in for a warp, phase split, camera z shift (m)); "capped" and
+# "small_capped_warped": a band cap above the surface band bricks but
+# below all band bricks, so the permuted rest of the band fills the cap,
+# and a wide cap below the wide bricks ("capped": the camera 0.3 m closer)
+PLAN_CASES = {
+    "preset_warped": ("default_dynamicfusion", {}, 8, 2e-3, 1, 0.0),
+    "preset_rigid_split": ("default_dynamicfusion", dict(fusion_phase_split=2), None, 0.0, 2, 0.0),
+    "capped": ("default_dynamicfusion", dict(integrate_band_cap=1300, integrate_wide_cap=8), 8, 2e-3, 1, 0.3),
+    "kinfu_warped": ("default_kinfu", {}, 8, 2e-3, 1, 0.0),
+    "small_capped_warped": ("small", dict(integrate_band_cap=47, integrate_wide_cap=1), 2, 2e-3, 1, 0.0),
+}
+
+
+def plan_inputs(torch, dev, name, seed: int = 3):
+    """(config, dists, camera-frame corner grid, stride, phase, split) of
+    ``PLAN_CASES[name]`` on ``dev``: the four-sphere scene at the config's
+    own size with seeded sensor noise and a dropout region, the corner
+    grid at the stride with seeded jitter, made with numpy."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.io import synthetic
+    from dynamicfusion_tpu_torch.ops import preprocess
+
+    maker, kw, stride, jitter, split, near = PLAN_CASES[name]
+    cfg = dataclasses.replace(getattr(DynamicFusionConfig, maker)(), **kw)
+    g = stride or cfg.brick_size
+    pose = synthetic.orbit_pose(0.03, target=TARGET)
+    pose[2, 3] += near
+    rng = np.random.RandomState(seed)
+    d = synthetic.scene_depth(cfg.intr, cfg.rows, cfg.cols, pose, **SCENE).astype(np.int32)
+    d = np.where(d > 0, d + rng.randint(-4, 5, d.shape), 0)
+    d[cfg.rows // 4: cfg.rows // 2, : cfg.cols // 3] = 0
+    dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(d.astype(np.uint16)).to(dev))
+    gp = cfg.volume_dims // g + 1
+    ax = np.arange(gp, dtype=np.float64) * g * cfg.voxel_size
+    world = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), axis=-1) + np.asarray(cfg.volume_origin)
+    w2c = np.linalg.inv(pose)
+    cam = world @ w2c[:3, :3].T + w2c[:3, 3] + jitter * rng.randn(gp, gp, gp, 3)
+    phase = torch.ones((), dtype=torch.int32, device=dev) if split > 1 else None
+    return cfg, dists, torch.from_numpy(cam.astype(np.float32)).to(dev), g, phase, split
+
+
 def hash_twins(cov: float, seed: int = 0, span: int = 512):
     """Two distinct integer cells whose int32 cell hashes are equal (a
     birthday search over seeded random cells)."""
@@ -1534,6 +1596,95 @@ def kernels_a_call(name, fn):
     before = kernels.device_kernels[name]
     out = fn()
     return out, kernels.device_kernels[name] - before
+
+
+# the device kernels a call of each wrapper whose C entry reports them
+# (``kernels.device_kernels``): G's edge term and E's mutual-nearest pass
+# one launch, K's plan the mip tiles and the cluster, D's fuse one
+DEVICE_KERNELS_A_CALL = {"edge_term": 1, "mutual_nearest": 1, "brick_plan": 2, "fuse_bricks": 1}
+
+
+def same_plan(torch, a, b) -> bool:
+    """Two brick plans alike bit for bit: classes, windows, surface flags
+    and the work list (ids, kinds, count, counts)."""
+    return all(torch.equal(x, y) for x, y in zip(a.classes, b.classes)) and all(
+        torch.equal(x, y) for x, y in zip(a.work, b.work))
+
+
+def same_volume(torch, a, b) -> bool:
+    return same_bits(torch, a.tsdf, b.tsdf) and same_bits(torch, a.weight, b.weight)
+
+
+def hold_plan(torch, name, cfg, dists, grid, g, phase=None, split=1, slab=None, what=""):
+    """Kernel K (the cluster) bit for bit against its plain version and its
+    one-block mode: classes, windows, surface flags and the work list; two
+    device kernels a call in either mode (``kernels_a_call``); the gated
+    call (ok false) gives count 0 and counts (0, 0, 0) in both modes and in
+    the plain version. ``slab``: ``plan_slab``'s (x_brick0, band_cap,
+    wide_cap). Returns (the plan, the one-block mode's ms, a gated call's
+    ms)."""
+    from dynamicfusion_tpu_torch.ops import bricks
+
+    def run(**kw):
+        if slab is None:
+            return bricks.plan(cfg, dists, grid, g, cfg.intr, phase, split, **kw)
+        return bricks.plan_slab(cfg, dists, grid, g, cfg.intr, *slab, phase, split, **kw)
+
+    pk, k_new = kernels_a_call("brick_plan", run)
+    p1, k_one = kernels_a_call("brick_plan", lambda: run(reference=True))
+    exact = same_plan(torch, pk, run(plain=True)) and same_plan(torch, pk, p1)
+    on = torch.ones((), dtype=torch.bool, device=dists.device)
+    off = torch.zeros_like(on)
+    zero = all(int(b.work.count[0]) == 0 and b.work.counts.tolist() == [0, 0, 0]
+               for b in (run(ok=off), run(ok=off, reference=True), run(ok=off, plain=True)))
+    c = pk.classes
+    n_hi = int(((c.cls == bricks.BAND) & c.surf).sum())
+    check(name, exact and zero and (k_new, k_one) == (2, 2),
+          f"{what}{c.cls.shape[0]} bricks (skip, front, band, wide) {torch.bincount(c.cls, minlength=4).tolist()}, "
+          f"{n_hi} surface band bricks, a list of {int(pk.work.count[0])}, counts {pk.work.counts.tolist()}: the "
+          f"cluster equals the plain version and the one-block mode bit for bit {exact}; ok false gives count 0 "
+          f"and counts 0 in each {zero}; device kernels a call {k_new} (one-block mode {k_one})")
+    return pk, cuda_ms(torch, lambda: run(ok=on, reference=True)), cuda_ms(torch, lambda: run(ok=off))
+
+
+def hold_fuse(torch, name, cfg, vol, lookup, grid, g, bp, q_grid=None, packed=False, what=""):
+    """Kernel D (the persistent grid) bit for bit against its reference
+    mode (a block a slot) on clones of ``vol``: the persistent kernel
+    launched (a compiled (b, g), aligned volumes), one device kernel a call
+    in either mode, the volume changed; then a gated call (ok false) in
+    each mode leaves the volume as it is. Returns (the reference mode's
+    ms, its gated ms, the persistent kernel's gated ms)."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+    from dynamicfusion_tpu_torch.ops import bricks
+
+    on = torch.ones((), dtype=torch.bool, device=lookup.device)
+    off = torch.zeros_like(on)
+
+    def clone(v):
+        return TsdfVolume(v.tsdf.clone(), v.weight.clone())
+
+    def fuse(v, ok, reference=False):
+        bricks.fuse(cfg, v, lookup, grid, g, cfg.intr, bp, ok, q_grid, packed, reference=reference)
+
+    vk, vr = clone(vol), clone(vol)
+    persistent = kernels.fuse_bricks_persistent(vk.tsdf, vk.weight, cfg.brick_size, g)
+    _, k_new = kernels_a_call("fuse_bricks", lambda: fuse(vk, on))
+    _, k_ref = kernels_a_call("fuse_bricks", lambda: fuse(vr, on, True))
+    same, changed = same_volume(torch, vk, vr), not same_volume(torch, vk, vol)
+    before = clone(vk)
+    fuse(vk, off)
+    fuse(vr, off, True)
+    gated = same_volume(torch, vk, before) and same_volume(torch, vr, before)
+    check(name, persistent and same and changed and gated and (k_new, k_ref) == (1, 1),
+          f"{what}{vol.tsdf.dtype}/{vol.weight.dtype} {tuple(vol.tsdf.shape)}, {int(bp.work.count[0])} listed "
+          f"bricks, stride {g}: the persistent kernel ({persistent}) equals the reference mode bit for bit {same}, "
+          f"the volume changed {changed}; ok false leaves it as it is in both {gated}; device kernels a call "
+          f"{k_new} (reference {k_ref})")
+    del vk, vr, before
+    scratch = clone(vol)
+    return (cuda_ms(torch, lambda: fuse(scratch, on, True)), cuda_ms(torch, lambda: fuse(scratch, off, True)),
+            cuda_ms(torch, lambda: fuse(scratch, off)))
 
 
 def edge_args(cfg, s, dq):
@@ -2281,8 +2432,7 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
     cam_grid = se3.transform_points(se3.inverse(st.pose), cf.warped).contiguous()
     pk_ = bricks.plan(cfg, dk, cam_grid, g, intr)
     pp_ = bricks.plan(cfg, dk, cam_grid, g, intr, plain=True)
-    exact = all(torch.equal(a, b) for a, b in zip(pk_.classes, pp_.classes)) and all(
-        torch.equal(a, b) for a, b in zip(pk_.work, pp_.work))
+    exact = same_plan(torch, pk_, pp_)
     nbr = pk_.classes.cls.shape[0]
     levels = int(math.ceil(math.log2(max(rows, cols)))) + 1
     pyr_ref = bricks.build_depth_pyramid(dk, levels)
@@ -2307,6 +2457,23 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
                        total * 3.0 + nbr * (27 * 25.0 + 16 * 50.0)),
         library_ms=None,
     )
+    # K's cluster against its one-block mode and the plain version, on this
+    # grid and on the numpy-made cases (the capped lists, the phase split,
+    # 32^3 bricks, small()), each gated too; then the gated frame's
+    # integrate leaves the volume as it is
+    _, one, gated = hold_plan(torch, "brick_plan_cluster", cfg, dk, cam_grid, g, what="the preset's grid: ")
+    report["brick_plan"].update(reference_ms=one, gated_ms=gated)
+    print(f"[time] brick_plan: {report['brick_plan']['ms']:.4f} ms (one-block mode {one:.4f}), gated {gated:.4f} ms",
+          flush=True)
+    for case in PLAN_CASES:
+        ccfg, cd, cgrid, cg, cphase, csplit = plan_inputs(torch, dev, case)
+        hold_plan(torch, f"brick_plan_{case}", ccfg, cd, cgrid, cg, cphase, csplit, what=f"{case}: ")
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    vol = volume_model.TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())
+    counts = bricks.integrate_bricks(cfg, vol, dk, cam_grid, g, intr, ok=off, q_grid=cf.q,
+                                     conf=torch.ones_like(dk))
+    check("integrate_bricks_gated", same_volume(torch, vol, st.vol) and counts.tolist() == [0, 0, 0],
+          f"ok false: counts {counts.tolist()}, the volume as it was")
 
 
 def factored_csr(torch, ws, s, sysm, edges=True):
@@ -2589,6 +2756,9 @@ def rigid_main(torch, args, dev, card):
     print(f"[rigid] icp_ok {sum(oks)}/{len(oks)}; brick counts (band, wide, dropped) first {counts[0]} last {counts[-1]}")
     check("rigid_launches", all(launches[k] > 0 for k in RIGID_KERNELS + STENCIL_KERNELS),
           f"kernels A-D and I-K launched: {launches}")
+    per_call = {k: (launches[k], kernels.device_kernels[k]) for k in ("brick_plan", "fuse_bricks")}
+    check("rigid_device_kernels", all(c * DEVICE_KERNELS_A_CALL[k] == d for k, (c, d) in per_call.items()),
+          f"K two device kernels a call, D one (calls, device kernels): {per_call}")
     check("rigid_icp_ok", all(oks), f"ICP healthy on every tracked frame ({sum(oks)}/{len(oks)})")
     steady = sorted(frame_ms[2:])
     print(f"[time] {card} | rigid frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{args.frames - 1}), "
@@ -2709,8 +2879,9 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
         check(f"{tag}_gate_launches", launches["p2p_gate"] == len(frames) - 1,
               f"kernel M once a step: {launches['p2p_gate']} launches in {len(frames) - 1} steps")
     one = {k: (launches[k], launches[f"{k}[device kernels]"]) for k in kernels.device_kernels}
-    check(f"{tag}_one_launch", all(c == d for c, d in one.values()),
-          f"one device kernel a call of G's edge term and E's mutual-nearest pass (calls, device kernels): {one}")
+    check(f"{tag}_one_launch", all(c * DEVICE_KERNELS_A_CALL[k] == d for k, (c, d) in one.items()),
+          f"one device kernel a call of G's edge term, E's mutual-nearest pass and D, two of K "
+          f"(calls, device kernels): {one}")
     check(f"{tag}_frame0_kernels", launches["extract_cloud"] == 1 and launches["sample_nodes"] == 1,
           f"kernel L once in frame 0: extract_cloud {launches['extract_cloud']}, sample_nodes "
           f"{launches['sample_nodes']}")
@@ -4420,8 +4591,7 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
         gk, qk = bricks.corner_slab(grid, k, n, b, g), bricks.corner_slab(cf.q, k, n, b, g)
         pk = bricks.plan_slab(cfg, tr.dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap)
         pp = bricks.plan_slab(cfg, tr.dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap, plain=True)
-        exact = exact and all(torch.equal(x, y) for x, y in zip(pk.classes, pp.classes)) and all(
-            torch.equal(x, y) for x, y in zip(pk.work, pp.work))
+        exact = exact and same_plan(torch, pk, pp)
         vk = TsdfVolume(state.vol.tsdf[k].clone(), state.vol.weight[k].clone())
         vp = TsdfVolume(state.vol.tsdf[k].clone(), state.vol.weight[k].clone())
         bricks.fuse(cfg, vk, lookup, gk, g, cfg.intr, pk, on, qk, True)
@@ -4472,6 +4642,21 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
         library_ms=None,
     )
     del scratch
+    # K's cluster and D's persistent grid against their reference modes on every slab
+    k_ref = k_gated = d_ref = d_ref_gated = d_gated = 0.0
+    for k, (gk, qk, _) in enumerate(plans):
+        slab = TsdfVolume(state.vol.tsdf[k], state.vol.weight[k])
+        pk, one, gated = hold_plan(torch, f"brick_plan_slab_{k}", cfg, tr.dists, gk, g,
+                                   slab=(k * dl // b, band_cap, wide_cap), what=f"slab {k} of {n}: ")
+        ref, ref_gated, gated_d = hold_fuse(torch, f"fuse_bricks_slab_{k}", cfg, slab, lookup, gk, g, pk, qk, True,
+                                            what=f"slab {k} of {n}: ")
+        k_ref, k_gated = k_ref + one, k_gated + gated
+        d_ref, d_ref_gated, d_gated = d_ref + ref, d_ref_gated + ref_gated, d_gated + gated_d
+    report["brick_plan_slab"].update(reference_ms=k_ref, gated_ms=k_gated)
+    report["fuse_bricks_slab"].update(reference_ms=d_ref, gated_ms=d_gated, reference_gated_ms=d_ref_gated)
+    print(f"[time] slab modes over {n} shards: K {report['brick_plan_slab']['ms']:.4f} ms (one-block mode "
+          f"{k_ref:.4f}, gated {k_gated:.4f}), D {report['fuse_bricks_slab']['ms']:.4f} ms (reference mode "
+          f"{d_ref:.4f}; gated {d_gated:.4f}, reference {d_ref_gated:.4f})", flush=True)
     # enabled=False: every slab bit-identical
     fn = sharded_fusion.make_sharded_integrate(cfg, mesh)
     copy = SlabVolume(tuple(t.clone() for t in state.vol.tsdf), tuple(w.clone() for w in state.vol.weight))
@@ -4956,7 +5141,8 @@ def storage_kernels(torch, report, dev, nr_depths):
     R on its frame-0 volume: C's every refine and normal mode and its slab
     mode (4 shards) and R at the two float tsdfs; D rigid, non-rigid and
     on 4 slabs, F1, F2 (the phase split, the incidence confidence) and L at
-    the five storage pairs; each bit-equal to its plain version, timed."""
+    the five storage pairs; each bit-equal to its plain version, timed; D
+    also bit-equal to its reference mode (``hold_fuse``)."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.core import se3
@@ -5097,6 +5283,9 @@ def storage_kernels(torch, report, dev, nr_depths):
                            + nbr * 16, n_front * bv * 8.0 + (n_work - n_front) * bv * 100.0),
             library_ms=None,
         )
+        ref, ref_gated, gated = hold_fuse(torch, f"fuse_bricks_nonrigid_reference_{tag}", cp_, vp_, lookup, cam_grid,
+                                          g, bp, cf.q, True, what="non-rigid, ")
+        report[f"fuse_bricks_nonrigid_{tag}"].update(reference_ms=ref, gated_ms=gated, reference_gated_ms=ref_gated)
         vk, vp = pair(vp_), pair(vp_)
         rigid = dataclasses.replace(cp_, integrate_mode="brick")
         tsdf_ops.integrate(rigid, vk, tr.dists, vol2cam, intr, ok=on)
@@ -5104,6 +5293,9 @@ def storage_kernels(torch, report, dev, nr_depths):
         err = max(apart(torch, vk.tsdf, vp.tsdf), apart(torch, vk.weight, vp.weight))
         check(f"fuse_bricks_rigid_{tag}", err == 0, f"{t}/{w}: the rigid brick fusion equal the plain version's "
               f"bit for bit (max distance {err})")
+        rgrid = tsdf_ops.brick_grid(rigid, vol2cam)
+        hold_fuse(torch, f"fuse_bricks_rigid_reference_{tag}", rigid, vp_, tr.dists, rgrid, b,
+                  bricks.plan(rigid, tr.dists, rgrid, b, intr), what="rigid, ")
         # D's slab mode on the 4 shards
         err, listed, plans = 0, 0, []
         for k in range(n):
@@ -5116,6 +5308,8 @@ def storage_kernels(torch, report, dev, nr_depths):
             err = max(err, apart(torch, sk.tsdf, sp.tsdf), apart(torch, sk.weight, sp.weight))
             listed += int(pk.work.count[0])
             plans.append((gk, qk, pk, slab))
+            hold_fuse(torch, f"fuse_bricks_slab_reference_{tag}_{k}", cp_, slab, lookup, gk, g, pk, qk, True,
+                      what=f"slab {k} of {n}, ")
         check(f"fuse_bricks_slab_{tag}", err == 0 and listed > 0,
               f"{t}/{w}, {n} slabs, {listed} listed bricks: equal the plain version's bit for bit (max distance {err})")
         if tag == "f32_f32":
@@ -5282,8 +5476,9 @@ def kinfu_main(torch, args, dev, card, report):
     solve) over K frames (``--k-frames``) of the deforming scene rendered
     with its intrinsics: the base cell's checks (phase 9), the plain step
     from each state, a profile of 3 more frames; K at its 32^3 brick grid
-    and L at 512^3 against their plain versions, timed. Returns the run's
-    launches."""
+    and L at 512^3 against their plain versions, timed, K also against its
+    one-block mode and D at 512^3 against its reference mode. Returns the
+    run's launches."""
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.core import se3
     from dynamicfusion_tpu_torch.io import synthetic
@@ -5317,8 +5512,7 @@ def kinfu_main(torch, args, dev, card, report):
     cam_grid = se3.transform_points(se3.inverse(tr.pose), cf.warped).contiguous()
     pk = bricks.plan(cfg, tr.dists, cam_grid, g, cfg.intr)
     pp = bricks.plan(cfg, tr.dists, cam_grid, g, cfg.intr, plain=True)
-    exact = all(torch.equal(a, c) for a, c in zip(pk.classes, pp.classes)) and all(
-        torch.equal(a, c) for a, c in zip(pk.work, pp.work))
+    exact = same_plan(torch, pk, pp)
     nbr = pk.classes.cls.shape[0]
     hist = torch.bincount(pk.classes.cls, minlength=4).tolist()
     rows_i, cols_i = tr.dists.shape
@@ -5338,6 +5532,16 @@ def kinfu_main(torch, args, dev, card, report):
                        total * 3.0 + nbr * (27 * 25.0 + 16 * 50.0)),
         library_ms=None,
     )
+    _, one, gated = hold_plan(torch, "brick_plan_512_cluster", cfg, tr.dists, cam_grid, g, what="512^3: ")
+    report["brick_plan_512"].update(reference_ms=one, gated_ms=gated)
+    # D at 512^3 against its reference mode, once
+    q = cf.q if cfg.fusion_quality_weight else None
+    lookup = tr.dists if not cfg.fusion_incidence_weight else bricks.pack_depth_conf(tr.dists, tr.conf)
+    ref, ref_gated, gated_d = hold_fuse(torch, "fuse_bricks_512_reference", cfg, st.vol, lookup, cam_grid, g, pk, q,
+                                        cfg.fusion_incidence_weight, what="512^3, ")
+    print(f"[time] 512^3: K {report['brick_plan_512']['ms']:.4f} ms (one-block mode {one:.4f}, gated {gated:.4f}); "
+          f"D's reference mode {ref:.4f} ms (gated {ref_gated:.4f}, the persistent grid gated {gated_d:.4f})",
+          flush=True)
     # L on the frame-0 volume
     maxp = max(cfg.max_nodes * cfg.node_sample_step, 1 << 20)
     hold_extract(torch, report, "extract_cloud_512", cfg, states[0].vol, maxp)
@@ -5528,8 +5732,8 @@ def main() -> int:
             name=name, route="cuda", source=src if "/" in src else f"dynamicfusion_tpu_torch/csrc/{src}", replaces=rep,
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"], path=path,
-            **{k: r[k] for k in ("iterations", "iteration_ms", "cluster", "serial_ms", "reference_ms", "gated_ms")
-               if k in r},
+            **{k: r[k] for k in ("iterations", "iteration_ms", "cluster", "serial_ms", "reference_ms", "gated_ms",
+                                 "reference_gated_ms") if k in r},
         ))
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {card} | {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "

@@ -75,9 +75,10 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # ``launches["knn_blend"]``, for the per-shape rows of a report
 knn_kinds: Dict[str, int] = {}
 # the device kernels that the C entries of the wrappers with a reference
-# mode (G's edge term, E's mutual-nearest pass) report launching: one a
-# call, three in the mode kept as the reference
-device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0}
+# mode report launching: G's edge term and E's mutual-nearest pass one a
+# call, three in the mode kept as the reference; K's plan two in either
+# mode (the mip tiles, then the cluster or the one block); D's fuse one
+device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0, "brick_plan": 0, "fuse_bricks": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -92,7 +93,7 @@ _SIGNATURES = {
     "df_raycast": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
     "df_fuse_bricks": (
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _P, _F, _I, _F, _I, _I, _I, _P, _P,
     ),
     "df_knn_blend": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "df_mutual_nearest": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P),
@@ -122,7 +123,7 @@ _SIGNATURES = {
     "df_coarse_band": (_P, _I, _I, _I, _F, _P, _P, _P),
     "df_brick_plan": (
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
-        _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
     ),
     "df_extract_cloud": (_P, _P, _I, _I, _F, _F, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P, _P),
     "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
@@ -569,16 +570,20 @@ def fuse_bricks(
     packed: bool = False,
     incidence_floor: float = 0.0,
     sdf_scale: bool = False,
+    reference: bool = False,
 ) -> None:
     """Kernel D (csrc/fuse_bricks.cu): front/band/wide brick updates IN
     PLACE on the tsdf (i16 codes, float32 or bfloat16) and weight (u16
-    codes or float32) volumes, one block per work
-    slot; slots at or past ``count[0]`` and every slot when ``ok`` is False
-    do nothing. ``dists`` is the depth image, or with ``packed`` the packed
+    codes or float32) volumes, a persistent grid walking the work slots up
+    to ``count[0]`` (every block returns at once when ``ok`` is False).
+    ``dists`` is the depth image, or with ``packed`` the packed
     depth+confidence image; ``q_grid`` the optional (G, G, G) observation
     weight prolonged with the grid. Slab mode: ``tsdf`` and ``weight`` a
     (dx, D, D) x-slab, ``cam_grid`` and ``q_grid`` its (dx / stride + 1, G,
-    G) corner slab, the list's ids local to the slab."""
+    G) corner slab, the list's ids local to the slab. ``reference``
+    launches the design before (a block a slot), which is also the path of
+    a (brick, stride) outside ``FUSE_SHAPES`` and of a volume not 16-byte
+    aligned (``fuse_bricks_persistent``); the two are bit-equal."""
     dx, d = tsdf.shape[0], tsdf.shape[-1]
     if tsdf.dim() != 3 or tsdf.shape[1] != d or d % brick or dx % brick or brick % stride:
         raise ValueError(f"tsdf: bad volume {tuple(tsdf.shape)} for brick {brick}, stride {stride}")
@@ -602,6 +607,7 @@ def fuse_bricks(
         _same_device(tsdf, q_grid)
     lib = load()
     rows, cols = dists.shape
+    ran = ctypes.c_int(0)
     rc = lib.df_fuse_bricks(
         tsdf.data_ptr(), weight.data_ptr(), storage, dists.data_ptr(), cam_grid.data_ptr(),
         ids.data_ptr(), kind.data_ptr(), count.data_ptr(), ok.data_ptr(),
@@ -610,9 +616,36 @@ def fuse_bricks(
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), rect,
         _f32(trunc), _f32(max_weight), _decode_scale(tsdf),
         None if q_grid is None else q_grid.data_ptr(), _f32(q_min), int(packed), _f32(incidence_floor),
-        int(sdf_scale), _stream(tsdf.device),
+        int(sdf_scale), _sm_count(tsdf.device), int(not fuse_bricks_persistent(tsdf, weight, brick, stride, reference)),
+        ctypes.byref(ran), _stream(tsdf.device),
     )
     _done("fuse_bricks", rc)
+    device_kernels["fuse_bricks"] += ran.value
+
+
+# the (brick, stride) pairs kernel D's persistent kernel is compiled for
+# (csrc/fuse_bricks.cu): the non-rigid fusion's b 16 / g 8, the rigid
+# b = g = 16, small()'s non-rigid b 16 / g 2
+FUSE_SHAPES = ((16, 8), (16, 16), (16, 2))
+
+
+def fuse_bricks_persistent(tsdf: torch.Tensor, weight: torch.Tensor, brick: int, stride: int,
+                           reference: bool = False) -> bool:
+    """Whether ``fuse_bricks`` launches its persistent kernel on these
+    volumes (else the reference mode): a compiled (brick, stride) and both
+    volumes 16-byte aligned."""
+    return (not reference and (brick, stride) in FUSE_SHAPES and tsdf.data_ptr() % 16 == 0
+            and weight.data_ptr() % 16 == 0)
+
+
+_SMS: Dict[torch.device, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 # --------------------------------------------------------------------------
@@ -1549,16 +1582,23 @@ def brick_plan(
     phase: Optional[torch.Tensor] = None,
     split: int = 1,
     x_brick0: int = 0,
+    ok: Optional[torch.Tensor] = None,
+    one_block: bool = False,
 ):
-    """Kernel K (csrc/classify.cu, two launches): the min/max/all-valid mip
-    of ``dists`` (``levels`` levels, concatenated), every brick's class,
-    window origin and surface flag (bricks outside the x-plane ``phase``
-    mod ``split`` skipped) and the work list. Returns ((dmin, dmax,
-    allvalid), (cls (NBR,) int64, u0, v0 (NBR,) int32, surf (NBR,) bool),
-    (ids, kind (NBR,) int32, count (1,) int32, counts (3,) int32)).
-    Slab mode: ``cam_grid`` a (nbx w + 1, G, G, 3) x-slab of corner points
-    whose first brick x-plane is the global plane ``x_brick0`` (the phase
-    test's), NBR = nbx (G - 1)² / w² local bricks."""
+    """Kernel K (csrc/classify.cu, two launches: the mip tiles, then one
+    thread-block cluster): the min/max/all-valid mip of ``dists``
+    (``levels`` levels, concatenated), every brick's class, window origin
+    and surface flag (bricks outside the x-plane ``phase`` mod ``split``
+    skipped) and the work list. Returns ((dmin, dmax, allvalid), (cls
+    (NBR,) int64, u0, v0 (NBR,) int32, surf (NBR,) bool), (ids, kind
+    (NBR,) int32, count (1,) int32, counts (3,) int32)). Slab mode:
+    ``cam_grid`` a (nbx w + 1, G, G, 3) x-slab of corner points whose first
+    brick x-plane is the global plane ``x_brick0`` (the phase test's), NBR
+    = nbx (G - 1)² / w² local bricks. ``ok`` (a () bool on the card) gates
+    the plan: where it is False both launches return at once and only
+    ``count`` (0) and ``counts`` (0, 0, 0) are written. ``one_block``
+    launches the design before (one block after the tiles), the reference
+    the cluster is held against bit for bit."""
     _check(dists, "dists", torch.float32)
     if dists.dim() != 2:
         raise ValueError(f"dists: expected (H, W), got {tuple(dists.shape)}")
@@ -1576,7 +1616,9 @@ def brick_plan(
         _check(phase, "phase", torch.int32, ())
     elif split > 1:
         raise ValueError("a phase split needs the phase")
-    _same_device(dists, cam_grid, perm, *([phase] if phase is not None else []))
+    if ok is not None:
+        _check(ok, "ok", torch.bool, ())
+    _same_device(dists, cam_grid, perm, *(t for t in (phase, ok) if t is not None))
     lib = load()
     dev = dists.device
     rows, cols = dists.shape
@@ -1590,14 +1632,17 @@ def brick_plan(
     surf = torch.empty((nbr,), dtype=torch.bool, device=dev)
     work = torch.empty((2 * nbr + 4,), dtype=torch.int32, device=dev)
     ids, kind, count, counts = work[:nbr], work[nbr : 2 * nbr], work[2 * nbr : 2 * nbr + 1], work[2 * nbr + 1 :]
+    ran = ctypes.c_int(0)
     rc = lib.df_brick_plan(
         dists.data_ptr(), rows, cols, levels, pyr[0].data_ptr(), pyr[1].data_ptr(), pyr[2].data_ptr(),
         cam_grid.data_ptr(), gp, w, nb, nbx, x_brick0, _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
         rect, _f32(trunc), _f32(zeps), None if phase is None else phase.data_ptr(), split, perm.data_ptr(),
         band_cap, wide_cap, cls.data_ptr(), uv[0].data_ptr(), uv[1].data_ptr(), surf.data_ptr(),
-        ids.data_ptr(), kind.data_ptr(), count.data_ptr(), counts.data_ptr(), _stream(dev),
+        ids.data_ptr(), kind.data_ptr(), count.data_ptr(), counts.data_ptr(),
+        None if ok is None else ok.data_ptr(), int(one_block), ctypes.byref(ran), _stream(dev),
     )
     _done("brick_plan", rc)
+    device_kernels["brick_plan"] += ran.value
     return (pyr[0], pyr[1], pyr[2]), (cls, uv[0], uv[1], surf), (ids, kind, count, counts)
 
 

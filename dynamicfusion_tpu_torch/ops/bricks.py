@@ -12,9 +12,9 @@ count of real entries stays a device tensor and no step syncs with the
 host.
 
 The fuse itself is CUDA kernel D (``csrc/fuse_bricks.cu``) on CUDA
-tensors: one block per listed brick, IN PLACE on the (D, D, D) volume,
-voxel addresses computed from the brick id (no brick-major transposes),
-band depths fetched directly from the lookup image. Where the JAX package
+tensors: a persistent grid walking the listed bricks, IN PLACE on the (D,
+D, D) volume, voxel addresses computed from the brick id (no brick-major
+transposes), band depths fetched directly from the lookup image. Where the JAX package
 selects from a window with one-hot matmuls, a direct load returns the same
 value. The plain version (``_fuse_plain``) does the same arithmetic with
 gathers and scatters for CPU tensors.
@@ -511,6 +511,11 @@ def _fuse_plain(
 
 
 class BrickPlan(NamedTuple):
+    """A plan's classes and work list. Where it was made with the device
+    flag ``ok`` False, only ``work.count`` (0) and ``work.counts`` (0, 0,
+    0) hold values: kernel K leaves the classes, windows, surface flags
+    and list entries unset, and the fusion reads none of them."""
+
     classes: BrickClasses
     work: WorkList
     rect: int  # band window side, pixels
@@ -518,24 +523,29 @@ class BrickPlan(NamedTuple):
 
 def plan(
     cfg: DynamicFusionConfig, dists: torch.Tensor, cam_grid: torch.Tensor, g: int, intr: Intrinsics,
-    phase: Optional[torch.Tensor] = None, split: int = 1, plain: bool = False,
+    phase: Optional[torch.Tensor] = None, split: int = 1, plain: bool = False, ok: Optional[torch.Tensor] = None,
+    reference: bool = False,
 ) -> BrickPlan:
     """Classify every brick against the dists image and list the ones to
     fuse (``_plan``), all on the device: kernel K on CUDA tensors, the
     plain version on CPU tensors or where the caller asks for it. With
     ``split`` > 1 only bricks whose x-plane index is ``phase`` (a device
-    tensor) modulo ``split`` take part, and the caps divide by ``split``."""
+    tensor) modulo ``split`` take part, and the caps divide by ``split``.
+    Where the device flag ``ok`` is False the list is empty (count 0,
+    counts (0, 0, 0)) and kernel K classifies nothing: its classes and
+    list entries are then unset. ``reference`` launches K's reference mode
+    (one block after the mip tiles); no path of the port asks for it."""
     d, b = cfg.volume_dims, cfg.brick_size
     nbr = (d // b) ** 3
     band_cap = min(max(cfg.integrate_band_cap // split, 1), nbr)
     wide_cap = min(max(cfg.integrate_wide_cap // split, 1), nbr)
-    return plan_slab(cfg, dists, cam_grid, g, intr, 0, band_cap, wide_cap, phase, split, plain)
+    return plan_slab(cfg, dists, cam_grid, g, intr, 0, band_cap, wide_cap, phase, split, plain, ok, reference)
 
 
 def plan_slab(
     cfg: DynamicFusionConfig, dists: torch.Tensor, cam_grid: torch.Tensor, g: int, intr: Intrinsics,
     x_brick0: int, band_cap: int, wide_cap: int, phase: Optional[torch.Tensor] = None, split: int = 1,
-    plain: bool = False,
+    plain: bool = False, ok: Optional[torch.Tensor] = None, reference: bool = False,
 ) -> BrickPlan:
     """``plan`` over the bricks of an x-slab of the corner grid: ``cam_grid``
     (nbx w + 1, G, G, 3), its first brick x-plane the global plane
@@ -553,6 +563,7 @@ def plan_slab(
             dists, cam_grid, b, g, intr, rect, volume_model.trunc_dist(cfg), _ZEPS, levels,
             _brick_perm_on(nbr, dists.device), band_cap, wide_cap,
             phase=None if split == 1 else phase.to(torch.int32).reshape(()), split=split, x_brick0=x_brick0,
+            ok=ok, one_block=reference,
         )
         return BrickPlan(BrickClasses(cls, u0, v0, surf), WorkList(ids, kind, count, counts), rect)
     pyr = build_depth_pyramid(dists, levels)
@@ -560,7 +571,10 @@ def plan_slab(
     if split > 1:
         bx = x_brick0 + torch.arange(nbr, device=dists.device) // (nb * nb)
         bc = bc._replace(cls=torch.where((bx % split) == phase, bc.cls, SKIP))
-    return BrickPlan(bc, _plan(bc, band_cap, wide_cap), rect)
+    work = _plan(bc, band_cap, wide_cap)
+    if ok is not None:
+        work = work._replace(count=torch.where(ok, work.count, 0), counts=torch.where(ok, work.counts, 0))
+    return BrickPlan(bc, work, rect)
 
 
 def fuse(
@@ -575,12 +589,14 @@ def fuse(
     q_grid: Optional[torch.Tensor] = None,
     packed: bool = False,
     plain: bool = False,
+    reference: bool = False,
 ) -> None:
     """Fuse the planned bricks IN PLACE: kernel D on CUDA tensors, the
     plain version on CPU tensors or where the caller asks for it.
     ``lookup`` is the dists image, or with ``packed`` the
     ``pack_depth_conf`` image; ``q_grid`` the optional per-grid-point
-    observation weight."""
+    observation weight. ``reference`` launches D's reference mode (a
+    block a slot); no path of the port asks for it."""
     if plain or lookup.device.type == "cpu":
         _fuse_plain(cfg, vol, lookup, cam_grid, g, intr, bp.classes, bp.work, ok, bp.rect, q_grid, packed)
         return
@@ -591,6 +607,7 @@ def fuse(
         trunc=volume_model.trunc_dist(cfg), max_weight=float(cfg.tsdf_max_weight),
         q_grid=q_grid, q_min=cfg.fusion_quality_min, packed=packed,
         incidence_floor=cfg.fusion_incidence_floor, sdf_scale=cfg.fusion_sdf_incidence_scale,
+        reference=reference,
     )
 
 
@@ -616,10 +633,10 @@ def integrate_bricks(
     optional (H, W) incidence confidence. Bricks past the static caps keep
     their old values this frame. Returns the (3,) int32 (band, wide,
     dropped) counts, zero where the device flag ``ok`` is False (the whole
-    update is skipped then)."""
+    update, the plan's classification included, is skipped then)."""
     if ok is None:
         ok = torch.ones((), dtype=torch.bool, device=dists.device)
-    bp = plan(cfg, dists, cam_grid, g, intr, phase, split, plain)
+    bp = plan(cfg, dists, cam_grid, g, intr, phase, split, plain, ok)
     lookup = dists if conf is None else pack_depth_conf(dists, conf)
     fuse(cfg, vol, lookup, cam_grid, g, intr, bp, ok, q_grid, conf is not None, plain)
     return torch.where(ok, bp.work.counts, 0)

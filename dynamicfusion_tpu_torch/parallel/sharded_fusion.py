@@ -12,9 +12,9 @@ planes, so its front and band caps are every local brick (those classes
 never drop); the wide class (footprint larger than the band window) keeps
 a cap of max(local bricks / 8, 16), the lowest local ids first, and what
 it drops is counted. The brick x-plane phase of ``fusion_phase_split`` is
-the GLOBAL plane. The frame's fusion gate masks the update through the
-device flag kernel D reads (no host branch), and one psum returns the
-(band, wide, dropped) counts, zero on a gated frame.
+the GLOBAL plane. The frame's fusion gate masks the plan and the update
+through the device flag kernels K and D read (no host branch), and one
+psum returns the (band, wide, dropped) counts, zero on a gated frame.
 
 The classification and list are kernel K's slab mode, the fuse kernel D's
 (``bricks.plan_slab``, ``bricks.fuse``) on CUDA tensors; their plain
@@ -87,7 +87,7 @@ def make_sharded_integrate(cfg: DynamicFusionConfig, mesh: Mesh, plain: bool = F
             dists_k, lookup_k, on_k = dists.to(dev), lookup.to(dev), enabled.to(dev)
             bp = bricks.plan_slab(
                 cfg, dists_k, grid_k, g, intr, k * nb_loc, band_cap, wide_cap,
-                phase=None if phase is None else phase.to(dev), split=cfg.fusion_phase_split, plain=plain,
+                phase=None if phase is None else phase.to(dev), split=cfg.fusion_phase_split, plain=plain, ok=on_k,
             )
             bricks.fuse(cfg, TsdfVolume(sv.tsdf[i], sv.weight[i]), lookup_k, grid_k, g, intr, bp, on_k,
                         q_k, conf is not None, plain=plain)

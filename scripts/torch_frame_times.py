@@ -10,7 +10,7 @@ torch.profiler (``chip_smoke.profile_frames``: device busy time, idle
 share, launches).
 
     python3 scripts/torch_frame_times.py --root DIR [--preset quality] [--storage f32/f32] [--frames 20]
-                                         [--profile OUT]
+                                         [--profile OUT [--focus NAME ...]]
 
 ``--root`` is the directory holding the ``dynamicfusion_tpu_torch`` to time
 (this checkout by default; an unpacked ``git archive`` of another commit
@@ -48,6 +48,8 @@ def main() -> int:
                                                     "configuration's)")
     ap.add_argument("--frames", type=int, default=20, help="timed frames (frame 0 included)")
     ap.add_argument("--profile", default=None, help="profile 3 more frames and write the table and trace here")
+    ap.add_argument("--focus", nargs="*", default=(),
+                    help="with --profile, also print the device time of the kernels whose names hold these strings")
     args = ap.parse_args()
 
     import torch
@@ -102,7 +104,7 @@ def main() -> int:
           f"(frames 2..{len(ms) - 1}), min {steady[0]:.3f}, max {steady[-1]:.3f}; per frame "
           + " ".join(f"{v:.1f}" for v in ms), flush=True)
     if args.profile:
-        profile_frames(torch, args, dev, card, df, frames[args.frames:],
+        profile_frames(torch, args, dev, card, df, frames[args.frames:], focus=tuple(args.focus),
                        tag=f"{root.name}_{args.preset}_{args.storage.replace('/', '_')}")
     print(json.dumps({"root": str(root), "preset": args.preset, "storage": args.storage,
                       "median_ms": steady[len(steady) // 2],

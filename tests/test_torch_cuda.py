@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import INSERT_CASES, MUTUAL_CASES
+from chip_smoke import INSERT_CASES, MUTUAL_CASES, PLAN_CASES, plan_inputs
 from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.core import se3
@@ -1561,3 +1561,163 @@ def test_float_storages_on_the_card_go_through_their_kernels(dev, tsdf_dtype, we
         assert state.vol.weight.dtype == volume_model._WEIGHT_DTYPES[weight_dtype]
         fused = ("integrate_dense", "integrate_dense_nonrigid") if mode == "dense" else ("fuse_bricks",)
         assert all(kernels.launches[k] > 0 for k in ("raycast", "extract_cloud") + fused), kernels.launches
+
+
+# ---------------------------------------------------------------- K's cluster and D's persistent grid
+
+
+def _same_plan(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a.classes, b.classes)) and all(
+        torch.equal(x, y) for x, y in zip(a.work, b.work))
+
+
+def _device_kernels(name, fn):
+    before = kernels.device_kernels[name]
+    out = fn()
+    return out, kernels.device_kernels[name] - before
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_brick_plan_cluster_is_one_block(dev, case):
+    """Kernel K's cluster bit for bit against its one-block mode and the
+    plain version (the preset's 4 096 bricks, 32^3 at ``default_kinfu()``,
+    the capped lists, the phase split, ``small()``), two device kernels a
+    call in each mode; gated (ok false): count 0 and counts 0 in each."""
+    cfg, dists, grid, g, phase, split = plan_inputs(torch, dev, case)
+    bk, n_new = _device_kernels("brick_plan", lambda: bricks.plan(cfg, dists, grid, g, cfg.intr, phase, split))
+    b1, n_one = _device_kernels("brick_plan", lambda: bricks.plan(cfg, dists, grid, g, cfg.intr, phase, split,
+                                                                  reference=True))
+    bp = bricks.plan(cfg, dists, grid, g, cfg.intr, phase, split, plain=True)
+    assert _same_plan(bk, b1) and _same_plan(bk, bp) and (n_new, n_one) == (2, 2)
+    assert int(bk.work.count[0]) > 0
+    if "capped" in case:
+        c = bk.classes
+        n_hi = int(((c.cls == bricks.BAND) & c.surf).sum())
+        cap = min(cfg.integrate_band_cap, c.cls.shape[0])
+        # the permuted rest of the band fills the cap; some bricks dropped
+        assert n_hi < cap < int((c.cls == bricks.BAND).sum()) and int(bk.work.counts[2]) > 0
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    for kw in (dict(), dict(reference=True), dict(plain=True)):
+        gated = bricks.plan(cfg, dists, grid, g, cfg.intr, phase, split, ok=off, **kw)
+        assert int(gated.work.count[0]) == 0 and gated.work.counts.tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("split", [1, 2])
+def test_brick_plan_cluster_slab_mode(dev, split):
+    """K's slab mode at the preset's 4 shards x 1 024 bricks (the sharded
+    fusion's caps, the phase on the global brick plane): the cluster bit
+    for bit against its one-block mode and the plain version."""
+    from dynamicfusion_tpu_torch.parallel import sharded_fusion
+
+    cfg, dists, grid, g, _, _ = plan_inputs(torch, dev, "preset_warped")
+    cfg = dataclasses.replace(cfg, fusion_phase_split=split)
+    phase = torch.ones((), dtype=torch.int32, device=dev)
+    n, b = 4, cfg.brick_size
+    band_cap, wide_cap = sharded_fusion.caps(cfg, n)
+    dl = cfg.volume_dims // n
+    listed = 0
+    for k in range(n):
+        gk = bricks.corner_slab(grid, k, n, b, g).contiguous()
+        args = (cfg, dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap, phase, split)
+        bk = bricks.plan_slab(*args)
+        assert bk.classes.cls.shape == (1024,)
+        assert _same_plan(bk, bricks.plan_slab(*args, reference=True))
+        assert _same_plan(bk, bricks.plan_slab(*args, plain=True))
+        listed += int(bk.work.count[0])
+    assert listed > 0
+
+
+def test_gated_integrate_leaves_the_volume(dev, nr_model):
+    """``integrate_bricks`` with ok false: K plans nothing, D fuses
+    nothing, the counts are zero."""
+    from dynamicfusion_tpu_torch.ops import fusion
+
+    st = nr_model[0]
+    dists = preprocess.compute_dists(NR.intr, torch.from_numpy(NR_DEPTHS[3]).to(dev))
+    cf = fusion.coarse_field(NR, st.warp, plain=True)
+    grid = se3.transform_points(se3.inverse(st.pose), cf.warped)
+    vol = TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    counts = bricks.integrate_bricks(NR, vol, dists, grid, NR.knn_field_stride, NR.intr, ok=off, q_grid=cf.q)
+    assert counts.tolist() == [0, 0, 0] and _same_volume(vol, st.vol)
+
+
+@pytest.mark.parametrize("tsdf_dtype,weight_dtype", [("i16", "u16")] + STORAGES,
+                         ids=["i16-u16"] + STORAGE_IDS)
+@pytest.mark.parametrize("mode", ["rigid", "nonrigid", "slab"])
+def test_fuse_persistent_is_reference(dev, model, nr_model, mode, tsdf_dtype, weight_dtype):
+    """Kernel D's persistent grid bit for bit against its reference mode
+    (a block a slot) at each storage pair, rigid (b = g = 16), non-rigid
+    (g 2, the blend quality, the packed confidence) and on 4 shards'
+    slabs; one device kernel a call in each mode."""
+    from dynamicfusion_tpu_torch.ops import fusion
+    from dynamicfusion_tpu_torch.parallel import sharded_fusion
+
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    if mode == "rigid":
+        cfg, vol = _stored(CFG, model.vol, tsdf_dtype, weight_dtype)
+        dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+        grid = tsdf.brick_grid(cfg, se3.compose(se3.inverse(model.pose), kinfu._vol_pose(cfg, dev)))
+        g = cfg.brick_size
+        jobs = [(vol, dists, grid, None, False, bricks.plan(cfg, dists, grid, g, cfg.intr))]
+    else:
+        st = nr_model[0]
+        cfg, vol = _stored(NR, st.vol, tsdf_dtype, weight_dtype)
+        depth = torch.from_numpy(NR_DEPTHS[3]).to(dev)
+        _, pts, nrm, dists = preprocess.build_frame_pyramid(cfg, depth)
+        lookup = bricks.pack_depth_conf(dists, preprocess.incidence_confidence(pts[0], nrm[0]))
+        cf = fusion.coarse_field(cfg, st.warp, plain=True)
+        grid = se3.transform_points(se3.inverse(st.pose), cf.warped)
+        g, b = cfg.knn_field_stride, cfg.brick_size
+        if mode == "nonrigid":
+            jobs = [(vol, lookup, grid, cf.q, True, bricks.plan(cfg, dists, grid, g, cfg.intr))]
+        else:
+            n = 4
+            band_cap, wide_cap = sharded_fusion.caps(cfg, n)
+            dl = cfg.volume_dims // n
+            jobs = []
+            for k in range(n):
+                gk = bricks.corner_slab(grid, k, n, b, g).contiguous()
+                qk = bricks.corner_slab(cf.q, k, n, b, g).contiguous()
+                slab = TsdfVolume(vol.tsdf[k * dl:(k + 1) * dl], vol.weight[k * dl:(k + 1) * dl])
+                jobs.append((slab, lookup, gk, qk, True,
+                             bricks.plan_slab(cfg, dists, gk, g, cfg.intr, k * dl // b, band_cap, wide_cap)))
+    changed = False
+    for v, lookup, gk, qk, packed, bp in jobs:
+        vk, vr = _clones(v)
+        assert kernels.fuse_bricks_persistent(vk.tsdf, vk.weight, cfg.brick_size, g)
+        _, n_new = _device_kernels("fuse_bricks", lambda: bricks.fuse(cfg, vk, lookup, gk, g, cfg.intr, bp, on, qk,
+                                                                      packed))
+        _, n_ref = _device_kernels("fuse_bricks", lambda: bricks.fuse(cfg, vr, lookup, gk, g, cfg.intr, bp, on, qk,
+                                                                      packed, reference=True))
+        assert _same_volume(vk, vr) and (n_new, n_ref) == (1, 1)
+        changed = changed or not _same_volume(vk, v)
+    assert changed
+
+
+@pytest.mark.parametrize("g", [8, 16])
+def test_fuse_persistent_is_reference_full_size(dev, g):
+    """D's persistent grid against its reference mode at the preset's 256^3
+    (g 8 with a blend quality and the packed lookup, g 16 rigid) on a
+    volume of seeded codes: bit for bit, and ok false changes nothing."""
+    case = "preset_warped" if g == 8 else "preset_rigid_split"
+    cfg, dists, grid, g_, _, _ = plan_inputs(torch, dev, case)
+    assert g_ == g
+    bp = bricks.plan(cfg, dists, grid, g, cfg.intr)
+    rng = np.random.RandomState(g)
+    d = cfg.volume_dims
+    tsdf_codes = torch.from_numpy(rng.randint(-32767, 32768, (d, d, d)).astype(np.int16)).to(dev)
+    w_codes = torch.from_numpy(rng.randint(0, 4096, (d, d, d)).astype(np.int16)).to(dev).view(torch.uint16)
+    vol = TsdfVolume(tsdf_codes, w_codes)
+    q, lookup, packed = None, dists, g == 8
+    if packed:
+        conf = torch.from_numpy(rng.rand(*dists.shape).astype(np.float32)).to(dev)
+        lookup = bricks.pack_depth_conf(dists, conf)
+        q = torch.from_numpy(rng.rand(*grid.shape[:3]).astype(np.float32)).to(dev)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    vk, vr = _clones(vol)
+    bricks.fuse(cfg, vk, lookup, grid, g, cfg.intr, bp, on, q, packed)
+    bricks.fuse(cfg, vr, lookup, grid, g, cfg.intr, bp, on, q, packed, reference=True)
+    assert _same_volume(vk, vr) and not _same_volume(vk, vol)
+    bricks.fuse(cfg, vk, lookup, grid, g, cfg.intr, bp, ~on, q, packed)
+    assert _same_volume(vk, vr)
