@@ -25,7 +25,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    kernels F and G with the tangential rows of ``quality_dynamicfusion()``
    (three residual rows a point) on the same state; kernel L (frame 0's
    extraction into 1 << 20 rows and node sampling into 1 024 slots) on the
-   preset's frame-0 volume, bit-equal to its plain version; kernel M (the
+   preset's frame-0 volume, bit-equal to its plain version, the
+   extraction (a warp a voxel row, two device kernels a call) also to its
+   reference mode (four), and to its library route (``library_extract``),
+   uncapped, cut inside one block's run (``extract_block_cut``) and at 700
+   rows, and timed beside them (``hold_extract``; also at every storage in
+   phase 20 and at 512^3 in phase 23); kernel A (the tiled filter) bit
+   for bit against its reference mode on the rigid slice's noisy frame
+   and on ``border_frame`` (``hold_bilateral``), timed beside it and its
+   library route (``library_bilateral``); kernel M (the
    aperture gate of ``solver_p2p_adaptive``) on the phase-2 state at
    160x120, gate and depth bins bit-equal to its plain version, some
    pixels open part way (the closed form exercised); and at the
@@ -345,6 +353,9 @@ T1_DELTA = (0.004, -0.003, 0.005)  # the camera's motion between the two frames 
 # H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s, float32 (no tensor core) 67 TFLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# the special-function units (ex2 and the like): 16 results a clock on each
+# of 132 SMs at the 1.98 GHz boost clock
+PEAK_SFU = 16 * 132 * 1.98e9
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 
@@ -785,13 +796,23 @@ def rigid_kernels(torch, args, report, dev, card):
     half = cfg.bilateral_kernel_size // 2
     taps = sum((h - abs(dy)) * (w - abs(dx)) for dy in range(-half, half + 1) for dx in range(-half, half + 1))
     args_a = (cfg.bilateral_kernel_size, cfg.bilateral_sigma_spatial, cfg.bilateral_sigma_depth)
+    border_t = torch.from_numpy(border_frame(h, w, 1)).to(dev)
+    hold_bilateral(torch, "bilateral_tiled", d_t, args_a, "the noisy frame")
+    hold_bilateral(torch, "bilateral_tiled_border", border_t, args_a, "a frame whose depth edges cross the border")
     report["bilateral"] = dict(
         err=err,
         ms=cuda_ms(torch, lambda: kernels.bilateral_filter(d_t, *args_a)),
+        reference_ms=cuda_ms(torch, lambda: kernels.bilateral_filter(d_t, *args_a, reference=True)),
         plain_ms=cuda_ms(torch, lambda: preprocess.bilateral_filter_plain(d_t, *args_a), reps=5),
-        bound=bound_ms(h * w * 2 * 2, taps * 10.0),
-        library_ms=None,
+        # the bytes; ~10 float operations a tap; one ex2 a tap on the
+        # special-function units
+        bound=max(bound_ms(h * w * 2 * 2, taps * 10.0), (taps / PEAK_SFU * 1e3, "operations")),
+        library_ms=cuda_ms(torch, lambda: library_bilateral(torch, d_t, *args_a)),
     )
+    r = report["bilateral"]
+    print(f"[time] {smi()} | A {w}x{h}: tiled {r['ms']:.4f} ms, reference mode {r['reference_ms']:.4f} ms, library "
+          f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; bound {r['bound'][0]:.5f} ms ({r['bound'][1]})",
+          flush=True)
 
     # a model volume from a few plain-path frames (the kernels' inputs)
     plain_df = kinfu.DynamicFusion(cfg, device=dev, plain=True)
@@ -896,6 +917,70 @@ def march_samples(torch, cfg, tsdf, ray_org, dirs, tmin, tmax) -> float:
         t = torch.where(act, tn, t)
         prev = torch.where(act, nxt, prev)
     return float(samples.sum())
+
+
+def library_bilateral(torch, depth_mm, kernel_size, sigma_spatial, sigma_depth_m):
+    """Kernel A's function in PyTorch calls (its library column; the port
+    never calls it): ``F.unfold`` of the frame padded with -1, the window's
+    weights from ``kernels.bilateral_space_table`` (0 where the neighbour is
+    the padding), and the two sums over the window in the kernel's tap
+    order (the last row of ``torch.cumsum`` over the window; ``sum``'s tree
+    order flipped the rounding of 1.2e-4 of the pixels of the rigid
+    slice's noisy frame, past the kernel's tolerance)."""
+    import torch.nn.functional as F
+
+    from dynamicfusion_tpu_torch import kernels
+
+    h = kernel_size // 2
+    rows, cols = depth_mm.shape
+    d = depth_mm.to(torch.float32)
+    nbr = F.unfold(F.pad(d[None, None], (h, h, h, h), value=-1.0), kernel_size)[0]
+    space = torch.from_numpy(kernels.bilateral_space_table(kernel_size, sigma_spatial)).to(d.device)[:, None]
+    sigma_depth_mm = sigma_depth_m * 1000.0
+    diff = d.reshape(1, -1) - nbr
+    wgt = torch.exp(-(space + diff * diff * (0.5 / (sigma_depth_mm * sigma_depth_mm)))) * (nbr >= 0.0)
+    num = torch.cumsum(nbr * wgt, 0)[-1]
+    den = torch.cumsum(wgt, 0)[-1]
+    return torch.round(num / torch.clamp(den, min=1e-12)).to(torch.int32).to(depth_mm.dtype).reshape(rows, cols)
+
+
+def hold_bilateral(torch, name, depth, args, what):
+    """Kernel A (the tiled filter) bit for bit against its reference mode,
+    within the existing tolerance of the plain version, and the library
+    route (``library_bilateral``) within the same tolerance."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.ops import preprocess
+
+    got = kernels.bilateral_filter(depth, *args)
+    ref = kernels.bilateral_filter(depth, *args, reference=True)
+    errs = {}
+    for tag, other in (("plain", preprocess.bilateral_filter_plain(depth, *args)),
+                       ("library", library_bilateral(torch, depth, *args))):
+        diff = (got.to(torch.int32) - other.to(torch.int32)).abs()
+        errs[tag] = (int(diff.max()), float((diff > 0).float().mean()))
+    ok = torch.equal(got, ref) and all(e <= TOL_BILATERAL_MM and f <= TOL_BILATERAL_FRAC for e, f in errs.values())
+    check(name, ok, f"{what} ({depth.shape[1]}x{depth.shape[0]}): the tiled kernel equals the reference mode bit for "
+          f"bit {torch.equal(got, ref)}; against plain and the library route (max |diff| mm, differing) {errs} (tol "
+          f"{TOL_BILATERAL_MM}, {TOL_BILATERAL_FRAC})")
+
+
+def border_frame(rows: int, cols: int, seed: int = 0) -> np.ndarray:
+    """A seeded (rows, cols) uint16 depth frame (mm) whose depth edges cross
+    all four borders: a slanted plane with vertical steps of 150 and 30 mm
+    (crossing the top and bottom rows) and horizontal steps of -200 and 45
+    mm (crossing the left and right columns), +-4 mm of noise, and holes
+    (0) on every border, for kernel A's border blocks."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:rows, 0:cols]
+    d = 1200.0 + 0.8 * x - 0.5 * y
+    d += np.where((x // 23) % 2 == 0, 150.0, 0.0) + np.where((x // 7) % 3 == 0, 30.0, 0.0)
+    d += np.where((y // 17) % 3 == 0, -200.0, 0.0) + np.where((y // 5) % 4 == 0, 45.0, 0.0)
+    d += rng.randint(-4, 5, (rows, cols))
+    d[(x < 5) & (y % 40 < 12)] = 0.0
+    d[(x >= cols - 4) & (y % 50 < 9)] = 0.0
+    d[(y < 3) & (x % 60 < 15)] = 0.0
+    d[(y >= rows - 5) & (x % 70 < 20)] = 0.0
+    return d.astype(np.uint16)
 
 
 def rigid_frame_fn(cfg):
@@ -1600,8 +1685,9 @@ def kernels_a_call(name, fn):
 
 # the device kernels a call of each wrapper whose C entry reports them
 # (``kernels.device_kernels``): G's edge term and E's mutual-nearest pass
-# one launch, K's plan the mip tiles and the cluster, D's fuse one
-DEVICE_KERNELS_A_CALL = {"edge_term": 1, "mutual_nearest": 1, "brick_plan": 2, "fuse_bricks": 1}
+# one launch, K's plan the mip tiles and the cluster, D's fuse one, L's
+# extraction the count with its scan and the write
+DEVICE_KERNELS_A_CALL = {"edge_term": 1, "mutual_nearest": 1, "brick_plan": 2, "fuse_bricks": 1, "extract_cloud": 2}
 
 
 def same_plan(torch, a, b) -> bool:
@@ -2262,8 +2348,8 @@ def full_res_kernels(torch, report, dev, st, depth_np):
 
 def extract_kernels(torch, report, dev, nr_depths):
     """Phase 2 for kernel L on the preset's frame-0 volume of the deforming
-    scene: the extraction and the node sampling, each bit-equal to its
-    plain version."""
+    scene: the extraction (``hold_extract``) and the node sampling, each
+    bit-equal to its plain version."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.models import warpfield
@@ -2275,6 +2361,7 @@ def extract_kernels(torch, report, dev, nr_depths):
     vol = df.state.vol
     maxp = max(cfg.max_nodes * cfg.node_sample_step, 1 << 20)
     cp = hold_extract(torch, report, "extract_cloud", cfg, vol, maxp)
+    hold_extract_cases(torch, dev)
     fk = warpfield.init_from_cloud(cfg, cp.points, cp.valid)
     fp = warpfield.init_from_cloud(cfg, cp.points, cp.valid, plain=True)
     same_n = all(torch.equal(a, b) for a, b in zip(fk, fp))
@@ -2843,7 +2930,9 @@ def drive_kernel_path(torch, cfg, dev, frames):
 
 def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k, fused=None):
     """A non-rigid run's checks: every kernel of the path (A-L) launched,
-    kernel L once (frame 0), ICP healthy and the solve's cost not raised
+    kernel L once (frame 0) and A once a frame after it, one device kernel
+    a call of G's edge term, E's mutual-nearest pass and D and two of K and
+    L, ICP healthy and the solve's cost not raised
     on every frame, fusion on the due frames (``fused``: the frames whose
     fusion changed the volume, else those with brick counts)."""
     from dynamicfusion_tpu_torch import kernels
@@ -2880,11 +2969,13 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
               f"kernel M once a step: {launches['p2p_gate']} launches in {len(frames) - 1} steps")
     one = {k: (launches[k], launches[f"{k}[device kernels]"]) for k in kernels.device_kernels}
     check(f"{tag}_one_launch", all(c * DEVICE_KERNELS_A_CALL[k] == d for k, (c, d) in one.items()),
-          f"one device kernel a call of G's edge term, E's mutual-nearest pass and D, two of K "
+          f"one device kernel a call of G's edge term, E's mutual-nearest pass and D, two of K and of L "
           f"(calls, device kernels): {one}")
     check(f"{tag}_frame0_kernels", launches["extract_cloud"] == 1 and launches["sample_nodes"] == 1,
           f"kernel L once in frame 0: extract_cloud {launches['extract_cloud']}, sample_nodes "
           f"{launches['sample_nodes']}")
+    check(f"{tag}_bilateral", launches["bilateral"] == len(frames) - 1,
+          f"kernel A once a frame after frame 0: {launches['bilateral']} launches in {len(frames)} frames")
     check(f"{tag}_icp_ok", all(r["ok"] for r in rows),
           f"ICP healthy on every tracked frame ({sum(r['ok'] for r in rows)}/{len(rows)})")
     check(f"{tag}_solver", all(r["c1"] <= r["c0"] and r["c0"] > 0 for r in rows),
@@ -5047,7 +5138,7 @@ _storage_row("raycast_slab_f32", "raycast.cu", "dynamicfusion_tpu/parallel/shard
              "sharded_f32_f32")
 _storage_row("fuse_bricks_slab_f32_f32", "fuse_bricks.cu", "dynamicfusion_tpu/parallel/sharded_fusion.py:156",
              "fuse_bricks", "sharded_f32_f32")
-# default_kinfu()'s 512^3 volume: K at its 32^3 brick grid, L at ~98 000 tiles
+# default_kinfu()'s 512^3 volume: K at its 32^3 brick grid, L at 4 096 blocks of 64 rows
 _storage_row("brick_plan_512", "classify.cu", "dynamicfusion_tpu/ops/bricks.py:213", "brick_plan", "kinfu")
 _storage_row("extract_cloud_512", "extract.cu", "dynamicfusion_tpu/ops/tsdf.py:669", "extract_cloud", "kinfu")
 
@@ -5106,32 +5197,177 @@ def normal_voxels(torch, cfg, pts, valid) -> int:
     return int(torch.unique(torch.cat(cells)).numel())
 
 
+def library_extract(torch, cfg, vol, maxp, mw):
+    """Kernel L's extraction in PyTorch calls (its library column; the
+    port never calls it): the crossing flags as the plain version forms
+    them, ``torch.nonzero`` of the concatenated flags, the gather and the
+    point arithmetic of the plain version, the NaN fill."""
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+
+    d = cfg.volume_dims
+    tsdf = volume_model.decode_tsdf(vol.tsdf)
+    w = volume_model.decode_weight(vol.weight)
+    flags = torch.cat([((w.narrow(a, 0, d - 1) >= mw) & (w.narrow(a, 1, d - 1) >= mw)
+                        & (tsdf.narrow(a, 0, d - 1) * tsdf.narrow(a, 1, d - 1) < 0)).reshape(-1) for a in range(3)])
+    sel = torch.nonzero(flags).squeeze(1)[:maxp]
+    n = sel.numel()
+    per_axis = (d - 1) * d * d
+    axis = sel // per_axis
+    rem = sel % per_axis
+    nk = torch.where(axis == 2, d - 1, d)
+    nj = torch.where(axis == 1, d - 1, d)
+    k = rem % nk
+    j = (rem // nk) % nj
+    i = rem // (nk * nj)
+    step = torch.stack([axis == 0, axis == 1, axis == 2], dim=-1).to(torch.int64)
+    t0 = tsdf.reshape(-1)[(i * d + j) * d + k]
+    t1 = tsdf.reshape(-1)[((i + step[:, 0]) * d + j + step[:, 1]) * d + k + step[:, 2]]
+    den = t0 - t1
+    alpha = t0 / torch.where(torch.abs(den) > 1e-12, den, 1e-12)
+    idx = torch.stack([i, j, k], dim=-1).to(torch.float32) + step.to(torch.float32) * alpha[:, None]
+    points = torch.full((maxp, 3), float("nan"), device=tsdf.device)
+    points[:n] = idx * cfg.voxel_size + volume_model.origin(cfg, tsdf.device)
+    valid = torch.arange(maxp, device=tsdf.device) < n
+    return points, valid, flags.sum(dtype=torch.int32)
+
+
+def extract_block_cut(torch, cfg, vol, mw=1.0):
+    """A row cap inside one block's run of the row listing's axis 1
+    (``kernels.EXTRACT_ROWS`` rows a block): the first block with at least
+    four +y crossings, cut after half of them; from the plain flags."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models import volume as volume_model
+
+    d = cfg.volume_dims
+    tsdf = volume_model.decode_tsdf(vol.tsdf)
+    w = volume_model.decode_weight(vol.weight)
+    n = [int((((w.narrow(a, 0, d - 1) >= mw) & (w.narrow(a, 1, d - 1) >= mw)
+               & (tsdf.narrow(a, 0, d - 1) * tsdf.narrow(a, 1, d - 1) < 0))).sum()) for a in range(2)]
+    fy = (w[:, :-1] >= mw) & (w[:, 1:] >= mw) & (tsdf[:, :-1] * tsdf[:, 1:] < 0)
+    # axis 1's rows (i, j < d - 1) of the volume's rows (i, j), by block
+    per_row = torch.zeros((d, d), dtype=torch.int64, device=tsdf.device)
+    per_row[:, :-1] = fy.sum(-1)
+    per_block = per_row.reshape(-1, kernels.EXTRACT_ROWS).sum(-1)
+    b = int(torch.nonzero(per_block >= 4)[0])
+    return n[0] + int(per_block[:b].sum()) + int(per_block[b]) // 2
+
+
+# kernel L's adversarial volumes (numpy, seeded): (side, tsdf storage,
+# weight storage); the tsdf codes or values at the edges of the crossing
+# test (0 and -0.0, the i16 extremes, float32 values whose products
+# underflow to 0), the weights at both sides of the threshold of
+# min_weight 1.0 (u16 codes 511, 512, 513; float32 1 -+ an ulp)
+EXTRACT_CASES = {"i16_u16_32": (32, "i16", "u16"), "i16_u16_64": (64, "i16", "u16"),
+                 "i16_u16_256": (256, "i16", "u16"), "f32_f32_64": (64, "f32", "f32"),
+                 "bf16_u16_128": (128, "bf16", "u16"), "i16_f32_64": (64, "i16", "f32")}
+
+
+def extract_case(torch, dev, name, seed=0):
+    """(config, volume) of ``EXTRACT_CASES[name]``: a seeded mix of a
+    smooth field's signs and the edge values above, on ``dev``."""
+    from dynamicfusion_tpu_torch.config import DynamicFusionConfig
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+
+    d, ts, ws = EXTRACT_CASES[name]
+    rng = np.random.RandomState(seed)
+    g = np.arange(d, dtype=np.float64) / d
+    field = (np.sin(7.0 * g)[:, None, None] + np.cos(5.0 * g)[None, :, None] + np.sin(3.0 * g + 1.0)[None, None, :]
+             - 0.4 + 0.3 * rng.randn(d, d, d))
+    pick = rng.rand(d, d, d)
+    if ts == "i16":
+        t = np.clip(np.round(field * 20000.0), -32767, 32767)
+        edge = rng.choice([-32768, -32767, -1, 0, 1, 32767], size=(d, d, d))
+        tsdf = torch.from_numpy(np.where(pick < 0.3, edge, t).astype(np.int16))
+    else:
+        edge = rng.choice(np.array([0.0, -0.0, 1e-30, -1e-30, 1e-44, -1e-44, 1.0, -1.0], dtype=np.float32),
+                          size=(d, d, d))
+        t = torch.from_numpy(np.where(pick < 0.3, edge, field.astype(np.float32)).astype(np.float32))
+        tsdf = t if ts == "f32" else t.to(torch.bfloat16)
+    if ws == "u16":
+        weight = torch.from_numpy(rng.choice([0, 511, 512, 513, 2048, 65535], size=(d, d, d)).astype(np.uint16))
+    else:
+        weight = torch.from_numpy(rng.choice(np.array([0.0, np.nextafter(np.float32(1), np.float32(0)), 1.0,
+                                                        np.nextafter(np.float32(1), np.float32(2)), 4.0],
+                                                       dtype=np.float32), size=(d, d, d)))
+    cfg = dataclasses.replace(DynamicFusionConfig.small(dims=d), tsdf_dtype=ts, weight_dtype=ws)
+    return cfg, TsdfVolume(tsdf.to(dev), weight.to(dev))
+
+
+def hold_extract_cases(torch, dev, name="extract_cases"):
+    """Kernel L on ``EXTRACT_CASES``: the row listing bit-equal to its plain
+    version and its reference mode, uncapped and capped at half the
+    count."""
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+
+    parts = {}
+    for case in EXTRACT_CASES:
+        cfg, vol = extract_case(torch, dev, case)
+        n = int(tsdf_ops.extract_cloud(cfg, vol, 1, min_weight=1.0, plain=True).count)
+        ok = n > 0
+        for m in (n + 100, n // 2 + 1):
+            ck = tsdf_ops.extract_cloud(cfg, vol, m, min_weight=1.0)
+            for other in (tsdf_ops.extract_cloud(cfg, vol, m, min_weight=1.0, plain=True),
+                          tsdf_ops.extract_cloud(cfg, vol, m, min_weight=1.0, reference=True)):
+                ok = ok and torch.equal(ck.valid, other.valid) and torch.equal(ck.count, other.count) and same_map(
+                    torch, ck.points, other.points)
+        parts[case] = (n, ok)
+    check(name, all(ok for _, ok in parts.values()),
+          f"the row listing against plain and the reference mode, uncapped and at half, on the adversarial volumes "
+          f"(crossings, equal bit for bit): {parts}")
+
+
 def hold_extract(torch, report, name, cfg, vol, maxp):
-    """Kernel L's extraction against its plain version (points, flags and
-    the uncapped count bit for bit), timed. Returns the plain cloud."""
+    """Kernel L's extraction (the row listing) against its plain version
+    and its reference mode, points, flags and the uncapped count bit for
+    bit, two device kernels a call against the reference mode's four
+    (``kernels_a_call``), also capped at a cut inside one block's run
+    (``extract_block_cut``) and at 700 rows; the library route
+    (``library_extract``) bit for bit too; each timed. Returns the plain
+    cloud."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
 
-    ck = tsdf_ops.extract_cloud(cfg, vol, maxp, min_weight=1.0)
-    cp = tsdf_ops.extract_cloud(cfg, vol, maxp, min_weight=1.0, plain=True)
-    count = int(cp.count)
-    same = torch.equal(ck.valid, cp.valid) and torch.equal(ck.count, cp.count) and same_map(torch, ck.points, cp.points)
+    def same(a, b):
+        return torch.equal(a.valid, b.valid) and torch.equal(a.count, b.count) and same_map(torch, a.points, b.points)
+
+    rows_mode = kernels.extract_rows_mode(vol.tsdf, vol.weight)
+    cut = extract_block_cut(torch, cfg, vol)
+    parts, calls = {}, {}
+    for m in (maxp, cut, 700):
+        ck, calls[m] = kernels_a_call("extract_cloud", lambda m=m: tsdf_ops.extract_cloud(cfg, vol, m, min_weight=1.0))
+        cr, ref_calls = kernels_a_call("extract_cloud", lambda m=m: tsdf_ops.extract_cloud(
+            cfg, vol, m, min_weight=1.0, reference=True))
+        cp = tsdf_ops.extract_cloud(cfg, vol, m, min_weight=1.0, plain=True)
+        lib = library_extract(torch, cfg, vol, m, 1.0)
+        parts[m] = (same(ck, cp), same(ck, cr), same(ck, type(ck)(*lib)), ref_calls)
+        if m == maxp:
+            cloud = cp
+    count = int(cloud.count)
     d = cfg.volume_dims
-    tiles = (3 * (d - 1) * d * d + 4095) // 4096
-    check(name, same and count > 0,
-          f"{d}^3 ({str(vol.tsdf.dtype)[6:]} tsdf, {str(vol.weight.dtype)[6:]} weight; {tiles} tiles): {count} "
-          f"crossings into {maxp} rows; points, flags and count equal the plain version's bit for bit {same}")
+    ok = rows_mode and count > cut > 700 and all(all(v[:3]) and v[3] == 4 for v in parts.values()) and set(
+        calls.values()) == {2}
+    check(name, ok,
+          f"{d}^3 ({str(vol.tsdf.dtype)[6:]} tsdf, {str(vol.weight.dtype)[6:]} weight; {d * d // kernels.EXTRACT_ROWS} "
+          f"blocks of {kernels.EXTRACT_ROWS} rows, rows mode {rows_mode}): {count} crossings into {maxp}, {cut} (a cut "
+          f"inside a block) and 700 rows; points, flags and count equal (plain, reference mode, library route) bit for "
+          f"bit, reference device kernels: {parts}; device kernels a call {sorted(set(calls.values()))}")
     org = tuple(float(v) for v in cfg.volume_origin)
     report[name] = dict(
         err=0.0,
         ms=cuda_ms(torch, lambda: kernels.extract_cloud(vol.tsdf, vol.weight, 1.0, maxp, cfg.voxel_size, org)),
+        reference_ms=cuda_ms(torch, lambda: kernels.extract_cloud(vol.tsdf, vol.weight, 1.0, maxp, cfg.voxel_size,
+                                                                   org, reference=True)),
         plain_ms=cuda_ms(torch, lambda: tsdf_ops.extract_cloud_plain(cfg, vol, maxp, 1.0), reps=3),
         # tsdf and weight read once, points and flags written, the count;
         # ~8 operations a crossing test, ~10 a crossing
         bound=bound_ms(d ** 3 * vox_bytes(vol) + maxp * 13 + 4, 3.0 * (d - 1) * d * d * 8.0 + count * 10.0),
-        library_ms=None,
+        library_ms=cuda_ms(torch, lambda: library_extract(torch, cfg, vol, maxp, 1.0), reps=5),
     )
-    return cp
+    r = report[name]
+    print(f"[time] {smi()} | L {name}: {r['ms']:.4f} ms, reference mode {r['reference_ms']:.4f} ms, library "
+          f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; bound {r['bound'][0]:.5f} ms ({r['bound'][1]})",
+          flush=True)
+    return cloud
 
 
 def storage_kernels(torch, report, dev, nr_depths):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -77,8 +78,11 @@ knn_kinds: Dict[str, int] = {}
 # the device kernels that the C entries of the wrappers with a reference
 # mode report launching: G's edge term and E's mutual-nearest pass one a
 # call, three in the mode kept as the reference; K's plan two in either
-# mode (the mip tiles, then the cluster or the one block); D's fuse one
-device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0, "brick_plan": 0, "fuse_bricks": 0}
+# mode (the mip tiles, then the cluster or the one block); D's fuse one;
+# L's extraction two (the count with its scan, the write), four in its
+# reference mode
+device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0, "brick_plan": 0, "fuse_bricks": 0,
+                                  "extract_cloud": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -88,7 +92,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
-    "df_bilateral": (_P, _P, _I, _I, _I, _D, _F, _P),
+    "df_bilateral": (_P, _P, _I, _I, _I, _D, _F, _P, _I, _P),
     "df_icp_reduce": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
     "df_raycast": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
     "df_fuse_bricks": (
@@ -125,7 +129,7 @@ _SIGNATURES = {
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
     ),
-    "df_extract_cloud": (_P, _P, _I, _I, _F, _F, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P, _P),
+    "df_extract_cloud": (_P, _P, _I, _I, _F, _F, _I, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
     "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
     "df_p2p_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
     "df_gram_scales": (_P, _I, _P, _P, _I, _P, _P),
@@ -309,10 +313,30 @@ def _decode_scale(tsdf: torch.Tensor) -> float:
 # --------------------------------------------------------------------------
 
 
+# the half windows csrc/bilateral.cu's tiled kernel is compiled for
+BILATERAL_HALVES = (1, 2, 3, 4, 5)
+
+
+def bilateral_space_table(kernel_size: int, sigma_spatial: float) -> np.ndarray:
+    """Kernel A's spatial terms, (2 half + 1)^2 float32 row-major in (dy,
+    dx): float32(float64(dy^2 + dx^2) * inv_sp), the rounding of the plain
+    version's Python float (JAX's weak-typed constant) and of the
+    reference mode's double product."""
+    half = kernel_size // 2
+    inv_sp = 0.5 / (sigma_spatial * sigma_spatial)
+    r = np.arange(-half, half + 1, dtype=np.float64)
+    return ((r[:, None] ** 2 + r[None, :] ** 2) * inv_sp).astype(np.float32).reshape(-1)
+
+
 def bilateral_filter(
-    depth_mm: torch.Tensor, kernel_size: int, sigma_spatial: float, sigma_depth_m: float
+    depth_mm: torch.Tensor, kernel_size: int, sigma_spatial: float, sigma_depth_m: float, reference: bool = False
 ) -> torch.Tensor:
-    """Kernel A (csrc/bilateral.cu): (H, W) uint16 mm -> (H, W) uint16 mm."""
+    """Kernel A (csrc/bilateral.cu): (H, W) uint16 mm -> (H, W) uint16 mm,
+    a block's tile and halo in shared memory, the spatial term from
+    ``bilateral_space_table``. ``reference`` launches the design before (a
+    thread a pixel, the spatial term formed in the tap loop), which is
+    also the path of a half window outside ``BILATERAL_HALVES``; the two
+    are bit-equal."""
     _check(depth_mm, "depth_mm", torch.uint16)
     if depth_mm.dim() != 2:
         raise ValueError(f"depth_mm: expected (H, W), got {tuple(depth_mm.shape)}")
@@ -320,9 +344,14 @@ def bilateral_filter(
     rows, cols = depth_mm.shape
     out = torch.empty_like(depth_mm)
     sigma_depth_mm = sigma_depth_m * 1000.0
+    half = kernel_size // 2
+    tiled = not reference and half in BILATERAL_HALVES
+    space = None
+    if tiled:
+        space = (ctypes.c_float * ((2 * half + 1) ** 2))(*bilateral_space_table(kernel_size, sigma_spatial))
     rc = lib.df_bilateral(
-        depth_mm.data_ptr(), out.data_ptr(), rows, cols, kernel_size // 2,
-        0.5 / (sigma_spatial * sigma_spatial), _f32(0.5 / (sigma_depth_mm * sigma_depth_mm)),
+        depth_mm.data_ptr(), out.data_ptr(), rows, cols, half,
+        0.5 / (sigma_spatial * sigma_spatial), _f32(0.5 / (sigma_depth_mm * sigma_depth_mm)), space, int(not tiled),
         _stream(depth_mm.device),
     )
     _done("bilateral", rc)
@@ -1650,37 +1679,79 @@ def brick_plan(
 # kernel L: frame 0's surface extraction and node sampling
 # --------------------------------------------------------------------------
 
-_TILE = 16 * 256  # crossing tests per tile of csrc/extract.cu
+_TILE = 16 * 256  # crossing tests per tile of csrc/extract.cu's reference mode
+# csrc/extract.cu's row listing: (i, j) rows a block, and the volume sides
+# it is compiled for (32 lanes of d / 32 voxels a row)
+EXTRACT_ROWS = 64
+EXTRACT_SIDES = (32, 64, 128, 256, 512)
+
+
+def weight_code_min(min_weight: float) -> int:
+    """The least u16 weight code whose decoded weight (code / 512, exact)
+    is at least ``min_weight`` as float32; 65536 where none is (or NaN)."""
+    scaled = _f32(min_weight) * volume_model.WEIGHT_SCALE  # exact in float64
+    if not scaled <= 65535.0:
+        return 65536
+    return math.ceil(max(scaled, 0.0))
+
+
+def extract_rows_mode(tsdf: torch.Tensor, weight: torch.Tensor, reference: bool = False) -> bool:
+    """Whether ``extract_cloud`` launches the row listing on this volume
+    (else its reference mode): a side in ``EXTRACT_SIDES`` and both
+    volumes 16-byte aligned."""
+    return (not reference and tsdf.shape[0] in EXTRACT_SIDES and tsdf.data_ptr() % 16 == 0
+            and weight.data_ptr() % 16 == 0)
 
 
 def extract_cloud(tsdf: torch.Tensor, weight: torch.Tensor, min_weight: float, max_points: int, voxel_size: float,
-                  origin) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel L (csrc/extract.cu, four launches): the +x/+y/+z zero
+                  origin, reference: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel L (csrc/extract.cu, two launches): the +x/+y/+z zero
     crossings of a (D, D, D) volume (the tsdf as i16 codes, float32 or
     bfloat16, the weight as u16 codes or float32) where both voxels weigh
     at least ``min_weight``, in the JAX order (axis-major, raster order
-    within an axis). Returns (points (max_points, 3) world frame, NaN past
-    the count; valid (max_points,) bool; count () int32, uncapped)."""
+    within an axis), a warp a voxel row. Returns (points (max_points, 3)
+    world frame, NaN past the count; valid (max_points,) bool; count ()
+    int32, uncapped). The side is a multiple of 32, as the config makes
+    every volume's (no caller in the port passes another). ``reference``
+    launches the design before (four launches over tiles of the
+    concatenated tests), which is also the path of a side outside
+    ``EXTRACT_SIDES`` (the presets' 64, 256 and 512 are in it) and of a
+    volume not 16-byte aligned (``extract_rows_mode``); the two are
+    bit-equal."""
     d, storage = _check_cube(tsdf, weight)
-    if d < 2:
-        raise ValueError(f"tsdf: expected a (D, D, D) volume, got {tuple(tsdf.shape)}")
+    if d == 0 or d % 32:
+        raise ValueError(f"tsdf: a side of {d}: the row listing takes a multiple of 32")
     if 3 * (d - 1) * d * d >= 2 ** 31:
         raise ValueError(f"tsdf: {d}^3 is past the kernel's int32 crossing count")
-    if max_points < 1:
-        raise ValueError(f"max_points must be >= 1, got {max_points}")
+    if not 1 <= max_points < 2 ** 31 // 3:
+        raise ValueError(f"max_points must be in [1, 2^31 / 3), got {max_points}")
     lib = load()
     dev = tsdf.device
-    ntiles = (3 * (d - 1) * d * d + _TILE - 1) // _TILE
-    scratch = torch.empty((2 * ntiles,), dtype=torch.int32, device=dev)
+    rows = extract_rows_mode(tsdf, weight, reference)
+    masks = None
+    if rows:
+        nblocks = d * d // EXTRACT_ROWS
+        scratch = torch.empty((6 * nblocks,), dtype=torch.int32, device=dev)
+        counts, offsets = scratch[: 3 * nblocks], scratch[3 * nblocks :]
+        # each row's crossing bits: a byte a lane and axis, two at 512
+        masks = torch.empty((3 * d * d * 32 * (1 if d <= 256 else 2),), dtype=torch.uint8, device=dev)
+    else:
+        nblocks = (3 * (d - 1) * d * d + _TILE - 1) // _TILE
+        scratch = torch.empty((2 * nblocks,), dtype=torch.int32, device=dev)
+        counts, offsets = scratch[:nblocks], scratch[nblocks:]
     points = torch.empty((max_points, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((max_points,), dtype=torch.bool, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
+    ran = ctypes.c_int(0)
     rc = lib.df_extract_cloud(
-        tsdf.data_ptr(), weight.data_ptr(), storage, d, _decode_scale(tsdf), _f32(min_weight), max_points,
-        _f32(voxel_size), *(_f32(v) for v in origin), scratch[:ntiles].data_ptr(), scratch[ntiles:].data_ptr(),
-        ntiles, points.data_ptr(), valid.data_ptr(), count.data_ptr(), _stream(dev),
+        tsdf.data_ptr(), weight.data_ptr(), storage, d, _decode_scale(tsdf), _f32(min_weight),
+        weight_code_min(min_weight), max_points, _f32(voxel_size), *(_f32(v) for v in origin), counts.data_ptr(),
+        offsets.data_ptr(), nblocks, None if masks is None else masks.data_ptr(),
+        _ticket(dev).data_ptr() if rows else None, int(not rows), points.data_ptr(), valid.data_ptr(),
+        count.data_ptr(), ctypes.byref(ran), _stream(dev),
     )
     _done("extract_cloud", rc)
+    device_kernels["extract_cloud"] += ran.value
     return points, valid, count
 
 

@@ -74,12 +74,13 @@ def bilateral_filter(
     sigma_spatial: float = 4.5,
     sigma_depth_m: float = 0.04,
     plain: bool = False,
+    reference: bool = False,
 ) -> torch.Tensor:
-    """Kernel A on CUDA tensors, the plain version on CPU tensors or where
-    the caller asks for it."""
+    """Kernel A (its reference mode with ``reference``) on CUDA tensors,
+    the plain version on CPU tensors or where the caller asks for it."""
     if plain or depth_mm.device.type == "cpu":
         return bilateral_filter_plain(depth_mm, kernel_size, sigma_spatial, sigma_depth_m)
-    return kernels.bilateral_filter(depth_mm, kernel_size, sigma_spatial, sigma_depth_m)
+    return kernels.bilateral_filter(depth_mm, kernel_size, sigma_spatial, sigma_depth_m, reference=reference)
 
 
 def _plain(t: torch.Tensor, plain: bool) -> bool:

@@ -719,18 +719,21 @@ def extract_cloud(
     max_points: int,
     min_weight: float | None = None,
     plain: bool = False,
+    reference: bool = False,
 ) -> ExtractedCloud:
     """Zero-crossing surface cloud in world coordinates: for each voxel and
     its +x/+y/+z neighbour, both observed (weight >= min_weight) with a
     sign change, the linearly interpolated crossing. Static-size
     compaction in the JAX order (axis-major, then x-major voxel order);
-    ``count`` is the uncapped total. Kernel L (``csrc/extract.cu``) on CUDA
-    tensors, the plain version on CPU tensors or where the caller asks."""
+    ``count`` is the uncapped total. Kernel L (``csrc/extract.cu``; its
+    reference mode with ``reference``) on CUDA tensors, the plain version
+    on CPU tensors or where the caller asks."""
     mw = cfg.extract_min_weight if min_weight is None else min_weight
     if plain or vol.tsdf.device.type == "cpu":
         return extract_cloud_plain(cfg, vol, max_points, mw)
     return ExtractedCloud(*kernels.extract_cloud(
         vol.tsdf, vol.weight, mw, max_points, cfg.voxel_size, tuple(float(v) for v in cfg.volume_origin),
+        reference=reference,
     ))
 
 

@@ -7,10 +7,11 @@ its own intrinsics) or ``chip_smoke.py``'s rigid orbit (``ref_rigid``: the
 reference-shaped rigid cell, ``reference_parity()`` rigid with dense
 fusion and the six-sample normals) at full width, then ``--profile`` frames under
 torch.profiler (``chip_smoke.profile_frames``: device busy time, idle
-share, launches).
+share, launches); with ``--frame0`` also frame 0 of a fresh
+``DynamicFusion`` (the extraction, the node sampling, the first fusion).
 
     python3 scripts/torch_frame_times.py --root DIR [--preset quality] [--storage f32/f32] [--frames 20]
-                                         [--profile OUT [--focus NAME ...]]
+                                         [--profile OUT [--frame0] [--focus NAME ...]]
 
 ``--root`` is the directory holding the ``dynamicfusion_tpu_torch`` to time
 (this checkout by default; an unpacked ``git archive`` of another commit
@@ -48,6 +49,8 @@ def main() -> int:
                                                     "configuration's)")
     ap.add_argument("--frames", type=int, default=20, help="timed frames (frame 0 included)")
     ap.add_argument("--profile", default=None, help="profile 3 more frames and write the table and trace here")
+    ap.add_argument("--frame0", action="store_true",
+                    help="with --profile, also profile frame 0 of a fresh DynamicFusion after the timed frames")
     ap.add_argument("--focus", nargs="*", default=(),
                     help="with --profile, also print the device time of the kernels whose names hold these strings")
     args = ap.parse_args()
@@ -104,8 +107,11 @@ def main() -> int:
           f"(frames 2..{len(ms) - 1}), min {steady[0]:.3f}, max {steady[-1]:.3f}; per frame "
           + " ".join(f"{v:.1f}" for v in ms), flush=True)
     if args.profile:
-        profile_frames(torch, args, dev, card, df, frames[args.frames:], focus=tuple(args.focus),
-                       tag=f"{root.name}_{args.preset}_{args.storage.replace('/', '_')}")
+        tag = f"{root.name}_{args.preset}_{args.storage.replace('/', '_')}"
+        profile_frames(torch, args, dev, card, df, frames[args.frames:], focus=tuple(args.focus), tag=tag)
+        if args.frame0:
+            profile_frames(torch, args, dev, card, kinfu.DynamicFusion(cfg, device=dev), frames[:1],
+                           focus=tuple(args.focus), tag=f"{tag}_frame0")
     print(json.dumps({"root": str(root), "preset": args.preset, "storage": args.storage,
                       "median_ms": steady[len(steady) // 2],
                       "frame_ms": ms, "card": card}))

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import INSERT_CASES, MUTUAL_CASES, PLAN_CASES, plan_inputs
+from chip_smoke import (EXTRACT_CASES, INSERT_CASES, MUTUAL_CASES, PLAN_CASES, border_frame, extract_block_cut,
+                        extract_case, plan_inputs)
 from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.core import se3
@@ -66,6 +67,9 @@ def model(dev):
 
 
 def test_bilateral_kernel(dev):
+    """Kernel A (the tiled filter) against the plain version, and bit for
+    bit against its reference mode on a noisy frame and on one whose depth
+    edges and holes cross all four borders, at 7x7 and 5x5."""
     rng = np.random.RandomState(0)
     d = DEPTHS[0].astype(np.int32)
     d = torch.from_numpy(np.where(d > 0, d + rng.randint(-6, 7, d.shape), 0).astype(np.uint16)).to(dev)
@@ -75,6 +79,11 @@ def test_bilateral_kernel(dev):
     diff = (got - ref).abs()
     # exact but for a half-millimetre tie that an ulp of expf flips
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+    border = torch.from_numpy(border_frame(CFG.rows, CFG.cols, 4)).to(dev)
+    for frame in (d, border):
+        for size in (7, 5):
+            tiled = preprocess.bilateral_filter(frame, size)
+            assert torch.equal(tiled, preprocess.bilateral_filter(frame, size, reference=True))
 
 
 def test_icp_kernel(dev, model):
@@ -301,25 +310,55 @@ def test_fuse_kernel(dev, model, ok):
         assert torch.equal(vk.tsdf, model.vol.tsdf)
 
 
-@pytest.mark.parametrize("max_points", [1 << 16, 700])
-def test_extract_kernel(dev, model, max_points):
-    """Kernel L: the cloud (points, flags, uncapped count) and the node
-    sampling equal their plain versions bit for bit, capped or not."""
+@pytest.mark.parametrize("storage", [("i16", "u16"), ("i16", "f32"), ("f32", "u16"), ("f32", "f32"), ("bf16", "u16"),
+                                     ("bf16", "f32")], ids=lambda s: "-".join(s))
+@pytest.mark.parametrize("max_points", [1 << 16, 700, "block"])
+def test_extract_kernel(dev, model, max_points, storage):
+    """Kernel L (the row listing): the cloud (points, flags, uncapped
+    count) equals its plain version and its reference mode bit for bit at
+    every storage pair, capped or not (``block``: a cap inside one block's
+    run), two device kernels a call; the node sampling equals its plain
+    version."""
+    from dynamicfusion_tpu_torch.models import volume as volume_model
     from dynamicfusion_tpu_torch.models import warpfield
 
-    ck = tsdf.extract_cloud(CFG, model.vol, max_points, min_weight=1.0)
-    cp = tsdf.extract_cloud(CFG, model.vol, max_points, min_weight=1.0, plain=True)
+    cfg = dataclasses.replace(CFG, tsdf_dtype=storage[0], weight_dtype=storage[1])
+    vol = volume_model.convert(model.vol, cfg)
+    if max_points == "block":
+        max_points = extract_block_cut(torch, cfg, vol)
+    before = kernels.device_kernels["extract_cloud"]
+    ck = tsdf.extract_cloud(cfg, vol, max_points, min_weight=1.0)
+    assert kernels.device_kernels["extract_cloud"] == before + 2
+    cr = tsdf.extract_cloud(cfg, vol, max_points, min_weight=1.0, reference=True)
+    cp = tsdf.extract_cloud(cfg, vol, max_points, min_weight=1.0, plain=True)
     torch.cuda.synchronize()
     assert int(cp.count) > 700
-    assert torch.equal(ck.count, cp.count) and torch.equal(ck.valid, cp.valid)
-    assert torch.equal(torch.isnan(ck.points), torch.isnan(cp.points))
-    assert torch.equal(torch.nan_to_num(ck.points), torch.nan_to_num(cp.points))
-    fk = warpfield.init_from_cloud(CFG, cp.points, cp.valid)
-    fp = warpfield.init_from_cloud(CFG, cp.points, cp.valid, plain=True)
+    for other in (cp, cr):
+        assert torch.equal(ck.count, other.count) and torch.equal(ck.valid, other.valid)
+        assert torch.equal(torch.isnan(ck.points), torch.isnan(other.points))
+        assert torch.equal(torch.nan_to_num(ck.points), torch.nan_to_num(other.points))
+    fk = warpfield.init_from_cloud(cfg, cp.points, cp.valid)
+    fp = warpfield.init_from_cloud(cfg, cp.points, cp.valid, plain=True)
     for name, a, b in zip(warpfield.WarpField._fields, fk, fp):
         assert torch.equal(a, b), name
     # every valid candidate of the (capped) cloud, up to the node capacity
-    assert int(fk.count) == min(CFG.max_nodes, int(cp.valid[:: CFG.node_sample_step].sum())) > 0
+    assert int(fk.count) == min(cfg.max_nodes, int(cp.valid[:: cfg.node_sample_step].sum())) > 0
+
+
+@pytest.mark.parametrize("case", sorted(EXTRACT_CASES))
+def test_extract_kernel_edge_values(dev, case):
+    """Kernel L on ``chip_smoke.EXTRACT_CASES`` (edge codes and values,
+    weights at the threshold): bit-equal to its plain version and its
+    reference mode, uncapped and at half the count."""
+    cfg, vol = extract_case(torch, dev, case)
+    n = int(tsdf.extract_cloud(cfg, vol, 1, min_weight=1.0, plain=True).count)
+    assert n > 1000
+    for max_points in (n + 100, n // 2 + 1):
+        ck = tsdf.extract_cloud(cfg, vol, max_points, min_weight=1.0)
+        for other in (tsdf.extract_cloud(cfg, vol, max_points, min_weight=1.0, plain=True),
+                      tsdf.extract_cloud(cfg, vol, max_points, min_weight=1.0, reference=True)):
+            assert torch.equal(ck.count, other.count) and torch.equal(ck.valid, other.valid)
+            assert _same_map(ck.points, other.points)
 
 
 def test_slice_on_the_card_goes_through_every_kernel(dev):
