@@ -107,6 +107,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    slot), rigid and non-rigid here, on 4 slabs in phase 17, at the five
    float storages rigid, non-rigid and on 4 slabs in phase 20 and at
    512^3 in phase 23, each gated too, each mode timed fusing and gated;
+   kernel G's damped block inverse (``hold_spd6``: one launch of the LM
+   iteration's damping, inverse and keep rule) bit for bit, NaNs alike,
+   against the composition it replaced (two damping kernels,
+   ``diag_embed`` and the add, the reference mode, ``where``) with rebuild
+   true and false, one device kernel a call, on the preset's damped blocks
+   at five lambdas, on random SPD blocks (and within TOL_SPD6_REL of
+   plain there) and on the sharded solve's psum'd blocks (phase 17), its
+   undamped entry against the reference mode on the base config's dense
+   diagonal blocks (``hold_spd6_undamped``); kernel I's multi-map entry
+   (``hold_maps``) bit for bit against the single-map kernel at every task
+   of the preset's frame, every map of its shapes and every output alone,
+   one launch a call, then on the last frame of every run (phases 3-23,
+   ``hold_step_maps``) and on the depth-variant ICP's pyramids (phase 15),
+   and one launch a step on every run;
 3. drive ``DynamicFusion`` on the rigid slice config for N frames of a
    sphere+plane orbit, with every launch counter reset just before and
    read just after; kernels A-D (C's secant branch) and I-K must have
@@ -377,7 +391,7 @@ BULGE_FRAMES = 8    # of the bulge scene under the aperture gate (printed, not c
 
 RIGID_KERNELS = ("bilateral", "icp_reduce", "raycast", "fuse_bricks")
 # the kernels of the per-frame stencils and the brick plan (I-K): both paths run them
-STENCIL_KERNELS = ("depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "brick_plan")
+STENCIL_KERNELS = ("depth_dists", "pyramid_down", "frame_maps", "resize_maps", "march_bands", "brick_plan")
 # (source, the TPU kernel-role function it replaces) of each JSON row; a
 # row's launches are its counter's (the row name, but for the rows below;
 # kernel E's rows count the launches of their kind of call,
@@ -392,7 +406,7 @@ ROWS = {
     "fuse_bricks_nonrigid": ("fuse_bricks.cu", "dynamicfusion_tpu/ops/bricks.py:552"),
     "depth_dists": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:165"),
     "pyramid_down": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:91"),
-    "points_normals": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:124"),
+    "frame_maps": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:124"),
     "resize_maps": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:172"),
     "march_bands": ("bands.cu", "dynamicfusion_tpu/pipeline/kinfu.py:107"),
     "brick_plan": ("classify.cu", "dynamicfusion_tpu/ops/bricks.py:213"),
@@ -453,7 +467,7 @@ COUNTER = {"raycast_newton8": "raycast", "fuse_bricks_nonrigid": "fuse_bricks", 
            "dense_gram_bf16": "dense_gram", "insert_select_full_res": "insert_select",
            "mutual_nearest_full_res": "mutual_nearest",
            "node_radius_insert": "node_radius", "data_term_strided": "data_term", "pcg_strided": "pcg",
-           "pcg_lagged": "pcg", "points_normals_depth": "points_normals", "icp_reduce_depth": "icp_reduce",
+           "pcg_lagged": "pcg", "points_normals_depth": "frame_maps", "icp_reduce_depth": "icp_reduce",
            "knn_blend": "knn_blend[k8 blend warp]", "knn_blend_points": "knn_blend[k8]",
            "knn_blend_nodes": "knn_blend[k5]", "knn_blend_mesh": "knn_blend[k8 warp normals]",
            **{k: "raycast" for k in ("raycast_newton16", "raycast_hybrid16", "raycast_grad6_coarse",
@@ -1126,6 +1140,22 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
     check("spd6_inv", err <= TOL_SPD6_REL and ek <= TOL_SPD6_REL,
           f"({n}, 6, 6) random SPD blocks: kernel vs plain {err:.2e}, kernel vs float64 inverse {ek:.2e} "
           f"(tol {TOL_SPD6_REL})")
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    lm0 = torch.full((), cfg.solver_lm_lambda_init, device=dev)
+    dk_ = torch.empty_like(spd)
+    ws.spd6_inv_damped(spd, diag_eff, unit, lm0, on, dk_)
+    dp_ = torch.empty_like(spd)
+    ws.spd6_inv_damped(spd, diag_eff, unit, lm0, on, dp_, plain=True)
+    err = rel_err(torch, dk_, dp_)
+    check("spd6_inv_damped_plain", err <= TOL_SPD6_REL,
+          f"the damped entry on the random SPD blocks: kernel vs plain {err:.2e} (tol {TOL_SPD6_REL})")
+    hold_spd6(torch, "spd6_inv_random", spd, diag_eff, unit, cfg.solver_lm_lambda_init, "random SPD blocks: ")
+    # the solve's own lambdas: lambda_init (timed), after one to three
+    # rejections (x8 each), and the clamp's floor
+    for lam in [cfg.solver_lm_lambda_init * 8.0 ** k for k in range(1, 4)] + [1e-8]:
+        hold_spd6(torch, "spd6_inv_damped", blocks_full, diag_eff, unit, lam, "the preset's phase-2 damped blocks: ")
+    ms_d, ms_ref, ms_kept = hold_spd6(torch, "spd6_inv_damped", blocks_full, diag_eff, unit,
+                                      cfg.solver_lm_lambda_init, "the preset's phase-2 damped blocks: ", timed=True)
     mk, mp_ = ws.spd6_inv(m), ws.spd6_inv(m, plain=True)
     exact_m = torch.linalg.inv(m.double())
     print(f"[info] spd6_inv on the solver's damped blocks: condition numbers median "
@@ -1133,13 +1163,24 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
           f"kernel {rel_err(torch, mk.double(), exact_m):.2e}, plain {rel_err(torch, mp_.double(), exact_m):.2e}; "
           f"non-finite entries: kernel {int((~torch.isfinite(mk)).sum())}, plain {int((~torch.isfinite(mp_)).sum())}",
           flush=True)
+    scratch = torch.empty_like(m)
     report["spd6_inv"] = dict(
-        err=abs_err(torch, ik, ip),
-        ms=cuda_ms(torch, lambda: kernels.spd6_inv(m)),
-        plain_ms=cuda_ms(torch, lambda: ws.spd6_inv(m, plain=True)),
-        bound=bound_ms(n * 144 * 2, n * 450.0),
+        err=max(abs_err(torch, ik, ip), abs_err(torch, dk_, dp_)),
+        # the LM iteration's whole preconditioner step (damping, inverse,
+        # the keep rule) at lambda_init; rebuild false: kept_ms
+        ms=ms_d,
+        plain_ms=cuda_ms(torch, lambda: ws.spd6_inv_damped(blocks_full, diag_eff, unit, lm0, on, scratch, plain=True)),
+        # blocks, diag_eff, unit and lambda in; minv and damp out; ~450
+        # operations a node's inverse, 18 its damping
+        bound=bound_ms(n * (144 + 24 + 24 + 144 + 24) + 5, n * 468.0),
         library_ms=cuda_ms(torch, lambda: torch.linalg.inv(m)),
+        reference_ms=ms_ref,
+        kept_ms=ms_kept,
     )
+    print(f"[time] spd6_inv: damped entry {ms_d:.4f} ms (rebuild false {ms_kept:.4f}), the composition it replaced "
+          f"(two damping kernels, diag_embed, the add, the reference mode, where) {ms_ref:.4f}, undamped "
+          f"{cuda_ms(torch, lambda: kernels.spd6_inv(m)):.4f}, reference mode "
+          f"{cuda_ms(torch, lambda: kernels.spd6_inv(m, reference=True)):.4f}", flush=True)
     sysm = ws.System(dp.rows, ep, damp)
     pv = torch.from_numpy(np.random.RandomState(1).randn(6 * n).astype(np.float32)).to(dev)
     err = rel_err(torch, ws.matvec(s, sysm, pv), ws.matvec(s, sysm, pv, plain=True))
@@ -1686,8 +1727,102 @@ def kernels_a_call(name, fn):
 # the device kernels a call of each wrapper whose C entry reports them
 # (``kernels.device_kernels``): G's edge term and E's mutual-nearest pass
 # one launch, K's plan the mip tiles and the cluster, D's fuse one, L's
-# extraction the count with its scan and the write
-DEVICE_KERNELS_A_CALL = {"edge_term": 1, "mutual_nearest": 1, "brick_plan": 2, "fuse_bricks": 1, "extract_cloud": 2}
+# extraction the count with its scan and the write, G's spd6_inv (either
+# entry) and I's frame maps one
+DEVICE_KERNELS_A_CALL = {"edge_term": 1, "mutual_nearest": 1, "brick_plan": 2, "fuse_bricks": 1, "extract_cloud": 2,
+                         "spd6_inv": 1, "frame_maps": 1}
+
+
+def hold_spd6(torch, name, blocks, diag_eff, unit, lam, what="", timed=False):
+    """Kernel G's damped entry bit for bit (NaNs alike) against the
+    composition it replaced in the LM loop (damp = lambda diag_eff + unit,
+    the reference mode's inverse of blocks + diag_embed(damp), kept by
+    ``where(rebuild, ., minv)``) with rebuild true and false, the last
+    result the inverse at 8 lambda; the undamped entry against the
+    reference mode on the same damped blocks; one device kernel a call.
+    With ``timed``: (the damped entry's ms, the composition's ms, the
+    entry's ms with rebuild false)."""
+    from dynamicfusion_tpu_torch import kernels
+
+    n, dev = blocks.shape[0], blocks.device
+    lm = torch.full((), lam, dtype=torch.float32, device=dev)
+    last = kernels.spd6_inv(blocks + torch.diag_embed((lm * 8.0 * diag_eff + unit).reshape(n, 6)), reference=True)
+    flags = {r: torch.full((), r, dtype=torch.bool, device=dev) for r in (True, False)}
+
+    def composition(flag, minv):
+        damp = lm * diag_eff + unit
+        fresh = kernels.spd6_inv(blocks + torch.diag_embed(damp.reshape(n, 6)), reference=True)
+        return damp, torch.where(flag, fresh, minv)
+
+    parts, calls = {}, []
+    for r, flag in flags.items():
+        minv = last.clone()
+        damp, k = kernels_a_call("spd6_inv", lambda: kernels.spd6_inv_damped(blocks, diag_eff, unit, lm, flag, minv))
+        rd, rm = composition(flag, last)
+        parts[f"rebuild {r}"] = same_bits(torch, damp, rd) and same_bits(torch, minv, rm)
+        calls.append(k)
+    m = blocks + torch.diag_embed((lm * diag_eff + unit).reshape(n, 6))
+    tile, k = kernels_a_call("spd6_inv", lambda: kernels.spd6_inv(m))
+    parts["undamped"] = same_bits(torch, tile, kernels.spd6_inv(m, reference=True))
+    calls.append(k)
+    bad = int((~torch.isfinite(tile).all(-1).all(-1)).sum())
+    check(name, all(parts.values()) and calls == [1, 1, 1],
+          f"{what}{n} nodes at lambda {lam:.1e} ({bad} non-finite inverses): bit for bit against the composition "
+          f"(glue, the reference mode, where) {parts}; device kernels a call {calls}")
+    if not timed:
+        return None
+    scratch = last.clone()
+    return (cuda_ms(torch, lambda: kernels.spd6_inv_damped(blocks, diag_eff, unit, lm, flags[True], scratch)),
+            cuda_ms(torch, lambda: composition(flags[True], last)),
+            cuda_ms(torch, lambda: kernels.spd6_inv_damped(blocks, diag_eff, unit, lm, flags[False], scratch)))
+
+
+def hold_spd6_undamped(torch, name, m, what=""):
+    """Kernel G's undamped entry bit for bit (NaNs alike) against its
+    reference mode, one device kernel a call."""
+    from dynamicfusion_tpu_torch import kernels
+
+    out, k = kernels_a_call("spd6_inv", lambda: kernels.spd6_inv(m))
+    same = same_bits(torch, out, kernels.spd6_inv(m, reference=True))
+    check(name, same and k == 1, f"{what}{m.shape[0]} blocks: bit for bit against the reference mode {same}, "
+                                 f"{k} device kernel a call")
+
+
+def hold_maps(torch, name, tasks, what=""):
+    """Kernel I's multi-map entry bit for bit (NaNs alike) against the
+    single-map kernel (its reference mode) at every task: each map a task
+    asks for, None for the others; one device kernel a call (up to
+    ``kernels.MAP_TASKS`` tasks)."""
+    from dynamicfusion_tpu_torch import kernels
+
+    outs, k = kernels_a_call("frame_maps", lambda: kernels.frame_maps(tasks))
+    parts = []
+    for t, (p, n, c) in zip(tasks, outs):
+        rp, rn, rc = kernels.points_normals(t.depth, t.intr, t.stride, normals=t.normals, conf=t.conf)
+        parts.append((same_bits(torch, p, rp) if t.points else p is None) and same_bits(torch, n, rn)
+                     and same_bits(torch, c, rc))
+    shapes = ", ".join(f"{t.depth.shape[1] // t.stride}x{t.depth.shape[0] // t.stride}/{t.stride}"
+                       f"{'p' if t.points else ''}{'n' if t.normals else ''}{'c' if t.conf else ''}" for t in tasks)
+    want = -(-len(tasks) // kernels.MAP_TASKS)
+    check(name, all(parts) and k == want,
+          f"{what}{len(tasks)} tasks ({shapes}): bit for bit against the single-map kernel {parts}; {k} device "
+          f"kernels a call (want {want})")
+    return outs
+
+
+def hold_step_maps(torch, name, cfg, depth):
+    """``hold_maps`` at every task of one frame of ``cfg``'s step: ``track``'s
+    maps (``kinfu.track_maps``), or the rigid step's from ``raycast_shift``,
+    on the kernel path's pyramid of ``depth``."""
+    from dynamicfusion_tpu_torch.ops import preprocess
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    d = depth if isinstance(depth, torch.Tensor) else torch.from_numpy(np.asarray(depth))
+    d = d.to(torch.device("cuda"))
+    maps = dict(first_point_level=cfg.raycast_shift) if cfg.rigid_only else kinfu.track_maps(cfg)
+    pyr = preprocess.build_frame_pyramid(cfg, d, **maps)
+    tasks, _ = preprocess.pyramid_map_tasks(cfg, pyr[0], d, **maps)
+    return hold_maps(torch, name, tasks, f"{cfg.cols}x{cfg.rows}, shift {cfg.raycast_shift}: ")
 
 
 def same_plan(torch, a, b) -> bool:
@@ -2438,10 +2573,13 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
         library_ms=None,
     )
 
-    # I: point/normal maps: level 0 with the incidence confidence, the
-    # tracking levels 2 and 3, the raw level-2 points of the solve (stride 4)
+    # I's single-map kernel (the multi-map entry's reference mode) against
+    # plain at the shapes the frame's maps take: level 0 with the incidence
+    # confidence, the tracking levels 2 and 3, the raw level-2 points of the
+    # solve (stride 4)
     worst = [0.0, 0.0, 0.0]
-    for img, stride, lvl, conf in ((pyr[0], 1, 0, True), (pyr[2], 1, 2, False), (pyr[3], 1, 3, False), (d_t, 4, 2, False)):
+    shapes = ((pyr[0], 1, 0, True), (pyr[2], 1, 2, False), (pyr[3], 1, 3, False), (d_t, 4, 2, False))
+    for img, stride, lvl, conf in shapes:
         pk, nk, ck = kernels.points_normals(img, intr.level(lvl), stride, conf=conf)
         pp, npl = preprocess.compute_points_normals(intr.level(lvl), img, stride=stride, plain=True)
         valid = ~torch.isnan(pp[..., 0])
@@ -2454,19 +2592,50 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
               f"NaNs alike {same_nan}, max point diff {perr:.2e} m (tol {TOL_POINTS_M}), normals > {TOL_NORMAL} apart "
               f"on {nfrac:.2e}, confidence on {cfrac:.2e} (tol {TOL_NORMAL_FRAC})")
         worst = [max(worst[0], perr), max(worst[1], abs_err(torch, nk[valid], npl[valid])), worst[2]]
+        if conf:
+            worst[2] = abs_err(torch, ck, preprocess.incidence_confidence(pp, npl))
 
-    def pn_plain():
-        p, n = preprocess.compute_points_normals(intr, f0, plain=True)
-        return preprocess.incidence_confidence(p, n)
+    # I's multi-map entry: the step's frame maps (``kinfu.track_maps``: level
+    # 0's confidence alone, levels 2 and 3, the raw stride-4 points) in one
+    # launch, bit-equal to the single-map kernel; also every map of each
+    # level and every output alone
+    maps = kinfu.track_maps(cfg)
+    tasks, _ = preprocess.pyramid_map_tasks(cfg, pyr, d_t, **maps)
+    hold_maps(torch, "frame_maps", tasks, "the preset's frame: ")
+    every = [preprocess.MapTask(img, intr.level(lvl), stride, conf=True) for img, stride, lvl, _ in shapes]
+    hold_maps(torch, "frame_maps_every_map", every, "every map of the preset's shapes: ")
+    for one in ("points", "normals", "conf"):
+        alone = [t._replace(points=one == "points", normals=one == "normals", conf=one == "conf") for t in every]
+        hold_maps(torch, f"frame_maps_{one}_only", alone, f"{one} alone: ")
+    reference = [(img, intr.level(lvl), stride, conf) for img, stride, lvl, conf in shapes]
 
-    report["points_normals"] = dict(
-        err=max(worst),
-        ms=cuda_ms(torch, lambda: kernels.points_normals(f0, intr, conf=True)),
-        plain_ms=cuda_ms(torch, pn_plain),
-        # level-0 depth in; points, normals and confidence out; ~90 operations a pixel
-        bound=bound_ms(npx * (2 + 12 + 12 + 4), npx * 90.0),
+    def maps_before():
+        # the parent's four single-map launches of a frame (normals and all)
+        return [kernels.points_normals(img, k, stride, conf=conf) for img, k, stride, conf in reference]
+
+    def maps_plain():
+        return preprocess.frame_maps(tasks, plain=True)
+
+    outs_k, outs_p = kernels.frame_maps(tasks), maps_plain()
+    err = max(abs_err(torch, a, b) for ok, op in zip(outs_k, outs_p) for a, b in zip(ok, op) if a is not None)
+    nb = sum(t.depth.shape[0] // t.stride * (t.depth.shape[1] // t.stride) for t in tasks)
+    out_b = sum((t.depth.shape[0] // t.stride) * (t.depth.shape[1] // t.stride) * (12 * t.points + 12 * t.normals
+                                                                                + 4 * t.conf) for t in tasks)
+    report["frame_maps"] = dict(
+        err=max(err, *worst),
+        ms=cuda_ms(torch, lambda: kernels.frame_maps(tasks)),
+        plain_ms=cuda_ms(torch, maps_plain),
+        # each task's depth samples in (2 B each), the maps it asks for out;
+        # ~90 operations a pixel
+        bound=bound_ms(nb * 2 + out_b, nb * 90.0),
         library_ms=None,
+        reference_ms=cuda_ms(torch, maps_before),
     )
+    per_shape = [cuda_ms(torch, lambda a=a: kernels.points_normals(a[0], a[1], a[2], conf=a[3])) for a in reference]
+    print(f"[time] frame_maps: the preset frame's {len(tasks)} maps in one launch {report['frame_maps']['ms']:.4f} ms; "
+          f"the design before, four single-map launches {report['frame_maps']['reference_ms']:.4f} ms ("
+          + ", ".join(f"{a[0].shape[1] // a[2]}x{a[0].shape[0] // a[2]} {t:.4f}" for a, t in zip(reference, per_shape))
+          + ")", flush=True)
 
     # I: the 2x2 resize of the warped model maps (exact)
     mp, mn = st.prev_points[0], st.prev_normals[0]
@@ -2843,9 +3012,13 @@ def rigid_main(torch, args, dev, card):
     print(f"[rigid] icp_ok {sum(oks)}/{len(oks)}; brick counts (band, wide, dropped) first {counts[0]} last {counts[-1]}")
     check("rigid_launches", all(launches[k] > 0 for k in RIGID_KERNELS + STENCIL_KERNELS),
           f"kernels A-D and I-K launched: {launches}")
-    per_call = {k: (launches[k], kernels.device_kernels[k]) for k in ("brick_plan", "fuse_bricks")}
+    per_call = {k: (launches[k], kernels.device_kernels[k]) for k in ("brick_plan", "fuse_bricks", "frame_maps")}
     check("rigid_device_kernels", all(c * DEVICE_KERNELS_A_CALL[k] == d for k, (c, d) in per_call.items()),
-          f"K two device kernels a call, D one (calls, device kernels): {per_call}")
+          f"K two device kernels a call, D and I's frame maps one (calls, device kernels): {per_call}")
+    check("rigid_frame_maps", launches["frame_maps"] == len(frames) - 1 and launches["points_normals"] == 0,
+          f"kernel I's maps in one launch a step: frame_maps {launches['frame_maps']} in {len(frames) - 1} steps, "
+          f"the single-map kernel {launches['points_normals']}")
+    hold_step_maps(torch, "rigid_maps", cfg, frames[-1])
     check("rigid_icp_ok", all(oks), f"ICP healthy on every tracked frame ({sum(oks)}/{len(oks)})")
     steady = sorted(frame_ms[2:])
     print(f"[time] {card} | rigid frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{args.frames - 1}), "
@@ -2931,10 +3104,14 @@ def drive_kernel_path(torch, cfg, dev, frames):
 def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k, fused=None):
     """A non-rigid run's checks: every kernel of the path (A-L) launched,
     kernel L once (frame 0) and A once a frame after it, one device kernel
-    a call of G's edge term, E's mutual-nearest pass and D and two of K and
-    L, ICP healthy and the solve's cost not raised
+    a call of G's edge term, E's mutual-nearest pass, D, G's spd6_inv and
+    I's frame maps and two of K and L, ICP healthy and the solve's cost not raised
     on every frame, fusion on the due frames (``fused``: the frames whose
-    fusion changed the volume, else those with brick counts)."""
+    fusion changed the volume, else those with brick counts); kernel I's
+    maps one launch a step, held bit for bit on the last frame
+    (``hold_step_maps``)."""
+    import torch
+
     from dynamicfusion_tpu_torch import kernels
 
     print(f"[{tag}] {len(frames)} frames at {cfg.cols}x{cfg.rows} / {cfg.volume_dims}^3 / {cfg.max_nodes} nodes; "
@@ -2947,7 +3124,8 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     # the direct solve runs N, O and the factor in place of the PCG's; kernel
     # J's march bands need the temporal band or a raycast seed; the export
     # path's normals (R) are no frame's
-    off = {"matvec", "coarse_band", "extract_normals"} | (set() if cfg.solver_p2p_adaptive else {"p2p_gate"})
+    off = {"matvec", "coarse_band", "extract_normals", "points_normals"} | (set() if cfg.solver_p2p_adaptive
+                                                                           else {"p2p_gate"})
     off |= set(PCG_KERNELS if cfg.solver_linear == "direct" else DENSE_KERNELS)
     if cfg.solver_linear == "direct" and not cfg.solver_jtj_int8:
         off.add("gram_scales")
@@ -2969,8 +3147,12 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
               f"kernel M once a step: {launches['p2p_gate']} launches in {len(frames) - 1} steps")
     one = {k: (launches[k], launches[f"{k}[device kernels]"]) for k in kernels.device_kernels}
     check(f"{tag}_one_launch", all(c * DEVICE_KERNELS_A_CALL[k] == d for k, (c, d) in one.items()),
-          f"one device kernel a call of G's edge term, E's mutual-nearest pass and D, two of K and of L "
-          f"(calls, device kernels): {one}")
+          f"one device kernel a call of G's edge term, E's mutual-nearest pass, D, G's spd6_inv and I's frame "
+          f"maps, two of K and of L (calls, device kernels): {one}")
+    check(f"{tag}_frame_maps", launches["frame_maps"] == len(frames) - 1 and launches["points_normals"] == 0,
+          f"kernel I's maps in one launch a step: frame_maps {launches['frame_maps']} in {len(frames) - 1} steps, "
+          f"the single-map kernel {launches['points_normals']}")
+    hold_step_maps(torch, f"{tag}_maps", cfg, frames[-1])
     check(f"{tag}_frame0_kernels", launches["extract_cloud"] == 1 and launches["sample_nodes"] == 1,
           f"kernel L once in frame 0: extract_cloud {launches['extract_cloud']}, sample_nodes "
           f"{launches['sample_nodes']}")
@@ -3257,6 +3439,10 @@ def parity_main(torch, args, dev, card, dense=False):
               and launches["coarse_band"] == n and launches["raycast"] == 2 * n,
               f"kernels A-D, I, K launched; the coarse band once a frame ({launches['coarse_band']} in {n} frames) "
               f"and C twice, its coarse march and the banded march ({launches['raycast']})")
+    check(f"{tag}_frame_maps", launches["frame_maps"] == n - 1 and launches["points_normals"] == 0,
+          f"kernel I's maps (levels 0-3 at shift 0) in one launch a step: frame_maps {launches['frame_maps']} in "
+          f"{n - 1} steps, the single-map kernel {launches['points_normals']}")
+    hold_step_maps(torch, f"{tag}_maps", cfg, frames[-1])
     check(f"{tag}_icp_ok", all(oks), f"ICP healthy on every tracked frame ({sum(oks)}/{len(oks)})")
     steady = sorted(frame_ms[2:])
     print(f"[time] {card} | {tag} frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{n - 1}), "
@@ -3669,6 +3855,8 @@ def dense_pcg_kernel(torch, report, dev, cfg, field, jtj, b):
     for tries in range(8):
         a = ws.dense_damp(jtj, torch.full((), lam, device=dev), field.active, pcfg.solver_damping_floor)
         minv = ws.spd6_inv(ws.diag_blocks(a))
+        hold_spd6_undamped(torch, "spd6_inv_dense", ws.diag_blocks(a),
+                           f"the base config's dense diagonal blocks at lambda {lam:.1e}: ")
         xp = ws.dense_pcg_plain(a, minv, b, iters, rtol, on)
         xk = kernels.dense_pcg(a, minv, b, iters, rtol, on)
         if tries == 0:
@@ -3896,6 +4084,9 @@ def parity_nonrigid_main(torch, args, dev, card, nr_depths, report):
     df, launches, rows, frame_ms, states = drive_kernel_path(torch, cfg, dev, frames)
     poses_k = [p.cpu().numpy() for p in df.poses]
     del df
+    check("parity_nr_frame_maps", launches["frame_maps"] == len(frames) - 1,
+          f"kernel I's maps in one launch a step: {launches['frame_maps']} in {len(frames) - 1} steps")
+    hold_step_maps(torch, "parity_nr_maps", cfg, frames[-1])
 
     # H: the first step's candidates into the frame-0 field
     tr = kinfu.track(cfg, states[0], torch.from_numpy(frames[1]).to(dev))
@@ -4036,9 +4227,11 @@ def depth_icp_main(torch, report, dev, card, cfg):
     dt = float(np.abs(tk[:3, 3] - tp[:3, 3]).max())
     dr = float(np.abs(tk[:3, :3] - tp[:3, :3]).max())
     print(f"[depth-icp] {cfg.cols}x{cfg.rows}, {cfg.pyramid_levels} levels, iterations {cfg.icp_iters}: "
-          f"launches I {launches['points_normals']}, B {launches['icp_reduce']}", flush=True)
-    check("depth_icp_launches", launches["points_normals"] > 0 and launches["icp_reduce"] > 0,
-          f"kernels I and B launched: points_normals {launches['points_normals']}, icp_reduce {launches['icp_reduce']}")
+          f"launches I {launches['frame_maps']}, B {launches['icp_reduce']}", flush=True)
+    check("depth_icp_launches", launches["frame_maps"] == 1 and launches["points_normals"] == 0
+          and launches["icp_reduce"] > 0,
+          f"kernel I's maps of both pyramids in one launch, B launched: frame_maps {launches['frame_maps']}, "
+          f"points_normals {launches['points_normals']}, icp_reduce {launches['icp_reduce']}")
     check("depth_icp_vs_plain", bool(rk.ok) and bool(rp.ok) and dt <= TOL_T1_M and dr <= TOL_T1_ROT,
           f"ok {bool(rk.ok)}/{bool(rp.ok)}; |t_kernel - t_plain| {dt:.3e} m (tol {TOL_T1_M}), rotation entry "
           f"{dr:.3e} (tol {TOL_T1_ROT})")
@@ -4047,29 +4240,35 @@ def depth_icp_main(torch, report, dev, card, cfg):
           f"translation {np.array2string(tk[:3, 3], precision=6)} against the motion {delta.tolist()}: max diff "
           f"{et:.3e} m (tol {TOL_T1_TRUTH_M}), rotation entry from identity {float(np.abs(tk[:3, :3] - np.eye(3)).max()):.3e}")
 
-    # I at level 0: both frames' point maps (the normals come with them)
+    # I: both pyramids' point maps, the multi-map entry's one launch
+    # bit-equal to the single-map kernel and against plain at level 0
     intr = cfg.intr
     d0 = args[0][0]
     npx = d0.shape[0] * d0.shape[1]
-    pk = preprocess.compute_points_normals(intr, d0)
+    tasks = icp.depth_map_tasks(cfg, args[0], args[2])
+    outs = hold_maps(torch, "frame_maps_depth", tasks, "the depth-variant ICP's pyramids: ")
+    pk = outs[0]
     pp = preprocess.compute_points_normals(intr, d0, plain=True)
     same_nan = torch.equal(torch.isnan(pk[0]), torch.isnan(pp[0]))
     perr = abs_err(torch, pk[0], pp[0])
     check("points_normals_depth", same_nan and perr <= TOL_POINTS_M,
           f"level 0 ({d0.shape[1]}x{d0.shape[0]}): NaNs alike {same_nan}, max point diff {perr:.2e} m (tol {TOL_POINTS_M})")
+    nt = sum(t.depth.shape[0] * t.depth.shape[1] for t in tasks)
     report["points_normals_depth"] = dict(
         err=perr,
-        ms=cuda_ms(torch, lambda: kernels.points_normals(d0, intr)),
-        plain_ms=cuda_ms(torch, lambda: preprocess.compute_points_normals(intr, d0, plain=True)),
-        # depth in; points and normals out; ~80 operations a pixel
-        bound=bound_ms(npx * (2 + 12 + 12), npx * 80.0),
+        ms=cuda_ms(torch, lambda: kernels.frame_maps(tasks)),
+        plain_ms=cuda_ms(torch, lambda: preprocess.frame_maps(tasks, plain=True)),
+        # both pyramids' depths in, their points out; ~40 operations a pixel
+        bound=bound_ms(nt * (2 + 12), nt * 40.0),
         library_ms=None,
+        # the design before: a single-map launch a level and frame, normals and all
+        reference_ms=cuda_ms(torch, lambda: [kernels.points_normals(t.depth, t.intr) for t in tasks]),
     )
 
     # B at level 0 with the final transform: current points against the
     # previous frame's back-projected points and normals
     cp, cn = pk[0], args[1][0]
-    prev_p = preprocess.compute_points_normals(intr, args[2][0])[0]
+    prev_p = outs[len(tasks) // 2][0]
     pn = args[3][0]
     t_cur = rk.transform
     dist2 = cfg.icp_dist_thres ** 2
@@ -4775,6 +4974,8 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
     with deterministic(torch):
         blocks = mesh.psum([dt.blocks for dt in dts]) + et.diag
     diag_eff, unit = ws.damping_terms(cfg, field.active, blocks)
+    hold_spd6(torch, "spd6_inv_sharded", blocks, diag_eff, unit, cfg.solver_lm_lambda_init,
+              f"the sharded solve's psum'd blocks ({SHARDS} shards): ")
     damp = cfg.solver_lm_lambda_init * diag_eff + unit
     sysm = ws.System(dts[0].rows, et, damp)
     # the preconditioner as phase 2 holds kernel G's PCG: the float64
@@ -4920,7 +5121,7 @@ def sharded_main(torch, args, dev, card, nr_depths, report, cfg=None):
     frames = nr_depths[: args.s_frames]
     launches, rows, frame_ms, runner = drive_sharded(torch, "sharded", cfg, mesh, dev, frames)
     shard_kernels = ("raycast", "brick_plan", "fuse_bricks", "data_matvec", "pcg_init", "pcg_step", "data_term",
-                     "edge_term", "spd6_inv", "knn_blend", "insert_select", "insert_apply", "extract_cloud",
+                     "edge_term", "spd6_inv", "frame_maps", "knn_blend", "insert_select", "insert_apply", "extract_cloud",
                      "sample_nodes", "march_bands", "icp_reduce", "bilateral")
     check("sharded_launches", all(launches[k] > 0 for k in shard_kernels) and launches["pcg"] == 0,
           f"every kernel of the sharded path launched, kernel G's cluster PCG none: {launches}")
@@ -5969,7 +6170,7 @@ def main() -> int:
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"], path=path,
             **{k: r[k] for k in ("iterations", "iteration_ms", "cluster", "serial_ms", "reference_ms", "gated_ms",
-                                 "reference_gated_ms") if k in r},
+                                 "reference_gated_ms", "kept_ms") if k in r},
         ))
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {card} | {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "

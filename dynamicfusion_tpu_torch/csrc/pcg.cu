@@ -75,8 +75,25 @@
 // rather than order a node phase after a grid-wide edge phase: the same
 // code under the same flags gives the same bits, so no block waits on
 // another, and the only cross-block step is the cost's ordered sum,
-// which the last block to finish takes (a ticket). spd6_inv is one
-// thread per node, the Schur-complement closed form of the plain version.
+// which the last block to finish takes (a ticket).
+// spd6_inv (the Schur-complement closed form of the plain version) is one
+// launch, a thread a node in blocks of kSpdNodes = 16 nodes: 64 blocks at
+// the preset's 1 024 nodes on 64 SMs, where the design before, blocks of
+// 128, put 8 SMs' L1s under every node's strided 144 B (a warp access of
+// 32 sectors for 128 useful bytes, ~9 200 sector accesses an SM by
+// count). Spread so, staging the blocks through shared memory in float4s
+// or by one bulk asynchronous copy gains nothing measurable, and 8 or 32
+// nodes a block no more (scripts/torch_spd6_maps_variants.py).
+// Bound on the H100: latency; 1 024 nodes move 0.3 MB (~0.1 us at 3.35
+// TB/s) and do ~0.5 MFLOP, and the chain of two 3x3 inverses with true
+// divisions is ~1 us of one thread's latency. The damped mode is the LM
+// iteration's whole preconditioner step in the same launch: it writes
+// damp = lambda diag_eff + unit (a product, then a sum: -fmad=false) for
+// its nodes, adds damp to the diagonal and +0.0 off it (as the
+// composition blocks + diag_embed(damp) adds: the same bits, signed zeros
+// included), and, where the device flag rebuild is false, writes only
+// damp and leaves minv as it is (the composition's where). The design
+// before stays as the reference mode.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
@@ -394,9 +411,43 @@ __device__ __forceinline__ void spd6_inv_one(const float* __restrict__ m, float*
   }
 }
 
+// the reference mode: a thread a node, straight from device memory
 __global__ void spd6_inv_kernel(const float* __restrict__ m, int n, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) spd6_inv_one(m + 36 * static_cast<size_t>(i), out + 36 * static_cast<size_t>(i));
+}
+
+constexpr int kSpdNodes = 16;  // nodes (threads) a block
+
+// a thread a node. kDamped: damp = lambda diag_eff + unit written for the
+// node, blocks + diag(damp) inverted into out where *rebuild, out
+// untouched where not; else out = the inverse of blocks
+template <bool kDamped>
+__global__ void __launch_bounds__(kSpdNodes)
+spd6_inv_nodes_kernel(const float* __restrict__ blocks, const float* __restrict__ diag_eff,
+                      const float* __restrict__ unit, const float* __restrict__ lm_lambda,
+                      const bool* __restrict__ rebuild, int n, float* __restrict__ out, float* __restrict__ damp) {
+  const int i = blockIdx.x * kSpdNodes + threadIdx.x;
+  if (i >= n) return;
+  const float* m = blocks + 36 * static_cast<size_t>(i);
+  float a[36];
+  if constexpr (kDamped) {
+    const float lam = *lm_lambda;
+    float d[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const size_t g = 6 * static_cast<size_t>(i) + c;
+      d[c] = lam * diag_eff[g] + unit[g];
+      damp[g] = d[c];
+    }
+    if (!*rebuild) return;
+#pragma unroll
+    for (int e = 0; e < 36; ++e) a[e] = m[e] + (e % 7 == 0 ? d[e / 7] : 0.0f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 36; ++e) a[e] = m[e];
+  }
+  spd6_inv_one(a, out + 36 * static_cast<size_t>(i));
 }
 
 // ---------------------------------------------------------------- matvec and PCG
@@ -1057,10 +1108,29 @@ extern "C" int df_edge_term(const void* dqs, const void* src, const void* dst, c
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int df_spd6_inv(const void* m, int n, void* out, void* stream) {
+// out = the inverses of the n blocks m (damped mode with diag_eff: see
+// spd6_inv_nodes_kernel); reference 1 launches the design before (undamped
+// only); *launched receives the device kernels launched
+extern "C" int df_spd6_inv(const void* m, const void* diag_eff, const void* unit, const void* lm_lambda,
+                           const void* rebuild, int n, void* out, void* damp, int reference, int* launched,
+                           void* stream) {
+  *launched = 0;
   if (n <= 0) return 0;
-  spd6_inv_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(m), n, static_cast<float*>(out));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* blocks = static_cast<const float*>(m);
+  if (reference) {
+    if (diag_eff != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    spd6_inv_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(blocks, n, static_cast<float*>(out));
+  } else if (diag_eff != nullptr) {
+    spd6_inv_nodes_kernel<true><<<(n + kSpdNodes - 1) / kSpdNodes, kSpdNodes, 0, s>>>(
+        blocks, static_cast<const float*>(diag_eff), static_cast<const float*>(unit),
+        static_cast<const float*>(lm_lambda), static_cast<const bool*>(rebuild), n, static_cast<float*>(out),
+        static_cast<float*>(damp));
+  } else {
+    spd6_inv_nodes_kernel<false><<<(n + kSpdNodes - 1) / kSpdNodes, kSpdNodes, 0, s>>>(
+        blocks, nullptr, nullptr, nullptr, nullptr, n, static_cast<float*>(out), nullptr);
+  }
+  *launched = 1;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,20 +7,24 @@
 // output (df_points_normals), and :172 resize_points_normals
 // (df_resize_maps). On the TPU each is a set of shifted whole-image passes
 // that XLA fuses; in the port's plain version each is tens of small
-// PyTorch kernels.
-//
-// Bound on the H100: bytes, and at these sizes launch latency. The largest
-// pass reads the 640x480 uint16 frame (0.6 MB) and writes 640x480x3 float32
-// points and normals (7.4 MB); the arithmetic is a few dozen operations a
-// pixel.
-// Design: one thread per output pixel, 32x8 blocks so a warp reads a row;
-// a stencil's neighbours come from L1/L2. Each entry repeats its plain
-// version's float32 arithmetic operation for operation (-fmad=false, true
-// divisions as the JAX package divides, the window sums in the plain
-// loop's order); the pyramid's window sums are sums of whole millimetres
-// (exact), its mean truncates to integer mm; uint16 is read and written
-// directly. The last row and column of a point map are invalid, as the
-// reference's forward differences leave them.
+// PyTorch kernels. The frame's point/normal maps are one launch
+// (df_frame_maps): up to kMapTasks tasks (a depth image, its stride and
+// intrinsics, and which of points, normals and confidence to write), a
+// block finding its task from the tasks' prefix counts of blocks, so a
+// preset frame's four maps (level 0's confidence, levels 2 and 3, the
+// solve's raw stride-4 points) take one launch, and a map that no step
+// reads is not written (the level-0 maps of a frame tracked from level 2:
+// 7.4 MB of the 9.2 MB the single-map launches wrote). A thread takes a
+// pixel: the maps are bound by their true divisions and square roots (12
+// and 2 a pixel; as products by reciprocals a preset frame's maps take
+// two thirds of the time) and by the launch, not by their 2.9 MB, and 2
+// or 4 consecutive pixels a thread with vector loads and float4 stores
+// only lengthened each thread's chain (a warp's strip of rows sharing its
+// back-projections by shuffles was within 5%:
+// scripts/torch_spd6_maps_variants.py). Each pixel repeats the
+// single-map kernel's arithmetic (pixel_maps, the same device function),
+// so every map is bit-equal to it; df_points_normals, one map a launch,
+// stays as the reference mode.
 #include "common.cuh"
 
 namespace {
@@ -87,6 +91,39 @@ __device__ __forceinline__ float depth_m(const uint16_t* __restrict__ depth, int
   return static_cast<float>(__ldg(depth + static_cast<size_t>(y) * stride * src_cols + x * stride)) * 0.001f;
 }
 
+// pixel (x, y)'s point, and with want_n or want_c its normal and incidence
+// confidence, from its depth and its right and lower neighbours' (m)
+__device__ __forceinline__ void pixel_maps(const Intr& k, int x, int y, int h, int w, float z00, float z01, float z10,
+                                           bool want_n, bool want_c, float p[3], float nr[3], float& c) {
+  const float u = static_cast<float>(x), v = static_cast<float>(y);
+  float v00[3], v01[3], v10[3];
+  backproject(k, u, v, z00, v00);
+  backproject(k, u + 1.0f, v, z01, v01);
+  backproject(k, u, v + 1.0f, z10, v10);
+  const bool valid = (z00 * z01 * z10) != 0.0f && x < w - 1 && y < h - 1;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) p[a] = valid ? v00[a] : nan_f();
+  if (!want_n && !want_c) return;
+  const float a0 = v01[0] - v00[0], a1 = v01[1] - v00[1], a2 = v01[2] - v00[2];
+  const float b0 = v10[0] - v00[0], b1 = v10[1] - v00[1], b2 = v10[2] - v00[2];
+  float n[3] = {a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0};
+  const float nn = fmaxf(sqrtf(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]), 1e-12f);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) n[a] = -(n[a] / nn);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) nr[a] = valid ? n[a] : nan_f();
+  if (want_c) {
+    // |cos| of the normal against the viewing ray, 0 where invalid
+    c = 0.0f;
+    if (valid) {
+      const float pn = fmaxf(sqrtf(v00[0] * v00[0] + v00[1] * v00[1] + v00[2] * v00[2]), 1e-9f);
+      c = fabsf(n[0] * (v00[0] / pn) + n[1] * (v00[1] / pn) + n[2] * (v00[2] / pn));
+      if (isnan(c)) c = 0.0f;
+    }
+  }
+}
+
+// the reference mode: a thread a pixel of one map
 __global__ void points_normals_kernel(const uint16_t* __restrict__ depth, int h, int w, int stride, int src_cols,
                                       Intr k, float* __restrict__ points, float* __restrict__ normals,
                                       float* __restrict__ conf) {
@@ -94,38 +131,64 @@ __global__ void points_normals_kernel(const uint16_t* __restrict__ depth, int h,
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
   const int i = y * w + x;
-  const float u = static_cast<float>(x), v = static_cast<float>(y);
-  const float z00 = depth_m(depth, y, x, h, w, stride, src_cols);
-  const float z01 = depth_m(depth, y, x + 1, h, w, stride, src_cols);
-  const float z10 = depth_m(depth, y + 1, x, h, w, stride, src_cols);
-  float v00[3], v01[3], v10[3];
-  backproject(k, u, v, z00, v00);
-  backproject(k, u + 1.0f, v, z01, v01);
-  backproject(k, u, v + 1.0f, z10, v10);
-  const bool valid = (z00 * z01 * z10) != 0.0f && x < w - 1 && y < h - 1;
+  float p[3], n[3], c;
+  pixel_maps(k, x, y, h, w, depth_m(depth, y, x, h, w, stride, src_cols), depth_m(depth, y, x + 1, h, w, stride, src_cols),
+             depth_m(depth, y + 1, x, h, w, stride, src_cols), normals != nullptr, conf != nullptr, p, n, c);
 #pragma unroll
-  for (int a = 0; a < 3; ++a) points[3 * i + a] = valid ? v00[a] : nan_f();
-  if (normals == nullptr && conf == nullptr) return;
-  const float a0 = v01[0] - v00[0], a1 = v01[1] - v00[1], a2 = v01[2] - v00[2];
-  const float b0 = v10[0] - v00[0], b1 = v10[1] - v00[1], b2 = v10[2] - v00[2];
-  float n[3] = {a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0};
-  const float nn = fmaxf(sqrtf(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]), 1e-12f);
-#pragma unroll
-  for (int a = 0; a < 3; ++a) n[a] = -(n[a] / nn);
+  for (int a = 0; a < 3; ++a) points[3 * i + a] = p[a];
   if (normals != nullptr) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) normals[3 * i + a] = valid ? n[a] : nan_f();
+    for (int a = 0; a < 3; ++a) normals[3 * i + a] = n[a];
   }
-  if (conf != nullptr) {
-    // |cos| of the normal against the viewing ray, 0 where invalid
-    float c = 0.0f;
-    if (valid) {
-      const float pn = fmaxf(sqrtf(v00[0] * v00[0] + v00[1] * v00[1] + v00[2] * v00[2]), 1e-9f);
-      c = fabsf(n[0] * (v00[0] / pn) + n[1] * (v00[1] / pn) + n[2] * (v00[2] / pn));
-      if (isnan(c)) c = 0.0f;
-    }
-    conf[i] = c;
+  if (conf != nullptr) conf[i] = c;
+}
+
+constexpr int kMapTasks = 8;      // tasks a launch
+constexpr int kMapThreads = 128;  // threads a block, a pixel a thread
+
+// a task as the wrapper lays it out: the maps of depth[::stride, ::stride]
+// ((h, w) of a (rows, src_cols) image); a null output is not written
+struct MapTaskArgs {
+  const void* depth;
+  void* points;
+  void* normals;
+  void* conf;
+  float fx, fy, cx, cy;
+  int h, w, stride, src_cols;
+};
+
+struct MapLaunch {
+  MapTaskArgs t[kMapTasks];
+  int first_block[kMapTasks];  // the tasks' prefix counts of blocks
+  int n;
+};
+
+__global__ void __launch_bounds__(kMapThreads) frame_maps_kernel(const MapLaunch launch) {
+  int ti = 0;
+#pragma unroll 1
+  while (ti + 1 < launch.n && static_cast<int>(blockIdx.x) >= launch.first_block[ti + 1]) ++ti;
+  const MapTaskArgs& t = launch.t[ti];
+  const int h = t.h, w = t.w;
+  const int i = (static_cast<int>(blockIdx.x) - launch.first_block[ti]) * kMapThreads + threadIdx.x;
+  if (i >= h * w) return;
+  const int y = i / w, x = i - y * w;
+  const uint16_t* depth = static_cast<const uint16_t*>(t.depth);
+  float* const points = static_cast<float*>(t.points);
+  float* const normals = static_cast<float*>(t.normals);
+  float* const conf = static_cast<float*>(t.conf);
+  float p[3], n[3], c;
+  pixel_maps(Intr{t.fx, t.fy, t.cx, t.cy}, x, y, h, w, depth_m(depth, y, x, h, w, t.stride, t.src_cols),
+             depth_m(depth, y, x + 1, h, w, t.stride, t.src_cols), depth_m(depth, y + 1, x, h, w, t.stride, t.src_cols),
+             normals != nullptr, conf != nullptr, p, n, c);
+  if (points != nullptr) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) points[3 * static_cast<size_t>(i) + a] = p[a];
   }
+  if (normals != nullptr) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) normals[3 * static_cast<size_t>(i) + a] = n[a];
+  }
+  if (conf != nullptr) conf[i] = c;
 }
 
 __global__ void resize_maps_kernel(const float* __restrict__ pts, const float* __restrict__ nrm, int h, int w,
@@ -180,6 +243,30 @@ extern "C" int df_points_normals(const void* depth, int h, int w, int stride, in
         static_cast<const uint16_t*>(depth), h, w, stride, src_cols, Intr{fx, fy, cx, cy},
         static_cast<float*>(points), static_cast<float*>(normals), static_cast<float*>(conf));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one launch of the maps of n <= kMapTasks tasks; *launched receives the
+// device kernels launched (0 where no task has a pixel)
+extern "C" int df_frame_maps(const void* tasks, int n, int* launched, void* stream) {
+  *launched = 0;
+  if (n < 1 || n > kMapTasks) return static_cast<int>(cudaErrorInvalidValue);
+  const MapTaskArgs* in = static_cast<const MapTaskArgs*>(tasks);
+  MapLaunch launch{};
+  long long blocks = 0;
+  for (int j = 0; j < n; ++j) {
+    const MapTaskArgs& t = in[j];
+    if (t.h < 0 || t.w < 0 || t.stride < 1 || static_cast<long long>(t.h) * t.w > (1ll << 30)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    launch.t[j] = t;
+    launch.first_block[j] = static_cast<int>(blocks);
+    blocks += (static_cast<long long>(t.h) * t.w + kMapThreads - 1) / kMapThreads;
+  }
+  launch.n = n;
+  if (blocks == 0) return 0;
+  frame_maps_kernel<<<static_cast<unsigned int>(blocks), kMapThreads, 0, static_cast<cudaStream_t>(stream)>>>(launch);
+  *launched = 1;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -60,12 +60,15 @@ NVCC_FLAGS = (
 # list's normals; the sharded step's distributed PCG: G's data-only matvec
 # of a shard and its per-iteration step, with P's init and update);
 # ``cholesky`` counts the direct solve's factor, a cuSOLVER call, as the
-# JAX package's is its library's
+# JAX package's is its library's; ``spd6_inv`` counts both of G's inverse
+# entries (``spd6_inv``, ``spd6_inv_damped``), ``points_normals`` I's
+# single-map entry (on no frame path) and ``frame_maps`` its multi-map one
 KERNELS = (
     "bilateral", "icp_reduce", "raycast", "fuse_bricks",
     "knn_blend", "mutual_nearest", "warp_trilinear", "data_term",
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
-    "depth_dists", "pyramid_down", "points_normals", "resize_maps", "march_bands", "coarse_band", "brick_plan",
+    "depth_dists", "pyramid_down", "points_normals", "frame_maps", "resize_maps", "march_bands", "coarse_band",
+    "brick_plan",
     "extract_cloud", "sample_nodes", "p2p_gate", "gram_scales", "dense_gram", "dense_damp", "cholesky",
     "node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid", "extract_normals",
     "data_matvec", "pcg_init", "pcg_step",
@@ -80,9 +83,9 @@ knn_kinds: Dict[str, int] = {}
 # call, three in the mode kept as the reference; K's plan two in either
 # mode (the mip tiles, then the cluster or the one block); D's fuse one;
 # L's extraction two (the count with its scan, the write), four in its
-# reference mode
+# reference mode; G's spd6_inv (either entry) and I's frame maps one
 device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0, "brick_plan": 0, "fuse_bricks": 0,
-                                  "extract_cloud": 0}
+                                  "extract_cloud": 0, "spd6_inv": 0, "frame_maps": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -110,7 +113,7 @@ _SIGNATURES = {
     "df_edge_term": (
         _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
     ),
-    "df_spd6_inv": (_P, _I, _P, _P),
+    "df_spd6_inv": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P),
     "df_pcg_plan": (_I, _I, _I, _I, _I, _I, _P),
     "df_matvec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "df_pcg": (
@@ -122,6 +125,7 @@ _SIGNATURES = {
     "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
     "df_pyramid_down": (_P, _I, _I, _F, _P, _P),
     "df_points_normals": (_P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
+    "df_frame_maps": (_P, _I, _P, _P),
     "df_resize_maps": (_P, _P, _I, _I, _P, _P, _P),
     "df_march_bands": (_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P),
     "df_coarse_band": (_P, _I, _I, _I, _F, _P, _P, _P),
@@ -963,16 +967,55 @@ def edge_term(dqs, e_src, e_dst, e_valid, v_dst, alpha, e_order, e_off, lam: flo
     return jtr, cost, h[0], h[1], h[2], diag
 
 
-def spd6_inv(m: torch.Tensor) -> torch.Tensor:
-    """Kernel G: closed-form inverses of (N, 6, 6) SPD blocks."""
-    _check(m, "m", torch.float32)
+def _check_blocks(m: torch.Tensor, name: str) -> int:
+    _check(m, name, torch.float32)
     if m.dim() != 3 or m.shape[1:] != (6, 6):
-        raise ValueError(f"m: expected (N, 6, 6), got {tuple(m.shape)}")
+        raise ValueError(f"{name}: expected (N, 6, 6), got {tuple(m.shape)}")
+    return m.shape[0]
+
+
+def spd6_inv(m: torch.Tensor, reference: bool = False) -> torch.Tensor:
+    """Kernel G (csrc/pcg.cu, one launch): closed-form inverses of (N, 6, 6)
+    SPD blocks, a thread a node in blocks of 16. ``reference`` launches the
+    design before (blocks of 128 nodes), which the kernel is held against
+    bit for bit; no path of the port asks for it."""
+    n = _check_blocks(m, "m")
     lib = load()
     out = torch.empty_like(m)
-    rc = lib.df_spd6_inv(m.data_ptr(), m.shape[0], out.data_ptr(), _stream(m.device))
+    ran = ctypes.c_int(0)
+    rc = lib.df_spd6_inv(m.data_ptr(), None, None, None, None, n, out.data_ptr(), None, int(reference),
+                         ctypes.byref(ran), _stream(m.device))
     _done("spd6_inv", rc)
+    device_kernels["spd6_inv"] += ran.value
     return out
+
+
+def spd6_inv_damped(blocks: torch.Tensor, diag_eff: torch.Tensor, unit: torch.Tensor, lm_lambda: torch.Tensor,
+                    rebuild: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
+    """Kernel G's damped entry (csrc/pcg.cu, one launch): an LM
+    iteration's block-Jacobi preconditioner. Returns damp = lm_lambda *
+    diag_eff + unit (6N,) and, where the device flag ``rebuild`` is true,
+    writes the inverses of ``blocks`` + diag(damp) into ``minv`` (N, 6, 6)
+    in place; where it is false ``minv`` keeps its last result. The host
+    reads neither ``lm_lambda`` nor ``rebuild``. The same bits as
+    ``spd6_inv(blocks + diag_embed(damp))`` kept by ``torch.where(rebuild,
+    ., minv)``."""
+    n = _check_blocks(blocks, "blocks")
+    _check(minv, "minv", torch.float32, blocks.shape)
+    _check(diag_eff, "diag_eff", torch.float32, (6 * n,))
+    _check(unit, "unit", torch.float32, (6 * n,))
+    _check(lm_lambda, "lm_lambda", torch.float32, ())
+    _check(rebuild, "rebuild", torch.bool, ())
+    _same_device(blocks, diag_eff, unit, lm_lambda, rebuild, minv)
+    lib = load()
+    damp = torch.empty_like(diag_eff)
+    ran = ctypes.c_int(0)
+    rc = lib.df_spd6_inv(blocks.data_ptr(), diag_eff.data_ptr(), unit.data_ptr(), lm_lambda.data_ptr(),
+                         rebuild.data_ptr(), n, minv.data_ptr(), damp.data_ptr(), 0, ctypes.byref(ran),
+                         _stream(blocks.device))
+    _done("spd6_inv", rc)
+    device_kernels["spd6_inv"] += ran.value
+    return damp
 
 
 class FactoredSystem(NamedTuple):
@@ -1498,9 +1541,11 @@ def pyramid_down(depth_mm: torch.Tensor, sigma_depth_m: float) -> torch.Tensor:
 
 
 def points_normals(depth_mm: torch.Tensor, intr, stride: int = 1, normals: bool = True, conf: bool = False):
-    """Kernel I: (points, normals | None, incidence confidence | None) of
-    ``depth_mm[::stride, ::stride]``, each (H', W', 3) / (H', W') float32,
-    read in place from the full image."""
+    """Kernel I's single-map entry: (points, normals | None, incidence
+    confidence | None) of ``depth_mm[::stride, ::stride]``, each (H', W', 3)
+    / (H', W') float32, read in place from the full image; a thread a
+    pixel, one map a launch (the design before ``frame_maps``, which is
+    held bit for bit against it; ``compute_points_normals``' kernel)."""
     _check_depth(depth_mm)
     if stride < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
@@ -1518,6 +1563,67 @@ def points_normals(depth_mm: torch.Tensor, intr, stride: int = 1, normals: bool 
     )
     _done("points_normals", rc)
     return pts, nrm, cf
+
+
+class MapTask(NamedTuple):
+    """One map of ``frame_maps``: ``depth[::stride, ::stride]`` (uint16 mm)
+    at the intrinsics ``intr``, and which outputs to write."""
+
+    depth: torch.Tensor
+    intr: object
+    stride: int = 1
+    points: bool = True
+    normals: bool = True
+    conf: bool = False
+
+
+class _MapTaskArgs(ctypes.Structure):
+    """csrc/preprocess.cu's MapTaskArgs."""
+
+    _fields_ = [("depth", _P), ("points", _P), ("normals", _P), ("conf", _P), ("fx", _F), ("fy", _F), ("cx", _F),
+                ("cy", _F), ("h", _I), ("w", _I), ("stride", _I), ("src_cols", _I)]
+
+
+MAP_TASKS = 8  # tasks a launch (csrc/preprocess.cu kMapTasks)
+
+
+def frame_maps(tasks) -> list:
+    """Kernel I's multi-map entry (csrc/preprocess.cu, one launch for up
+    to ``MAP_TASKS`` tasks, another for each ``MAP_TASKS`` more): for each
+    ``MapTask`` (points | None, normals | None, confidence | None) as
+    ``points_normals`` gives them, bit for bit; an output the task does
+    not ask for is neither computed into memory nor returned."""
+    tasks = list(tasks)
+    if not tasks:
+        raise ValueError("frame_maps: no task")
+    outs, args = [], []
+    for j, t in enumerate(tasks):
+        _check_depth(t.depth, f"tasks[{j}].depth")
+        if t.stride < 1:
+            raise ValueError(f"tasks[{j}]: stride must be >= 1, got {t.stride}")
+        if not (t.points or t.normals or t.conf):
+            raise ValueError(f"tasks[{j}]: asks for no map")
+        rows, cols = t.depth.shape
+        h, w = (rows + t.stride - 1) // t.stride, (cols + t.stride - 1) // t.stride
+        dev = t.depth.device
+        pts = torch.empty((h, w, 3), dtype=torch.float32, device=dev) if t.points else None
+        nrm = torch.empty((h, w, 3), dtype=torch.float32, device=dev) if t.normals else None
+        cf = torch.empty((h, w), dtype=torch.float32, device=dev) if t.conf else None
+        outs.append((pts, nrm, cf))
+        args.append(_MapTaskArgs(
+            t.depth.data_ptr(), *(None if o is None else o.data_ptr() for o in (pts, nrm, cf)),
+            _f32(t.intr.fx), _f32(t.intr.fy), _f32(t.intr.cx), _f32(t.intr.cy), h, w, t.stride, cols,
+        ))
+    _same_device(*(t.depth for t in tasks))
+    lib = load()
+    dev = tasks[0].depth.device
+    for j in range(0, len(args), MAP_TASKS):
+        chunk = args[j:j + MAP_TASKS]
+        ran = ctypes.c_int(0)
+        rc = lib.df_frame_maps((_MapTaskArgs * len(chunk))(*chunk), len(chunk), ctypes.byref(ran), _stream(dev))
+        _done("frame_maps", rc)
+        device_kernels["frame_maps"] += ran.value
+    return outs
 
 
 def resize_maps(points: torch.Tensor, normals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,7 +7,8 @@ camera-space, NaN = invalid.
 
 ``bilateral_filter`` owns CUDA kernel A (``csrc/bilateral.cu``); the other
 stencils (dists and depth truncation, the depth pyramid, point/normal maps
-with the fusion's incidence confidence, the 2x2 map resize) own kernel I
+with the fusion's incidence confidence, every map of a frame in one launch
+(``frame_maps``), the 2x2 map resize) own kernel I
 (``csrc/preprocess.cu``). CUDA tensors go through the kernels, CPU tensors
 (or ``plain=True``) through the plain versions below.
 """
@@ -150,6 +151,30 @@ def incidence_confidence(points: torch.Tensor, normals: torch.Tensor) -> torch.T
     return torch.nan_to_num(torch.abs((normals * pn).sum(dim=-1)))
 
 
+MapTask = kernels.MapTask
+
+
+def frame_maps_plain(tasks) -> List[Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]]:
+    """(points | None, normals | None, incidence confidence | None) of each
+    ``MapTask``, as it asks for them: ``compute_points_normals`` and
+    ``incidence_confidence`` of ``depth[::stride, ::stride]``."""
+    outs = []
+    for t in tasks:
+        p, n = compute_points_normals(t.intr, t.depth, t.stride, plain=True)
+        c = incidence_confidence(p, n) if t.conf else None
+        outs.append((p if t.points else None, n if t.normals else None, c))
+    return outs
+
+
+def frame_maps(tasks, plain: bool = False):
+    """Every point/normal map of a frame: ``frame_maps_plain``; kernel I's
+    multi-map entry (one launch) on CUDA tensors."""
+    tasks = list(tasks)
+    if _plain(tasks[0].depth, plain):
+        return frame_maps_plain(tasks)
+    return kernels.frame_maps(tasks)
+
+
 def compute_dists(intr: Intrinsics, depth_mm: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """z-depth (mm) -> ray distance (m): d = z * ||K⁻¹ (u, v, 1)||; kernel I
     on CUDA tensors."""
@@ -182,18 +207,47 @@ def resize_points_normals(
     )
 
 
+def pyramid_map_tasks(
+    cfg: DynamicFusionConfig,
+    depth_pyr: List[torch.Tensor],
+    depth_mm: torch.Tensor,
+    first_point_level: int = 0,
+    with_conf: bool = False,
+    level0_maps: bool = True,
+    raw: Optional[Tuple[Intrinsics, int]] = None,
+) -> Tuple[List[MapTask], List[int]]:
+    """``build_frame_pyramid``'s maps as ``MapTask``s, and the pyramid
+    level of each (the raw task, last, has none)."""
+    tasks, levels = [], []
+    for lvl, d in enumerate(depth_pyr):
+        conf = with_conf and lvl == 0
+        maps = (lvl >= first_point_level or conf) and (lvl > 0 or level0_maps)
+        if maps or conf:
+            tasks.append(MapTask(d, cfg.intr.level(lvl), 1, points=maps, normals=maps, conf=conf))
+            levels.append(lvl)
+    if raw is not None:
+        tasks.append(MapTask(depth_mm, raw[0], raw[1], points=True, normals=False))
+    return tasks, levels
+
+
 def build_frame_pyramid(
     cfg: DynamicFusionConfig,
     depth_mm: torch.Tensor,
     first_point_level: int = 0,
     plain: bool = False,
     with_conf: bool = False,
+    level0_maps: bool = True,
+    raw: Optional[Tuple[Intrinsics, int]] = None,
 ):
     """dists, bilateral filter, depth pyramid and per-level point/normal
     maps. Returns (depth_pyr, points_pyr, normals_pyr, dists), and with
     ``with_conf`` the level-0 incidence confidence as a fifth item (level 0
-    is then computed whatever ``first_point_level`` says); point/normal
-    maps below ``first_point_level`` are not computed (None)."""
+    is then computed whatever ``first_point_level`` says, its maps returned
+    unless ``level0_maps`` is false); point/normal maps below
+    ``first_point_level`` are not computed (None), nor level 0's where
+    ``level0_maps`` is false. ``raw`` = (intrinsics, stride) adds the point
+    map of the RAW depth ``depth_mm[::stride, ::stride]`` as a last item.
+    Every map is one launch of kernel I's multi-map entry on CUDA tensors."""
     d0 = bilateral_filter(
         depth_mm, cfg.bilateral_kernel_size, cfg.bilateral_sigma_spatial,
         cfg.bilateral_sigma_depth, plain=plain,
@@ -210,23 +264,13 @@ def build_frame_pyramid(
     depth_pyr = [d0]
     for _ in range(1, cfg.pyramid_levels):
         depth_pyr.append(depth_pyramid_down(depth_pyr[-1], cfg.bilateral_sigma_depth, plain=plain))
-    points_pyr: List[Optional[torch.Tensor]] = []
-    normals_pyr: List[Optional[torch.Tensor]] = []
+    tasks, levels = pyramid_map_tasks(cfg, depth_pyr, depth_mm, first_point_level, with_conf, level0_maps, raw)
+    outs = frame_maps(tasks, plain=plain) if tasks else []
+    points_pyr: List[Optional[torch.Tensor]] = [None] * len(depth_pyr)
+    normals_pyr: List[Optional[torch.Tensor]] = [None] * len(depth_pyr)
     conf = None
-    for lvl, d in enumerate(depth_pyr):
-        intr = cfg.intr.level(lvl)
-        if lvl == 0 and with_conf:
-            if _plain(d, plain):
-                p, n = compute_points_normals(intr, d, plain=True)
-                conf = incidence_confidence(p, n)
-            else:
-                p, n, conf = kernels.points_normals(d, intr, conf=True)
-        elif lvl < first_point_level:
-            p = n = None
-        else:
-            p, n = compute_points_normals(intr, d, plain=plain)
-        points_pyr.append(p)
-        normals_pyr.append(n)
-    if with_conf:
-        return depth_pyr, points_pyr, normals_pyr, dists, conf
-    return depth_pyr, points_pyr, normals_pyr, dists
+    for lvl, (p, n, c) in zip(levels, outs):
+        points_pyr[lvl], normals_pyr[lvl] = p, n
+        conf = c if lvl == 0 and with_conf else conf
+    out = (depth_pyr, points_pyr, normals_pyr, dists) + ((conf,) if with_conf else ())
+    return out + ((outs[-1][0],) if raw is not None else ())

@@ -450,11 +450,22 @@ class Tracked(NamedTuple):
     icp_res: icp.IcpResult
     pose: torch.Tensor                    # (4, 4) after ICP and the rigid pre-alignment
     inputs: warp_solver.WarpSolveInputs   # the warp solve's point sets, pre-aligned
-    points: Tuple[torch.Tensor, ...]      # the live pyramid
-    normals: Tuple[torch.Tensor, ...]
+    points: Tuple[Optional[torch.Tensor], ...]  # the live pyramid, None below raycast_shift
+    normals: Tuple[Optional[torch.Tensor], ...]
     dists: torch.Tensor
     conf: Optional[torch.Tensor]          # level-0 incidence confidence (with fusion_incidence_weight)
     bands: Tuple                          # (raycast seed | None, temporal band | None) of the frame
+
+
+def track_maps(cfg: DynamicFusionConfig) -> dict:
+    """The maps ``track`` asks ``build_frame_pyramid`` for: the tracked
+    levels from ``raycast_shift``, level 0 only for the incidence
+    confidence of the fusion (its maps only where tracking starts there),
+    the solve's live points from the RAW depth (what fusion integrates) in
+    the same launch."""
+    shift = cfg.raycast_shift
+    raw = (cfg.intr.level(shift), cfg.raycast_subsample) if cfg.solver_live_raw else None
+    return dict(first_point_level=shift, with_conf=cfg.fusion_incidence_weight, level0_maps=shift == 0, raw=raw)
 
 
 def track(
@@ -465,10 +476,7 @@ def track(
     rigid pre-alignment folded into the pose (where ICP succeeded);
     ``raycast_fn`` the fresh canonical raycast's hook."""
     shift = cfg.raycast_shift
-    # level 0 only for the incidence confidence of the fusion
-    pyr = preprocess.build_frame_pyramid(
-        cfg, depth_mm, first_point_level=shift, plain=plain, with_conf=cfg.fusion_incidence_weight
-    )
+    pyr = preprocess.build_frame_pyramid(cfg, depth_mm, plain=plain, **track_maps(cfg))
     _, pts_pyr, nrm_pyr, dists = pyr[:4]
     conf = pyr[4] if cfg.fusion_incidence_weight else None
 
@@ -495,12 +503,7 @@ def track(
         model = _raycast_model(cfg, state.vol, pose, seed, band, plain, raycast_fn)
         can_pts_w = se3.transform_points(pose, model.points)
         can_nrm_w = se3.rotate_dirs(pose, model.normals)
-    if cfg.solver_live_raw:
-        raw_pts, _ = preprocess.compute_points_normals(
-            cfg.intr.level(shift), depth_mm, stride=cfg.raycast_subsample, plain=plain
-        )
-    else:
-        raw_pts = pts_pyr[shift]
+    raw_pts = pyr[-1] if cfg.solver_live_raw else pts_pyr[shift]
     live_pts_w = se3.transform_points(pose, raw_pts)
     live_nrm_w = se3.rotate_dirs(pose, nrm_pyr[shift])
 

@@ -171,6 +171,14 @@ def estimate_transform(
     return IcpResult(transform=t, ok=ok)
 
 
+def depth_map_tasks(cfg: DynamicFusionConfig, curr_depth_pyr, prev_depth_pyr, level_offset: int = 0):
+    """The depth-variant ICP's vertex maps as ``MapTask``s: every level of
+    the current pyramid, then of the previous one (points only)."""
+    levels = min(len(curr_depth_pyr), len(prev_depth_pyr))
+    return [preprocess.MapTask(d, cfg.intr.level(lvl % levels + level_offset), 1, points=True, normals=False)
+            for lvl, d in enumerate(list(curr_depth_pyr)[:levels] + list(prev_depth_pyr)[:levels])]
+
+
 def estimate_transform_depth(
     cfg: DynamicFusionConfig,
     curr_depth_pyr: List[torch.Tensor],
@@ -184,12 +192,11 @@ def estimate_transform_depth(
     frame-to-frame tracking whose association targets are back-projected
     from the PREVIOUS frame's depth pyramid instead of the raycast model
     maps. Per level both vertex maps come from the uint16 depth pyramids
-    (kernel I on CUDA tensors), then ``estimate_transform`` runs (kernel B)."""
-    curr_pts, prev_pts = [], []
-    for lvl, (dc, dp) in enumerate(zip(curr_depth_pyr, prev_depth_pyr)):
-        intr_l = cfg.intr.level(lvl + level_offset)
-        curr_pts.append(preprocess.compute_points_normals(intr_l, dc, plain=plain)[0])
-        prev_pts.append(preprocess.compute_points_normals(intr_l, dp, plain=plain)[0])
+    (kernel I's multi-map entry on CUDA tensors: one launch for both
+    pyramids' points), then ``estimate_transform`` runs (kernel B)."""
+    tasks = depth_map_tasks(cfg, curr_depth_pyr, prev_depth_pyr, level_offset)
+    pts = [p for p, _, _ in preprocess.frame_maps(tasks, plain=plain)]
+    curr_pts, prev_pts = pts[: len(tasks) // 2], pts[len(tasks) // 2:]
     return estimate_transform(
         cfg, curr_pts, list(curr_nrm_pyr), prev_pts, list(prev_nrm_pyr), level_offset=level_offset, plain=plain,
     )

@@ -468,6 +468,27 @@ def spd6_inv(m: torch.Tensor, plain: bool = False) -> torch.Tensor:
     return kernels.spd6_inv(m.contiguous())
 
 
+def spd6_inv_damped_plain(blocks: torch.Tensor, diag_eff: torch.Tensor, unit: torch.Tensor, lm_lambda: torch.Tensor,
+                          rebuild: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
+    """An LM iteration's preconditioner: damp = lm_lambda * diag_eff + unit,
+    and ``minv`` (N, 6, 6) becomes the inverses of ``blocks`` + diag(damp)
+    where ``rebuild`` is true and keeps its last result where it is false
+    (updated in place). Returns damp (6N,)."""
+    damp = lm_lambda * diag_eff + unit
+    fresh = spd6_inv_plain(blocks + torch.diag_embed(damp.reshape(-1, 6)))
+    minv.copy_(torch.where(rebuild, fresh, minv))
+    return damp
+
+
+def spd6_inv_damped(blocks: torch.Tensor, diag_eff: torch.Tensor, unit: torch.Tensor, lm_lambda: torch.Tensor,
+                    rebuild: torch.Tensor, minv: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """``spd6_inv_damped_plain``; kernel G's damped entry (one launch) on
+    CUDA tensors."""
+    if plain or blocks.device.type == "cpu":
+        return spd6_inv_damped_plain(blocks, diag_eff, unit, lm_lambda, rebuild, minv)
+    return kernels.spd6_inv_damped(blocks.contiguous(), diag_eff, unit, lm_lambda, rebuild, minv)
+
+
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
@@ -1228,7 +1249,10 @@ def solve(
                 if mesh is not None:
                     shards = [sh._replace(rows=r) for sh, r in zip(shards, rows)]
         cost0 = cost_prev
-    minv = lam_f = None
+    lam_f = None
+    # the factored PCG's preconditioner, rebuilt in place where the last
+    # step was rejected (rebuild is true in iteration 0)
+    minv = None if direct or dense else torch.empty((n, 6, 6), device=dev)
     for it in range(cfg.solver_nonlinear_iters):
         if not lagged:
             # relinearize at the current point: after a rejected step the
@@ -1252,10 +1276,8 @@ def solve(
             damped = dense_damp(jtj, lm_lambda, field.active, floor, plain=plain)
             step = -dense_pcg(damped, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)
         else:
-            damp = lm_lambda * diag_eff + unit
+            damp = spd6_inv_damped(blocks_full, diag_eff, unit, lm_lambda, rebuild, minv, plain=plain)
             sys = System(rows[0], et, damp, used, stride)
-            fresh = spd6_inv(blocks_full + torch.diag_embed(damp.reshape(n, 6)), plain=plain)
-            minv = fresh if minv is None else torch.where(rebuild, fresh, minv)
             if mesh is None:
                 step = -pcg(s, sys, minv, jtr, cfg.solver_linear_iters, cfg.solver_linear_tol, running, plain=plain)
             else:

@@ -182,6 +182,94 @@ def test_preprocess_kernels(dev):
         assert torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
 
 
+def _same_bits(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _map_task_sets(dev):
+    """Kernel I's multi-map task sets at small(): the non-rigid step's
+    (``kinfu.track_maps``), the rigid step's, shift 0's, the depth ICP's
+    eight, widths that are no multiple of the pixels a thread, and every
+    output alone."""
+    from dynamicfusion_tpu_torch.solvers import icp as icp_
+
+    rng = np.random.RandomState(4)
+    d = DEPTHS[2].astype(np.int32)
+    d = torch.from_numpy(np.where(d > 0, d + rng.randint(-4, 5, d.shape), 0).astype(np.uint16)).to(dev)
+    sets = {}
+    for name, cfg, maps in (("nonrigid", NR, kinfu.track_maps(NR)), ("rigid", CFG, dict(first_point_level=2)),
+                            ("shift0", CFG, dict(first_point_level=0, with_conf=True, raw=(CFG.intr, 1)))):
+        pyr = preprocess.build_frame_pyramid(cfg, d, **maps)
+        sets[name] = preprocess.pyramid_map_tasks(cfg, pyr[0], d, **maps)[0]
+    pyr = preprocess.build_frame_pyramid(CFG, d)
+    sets["depth_icp"] = icp_.depth_map_tasks(CFG, pyr[0], pyr[0])
+    odd = torch.from_numpy(np.where(rng.rand(37, 53) < 0.1, 0, rng.randint(400, 3000, (37, 53))).astype(np.uint16))
+    odd = odd.to(dev)
+    sets["odd"] = [kernels.MapTask(odd, CFG.intr, s, conf=True) for s in (1, 2, 3)] + [
+        kernels.MapTask(odd[:8, :6].contiguous(), CFG.intr, 1, conf=True)]
+    sets["alone"] = [kernels.MapTask(d, CFG.intr, s, points=o == 0, normals=o == 1, conf=o == 2)
+                     for s in (1, 4) for o in range(3)]
+    return sets
+
+
+@pytest.mark.parametrize("name", ["nonrigid", "rigid", "shift0", "depth_icp", "odd", "alone"])
+def test_frame_maps_is_the_single_map_kernel(dev, name):
+    """Kernel I's multi-map entry bit for bit (NaNs alike) against the
+    single-map kernel at every task, one device kernel a call."""
+    tasks = _map_task_sets(dev)[name]
+    before = kernels.device_kernels["frame_maps"]
+    outs = kernels.frame_maps(tasks)
+    assert kernels.device_kernels["frame_maps"] == before + 1
+    for t, got in zip(tasks, outs):
+        ref = kernels.points_normals(t.depth, t.intr, t.stride, normals=t.normals, conf=t.conf)
+        assert (_same_bits(got[0], ref[0]) if t.points else got[0] is None)
+        assert _same_bits(got[1], ref[1]) and _same_bits(got[2], ref[2])
+
+
+def test_frame_maps_past_one_launch(dev):
+    """More than MAP_TASKS tasks take one launch more, with the same maps."""
+    tasks = _map_task_sets(dev)["alone"] * 2
+    assert len(tasks) > kernels.MAP_TASKS
+    before = kernels.device_kernels["frame_maps"]
+    outs = kernels.frame_maps(tasks)
+    assert kernels.device_kernels["frame_maps"] == before + 2
+    for a, b in zip(outs[: len(tasks) // 2], outs[len(tasks) // 2:]):
+        assert all(_same_bits(x, y) for x, y in zip(a, b))
+
+
+def _damped_case(dev, n, seed=0):
+    rng = np.random.RandomState(seed)
+    a = rng.randn(n, 6, 6).astype(np.float32)
+    blocks = torch.from_numpy(a @ a.transpose(0, 2, 1) + 0.5 * np.eye(6, dtype=np.float32)).to(dev)
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+    diag_eff, unit = ws.damping_terms(NR, torch.from_numpy(rng.rand(n) > 0.1).to(dev), blocks)
+    return blocks, diag_eff, unit
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 1024])
+@pytest.mark.parametrize("rebuild", [True, False])
+def test_spd6_inv_damped_is_the_composition(dev, n, rebuild):
+    """Kernel G's damped entry bit for bit (NaNs alike) against the
+    composition it replaced in the LM loop (the damping, the reference
+    mode's inverse of blocks + diag_embed(damp), where), one device kernel
+    a call; its undamped entry against the reference mode."""
+    blocks, diag_eff, unit = _damped_case(dev, n)
+    lm = torch.full((), 0.37, device=dev)
+    flag = torch.full((), rebuild, dtype=torch.bool, device=dev)
+    last = kernels.spd6_inv(blocks, reference=True)
+    minv = last.clone()
+    before = kernels.device_kernels["spd6_inv"]
+    damp = kernels.spd6_inv_damped(blocks, diag_eff, unit, lm, flag, minv)
+    assert kernels.device_kernels["spd6_inv"] == before + 1
+    ref_damp = lm * diag_eff + unit
+    fresh = kernels.spd6_inv(blocks + torch.diag_embed(ref_damp.reshape(n, 6)), reference=True)
+    assert _same_bits(damp, ref_damp) and _same_bits(minv, torch.where(flag, fresh, last))
+    m = blocks + torch.diag_embed(ref_damp.reshape(n, 6))
+    assert _same_bits(kernels.spd6_inv(m), kernels.spd6_inv(m, reference=True))
+
+
 def test_coarse_band_kernel(dev, model):
     """Kernel J's coarse band equals its plain version bit for bit, from the
     coarse march of the slice's volume at a quarter of 160x120 and at the
@@ -367,9 +455,11 @@ def test_slice_on_the_card_goes_through_every_kernel(dev):
     for d in DEPTHS:
         df(d, block=False)
     torch.cuda.synchronize()
-    rigid = ("bilateral", "icp_reduce", "raycast", "fuse_bricks", "depth_dists", "pyramid_down", "points_normals",
+    rigid = ("bilateral", "icp_reduce", "raycast", "fuse_bricks", "depth_dists", "pyramid_down", "frame_maps",
              "resize_maps", "brick_plan")
     assert all(kernels.launches[k] > 0 for k in rigid), kernels.launches
+    # kernel I's maps: one launch a step, the single-map kernel on no path
+    assert kernels.launches["frame_maps"] == len(DEPTHS) - 1 and kernels.launches["points_normals"] == 0
     ref = kinfu.DynamicFusion(CFG, device="cpu")
     for d in DEPTHS:
         ref(d)
@@ -392,10 +482,11 @@ DENSE = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 # turns on, the adaptive node radius (E's radius entry), the dense-matrix
 # PCG (P), the net rigid removal (Q) and the dense fusion (F1, F2), the
 # export path's extracted normals (R), and the sharded step's distributed
-# PCG (G's data-only matvec and step, P's init)
+# PCG (G's data-only matvec and step, P's init); and kernel I's
+# single-map entry, the reference mode of its frame maps
 SHARDED = ("data_matvec", "pcg_init", "pcg_step")
 OPTIONS = ("node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid",
-           "extract_normals") + SHARDED
+           "extract_normals", "points_normals") + SHARDED
 
 
 @pytest.fixture
@@ -1246,7 +1337,9 @@ def test_depth_icp_kernels(dev):
     kernels.reset_launches()
     got = icp.estimate_transform_depth(CFG, *args)
     torch.cuda.synchronize()
-    assert kernels.launches["points_normals"] == 2 * CFG.pyramid_levels and kernels.launches["icp_reduce"] > 0
+    # both pyramids' point maps in one launch of kernel I's multi-map entry
+    assert kernels.launches["frame_maps"] == 1 and kernels.launches["points_normals"] == 0
+    assert kernels.launches["icp_reduce"] > 0
     ref = icp.estimate_transform_depth(CFG, *args, plain=True)
     assert bool(got.ok) and bool(ref.ok)
     a, b = got.transform.cpu(), ref.transform.cpu()

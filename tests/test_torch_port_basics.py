@@ -377,6 +377,9 @@ WRAPPER_CALLS = {
     "points_normals": lambda: kernels.points_normals(
         torch.zeros((8, 8), dtype=torch.uint16), tconfig.DynamicFusionConfig.small().intr, conf=True,
     ),
+    "frame_maps": lambda: kernels.frame_maps([
+        kernels.MapTask(torch.zeros((8, 8), dtype=torch.uint16), tconfig.DynamicFusionConfig.small().intr),
+    ]),
     "resize_maps": lambda: kernels.resize_maps(torch.zeros((8, 8, 3)), torch.zeros((8, 8, 3))),
     "march_bands": lambda: kernels.march_bands(torch.zeros((16, 16)), 2, torch.zeros((8, 8, 3)), 0.06, True),
     "coarse_band": lambda: kernels.coarse_band(torch.zeros((8, 8, 3)), 4, 0.06),
