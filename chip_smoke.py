@@ -336,10 +336,6 @@ TOL_BAND_LIBRARY_M = 1e-6
 # blocks added one after the other, data + A + Aᵀ + D, not data + ((A + Aᵀ)
 # + D), and (bf16) the product summed in another order
 TOL_GRAM_LIBRARY_REL = 1e-5
-# kernel P's init yardstick (PyTorch calls) against the kernel: z = M b by
-# torch.bmm and rᵀz, bᵀb by torch.dot, not in the kernel's order (a dot's
-# difference over the sum of its terms' magnitudes)
-TOL_PCG_LIBRARY_REL = 1e-5
 # kernel O: off the diagonal a copy; the diagonal within the mean's sum order
 TOL_DAMP_REL = 1e-6
 # kernel Q against its plain version (a float64 SVD through
@@ -507,8 +503,11 @@ OPTIONS = dict(solver_p2p_adaptive=True, solver_p2p_hessian_stride=4, node_radiu
 # of them, the base config none of the PCG's
 DENSE_KERNELS = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 PCG_KERNELS = ("spd6_inv", "pcg")
-# the sharded step's distributed PCG: G's data-only matvec and step, P's init
-SHARD_KERNELS = ("data_matvec", "pcg_init", "pcg_step")
+# the sharded step's distributed PCG: G's cluster launch of the whole solve
+# with P's init and update; and the composition it replaced (G's data-only
+# matvec and step, P's init), its reference mode, which no path runs
+SHARD_KERNELS = ("pcg_sharded",)
+SHARD_REFERENCE = ("data_matvec", "pcg_init", "pcg_step")
 # the base config's dense variants, three steps each from its state
 VARIANTS = (("bf16", dict(solver_jtj_int8=False)), ("unlagged", dict(solver_lagged_jtj=False)),
             ("p2p", dict(point_to_plane=False)), ("pcg_unlagged", dict(solver_linear="pcg", solver_lagged_jtj=False)))
@@ -1227,15 +1226,28 @@ def nonrigid_kernels(torch, args, report, dev, nr_depths):
                            reps=5),
     )
     rad = torch.full((n,), cfg.node_radius, device=dev)
+    apply = lambda reference=False: kernels.insert_apply(*hfield, plan.slots, plan.new_pos, seed, fi, rad,  # noqa: E731
+                                                         reference=reference)
+    got, one = kernels_a_call("insert_apply", apply)
+    ref, ref_ops = kernels_a_call("insert_apply", lambda: apply(True))
+    plain = warpfield._insert_apply_plain(hfield, plan, seed, fi, rad)
+    same = all(same_bits(torch, a, b) and same_bits(torch, a, c) for a, b, c in zip(got, ref, plain))
+    check("insert_apply", same and one == 1 and int(got[4]) > int(hfield.count),
+          f"kernel H's apply, {int(got[4]) - int(hfield.count)} nodes into {n} slots: one device kernel {one} (the "
+          f"reference mode's {ref_ops}: six copies and the one-block kernel); bit-equal to the plain delta scatter "
+          f"and to the reference mode {same}")
     report["insert_apply"] = dict(
         err=err,
-        ms=cuda_ms(torch, lambda: kernels.insert_apply(
-            hfield.positions, hfield.dq, hfield.radius, hfield.active, hfield.count, hfield.last_support,
-            plan.slots, plan.new_pos, seed, fi, rad)),
+        ms=cuda_ms(torch, apply),
+        reference_ms=cuda_ms(torch, lambda: apply(True)),
         plain_ms=cuda_ms(torch, lambda: warpfield._insert_apply_plain(hfield, plan, seed, fi, rad), reps=5),
+        # the old field, the plan (slots, positions, seeds, radii) and the
+        # frame index in, the new field out; a few operations a slot
         bound=bound_ms(n * 53 * 2 + n * 56 + 8, n * 60.0),
         library_ms=None,
     )
+    print(f"[time] kernel H's apply {report['insert_apply']['ms']:.4f} ms in {one} device kernel; the reference "
+          f"mode {report['insert_apply']['reference_ms']:.4f} ms in {ref_ops}", flush=True)
 
     # D with the non-rigid arguments: warped coarse grid, blend quality, packed confidence
     conf = tr.conf
@@ -1729,7 +1741,8 @@ def kernels_a_call(name, fn):
 # one launch, K's plan the mip tiles and the cluster, D's fuse one, L's
 # extraction the count with its scan and the write, G's spd6_inv (either
 # entry) and I's frame maps one
-DEVICE_KERNELS_A_CALL = {"edge_term": 1, "mutual_nearest": 1, "brick_plan": 2, "fuse_bricks": 1, "extract_cloud": 2,
+DEVICE_KERNELS_A_CALL = {"pcg_sharded": 1, "insert_apply": 1, "edge_term": 1, "mutual_nearest": 1, "brick_plan": 2,
+                         "fuse_bricks": 1, "extract_cloud": 2,
                          "spd6_inv": 1, "frame_maps": 1}
 
 
@@ -2392,21 +2405,6 @@ def library_march_band(torch, dists, s, can, m):
     return torch.where(hit, torch.clamp(lo - m, min=0.0), 0.0), torch.where(hit, hi + m, 0.0)
 
 
-def library_pcg_init(torch, minv, b, rtol, active):
-    """Kernel P's init in PyTorch calls, its yardstick: x = 0, r = b,
-    z = M b (``torch.bmm``), p = z, rᵀz, the stop threshold rtol² bᵀb and
-    the done flag."""
-    n = minv.shape[0]
-    x = torch.zeros_like(b)
-    r = b.clone()
-    z = torch.bmm(minv, b.view(n, 6, 1)).view(-1)
-    p = z.clone()
-    bb = torch.dot(b, b)
-    rz = torch.dot(r, z)
-    stop2 = (rtol * rtol) * bb
-    return x, r, z, p, rz, stop2, ~active | ~(bb > stop2)
-
-
 def full_res_kernels(torch, report, dev, st, depth_np):
     """Phase 2 for the reference resolution of ``reference_parity()`` (rigid,
     640x480 model maps) on the preset's phase-2 volume at its camera: kernel
@@ -2781,6 +2779,20 @@ def library_pcg_factored(torch, csr, minv, b, iters, rtol, active):
     of ``library_data_matvec`` plus one CSR product of the edge blocks and
     the damping (``factored_csr``), z = M r by ``torch.bmm``, the dot
     products by ``torch.dot``, the early exit as device flags."""
+    return library_pcg_loop(torch, lambda p: library_data_matvec(torch, csr, p)
+                            + torch.sparse.mm(csr[2], p[:, None])[:, 0], minv, b, iters, rtol, active)
+
+
+def library_pcg_sharded(torch, mesh, csrs, edges_csr, minv, b, iters, rtol, active):
+    """The distributed PCG in PyTorch calls, its yardstick: every matvec
+    each shard's two CSR products (``library_data_matvec``), the mesh's
+    psum, and one CSR product of the edge blocks and the damping."""
+    return library_pcg_loop(torch, lambda p: mesh.psum([library_data_matvec(torch, c, p) for c in csrs])
+                            + torch.sparse.mm(edges_csr, p[:, None])[:, 0], minv, b, iters, rtol, active)
+
+
+def library_pcg_loop(torch, matvec, minv, b, iters, rtol, active):
+    """Block-Jacobi PCG in PyTorch calls around ``matvec``."""
     n = minv.shape[0]
     x = torch.zeros_like(b)
     r = b
@@ -2791,7 +2803,7 @@ def library_pcg_factored(torch, csr, minv, b, iters, rtol, active):
     run = active
     for _ in range(iters):
         run = run & (torch.dot(r, r) > stop2)
-        ap = library_data_matvec(torch, csr, p) + torch.sparse.mm(csr[2], p[:, None])[:, 0]
+        ap = matvec(p)
         alpha = rz / torch.clamp(torch.dot(p, ap), min=1e-30)
         x_n = x + alpha * p
         r_n = r - alpha * ap
@@ -3069,6 +3081,57 @@ def knn_counted(kernels):
             **{f"{k}[device kernels]": v for k, v in kernels.device_kernels.items()}}
 
 
+# every ``kernels.insert_apply`` call of a run being recorded: (its
+# arguments, the new field it returned)
+INSERTIONS = []
+
+
+@contextlib.contextmanager
+def recorded_insertions():
+    """``kernels.insert_apply`` recording its calls for ``hold_insertions``
+    (it keeps references to the call's tensors, no device work)."""
+    from dynamicfusion_tpu_torch import kernels
+
+    INSERTIONS.clear()
+    launch = kernels.insert_apply
+
+    def recorded(*args, **kw):
+        out = launch(*args, **kw)
+        INSERTIONS.append((args, out))
+        return out
+
+    kernels.insert_apply = recorded
+    try:
+        yield
+    finally:
+        kernels.insert_apply = launch
+
+
+def hold_insertions(torch, tag, calls_counted):
+    """Every insertion of the recorded run (kernel H's one-launch apply)
+    bit for bit against the plain delta scatter and against the reference
+    mode on the same arguments; the recorded calls are the run's counted
+    launches. The holds' launches are taken back out of the counters."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    calls = list(INSERTIONS)
+    INSERTIONS.clear()
+    saved, saved_d = dict(kernels.launches), dict(kernels.device_kernels)
+    same, grew = 0, []
+    for args, out in calls:
+        plain = warpfield._insert_apply_plain(warpfield.WarpField(*args[:6]), warpfield.InsertPlan(*args[6:8]),
+                                              *args[8:11])
+        ref = kernels.insert_apply(*args, reference=True)
+        same += all(same_bits(torch, a, b) and same_bits(torch, a, c) for a, b, c in zip(out, ref, plain))
+        grew.append(int(out[4]) - int(args[4]))
+    kernels.launches.update(saved)
+    kernels.device_kernels.update(saved_d)
+    check(f"{tag}_insert_apply", same == len(calls) == calls_counted,
+          f"kernel H's apply on every insertion of the run ({len(calls)} calls, {calls_counted} counted; nodes "
+          f"inserted {grew}) bit-equal to the plain delta scatter and to the reference mode on {same}")
+
+
 def drive_kernel_path(torch, cfg, dev, frames):
     """The kernel path over ``frames`` through ``DynamicFusion``: every
     launch counter reset just before and read just after, the steady
@@ -3080,22 +3143,24 @@ def drive_kernel_path(torch, cfg, dev, frames):
     df = kinfu.DynamicFusion(cfg, device=dev)
     kernels.reset_launches()
     outs, frame_ms, states = [], [], []
-    for i, d in enumerate(frames):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i >= 2:  # steady frames: any wait for the device inside the step raises
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            df(d, block=False)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if i > 0:
-            outs.append(df.last_outputs)
-        # the state after this frame, for the plain step from it
-        states.append(clone_state(df.state))
+    with recorded_insertions():
+        for i, d in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i >= 2:  # steady frames: any wait for the device inside the step raises
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                df(d, block=False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if i > 0:
+                outs.append(df.last_outputs)
+            # the state after this frame, for the plain step from it
+            states.append(clone_state(df.state))
     launches = knn_counted(kernels)
+    hold_insertions(torch, f"{cfg.volume_dims}^3/{cfg.max_nodes} nodes", launches["insert_apply"])
     rows = [dict(ok=bool(o.icp_ok), c0=float(o.solver_cost0), c1=float(o.solver_cost1), nodes=int(o.node_count),
                  bricks=o.brick_counts.tolist()) for o in outs]
     return df, launches, rows, frame_ms, states
@@ -3139,7 +3204,7 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     off |= {"integrate_dense", "integrate_dense_nonrigid"} if cfg.integrate_mode == "brick" else {"brick_plan",
                                                                                                  "fuse_bricks"}
     # the distributed PCG runs in the sharded step only
-    off |= set(SHARD_KERNELS)
+    off |= set(SHARD_KERNELS) | set(SHARD_REFERENCE)
     path = [k for k in kernels.KERNELS if k not in off]
     check(f"{tag}_launches", all(launches[k] > 0 for k in path), f"every kernel of the path launched: {launches}")
     if cfg.solver_p2p_adaptive:
@@ -3893,9 +3958,13 @@ def dense_pcg_kernel(torch, report, dev, cfg, field, jtj, b):
         iterations=ran,
         iteration_ms=None,
         gemv_ms=cuda_ms(torch, lambda: torch.mv(a, pv), reps=10),
+        # the bytes bound with the matrix read once an iteration, as it
+        # must be: 151 MB do not stay in the 50 MB L2 between iterations
+        reread_bound_ms=ran * dof * dof * 4 / PEAK_BYTES * 1e3,
     )
     report["dense_pcg"]["iteration_ms"] = report["dense_pcg"]["ms"] / max(ran, 1)
-    print(f"[info] kernel P: {report['dense_pcg']['ms']:.4f} ms a solve of {ran} iterations "
+    print(f"[info] kernel P: {report['dense_pcg']['ms']:.4f} ms a solve of {ran} iterations (the matrix read "
+          f"once an iteration: {report['dense_pcg']['reread_bound_ms']:.4f} ms) "
           f"({report['dense_pcg']['iteration_ms']:.4f} ms an iteration, one torch.mv "
           f"{report['dense_pcg']['gemv_ms']:.4f} ms, {ran} iterations of torch.mv and the update "
           f"{report['dense_pcg']['library_ms']:.4f} ms, the matrix read {dof * dof * 4 / 3.35e9:.4f} ms at 3.35 TB/s)",
@@ -4518,16 +4587,16 @@ SHARD_ROWS = {
     "raycast_slab": ("raycast.cu", "dynamicfusion_tpu/parallel/sharded_raycast.py:176"),
     "brick_plan_slab": ("classify.cu", "dynamicfusion_tpu/parallel/sharded_fusion.py:133"),
     "fuse_bricks_slab": ("fuse_bricks.cu", "dynamicfusion_tpu/parallel/sharded_fusion.py:156"),
-    "data_matvec": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:1228"),
-    "pcg_init": ("dense_pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:823"),
+    # the whole distributed solve, one launch (the matvec under axis_name,
+    # :1228-1240, inside :823 _pcg)
     "pcg_step": ("pcg.cu", "dynamicfusion_tpu/solvers/warp_solver.py:823"),
     "dense_gram_shard": ("dense_system.cu", "dynamicfusion_tpu/parallel/distributed_gn.py:96"),
 }
 ROWS.update(SHARD_ROWS)
 COUNTER.update(raycast_slab="raycast", brick_plan_slab="brick_plan", fuse_bricks_slab="fuse_bricks",
-               dense_gram_shard="dense_gram")
-PATH.update(**dict.fromkeys(("raycast_slab", "brick_plan_slab", "fuse_bricks_slab", "data_matvec", "pcg_init",
-                             "pcg_step"), "sharded"), dense_gram_shard="sharded_base")
+               dense_gram_shard="dense_gram", pcg_step="pcg_sharded")
+PATH.update(**dict.fromkeys(("raycast_slab", "brick_plan_slab", "fuse_bricks_slab", "pcg_step"), "sharded"),
+            dense_gram_shard="sharded_base")
 
 
 class ShardedRunner:
@@ -4723,40 +4792,46 @@ def drive_sharded(torch, tag, cfg, mesh, dev, frames, hold_from=3):
     step = sharded.make_sharded_step(cfg, mesh)
     print(f"[{tag}] {mesh}: pieces {step.pieces}", flush=True)
     kernels.reset_launches()
-    frame_ms, rows, costs, solves = [], [], [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = first(kinfu.init_state(cfg, dev), torch.from_numpy(frames[0]).to(dev))
-    torch.cuda.synchronize()
-    frame_ms.append((time.perf_counter() - t0) * 1e3)
-    for i, d in enumerate(frames[1:], start=1):
-        depth = torch.from_numpy(d).to(dev)
-        ref = None
-        if i >= hold_from:
-            saved = dict(kernels.launches)
-            whole = sharded.gather_state(mesh, state)
-
-            def copy():
-                return whole._replace(vol=TsdfVolume(whole.vol.tsdf.clone(), whole.vol.weight.clone()))
-
-            ref, ro = kinfu.step(ref_cfg, copy(), depth)
-            ref2, _ = kinfu.step(ref_cfg, copy(), depth, **step.solver_hooks)
-            if step.pieces["solve"] or step.pieces["system"]:
-                solves.append((i, hold_sharded_solve(torch, tag, cfg, mesh, whole, depth, i)))
-            torch.cuda.synchronize()
-            kernels.launches.update(saved)
+    with recorded_insertions():
+        frame_ms, rows, costs, solves = [], [], [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, out = step(state, depth)
+        state = first(kinfu.init_state(cfg, dev), torch.from_numpy(frames[0]).to(dev))
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-        rows.append(dict(ok=bool(out.icp_ok), c0=float(out.solver_cost0), c1=float(out.solver_cost1),
-                         nodes=int(out.node_count), bricks=out.brick_counts.tolist()))
-        if ref is not None:
-            saved = dict(kernels.launches)
-            costs.append(hold_sharded_step(torch, tag, cfg, mesh, state, out, ref, ro, ref2, i))
-            kernels.launches.update(saved)
-    launches = dict(kernels.launches)
+        for i, d in enumerate(frames[1:], start=1):
+            depth = torch.from_numpy(d).to(dev)
+            ref = None
+            if i >= hold_from:
+                saved, saved_d, kept = dict(kernels.launches), dict(kernels.device_kernels), len(INSERTIONS)
+                whole = sharded.gather_state(mesh, state)
+
+                def copy():
+                    return whole._replace(vol=TsdfVolume(whole.vol.tsdf.clone(), whole.vol.weight.clone()))
+
+                ref, ro = kinfu.step(ref_cfg, copy(), depth)
+                ref2, _ = kinfu.step(ref_cfg, copy(), depth, **step.solver_hooks)
+                if step.pieces["solve"] or step.pieces["system"]:
+                    solves.append((i, hold_sharded_solve(torch, tag, cfg, mesh, whole, depth, i)))
+                torch.cuda.synchronize()
+                kernels.launches.update(saved)
+                kernels.device_kernels.update(saved_d)
+                del INSERTIONS[kept:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = step(state, depth)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(dict(ok=bool(out.icp_ok), c0=float(out.solver_cost0), c1=float(out.solver_cost1),
+                             nodes=int(out.node_count), bricks=out.brick_counts.tolist()))
+            if ref is not None:
+                saved, saved_d, kept = dict(kernels.launches), dict(kernels.device_kernels), len(INSERTIONS)
+                costs.append(hold_sharded_step(torch, tag, cfg, mesh, state, out, ref, ro, ref2, i))
+                kernels.launches.update(saved)
+                kernels.device_kernels.update(saved_d)
+                del INSERTIONS[kept:]
+        launches = knn_counted(kernels)
+    hold_insertions(torch, tag, launches["insert_apply"])
     worse = sum(a > b * (1.0 + 1e-3) for a, b in costs)
     better = sum(a < b * (1.0 - 1e-3) for a, b in costs)
     print(f"[{tag}] final solve cost, sharded against single device over {len(costs)} steps: higher by > 1e-3 "
@@ -4994,37 +5069,26 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
         errs.append(rel_err(torch, mk, mp))
         bits = bits and torch.equal(mk, ws.data_matvec_ordered(sk, sysm._replace(rows=dt.rows), pv).reshape(-1))
     check("data_matvec", max(errs) <= TOL_MATVEC_REL and bits,
-          f"{n} shards of {shards[0].p_can.shape[0]} points: max relative diff {max(errs):.2e} (tol {TOL_MATVEC_REL}); "
-          f"bit-equal to the plain version in the kernel's order {bits}")
+          f"the reference mode's shard matvec, {n} shards of {shards[0].p_can.shape[0]} points: max relative diff "
+          f"{max(errs):.2e} (tol {TOL_MATVEC_REL}); bit-equal to the plain version in the kernel's order {bits}")
     npt = shards[0].p_can.shape[0]
     lists_b = (npt * 8 + nn_ + 1) * 4
-    sh0, dt0 = shards[0], dts[0]
-    # the yardstick: the PCG route's data product (two cuSPARSE CSR products)
-    csr0 = factored_csr(torch, ws, sh0, sysm._replace(rows=dt0.rows), edges=False)
-    mk0 = kernels.data_matvec(dt0.rows, sh0.knn_idx32, sh0.pts_by_node.order, sh0.pts_by_node.off,
-                              sh0.pts_by_node.heavy, pv)
-    lerr = rel_err(torch, library_data_matvec(torch, csr0, pv), mk0)
-    check("data_matvec_library", lerr <= TOL_MATVEC_REL,
-          f"the yardstick (two cuSPARSE CSR products via torch.sparse.mm) computes the same product: max relative "
-          f"diff {lerr:.2e} from the kernel (tol {TOL_MATVEC_REL})")
-    report["data_matvec"] = dict(
-        err=max(errs),
-        ms=cuda_ms(torch, lambda: kernels.data_matvec(dt0.rows, sh0.knn_idx32, sh0.pts_by_node.order,
-                                                      sh0.pts_by_node.off, sh0.pts_by_node.heavy, pv)),
-        plain_ms=cuda_ms(torch, lambda: ws.data_matvec_plain(sh0, sysm._replace(rows=dt0.rows), pv), reps=5),
-        # one shard: its bf16 rows, neighbour ids, node lists and order, p
-        # in; Ap out
-        bound=bound_ms(npt * (96 + 32) + lists_b + nn_ * 8 + nn_ * 48, npt * 8 * 6 * 2 * 2.0),
-        library_ms=cuda_ms(torch, lambda: library_data_matvec(torch, csr0, pv)),
-    )
     on = torch.ones((), dtype=torch.bool, device=dev)
     iters, rtol = cfg.solver_linear_iters, cfg.solver_linear_tol
     sh_parts = [ws.Shard(sk, dt.rows) for sk, dt in zip(shards, dts)]
-    xk = ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on)
+    solve = lambda **kw: ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on, **kw)  # noqa: E731
+    (xk, one_launch) = kernels_a_call("pcg_sharded", solve)
     with deterministic(torch):
-        xp = ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on, plain=True)
+        xp = solve(plain=True)
+    counted = dict(kernels.launches)
+    xr = solve(reference=True)
+    # the reference mode's device kernels: two a shard matvec, P's init, two
+    # a step, and the psum's PyTorch adds
+    ref_kernels = (2 * (kernels.launches["data_matvec"] - counted["data_matvec"])
+                   + kernels.launches["pcg_init"] - counted["pcg_init"]
+                   + 2 * (kernels.launches["pcg_step"] - counted["pcg_step"]) + (n - 1) * iters)
     finite = bool(torch.isfinite(xk).all()) and bool(torch.isfinite(xp).all())
-    bits = torch.equal(xk, xp)
+    bits = torch.equal(xk, xp) and torch.equal(xk, xr)
     off_ok = not bool(ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, ~on).any())
     # the same system solved whole by kernel G's cluster PCG (the shards'
     # rows are the whole subsample's, cut in n): another sum order, held as
@@ -5037,11 +5101,13 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
         spread = max(rel_err(torch, ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b1, iters, rtol, on, plain=True),
                              xp) for b1 in ulp_moves(torch, b_vec))
     tol1 = max(TOL_PCG_REL, SPREAD_PCG * spread)
-    check("pcg_sharded", finite and bits and off_ok and err1 <= tol1,
-          f"{n} shards, up to {iters} iterations over 6N = {6 * nn_}: finite {finite}, bit-equal to the plain version "
-          f"in the kernels' order {bits} (max relative diff {rel_err(torch, xk, xp):.2e}); inactive -> 0 {off_ok}; "
-          f"against kernel G's whole PCG on the same system {err1:.2e} (tol max({TOL_PCG_REL}, {SPREAD_PCG} x the "
-          f"plain PCG's one-ulp spread {spread:.2e}))")
+    check("pcg_sharded", finite and bits and off_ok and err1 <= tol1 and one_launch == 1,
+          f"{n} shards, up to {iters} iterations over 6N = {6 * nn_}: finite {finite}, one device kernel a solve "
+          f"{one_launch} (the reference mode's {ref_kernels}); bit-equal to the plain version in the kernels' order "
+          f"and to the reference mode (the composition it replaced) {bits} (max relative diff "
+          f"{rel_err(torch, xk, xp):.2e}); inactive -> 0 {off_ok}; against kernel G's whole PCG on the same system "
+          f"{err1:.2e} (tol max({TOL_PCG_REL}, {SPREAD_PCG} x the plain PCG's one-ulp spread {spread:.2e}))")
+    hold_sharded_pcg_modes(torch, dev, cfg, s1, d1.rows, et, damp, minv, b_vec, iters, rtol)
     # the iterations this right-hand side runs (the plain version's loop)
     ran, x, r = iters, torch.zeros_like(b_vec), b_vec
     z = ws.apply_m_ordered(minv, r)
@@ -5059,52 +5125,109 @@ def sharded_kernels(torch, report, dev, cfg, mesh, state, depth_np):
         z = ws.apply_m_ordered(minv, r)
         rz_n = ws.dot_ordered(r, z)
         pdir, rz = z + rz_n / torch.clamp(rz, min=1e-30) * pdir, rz_n
+    # the yardstick: the same iterations in PyTorch calls (each shard's two
+    # cuSPARSE CSR products, the psum's adds, one CSR product of the edge
+    # blocks and the damping)
+    csrs = [factored_csr(torch, ws, sk, sysm._replace(rows=dt.rows), edges=False) for sk, dt in zip(shards, dts)]
+    edges_csr = factored_csr(torch, ws, s, sysm)[2]
+    lib = lambda: library_pcg_sharded(torch, mesh, csrs, edges_csr, minv, b_vec, iters, rtol, on)  # noqa: E731
+    lerr = rel_err(torch, lib(), xk)
+    check("pcg_sharded_library", lerr <= tol1,
+          f"the yardstick (PyTorch calls: cuSPARSE CSR products, the psum, torch.bmm and torch.dot) solves the same "
+          f"system: max relative diff {lerr:.2e} from the kernel (tol {tol1:.2e}, as against G's whole PCG)")
     ne = s.e_src.shape[0]
     per_iter = n * npt * 8 * 6 * 2 * 2 + ne * 2 * 72 * 2 + nn_ * (72 + 60)
     report["pcg_step"] = dict(
         err=abs_err(torch, xk, xp),
-        ms=cuda_ms(torch, lambda: ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on)),
-        plain_ms=cuda_ms(torch, lambda: ws.pcg_sharded(mesh, sh_parts, s, sysm, minv, b_vec, iters, rtol, on,
-                                                       plain=True), reps=3),
+        ms=cuda_ms(torch, solve),
+        reference_ms=cuda_ms(torch, lambda: solve(reference=True)),
+        plain_ms=cuda_ms(torch, lambda: solve(plain=True), reps=3),
         # the whole distributed solve: every shard's rows and lists, the
         # edge blocks, damping, preconditioner and b read once, x written
         bound=bound_ms(n * (npt * (96 + 32) + lists_b + nn_ * 8) + ne * (3 * 144 + 4 + 4) + (nn_ + 1) * 4
                        + nn_ * (24 + 144 + 24) + nn_ * 24, ran * per_iter + nn_ * 72.0),
-        library_ms=None,
+        library_ms=cuda_ms(torch, lib, reps=5),
         iterations=ran,
     )
+    rep = report["pcg_step"]
+    print(f"[time] the distributed PCG, {n} shards, {ran} of {iters} iterations: {rep['ms']:.4f} ms in "
+          f"{one_launch} device kernel; the reference mode (the composition) {rep['reference_ms']:.4f} ms in "
+          f"{ref_kernels} device kernels; plain {rep['plain_ms']:.4f} ms; library {rep['library_ms']:.4f} ms",
+          flush=True)
+    # the reference mode's pieces: P's init and one shard's data matvec
     xi, work = kernels.pcg_sharded_init(minv, b_vec, iters, rtol, on)
     zp = ws.apply_m_ordered(minv, b_vec)
     init_ok = (torch.equal(xi, torch.zeros_like(xi)) and torch.equal(work[:6 * nn_], b_vec)
                and torch.equal(work[6 * nn_: 12 * nn_], zp) and torch.equal(work[12 * nn_: 18 * nn_], zp)
                and float(work[4 * 6 * nn_]) == float(ws.dot_ordered(b_vec, zp)))
-    check("pcg_init", init_ok, f"x = 0, r = b, p = z, z = M b and rᵀz bit-equal to the plain version in kernel P's "
-          f"order {init_ok} (max |z - z_plain| {abs_err(torch, work[6 * nn_: 12 * nn_], zp):.2e})")
-    lx, lr, lz, lp, lrz, lstop, ldone = library_pcg_init(torch, minv, b_vec, rtol, on)
-    st = work[4 * 6 * nn_:]
-    # the dots' differences over the sums of their terms' magnitudes (rᵀz's
-    # terms cancel), the vectors' over their largest entry
-    lerrs = (rel_err(torch, work[6 * nn_: 12 * nn_], lz), rel_err(torch, work[12 * nn_: 18 * nn_], lp),
-             abs(float(st[0]) - float(lrz)) / max(float((b_vec * lz).abs().sum()), 1e-30),
-             abs(float(st[1]) - float(lstop)) / max(abs(float(lstop)), 1e-30))
-    lsame = (torch.equal(lx, xi) and torch.equal(lr, work[:6 * nn_])
-             and bool(ldone) == bool(int(st[2:3].view(torch.int32))))
-    check("pcg_init_library", lsame and max(lerrs) <= TOL_PCG_LIBRARY_REL,
-          f"the yardstick (PyTorch calls) computes kernel P's init: x and r equal, the done flag equal {lsame}; "
-          f"relative diffs z {lerrs[0]:.2e}, p {lerrs[1]:.2e}, rᵀz {lerrs[2]:.2e} (of the sum of |r_i z_i|, "
-          f"rᵀz itself {abs(float(st[0]) - float(lrz)) / max(abs(float(lrz)), 1e-30):.2e}), rtol² bᵀb "
-          f"{lerrs[3]:.2e} (tol {TOL_PCG_LIBRARY_REL})")
-    report["pcg_init"] = dict(
-        err=abs_err(torch, work[6 * nn_: 12 * nn_], zp),
-        ms=cuda_ms(torch, lambda: kernels.pcg_sharded_init(minv, b_vec, iters, rtol, on)),
-        plain_ms=cuda_ms(torch, lambda: (torch.zeros_like(b_vec), ws.dot_ordered(b_vec, b_vec),
-                                         ws.dot_ordered(b_vec, ws.apply_m_ordered(minv, b_vec)))),
-        # M and b in; x, r, z, p and the loop state out
-        bound=bound_ms(nn_ * (144 + 24) + nn_ * 24 * 4 + 12, nn_ * 72.0 + nn_ * 24.0),
-        library_ms=cuda_ms(torch, lambda: library_pcg_init(torch, minv, b_vec, rtol, on)),
-    )
-    print(f"[info] {n} shards: the distributed PCG ran {ran} of {iters} iterations; one shard's data matvec "
-          f"{report['data_matvec']['ms']:.4f} ms", flush=True)
+    check("pcg_init", init_ok, f"the reference mode's init: x = 0, r = b, p = z, z = M b and rᵀz bit-equal to the "
+          f"plain version in kernel P's order {init_ok} (max |z - z_plain| "
+          f"{abs_err(torch, work[6 * nn_: 12 * nn_], zp):.2e})")
+    sh0, dt0 = shards[0], dts[0]
+    init_ms = cuda_ms(torch, lambda: kernels.pcg_sharded_init(minv, b_vec, iters, rtol, on))
+    mv_ms = cuda_ms(torch, lambda: kernels.data_matvec(dt0.rows, sh0.knn_idx32, sh0.pts_by_node.order,
+                                                       sh0.pts_by_node.off, sh0.pts_by_node.heavy, pv))
+    print(f"[time] the reference mode's pieces: P's init {init_ms:.4f} ms, one shard's data matvec {mv_ms:.4f} ms",
+          flush=True)
+
+
+def hold_sharded_pcg_modes(torch, dev, cfg, s1, rows1, et, damp, minv, b, iters, rtol):
+    """The distributed PCG's one launch bit-equal to ``pcg_sharded_plain``
+    and to the reference mode at 1, 2 and 4 shards cut from one system
+    (``distributed_gn.shard_structure``), for R = 1 and for R = 3 (seeded
+    bf16 tangential rows beside the system's plane rows) in each row mode,
+    p in shared and in device memory and the two-launch mode of a process
+    group (the identity as the ranks' sum); inactive gives 0."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.parallel import distributed_gn, sharded
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    rng = np.random.RandomState(3)
+    scale = 0.3 * float(rows1.float().abs().mean())
+    tang = torch.from_numpy((scale * rng.randn(rows1.shape[0], 2, 8, 6)).astype(np.float32)).to(dev, torch.bfloat16)
+    rows3 = torch.cat([rows1, tang], 1).contiguous()
+    results = []
+    for shards_n in (1, 2, 4):
+        mesh = sharded.make_mesh(shards_n, devices=[dev] * shards_n)
+        parts = distributed_gn.shard_structure(s1, mesh)
+        chunk = parts[0].p_can.shape[0]
+        for rows, modes in ((rows1, ((None, 1),)), (rows3, ((None, 1), (1, 1), (None, 4)))):
+            pad = torch.zeros((chunk * shards_n - rows.shape[0], *rows.shape[1:]), dtype=rows.dtype, device=dev)
+            cut = torch.cat([rows, pad]).split(chunk)
+            sh = [ws.Shard(sk, r.contiguous()) for sk, r in zip(parts, cut)]
+            for used, stride in modes:
+                sysm = ws.System(cut[0].contiguous(), et, damp, used, stride)
+                solve = lambda **kw: ws.pcg_sharded(mesh, sh, s1, sysm, minv, b, iters, rtol, on, **kw)  # noqa: E731
+                xk = solve()
+                with deterministic(torch):
+                    xp = solve(plain=True)
+                ks = ws._kernel_system(s1, sysm)
+                data = [kernels.ShardData(q.rows, q.s.knn_idx32, q.s.pts_by_node.order, q.s.pts_by_node.off,
+                                          ws.heavy_order(q.s.pts_by_node)) for q in sh]
+                xd = kernels.pcg_sharded(ks, data, minv, b, iters, rtol, on, used=used, stride=stride,
+                                         shared_p=False)
+                xg = kernels.pcg_sharded(ks, data, minv, b, iters, rtol, on, used=used, stride=stride,
+                                         reduce=lambda v: v.clone())
+                ok = (bool(torch.isfinite(xk).all()) and torch.equal(xk, xp) and torch.equal(xk, solve(reference=True))
+                      and torch.equal(xk, xd) and torch.equal(xk, xg)
+                      and not bool(ws.pcg_sharded(mesh, sh, s1, sysm, minv, b, iters, rtol, ~on).any()))
+                results.append((shards_n, rows.shape[1], used, stride, ok))
+    check("pcg_sharded_modes", all(r[-1] for r in results),
+          f"one launch bit-equal to the plain version and the reference mode, p in device memory and the two-launch "
+          f"mode alike, inactive -> 0, at (shards, R, rows used, stride) {[r[:4] for r in results if r[-1]]}; "
+          f"failed at {[r[:4] for r in results if not r[-1]]}")
+
+
+def check_sharded_one_launch(tag, cfg, launches, steps):
+    """The distributed PCG of a one-process mesh on one card: one device
+    kernel a solve, a solve an LM iteration of every step, the reference
+    mode's kernels never."""
+    solves = steps * cfg.solver_nonlinear_iters
+    got = (launches["pcg_sharded"], launches["pcg_sharded[device kernels]"])
+    check(f"{tag}_pcg_one_launch", got == (solves, solves) and not any(launches[k] for k in SHARD_REFERENCE),
+          f"(calls, device kernels) of the distributed PCG {got}, one each for the {solves} solves of {steps} steps; "
+          f"the reference mode's launches {[launches[k] for k in SHARD_REFERENCE]}")
 
 
 def sharded_main(torch, args, dev, card, nr_depths, report, cfg=None):
@@ -5120,11 +5243,14 @@ def sharded_main(torch, args, dev, card, nr_depths, report, cfg=None):
     mesh = sharded.make_mesh(SHARDS, devices=[dev] * SHARDS)
     frames = nr_depths[: args.s_frames]
     launches, rows, frame_ms, runner = drive_sharded(torch, "sharded", cfg, mesh, dev, frames)
-    shard_kernels = ("raycast", "brick_plan", "fuse_bricks", "data_matvec", "pcg_init", "pcg_step", "data_term",
+    shard_kernels = ("raycast", "brick_plan", "fuse_bricks", "pcg_sharded", "data_term",
                      "edge_term", "spd6_inv", "frame_maps", "knn_blend", "insert_select", "insert_apply", "extract_cloud",
                      "sample_nodes", "march_bands", "icp_reduce", "bilateral")
-    check("sharded_launches", all(launches[k] > 0 for k in shard_kernels) and launches["pcg"] == 0,
-          f"every kernel of the sharded path launched, kernel G's cluster PCG none: {launches}")
+    check("sharded_launches", all(launches[k] > 0 for k in shard_kernels) and launches["pcg"] == 0
+          and not any(launches[k] for k in SHARD_REFERENCE),
+          f"every kernel of the sharded path launched, kernel G's single-device PCG and the distributed PCG's "
+          f"reference mode none: {launches}")
+    check_sharded_one_launch("sharded", cfg, launches, len(frames) - 1)
     check("sharded_icp_ok", all(r["ok"] for r in rows), f"ICP healthy on every step ({len(rows)})")
     due = [i for i in range(1, len(frames)) if i % cfg.fusion_interval == 0]
     fused = [i for i, r in enumerate(rows, start=1) if r["bricks"][0] + r["bricks"][1] > 0]
@@ -5136,7 +5262,7 @@ def sharded_main(torch, args, dev, card, nr_depths, report, cfg=None):
           f"{sum(launches.values()) / steps:.1f} times a step", flush=True)
     sharded_kernels(torch, report, dev, cfg, mesh, runner.state, nr_depths[args.s_frames])
     prof = profile_frames(torch, args, dev, card, runner, nr_depths[args.s_frames + 1: args.s_frames + 4],
-                          tag="sharded", focus=("raycast_kernel", "data_rows", "data_nodes", "edge_apply",
+                          tag="sharded", focus=("raycast_kernel", "sharded_pcg_kernel", "insert_write",
                                                 "update_kernel", "fuse_bricks"))
     df = kinfu.DynamicFusion(cfg, device=dev)
     for d in nr_depths[: args.s_frames]:
@@ -5281,6 +5407,15 @@ def multiprocess_main(torch, args, dev, card, config="preset"):
     check("multihost", ranks_equal and all(f["icp_ok"] for f in one),
           f"ranks' poses and costs equal {ranks_equal}; bit-equal to make_mesh(4) in one process on every step "
           f"{bit_equal}")
+    # under the process group the distributed PCG is two launches an
+    # iteration around the ranks' all-reduce
+    cfg = multihost.worker_config(config)
+    iterations = 3 * cfg.solver_nonlinear_iters * max(cfg.solver_linear_iters, 1)
+    got = [(r["launches"]["pcg_sharded"], r["device_kernels"]["pcg_sharded"]) for r in res]
+    check("multihost_two_launches", all(g == (2 * iterations, 2 * iterations) for g in got)
+          and not any(r["launches"][k] for r in res for k in SHARD_REFERENCE),
+          f"each rank's (calls, device kernels) of the distributed PCG {got}: two an iteration for the "
+          f"{iterations} iterations of its solves; the reference mode's launches none")
     if torch.cuda.device_count() >= 2:
         res = launch(2, "cuda", 3, backend="nccl")
         check("multihost_nccl", res[0]["backend"] == "nccl" and res[0]["frames"] == res[1]["frames"],
@@ -5902,9 +6037,10 @@ def sharded_storage_main(torch, args, dev, card, nr_depths):
     due = [i for i in range(1, len(frames)) if i % cfg.fusion_interval == 0]
     fused = [i for i, r in enumerate(rows, start=1) if r["bricks"][0] + r["bricks"][1] > 0]
     check("sharded_f32_f32", kept and all(r["ok"] for r in rows) and fused == due and all(
-        launches[k] > 0 for k in ("raycast", "brick_plan", "fuse_bricks", "data_matvec", "pcg_init", "pcg_step")),
+        launches[k] > 0 for k in ("raycast", "brick_plan", "fuse_bricks", "pcg_sharded")),
           f"f32 slabs kept {kept}, ICP healthy on every step, fusion on {fused} (due {due}), the slab and shard "
           f"kernels launched: {launches}; frame ms {' '.join(f'{v:.3f}' for v in frame_ms)}")
+    check_sharded_one_launch("sharded_f32_f32", cfg, launches, len(frames) - 1)
     return launches
 
 
@@ -6170,7 +6306,7 @@ def main() -> int:
             launches=n_launch, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"], path=path,
             **{k: r[k] for k in ("iterations", "iteration_ms", "cluster", "serial_ms", "reference_ms", "gated_ms",
-                                 "reference_gated_ms", "kept_ms") if k in r},
+                                 "reference_gated_ms", "kept_ms", "reread_bound_ms") if k in r},
         ))
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {card} | {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "

@@ -37,9 +37,17 @@
 // whole insertion, so the frame never syncs. The seed dual quaternions of
 // the new nodes come from kernel E (warp_dq_at) between the two passes,
 // and their radii (node_radius, or kernel E's adaptive radius against the
-// field after the retirement). Pass 2 (apply): each new node is written
-// into its slot as old + (new - old), the JAX package's delta scatter, and
-// the count grows by a fixed-order block sum.
+// field after the retirement). Pass 2 (apply, dynamicfusion_tpu/models/
+// warpfield.py:433-445): ONE launch writes the new field out of place, a
+// thread a slot in blocks of kApplyThreads = 128 (8 blocks, so 8 SMs, at
+// the preset's 1 024 slots): each block reads the whole plan (cap slot
+// numbers, 8 KB from L2) to learn which new node, if any, lands in each of
+// its slots, then each slot is copied or written as old + (new - old), the
+// JAX package's delta scatter; block 0 also counts the new nodes (an
+// integer sum, in any order) into the count. The design before (six
+// device copies of the field, then one block of 1 024 threads writing the
+// new nodes in place and the count by a block scan) stays as the
+// reference mode.
 #include "common.cuh"
 #include "dq.cuh"
 
@@ -390,6 +398,57 @@ insert_apply_kernel(float* __restrict__ pos, float* __restrict__ dq, float* __re
   if (threadIdx.x == blockDim.x - 1) count[0] = count[0] + total;
 }
 
+// the apply, a thread a slot: src[j] the rank whose node lands in the
+// block's slot j (-1 where none)
+constexpr int kApplyThreads = 128;
+
+__global__ void __launch_bounds__(kApplyThreads)
+insert_write_kernel(const float* __restrict__ pos, const float* __restrict__ dq, const float* __restrict__ radius,
+                    const bool* __restrict__ active, const int* __restrict__ count,
+                    const int* __restrict__ last_support, float* __restrict__ pos_o, float* __restrict__ dq_o,
+                    float* __restrict__ radius_o, bool* __restrict__ active_o, int* __restrict__ count_o,
+                    int* __restrict__ ls_o, const int64_t* __restrict__ slots, const float* __restrict__ new_pos,
+                    const float* __restrict__ seed_dq, const int* __restrict__ frame_idx,
+                    const float* __restrict__ new_radius, int cap) {
+  __shared__ int src[kApplyThreads];
+  __shared__ int added;
+  const int s0 = blockIdx.x * kApplyThreads;
+  src[threadIdx.x] = -1;
+  if (threadIdx.x == 0) added = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int r = threadIdx.x; r < cap; r += kApplyThreads) {
+    const int64_t s = slots[r];
+    if (s >= cap) continue;
+    ++mine;
+    if (s >= s0 && s < s0 + kApplyThreads) src[s - s0] = r;
+  }
+  if (blockIdx.x == 0 && mine > 0) atomicAdd(&added, mine);
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) count_o[0] = count[0] + added;
+  const int s = s0 + threadIdx.x;
+  if (s >= cap) return;
+  const int r = src[threadIdx.x];
+  if (r < 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) pos_o[3 * s + a] = pos[3 * s + a];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) dq_o[8 * s + a] = dq[8 * s + a];
+    radius_o[s] = radius[s];
+    active_o[s] = active[s];
+    ls_o[s] = last_support[s];
+    return;
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) pos_o[3 * s + a] = pos[3 * s + a] + (new_pos[3 * r + a] - pos[3 * s + a]);
+#pragma unroll
+  for (int a = 0; a < 8; ++a) dq_o[8 * s + a] = dq[8 * s + a] + (seed_dq[8 * r + a] - dq[8 * s + a]);
+  radius_o[s] = radius[s] + (new_radius[r] - radius[s]);
+  active_o[s] = true;
+  const int fi = *frame_idx;
+  ls_o[s] = last_support[s] + (fi - last_support[s]);
+}
+
 }  // namespace
 
 // the select's table: {words, 1 if in device memory, dynamic shared bytes}.
@@ -431,13 +490,33 @@ extern "C" int df_insert_select(const void* cand, const void* cand_d2, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int df_insert_apply(void* pos, void* dq, void* radius, void* active, void* count, void* last_support,
-                               const void* slots, const void* new_pos, const void* seed_dq, const void* frame_idx,
-                               const void* new_radius, int cap, void* stream) {
-  insert_apply_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(pos), static_cast<float*>(dq), static_cast<float*>(radius), static_cast<bool*>(active),
-      static_cast<int*>(count), static_cast<int*>(last_support), static_cast<const int64_t*>(slots),
-      static_cast<const float*>(new_pos), static_cast<const float*>(seed_dq), static_cast<const int*>(frame_idx),
-      static_cast<const float*>(new_radius), cap);
+// the new field (pos_o .. ls_o) from the old one and the plan, one launch;
+// reference 1: the design before, the one-block kernel in place on the
+// outputs, which the caller filled with copies of the old field (the
+// inputs are then not read); *launched receives the kernels launched
+extern "C" int df_insert_apply(const void* pos, const void* dq, const void* radius, const void* active,
+                               const void* count, const void* last_support, void* pos_o, void* dq_o, void* radius_o,
+                               void* active_o, void* count_o, void* ls_o, const void* slots, const void* new_pos,
+                               const void* seed_dq, const void* frame_idx, const void* new_radius, int cap,
+                               int reference, int* launched, void* stream) {
+  *launched = 0;
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (reference) {
+    insert_apply_kernel<<<1, kBlock, 0, st>>>(
+        static_cast<float*>(pos_o), static_cast<float*>(dq_o), static_cast<float*>(radius_o),
+        static_cast<bool*>(active_o), static_cast<int*>(count_o), static_cast<int*>(ls_o),
+        static_cast<const int64_t*>(slots), static_cast<const float*>(new_pos), static_cast<const float*>(seed_dq),
+        static_cast<const int*>(frame_idx), static_cast<const float*>(new_radius), cap);
+  } else {
+    insert_write_kernel<<<(cap + kApplyThreads - 1) / kApplyThreads, kApplyThreads, 0, st>>>(
+        static_cast<const float*>(pos), static_cast<const float*>(dq), static_cast<const float*>(radius),
+        static_cast<const bool*>(active), static_cast<const int*>(count), static_cast<const int*>(last_support),
+        static_cast<float*>(pos_o), static_cast<float*>(dq_o), static_cast<float*>(radius_o),
+        static_cast<bool*>(active_o), static_cast<int*>(count_o), static_cast<int*>(ls_o),
+        static_cast<const int64_t*>(slots), static_cast<const float*>(new_pos), static_cast<const float*>(seed_dq),
+        static_cast<const int*>(frame_idx), static_cast<const float*>(new_radius), cap);
+  }
+  *launched = 1;
   return static_cast<int>(cudaGetLastError());
 }

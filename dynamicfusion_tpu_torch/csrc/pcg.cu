@@ -930,6 +930,377 @@ edge_apply_kernel(Sys S, const float* __restrict__ p, const float* __restrict__ 
   for (int d = 0; d < 6; ++d) ap[6 * nd + d] = (apd[6 * nd + d] + edg[d]) + S.damp[6 * nd + d] * pn[d];
 }
 
+// ---------------------------------------------------------------- the distributed PCG in one launch
+//
+// The composition above (per iteration: two launches of data_matvec a
+// shard, the psum's adds, edge_apply_kernel and kernel P's one-block
+// update) as ONE launch of a thread-block cluster of kSpCluster CTAs of
+// kSpThreads threads, the same arithmetic in the same order, so that it
+// gives the composition's bits. Per iteration, phases split by the
+// cluster's barrier: (a) t = bf16(row · bf16(p)) of every local shard's
+// (point, row) (row_t); (b) each shard's data product, a warp a (shard,
+// node), nodes heaviest first by the shard's own order (lane_data and the
+// halving shuffle tree of data_nodes_kernel) into a per-shard partial in
+// device memory; (c) for each node, the mesh's fixed tree over the shards
+// (parallel/mesh.py _tree: ((s0 + s1) + (s2 + s3)) at 4), then
+// edge_apply_kernel's serial walk (a thread a (node, entry): each entry's
+// sum runs over the edges in the same order) and + damp p; (d) kernel P's
+// update. P's three dot products are P's 1024-thread block sum: thread t
+// adds its nodes t, t + 1024, ... (six products each), each warp's
+// halving tree, then one over the 32 warps' sums. Here CTA c holds P's
+// warps c kVWarps ... (c + 1) kVWarps - 1 as its own first warps, and
+// owns their nodes for the vector work (r, z, x and Ap in its shared
+// memory); each CTA puts its warp sums into every CTA's slots (distributed
+// shared memory), and after the barrier every warp adds the 32 slots by
+// the same tree, so every CTA holds the same bits and takes the early exit
+// alike. p sits in every CTA's shared memory (each CTA writes its nodes of
+// p into every copy), or with kSharedP false in device memory. P's init
+// (x = 0, r = b, z = p = M b, the loop state) is the first phase. The
+// launch kinds: kWhole, the whole solve (a one-process mesh whose local
+// shards are on one card); under a process group the ranks' all-reduce is
+// a host collective, so each iteration is two launches around it: kLocal
+// ((a), (b) and this rank's tree into apd_out; kLocalFirst runs the init
+// first) and kFinish ((c) from the all-reduced apd_in, (d)), the loop
+// state (x, r, p, rz, the stop level and the done flag) in device memory
+// between them.
+
+constexpr int kSpThreads = 512;   // threads a CTA
+constexpr int kSpCluster = 16;    // CTAs a cluster (non-portable above 8)
+constexpr int kMaxShards = 8;     // local shards a launch
+constexpr int kVThreads = 1024;   // kernel P's block: the dot products' order
+constexpr int kVWarps = kVThreads / 32 / kSpCluster;  // P's warps a CTA holds
+constexpr int kOwn = kVThreads / kSpCluster;          // nodes a CTA owns in each 1024
+static_assert(kVWarps >= 1 && kVWarps * 32 <= kSpThreads, "P's warps fit the CTAs");
+
+enum SpPhase { kWhole = 0, kLocalFirst = 1, kLocal = 2, kFinish = 3 };
+enum SpSlot { kSpPap = 0, kSpRz, kSpRr, kSpBb, kSpBz, kSpSlots };
+
+// the local shards' data fields (Sys's rows, idx, pt_order, pt_off, heavy,
+// np, n and stride) and where each one's t starts in the t scratch
+struct ShardSet {
+  Sys s[kMaxShards];
+  int t_off[kMaxShards];
+  int count;
+};
+
+// the device-memory part of the work: the shards' partial products (count
+// x 6N), apd_out (6N), p (6N), r (6N), the loop state (4 words), then t
+struct SpWork {
+  float *partial, *apd, *p, *r, *t;
+  dfk::PcgState* st;
+};
+
+__host__ __device__ inline SpWork sp_work(float* w, int count, int n) {
+  const size_t dof = 6 * static_cast<size_t>(n);
+  SpWork o;
+  o.partial = w;
+  o.apd = w + count * dof;
+  o.p = o.apd + dof;
+  o.r = o.p + dof;
+  o.st = reinterpret_cast<dfk::PcgState*>(o.r + dof);
+  o.t = o.r + dof + 4;
+  return o;
+}
+
+// node of CTA c's local node index li
+__device__ __forceinline__ int sp_node(int rank, int li) { return (li / kOwn) * kVThreads + rank * kOwn + li % kOwn; }
+
+// this CTA's warp sums of P's dot products a·b (and c·d where two): lane
+// l of warp w < kVWarps is P's thread t = 32 (rank kVWarps + w) + l and
+// adds term(li, nd, d) over its nodes nd = t, t + 1024, ... (li the local
+// index), the warp's tree, lane 0's sum into slot (row, P's warp) of
+// every CTA
+template <typename F>
+__device__ __forceinline__ void sp_dot_put(cg::cluster_group& g, float (*slots)[32], int rank, int n, int row0,
+                                           int row1, F term) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (w >= kVWarps) return;
+  const int t = (rank * kVWarps + w) * 32 + lane;
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int nd = t, li = t - rank * kOwn; nd < n; nd += kVThreads, li += kOwn) {
+#pragma unroll
+    for (int d = 0; d < 6; ++d) {
+      float a, b;
+      term(li, nd, d, a, b);
+      s0 += a;
+      s1 += b;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s0 += __shfl_down_sync(0xffffffffu, s0, o);
+    s1 += __shfl_down_sync(0xffffffffu, s1, o);
+  }
+  if (lane == 0) {
+    const int vw = rank * kVWarps + w;
+    for (int c = 0; c < kSpCluster; ++c) {
+      g.map_shared_rank(&slots[row0][0], c)[vw] = s0;
+      if (row1 >= 0) g.map_shared_rank(&slots[row1][0], c)[vw] = s1;
+    }
+  }
+}
+
+// the total of slot row ``row`` as P's block adds its 32 warp sums (after
+// a barrier); every lane of every warp gets it
+__device__ __forceinline__ float sp_total(float (*slots)[32], int row) {
+  float v = slots[row][threadIdx.x & 31];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// the sum of the shards' partials of dof i by the mesh's tree: pairs in
+// index order, an odd last one carried up
+__device__ __forceinline__ float sp_tree(const float* __restrict__ partial, int count, size_t dof, int i) {
+  float v[kMaxShards];
+  for (int k = 0; k < count; ++k) v[k] = __ldcg(partial + k * dof + i);
+  for (int w = count; w > 1; w = (w + 1) / 2) {
+    for (int j = 0; j < w / 2; ++j) v[j] = v[2 * j] + v[2 * j + 1];
+    if (w & 1) v[w / 2] = v[w - 1];
+  }
+  return v[0];
+}
+
+// entry a of node nd's edge product as node_edge sums it (its source-side
+// blocks in edge order, then its destination-side blocks in list order)
+template <bool kSharedP>
+__device__ __forceinline__ float sp_edge(const Sys& E, const float* __restrict__ p, int nd, const float pn[6], int a) {
+  float edg = 0.0f;
+  for (int c = 0; c < E.kc; ++c) {
+    const int e = nd * E.kc + c;
+    const int j = E.e_dst[e];
+    const float* hii = E.h_ii + 36 * static_cast<size_t>(e) + 6 * a;
+    const float* hij = E.h_ij + 36 * static_cast<size_t>(e) + 6 * a;
+    float s = 0.0f;
+#pragma unroll
+    for (int b = 0; b < 6; ++b) s += hii[b] * pn[b];
+#pragma unroll
+    for (int b = 0; b < 6; ++b) s += hij[b] * load_p<kSharedP>(p + 6 * j + b);
+    edg += s;
+  }
+  for (int q = E.e_off[nd]; q < E.e_off[nd + 1]; ++q) {
+    const int e = E.e_order[q];
+    const int i = e / E.kc;
+    const float* hjj = E.h_jj + 36 * static_cast<size_t>(e) + 6 * a;
+    const float* hij = E.h_ij + 36 * static_cast<size_t>(e) + a;
+    float s = 0.0f;
+#pragma unroll
+    for (int b = 0; b < 6; ++b) s += hij[6 * b] * load_p<kSharedP>(p + 6 * i + b);
+#pragma unroll
+    for (int b = 0; b < 6; ++b) s += hjj[b] * pn[b];
+    edg += s;
+  }
+  return edg;
+}
+
+// (a) and (b): every local shard's t, then its data product a warp a
+// (shard, node) into the shard's partial; ends at a cluster barrier
+template <int R, int M, bool kSharedP>
+__device__ __forceinline__ void sp_products(cg::cluster_group& g, const ShardSet& sh, const float* __restrict__ p,
+                                            const SpWork& w, int n) {
+  const int rank = static_cast<int>(g.block_rank());
+  for (int k = 0; k < sh.count; ++k) {
+    const Sys& S = sh.s[k];
+    const int nq = M == kPlaneRows ? S.np : S.np * R;
+    float* t = w.t + sh.t_off[k];
+    for (int i = rank * blockDim.x + threadIdx.x; i < nq; i += kSpCluster * blockDim.x)
+      row_t<R, M, kSharedP>(S, p, t, M == kPlaneRows ? i * R : i);
+  }
+  g.sync();
+  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+  const size_t dof = 6 * static_cast<size_t>(n);
+  for (int q = rank * warps + (threadIdx.x >> 5); q < sh.count * n; q += kSpCluster * warps) {
+    const int k = q % sh.count;
+    const Sys& S = sh.s[k];
+    const int nd = static_cast<int>(S.heavy[q / sh.count]);
+    float dat[6];
+    lane_data<R, M>(S, w.t + sh.t_off[k], nd, lane, dat);
+    warp_sum6(dat);
+    if (lane == 0) {
+#pragma unroll
+      for (int d = 0; d < 6; ++d) w.partial[k * dof + 6 * nd + d] = dat[d];
+    }
+  }
+  g.sync();
+}
+
+// x solves A x = b (module comment above); work as sp_work lays it out
+template <int R, int M, bool kSharedP>
+__global__ void __launch_bounds__(kSpThreads, 1)
+sharded_pcg_kernel(const __grid_constant__ ShardSet sh, const __grid_constant__ Sys E, const float* __restrict__ minv,
+                   const float* __restrict__ b, int iters, float rtol2, const bool* __restrict__ active, int phase,
+                   const float* __restrict__ apd_in, float* __restrict__ x, float* __restrict__ work) {
+  __shared__ float slots[kSpSlots][32];
+  cg::cluster_group g = cg::this_cluster();
+  const int rank = static_cast<int>(g.block_rank());
+  const int n = E.n, dof = 6 * n, tid = threadIdx.x;
+  const int own = (n + kVThreads - 1) / kVThreads * kOwn;  // local node slots
+  const SpWork w = sp_work(work, sh.count, n);
+  float* smem = dynamic_smem();
+  float* p = kSharedP ? smem : w.p;
+  float* r = kSharedP ? smem + dof : smem;
+  float* z = r + 6 * own;
+  float* xs = z + 6 * own;
+  float* ap = xs + 6 * own;
+  const bool whole = phase == kWhole;
+  // p[i] = v: every CTA's copy (kWhole and the init), else the device copy
+  auto set_p = [&](int i, float v) {
+    if constexpr (kSharedP) {
+      if (phase == kWhole || phase == kLocalFirst) {
+        for (int c = 0; c < kSpCluster; ++c) g.map_shared_rank(p, c)[i] = v;
+      }
+      if (phase != kWhole) w.p[i] = v;
+    } else {
+      p[i] = v;
+    }
+  };
+  float rz = 0.0f, stop2 = 0.0f;
+  bool done;
+  if (phase == kWhole || phase == kLocalFirst) {
+    // P's init: x = 0, r = b, z = p = M b; bᵀb and bᵀz
+    if (!*active) {
+      for (int li = tid; li < 6 * own; li += blockDim.x) {
+        const int nd = sp_node(rank, li / 6);
+        if (nd < n) x[6 * nd + li % 6] = 0.0f;
+      }
+      if (phase == kLocalFirst && rank == 0 && tid == 0) w.st->done = 1;
+      g.sync();
+      return;
+    }
+    for (int li = tid; li < 6 * own; li += blockDim.x) {
+      const int nd = sp_node(rank, li / 6), d = li % 6;
+      if (nd >= n) continue;
+      const float* m = minv + 36 * static_cast<size_t>(nd) + 6 * d;
+      float zi = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) zi += m[c] * b[6 * nd + c];
+      xs[li] = 0.0f;
+      r[li] = b[6 * nd + d];
+      z[li] = zi;
+      set_p(6 * nd + d, zi);
+    }
+    __syncthreads();
+    sp_dot_put(g, slots, rank, n, kSpBb, kSpBz, [&](int li, int nd, int d, float& u, float& v) {
+      u = b[6 * nd + d] * b[6 * nd + d];
+      v = b[6 * nd + d] * z[6 * li + d];
+    });
+    g.sync();
+    const float bb = sp_total(slots, kSpBb);
+    rz = sp_total(slots, kSpBz);
+    stop2 = rtol2 * bb;
+    done = iters <= 0 || !(bb > stop2);
+    if (phase == kLocalFirst) {
+      for (int li = tid; li < 6 * own; li += blockDim.x) {
+        const int nd = sp_node(rank, li / 6);
+        if (nd < n) {
+          x[6 * nd + li % 6] = 0.0f;
+          w.r[6 * nd + li % 6] = r[li];
+        }
+      }
+      if (rank == 0 && tid == 0) {
+        w.st->rz = rz;
+        w.st->stop2 = stop2;
+        w.st->done = done ? 1 : 0;
+      }
+    }
+  } else {
+    // the loop state of the last launch
+    rz = __ldcg(&w.st->rz);
+    stop2 = __ldcg(&w.st->stop2);
+    done = __ldcg(&w.st->done) != 0;
+    if (done) return;
+    if constexpr (kSharedP) {
+      for (int i = tid; i < dof; i += blockDim.x) p[i] = __ldcg(w.p + i);
+    }
+    if (phase == kFinish) {
+      for (int li = tid; li < 6 * own; li += blockDim.x) {
+        const int nd = sp_node(rank, li / 6);
+        if (nd < n) {
+          r[li] = __ldcg(w.r + 6 * nd + li % 6);
+          xs[li] = __ldcg(x + 6 * nd + li % 6);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int it = 0; it < (whole ? iters : 1) && !done; ++it) {
+    if (phase != kFinish) {
+      sp_products<R, M, kSharedP>(g, sh, p, w, n);
+      if (phase != kWhole) {  // this rank's tree, for the all-reduce
+        for (int li = tid; li < 6 * own; li += blockDim.x) {
+          const int nd = sp_node(rank, li / 6);
+          if (nd < n) w.apd[6 * nd + li % 6] = sp_tree(w.partial, sh.count, dof, 6 * nd + li % 6);
+        }
+        break;
+      }
+    }
+    // (c) Ap = (apd + edge blocks p) + damp p on the owned nodes
+    for (int li = tid; li < 6 * own; li += blockDim.x) {
+      const int nd = sp_node(rank, li / 6), d = li % 6;
+      if (nd >= n) continue;
+      const float apd = whole ? sp_tree(w.partial, sh.count, dof, 6 * nd + d) : apd_in[6 * nd + d];
+      float pn[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) pn[c] = load_p<kSharedP>(p + 6 * nd + c);
+      ap[li] = (apd + sp_edge<kSharedP>(E, p, nd, pn, d)) + E.damp[6 * nd + d] * pn[d];
+    }
+    __syncthreads();
+    // (d) kernel P's update
+    sp_dot_put(g, slots, rank, n, kSpPap, -1, [&](int li, int nd, int d, float& u, float& v) {
+      u = load_p<kSharedP>(p + 6 * nd + d) * ap[6 * li + d];
+      v = 0.0f;
+    });
+    g.sync();
+    const float alpha = rz / fmaxf(sp_total(slots, kSpPap), 1e-30f);
+    for (int li = tid; li < 6 * own; li += blockDim.x) {
+      const int nd = sp_node(rank, li / 6);
+      if (nd >= n) continue;
+      xs[li] = xs[li] + alpha * load_p<kSharedP>(p + 6 * nd + li % 6);
+      r[li] = r[li] - alpha * ap[li];
+    }
+    __syncthreads();
+    for (int li = tid; li < 6 * own; li += blockDim.x) {
+      const int nd = sp_node(rank, li / 6), d = li % 6;
+      if (nd >= n) continue;
+      const float* m = minv + 36 * static_cast<size_t>(nd) + 6 * d;
+      const float* rn = r + li - d;
+      float zi = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) zi += m[c] * rn[c];
+      z[li] = zi;
+    }
+    __syncthreads();
+    sp_dot_put(g, slots, rank, n, kSpRz, kSpRr, [&](int li, int nd, int d, float& u, float& v) {
+      u = r[6 * li + d] * z[6 * li + d];
+      v = r[6 * li + d] * r[6 * li + d];
+    });
+    g.sync();
+    const float rz_new = sp_total(slots, kSpRz);
+    const float rr = sp_total(slots, kSpRr);
+    const float beta = rz_new / fmaxf(rz, 1e-30f);
+    for (int li = tid; li < 6 * own; li += blockDim.x) {
+      const int nd = sp_node(rank, li / 6);
+      if (nd < n) set_p(6 * nd + li % 6, z[li] + beta * load_p<kSharedP>(p + 6 * nd + li % 6));
+    }
+    rz = rz_new;
+    done = !(rr > stop2);
+    g.sync();
+  }
+  if (phase == kWhole || phase == kFinish) {
+    for (int li = tid; li < 6 * own; li += blockDim.x) {
+      const int nd = sp_node(rank, li / 6);
+      if (nd >= n) continue;
+      x[6 * nd + li % 6] = xs[li];
+      if (phase == kFinish) w.r[6 * nd + li % 6] = r[li];
+    }
+    if (phase == kFinish && rank == 0 && tid == 0) {
+      w.st->rz = rz;
+      w.st->done = done ? 1 : 0;
+    }
+  }
+  g.sync();  // no CTA leaves while another may still write into its shared memory
+}
+
 // ---------------------------------------------------------------- host side
 
 Sys make_sys(const void* rows, const void* idx, const void* pt_order, const void* pt_off, const void* heavy,
@@ -976,6 +1347,12 @@ struct MatvecK {
   static Fn fn() { return matvec_kernel<R, M, kS>; }
 };
 
+template <int R, int M, bool kS>
+struct ShardedK {
+  using Fn = decltype(&sharded_pcg_kernel<1, kAllRows, true>);
+  static Fn fn() { return sharded_pcg_kernel<R, M, kS>; }
+};
+
 // dynamic shared memory of a cluster kernel: the PCG's p copy and its
 // CTA's r, z and x, the matvec's p copy; 0 when p stays in device memory
 size_t cluster_smem(bool pcg, int n, bool shared_p) {
@@ -1005,14 +1382,14 @@ int resolve_shared(bool pcg, int n, int want) {
 
 // the attributes a launch needs, which belong to the current device's
 // context: set once a (kernel, device) and raised as needed
-cudaError_t setup(const void* fn, size_t smem) {
+cudaError_t setup(const void* fn, size_t smem, int cluster = kPcgCluster) {
   struct Done {
     const void* fn;
     int dev;
     size_t smem;
     bool wide;
   };
-  constexpr int kDone = 128;  // the 16 cluster kernels on 8 devices
+  constexpr int kDone = 256;  // the 24 cluster kernels on 8 devices
   static Done done[kDone];
   static int count = 0;
   int dev = 0;
@@ -1029,7 +1406,7 @@ cudaError_t setup(const void* fn, size_t smem) {
     if (err != cudaSuccess) return err;
     done[k].smem = smem;
   }
-  if (kPcgCluster > 8 && !done[k].wide) {
+  if (cluster > 8 && !done[k].wide) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     done[k].wide = true;
@@ -1037,14 +1414,16 @@ cudaError_t setup(const void* fn, size_t smem) {
   return err;
 }
 
-void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, size_t smem, cudaStream_t st) {
+// one cluster of ``cluster`` CTAs of ``threads`` threads
+void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, size_t smem, cudaStream_t st,
+                    int cluster = kPcgCluster, int threads = kPcgThreads) {
   cfg = {};
-  cfg.gridDim = dim3(kPcgCluster, 1, 1);
-  cfg.blockDim = dim3(kPcgThreads, 1, 1);
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kPcgCluster;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1059,6 +1438,23 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), size_t smem, cudaStream_t s
   cudaLaunchAttribute attr[1];
   cluster_config(cfg, attr, smem, st);
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+// the distributed PCG's dynamic shared memory: p's copy (kSharedP) and
+// the owned nodes' r, z, x and Ap
+size_t sp_smem(int n, bool shared_p) {
+  const size_t own = (static_cast<size_t>(n) + kVThreads - 1) / kVThreads * kOwn;
+  return sizeof(float) * ((shared_p ? 6 * static_cast<size_t>(n) : 0) + 24 * own);
+}
+
+// p's place as resolve_shared decides it, for the distributed PCG
+int sp_resolve_shared(int n, int want) {
+  const size_t optin = static_cast<size_t>(smem_optin());
+  if (sp_smem(n, false) + kStaticSmem > optin) return -1;
+  const bool fits = sp_smem(n, true) + kStaticSmem <= optin;
+  if (want < 0) return fits ? 1 : 0;
+  if (want == 1 && !fits) return -1;
+  return want;
 }
 
 }  // namespace
@@ -1243,4 +1639,82 @@ extern "C" int df_edge_apply(const void* h_ii, const void* h_jj, const void* h_i
       S, static_cast<const float*>(p), static_cast<const float*>(apd), static_cast<float*>(ap),
       static_cast<const LoopState*>(st));
   return static_cast<int>(cudaGetLastError());
+}
+
+// the distributed PCG's cluster launch at n nodes on the current device:
+// out = (CTAs a cluster, dynamic shared memory bytes, p in shared memory
+// 1 / device memory 0, clusters the card can hold at once, the work's
+// floats for ``count`` shards of ``np`` points) for p's place (-1 where it
+// fits, 0, 1); an error code where it is refused
+extern "C" int df_sharded_pcg_plan(int n, int nrows, int used, int stride, int shared_p, int count, const int* np,
+                                   int* out) {
+  const int mode = row_mode(nrows, used, stride);
+  if (mode < 0 || n < 1 || count < 1 || count > kMaxShards) return static_cast<int>(cudaErrorInvalidValue);
+  const int sh = sp_resolve_shared(n, shared_p);
+  if (sh < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sp_smem(n, sh == 1);
+  const void* fn = reinterpret_cast<const void*>(pick<ShardedK>(nrows, mode, sh == 1));
+  cudaError_t err = setup(fn, smem, kSpCluster);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cluster_config(cfg, attr, smem, nullptr, kSpCluster, kSpThreads);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long t = 0;
+  for (int k = 0; k < count; ++k) t += static_cast<long long>(np[k]) * nrows;
+  const long long words = (count + 3LL) * 6 * n + 4 + t;
+  if (words > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = kSpCluster;
+  out[1] = static_cast<int>(smem);
+  out[2] = sh;
+  out[3] = clusters;
+  out[4] = static_cast<int>(words);
+  return 0;
+}
+
+// one launch of the distributed PCG (phase: kWhole 0, kLocalFirst 1,
+// kLocal 2, kFinish 3; see sharded_pcg_kernel): shards holds the count
+// local shards' (rows, idx, pt_order, pt_off, heavy) pointers, np their
+// point counts; the edge system as df_edge_apply's; apd_in the
+// all-reduced data product (kFinish), else null; work (plan's out[4]
+// floats) as sp_work lays it out; *launched receives the device kernels
+// launched
+extern "C" int df_sharded_pcg(const void* const* shards, const int* np, int count, const void* h_ii,
+                              const void* h_jj, const void* h_ij, const void* e_dst, const void* e_order,
+                              const void* e_off, const void* damp, int n, int kc, int nrows, int used, int stride,
+                              int shared_p, const void* minv, const void* b, int iters, float rtol2,
+                              const void* active, int phase, const void* apd_in, void* x, void* work, int* launched,
+                              void* stream) {
+  *launched = 0;
+  const int mode = row_mode(nrows, used, stride);
+  if (mode < 0 || n < 1 || count < 1 || count > kMaxShards || phase < kWhole || phase > kFinish ||
+      (phase == kFinish) != (apd_in != nullptr) || (shared_p != 0 && shared_p != 1) ||
+      sp_resolve_shared(n, shared_p) < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ShardSet sh{};
+  sh.count = count;
+  int t = 0;
+  for (int k = 0; k < count; ++k) {
+    const void* const* f = shards + 5 * k;
+    sh.s[k] = make_sys(f[0], f[1], f[2], f[3], f[4], nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       np[k], n, kc, stride);
+    sh.t_off[k] = t;
+    t += np[k] * nrows;
+  }
+  const Sys E = make_sys(nullptr, nullptr, nullptr, nullptr, nullptr, h_ii, h_jj, h_ij, e_dst, e_order, e_off, damp, 0,
+                         n, kc, stride);
+  const size_t smem = sp_smem(n, shared_p == 1);
+  auto kernel = pick<ShardedK>(nrows, mode, shared_p == 1);
+  cudaError_t err = setup(reinterpret_cast<const void*>(kernel), smem, kSpCluster);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cluster_config(cfg, attr, smem, static_cast<cudaStream_t>(stream), kSpCluster, kSpThreads);
+  err = cudaLaunchKernelEx(&cfg, kernel, sh, E, static_cast<const float*>(minv), static_cast<const float*>(b), iters,
+                           rtol2, static_cast<const bool*>(active), phase, static_cast<const float*>(apd_in),
+                           static_cast<float*>(x), static_cast<float*>(work));
+  if (err == cudaSuccess) *launched = 1;
+  return static_cast<int>(err);
 }

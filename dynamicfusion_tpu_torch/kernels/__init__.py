@@ -57,8 +57,10 @@ NVCC_FLAGS = (
 # the aperture gate, N and O the dense normal equations and their damping
 # of the direct solve, P the dense-matrix PCG, Q the net rigid removal,
 # F1 and F2 the dense rigid and non-rigid fusion, R the extracted point
-# list's normals; the sharded step's distributed PCG: G's data-only matvec
-# of a shard and its per-iteration step, with P's init and update);
+# list's normals; the sharded step's distributed PCG: G's cluster launch
+# of the whole solve with P's init and update (``pcg_sharded``), and the
+# design before it, kept as its reference: G's data-only matvec of a shard
+# and its per-iteration step, with P's init and update);
 # ``cholesky`` counts the direct solve's factor, a cuSOLVER call, as the
 # JAX package's is its library's; ``spd6_inv`` counts both of G's inverse
 # entries (``spd6_inv``, ``spd6_inv_damped``), ``points_normals`` I's
@@ -71,7 +73,7 @@ KERNELS = (
     "brick_plan",
     "extract_cloud", "sample_nodes", "p2p_gate", "gram_scales", "dense_gram", "dense_damp", "cholesky",
     "node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid", "extract_normals",
-    "data_matvec", "pcg_init", "pcg_step",
+    "data_matvec", "pcg_init", "pcg_step", "pcg_sharded",
 )
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 # kernel E's launches split by what the call asks for ("k8", "k5",
@@ -83,9 +85,13 @@ knn_kinds: Dict[str, int] = {}
 # call, three in the mode kept as the reference; K's plan two in either
 # mode (the mip tiles, then the cluster or the one block); D's fuse one;
 # L's extraction two (the count with its scan, the write), four in its
-# reference mode; G's spd6_inv (either entry) and I's frame maps one
+# reference mode; G's spd6_inv (either entry) and I's frame maps one; G's
+# distributed PCG one a launch (one a solve in one process, two an
+# iteration under a process group); H's apply one, seven in its reference
+# mode (six copies and the one-block kernel)
 device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0, "brick_plan": 0, "fuse_bricks": 0,
-                                  "extract_cloud": 0, "spd6_inv": 0, "frame_maps": 0}
+                                  "extract_cloud": 0, "spd6_inv": 0, "frame_maps": 0, "pcg_sharded": 0,
+                                  "insert_apply": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -121,7 +127,7 @@ _SIGNATURES = {
     ),
     "df_insert_plan": (_I, _I, _I, _P),
     "df_insert_select": (_P, _P, _P, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P),
-    "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
     "df_pyramid_down": (_P, _I, _I, _F, _P, _P),
     "df_points_normals": (_P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
@@ -143,6 +149,10 @@ _SIGNATURES = {
     "df_edge_apply": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "df_pcg_init": (_P, _P, _I, _I, _F, _P, _P, _P, _P),
     "df_pcg_update": (_P, _I, _P, _P, _P),
+    "df_sharded_pcg_plan": (_I, _I, _I, _I, _I, _I, _P, _P),
+    "df_sharded_pcg": (
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _P, _I, _P, _P, _P, _P, _P,
+    ),
     "df_dense_damp": (_P, _P, _P, _I, _F, _P, _P, _P),
     "df_node_radius": (_P, _P, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "df_dense_pcg": (_P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
@@ -1244,6 +1254,132 @@ def pcg_sharded_step(s: FactoredSystem, minv: torch.Tensor, apd: torch.Tensor, x
     _done("pcg_step", rc)
 
 
+class ShardData(NamedTuple):
+    """One local shard's data fields for the distributed PCG: kernel G's
+    ``FactoredSystem`` data fields of the shard's points."""
+
+    rows: torch.Tensor      # (P_k, R, 8, 6) bf16
+    knn_idx: torch.Tensor   # (P_k, 8) int32
+    pt_order: torch.Tensor  # (8 P_k,) int32
+    pt_off: torch.Tensor    # (N + 1,) int32
+    heavy: torch.Tensor     # (N,) int64: the shard's nodes by descending entry count
+
+
+MAX_SHARDS = 8  # local shards a launch (csrc/pcg.cu kMaxShards)
+_SHARDED_PLANS: Dict[Tuple, Tuple[ClusterPlan, int]] = {}
+
+
+def sharded_pcg_plan(n: int, nrows: int, nps: Tuple[int, ...], used: Optional[int] = None, stride: int = 1,
+                     shared_p: Optional[bool] = None,
+                     device: Optional[torch.device] = None) -> Tuple[ClusterPlan, int]:
+    """(the cluster launch, the work's floats) of the distributed PCG at
+    ``n`` nodes for shards of ``nps`` points on ``device`` (the library's
+    ``df_sharded_pcg_plan``): p in shared memory where it fits
+    (``shared_p`` None) or as asked. Raises where the card cannot schedule
+    the cluster: there is no other route."""
+    mode = _row_mode(nrows, used, stride)
+    if not 1 <= len(nps) <= MAX_SHARDS:
+        raise ValueError(f"the distributed PCG takes 1 to {MAX_SHARDS} local shards, got {len(nps)}")
+    want = -1 if shared_p is None else int(shared_p)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    key = (dev, n, nrows, *mode, want, tuple(nps))
+    got = _SHARDED_PLANS.get(key)
+    if got is None:
+        out = (ctypes.c_int * 5)()
+        counts = (ctypes.c_int * len(nps))(*nps)
+        with _on(dev):
+            rc = load().df_sharded_pcg_plan(n, nrows, *mode, want, len(nps), counts, out)
+        if rc != 0:
+            raise ValueError(f"the distributed PCG's cluster at {n} nodes, p in "
+                             f"{'shared memory' if shared_p else 'any memory'}: refused (error {rc})")
+        plan = ClusterPlan(out[0], out[1], bool(out[2]), out[3])
+        if plan.clusters < 1:
+            raise RuntimeError(f"the distributed PCG: a cluster of {plan.cluster} CTAs with {plan.smem} bytes of "
+                               f"shared memory each cannot be scheduled on this card")
+        got = _SHARDED_PLANS[key] = (plan, out[4])
+    return got
+
+
+def pcg_sharded(s: FactoredSystem, shards, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float,
+                active: torch.Tensor, used: Optional[int] = None, stride: int = 1, shared_p: Optional[bool] = None,
+                reduce=None) -> torch.Tensor:
+    """Kernel G's distributed PCG (csrc/pcg.cu ``sharded_pcg_kernel``, with
+    kernel P's init and update): x solving (the local ``shards``' data
+    products psum'd + the edge blocks + damp) x = b from x = 0, at most
+    ``iters`` iterations while rᵀr > rtol² bᵀb, zeros where ``active`` (a
+    () bool device tensor) is False; the same bits as the composition of
+    ``data_matvec``, the psum and ``pcg_sharded_step``. ``shards``: the
+    ``ShardData`` of this process's shards, all on ``b``'s card (1 to
+    ``MAX_SHARDS``); ``s``: the edge system and the damping (its data
+    fields are not read); the row mode as ``matvec``'s. Without ``reduce``
+    (a one-process mesh) the whole solve is ONE cluster launch. Under a
+    process group ``reduce`` is the all-reduce across the ranks of a value
+    already summed over this rank's shards (``Mesh.psum_ranks``): a host
+    collective, so each iteration is two launches around it, the loop's
+    state in device memory between them. A one-process mesh over several
+    cards is not this kernel's: ``warp_solver.pcg_sharded`` runs the
+    composition there."""
+    n = s.damp.shape[0] // 6
+    dof = 6 * n
+    ne = s.e_dst.shape[0]
+    for t, nm in ((s.h_ii, "h_ii"), (s.h_jj, "h_jj"), (s.h_ij, "h_ij")):
+        _check(t, nm, torch.float32, (ne, 6, 6))
+    _check(s.e_dst, "e_dst", torch.int32, (ne,))
+    _check_lists(s.e_order, s.e_off, ne, n)
+    _check(s.damp, "damp", torch.float32, (dof,))
+    if ne % n:
+        raise ValueError(f"edges: {ne} is not a multiple of the node count {n}")
+    _check(minv, "minv", torch.float32, (n, 6, 6))
+    _check(b, "b", torch.float32, (dof,))
+    _check(active, "active", torch.bool, ())
+    shards = list(shards)
+    if not 1 <= len(shards) <= MAX_SHARDS:
+        raise ValueError(f"the distributed PCG takes 1 to {MAX_SHARDS} local shards, got {len(shards)}")
+    nr = shards[0].rows.shape[1] if shards[0].rows.dim() == 4 else 0
+    for k, sh in enumerate(shards):
+        _check(sh.rows, f"shard {k} rows", torch.bfloat16)
+        if sh.rows.dim() != 4 or sh.rows.shape[1] != nr or nr not in (1, 3) or sh.rows.shape[2:] != (8, 6):
+            raise ValueError(f"shard {k} rows: expected (P, {nr or '1 or 3'}, 8, 6), got {tuple(sh.rows.shape)}")
+        np_ = sh.rows.shape[0]
+        _check(sh.knn_idx, f"shard {k} knn_idx", torch.int32, (np_, 8))
+        _check_lists(sh.pt_order, sh.pt_off, np_ * 8, n)
+        _check(sh.heavy, f"shard {k} heavy", torch.int64, (n,))
+        _same_device(b, *sh)
+    _same_device(b, minv, active, s.h_ii, s.h_jj, s.h_ij, s.e_dst, s.e_order, s.e_off, s.damp)
+    mode = _row_mode(nr, used, stride)
+    dev = b.device
+    plan, words = sharded_pcg_plan(n, nr, tuple(sh.rows.shape[0] for sh in shards), used, stride, shared_p, dev)
+    lib = load()
+    x = torch.empty_like(b)
+    work = torch.empty((words,), dtype=torch.float32, device=dev)
+    fields = (ctypes.c_void_p * (5 * len(shards)))(*[t.data_ptr() for sh in shards for t in sh])
+    nps = (ctypes.c_int * len(shards))(*[sh.rows.shape[0] for sh in shards])
+    head = (fields, nps, len(shards), s.h_ii.data_ptr(), s.h_jj.data_ptr(), s.h_ij.data_ptr(), s.e_dst.data_ptr(),
+            s.e_order.data_ptr(), s.e_off.data_ptr(), s.damp.data_ptr(), n, ne // n, nr, *mode, int(plan.shared_p),
+            minv.data_ptr(), b.data_ptr(), iters, _f32(rtol * rtol), active.data_ptr())
+
+    def launch(phase: int, apd_in: Optional[torch.Tensor] = None) -> None:
+        ran = ctypes.c_int(0)
+        with _on(dev):
+            rc = lib.df_sharded_pcg(*head, phase, None if apd_in is None else apd_in.data_ptr(), x.data_ptr(),
+                                    work.data_ptr(), ctypes.byref(ran), _stream(dev))
+        _done("pcg_sharded", rc)
+        device_kernels["pcg_sharded"] += ran.value
+
+    if reduce is None:
+        launch(0)
+        return x
+    # this rank's tree of its shards' products, written by each local launch
+    apd = work[len(shards) * dof: (len(shards) + 1) * dof]
+    for it in range(max(iters, 1)):
+        launch(1 if it == 0 else 2)
+        total = reduce(apd)
+        _check(total, "the all-reduced data product", torch.float32, (dof,))
+        _same_device(b, total)
+        launch(3, total)
+    return x
+
+
 # --------------------------------------------------------------------------
 # kernels N and O: the dense normal equations and their damping; the factor
 # --------------------------------------------------------------------------
@@ -1471,10 +1607,13 @@ def insert_select(candidates, cand_d2, valid, active, count, gate, coverage: flo
     return slots, new_pos
 
 
-def insert_apply(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx, new_radius):
+def insert_apply(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx, new_radius,
+                 reference: bool = False):
     """Kernel H's apply pass: a NEW field with the selected nodes written
     into their slots (old + (new - old)), the r-th new node with the radius
-    ``new_radius[r]``, and the count raised."""
+    ``new_radius[r]``, and the count raised; one launch, a thread a slot.
+    ``reference`` launches the design before (six copies of the field,
+    then one block writing the new nodes in place; no path asks for it)."""
     n = _check_field(positions, active, radius, dq)
     _check(count, "count", torch.int32, ())
     _check(last_support, "last_support", torch.int32, (n,))
@@ -1485,12 +1624,16 @@ def insert_apply(positions, dq, radius, active, count, last_support, slots, new_
     _check(new_radius, "new_radius", torch.float32, (n,))
     _same_device(positions, dq, radius, active, count, last_support, slots, new_pos, seed_dq, frame_idx, new_radius)
     lib = load()
-    out = [t.clone() for t in (positions, dq, radius, active, count, last_support)]
+    old = (positions, dq, radius, active, count, last_support)
+    out = [t.clone() if reference else torch.empty_like(t) for t in old]
+    ran = ctypes.c_int(0)
     rc = lib.df_insert_apply(
-        *(t.data_ptr() for t in out), slots.data_ptr(), new_pos.data_ptr(), seed_dq.data_ptr(),
-        frame_idx.data_ptr(), new_radius.data_ptr(), n, _stream(positions.device),
+        *(t.data_ptr() for t in old), *(t.data_ptr() for t in out), slots.data_ptr(), new_pos.data_ptr(),
+        seed_dq.data_ptr(), frame_idx.data_ptr(), new_radius.data_ptr(), n, int(reference), ctypes.byref(ran),
+        _stream(positions.device),
     )
     _done("insert_apply", rc)
+    device_kernels["insert_apply"] += ran.value + (len(out) if reference else 0)
     return tuple(out)
 
 

@@ -134,6 +134,16 @@ class Mesh:
         """The sum over every shard, replicated (a fixed tree)."""
         return self._reduce(xs, torch.add, "SUM")
 
+    def psum_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum across the ranks of one value a rank, already summed over
+        its local shards (``psum``'s second step; the value itself without
+        a group)."""
+        if self.group is None:
+            return t
+        import torch.distributed as dist
+
+        return self._all_reduce(t, dist.ReduceOp.SUM)
+
     def pmin(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         return self._reduce(xs, torch.minimum, "MIN")
 

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.parallel import sharded
 from dynamicfusion_tpu_torch.parallel.mesh import Mesh
@@ -173,10 +174,12 @@ def _run_rank(args, rank: int, world: int) -> dict:
     """This rank's frames over the global mesh; the mesh is freed on
     return."""
     mesh = make_global_mesh()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     frames = run_frames(worker_config(args.config), mesh, args.frames)
     return dict(rank=rank, world=world, shards=mesh.n, backend=_LAYOUT["backend"], device=str(mesh.device),
-                seconds=time.perf_counter() - t0, frames=frames)
+                seconds=time.perf_counter() - t0, frames=frames, launches=dict(kernels.launches),
+                device_kernels=dict(kernels.device_kernels))
 
 
 def main(argv=None) -> int:

@@ -828,21 +828,33 @@ def pcg_sharded_plain(
 
 def pcg_sharded(
     mesh, shards, s: SolveStructure, sys: System, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float,
-    active: torch.Tensor, plain: bool = False,
+    active: torch.Tensor, plain: bool = False, reference: bool = False,
 ) -> torch.Tensor:
-    """The distributed PCG: kernel G's data-only matvec on every shard
-    (``kernels.data_matvec``), the psum, then G's per-iteration step with
-    kernel P's init and update (``kernels.pcg_sharded_step``) on CUDA
-    tensors; the loop's stop flag stays in device memory."""
+    """The distributed PCG on CUDA tensors: kernel G's sharded solve with
+    kernel P's init and update (``kernels.pcg_sharded``), ONE cluster
+    launch a solve in a one-process mesh whose local shards are all on
+    ``b``'s card, two launches an iteration around the ranks' all-reduce
+    under a process group. A one-process mesh over several cards, and
+    ``reference``, take the composition that the one launch replaced (the
+    holds' reference; no path asks for it on one card): G's data-only
+    matvec on every shard (``kernels.data_matvec``), the psum, then G's
+    per-iteration step with P's init and update
+    (``kernels.pcg_sharded_step``), the loop's stop flag in device memory.
+    Both give ``pcg_sharded_plain``'s bits."""
     if plain or b.device.type == "cpu":
         return pcg_sharded_plain(mesh, shards, s, sys, minv, b, iters, rtol, active)
-    x, work = kernels.pcg_sharded_init(minv, b, iters, rtol, active)
-    dof = b.shape[0]
-    p, state = work[2 * dof: 3 * dof], work[4 * dof:]
     ks = _kernel_system(s, sys)
     # shards split by ``distributed_gn.shard_structure`` carry no order
     heavy = [sh.s.pts_by_node.heavy if sh.s.pts_by_node.heavy is not None else heavy_order(sh.s.pts_by_node)
              for sh in shards]
+    if not reference and all(mesh.devices[k] == b.device for k in mesh.local):
+        data = [kernels.ShardData(sh.rows, sh.s.knn_idx32, sh.s.pts_by_node.order, sh.s.pts_by_node.off, hv)
+                for sh, hv in zip(shards, heavy)]
+        return kernels.pcg_sharded(ks, data, minv, b, iters, rtol, active, used=sys.used, stride=sys.stride,
+                                   reduce=None if mesh.group is None else mesh.psum_ranks)
+    x, work = kernels.pcg_sharded_init(minv, b, iters, rtol, active)
+    dof = b.shape[0]
+    p, state = work[2 * dof: 3 * dof], work[4 * dof:]
     for _ in range(iters):
         parts = [
             kernels.data_matvec(sh.rows, sh.s.knn_idx32, sh.s.pts_by_node.order, sh.s.pts_by_node.off, hv, p_k,

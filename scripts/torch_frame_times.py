@@ -5,7 +5,10 @@ deforming scene (``default``, ``base``: the base ``DynamicFusionConfig()``
 with the direct solve, ``kinfu``: ``default_kinfu()``'s 512^3 volume at
 its own intrinsics) or ``chip_smoke.py``'s rigid orbit (``ref_rigid``: the
 reference-shaped rigid cell, ``reference_parity()`` rigid with dense
-fusion and the six-sample normals) at full width, then ``--profile`` frames under
+fusion and the six-sample normals) at full width, or ``sharded``: the
+preset's own step over ``make_mesh(4)`` on the one card (frame 0
+replicated, then ``parallel.sharded``'s step; its distributed PCG), then
+``--profile`` frames under
 torch.profiler (``chip_smoke.profile_frames``: device busy time, idle
 share, launches); with ``--frame0`` also frame 0 of a fresh
 ``DynamicFusion`` (the extraction, the node sampling, the first fusion).
@@ -41,10 +44,11 @@ HERE = Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--root", default=str(HERE), help="directory holding the dynamicfusion_tpu_torch to time")
-    ap.add_argument("--preset", choices=("quality", "default", "base", "kinfu", "ref_rigid"), default="quality",
+    ap.add_argument("--preset", choices=("quality", "default", "base", "kinfu", "ref_rigid", "sharded"),
+                    default="quality",
                     help="quality_dynamicfusion() on the hinge scene, default_dynamicfusion(), "
-                         "DynamicFusionConfig() or default_kinfu() on the deforming scene, or the reference-shaped "
-                         "rigid cell on the rigid orbit")
+                         "DynamicFusionConfig() or default_kinfu() on the deforming scene, the reference-shaped "
+                         "rigid cell on the rigid orbit, or default_dynamicfusion() over make_mesh(4) on the card")
     ap.add_argument("--storage", default=None, help="the volume's tsdf/weight storage, e.g. f32/f32 (default: the "
                                                     "configuration's)")
     ap.add_argument("--frames", type=int, default=20, help="timed frames (frame 0 included)")
@@ -63,7 +67,7 @@ def main() -> int:
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     sys.path.insert(1, str(HERE))
-    from chip_smoke import profile_frames, rigid_frame_fn
+    from chip_smoke import ShardedRunner, profile_frames, rigid_frame_fn
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.io import synthetic
@@ -81,7 +85,8 @@ def main() -> int:
     make = synthetic.hinge_frames if args.preset == "quality" else synthetic.deforming_frames
     cfg = {"quality": DynamicFusionConfig.quality_dynamicfusion, "default": DynamicFusionConfig.default_dynamicfusion,
            "base": DynamicFusionConfig, "kinfu": DynamicFusionConfig.default_kinfu,
-           "ref_rigid": DynamicFusionConfig.reference_parity}[args.preset]()
+           "ref_rigid": DynamicFusionConfig.reference_parity,
+           "sharded": DynamicFusionConfig.default_dynamicfusion}[args.preset]()
     if args.preset == "ref_rigid":
         cfg = dataclasses.replace(cfg, rigid_only=True, integrate_mode="dense", raycast_smooth_normals=True)
 
@@ -94,12 +99,23 @@ def main() -> int:
     args.storage = f"{cfg.tsdf_dtype}/{cfg.weight_dtype}"
     n_prof = 3 if args.profile else 0
     frames = make(cfg.intr, cfg.rows, cfg.cols, args.frames + n_prof)
-    df = kinfu.DynamicFusion(cfg, device=dev)
+    first = None
+    if args.preset == "sharded":
+        from dynamicfusion_tpu_torch.parallel import sharded
+
+        mesh = sharded.make_mesh(4, devices=[dev] * 4)
+        first = sharded.make_sharded_first_frame(cfg, mesh)
+        df = ShardedRunner(torch, sharded.make_sharded_step(cfg, mesh), None, dev)
+    else:
+        df = kinfu.DynamicFusion(cfg, device=dev)
     ms = []
-    for d in frames[: args.frames]:
+    for i, d in enumerate(frames[: args.frames]):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        df(d, block=False)
+        if first is not None and i == 0:  # frame 0 replicated, then the sharded step
+            df.state = first(kinfu.init_state(cfg, dev), torch.from_numpy(d).to(dev))
+        else:
+            df(d, block=False)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     steady = sorted(ms[2:])
@@ -109,7 +125,7 @@ def main() -> int:
     if args.profile:
         tag = f"{root.name}_{args.preset}_{args.storage.replace('/', '_')}"
         profile_frames(torch, args, dev, card, df, frames[args.frames:], focus=tuple(args.focus), tag=tag)
-        if args.frame0:
+        if args.frame0 and args.preset != "sharded":
             profile_frames(torch, args, dev, card, kinfu.DynamicFusion(cfg, device=dev), frames[:1],
                            focus=tuple(args.focus), tag=f"{tag}_frame0")
     print(json.dumps({"root": str(root), "preset": args.preset, "storage": args.storage,

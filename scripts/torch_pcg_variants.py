@@ -96,11 +96,11 @@ struct Cluster {
 };""", 1),
         ("Cluster grp{cg::this_cluster(), slots};", "Cluster grp{cg::this_grid(), slots};", 2),
         ("""  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kPcgCluster;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;""", """  attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;""", 1),
-        ("if (kPcgCluster > 8 && !done[k].wide) {", "if (false) {", 1),
+        ("if (cluster > 8 && !done[k].wide) {", "if (false) {", 1),
     ]
 
 

@@ -482,11 +482,13 @@ DENSE = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 # turns on, the adaptive node radius (E's radius entry), the dense-matrix
 # PCG (P), the net rigid removal (Q) and the dense fusion (F1, F2), the
 # export path's extracted normals (R), and the sharded step's distributed
-# PCG (G's data-only matvec and step, P's init); and kernel I's
-# single-map entry, the reference mode of its frame maps
-SHARDED = ("data_matvec", "pcg_init", "pcg_step")
+# PCG (G's cluster launch of the solve); and the reference modes that no
+# path asks for: kernel I's single-map entry (of its frame maps) and the
+# distributed PCG's composition (G's data-only matvec and step, P's init)
+SHARDED = ("pcg_sharded",)
+SHARDED_REFERENCE = ("data_matvec", "pcg_init", "pcg_step")
 OPTIONS = ("node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid",
-           "extract_normals", "points_normals") + SHARDED
+           "extract_normals", "points_normals") + SHARDED + SHARDED_REFERENCE
 
 
 @pytest.fixture
@@ -1464,6 +1466,7 @@ def test_distributed_pcg_and_shard_gram_kernels(dev, nr_model):
     xk = ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on)
     xp = ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on, plain=True)
     assert torch.equal(xk, xp)  # the plain version sums in the kernels' order
+    assert torch.equal(xk, ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on, reference=True))
     assert not bool(ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, ~on).any())
     cfg = dataclasses.replace(NR, solver_linear="direct")
     scale = mesh.pmax([ws.gram_scales(sk, dt) for sk, dt in zip(shards, dts)])
@@ -1477,6 +1480,100 @@ def test_distributed_pcg_and_shard_gram_kernels(dev, nr_model):
     summed = mesh.psum(grams) + ws.edge_jtj(s, et)
     assert torch.equal(ws.edge_jtj(s, et), ws.edge_jtj(s, et, plain=True))
     assert _close(summed, one, 1e-6)
+
+
+# (R, rows used, tangential stride): every row of R = 1 and of R = 3, the
+# plane rows only, the strided tangential rows
+SHARD_ROW_MODES = [(1, None, 1), (3, None, 1), (3, 1, 1), (3, None, 4)]
+
+
+def sharded_system(dev, nr_model, n_shards, nrows):
+    """(mesh, Shards, structure, damped system without its row mode, the
+    preconditioner, b) of the next frame's solve cut into ``n_shards``
+    shards on the card; with R = 3 the tangential rows are seeded bf16
+    values beside the plane rows (the holds compare bits, not solves)."""
+    from dynamicfusion_tpu_torch.parallel import distributed_gn, sharded
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    st, inputs, _ = nr_model
+    mesh = sharded.make_mesh(n_shards, devices=[dev] * n_shards)
+    n = st.warp.dq.shape[0]
+    s = ws.prepare(NR, st.warp, inputs)
+    shards = distributed_gn.shard_structure(s, mesh)
+    dts = [ws.data_term(NR, sk, st.warp.dq, True, plain=True) for sk in shards]
+    et = ws.edge_term(NR, s, st.warp.dq, plain=True)
+    rows = [dt.rows for dt in dts]
+    if nrows == 3:
+        gen = torch.Generator().manual_seed(3)
+        scale = 0.3 * float(rows[0].float().abs().mean())
+        rows = [torch.cat([r, (scale * torch.randn((r.shape[0], 2, 8, 6), generator=gen)).to(dev, torch.bfloat16)],
+                          1).contiguous() for r in rows]
+    blocks = mesh.psum([dt.blocks for dt in dts]) + et.diag
+    damp = 1e-3 * torch.diagonal(blocks, dim1=-2, dim2=-1).reshape(-1) + 1e-8
+    minv = ws.spd6_inv(blocks + torch.diag_embed(damp.reshape(n, 6)), plain=True)
+    b = mesh.psum([dt.jtr for dt in dts]) + et.jtr
+    parts = [ws.Shard(sk, r) for sk, r in zip(shards, rows)]
+    return mesh, parts, s, ws.System(rows[0], et, damp), minv, b
+
+
+@pytest.mark.parametrize("nrows, used, stride", SHARD_ROW_MODES)
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_sharded_pcg_one_launch(dev, nr_model, n_shards, nrows, used, stride):
+    """The distributed PCG as one cluster launch (p in shared and in device
+    memory) bit-equal to the plain distributed PCG and to the composition
+    it replaced, one device kernel a solve; inactive gives zeros."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    mesh, parts, s, sysm, minv, b = sharded_system(dev, nr_model, n_shards, nrows)
+    sysm = sysm._replace(used=used, stride=stride)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    before = kernels.device_kernels["pcg_sharded"]
+    xk = ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on)
+    assert kernels.device_kernels["pcg_sharded"] - before == 1
+    assert torch.equal(xk, ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on, plain=True))
+    assert torch.equal(xk, ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on, reference=True))
+    ks = ws._kernel_system(s, sysm)
+    data = [kernels.ShardData(sh.rows, sh.s.knn_idx32, sh.s.pts_by_node.order, sh.s.pts_by_node.off,
+                              ws.heavy_order(sh.s.pts_by_node)) for sh in parts]
+    xd = kernels.pcg_sharded(ks, data, minv, b, 12, 1e-3, on, used=used, stride=stride, shared_p=False)
+    assert torch.equal(xk, xd)
+    # the two-launch mode of a process group, with the identity as the ranks' sum
+    xg = kernels.pcg_sharded(ks, data, minv, b, 12, 1e-3, on, used=used, stride=stride, reduce=lambda v: v.clone())
+    assert torch.equal(xk, xg)
+    assert bool(torch.isfinite(xk).all())
+    assert not bool(ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, ~on).any())
+    assert not bool(kernels.pcg_sharded(ks, data, minv, b, 12, 1e-3, ~on, used=used, stride=stride,
+                                        reduce=lambda v: v.clone()).any())
+
+
+@pytest.mark.parametrize("name", INSERT_CASES)
+@pytest.mark.parametrize("nc, cap", [(600, 64), (4800, 1024), (4800, 2048)])
+def test_insert_apply_one_launch(dev, name, nc, cap):
+    """Kernel H's apply, one launch, bit-equal to the plain delta scatter
+    and to the design before (the reference mode) on the select of each
+    adversarial case, the field's old values seeded."""
+    from chip_smoke import insert_case, select_inputs
+    from dynamicfusion_tpu_torch.models import warpfield
+
+    cfg, field, cand, valid, d2, gate = select_inputs(torch, insert_case(name, nc, cap), dev)
+    gen = torch.Generator().manual_seed(5)
+    field = field._replace(positions=torch.randn((cap, 3), generator=gen).to(dev),
+                           dq=torch.randn((cap, 8), generator=gen).to(dev),
+                           radius=torch.rand((cap,), generator=gen).to(dev),
+                           last_support=torch.randint(0, 50, (cap,), generator=gen, dtype=torch.int32).to(dev))
+    plan = warpfield.InsertPlan(*kernels.insert_select(cand, d2, valid, field.active, field.count, gate,
+                                                       cfg.node_coverage))
+    seed = torch.randn((cap, 8), generator=gen).to(dev)
+    rad = torch.rand((cap,), generator=gen).to(dev)
+    fi = torch.tensor(77, dtype=torch.int32, device=dev)
+    before = kernels.device_kernels["insert_apply"]
+    got = kernels.insert_apply(*field, plan.slots, plan.new_pos, seed, fi, rad)
+    assert kernels.device_kernels["insert_apply"] - before == 1
+    ref = kernels.insert_apply(*field, plan.slots, plan.new_pos, seed, fi, rad, reference=True)
+    plain = warpfield._insert_apply_plain(field, plan, seed, fi, rad)
+    bits = [[t.view(torch.int32) if t.dtype == torch.float32 else t for t in f] for f in (got, ref, plain)]
+    for a, b, c in zip(*bits):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_sharded_step_on_the_card_goes_through_its_kernels(dev):

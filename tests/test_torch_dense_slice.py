@@ -10,10 +10,10 @@ refine 2).
   previous state (pose TOL_POSE, and at JAX's pose the dense fusion and the
   model maps), as tests/test_torch_full_res.py holds the brick slice.
 - Non-rigid, the set-up of tests/torch_nonrigid_cases.py (``small()`` with
-  the dynamicfusion preset's settings) with dense fusion and newton16:
-  frame 0's volume, and the step from JAX's state after it (the solve's
-  initial cost within 1e-5 relative, ROADMAP Queue 3's rule; the fusion,
-  insertion and maps at JAX's pose and field).
+  the dynamicfusion preset's settings) with dense fusion and newton16
+  (``NONRIGID``): tests/test_torch_dense_slice_nonrigid.py, a file of its
+  own so that ``--dist loadfile`` spreads the JAX compiles over the
+  workers.
 """
 
 import dataclasses
@@ -113,31 +113,3 @@ def test_rigid_step_from_jax_state(rigid_run, frame):
     (tp, tn), _, _ = tkinfu._model_maps(TC, st.vol, pose, t_seed=seed, t_band=band)
     cases.check_maps(j.prev_points, tp)
     cases.check_maps(j.prev_normals, tn, normals=True)
-
-
-@pytest.fixture(scope="module")
-def nonrigid_run():
-    jc, tc = (dataclasses.replace(c, **NONRIGID) for c in cases.configs())
-    depths = cases.bench_depths(tc, 2)
-    return jc, tc, depths, cases.jax_run(jc, depths)
-
-
-def test_nonrigid_first_frame_matches_jax(nonrigid_run):
-    """Frame 0 of the dense non-rigid config: the dense rigid integrate
-    (F1), the extraction and node sampling, the newton16 model maps."""
-    jc, tc, depths, frames = nonrigid_run
-    j = frames[0][0]
-    ts = tkinfu.first_frame(tc, tkinfu.init_state(tc, "cpu"), torch.from_numpy(depths[0]))
-    _check_volume(j.vol, ts.vol)
-    assert int(ts.warp.count) == int(j.warp.count) > 0
-    cases.check_maps((j.can_points, *j.prev_points), (ts.can_points, *ts.prev_points))
-    cases.check_maps((j.can_normals, *j.prev_normals), (ts.can_normals, *ts.prev_normals), normals=True)
-
-
-def test_nonrigid_step_from_jax_state(nonrigid_run):
-    """The dense non-rigid step from JAX's frame-0 state: pose, the solve's
-    initial cost (1e-5 relative), the dense fusion (F2) at JAX's pose and
-    field, the node insertion and the newton16 maps."""
-    jc, tc, depths, frames = nonrigid_run
-    cases.check_step_from_jax_state(jc, tc, frames, depths, 1)
-    assert not np.array_equal(np.asarray(frames[1][0].vol.weight), np.asarray(frames[0][0].vol.weight))

@@ -3,10 +3,14 @@ on the CPU: the dense Gram of the data rows (kernel N's plain version,
 int8 and bf16, and its block-summed form over the int8 codes), the ARAP
 blocks placed in it, the damping (kernel O's plain version), the Cholesky
 step, the point-to-point data term, the JAX package's solver-oracle
-scenes, one solve each of the lagged loop with one factor reused, the
-unlagged loop and the bf16 Gram, and the base config's and the non-rigid
-``reference_parity()``'s steps on bench.py's deforming scene at
-``small()``.
+scenes (tests/test_torch_dense_oracles.py), one solve each of the lagged
+loop with one factor reused, the unlagged loop, the bf16 Gram and the
+dense-matrix PCG (tests/test_torch_dense_solves.py), and the base config's
+and the non-rigid ``reference_parity()``'s steps on bench.py's deforming
+scene at ``small()`` (tests/test_torch_dense_steps.py,
+tests/test_torch_dense_parity_step.py): files of their own, so that
+``--dist loadfile`` spreads the JAX compiles over the workers; they take
+this file's tolerances.
 
 The JAX package's functions run jitted here, as its pipeline runs them:
 XLA folds data_jtj's division of the column maxima by the constant 127
@@ -52,11 +56,8 @@ import torch_nonrigid_cases as cases
 from torch_nonrigid_cases import one_torch_thread  # noqa: F401  (autouse)
 
 from dynamicfusion_tpu.config import DynamicFusionConfig as JCfg
-from dynamicfusion_tpu.core import se3 as jse3
-from dynamicfusion_tpu.models import warpfield as jw
 from dynamicfusion_tpu.solvers import warp_solver as js
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
-from dynamicfusion_tpu_torch.models import warpfield as tw
 from dynamicfusion_tpu_torch.solvers import warp_solver as ts
 
 TOL_BF16_GRAM = 1e-6
@@ -347,99 +348,6 @@ def test_prepare_point_to_point_ignores_the_normals(prob):
         assert bool(t.valid[::5].any()) != p2pl
 
 
-# ---------------------------------------------------------------- the solver oracle's scenes
-
-CUBE = np.array([[1, 1, 1], [1, 1, -1], [1, -1, 1], [1, -1, -1], [-1, 1, 1], [-1, 1, -1], [-1, -1, 1], [-1, -1, -1]],
-                np.float32)
-# tests/test_warp_solver.py's ORACLE_CFG: the dense solve, the bf16 Gram,
-# the unlagged JᵀJ and the point-to-point term, on a cube of 8 nodes
-ORACLE = dict(
-    volume_dims=64, max_nodes=16, node_sample_step=1, node_radius=3.0, knn_k=8, solver_nonlinear_iters=8,
-    solver_linear_iters=60, solver_tukey_c=10.0, solver_huber_delta=10.0, solver_arap_weight=1e-4,
-    point_to_plane=False, knn_method="exact", solver_linear="direct", solver_jtj_int8=False,
-    solver_lagged_jtj=False,
-)
-
-
-def _oracle_scene(name):
-    """(config changes, canonical points, live points, tolerance) of the
-    oracle scenes: tests/test_warp_solver.py's rigid shift, non-rigid
-    multiple nodes, and its known rigid offset (TestRigidPrealign's scene,
-    here through the whole solve)."""
-    if name == "rigid_shift":
-        can = np.array([[2.0, 2.0, 2.0], [3.0, 3.0, 3.0]], np.float32)
-        return {}, can, can + 0.05, 1e-3
-    if name == "multiple_nodes_nonrigid":
-        can = np.array([[-1, -1, -1], [1, 1, 1], [1, -1, 1], [-1, 1, -1]], np.float32) * 0.8
-        disp = np.array([[0.03, 0, 0], [0, 0.04, 0], [-0.02, 0.01, 0.02], [0.01, -0.03, 0.01]], np.float32)
-        return dict(solver_arap_weight=0.0), can, can + disp, 2e-3
-    rng = np.random.default_rng(7)
-    can = rng.uniform(-0.5, 0.5, (400, 3)).astype(np.float32)
-    t_true = np.asarray(jse3.exp_twist(jnp.asarray([0.01, -0.02, 0.015, 0.02, 0.01, -0.03])))
-    live = ((can - t_true[:3, 3]) @ t_true[:3, :3]).astype(np.float32)
-    return dict(solver_tukey_c=1.0), can, live, 2e-3
-
-
-@pytest.mark.parametrize("scene", ["rigid_shift", "multiple_nodes_nonrigid", "known_rigid_offset"])
-def test_oracle_scenes_match_jax(scene):
-    changes, can, live, tol = _oracle_scene(scene)
-    jc = dataclasses.replace(JCfg(**ORACLE), **changes)
-    tc = dataclasses.replace(TCfg(**ORACLE), **changes)
-    jfield = jax.jit(lambda p, v: jw.init_from_cloud(jc, p, v))(jnp.asarray(CUBE), jnp.ones(8, bool))
-    tfield = tw.WarpField(*(_t(a) for a in jfield))
-    nrm = np.broadcast_to(np.array([0.0, 0.0, 1.0], np.float32), can.shape).copy()
-    arrs = (can, nrm, live, nrm)
-    jf, jst = jax.jit(lambda f, i: js.solve(jc, f, i, point_to_plane=False))(
-        jfield, js.WarpSolveInputs(*(jnp.asarray(a) for a in arrs)))
-    tf, tst = ts.solve(tc, tfield, ts.WarpSolveInputs(*(_t(a) for a in arrs)))
-    jwarped = np.asarray(jax.jit(jw.warp_points)(jf, jnp.asarray(can)))
-    twarped = tw.warp_points(tf, _t(can), k=8).numpy()
-    np.testing.assert_allclose(twarped, live, atol=tol)
-    np.testing.assert_allclose(twarped, jwarped, atol=tol)
-    assert abs(float(tst.initial_cost) - float(jst.initial_cost)) <= TOL_ORACLE_COST0 * float(jst.initial_cost)
-    assert float(tst.final_cost) < float(tst.initial_cost)
-
-
-# ---------------------------------------------------------------- one solve of each loop
-
-
-@pytest.mark.parametrize("variant", [
-    dict(),  # the base config: int8 Gram, lagged JᵀJ, one factor reused
-    dict(solver_lagged_jtj=False),
-    dict(solver_jtj_int8=False),
-    dict(solver_linear="pcg", solver_lagged_jtj=False),  # block-Jacobi PCG over the dense matrix
-], ids=["lagged_int8_reuse", "unlagged", "bf16_gram", "pcg_unlagged"])
-def test_solve_matches_jax(variant):
-    jfield, tfield, ji, ti = cases.sphere_problem(1, N, P)
-    jc, tc = (dataclasses.replace(c, **variant) for c in (JC, TC))
-    solve = jax.jit(lambda f, i: js.solve(jc, f, i))
-    surface = jnp.nan_to_num(ji.p_can)
-
-    def warped(field):
-        return np.asarray(jw.warp_points(field, surface))
-
-    jf, jst = solve(jfield, ji)
-    costs, surfs = [], []
-    pos = np.asarray(jfield.positions)
-    for seed in range(3):
-        noise = 1.0 + 1e-7 * np.random.RandomState(seed).randn(*pos.shape)
-        f2, s2 = solve(jfield._replace(positions=jnp.asarray((pos * noise).astype(np.float32))), ji)
-        costs.append(float(s2.final_cost))
-        surfs.append(warped(f2))
-    tf, tst = ts.solve(tc, tfield, ti)
-    c0, c1 = float(jst.initial_cost), float(jst.final_cost)
-    assert abs(float(tst.initial_cost) - c0) <= TOL_COST0 * c0
-    assert float(tst.final_cost) < float(tst.initial_cost)
-    spread_c = max(abs(c - c1) for c in costs)
-    assert abs(float(tst.final_cost) - c1) <= SPREAD * spread_c + 1e-3 * c1
-    ref = warped(jf)
-    spread_s = max(float(np.abs(w - ref).max()) for w in surfs)
-    got = warped(jw.WarpField(*(jnp.asarray(a.numpy()) for a in tf)))
-    assert float(np.abs(got - ref).max()) <= SPREAD * spread_s + 1e-5
-    inactive = ~tfield.active.numpy()
-    np.testing.assert_array_equal(tf.dq.numpy()[inactive], tfield.dq.numpy()[inactive])
-
-
 # ---------------------------------------------------------------- the options the port takes
 
 
@@ -462,45 +370,3 @@ def test_check_cfg_takes_the_dense_options_and_refuses_the_rest():
     # the tangential rows' variants need the tangential rows
     ts._check_cfg(dataclasses.replace(TCfg(), point_to_plane=False, solver_p2p_weight=0.25,
                                       solver_p2p_hessian_stride=0))
-
-
-# ---------------------------------------------------------------- the base config's steps
-
-STEPS = 3
-# the base config at small(): its fusion every second frame (small() fuses
-# every frame)
-BASE = dict(fusion_interval=2)
-# reference_parity()'s solver and fusion options
-PARITY = dict(node_radius=3.0, solver_tukey_c=0.01, solver_huber_delta=1e-4, solver_arap_weight=200.0,
-              fusion_interval=1)
-
-
-@pytest.fixture(scope="module")
-def base_case():
-    jc, tc = (dataclasses.replace(c.small(), **BASE) for c in (JCfg, TCfg))
-    depths = cases.bench_depths(jc, STEPS + 1)
-    jax_frames = cases.jax_run(jc, depths)
-    return jc, tc, depths, jax_frames
-
-
-@pytest.mark.parametrize("frame", range(1, STEPS + 1))
-def test_base_config_step_from_jax_state_matches(base_case, frame):
-    jc, tc, depths, jax_frames = base_case
-    assert tc.solver_linear == "direct" and tc.solver_lagged_jtj and tc.solver_jtj_int8 and tc.solver_chol_reuse
-    cases.check_step_from_jax_state(jc, tc, jax_frames, depths, frame)
-
-
-def test_base_config_free_running_matches_jax(base_case):
-    jc, tc, depths, jax_frames = base_case
-    port_frames = cases.port_run(tc, depths)
-    spread = cases.jax_spread(jc, depths, jax_frames)
-    for frame in range(1, STEPS + 1):
-        cases.check_free_running(jax_frames, port_frames, frame, spread)
-    fused = [int(port_frames[f][1].brick_counts[:2].sum()) > 0 for f in range(1, STEPS + 1)]
-    assert fused == [f % 2 == 0 for f in range(1, STEPS + 1)]
-
-
-def test_reference_parity_step_from_jax_state_matches():
-    jc, tc = (dataclasses.replace(c.small(), **PARITY) for c in (JCfg, TCfg))
-    depths = cases.bench_depths(jc, 2)
-    cases.check_step_from_jax_state(jc, tc, cases.jax_run(jc, depths), depths, 1)

@@ -19,7 +19,10 @@ of ``reuse_model_raycast=False``.
   level on all but TOL_IMAGE_FRAC of the pixels (a raycast hit may flip at
   a silhouette, and the Phong power rounds differently).
 - Two non-rigid steps of the slice's ``small()`` settings with
-  ``reuse_model_raycast=False`` from JAX's state.
+  ``reuse_model_raycast=False`` from JAX's state
+  (tests/test_torch_full_res_fresh.py), and the pipeline options that once
+  refused (tests/test_torch_full_res_options.py): files of their own, so
+  that ``--dist loadfile`` spreads the JAX compiles over the workers.
 """
 
 import dataclasses
@@ -31,7 +34,6 @@ import numpy as np
 import pytest
 import torch
 
-import torch_nonrigid_cases as cases
 from torch_nonrigid_cases import one_torch_thread  # noqa: F401  (autouse)
 from dynamicfusion_tpu.config import DynamicFusionConfig as JCfg
 from dynamicfusion_tpu.core import se3 as jse3
@@ -290,65 +292,3 @@ def test_render_from_a_pose_matches_jax(jax_run):
                                 pose=pose)
     np.testing.assert_array_equal(over, ref)
     assert (over != img.numpy()).any()
-
-
-# --------------------------------------------------------------------------
-# the fresh canonical raycast
-# --------------------------------------------------------------------------
-
-FRESH_J, FRESH_T = (dataclasses.replace(c, reuse_model_raycast=False) for c in cases.configs())
-
-
-@pytest.fixture(scope="module")
-def fresh_frames():
-    depths = cases.bench_depths(FRESH_T, 3)
-    return depths, cases.jax_run(FRESH_J, depths)
-
-
-@pytest.mark.parametrize("frame", [1, 2])
-def test_fresh_canonical_raycast_step_from_jax_state(fresh_frames, frame):
-    """``reuse_model_raycast=False``: the solve's canonical points come from
-    a raycast of the previous volume at the ICP pose in the temporal band;
-    the port's step from JAX's state gives JAX's pose, initial solve cost
-    and node count."""
-    depths, frames = fresh_frames
-    (j_prev, _), (_, jo) = frames[frame - 1], frames[frame]
-    _, to = tkinfu.step(FRESH_T, interop.state_from_numpy(j_prev, "cpu"), torch.from_numpy(depths[frame]))
-    assert bool(to.icp_ok) and bool(jo.icp_ok)
-    assert np.abs(jo.pose - to.pose.numpy()).max() <= cases.TOL_POSE
-    c0 = float(jo.solver_cost0)
-    assert abs(float(to.solver_cost0) - c0) <= cases.TOL_COST0 * c0
-    assert float(to.solver_cost1) <= float(to.solver_cost0)
-    assert int(to.node_count) == int(jo.node_count)
-
-
-@pytest.mark.parametrize("option,against_jax", [
-    ("coarse_band", False), ("reuse_model_raycast", False), ("solver_remove_net_rigid", True),
-])
-def test_pipeline_options_refuse_as_ported(option, against_jax):
-    """None of these pipeline options refuses any more: the coarse-band
-    prepass and the fresh canonical raycast run, and the net rigid removal
-    of the warp field (once refused) runs too, held against the JAX
-    package: the port's step from JAX's state with the removal gives
-    JAX's pose, initial solve cost, fusion, node insertion and maps
-    (tests/torch_nonrigid_cases.py; the removal itself is held in
-    tests/test_torch_warp_options.py)."""
-    jbase, base = cases.configs(dims=32, rows=60, cols=80)
-    cfg = {
-        "coarse_band": dataclasses.replace(base, raycast_subsample=1, rows=240, cols=320, rigid_only=True,
-                                           intr=TCfg.small(rows=240, cols=320).intr),
-        "reuse_model_raycast": dataclasses.replace(base, reuse_model_raycast=False),
-        "solver_remove_net_rigid": dataclasses.replace(base, solver_remove_net_rigid=True, solver_net_rigid_alpha=0.5),
-    }[option]
-    if against_jax:
-        jc = dataclasses.replace(jbase, solver_remove_net_rigid=True, solver_net_rigid_alpha=0.5)
-        # the step of frame 2, from JAX's state after its first removal (at
-        # this size frame 1's ICP from frame 0's state is sensitive with the
-        # option off too: 3 mm)
-        depths = cases.bench_depths(cfg, 3)
-        cases.check_step_from_jax_state(jc, cfg, cases.jax_run(jc, depths), depths, 2)
-        return
-    depth = torch.from_numpy(cases.bench_depths(cfg, 1)[0])
-    state = tkinfu.first_frame(cfg, tkinfu.init_state(cfg, "cpu"), depth)
-    _, out = tkinfu.step(cfg, state, depth)
-    assert bool(out.icp_ok)

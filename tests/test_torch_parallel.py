@@ -372,35 +372,14 @@ def test_sharded_bf16_system_matches_single_device():
 
 
 @functools.lru_cache(maxsize=2)
+@functools.lru_cache(maxsize=2)
 def _jax_solve(linear):
-    """JAX's single-device solve of the 48-point problem, compiled once."""
+    """JAX's single-device solve of the 48-point problem, compiled once a
+    process and mode."""
     jc = dataclasses.replace(GN, solver_linear=linear)
     jfield, _, ji, _ = _gn_problem(48, (0.03, -0.02, 0.04))
     f, st = jax.jit(lambda f, i: js.solve(jc, f, i))(jfield, ji)
     return np.asarray(f.dq), float(st.final_cost)
-
-
-@pytest.mark.parametrize("linear", ["direct", "pcg"])
-def test_solve_distributed_matches_single_device(linear):
-    jc = dataclasses.replace(GN, solver_linear=linear)
-    tc = tcfg(jc)
-    _, tfield, _, ti = _gn_problem(48, (0.03, -0.02, 0.04))
-    dq_ref, cost_ref = _jax_solve(linear)
-    f, st = distributed_gn.solve_distributed(tc, cpu_mesh(8), tfield, ti)
-    np.testing.assert_allclose(f.dq.numpy(), dq_ref, atol=TOL_DQ)
-    np.testing.assert_allclose(float(st.final_cost), cost_ref, rtol=TOL_COST_RTOL, atol=TOL_COST_ATOL)
-
-
-def test_sharded_pcg_solve_matches_single_device():
-    """The distributed PCG (each shard's rows unsummed, every matvec a
-    psum) against JAX's single-device factored PCG solve."""
-    tc = tcfg(dataclasses.replace(GN, solver_linear="pcg"))
-    _, tfield, _, ti = _gn_problem(48, (0.03, -0.02, 0.04))
-    dq_ref, cost_ref = _jax_solve("pcg")
-    f, st = distributed_gn.make_sharded_solve(tc, cpu_mesh(8))(tfield, ti)
-    np.testing.assert_allclose(f.dq.numpy(), dq_ref, atol=TOL_DQ)
-    np.testing.assert_allclose(float(st.final_cost), cost_ref, rtol=TOL_COST_RTOL, atol=TOL_COST_ATOL)
-    assert float(st.final_cost) < float(st.initial_cost)
 
 
 def test_solve_trace_records_without_changing_the_solve():

@@ -351,6 +351,10 @@ WRAPPER_CALLS = {
     "pcg_step": lambda: kernels.pcg_sharded_step(
         _factored_system(), torch.zeros((8, 6, 6)), torch.zeros(48), torch.zeros(48), torch.zeros(4 * 48 + 3),
     ),
+    "pcg_sharded": lambda: kernels.pcg_sharded(
+        _factored_system(), [_shard_data()], torch.zeros((8, 6, 6)), torch.zeros(48), 12, 1e-3,
+        torch.ones((), dtype=torch.bool),
+    ),
     "insert_select": lambda: kernels.insert_select(
         torch.zeros((4, 3)), torch.zeros(4), torch.ones(4, dtype=torch.bool), torch.zeros(8, dtype=torch.bool),
         torch.zeros((), dtype=torch.int32), torch.ones((), dtype=torch.bool), 0.025,
@@ -443,6 +447,19 @@ def _factored_system(device="cpu", n=8, npt=4, nrows=1, **changes):
     )
     fields.update(changes)
     return kernels.FactoredSystem(**fields)
+
+
+def _shard_data(device="cpu", n=8, npt=4, nrows=1, **changes):
+    """One shard's (P = npt, N = n) data fields on ``device``."""
+    kw = dict(device=device)
+    fields = dict(
+        rows=torch.zeros((npt, nrows, 8, 6), dtype=torch.bfloat16, **kw),
+        knn_idx=torch.zeros((npt, 8), dtype=torch.int32, **kw),
+        pt_order=torch.zeros(8 * npt, dtype=torch.int32, **kw), pt_off=torch.zeros(n + 1, dtype=torch.int32, **kw),
+        heavy=torch.zeros(n, dtype=torch.int64, **kw),
+    )
+    fields.update(changes)
+    return kernels.ShardData(**fields)
 
 
 def test_every_kernel_has_a_wrapper_check():
@@ -603,6 +620,121 @@ def test_pcg_wrapper_refuses_an_unschedulable_cluster(meta_lib, monkeypatch):
         kernels.matvec(s, torch.empty(48, device="meta"))
     assert [c[0] for c in meta_lib.calls] == ["df_pcg_plan"]
     assert kernels.launches["matvec"] == 0
+
+
+def _sharded_plan_lib(meta_lib, monkeypatch, clusters=1):
+    """The library's ``df_sharded_pcg_plan`` answering (cluster, smem,
+    shared_p, clusters the card holds, work floats); the plan cache
+    emptied."""
+    def plan(n, nrows, used, stride, shared_p, count, nps, out):
+        meta_lib.calls.append(("df_sharded_pcg_plan", (n, nrows, used, stride, shared_p, count)))
+        out[0], out[1], out[2], out[3], out[4] = 16, 24 * n, 1, clusters, (count + 3) * 6 * n + 4
+        return 0
+
+    monkeypatch.setattr(meta_lib, "df_sharded_pcg_plan", plan, raising=False)
+    monkeypatch.setattr(kernels, "_SHARDED_PLANS", {})
+
+
+def _sharded_args(n=64, shards=4, npt=16, nrows=3):
+    meta = dict(device="meta")
+    return (_factored_system("meta", n=n, npt=npt, nrows=nrows), [_shard_data("meta", n, npt, nrows)] * shards,
+            torch.empty((n, 6, 6), **meta), torch.empty(6 * n, **meta), 12, 1e-3,
+            torch.empty((), dtype=torch.bool, **meta))
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_sharded_pcg_is_one_launch_a_solve(meta_lib, monkeypatch, shards):
+    """The distributed PCG of a one-process mesh is one cluster launch
+    (phase 0, the whole solve); under a process group two launches an
+    iteration around the ranks' sum (the first local launch runs the init:
+    phases 1, then 2, each followed by 3 with the summed product)."""
+    _sharded_plan_lib(meta_lib, monkeypatch)
+    args = _sharded_args(shards=shards)
+    x = kernels.pcg_sharded(*args, used=3, stride=4)
+    assert x.shape == (6 * 64,)
+    assert [c[0] for c in meta_lib.calls] == ["df_sharded_pcg_plan", "df_sharded_pcg"]
+    assert meta_lib.calls[0][1] == (64, 3, 3, 4, -1, shards)
+    call = meta_lib.calls[1][1]
+    # (fields, nps, count, 7 edge pointers, n, kc, nrows, used, stride, shared_p, minv, b, iters, rtol2, active,
+    # phase, apd_in, ...)
+    assert call[2] == shards and list(call[1]) == [16] * shards and len(call[0]) == 5 * shards
+    assert call[10:16] == (64, 4, 3, 3, 4, 1) and call[18] == 12 and call[21] == 0 and call[22] is None
+    assert kernels.launches["pcg_sharded"] == 1
+    summed = []
+    kernels.pcg_sharded(*args, used=3, stride=4, reduce=lambda v: summed.append(v) or v)
+    phases = [c[1][21] for c in meta_lib.calls[2:]]
+    assert phases == [1, 3] + [2, 3] * 11 and len(summed) == 12
+    assert all(c[1][22] is not None for c in meta_lib.calls[2:] if c[1][21] == 3)
+    assert kernels.launches["pcg_sharded"] == 1 + 24
+
+
+@pytest.mark.parametrize("bad, match", [
+    ("shards0", "1 to 8 local shards"), ("shards9", "1 to 8 local shards"), ("rows", "rows: expected"),
+    ("mixed_rows", "rows: expected"), ("knn", "knn_idx"), ("heavy", "heavy"), ("minv", "minv"), ("b", "b:"),
+    ("edges", "h_ii"),
+])
+def test_sharded_pcg_refuses(meta_lib, monkeypatch, bad, match):
+    """The distributed PCG's wrapper refuses a wrong shard count, mixed row
+    counts, and wrong types or shapes before any library call."""
+    _sharded_plan_lib(meta_lib, monkeypatch)
+    s, shards, minv, b, iters, rtol, active = _sharded_args()
+    if bad == "shards0":
+        shards = []
+    elif bad == "shards9":
+        shards = shards * 3
+    elif bad == "rows":
+        shards = [shards[0]._replace(rows=shards[0].rows.float())]
+    elif bad == "mixed_rows":
+        shards = [shards[0], _shard_data("meta", 64, 16, 1)]
+    elif bad == "knn":
+        shards = [shards[0]._replace(knn_idx=shards[0].knn_idx.long())]
+    elif bad == "heavy":
+        shards = [shards[0]._replace(heavy=shards[0].heavy[:-1])]
+    elif bad == "minv":
+        minv = minv[:-1]
+    elif bad == "b":
+        b = b.double()
+    else:
+        s = s._replace(h_ii=s.h_ii[:-1])
+    with pytest.raises((TypeError, ValueError), match=match):
+        kernels.pcg_sharded(s, shards, minv, b, iters, rtol, active)
+    assert meta_lib.calls == [] and kernels.launches["pcg_sharded"] == 0
+
+
+def _insert_args(n=16):
+    meta = dict(device="meta")
+    return [torch.empty((n, 3), **meta), torch.empty((n, 8), **meta), torch.empty(n, **meta),
+            torch.empty(n, dtype=torch.bool, **meta), torch.empty((), dtype=torch.int32, **meta),
+            torch.empty(n, dtype=torch.int32, **meta), torch.empty(n, dtype=torch.int64, **meta),
+            torch.empty((n, 3), **meta), torch.empty((n, 8), **meta), torch.empty((), dtype=torch.int32, **meta),
+            torch.empty(n, **meta)]
+
+
+@pytest.mark.parametrize("reference", [False, True])
+def test_insert_apply_is_one_launch_out_of_place(meta_lib, reference):
+    """Kernel H's apply writes a new field in one launch (the old field's
+    tensors in, six new ones out); the reference mode hands the library
+    copies of the field to change in place."""
+    args = _insert_args()
+    out = kernels.insert_apply(*args, reference=reference)
+    assert [c[0] for c in meta_lib.calls] == ["df_insert_apply"]
+    call = meta_lib.calls[0][1]
+    assert call[17:19] == (16, int(reference))
+    assert all(o.shape == a.shape and o.dtype == a.dtype for o, a in zip(out, args[:6]))
+    assert kernels.launches["insert_apply"] == 1
+
+
+@pytest.mark.parametrize("index, bad", [(6, torch.empty(16, dtype=torch.int32, device="meta")),
+                                        (8, torch.empty((16, 7), device="meta")),
+                                        (10, torch.empty(15, device="meta")),
+                                        (5, torch.empty(16, dtype=torch.int64, device="meta"))])
+def test_insert_apply_refuses(meta_lib, index, bad):
+    """The apply's wrapper refuses wrong types and shapes before any call."""
+    args = _insert_args()
+    args[index] = bad
+    with pytest.raises((TypeError, ValueError)):
+        kernels.insert_apply(*args)
+    assert meta_lib.calls == [] and kernels.launches["insert_apply"] == 0
 
 
 @pytest.mark.parametrize("field,dtype", [("knn_idx", torch.int64), ("e_dst", torch.int64), ("heavy", torch.int32)])

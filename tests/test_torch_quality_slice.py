@@ -172,9 +172,18 @@ def terms(solve_case):
     return s, t, jfield, tfield
 
 
-def test_tangential_residuals_and_jacobians_match_jax(terms):
+@pytest.fixture(scope="module")
+def jax_terms(terms):
+    """JAX's residuals, Jacobian and cost of the data term on ``terms``
+    (op by op), computed once for the tests that hold the port's against
+    them."""
+    s, _, jfield, _ = terms
+    return js.data_residual_and_jac(JC, s, jfield.dq, True)
+
+
+def test_tangential_residuals_and_jacobians_match_jax(terms, jax_terms):
     s, t, jfield, tfield = terms
-    r, jac, cost = js.data_residual_and_jac(JC, s, jfield.dq, True)
+    r, jac, cost = jax_terms
     tr, tjac, tcost = ts.data_residual_and_jac(TC, t, tfield.dq)
     assert tr.shape == r.shape == (t.p_can.shape[0], 3) and tjac.shape == jac.shape
     assert float(np.abs(np.asarray(r)[:, 1:]).max()) > 0.0  # the tangential rows are on
@@ -183,10 +192,10 @@ def test_tangential_residuals_and_jacobians_match_jax(terms):
     assert abs(float(tcost) - float(cost)) <= TOL_TERMS * float(cost)
 
 
-def test_tangential_system_matches_jax(terms):
+def test_tangential_system_matches_jax(terms, jax_terms):
     s, t, jfield, tfield = terms
     n = tfield.positions.shape[0]
-    r, jac, _ = js.data_residual_and_jac(JC, s, jfield.dq, True)
+    r, jac, _ = jax_terms
     dt = ts.data_term(TC, t, tfield.dq, system=True)
     assert _rel(dt.jtr.numpy(), js.data_jtr(s, jac, r, n)) <= TOL_SYSTEM
     hi = jax.lax.Precision.HIGHEST
@@ -205,9 +214,9 @@ def _ordered(bits: np.ndarray) -> np.ndarray:
     return np.where(b & 0x8000, -(b & 0x7FFF), b & 0x7FFF)
 
 
-def test_tangential_bf16_rows_within_one_ulp_of_jax(terms):
+def test_tangential_bf16_rows_within_one_ulp_of_jax(terms, jax_terms):
     s, t, jfield, tfield = terms
-    _, jac, _ = js.data_residual_and_jac(JC, s, jfield.dq, True)
+    _, jac, _ = jax_terms
     ref = np.asarray(jac.astype(jnp.bfloat16)).view(np.uint16)
     rows = ts.data_term(TC, t, tfield.dq, system=True).rows
     assert rows.dtype == torch.bfloat16 and rows.shape == jac.shape

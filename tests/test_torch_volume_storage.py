@@ -8,7 +8,9 @@ JAX config (``kernels._check_volume``'s storage codes;
 card), so ``models/volume.create`` refuses none. Held at ``small()`` with
 the dynamicfusion preset's settings (torch_nonrigid_cases) at the existing
 volume and pose tolerances: frame 0's volume, and the port's step from
-JAX's state, under f32/f32 (bf16/f32 and dense f32/f32 fusion:
+JAX's state, under f32/f32 (``tests/test_torch_volume_storage_f32.py``, a
+file of its own so that ``--dist loadfile`` spreads the JAX compiles over
+the workers; bf16/f32 and dense f32/f32 fusion:
 ``tests/test_torch_float_storages.py``); and a JAX bf16 volume carried
 across ``interop`` bit for bit. The checkpoint keeps refusing a bf16 volume: the JAX
 package's own ``utils/checkpoint`` does not load one back (numpy writes its
@@ -28,7 +30,6 @@ from dynamicfusion_tpu.pipeline import kinfu as jkinfu
 from dynamicfusion_tpu_torch import interop, kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.models import volume
-from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
 from dynamicfusion_tpu_torch.utils import checkpoint as tcheckpoint
 
 F32 = dict(tsdf_dtype="f32", weight_dtype="f32")
@@ -55,29 +56,6 @@ def test_float_storages_are_refused_on_cuda(option, value, monkeypatch):
     assert code != kernels.storage_code(torch.int16, torch.uint16) == 0
     with pytest.raises(TypeError):
         kernels.storage_code(torch.float16, v.weight.dtype)
-
-
-@pytest.fixture(scope="module")
-def depths():
-    return cases.bench_depths(JC, 2)
-
-
-@pytest.fixture(scope="module")
-def jax_frames(depths):
-    return cases.jax_run(JC, depths)
-
-
-def test_f32_frame0_matches_jax(jax_frames, depths):
-    ts = tkinfu.first_frame(TC, tkinfu.init_state(TC, "cpu"), torch.from_numpy(depths[0]))
-    assert ts.vol.tsdf.dtype == ts.vol.weight.dtype == torch.float32
-    j = jax_frames[0][0]
-    assert np.asarray(j.vol.tsdf).dtype == np.float32
-    cases.check_volume(j.vol, ts.vol)
-    np.testing.assert_array_equal(ts.warp.active.numpy(), np.asarray(j.warp.active))
-
-
-def test_f32_step_from_jax_state_matches(jax_frames, depths):
-    cases.check_step_from_jax_state(JC, TC, jax_frames, depths, 1)
 
 
 @pytest.fixture(scope="module")
