@@ -18,9 +18,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    arguments at the dynamicfusion preset's (1024 nodes, 33^3 coarse
    corners, 19 200 map points, 3 200 solve points, 4 096 edges, 4 800
    insertion candidates), and at the preset's shapes kernel C's newton8
-   branch, kernel I (dists, the depth pyramid to 80x60, point/normal maps
+   branch, kernel I (dists, the depth pyramid to 80x60 in one launch,
+   every level bit-equal to the plain version, its one-level-a-launch
+   reference mode and its library route on the preset's frame, a 481x641
+   frame and ``pyramid_frame``'s threshold edges; point/normal maps
    with the incidence confidence, the 2x2 map resize), kernel J (the
-   160x120 march band) and kernel K (the 11-level mip, 4 096 brick classes
+   160x120 march band and seed from 16x8 shared-memory tiles, bit-equal
+   to plain and to its reference mode on the preset's state, a map that
+   misses, zero dists and raycast strides 1, 2 and 4) and kernel K (the 11-level mip, 4 096 brick classes
    and the work list, which must equal the plain version's bit for bit);
    kernels F and G with the tangential rows of ``quality_dynamicfusion()``
    (three residual rows a point) on the same state; kernel L (frame 0's
@@ -387,7 +392,7 @@ BULGE_FRAMES = 8    # of the bulge scene under the aperture gate (printed, not c
 
 RIGID_KERNELS = ("bilateral", "icp_reduce", "raycast", "fuse_bricks")
 # the kernels of the per-frame stencils and the brick plan (I-K): both paths run them
-STENCIL_KERNELS = ("depth_dists", "pyramid_down", "frame_maps", "resize_maps", "march_bands", "brick_plan")
+STENCIL_KERNELS = ("depth_dists", "depth_pyramid", "frame_maps", "resize_maps", "march_bands", "brick_plan")
 # (source, the TPU kernel-role function it replaces) of each JSON row; a
 # row's launches are its counter's (the row name, but for the rows below;
 # kernel E's rows count the launches of their kind of call,
@@ -401,7 +406,7 @@ ROWS = {
     "fuse_bricks": ("fuse_bricks.cu", "dynamicfusion_tpu/ops/bricks.py:552"),
     "fuse_bricks_nonrigid": ("fuse_bricks.cu", "dynamicfusion_tpu/ops/bricks.py:552"),
     "depth_dists": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:165"),
-    "pyramid_down": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:91"),
+    "depth_pyramid": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:91"),
     "frame_maps": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:124"),
     "resize_maps": ("preprocess.cu", "dynamicfusion_tpu/ops/preprocess.py:172"),
     "march_bands": ("bands.cu", "dynamicfusion_tpu/pipeline/kinfu.py:107"),
@@ -993,6 +998,25 @@ def border_frame(rows: int, cols: int, seed: int = 0) -> np.ndarray:
     d[(x >= cols - 4) & (y % 50 < 9)] = 0.0
     d[(y < 3) & (x % 60 < 15)] = 0.0
     d[(y >= rows - 5) & (x % 70 < 20)] = 0.0
+    return d.astype(np.uint16)
+
+
+def pyramid_frame(rows: int, cols: int, seed: int = 0, thresh: int = 120) -> np.ndarray:
+    """A seeded (rows, cols) uint16 depth frame (mm) for kernel I's pyramid
+    at its edges: 8x8 patches of one base depth whose pixels sit 0, +-1
+    mm of, or exactly +-``thresh`` (3 sigma, the preset's 120 mm) from it,
+    so that window neighbours differ from a centre by exactly the
+    threshold and one mm either side; a band of rows in 65 000-65 535 (a
+    window's sum near 25 x 2^16); holes (0) scattered and in blocks."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:rows, 0:cols]
+    base = rng.randint(thresh + 2, 65000 - thresh - 2, ((rows + 7) // 8, (cols + 7) // 8))
+    d = base[y // 8, x // 8] + rng.choice(np.array([0, 0, -1, 1, -thresh, thresh, -thresh - 1, thresh + 1,
+                                                    -thresh + 1, thresh - 1]), (rows, cols))
+    high = (y // 16) % 5 == 2
+    d = np.where(high, rng.randint(65000, 65536, (rows, cols)), d)
+    d = np.where(rng.rand(rows, cols) < 0.05, 0, d)
+    d[(y // 12) % 7 == 3] *= ((x[(y // 12) % 7 == 3] // 10) % 4 != 0)
     return d.astype(np.uint16)
 
 
@@ -1740,10 +1764,10 @@ def kernels_a_call(name, fn):
 # (``kernels.device_kernels``): G's edge term and E's mutual-nearest pass
 # one launch, K's plan the mip tiles and the cluster, D's fuse one, L's
 # extraction the count with its scan and the write, G's spd6_inv (either
-# entry) and I's frame maps one
+# entry), I's frame maps and I's pyramid (every level) one
 DEVICE_KERNELS_A_CALL = {"pcg_sharded": 1, "insert_apply": 1, "edge_term": 1, "mutual_nearest": 1, "brick_plan": 2,
                          "fuse_bricks": 1, "extract_cloud": 2,
-                         "spd6_inv": 1, "frame_maps": 1}
+                         "spd6_inv": 1, "frame_maps": 1, "depth_pyramid": 1}
 
 
 def hold_spd6(torch, name, blocks, diag_eff, unit, lam, what="", timed=False):
@@ -2518,6 +2542,78 @@ def extract_kernels(torch, report, dev, nr_depths):
     del df
 
 
+def library_pyramid(torch, d0, levels, sig):
+    """Kernel I's pyramid in PyTorch calls, its yardstick: each level's 5x5
+    windows at the even pixels (``F.unfold``, stride 2, zero padding and
+    an in-image mask), the threshold mask against the centre, sum / count,
+    truncated to int and uint16."""
+    import torch.nn.functional as F
+
+    thresh = float(np.float32(sig * 1000.0 * 3.0))
+    out = [d0]
+    for _ in range(1, levels):
+        x = out[-1].to(torch.float32)[None, None]
+        h, w = x.shape[-2:]
+        win = F.unfold(x, 5, padding=2, stride=2)[0]
+        inb = F.unfold(torch.ones_like(x), 5, padding=2, stride=2)[0] > 0
+        keep = inb & ((win - win[12:13]).abs() < thresh)
+        s = torch.where(keep, win, 0.0).sum(0)
+        cnt = keep.sum(0).to(torch.float32)
+        mean = torch.where(cnt > 0, s / cnt.clamp(min=1.0), 0.0).reshape((h + 1) // 2, (w + 1) // 2)
+        out.append(mean[: h // 2, : w // 2].to(torch.int32).to(torch.uint16))
+    return out
+
+
+def hold_pyramid(torch, name, d0, levels, sig, what=""):
+    """Kernel I's pyramid entry (one device kernel) at every level bit for
+    bit against the plain version, the one-level-a-launch reference mode
+    and the library route; returns its levels."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.ops import preprocess
+
+    got, n_dev = kernels_a_call("depth_pyramid", lambda: kernels.depth_pyramid(d0, levels, sig))
+    plain = preprocess.depth_pyramid(d0, levels, sig, plain=True)
+    ref = [d0]
+    for _ in range(1, levels):
+        ref.append(kernels.pyramid_down(ref[-1], sig))
+    lib = library_pyramid(torch, d0, levels, sig)
+
+    def i32(t):
+        return t.to(torch.int32)
+
+    same = [a.shape == b.shape == c.shape == e.shape and torch.equal(i32(a), i32(b)) and torch.equal(i32(a), i32(c))
+            and torch.equal(i32(a), i32(e)) for a, b, c, e in zip(got, plain, ref, lib)]
+    kept = [int(((i32(a) > 0) & (i32(a) >= 65000)).sum()) for a in got]
+    check(name, all(same) and n_dev == 1,
+          f"{what}{' -> '.join(f'{p.shape[1]}x{p.shape[0]}' for p in got)} in {n_dev} device kernel; each level equal "
+          f"to the plain version's, the reference mode's and the library route's {same}; pixels >= 65000 mm a "
+          f"level {kept}")
+    return got
+
+
+def hold_bands(torch, name, cfg, can, dists, what=""):
+    """Kernel J's tiled band and seed bit for bit against the plain
+    versions and the reference mode (``dists[::s, ::s]`` and ``can`` at
+    the stride ``cfg.raycast_subsample``)."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    m, s_ = cfg.raycast_band_margin, cfg.raycast_subsample
+    seed, (lo, hi) = kernels.march_bands(dists, s_, can, m, True)
+    rseed, (rlo, rhi) = kernels.march_bands(dists, s_, can, m, True, reference=True)
+    band_cfg = dataclasses.replace(cfg, raycast_temporal_band=True, raycast_seed_margin=0.1)
+    pseed, (plo, phi) = kinfu._march_bands(band_cfg, can, dists, plain=True)
+    alone, none = kernels.march_bands(dists, s_, None, m, True)
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    ok = [same(a, b) and same(a, c) for a, b, c in ((seed, rseed, pseed), (lo, rlo, plo), (hi, rhi, phi))]
+    ok.append(none is None and same(alone, pseed))
+    check(name, all(ok), f"{what}{lo.shape[1]}x{lo.shape[0]} (seed, lo, hi, seed alone) equal to the plain versions "
+          f"and the reference mode {ok}; {int((hi > lo).sum())} rays banded, {int((pseed > 0).sum())} seeded")
+
+
 def stencil_kernels(torch, report, dev, cfg, st, depth_np):
     """Phase 2 for kernel C's newton8 branch and kernels I-K at the preset's
     shapes: the preset's state after three frames, its next depth frame
@@ -2553,23 +2649,45 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
         library_ms=None,
     )
 
-    # I: the depth pyramid (exact); the row times the 640x480 -> 320x240 call
-    sig = cfg.bilateral_sigma_depth
+    # I: the depth pyramid, every level in one launch (exact): bit-equal to
+    # the plain version, to the one-level-a-launch reference mode and to the
+    # library route at every level on the preset's filtered noisy frame, an
+    # odd-sized frame (481x641: h // 2 floors) and the threshold-edge frames
+    # (``pyramid_frame``: holes, 65 000-65 535, neighbours at and one mm
+    # either side of 3 sigma, even- and odd-sized); the row times every
+    # level in one launch against the three single-level launches
+    sig, levels = cfg.bilateral_sigma_depth, cfg.pyramid_levels
     f0 = preprocess.bilateral_filter(d_t, cfg.bilateral_kernel_size, cfg.bilateral_sigma_spatial, sig)
-    pyr, exact = [f0], True
-    for _ in range(1, cfg.pyramid_levels):
-        nk = preprocess.depth_pyramid_down(pyr[-1], sig)
-        exact = exact and torch.equal(nk.to(torch.int32), preprocess.depth_pyramid_down(pyr[-1], sig, plain=True).to(torch.int32))
-        pyr.append(nk)
-    check("pyramid_down", exact, f"levels {' -> '.join(f'{p.shape[1]}x{p.shape[0]}' for p in pyr)} equal the plain version's")
-    report["pyramid_down"] = dict(
+    pyr = hold_pyramid(torch, "depth_pyramid", f0, levels, sig, "the preset's noisy frame, filtered: ")
+    odd = torch.from_numpy(np.pad(d, ((0, 1), (0, 1)), "edge").astype(np.uint16)).to(dev)
+    hold_pyramid(torch, "depth_pyramid_odd", preprocess.bilateral_filter(
+        odd, cfg.bilateral_kernel_size, cfg.bilateral_sigma_spatial, sig), levels, sig, "the odd-sized frame: ")
+    for k, (h_, w_) in enumerate(((rows, cols), (rows + 1, cols + 1), (97, 203))):
+        edge = torch.from_numpy(pyramid_frame(h_, w_, k + 1, int(np.float32(sig * 1000.0 * 3.0)))).to(dev)
+        hold_pyramid(torch, f"depth_pyramid_edges_{w_}x{h_}", edge, levels, sig, "the threshold-edge frame: ")
+
+    def pyramid_before():
+        # the parent's three single-level launches of a frame
+        out = [f0]
+        for _ in range(1, levels):
+            out.append(kernels.pyramid_down(out[-1], sig))
+        return out
+
+    n_out = sum(p.numel() for p in pyr[1:])
+    report["depth_pyramid"] = dict(
         err=0.0,
-        ms=cuda_ms(torch, lambda: kernels.pyramid_down(f0, sig)),
-        plain_ms=cuda_ms(torch, lambda: preprocess.depth_pyramid_down(f0, sig, plain=True)),
-        # the level read once, the half-size level written; 25 taps of ~5 operations an output pixel
-        bound=bound_ms(npx * 2 + npx // 4 * 2, npx // 4 * 25 * 5.0),
-        library_ms=None,
+        ms=cuda_ms(torch, lambda: kernels.depth_pyramid(f0, levels, sig)),
+        plain_ms=cuda_ms(torch, lambda: preprocess.depth_pyramid(f0, levels, sig, plain=True)),
+        # level 0 read once, every coarser level written once; 25 taps of ~5
+        # operations an output pixel
+        bound=bound_ms(npx * 2 + n_out * 2, n_out * 25 * 5.0),
+        library_ms=cuda_ms(torch, lambda: library_pyramid(torch, f0, levels, sig)),
+        reference_ms=cuda_ms(torch, pyramid_before),
     )
+    r = report["depth_pyramid"]
+    print(f"[time] {smi()} | depth_pyramid: {' -> '.join(f'{p.shape[1]}x{p.shape[0]}' for p in pyr)} in one launch "
+          f"{r['ms']:.4f} ms; the design before, {levels - 1} single-level launches {r['reference_ms']:.4f} ms; "
+          f"library {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms", flush=True)
 
     # I's single-map kernel (the multi-map entry's reference mode) against
     # plain at the shapes the frame's maps take: level 0 with the incidence
@@ -2652,25 +2770,42 @@ def stencil_kernels(torch, report, dev, cfg, st, depth_np):
         library_ms=cuda_ms(torch, lambda: F.avg_pool2d(stack6, 2)),
     )
 
-    # J: the temporal march band (exact)
+    # J: the temporal march band and seed, tiled (exact): bit-equal to the
+    # plain version and to the thread-a-pixel reference mode on the preset's
+    # state, a model map that misses everywhere, all-zero dists, and at
+    # raycast strides 1, 2 and 4 (the state's map repeated to the grid)
     (_, bk), (_, bp) = kinfu._march_bands(cfg, st.can_points, dk), kinfu._march_bands(cfg, st.can_points, dk, plain=True)
     exact = torch.equal(bk[0], bp[0]) and torch.equal(bk[1], bp[1])
     check("march_bands", exact and bool((bk[1] > bk[0]).any()),
           f"{bk[0].shape[1]}x{bk[0].shape[0]} band equal the plain version's; {int((bk[1] > bk[0]).sum())} rays banded")
     can = st.can_points.contiguous()
-    nt = can.shape[0] * can.shape[1]
     s_ = cfg.raycast_subsample
+    hold_bands(torch, "march_bands_state", cfg, can, dk, "the preset's state: ")
+    hold_bands(torch, "march_bands_all_miss", cfg, torch.full_like(can, float("nan")), dk, "a map that misses: ")
+    hold_bands(torch, "march_bands_zero_dists", cfg, can, torch.zeros_like(dk), "all-zero dists: ")
+    for stride in (1, 2, 4):
+        rep_ = s_ // stride
+        can_s = can.repeat_interleave(rep_, 0).repeat_interleave(rep_, 1).contiguous() if rep_ > 1 else can
+        hold_bands(torch, f"march_bands_stride{stride}", dataclasses.replace(cfg, raycast_subsample=stride), can_s, dk,
+                   f"raycast_subsample {stride}: ")
+    nt = can.shape[0] * can.shape[1]
     err = max(abs_err(torch, x, y) for x, y in zip(library_march_band(torch, dk, s_, can, cfg.raycast_band_margin), bk))
     check("march_bands_library", err <= TOL_BAND_LIBRARY_M,
           f"the yardstick (PyTorch calls) computes the same band: max |diff| {err:.2e} m (tol {TOL_BAND_LIBRARY_M})")
     report["march_bands"] = dict(
         err=0.0,
-        ms=cuda_ms(torch, lambda: kernels.march_bands(dk, cfg.raycast_subsample, can, cfg.raycast_band_margin, False)),
+        ms=cuda_ms(torch, lambda: kernels.march_bands(dk, s_, can, cfg.raycast_band_margin, False)),
         plain_ms=cuda_ms(torch, lambda: kinfu._march_bands(cfg, st.can_points, dk, plain=True)),
-        # strided dists and the model map in, lo and hi out; 25 taps of ~6 operations
-        bound=bound_ms(nt * (4 + 12 + 8), nt * (25 * 6.0 + 10.0)),
+        # strided dists and the model map in, lo and hi out; the sources
+        # (~10 operations) once a pixel, 2 x 25 window taps
+        bound=bound_ms(nt * (4 + 12 + 8), nt * (2 * 25.0 + 10.0)),
         library_ms=cuda_ms(torch, lambda: library_march_band(torch, dk, s_, can, cfg.raycast_band_margin)),
+        reference_ms=cuda_ms(torch, lambda: kernels.march_bands(dk, s_, can, cfg.raycast_band_margin, False,
+                                                                reference=True)),
     )
+    r = report["march_bands"]
+    print(f"[time] {smi()} | march_bands {can.shape[1]}x{can.shape[0]}: tiled {r['ms']:.4f} ms, reference mode "
+          f"{r['reference_ms']:.4f} ms, library {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms", flush=True)
 
     # C: the newton8 branch, in the band, at the preset's model-map resolution
     rows_t, cols_t = cfg.rows // cfg.raycast_subsample, cfg.cols // cfg.raycast_subsample
@@ -3024,9 +3159,11 @@ def rigid_main(torch, args, dev, card):
     print(f"[rigid] icp_ok {sum(oks)}/{len(oks)}; brick counts (band, wide, dropped) first {counts[0]} last {counts[-1]}")
     check("rigid_launches", all(launches[k] > 0 for k in RIGID_KERNELS + STENCIL_KERNELS),
           f"kernels A-D and I-K launched: {launches}")
-    per_call = {k: (launches[k], kernels.device_kernels[k]) for k in ("brick_plan", "fuse_bricks", "frame_maps")}
+    per_call = {k: (launches[k], kernels.device_kernels[k])
+                for k in ("brick_plan", "fuse_bricks", "frame_maps", "depth_pyramid")}
     check("rigid_device_kernels", all(c * DEVICE_KERNELS_A_CALL[k] == d for k, (c, d) in per_call.items()),
-          f"K two device kernels a call, D and I's frame maps one (calls, device kernels): {per_call}")
+          f"K two device kernels a call, D, I's frame maps and I's pyramid one (calls, device kernels): {per_call}")
+    check_pyramid_launches("rigid", launches, len(frames) - 1)
     check("rigid_frame_maps", launches["frame_maps"] == len(frames) - 1 and launches["points_normals"] == 0,
           f"kernel I's maps in one launch a step: frame_maps {launches['frame_maps']} in {len(frames) - 1} steps, "
           f"the single-map kernel {launches['points_normals']}")
@@ -3189,8 +3326,8 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     # the direct solve runs N, O and the factor in place of the PCG's; kernel
     # J's march bands need the temporal band or a raycast seed; the export
     # path's normals (R) are no frame's
-    off = {"matvec", "coarse_band", "extract_normals", "points_normals"} | (set() if cfg.solver_p2p_adaptive
-                                                                           else {"p2p_gate"})
+    off = {"matvec", "coarse_band", "extract_normals", "points_normals", "pyramid_down"} | (
+        set() if cfg.solver_p2p_adaptive else {"p2p_gate"})
     off |= set(PCG_KERNELS if cfg.solver_linear == "direct" else DENSE_KERNELS)
     if cfg.solver_linear == "direct" and not cfg.solver_jtj_int8:
         off.add("gram_scales")
@@ -3217,6 +3354,7 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     check(f"{tag}_frame_maps", launches["frame_maps"] == len(frames) - 1 and launches["points_normals"] == 0,
           f"kernel I's maps in one launch a step: frame_maps {launches['frame_maps']} in {len(frames) - 1} steps, "
           f"the single-map kernel {launches['points_normals']}")
+    check_pyramid_launches(tag, launches, len(frames) - 1)
     hold_step_maps(torch, f"{tag}_maps", cfg, frames[-1])
     check(f"{tag}_frame0_kernels", launches["extract_cloud"] == 1 and launches["sample_nodes"] == 1,
           f"kernel L once in frame 0: extract_cloud {launches['extract_cloud']}, sample_nodes "
@@ -3243,6 +3381,14 @@ def check_nonrigid_run(tag, card, cfg, frames, launches, rows, frame_ms, poses_k
     print(f"[time] {card} | {tag} frame ms median {steady[len(steady) // 2]:.3f} (frames 2..{len(frames) - 1}), "
           f"frame 0 {frame_ms[0]:.3f}, frame 1 {frame_ms[1]:.3f}, min {steady[0]:.3f}, max {steady[-1]:.3f} "
           f"(frame {slowest})", flush=True)
+
+
+def check_pyramid_launches(tag, launches, steps):
+    """Kernel I's pyramid: one launch of every level a step, the
+    one-level-a-launch reference mode on no step."""
+    check(f"{tag}_pyramid", launches["depth_pyramid"] == steps and launches["pyramid_down"] == 0,
+          f"the depth pyramid in one launch a step: depth_pyramid {launches['depth_pyramid']} in {steps} steps, "
+          f"the one-level kernel {launches['pyramid_down']}")
 
 
 def check_steps_vs_plain(torch, tag, cfg, dev, frames, states, poses_k, rows):
@@ -3507,6 +3653,7 @@ def parity_main(torch, args, dev, card, dense=False):
     check(f"{tag}_frame_maps", launches["frame_maps"] == n - 1 and launches["points_normals"] == 0,
           f"kernel I's maps (levels 0-3 at shift 0) in one launch a step: frame_maps {launches['frame_maps']} in "
           f"{n - 1} steps, the single-map kernel {launches['points_normals']}")
+    check_pyramid_launches(tag, launches, n - 1)
     hold_step_maps(torch, f"{tag}_maps", cfg, frames[-1])
     check(f"{tag}_icp_ok", all(oks), f"ICP healthy on every tracked frame ({sum(oks)}/{len(oks)})")
     steady = sorted(frame_ms[2:])
@@ -5177,7 +5324,10 @@ def hold_sharded_pcg_modes(torch, dev, cfg, s1, rows1, et, damp, minv, b, iters,
     (``distributed_gn.shard_structure``), for R = 1 and for R = 3 (seeded
     bf16 tangential rows beside the system's plane rows) in each row mode,
     p in shared and in device memory and the two-launch mode of a process
-    group (the identity as the ranks' sum); inactive gives 0."""
+    group (the identity as the ranks' sum); inactive gives 0. At 9 and 16
+    shards on the card, past ``kernels.MAX_SHARDS``, ``pcg_sharded`` takes
+    the composition (no cluster launch), solves without raising and is
+    bit-equal to the plain version."""
     from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.parallel import distributed_gn, sharded
     from dynamicfusion_tpu_torch.solvers import warp_solver as ws
@@ -5188,7 +5338,7 @@ def hold_sharded_pcg_modes(torch, dev, cfg, s1, rows1, et, damp, minv, b, iters,
     tang = torch.from_numpy((scale * rng.randn(rows1.shape[0], 2, 8, 6)).astype(np.float32)).to(dev, torch.bfloat16)
     rows3 = torch.cat([rows1, tang], 1).contiguous()
     results = []
-    for shards_n in (1, 2, 4):
+    for shards_n in (1, 2, 4, 9, 16):
         mesh = sharded.make_mesh(shards_n, devices=[dev] * shards_n)
         parts = distributed_gn.shard_structure(s1, mesh)
         chunk = parts[0].p_can.shape[0]
@@ -5199,9 +5349,16 @@ def hold_sharded_pcg_modes(torch, dev, cfg, s1, rows1, et, damp, minv, b, iters,
             for used, stride in modes:
                 sysm = ws.System(cut[0].contiguous(), et, damp, used, stride)
                 solve = lambda **kw: ws.pcg_sharded(mesh, sh, s1, sysm, minv, b, iters, rtol, on, **kw)  # noqa: E731
+                one_before = kernels.device_kernels["pcg_sharded"]
                 xk = solve()
+                one = kernels.device_kernels["pcg_sharded"] - one_before
                 with deterministic(torch):
                     xp = solve(plain=True)
+                if shards_n > kernels.MAX_SHARDS:
+                    ok = (one == 0 and bool(torch.isfinite(xk).all()) and torch.equal(xk, xp)
+                          and not bool(ws.pcg_sharded(mesh, sh, s1, sysm, minv, b, iters, rtol, ~on).any()))
+                    results.append((shards_n, rows.shape[1], used, stride, ok))
+                    continue
                 ks = ws._kernel_system(s1, sysm)
                 data = [kernels.ShardData(q.rows, q.s.knn_idx32, q.s.pts_by_node.order, q.s.pts_by_node.off,
                                           ws.heavy_order(q.s.pts_by_node)) for q in sh]
@@ -5209,14 +5366,15 @@ def hold_sharded_pcg_modes(torch, dev, cfg, s1, rows1, et, damp, minv, b, iters,
                                          shared_p=False)
                 xg = kernels.pcg_sharded(ks, data, minv, b, iters, rtol, on, used=used, stride=stride,
                                          reduce=lambda v: v.clone())
-                ok = (bool(torch.isfinite(xk).all()) and torch.equal(xk, xp) and torch.equal(xk, solve(reference=True))
+                ok = (one == 1 and bool(torch.isfinite(xk).all()) and torch.equal(xk, xp)
+                      and torch.equal(xk, solve(reference=True))
                       and torch.equal(xk, xd) and torch.equal(xk, xg)
                       and not bool(ws.pcg_sharded(mesh, sh, s1, sysm, minv, b, iters, rtol, ~on).any()))
                 results.append((shards_n, rows.shape[1], used, stride, ok))
     check("pcg_sharded_modes", all(r[-1] for r in results),
-          f"one launch bit-equal to the plain version and the reference mode, p in device memory and the two-launch "
-          f"mode alike, inactive -> 0, at (shards, R, rows used, stride) {[r[:4] for r in results if r[-1]]}; "
-          f"failed at {[r[:4] for r in results if not r[-1]]}")
+          f"one launch (to {kernels.MAX_SHARDS} shards; the composition past them) bit-equal to the plain version and "
+          f"the reference mode, p in device memory and the two-launch mode alike, inactive -> 0, at (shards, R, rows "
+          f"used, stride) {[r[:4] for r in results if r[-1]]}; failed at {[r[:4] for r in results if not r[-1]]}")
 
 
 def check_sharded_one_launch(tag, cfg, launches, steps):

@@ -2,7 +2,9 @@
 //
 // Replaces dynamicfusion_tpu/ops/preprocess.py:165 compute_dists and :81
 // truncate_depth (one launch, df_depth_dists), :91 depth_pyramid_down
-// (df_pyramid_down), :124 compute_points_normals with the fusion's incidence
+// applied once a level by :197 build_frame_pyramid (every level of a frame
+// in one launch, df_depth_pyramid; df_pyramid_down, one level a launch, is
+// its reference mode), :124 compute_points_normals with the fusion's incidence
 // confidence of dynamicfusion_tpu/pipeline/kinfu.py:634-636 as an optional
 // output (df_points_normals), and :172 resize_points_normals
 // (df_resize_maps). On the TPU each is a set of shifted whole-image passes
@@ -75,6 +77,141 @@ __global__ void pyramid_down_kernel(const uint16_t* __restrict__ in, int h, int 
   }
   const float mean = cnt > 0.0f ? s / fmaxf(cnt, 1.0f) : 0.0f;
   out[oy * ow + ox] = static_cast<uint16_t>(static_cast<int>(mean));
+}
+
+// The whole depth pyramid in one launch. The levels are 2x downsamples of
+// one another (level k is (h_{k-1} // 2, w_{k-1} // 2)), so a block owns a
+// T x T tile of the deepest level D and, at each level k above it, the
+// (T 2^(D-k))^2 pixels that tile covers; the last row and column of blocks
+// also own what an odd level size leaves over. A block needs the region of
+// level k that the 5x5 windows of its region of level k + 1 reach: n_D = T
+// pixels a side, n_k = 2 n_{k+1} + 3, starting H_k = 2 H_{k+1} + 2 pixels
+// before its owned tile (H_D = 0): 8T + 21 at level 0 for three levels
+// down. The block reads that level-0 region once into shared memory,
+// computes each coarser level over its region there (the halos that
+// neighbouring blocks compute too, recomputed), and writes only the pixels
+// it owns. The regions hold float, a NaN outside the image, so a tap needs
+// no bounds test and no conversion: |NaN - d| < thresh is false, as the
+// one-level kernel's skipped tap. Each pixel repeats pyramid_down_kernel's
+// arithmetic: its sums add at most 25 integers below 2^16, exact in
+// float32 in any order, then one true division and the truncations to int
+// and uint16, so every level equals the one-level-a-launch kernel's bit
+// for bit. Bound on the H100: the launch and the recomputed halos; the
+// 640x480 frame is 0.6 MB in, 0.2 MB out. At the preset the plan takes
+// T = 7, 108 blocks of 512 threads, one an SM, 1.9x the level-1 pixels
+// (scripts/torch_pyramid_bands_variants.py on an H100 80GB HBM3 at 700 W:
+// 0.0084 ms, 0.0086 with 12 level-0 loads a thread in flight; T = 4 in
+// 300 blocks of 256 threads 0.0092; uint16 regions with a bounds test and
+// a conversion a tap 0.0091; the three one-level launches 0.0136-0.0142;
+// the empty launch 0.0020, to the level-0 region read 0.0038, to level 1
+// 0.0068).
+constexpr int kPyrMaxDown = 5;      // downsamples a launch (levels - 1)
+constexpr int kPyrMaxTile = 8;      // T, the owned side at the deepest level, at most
+constexpr int kPyrMaxThreads = 1024;  // threads a block at most
+constexpr int kPyrBatch = 4;        // level-0 loads a thread in flight
+constexpr int kPyrSmem = 98304;    // shared bytes a block at most (96 KB; past 48 KB by opt-in)
+
+struct PyramidArgs {
+  const uint16_t* in;
+  uint16_t* out[kPyrMaxDown];  // level k + 1's (h[k + 1], w[k + 1]) image
+  int h[kPyrMaxDown + 1], w[kPyrMaxDown + 1];
+  int n[kPyrMaxDown + 1];      // region side at each level
+  int halo[kPyrMaxDown + 1];   // region start before the owned tile
+  int off[kPyrMaxDown + 1];    // region offset in shared memory (floats)
+  int tile;                    // T, the owned side at the deepest level
+  int down;                    // D
+  float thresh;
+};
+
+// (row, column) of the flat index i of an n-wide region, stepped by the
+// block's threads with one division at the start, not one a step
+struct RowCol {
+  int i, r, c, dr, dc, n;
+  __device__ RowCol(int start, int step, int n_) : i(start), r(start / n_), c(start % n_), dr(step / n_),
+                                                   dc(step % n_), n(n_) {}
+  __device__ void next() {
+    i += dr * n + dc;
+    r += dr;
+    c += dc;
+    if (c >= n) {
+      c -= n;
+      ++r;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kPyrMaxThreads) depth_pyramid_kernel(const PyramidArgs a) {
+  extern __shared__ float s_lv[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // level 0's region, read once; kPyrBatch loads a thread in flight before
+  // their stores, so that a block waits about one memory latency for its
+  // region, not one a load
+  {
+    const int n = a.n[0], nn = n * n, span = a.tile << a.down;
+    const int y0 = blockIdx.y * span - a.halo[0], x0 = blockIdx.x * span - a.halo[0];
+    float* dst = s_lv + a.off[0];
+    RowCol rc(tid, nt, n);
+#pragma unroll 1
+    for (int base = tid; base < nn; base += nt * kPyrBatch) {
+      float v[kPyrBatch];
+#pragma unroll
+      for (int j = 0; j < kPyrBatch; ++j) {
+        const int i = base + j * nt;
+        const int y = y0 + rc.r, x = x0 + rc.c;
+        v[j] = (i < nn && y >= 0 && y < a.h[0] && x >= 0 && x < a.w[0])
+                   ? static_cast<float>(__ldg(a.in + y * a.w[0] + x)) : nan_f();
+        rc.next();
+      }
+#pragma unroll
+      for (int j = 0; j < kPyrBatch; ++j) {
+        const int i = base + j * nt;
+        if (i < nn) dst[i] = v[j];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int k = 1; k <= a.down; ++k) {
+    const int n = a.n[k], np = a.n[k - 1], span = a.tile << (a.down - k);
+    const int h = a.h[k], w = a.w[k];
+    const int oy = blockIdx.y * span, ox = blockIdx.x * span;
+    const int y0 = oy - a.halo[k], x0 = ox - a.halo[k];
+    const float* src = s_lv + a.off[k - 1];
+    float* dst = s_lv + a.off[k];
+    uint16_t* out = a.out[k - 1];
+#pragma unroll 1
+    for (RowCol rc(tid, nt, n); rc.i < n * n; rc.next()) {
+      const int i = rc.i, r = rc.r, c = rc.c;
+      const int y = y0 + r, x = x0 + c;
+      float v = nan_f();
+      if (y >= 0 && y < h && x >= 0 && x < w) {
+        // the centre (2y, 2x) of level k - 1 sits at (2r + 2, 2c + 2) of its region
+        const float* ctr = src + (2 * r + 2) * np + (2 * c + 2);
+        const float d = *ctr;
+        float s = 0.0f, cnt = 0.0f;
+#pragma unroll
+        for (int dy = -2; dy <= 2; ++dy) {
+#pragma unroll
+          for (int dx = -2; dx <= 2; ++dx) {
+            const float nbr = ctr[dy * np + dx];
+            if (fabsf(nbr - d) < a.thresh) {
+              s = s + nbr;
+              cnt = cnt + 1.0f;
+            }
+          }
+        }
+        const float mean = cnt > 0.0f ? s / fmaxf(cnt, 1.0f) : 0.0f;
+        const uint16_t q = static_cast<uint16_t>(static_cast<int>(mean));
+        v = static_cast<float>(q);
+        // the owned pixels: the tile's, and the last block's to the image's end
+        const bool own_y = y >= oy && (y < oy + span || blockIdx.y + 1 == gridDim.y);
+        const bool own_x = x >= ox && (x < ox + span || blockIdx.x + 1 == gridDim.x);
+        if (own_y && own_x) out[y * w + x] = q;
+      }
+      if (k < a.down) dst[i] = v;
+    }
+    __syncthreads();
+  }
 }
 
 // camera-space point of pixel (u, v) at depth z (core/camera.backproject)
@@ -232,6 +369,97 @@ extern "C" int df_pyramid_down(const void* in, int h, int w, float thresh, void*
     pyramid_down_kernel<<<grid_of(w / 2, h / 2, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint16_t*>(in), h, w, thresh, static_cast<uint16_t*>(out));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the one-launch pyramid's plan: the tile T (1..kPyrMaxTile) whose busiest
+// SM computes the fewest level-1 pixels, ceil(blocks / SMs) x n_1^2 (the
+// level-1 region is the largest a block computes), among those whose
+// regions fit kPyrSmem, the larger T on a tie; 512 threads a block where
+// every block has an SM of its own, else 256. tile and threads > 0 force
+// them (scripts/torch_pyramid_bands_variants.py). Fills the args' region
+// sizes and offsets and returns the shared bytes (0: no tile fits).
+static int pyramid_plan(PyramidArgs& a, int sms, int tile, int threads, dim3& grid, int& block) {
+  auto regions = [&a](int t) {  // the sides, halos and offsets of tile t; its bytes
+    a.tile = t;
+    a.n[a.down] = t;
+    a.halo[a.down] = 0;
+    for (int k = a.down - 1; k >= 0; --k) {
+      a.n[k] = 2 * a.n[k + 1] + 3;
+      a.halo[k] = 2 * a.halo[k + 1] + 2;
+    }
+    int total = 0;
+    for (int k = 0; k < a.down; ++k) {  // the deepest level is not staged
+      a.off[k] = total;
+      total += a.n[k] * a.n[k];
+    }
+    a.off[a.down] = total;
+    return total * static_cast<int>(sizeof(float));
+  };
+  auto cover = [&a](int t) {  // blocks to cover every level: the deepest
+    int gy = 0, gx = 0;       // level's tiles, or one more where an odd
+    for (int k = 1; k <= a.down; ++k) {  // level leaves a row past them
+      const int span = t << (a.down - k);
+      gy = max(gy, (a.h[k] + span - 1) / span);
+      gx = max(gx, (a.w[k] + span - 1) / span);
+    }
+    return dim3(max(gx, 1), max(gy, 1));
+  };
+  int best = 0;
+  long long best_cost = 0;
+  for (int t = 1; t <= kPyrMaxTile; ++t) {
+    if (regions(t) > kPyrSmem || (tile > 0 && t != tile)) continue;
+    const dim3 g = cover(t);
+    const long long waves = (static_cast<long long>(g.x) * g.y + sms - 1) / sms;
+    const long long cost = waves * a.n[1] * a.n[1];
+    if (best == 0 || cost <= best_cost) {
+      best = t;
+      best_cost = cost;
+    }
+  }
+  if (best == 0) return 0;
+  const int bytes = regions(best);
+  grid = cover(best);
+  block = threads > 0 ? threads : (static_cast<long long>(grid.x) * grid.y <= sms ? 512 : 256);
+  return bytes;
+}
+
+// levels 1..down of the pyramid of the (h, w) uint16 image in, one launch;
+// outs[k - 1] receives level k; *tile and *threads, where positive, force
+// the plan's tile and threads a block and receive the plan's; *launched
+// receives the device kernels launched (0 where the levels are empty)
+extern "C" int df_depth_pyramid(const void* in, int h, int w, int down, float thresh, void* const* outs, int sms,
+                                int* tile, int* threads, int* launched, void* stream) {
+  *launched = 0;
+  if (down < 1 || down > kPyrMaxDown || h < 0 || w < 0 || *threads < 0 || *threads > kPyrMaxThreads ||
+      *threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PyramidArgs a{};
+  a.in = static_cast<const uint16_t*>(in);
+  a.down = down;
+  a.thresh = thresh;
+  a.h[0] = h;
+  a.w[0] = w;
+  for (int k = 1; k <= down; ++k) {
+    a.h[k] = a.h[k - 1] / 2;
+    a.w[k] = a.w[k - 1] / 2;
+    a.out[k - 1] = static_cast<uint16_t*>(outs[k - 1]);
+  }
+  if (a.h[1] < 1 || a.w[1] < 1) return 0;
+  dim3 grid;
+  int block = 0;
+  const int bytes = pyramid_plan(a, sms, *tile, *threads, grid, block);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  *tile = a.tile;
+  *threads = block;
+  if (bytes > (48 << 10)) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(depth_pyramid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  depth_pyramid_kernel<<<grid, block, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  *launched = 1;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -64,13 +64,15 @@ NVCC_FLAGS = (
 # ``cholesky`` counts the direct solve's factor, a cuSOLVER call, as the
 # JAX package's is its library's; ``spd6_inv`` counts both of G's inverse
 # entries (``spd6_inv``, ``spd6_inv_damped``), ``points_normals`` I's
-# single-map entry (on no frame path) and ``frame_maps`` its multi-map one
+# single-map entry (on no frame path) and ``frame_maps`` its multi-map one,
+# ``pyramid_down`` I's one-level pyramid entry (on no frame path) and
+# ``depth_pyramid`` its every-level one
 KERNELS = (
     "bilateral", "icp_reduce", "raycast", "fuse_bricks",
     "knn_blend", "mutual_nearest", "warp_trilinear", "data_term",
     "edge_term", "spd6_inv", "matvec", "pcg", "insert_select", "insert_apply",
-    "depth_dists", "pyramid_down", "points_normals", "frame_maps", "resize_maps", "march_bands", "coarse_band",
-    "brick_plan",
+    "depth_dists", "pyramid_down", "depth_pyramid", "points_normals", "frame_maps", "resize_maps", "march_bands",
+    "coarse_band", "brick_plan",
     "extract_cloud", "sample_nodes", "p2p_gate", "gram_scales", "dense_gram", "dense_damp", "cholesky",
     "node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid", "extract_normals",
     "data_matvec", "pcg_init", "pcg_step", "pcg_sharded",
@@ -88,10 +90,10 @@ knn_kinds: Dict[str, int] = {}
 # reference mode; G's spd6_inv (either entry) and I's frame maps one; G's
 # distributed PCG one a launch (one a solve in one process, two an
 # iteration under a process group); H's apply one, seven in its reference
-# mode (six copies and the one-block kernel)
+# mode (six copies and the one-block kernel); I's pyramid one a call
 device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0, "brick_plan": 0, "fuse_bricks": 0,
                                   "extract_cloud": 0, "spd6_inv": 0, "frame_maps": 0, "pcg_sharded": 0,
-                                  "insert_apply": 0}
+                                  "insert_apply": 0, "depth_pyramid": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -130,10 +132,11 @@ _SIGNATURES = {
     "df_insert_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "df_depth_dists": (_P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P),
     "df_pyramid_down": (_P, _I, _I, _F, _P, _P),
+    "df_depth_pyramid": (_P, _I, _I, _I, _F, _P, _I, _P, _P, _P, _P),
     "df_points_normals": (_P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
     "df_frame_maps": (_P, _I, _P, _P),
     "df_resize_maps": (_P, _P, _I, _I, _P, _P, _P),
-    "df_march_bands": (_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P),
+    "df_march_bands": (_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _I, _P),
     "df_coarse_band": (_P, _I, _I, _I, _F, _P, _P, _P),
     "df_brick_plan": (
         _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
@@ -1671,8 +1674,9 @@ def depth_dists(depth_mm: torch.Tensor, intr, filtered: Optional[torch.Tensor] =
 
 
 def pyramid_down(depth_mm: torch.Tensor, sigma_depth_m: float) -> torch.Tensor:
-    """Kernel I: the depth-aware 2x downsample, (H, W) -> (H // 2, W // 2)
-    uint16 mm."""
+    """Kernel I's one-level entry: the depth-aware 2x downsample, (H, W) ->
+    (H // 2, W // 2) uint16 mm, one launch a level (the design before
+    ``depth_pyramid``, which is held bit for bit against it)."""
     _check_depth(depth_mm)
     lib = load()
     h, w = depth_mm.shape
@@ -1680,6 +1684,38 @@ def pyramid_down(depth_mm: torch.Tensor, sigma_depth_m: float) -> torch.Tensor:
     rc = lib.df_pyramid_down(depth_mm.data_ptr(), h, w, _f32(sigma_depth_m * 1000.0 * 3.0), out.data_ptr(),
                              _stream(depth_mm.device))
     _done("pyramid_down", rc)
+    return out
+
+
+PYRAMID_MAX_DOWN = 5  # downsamples a launch of depth_pyramid (csrc/preprocess.cu kPyrMaxDown)
+
+
+def depth_pyramid(depth_mm: torch.Tensor, levels: int, sigma_depth_m: float) -> list:
+    """Kernel I's pyramid entry (csrc/preprocess.cu, one launch): the
+    ``levels`` images [depth_mm, down(depth_mm), down(down(depth_mm)), ...]
+    of ``pyramid_down``'s depth-aware 2x downsample, each (H_k // 2, W_k //
+    2) uint16 mm of the one before, every coarser level written by the
+    same launch, bit for bit ``pyramid_down``'s."""
+    _check_depth(depth_mm)
+    down = levels - 1
+    if not 0 <= down <= PYRAMID_MAX_DOWN:
+        raise ValueError(f"depth_pyramid takes 1 to {PYRAMID_MAX_DOWN + 1} levels, got {levels}")
+    out = [depth_mm]
+    for _ in range(down):
+        h, w = out[-1].shape
+        out.append(torch.empty((h // 2, w // 2), dtype=torch.uint16, device=depth_mm.device))
+    if down == 0:
+        return out
+    lib = load()
+    dev = depth_mm.device
+    h, w = depth_mm.shape
+    ptrs = (ctypes.c_void_p * down)(*(t.data_ptr() for t in out[1:]))
+    tile, threads, ran = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)  # the plan's tile and threads
+    rc = lib.df_depth_pyramid(depth_mm.data_ptr(), h, w, down, _f32(sigma_depth_m * 1000.0 * 3.0), ptrs,
+                              _sm_count(dev), ctypes.byref(tile), ctypes.byref(threads), ctypes.byref(ran),
+                              _stream(dev))
+    _done("depth_pyramid", rc)
+    device_kernels["depth_pyramid"] += ran.value
     return out
 
 
@@ -1792,11 +1828,14 @@ def resize_maps(points: torch.Tensor, normals: torch.Tensor) -> Tuple[torch.Tens
 # --------------------------------------------------------------------------
 
 
-def march_bands(dists: torch.Tensor, stride: int, prev_points: Optional[torch.Tensor], margin: float, seed: bool):
+def march_bands(dists: torch.Tensor, stride: int, prev_points: Optional[torch.Tensor], margin: float, seed: bool,
+                reference: bool = False):
     """Kernel J (csrc/bands.cu): from ``dists[::stride, ::stride]`` and the
     previous (H', W', 3) model map, the raycast seed (None without
     ``seed``) and the temporal band (lo, hi) (None without
-    ``prev_points``), one launch."""
+    ``prev_points``), one launch: 16x8 tiles with their sources staged in
+    shared memory, or with ``reference`` the thread-a-pixel kernel before
+    it (bit for bit the same)."""
     _check(dists, "dists", torch.float32)
     if dists.dim() != 2:
         raise ValueError(f"dists: expected (H, W), got {tuple(dists.shape)}")
@@ -1813,7 +1852,7 @@ def march_bands(dists: torch.Tensor, stride: int, prev_points: Optional[torch.Te
     sd = torch.empty((rows, cols), dtype=torch.float32, device=dev) if seed else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.df_march_bands(dists.data_ptr(), dists.shape[1], stride, rows, cols, ptr(prev_points), _f32(margin),
-                            ptr(lo), ptr(hi), ptr(sd), _stream(dev))
+                            ptr(lo), ptr(hi), ptr(sd), int(reference), _stream(dev))
     _done("march_bands", rc)
     return sd, (None if lo is None else (lo, hi))
 

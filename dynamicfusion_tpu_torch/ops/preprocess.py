@@ -6,7 +6,8 @@ float32 ray distance in meters; point/normal maps (H, W, 3) float32
 camera-space, NaN = invalid.
 
 ``bilateral_filter`` owns CUDA kernel A (``csrc/bilateral.cu``); the other
-stencils (dists and depth truncation, the depth pyramid, point/normal maps
+stencils (dists and depth truncation, the depth pyramid (every level in one
+launch, ``depth_pyramid``), point/normal maps
 with the fusion's incidence confidence, every map of a frame in one launch
 (``frame_maps``), the 2x2 map resize) own kernel I
 (``csrc/preprocess.cu``). CUDA tensors go through the kernels, CPU tensors
@@ -115,6 +116,19 @@ def depth_pyramid_down(depth_mm: torch.Tensor, sigma_depth_m: float = 0.04, plai
     out = torch.where(cnt > 0, s / torch.clamp(cnt, min=1.0), 0.0)
     out = out[: 2 * (h // 2) : 2, : 2 * (w // 2) : 2]
     return out.to(torch.int32).to(depth_mm.dtype)
+
+
+def depth_pyramid(depth_mm: torch.Tensor, levels: int, sigma_depth_m: float = 0.04,
+                  plain: bool = False) -> List[torch.Tensor]:
+    """[depth_mm, down(depth_mm), ...], ``levels`` images of
+    ``depth_pyramid_down``; kernel I's pyramid entry (every level in one
+    launch) on CUDA tensors."""
+    if not _plain(depth_mm, plain):
+        return kernels.depth_pyramid(depth_mm, levels, sigma_depth_m)
+    pyr = [depth_mm]
+    for _ in range(1, levels):
+        pyr.append(depth_pyramid_down(pyr[-1], sigma_depth_m, plain=True))
+    return pyr
 
 
 def compute_points_normals(
@@ -247,7 +261,8 @@ def build_frame_pyramid(
     ``first_point_level`` are not computed (None), nor level 0's where
     ``level0_maps`` is false. ``raw`` = (intrinsics, stride) adds the point
     map of the RAW depth ``depth_mm[::stride, ::stride]`` as a last item.
-    Every map is one launch of kernel I's multi-map entry on CUDA tensors."""
+    The pyramid is one launch of kernel I's pyramid entry and every map
+    one launch of its multi-map entry on CUDA tensors."""
     d0 = bilateral_filter(
         depth_mm, cfg.bilateral_kernel_size, cfg.bilateral_sigma_spatial,
         cfg.bilateral_sigma_depth, plain=plain,
@@ -261,9 +276,7 @@ def build_frame_pyramid(
         # the dists and the truncation ride one launch of kernel I
         dists, d_t = kernels.depth_dists(depth_mm, cfg.intr, d0 if trunc else None, cfg.icp_truncate_depth_dist)
         d0 = d_t if trunc else d0
-    depth_pyr = [d0]
-    for _ in range(1, cfg.pyramid_levels):
-        depth_pyr.append(depth_pyramid_down(depth_pyr[-1], cfg.bilateral_sigma_depth, plain=plain))
+    depth_pyr = depth_pyramid(d0, cfg.pyramid_levels, cfg.bilateral_sigma_depth, plain=plain)
     tasks, levels = pyramid_map_tasks(cfg, depth_pyr, depth_mm, first_point_level, with_conf, level0_maps, raw)
     outs = frame_maps(tasks, plain=plain) if tasks else []
     points_pyr: List[Optional[torch.Tensor]] = [None] * len(depth_pyr)

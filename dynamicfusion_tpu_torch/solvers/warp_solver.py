@@ -826,18 +826,26 @@ def pcg_sharded_plain(
     return torch.where(active, x, 0.0)
 
 
+def sharded_one_launch(mesh, device: torch.device) -> bool:
+    """Whether ``pcg_sharded`` takes kernel G's one-launch solve: the
+    mesh's local shards all on ``device`` and at most ``kernels.MAX_SHARDS``
+    of them (the launch's parameter block holds that many)."""
+    return len(mesh.local) <= kernels.MAX_SHARDS and all(mesh.devices[k] == device for k in mesh.local)
+
+
 def pcg_sharded(
     mesh, shards, s: SolveStructure, sys: System, minv: torch.Tensor, b: torch.Tensor, iters: int, rtol: float,
     active: torch.Tensor, plain: bool = False, reference: bool = False,
 ) -> torch.Tensor:
     """The distributed PCG on CUDA tensors: kernel G's sharded solve with
     kernel P's init and update (``kernels.pcg_sharded``), ONE cluster
-    launch a solve in a one-process mesh whose local shards are all on
-    ``b``'s card, two launches an iteration around the ranks' all-reduce
-    under a process group. A one-process mesh over several cards, and
-    ``reference``, take the composition that the one launch replaced (the
-    holds' reference; no path asks for it on one card): G's data-only
-    matvec on every shard (``kernels.data_matvec``), the psum, then G's
+    launch a solve in a one-process mesh whose local shards, at most
+    ``kernels.MAX_SHARDS``, are all on ``b``'s card
+    (``sharded_one_launch``), two launches an iteration around the ranks'
+    all-reduce under a process group. More local shards, a one-process
+    mesh over several cards, and ``reference`` take the composition that
+    the one launch replaced (the holds' reference): G's data-only matvec
+    on every shard (``kernels.data_matvec``), the psum, then G's
     per-iteration step with P's init and update
     (``kernels.pcg_sharded_step``), the loop's stop flag in device memory.
     Both give ``pcg_sharded_plain``'s bits."""
@@ -847,7 +855,7 @@ def pcg_sharded(
     # shards split by ``distributed_gn.shard_structure`` carry no order
     heavy = [sh.s.pts_by_node.heavy if sh.s.pts_by_node.heavy is not None else heavy_order(sh.s.pts_by_node)
              for sh in shards]
-    if not reference and all(mesh.devices[k] == b.device for k in mesh.local):
+    if not reference and sharded_one_launch(mesh, b.device):
         data = [kernels.ShardData(sh.rows, sh.s.knn_idx32, sh.s.pts_by_node.order, sh.s.pts_by_node.off, hv)
                 for sh, hv in zip(shards, heavy)]
         return kernels.pcg_sharded(ks, data, minv, b, iters, rtol, active, used=sys.used, stride=sys.stride,

@@ -29,6 +29,7 @@ from dynamicfusion_tpu.ops import bricks as jbricks
 from dynamicfusion_tpu.ops import preprocess as jpre
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.ops import bricks as tbricks
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCENE = dict(
     spheres=[

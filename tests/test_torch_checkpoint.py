@@ -19,6 +19,7 @@ from dynamicfusion_tpu_torch.models import volume as tvolume
 from dynamicfusion_tpu_torch.parallel import sharded as psharded
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
 from dynamicfusion_tpu_torch.utils import checkpoint as tckpt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KW = dict(max_nodes=64)
 JC = dataclasses.replace(JCfg.small(dims=32, rows=60, cols=80), **KW)

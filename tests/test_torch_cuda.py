@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from chip_smoke import (EXTRACT_CASES, INSERT_CASES, MUTUAL_CASES, PLAN_CASES, border_frame, extract_block_cut,
-                        extract_case, plan_inputs)
+                        extract_case, plan_inputs, pyramid_frame)
 from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.core import se3
@@ -345,6 +345,67 @@ def test_bands_kernel(dev, model):
     assert torch.equal(lo, plo) and torch.equal(hi, phi) and bool((hi > lo).any())
 
 
+def _noisy(d, seed, holes=0.02):
+    rng = np.random.RandomState(seed)
+    d = d.astype(np.int32)
+    d = np.where(d > 0, d + rng.randint(-4, 5, d.shape), 0)
+    return np.where(rng.rand(*d.shape) < holes, 0, d).astype(np.uint16)
+
+
+# the small preset's frames repeated 4x4 to the preset's 640x480 (and one
+# row and column more), and chip_smoke's threshold-edge frames
+PYRAMID_FRAMES = {
+    "preset_noisy": lambda: _noisy(np.repeat(np.repeat(DEPTHS[1], 4, 0), 4, 1), 3),
+    "odd_481x641": lambda: _noisy(np.pad(np.repeat(np.repeat(DEPTHS[2], 4, 0), 4, 1), ((0, 1), (0, 1)), "edge"), 4),
+    "adversarial": lambda: pyramid_frame(480, 640, 1),
+    "adversarial_odd": lambda: pyramid_frame(97, 203, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PYRAMID_FRAMES))
+def test_depth_pyramid_one_launch(dev, name):
+    """Kernel I's pyramid: every level in one device kernel, bit-equal to
+    the plain version and to the one-level-a-launch reference mode."""
+    d = torch.from_numpy(PYRAMID_FRAMES[name]()).to(dev)
+    sig = CFG.bilateral_sigma_depth
+    before = kernels.device_kernels["depth_pyramid"]
+    got = preprocess.depth_pyramid(d, 4, sig)
+    assert kernels.device_kernels["depth_pyramid"] - before == 1
+    plain = preprocess.depth_pyramid(d, 4, sig, plain=True)
+    ref = [d]
+    for _ in range(3):
+        ref.append(kernels.pyramid_down(ref[-1], sig))
+    for a, b, c in zip(got, plain, ref):
+        assert a.shape == b.shape == c.shape
+        assert torch.equal(a.to(torch.int32), b.to(torch.int32)) and torch.equal(a.to(torch.int32), c.to(torch.int32))
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("case", ["model", "all_miss", "zero_dists"])
+def test_bands_kernel_tiled(dev, model, case, stride):
+    """Kernel J's tiled band and seed bit-equal to the plain versions and
+    to the thread-a-pixel reference mode, at each raycast stride, on the
+    model's map (resampled to the stride's grid), a model map that misses
+    everywhere and all-zero dists."""
+    cfg = dataclasses.replace(CFG, raycast_temporal_band=True, raycast_seed_margin=0.1, raycast_subsample=stride)
+    dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+    rows, cols = CFG.rows // stride, CFG.cols // stride
+    can = model.can_points.permute(2, 0, 1)[None]
+    can = torch.nn.functional.interpolate(can, size=(rows, cols))[0].permute(1, 2, 0).contiguous()
+    if case == "all_miss":
+        can = torch.full_like(can, float("nan"))
+    elif case == "zero_dists":
+        dists = torch.zeros_like(dists)
+    seed, (lo, hi) = kinfu._march_bands(cfg, can, dists)
+    rseed, (rlo, rhi) = kernels.march_bands(dists, stride, can, cfg.raycast_band_margin, True, reference=True)
+    pseed, (plo, phi) = kinfu._march_bands(cfg, can, dists, plain=True)
+    for a, b, c in ((seed, rseed, pseed), (lo, rlo, plo), (hi, rhi, phi)):
+        bits = a.view(torch.int32)
+        assert torch.equal(bits, b.view(torch.int32)) and torch.equal(bits, c.view(torch.int32))
+    sd, band = kernels.march_bands(dists, stride, None, cfg.raycast_band_margin, True)
+    assert band is None and torch.equal(sd, pseed)
+
+
 @pytest.mark.parametrize("warped", [False, True])
 def test_brick_plan_kernel(dev, model, warped):
     """Kernel K: the mip, classes, windows, surface flags and work list
@@ -455,11 +516,13 @@ def test_slice_on_the_card_goes_through_every_kernel(dev):
     for d in DEPTHS:
         df(d, block=False)
     torch.cuda.synchronize()
-    rigid = ("bilateral", "icp_reduce", "raycast", "fuse_bricks", "depth_dists", "pyramid_down", "frame_maps",
+    rigid = ("bilateral", "icp_reduce", "raycast", "fuse_bricks", "depth_dists", "depth_pyramid", "frame_maps",
              "resize_maps", "brick_plan")
     assert all(kernels.launches[k] > 0 for k in rigid), kernels.launches
-    # kernel I's maps: one launch a step, the single-map kernel on no path
+    # kernel I's maps and pyramid: one launch each a step, the single-map
+    # and one-level kernels on no path
     assert kernels.launches["frame_maps"] == len(DEPTHS) - 1 and kernels.launches["points_normals"] == 0
+    assert kernels.launches["depth_pyramid"] == len(DEPTHS) - 1 and kernels.launches["pyramid_down"] == 0
     ref = kinfu.DynamicFusion(CFG, device="cpu")
     for d in DEPTHS:
         ref(d)
@@ -483,12 +546,13 @@ DENSE = ("gram_scales", "dense_gram", "dense_damp", "cholesky")
 # PCG (P), the net rigid removal (Q) and the dense fusion (F1, F2), the
 # export path's extracted normals (R), and the sharded step's distributed
 # PCG (G's cluster launch of the solve); and the reference modes that no
-# path asks for: kernel I's single-map entry (of its frame maps) and the
-# distributed PCG's composition (G's data-only matvec and step, P's init)
+# path asks for: kernel I's single-map entry (of its frame maps) and
+# one-level entry (of its pyramid), and the distributed PCG's composition
+# (G's data-only matvec and step, P's init)
 SHARDED = ("pcg_sharded",)
 SHARDED_REFERENCE = ("data_matvec", "pcg_init", "pcg_step")
 OPTIONS = ("node_radius", "dense_pcg", "net_rigid", "integrate_dense", "integrate_dense_nonrigid",
-           "extract_normals", "points_normals") + SHARDED + SHARDED_REFERENCE
+           "extract_normals", "points_normals", "pyramid_down") + SHARDED + SHARDED_REFERENCE
 
 
 @pytest.fixture
@@ -1544,6 +1608,23 @@ def test_sharded_pcg_one_launch(dev, nr_model, n_shards, nrows, used, stride):
     assert not bool(ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, ~on).any())
     assert not bool(kernels.pcg_sharded(ks, data, minv, b, 12, 1e-3, ~on, used=used, stride=stride,
                                         reduce=lambda v: v.clone()).any())
+
+
+@pytest.mark.parametrize("n_shards", [9, 16])
+def test_sharded_pcg_past_max_shards(dev, nr_model, n_shards):
+    """More local shards on one card than the one launch holds: the
+    solve takes the composition (no cluster launch) and solves without
+    raising, bit-equal to the plain distributed PCG."""
+    from dynamicfusion_tpu_torch.solvers import warp_solver as ws
+
+    mesh, parts, s, sysm, minv, b = sharded_system(dev, nr_model, n_shards, 1)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    assert not ws.sharded_one_launch(mesh, b.device)
+    before, steps = kernels.device_kernels["pcg_sharded"], kernels.launches["pcg_step"]
+    xk = ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on)
+    assert kernels.device_kernels["pcg_sharded"] == before and kernels.launches["pcg_step"] - steps == 12
+    assert torch.equal(xk, ws.pcg_sharded(mesh, parts, s, sysm, minv, b, 12, 1e-3, on, plain=True))
+    assert bool(torch.isfinite(xk).all())
 
 
 @pytest.mark.parametrize("name", INSERT_CASES)

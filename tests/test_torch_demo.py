@@ -16,6 +16,7 @@ import pytest
 from dynamicfusion_tpu.config import DynamicFusionConfig as JCfg
 from dynamicfusion_tpu.utils import checkpoint as jckpt
 from dynamicfusion_tpu_torch.utils import checkpoint as tckpt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

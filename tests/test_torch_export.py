@@ -38,6 +38,7 @@ from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.io import export as texport
 from dynamicfusion_tpu_torch.ops import tsdf as ttsdf
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_NORMAL = 1e-4  # jitted JAX against the port (as test_torch_raycast_variants.py holds normals)
 TOL_FIELD = 1e-5   # warped mesh vertices (m) and normals: the packages' KNN distances round alike to ~1e-7

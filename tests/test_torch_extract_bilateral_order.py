@@ -49,6 +49,7 @@ from dynamicfusion_tpu_torch.models import volume as volume_model
 from dynamicfusion_tpu_torch.models.volume import TsdfVolume
 from dynamicfusion_tpu_torch.ops import preprocess, tsdf as ttsdf
 from test_torch_tsdf_bricks import JC, TC, vol2  # noqa: F401  (vol2: the module's fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CSRC = Path(kernels.CSRC)
 ROWS = kernels.EXTRACT_ROWS  # rows a block

@@ -17,6 +17,7 @@ from dynamicfusion_tpu.solvers import icp as jicp
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.ops import preprocess as tpre
 from dynamicfusion_tpu_torch.solvers import icp as ticp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JC = JCfg.small(dims=64, rows=120, cols=160)
 TC = TCfg.small(dims=64, rows=120, cols=160)

@@ -34,6 +34,7 @@ from dynamicfusion_tpu_torch.core import se3
 from dynamicfusion_tpu_torch.io import synthetic
 from dynamicfusion_tpu_torch.ops import preprocess
 from dynamicfusion_tpu_torch.solvers import icp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_ICP_REL = 1e-4
 GROUP, WARPS = 256, 8

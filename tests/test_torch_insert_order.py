@@ -41,6 +41,7 @@ from dynamicfusion_tpu.models import warpfield as jw
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.core import compact
 from dynamicfusion_tpu_torch.models import warpfield as tw
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NC, CAP = 600, 64
 KEY_MASK = (1 << 48) - 1

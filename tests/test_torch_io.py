@@ -17,6 +17,7 @@ from dynamicfusion_tpu.io import capture as jcapture
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.io import capture, dataset, native_loader
 from dynamicfusion_tpu_torch.utils import metrics
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture()

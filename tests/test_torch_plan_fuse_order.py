@@ -38,6 +38,7 @@ from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.models.volume import TsdfVolume
 from dynamicfusion_tpu_torch.ops import bricks as tbricks
 from dynamicfusion_tpu_torch.parallel import sharded_fusion
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # csrc/classify.cu's cluster: CTAs, most and fewest threads a CTA
 CLUSTER, MAX_THREADS, MIN_THREADS = 16, 1024, 256

@@ -36,6 +36,7 @@ from dynamicfusion_tpu_torch.io import native_loader as tnative
 from dynamicfusion_tpu_torch.io import synthetic as tsyn
 from dynamicfusion_tpu_torch.models import volume as tvolume
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "dynamicfusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
@@ -378,6 +379,7 @@ WRAPPER_CALLS = {
         torch.zeros((8, 8), dtype=torch.uint16), tconfig.DynamicFusionConfig.small().intr,
     ),
     "pyramid_down": lambda: kernels.pyramid_down(torch.zeros((8, 8), dtype=torch.uint16), 0.04),
+    "depth_pyramid": lambda: kernels.depth_pyramid(torch.zeros((8, 8), dtype=torch.uint16), 3, 0.04),
     "points_normals": lambda: kernels.points_normals(
         torch.zeros((8, 8), dtype=torch.uint16), tconfig.DynamicFusionConfig.small().intr, conf=True,
     ),
@@ -699,6 +701,48 @@ def test_sharded_pcg_refuses(meta_lib, monkeypatch, bad, match):
     with pytest.raises((TypeError, ValueError), match=match):
         kernels.pcg_sharded(s, shards, minv, b, iters, rtol, active)
     assert meta_lib.calls == [] and kernels.launches["pcg_sharded"] == 0
+
+
+@pytest.mark.parametrize("levels", [1, 2, 4, 6])
+def test_depth_pyramid_is_one_launch(meta_lib, monkeypatch, levels):
+    """Kernel I's pyramid entry hands every coarser level of an odd-sized
+    frame to ONE library call (none for a one-level pyramid), the levels
+    each (H_k // 2, W_k // 2) of the one before."""
+    monkeypatch.setattr(kernels, "_sm_count", lambda dev: 132)
+    d = torch.empty((481, 641), dtype=torch.uint16, device="meta")
+    pyr = kernels.depth_pyramid(d, levels, 0.04)
+    shapes = [(481, 641)]
+    for _ in range(levels - 1):
+        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
+    assert pyr[0] is d and [tuple(t.shape) for t in pyr] == shapes and all(t.dtype == torch.uint16 for t in pyr)
+    assert [c[0] for c in meta_lib.calls] == (["df_depth_pyramid"] if levels > 1 else [])
+    if levels > 1:
+        call = meta_lib.calls[0][1]
+        # (in, h, w, down, thresh, outs, sms, tile, threads, launched, stream)
+        assert call[1:5] == (481, 641, levels - 1, 120.0) and len(call[5]) == levels - 1 and call[6] == 132
+        assert call[7]._obj.value == call[8]._obj.value == 0  # the plan's own tile and threads
+    assert kernels.launches["depth_pyramid"] == int(levels > 1)
+
+
+@pytest.mark.parametrize("levels", [0, 7])
+def test_depth_pyramid_refuses_its_level_limit(meta_lib, levels):
+    """More downsamples than the launch holds (``PYRAMID_MAX_DOWN``), or
+    none at all, are refused before any call."""
+    with pytest.raises(ValueError, match="levels"):
+        kernels.depth_pyramid(torch.empty((480, 640), dtype=torch.uint16, device="meta"), levels, 0.04)
+    assert meta_lib.calls == [] and kernels.launches["depth_pyramid"] == 0
+
+
+@pytest.mark.parametrize("reference", [False, True])
+def test_march_bands_mode(meta_lib, reference):
+    """Kernel J's entry passes its mode: the tiled kernel, or with
+    ``reference`` the thread-a-pixel one; one launch either way."""
+    dists = torch.empty((120, 160), device="meta")
+    seed, (lo, hi) = kernels.march_bands(dists, 2, torch.empty((60, 80, 3), device="meta"), 0.06, True,
+                                         reference=reference)
+    assert seed.shape == lo.shape == hi.shape == (60, 80)
+    assert [c[0] for c in meta_lib.calls] == ["df_march_bands"] and meta_lib.calls[0][1][10] == int(reference)
+    assert kernels.launches["march_bands"] == 1
 
 
 def _insert_args(n=16):

@@ -7,11 +7,13 @@ import dataclasses
 import functools
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import pyramid_frame
 from dynamicfusion_tpu.config import DynamicFusionConfig as JCfg
 from dynamicfusion_tpu.io import synthetic
 from dynamicfusion_tpu.ops import preprocess as jpre
@@ -19,6 +21,7 @@ from dynamicfusion_tpu.solvers import icp as jicp
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.ops import preprocess as tpre
 from dynamicfusion_tpu_torch.solvers import icp as ticp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KW = dict(max_nodes=64, node_sample_step=17, rigid_only=True)
 JC = dataclasses.replace(JCfg.small(dims=64, rows=120, cols=160), **KW)
@@ -72,6 +75,29 @@ def test_truncate_and_pyramid_down_match():
         np.asarray(jpre.depth_pyramid_down(jnp.asarray(d))),
         tpre.depth_pyramid_down(torch.from_numpy(d)).numpy(),
     )
+
+
+@pytest.mark.parametrize("shape", [(61, 83), (97, 203)])
+def test_depth_pyramid_levels_match_jax_on_threshold_edges(shape):
+    """The port's plain all-levels pyramid (``depth_pyramid``, kernel I's
+    one-launch entry on the card) against JAX's ``depth_pyramid_down``
+    applied level by level, bit for bit, on ``chip_smoke.pyramid_frame``
+    at odd sizes: holes, depths in 65 000-65 535, neighbours at and one mm
+    either side of the 3-sigma threshold."""
+    d = pyramid_frame(*shape, seed=shape[0])
+
+    @jax.jit
+    def levels(x):
+        out = [x]
+        for _ in range(3):
+            out.append(jpre.depth_pyramid_down(out[-1]))
+        return out
+
+    jl = levels(jnp.asarray(d))
+    tl = tpre.depth_pyramid(torch.from_numpy(d), 4)
+    assert len(tl) == 4
+    for k, (a, b) in enumerate(zip(jl, tl)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f"level {k}")
 
 
 def _assert_maps_close(a, b, atol):

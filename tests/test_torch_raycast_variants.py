@@ -26,6 +26,7 @@ from dynamicfusion_tpu.pipeline import kinfu as jkinfu
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.models.volume import TsdfVolume as TVol
 from dynamicfusion_tpu_torch.ops import tsdf as ttsdf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # A process's first torch.sqrt runs on one thread: MKL's vectorized sqrt,
 # which CPU torch calls, has returned one thread's chunk at ~12 bits when

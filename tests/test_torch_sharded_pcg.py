@@ -24,11 +24,14 @@ import torch
 from dynamicfusion_tpu.config import DynamicFusionConfig as JCfg
 from dynamicfusion_tpu.models import warpfield as jw
 from dynamicfusion_tpu.solvers import warp_solver as js
+from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.config import Intrinsics as TIntr
 from dynamicfusion_tpu_torch.models import warpfield as tw
 from dynamicfusion_tpu_torch.parallel import distributed_gn, sharded
+from dynamicfusion_tpu_torch.parallel.mesh import Mesh
 from dynamicfusion_tpu_torch.solvers import warp_solver as ts
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ITERS, RTOL = 12, 1e-3
 # the distributed PCG against the port's single-device PCG: float32 sums
@@ -112,11 +115,11 @@ def _jax_pcg(s, sysm, minv, b):
                                                                               jnp.asarray(b.numpy())))
 
 
-@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 9, 16])
 def test_sharded_pcg_plain_matches_jax_and_the_single_device_pcg(system, n_shards):
     """The distributed PCG's plain route (the kernels' sum orders) over 1,
-    2 and 4 CPU shards against JAX's PCG on the whole system and against
-    the port's single-device PCG; an inactive solve gives zeros."""
+    2, 4, 9 and 16 CPU shards against JAX's PCG on the whole system and
+    against the port's single-device PCG; an inactive solve gives zeros."""
     s, sysm, minv, b = system
     mesh, shards = _shards(s, sysm.rows, n_shards)
     on = torch.tensor(True)
@@ -128,6 +131,19 @@ def test_sharded_pcg_plain_matches_jax_and_the_single_device_pcg(system, n_shard
     ref = _jax_pcg(s, sysm, minv, b)
     assert float(np.abs(got.numpy() - ref).max()) <= TOL_JAX * scale
     assert not bool(ts.pcg_sharded(mesh, shards, s, sysm, minv, b, ITERS, RTOL, ~on).any())
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 9, 16])
+def test_sharded_pcg_one_launch_only_up_to_max_shards(n):
+    """``pcg_sharded`` takes kernel G's one launch for a one-process mesh
+    only at n <= MAX_SHARDS local shards on the solve's device (the
+    launch's parameter block holds that many, csrc/pcg.cu kMaxShards); the
+    composition above it, and wherever a local shard sits elsewhere."""
+    cpu = torch.device("cpu")
+    assert kernels.MAX_SHARDS == 8
+    assert ts.sharded_one_launch(sharded.make_mesh(n, devices=["cpu"] * n), cpu) == (n <= kernels.MAX_SHARDS)
+    if n > 1:
+        assert not ts.sharded_one_launch(Mesh(["cpu"] * (n - 1) + ["meta"]), cpu)
 
 
 def _jax_delta_scatter(field, slots, new_pos, seed_dq, new_radius, fi):

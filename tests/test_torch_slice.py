@@ -38,6 +38,7 @@ from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.ops import preprocess as tpre
 from dynamicfusion_tpu_torch.ops import tsdf as ttsdf
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KW = dict(max_nodes=64, node_sample_step=17, rigid_only=True)
 JC = dataclasses.replace(JCfg.small(dims=64, rows=120, cols=160), **KW)

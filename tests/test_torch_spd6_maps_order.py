@@ -41,6 +41,7 @@ from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig as TCfg
 from dynamicfusion_tpu_torch.ops import preprocess as tpre
 from dynamicfusion_tpu_torch.solvers import warp_solver as ts
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_SPD6 = 1e-4   # spd6_inv on well-conditioned blocks, relative (tests/test_torch_warp_solver.py)
 TOL_CONF = 1e-5   # the incidence confidence (test_frame_pyramid_with_confidence_matches)

@@ -27,6 +27,7 @@ from dynamicfusion_tpu_torch.models.volume import TsdfVolume as TVol
 from dynamicfusion_tpu_torch.ops import preprocess as tpre
 from dynamicfusion_tpu_torch.ops import tsdf as ttsdf
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KW = dict(max_nodes=64, node_sample_step=17, rigid_only=True)
 JC = dataclasses.replace(JCfg.small(dims=64, rows=120, cols=160), **KW)
@@ -274,3 +275,32 @@ def test_march_band_helpers_match():
         np.asarray(jkinfu._raycast_seed(cfg_j, jnp.asarray(dists))),
         tkinfu._raycast_seed(cfg_t, torch.from_numpy(dists)).numpy(),
     )
+
+
+@pytest.mark.parametrize("case", ["all_miss", "zero_dists"])
+def test_march_band_helpers_match_at_the_edges(case):
+    """The plain band and seed (kernel J's plain versions) against JAX's
+    ``_temporal_band`` and ``_raycast_seed`` where no ray can be banded
+    from the model (a model map that misses everywhere) and where the live
+    frame has no depth (all-zero dists: no seed, the band from the model
+    alone)."""
+    rng = np.random.RandomState(4)
+    cfg_j = dataclasses.replace(JC, raycast_seed_margin=0.1, raycast_temporal_band=True)
+    cfg_t = dataclasses.replace(TC, raycast_seed_margin=0.1, raycast_temporal_band=True)
+    dists = np.array(jpre.compute_dists(JC.intr, jnp.asarray(_depth(0.01))))
+    rows, cols = JC.rows // JC.raycast_subsample, JC.cols // JC.raycast_subsample
+    prev = rng.uniform(-0.3, 1.2, (rows, cols, 3)).astype(np.float32)
+    if case == "all_miss":
+        prev[:] = np.nan
+    else:
+        dists[:] = 0.0
+    jlo, jhi = jkinfu._temporal_band(cfg_j, jnp.asarray(prev), jnp.asarray(dists))
+    tlo, thi = tkinfu._temporal_band(cfg_t, torch.from_numpy(prev), torch.from_numpy(dists))
+    np.testing.assert_allclose(np.asarray(jlo), tlo.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(np.asarray(jhi), thi.numpy(), atol=1e-6, rtol=0)
+    jseed = np.asarray(jkinfu._raycast_seed(cfg_j, jnp.asarray(dists)))
+    np.testing.assert_array_equal(jseed, tkinfu._raycast_seed(cfg_t, torch.from_numpy(dists)).numpy())
+    if case == "zero_dists":
+        assert not jseed.any() and bool((thi > tlo).any())
+    else:
+        assert bool((thi > tlo).any()) and bool((tlo[thi > 0] > 0).any())

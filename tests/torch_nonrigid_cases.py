@@ -8,7 +8,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from dynamicfusion_tpu.config import DynamicFusionConfig as JCfg
@@ -22,6 +21,7 @@ from dynamicfusion_tpu_torch.io import synthetic
 from dynamicfusion_tpu_torch.models import warpfield as tw
 from dynamicfusion_tpu_torch.pipeline import kinfu as tkinfu
 from dynamicfusion_tpu_torch.solvers import warp_solver as ts
+from torch_threads import one_torch_thread  # noqa: F401  (re-exported: the test modules' autouse fixture)
 
 # the dynamicfusion preset's settings that small() leaves at the base
 # defaults, its newton8 refine included (fusion stays on every frame, so
@@ -51,17 +51,6 @@ TOL_MAP_FRAC = 1e-2    # ... except on this fraction of pixels (a one-LSB code
 TOL_MAP_MAX_M = 2e-3   # difference moves a crossing), where they stay below this
 TOL_NRM = 1e-4         # normals (unit vectors) on the same terms: the normalized
 TOL_NRM_MAX = 3e-2     # gradient of 8 corners, one of which may differ by 1 LSB
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's plain path at test sizes is thousands of small ops: one
-    intra-op thread runs it as fast as eight alone, and keeps the test
-    workers that share the machine from spinning against each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def configs(**small):
