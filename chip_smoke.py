@@ -40,8 +40,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and on ``border_frame`` (``hold_bilateral``), timed beside it and its
    library route (``library_bilateral``); kernel M (the
    aperture gate of ``solver_p2p_adaptive``) on the phase-2 state at
-   160x120, gate and depth bins bit-equal to its plain version, some
-   pixels open part way (the closed form exercised); and at the
+   160x120, gate and depth bins bit-equal to its plain version and to its
+   reference mode (``hold_gate``), some pixels open part way (the closed
+   form exercised), and the same on the numpy-made ``GATE_CASES``, with
+   the library route (``library_p2p_gate``: ``avg_pool2d`` box sums)
+   within TOL_GATE_LIBRARY, each timed; and at the
    reference resolution of ``reference_parity()`` on the phase-2 volume:
    kernel C's 160x120 coarse march, kernel J's coarse band (640x480,
    bit-equal), C at 640x480 in that band and as ``render(pose)``'s full
@@ -65,7 +68,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    at the preset's 160x120 maps and at 640x480, the hit mask exact; and
    kernels F1 and F2 (the dense fusion) at 256^3 on the preset's phase-2
    state and the next frame, F2 with the incidence confidence and the
-   phase split, codes within 1 LSB and weights equal, then each against
+   phase split, codes within 1 LSB and weights equal, F1's tiled design
+   bit-equal to its reference mode there and at ``dense_poses`` (turned
+   away, the volume's centre in the image plane, a border cutting it;
+   ``hold_dense_reference``) and timed beside it, then each against
    the brick path (K + D) on the same frame and volume (printed); every
    hold of kernel G's cluster PCG (``hold_pcg``: one row, three rows, the
    row modes, and at 2048 seeded skewed nodes with one and three rows)
@@ -152,10 +158,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 6. ``quality_dynamicfusion()`` with ``solver_p2p_adaptive`` (the aperture
    gate) over A hinge frames: the checks of phase 5, kernel M once a step,
    the plain step from each state, kernel M held bit-equal to its plain
-   version on every step's inputs (some pixels open part way); the mean
-   gate over the spheres and over the plane printed; then 8 frames of
-   ``bench.py``'s bulge scene (a bump travelling over a plane): M held on
-   every step's inputs, the rest printed only;
+   version and its reference mode on every step's inputs (some pixels
+   open part way); the mean gate over the spheres and over the plane
+   printed; then 8 frames of ``bench.py``'s bulge scene (a bump travelling
+   over a plane): M held on every step's inputs, the rest printed only;
 7. ``reference_parity()`` with ``rigid_only`` (the reference's
    KinectFusion at its own resolution: 640x480 model maps, the coarse band
    every frame) over P frames of the rigid orbit: C and J's coarse band on
@@ -190,7 +196,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``rigid_only``, ``integrate_mode="dense"`` and
    ``raycast_smooth_normals`` over P orbit frames (kernel F1 every frame,
    C's six-sample normal in the coarse and the banded march): the checks
-   and renders of phase 7, 3 more frames profiled;
+   and renders of phase 7, 3 more frames profiled, and F1's tiled design
+   bit-equal to its reference mode on the run's last state and its next
+   frame at ``dense_poses``;
 14. the dense non-rigid cell: ``default_dynamicfusion()`` with
    ``integrate_mode="dense"`` and ``raycast_refine="newton16"`` over E
    deforming-scene frames (F1 in frame 0, F2 every step, C's code 2): the
@@ -238,7 +246,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    plain version: C's every refine with the in-cell and the six-sample
    normal, and its slab mode on 4 shards, and R at the f32 and bf16 tsdf;
    D rigid, non-rigid and on 4 slabs, F1, F2 (phase split, incidence
-   confidence) and L at the five (tsdf, weight) pairs beside i16/u16;
+   confidence) and L at the five (tsdf, weight) pairs beside i16/u16; F1's
+   tiled design also bit-equal to its reference mode at each pair, both
+   timed;
 21. ``default_dynamicfusion()`` at each pair through ``DynamicFusion``:
    f32/f32 for F frames (``--f-frames``), the others for 7 (frame 6
    fuses), phase 4's checks and the plain step from each state, then the
@@ -330,6 +340,14 @@ TOL_NORMAL_FRAC = 1e-3        # ... except on this fraction of valid pixels
 # kernel M: the same sums in the same order and the closed form under
 # -fmad=false with true divisions; the plain version divides by tensors
 TOL_GATE = 0.0                # max |gate_kernel - gate_plain|; the depth bins bit for bit
+# kernel M's yardstick (PyTorch calls) against the plain version: where
+# avg_pool2d's box sums and b as a sum add in another order than the taps',
+# the sums move by ulps, and the closed form's det and ratios grow that
+# where a window's second moment nearly cancels; the card gave at most
+# 8.941e-07 over phase 2 and the GATE_CASES (at 640x480; NVIDIA H100 80GB
+# HBM3, 700.00 W; on the CPU the two are bit-equal:
+# tests/test_torch_gate_library.py)
+TOL_GATE_LIBRARY = 1e-5
 TOL_IMAGE_FRAC = 1e-3         # render pixels more than one level from the plain render (a hit may flip)
 # kernel N: the int8 Gram bit-equal (integer sums are exact in any order, the
 # plain version sums the integer products exactly in float64, the scale
@@ -1353,6 +1371,60 @@ def hold_dense(torch, name, fuse, vol, launches):
     return vk, upd, err, frac
 
 
+def word_bits(torch, t):
+    """A volume's codes or floats as integers of their width, elementwise
+    (CUDA PyTorch compares no uint16)."""
+    return t.view({torch.float32: torch.int32}.get(t.dtype, torch.int16))
+
+
+def dense_poses(torch, cfg, vol2cam):
+    """Kernel F1's held poses beside ``vol2cam`` (a (4, 4) volume-to-camera
+    pose): "away" turned half round about the camera's y axis (every voxel
+    behind the camera: none updates), "inside" moved along the
+    camera's z axis to put the volume's centre in the image plane (blocks
+    straddle z = 0), "border" moved by half the volume along x (the
+    image's side cuts the volume)."""
+    half = 0.5 * cfg.volume_dims * cfg.voxel_size
+    centre = vol2cam[:3, :3] @ torch.full((3,), half, device=vol2cam.device) + vol2cam[:3, 3]
+    away = vol2cam.clone()
+    away[0] = -vol2cam[0]
+    away[2] = -vol2cam[2]
+    inside = vol2cam.clone()
+    inside[2, 3] -= centre[2]
+    border = vol2cam.clone()
+    border[0, 3] += half
+    return {"tracked": vol2cam, "away": away, "inside": inside, "border": border}
+
+
+def hold_dense_reference(torch, name, cfg, vol, dists, vol2cam, poses=None, what=""):
+    """Kernel F1's tiled design bit for bit against its reference mode (a
+    thread a voxel), tsdf and weight, on clones of ``vol`` fused from
+    ``dists`` at ``vol2cam`` (and, with ``poses``, at ``dense_poses``');
+    with ok false both leave the volume as it is. Returns whether the tiled
+    design ran (``kernels.integrate_dense_tiled``)."""
+    from dynamicfusion_tpu_torch import kernels
+    from dynamicfusion_tpu_torch.models.volume import TsdfVolume
+    from dynamicfusion_tpu_torch.ops import tsdf as tsdf_ops
+
+    on = torch.ones((), dtype=torch.bool, device=dists.device)
+    tiled = kernels.integrate_dense_tiled(vol.tsdf, vol.weight)
+    held, changed = [], {}
+    for tag, pose in (dense_poses(torch, cfg, vol2cam) if poses else {"tracked": vol2cam}).items():
+        for ok in (on, ~on):
+            vt = TsdfVolume(vol.tsdf.clone(), vol.weight.clone())
+            vr = TsdfVolume(vol.tsdf.clone(), vol.weight.clone())
+            tsdf_ops.integrate_dense(cfg, vt, dists, pose, cfg.intr, ok)
+            tsdf_ops.integrate_dense(cfg, vr, dists, pose, cfg.intr, ok, reference=True)
+            held.append(same_volume(torch, vt, vr) and (bool(ok) or same_volume(torch, vt, vol)))
+            if bool(ok):
+                changed[tag] = int((word_bits(torch, vt.weight) != word_bits(torch, vol.weight)).sum())
+    check(name, all(held) and tiled and changed["tracked"] > 0 and changed.get("away", 0) == 0,
+          f"{what}{tuple(vol.tsdf.shape)} {vol.tsdf.dtype}/{vol.weight.dtype}, the tiled design "
+          f"({'ran' if tiled else 'did NOT run'}): bit-equal to the reference mode at every pose, ok true and false "
+          f"{all(held)}; voxels updated by pose {changed}")
+    return tiled
+
+
 def dense_fusion_kernels(torch, report, dev, cfg, st, tr, cf):
     """Phase 2 for kernels F1 and F2 at 256^3 on the preset's phase-2 state
     and the next deforming-scene frame (tracked): F1 at the tracked pose,
@@ -1394,6 +1466,7 @@ def dense_fusion_kernels(torch, report, dev, cfg, st, tr, cf):
 
     scratch = volume_model.TsdfVolume(st.vol.tsdf.clone(), st.vol.weight.clone())
     out = {}
+    hold_dense_reference(torch, "integrate_dense_reference", dense, st.vol, dists, vol2cam, poses=True)
     for name, fuse, c, prolong in (("integrate_dense", f1, dense, False),
                                    ("integrate_dense_nonrigid", f2(split2), split2, True)):
         vk, upd, err, frac = hold_dense(torch, name, fuse, st.vol, name)
@@ -1412,6 +1485,11 @@ def dense_fusion_kernels(torch, report, dev, cfg, st, tr, cf):
             library_ms=None,
         )
         out[name] = (vk, frac)
+    r = report["integrate_dense"]
+    r["reference_ms"] = cuda_ms(torch, lambda: tsdf_ops.integrate_dense(dense, scratch, dists, vol2cam, intr, ok_t,
+                                                                         reference=True))
+    print(f"[time] {smi()} | F1 {d}^3: tiled {r['ms']:.4f} ms, reference mode {r['reference_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
     print(f"[dense] F1 codes differ from the plain version's on {out['integrate_dense'][1]:.2e} of voxels, F2 (split 2) "
           f"on {out['integrate_dense_nonrigid'][1]:.2e}; weights equal in both", flush=True)
 
@@ -1764,10 +1842,11 @@ def kernels_a_call(name, fn):
 # (``kernels.device_kernels``): G's edge term and E's mutual-nearest pass
 # one launch, K's plan the mip tiles and the cluster, D's fuse one, L's
 # extraction the count with its scan and the write, G's spd6_inv (either
-# entry), I's frame maps and I's pyramid (every level) one
+# entry), I's frame maps and I's pyramid (every level) one, M's gate two
+# (the features and the clusters)
 DEVICE_KERNELS_A_CALL = {"pcg_sharded": 1, "insert_apply": 1, "edge_term": 1, "mutual_nearest": 1, "brick_plan": 2,
                          "fuse_bricks": 1, "extract_cloud": 2,
-                         "spd6_inv": 1, "frame_maps": 1, "depth_pyramid": 1}
+                         "spd6_inv": 1, "frame_maps": 1, "depth_pyramid": 1, "p2p_gate": 2}
 
 
 def hold_spd6(torch, name, blocks, diag_eff, unit, lam, what="", timed=False):
@@ -2340,17 +2419,154 @@ def gate_inputs(torch, cfg, st, tr):
             se3.transform_points(st.pose, st.prev_points[0]).contiguous(), tr.points[s][..., 2].contiguous())
 
 
-def hold_gate(torch, cfg, gin):
-    """Kernel M against its plain version on ``gin``: (kernel gate, its
-    depth bins, bins equal, max |gate diff|, pixels not bit-equal, pixels
-    with the gate strictly between 0 and 1)."""
+# kernel M's inputs made with numpy (``gate_case``): (rows, cols) of each;
+# "qvga" and "vga" are the model maps of raycast_subsample 2 and 1 (the
+# cluster design at 240 and 480 rows); "tall" has more rows than the
+# cluster design takes (553: its reference mode runs)
+GATE_CASES = {"random": (120, 160), "sphere": (120, 160), "bin_edges": (120, 160), "holes": (120, 160),
+              "all_bins": (120, 160), "single_pixel_bin": (120, 160), "narrow": (60, 12), "wide": (48, 1000),
+              "tall": (600, 16), "qvga": (240, 320), "vga": (480, 640)}
+
+
+def gate_case(name: str, seed: int = 0):
+    """Kernel M's inputs for a case of ``GATE_CASES`` as float32 numpy
+    arrays (live points, live normals, previous model points, live depth),
+    the camera frame as the world frame: "random" depths over every bin
+    with holes; "sphere" a sphere translating over a plane (its windows
+    open the gate part way); "bin_edges" 8x8 patches at depths on the bin
+    edges and one ulp beside them; "holes" NaN depths and points, NaN and
+    infinite normals, infinite motions; "all_bins" 16 bands of rows, one a
+    bin; "single_pixel_bin" a plane in one bin with a pixel alone in
+    another at the centre and one in a corner; "narrow" a map narrower than
+    the window and "tall" 600 rows (depths in three bins); "wide" 1 000
+    columns; "qvga" 320x240 and "vga" 640x480 as "random". But
+    for the sphere, the points move by a common translation and noise."""
+    rows, cols = GATE_CASES[name]
+    rng = np.random.RandomState(seed)
+    u, v = np.meshgrid(np.arange(cols) - cols / 2, np.arange(rows) - rows / 2)
+    f = 570.342 / 4
+
+    def unit(n):
+        return n / np.linalg.norm(n, axis=-1, keepdims=True)
+
+    nrm = unit(rng.randn(rows, cols, 3) * 0.3 + np.array([0.0, 0.0, -1.0]))
+    if name == "sphere":
+        r, z0 = 0.12, 0.9
+        x, y = u * z0 / f, v * z0 / f
+        on = x * x + y * y < (r * 0.95) ** 2
+        zs = z0 - np.sqrt(np.maximum(r * r - x * x - y * y, 1e-9))
+        prev = np.stack([x, y, np.where(on, zs, 1.3)], -1)
+        nrm = np.where(on[..., None], np.stack([x / r, y / r, (zs - z0) / r], -1), np.array([0.0, 0.0, -1.0]))
+        live = prev + np.where(on[..., None], np.array([0.005, 0.0, 0.0]), 0.0)
+    else:
+        if name in ("random", "wide", "holes", "qvga", "vga"):
+            z = rng.uniform(0.1, 2.2, (rows, cols))
+        elif name in ("narrow", "tall"):
+            z = rng.uniform(0.7, 0.9, (rows, cols))
+        elif name == "bin_edges":
+            k = rng.randint(0, 17, (rows // 8 + 1, cols // 8 + 1)).astype(np.float32)
+            edge = np.float32(0.3) + np.float32(0.1) * k
+            z = np.kron(edge, np.ones((8, 8), np.float32))[:rows, :cols]
+            step = rng.randint(-1, 2, (rows, cols))
+            z = np.where(step < 0, np.nextafter(z, np.float32(0)), np.where(step > 0, np.nextafter(z, np.float32(9)), z))
+        elif name == "all_bins":
+            z = 0.3 + 0.1 * (np.arange(rows)[:, None] // 7 % 16) + 0.05 + rng.uniform(-0.01, 0.01, (rows, cols))
+        else:  # single_pixel_bin
+            z = np.full((rows, cols), 0.65) + rng.uniform(-0.01, 0.01, (rows, cols))
+            z[rows // 2, cols // 2] = 1.25
+            z[0, cols - 1] = 2.05
+        z = z.astype(np.float32)
+        prev = np.stack([u / f * z, v / f * z, z], -1)
+        # a coherent motion with noise: the gate opens part way
+        live = prev + np.array([0.004, -0.002, 0.003]) + rng.normal(0, 0.002, (rows, cols, 3))
+    if name in ("random", "holes", "narrow", "wide", "tall", "qvga", "vga"):
+        hole = rng.rand(rows, cols) < 0.05
+        prev[hole] = np.nan
+        live[hole] = np.nan
+        nrm[rng.rand(rows, cols) < 0.03] = np.nan
+    if name == "holes":
+        nrm[rng.rand(rows, cols) < 0.03] = np.inf
+        nrm[rng.rand(rows, cols) < 0.02, 1] = -np.inf
+        live[rng.rand(rows, cols) < 0.02] = np.inf
+    live = live.astype(np.float32)
+    cam_z = live[..., 2].copy()
+    if name == "bin_edges":
+        cam_z = z  # the depth on the edges exactly, the points moved by the noise
+    return (live, nrm.astype(np.float32), prev.astype(np.float32), cam_z)
+
+
+class GateHold(NamedTuple):
+    gate: object          # the kernel's gate
+    bins: object          # its depth bins
+    bins_same: bool       # bins equal the plain version's
+    err: float            # max |gate - plain gate|
+    n_diff: int           # pixels whose gate is not bit-equal to the plain version's
+    n_part: int           # pixels with the gate strictly between 0 and 1
+    ref_same: bool        # gate and bins bit-equal to the reference mode's
+    n_dev: int            # device kernels of the call
+    n_ref: int            # device kernels of the reference mode's call
+
+
+def hold_gate(torch, cfg, gin) -> GateHold:
+    """Kernel M against its plain version and its reference mode (the
+    two-launch design before) on ``gin``."""
     from dynamicfusion_tpu_torch.pipeline import kinfu
 
-    gk, bins = kinfu.p2p_gate_kernel(cfg, *gin)
+    (gk, bins), n_dev = kernels_a_call("p2p_gate", lambda: kinfu.p2p_gate_kernel(cfg, *gin))
+    (gr, br), n_ref = kernels_a_call("p2p_gate", lambda: kinfu.p2p_gate_kernel(cfg, *gin, reference=True))
     gp = kinfu.p2p_gate(cfg, *gin, plain=True)
     bins_same = torch.equal(bins.long(), kinfu.gate_bins(gin[3]))
-    return (gk, bins, bins_same, float((gk - gp).abs().max()), int((gk != gp).sum()),
-            int(((gk > 0) & (gk < 1)).sum()))
+    same = gk.view(torch.int32) == gp.view(torch.int32)
+    err = torch.where(same, 0.0, torch.nan_to_num((gk - gp).abs(), nan=float("inf")))
+    return GateHold(gk, bins, bins_same, float(err.max()), int((~same).sum()), int(((gk > 0) & (gk < 1)).sum()),
+                    same_bits(torch, gk, gr) and torch.equal(bins, br), n_dev, n_ref)
+
+
+def gate_held(h: GateHold) -> bool:
+    """A hold that passed: bins equal, the gate bit-equal to the plain
+    version's and to the reference mode's, two device kernels a call in
+    either mode."""
+    return h.bins_same and h.err <= TOL_GATE and h.n_diff == 0 and h.ref_same and (h.n_dev, h.n_ref) == (2, 2)
+
+
+def library_p2p_gate(torch, cfg, live, nrm, prev, cam_z):
+    """Kernel M in PyTorch calls, its yardstick (the port never calls it):
+    the plain version's one-hot features (b as a ``sum``), the box sums as
+    two ``F.avg_pool2d(..., divisor_override=1)`` calls over the 176
+    channels, along W and then along H, the three-bin gather and the
+    closed form (``kinfu._gate_closed_form``)."""
+    import torch.nn.functional as F
+
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    w = cfg.solver_p2p_gate_window
+    lo, hi = (w - 1) // 2, w - 1 - (w - 1) // 2
+    rows, cols = cam_z.shape
+    nb, nc = kinfu.GATE_BINS, kinfu.GATE_CHANNELS
+    delta = live - prev
+    valid = torch.isfinite(delta).all(-1) & torch.isfinite(nrm).all(-1)
+    n = torch.where(valid[..., None], torch.nan_to_num(nrm), 0.0)
+    b = torch.where(valid, (n * torch.nan_to_num(delta)).sum(-1), 0.0)
+    nx, ny, nz = n.unbind(-1)
+    feats = torch.stack([valid.to(torch.float32), nx * nx, ny * ny, nz * nz, nx * ny, nx * nz, ny * nz, nx * b,
+                         ny * b, nz * b, b * b], -1)
+    zb = kinfu.gate_bins(cam_z)
+    oh = F.one_hot(zb, nb).to(torch.float32) * valid[..., None]
+    x = (oh[..., :, None] * feats[..., None, :]).reshape(rows, cols, nb * nc).permute(2, 0, 1)[None]
+    x = F.avg_pool2d(F.pad(x, (lo, hi, 0, 0)), (1, w), stride=1, divisor_override=1)
+    x = F.avg_pool2d(F.pad(x, (0, 0, lo, hi)), (w, 1), stride=1, divisor_override=1)
+    sb = x[0].permute(1, 2, 0).reshape(rows, cols, nb, nc)
+    nbr = zb[..., None] + torch.arange(-1, 2, device=zb.device)
+    got = torch.gather(sb, 2, nbr.clamp(0, nb - 1)[..., None].expand(rows, cols, 3, nc))
+    s = (got * ((nbr >= 0) & (nbr < nb))[..., None]).sum(2)
+    return kinfu._gate_closed_form(cfg, s)
+
+
+def library_gate_err(torch, cfg, gin) -> float:
+    """max |library gate - plain gate| on ``gin``."""
+    from dynamicfusion_tpu_torch.pipeline import kinfu
+
+    return float((library_p2p_gate(torch, cfg, *gin) - kinfu.p2p_gate(cfg, *gin, plain=True)).abs().max())
 
 
 def gate_kernels(torch, report, dev, st, tr):
@@ -2358,29 +2574,52 @@ def gate_kernels(torch, report, dev, st, tr):
     (``quality_dynamicfusion()`` with ``solver_p2p_adaptive``) on the
     preset's phase-2 state: the gate of the next frame as ``track`` makes
     it (the filtered live surface at the ICP pose against the previous
-    warped model map, 160x120), depth bins and gate held to the plain
-    version. Some pixels must open the gate part way, so that the closed
-    form is exercised, not only the empty windows' zeros (phase 6 holds M
-    again on every state of the hinge and the bulge)."""
+    warped model map, 160x120), depth bins and gate held bit for bit to the
+    plain version and to the reference mode (the design before), two
+    device kernels a call in either mode. Some pixels must open the gate
+    part way, so that the closed form is exercised, not only the empty
+    windows' zeros (phase 6 holds M again on every state of the hinge and
+    the bulge). Then the same on ``GATE_CASES`` (the reference mode alone
+    on "tall", past the cluster's rows), and the library route within
+    TOL_GATE_LIBRARY of the plain version; the cluster, the reference mode,
+    the library route and the plain version timed."""
     import dataclasses
 
+    from dynamicfusion_tpu_torch import kernels
     from dynamicfusion_tpu_torch.config import DynamicFusionConfig
     from dynamicfusion_tpu_torch.pipeline import kinfu
 
     cfg = dataclasses.replace(DynamicFusionConfig.quality_dynamicfusion(), solver_p2p_adaptive=True)
     gin = gate_inputs(torch, cfg, st, tr)
     w = cfg.solver_p2p_gate_window
-    gk, bins, bins_same, err, n_diff, n_part = hold_gate(torch, cfg, gin)
-    rows, cols = gk.shape
-    check("p2p_gate", bins_same and err <= TOL_GATE and n_part > 0,
-          f"{cols}x{rows}, {w}x{w} window: depth bins equal the plain version's {bins_same}; max |gate diff| "
-          f"{err:.3e} (tol {TOL_GATE}), {n_diff} pixels not bit-equal; mean gate {float(gk.mean()):.4f}, "
-          f"{int((gk > 0).sum())} pixels open, {n_part} of them part way (need > 0), "
-          f"{len(torch.unique(bins))} bins in use")
+    h = hold_gate(torch, cfg, gin)
+    rows, cols = h.gate.shape
+    lib_err = library_gate_err(torch, cfg, gin)
+    check("p2p_gate", gate_held(h) and h.n_part > 0 and kernels.p2p_gate_cluster(rows, w),
+          f"{cols}x{rows}, {w}x{w} window, the cluster design: depth bins equal the plain version's "
+          f"{h.bins_same}; max |gate diff| {h.err:.3e} (tol {TOL_GATE}), {h.n_diff} pixels not bit-equal; gate and "
+          f"bins bit-equal to the reference mode's {h.ref_same}; device kernels {h.n_dev} (the reference mode's "
+          f"{h.n_ref}); mean gate {float(h.gate.mean()):.4f}, {int((h.gate > 0).sum())} pixels open, {h.n_part} of "
+          f"them part way (need > 0), {len(torch.unique(h.bins))} bins in use")
+    check("p2p_gate_library", lib_err <= TOL_GATE_LIBRARY,
+          f"the library route (avg_pool2d box sums) against the plain version: max |gate diff| {lib_err:.3e} "
+          f"(tol {TOL_GATE_LIBRARY})")
+    for name in GATE_CASES:
+        cin = tuple(torch.from_numpy(a).to(dev) for a in gate_case(name))
+        hc = hold_gate(torch, cfg, cin)
+        cluster = kernels.p2p_gate_cluster(cin[3].shape[0], w)
+        le = library_gate_err(torch, cfg, cin)
+        check(f"p2p_gate_{name}", gate_held(hc) and cluster == (name != "tall")
+              and le <= TOL_GATE_LIBRARY,
+              f"{tuple(cin[3].shape)} ({'the cluster design' if cluster else 'the reference mode: past the rows'}): "
+              f"bins equal {hc.bins_same}, {hc.n_diff} pixels not bit-equal to plain, bit-equal to the reference "
+              f"mode {hc.ref_same}, device kernels {hc.n_dev} / {hc.n_ref}; {int((hc.gate > 0).sum())} open, "
+              f"{hc.n_part} part way, {len(torch.unique(hc.bins))} bins; library {le:.3e}")
     npx = rows * cols
     report["p2p_gate"] = dict(
-        err=err,
+        err=h.err,
         ms=cuda_ms(torch, lambda: kinfu.p2p_gate_kernel(cfg, *gin)),
+        reference_ms=cuda_ms(torch, lambda: kinfu.p2p_gate_kernel(cfg, *gin, reference=True)),
         plain_ms=cuda_ms(torch, lambda: kinfu.p2p_gate(cfg, *gin, plain=True), reps=3),
         # the function's least work: three point/normal maps and the depth
         # in, the gate and its bins out (48 bytes a pixel); box sums by
@@ -2389,8 +2628,14 @@ def gate_kernels(torch, report, dev, st, tr):
         # ~150 operations of features and closed form a pixel
         bound=bound_ms(npx * (3 * 12 + 4) + npx * (4 + 4),
                        npx * (2.0 * 2 * kinfu.GATE_BINS * kinfu.GATE_CHANNELS + 66 + 150)),
-        library_ms=None,
+        library_ms=cuda_ms(torch, lambda: library_p2p_gate(torch, cfg, *gin)),
+        library_err=lib_err,
     )
+    r = report["p2p_gate"]
+    print(f"[time] {smi()} | M {cols}x{rows}: the features and the clusters {r['ms']:.4f} ms "
+          f"({-(-cols // kernels.p2p_gate_plan()[2])} clusters of 11 CTAs), "
+          f"reference mode {r['reference_ms']:.4f} ms, library {r['library_ms']:.4f} ms (max |diff| from plain "
+          f"{lib_err:.3e}), plain {r['plain_ms']:.4f} ms", flush=True)
 
 
 def library_coarse_band(torch, pts_c, f, m):
@@ -3525,24 +3770,24 @@ def gate_means(torch, tag, cfg, dev, frames, states, moving):
     over the rest of the surface, from ``track`` on the kernel path's
     state before the step (``moving(cam_z)`` marks the moving part by the
     live depth in m). Kernel M is held to its plain version on every
-    step's inputs: bins equal, the gate within TOL_GATE, and some pixels
-    open part way over the run."""
+    step's inputs (bins equal, the gate bit-equal to plain) and to its
+    reference mode, and some pixels open part way over the run."""
     from dynamicfusion_tpu_torch.pipeline import kinfu
 
-    out, same, err, n_diff, n_part = [], True, 0.0, 0, 0
+    out, held, err, n_diff, n_part = [], True, 0.0, 0, 0
     for f in range(1, len(frames)):
         tr = kinfu.track(cfg, states[f - 1], torch.from_numpy(frames[f]).to(dev))
         gin = gate_inputs(torch, cfg, states[f - 1], tr)
-        gk, _, b_same, e, nd, npart = hold_gate(torch, cfg, gin)
-        same, err, n_diff, n_part = same and b_same, max(err, e), n_diff + nd, n_part + npart
+        h = hold_gate(torch, cfg, gin)
+        held, err, n_diff, n_part = held and gate_held(h), max(err, h.err), n_diff + h.n_diff, n_part + h.n_part
         z = gin[3]
         mov = moving(z) & torch.isfinite(z)
         rest = torch.isfinite(z) & ~mov
-        out.append((float(gk[mov].mean()), float(gk[rest].mean())))
-    check(f"{tag}_p2p_gate", same and err <= TOL_GATE and n_part > 0,
-          f"kernel M on the {len(frames) - 1} steps' inputs: depth bins equal the plain version's {same}; "
-          f"max |gate diff| {err:.3e} (tol {TOL_GATE}), {n_diff} pixels not bit-equal; {n_part} pixel-steps "
-          f"open part way (need > 0)")
+        out.append((float(h.gate[mov].mean()), float(h.gate[rest].mean())))
+    check(f"{tag}_p2p_gate", held and n_part > 0,
+          f"kernel M on the {len(frames) - 1} steps' inputs: depth bins, gate bit-equal to the plain version's and "
+          f"to the reference mode's, two device kernels a call in either mode: {held}; max |gate diff| {err:.3e} (tol "
+          f"{TOL_GATE}), {n_diff} pixels not bit-equal; {n_part} pixel-steps open part way (need > 0)")
     return out
 
 
@@ -3676,6 +3921,17 @@ def parity_main(torch, args, dev, card, dense=False):
     check(f"{tag}_model_maps", tuple(mp.shape) == (cfg.rows, cfg.cols, 3) and bool(torch.isfinite(mp).any()),
           f"model map {tuple(mp.shape)} with {int(torch.isfinite(mp[..., 0]).sum())} valid pixels")
     del plain
+    if dense:
+        # F1 on the run's last state and its next frame, against its reference mode
+        from dynamicfusion_tpu_torch.core import se3
+        from dynamicfusion_tpu_torch.ops import preprocess
+
+        st = df.state
+        nxt = prof_frames[0] if prof_frames else frames[-1]
+        dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(nxt).to(dev))
+        hold_dense_reference(torch, f"{tag}_integrate_dense_reference", cfg, st.vol, dists,
+                             se3.compose(se3.inverse(st.pose), kinfu._vol_pose(cfg, dev)), poses=True,
+                             what="the run's last state: ")
     if prof_frames:
         focus = ("fuse_dense", "raycast") if dense else ("coarse_band", "raycast")
         prof = profile_frames(torch, args, dev, card, df, prof_frames, tag=tag, focus=focus)
@@ -6091,6 +6347,12 @@ def storage_kernels(torch, report, dev, nr_depths):
                 bound=bound_ms(nbytes, vox * (30.0 + (28.0 if prolong else 0.0)) + n_upd * 20.0),
                 library_ms=None,
             )
+            if name == "integrate_dense":
+                hold_dense_reference(torch, f"integrate_dense_reference_{tag}", dense, vp_, tr.dists, vol2cam,
+                                     what=f"{t}/{w}: ")
+                report[f"{name}_{tag}"]["reference_ms"] = cuda_ms(
+                    torch, lambda: tsdf_ops.integrate_dense(dense, scratch, tr.dists, vol2cam, intr, on,
+                                                            reference=True))
         del scratch, vk, vp
         # L on the frame-0 volume
         c0, v0 = stored(cfg, vol0, t, w)

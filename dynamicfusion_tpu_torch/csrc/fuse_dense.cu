@@ -16,13 +16,36 @@
 //
 // Bound on the H100: bytes. Each voxel reads and writes its tsdf and weight
 // (8 B as i16 + u16 codes, 134 MB at 256^3, ~0.04 ms at 3.35 TB/s; 16 B as
-// f32 + f32); the 640x480
-// float image (1.2 MB) and F2's coarse grid (33^3 x 4 floats, 0.57 MB) stay
-// in L2 and are read through the read-only path.
-// Design: one thread per voxel, z fastest, so a warp reads and writes 64
-// contiguous bytes of each volume and neighbouring threads share the depth
-// pixels and the grid corners they gather; a voxel that is not updated
-// writes nothing (its re-encoded code equals the stored one, as in JAX).
+// f32 + f32), but only the updated voxels (those within the truncation
+// band of the surface, in the image) need to move; the 640x480 float image
+// (1.2 MB) and F2's coarse grid (33^3 x 4 floats, 0.57 MB) stay in L2 and
+// are read through the read-only path. What F1 spends is instructions: its
+// design before (the reference mode, fuse_dense_kernel) gave every voxel a
+// thread that decodes its index with integer divisions, loads the pose,
+// projects with two true divisions and a square root, and writes nothing
+// for most voxels.
+// F1's design (fuse_dense_tiles_kernel): the side is a compile-time
+// constant (df_fuse_dense_sides: 32 to 512; another side takes the
+// reference mode). A warp owns a tile of one plane along i, J rows along j
+// and K = min(64, side) voxels along k (J = 32 kRun / K: a lane a run of
+// kRun = 8 voxels along k, moved in 16-byte accesses), a block of 128
+// threads four such tiles stacked along j; each thread keeps the pose in
+// registers and computes a run's partial r0 fi + r1 fj once (exact: the
+// order is ((r0 fi + r1 fj) + r2 fk) + t without FMA, as before). Every
+// voxel runs the exact tests of the design before, in its order, cheapest
+// first (z, then u, then v, the pixel, the band), and only a run with an
+// updated voxel reads and writes its codes (the others rewritten with
+// their own bits), so the volume keeps the reference mode's bits. What is
+// left is instructions: the two true divisions, the square root and the
+// update's division of every voxel in the frustum. No tile is culled: a
+// conservative test of a block's corners (scripts/
+// torch_gate_dense_variants.py, "cull") skips the blocks outside the
+// frustum but costs more than it saves at the tracked pose.
+// F2 (fuse_dense_nonrigid_kernel): one thread per voxel, z fastest, so a
+// warp reads and writes 64 contiguous bytes of each volume and
+// neighbouring threads share the depth pixels and the grid corners they
+// gather; a voxel that is not updated writes nothing (its re-encoded code
+// equals the stored one, as in JAX).
 // The pixel index is clipped before the gather and the result masked after
 // it, as in JAX: u is inf or NaN where z <= 0 and nothing is read outside
 // the image. The arithmetic repeats the plain versions
@@ -97,6 +120,121 @@ fuse_dense_kernel(T* __restrict__ tsdf, W* __restrict__ weight, const float* __r
   update_voxel(tsdf, weight, addr, dists, p, c[0], c[1], c[2], 1.0f, true, 0, 0.0f, 0);
 }
 
+// ---------------------------------------------------------------------------
+// F1's tiled design
+// ---------------------------------------------------------------------------
+
+constexpr int kRun = 8;          // voxels a lane along k
+constexpr int kTileThreads = 128;
+
+// a warp's tile: one plane, kJ rows, kK voxels along k; a block's kWarps
+// tiles stacked along j
+template <int D>
+struct Tiles {
+  static constexpr int kWarps = kTileThreads / 32;
+  static constexpr int kK = D < 64 ? D : 64;
+  static constexpr int kLanesK = kK / kRun;
+  static constexpr int kJ = 32 / kLanesK;
+  static constexpr int kBlockJ = kWarps * kJ;
+  static constexpr int kBlocksK = D / kK, kBlocksJ = D / kBlockJ;
+  static constexpr int kBlocks = kBlocksK * kBlocksJ * D;
+  static_assert(kK % kRun == 0 && 32 % kLanesK == 0 && D % kBlockJ == 0, "whole tiles");
+};
+
+// a lane's run of kRun codes, moved in 16-byte accesses (8-byte for a
+// run of 8 one-byte codes, none here)
+template <typename V>
+struct alignas(kRun * sizeof(V) < 16 ? kRun * sizeof(V) : 16) Run {
+  V v[kRun];
+};
+
+// the rigid update's observation of a voxel at camera-frame (x, y, z), or
+// false where the design before writes nothing: its tests in its order
+__device__ __forceinline__ bool rigid_obs(const float* __restrict__ dists, const Proj& p, float x, float y, float z,
+                                          float& obs) {
+  if (!(z > 0.0f)) return false;
+  const float u = x * p.fx / z + p.cx;
+  if (!(u >= 0.0f && u < p.cols)) return false;
+  const float v = y * p.fy / z + p.cy;
+  if (!(v >= 0.0f && v < p.rows)) return false;
+  // 0 <= u < cols: the clamped floor of the design before is the truncation
+  const int ui = __float2int_rz(u);
+  const int vi = __float2int_rz(v);
+  const float dp = __ldg(dists + static_cast<size_t>(vi) * p.cols + ui);
+  if (!(dp != 0.0f)) return false;
+  const float psdf = dp - sqrtf(x * x + y * y + z * z);
+  if (!(psdf >= -p.trunc)) return false;
+  const float scale = 1.0f;
+  obs = fminf(psdf * scale / p.trunc, 1.0f);
+  return true;
+}
+
+template <typename T, typename W, int D>
+__global__ void __launch_bounds__(kTileThreads)
+fuse_dense_tiles_kernel(T* __restrict__ tsdf, W* __restrict__ weight, const float* __restrict__ dists,
+                        const float* __restrict__ rt, const bool* __restrict__ ok, Proj p) {
+  using S = Tiles<D>;
+  if (!*ok) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  float r[12];
+#pragma unroll
+  for (int a = 0; a < 12; ++a) r[a] = __ldg(rt + a);
+  const int b = blockIdx.x;
+  const int kt = b % S::kBlocksK, jb = (b / S::kBlocksK) % S::kBlocksJ, i = b / (S::kBlocksK * S::kBlocksJ);
+  const int j = jb * S::kBlockJ + warp * S::kJ + lane / S::kLanesK;
+  const int kb = kt * S::kK + (lane % S::kLanesK) * kRun;
+  const float fi = static_cast<float>(i), fj = static_cast<float>(j);
+  // the run's partial r0 fi + r1 fj, then + r2 fk, then + t, as before
+  const float px = r[0] * fi + r[1] * fj, py = r[3] * fi + r[4] * fj, pz = r[6] * fi + r[7] * fj;
+  unsigned upd = 0;
+  float obs[kRun];
+#pragma unroll
+  for (int e = 0; e < kRun; ++e) {
+    const float fk = static_cast<float>(kb + e);
+    const float x = (px + r[2] * fk) + r[9];
+    const float y = (py + r[5] * fk) + r[10];
+    const float z = (pz + r[8] * fk) + r[11];
+    obs[e] = 0.0f;
+    if (rigid_obs(dists, p, x, y, z, obs[e])) upd |= 1u << e;
+  }
+  if (!upd) return;
+  const size_t addr = (static_cast<size_t>(i) * D + j) * D + kb;
+  Run<T> tc = *reinterpret_cast<const Run<T>*>(tsdf + addr);
+  Run<W> wc = *reinterpret_cast<const Run<W>*>(weight + addr);
+#pragma unroll
+  for (int e = 0; e < kRun; ++e) {
+    if (!(upd >> e & 1u)) continue;
+    const float q = 1.0f;
+    const float t32 = dfk::code_value(tc.v[e]) * p.tsdf_decode;
+    const float w32 = dfk::decode_weight(wc.v[e]);
+    const float wq = w32 + q;
+    if (wq > 1e-12f) tc.v[e] = dfk::encode_tsdf<T>((t32 * w32 + obs[e] * q) / fmaxf(wq, 1e-12f));
+    wc.v[e] = dfk::encode_weight<W>(fminf(wq, p.max_w));
+  }
+  *reinterpret_cast<Run<T>*>(tsdf + addr) = tc;
+  *reinterpret_cast<Run<W>*>(weight + addr) = wc;
+}
+
+template <typename T, typename W>
+cudaError_t launch_tiles(T* tsdf, W* weight, const float* dists, const float* rt, const bool* ok, int d,
+                         const Proj& p, cudaStream_t st) {
+#define DF_TILES_CASE(side)                                                                                  \
+  case side:                                                                                                 \
+    fuse_dense_tiles_kernel<T, W, side><<<Tiles<side>::kBlocks, kTileThreads, 0, st>>>(tsdf, weight, dists, rt, \
+                                                                                    ok, p);                  \
+    return cudaGetLastError();
+  switch (d) {
+    DF_TILES_CASE(32)
+    DF_TILES_CASE(64)
+    DF_TILES_CASE(128)
+    DF_TILES_CASE(256)
+    DF_TILES_CASE(512)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DF_TILES_CASE
+}
+
 // w0 x0 + w1 x1 as XLA's dot sums it: fma(w1, x1, w0 * x0)
 __device__ __forceinline__ float lerp_dot(float w0, float x0, float w1, float x1) {
   return __fmaf_rn(w1, x1, w0 * x0);
@@ -157,18 +295,38 @@ fuse_dense_nonrigid_kernel(T* __restrict__ tsdf, W* __restrict__ weight,
 
 }  // namespace
 
-// tsdf and weight stored as the storage code says (common.cuh)
+// The volume sides F1's tiled design is compiled for (the caller's choice
+// of mode: kernels.integrate_dense_tiled); *n receives their count, and
+// sides their first min(*n, cap) values.
+extern "C" int df_fuse_dense_sides(int* sides, int cap, int* n) {
+  constexpr int kSides[] = {32, 64, 128, 256, 512};
+  *n = static_cast<int>(sizeof(kSides) / sizeof(kSides[0]));
+  for (int i = 0; i < *n && i < cap; ++i) sides[i] = kSides[i];
+  return 0;
+}
+
+// tsdf and weight stored as the storage code says (common.cuh); reference:
+// the design before, a thread a voxel (any side); else the tiled design,
+// for a side of df_fuse_dense_sides and volumes 16-byte aligned
 extern "C" int df_fuse_dense(void* tsdf, void* weight, int storage, const void* dists, const void* rt, const void* ok, int d,
                              int rows, int cols, float fx, float fy, float cx, float cy, float trunc, float max_w,
-                             float tsdf_decode, void* stream) {
+                             float tsdf_decode, int reference, void* stream) {
   const Proj p{fx, fy, cx, cy, rows, cols, trunc, max_w, tsdf_decode};
   const size_t n = static_cast<size_t>(d) * d * d;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dfk::dispatch_storage(storage, [&](auto tt, auto wt) {
     using T = typename decltype(tt)::type;
     using W = typename decltype(wt)::type;
+    if (!reference) {
+      if (reinterpret_cast<uintptr_t>(tsdf) % 16 || reinterpret_cast<uintptr_t>(weight) % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_tiles(static_cast<T*>(tsdf), static_cast<W*>(weight),
+                                           static_cast<const float*>(dists), static_cast<const float*>(rt),
+                                           static_cast<const bool*>(ok), d, p, st));
+    }
     if (blocks > 0) {
-      fuse_dense_kernel<T, W><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      fuse_dense_kernel<T, W><<<blocks, kThreads, 0, st>>>(
           static_cast<T*>(tsdf), static_cast<W*>(weight), static_cast<const float*>(dists),
           static_cast<const float*>(rt), static_cast<const bool*>(ok), d, p);
     }

@@ -90,10 +90,12 @@ knn_kinds: Dict[str, int] = {}
 # reference mode; G's spd6_inv (either entry) and I's frame maps one; G's
 # distributed PCG one a launch (one a solve in one process, two an
 # iteration under a process group); H's apply one, seven in its reference
-# mode (six copies and the one-block kernel); I's pyramid one a call
+# mode (six copies and the one-block kernel); I's pyramid one a call; M's
+# gate two (the features and the clusters; the reference mode's rows and
+# pixels)
 device_kernels: Dict[str, int] = {"edge_term": 0, "mutual_nearest": 0, "brick_plan": 0, "fuse_bricks": 0,
                                   "extract_cloud": 0, "spd6_inv": 0, "frame_maps": 0, "pcg_sharded": 0,
-                                  "insert_apply": 0, "depth_pyramid": 0}
+                                  "insert_apply": 0, "depth_pyramid": 0, "p2p_gate": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -144,7 +146,8 @@ _SIGNATURES = {
     ),
     "df_extract_cloud": (_P, _P, _I, _I, _F, _F, _I, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
     "df_sample_nodes": (_P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
-    "df_p2p_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
+    "df_p2p_gate_plan": (_P, _P, _P),
+    "df_p2p_gate": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _I, _P, _P),
     "df_gram_scales": (_P, _I, _P, _P, _I, _P, _P),
     "df_gram_launch": (_I, _P),
     "df_dense_gram": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -160,7 +163,8 @@ _SIGNATURES = {
     "df_node_radius": (_P, _P, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "df_dense_pcg": (_P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
     "df_net_rigid": (_P, _P, _P, _P, _P, _I, _F, _F, _P, _P, _P),
-    "df_fuse_dense": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
+    "df_fuse_dense_sides": (_P, _I, _P),
+    "df_fuse_dense": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P),
     "df_fuse_dense_nonrigid": (
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _I, _P,
     ),
@@ -518,12 +522,17 @@ def integrate_dense(
     intr,
     trunc: float,
     max_weight: float,
+    reference: bool = False,
 ) -> None:
     """Kernel F1 (csrc/fuse_dense.cu): the dense rigid update of every voxel
     IN PLACE on the tsdf (i16 codes, float32 or bfloat16) and weight (u16
     codes or float32) volumes. ``rt`` (12,) holds
     the volume-to-camera rotation times the voxel size (row-major) and the
-    translation; ``ok`` False skips the whole update."""
+    translation; ``ok`` False skips the whole update. A block four warp
+    tiles of voxels, a lane a run of 8 along k; ``reference``
+    launches the design before (a thread a voxel), which is also the path
+    of a side outside ``dense_sides()`` and of a volume not 16-byte
+    aligned (``integrate_dense_tiled``); the two are bit-equal."""
     d, storage = _check_cube(tsdf, weight)
     rows, cols = _check_image(dists, "dists")
     _check(rt, "rt", torch.float32, (12,))
@@ -533,9 +542,32 @@ def integrate_dense(
     rc = lib.df_fuse_dense(
         tsdf.data_ptr(), weight.data_ptr(), storage, dists.data_ptr(), rt.data_ptr(), ok.data_ptr(), d, rows, cols,
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy), _f32(trunc), _f32(max_weight),
-        _decode_scale(tsdf), _stream(tsdf.device),
+        _decode_scale(tsdf), int(not integrate_dense_tiled(tsdf, weight, reference)), _stream(tsdf.device),
     )
     _done("integrate_dense", rc)
+
+
+_DENSE_SIDES: list = []
+
+
+def dense_sides() -> Tuple[int, ...]:
+    """The volume sides kernel F1's tiled design is compiled for, from the
+    library (csrc/fuse_dense.cu)."""
+    if not _DENSE_SIDES:
+        buf, n = (ctypes.c_int * 16)(), ctypes.c_int(0)
+        rc = load().df_fuse_dense_sides(buf, 16, ctypes.byref(n))
+        if rc != 0 or not 0 < n.value <= 16:
+            raise RuntimeError(f"df_fuse_dense_sides failed: error {rc}, {n.value} sides")
+        _DENSE_SIDES.extend(buf[:n.value])
+    return tuple(_DENSE_SIDES)
+
+
+def integrate_dense_tiled(tsdf: torch.Tensor, weight: torch.Tensor, reference: bool = False) -> bool:
+    """Whether ``integrate_dense`` launches its tiled design on these
+    volumes (else its reference mode): a side in ``dense_sides()`` and
+    both volumes 16-byte aligned."""
+    return (not reference and tsdf.shape[0] in dense_sides() and tsdf.data_ptr() % 16 == 0
+            and weight.data_ptr() % 16 == 0)
 
 
 def integrate_dense_nonrigid(
@@ -2099,8 +2131,32 @@ def sample_nodes(points: torch.Tensor, valid: torch.Tensor, step: int, perm: tor
 # kernel M: the aperture gate of the tangential data term
 # --------------------------------------------------------------------------
 
+_GATE_PLAN: list = []
+
+
+def p2p_gate_plan() -> Tuple[int, int, int]:
+    """(the most rows, the widest window, the strip of columns) of kernel
+    M's cluster design, from the library (csrc/p2p_gate.cu)."""
+    if not _GATE_PLAN:
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        rc = load().df_p2p_gate_plan(*(ctypes.byref(v) for v in vals))
+        if rc != 0:
+            raise RuntimeError(f"df_p2p_gate_plan failed: error {rc}")
+        _GATE_PLAN.extend(v.value for v in vals)
+    return tuple(_GATE_PLAN)
+
+
+def p2p_gate_cluster(rows: int, window: int, reference: bool = False) -> bool:
+    """Whether ``p2p_gate`` launches its cluster design on (rows, window)
+    (else its reference mode): at most ``p2p_gate_plan()``'s rows (its
+    shared memory grows with them) and window."""
+    max_rows, max_window, _ = p2p_gate_plan()
+    return not reference and rows <= max_rows and window <= max_window
+
+
 def p2p_gate(live_pts_w, live_nrm_w, prev_model_w, cam_z, window: int, cond0: float, fit0: float, gain: float,
-             z_lo: float, bin_width: float, n_bins: int, n_channels: int, reg: float, min_count: float):
+             z_lo: float, bin_width: float, n_bins: int, n_channels: int, reg: float, min_count: float,
+             reference: bool = False):
     """Kernel M (csrc/p2p_gate.cu, two launches): the adaptive aperture
     gate of (H, W, 3) live points, live normals and previous model points
     (world frame) and the (H, W) live depth, over a ``window`` x ``window``
@@ -2109,7 +2165,12 @@ def p2p_gate(live_pts_w, live_nrm_w, prev_model_w, cam_z, window: int, cond0: fl
     kernel's own layout, checked), the second moment's ridge ``reg`` per
     sample, no gate below ``min_count`` samples. The caller owns these
     constants (``pipeline/kinfu``). Returns (gate (H, W) float32, depth
-    bins (H, W) int32)."""
+    bins (H, W) int32). The features, then clusters of 11 CTAs (one a
+    channel) a strip of columns; ``reference`` launches the design before
+    (a block a row writing a 16 x 11-channel buffer of horizontal sums,
+    then a thread a pixel), which is also the path of more rows or a wider
+    window than the cluster takes (``p2p_gate_cluster``); the two are
+    bit-equal."""
     _check(cam_z, "cam_z", torch.float32)
     if cam_z.dim() != 2:
         raise ValueError(f"cam_z: expected (H, W), got {tuple(cam_z.shape)}")
@@ -2118,22 +2179,28 @@ def p2p_gate(live_pts_w, live_nrm_w, prev_model_w, cam_z, window: int, cond0: fl
         _check(t, nm, torch.float32, (rows, cols, 3))
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if cols * (n_channels + 1) * 4 > 227 * 1024:
-        raise ValueError(f"cam_z: {cols} columns are past the kernel's shared-memory row")
     _same_device(live_pts_w, live_nrm_w, prev_model_w, cam_z)
     lib = load()
+    cluster = p2p_gate_cluster(rows, window, reference)
+    if not cluster and cols * (n_channels + 1) * 4 > 227 * 1024:
+        raise ValueError(f"cam_z: {cols} columns are past the reference mode's shared-memory row")
     dev = cam_z.device
     gate = torch.empty((rows, cols), dtype=torch.float32, device=dev)
     bins = torch.empty((rows, cols), dtype=torch.int32, device=dev)
-    hsum = torch.empty((n_bins * n_channels, rows, cols), dtype=torch.float32, device=dev)
+    # the cluster design's features and bin codes, or the reference mode's
+    # horizontal sums
+    words = n_channels * rows * cols + (rows * cols + 3) // 4 if cluster else n_bins * n_channels * rows * cols
+    scratch = torch.empty((words,), dtype=torch.float32, device=dev)
     lo = (window - 1) // 2
+    ran = ctypes.c_int(0)
     rc = lib.df_p2p_gate(
         live_pts_w.data_ptr(), live_nrm_w.data_ptr(), prev_model_w.data_ptr(), cam_z.data_ptr(), rows, cols,
         lo, window - 1 - lo, n_bins, n_channels, _f32(z_lo), _f32(bin_width), _f32(reg), _f32(cond0), _f32(fit0),
-        _f32(max(1.0 - fit0, 1e-6)), _f32(gain), _f32(min_count), bins.data_ptr(), hsum.data_ptr(),
-        gate.data_ptr(), _stream(dev),
+        _f32(max(1.0 - fit0, 1e-6)), _f32(gain), _f32(min_count), bins.data_ptr(), scratch.data_ptr(),
+        gate.data_ptr(), int(not cluster), ctypes.byref(ran), _stream(dev),
     )
     _done("p2p_gate", rc)
+    device_kernels["p2p_gate"] += ran.value
     return gate, bins
 
 

@@ -255,17 +255,18 @@ def integrate_dense_plain(
 
 def integrate_dense(
     cfg: DynamicFusionConfig, vol: TsdfVolume, dists: torch.Tensor, vol2cam: torch.Tensor, intr: Intrinsics,
-    ok: torch.Tensor, plain: bool = False,
+    ok: torch.Tensor, plain: bool = False, reference: bool = False,
 ) -> None:
     """Dense rigid integrate IN PLACE: kernel F1 on CUDA tensors, the plain
-    version on CPU tensors or where the caller asks for it."""
+    version on CPU tensors or where the caller asks for it; ``reference``
+    launches F1's design before (no path asks for it)."""
     if plain or dists.device.type == "cpu":
         integrate_dense_plain(cfg, vol, dists, vol2cam, intr, ok)
         return
     rt = torch.cat([(vol2cam[:3, :3] * cfg.voxel_size).reshape(-1), vol2cam[:3, 3]]).contiguous()
     kernels.integrate_dense(
         vol.tsdf, vol.weight, dists.contiguous(), rt, ok, intr,
-        trunc=volume_model.trunc_dist(cfg), max_weight=float(cfg.tsdf_max_weight),
+        trunc=volume_model.trunc_dist(cfg), max_weight=float(cfg.tsdf_max_weight), reference=reference,
     )
 
 

@@ -239,19 +239,14 @@ def _box_sum(x: torch.Tensor, w: int) -> torch.Tensor:
     return acc
 
 
-def _p2p_gate_plain(
-    cfg: DynamicFusionConfig,
-    live_pts_w: torch.Tensor,
-    live_nrm_w: torch.Tensor,
-    prev_model_w: torch.Tensor,
-    cam_z: torch.Tensor,
-) -> torch.Tensor:
-    """The plain version of kernel M: the adaptive aperture gate (see
-    ``p2p_gate``). The features are scattered one-hot over the depth bins
-    and box-summed per (bin, channel) with ``_box_sum``; each pixel then
-    sums its own bin and the two beside it."""
-    w = cfg.solver_p2p_gate_window
-    dev = cam_z.device
+def _gate_sums(
+    live_pts_w: torch.Tensor, live_nrm_w: torch.Tensor, prev_model_w: torch.Tensor, cam_z: torch.Tensor, w: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel M's sums: ((H, W, 11) each pixel's
+    features summed over its (w x w) window in its depth bin and the two
+    beside it, (H, W) int64 depth bins). The features are scattered one-hot
+    over the depth bins and box-summed per (bin, channel) with
+    ``_box_sum``; each pixel then sums its own bin and the two beside it."""
     rows, cols = cam_z.shape
     delta = live_pts_w - prev_model_w
     n = live_nrm_w
@@ -273,7 +268,15 @@ def _p2p_gate_plain(
         idx = i.clamp(0, GATE_BINS - 1)[..., None, None].expand(rows, cols, 1, GATE_CHANNELS)
         return torch.gather(sb, 2, idx)[..., 0, :] * ok[..., None]
 
-    s = gather(zb - 1) + gather(zb) + gather(zb + 1)
+    return gather(zb - 1) + gather(zb) + gather(zb + 1), zb
+
+
+def _gate_closed_form(cfg: DynamicFusionConfig, s: torch.Tensor) -> torch.Tensor:
+    """The aperture gate from the (H, W, 11) window sums ``s``: the
+    regularised 3x3 det and adjugate solve, the two clipped ratios, 0 below
+    the least fill."""
+    w = cfg.solver_p2p_gate_window
+    dev = s.device
     cnt = s[..., 0]
     g1, g2, g3 = s[..., 7], s[..., 8], s[..., 9]
     bb = s[..., 10]
@@ -315,6 +318,20 @@ def _p2p_gate_plain(
     return torch.where(enough, gate, 0.0)
 
 
+def _p2p_gate_plain(
+    cfg: DynamicFusionConfig,
+    live_pts_w: torch.Tensor,
+    live_nrm_w: torch.Tensor,
+    prev_model_w: torch.Tensor,
+    cam_z: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of kernel M: the adaptive aperture gate (see
+    ``p2p_gate``), the window sums of ``_gate_sums`` through
+    ``_gate_closed_form``."""
+    s, _ = _gate_sums(live_pts_w, live_nrm_w, prev_model_w, cam_z, cfg.solver_p2p_gate_window)
+    return _gate_closed_form(cfg, s)
+
+
 def p2p_gate(
     cfg: DynamicFusionConfig,
     live_pts_w: torch.Tensor,    # (Ht, Wt, 3) live surface, world frame
@@ -339,14 +356,15 @@ def p2p_gate(
     return p2p_gate_kernel(cfg, live_pts_w, live_nrm_w, prev_model_w, cam_z)[0]
 
 
-def p2p_gate_kernel(cfg: DynamicFusionConfig, live_pts_w, live_nrm_w, prev_model_w, cam_z):
+def p2p_gate_kernel(cfg: DynamicFusionConfig, live_pts_w, live_nrm_w, prev_model_w, cam_z, reference: bool = False):
     """Kernel M on CUDA tensors with the gate's constants: (gate, depth
-    bins as int32)."""
+    bins as int32); ``reference`` launches its design before (no path asks
+    for it)."""
     w = cfg.solver_p2p_gate_window
     return kernels.p2p_gate(
         live_pts_w.contiguous(), live_nrm_w.contiguous(), prev_model_w.contiguous(), cam_z.contiguous(),
         w, cfg.solver_p2p_gate_cond, cfg.solver_p2p_gate_fit, cfg.solver_p2p_gate_gain,
-        GATE_Z_LO, GATE_BIN_W, GATE_BINS, GATE_CHANNELS, GATE_REG, GATE_MIN_FILL * (w * w),
+        GATE_Z_LO, GATE_BIN_W, GATE_BINS, GATE_CHANNELS, GATE_REG, GATE_MIN_FILL * (w * w), reference=reference,
     )
 
 

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (EXTRACT_CASES, INSERT_CASES, MUTUAL_CASES, PLAN_CASES, border_frame, extract_block_cut,
-                        extract_case, plan_inputs, pyramid_frame)
+from chip_smoke import (EXTRACT_CASES, GATE_CASES, INSERT_CASES, MUTUAL_CASES, PLAN_CASES, border_frame, dense_poses,
+                        extract_block_cut, extract_case, gate_case, plan_inputs, pyramid_frame)
 from dynamicfusion_tpu_torch import kernels
 from dynamicfusion_tpu_torch.config import DynamicFusionConfig
 from dynamicfusion_tpu_torch.core import se3
@@ -2031,3 +2031,105 @@ def test_fuse_persistent_is_reference_full_size(dev, g):
     assert _same_volume(vk, vr) and not _same_volume(vk, vol)
     bricks.fuse(cfg, vk, lookup, grid, g, cfg.intr, bp, ~on, q, packed)
     assert _same_volume(vk, vr)
+
+
+@pytest.mark.parametrize("window", [41, 9, 16])
+@pytest.mark.parametrize("name", list(GATE_CASES))
+def test_p2p_gate_cluster_is_reference(dev, name, window):
+    """Kernel M's cluster bit for bit against its reference mode (the
+    two-launch design before) and its plain version, gate and bins, on
+    ``chip_smoke.GATE_CASES``: pixels on the bin edges, NaN depths, invalid
+    normals, windows clipped by every image edge, all 16 bins in use, a
+    bin with a single pixel, a map narrower than the window, 1 000
+    columns, the 320x240 and 640x480 maps of raycast_subsample 2 and 1;
+    two device kernels a call in either mode. Past the cluster's rows
+    ("tall") the reference mode runs."""
+    cfg = dataclasses.replace(DynamicFusionConfig.quality_dynamicfusion(), solver_p2p_gate_window=window)
+    gin = tuple(torch.from_numpy(a).to(dev) for a in gate_case(name))
+    cluster = kernels.p2p_gate_cluster(gin[3].shape[0], window)
+    assert cluster == (name != "tall")
+    (gk, bk), n_new = _device_kernels("p2p_gate", lambda: kinfu.p2p_gate_kernel(cfg, *gin))
+    (gr, br), n_ref = _device_kernels("p2p_gate", lambda: kinfu.p2p_gate_kernel(cfg, *gin, reference=True))
+    gp = kinfu.p2p_gate(cfg, *gin, plain=True)
+    torch.cuda.synchronize()
+    assert (n_new, n_ref) == (2, 2)
+    assert torch.equal(bk, br) and torch.equal(bk.long(), kinfu.gate_bins(gin[3]))
+    assert torch.equal(gk.view(torch.int32), gr.view(torch.int32))
+    assert torch.equal(gk.view(torch.int32), gp.view(torch.int32))
+    if window == 41 and name != "sphere":
+        assert bool(((gk > 0) & (gk < 1)).any())
+
+
+def test_p2p_gate_cluster_past_the_window(dev):
+    """A window wider than the cluster's takes the reference mode."""
+    _, max_window, _ = kernels.p2p_gate_plan()
+    cfg = dataclasses.replace(DynamicFusionConfig.quality_dynamicfusion(), solver_p2p_gate_window=max_window + 2)
+    gin = tuple(torch.from_numpy(a).to(dev) for a in gate_case("random"))
+    assert not kernels.p2p_gate_cluster(gin[3].shape[0], max_window + 2)
+    (gk, _), n = _device_kernels("p2p_gate", lambda: kinfu.p2p_gate_kernel(cfg, *gin))
+    assert n == 2 and torch.equal(gk.view(torch.int32), kinfu.p2p_gate(cfg, *gin, plain=True).view(torch.int32))
+
+
+def _dense_fuse_pair(cfg, vol, dists, pose, ok):
+    """F1's tiled design and its reference mode on clones of ``vol``."""
+    vt, vr = _clones(vol)
+    tsdf.integrate_dense(cfg, vt, dists, pose, cfg.intr, ok)
+    tsdf.integrate_dense(cfg, vr, dists, pose, cfg.intr, ok, reference=True)
+    torch.cuda.synchronize()
+    return vt, vr
+
+
+def _dense_border_poses(cfg, vol2cam):
+    """``vol2cam`` moved so that each image border cuts the volume."""
+    half = 0.5 * cfg.volume_dims * cfg.voxel_size
+    out = {}
+    for name, row, sign in (("left", 0, 1.0), ("right", 0, -1.0), ("top", 1, 1.0), ("bottom", 1, -1.0)):
+        pose = vol2cam.clone()
+        pose[row, 3] += sign * half
+        out[name] = pose
+    return out
+
+
+@pytest.mark.parametrize("tsdf_dtype,weight_dtype", [("i16", "u16")] + STORAGES, ids=["i16-u16"] + STORAGE_IDS)
+def test_dense_fuse_tiled_is_reference(dev, model, tsdf_dtype, weight_dtype):
+    """Kernel F1's tiled design bit for bit against its reference mode (a
+    thread a voxel) at each storage pair: at the tracked pose, turned away
+    (no voxel in front of the camera, nothing changes), with the volume's centre in the
+    image plane (blocks straddle z = 0), with each image border cutting the
+    volume; with ok false nothing changes in either mode."""
+    cfg, vol = _stored(dataclasses.replace(CFG, integrate_mode="dense"), model.vol, tsdf_dtype, weight_dtype)
+    assert kernels.integrate_dense_tiled(vol.tsdf, vol.weight)
+    dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+    vol2cam = se3.compose(se3.inverse(model.pose), kinfu._vol_pose(cfg, dev))
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    poses = {**dense_poses(torch, cfg, vol2cam), **_dense_border_poses(cfg, vol2cam)}
+    for name, pose in poses.items():
+        vt, vr = _dense_fuse_pair(cfg, vol, dists, pose, on)
+        assert _same_volume(vt, vr), name
+        assert _same_volume(vt, vol) == (name == "away"), name
+        vt, vr = _dense_fuse_pair(cfg, vol, dists, pose, ~on)
+        assert _same_volume(vt, vol) and _same_volume(vr, vol), name
+
+
+@pytest.mark.parametrize("d", [32, 96, 128])
+def test_dense_fuse_tiled_sides(dev, d):
+    """F1 at a compiled side other than the model's (32, 128: the tiled
+    design, bit-equal to the reference mode) and at one outside the set
+    (96: the reference mode runs), on seeded codes; within 1 LSB of the
+    plain version, weights equal."""
+    cfg = dataclasses.replace(DynamicFusionConfig.small(dims=d), integrate_mode="dense")
+    rng = np.random.RandomState(d)
+    vol = TsdfVolume(torch.from_numpy(rng.randint(-32767, 32768, (d, d, d)).astype(np.int16)).to(dev),
+                     torch.from_numpy(rng.randint(0, 4096, (d, d, d)).astype(np.int16)).to(dev).view(torch.uint16))
+    assert kernels.integrate_dense_tiled(vol.tsdf, vol.weight) == (d != 96)
+    assert (d in kernels.dense_sides()) == (d != 96)
+    dists = preprocess.compute_dists(cfg.intr, torch.from_numpy(DEPTHS[3]).to(dev))
+    pose = torch.from_numpy(synthetic.orbit_pose(0.0, target=TARGET)).to(dev, torch.float32)
+    vol2cam = se3.compose(se3.inverse(pose), kinfu._vol_pose(cfg, dev))
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    vt, vr = _dense_fuse_pair(cfg, vol, dists, vol2cam, on)
+    assert _same_volume(vt, vr) and not _same_volume(vt, vol)
+    vp = TsdfVolume(vol.tsdf.clone(), vol.weight.clone())
+    tsdf.integrate_dense(cfg, vp, dists, vol2cam, cfg.intr, on, plain=True)
+    assert int((vt.tsdf.to(torch.int32) - vp.tsdf.to(torch.int32)).abs().max()) <= 1
+    assert torch.equal(_bits(vt.weight), _bits(vp.weight))
